@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each of which stops the run on failure:
+  1. print the card's name and power limit; turn TF32 off;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  3. hold K1 (the EM E-step) against its plain version on the card, at the
+     pFedWN round's shape and the reference's test sweep, fp32 and bf16;
+  4. hold K2 (the Eq-1 mix) against its plain version at the cifar10-cnn
+     shape (P = 188,810, M = 10), fp32 and bf16, links up and all erased;
+  5. run a small pFedWN simulation on the card and on the CPU (plain
+     kernels) with the same draws and compare π and params; then run the
+     main path at full width (cifar10-cnn, 11 clients, quickstart's
+     wireless scenario) and check that each kernel carried it;
+  6. time each kernel, its plain version and the one-call PyTorch yardstick
+     at the main path's shapes and print them as one JSON line;
+  7. with ``--profile`` only: profile two rounds with ``torch.profiler``.
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
+or without the repo's ``src/`` beside it, it exits non-zero and prints no
+result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+ROUNDS, EVAL_EVERY, EM_ITERS = 8, 2, 5
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}      # K1 (test_kernels.py)
+AGG_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}  # K2 (test_kernels.py)
+# H100 SXM peaks (NVIDIA data sheet): device memory B/s, and fp32 FLOP/s
+# outside the tensor cores; the bounds below are taken against them
+HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
+
+
+def _phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def _em_inputs(M, T, V, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    pi = torch.softmax(torch.from_numpy(rng.normal(size=M)).float(), 0)
+    logits = torch.from_numpy((rng.normal(size=(M, T, V)) * 3)
+                              .astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, V, T).astype(np.int64))
+    return pi.to(dev), logits.to(device=dev, dtype=dtype), labels.to(dev)
+
+
+def _agg_inputs(M, P, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    stack = torch.from_numpy(rng.normal(size=(M + 1, P)).astype(np.float32))
+    w = torch.softmax(torch.from_numpy(rng.normal(size=M)).float(), 0)
+    rows = torch.arange(1, M + 1)
+    return stack.to(device=dev, dtype=dtype), w.to(dev), rows.to(dev)
+
+
+def check_em_posterior(dev) -> float:
+    """K1 against its plain version at every checked shape; raises past
+    tolerance. Returns the max |λ| and |ℓ| error at the main-path shape in
+    fp32."""
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels.ref import em_posterior_ref
+    main_err = None
+    for M, T, V in [(10, 512, 10), (2, 128, 512), (4, 128, 1024),
+                    (8, 256, 512), (3, 384, 1536), (3, 37, 10)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _em_inputs(M, T, V, dtype, dev)
+            lam, ell = k1.em_posterior_forward(*args)
+            torch.cuda.synchronize()
+            plam, pell = em_posterior_ref(*args)
+            err_l = float((lam - plam).abs().max())
+            err_c = float(((ell - pell).abs() / (1 + pell.abs())).max())
+            err = max(err_l, err_c)
+            print(f"K1 M={M} T={T} V={V} {str(dtype)[6:]}: max|dλ|={err_l:.3g}"
+                  f" max|dℓ|/(1+|ℓ|)={err_c:.3g} tol={TOL[dtype]:g}")
+            if not err <= TOL[dtype]:
+                raise AssertionError(f"K1 disagrees with its plain version "
+                                     f"at {(M, T, V, dtype)}: {err}")
+            if main_err is None:
+                main_err = max(err_l, float((ell - pell).abs().max()))
+    return main_err
+
+
+def check_weighted_agg(dev) -> float:
+    from repro_torch.kernels import weighted_agg as k2
+    from repro_torch.kernels.ref import weighted_agg_ref
+    main_err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        stack, w, rows = _agg_inputs(10, 188_810, dtype, dev)
+        for any_ok in (True, False):
+            ok = torch.tensor(any_ok, device=dev)
+            out = k2.weighted_agg(stack[0], stack, w, 0.7, index=rows,
+                                  any_ok=ok)
+            torch.cuda.synchronize()
+            expect = weighted_agg_ref(stack[0], stack, w, 0.7, index=rows,
+                                      any_ok=ok)
+            diff = (out.float() - expect.float()).abs()
+            err = float(diff.max())
+            rel = float((diff / (1 + expect.float().abs())).max())
+            tol = AGG_TOL[dtype]
+            print(f"K2 M=10 P=188810 {str(dtype)[6:]} any_ok={any_ok}: "
+                  f"max|d|={err:.3g} max|d|/(1+|ref|)={rel:.3g} tol={tol:g}")
+            if not rel <= tol:
+                raise AssertionError(f"K2 disagrees with its plain version "
+                                     f"({dtype}, any_ok={any_ok}): {rel}")
+            if not any_ok and not torch.equal(out, stack[0]):
+                raise AssertionError("K2 with every link erased must "
+                                     "return own unchanged")
+            if main_err is None:
+                main_err = err
+    return main_err
+
+
+def _tiny_sim(device, params0=None):
+    from repro_torch.configs import CNNConfig
+    from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
+    from repro_torch.data import (dirichlet_partition, make_client_datasets,
+                                  synthetic_image_dataset, train_test_split)
+    base = synthetic_image_dataset(0, 600, image_size=8, n_classes=4)
+    parts = dirichlet_partition(base.y, 4, alpha=0.3, seed=0)
+    train = make_client_datasets(base, [train_test_split(p, seed=1)[0]
+                                        for p in parts])
+    test = make_client_datasets(base, [train_test_split(p, seed=1)[1]
+                                       for p in parts])
+    return FederatedSimulation(
+        CNNConfig(image_size=8, widths=(4,), hidden=16, n_classes=4), train,
+        test, np.array([True, True, True, False]),
+        np.linspace(0.0, 0.2, 4).astype(np.float32),
+        FedSimConfig(rounds=3, batch_size=16, em_iters=2, em_subset=64,
+                     eval_every=2), params0=params0, device=device)
+
+
+def check_small_run_against_cpu(dev) -> None:
+    """The whole round on the card (kernels) against the CPU (plain
+    versions) on a small input with the same params and draws."""
+    gpu = _tiny_sim(dev)
+    cpu = _tiny_sim("cpu", params0=gpu.params0.cpu())
+    rng = np.random.default_rng(1)
+    idx = np.stack([rng.integers(0, n, (3, gpu.steps_per_round, 16))
+                    for n in gpu._train_len], axis=1)
+    masks = rng.random((3, gpu.m)) > 0.3
+    hg = gpu.run("pfedwn", idx_stream=idx, link_masks=masks)
+    hc = cpu.run("pfedwn", idx_stream=idx, link_masks=masks)
+    pi_err = float(np.abs(np.stack(hg["pi"]) - np.stack(hc["pi"])).max())
+    p_err = float((gpu.last_state["params"].cpu()
+                   - cpu.last_state["params"]).abs().max())
+    acc_err = float(np.abs(np.array(hg["target_acc"])
+                           - np.array(hc["target_acc"])).max())
+    print(f"small run card vs CPU: max|dπ|={pi_err:.3g} (tol 1e-4) "
+          f"max|dparams|={p_err:.3g} (tol 1e-4) max|dacc|={acc_err:.3g} "
+          f"(tol 5e-3)")
+    if not (pi_err <= 1e-4 and p_err <= 1e-4 and acc_err <= 5e-3):
+        raise AssertionError("the card's round disagrees with the CPU's")
+
+
+def run_main_path(dev):
+    """Quickstart's scenario at cifar10-cnn width through the port's entry
+    points; returns (history, K1 launches, K2 launches)."""
+    from repro_torch.configs import WirelessConfig, cifar10_cnn
+    from repro_torch.core import selection
+    from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
+    from repro_torch.data import (dirichlet_partition, make_client_datasets,
+                                  synthetic_image_dataset, train_test_split)
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+
+    rng = np.random.default_rng(0)
+    target = rng.uniform(10, 40, 2)
+    neighbors = rng.uniform(0, 50, (10, 2))
+    res = selection.select_neighbors(WirelessConfig(), target, neighbors,
+                                     eps=0.1, sinr_threshold=10.0,
+                                     device=dev)
+    p_err_nb, selected = res.p_err.cpu().numpy(), res.selected.cpu().numpy()
+    print(f"P_err per neighbor: {[round(float(p), 4) for p in p_err_nb]}")
+    print(f"selected neighbors: {np.where(selected)[0].tolist()}")
+
+    base = synthetic_image_dataset(0, 8000, image_size=32, n_classes=10)
+    parts = dirichlet_partition(base.y, 11, alpha=0.1, seed=0)
+    train = make_client_datasets(base, [train_test_split(p, seed=1)[0]
+                                        for p in parts])
+    test = make_client_datasets(base, [train_test_split(p, seed=1)[1]
+                                       for p in parts])
+    pm = np.concatenate([[True], selected])
+    p_err = np.concatenate([[0.0], p_err_nb]).astype(np.float32)
+    sim = FederatedSimulation(
+        cifar10_cnn(), train, test, pm, p_err,
+        FedSimConfig(rounds=ROUNDS, batch_size=32, lr=0.05, alpha=0.7,
+                     em_iters=EM_ITERS, em_subset=512,
+                     eval_every=EVAL_EVERY, seed=0), device=dev)
+    print(f"clients={sim.n} M={sim.m} P={sim.layout.size} "
+          f"steps/round={sim.steps_per_round}")
+    k1.launches = 0
+    k2.launches = 0
+    hist = sim.run("pfedwn")
+    n1, n2 = k1.launches, k2.launches
+
+    pis = np.stack(hist["pi"])
+    if not (np.all(pis >= 0) and np.allclose(pis.sum(1), 1.0, atol=1e-4)):
+        raise AssertionError(f"π left the simplex: {pis}")
+    accs = hist["target_acc"] + hist["mean_participant_acc"]
+    if not np.all(np.isfinite(accs)):
+        raise AssertionError(f"non-finite accuracy: {accs}")
+    for k, v in hist["taps"].items():
+        if not np.all(np.isfinite(v)):
+            raise AssertionError(f"non-finite tap {k}")
+    if n1 != ROUNDS * EM_ITERS or n2 != ROUNDS:
+        raise AssertionError(f"kernel launches K1={n1} K2={n2}, expected "
+                             f"{ROUNDS * EM_ITERS} and {ROUNDS}")
+    steady = hist["round_ms"][1:]
+    print(f"pfedwn target acc per eval: {hist['target_acc']}")
+    print(f"pi*: {np.round(pis[-1], 3).tolist()}")
+    print(f"ms per round by block (host clock, eval included): "
+          f"{hist['round_ms']}")
+    print(f"ms per round after the first block: {float(np.mean(steady))}")
+    return hist, n1, n2, sim
+
+
+def time_ms(fn, iters=20, reps=10) -> float:
+    """Steady-state device ms per call of ``fn``: ``iters`` calls enqueued
+    back to back between two CUDA events while ``torch.cuda._sleep`` holds
+    the stream, so the host's launch overhead is hidden and each call finds
+    the previous call's inputs in L2. The median over ``reps`` brackets."""
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        torch.cuda._sleep(20_000_000)         # ~10 ms at 1.98 GHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events])) / iters
+
+
+def cold_ms(fn, dev, iters=50, warmup=5) -> float:
+    """Mean device ms of one call of ``fn`` alone, as the round meets it:
+    each call is bracketed by CUDA events, with the 50 MB L2 evicted before
+    it by reading a 64 MB buffer (a read leaves no dirty lines for the
+    timed call to write back) and the stream held busy by
+    ``torch.cuda._sleep`` while the host enqueues the call. Includes the
+    bracket's own cost (printed as the empty bracket)."""
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(iters):
+        torch.amax(flush)
+        torch.cuda._sleep(1_000_000)          # ~0.5 ms at 1.98 GHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.mean([s.elapsed_time(e) for s, e in events]))
+
+
+def back_to_back_ms(fn, iters=200) -> float:
+    """ms per call over ``iters`` calls issued back to back and bracketed by
+    two CUDA events: for kernels this small it is the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_report(dev, sim, n1, n2, err1, err2):
+    from repro_torch.core.aggregation import masked_pi
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+    from repro_torch.kernels.ref import em_posterior_ref, weighted_agg_ref
+    bw, fp32 = HBM_BYTES_PER_S, FP32_FLOPS
+
+    M, T, V = sim.m, sim.sim.em_subset, sim.model_cfg.n_classes
+    pi, logits, labels = _em_inputs(M, T, V, torch.float32, dev)
+    k1_bytes = M * T * V * 4 + T * 8 + M * 4 + 2 * T * M * 4
+    k1_ops = 6 * M * T * V + 12 * M * T
+    k1_row = {
+        "name": "em_posterior", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/em_posterior.cu",
+        "replaces": "src/repro/kernels/em_posterior.py:72",
+        "launches": n1, "max_abs_err": err1, "tolerance": TOL[torch.float32],
+        "shape": {"M": M, "T": T, "V": V, "dtype": "float32"},
+        "ms": time_ms(lambda: k1._launch(pi, logits, labels)),
+        "cold_ms": cold_ms(lambda: k1._launch(pi, logits, labels), dev),
+        "plain_ms": time_ms(lambda: em_posterior_ref(pi, logits, labels)),
+        "back_to_back_ms": back_to_back_ms(
+            lambda: k1.em_posterior_forward(pi, logits, labels)),
+        "bound_ms": max(k1_bytes / bw, k1_ops / fp32) * 1e3,
+        "bound_by": "bytes" if k1_bytes / bw >= k1_ops / fp32
+        else "operations",
+        "library_ms": None}
+
+    alpha = sim.sim.alpha
+    stack = sim.last_state["params"]          # the main path's (N, P) stack
+    P = stack.shape[1]
+    rows = sim._nbr
+    w = masked_pi(sim.last_state["pi"], torch.ones(M, dtype=torch.bool,
+                                                   device=dev)).float()
+    ok = torch.tensor(True, device=dev)
+    nb = stack[1:]                            # rows 1..M are the neighbours
+    own = stack[0]
+    k2_bytes = (M + 2) * P * 4 + M * 12 + 1
+    k2_ops = (2 * M + 3) * P
+    k2_row = {
+        "name": "weighted_agg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
+        "replaces": "src/repro/kernels/weighted_agg.py:31",
+        "launches": n2, "max_abs_err": err2,
+        "tolerance": AGG_TOL[torch.float32],
+        "shape": {"M": M, "P": P, "dtype": "float32"},
+        "ms": time_ms(lambda: k2._launch(own, stack, w, alpha, rows, ok, M)),
+        "cold_ms": cold_ms(
+            lambda: k2._launch(own, stack, w, alpha, rows, ok, M), dev),
+        "back_to_back_ms": back_to_back_ms(lambda: k2.weighted_agg(
+            own, stack, w, alpha, index=rows, any_ok=ok)),
+        "plain_ms": time_ms(lambda: weighted_agg_ref(
+            own, stack, w, alpha, index=rows, any_ok=ok)),
+        "bound_ms": max(k2_bytes / bw, k2_ops / fp32) * 1e3,
+        "bound_by": "bytes" if k2_bytes / bw >= k2_ops / fp32
+        else "operations",
+        "library_ms": time_ms(lambda: torch.addmv(
+            own, nb.T, w, beta=alpha, alpha=1 - alpha))}
+    return [k1_row, k2_row]
+
+
+def profile_rounds(sim) -> None:
+    """One block of two pFedWN rounds under ``torch.profiler``: device time
+    by round phase (the engine's ``fedsim.*`` ranges) and by kernel, and the
+    device's busy share of the wall time."""
+    import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sim.sim = dataclasses.replace(sim.sim, rounds=2, eval_every=2)
+    sim.run("pfedwn")                         # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run("pfedwn")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    # kernels only: operator rows repeat their kernels' time, and the
+    # fedsim.* device rows are spans that include idle gaps
+    busy_ms = sum(e.self_device_time_total for e in avgs
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("fedsim.")) / 1e3
+    print(f"profile: 2 rounds + evals, wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    for e in sorted(avgs, key=lambda e: e.key):
+        if not e.key.startswith("fedsim."):
+            continue
+        if e.device_type == DeviceType.CUDA:   # first to last kernel
+            print(f"  {e.key}: device span {e.device_time_total / 1e3:.1f}"
+                  f" ms over {e.count} calls (idle gaps included)")
+        else:   # backward kernels run on autograd's thread, not counted
+            print(f"  {e.key}: host {e.cpu_time_total / 1e3:.1f} ms over "
+                  f"{e.count} calls")
+    print(avgs.table(sort_by="self_device_time_total", row_limit=20,
+                     max_name_column_width=60))
+
+
+def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile two rounds and print where the "
+                        "device time goes")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    from repro_torch import disable_tf32
+    from repro_torch.kernels import _build
+
+    _phase("1. card")
+    card_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(card_line)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    disable_tf32()
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(0)
+
+    _phase("2. build")
+    secs = _build.build()
+    print(f"built {', '.join(_build.KERNELS)} in {secs:.1f} s")
+
+    _phase("3. K1 em_posterior vs plain")
+    err1 = check_em_posterior(dev)
+    _phase("4. K2 weighted_agg vs plain")
+    err2 = check_weighted_agg(dev)
+
+    _phase("5. pfedwn round: small run vs CPU, then the main path")
+    check_small_run_against_cpu(dev)
+    t0 = time.perf_counter()
+    _, n1, n2, sim = run_main_path(dev)
+    print(f"main path wall {time.perf_counter() - t0:.1f} s, launches "
+          f"K1={n1} K2={n2}")
+
+    _phase("6. kernel times")
+    print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
+    rows = kernel_report(dev, sim, n1, n2, err1, err2)
+    if args.profile:
+        _phase("7. profile")
+        profile_rounds(sim)
+    torch.cuda.synchronize()
+    print(card_line)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""PyTorch + CUDA port of the pFedWN simulator (the JAX package ``repro`` is
+the reference it is held against).
+
+Module names mirror ``repro``'s so each counterpart is easy to find. The
+package imports ``torch`` and numpy only: nothing of ``jax`` and nothing of
+``repro``. Entry points take an explicit ``device`` that defaults to
+``"cuda"`` and raise when no card is present; they run on the CPU only when
+the caller passes ``device="cpu"``.
+
+The two Pallas kernels on the pFedWN round's path are hand-written CUDA C++
+for Hopper (``kernels/csrc``): the Eq-9 E-step (``kernels.em_posterior``)
+and the erasure-gated Eq-1 mix (``kernels.weighted_agg``).
+"""
+from repro_torch.device import disable_tf32, resolve_device
+
+__all__ = ["disable_tf32", "resolve_device"]

@@ -1,0 +1,310 @@
+"""N-client federated simulator, fused engine, methods ``pfedwn`` and
+``local``.
+
+Clients hold one stacked flat param buffer (N, P) (leaf views per
+:func:`repro_torch.models.cnn.param_layout`). Every train and test tensor is
+staged on the device once, in :class:`FederatedSimulation`'s constructor;
+minibatch indices and link erasures are drawn on the device, so a round runs
+as a Python loop of device work and the host syncs only at the eval points
+of :func:`block_schedule`. One pFedWN round (each phase is a
+``torch.profiler`` range, ``fedsim.<phase>``):
+
+  1. ``local_sgd``: every client, participant or not, runs local SGD on
+     its CNN;
+  2. ``em``: the target (client 0) runs EM (Eq 9-11) on *copies* of its M
+     neighbours' models, with the E-step in the fused CE + posterior kernel;
+  3. ``mix``: the erasure-gated Eq-1 mix of the target with the
+     *unrefined* locally trained neighbours, in one kernel launch over the
+     stacked buffer;
+  4. ``target_sgd``: the target trains from the aggregate, on the same
+     minibatch indices as step 1.
+
+The generator's bits differ from ``jax.random``'s, so :meth:`
+FederatedSimulation.run` also accepts injected index streams and link masks
+(a parity test replays the reference's draws through them).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from repro_torch.configs.base import PFLConfig
+from repro_torch.configs.paper_cnn import CNNConfig
+from repro_torch.core import aggregation
+from repro_torch.core.pfedwn import (ModelFns, effective_neighbors,
+                                     em_refine_loop, pi_entropy)
+from repro_torch.core.selection import link_success_mask, link_success_rate
+from repro_torch.data.synthetic import SyntheticImageDataset, stack_datasets
+from repro_torch.device import resolve_device
+from repro_torch.models import cnn
+from repro_torch.utils.bridge import ParamLayout
+
+METHODS = ("local", "pfedwn")
+
+
+@dataclass
+class FedSimConfig:
+    rounds: int = 50
+    batch_size: int = 64
+    lr: float = 0.05
+    alpha: float = 0.5                 # Eq (1) self-weight
+    em_iters: int = 5
+    em_component_steps: int = 1
+    em_subset: int = 512               # target samples driving the EM E-step
+    eval_every: int = 1
+    seed: int = 0
+
+
+def block_schedule(rounds: int, eval_every: int) -> List[int]:
+    """Round-block lengths between host syncs: evaluate after round r when
+    ``r % eval_every == 0`` or ``r == rounds - 1``, so blocks are
+    [1, eval_every, ..., tail]."""
+    evals = sorted(set(range(0, rounds, max(eval_every, 1))) | {rounds - 1})
+    blocks, prev = [], -1
+    for r in evals:
+        blocks.append(r - prev)
+        prev = r
+    return blocks
+
+
+def cnn_fns(layout: ParamLayout) -> ModelFns:
+    """The CNN's :class:`ModelFns` over flat (N, P) buffers of ``layout``."""
+    def logits(flat, x):
+        return cnn.apply_stacked(layout.views(flat), x)
+
+    def per_sample_loss(flat, x, y):
+        return cnn.per_sample_nll_stacked(layout.views(flat), x, y)
+
+    def loss(flat, x, y):
+        return torch.mean(per_sample_loss(flat, x, y), dim=-1)
+
+    def accuracy(flat, x, y, mask):
+        return cnn.masked_accuracy_stacked(layout.views(flat), x, y, mask)
+
+    return ModelFns(logits=logits, per_sample_loss=per_sample_loss,
+                    loss=loss, accuracy=accuracy)
+
+
+class FederatedSimulation:
+    """Target client = index 0; clients 1..N-1 are its candidate
+    neighbours, of which the participants are the selected ones."""
+
+    def __init__(self, model_cfg: CNNConfig,
+                 train_sets: List[SyntheticImageDataset],
+                 test_sets: List[SyntheticImageDataset],
+                 participant_mask: np.ndarray,     # (N,) bool, incl. target
+                 p_err: np.ndarray,                # (N,) target-link P_err
+                 sim: FedSimConfig, *,
+                 params0: Optional[torch.Tensor] = None,
+                 device: str | torch.device = "cuda"):
+        """``params0``: initial (N, P) params (e.g. the reference's, through
+        :func:`repro_torch.utils.bridge.from_jax_params`); drawn from a
+        generator seeded with ``sim.seed`` when None."""
+        self.device = resolve_device(device)
+        self.model_cfg, self.sim = model_cfg, sim
+        self.n = len(train_sets)
+        self.train_sets, self.test_sets = train_sets, test_sets
+        self.layout = cnn.param_layout(model_cfg)
+        self.fns = cnn_fns(self.layout)
+        pm = np.asarray(participant_mask, bool)
+        if pm.shape != (self.n,) or np.shape(p_err) != (self.n,):
+            raise ValueError(f"participant_mask and p_err must be "
+                             f"({self.n},)")
+        self.participants = torch.as_tensor(pm, device=self.device)
+        self.neighbor_idx = np.where(pm & (np.arange(self.n) != 0))[0]
+        self.m = len(self.neighbor_idx)
+        self._nbr = torch.as_tensor(self.neighbor_idx, dtype=torch.int64,
+                                    device=self.device)
+        self._p_err_nbr = torch.as_tensor(
+            np.asarray(p_err, np.float32)[self.neighbor_idx],
+            device=self.device)
+        if params0 is None:
+            gen = torch.Generator(self.device).manual_seed(sim.seed)
+            params0 = cnn.init_params(model_cfg, gen, self.n,
+                                      device=self.device)
+        params0 = torch.as_tensor(params0, dtype=torch.float32,
+                                  device=self.device)
+        if tuple(params0.shape) != (self.n, self.layout.size):
+            raise ValueError(f"params0 must be ({self.n}, "
+                             f"{self.layout.size}), got "
+                             f"{tuple(params0.shape)}")
+        self.params0 = params0
+        self.last_state: Optional[Dict[str, torch.Tensor]] = None
+        self._stage_data()
+
+    # ------------------------------------------------------------- staging
+
+    def _stage_data(self) -> None:
+        """Move every tensor the round loop needs to the device, once."""
+        sim, dev = self.sim, self.device
+        tx, ty, tlen, _ = stack_datasets(self.train_sets)
+        self._train_x = torch.as_tensor(tx, device=dev)
+        self._train_y = torch.as_tensor(ty, dtype=torch.int64, device=dev)
+        self._train_len = np.maximum(tlen.astype(np.int64), 1)
+        self._train_len_dev = torch.as_tensor(self._train_len, device=dev)
+        ex, ey, _, emask = stack_datasets(self.test_sets)
+        self._test_x = torch.as_tensor(ex, device=dev)
+        self._test_y = torch.as_tensor(ey, dtype=torch.int64, device=dev)
+        self._test_mask = torch.as_tensor(emask, device=dev)
+        # the E-step runs on the target's first em_subset *unpadded* samples
+        d0 = self.train_sets[0]
+        self._em_x = torch.as_tensor(d0.x[:sim.em_subset], device=dev)
+        self._em_y = torch.as_tensor(d0.y[:sim.em_subset], dtype=torch.int64,
+                                     device=dev)
+        max_k = max(len(d) for d in self.train_sets)
+        self.steps_per_round = max(1, int(np.ceil(max_k / sim.batch_size)))
+
+    # ---------------------------------------------------------- round math
+
+    def _draw_idx(self, gen: torch.Generator) -> torch.Tensor:
+        """(N, steps, B) with-replacement minibatch indices, drawn on the
+        device, client n's from [0, len_n)."""
+        u = torch.rand((self.n, self.steps_per_round, self.sim.batch_size),
+                       generator=gen, device=self.device)
+        n = self._train_len_dev[:, None, None]
+        return torch.minimum((u * n).long(), n - 1)
+
+    def _sgd(self, params: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+             idx: torch.Tensor):
+        """SGD for K clients at once: params (K, P), data (K, K_max, ...),
+        idx (K, steps, B). The summed loss gives each client the gradient
+        of its own mean minibatch loss. Returns (params, (K,) mean loss)."""
+        rows = torch.arange(params.shape[0], device=self.device)[:, None]
+        losses = []
+        for s in range(idx.shape[1]):
+            it = idx[:, s]
+            leaf = params.detach().requires_grad_(True)
+            step_loss = self.fns.loss(leaf, x[rows, it], y[rows, it])
+            (g,) = torch.autograd.grad(torch.sum(step_loss), leaf)
+            params = leaf.detach() - self.sim.lr * g
+            losses.append(step_loss.detach())
+        return params, torch.mean(torch.stack(losses), dim=0)
+
+    def _round(self, method: str, params: torch.Tensor, pi: torch.Tensor,
+               idx: torch.Tensor, link_ok: Optional[torch.Tensor]):
+        """One round; returns (params, π, tap dict of device scalars)."""
+        sim = self.sim
+        with record_function("fedsim.local_sgd"):
+            params, train_loss = self._sgd(params, self._train_x,
+                                           self._train_y, idx)
+        link_rate = torch.ones((), device=self.device)
+        eff_nbr = torch.zeros((), device=self.device)
+        if method == "pfedwn":
+            # EM refines copies of the neighbours (the advanced index
+            # copies); Eq 1 mixes the unrefined rows of `params`
+            with record_function("fedsim.em"):
+                _, pi, _ = em_refine_loop(
+                    self.fns, params[self._nbr], pi, self._em_x, self._em_y,
+                    iters=sim.em_iters, lr=sim.lr,
+                    min_weight=PFLConfig().em_min_weight,
+                    component_steps=sim.em_component_steps)
+            with record_function("fedsim.mix"):
+                mixed = aggregation.mix_flat_with_erasures(
+                    params, 0, self._nbr, pi, sim.alpha, link_ok)
+            # the target's pass after aggregation reuses round's idx[0]
+            with record_function("fedsim.target_sgd"):
+                mixed, loss0 = self._sgd(mixed[None], self._train_x[:1],
+                                         self._train_y[:1], idx[:1])
+            params[0] = mixed[0]
+            train_loss[0] = loss0[0]
+            link_rate = link_success_rate(link_ok)
+            eff_nbr = effective_neighbors(pi, link_ok)
+        tap = {"train_loss": train_loss, "em_entropy": pi_entropy(pi),
+               "link_success_rate": link_rate,
+               "effective_neighbors": eff_nbr}
+        return params, pi, tap
+
+    @torch.no_grad()
+    def _eval(self, params: torch.Tensor):
+        """(target accuracy, mean participant accuracy) on the padded test
+        stacks, as device scalars."""
+        accs = self.fns.accuracy(params, self._test_x, self._test_y,
+                                 self._test_mask)
+        pmf = self.participants.float()
+        return accs[0], torch.sum(accs * pmf) / torch.clamp(torch.sum(pmf),
+                                                             min=1.0)
+
+    # ---------------------------------------------------------------- entry
+
+    def _injected(self, idx_stream, link_masks):
+        sim = self.sim
+        idx = masks = None
+        if idx_stream is not None:
+            idx_np = np.asarray(idx_stream)
+            want = (sim.rounds, self.n, self.steps_per_round, sim.batch_size)
+            if idx_np.shape != want:
+                raise ValueError(f"idx_stream must be {want}, got "
+                                 f"{idx_np.shape}")
+            if idx_np.min() < 0 or np.any(
+                    idx_np.max(axis=(0, 2, 3)) >= self._train_len):
+                raise ValueError("idx_stream indexes past a client's data")
+            idx = torch.as_tensor(idx_np, dtype=torch.int64,
+                                  device=self.device)
+        if link_masks is not None:
+            masks_np = np.asarray(link_masks, bool)
+            if masks_np.shape != (sim.rounds, self.m):
+                raise ValueError(f"link_masks must be ({sim.rounds}, "
+                                 f"{self.m}), got {masks_np.shape}")
+            masks = torch.as_tensor(masks_np, device=self.device)
+        return idx, masks
+
+    def run(self, method: str, *, idx_stream=None,
+            link_masks=None) -> Dict[str, Any]:
+        """Run ``sim.rounds`` rounds of ``method`` from ``params0``.
+
+        ``idx_stream`` (rounds, N, steps, B) and ``link_masks`` (rounds, M)
+        replace the on-device draws when given. Returns the reference's
+        history dict (``target_acc``, ``mean_participant_acc``, ``pi`` per
+        eval point, ``max_target_acc``) plus ``taps`` (per-round metrics as
+        numpy arrays) and ``round_ms`` (host ms per round of each block,
+        eval included). The final params and π are left in
+        ``self.last_state``."""
+        method = method.lower()
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}; have {METHODS}")
+        sim = self.sim
+        idx_all, masks_all = self._injected(idx_stream, link_masks)
+        gen = torch.Generator(self.device).manual_seed(sim.seed + 7)
+        params = self.params0.clone()
+        pi = torch.full((self.m,), 1.0 / max(self.m, 1), dtype=torch.float32,
+                        device=self.device)
+        history: Dict[str, Any] = {"target_acc": [], "pi": [],
+                                   "mean_participant_acc": [],
+                                   "round_ms": []}
+        taps: Dict[str, list] = {}
+        rnd = 0
+        for length in block_schedule(sim.rounds, sim.eval_every):
+            t0 = time.perf_counter()
+            block_taps = []
+            for _ in range(length):
+                idx = self._draw_idx(gen) if idx_all is None else idx_all[rnd]
+                link_ok = None
+                if method == "pfedwn":
+                    link_ok = (link_success_mask(self._p_err_nbr, gen)
+                               if masks_all is None else masks_all[rnd])
+                params, pi, tap = self._round(method, params, pi, idx,
+                                              link_ok)
+                block_taps.append(tap)
+                rnd += 1
+            with record_function("fedsim.eval"):
+                t_acc, mean_acc = self._eval(params)
+            # the one host sync of the block
+            t_acc, mean_acc = float(t_acc), float(mean_acc)
+            history["round_ms"].append(
+                (time.perf_counter() - t0) / length * 1e3)
+            for k in block_taps[0]:
+                taps.setdefault(k, []).append(
+                    torch.stack([t[k] for t in block_taps]).cpu().numpy())
+            history["target_acc"].append(t_acc)
+            history["mean_participant_acc"].append(mean_acc)
+            if method == "pfedwn":
+                history["pi"].append(pi.cpu().numpy())
+        history["max_target_acc"] = float(np.max(history["target_acc"]))
+        history["taps"] = {k: np.concatenate(v) for k, v in taps.items()}
+        self.last_state = {"params": params, "pi": pi}
+        return history

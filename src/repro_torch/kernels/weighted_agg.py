@@ -1,0 +1,114 @@
+"""The erasure-gated Eq-1 mix over flat parameter buffers: K2.
+
+:func:`weighted_agg` returns α·own + (1−α)·Σ_m w_m·nb_m, accumulated in
+fp32 and cast to own's dtype (fp32 or bf16), where nb_m is row
+``index[m]`` of ``neighbors`` (every row in order when ``index`` is None).
+Where ``any_ok`` is False it returns ``own``. Both ``w`` and ``any_ok`` are
+device tensors, so the round decides the all-links-failed case without a
+host sync, and the neighbour rows are read in place from the stacked client
+buffer without materialising an (M, P) gather.
+
+On a CUDA tensor it launches the hand-written kernel
+``csrc/weighted_agg.cu``; on a CPU tensor it runs the plain version
+:func:`~repro_torch.kernels.ref.weighted_agg_ref`. Row numbers in
+``index`` are not read on the host (that would sync); callers build them
+from host-validated client indices.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import weighted_agg_ref
+
+MAX_COMPONENTS = 32
+THREADS = 256                # matches kThreads in the CUDA source
+BLOCKS_PER_SM = 8
+launches = 0                 # kernel launches since the last reset
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("weighted_agg")
+        lib.weighted_agg_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.weighted_agg_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(own, neighbors, w, index, any_ok) -> int:
+    if own.dim() != 1 or neighbors.dim() != 2:
+        raise ValueError(f"own must be (P,) and neighbors (R, P), got "
+                         f"{tuple(own.shape)} and {tuple(neighbors.shape)}")
+    if own.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"own must be float32 or bfloat16, got {own.dtype}")
+    if neighbors.dtype != own.dtype:
+        raise TypeError(f"neighbors are {neighbors.dtype}, own {own.dtype}")
+    if neighbors.shape[1] != own.shape[0]:
+        raise ValueError(f"neighbors have {neighbors.shape[1]} params, own "
+                         f"{own.shape[0]}")
+    if not own.is_contiguous() or neighbors.stride(1) != 1:
+        raise ValueError("own and each neighbor row must be contiguous")
+    M = neighbors.shape[0] if index is None else index.shape[0]
+    if M > MAX_COMPONENTS:
+        raise ValueError(f"M = {M} neighbors; the kernel takes at most "
+                         f"{MAX_COMPONENTS}")
+    if w.shape != (M,) or w.dtype != torch.float32 or not w.is_contiguous():
+        raise ValueError(f"w must be contiguous ({M},) float32, got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    if index is not None and (index.dim() != 1 or index.dtype != torch.int64
+                              or not index.is_contiguous()):
+        raise ValueError("index must be a contiguous (M,) int64 tensor")
+    if any_ok is not None and (any_ok.shape != () or
+                               any_ok.dtype != torch.bool):
+        raise ValueError("any_ok must be a 0-d bool tensor")
+    for name, t in (("neighbors", neighbors), ("w", w), ("index", index),
+                    ("any_ok", any_ok)):
+        if t is not None and t.device != own.device:
+            raise ValueError(f"{name} is on {t.device}, own on {own.device}")
+    return M
+
+
+def _launch(own, neighbors, w, alpha, index, any_ok, M) -> torch.Tensor:
+    global launches
+    P = own.shape[0]
+    out = torch.empty_like(own)
+    sms = torch.cuda.get_device_properties(own.device).multi_processor_count
+    n_blocks = max(1, min(-(-P // THREADS), sms * BLOCKS_PER_SM))
+    stream = torch.cuda.current_stream(own.device).cuda_stream
+    rc = _library().weighted_agg_launch(
+        own.data_ptr(), neighbors.data_ptr(), neighbors.stride(0),
+        None if index is None else index.data_ptr(), w.data_ptr(),
+        None if any_ok is None else any_ok.data_ptr(), out.data_ptr(), M, P,
+        float(alpha), float(1 - alpha), int(own.dtype == torch.bfloat16),
+        n_blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"weighted_agg kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches += 1
+    return out
+
+
+def weighted_agg(own: torch.Tensor, neighbors: torch.Tensor, w: torch.Tensor,
+                 alpha: float, *, index: Optional[torch.Tensor] = None,
+                 any_ok: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq (1). own: (P,); neighbors: (R, P) with contiguous rows; w: (M,)
+    fp32; index: (M,) int64 row numbers or None (M = R); any_ok: 0-d bool
+    or None (treated as True). Returns a new (P,) tensor."""
+    M = _check(own, neighbors, w, index, any_ok)
+    if own.device.type == "cpu":
+        return weighted_agg_ref(own, neighbors, w, alpha, index=index,
+                                any_ok=any_ok)
+    if own.device.type != "cuda":
+        raise ValueError(f"no weighted_agg for device {own.device}")
+    return _launch(own, neighbors, w, alpha, index, any_ok, M)

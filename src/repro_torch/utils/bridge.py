@@ -1,0 +1,112 @@
+"""Weights carried across: the reference's param pytrees <-> the port's flat
+parameter buffers.
+
+The port holds a client's parameters as ONE flat buffer, ``(P,)`` for one
+client or ``(N, P)`` for a client stack, with a view for each leaf
+(:meth:`ParamLayout.views`). One buffer per client stack makes the Eq-1 mix
+a single kernel launch over ``P`` and lets SGD update every leaf at once.
+
+**Leaf order** is the reference's ``jax.tree.leaves`` order: dict keys
+sorted, list entries in index order. For the CNN that is::
+
+    blocks[0].bias, blocks[0].conv, ..., blocks[L-1].bias, blocks[L-1].conv,
+    fc1.b, fc1.w, fc2.b, fc2.w
+
+Leaves keep the reference shapes and memory layouts, with no transposes:
+HWIO convs ``(k, k, C_in, C_out)`` and ``(in, out)`` fc weights, each
+flattened row-major. So a reference tree flattened with
+``concatenate([leaf.reshape(-1) for leaf in jax.tree.leaves(tree)])`` is
+exactly the port's buffer.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, List, Tuple
+
+import numpy as np
+import torch
+
+Tree = Any
+
+
+def _flatten(tree: Tree) -> Tuple[List[Any], Tree]:
+    """(leaves in the reference's order, template with leaf indices)."""
+    leaves: List[Any] = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        leaves.append(t)
+        return len(leaves) - 1
+
+    template = walk(tree)
+    return leaves, template
+
+
+def _fill(template: Tree, leaves: List[Any]) -> Tree:
+    if isinstance(template, dict):
+        return {k: _fill(v, leaves) for k, v in template.items()}
+    if isinstance(template, list):
+        return [_fill(v, leaves) for v in template]
+    return leaves[template]
+
+
+@dataclass(frozen=True)
+class ParamLayout:
+    """Where each leaf of a param tree lives in the flat buffer."""
+    template: Tree                       # tree structure, leaves = indices
+    shapes: Tuple[Tuple[int, ...], ...]  # per-leaf shape, reference order
+
+    @classmethod
+    def from_shapes(cls, spec: Tree) -> "ParamLayout":
+        """Layout of a tree whose leaves are shape tuples."""
+        leaves, template = _flatten(spec)
+        return cls(template, tuple(tuple(int(d) for d in s) for s in leaves))
+
+    @property
+    def sizes(self) -> Tuple[int, ...]:
+        return tuple(int(np.prod(s, dtype=np.int64)) for s in self.shapes)
+
+    @property
+    def size(self) -> int:
+        """P, the length of one client's flat buffer."""
+        return sum(self.sizes)
+
+    def views(self, flat: torch.Tensor) -> Tree:
+        """The param tree as views into ``flat`` (``(..., P)``): writes
+        through a view write the buffer, and autograd through the views
+        accumulates into one gradient of the buffer's shape."""
+        if flat.shape[-1] != self.size:
+            raise ValueError(f"flat buffer has {flat.shape[-1]} params, "
+                             f"layout needs {self.size}")
+        lead = tuple(flat.shape[:-1])
+        leaves, off = [], 0
+        for shape, n in zip(self.shapes, self.sizes):
+            leaves.append(flat[..., off:off + n].view(lead + shape))
+            off += n
+        return _fill(self.template, leaves)
+
+
+def _is_stacked(tree: Tree) -> bool:
+    # the CNN's fc2 bias is (n_classes,), or (N, n_classes) with a client axis
+    return np.ndim(tree["fc2"]["b"]) == 2
+
+
+def from_jax_params(tree: Tree, device: str | torch.device) -> torch.Tensor:
+    """The reference's CNN param tree (numpy leaves, ``{"blocks": [{conv,
+    bias}], "fc1": {w, b}, "fc2": {w, b}}``, optionally with a leading N
+    axis) as the port's flat buffer: ``(P,)``, or ``(N, P)`` when stacked."""
+    leaves, _ = _flatten(tree)
+    lead = (np.shape(leaves[0])[0],) if _is_stacked(tree) else ()
+    flat = np.concatenate([np.asarray(x).reshape(lead + (-1,))
+                           for x in leaves], axis=-1)
+    return torch.from_numpy(np.ascontiguousarray(flat)).to(device)
+
+
+def to_numpy(flat: torch.Tensor, layout: ParamLayout) -> Tree:
+    """The flat buffer as the reference's param tree of numpy arrays."""
+    host = flat.detach().cpu()
+    return _fill(layout.template,
+                 [np.array(v) for v in _flatten(layout.views(host))[0]])

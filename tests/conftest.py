@@ -27,6 +27,11 @@ from repro.testing import install_as_hypothesis  # noqa: E402
 install_as_hypothesis()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

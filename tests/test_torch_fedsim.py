@@ -1,0 +1,201 @@
+"""The port's fused engine against the reference fused engine on the same
+data, initial params and replayed random draws; the port's isolation from
+JAX and its CUDA-by-default entry points."""
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.paper_cnn import CNNConfig as RefCNNConfig
+from repro.core.fedsim import FederatedSimulation as RefSimulation
+from repro.core.fedsim import FedSimConfig as RefFedSimConfig
+from repro.core.fedsim import block_schedule as ref_block_schedule
+from repro.core.selection import link_success_mask as ref_link_success_mask
+from repro.data import (dirichlet_partition, make_client_datasets,
+                        synthetic_image_dataset, train_test_split)
+from repro_torch import data as tdata
+from repro_torch.configs import CNNConfig
+from repro_torch.core.fedsim import (FederatedSimulation, FedSimConfig,
+                                     block_schedule)
+from repro_torch.utils.bridge import from_jax_params, to_numpy
+
+torch.set_num_threads(1)
+
+ROUNDS, EVAL_EVERY = 3, 2
+SIM_KW = dict(rounds=ROUNDS, batch_size=16, lr=0.05, em_iters=2,
+              em_subset=64, eval_every=EVAL_EVERY, seed=0)
+SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+
+
+def _tiny_data(pkg_synth, pkg_part, pkg_make, pkg_split, n_clients=4,
+               seed=0):
+    """``tests/test_fedsim_fused.py::_tiny_setup``'s data, from either
+    package's data functions."""
+    base = pkg_synth(seed, 600, image_size=8, n_classes=4)
+    parts = pkg_part(base.y, n_clients, alpha=0.3, seed=seed)
+    train = pkg_make(base, [pkg_split(p, seed=1)[0] for p in parts])
+    test = pkg_make(base, [pkg_split(p, seed=1)[1] for p in parts])
+    return train, test
+
+
+def _tiny_setup():
+    n = 4
+    pm = np.array([True] * (n - 1) + [False])
+    p_err = np.linspace(0.0, 0.2, n).astype(np.float32)
+    ref_data = _tiny_data(synthetic_image_dataset, dirichlet_partition,
+                          make_client_datasets, train_test_split)
+    port_data = _tiny_data(tdata.synthetic_image_dataset,
+                           tdata.dirichlet_partition,
+                           tdata.make_client_datasets,
+                           tdata.train_test_split)
+    return ref_data, port_data, pm, p_err
+
+
+def _replayed_draws(ref_sim):
+    """The reference fused engine's per-round draws, replayed outside it:
+    key from PRNGKey(seed+7), split (key, k_sample, k_erase) each round."""
+    sample = ref_sim._sample_idx_fn()
+    p_err_nbr = ref_sim.p_err[np.asarray(ref_sim._neighbor_idx)]
+    key = jax.random.PRNGKey(ref_sim.sim.seed + 7)
+    idx, masks = [], []
+    for _ in range(ref_sim.sim.rounds):
+        key, k_sample, k_erase = jax.random.split(key, 3)
+        idx.append(np.asarray(sample(k_sample)))
+        masks.append(np.asarray(ref_link_success_mask(k_erase, p_err_nbr)))
+    return np.stack(idx), np.stack(masks)
+
+
+def _ref_blocks(ref_sim, method):
+    """Drive the reference's donated round blocks by hand, keeping the
+    final state (its ``run`` returns only the history)."""
+    state = ref_sim.initial_state()
+    evals = []
+    for length in ref_block_schedule(ref_sim.sim.rounds,
+                                     ref_sim.sim.eval_every):
+        state, (t_acc, mean_acc, pi, _) = ref_sim.block_fn(method)(state,
+                                                                  length)
+        evals.append((float(t_acc), float(mean_acc), np.asarray(pi)))
+    return evals, jax.tree.map(np.asarray, state[0])
+
+
+@pytest.fixture(scope="module")
+def engines():
+    (rtrain, rtest), (ptrain, ptest), pm, p_err = _tiny_setup()
+    cfg_kw = dict(image_size=8, widths=(4,), hidden=16, n_classes=4)
+    ref = RefSimulation(RefCNNConfig(**cfg_kw), rtrain, rtest, pm, p_err,
+                        RefFedSimConfig(adapt_subset=32, **SIM_KW))
+    params0 = from_jax_params(jax.tree.map(np.asarray, ref.params0), "cpu")
+    port = FederatedSimulation(CNNConfig(**cfg_kw), ptrain, ptest, pm, p_err,
+                               FedSimConfig(**SIM_KW), params0=params0,
+                               device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("method", ["pfedwn", "local"])
+def test_engine_matches_reference_with_replayed_draws(engines, method):
+    ref, port = engines
+    idx, masks = _replayed_draws(ref)
+    evals, ref_params = _ref_blocks(ref, method)
+    h = port.run(method, idx_stream=idx, link_masks=masks)
+
+    np.testing.assert_allclose(h["target_acc"], [e[0] for e in evals],
+                               atol=5e-3)
+    np.testing.assert_allclose(h["mean_participant_acc"],
+                               [e[1] for e in evals], atol=5e-3)
+    if method == "pfedwn":
+        np.testing.assert_allclose(np.stack(h["pi"]),
+                                   np.stack([e[2] for e in evals]),
+                                   atol=1e-4)
+    got = to_numpy(port.last_state["params"], port.layout)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref_params)):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    assert h["taps"]["train_loss"].shape == (ROUNDS, port.n)
+    assert len(h["round_ms"]) == len(block_schedule(ROUNDS, EVAL_EVERY))
+
+
+def test_engine_draws_its_own_stream(engines):
+    """Without injected draws the engine samples on its device; π stays on
+    the simplex and the taps are finite."""
+    _, port = engines
+    h = port.run("pfedwn")
+    pi = h["pi"][-1]
+    assert np.isclose(pi.sum(), 1.0, atol=1e-5) and np.all(pi >= 0)
+    for v in h["taps"].values():
+        assert np.all(np.isfinite(v))
+    assert 0.0 <= h["max_target_acc"] <= 1.0
+
+
+def test_engine_rejects_bad_injected_draws(engines):
+    _, port = engines
+    idx = np.zeros((ROUNDS, port.n, port.steps_per_round, 16), np.int64)
+    with pytest.raises(ValueError):
+        port.run("local", idx_stream=idx[:, :, :1])
+    idx[0, 1, 0, 0] = 10_000
+    with pytest.raises(ValueError):
+        port.run("local", idx_stream=idx)
+    with pytest.raises(ValueError):
+        port.run("fedavg")
+
+
+def test_block_schedule_matches_reference():
+    for rounds, e in [(1, 1), (4, 1), (5, 2), (6, 3), (9, 4), (8, 4)]:
+        assert block_schedule(rounds, e) == ref_block_schedule(rounds, e)
+
+
+_ISOLATION = r"""
+import sys
+import numpy as np
+import torch
+import repro_torch
+from repro_torch.configs import CNNConfig, WirelessConfig
+from repro_torch.core import selection
+from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
+from repro_torch.data import (dirichlet_partition, make_client_datasets,
+                              synthetic_image_dataset, train_test_split)
+from repro_torch.models import cnn
+
+base = synthetic_image_dataset(0, 300, image_size=8, n_classes=4)
+parts = dirichlet_partition(base.y, 3, alpha=0.5, seed=0)
+tr = make_client_datasets(base, [train_test_split(p)[0] for p in parts])
+te = make_client_datasets(base, [train_test_split(p)[1] for p in parts])
+args = (CNNConfig(image_size=8, widths=(4,), hidden=8, n_classes=4), tr, te,
+        np.ones(3, bool), np.zeros(3, np.float32),
+        FedSimConfig(rounds=2, batch_size=16, em_iters=2, em_subset=32))
+h = FederatedSimulation(*args, device="cpu").run("pfedwn")
+assert len(h["pi"]) == 2
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
+       or m.startswith("repro.")]
+print("LOADED", bad)
+
+raised = []
+if not torch.cuda.is_available():
+    for call in (lambda: FederatedSimulation(*args),
+                 lambda: selection.select_neighbors(
+                     WirelessConfig(), [1.0, 1.0], [[2.0, 2.0]]),
+                 lambda: cnn.init_params(args[0], torch.Generator())):
+        try:
+            call()
+        except RuntimeError:
+            raised.append(True)
+        else:
+            raised.append(False)
+print("RAISED", raised)
+"""
+
+
+def test_port_imports_no_jax_and_defaults_to_cuda():
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _ISOLATION], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = dict(l.split(" ", 1) for l in out.stdout.splitlines()
+                 if l.startswith(("LOADED", "RAISED")))
+    assert lines["LOADED"] == "[]"
+    if not torch.cuda.is_available():
+        assert lines["RAISED"] == "[True, True, True]"
