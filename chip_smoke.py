@@ -14,9 +14,19 @@ Phases, each of which stops the run on failure:
      kernels) with the same draws and compare π and params; then run the
      main path at full width (cifar10-cnn, 11 clients, quickstart's
      wireless scenario) and check that each kernel carried it;
-  6. time each kernel, its plain version and the one-call PyTorch yardstick
-     at the main path's shapes and print them as one JSON line;
-  7. with ``--profile`` only: profile two rounds with ``torch.profiler``.
+  6. hold K3 (GQA flash attention) against its plain version, fp32 and
+     bf16, over the reference's sweep, two ragged shapes and the prefill
+     attention shapes of smollm-135m, starcoder2-15b (window 4096) and
+     chatglm3-6b;
+  7. serve a reduced smollm-135m on the card and on the CPU (plain
+     kernels) with the same weights and prompts, without and with a window
+     that wraps, and compare logits and tokens; then serve the main path at
+     full width (smollm-135m, 8 prompts of 1024 tokens, 32 generated) and
+     check that K3 carried every layer of the prefill;
+  8. time each kernel, its plain version and the one-call PyTorch yardstick
+     at the main paths' shapes and print them as one JSON line;
+  9. with ``--profile`` only: profile two pFedWN rounds and one serving run
+     with ``torch.profiler``.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the repo's ``src/`` beside it, it exits non-zero and prints no
 result.
@@ -37,6 +47,24 @@ import torch  # noqa: E402
 ROUNDS, EVAL_EVERY, EM_ITERS = 8, 2, 5
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}      # K1 (test_kernels.py)
 AGG_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}  # K2 (test_kernels.py)
+ATTN_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}  # K3 (test_kernels.py)
+SERVE_TOL = 1e-4             # card vs CPU logits, fp32 with TF32 off
+# K3 shapes: (B, Sq, Skv, H, KH, Dh, causal, window); the first is the main
+# path's (smollm-135m's prefill of 8 x 1024 tokens)
+ATTN_MAIN = (8, 1024, 1024, 9, 3, 64, True, 0)
+ATTN_SHAPES = [
+    ATTN_MAIN,
+    (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
+    (1, 256, 256, 8, 8, 64, True, 0),
+    (2, 128, 128, 4, 1, 64, False, 0),
+    (1, 384, 384, 6, 2, 128, True, 96),
+    (1, 128, 128, 2, 2, 128, True, 0),
+    (2, 200, 200, 9, 3, 64, True, 0),        # ragged
+    (3, 1, 77, 12, 4, 128, True, 0),
+    (1, 5000, 5000, 48, 4, 128, True, 4096),  # starcoder2-15b, its window
+    (1, 2048, 2048, 32, 2, 128, True, 0),    # chatglm3-6b
+]
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
 # H100 SXM peaks (NVIDIA data sheet): device memory B/s, and fp32 FLOP/s
 # outside the tensor cores; the bounds below are taken against them
 HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
@@ -224,6 +252,112 @@ def run_main_path(dev):
     return hist, n1, n2, sim
 
 
+def _attn_inputs(shape, dtype, dev, seed=0):
+    B, Sq, Skv, H, KH, Dh = shape[:6]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Sq, H, Dh), generator=g, device=dev)
+    k = torch.randn((B, Skv, KH, Dh), generator=g, device=dev)
+    v = torch.randn((B, Skv, KH, Dh), generator=g, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def check_flash_attention(dev) -> float:
+    """K3 against its plain version at every checked shape, |d| <= tol +
+    tol·|plain|; raises past it. Returns the max |d| at the main-path shape
+    in fp32."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import flash_attention_ref
+    main_err = None
+    for shape in ATTN_SHAPES:
+        causal, window = shape[6], shape[7]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _attn_inputs(shape, dtype, dev)
+            out = k3.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            expect = flash_attention_ref(q, k, v, causal=causal,
+                                         window=window).float()
+            diff = (out.float() - expect).abs()
+            err = float(diff.max())
+            tol = ATTN_TOL[dtype]
+            excess = float((diff - tol * expect.abs()).max())
+            print(f"K3 {shape} {str(dtype)[6:]}: max|d|={err:.3g} "
+                  f"tol={tol:g} (atol and rtol)")
+            del expect, diff
+            if not (out.dtype == dtype and excess <= tol):
+                raise AssertionError(f"K3 disagrees with its plain version "
+                                     f"at {shape} {dtype}: {err}")
+            if main_err is None:
+                main_err = err
+    return main_err
+
+
+def check_serve_against_cpu(dev) -> None:
+    """The serving path on the card (K3) against the CPU (plain version):
+    reduced smollm-135m, the same weights and ragged prompts, 4 greedy
+    decode steps, with no window and with a window of 8 that the ring
+    crosses."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params
+    cfg = get_config("smollm-135m").reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    card_params = _tree_to(cpu_params, dev)
+    prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+    for window in (0, 8):
+        ref = serve(cfg, cpu_params, prompts, 5, window=window, device="cpu")
+        got = serve(cfg, card_params, prompts.to(dev), 5, window=window,
+                    device=dev)
+        diff = (got.logits.cpu() - ref.logits).abs()
+        excess = float((diff - SERVE_TOL * ref.logits.abs()).max())
+        same = torch.equal(got.tokens.cpu(), ref.tokens)
+        print(f"serve reduced smollm-135m window={window}: max|dlogits|="
+              f"{float(diff.max()):.3g} (tol {SERVE_TOL:g}), tokens equal: "
+              f"{same}")
+        if not (excess <= SERVE_TOL and same):
+            raise AssertionError(f"the card's serving run disagrees with "
+                                 f"the CPU's (window {window})")
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def run_serve_main_path(dev):
+    """smollm-135m at full width through ``serve``: 8 prompts of 1024
+    tokens, 32 generated (1 from the prefill, 31 decode steps), fp32.
+    Returns (result, K3 launches, (cfg, params, prompts))."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params
+    cfg = get_config("smollm-135m")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    prompts = make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=1, device=dev)
+    serve(cfg, params, prompts, SERVE_GEN, device=dev)     # warm
+    k3.launches = 0
+    res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    n3 = k3.launches
+    if n3 != cfg.n_layers:
+        raise AssertionError(f"K3 launched {n3} times in one prefill, "
+                             f"expected {cfg.n_layers}")
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError("non-finite logits on the serving path")
+    if res.tokens.shape != (SERVE_B, SERVE_GEN) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad tokens {tuple(res.tokens.shape)}")
+    t = res.timings
+    print(f"smollm-135m B={SERVE_B} prompt={SERVE_PROMPT} gen={SERVE_GEN} "
+          f"fp32: prefill {t['prefill_ms']} ms, decode "
+          f"{t['decode_ms_per_step']} ms per step, "
+          f"{t['decode_tok_per_s']} generated tok/s")
+    print(f"first 16 tokens of prompt 0: {res.tokens[0, :16].tolist()}")
+    return res, n3, (cfg, params, prompts)
+
+
 def time_ms(fn, iters=20, reps=10) -> float:
     """Steady-state device ms per call of ``fn``: ``iters`` calls enqueued
     back to back between two CUDA events while ``torch.cuda._sleep`` holds
@@ -344,6 +478,45 @@ def kernel_report(dev, sim, n1, n2, err1, err2):
     return [k1_row, k2_row]
 
 
+def attention_report(dev, n3, err3):
+    """K3's row at the main path's shape (smollm-135m prefill, fp32)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import flash_attention_ref
+    B, Sq, Skv, H, KH, Dh, causal, window = ATTN_MAIN
+    q, k, v = _attn_inputs(ATTN_MAIN, torch.float32, dev)
+    qpos = torch.arange(Sq)[:, None]
+    kpos = torch.arange(Skv)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    pairs = int(mask.sum())                  # unmasked (query, key) pairs
+    ops = 4 * Dh * pairs * B * H             # score and P.V multiply-adds
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": n3, "max_abs_err": err3,
+        "tolerance": ATTN_TOL[torch.float32],
+        "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KH": KH, "Dh": Dh,
+                  "causal": causal, "window": window, "dtype": "float32"},
+        "ms": time_ms(lambda: k3._launch(q, k, v, causal, window)),
+        "cold_ms": cold_ms(lambda: k3._launch(q, k, v, causal, window), dev),
+        "plain_ms": time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), iters=5, reps=5),
+        "back_to_back_ms": back_to_back_ms(lambda: k3.flash_attention(
+            q, k, v, causal=causal, window=window), iters=50),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS
+        else "operations",
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))}
+
+
 def profile_rounds(sim) -> None:
     """One block of two pFedWN rounds under ``torch.profiler``: device time
     by round phase (the engine's ``fedsim.*`` ranges) and by kernel, and the
@@ -381,12 +554,67 @@ def profile_rounds(sim) -> None:
                      max_name_column_width=60))
 
 
+def profile_serve(dev, cfg, params, prompts) -> None:
+    """The serving main path under ``torch.profiler``: one whole serve (the
+    device's busy share, the ``serve.prefill`` and ``serve.decode`` ranges,
+    kernels by device time), then one decode step alone (its kernels and
+    the device's share of its wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import prefill_to_cache, serve
+    from repro_torch.models.model import decode
+
+    def kernels(avgs):
+        rows = [e for e in avgs if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("serve.")]
+        return (sum(e.count for e in rows),
+                sum(e.self_device_time_total for e in rows) / 1e3)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    avgs = prof.key_averages()
+    n_kernels, busy_ms = kernels(avgs)
+    t = res.timings
+    wall_ms = t["prefill_ms"] + t["decode_ms_per_step"] * (SERVE_GEN - 1)
+    print(f"profile: one serve, wall {wall_ms:.1f} ms (prefill "
+          f"{t['prefill_ms']:.1f}, decode {t['decode_ms_per_step']:.3f} per "
+          f"step, under the profiler), {n_kernels} kernels, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    for e in sorted(avgs, key=lambda e: e.key):
+        if e.key.startswith("serve.") and e.device_type == DeviceType.CUDA:
+            print(f"  {e.key}: device span {e.device_time_total / 1e3:.1f}"
+                  f" ms (idle gaps included)")
+        elif e.key.startswith("serve."):
+            print(f"  {e.key}: host {e.cpu_time_total / 1e3:.1f} ms")
+    print(avgs.table(sort_by="self_device_time_total", row_limit=20,
+                     max_name_column_width=60))
+
+    P = prompts.shape[1]
+    with torch.no_grad():
+        logits, cache = prefill_to_cache(params, cfg, prompts, P + SERVE_GEN)
+        token = torch.argmax(logits, dim=-1)[:, None]
+        decode(params, cfg, token, cache, P)                 # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode(params, cfg, token, cache, P + 1)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+    n_kernels, busy_ms = kernels(prof.key_averages())
+    print(f"profile: one decode step, wall {step_ms:.2f} ms under the "
+          f"profiler, {n_kernels} kernels, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / step_ms:.1f} %)")
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile two rounds and print where the "
-                        "device time goes")
+                        help="also profile two pFedWN rounds and one serving "
+                        "run and print where the device time goes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -408,7 +636,7 @@ def main() -> int:
     card = torch.cuda.get_device_name(0)
 
     _phase("2. build")
-    secs = _build.build()
+    secs = _build.build()             # every kernel, one nvcc each, together
     print(f"built {', '.join(_build.KERNELS)} in {secs:.1f} s")
 
     _phase("3. K1 em_posterior vs plain")
@@ -423,12 +651,24 @@ def main() -> int:
     print(f"main path wall {time.perf_counter() - t0:.1f} s, launches "
           f"K1={n1} K2={n2}")
 
-    _phase("6. kernel times")
+    _phase("6. K3 flash_attention vs plain")
+    err3 = check_flash_attention(dev)
+
+    _phase("7. serving: small run vs CPU, then the main path")
+    check_serve_against_cpu(dev)
+    t0 = time.perf_counter()
+    _, n3, serve_args = run_serve_main_path(dev)
+    print(f"serving main path wall {time.perf_counter() - t0:.1f} s (warm-up "
+          f"run included), launches K3={n3}")
+
+    _phase("8. kernel times")
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
     rows = kernel_report(dev, sim, n1, n2, err1, err2)
+    rows.append(attention_report(dev, n3, err3))
     if args.profile:
-        _phase("7. profile")
+        _phase("9. profile")
         profile_rounds(sim)
+        profile_serve(dev, *serve_args)
     torch.cuda.synchronize()
     print(card_line)
     print(json.dumps({"kernels": rows}))

@@ -7,9 +7,12 @@ package imports ``torch`` and numpy only: nothing of ``jax`` and nothing of
 ``"cuda"`` and raise when no card is present; they run on the CPU only when
 the caller passes ``device="cpu"``.
 
-The two Pallas kernels on the pFedWN round's path are hand-written CUDA C++
-for Hopper (``kernels/csrc``): the Eq-9 E-step (``kernels.em_posterior``)
-and the erasure-gated Eq-1 mix (``kernels.weighted_agg``).
+Every Pallas kernel of the reference has a hand-written CUDA C++
+counterpart for Hopper (``kernels/csrc``): on the pFedWN round's path the
+Eq-9 E-step (``kernels.em_posterior``) and the erasure-gated Eq-1 mix
+(``kernels.weighted_agg``); on the language models' serving path
+(``launch.serve``: prefill, then greedy decode) GQA flash attention
+(``kernels.flash_attention``), which every layer's prefill attention runs.
 """
 from repro_torch.device import disable_tf32, resolve_device
 

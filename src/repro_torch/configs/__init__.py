@@ -1,5 +1,11 @@
-from repro_torch.configs.base import PFLConfig, WirelessConfig
+# one module per ported architecture (registry side effects)
+from repro_torch.configs import (chatglm3_6b, smollm_135m,  # noqa: F401
+                                 starcoder2_15b)
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      PFLConfig, SSMConfig, WirelessConfig,
+                                      get_config, list_archs)
 from repro_torch.configs.paper_cnn import CNNConfig, cifar10_cnn, mnist_cnn
 
-__all__ = ["CNNConfig", "PFLConfig", "WirelessConfig", "cifar10_cnn",
-           "mnist_cnn"]
+__all__ = ["CNNConfig", "MLAConfig", "ModelConfig", "MoEConfig", "PFLConfig",
+           "SSMConfig", "WirelessConfig", "cifar10_cnn", "get_config",
+           "list_archs", "mnist_cnn"]

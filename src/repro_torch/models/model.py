@@ -1,0 +1,191 @@
+"""The dense GQA language model: params, full forward, prefill and decode.
+
+Params are the reference's tree, as tensors: ``{"embed" (V, D), "ln_f"
+(D,), "lm_head" (D, V) unless tied, "layers": {"ln1", "ln2", "attn":
+{"wq", "wk", "wv", "wo"[, "bq", "bk", "bv"]}, "mlp": {"w_gate", "w_up",
+"w_down"}}}`` with every ``layers`` leaf stacked over a leading L axis. The
+layer loop is a Python loop over that axis.
+
+Entry points:
+  init_params(cfg, gen, device)                          -> params
+  forward_hidden(params, cfg, tokens, *, window)         -> (hidden, aux)
+  logits_from_hidden(params, cfg, h)                     -> fp32 logits
+  prefill(params, cfg, tokens, *, window)                -> (logits, cache)
+  decode(params, cfg, token, cache, pos, *, window)      -> (logits, cache)
+  init_cache(cfg, batch, max_len, *, window, device)     -> cache
+
+Weights and cache are fp32, as the reference's ``launch/serve.py`` runs.
+Decode cache: ``{"layers": {"k", "v"}}``, each (L, B, S, KH, Dh), a ring
+buffer of S = min(window, max_len) slots when windowed. ``decode`` writes
+the new token's K/V into it in place (the reference returns an updated
+copy) and returns the same tensors.
+
+The moe, ssm, hybrid, MLA, vlm/audio (stub embeddings) and mrope branches
+raise until their families are ported (ROADMAP Queue A item 13).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
+                                       mlp_apply, mlp_init, rmsnorm,
+                                       rmsnorm_init, unembed_apply)
+
+Params = Dict
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    """Raise for configs whose family this port does not run yet."""
+    if cfg.family != "dense" or cfg.moe or cfg.ssm or cfg.hybrid_attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the LM "
+            "port runs dense GQA only (ROADMAP Queue A item 13)")
+    if cfg.mla:
+        raise NotImplementedError(f"{cfg.name}: MLA is not ported yet "
+                                  "(ROADMAP Queue A item 13)")
+    if cfg.rope == "mrope" or cfg.n_stub_tokens or cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: mrope, stub embeddings and MTP are not ported yet "
+            "(ROADMAP Queue A item 13)")
+
+
+def layer(stacked: Params, i: int) -> Params:
+    """Layer ``i`` of the stacked ``layers`` tree, as views."""
+    if isinstance(stacked, dict):
+        return {k: layer(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    return {"ln1": rmsnorm_init(cfg.d_model, device),
+            "ln2": rmsnorm_init(cfg.d_model, device),
+            "attn": attn.gqa_init(gen, cfg, device),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, device)}
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device: str | torch.device = "cuda") -> Params:
+    """Random fp32 weights from ``gen`` (on ``device``) with the
+    reference's distributions: N(0, 1/in) dense, N(0, 0.02²) embedding,
+    ones for the norms, zeros for biases."""
+    _check_supported(cfg)
+    params: Params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model,
+                                          device),
+                      "ln_f": rmsnorm_init(cfg.d_model, device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device)
+    params["layers"] = _stack([_block_init(gen, cfg, device)
+                               for _ in range(cfg.n_layers)])
+    return params
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    return torch.arange(tokens.shape[1], dtype=torch.int32,
+                        device=tokens.device)
+
+
+def _block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                 positions: torch.Tensor, window: int):
+    """One pre-norm block; returns (h, this layer's KV cache)."""
+    y, kv = attn.gqa_prefill(p["attn"], cfg, rmsnorm(p["ln1"], x,
+                                                     cfg.norm_eps),
+                             positions=positions, window=window)
+    h = x + y
+    return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps)), kv
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   positions: Optional[torch.Tensor] = None,
+                   window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward to the final normed hidden states (B, S, D),
+    and the aux loss (0 for dense)."""
+    _check_supported(cfg)
+    if positions is not None:
+        raise NotImplementedError("custom positions are not ported yet "
+                                  "(ROADMAP Queue A item 13)")
+    window = window or cfg.sliding_window
+    x = embed_apply(params["embed"], tokens)
+    pos = _positions(tokens)
+    for i in range(cfg.n_layers):
+        p = layer(params["layers"], i)
+        x = x + attn.gqa_apply(p["attn"], cfg, rmsnorm(p["ln1"], x,
+                                                        cfg.norm_eps),
+                               positions=pos, window=window)
+        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+
+def logits_from_hidden(params: Params, cfg: ModelConfig,
+                       h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return unembed_apply(params["embed"], h, transpose=True)
+    return unembed_apply(params["lm_head"], h, transpose=False)
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
+               window: int = 0, device: str | torch.device = "cuda") -> Dict:
+    _check_supported(cfg)
+    window = window or cfg.sliding_window
+    S = min(window, max_len) if window else max_len
+    shape = (cfg.n_layers, batch_size, S, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"layers": {"k": torch.zeros(shape, device=device),
+                       "v": torch.zeros(shape, device=device)}}
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None, window: int = 0
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Run a full prompt (B, S); returns (last-token logits (B, V) fp32,
+    cache ``{"layers": {"k", "v"}}`` of (L, B, S_c, KH, Dh)), where S_c is S,
+    or min(window, S) ring-packed when windowed. Every layer's attention is
+    one launch of K3 on a card."""
+    _check_supported(cfg)
+    if positions is not None:
+        raise NotImplementedError("custom positions are not ported yet "
+                                  "(ROADMAP Queue A item 13)")
+    window = window or cfg.sliding_window
+    x = embed_apply(params["embed"], tokens)
+    pos = _positions(tokens)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, kv = _block_apply(layer(params["layers"], i), cfg, x,
+                             positions=pos, window=window)
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+    h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    logits = logits_from_hidden(params, cfg, h)[:, 0]
+    return logits, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
+           cache: Dict, pos: int, *, window: int = 0
+           ) -> Tuple[torch.Tensor, Dict]:
+    """token: (B, 1); pos: the new token's absolute position. Returns
+    (logits (B, V) fp32, cache), the cache updated in place."""
+    _check_supported(cfg)
+    window = window or cfg.sliding_window
+    x = embed_apply(params["embed"], token)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    kc = cache["layers"]
+    for i in range(cfg.n_layers):
+        p = layer(params["layers"], i)
+        y, _ = attn.gqa_decode(p["attn"], cfg,
+                               rmsnorm(p["ln1"], x, cfg.norm_eps),
+                               cache={"k": kc["k"][i], "v": kc["v"][i]},
+                               pos=pos, positions=positions, window=window)
+        x = x + y
+        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return logits_from_hidden(params, cfg, h)[:, 0], cache

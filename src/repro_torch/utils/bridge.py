@@ -1,5 +1,5 @@
 """Weights carried across: the reference's param pytrees <-> the port's flat
-parameter buffers.
+parameter buffers (the CNN) or tensor trees (the language models).
 
 The port holds a client's parameters as ONE flat buffer, ``(P,)`` for one
 client or ``(N, P)`` for a client stack, with a view for each leaf
@@ -17,6 +17,11 @@ HWIO convs ``(k, k, C_in, C_out)`` and ``(in, out)`` fc weights, each
 flattened row-major. So a reference tree flattened with
 ``concatenate([leaf.reshape(-1) for leaf in jax.tree.leaves(tree)])`` is
 exactly the port's buffer.
+
+The language models keep the reference's tree itself, leaf for leaf, as
+tensors: ``(in, out)`` dense weights, ``(V, D)`` embedding, ``(D, V)``
+lm_head, every ``layers`` leaf stacked over L, again with no transposes
+(:func:`from_jax_lm_params`, :func:`lm_params_to_numpy`).
 """
 from __future__ import annotations
 
@@ -110,3 +115,23 @@ def to_numpy(flat: torch.Tensor, layout: ParamLayout) -> Tree:
     host = flat.detach().cpu()
     return _fill(layout.template,
                  [np.array(v) for v in _flatten(layout.views(host))[0]])
+
+
+def from_jax_lm_params(tree: Tree, cfg, device: str | torch.device) -> Tree:
+    """The reference's ``init_params`` tree for a dense LM config (numpy
+    leaves; ``layers`` leaves stacked ``(L, ...)``) as the port's params."""
+    if cfg.family != "dense" or "layers" not in tree:
+        raise ValueError(f"{cfg.name}: only dense LM trees are carried "
+                         "across")
+    n = np.shape(tree["layers"]["ln1"])[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"tree has {n} layers, {cfg.name} {cfg.n_layers}")
+    leaves, template = _flatten(tree)
+    return _fill(template, [torch.from_numpy(np.array(x)).to(device)
+                            for x in leaves])
+
+
+def lm_params_to_numpy(params: Tree) -> Tree:
+    """The port's LM params as the reference's tree of numpy arrays."""
+    leaves, template = _flatten(params)
+    return _fill(template, [x.detach().cpu().numpy() for x in leaves])

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at the reference's sweep shapes and the pFedWN round's shapes. Every test
+at the reference's sweep shapes, the pFedWN round's shapes and the LM
+prefill's, and the serving path on the card against the CPU. Every test
 here needs a CUDA card and skips without one; the file imports nothing of
 JAX, so it runs where only the port is installed:
 
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import em_posterior as k1
+from repro_torch.kernels import flash_attention as k3
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import weighted_agg as k2
 
@@ -74,3 +76,74 @@ def test_weighted_agg_kernel_matches_plain_on_card(cuda, M, P, dtype, any_ok):
     tol = 1e-6 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), expect.float(), atol=tol,
                                rtol=tol)
+
+
+# the reference's sweep (tests/test_kernels.py) and ragged shapes:
+# (B, Sq, Skv, H, KH, Dh, causal, window)
+ATTN_SHAPES = [
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 256, 256, 8, 8, 64, True, 0),
+    (2, 128, 128, 4, 1, 64, False, 0),
+    (1, 384, 384, 6, 2, 128, True, 96),
+    (1, 128, 128, 2, 2, 128, True, 0),
+    (2, 200, 200, 9, 3, 64, True, 0),
+    (3, 1, 77, 12, 4, 128, True, 0),
+    (1, 77, 50, 16, 1, 64, False, 20),
+]
+
+
+def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, Sq, H, Dh)).astype(np.float32),
+            rng.normal(size=(B, Skv, KH, Dh)).astype(np.float32),
+            rng.normal(size=(B, Skv, KH, Dh)).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,Dh,causal,window", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
+                                                      Dh, causal, window,
+                                                      dtype):
+    tdtype = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(a).to(device=cuda, dtype=tdtype)
+               for a in _attn_inputs(B, Sq, Skv, H, KH, Dh))
+    before = k3.launches
+    out = k3.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    assert out.dtype == tdtype and out.shape == q.shape
+    expect = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-6 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), expect.float(), atol=tol,
+                               rtol=tol)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-135m", "starcoder2-15b",
+                                  "chatglm3-6b"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_serve_on_card_matches_cpu(cuda, arch, window):
+    """The reduced serving run on the card (K3) against the CPU (plain
+    version): same weights and ragged prompts, logits within 1e-4 and the
+    same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+    ref = serve(cfg, params, prompts, 5, window=window, device="cpu")
+    before = k3.launches
+    got = serve(cfg, _to(params, cuda), prompts.to(cuda), 5, window=window,
+                device=cuda)
+    assert k3.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(got.tokens.cpu(), ref.tokens)
