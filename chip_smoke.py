@@ -9,22 +9,26 @@ Phases, each of which stops the run on failure:
   3. hold K1 (the EM E-step) against its plain version on the card, at the
      pFedWN round's shape and the reference's test sweep, fp32 and bf16;
   4. hold K2 (the Eq-1 mix) against its plain version at the cifar10-cnn
-     shape (P = 188,810, M = 10), fp32 and bf16, links up and all erased;
+     shape (P = 188,810, M = 10), then at row strides of 188,810, 188,811
+     and 188,812 with M = 1, 10 and 32; fp32 and bf16, links up and all
+     erased;
   5. run a small pFedWN simulation on the card and on the CPU (plain
      kernels) with the same draws and compare π and params; then run the
      main path at full width (cifar10-cnn, 11 clients, quickstart's
      wireless scenario) and check that each kernel carried it;
   6. hold K3 (GQA flash attention) against its plain version, fp32 and
-     bf16, over the reference's sweep, two ragged shapes and the prefill
+     bf16, over the reference's sweep, two ragged shapes, the prefill
      attention shapes of smollm-135m, starcoder2-15b (window 4096) and
-     chatglm3-6b;
+     chatglm3-6b, and shapes at the kernel's tile edges;
   7. serve a reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights and prompts, without and with a window
      that wraps, and compare logits and tokens; then serve the main path at
      full width (smollm-135m, 8 prompts of 1024 tokens, 32 generated) and
      check that K3 carried every layer of the prefill;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
-     at the main paths' shapes and print them as one JSON line;
+     at the main paths' shapes (K2 also from a 16-byte-aligned stride, K3
+     also in bf16, SDPA under each backend) and print them as one JSON
+     line;
   9. with ``--profile`` only: profile two pFedWN rounds and one serving run
      with ``torch.profiler``.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -63,11 +67,26 @@ ATTN_SHAPES = [
     (3, 1, 77, 12, 4, 128, True, 0),
     (1, 5000, 5000, 48, 4, 128, True, 4096),  # starcoder2-15b, its window
     (1, 2048, 2048, 32, 2, 128, True, 0),    # chatglm3-6b
+    # tile edges: folded rows just below, at and above 64 and 128, keys
+    # just off the key tile (64 at Dh 64, 32 at Dh 128)
+    (2, 42, 43, 3, 1, 64, True, 0),
+    (1, 64, 127, 2, 1, 64, False, 0),
+    (1, 43, 65, 3, 1, 64, True, 0),
+    (1, 32, 33, 2, 1, 128, True, 0),
+    (1, 127, 95, 1, 1, 128, False, 0),
+    (1, 43, 33, 3, 1, 128, True, 16),
 ]
+# K2: the cifar10-cnn round's P, and row strides that give the kernel 8-,
+# 4- and 16-byte vectors in fp32 (the round's stack has the first)
+AGG_P = 188_810
+AGG_STRIDES = (188_810, 188_811, 188_812)
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
-# H100 SXM peaks (NVIDIA data sheet): device memory B/s, and fp32 FLOP/s
-# outside the tensor cores; the bounds below are taken against them
-HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet): device memory B/s, fp32 FLOP/s
+# outside the tensor cores and TF32 FLOP/s on them (dense); the bounds
+# below are taken against them
+HBM_BYTES_PER_S, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
+# K3's fp32 route runs three TF32 products for each (split TF32)
+SPLIT_TF32_TERMS = 3
 
 
 def _phase(name: str) -> None:
@@ -119,32 +138,44 @@ def check_em_posterior(dev) -> float:
 
 
 def check_weighted_agg(dev) -> float:
+    """K2 against its plain version at the cifar10-cnn shape (M 10, P
+    188,810), then over row strides of 188,810, 188,811 and 188,812
+    elements (8-, 4- and 16-byte vectors in fp32) with M 1, 10 and 32;
+    fp32 and bf16, links up and all erased. Returns the max |d| at the
+    main shape in fp32."""
     from repro_torch.kernels import weighted_agg as k2
     from repro_torch.kernels.ref import weighted_agg_ref
     main_err = None
-    for dtype in (torch.float32, torch.bfloat16):
-        stack, w, rows = _agg_inputs(10, 188_810, dtype, dev)
-        for any_ok in (True, False):
-            ok = torch.tensor(any_ok, device=dev)
-            out = k2.weighted_agg(stack[0], stack, w, 0.7, index=rows,
-                                  any_ok=ok)
-            torch.cuda.synchronize()
-            expect = weighted_agg_ref(stack[0], stack, w, 0.7, index=rows,
+    cases = [(10, AGG_P)] + [(M, stride) for stride in AGG_STRIDES
+                             for M in (1, 10, 32)]
+    for M, stride in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            buf, w, rows = _agg_inputs(M, stride, dtype, dev)
+            stack = buf[:, :AGG_P]               # rows of P, `stride` apart
+            for any_ok in (True, False):
+                ok = torch.tensor(any_ok, device=dev)
+                out = k2.weighted_agg(stack[0], stack, w, 0.7, index=rows,
                                       any_ok=ok)
-            diff = (out.float() - expect.float()).abs()
-            err = float(diff.max())
-            rel = float((diff / (1 + expect.float().abs())).max())
-            tol = AGG_TOL[dtype]
-            print(f"K2 M=10 P=188810 {str(dtype)[6:]} any_ok={any_ok}: "
-                  f"max|d|={err:.3g} max|d|/(1+|ref|)={rel:.3g} tol={tol:g}")
-            if not rel <= tol:
-                raise AssertionError(f"K2 disagrees with its plain version "
-                                     f"({dtype}, any_ok={any_ok}): {rel}")
-            if not any_ok and not torch.equal(out, stack[0]):
-                raise AssertionError("K2 with every link erased must "
-                                     "return own unchanged")
-            if main_err is None:
-                main_err = err
+                torch.cuda.synchronize()
+                expect = weighted_agg_ref(stack[0], stack, w, 0.7,
+                                          index=rows, any_ok=ok)
+                diff = (out.float() - expect.float()).abs()
+                err = float(diff.max())
+                rel = float((diff / (1 + expect.float().abs())).max())
+                tol = AGG_TOL[dtype]
+                print(f"K2 M={M} P={AGG_P} stride={stride} "
+                      f"{str(dtype)[6:]} any_ok={any_ok}: max|d|={err:.3g} "
+                      f"max|d|/(1+|ref|)={rel:.3g} tol={tol:g} "
+                      f"grid={k2.last_grid}")
+                if not rel <= tol:
+                    raise AssertionError(
+                        f"K2 disagrees with its plain version ({M}, "
+                        f"{stride}, {dtype}, any_ok={any_ok}): {rel}")
+                if not any_ok and not torch.equal(out, stack[0]):
+                    raise AssertionError("K2 with every link erased must "
+                                         "return own unchanged")
+                if main_err is None:
+                    main_err = err
     return main_err
 
 
@@ -456,6 +487,18 @@ def kernel_report(dev, sim, n1, n2, err1, err2):
     own = stack[0]
     k2_bytes = (M + 2) * P * 4 + M * 12 + 1
     k2_ops = (2 * M + 3) * P
+    # the same mix from a stack whose rows are 16-byte aligned (P padded by
+    # 2), for what padding the engine's stack would buy
+    padded = torch.zeros((stack.shape[0], P + 2), device=dev)
+    padded[:, :P] = stack
+    pstack = padded[:, :P]
+    vec = k2.vector_bytes((own.data_ptr(), own.data_ptr(),
+                           stack.data_ptr()), stack.stride(0) * 4,
+                          torch.float32)
+    pvec = k2.vector_bytes((pstack.data_ptr(), pstack.data_ptr()),
+                           pstack.stride(0) * 4, torch.float32)
+    k2._launch(own, stack, w, alpha, rows, ok, M)
+    grid = k2.last_grid
     k2_row = {
         "name": "weighted_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
@@ -474,7 +517,16 @@ def kernel_report(dev, sim, n1, n2, err1, err2):
         "bound_by": "bytes" if k2_bytes / bw >= k2_ops / fp32
         else "operations",
         "library_ms": time_ms(lambda: torch.addmv(
-            own, nb.T, w, beta=alpha, alpha=1 - alpha))}
+            own, nb.T, w, beta=alpha, alpha=1 - alpha)),
+        "library_cold_ms": cold_ms(lambda: torch.addmv(
+            own, nb.T, w, beta=alpha, alpha=1 - alpha), dev),
+        "vector_bytes": vec, "grid": grid,
+        "padded_stride": {
+            "stride": P + 2, "vector_bytes": pvec,
+            "ms": time_ms(lambda: k2._launch(pstack[0], pstack, w, alpha,
+                                             rows, ok, M)),
+            "cold_ms": cold_ms(lambda: k2._launch(pstack[0], pstack, w,
+                                                  alpha, rows, ok, M), dev)}}
     return [k1_row, k2_row]
 
 
@@ -496,8 +548,19 @@ def attention_report(dev, n3, err3):
     ops = 4 * Dh * pairs * B * H             # score and P.V multiply-adds
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    split_ms = SPLIT_TF32_TERMS * ops / TF32_FLOPS * 1e3
+    fp32_ms = ops / FP32_FLOPS * 1e3
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
     return {
         "name": "flash_attention", "route": "cuda",
+        "design": "split-TF32 wgmma (3 products in fp32, 1 for Q.K^T and 2 "
+                  "for P.V in bf16), TMA-fed K/V ring",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": n3, "max_abs_err": err3,
@@ -510,11 +573,36 @@ def attention_report(dev, n3, err3):
             q, k, v, causal=causal, window=window), iters=5, reps=5),
         "back_to_back_ms": back_to_back_ms(lambda: k3.flash_attention(
             q, k, v, causal=causal, window=window), iters=50),
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS
-        else "operations",
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))}
+        "bound_ms": max(bytes_ms, split_ms),
+        "bound_by": "bytes" if bytes_ms >= split_ms else "operations",
+        "bound_route": "split TF32: 3 x the FLOPs at 495 TFLOP/s",
+        "bound_fp32_cuda_core_ms": max(bytes_ms, fp32_ms),
+        "bound_bytes_ms": bytes_ms,
+        "ms_bf16": time_ms(lambda: k3._launch(qb, kb, vb, causal, window)),
+        "library_ms": time_ms(sdpa),
+        "library_backend": sdpa_backends(sdpa)}
+
+
+def sdpa_backends(fn) -> dict:
+    """Which SDPA backends run ``fn`` when restricted to each in turn, with
+    each one's steady ms; ``default`` names the one whose time the
+    unrestricted call matches (the backend the library time measured)."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # why each one refuses
+                times[backend.name] = time_ms(fn, iters=5, reps=5)
+        except RuntimeError:
+            times[backend.name] = None
+    ran = {k: v for k, v in times.items() if v is not None}
+    default = time_ms(fn, iters=5, reps=5)
+    pick = min(ran, key=lambda k: abs(ran[k] - default)) if ran else None
+    return {"default": pick, "default_ms": default, "restricted_ms": times}
 
 
 def profile_rounds(sim) -> None:

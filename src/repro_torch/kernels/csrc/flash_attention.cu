@@ -4,41 +4,84 @@
 // (flash_attention, Pallas body _attn_kernel). There the kv-block axis of
 // the grid runs in order and carries the running max m, the denominator l
 // and the accumulator in VMEM scratch; here one block owns a tile of query
-// rows and walks the K/V tiles in a loop, with m, l and its share of the
-// accumulator in registers.
+// rows and walks the K/V tiles in a loop, with m, l and the accumulator in
+// registers.
 //
 // Computes, for q (B, Sq, H, Dh) and k, v (B, Skv, KH, Dh), all contiguous,
 // G = H / KH and query head h = kh*G + g reading KV head kh:
 //   o[b, i, h] = sum_j softmax_j(s_ij) v[b, j, kh],
-//   s_ij = (q[b, i, h] / sqrt(Dh)) . k[b, j, kh]  over the unmasked j,
+//   s_ij = (q[b, i, h] . k[b, j, kh]) / sqrt(Dh)  over the unmasked j,
 // masked where causal and j > i, or where window > 0 and j <= i - window
 // (positions count from 0 on both sides, as in the reference). Masked
-// scores are NEG_INF and their probabilities are zeroed explicitly, so a
-// fully masked row gives 0 (acc / max(l, 1e-30)). fp32 arithmetic for fp32
+// scores are -inf while the running max starts at -1e30, so their
+// probabilities are exactly 0 and a fully masked row gives 0 (acc /
+// max(l, 1e-30)). fp32 arithmetic for fp32
 // and bf16 inputs; the output has q's type. Ragged Sq and Skv are masked
 // here, so nothing is padded.
 //
 // The GQA fold: the G query heads of one KV head are G adjacent rows of
-// the (Sq*G, Dh) row space (row = i*G + g), read in place by stride. A
-// block takes 64 such rows, so each K/V tile it loads serves all G heads.
+// the (Sq*G, Dh) row space (row = i*G + g), read in place by stride, so
+// each K/V tile a block loads serves all G heads.
 //
 // What bounds it on this card: operations at prefill lengths. Each
 // unmasked (query, key) pair of each head costs 4*Dh FLOPs (Dh
 // multiply-adds for the score, Dh for P.V). At smollm-135m's prefill
-// (B 8, S 1024, H 9, Dh 64, causal) that is 9.7 GFLOP: 0.145 ms at 67
-// TFLOP/s on the fp32 CUDA cores, or 0.0098 ms at 989 TFLOP/s bf16 on the
-// tensor cores; the 50 MB it must move take 0.015 ms at 3.35 TB/s.
+// (B 8, S 1024, H 9, Dh 64, causal) that is 9.7 GFLOP. The fp32 tolerance
+// of 2e-6 rules out plain TF32, so fp32 runs three TF32 products for each
+// (split TF32): 29 GFLOP at 495 TFLOP/s is 0.0588 ms; the same work on the
+// fp32 CUDA cores would take 0.145 ms at 67 TFLOP/s; the 50 MB it must move
+// take 0.015 ms at 3.35 TB/s.
 //
-// What the simple design does and leaves on the table: both products run
-// as fp32 FMAs on the CUDA cores (no TF32, for parity with the fp32
-// reference at 2e-6), each thread holding a 4x4 score tile and a 4 x Dh/16
-// slice of the accumulator, with operands read from shared memory as
-// float4 in a conflict-free pattern (row stride Dh+4, keys and rows strided
-// by 16 across threads). K/V tiles that lie wholly outside the causal or
-// window band are skipped. Left for later: wgmma on the tensor cores (bf16,
-// or TF32 where the tolerance allows), TMA loads into a ring of tiles
-// double-buffered against compute, warp specialisation, and a persistent
-// schedule that balances the causal triangle across SMs.
+// What the design does about it:
+// - Both products run on the tensor cores as wgmma.mma_async ... .tf32
+//   with fp32 accumulators. Each operand x is split into big =
+//   cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and a product is
+//   small.big + big.small + big.big, the two small terms accumulated first
+//   (split TF32, about fp32's accuracy). bf16 inputs widened to fp32 are
+//   exact in TF32, so for bf16 Q.K^T is one product and P.V two (P is
+//   computed in fp32 and split): one design, with the number of terms
+//   following the dtype. Q is not scaled before the product (1/sqrt(Dh)
+//   is applied to the scores), so bf16 Q stays exact.
+// - Warp roles: kWG consumer warpgroups of 128 threads, each owning 64
+//   folded (query, head) rows, and one producer warp. The producer keeps a
+//   ring of kStages raw K/V tiles in flight with TMA
+//   (cp.async.bulk.tensor.3d over the (B, Skv, KH*Dh) view, out-of-range
+//   keys zero-filled) and mbarriers (full: bytes landed; empty: consumers
+//   done with the raw tile). The tensor maps are encoded on the host per
+//   launch (they hold the base address) with cuTensorMapEncodeTiled,
+//   reached through cudaGetDriverEntryPoint, so no -lcuda is needed.
+// - TF32 wgmma takes only K-major operands from shared memory. Q (loaded
+//   once) and each K tile are K-major as stored; the V tile is MN-major
+//   for O = P.V, so the consumers write it transposed. All three are split
+//   into big and small parts on the way into the canonical no-swizzle
+//   layout (8 x 16-byte core matrices), which also lets the V keys be
+//   permuted within each group of 8 so that the S accumulator fragment is
+//   the A fragment of P.V without shuffles (a thread holds keys 2t, 2t+1
+//   of the accumulator and positions t, t+4 of the A operand).
+// - The online softmax (m, l and the masks, as a key range per row) runs
+//   on the S accumulator fragments in registers; a row's 4 threads share
+//   a quad, so its max and sum are two shfl_xor. With two warpgroups the
+//   second starts its Q.K^T when the first's is done (a named barrier),
+//   so each one's softmax overlaps the other's products.
+// - Shared memory: Q big/small, one set of K and V big/small tiles, and
+//   the raw ring: 192 KB for fp32 at Dh 64 (128 rows, 64-key tiles, 2
+//   stages) and at Dh 128 (64 rows, 32-key tiles, 2 stages), one block per
+//   SM.
+// - Causal schedule: the row tiles are the grid's slow axis, launched
+//   heaviest (last rows) first; K/V tiles wholly outside the causal or
+//   window band are skipped.
+// - No 128-byte swizzle: it exists to let TMA land row-major tiles that
+//   wgmma can read without bank conflicts. Here the consumers write the
+//   split operands themselves, straight into the canonical layout, whose
+//   core matrices are 128 contiguous bytes; each 8 threads write one.
+// - The tensor core truncates as it accumulates, so a P.V chain over every
+//   key drifts past the fp32 gate (3.5e-6 at smollm's prefill): each
+//   tile's P.V is summed in fresh registers and joins O in one fp32 FMA.
+// Left for later: overlapping the conversion with the products (the
+// split tiles are single-buffered, so the warpgroups meet at two barriers
+// a tile), and setmaxnreg for the consumers (ptxas gives 168 registers a
+// thread to 288 threads and spills a few bytes at Dh 64).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,12 +89,78 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // a 16 x 16 grid: tx picks keys/dims, ty rows
-constexpr int kRows = 64;       // folded (query, head) rows per block
-constexpr int kKeys = 64;       // keys per K/V tile
-constexpr int kPStride = kKeys + 4;
 constexpr float kNegInf = -1e30f;
 
+template <int DH> struct Cfg;
+template <> struct Cfg<64> {
+  static constexpr int kWG = 2, kKeys = 64, kStages = 2;
+};
+template <> struct Cfg<128> {
+  static constexpr int kWG = 1, kKeys = 32, kStages = 2;
+};
+
+// Shared memory of one block, in bytes from a 1024-aligned base.
+template <typename T, int DH>
+struct Layout {
+  static constexpr int kWG = Cfg<DH>::kWG, kKeys = Cfg<DH>::kKeys;
+  static constexpr int kStages = Cfg<DH>::kStages;
+  static constexpr int kRows = 64 * kWG;
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 32;   // + the producer warp
+  static constexpr uint32_t kQ = kRows * DH * 4;     // Q big, Q small
+  static constexpr uint32_t kKV = kKeys * DH * 4;    // K, V big and small
+  static constexpr uint32_t kTile = kKeys * DH * sizeof(T);  // raw K or V
+  static constexpr uint32_t kQb = 0, kQs = kQ, kKb = 2 * kQ,
+                            kKs = kKb + kKV, kVb = kKs + kKV,
+                            kVs = kVb + kKV, kRaw = kVs + kKV,
+                            kBars = kRaw + kStages * 2 * kTile;
+  static constexpr uint32_t kBytes = kBars + 2 * kStages * 8 + 1024;
+};
+
+// Byte offset of element (r, c) of an R-row operand whose contraction
+// index c is contiguous (K-major), in wgmma's canonical no-swizzle layout:
+// core matrices of 8 rows x 4 tf32 (16 B a row, 128 B in all); the two core
+// matrices of one k-step of 8 lie 128 B apart (the descriptor's leading
+// byte offset), 8-row groups 256 B apart (its stride byte offset), and
+// k-steps R*32 B apart.
+__device__ __forceinline__ uint32_t kmajor(int r, int c, int R) {
+  return (c >> 3) * (R * 32) + (r >> 3) * 256 + ((c >> 2) & 1) * 128 +
+         (r & 7) * 16 + (c & 3) * 4;
+}
+
+__device__ __forceinline__ uint64_t desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small to about fp32's precision, both exact in TF32
+__device__ __forceinline__ void split(float x, float& big, float& small) {
+  big = __uint_as_float(tf32(x));
+  small = __uint_as_float(tf32(x - big));
+}
+__device__ __forceinline__ void split4(const float4& x, float4& hi,
+                                       float4& lo) {
+  split(x.x, hi.x, lo.x);
+  split(x.y, hi.y, lo.y);
+  split(x.z, hi.z, lo.z);
+  split(x.w, hi.w, lo.w);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -63,241 +172,489 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
 }
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-__device__ __forceinline__ float get(const float4& x, int c) {
-  return c == 0 ? x.x : c == 1 ? x.y : c == 2 ? x.z : x.w;
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <int DH>
-constexpr size_t smem_bytes() {
-  return 3 * kRows * (DH + 4) * sizeof(float);   // Q, K (then P), V
+// ---- mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving reads of accumulators above the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 32) (+)= A . B^T, A and B read from shared memory by descriptor
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64) (+)= A . B^T, A and B read from shared memory by descriptor
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64) += A . B^T, A from registers (4 tf32 a thread), B read
+// from shared memory by descriptor
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
+}
+
+// barrier 1 over the consumer warpgroups only (the producer never joins)
+template <int N>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq,
+__global__ void __launch_bounds__(Layout<T, DH>::kThreads, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
+                       const __grid_constant__ CUtensorMap tmap_v,
+                       const T* __restrict__ q, T* __restrict__ o, int Sq,
                        int Skv, int H, int KH, int causal, int window,
                        float scale) {
-  constexpr int S = DH + 4;           // floats per shared row
-  constexpr int D4 = DH / 4;
-  constexpr int E = DH / 64;          // float4 groups of dims per thread
-  static_assert(kRows * kPStride <= kKeys * S, "P must fit in the K tile");
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kRows * S;
-  float* vs = ks + kKeys * S;
-  float* ps = ks;                     // P reuses K once scores are in registers
+  using L = Layout<T, DH>;
+  constexpr int kKeys = L::kKeys, kRows = L::kRows, kStages = L::kStages;
+  constexpr int kCons = L::kConsumers;
+  constexpr bool kSplitInputs = sizeof(T) == 4;  // bf16 is exact in TF32
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw_base);
+  const uint32_t full0 = base + L::kBars, empty0 = full0 + kStages * 8;
 
   const int G = H / KH;
-  const int kh = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
   const int n_rows = Sq * G;
-  const int row0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+  // keys these rows can see: K/V tiles outside the band are skipped
+  const int q_lo = row0 / G, q_hi = (min(row0 + kRows, n_rows) - 1) / G;
+  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int k_end = causal ? min(Skv, q_hi + 1) : Skv;
+  const int t_begin = k_begin / kKeys;
+  const int t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
+  const int tid = threadIdx.x;
 
-  // this block's query rows, scaled by 1/sqrt(Dh), zeros past the end
-  for (int i = tid; i < kRows * D4; i += kThreads) {
-    const int r = i / D4, c = (i % D4) * 4;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kCons);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kCons) {  // the producer warp: one thread drives the TMA ring
+    if (tid == kCons) {
+      for (int t = t_begin; t < t_end; ++t) {
+        const int i = t - t_begin, s = i % kStages;
+        mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t dst = base + L::kRaw + s * 2 * L::kTile;
+        mbar_expect_tx(full, 2 * L::kTile);
+        tma_load_3d(dst, &tmap_k, full, kh * DH, t * kKeys, b);
+        tma_load_3d(dst + L::kTile, &tmap_v, full, kh * DH, t * kKeys, b);
+      }
+    }
+    return;
+  }
+
+  // Q: this block's rows, unscaled, split, K-major; zeros past the end
+  for (int i = tid; i < kRows * (DH / 4); i += kCons) {
+    const int r = i / (DH / 4), c = (i % (DH / 4)) * 4;
     const int row = row0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < n_rows) {
       const int qi = row / G, g = row % G;
       x = load4(q + ((static_cast<int64_t>(b) * Sq + qi) * H + kh * G + g) *
                         DH + c);
-      x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
     }
-    store4(qs + r * S + c, x);
+    float4 hi, lo;
+    split4(x, hi, lo);
+    const uint32_t off = kmajor(r, c, kRows);
+    *reinterpret_cast<float4*>(smem + L::kQb + off) = hi;
+    if constexpr (kSplitInputs)
+      *reinterpret_cast<float4*>(smem + L::kQs + off) = lo;
   }
 
-  int qpos[4];
-  bool row_ok[4];
+  // this thread's two rows of the warpgroup's 64 (the accumulator layout)
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int t4 = lane % 4;
+  const int rA = row0 + wg * 64 + warp * 16 + lane / 4, rB = rA + 8;
+  const bool okA = rA < n_rows, okB = rB < n_rows;
+  const int posA = rA / G, posB = rB / G;
+  // the keys each of this thread's two rows sees are [lo, hi]
+  const int hiA = okA ? (causal ? min(posA, Skv - 1) : Skv - 1) : -1;
+  const int hiB = okB ? (causal ? min(posB, Skv - 1) : Skv - 1) : -1;
+  const int loA = window > 0 ? posA - window + 1 : 0;
+  const int loB = window > 0 ? posB - window + 1 : 0;
+  const uint32_t qb = base + L::kQb + wg * 2048, qs = base + L::kQs + wg * 2048;
+  const uint32_t kb = base + L::kKb, ks = base + L::kKs;
+  const uint32_t vb = base + L::kVb, vs = base + L::kVs;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  float acc[DH / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    row_ok[i] = row < n_rows;
-    qpos[i] = row / G;
-  }
-  // keys this tile of rows can see: skip K/V tiles outside the band
-  const int q_lo = row0 / G, q_hi = (min(row0 + kRows, n_rows) - 1) / G;
-  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
-  const int k_end = causal ? min(Skv, q_hi + 1) : Skv;
-  const int t_begin = k_begin / kKeys;
-  const int t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
-
-  float m[4], l[4], acc[4][4 * E];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int d = 0; d < 4 * E; ++d) acc[i][d] = 0.f;
-  }
+  for (int x = 0; x < DH / 2; ++x) acc[x] = 0.f;
 
   for (int t = t_begin; t < t_end; ++t) {
+    const int i = t - t_begin, s = i % kStages;
     const int key0 = t * kKeys;
-    __syncthreads();                  // the last tile's P.V is done with ps, vs
-    for (int i = tid; i < kKeys * D4; i += kThreads) {
-      const int r = i / D4, c = (i % D4) * 4;
-      const int key = key0 + r;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (key < Skv) {
-        const int64_t off =
-            ((static_cast<int64_t>(b) * Skv + key) * KH + kh) * DH + c;
-        kx = load4(k + off);
-        vx = load4(v + off);
-      }
-      store4(ks + r * S + c, kx);
-      store4(vs + r * S + c, vx);
+    consumers_sync<kCons>();  // every warpgroup is done with the last tile
+    mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+    const T* rk = reinterpret_cast<const T*>(smem + L::kRaw + s * 2 * L::kTile);
+    const T* rv = rk + kKeys * DH;
+    // K, split, K-major. Each 8 threads take rows r..r+7 at column groups
+    // rotated by the row, so reads and writes are free of bank conflicts.
+    for (int u = tid; u < kKeys * (DH / 4); u += kCons) {
+      const int j = u & 7, rest = u >> 3;
+      const int cc = rest % (DH / 4), r = (rest / (DH / 4)) * 8 + j;
+      const int c = ((cc & ~7) | ((cc + j) & 7)) * 4;
+      float4 hi, lo;
+      split4(load4(rk + r * DH + c), hi, lo);
+      const uint32_t off = kmajor(r, c, kKeys);
+      *reinterpret_cast<float4*>(smem + L::kKb + off) = hi;
+      if constexpr (kSplitInputs)
+        *reinterpret_cast<float4*>(smem + L::kKs + off) = lo;
     }
-    __syncthreads();
-
-    // scores for rows ty + 16i and keys tx + 16j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = load4(qs + (ty + 16 * i) * S + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = load4(ks + (tx + 16 * j) * S + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float x = fmaf(a[i].x, bk[j].x, s[i][j]);
-          x = fmaf(a[i].y, bk[j].y, x);
-          x = fmaf(a[i].z, bk[j].z, x);
-          s[i][j] = fmaf(a[i].w, bk[j].w, x);
-        }
+    // V transposed (row n = head dim, contraction over key positions),
+    // split. Position p of each group of 8 keys holds key 2*(p%4) + p/4, so
+    // the S fragment a thread holds (keys 2t, 2t+1) is its A fragment of
+    // P.V (positions t, t+4).
+    for (int u = tid; u < DH * (kKeys / 4); u += kCons) {
+      const int n = u % DH, p4 = u / DH;
+      const int k0 = (p4 >> 1) * 8 + (p4 & 1);
+      const float4 x = make_float4(
+          to_f32(rv[k0 * DH + n]), to_f32(rv[(k0 + 2) * DH + n]),
+          to_f32(rv[(k0 + 4) * DH + n]), to_f32(rv[(k0 + 6) * DH + n]));
+      float4 hi, lo;
+      split4(x, hi, lo);
+      const uint32_t off = kmajor(n, p4 * 4, DH);
+      *reinterpret_cast<float4*>(smem + L::kVb + off) = hi;
+      if constexpr (kSplitInputs)
+        *reinterpret_cast<float4*>(smem + L::kVs + off) = lo;
     }
+    mbar_arrive(empty0 + 8 * s);  // the raw tile may be refilled
+    // the split tiles were written by the generic proxy; wgmma reads them
+    // through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    consumers_sync<kCons>();
 
-    // online softmax; a row's 16 threads share one half-warp
+    // S = Q.K^T: small terms first. With two warpgroups the second starts
+    // its products when the first's are done, so that one's softmax runs
+    // while the other's products do.
+    if constexpr (L::kWG == 2)
+      if (wg == 1) asm volatile("bar.sync 2, 256;" ::: "memory");
+    float sc[kKeys / 2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool keep[4];
-      float mx = kNegInf;
+    for (int x = 0; x < kKeys / 2; ++x) sc[x] = 0.f;
+    wgmma_fence();
+    if constexpr (kSplitInputs) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = key0 + tx + 16 * j;
-        keep[j] = row_ok[i] && kp < Skv && (!causal || kp <= qpos[i]) &&
-                  (window <= 0 || kp > qpos[i] - window);
-        s[i][j] = keep[j] ? s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      for (int k8 = 0; k8 < DH / 8; ++k8)
+        wgmma_ss<kKeys>(sc, desc(qs + k8 * kRows * 32),
+                        desc(kb + k8 * kKeys * 32), k8 > 0);
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = keep[j] ? expf(s[i][j] - m_new) : 0.f;   // now P
-        sum += s[i][j];
-      }
-      l[i] = l[i] * corr + sum;       // this thread's keys; summed at the end
-      m[i] = m_new;
-#pragma unroll
-      for (int d = 0; d < 4 * E; ++d) acc[i][d] *= corr;
+      for (int k8 = 0; k8 < DH / 8; ++k8)
+        wgmma_ss<kKeys>(sc, desc(qb + k8 * kRows * 32),
+                        desc(ks + k8 * kKeys * 32), 1);
     }
+#pragma unroll
+    for (int k8 = 0; k8 < DH / 8; ++k8)
+      wgmma_ss<kKeys>(sc, desc(qb + k8 * kRows * 32),
+                      desc(kb + k8 * kKeys * 32), kSplitInputs || k8 > 0);
+    wgmma_commit_and_wait();
+    fence_regs(sc);
+    if constexpr (L::kWG == 2)
+      if (wg == 0) asm volatile("bar.arrive 2, 256;" ::: "memory");
 
-    __syncthreads();                  // every thread is done reading ks
+    // online softmax on the fragments: sc[4j + e] is (rA, key 8j + 2t4 + e)
+    // and sc[4j + 2 + e] is (rB, the same key)
+    float mxA = kNegInf, mxB = kNegInf;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-    // acc[rows ty + 16i, dims tx*4 + 64e .. +3] += P . V
-#pragma unroll 2
-    for (int kk = 0; kk < kKeys; kk += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = load4(ps + (ty + 16 * i) * kPStride + kk);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float4 vv[E];
-#pragma unroll
-        for (int e = 0; e < E; ++e) vv[e] = load4(vs + (kk + c) * S + tx * 4 + 64 * e);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = get(pr[i], c);
-#pragma unroll
-          for (int e = 0; e < E; ++e) {
-            acc[i][4 * e + 0] = fmaf(p, vv[e].x, acc[i][4 * e + 0]);
-            acc[i][4 * e + 1] = fmaf(p, vv[e].y, acc[i][4 * e + 1]);
-            acc[i][4 * e + 2] = fmaf(p, vv[e].z, acc[i][4 * e + 2]);
-            acc[i][4 * e + 3] = fmaf(p, vv[e].w, acc[i][4 * e + 3]);
-          }
-        }
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + 2 * t4 + e;
+        sc[4 * j + e] =
+            key >= loA && key <= hiA ? sc[4 * j + e] * scale : -INFINITY;
+        sc[4 * j + 2 + e] =
+            key >= loB && key <= hiB ? sc[4 * j + 2 + e] * scale : -INFINITY;
+        mxA = fmaxf(mxA, sc[4 * j + e]);
+        mxB = fmaxf(mxB, sc[4 * j + 2 + e]);
       }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, off));
+      mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, off));
+    }
+    const float mA = fmaxf(m_a, mxA), mB = fmaxf(m_b, mxB);
+    const float cA = expf(m_a - mA), cB = expf(m_b - mB);
+    m_a = mA;
+    m_b = mB;
+    uint32_t pb[kKeys / 2], ps[kKeys / 2];
+    float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+    for (int x = 0; x < kKeys / 2; ++x) {
+      const bool rowA = (x & 2) == 0;
+      const float p = expf(sc[x] - (rowA ? mA : mB));  // masked: exp(-inf)
+      if (rowA) sumA += p;
+      else sumB += p;
+      pb[x] = tf32(p);
+      ps[x] = tf32(p - __uint_as_float(pb[x]));
+    }
+    l_a = l_a * cA + sumA;  // this thread's keys; the quad sums at the end
+    l_b = l_b * cB + sumB;
+
+    // O = O*corr + P.V, 64 output columns at a time: the tile's P.V in
+    // fresh registers, small terms first, then one rounded fp32 FMA
+#pragma unroll
+    for (int c = 0; c < DH / 64; ++c) {
+      float pv[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) pv[x] = 0.f;
+      const uint32_t vbc = vb + c * 2048, vsc = vs + c * 2048;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+        wgmma_rs_n64(pv, ps[4 * j], ps[4 * j + 2], ps[4 * j + 1],
+                     ps[4 * j + 3], desc(vbc + j * DH * 32));
+      if constexpr (kSplitInputs) {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j)
+          wgmma_rs_n64(pv, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
+                       pb[4 * j + 3], desc(vsc + j * DH * 32));
+      }
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+        wgmma_rs_n64(pv, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
+                     pb[4 * j + 3], desc(vbc + j * DH * 32));
+      wgmma_commit_and_wait();
+      fence_regs(pv);
+#pragma unroll
+      for (int x = 0; x < 32; ++x)
+        acc[32 * c + x] = fmaf(acc[32 * c + x], (x & 2) ? cB : cA, pv[x]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      li += __shfl_xor_sync(0xffffffffu, li, off);
-    const int row = row0 + ty + 16 * i;
-    if (row < n_rows) {
-      const int qi = row / G, g = row % G;
-      T* dst = o + ((static_cast<int64_t>(b) * Sq + qi) * H + kh * G + g) * DH;
-      const float den = fmaxf(li, 1e-30f);
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        store4(dst + tx * 4 + 64 * e,
-               make_float4(acc[i][4 * e] / den, acc[i][4 * e + 1] / den,
-                           acc[i][4 * e + 2] / den, acc[i][4 * e + 3] / den));
-    }
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
+  const float dA = fmaxf(l_a, 1e-30f), dB = fmaxf(l_b, 1e-30f);
+  if (okA) {
+    T* dst = o + ((static_cast<int64_t>(b) * Sq + posA) * H + kh * G +
+                  rA % G) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      store2(dst + 8 * j + 2 * t4, acc[4 * j] / dA, acc[4 * j + 1] / dA);
+  }
+  if (okB) {
+    T* dst = o + ((static_cast<int64_t>(b) * Sq + posB) * H + kh * G +
+                  rB % G) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      store2(dst + 8 * j + 2 * t4, acc[4 * j + 2] / dB, acc[4 * j + 3] / dB);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) == cudaSuccess && p)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#endif
+  }
+  return fn;
+}
+
+// The (B, Skv, KH*Dh) view of k or v, read in boxes of (1, keys, Dh);
+// keys past Skv read as zeros. Returns 0, or kEncodeError + the CUresult.
+constexpr int kEncodeError = 10000;
+template <typename T>
+int encode(CUtensorMap* map, const void* base, int B, int Skv, int KH,
+           int DH, int keys) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t es = sizeof(T);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(KH) * DH,
+                              static_cast<cuuint64_t>(Skv),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {dims[0] * es, dims[0] * dims[1] * es};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(DH),
+                             static_cast<cuuint32_t>(keys), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int KH, int causal, int window,
            cudaStream_t st) {
-  static bool configured = false;     // the attribute holds per function
+  using L = Layout<T, DH>;
+  static bool configured = false;  // the attribute holds per function
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_attention_kernel<T, DH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<DH>()));
+        static_cast<int>(L::kBytes));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const int G = H / KH;
-  const dim3 grid((Sq * G + kRows - 1) / kRows, KH, B);
+  const long long tiles = (static_cast<long long>(Sq) * G + L::kRows - 1) /
+                          L::kRows;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_k, map_v;
+  int rc = encode<T>(&map_k, k, B, Skv, KH, DH, L::kKeys);
+  if (rc == 0) rc = encode<T>(&map_v, v, B, Skv, KH, DH, L::kKeys);
+  if (rc != 0) return rc;
+  const dim3 grid(B * KH, static_cast<unsigned>(tiles));
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
-  flash_attention_kernel<T, DH><<<grid, kThreads, smem_bytes<DH>(), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KH, causal,
-      window, scale);
+  flash_attention_kernel<T, DH><<<grid, L::kThreads, L::kBytes, st>>>(
+      map_k, map_v, static_cast<const T*>(q), static_cast<T*>(o), Sq, Skv, H,
+      KH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a head size other than 64 or 128.
-// q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); contiguous, of one type
-// (fp32, or bf16 when is_bf16), 16-byte (fp32) or 8-byte (bf16) aligned.
+// Launches on `stream`; returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for a head size other than 64 or 128 or more than
+// 65535 row tiles, or 10000 + the CUresult if a tensor map cannot be
+// encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); contiguous, of
+// one type (fp32, or bf16 when is_bf16), 16-byte aligned (TMA's rule).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int KH, int Dh,

@@ -12,18 +12,32 @@
 // device, so the round never syncs with the host to decide the erasure case.
 //
 // What bounds it on this card: 2*M+3 flops per element against (M+2)
-// elements moved, so device memory bounds it: (M+2)*P*sizeof(T) bytes. At
-// the pFedWN round's shape (M = 10, P = 188,810, fp32) that is 9.06 MB,
-// about 2.7 us at 3.35 TB/s.
+// elements moved, so memory bounds it: (M+2)*P*sizeof(T) bytes. At the
+// pFedWN round's shape (M = 10, P = 188,810, fp32) that is 9.06 MB, about
+// 2.7 us at 3.35 TB/s; in the round the stack is L2-resident, so a launch
+// and two dependent load latencies (index, then the rows) are most of it.
 //
-// What the design does about it: every input byte is read once and every
-// output byte written once, in one grid-stride pass with neighbouring
-// threads on neighbouring addresses. The neighbour rows are read in place
-// from the stacked (N, P) client buffer through `index`, so the (M, P)
-// gather is never materialised. The M weights are held in registers (the
-// component loop is unrolled to the maximum, 32, and predicated) and the M
-// row pointers are staged once per block in shared memory. The tail needs
-// no padding: the loop bound masks it.
+// What the design does about it:
+// - One persistent grid-stride pass, sized on the host from the occupancy
+//   of the instantiation so that it runs in one wave, and no larger than
+//   the work: the per-thread setup (M row numbers and M weights read
+//   straight into registers, no shared memory and no barrier) is paid once.
+// - M is a template parameter (0..32), so the weights and row pointers sit
+//   in registers with no predication and the component loop is unrolled to
+//   exactly M.
+// - Each thread moves U vectors of VB bytes per row per iteration (VB a
+//   template parameter picked by the wrapper from the alignment that every
+//   row base, the row stride, own and out share), and issues all (M+1)*U
+//   loads through the read-only path before the first FMA. A scalar tail
+//   covers the ragged end. The round's stack has a row stride of P =
+//   188,810 fp32 = 755,240 B, which is 8 (mod 16), so it gets 8-byte
+//   vectors.
+// - any_ok false copies own to out without reading a neighbour row.
+// - No TMA: 1-D bulk copies need 16-byte-aligned addresses and sizes,
+//   which the round's odd rows do not have, and a register stream with
+//   enough loads in flight keeps as many bytes in flight without them.
+// The neighbour rows are read in place from the stacked (N, P) client
+// buffer through `index`, so the (M, P) gather is never materialised.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,6 +46,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxComponents = 32;
+
+template <int VB> struct Vec;
+template <> struct Vec<16> { using type = uint4; };
+template <> struct Vec<8> { using type = uint2; };
+template <> struct Vec<4> { using type = unsigned int; };
+template <> struct Vec<2> { using type = unsigned short; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -46,61 +66,191 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T>
+// U = vectors per row per iteration: 2, or 1 where (M+1) rows of two
+// vectors would hold more than 256 bytes of loads in registers
+template <int M, int VB>
+__host__ __device__ constexpr int unroll() {
+  return (M + 1) * VB * 2 <= 256 ? 2 : 1;
+}
+
+template <typename T, int M, int VB>
 __global__ void __launch_bounds__(kThreads)
 weighted_agg_kernel(const T* __restrict__ own, const T* __restrict__ nb,
                     int64_t nb_stride, const int64_t* __restrict__ index,
                     const float* __restrict__ w,
                     const bool* __restrict__ any_ok, T* __restrict__ out,
-                    int M, int64_t P, float alpha, float beta) {
-  __shared__ const T* rows[kMaxComponents];
-  if (threadIdx.x < M) {
-    const int64_t r = index ? index[threadIdx.x] : threadIdx.x;
-    rows[threadIdx.x] = nb + r * nb_stride;
-  }
-  __syncthreads();
-  const bool keep_own = any_ok != nullptr && !*any_ok;
-  float wr[kMaxComponents];
-#pragma unroll
-  for (int m = 0; m < kMaxComponents; ++m) wr[m] = m < M ? w[m] : 0.f;
+                    int64_t P, float alpha, float beta) {
+  using V = typename Vec<VB>::type;
+  constexpr int E = VB / static_cast<int>(sizeof(T));   // elements a vector
+  constexpr int U = unroll<M, VB>();
+  const int64_t n_vec = P / E;
+  const int64_t tid =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t n_threads = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const V* own_v = reinterpret_cast<const V*>(own);
+  V* out_v = reinterpret_cast<V*>(out);
 
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       p < P; p += step) {
-    const float o = to_f32(own[p]);
+  if (any_ok != nullptr && !*any_ok) {        // every link erased: out = own
+    for (int64_t i = tid; i < n_vec; i += n_threads)
+      out_v[i] = __ldg(own_v + i);
+    for (int64_t p = n_vec * E + tid; p < P; p += n_threads) out[p] = own[p];
+    return;
+  }
+
+  constexpr int MA = M > 0 ? M : 1;           // M = 0 mixes in nothing
+  const V* rows[MA];
+  float wr[MA];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int64_t r = index ? __ldg(index + m) : m;
+    rows[m] = reinterpret_cast<const V*>(nb + r * nb_stride);
+    wr[m] = __ldg(w + m);
+  }
+
+  for (int64_t base = tid; base < n_vec; base += U * n_threads) {
+    V o[U], x[MA][U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t i = base + u * n_threads;
+      if (i < n_vec) {
+        o[u] = __ldg(own_v + i);
+#pragma unroll
+        for (int m = 0; m < M; ++m) x[m][u] = __ldg(rows[m] + i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t i = base + u * n_threads;
+      if (i >= n_vec) continue;
+      float acc[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const T* xe = reinterpret_cast<const T*>(&x[m][u]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = fmaf(wr[m], to_f32(xe[e]), acc[e]);
+      }
+      const T* oe = reinterpret_cast<const T*>(&o[u]);
+      V res;
+      T* re = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        re[e] = from_f32<T>(alpha * to_f32(oe[e]) + beta * acc[e]);
+      out_v[i] = res;
+    }
+  }
+
+  // the ragged end, fewer than E elements past the last whole vector
+  for (int64_t p = n_vec * E + tid; p < P; p += n_threads) {
     float acc = 0.f;
 #pragma unroll
-    for (int m = 0; m < kMaxComponents; ++m)
-      if (m < M) acc += wr[m] * to_f32(rows[m][p]);
-    out[p] = from_f32<T>(keep_own ? o : alpha * o + beta * acc);
+    for (int m = 0; m < M; ++m)
+      acc = fmaf(wr[m], to_f32(reinterpret_cast<const T*>(rows[m])[p]), acc);
+    out[p] = from_f32<T>(alpha * to_f32(own[p]) + beta * acc);
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+template <typename T, int M, int VB>
+int launch(const void* own, const void* nb, long long nb_stride,
+           const int64_t* idx, const float* w, const bool* ok, void* out,
+           long long P, float alpha, float beta, int* grid_out,
+           cudaStream_t st) {
+  static int resident = 0;                    // blocks per SM, per function
+  if (resident == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, weighted_agg_kernel<T, M, VB>, kThreads, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int sms = sm_count();
+  if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  constexpr int E = VB / static_cast<int>(sizeof(T));
+  const long long per_block =
+      static_cast<long long>(kThreads) * unroll<M, VB>() * E;
+  const long long need = (P + per_block - 1) / per_block;
+  const int grid = static_cast<int>(
+      need < 1 ? 1 : (need < resident * sms ? need : resident * sms));
+  if (grid_out) *grid_out = grid;
+  weighted_agg_kernel<T, M, VB><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(own), static_cast<const T*>(nb), nb_stride, idx,
+      w, ok, static_cast<T*>(out), P, alpha, beta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VB, int M = 0>
+int launch_m(int m, const void* own, const void* nb, long long nb_stride,
+             const int64_t* idx, const float* w, const bool* ok, void* out,
+             long long P, float alpha, float beta, int* grid_out,
+             cudaStream_t st) {
+  if (m == M)
+    return launch<T, M, VB>(own, nb, nb_stride, idx, w, ok, out, P, alpha,
+                            beta, grid_out, st);
+  if constexpr (M < kMaxComponents)
+    return launch_m<T, VB, M + 1>(m, own, nb, nb_stride, idx, w, ok, out, P,
+                                  alpha, beta, grid_out, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_vb(int vb, int m, const void* own, const void* nb,
+              long long nb_stride, const int64_t* idx, const float* w,
+              const bool* ok, void* out, long long P, float alpha, float beta,
+              int* grid_out, cudaStream_t st) {
+  switch (vb) {
+    case 16:
+      return launch_m<T, 16>(m, own, nb, nb_stride, idx, w, ok, out, P,
+                             alpha, beta, grid_out, st);
+    case 8:
+      return launch_m<T, 8>(m, own, nb, nb_stride, idx, w, ok, out, P, alpha,
+                            beta, grid_out, st);
+    case 4:
+      return launch_m<T, 4>(m, own, nb, nb_stride, idx, w, ok, out, P, alpha,
+                            beta, grid_out, st);
+    case 2:
+      if constexpr (sizeof(T) == 2)
+        return launch_m<T, 2>(m, own, nb, nb_stride, idx, w, ok, out, P,
+                              alpha, beta, grid_out, st);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-// own, out: (P,); nb: rows of nb_stride elements, each with P contiguous;
-// index: (M,) int64 row numbers, or null for rows 0..M-1; w: (M,) fp32;
-// any_ok: one bool, or null for "some link survived". M <= 32.
+// Launches on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for M outside 0..32 or a vector width the type
+// does not take. own, out: (P,); nb: rows of nb_stride elements, each with
+// P contiguous; index: (M,) int64 row numbers, or null for rows 0..M-1; w:
+// (M,) fp32; any_ok: one bool, or null for "some link survived". vec_bytes
+// (16, 8, 4, or 2 for bf16) must divide own, out, nb and nb_stride in
+// bytes. grid_out, when not null, receives the number of blocks launched.
 extern "C" int weighted_agg_launch(const void* own, const void* nb,
                                    long long nb_stride, const void* index,
                                    const void* w, const void* any_ok,
                                    void* out, int M, long long P, float alpha,
-                                   float beta, int is_bf16, int n_blocks,
-                                   void* stream) {
+                                   float beta, int is_bf16, int vec_bytes,
+                                   int* grid_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t* idx = static_cast<const int64_t*>(index);
   const float* wp = static_cast<const float*>(w);
   const bool* ok = static_cast<const bool*>(any_ok);
-  if (is_bf16) {
-    weighted_agg_kernel<__nv_bfloat16><<<n_blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(own),
-        static_cast<const __nv_bfloat16*>(nb), nb_stride, idx, wp, ok,
-        static_cast<__nv_bfloat16*>(out), M, P, alpha, beta);
-  } else {
-    weighted_agg_kernel<float><<<n_blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(own), static_cast<const float*>(nb),
-        nb_stride, idx, wp, ok, static_cast<float*>(out), M, P, alpha, beta);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (is_bf16)
+    return launch_vb<__nv_bfloat16>(vec_bytes, M, own, nb, nb_stride, idx,
+                                    wp, ok, out, P, alpha, beta, grid_out,
+                                    st);
+  return launch_vb<float>(vec_bytes, M, own, nb, nb_stride, idx, wp, ok, out,
+                          P, alpha, beta, grid_out, st);
 }

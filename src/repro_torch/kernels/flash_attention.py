@@ -10,6 +10,11 @@ a CPU tensor it runs the plain version :func:`~repro_torch.kernels.ref.
 flash_attention_ref`. Ragged Sq and Skv are masked in the kernel, where
 the reference's Pallas kernel refuses them. Forward only: the reference
 has no backward kernel either.
+
+The kernel multiplies on the tensor cores (``wgmma`` in TF32 with every
+operand split into a big and a small TF32 part, so fp32 keeps fp32's
+accuracy) and reads K and V through TMA, which needs 16-byte-aligned
+bases; the wrapper raises on anything less.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (64, 128)
+ALIGN = 16                   # bytes; TMA reads k and v from 16-byte bases
 launches = 0                 # kernel launches since the last reset
 
 _lib = None
@@ -72,10 +78,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
-    align = 16 if q.dtype == torch.float32 else 8
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % align:
-            raise ValueError(f"{name} must be {align}-byte aligned")
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name} must be {ALIGN}-byte aligned (TMA)")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _library().flash_attention_launch(

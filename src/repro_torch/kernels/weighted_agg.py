@@ -25,9 +25,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import weighted_agg_ref
 
 MAX_COMPONENTS = 32
-THREADS = 256                # matches kThreads in the CUDA source
-BLOCKS_PER_SM = 8
+# vector widths in bytes the kernel is instantiated for, widest first
+VECTOR_BYTES = {torch.float32: (16, 8, 4), torch.bfloat16: (16, 8, 4, 2)}
 launches = 0                 # kernel launches since the last reset
+last_grid = 0                # blocks in the last launch
 
 _lib = None
 
@@ -40,7 +41,8 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         lib.weighted_agg_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -79,23 +81,39 @@ def _check(own, neighbors, w, index, any_ok) -> int:
     return M
 
 
+def vector_bytes(addresses, row_stride_bytes: int,
+                 dtype: torch.dtype) -> int:
+    """The widest vector, in bytes, that the kernel can move for ``dtype``
+    when every address in ``addresses`` (own, out and the neighbour stack's
+    base) and the row stride in bytes are multiples of it: then every
+    neighbour row starts on a vector too, whichever rows ``index`` picks."""
+    for vb in VECTOR_BYTES[dtype]:
+        if row_stride_bytes % vb == 0 and all(a % vb == 0 for a in addresses):
+            return vb
+    raise ValueError(f"{dtype} buffers must be aligned to their element "
+                     f"size; got addresses {list(addresses)} and a row "
+                     f"stride of {row_stride_bytes} bytes")
+
+
 def _launch(own, neighbors, w, alpha, index, any_ok, M) -> torch.Tensor:
-    global launches
+    global launches, last_grid
     P = own.shape[0]
     out = torch.empty_like(own)
-    sms = torch.cuda.get_device_properties(own.device).multi_processor_count
-    n_blocks = max(1, min(-(-P // THREADS), sms * BLOCKS_PER_SM))
+    vb = vector_bytes((own.data_ptr(), out.data_ptr(), neighbors.data_ptr()),
+                      neighbors.stride(0) * own.element_size(), own.dtype)
     stream = torch.cuda.current_stream(own.device).cuda_stream
+    grid = ctypes.c_int(0)
     rc = _library().weighted_agg_launch(
         own.data_ptr(), neighbors.data_ptr(), neighbors.stride(0),
         None if index is None else index.data_ptr(), w.data_ptr(),
         None if any_ok is None else any_ok.data_ptr(), out.data_ptr(), M, P,
-        float(alpha), float(1 - alpha), int(own.dtype == torch.bfloat16),
-        n_blocks, stream)
+        float(alpha), float(1 - alpha), int(own.dtype == torch.bfloat16), vb,
+        ctypes.byref(grid), stream)
     if rc != 0:
         raise RuntimeError(f"weighted_agg kernel launch failed: CUDA error "
                            f"{rc}")
     launches += 1
+    last_grid = grid.value
     return out
 
 

@@ -123,3 +123,91 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
         k3.flash_attention(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError):   # no CPU fallback for other devices
         k3.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, keeping 10
+    of the 23 mantissa bits (finite inputs)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b from split TF32 operands, small terms first, in fp32: each
+    product of two TF32 numbers is exact in fp32, as in the tensor core."""
+    ab, as_ = _split(a)
+    bb, bs = _split(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulate_k3_fp32(q, k, v, causal, window, keys,
+                     product=_split_product):
+    """K3's fp32 arithmetic on the CPU: unscaled Q, split-TF32 products for
+    Q.K^T and P.V, the scale applied to the scores, and an fp32 online
+    softmax over tiles of ``keys`` keys, each tile's P.V joining the sum in
+    fp32. q (Sq, Dh), k and v (Skv, Dh). It rounds the operands as the
+    kernel does; the tensor core's own order of summation is not
+    modelled."""
+    Sq, Dh = q.shape
+    Skv = k.shape[0]
+    scale = torch.tensor(1.0 / np.sqrt(Dh), dtype=torch.float32)
+    qpos = torch.arange(Sq)[:, None]
+    m = torch.full((Sq, 1), -1e30)
+    l = torch.zeros((Sq, 1))
+    acc = torch.zeros((Sq, Dh))
+    for k0 in range(0, Skv, keys):
+        kt, vt = k[k0:k0 + keys], v[k0:k0 + keys]
+        kpos = torch.arange(k0, k0 + kt.shape[0])[None, :]
+        keep = torch.ones((Sq, kt.shape[0]), dtype=torch.bool)
+        if causal:
+            keep &= kpos <= qpos
+        if window:
+            keep &= kpos > qpos - window
+        s = torch.where(keep, product(q, kt.T) * scale,
+                        torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.max(1, keepdim=True).values)
+        corr = torch.exp(m - m_new)
+        p = torch.where(keep, torch.exp(s - m_new), torch.tensor(0.0))
+        l = l * corr + p.sum(1, keepdim=True)
+        acc = acc * corr + product(p, vt)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
+@pytest.mark.parametrize("S,Dh,causal,window,keys", [
+    (256, 64, True, 0, 64),       # the main path's Dh and key tile
+    (200, 64, False, 0, 64),      # ragged, non-causal
+    (160, 128, True, 0, 32),      # Dh 128 runs 32-key tiles
+    (384, 128, True, 96, 32)])    # the reference's window case
+def test_split_tf32_arithmetic_meets_the_fp32_gate(S, Dh, causal, window,
+                                                   keys):
+    """K3's fp32 route multiplies on the tensor cores in split TF32. Its
+    arithmetic, emulated in torch, stays within the fp32 gate (2e-6, atol
+    and rtol) of an fp64 reference, and one TF32 product would not."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(S, Dh)).astype(np.float32))
+               for _ in range(3))
+    got = _emulate_k3_fp32(q, k, v, causal, window, keys)
+    pos = np.arange(S)
+    keep = np.ones((S, S), bool)
+    if causal:
+        keep &= pos[None, :] <= pos[:, None]
+    if window:
+        keep &= pos[None, :] > pos[:, None] - window
+    s = q.double().numpy() @ k.double().numpy().T / np.sqrt(Dh)
+    s = np.where(keep, s, -np.inf)
+    p = np.exp(s - s.max(1, keepdims=True))
+    expect = (p / p.sum(1, keepdims=True)) @ v.double().numpy()
+    np.testing.assert_allclose(got.numpy(), expect, atol=2e-6, rtol=2e-6)
+    plain_tf32 = _emulate_k3_fp32(q, k, v, causal, window, keys,
+                                  product=_tf32_product).double().numpy()
+    assert not np.allclose(plain_tf32, expect, atol=2e-6, rtol=2e-6)

@@ -78,6 +78,36 @@ def test_weighted_agg_kernel_matches_plain_on_card(cuda, M, P, dtype, any_ok):
                                rtol=tol)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [188_810, 188_811, 188_812])
+@pytest.mark.parametrize("M", [1, 10, 32])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("any_ok", [True, False])
+def test_weighted_agg_kernel_alignment_sweep_on_card(cuda, stride, M, dtype,
+                                                     any_ok):
+    """Row strides that give the kernel 8-, 4- and 16-byte vectors in fp32
+    (4-, 2- and 8-byte in bf16), with the ragged tail that P = 188,810
+    leaves, at the extremes of M and the round's M."""
+    tdtype = DTYPES[dtype]
+    P = 188_810
+    rng = np.random.default_rng(1)
+    buf = torch.from_numpy(rng.normal(size=(M + 1, stride)).astype(
+        np.float32)).to(device=cuda, dtype=tdtype)
+    stack = buf[:, :P]                      # rows of P, `stride` apart
+    rows = torch.arange(M, 0, -1, device=cuda)
+    w = torch.softmax(torch.from_numpy(rng.normal(size=M)).float(), 0).to(cuda)
+    ok = torch.tensor(any_ok, device=cuda)
+    before = k2.launches
+    out = k2.weighted_agg(stack[0], stack, w, 0.7, index=rows, any_ok=ok)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    expect = tref.weighted_agg_ref(stack[0], stack, w, 0.7, index=rows,
+                                   any_ok=ok)
+    tol = 1e-6 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), expect.float(), atol=tol,
+                               rtol=tol)
+
+
 # the reference's sweep (tests/test_kernels.py) and ragged shapes:
 # (B, Sq, Skv, H, KH, Dh, causal, window)
 ATTN_SHAPES = [
@@ -90,6 +120,23 @@ ATTN_SHAPES = [
     (3, 1, 77, 12, 4, 128, True, 0),
     (1, 77, 50, 16, 1, 64, False, 20),
 ]
+# tile edges: folded rows Sq*G just below, at and just above 64 and 128
+# (a consumer warpgroup's rows, and a block's at Dh 64), and Skv just off
+# the key tile (64 keys at Dh 64, 32 at Dh 128)
+EDGE_SHAPES = [
+    (1, 63, 65, 1, 1, 64, False, 0),
+    (1, 64, 63, 1, 1, 64, True, 0),
+    (1, 65, 129, 1, 1, 64, False, 0),
+    (2, 42, 43, 3, 1, 64, True, 0),      # 126 rows
+    (1, 64, 127, 2, 1, 64, False, 0),    # 128 rows
+    (1, 43, 65, 3, 1, 64, True, 0),      # 129 rows
+    (1, 63, 31, 1, 1, 128, False, 0),
+    (1, 32, 33, 2, 1, 128, True, 0),     # 64 rows
+    (1, 65, 97, 1, 1, 128, False, 0),
+    (1, 127, 95, 1, 1, 128, False, 0),
+    (1, 64, 64, 2, 1, 128, True, 0),     # 128 rows
+    (1, 43, 33, 3, 1, 128, True, 16),    # 129 rows, a window
+]
 
 
 def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
@@ -100,7 +147,8 @@ def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,Sq,Skv,H,KH,Dh,causal,window", ATTN_SHAPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,Dh,causal,window",
+                         ATTN_SHAPES + EDGE_SHAPES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
                                                       Dh, causal, window,

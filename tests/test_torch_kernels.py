@@ -270,3 +270,41 @@ def test_weighted_agg_rejects_what_the_kernel_does_not_take():
                                                          dtype=torch.int32))
     with pytest.raises(ValueError):   # no CPU fallback for other devices
         k2.weighted_agg(o.to("meta"), n.to("meta"), w.to("meta"), 0.5)
+
+
+@pytest.mark.parametrize("addresses,stride,dtype,expect", [
+    # the round's stack: P = 188,810 fp32 is a row stride of 755,240 B,
+    # 8 (mod 16), so odd rows are only 8-byte aligned
+    ((1 << 20, 2 << 20, 3 << 20), 188_810 * 4, torch.float32, 8),
+    ((1 << 20, 2 << 20, 3 << 20), 188_812 * 4, torch.float32, 16),
+    ((1 << 20, 2 << 20, 3 << 20), 188_811 * 4, torch.float32, 4),
+    ((1 << 20, 2 << 20, 3 << 20), 188_810 * 2, torch.bfloat16, 4),
+    ((1 << 20, 2 << 20, 3 << 20), 188_811 * 2, torch.bfloat16, 2),
+    ((1 << 20, 2 << 20, 3 << 20), 188_812 * 2, torch.bfloat16, 8),
+    ((1 << 20, 2 << 20, 3 << 20), 188_816 * 2, torch.bfloat16, 16),
+    # own is row 1 of a stack: its address sets the width
+    ((1 << 20, (1 << 20) + 755_240, 4 << 20), 188_812 * 4, torch.float32,
+     8),
+    (((1 << 20) + 4, 2 << 20, 3 << 20), 64 * 4, torch.float32, 4),
+    ((1 << 20, 2 << 20, (3 << 20) + 2), 64 * 2, torch.bfloat16, 2),
+])
+def test_weighted_agg_vector_width_follows_alignment(addresses, stride,
+                                                     dtype, expect):
+    """K2's wrapper picks the widest vector that every row base (the
+    stack's base plus any multiple of the row stride), own and out share."""
+    vb = k2.vector_bytes(addresses, stride, dtype)
+    assert vb == expect
+    assert vb in k2.VECTOR_BYTES[dtype]
+    for a in addresses:
+        assert a % vb == 0
+    assert stride % vb == 0
+
+
+@pytest.mark.parametrize("addresses,stride,dtype", [
+    ((2, 64, 128), 64, torch.float32),      # fp32 not 4-byte aligned
+    ((4, 64, 128), 66, torch.float32),
+    ((1, 64, 128), 64, torch.bfloat16)])    # bf16 not 2-byte aligned
+def test_weighted_agg_vector_width_refuses_misaligned_buffers(addresses,
+                                                              stride, dtype):
+    with pytest.raises(ValueError):
+        k2.vector_bytes(addresses, stride, dtype)
