@@ -28,6 +28,7 @@ from repro_torch.kernels import _build  # noqa: E402
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _USED = re.compile(r"Used (\d+) registers(?:, used (\d+) barriers)?"
+                   r"(?:, \d+ bytes cumulative stack size)?"
                    r"(?:, (\d+) bytes smem)?")
 _SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads")

@@ -7,7 +7,11 @@ Phases, each of which stops the run on failure:
   1. print the card's name and power limit; turn TF32 off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. hold K1 (the EM E-step) against its plain version on the card, at the
-     pFedWN round's shape and the reference's test sweep, fp32 and bf16;
+     pFedWN round's shape, the reference's test sweep, both sides of each
+     of the kernel's team-size and token-tile switches (V up to
+     smollm-135m's vocabulary of 49,152, M 1 to 32), labels at a row's
+     ends, a view 4 bytes off an 8-byte boundary and logits 100x the
+     sweep's, fp32 and bf16;
   4. hold K2 (the Eq-1 mix) against its plain version at the cifar10-cnn
      shape (P = 188,810, M = 10), then at row strides of 188,810, 188,811
      and 188,812 with M = 1, 10 and 32; fp32 and bf16, links up and all
@@ -26,9 +30,10 @@ Phases, each of which stops the run on failure:
      full width (smollm-135m, 8 prompts of 1024 tokens, 32 generated) and
      check that K3 carried every layer of the prefill;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
-     at the main paths' shapes (K2 also from a 16-byte-aligned stride, K3
-     also in bf16, SDPA under each backend) and print them as one JSON
-     line;
+     at the main paths' shapes (K1 also in bf16 and at smollm-135m's
+     vocabulary, K2 also from a 16-byte-aligned stride, K3 also in bf16,
+     SDPA under each backend) beside the card's floor (a 1-element
+     ``zero_()`` in the same bracket) and print them as one JSON line;
   9. with ``--profile`` only: profile two pFedWN rounds and one serving run
      with ``torch.profiler``.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -53,6 +58,27 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}      # K1 (test_kernels.py)
 AGG_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}  # K2 (test_kernels.py)
 ATTN_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}  # K3 (test_kernels.py)
 SERVE_TOL = 1e-4             # card vs CPU logits, fp32 with TF32 off
+# K1 shapes (M, T, V): the round's (cifar10-cnn, em_subset 512, M 10),
+# the reference's sweep, then both sides of each team-size switch (V 1, 2,
+# 16, 17, 31, 32, 33, 512, 520, 1024, 1025, 49,152), M 1, 16, 17 and 32,
+# and T off the token tile (515, 700 and 4099 tokens leave 3, 4 and 3 in
+# the last tile)
+EM_MAIN = (10, 512, 10)
+EM_VOCAB = (8, 512, 49_152)   # smollm-135m's vocabulary, 8 components
+EM_SHAPES = [EM_MAIN, (2, 128, 512), (4, 128, 1024), (8, 256, 512),
+             (3, 384, 1536), (3, 37, 10), (1, 16, 1), (16, 37, 2),
+             (4, 33, 16), (4, 33, 17), (17, 53, 31), (32, 9, 32),
+             (1, 100, 33), (5, 20, 512), (3, 24, 520), (16, 33, 1024),
+             (17, 20, 1025), (32, 16, 1025), (8, 16, 49_152), (10, 515, 10),
+             (2, 700, 33), (1, 4099, 10)]
+# further K1 cases: (shape, logit scale, view offset in elements, labels at
+# the row's ends); an offset of 1 fp32 / 2 bf16 elements is 4 bytes past an
+# 8-byte boundary
+EM_CASES = [(EM_MAIN, 100, 0, False), ((3, 64, 1024), 100, 0, False),
+            ((4, 16, 49_152), 100, 0, False), (EM_MAIN, 3, 1, False),
+            ((3, 37, 1024), 3, 1, False), (EM_MAIN, 3, 0, True),
+            ((3, 40, 33), 3, 0, True), ((2, 16, 1025), 3, 0, True),
+            ((8, 16, 49_152), 3, 0, True)]
 # K3 shapes: (B, Sq, Skv, H, KH, Dh, causal, window); the first is the main
 # path's (smollm-135m's prefill of 8 x 1024 tokens)
 ATTN_MAIN = (8, 1024, 1024, 9, 3, 64, True, 0)
@@ -93,13 +119,27 @@ def _phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def _em_inputs(M, T, V, dtype, dev, seed=0):
+def _em_inputs(M, T, V, dtype, dev, seed=0, scale=3, offset=0,
+               ends=False):
+    """π, logits (M, T, V) and labels from ``seed``: normal logits times
+    ``scale``, held in a contiguous view ``offset`` elements into its
+    buffer; with ``ends`` the labels alternate between 0 and V − 1. From
+    numpy below a few million logits, else from a generator on the card."""
     rng = np.random.default_rng(seed)
     pi = torch.softmax(torch.from_numpy(rng.normal(size=M)).float(), 0)
-    logits = torch.from_numpy((rng.normal(size=(M, T, V)) * 3)
-                              .astype(np.float32))
     labels = torch.from_numpy(rng.integers(0, V, T).astype(np.int64))
-    return pi.to(dev), logits.to(device=dev, dtype=dtype), labels.to(dev)
+    if ends:
+        labels = torch.where(torch.arange(T) % 2 == 0, 0, V - 1)
+    flat = torch.empty(M * T * V + offset, dtype=dtype, device=dev)
+    logits = flat[offset:].view(M, T, V)
+    if M * T * V <= 1 << 22:
+        logits.copy_(torch.from_numpy(
+            (rng.normal(size=(M, T, V)) * scale).astype(np.float32)))
+    else:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        logits.copy_(torch.randn((M, T, V), generator=g, device=dev)
+                     .mul_(scale))
+    return pi.to(dev), logits, labels.to(dev)
 
 
 def _agg_inputs(M, P, dtype, dev, seed=0):
@@ -110,31 +150,38 @@ def _agg_inputs(M, P, dtype, dev, seed=0):
     return stack.to(device=dev, dtype=dtype), w.to(dev), rows.to(dev)
 
 
-def check_em_posterior(dev) -> float:
-    """K1 against its plain version at every checked shape; raises past
-    tolerance. Returns the max |λ| and |ℓ| error at the main-path shape in
-    fp32."""
+def _em_error(args):
+    """One K1 launch on ``args`` against the plain version: (max |dλ|,
+    max |dℓ|, max |dℓ|/(1+|ℓ|))."""
     from repro_torch.kernels import em_posterior as k1
     from repro_torch.kernels.ref import em_posterior_ref
-    main_err = None
-    for M, T, V in [(10, 512, 10), (2, 128, 512), (4, 128, 1024),
-                    (8, 256, 512), (3, 384, 1536), (3, 37, 10)]:
+    lam, ell = k1.em_posterior_forward(*args)
+    torch.cuda.synchronize()
+    plam, pell = em_posterior_ref(*args)
+    d_ell = (ell - pell).abs()
+    return (float((lam - plam).abs().max()), float(d_ell.max()),
+            float((d_ell / (1 + pell.abs())).max()))
+
+
+def check_em_posterior(dev) -> None:
+    """K1 against its plain version at every checked shape and case, fp32
+    and bf16; raises past tolerance."""
+    cases = [(shape, 3, 0, False) for shape in EM_SHAPES] + EM_CASES
+    for (M, T, V), scale, offset, ends in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            args = _em_inputs(M, T, V, dtype, dev)
-            lam, ell = k1.em_posterior_forward(*args)
-            torch.cuda.synchronize()
-            plam, pell = em_posterior_ref(*args)
-            err_l = float((lam - plam).abs().max())
-            err_c = float(((ell - pell).abs() / (1 + pell.abs())).max())
+            args = _em_inputs(M, T, V, dtype, dev, scale=scale,
+                              offset=offset * (2 if dtype == torch.bfloat16
+                                               else 1), ends=ends)
+            err_l, _, err_c = _em_error(args)
             err = max(err_l, err_c)
-            print(f"K1 M={M} T={T} V={V} {str(dtype)[6:]}: max|dλ|={err_l:.3g}"
-                  f" max|dℓ|/(1+|ℓ|)={err_c:.3g} tol={TOL[dtype]:g}")
+            print(f"K1 M={M} T={T} V={V} {str(dtype)[6:]} scale={scale} "
+                  f"offset={args[1].data_ptr() % 16}B ends={ends}: "
+                  f"max|dλ|={err_l:.3g} max|dℓ|/(1+|ℓ|)={err_c:.3g} "
+                  f"tol={TOL[dtype]:g}")
             if not err <= TOL[dtype]:
-                raise AssertionError(f"K1 disagrees with its plain version "
-                                     f"at {(M, T, V, dtype)}: {err}")
-            if main_err is None:
-                main_err = max(err_l, float((ell - pell).abs().max()))
-    return main_err
+                raise AssertionError(
+                    f"K1 disagrees with its plain version at "
+                    f"{(M, T, V, dtype, scale, offset, ends)}: {err}")
 
 
 def check_weighted_agg(dev) -> float:
@@ -449,32 +496,77 @@ def back_to_back_ms(fn, iters=200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_report(dev, sim, n1, n2, err1, err2):
-    from repro_torch.core.aggregation import masked_pi
+def k1_times(dev, shape, dtype) -> dict:
+    """K1 at one shape and dtype: its steady and cold ms, the plain
+    version's ms, its bound and its share of it, and its max |dλ|, |dℓ|
+    against the plain version on the same inputs."""
     from repro_torch.kernels import em_posterior as k1
-    from repro_torch.kernels import weighted_agg as k2
-    from repro_torch.kernels.ref import em_posterior_ref, weighted_agg_ref
-    bw, fp32 = HBM_BYTES_PER_S, FP32_FLOPS
+    from repro_torch.kernels.ref import em_posterior_ref
+    M, T, V = shape
+    pi, logits, labels = _em_inputs(M, T, V, dtype, dev)
+    err_l, err_abs, _ = _em_error((pi, logits, labels))
+    nbytes = M * T * V * logits.element_size() + T * 8 + M * 4 + 2 * T * M * 4
+    ops = 6 * M * T * V + 12 * M * T
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS * 1e3
+    wide = M * T * V > 1 << 22
+    row = {
+        "shape": {"M": M, "T": T, "V": V, "dtype": str(dtype)[6:]},
+        "max_abs_err": max(err_l, err_abs),
+        "ms": time_ms(lambda: k1._launch(pi, logits, labels)),
+        "cold_ms": cold_ms(lambda: k1._launch(pi, logits, labels), dev),
+        "plain_ms": time_ms(lambda: em_posterior_ref(pi, logits, labels),
+                            iters=5 if wide else 20, reps=5 if wide else 10),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
 
-    M, T, V = sim.m, sim.sim.em_subset, sim.model_cfg.n_classes
-    pi, logits, labels = _em_inputs(M, T, V, torch.float32, dev)
-    k1_bytes = M * T * V * 4 + T * 8 + M * 4 + 2 * T * M * 4
-    k1_ops = 6 * M * T * V + 12 * M * T
-    k1_row = {
+
+def k1_report(dev, n1, floor) -> dict:
+    """K1's row: the main path's shape in fp32 at the top level, and in
+    ``shapes`` that shape and smollm-135m's vocabulary, fp32 and bf16,
+    each with the kernel's plan."""
+    from repro_torch.kernels import em_posterior as k1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = []
+    for shape in (EM_MAIN, EM_VOCAB):
+        for dtype in (torch.float32, torch.bfloat16):
+            row = k1_times(dev, shape, dtype)
+            # a fresh allocation is aligned as an address of 0 is
+            row["plan"] = k1.plan(*shape, dtype, 0, sms,
+                                  *k1.kernel_limits())._asdict()
+            shapes.append(row)
+    main = shapes[0]
+    pi, logits, labels = _em_inputs(*EM_MAIN, torch.float32, dev)
+    return {
         "name": "em_posterior", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/em_posterior.cu",
         "replaces": "src/repro/kernels/em_posterior.py:72",
-        "launches": n1, "max_abs_err": err1, "tolerance": TOL[torch.float32],
-        "shape": {"M": M, "T": T, "V": V, "dtype": "float32"},
-        "ms": time_ms(lambda: k1._launch(pi, logits, labels)),
-        "cold_ms": cold_ms(lambda: k1._launch(pi, logits, labels), dev),
-        "plain_ms": time_ms(lambda: em_posterior_ref(pi, logits, labels)),
+        "launches": n1, "max_abs_err": main["max_abs_err"],
+        "tolerance": TOL[torch.float32], "shape": main["shape"],
+        "ms": main["ms"], "cold_ms": main["cold_ms"],
+        "plain_ms": main["plain_ms"],
         "back_to_back_ms": back_to_back_ms(
             lambda: k1.em_posterior_forward(pi, logits, labels)),
-        "bound_ms": max(k1_bytes / bw, k1_ops / fp32) * 1e3,
-        "bound_by": "bytes" if k1_bytes / bw >= k1_ops / fp32
-        else "operations",
-        "library_ms": None}
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "floor_ms": floor, "library_ms": None, "shapes": shapes}
+
+
+def floor_ms(dev) -> float:
+    """A 1-element ``zero_()`` in the ``time_ms`` bracket: how close a
+    launch of a tiny kernel gets on this card."""
+    z = torch.empty(1, device=dev)
+    return time_ms(lambda: z.zero_())
+
+
+def agg_report(dev, sim, n2, err2, floor):
+    """K2's row at the main path's shape (the cifar10-cnn round's mix)."""
+    from repro_torch.core.aggregation import masked_pi
+    from repro_torch.kernels import weighted_agg as k2
+    from repro_torch.kernels.ref import weighted_agg_ref
+    bw, fp32 = HBM_BYTES_PER_S, FP32_FLOPS
+    M = sim.m
 
     alpha = sim.sim.alpha
     stack = sim.last_state["params"]          # the main path's (N, P) stack
@@ -516,6 +608,7 @@ def kernel_report(dev, sim, n1, n2, err1, err2):
         "bound_ms": max(k2_bytes / bw, k2_ops / fp32) * 1e3,
         "bound_by": "bytes" if k2_bytes / bw >= k2_ops / fp32
         else "operations",
+        "floor_ms": floor,
         "library_ms": time_ms(lambda: torch.addmv(
             own, nb.T, w, beta=alpha, alpha=1 - alpha)),
         "library_cold_ms": cold_ms(lambda: torch.addmv(
@@ -527,10 +620,10 @@ def kernel_report(dev, sim, n1, n2, err1, err2):
                                              rows, ok, M)),
             "cold_ms": cold_ms(lambda: k2._launch(pstack[0], pstack, w,
                                                   alpha, rows, ok, M), dev)}}
-    return [k1_row, k2_row]
+    return k2_row
 
 
-def attention_report(dev, n3, err3):
+def attention_report(dev, n3, err3, floor):
     """K3's row at the main path's shape (smollm-135m prefill, fp32)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k3
@@ -579,7 +672,7 @@ def attention_report(dev, n3, err3):
         "bound_fp32_cuda_core_ms": max(bytes_ms, fp32_ms),
         "bound_bytes_ms": bytes_ms,
         "ms_bf16": time_ms(lambda: k3._launch(qb, kb, vb, causal, window)),
-        "library_ms": time_ms(sdpa),
+        "floor_ms": floor, "library_ms": time_ms(sdpa),
         "library_backend": sdpa_backends(sdpa)}
 
 
@@ -728,7 +821,7 @@ def main() -> int:
     print(f"built {', '.join(_build.KERNELS)} in {secs:.1f} s")
 
     _phase("3. K1 em_posterior vs plain")
-    err1 = check_em_posterior(dev)
+    check_em_posterior(dev)
     _phase("4. K2 weighted_agg vs plain")
     err2 = check_weighted_agg(dev)
 
@@ -738,6 +831,8 @@ def main() -> int:
     _, n1, n2, sim = run_main_path(dev)
     print(f"main path wall {time.perf_counter() - t0:.1f} s, launches "
           f"K1={n1} K2={n2}")
+    if (sim.m, sim.sim.em_subset, sim.model_cfg.n_classes) != EM_MAIN:
+        raise AssertionError("EM_MAIN is not the main path's K1 shape")
 
     _phase("6. K3 flash_attention vs plain")
     err3 = check_flash_attention(dev)
@@ -751,8 +846,11 @@ def main() -> int:
 
     _phase("8. kernel times")
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
-    rows = kernel_report(dev, sim, n1, n2, err1, err2)
-    rows.append(attention_report(dev, n3, err3))
+    floor = floor_ms(dev)
+    print(f"floor (1-element zero_, steady bracket): {floor:.6f} ms")
+    rows = [k1_report(dev, n1, floor),
+            agg_report(dev, sim, n2, err2, floor),
+            attention_report(dev, n3, err3, floor)]
     if args.profile:
         _phase("9. profile")
         profile_rounds(sim)

@@ -5,7 +5,10 @@
 logit, from π (M,), component logits (M, T, V) and labels (T,). On a CUDA
 tensor it launches the hand-written kernel ``csrc/em_posterior.cu``; on a
 CPU tensor it runs the plain version :func:`~repro_torch.kernels.ref.
-em_posterior_ref`. Ragged T and V are fine.
+em_posterior_ref`. Ragged T and V are fine. :func:`plan` picks the
+kernel's team of lanes a row, its vector width and its token tile from the
+shape, the logits' alignment and the kernel's tuning (its vectors a lane
+and threads a block, which the built library reports).
 
 It is differentiable in the logits through ℓ only: λ is marked
 non-differentiable, and ℓ's backward is ct·(softmax_V(logits) − onehot(y)),
@@ -15,17 +18,20 @@ in plain PyTorch (the reference has no backward kernel either). The EM
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import em_posterior_ref
+from repro_torch.kernels.weighted_agg import vector_bytes
 
-MAX_COMPONENTS = 32          # one component per lane of a warp
+MAX_COMPONENTS = 32          # components the kernel takes
 launches = 0                 # kernel launches since the last reset
 
 _lib = None
+_limits = None
 
 
 def _library() -> ctypes.CDLL:
@@ -35,10 +41,25 @@ def _library() -> ctypes.CDLL:
         lib.em_posterior_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.em_posterior_launch.restype = ctypes.c_int
+        lib.em_posterior_limits.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.em_posterior_limits.restype = None
         _lib = lib
     return _lib
+
+
+def kernel_limits() -> Tuple[int, int]:
+    """The built kernel's tuning: (vectors a lane holds a chunk, a
+    block's threads at most)."""
+    global _limits
+    if _limits is None:
+        vectors, threads = ctypes.c_int(), ctypes.c_int()
+        _library().em_posterior_limits(ctypes.byref(vectors),
+                                       ctypes.byref(threads))
+        _limits = (vectors.value, threads.value)
+    return _limits
 
 
 def _check(pi: torch.Tensor, logits: torch.Tensor,
@@ -68,16 +89,46 @@ def _check(pi: torch.Tensor, logits: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
 
 
+class Plan(NamedTuple):
+    team: int           # lanes a (t, m) row, a power of two up to 32
+    vector_bytes: int   # bytes a load moves
+    tile: int           # tokens a block (times M rows)
+    threads: int        # threads a block
+
+
+def plan(M: int, T: int, V: int, dtype: torch.dtype, address: int,
+         n_sms: int, lane_vectors: int, max_threads: int) -> Plan:
+    """How a kernel that holds ``lane_vectors`` vectors a lane a chunk in
+    blocks of at most ``max_threads`` threads splits (M, T, V) logits at
+    ``address`` on a card with ``n_sms`` SMs: the widest vector that the
+    address and a row's bytes share (so every row starts on one); the
+    fewest lanes a row (a power of two, at most a warp) whose vectors
+    cover the row in one chunk; and the fewest tokens a block that keep the
+    grid of ceil(T / tile) blocks within one block per SM, as long as the
+    tile's rows fit ``max_threads``."""
+    elem = torch.finfo(dtype).bits // 8
+    vb = vector_bytes((address,), V * elem, dtype)
+    per_lane = lane_vectors * vb // elem         # elements a lane a chunk
+    team = min(32, 1 << max(0, math.ceil(V / per_lane) - 1).bit_length())
+    tile = max(1, min(-(-T // n_sms), max_threads // (M * team)))
+    threads = min(max_threads, -(-tile * M * team // 32) * 32)
+    return Plan(team, vb, tile, threads)
+
+
 def _launch(pi: torch.Tensor, logits: torch.Tensor,
             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
     M, T, V = logits.shape
+    p = plan(M, T, V, logits.dtype, logits.data_ptr(),
+             torch.cuda.get_device_properties(
+                 logits.device).multi_processor_count, *kernel_limits())
     lam = torch.empty((T, M), dtype=torch.float32, device=logits.device)
     ell = torch.empty((T, M), dtype=torch.float32, device=logits.device)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     rc = _library().em_posterior_launch(
         pi.data_ptr(), logits.data_ptr(), labels.data_ptr(), lam.data_ptr(),
-        ell.data_ptr(), M, T, V, int(logits.dtype == torch.bfloat16), stream)
+        ell.data_ptr(), M, T, V, int(logits.dtype == torch.bfloat16),
+        p.team, p.vector_bytes, p.tile, p.threads, stream)
     if rc != 0:
         raise RuntimeError(f"em_posterior kernel launch failed: CUDA error "
                            f"{rc}")

@@ -35,24 +35,129 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("M,T,V", [(2, 128, 512), (3, 384, 1536),
-                                   (10, 512, 10), (3, 37, 10), (32, 9, 33)])
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_em_posterior_kernel_matches_plain_on_card(cuda, M, T, V, dtype):
-    tdtype = DTYPES[dtype]
-    pi, logits, labels = _em_inputs(M, T, V)
-    args = (torch.from_numpy(pi).to(cuda),
-            torch.from_numpy(logits).to(device=cuda, dtype=tdtype),
-            torch.from_numpy(labels).to(cuda))
+def _em_check(args, dtype, equal_nan=False):
+    """One K1 launch on ``args`` against the plain version at the
+    reference's tolerances (λ atol; ℓ atol and rtol 1e-5 in fp32)."""
     before = k1.launches
     lam, ell = k1.em_posterior_forward(*args)
     torch.cuda.synchronize()
     assert k1.launches == before + 1
     plam, pell = tref.em_posterior_ref(*args)
     tol = 1e-5 if dtype == "float32" else 2e-2
-    torch.testing.assert_close(lam, plam, atol=tol, rtol=0)
-    torch.testing.assert_close(ell, pell, atol=tol, rtol=1e-5)
+    torch.testing.assert_close(lam, plam, atol=tol, rtol=0,
+                               equal_nan=equal_nan)
+    torch.testing.assert_close(ell, pell, atol=tol, rtol=1e-5,
+                               equal_nan=equal_nan)
+
+
+def _em_card(pi, logits, labels, cuda, dtype):
+    return (torch.from_numpy(pi).to(cuda),
+            torch.from_numpy(logits).to(device=cuda, dtype=DTYPES[dtype]),
+            torch.from_numpy(labels).to(cuda))
+
+
+# (M, T, V): the reference's sweep, the round's shape, then both sides of
+# each team-size switch (V 1, 2, 16, 17, 31, 32, 33, 512, 520, 1024, 1025,
+# 49,152), M 1, 16, 17 and 32, and T off the token tile (515 and 700
+# tokens leave 3 and 4 in the last tile; 4099 leaves 3 of 32)
+EM_SHAPES = [(2, 128, 512), (3, 384, 1536), (10, 512, 10), (3, 37, 10),
+             (32, 9, 33), (1, 16, 1), (16, 37, 2), (4, 33, 16), (4, 33, 17),
+             (17, 53, 31), (32, 9, 32), (1, 100, 33), (5, 20, 512),
+             (3, 24, 520), (16, 33, 1024), (17, 20, 1025), (32, 16, 1025),
+             (8, 16, 49_152), (10, 515, 10), (2, 700, 33), (1, 4099, 10)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,V", EM_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_em_posterior_kernel_matches_plain_on_card(cuda, M, T, V, dtype):
+    _em_check(_em_card(*_em_inputs(M, T, V), cuda, dtype), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,V", [(10, 515, 10), (3, 40, 33),
+                                   (2, 16, 1025), (8, 16, 49_152)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_em_posterior_kernel_labels_at_row_ends_on_card(cuda, M, T, V,
+                                                        dtype):
+    """Labels on a row's first and last logit: the first and last lane of a
+    team, the first and last vector of a chunk."""
+    pi, logits, _ = _em_inputs(M, T, V)
+    labels = np.where(np.arange(T) % 2 == 0, 0, V - 1).astype(np.int64)
+    _em_check(_em_card(pi, logits, labels, cuda, dtype), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,T,V", [(10, 512, 10), (3, 64, 1024),
+                                   (4, 16, 49_152)])
+def test_em_posterior_kernel_large_logits_on_card(cuda, M, T, V):
+    """Logits 100x the sweep's (ℓ reaches ~10^3): ℓ is summed as (max −
+    label logit) + log Σexp, so the components near the top of λ keep the
+    plain version's absolute error."""
+    pi, logits, labels = _em_inputs(M, T, V)
+    _em_check(_em_card(pi, logits * 100, labels, cuda, "float32"),
+              "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,offset", [("float32", 1), ("bfloat16", 2)])
+@pytest.mark.parametrize("M,T,V", [(10, 512, 10), (3, 37, 1024)])
+def test_em_posterior_kernel_reads_an_offset_view_on_card(cuda, dtype,
+                                                          offset, M, T, V):
+    """Logits that are a contiguous view 4 bytes past an 8-byte boundary:
+    the plan drops to 4-byte vectors and the rows still line up."""
+    pi, logits, labels = _em_inputs(M, T, V)
+    flat = torch.zeros(M * T * V + offset, device=cuda, dtype=DTYPES[dtype])
+    view = flat[offset:].view(M, T, V)
+    view.copy_(torch.from_numpy(logits))
+    assert view.data_ptr() % 8 == 4 and view.is_contiguous()
+    p = k1.plan(M, T, V, view.dtype, view.data_ptr(), 132,
+                *k1.kernel_limits())
+    assert p.vector_bytes == 4
+    args = (torch.from_numpy(pi).to(cuda), view,
+            torch.from_numpy(labels).to(cuda))
+    _em_check(args, dtype)
+
+
+@pytest.mark.gpu
+def test_em_posterior_kernel_limits_on_card(cuda):
+    """The built kernel's tuning is the one the CPU tests of
+    ``em_posterior.plan`` assume: 4 vectors a lane, 256 threads a block."""
+    assert k1.kernel_limits() == (4, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [10, 33, 1025])
+def test_em_posterior_kernel_infinite_rows_on_card(cuda, V):
+    """A row of all −∞ gives NaN in ℓ and in that token's λ, and a label
+    logit of −∞ gives ℓ = +∞ and λ = 0, as the plain version does."""
+    pi, logits, labels = _em_inputs(4, 37, V)
+    logits[1, 5, :] = -np.inf
+    logits[2, 9, labels[9]] = -np.inf
+    logits[0, 11, :] = -np.inf
+    logits[0, 11, labels[11]] = 0.0          # only the label is finite
+    args = _em_card(pi, logits, labels, cuda, "float32")
+    _em_check(args, "float32", equal_nan=True)
+    lam, ell = k1.em_posterior_forward(*args)
+    assert torch.isnan(ell[5, 1]) and torch.isnan(lam[5]).all()
+    assert ell[9, 2] == float("inf") and lam[9, 2] == 0
+    assert ell[11, 0] == 0
+
+
+@pytest.mark.gpu
+def test_em_posterior_counts_one_launch_per_call_on_card(cuda):
+    """Each forward is one launch whatever the plan (teams of 2, 8 and 32
+    lanes); the ℓ backward is plain PyTorch and launches nothing."""
+    for M, T, V in [(10, 512, 10), (17, 53, 31), (2, 16, 1025)]:
+        pi, logits, labels = _em_card(*_em_inputs(M, T, V), cuda, "float32")
+        logits.requires_grad_(True)
+        before = k1.launches
+        lam, ell = k1.em_posterior(pi, logits, labels)
+        assert k1.launches == before + 1
+        (ell * lam.detach()).sum().backward()
+        torch.cuda.synchronize()
+        assert k1.launches == before + 1
+        assert logits.grad.shape == logits.shape
 
 
 @pytest.mark.gpu

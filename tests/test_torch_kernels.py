@@ -20,6 +20,7 @@ from repro.models import cnn as ref_cnn
 from repro_torch.core import aggregation
 from repro_torch.kernels import em_posterior as k1
 from repro_torch.kernels import weighted_agg as k2
+from repro_torch.kernels.ref import em_posterior_ref
 
 torch.set_num_threads(1)
 
@@ -170,6 +171,93 @@ def test_em_posterior_rejects_what_the_kernel_does_not_take():
         k1.em_posterior_forward(args[0], args[1].transpose(1, 2), args[2])
     with pytest.raises(ValueError):   # no CPU fallback for other devices
         k1.em_posterior_forward(*(a.to("meta") for a in args))
+
+
+def test_em_posterior_cpu_path_counts_no_launch():
+    before = k1.launches
+    _em_port(*_em_inputs(3, 8, 5), torch.float32)
+    assert k1.launches == before
+
+
+@pytest.mark.parametrize("M,T,V,dtype,address,expect", [
+    # the round: fp32 rows of 40 B take 8-byte vectors, two lanes a row
+    # (4 vectors a lane hold 8 logits), 4 tokens (40 rows, 80 lanes) a
+    # block of 96 threads, 128 blocks
+    (10, 512, 10, torch.float32, 1 << 20, (2, 8, 4, 96)),
+    (10, 512, 10, torch.bfloat16, 1 << 20, (2, 4, 4, 96)),
+    # a view 4 bytes past an 8-byte boundary: 4-byte vectors, four lanes
+    (10, 512, 10, torch.float32, (1 << 20) + 4, (4, 4, 4, 160)),
+    (10, 512, 10, torch.bfloat16, (1 << 20) + 2, (4, 2, 4, 160)),
+    (1, 16, 1, torch.float32, 1 << 20, (1, 4, 1, 32)),
+    # 4 vectors of 16 bytes: 16 fp32 logits a lane, 32 bf16
+    (32, 9, 16, torch.float32, 1 << 20, (1, 16, 1, 32)),
+    (32, 9, 32, torch.float32, 1 << 20, (2, 16, 1, 64)),
+    (32, 9, 32, torch.bfloat16, 1 << 20, (1, 16, 1, 32)),
+    # odd V: scalar loads, 4 logits a lane
+    (3, 100, 33, torch.float32, 1 << 20, (16, 4, 1, 64)),
+    (17, 53, 31, torch.float32, 1 << 20, (8, 4, 1, 160)),
+    (8, 33, 1024, torch.float32, 1 << 20, (32, 16, 1, 256)),
+    (2, 70, 1025, torch.float32, 1 << 20, (32, 4, 1, 64)),
+    (32, 16, 1025, torch.bfloat16, 1 << 20, (32, 2, 1, 256)),
+    # a vocabulary's width: a warp a row, 16-byte vectors, 512 blocks
+    (8, 512, 49_152, torch.float32, 1 << 20, (32, 16, 1, 256)),
+    (8, 512, 49_152, torch.bfloat16, 1 << 20, (32, 16, 1, 256)),
+    # many tokens: the tile grows so the grid stays one block an SM
+    (1, 4099, 10, torch.float32, 1 << 20, (2, 8, 32, 64)),
+])
+def test_em_posterior_plan_follows_width_and_alignment(M, T, V, dtype,
+                                                       address, expect):
+    """K1's team of lanes a row and its vector width follow V and the
+    alignment the logits' address and a row's bytes share; its token tile
+    keeps the grid near one block an SM of an H100 (132). The kernel's
+    tuning: 4 vectors a lane a chunk, at most 256 threads a block."""
+    assert tuple(k1.plan(M, T, V, dtype, address, 132, 4, 256)) == expect
+
+
+@pytest.mark.parametrize("M", [1, 10, 17, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_em_posterior_plan_fits_the_kernel(M, dtype):
+    """Over widths on both sides of every team-size switch, ragged T and
+    unaligned views: every plan is one the launcher takes, covers every
+    token, and reads a row of up to a warp's share in one chunk."""
+    elem = 4 if dtype == torch.float32 else 2
+    for V in (1, 2, 10, 31, 32, 33, 255, 256, 1024, 1025, 49_152):
+        for T in (1, 37, 131, 133, 512, 4099):
+            for offset in (0, elem, 8, 16):
+                p = k1.plan(M, T, V, dtype, (1 << 20) + offset, 132, 4, 256)
+                blocks = -(-T // p.tile)
+                assert p.team in (1, 2, 4, 8, 16, 32)
+                assert V * elem % p.vector_bytes == 0
+                assert offset % p.vector_bytes == 0
+                assert 1 <= p.tile and p.tile * M <= 256
+                assert p.threads % 32 == 0 and p.tile <= p.threads <= 256
+                assert p.tile * M * p.team <= p.threads or p.tile == 1
+                assert blocks <= 132 or p.tile * M * p.team * 2 > 256
+                chunk = p.team * 4 * p.vector_bytes // elem
+                assert chunk >= V or p.team == 32
+                assert p.team == 1 or chunk // 2 < V
+
+
+@pytest.mark.parametrize("M,T,V,scale", [
+    (10, 512, 10, 3), (10, 512, 10, 100), (17, 53, 31, 100),
+    (3, 64, 1024, 100), (2, 16, 1025, 3), (2, 8, 49_152, 100)])
+def test_em_posterior_plain_ell_meets_the_gate_at_large_logits(M, T, V,
+                                                               scale):
+    """The plain version, which the kernel is held to on the card, keeps ℓ
+    within atol and rtol 1e-5 of its float64 value and λ within 1e-5 of the
+    JAX oracle, also with logits 100x the sweep's, where ℓ reaches ~10^3."""
+    pi, logits, labels = _em_inputs(M, T, V, seed=6)
+    logits = logits * scale
+    y = torch.from_numpy(labels).long()
+    lam, ell = em_posterior_ref(torch.from_numpy(pi),
+                                torch.from_numpy(logits), y)
+    np.testing.assert_allclose(
+        lam.numpy(), np.asarray(jref.em_posterior_ref(pi, logits, labels)),
+        atol=1e-5, rtol=0)
+    l64 = torch.from_numpy(logits).double()
+    exact = torch.logsumexp(l64, -1) - l64.gather(
+        2, y[None, :, None].expand(M, -1, 1))[..., 0]
+    torch.testing.assert_close(ell.double(), exact.T, atol=1e-5, rtol=1e-5)
 
 
 # ------------------------------------------------------------------- K2
