@@ -16,10 +16,18 @@ Phases, each of which stops the run on failure:
      shape (P = 188,810, M = 10), then at row strides of 188,810, 188,811
      and 188,812 with M = 1, 10 and 32; fp32 and bf16, links up and all
      erased;
-  5. run a small pFedWN simulation on the card and on the CPU (plain
-     kernels) with the same draws and compare π and params; then run the
-     main path at full width (cifar10-cnn, 11 clients, quickstart's
-     wireless scenario) and check that each kernel carried it;
+  5. run a small simulation of each of the six methods (and pFedWN with
+     uniform π and no erasures) on the card and on the CPU (plain kernels)
+     with the same draws and compare params, accuracies, π and the
+     train-loss tap; then run the pFedWN main path at full width
+     (cifar10-cnn, 11 clients, quickstart's wireless scenario) and check
+     that each kernel carried it;
+  5b. run ``local`` and the four baselines (FedAvg, FedProx, Per-FedAvg,
+     FedAMP) on the same full-width scenario, check their taps and
+     accuracies and that neither K1 nor K2 launched, and print each one's
+     ms per round; then hold FedAvg's aggregate and FedAMP's attention
+     and clouds on the last run's full-width stack against the same calls
+     on the CPU;
   6. hold K3 (GQA flash attention) against its plain version, fp32 and
      bf16, over the reference's sweep, two ragged shapes, the prefill
      attention shapes of smollm-135m, starcoder2-15b (window 4096) and
@@ -226,7 +234,7 @@ def check_weighted_agg(dev) -> float:
     return main_err
 
 
-def _tiny_sim(device, params0=None):
+def _tiny_sim(device, params0=None, **switches):
     from repro_torch.configs import CNNConfig
     from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
     from repro_torch.data import (dirichlet_partition, make_client_datasets,
@@ -242,42 +250,54 @@ def _tiny_sim(device, params0=None):
         test, np.array([True, True, True, False]),
         np.linspace(0.0, 0.2, 4).astype(np.float32),
         FedSimConfig(rounds=3, batch_size=16, em_iters=2, em_subset=64,
-                     eval_every=2), params0=params0, device=device)
+                     eval_every=2, **switches), params0=params0,
+        device=device)
 
 
 def check_small_run_against_cpu(dev) -> None:
-    """The whole round on the card (kernels) against the CPU (plain
-    versions) on a small input with the same params and draws."""
-    gpu = _tiny_sim(dev)
-    cpu = _tiny_sim("cpu", params0=gpu.params0.cpu())
-    rng = np.random.default_rng(1)
-    idx = np.stack([rng.integers(0, n, (3, gpu.steps_per_round, 16))
-                    for n in gpu._train_len], axis=1)
-    masks = rng.random((3, gpu.m)) > 0.3
-    hg = gpu.run("pfedwn", idx_stream=idx, link_masks=masks)
-    hc = cpu.run("pfedwn", idx_stream=idx, link_masks=masks)
-    pi_err = float(np.abs(np.stack(hg["pi"]) - np.stack(hc["pi"])).max())
-    p_err = float((gpu.last_state["params"].cpu()
-                   - cpu.last_state["params"]).abs().max())
-    acc_err = float(np.abs(np.array(hg["target_acc"])
-                           - np.array(hc["target_acc"])).max())
-    print(f"small run card vs CPU: max|dπ|={pi_err:.3g} (tol 1e-4) "
-          f"max|dparams|={p_err:.3g} (tol 1e-4) max|dacc|={acc_err:.3g} "
-          f"(tol 5e-3)")
-    if not (pi_err <= 1e-4 and p_err <= 1e-4 and acc_err <= 5e-3):
-        raise AssertionError("the card's round disagrees with the CPU's")
+    """Each method's rounds on the card (kernels) against the CPU (plain
+    versions) on a small input with the same params and draws, and pFedWN
+    once more with uniform π and every link up."""
+    from repro_torch.core.fedsim import METHODS
+    runs = [(m, {}) for m in METHODS] + [
+        ("pfedwn", dict(em_uniform=True, erasures=False))]
+    for method, switches in runs:
+        gpu = _tiny_sim(dev, **switches)
+        cpu = _tiny_sim("cpu", params0=gpu.params0.cpu(), **switches)
+        rng = np.random.default_rng(1)
+        idx = np.stack([rng.integers(0, n, (3, gpu.steps_per_round, 16))
+                        for n in gpu._train_len], axis=1)
+        masks = rng.random((3, gpu.m)) > 0.3
+        hg = gpu.run(method, idx_stream=idx, link_masks=masks)
+        hc = cpu.run(method, idx_stream=idx, link_masks=masks)
+        pi_err = (float(np.abs(np.stack(hg["pi"])
+                               - np.stack(hc["pi"])).max())
+                  if method == "pfedwn" else 0.0)
+        p_err = float((gpu.last_state["params"].cpu()
+                       - cpu.last_state["params"]).abs().max())
+        acc_err = float(np.abs(
+            np.array(hg["target_acc"] + hg["mean_participant_acc"])
+            - np.array(hc["target_acc"] + hc["mean_participant_acc"])).max())
+        loss_err = float(np.abs(hg["taps"]["train_loss"]
+                                - hc["taps"]["train_loss"]).max())
+        print(f"small {method} {switches or ''} card vs CPU: "
+              f"max|dπ|={pi_err:.3g} (tol 1e-4) max|dparams|={p_err:.3g} "
+              f"(tol 1e-4) max|dacc|={acc_err:.3g} (tol 5e-3) "
+              f"max|dloss|={loss_err:.3g} (tol 1e-4)")
+        if not (pi_err <= 1e-4 and p_err <= 1e-4 and acc_err <= 5e-3
+                and loss_err <= 1e-4):
+            raise AssertionError(f"the card's {method} run disagrees with "
+                                 f"the CPU's ({switches})")
 
 
-def run_main_path(dev):
+def _main_sim(dev):
     """Quickstart's scenario at cifar10-cnn width through the port's entry
-    points; returns (history, K1 launches, K2 launches)."""
+    points: the simulation the main paths run."""
     from repro_torch.configs import WirelessConfig, cifar10_cnn
     from repro_torch.core import selection
     from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
     from repro_torch.data import (dirichlet_partition, make_client_datasets,
                                   synthetic_image_dataset, train_test_split)
-    from repro_torch.kernels import em_posterior as k1
-    from repro_torch.kernels import weighted_agg as k2
 
     rng = np.random.default_rng(0)
     target = rng.uniform(10, 40, 2)
@@ -304,6 +324,15 @@ def run_main_path(dev):
                      eval_every=EVAL_EVERY, seed=0), device=dev)
     print(f"clients={sim.n} M={sim.m} P={sim.layout.size} "
           f"steps/round={sim.steps_per_round}")
+    return sim
+
+
+def run_main_path(dev):
+    """pFedWN on :func:`_main_sim`; returns (history, K1 launches, K2
+    launches, the simulation)."""
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+    sim = _main_sim(dev)
     k1.launches = 0
     k2.launches = 0
     hist = sim.run("pfedwn")
@@ -328,6 +357,82 @@ def run_main_path(dev):
           f"{hist['round_ms']}")
     print(f"ms per round after the first block: {float(np.mean(steady))}")
     return hist, n1, n2, sim
+
+
+def run_baselines_main_path(dev):
+    """``local`` and the four baselines on :func:`_main_sim`, each driven
+    with the kernel counts set to 0 just before it and read just after:
+    finite taps, accuracies in [0, 1], and no K1 or K2 launch (the
+    reference runs no Pallas kernel on these paths). Returns (each method's
+    ms per round after the first block, the simulation)."""
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+    sim = _main_sim(dev)
+    out = {}
+    for method in ("local", "fedavg", "fedprox", "perfedavg", "fedamp"):
+        k1.launches = 0
+        k2.launches = 0
+        hist = sim.run(method)
+        n1, n2 = k1.launches, k2.launches
+        accs = np.array(hist["target_acc"] + hist["mean_participant_acc"])
+        if not (np.all(np.isfinite(accs)) and np.all(accs >= 0)
+                and np.all(accs <= 1)):
+            raise AssertionError(f"{method}: accuracy outside [0, 1]: {accs}")
+        for k, v in hist["taps"].items():
+            if not np.all(np.isfinite(v)):
+                raise AssertionError(f"{method}: non-finite tap {k}")
+        if n1 or n2:
+            raise AssertionError(f"{method} launched K1 {n1} and K2 {n2} "
+                                 f"times, expected none")
+        out[method] = float(np.mean(hist["round_ms"][1:]))
+        print(f"{method}: target acc per eval {hist['target_acc']}, ms per "
+              f"round by block {hist['round_ms']}, after the first block "
+              f"{out[method]} (launches K1={n1} K2={n2})")
+    return out, sim
+
+
+def check_baselines_full_width(sim) -> None:
+    """FedAvg's aggregate and FedAMP's attention and clouds on a full-width
+    (N, P) stack on the card against the same calls on the CPU, at the
+    configured σ and at σ = the median off-diagonal d². The tolerance of ξ
+    follows the Gram form's rounding: d² = sq_i + sq_j − 2·w_i·w_j loses
+    about e = 2⁻²⁴·√P·4·max sq to a reordered fp32 sum on either side, a
+    logit moves by e/σ, and a softmax entry by at most twice that."""
+    from repro_torch.core import baselines
+    stack = sim.last_state["params"]
+    pm, sizes = sim.participants, sim.sizes
+    cpu = [t.cpu() for t in (stack, sizes, pm)]
+    n, p = stack.shape
+    w_max = float(cpu[0].abs().max())
+    g = baselines.fedavg_aggregate(stack, sizes, pm)
+    err = float((g.cpu() - baselines.fedavg_aggregate(*cpu)).abs().max())
+    tol = 1e-6 * max(1.0, w_max)
+    print(f"fedavg_aggregate ({n}, {p}) card vs CPU: max|d|={err:.3g} "
+          f"(tol {tol:.3g})")
+    if not err <= tol:
+        raise AssertionError("fedavg_aggregate: the card disagrees with "
+                             "the CPU at full width")
+    w64 = cpu[0].double()
+    sq = torch.sum(w64 * w64, dim=1)
+    d2 = torch.cdist(w64, w64) ** 2
+    median = float(d2[~torch.eye(n, dtype=torch.bool)].median())
+    e = 2.0 ** -24 * p ** 0.5 * 4 * float(sq.max())
+    sw = sim.sim.fedamp_self_weight
+    for sigma in (sim.sim.fedamp_sigma, median):
+        xi = baselines.fedamp_weights(stack, sigma, pm, sw)
+        xi_cpu = baselines.fedamp_weights(cpu[0], sigma, cpu[2], sw)
+        cloud = baselines.fedamp_cloud_models(stack, xi)
+        cloud_cpu = baselines.fedamp_cloud_models(cpu[0], xi_cpu)
+        xi_err = float((xi.cpu() - xi_cpu).abs().max())
+        cloud_err = float((cloud.cpu() - cloud_cpu).abs().max())
+        xi_tol = 1e-6 + 2 * (1 - sw) * e / sigma
+        cloud_tol = 1e-6 * max(1.0, w_max) + n * xi_tol * w_max
+        print(f"fedamp σ={sigma:.6g} ({n}, {p}) card vs CPU: "
+              f"max|dξ|={xi_err:.3g} (tol {xi_tol:.3g}) "
+              f"max|dcloud|={cloud_err:.3g} (tol {cloud_tol:.3g})")
+        if not (xi_err <= xi_tol and cloud_err <= cloud_tol):
+            raise AssertionError(f"fedamp at σ={sigma}: the card disagrees "
+                                 f"with the CPU at full width")
 
 
 def _attn_inputs(shape, dtype, dev, seed=0):
@@ -833,6 +938,13 @@ def main() -> int:
           f"K1={n1} K2={n2}")
     if (sim.m, sim.sim.em_subset, sim.model_cfg.n_classes) != EM_MAIN:
         raise AssertionError("EM_MAIN is not the main path's K1 shape")
+
+    _phase("5b. local and the four baselines at full width")
+    t0 = time.perf_counter()
+    ms, base_sim = run_baselines_main_path(dev)
+    print(f"baselines wall {time.perf_counter() - t0:.1f} s; ms per round "
+          f"after the first block: {json.dumps(ms)}")
+    check_baselines_full_width(base_sim)
 
     _phase("6. K3 flash_attention vs plain")
     err3 = check_flash_attention(dev)

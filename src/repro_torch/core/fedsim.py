@@ -1,5 +1,6 @@
-"""N-client federated simulator, fused engine, methods ``pfedwn`` and
-``local``.
+"""N-client federated simulator, fused engine, for every method of the
+reference: ``local``, ``fedavg``, ``fedprox``, ``perfedavg``, ``fedamp`` and
+``pfedwn``.
 
 Clients hold one stacked flat param buffer (N, P) (leaf views per
 :func:`repro_torch.models.cnn.param_layout`). Every train and test tensor is
@@ -12,12 +13,18 @@ of :func:`block_schedule`. One pFedWN round (each phase is a
   1. ``local_sgd``: every client, participant or not, runs local SGD on
      its CNN;
   2. ``em``: the target (client 0) runs EM (Eq 9-11) on *copies* of its M
-     neighbours' models, with the E-step in the fused CE + posterior kernel;
+     neighbours' models, with the E-step in the fused CE + posterior kernel
+     (uniform π instead under ``em_uniform``);
   3. ``mix``: the erasure-gated Eq-1 mix of the target with the
      *unrefined* locally trained neighbours, in one kernel launch over the
      stacked buffer;
   4. ``target_sgd``: the target trains from the aggregate, on the same
      minibatch indices as step 1.
+
+The four baselines (:mod:`repro_torch.core.baselines`) run their local
+training in the ``local_sgd`` range and their aggregation in ``aggregate``;
+they launch no kernel. Per-FedAvg's target is adapted by one MAML step
+before it is scored.
 
 The generator's bits differ from ``jax.random``'s, so :meth:`
 FederatedSimulation.run` also accepts injected index streams and link masks
@@ -35,7 +42,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import PFLConfig
 from repro_torch.configs.paper_cnn import CNNConfig
-from repro_torch.core import aggregation
+from repro_torch.core import aggregation, baselines
 from repro_torch.core.pfedwn import (ModelFns, effective_neighbors,
                                      em_refine_loop, pi_entropy)
 from repro_torch.core.selection import link_success_mask, link_success_rate
@@ -44,7 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import cnn
 from repro_torch.utils.bridge import ParamLayout
 
-METHODS = ("local", "pfedwn")
+METHODS = ("local", "fedavg", "fedprox", "perfedavg", "fedamp", "pfedwn")
 
 
 @dataclass
@@ -56,8 +63,15 @@ class FedSimConfig:
     em_iters: int = 5
     em_component_steps: int = 1
     em_subset: int = 512               # target samples driving the EM E-step
+    adapt_subset: int = 256            # Per-FedAvg eval-time adaptation set
+    prox_mu: float = 0.1               # FedProx (and FedAMP's pull)
+    maml_inner_lr: float = 0.01        # Per-FedAvg
+    fedamp_sigma: float = 1e4
+    fedamp_self_weight: float = 0.5
+    erasures: bool = True              # re-sample link failures each round
     eval_every: int = 1
     seed: int = 0
+    em_uniform: bool = False           # ablation: uniform π instead of EM
 
 
 def block_schedule(rounds: int, eval_every: int) -> List[int]:
@@ -116,6 +130,8 @@ class FederatedSimulation:
             raise ValueError(f"participant_mask and p_err must be "
                              f"({self.n},)")
         self.participants = torch.as_tensor(pm, device=self.device)
+        self.sizes = torch.tensor([float(len(d)) for d in train_sets],
+                                  dtype=torch.float32, device=self.device)
         self.neighbor_idx = np.where(pm & (np.arange(self.n) != 0))[0]
         self.m = len(self.neighbor_idx)
         self._nbr = torch.as_tensor(self.neighbor_idx, dtype=torch.int64,
@@ -151,13 +167,32 @@ class FederatedSimulation:
         self._test_x = torch.as_tensor(ex, device=dev)
         self._test_y = torch.as_tensor(ey, dtype=torch.int64, device=dev)
         self._test_mask = torch.as_tensor(emask, device=dev)
-        # the E-step runs on the target's first em_subset *unpadded* samples
+        # the E-step and Per-FedAvg's eval-time adaptation run on the
+        # target's first em_subset / adapt_subset *unpadded* samples
         d0 = self.train_sets[0]
         self._em_x = torch.as_tensor(d0.x[:sim.em_subset], device=dev)
         self._em_y = torch.as_tensor(d0.y[:sim.em_subset], dtype=torch.int64,
                                      device=dev)
+        self._adapt_x = torch.as_tensor(d0.x[:sim.adapt_subset], device=dev)
+        self._adapt_y = torch.as_tensor(d0.y[:sim.adapt_subset],
+                                        dtype=torch.int64, device=dev)
         max_k = max(len(d) for d in self.train_sets)
         self.steps_per_round = max(1, int(np.ceil(max_k / sim.batch_size)))
+
+    def restrict_target_train(self, keep: int) -> None:
+        """Shrink the target's train set to its first ``keep`` samples (the
+        data-poor-target ablations) and restage. Keeping fewer than
+        ``em_subset`` samples shrinks the EM set with it."""
+        d = self.train_sets[0]
+        d.x, d.y = d.x[:keep], d.y[:keep]
+        self.sizes[0] = float(len(d))
+        self.invalidate_caches()
+
+    def invalidate_caches(self) -> None:
+        """Restage the device tensors: call after mutating ``self.sim`` or
+        a dataset in place (the engine compiles nothing, so there is
+        nothing else to drop)."""
+        self._stage_data()
 
     # ---------------------------------------------------------- round math
 
@@ -169,40 +204,90 @@ class FederatedSimulation:
         n = self._train_len_dev[:, None, None]
         return torch.minimum((u * n).long(), n - 1)
 
+    def _sgd_step(self, objective):
+        """An SGD step on ``objective(params, xb, yb) -> (K,)``; the summed
+        objective gives each client the gradient of its own."""
+        lr = self.sim.lr
+
+        def step(params, xb, yb):
+            loss, g = baselines.loss_and_grad(objective, params, xb, yb)
+            return params.detach() - lr * g, loss
+        return step
+
     def _sgd(self, params: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-             idx: torch.Tensor):
-        """SGD for K clients at once: params (K, P), data (K, K_max, ...),
-        idx (K, steps, B). The summed loss gives each client the gradient
-        of its own mean minibatch loss. Returns (params, (K,) mean loss)."""
+             idx: torch.Tensor, step=None):
+        """Local training for K clients at once: params (K, P), data (K,
+        K_max, ...), idx (K, steps, B). Each minibatch goes through
+        ``step(params, xb, yb) -> (params, (K,) loss)``, an SGD step on the
+        mean minibatch loss when None. Returns (params, (K,) mean of the
+        steps' losses)."""
+        step = step or self._sgd_step(self.fns.loss)
         rows = torch.arange(params.shape[0], device=self.device)[:, None]
         losses = []
         for s in range(idx.shape[1]):
             it = idx[:, s]
-            leaf = params.detach().requires_grad_(True)
-            step_loss = self.fns.loss(leaf, x[rows, it], y[rows, it])
-            (g,) = torch.autograd.grad(torch.sum(step_loss), leaf)
-            params = leaf.detach() - self.sim.lr * g
-            losses.append(step_loss.detach())
+            params, step_loss = step(params, x[rows, it], y[rows, it])
+            losses.append(step_loss)
         return params, torch.mean(torch.stack(losses), dim=0)
 
     def _round(self, method: str, params: torch.Tensor, pi: torch.Tensor,
                idx: torch.Tensor, link_ok: Optional[torch.Tensor]):
-        """One round; returns (params, π, tap dict of device scalars)."""
-        sim = self.sim
+        """One round of ``method`` (the reference's round body); returns
+        (params, π, tap dict of device scalars)."""
+        sim, fns, pm = self.sim, self.fns, self.participants
+        step = None
+        if method == "fedprox":
+            # the anchor is the global model *before* local training; one
+            # pass over all clients, the pull gated by participation
+            with record_function("fedsim.aggregate"):
+                anchor = baselines.fedavg_aggregate(params, self.sizes, pm)
+            active = pm.float()
+            step = self._sgd_step(
+                lambda p, xb, yb: fns.loss(p, xb, yb) + active
+                * baselines.prox_term(p, anchor, sim.prox_mu))
+        elif method == "fedamp":
+            # clouds from the round's starting params; a non-participant's
+            # cloud is its own start
+            with record_function("fedsim.aggregate"):
+                xi = baselines.fedamp_weights(params, sim.fedamp_sigma, pm,
+                                              sim.fedamp_self_weight)
+                cloud = baselines.fedamp_cloud_models(params, xi)
+            step = self._sgd_step(
+                lambda p, xb, yb: fns.loss(p, xb, yb)
+                + baselines.prox_term(p, cloud, sim.prox_mu))
+        elif method == "perfedavg":
+            # first-order MAML on the batch's halves (the query half takes
+            # the odd sample); the step's loss is the query loss
+            half = sim.batch_size // 2
+
+            def step(p, xb, yb):
+                return baselines.perfedavg_step(
+                    fns.loss, p, xb[:, :half], yb[:, :half], xb[:, half:],
+                    yb[:, half:], sim.maml_inner_lr, sim.lr)
         with record_function("fedsim.local_sgd"):
             params, train_loss = self._sgd(params, self._train_x,
-                                           self._train_y, idx)
+                                           self._train_y, idx, step)
+        if method in ("fedavg", "fedprox", "perfedavg"):
+            with record_function("fedsim.aggregate"):
+                g = baselines.fedavg_aggregate(params, self.sizes, pm)
+                params = baselines.broadcast_global(g, params, pm)
         link_rate = torch.ones((), device=self.device)
-        eff_nbr = torch.zeros((), device=self.device)
-        if method == "pfedwn":
-            # EM refines copies of the neighbours (the advanced index
-            # copies); Eq 1 mixes the unrefined rows of `params`
-            with record_function("fedsim.em"):
-                _, pi, _ = em_refine_loop(
-                    self.fns, params[self._nbr], pi, self._em_x, self._em_y,
-                    iters=sim.em_iters, lr=sim.lr,
-                    min_weight=PFLConfig().em_min_weight,
-                    component_steps=sim.em_component_steps)
+        eff_nbr = torch.clamp(torch.sum(pm.float()) - 1.0, min=0.0)
+        if method == "local":
+            eff_nbr = torch.zeros((), device=self.device)
+        elif method == "pfedwn":
+            if sim.em_uniform:
+                pi = torch.full((self.m,), 1.0 / max(self.m, 1),
+                                dtype=torch.float32, device=self.device)
+            else:
+                # EM refines copies of the neighbours (the advanced index
+                # copies); Eq 1 mixes the unrefined rows of `params`
+                with record_function("fedsim.em"):
+                    _, pi, _ = em_refine_loop(
+                        fns, params[self._nbr], pi, self._em_x, self._em_y,
+                        iters=sim.em_iters, lr=sim.lr,
+                        min_weight=PFLConfig().em_min_weight,
+                        component_steps=sim.em_component_steps)
             with record_function("fedsim.mix"):
                 mixed = aggregation.mix_flat_with_erasures(
                     params, 0, self._nbr, pi, sim.alpha, link_ok)
@@ -220,14 +305,25 @@ class FederatedSimulation:
         return params, pi, tap
 
     @torch.no_grad()
-    def _eval(self, params: torch.Tensor):
+    def _eval(self, method: str, params: torch.Tensor):
         """(target accuracy, mean participant accuracy) on the padded test
-        stacks, as device scalars."""
+        stacks, as device scalars. Per-FedAvg's target is scored after one
+        MAML step on its adaptation set; the mean scores every participant
+        unadapted."""
         accs = self.fns.accuracy(params, self._test_x, self._test_y,
                                  self._test_mask)
+        t_acc = accs[0]
+        if method == "perfedavg":
+            tgt = baselines.maml_adapt(self.fns.loss, params[:1],
+                                       self._adapt_x[None],
+                                       self._adapt_y[None],
+                                       self.sim.maml_inner_lr)
+            t_acc = self.fns.accuracy(tgt, self._test_x[:1],
+                                      self._test_y[:1],
+                                      self._test_mask[:1])[0]
         pmf = self.participants.float()
-        return accs[0], torch.sum(accs * pmf) / torch.clamp(torch.sum(pmf),
-                                                             min=1.0)
+        return t_acc, torch.sum(accs * pmf) / torch.clamp(torch.sum(pmf),
+                                                          min=1.0)
 
     # ---------------------------------------------------------------- entry
 
@@ -258,7 +354,8 @@ class FederatedSimulation:
         """Run ``sim.rounds`` rounds of ``method`` from ``params0``.
 
         ``idx_stream`` (rounds, N, steps, B) and ``link_masks`` (rounds, M)
-        replace the on-device draws when given. Returns the reference's
+        replace the on-device draws when given; with ``sim.erasures`` off
+        every link succeeds, injected masks or not. Returns the reference's
         history dict (``target_acc``, ``mean_participant_acc``, ``pi`` per
         eval point, ``max_target_acc``) plus ``taps`` (per-round metrics as
         numpy arrays) and ``round_ms`` (host ms per round of each block,
@@ -284,7 +381,10 @@ class FederatedSimulation:
             for _ in range(length):
                 idx = self._draw_idx(gen) if idx_all is None else idx_all[rnd]
                 link_ok = None
-                if method == "pfedwn":
+                if method == "pfedwn" and not sim.erasures:
+                    link_ok = torch.ones((self.m,), dtype=torch.bool,
+                                         device=self.device)
+                elif method == "pfedwn":
                     link_ok = (link_success_mask(self._p_err_nbr, gen)
                                if masks_all is None else masks_all[rnd])
                 params, pi, tap = self._round(method, params, pi, idx,
@@ -292,7 +392,7 @@ class FederatedSimulation:
                 block_taps.append(tap)
                 rnd += 1
             with record_function("fedsim.eval"):
-                t_acc, mean_acc = self._eval(params)
+                t_acc, mean_acc = self._eval(method, params)
             # the one host sync of the block
             t_acc, mean_acc = float(t_acc), float(mean_acc)
             history["round_ms"].append(

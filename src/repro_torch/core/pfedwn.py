@@ -5,14 +5,19 @@ stacked flat buffer (M, P). Each EM iteration runs the E-step (Eq 9) through
 the fused cross-entropy + posterior kernel (:mod:`repro_torch.kernels.
 em_posterior`), the M-step for π (Eq 10), and the λ-weighted component
 refinement (Eq 11) whose first SGD step reuses the E-step's own forward.
+:func:`pfedwn_round` is one whole Algorithm-2 round at the target: EM,
+the erasure-gated Eq-1 mix (:mod:`repro_torch.kernels.weighted_agg`) and
+local training from the aggregate.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import em
+from repro_torch.configs.base import PFLConfig
+from repro_torch.core import aggregation, em
+from repro_torch.core.selection import link_success_mask
 from repro_torch.kernels.em_posterior import em_posterior
 
 
@@ -128,3 +133,31 @@ def em_refine_loop(fns: ModelFns, components: torch.Tensor, pi: torch.Tensor,
     _, pi_star, _, _ = _e_step(fns, comps, pi, x, y, min_weight, False)
     hist.append(pi_star)
     return comps, pi_star, torch.stack(hist)
+
+
+def pfedwn_round(generator: torch.Generator, fns: ModelFns,
+                 target_params: torch.Tensor, neighbor_params: torch.Tensor,
+                 pi: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                 p_err: torch.Tensor, cfg: PFLConfig,
+                 local_train: Callable[[torch.Tensor, torch.Generator],
+                                       torch.Tensor],
+                 component_steps: int = 1
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Dict[str, torch.Tensor]]:
+    """One Algorithm-2 round at the target.
+
+    ``target_params`` (P,) and ``neighbor_params`` (M, P): the target and
+    the M models as *received* this round; ``pi`` (M,) last
+    round's posterior; ``p_err`` (M,) the links' erasure probabilities,
+    drawn from ``generator`` (on ``p_err``'s device), which then goes on to
+    ``local_train(mixed, generator)``. Returns (new target params, π*,
+    info with ``pi``, ``pi_history`` and ``link_ok``)."""
+    components, pi_star, pi_hist = em_refine_loop(
+        fns, neighbor_params, pi, x, y, iters=cfg.em_iters, lr=cfg.lr,
+        min_weight=cfg.em_min_weight, component_steps=component_steps)
+    link_ok = link_success_mask(p_err, generator)
+    mixed = aggregation.mix_params_with_erasures(
+        target_params, neighbor_params, pi_star, cfg.alpha, link_ok)
+    new_params = local_train(mixed, generator)
+    info = {"pi": pi_star, "pi_history": pi_hist, "link_ok": link_ok}
+    return new_params, pi_star, info

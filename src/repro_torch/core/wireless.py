@@ -8,6 +8,8 @@
     256-point Gauss–Legendre quadrature on [β, β + 8√Γ]
 
 Functions broadcast over leading axes: a batch of links is one call.
+Node positions come from :func:`ppp_positions` (a Poisson point process on
+the area) and their distances from :func:`pairwise_distances`.
 """
 from __future__ import annotations
 
@@ -117,3 +119,29 @@ def error_probability(cfg: WirelessConfig, link_dist: torch.Tensor,
         - cfg.noise_power
     ccdf = lognormal_ccdf(arg, mu[..., None], sigma[..., None])
     return torch.clamp(torch.sum(w * pdf * ccdf, dim=-1), 0.0, 1.0)
+
+
+def pairwise_distances(pos: torch.Tensor) -> torch.Tensor:
+    """(G, G) distances between the rows of ``pos`` (G, 2). The root is
+    taken in fp64 and rounded once: torch's fp32 root on the CPU is not
+    correctly rounded, and this one is, as the reference's is."""
+    d = pos[:, None, :] - pos[None, :, :]
+    sq = torch.sum(d * d, dim=-1) + 1e-12
+    return torch.sqrt(sq.double()).to(sq.dtype)
+
+
+def ppp_positions(generator: torch.Generator, cfg: WirelessConfig,
+                  density: float, max_nodes: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Poisson point process on the area, on ``generator``'s device:
+    (positions (max_nodes, 2) uniform on the square, valid mask). The node
+    count is Poisson(density · area), clipped to [1, max_nodes]; the first
+    that many rows are valid."""
+    dev = generator.device
+    rate = torch.tensor(density * cfg.area_m * cfg.area_m,
+                        dtype=torch.float32, device=dev)
+    n = torch.clamp(torch.poisson(rate, generator=generator), 1, max_nodes)
+    pos = torch.rand((max_nodes, 2), generator=generator,
+                     device=dev) * cfg.area_m
+    valid = torch.arange(max_nodes, device=dev) < n
+    return pos, valid

@@ -1,0 +1,64 @@
+"""The port's benchmark plumbing (``benchmarks/torch_common.py``) against
+the reference's (``benchmarks/common.py``): the same wireless scenarios and
+the same simulations for the Table II/III and ablation scripts."""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+
+from benchmarks import common as ref_common  # noqa: E402
+from benchmarks import torch_common  # noqa: E402
+
+torch.set_num_threads(1)
+
+# (seed, neighbours, γ_th, ε): Table II's three cases, Table III's, and
+# the ablations' first scenario
+SCENARIOS = [(5, 10, 5.0, 0.1), (10, 10, 10.0, 0.1), (15, 10, 15.0, 0.1),
+             (20, 20, 10.0, 0.1), (11, 10, 5.0, 0.15)]
+
+
+@pytest.mark.parametrize("seed,n,gamma,eps", SCENARIOS)
+def test_build_scenario_matches_reference(seed, n, gamma, eps):
+    got = torch_common.build_scenario(seed, n, gamma_th=gamma, eps=eps,
+                                      device="cpu")
+    ref = ref_common.build_scenario(seed, n, gamma_th=gamma, eps=eps)
+    np.testing.assert_array_equal(got.target_pos, ref.target_pos)
+    np.testing.assert_array_equal(got.neighbor_pos, ref.neighbor_pos)
+    np.testing.assert_allclose(got.p_err, ref.p_err, atol=1e-5)
+    np.testing.assert_array_equal(got.selected, ref.selected)
+
+
+@pytest.mark.parametrize("noise", [0.35, 0.8])
+def test_build_simulation_matches_reference(noise):
+    """Same data, participants, P_err, sizes and settings (a reduced
+    sample count keeps the reference's engine set-up quick)."""
+    sc = ref_common.build_scenario(10, 10, gamma_th=10.0, eps=0.1)
+    kw = dict(rounds=3, samples=900, noise=noise)
+    ref = ref_common.build_simulation(10, sc, **kw)
+    got = torch_common.build_simulation(
+        10, torch_common.Scenario(sc.target_pos, sc.neighbor_pos, sc.p_err,
+                                  sc.selected), device="cpu", **kw)
+    for a, b in zip(got.train_sets + got.test_sets,
+                    ref.train_sets + ref.test_sets):
+        np.testing.assert_array_equal(a.x, b.x)
+        np.testing.assert_array_equal(a.y, b.y)
+    np.testing.assert_array_equal(got.participants.numpy(),
+                                  np.asarray(ref.participants))
+    np.testing.assert_array_equal(got._p_err_nbr.numpy(),
+                                  np.asarray(ref.p_err)[got.neighbor_idx])
+    np.testing.assert_array_equal(got.sizes.numpy(), np.asarray(ref.sizes))
+    assert got.steps_per_round == ref.steps_per_round
+    assert got.model_cfg.widths == ref.model_cfg.widths
+    for field in ("rounds", "batch_size", "lr", "alpha", "em_iters",
+                  "seed"):
+        assert getattr(got.sim, field) == getattr(ref.sim, field), field
+
+
+def test_timed_times_the_one_call_that_gives_the_result():
+    calls = []
+    us, out = torch_common.timed(lambda k: calls.append(k) or len(calls), 7)
+    assert out == 1 and calls == [7] and us >= 0

@@ -28,7 +28,8 @@ torch.set_num_threads(1)
 ROUNDS, EVAL_EVERY = 3, 2
 SIM_KW = dict(rounds=ROUNDS, batch_size=16, lr=0.05, em_iters=2,
               em_subset=64, eval_every=EVAL_EVERY, seed=0)
-SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
+SRC = os.path.join(ROOT, "src")
 
 
 def _tiny_data(pkg_synth, pkg_part, pkg_make, pkg_split, n_clients=4,
@@ -138,7 +139,7 @@ def test_engine_rejects_bad_injected_draws(engines):
     with pytest.raises(ValueError):
         port.run("local", idx_stream=idx)
     with pytest.raises(ValueError):
-        port.run("fedavg")
+        port.run("scaffold")
 
 
 def test_block_schedule_matches_reference():
@@ -152,7 +153,7 @@ import numpy as np
 import torch
 import repro_torch
 from repro_torch.configs import CNNConfig, WirelessConfig
-from repro_torch.core import selection
+from repro_torch.core import baselines, selection
 from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
 from repro_torch.data import (dirichlet_partition, make_client_datasets,
                               synthetic_image_dataset, train_test_split)
@@ -165,8 +166,16 @@ te = make_client_datasets(base, [train_test_split(p)[1] for p in parts])
 args = (CNNConfig(image_size=8, widths=(4,), hidden=8, n_classes=4), tr, te,
         np.ones(3, bool), np.zeros(3, np.float32),
         FedSimConfig(rounds=2, batch_size=16, em_iters=2, em_subset=32))
-h = FederatedSimulation(*args, device="cpu").run("pfedwn")
+sim = FederatedSimulation(*args, device="cpu")
+h = sim.run("pfedwn")
 assert len(h["pi"]) == 2
+for method in ("fedavg", "perfedavg", "fedamp"):
+    h = sim.run(method)
+    assert 0.0 <= h["max_target_acc"] <= 1.0 and h["pi"] == []
+xi = baselines.fedamp_weights(sim.params0, 1e4, sim.participants)
+assert torch.allclose(xi.sum(1), torch.ones(3))
+from benchmarks import (torch_ablations, torch_common,  # the port's tables
+                        torch_table2_accuracy, torch_table3_accuracy)
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
        or m.startswith("repro.")]
@@ -189,8 +198,9 @@ print("RAISED", raised)
 
 
 def test_port_imports_no_jax_and_defaults_to_cuda():
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
-               OMP_NUM_THREADS="1")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([os.path.abspath(SRC),
+                                           os.path.abspath(ROOT)]))
     out = subprocess.run([sys.executable, "-c", _ISOLATION], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the reference's sweep shapes, the pFedWN round's shapes and the LM
-prefill's, and the serving path on the card against the CPU. Every test
+prefill's; every federated method and the serving path on the card against
+the CPU, with the kernel launches each path makes. Every test
 here needs a CUDA card and skips without one; the file imports nothing of
 JAX, so it runs where only the port is installed:
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.fedsim import METHODS
 from repro_torch.kernels import em_posterior as k1
 from repro_torch.kernels import flash_attention as k3
 from repro_torch.kernels import ref as tref
@@ -300,3 +302,75 @@ def test_serve_on_card_matches_cpu(cuda, arch, window):
     torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
                                rtol=1e-4)
     assert torch.equal(got.tokens.cpu(), ref.tokens)
+
+
+def _tiny_sim(device, params0=None, **switches):
+    """``tests/test_torch_fedsim.py``'s small setup: 4 clients, one of
+    them not participating, a 1-block CNN on 8×8 images."""
+    from repro_torch.configs import CNNConfig
+    from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
+    from repro_torch.data import (dirichlet_partition, make_client_datasets,
+                                  synthetic_image_dataset, train_test_split)
+    base = synthetic_image_dataset(0, 600, image_size=8, n_classes=4)
+    parts = dirichlet_partition(base.y, 4, alpha=0.3, seed=0)
+    train = make_client_datasets(base, [train_test_split(p, seed=1)[0]
+                                        for p in parts])
+    test = make_client_datasets(base, [train_test_split(p, seed=1)[1]
+                                       for p in parts])
+    return FederatedSimulation(
+        CNNConfig(image_size=8, widths=(4,), hidden=16, n_classes=4), train,
+        test, np.array([True, True, True, False]),
+        np.linspace(0.0, 0.2, 4).astype(np.float32),
+        FedSimConfig(rounds=3, batch_size=16, em_iters=2, em_subset=64,
+                     adapt_subset=32, eval_every=2, **switches),
+        params0=params0, device=device)
+
+
+def _card_vs_cpu(cuda, method, **switches):
+    """One run of ``method`` on the card and on the CPU from the same
+    params and injected draws, held to the engine's tolerances; returns the
+    (K1, K2) launches of the card's run."""
+    gpu = _tiny_sim(cuda, **switches)
+    cpu = _tiny_sim("cpu", params0=gpu.params0.cpu(), **switches)
+    rng = np.random.default_rng(1)
+    idx = np.stack([rng.integers(0, n, (3, gpu.steps_per_round, 16))
+                    for n in gpu._train_len], axis=1)
+    masks = rng.random((3, gpu.m)) > 0.3
+    n1, n2 = k1.launches, k2.launches
+    hg = gpu.run(method, idx_stream=idx, link_masks=masks)
+    launches = (k1.launches - n1, k2.launches - n2)
+    hc = cpu.run(method, idx_stream=idx, link_masks=masks)
+    np.testing.assert_allclose(hg["target_acc"], hc["target_acc"], atol=5e-3)
+    np.testing.assert_allclose(hg["mean_participant_acc"],
+                               hc["mean_participant_acc"], atol=5e-3)
+    torch.testing.assert_close(gpu.last_state["params"].cpu(),
+                               cpu.last_state["params"], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(hg["taps"]["train_loss"],
+                               hc["taps"]["train_loss"], atol=1e-4)
+    if method == "pfedwn":
+        np.testing.assert_allclose(np.stack(hg["pi"]), np.stack(hc["pi"]),
+                                   atol=1e-4)
+    return launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", METHODS)
+def test_method_on_card_matches_cpu(cuda, method):
+    """pFedWN launches K1 once an EM iteration and K2 once a round; local
+    and the four baselines launch neither."""
+    n1, n2 = _card_vs_cpu(cuda, method)
+    if method == "pfedwn":
+        assert (n1, n2) == (3 * 2, 3)
+    else:
+        assert (n1, n2) == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("em_uniform,erasures", [(True, True),
+                                                 (True, False),
+                                                 (False, False)])
+def test_ablation_switches_on_card_match_cpu(cuda, em_uniform, erasures):
+    """Uniform π skips EM, so K1 stays idle while K2 still mixes."""
+    n1, n2 = _card_vs_cpu(cuda, "pfedwn", em_uniform=em_uniform,
+                          erasures=erasures)
+    assert n1 == (0 if em_uniform else 3 * 2) and n2 == 3

@@ -1,6 +1,7 @@
 """The port's channel model and neighbour selection against
 ``repro.core.wireless`` / ``repro.core.selection``, on quickstart's
 scenario, plus the properties of ``tests/test_wireless.py``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -128,3 +129,46 @@ def test_link_success_mask_and_rate():
         np.testing.assert_allclose(
             float(selection.link_success_rate(torch.tensor(m, dtype=bool))),
             float(ref_selection.link_success_rate(jnp.asarray(m, bool))))
+
+
+def test_pairwise_distances_match_reference():
+    pos = np.random.default_rng(5).uniform(0, 50, (12, 2)).astype(np.float32)
+    got = wireless.pairwise_distances(torch.from_numpy(pos))
+    expect = ref_wireless.pairwise_distances(jnp.asarray(pos))
+    assert got.shape == (12, 12)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(expect))
+    # the +1e-12 under the root keeps the diagonal off zero
+    np.testing.assert_allclose(np.diag(got.numpy()), 1e-6, rtol=1e-3)
+
+
+@pytest.mark.parametrize("seed,density,max_nodes", [(1, 4e-3, 64),
+                                                    (2, 4e-3, 5),
+                                                    (3, 1e-7, 16)])
+def test_ppp_positions_in_area(seed, density, max_nodes):
+    """``tests/test_wireless.py``'s properties (the draws differ from
+    ``jax.random``'s): positions in the area, between 1 and ``max_nodes``
+    valid, valid rows first; the count follows Poisson(density · area)."""
+    gen = torch.Generator().manual_seed(seed)
+    pos, valid = wireless.ppp_positions(gen, CFG, density, max_nodes)
+    assert pos.shape == (max_nodes, 2) and pos.dtype == torch.float32
+    assert bool(torch.all((pos >= 0) & (pos <= CFG.area_m)))
+    n = int(valid.sum())
+    assert 1 <= n <= max_nodes
+    assert bool(valid[:n].all()) and not bool(valid[n:].any())
+    ref_pos, ref_valid = ref_wireless.ppp_positions(
+        jax.random.PRNGKey(seed), REF_CFG, density, max_nodes)
+    assert ref_pos.shape == tuple(pos.shape)
+    assert ref_valid.dtype == jnp.bool_ and valid.dtype == torch.bool
+
+
+def test_ppp_positions_count_is_poisson():
+    """Over 400 draws the clipped-free count (λ = 10 nodes on the area)
+    has the Poisson mean and variance."""
+    gen = torch.Generator().manual_seed(0)
+    lam = 10.0
+    density = lam / CFG.area_m ** 2
+    counts = np.array([int(wireless.ppp_positions(gen, CFG, density,
+                                                  64)[1].sum())
+                       for _ in range(400)])
+    assert abs(counts.mean() - lam) < 0.5
+    assert abs(counts.var() - lam) < 2.5
