@@ -1,0 +1,184 @@
+"""The port's round loop timed: the fused engine against the legacy
+host-driven loop (``FedSimConfig(fused=False)``), for all six methods at
+N = 8 and N = 32 clients; the port of ``benchmarks/fedsim_bench.py``'s
+base sweep.
+
+    python3 benchmarks/torch_fedsim_bench.py [--device cpu] [--smoke]
+
+It prints the card's name and power limit and one CSV line a method and
+client count, and writes ``BENCH_torch.json`` at the repo root: each
+engine's rounds per second and ms per round (a warm-up run first, then one
+timed run of every round, evals included, on the host clock), and legacy ÷
+fused. The file is read, updated and written back, so top-level sections
+that other runs add survive (``_merge_write``). ``--smoke`` instead runs
+both engines at a seconds-scale shape, asserts that they agree, and writes
+nothing.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+from pathlib import Path
+from typing import Dict
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import torch  # noqa: E402
+
+from benchmarks.torch_common import emit, parser, setup_device  # noqa: E402
+from repro_torch.configs import CNNConfig  # noqa: E402
+from repro_torch.core.fedsim import (METHODS,  # noqa: E402
+                                     FederatedSimulation, FedSimConfig)
+from repro_torch.data import (make_client_datasets,  # noqa: E402
+                              synthetic_image_dataset, train_test_split)
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
+OUT_PATH = REPO_ROOT / "BENCH_torch.json"
+ROUNDS, EVAL_EVERY = 8, 1
+
+
+def build_sim(n_clients: int, *, fused: bool, rounds: int, eval_every: int,
+              samples: int = 0, batch: int = 32,
+              device: str = "cuda") -> FederatedSimulation:
+    """Every client participates, over links with a mild random error: the
+    learning loop is what is timed, not the channel layer. Each client gets
+    an even random shard (64 samples by default), not a Dirichlet split,
+    so that every method runs a fixed number of steps a round."""
+    samples = samples or 64 * n_clients
+    base = synthetic_image_dataset(0, samples, image_size=8, n_classes=10)
+    rng = np.random.default_rng(0)
+    parts = np.array_split(rng.permutation(samples), n_clients)
+    train_sets = make_client_datasets(
+        base, [train_test_split(p, seed=1)[0] for p in parts])
+    test_sets = make_client_datasets(
+        base, [train_test_split(p, seed=1)[1] for p in parts])
+    pm = np.ones(n_clients, bool)
+    rng = np.random.default_rng(2)
+    p_err = np.concatenate(
+        [[0.0], rng.uniform(0.0, 0.1, n_clients - 1)]).astype(np.float32)
+    model_cfg = CNNConfig(image_size=8, widths=(4, 8), hidden=16,
+                          n_classes=10)
+    cfg = FedSimConfig(rounds=rounds, batch_size=batch, lr=0.05, alpha=0.7,
+                       em_iters=2, em_subset=32, adapt_subset=32,
+                       eval_every=eval_every, seed=0, fused=fused)
+    return FederatedSimulation(model_cfg, train_sets, test_sets, pm, p_err,
+                               cfg, device=device)
+
+
+def time_method(sim: FederatedSimulation, method: str) -> Dict[str, float]:
+    """Rounds per second and ms per round of one run of ``method``, after
+    a warm-up run. Every run ends in a host sync (its last eval), so the
+    host clock covers the device's work."""
+    sim.run(method)
+    t0 = time.perf_counter()
+    sim.run(method)
+    dt = time.perf_counter() - t0
+    rounds = sim.sim.rounds
+    return {"rounds_per_sec": rounds / dt,
+            "round_latency_ms": dt / rounds * 1e3, "total_s": dt}
+
+
+def run(device: str = "cuda", card: str = "",
+        path: Path = OUT_PATH) -> Dict:
+    results: Dict[str, Dict] = {}
+    for n in (8, 32):
+        sims = {engine: build_sim(n, fused=(engine == "fused"),
+                                  rounds=ROUNDS, eval_every=EVAL_EVERY,
+                                  device=device)
+                for engine in ("legacy", "fused")}
+        results[f"N={n}"] = {}
+        for method in METHODS:
+            row: Dict[str, float] = {}
+            for engine, sim in sims.items():
+                t = time_method(sim, method)
+                row[f"{engine}_rounds_per_sec"] = t["rounds_per_sec"]
+                row[f"{engine}_round_latency_ms"] = t["round_latency_ms"]
+            row["legacy_over_fused"] = (row["legacy_round_latency_ms"]
+                                        / row["fused_round_latency_ms"])
+            results[f"N={n}"][method] = row
+            emit(f"torch_fedsim_{method}_N{n}",
+                 row["fused_round_latency_ms"] * 1e3,
+                 f"fused_rps={row['fused_rounds_per_sec']:.2f};"
+                 f"legacy_rps={row['legacy_rounds_per_sec']:.2f};"
+                 f"legacy/fused={row['legacy_over_fused']:.2f}x")
+    report = {
+        "bench": "torch_fedsim_round_loop",
+        "device": card or str(device),
+        "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+        "config": {"rounds": ROUNDS, "eval_every": EVAL_EVERY,
+                   "batch_size": 32, "image_size": 8, "em_iters": 2,
+                   "em_subset": 32, "model": "cnn(4,8)/h16",
+                   "samples_per_client": 64, "partition": "even"},
+        "note": "legacy = host-driven per-round loop (fused=False); fused = "
+                "the device-resident engine with a host sync per eval "
+                "block; ms per round on the host clock, one warm-up run "
+                "first, evals included",
+        "results": results,
+    }
+    return _merge_write(report, path)
+
+
+def _merge_write(updates: Dict, path: Path = OUT_PATH) -> Dict:
+    """Read-update-write ``path``: only the top-level keys in ``updates``
+    are replaced; keys it does not own pass through unchanged. Returns
+    the merged report."""
+    report: Dict = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            report = json.load(f)
+    report.update(updates)
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1)
+        f.write("\n")
+    return report
+
+
+def smoke(device: str = "cuda") -> None:
+    """Seconds-scale guard: both engines run pFedWN on a tiny shape and
+    agree (accuracies within 5e-3, π within 1e-4); the fused engine syncs
+    once per eval block. Writes nothing."""
+    t0 = time.perf_counter()
+    sims = {engine: build_sim(4, fused=(engine == "fused"), rounds=3,
+                              eval_every=2, samples=400, batch=16,
+                              device=device)
+            for engine in ("legacy", "fused")}
+    hist = {engine: sim.run("pfedwn") for engine, sim in sims.items()}
+    gap = max(abs(a - b) for a, b in zip(hist["fused"]["target_acc"],
+                                         hist["legacy"]["target_acc"]))
+    pi_gap = float(np.abs(np.stack(hist["fused"]["pi"])
+                          - np.stack(hist["legacy"]["pi"])).max())
+    if gap > 5e-3 or pi_gap > 1e-4:
+        raise AssertionError(f"fused and legacy disagree on the smoke "
+                             f"shape: |Δacc|={gap:.4f} |Δπ|={pi_gap:.2e}")
+    if sims["fused"].last_run_stats["device_calls"] != 2:
+        raise AssertionError("the fused engine synced more than once a "
+                             "block")
+    emit("torch_fedsim_smoke", (time.perf_counter() - t0) * 1e6,
+         f"parity_gap={gap:.1e};ok")
+
+
+def main() -> None:
+    p = parser(__doc__.split("\n")[0], str(OUT_PATH))
+    p.add_argument("--smoke", action="store_true",
+                   help="run both engines at a tiny shape, check that they "
+                   "agree, write nothing")
+    args = p.parse_args()
+    info = setup_device(args.device)
+    if args.smoke:
+        smoke(args.device)
+        return
+    out = Path(args.out)
+    report = run(device=args.device, card=info.get("card", ""), path=out)
+    n32 = report["results"]["N=32"]["pfedwn"]
+    emit("torch_fedsim_bench", 0.0,
+         f"wrote {out.name};pfedwn_N32_legacy/fused="
+         f"{n32['legacy_over_fused']:.2f}x")
+
+
+if __name__ == "__main__":
+    main()

@@ -9,13 +9,14 @@ Phases, each of which stops the run on failure:
   3. hold K1 (the EM E-step) against its plain version on the card, at the
      pFedWN round's shape, the reference's test sweep, both sides of each
      of the kernel's team-size and token-tile switches (V up to
-     smollm-135m's vocabulary of 49,152, M 1 to 32), labels at a row's
-     ends, a view 4 bytes off an 8-byte boundary and logits 100x the
+     smollm-135m's vocabulary of 49,152, M 1 to 32), M past 32 (33 to
+     1000, on both sides of its output-staged path at 256), labels at a
+     row's ends, a view 4 bytes off an 8-byte boundary and logits 100x the
      sweep's, fp32 and bf16;
   4. hold K2 (the Eq-1 mix) against its plain version at the cifar10-cnn
      shape (P = 188,810, M = 10), then at row strides of 188,810, 188,811
-     and 188,812 with M = 1, 10 and 32; fp32 and bf16, links up and all
-     erased;
+     and 188,812 with M = 1, 10, 32 and 33 to 1000 (chunks of 32 rows);
+     fp32 and bf16, links up and all erased;
   5. run a small simulation of each of the six methods (and pFedWN with
      uniform π and no erasures) on the card and on the CPU (plain kernels)
      with the same draws and compare params, accuracies, π and the
@@ -28,6 +29,14 @@ Phases, each of which stops the run on failure:
      ms per round; then hold FedAvg's aggregate and FedAMP's attention
      and clouds on the last run's full-width stack against the same calls
      on the CPU;
+  5c. pFedWN past 32 neighbours (M = 39, every one of 40 clients taking
+     part): a small run on the card against the CPU, then the main path at
+     full width (cifar10-cnn, 16,000 images in even shards, P_err ~ U(0,
+     0.1)), checking that K1 launched ``em_iters`` times a round and K2
+     once a round, and printing ms per round;
+  5d. every method on the legacy host-driven engine (``fused=False``)
+     against the fused engine on the card (a small run), then each
+     engine's ms per round at the full-width scenario of phase 5;
   6. hold K3 (GQA flash attention) against its plain version, fp32 and
      bf16, over the reference's sweep, two ragged shapes, the prefill
      attention shapes of smollm-135m, starcoder2-15b (window 4096) and
@@ -38,8 +47,9 @@ Phases, each of which stops the run on failure:
      full width (smollm-135m, 8 prompts of 1024 tokens, 32 generated) and
      check that K3 carried every layer of the prefill;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
-     at the main paths' shapes (K1 also in bf16 and at smollm-135m's
-     vocabulary, K2 also from a 16-byte-aligned stride, K3 also in bf16,
+     at the main paths' shapes (K1 also in bf16, at smollm-135m's
+     vocabulary and at the M = 39 round's shape, K2 also from a
+     16-byte-aligned stride and at M = 39, K3 also in bf16,
      SDPA under each backend) beside the card's floor (a 1-element
      ``zero_()`` in the same bracket) and print them as one JSON line;
   9. with ``--profile`` only: profile two pFedWN rounds and one serving run
@@ -62,6 +72,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROUNDS, EVAL_EVERY, EM_ITERS = 8, 2, 5
+WIDE_CLIENTS, WIDE_ROUNDS = 40, 4     # phase 5c: M = 39 neighbours
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}      # K1 (test_kernels.py)
 AGG_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}  # K2 (test_kernels.py)
 ATTN_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}  # K3 (test_kernels.py)
@@ -79,6 +90,15 @@ EM_SHAPES = [EM_MAIN, (2, 128, 512), (4, 128, 1024), (8, 256, 512),
              (1, 100, 33), (5, 20, 512), (3, 24, 520), (16, 33, 1024),
              (17, 20, 1025), (32, 16, 1025), (8, 16, 49_152), (10, 515, 10),
              (2, 700, 33), (1, 4099, 10)]
+# past 32 components (a target with more than 32 selected neighbours): M on
+# both sides of 32, 64 and 256 (where a tile of one token outgrows the
+# kernel's shared-memory stage) and 1000, at the round's V = 10 (T 512,
+# the em_subset), at V = 1025 (T 37) and at the vocabulary (T 2); the first
+# is the M = 39 round's shape
+WIDE_M = (33, 39, 63, 64, 65, 256, 257, 1000)
+EM_WIDE = (39, 512, 10)
+EM_SHAPES += [(M, T, V) for V, T in ((10, 512), (1025, 37), (49_152, 2))
+              for M in WIDE_M]
 # further K1 cases: (shape, logit scale, view offset in elements, labels at
 # the row's ends); an offset of 1 fp32 / 2 bf16 elements is 4 bytes past an
 # 8-byte boundary
@@ -151,11 +171,19 @@ def _em_inputs(M, T, V, dtype, dev, seed=0, scale=3, offset=0,
 
 
 def _agg_inputs(M, P, dtype, dev, seed=0):
+    """A stack of M + 1 normal rows of P (row 0 is own), softmax weights
+    and the row numbers 1..M; from numpy below a few million values, else
+    from a generator on the card."""
     rng = np.random.default_rng(seed)
-    stack = torch.from_numpy(rng.normal(size=(M + 1, P)).astype(np.float32))
+    if (M + 1) * P <= 1 << 23:
+        stack = torch.from_numpy(rng.normal(size=(M + 1, P))
+                                 .astype(np.float32)).to(dev)
+    else:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        stack = torch.randn((M + 1, P), generator=g, device=dev)
     w = torch.softmax(torch.from_numpy(rng.normal(size=M)).float(), 0)
     rows = torch.arange(1, M + 1)
-    return stack.to(device=dev, dtype=dtype), w.to(dev), rows.to(dev)
+    return stack.to(dtype=dtype), w.to(dev), rows.to(dev)
 
 
 def _em_error(args):
@@ -195,14 +223,14 @@ def check_em_posterior(dev) -> None:
 def check_weighted_agg(dev) -> float:
     """K2 against its plain version at the cifar10-cnn shape (M 10, P
     188,810), then over row strides of 188,810, 188,811 and 188,812
-    elements (8-, 4- and 16-byte vectors in fp32) with M 1, 10 and 32;
-    fp32 and bf16, links up and all erased. Returns the max |d| at the
-    main shape in fp32."""
+    elements (8-, 4- and 16-byte vectors in fp32) with M 1, 10, 32 and
+    every M of ``WIDE_M``; fp32 and bf16, links up and all erased. Returns
+    the max |d| at the main shape in fp32."""
     from repro_torch.kernels import weighted_agg as k2
     from repro_torch.kernels.ref import weighted_agg_ref
     main_err = None
     cases = [(10, AGG_P)] + [(M, stride) for stride in AGG_STRIDES
-                             for M in (1, 10, 32)]
+                             for M in (1, 10, 32) + WIDE_M]
     for M, stride in cases:
         for dtype in (torch.float32, torch.bfloat16):
             buf, w, rows = _agg_inputs(M, stride, dtype, dev)
@@ -270,24 +298,8 @@ def check_small_run_against_cpu(dev) -> None:
         masks = rng.random((3, gpu.m)) > 0.3
         hg = gpu.run(method, idx_stream=idx, link_masks=masks)
         hc = cpu.run(method, idx_stream=idx, link_masks=masks)
-        pi_err = (float(np.abs(np.stack(hg["pi"])
-                               - np.stack(hc["pi"])).max())
-                  if method == "pfedwn" else 0.0)
-        p_err = float((gpu.last_state["params"].cpu()
-                       - cpu.last_state["params"]).abs().max())
-        acc_err = float(np.abs(
-            np.array(hg["target_acc"] + hg["mean_participant_acc"])
-            - np.array(hc["target_acc"] + hc["mean_participant_acc"])).max())
-        loss_err = float(np.abs(hg["taps"]["train_loss"]
-                                - hc["taps"]["train_loss"]).max())
-        print(f"small {method} {switches or ''} card vs CPU: "
-              f"max|dπ|={pi_err:.3g} (tol 1e-4) max|dparams|={p_err:.3g} "
-              f"(tol 1e-4) max|dacc|={acc_err:.3g} (tol 5e-3) "
-              f"max|dloss|={loss_err:.3g} (tol 1e-4)")
-        if not (pi_err <= 1e-4 and p_err <= 1e-4 and acc_err <= 5e-3
-                and loss_err <= 1e-4):
-            raise AssertionError(f"the card's {method} run disagrees with "
-                                 f"the CPU's ({switches})")
+        _compare(f"small {method} {switches or ''} card vs CPU", hg, hc, gpu,
+                 cpu, method == "pfedwn")
 
 
 def _main_sim(dev):
@@ -433,6 +445,178 @@ def check_baselines_full_width(sim) -> None:
         if not (xi_err <= xi_tol and cloud_err <= cloud_tol):
             raise AssertionError(f"fedamp at σ={sigma}: the card disagrees "
                                  f"with the CPU at full width")
+
+
+def _wide_sim(device, full, params0=None):
+    """40 clients, all of them taking part, so the target mixes M = 39
+    neighbours. Small: the 8×8 CNN on 4000 images in a Dirichlet(1.0)
+    split, P_err from 0 to 0.2, 2 rounds of batch 16, one EM iteration on
+    64 samples. Full: cifar10-cnn on 16,000 32×32 images in even random
+    shards, P_err ~ U(0, 0.1), batch 32, ``EM_ITERS`` EM iterations on 512
+    samples, ``WIDE_ROUNDS`` rounds."""
+    from repro_torch.configs import CNNConfig, cifar10_cnn
+    from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
+    from repro_torch.data import (dirichlet_partition, make_client_datasets,
+                                  synthetic_image_dataset, train_test_split)
+    n = WIDE_CLIENTS
+    if full:
+        base = synthetic_image_dataset(0, 16_000, image_size=32,
+                                       n_classes=10)
+        parts = np.array_split(np.random.default_rng(0).permutation(16_000),
+                               n)
+        p_err = np.concatenate([[0.0], np.random.default_rng(2).uniform(
+            0.0, 0.1, n - 1)]).astype(np.float32)
+        model = cifar10_cnn()
+        cfg = dict(rounds=WIDE_ROUNDS, batch_size=32, alpha=0.7,
+                   em_iters=EM_ITERS, em_subset=512, eval_every=EVAL_EVERY)
+    else:
+        base = synthetic_image_dataset(0, 4000, image_size=8, n_classes=4)
+        parts = dirichlet_partition(base.y, n, alpha=1.0, seed=0)
+        p_err = np.linspace(0.0, 0.2, n).astype(np.float32)
+        model = CNNConfig(image_size=8, widths=(4,), hidden=16, n_classes=4)
+        cfg = dict(rounds=2, batch_size=16, em_iters=1, em_subset=64,
+                   eval_every=2)
+    train = make_client_datasets(base, [train_test_split(p, seed=1)[0]
+                                        for p in parts])
+    test = make_client_datasets(base, [train_test_split(p, seed=1)[1]
+                                       for p in parts])
+    return FederatedSimulation(
+        model, train, test, np.ones(n, bool), p_err,
+        FedSimConfig(lr=0.05, seed=0, **cfg), params0=params0,
+        device=device)
+
+
+def _compare(name, hg, hc, sim_g, sim_c, pfedwn) -> None:
+    """Two runs' accuracies (5e-3), final params and train-loss tap (1e-4)
+    and, for pFedWN, π (1e-4), as the engine's parity tests hold them."""
+    pi_err = (float(np.abs(np.stack(hg["pi"]) - np.stack(hc["pi"])).max())
+              if pfedwn else 0.0)
+    p_err = float((sim_g.last_state["params"].cpu()
+                   - sim_c.last_state["params"].cpu()).abs().max())
+    acc_err = float(np.abs(
+        np.array(hg["target_acc"] + hg["mean_participant_acc"])
+        - np.array(hc["target_acc"] + hc["mean_participant_acc"])).max())
+    loss_err = float(np.abs(hg["taps"]["train_loss"]
+                            - hc["taps"]["train_loss"]).max())
+    print(f"{name}: max|dπ|={pi_err:.3g} (tol 1e-4) max|dparams|="
+          f"{p_err:.3g} (tol 1e-4) max|dacc|={acc_err:.3g} (tol 5e-3) "
+          f"max|dloss|={loss_err:.3g} (tol 1e-4)")
+    if not (pi_err <= 1e-4 and p_err <= 1e-4 and acc_err <= 5e-3
+            and loss_err <= 1e-4):
+        raise AssertionError(f"{name}: the two runs disagree")
+
+
+def check_wide_small_against_cpu(dev) -> None:
+    """pFedWN with M = 39 on the small :func:`_wide_sim`, card (kernels)
+    against CPU (plain versions), from the same params and draws; the
+    card's run launches K1 once an EM iteration and K2 once a round."""
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+    gpu = _wide_sim(dev, full=False)
+    cpu = _wide_sim("cpu", full=False, params0=gpu.params0.cpu())
+    if gpu.m != WIDE_CLIENTS - 1:
+        raise AssertionError(f"M = {gpu.m}, expected {WIDE_CLIENTS - 1}")
+    rng = np.random.default_rng(1)
+    rounds, batch = gpu.sim.rounds, gpu.sim.batch_size
+    idx = np.stack([rng.integers(0, n, (rounds, gpu.steps_per_round, batch))
+                    for n in gpu._train_len], axis=1)
+    masks = rng.random((rounds, gpu.m)) > 0.1
+    k1.launches = 0
+    k2.launches = 0
+    hg = gpu.run("pfedwn", idx_stream=idx, link_masks=masks)
+    n1, n2 = k1.launches, k2.launches
+    hc = cpu.run("pfedwn", idx_stream=idx, link_masks=masks)
+    _compare(f"small pfedwn M={gpu.m} card vs CPU", hg, hc, gpu, cpu, True)
+    if (n1, n2) != (gpu.sim.em_iters * rounds, rounds):
+        raise AssertionError(f"small M={gpu.m} run launched K1 {n1} and K2 "
+                             f"{n2} times")
+
+
+def run_wide_main_path(dev):
+    """pFedWN on the full :func:`_wide_sim` (M = 39); returns (history, K1
+    launches, K2 launches, the simulation)."""
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+    sim = _wide_sim(dev, full=True)
+    print(f"clients={sim.n} M={sim.m} P={sim.layout.size} "
+          f"steps/round={sim.steps_per_round}")
+    if (sim.m, sim.sim.em_subset, sim.model_cfg.n_classes) != EM_WIDE:
+        raise AssertionError("EM_WIDE is not the M = 39 round's K1 shape")
+    k1.launches = 0
+    k2.launches = 0
+    hist = sim.run("pfedwn")
+    n1, n2 = k1.launches, k2.launches
+    pis = np.stack(hist["pi"])
+    if not (pis.shape[1] == sim.m and np.all(pis >= 0)
+            and np.allclose(pis.sum(1), 1.0, atol=1e-4)):
+        raise AssertionError(f"π left the simplex: {pis}")
+    accs = np.array(hist["target_acc"] + hist["mean_participant_acc"])
+    if not (np.all(np.isfinite(accs)) and np.all(accs >= 0)
+            and np.all(accs <= 1)):
+        raise AssertionError(f"accuracy outside [0, 1]: {accs}")
+    for k, v in hist["taps"].items():
+        if not np.all(np.isfinite(v)):
+            raise AssertionError(f"non-finite tap {k}")
+    if n1 != WIDE_ROUNDS * EM_ITERS or n2 != WIDE_ROUNDS:
+        raise AssertionError(f"kernel launches K1={n1} K2={n2}, expected "
+                             f"{WIDE_ROUNDS * EM_ITERS} and {WIDE_ROUNDS}")
+    print(f"pfedwn M={sim.m} target acc per eval: {hist['target_acc']}")
+    print(f"ms per round by block (host clock, eval included): "
+          f"{hist['round_ms']}")
+    print(f"ms per round after the first block: "
+          f"{float(np.mean(hist['round_ms'][1:]))}")
+    return hist, n1, n2, sim
+
+
+def check_legacy_against_fused(dev) -> None:
+    """Each method on the legacy engine against the fused engine on the
+    card, small run, same seed (so the same on-device draws); the legacy
+    pFedWN launches K1 once an EM iteration and K2 once a round too."""
+    from repro_torch.core.fedsim import METHODS
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+    fused = _tiny_sim(dev)
+    legacy = _tiny_sim(dev, params0=fused.params0, fused=False)
+    for method in METHODS:
+        hf = fused.run(method)
+        k1.launches = 0
+        k2.launches = 0
+        hl = legacy.run(method)
+        n1, n2 = k1.launches, k2.launches
+        _compare(f"small {method} legacy vs fused on the card", hl, hf,
+                 legacy, fused, method == "pfedwn")
+        if (fused.last_run_stats["engine"], legacy.last_run_stats["engine"]
+                ) != ("fused", "legacy"):
+            raise AssertionError(f"engines {fused.last_run_stats} and "
+                                 f"{legacy.last_run_stats}")
+        want = ((legacy.sim.em_iters * legacy.sim.rounds, legacy.sim.rounds)
+                if method == "pfedwn" else (0, 0))
+        if (n1, n2) != want:
+            raise AssertionError(f"legacy {method} launched K1 {n1} and K2 "
+                                 f"{n2} times, expected {want}")
+
+
+def time_legacy_and_fused(dev) -> dict:
+    """Each method on both engines at the full-width scenario of phase 5:
+    ms per round, the wall of one whole run (evals included, ending in a
+    host sync) over its rounds, and legacy ÷ fused."""
+    import dataclasses
+    from repro_torch.core.fedsim import METHODS
+    sim = _main_sim(dev)
+    out = {}
+    for method in METHODS:
+        row = {}
+        for engine in ("fused", "legacy"):
+            sim.sim = dataclasses.replace(sim.sim,
+                                          fused=(engine == "fused"))
+            t0 = time.perf_counter()
+            sim.run(method)
+            row[engine] = (time.perf_counter() - t0) / sim.sim.rounds * 1e3
+        row["legacy_over_fused"] = row["legacy"] / row["fused"]
+        out[method] = row
+        print(f"{method}: ms per round fused {row['fused']}, legacy "
+              f"{row['legacy']}, legacy/fused {row['legacy_over_fused']}")
+    return out
 
 
 def _attn_inputs(shape, dtype, dev, seed=0):
@@ -628,19 +812,22 @@ def k1_times(dev, shape, dtype) -> dict:
     return row
 
 
-def k1_report(dev, n1, floor) -> dict:
+def k1_report(dev, n1, n1_wide, floor) -> dict:
     """K1's row: the main path's shape in fp32 at the top level, and in
-    ``shapes`` that shape and smollm-135m's vocabulary, fp32 and bf16,
-    each with the kernel's plan."""
+    ``shapes`` that shape, smollm-135m's vocabulary and the M = 39 round's
+    shape, fp32 and bf16, each with the kernel's plan (the M = 39 entries
+    also with that round's launches)."""
     from repro_torch.kernels import em_posterior as k1
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = []
-    for shape in (EM_MAIN, EM_VOCAB):
+    for shape in (EM_MAIN, EM_VOCAB, EM_WIDE):
         for dtype in (torch.float32, torch.bfloat16):
             row = k1_times(dev, shape, dtype)
             # a fresh allocation is aligned as an address of 0 is
             row["plan"] = k1.plan(*shape, dtype, 0, sms,
                                   *k1.kernel_limits())._asdict()
+            if shape == EM_WIDE:
+                row["launches"] = n1_wide
             shapes.append(row)
     main = shapes[0]
     pi, logits, labels = _em_inputs(*EM_MAIN, torch.float32, dev)
@@ -665,67 +852,96 @@ def floor_ms(dev) -> float:
     return time_ms(lambda: z.zero_())
 
 
-def agg_report(dev, sim, n2, err2, floor):
-    """K2's row at the main path's shape (the cifar10-cnn round's mix)."""
-    from repro_torch.core.aggregation import masked_pi
+def k2_times(dev, stack, pi, alpha) -> dict:
+    """K2 mixing row 0 of the (N, P) fp32 ``stack`` with rows 1..M (M =
+    N − 1) by weights ``pi`` with every link up, as the round calls it: its
+    steady and cold ms, the plain version's ms, its bound, ``torch.addmv``'s
+    ms on the same mix (the library yardstick), its vector width and grid,
+    and its max |d| against the plain version."""
     from repro_torch.kernels import weighted_agg as k2
     from repro_torch.kernels.ref import weighted_agg_ref
-    bw, fp32 = HBM_BYTES_PER_S, FP32_FLOPS
-    M = sim.m
-
-    alpha = sim.sim.alpha
-    stack = sim.last_state["params"]          # the main path's (N, P) stack
-    P = stack.shape[1]
-    rows = sim._nbr
-    w = masked_pi(sim.last_state["pi"], torch.ones(M, dtype=torch.bool,
-                                                   device=dev)).float()
+    M, P = stack.shape[0] - 1, stack.shape[1]
+    rows = torch.arange(1, M + 1, device=dev)
+    w = pi.float()
     ok = torch.tensor(True, device=dev)
-    nb = stack[1:]                            # rows 1..M are the neighbours
+    own, nb = stack[0], stack[1:]
+    out = k2._launch(own, stack, w, alpha, rows, ok, M)
+    torch.cuda.synchronize()
+    grid = k2.last_grid
+    err = float((out - weighted_agg_ref(own, stack, w, alpha, index=rows,
+                                        any_ok=ok)).abs().max())
+    nbytes = (M + 2) * P * 4 + M * 12 + 1
+    ops = (2 * M + 3) * P
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS * 1e3
+    return {
+        "shape": {"M": M, "P": P, "dtype": "float32"},
+        "max_abs_err": err,
+        "ms": time_ms(lambda: k2._launch(own, stack, w, alpha, rows, ok, M)),
+        "cold_ms": cold_ms(
+            lambda: k2._launch(own, stack, w, alpha, rows, ok, M), dev),
+        "plain_ms": time_ms(lambda: weighted_agg_ref(
+            own, stack, w, alpha, index=rows, any_ok=ok)),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": time_ms(lambda: torch.addmv(
+            own, nb.T, w, beta=alpha, alpha=1 - alpha)),
+        "library_cold_ms": cold_ms(lambda: torch.addmv(
+            own, nb.T, w, beta=alpha, alpha=1 - alpha), dev),
+        "vector_bytes": k2.vector_bytes(
+            (own.data_ptr(), out.data_ptr(), stack.data_ptr()),
+            stack.stride(0) * 4, torch.float32),
+        "grid": grid}
+
+
+def _mix_args(sim):
+    """The last run's stack, π with every link up and α: the main path's
+    K2 inputs (all N clients take part, so rows 1..M are the
+    neighbours)."""
+    from repro_torch.core.aggregation import masked_pi
+    pi = sim.last_state["pi"]
+    w = masked_pi(pi, torch.ones(sim.m, dtype=torch.bool, device=pi.device))
+    if not torch.equal(sim._nbr.cpu(), torch.arange(1, sim.m + 1)):
+        raise AssertionError("the neighbours are not rows 1..M")
+    return sim.last_state["params"], w, sim.sim.alpha
+
+
+def agg_report(dev, sim, n2, err2, wide_sim, n2_wide, floor):
+    """K2's row at the main path's shape (the cifar10-cnn round's mix, M
+    10), with the M = 39 round's mix under ``shapes``."""
+    from repro_torch.kernels import weighted_agg as k2
+    stack, w, alpha = _mix_args(sim)
+    main = k2_times(dev, stack, w, alpha)
+    wide = {**k2_times(dev, *_mix_args(wide_sim)), "launches": n2_wide}
+    M, P = sim.m, stack.shape[1]
+    rows, ok = sim._nbr, torch.tensor(True, device=dev)
     own = stack[0]
-    k2_bytes = (M + 2) * P * 4 + M * 12 + 1
-    k2_ops = (2 * M + 3) * P
     # the same mix from a stack whose rows are 16-byte aligned (P padded by
     # 2), for what padding the engine's stack would buy
     padded = torch.zeros((stack.shape[0], P + 2), device=dev)
     padded[:, :P] = stack
     pstack = padded[:, :P]
-    vec = k2.vector_bytes((own.data_ptr(), own.data_ptr(),
-                           stack.data_ptr()), stack.stride(0) * 4,
-                          torch.float32)
     pvec = k2.vector_bytes((pstack.data_ptr(), pstack.data_ptr()),
                            pstack.stride(0) * 4, torch.float32)
-    k2._launch(own, stack, w, alpha, rows, ok, M)
-    grid = k2.last_grid
-    k2_row = {
+    return {
         "name": "weighted_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
         "replaces": "src/repro/kernels/weighted_agg.py:31",
         "launches": n2, "max_abs_err": err2,
         "tolerance": AGG_TOL[torch.float32],
-        "shape": {"M": M, "P": P, "dtype": "float32"},
-        "ms": time_ms(lambda: k2._launch(own, stack, w, alpha, rows, ok, M)),
-        "cold_ms": cold_ms(
-            lambda: k2._launch(own, stack, w, alpha, rows, ok, M), dev),
+        **{k: main[k] for k in ("shape", "ms", "cold_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "library_cold_ms", "vector_bytes", "grid")},
         "back_to_back_ms": back_to_back_ms(lambda: k2.weighted_agg(
             own, stack, w, alpha, index=rows, any_ok=ok)),
-        "plain_ms": time_ms(lambda: weighted_agg_ref(
-            own, stack, w, alpha, index=rows, any_ok=ok)),
-        "bound_ms": max(k2_bytes / bw, k2_ops / fp32) * 1e3,
-        "bound_by": "bytes" if k2_bytes / bw >= k2_ops / fp32
-        else "operations",
         "floor_ms": floor,
-        "library_ms": time_ms(lambda: torch.addmv(
-            own, nb.T, w, beta=alpha, alpha=1 - alpha)),
-        "library_cold_ms": cold_ms(lambda: torch.addmv(
-            own, nb.T, w, beta=alpha, alpha=1 - alpha), dev),
-        "vector_bytes": vec, "grid": grid,
         "padded_stride": {
             "stride": P + 2, "vector_bytes": pvec,
             "ms": time_ms(lambda: k2._launch(pstack[0], pstack, w, alpha,
                                              rows, ok, M)),
             "cold_ms": cold_ms(lambda: k2._launch(pstack[0], pstack, w,
-                                                  alpha, rows, ok, M), dev)}}
-    return k2_row
+                                                  alpha, rows, ok, M), dev)},
+        "shapes": [wide]}
 
 
 def attention_report(dev, n3, err3, floor):
@@ -946,6 +1162,21 @@ def main() -> int:
           f"after the first block: {json.dumps(ms)}")
     check_baselines_full_width(base_sim)
 
+    _phase("5c. pfedwn past 32 neighbours: small run vs CPU, then M = 39 "
+           "at full width")
+    check_wide_small_against_cpu(dev)
+    t0 = time.perf_counter()
+    _, n1_wide, n2_wide, wide_sim = run_wide_main_path(dev)
+    print(f"M = {wide_sim.m} main path wall {time.perf_counter() - t0:.1f} "
+          f"s, launches K1={n1_wide} K2={n2_wide}")
+
+    _phase("5d. legacy engine: small run vs fused, then ms per round")
+    check_legacy_against_fused(dev)
+    t0 = time.perf_counter()
+    engines = time_legacy_and_fused(dev)
+    print(f"engines wall {time.perf_counter() - t0:.1f} s; ms per round: "
+          f"{json.dumps(engines)}")
+
     _phase("6. K3 flash_attention vs plain")
     err3 = check_flash_attention(dev)
 
@@ -960,8 +1191,8 @@ def main() -> int:
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
     floor = floor_ms(dev)
     print(f"floor (1-element zero_, steady bracket): {floor:.6f} ms")
-    rows = [k1_report(dev, n1, floor),
-            agg_report(dev, sim, n2, err2, floor),
+    rows = [k1_report(dev, n1, n1_wide, floor),
+            agg_report(dev, sim, n2, err2, wide_sim, n2_wide, floor),
             attention_report(dev, n3, err3, floor)]
     if args.profile:
         _phase("9. profile")

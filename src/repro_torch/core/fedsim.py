@@ -1,6 +1,6 @@
-"""N-client federated simulator, fused engine, for every method of the
-reference: ``local``, ``fedavg``, ``fedprox``, ``perfedavg``, ``fedamp`` and
-``pfedwn``.
+"""N-client federated simulator, fused and legacy engines, for every method
+of the reference: ``local``, ``fedavg``, ``fedprox``, ``perfedavg``,
+``fedamp`` and ``pfedwn``.
 
 Clients hold one stacked flat param buffer (N, P) (leaf views per
 :func:`repro_torch.models.cnn.param_layout`). Every train and test tensor is
@@ -29,6 +29,15 @@ before it is scored.
 The generator's bits differ from ``jax.random``'s, so :meth:`
 FederatedSimulation.run` also accepts injected index streams and link masks
 (a parity test replays the reference's draws through them).
+
+``FedSimConfig(fused=False)`` selects the legacy host-driven engine, the
+reference's parity and debugging path: each round it brings the indices
+drawn on the device (from the same generator, in the same order) to the
+host, gathers every client's minibatches there with numpy and uploads them,
+runs the same round math (:meth:`FederatedSimulation._round`, so pFedWN
+still launches K1 and K2), and at each eval point scores the target and
+then each participant in turn on its unpadded test set. With the same seed
+or the same injected draws both engines follow the same trajectory.
 """
 from __future__ import annotations
 
@@ -52,6 +61,10 @@ from repro_torch.models import cnn
 from repro_torch.utils.bridge import ParamLayout
 
 METHODS = ("local", "fedavg", "fedprox", "perfedavg", "fedamp", "pfedwn")
+# the dispatches of a legacy round after its index draw, counted as the
+# reference's legacy engine counts them (fedsim.py ``_run_legacy``)
+_LEGACY_CALLS = {"local": 1, "fedavg": 3, "fedprox": 4, "perfedavg": 3,
+                 "fedamp": 3, "pfedwn": 5}
 
 
 @dataclass
@@ -71,6 +84,7 @@ class FedSimConfig:
     erasures: bool = True              # re-sample link failures each round
     eval_every: int = 1
     seed: int = 0
+    fused: bool = True                 # False: the legacy host-driven loop
     em_uniform: bool = False           # ablation: uniform π instead of EM
 
 
@@ -151,7 +165,13 @@ class FederatedSimulation:
                              f"{tuple(params0.shape)}")
         self.params0 = params0
         self.last_state: Optional[Dict[str, torch.Tensor]] = None
+        self.last_run_stats: Dict[str, Any] = {}
         self._stage_data()
+
+    @property
+    def engine(self) -> str:
+        """The engine ``run`` takes: ``fused`` or ``legacy``."""
+        return "fused" if self.sim.fused else "legacy"
 
     # ------------------------------------------------------------- staging
 
@@ -231,9 +251,12 @@ class FederatedSimulation:
         return params, torch.mean(torch.stack(losses), dim=0)
 
     def _round(self, method: str, params: torch.Tensor, pi: torch.Tensor,
-               idx: torch.Tensor, link_ok: Optional[torch.Tensor]):
-        """One round of ``method`` (the reference's round body); returns
-        (params, π, tap dict of device scalars)."""
+               x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
+               link_ok: Optional[torch.Tensor]):
+        """One round of ``method`` (the reference's round body), training
+        on the minibatches at positions ``idx`` (N, steps, B) of ``x`` (N,
+        K, ...) and ``y`` (N, K); returns (params, π, tap dict of device
+        scalars)."""
         sim, fns, pm = self.sim, self.fns, self.participants
         step = None
         if method == "fedprox":
@@ -265,8 +288,7 @@ class FederatedSimulation:
                     fns.loss, p, xb[:, :half], yb[:, :half], xb[:, half:],
                     yb[:, half:], sim.maml_inner_lr, sim.lr)
         with record_function("fedsim.local_sgd"):
-            params, train_loss = self._sgd(params, self._train_x,
-                                           self._train_y, idx, step)
+            params, train_loss = self._sgd(params, x, y, idx, step)
         if method in ("fedavg", "fedprox", "perfedavg"):
             with record_function("fedsim.aggregate"):
                 g = baselines.fedavg_aggregate(params, self.sizes, pm)
@@ -293,8 +315,7 @@ class FederatedSimulation:
                     params, 0, self._nbr, pi, sim.alpha, link_ok)
             # the target's pass after aggregation reuses round's idx[0]
             with record_function("fedsim.target_sgd"):
-                mixed, loss0 = self._sgd(mixed[None], self._train_x[:1],
-                                         self._train_y[:1], idx[:1])
+                mixed, loss0 = self._sgd(mixed[None], x[:1], y[:1], idx[:1])
             params[0] = mixed[0]
             train_loss[0] = loss0[0]
             link_rate = link_success_rate(link_ok)
@@ -325,6 +346,34 @@ class FederatedSimulation:
         return t_acc, torch.sum(accs * pmf) / torch.clamp(torch.sum(pmf),
                                                           min=1.0)
 
+    @torch.no_grad()
+    def _eval_legacy(self, method: str, params: torch.Tensor):
+        """The legacy engine's evaluation, host-driven as the reference's:
+        the target (Per-FedAvg's after one MAML step on its adaptation
+        set), then each participant in turn, each on its unpadded test set
+        uploaded for the call and read back. Returns (target accuracy, mean
+        participant accuracy, participants scored)."""
+        dev, fns = self.device, self.fns
+
+        def accuracy(row: torch.Tensor, d: SyntheticImageDataset) -> float:
+            x = torch.as_tensor(d.x, device=dev)[None]
+            y = torch.as_tensor(d.y, dtype=torch.int64, device=dev)[None]
+            ones = torch.ones(y.shape, dtype=torch.bool, device=dev)
+            return float(fns.accuracy(row, x, y, ones)[0])
+
+        tgt = params[:1]
+        if method == "perfedavg":
+            d0, k = self.train_sets[0], self.sim.adapt_subset
+            tgt = baselines.maml_adapt(
+                fns.loss, tgt, torch.as_tensor(d0.x[:k], device=dev)[None],
+                torch.as_tensor(d0.y[:k], dtype=torch.int64,
+                                device=dev)[None], self.sim.maml_inner_lr)
+        t_acc = accuracy(tgt, self.test_sets[0])
+        accs = [accuracy(params[i:i + 1], self.test_sets[i])
+                for i in np.where(self.participants.cpu().numpy())[0]]
+        mean = float(np.mean(accs)) if accs else float("nan")
+        return t_acc, mean, len(accs)
+
     # ---------------------------------------------------------------- entry
 
     def _injected(self, idx_stream, link_masks):
@@ -349,18 +398,52 @@ class FederatedSimulation:
             masks = torch.as_tensor(masks_np, device=self.device)
         return idx, masks
 
+    def _link_ok(self, method: str, gen: torch.Generator, masks, rnd: int
+                 ) -> Optional[torch.Tensor]:
+        """pFedWN's link mask for round ``rnd``, drawn after the round's
+        indices: every link up with ``erasures`` off, else the injected
+        mask or a draw from ``gen``; None for the other methods."""
+        if method != "pfedwn":
+            return None
+        if not self.sim.erasures:
+            return torch.ones((self.m,), dtype=torch.bool, device=self.device)
+        if masks is not None:
+            return masks[rnd]
+        return link_success_mask(self._p_err_nbr, gen)
+
+    def _host_batches(self, idx: torch.Tensor):
+        """The legacy engine's per-round transfer: the round's indices (N,
+        steps, B) brought to the host, every client's minibatches gathered
+        there from its dataset with numpy and uploaded as x (N, steps·B,
+        ...) and y (N, steps·B), with the positions (N, steps, B) that walk
+        them in order."""
+        idx_np = idx.cpu().numpy()
+        n, steps, b = idx_np.shape
+        xs = np.stack([d.x[idx_np[i]] for i, d in enumerate(self.train_sets)])
+        ys = np.stack([d.y[idx_np[i]] for i, d in enumerate(self.train_sets)])
+        x = torch.as_tensor(xs.reshape((n, steps * b) + xs.shape[3:]),
+                            device=self.device)
+        y = torch.as_tensor(ys.reshape(n, steps * b), dtype=torch.int64,
+                            device=self.device)
+        pos = torch.arange(steps * b, device=self.device).view(1, steps, b)
+        return x, y, pos.expand(n, -1, -1)
+
     def run(self, method: str, *, idx_stream=None,
             link_masks=None) -> Dict[str, Any]:
-        """Run ``sim.rounds`` rounds of ``method`` from ``params0``.
+        """Run ``sim.rounds`` rounds of ``method`` from ``params0`` on the
+        engine ``sim.fused`` selects.
 
         ``idx_stream`` (rounds, N, steps, B) and ``link_masks`` (rounds, M)
         replace the on-device draws when given; with ``sim.erasures`` off
         every link succeeds, injected masks or not. Returns the reference's
         history dict (``target_acc``, ``mean_participant_acc``, ``pi`` per
         eval point, ``max_target_acc``) plus ``taps`` (per-round metrics as
-        numpy arrays) and ``round_ms`` (host ms per round of each block,
-        eval included). The final params and π are left in
-        ``self.last_state``."""
+        numpy arrays) and ``round_ms`` (host ms per round, eval included:
+        of each block on the fused engine, of each round on the legacy
+        one). The final params and π are left in ``self.last_state``, and
+        ``self.last_run_stats`` holds the engine and its ``device_calls``:
+        the fused engine's host syncs (one per block), or the dispatches the
+        legacy engine drives, counted as the reference counts its own."""
         method = method.lower()
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; have {METHODS}")
@@ -370,25 +453,24 @@ class FederatedSimulation:
         params = self.params0.clone()
         pi = torch.full((self.m,), 1.0 / max(self.m, 1), dtype=torch.float32,
                         device=self.device)
+        if self.engine == "legacy":
+            return self._run_legacy(method, gen, params, pi, idx_all,
+                                    masks_all)
         history: Dict[str, Any] = {"target_acc": [], "pi": [],
                                    "mean_participant_acc": [],
                                    "round_ms": []}
         taps: Dict[str, list] = {}
         rnd = 0
-        for length in block_schedule(sim.rounds, sim.eval_every):
+        blocks = block_schedule(sim.rounds, sim.eval_every)
+        for length in blocks:
             t0 = time.perf_counter()
             block_taps = []
             for _ in range(length):
                 idx = self._draw_idx(gen) if idx_all is None else idx_all[rnd]
-                link_ok = None
-                if method == "pfedwn" and not sim.erasures:
-                    link_ok = torch.ones((self.m,), dtype=torch.bool,
-                                         device=self.device)
-                elif method == "pfedwn":
-                    link_ok = (link_success_mask(self._p_err_nbr, gen)
-                               if masks_all is None else masks_all[rnd])
-                params, pi, tap = self._round(method, params, pi, idx,
-                                              link_ok)
+                link_ok = self._link_ok(method, gen, masks_all, rnd)
+                params, pi, tap = self._round(method, params, pi,
+                                              self._train_x, self._train_y,
+                                              idx, link_ok)
                 block_taps.append(tap)
                 rnd += 1
             with record_function("fedsim.eval"):
@@ -407,4 +489,45 @@ class FederatedSimulation:
         history["max_target_acc"] = float(np.max(history["target_acc"]))
         history["taps"] = {k: np.concatenate(v) for k, v in taps.items()}
         self.last_state = {"params": params, "pi": pi}
+        self.last_run_stats = {"engine": "fused", "blocks": blocks,
+                               "device_calls": len(blocks)}
+        return history
+
+    def _run_legacy(self, method: str, gen: torch.Generator,
+                    params: torch.Tensor, pi: torch.Tensor, idx_all,
+                    masks_all) -> Dict[str, Any]:
+        """The legacy host-driven loop (the reference's ``_run_legacy``):
+        one round at a time, its minibatches gathered on the host and
+        uploaded, its taps read back, and the host-driven evaluation at the
+        reference's eval points."""
+        sim = self.sim
+        every = max(sim.eval_every, 1)
+        history: Dict[str, Any] = {"target_acc": [], "pi": [],
+                                   "mean_participant_acc": [],
+                                   "round_ms": []}
+        taps: Dict[str, list] = {}
+        device_calls = 0
+        for rnd in range(sim.rounds):
+            t0 = time.perf_counter()
+            idx = self._draw_idx(gen) if idx_all is None else idx_all[rnd]
+            x, y, pos = self._host_batches(idx)
+            link_ok = self._link_ok(method, gen, masks_all, rnd)
+            params, pi, tap = self._round(method, params, pi, x, y, pos,
+                                          link_ok)
+            for k, v in tap.items():
+                taps.setdefault(k, []).append(v.cpu().numpy()[None])
+            device_calls += 1 + _LEGACY_CALLS[method]
+            if rnd % every == 0 or rnd == sim.rounds - 1:
+                t_acc, mean_acc, scored = self._eval_legacy(method, params)
+                device_calls += scored
+                history["target_acc"].append(t_acc)
+                history["mean_participant_acc"].append(mean_acc)
+                if method == "pfedwn":
+                    history["pi"].append(pi.cpu().numpy())
+            history["round_ms"].append((time.perf_counter() - t0) * 1e3)
+        history["max_target_acc"] = float(np.max(history["target_acc"]))
+        history["taps"] = {k: np.concatenate(v) for k, v in taps.items()}
+        self.last_state = {"params": params, "pi": pi}
+        self.last_run_stats = {"engine": "legacy",
+                               "device_calls": device_calls}
         return history

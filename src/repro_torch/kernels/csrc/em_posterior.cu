@@ -44,6 +44,16 @@
 //   team leaves its row's score log pi_m - ell and its ell in shared memory;
 //   after one barrier one thread per token takes the softmax over M and
 //   writes that token's M values of lam and ell contiguously.
+// - M has no cap. Where a tile's rows (tile x M) outgrow the block's stage
+//   of kMaxThreads rows, which happens only past M = kMaxThreads (the
+//   wrapper then plans one token a block), the kernel stages in its
+//   outputs instead (kStageOut): each team writes its ell to ell[t, m] and
+//   its score to lam[t, m], and after the barrier one warp per token takes
+//   the softmax over M in steps of 32 components, reading the scores back
+//   from lam (L1/L2: the block has just written them). That costs one more
+//   read and write of lam, 8 bytes a row beside the row's V logits, and
+//   needs no shared memory that grows with M. Every plan with tile x M <=
+//   kMaxThreads runs the shared-memory stage as before.
 // - The wrapper sizes the token tile so that the grid covers the 132 SMs
 //   even at the round's 5,120 rows (128 blocks of 96 threads there).
 // - ell is summed as (max - label logit) + log(sum), the order
@@ -104,7 +114,7 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
   m = mn;
 }
 
-template <typename T, int G, int VB>
+template <typename T, int G, int VB, bool kStageOut>
 __global__ void __launch_bounds__(kMaxThreads, 4)
 em_posterior_kernel(const float* __restrict__ pi, const T* __restrict__ logits,
                     const int64_t* __restrict__ labels,
@@ -113,9 +123,10 @@ em_posterior_kernel(const float* __restrict__ pi, const T* __restrict__ logits,
   using Vt = typename Vec<VB>::type;
   constexpr int E = VB / static_cast<int>(sizeof(T));  // elements a vector
   constexpr int kStride = G * kVectors;                // vectors a chunk
+  constexpr int kStage = kStageOut ? 1 : kMaxThreads;  // rows staged here
   __shared__ int64_t s_label[kMaxThreads];
-  __shared__ float s_score[kMaxThreads];
-  __shared__ float s_ell[kMaxThreads];
+  __shared__ float s_score[kStage];
+  __shared__ float s_ell[kStage];
 
   const int tid = threadIdx.x;
   const int team = tid / G, g = tid % G;
@@ -202,16 +213,41 @@ em_posterior_kernel(const float* __restrict__ pi, const T* __restrict__ logits,
     }
     if (active && g == 0) {
       const float l = (mx - picked) + logf(fmaxf(s, 1e-30f));
-      s_ell[r] = l;
-      s_score[r] = logf(fmaxf(pi_m, 1e-30f)) - l;
+      const float score = logf(fmaxf(pi_m, 1e-30f)) - l;
+      if constexpr (kStageOut) {
+        const int m = r / tile;
+        const int64_t o = static_cast<int64_t>(t0 + r - m * tile) * M + m;
+        ell[o] = l;
+        lam[o] = score;
+      } else {
+        s_ell[r] = l;
+        s_score[r] = score;
+      }
     }
     r += n_teams;
     start_row();
   }
   __syncthreads();
 
-  // softmax over the M components, one thread per token
-  if (tid < n_tok) {
+  if constexpr (kStageOut) {
+    // softmax over the M components, one warp per token, 32 at a time
+    const int warp = tid / 32, lane = tid % 32;
+    for (int tl = warp; tl < n_tok; tl += blockDim.x / 32) {
+      float* row = lam + static_cast<int64_t>(t0 + tl) * M;
+      float mx = -INFINITY;
+      for (int m = lane; m < M; m += 32) mx = fmaxf(mx, row[m]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float sum = 0.f;
+      for (int m = lane; m < M; m += 32) sum += expf(row[m] - mx);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      for (int m = lane; m < M; m += 32) row[m] = expf(row[m] - mx) / sum;
+    }
+  } else if (tid < n_tok) {
+    // softmax over the M components, one thread per token
     float mx = -INFINITY;
     for (int m = 0; m < M; ++m) mx = fmaxf(mx, s_score[m * tile + tid]);
     float sum = 0.f;
@@ -233,8 +269,12 @@ int launch(const float* pi, const void* logits, const int64_t* labels,
            float* lam, float* ell, int M, int T_, int V, int tile,
            int threads, cudaStream_t st) {
   const int grid = (T_ + tile - 1) / tile;
-  em_posterior_kernel<T, G, VB><<<grid, threads, 0, st>>>(
-      pi, static_cast<const T*>(logits), labels, lam, ell, M, T_, V, tile);
+  if (static_cast<long long>(tile) * M > kMaxThreads)
+    em_posterior_kernel<T, G, VB, true><<<grid, threads, 0, st>>>(
+        pi, static_cast<const T*>(logits), labels, lam, ell, M, T_, V, tile);
+  else
+    em_posterior_kernel<T, G, VB, false><<<grid, threads, 0, st>>>(
+        pi, static_cast<const T*>(logits), labels, lam, ell, M, T_, V, tile);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,7 +318,7 @@ int launch_team(int team, int vb, const float* pi, const void* logits,
 }  // namespace
 
 // The tuning the wrapper plans with: vectors a lane holds a chunk, and a
-// block's threads (and a tile's rows) at most.
+// block's threads (and the rows a tile stages in shared memory) at most.
 extern "C" void em_posterior_limits(int* vectors, int* max_threads) {
   *vectors = kVectors;
   *max_threads = kMaxThreads;
@@ -290,16 +330,17 @@ extern "C" void em_posterior_limits(int* vectors, int* max_threads) {
 // pi: (M,) fp32; labels: (T,) int64 in [0, V); lam, ell: (T, M) fp32.
 // The plan comes from the wrapper (em_posterior.plan): team lanes a row
 // (1, 2, ..., 32), vec_bytes dividing the logits' address and V's bytes,
-// tile tokens a block with tile * M <= kMaxThreads, and threads a block (a
-// multiple of 32, at least tile, at most kMaxThreads).
+// tile tokens a block, and threads a block (a multiple of 32, at least
+// tile, at most kMaxThreads). Any M >= 1: a tile of more than kMaxThreads
+// rows stages in lam and ell.
 extern "C" int em_posterior_launch(const void* pi, const void* logits,
                                    const void* labels, void* lam, void* ell,
                                    int M, int T, int V, int is_bf16, int team,
                                    int vec_bytes, int tile, int threads,
                                    void* stream) {
   const int elem = is_bf16 ? 2 : 4;
-  if (M < 1 || M > 32 || T < 1 || V < 1 || tile < 1 ||
-      tile * M > kMaxThreads || tile > threads || threads % 32 != 0 ||
+  if (M < 1 || T < 1 || V < 1 || tile < 1 || tile > threads ||
+      threads % 32 != 0 ||
       threads > kMaxThreads || vec_bytes < elem ||
       V % (vec_bytes / elem) != 0)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -14,8 +14,9 @@
 // What bounds it on this card: 2*M+3 flops per element against (M+2)
 // elements moved, so memory bounds it: (M+2)*P*sizeof(T) bytes. At the
 // pFedWN round's shape (M = 10, P = 188,810, fp32) that is 9.06 MB, about
-// 2.7 us at 3.35 TB/s; in the round the stack is L2-resident, so a launch
-// and two dependent load latencies (index, then the rows) are most of it.
+// 2.7 us at 3.35 TB/s (at M = 39, 31 MB and 9.2 us); in the round the
+// stack is L2-resident, so a launch and two dependent load latencies
+// (index, then the rows) are most of it.
 //
 // What the design does about it:
 // - One persistent grid-stride pass, sized on the host from the occupancy
@@ -25,6 +26,17 @@
 // - M is a template parameter (0..32), so the weights and row pointers sit
 //   in registers with no predication and the component loop is unrolled to
 //   exactly M.
+// - M has no cap: past 32 a second kernel, weighted_agg_wide (one
+//   instantiation per type and vector width), runs the same one-launch
+//   stream with M a runtime count. Each thread walks the rows K at a time
+//   (K rows of U vectors, 128 bytes of loads in flight, the last group
+//   cut short), reading each group's row numbers and weights from L1 as
+//   it goes (one broadcast load each), and sums every row into the same
+//   fp32 accumulators, cast to T once after the last row. A loop over the
+//   rows inside the templated kernel instead took the round's M = 10
+//   instantiation from 60 to 158 registers (1 block an SM in place of 4)
+//   and 4.37 to 4.60 us, so the two kernels stay apart and M <= 32 runs
+//   the templated one unchanged.
 // - Each thread moves U vectors of VB bytes per row per iteration (VB a
 //   template parameter picked by the wrapper from the alignment that every
 //   row base, the row stride, own and out share), and issues all (M+1)*U
@@ -151,6 +163,111 @@ weighted_agg_kernel(const T* __restrict__ own, const T* __restrict__ nb,
   }
 }
 
+// Rows a thread loads together in weighted_agg_wide: 128 bytes of loads
+// in flight a thread, half of what unroll() lets the templated kernel hold
+template <int U, int VB>
+__host__ __device__ constexpr int wide_rows() {
+  return U * VB <= 16 ? 8 : 4;
+}
+
+// The same mix for any M > kMaxComponents, M a runtime count: the rows are
+// read K at a time (the last group may hold fewer) into one set of fp32
+// accumulators; U = 2 vectors a row an iteration.
+template <typename T, int VB>
+__global__ void __launch_bounds__(kThreads)
+weighted_agg_wide(const T* __restrict__ own, const T* __restrict__ nb,
+                  int64_t nb_stride, const int64_t* __restrict__ index,
+                  const float* __restrict__ w,
+                  const bool* __restrict__ any_ok, T* __restrict__ out,
+                  int64_t P, float alpha, float beta, int M) {
+  using V = typename Vec<VB>::type;
+  constexpr int E = VB / static_cast<int>(sizeof(T));
+  constexpr int U = 2;
+  constexpr int K = wide_rows<U, VB>();
+  const int64_t n_vec = P / E;
+  const int64_t tid =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t n_threads = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const V* own_v = reinterpret_cast<const V*>(own);
+  V* out_v = reinterpret_cast<V*>(out);
+
+  if (any_ok != nullptr && !*any_ok) {        // every link erased: out = own
+    for (int64_t i = tid; i < n_vec; i += n_threads)
+      out_v[i] = __ldg(own_v + i);
+    for (int64_t p = n_vec * E + tid; p < P; p += n_threads) out[p] = own[p];
+    return;
+  }
+
+  for (int64_t base = tid; base < n_vec; base += U * n_threads) {
+    V o[U];                                   // own, in flight behind the rows
+    float acc[U][E];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t i = base + u * n_threads;
+      if (i < n_vec) o[u] = __ldg(own_v + i);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[u][e] = 0.f;
+    }
+#pragma unroll 1
+    for (int j0 = 0; j0 < M; j0 += K) {
+      const int kn = M - j0 < K ? M - j0 : K;        // rows in this group
+      const V* rows[K];
+      float wr[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k >= kn) break;
+        const int64_t r = index ? __ldg(index + j0 + k) : j0 + k;
+        rows[k] = reinterpret_cast<const V*>(nb + r * nb_stride);
+        wr[k] = __ldg(w + j0 + k);
+      }
+      V x[K][U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t i = base + u * n_threads;
+        if (i >= n_vec) continue;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (k < kn) x[k][u] = __ldg(rows[k] + i);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (base + u * n_threads >= n_vec) continue;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (k >= kn) break;
+          const T* xe = reinterpret_cast<const T*>(&x[k][u]);
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[u][e] = fmaf(wr[k], to_f32(xe[e]), acc[u][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t i = base + u * n_threads;
+      if (i >= n_vec) continue;
+      const T* oe = reinterpret_cast<const T*>(&o[u]);
+      V res;
+      T* re = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        re[e] = from_f32<T>(alpha * to_f32(oe[e]) + beta * acc[u][e]);
+      out_v[i] = res;
+    }
+  }
+
+  // the ragged end, fewer than E elements past the last whole vector
+  for (int64_t p = n_vec * E + tid; p < P; p += n_threads) {
+    float acc = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < M; ++j) {
+      const int64_t r = index ? __ldg(index + j) : j;
+      acc = fmaf(__ldg(w + j), to_f32(nb[r * nb_stride + p]), acc);
+    }
+    out[p] = from_f32<T>(alpha * to_f32(own[p]) + beta * acc);
+  }
+}
+
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -163,29 +280,62 @@ int sm_count() {
   return sms;
 }
 
+// Blocks for a one-wave persistent launch of `kernel` (U vectors of E
+// elements a thread an iteration): no more than the work needs, no more
+// than fit the card at once; 0 on error, with the error in *err.
+template <typename Kernel>
+int one_wave_grid(Kernel kernel, int* resident, long long P, int per_thread,
+                  cudaError_t* err) {
+  *err = cudaSuccess;
+  if (*resident == 0) {
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel,
+                                                         kThreads, 0);
+    if (*err != cudaSuccess) return 0;
+  }
+  const int sms = sm_count();
+  if (sms == 0) {
+    *err = cudaErrorInvalidDevice;
+    return 0;
+  }
+  const long long per_block = static_cast<long long>(kThreads) * per_thread;
+  const long long need = (P + per_block - 1) / per_block;
+  return static_cast<int>(
+      need < 1 ? 1 : (need < *resident * sms ? need : *resident * sms));
+}
+
 template <typename T, int M, int VB>
 int launch(const void* own, const void* nb, long long nb_stride,
            const int64_t* idx, const float* w, const bool* ok, void* out,
            long long P, float alpha, float beta, int* grid_out,
            cudaStream_t st) {
   static int resident = 0;                    // blocks per SM, per function
-  if (resident == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, weighted_agg_kernel<T, M, VB>, kThreads, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int sms = sm_count();
-  if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
   constexpr int E = VB / static_cast<int>(sizeof(T));
-  const long long per_block =
-      static_cast<long long>(kThreads) * unroll<M, VB>() * E;
-  const long long need = (P + per_block - 1) / per_block;
-  const int grid = static_cast<int>(
-      need < 1 ? 1 : (need < resident * sms ? need : resident * sms));
+  cudaError_t err;
+  const int grid = one_wave_grid(weighted_agg_kernel<T, M, VB>, &resident,
+                                 P, unroll<M, VB>() * E, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (grid_out) *grid_out = grid;
   weighted_agg_kernel<T, M, VB><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(own), static_cast<const T*>(nb), nb_stride, idx,
       w, ok, static_cast<T*>(out), P, alpha, beta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VB>
+int launch_wide(const void* own, const void* nb, long long nb_stride,
+                const int64_t* idx, const float* w, const bool* ok,
+                void* out, int M, long long P, float alpha, float beta,
+                int* grid_out, cudaStream_t st) {
+  static int resident = 0;
+  constexpr int E = VB / static_cast<int>(sizeof(T));
+  cudaError_t err;
+  const int grid = one_wave_grid(weighted_agg_wide<T, VB>, &resident, P,
+                                 2 * E, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (grid_out) *grid_out = grid;
+  weighted_agg_wide<T, VB><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(own), static_cast<const T*>(nb), nb_stride, idx,
+      w, ok, static_cast<T*>(out), P, alpha, beta, M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -208,6 +358,26 @@ int launch_vb(int vb, int m, const void* own, const void* nb,
               long long nb_stride, const int64_t* idx, const float* w,
               const bool* ok, void* out, long long P, float alpha, float beta,
               int* grid_out, cudaStream_t st) {
+  if (m > kMaxComponents) {
+    switch (vb) {
+      case 16:
+        return launch_wide<T, 16>(own, nb, nb_stride, idx, w, ok, out, m, P,
+                                  alpha, beta, grid_out, st);
+      case 8:
+        return launch_wide<T, 8>(own, nb, nb_stride, idx, w, ok, out, m, P,
+                                 alpha, beta, grid_out, st);
+      case 4:
+        return launch_wide<T, 4>(own, nb, nb_stride, idx, w, ok, out, m, P,
+                                 alpha, beta, grid_out, st);
+      case 2:
+        if constexpr (sizeof(T) == 2)
+          return launch_wide<T, 2>(own, nb, nb_stride, idx, w, ok, out, m,
+                                   P, alpha, beta, grid_out, st);
+        return static_cast<int>(cudaErrorInvalidValue);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (vb) {
     case 16:
       return launch_m<T, 16>(m, own, nb, nb_stride, idx, w, ok, out, P,
@@ -231,8 +401,9 @@ int launch_vb(int vb, int m, const void* own, const void* nb,
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for M outside 0..32 or a vector width the type
-// does not take. own, out: (P,); nb: rows of nb_stride elements, each with
+// cudaErrorInvalidValue for M < 0 or a vector width the type does not
+// take. M <= 32 runs weighted_agg_kernel<M>, a larger M weighted_agg_wide;
+// either way one launch. own, out: (P,); nb: rows of nb_stride elements, each with
 // P contiguous; index: (M,) int64 row numbers, or null for rows 0..M-1; w:
 // (M,) fp32; any_ok: one bool, or null for "some link survived". vec_bytes
 // (16, 8, 4, or 2 for bf16) must divide own, out, nb and nb_stride in
@@ -247,6 +418,7 @@ extern "C" int weighted_agg_launch(const void* own, const void* nb,
   const int64_t* idx = static_cast<const int64_t*>(index);
   const float* wp = static_cast<const float*>(w);
   const bool* ok = static_cast<const bool*>(any_ok);
+  if (M < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
     return launch_vb<__nv_bfloat16>(vec_bytes, M, own, nb, nb_stride, idx,
                                     wp, ok, out, P, alpha, beta, grid_out,

@@ -8,7 +8,8 @@ CPU tensor it runs the plain version :func:`~repro_torch.kernels.ref.
 em_posterior_ref`. Ragged T and V are fine. :func:`plan` picks the
 kernel's team of lanes a row, its vector width and its token tile from the
 shape, the logits' alignment and the kernel's tuning (its vectors a lane
-and threads a block, which the built library reports).
+and threads a block, which the built library reports). Any number of
+components M ≥ 1 is taken, as the reference takes it.
 
 It is differentiable in the logits through ℓ only: λ is marked
 non-differentiable, and ℓ's backward is ct·(softmax_V(logits) − onehot(y)),
@@ -27,7 +28,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import em_posterior_ref
 from repro_torch.kernels.weighted_agg import vector_bytes
 
-MAX_COMPONENTS = 32          # components the kernel takes
 launches = 0                 # kernel launches since the last reset
 
 _lib = None
@@ -67,10 +67,7 @@ def _check(pi: torch.Tensor, logits: torch.Tensor,
     if logits.dim() != 3:
         raise ValueError(f"logits must be (M, T, V), got {tuple(logits.shape)}")
     M, T, V = logits.shape
-    if not 1 <= M <= MAX_COMPONENTS:
-        raise ValueError(f"M = {M} components; the kernel takes 1 to "
-                         f"{MAX_COMPONENTS}")
-    if T < 1 or V < 1:
+    if M < 1 or T < 1 or V < 1:
         raise ValueError(f"empty logits {tuple(logits.shape)}")
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"logits must be float32 or bfloat16, got "
@@ -105,7 +102,9 @@ def plan(M: int, T: int, V: int, dtype: torch.dtype, address: int,
     fewest lanes a row (a power of two, at most a warp) whose vectors
     cover the row in one chunk; and the fewest tokens a block that keep the
     grid of ceil(T / tile) blocks within one block per SM, as long as the
-    tile's rows fit ``max_threads``."""
+    tile's rows fit ``max_threads``. Past M = ``max_threads`` the tile is
+    one token, whose M rows the kernel stages in its outputs rather than
+    in shared memory."""
     elem = torch.finfo(dtype).bits // 8
     vb = vector_bytes((address,), V * elem, dtype)
     per_lane = lane_vectors * vb // elem         # elements a lane a chunk

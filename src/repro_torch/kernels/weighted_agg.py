@@ -12,7 +12,8 @@ On a CUDA tensor it launches the hand-written kernel
 ``csrc/weighted_agg.cu``; on a CPU tensor it runs the plain version
 :func:`~repro_torch.kernels.ref.weighted_agg_ref`. Row numbers in
 ``index`` are not read on the host (that would sync); callers build them
-from host-validated client indices.
+from host-validated client indices. Any number of neighbours M ≥ 0 is taken,
+in one launch.
 """
 from __future__ import annotations
 
@@ -24,7 +25,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import weighted_agg_ref
 
-MAX_COMPONENTS = 32
 # vector widths in bytes the kernel is instantiated for, widest first
 VECTOR_BYTES = {torch.float32: (16, 8, 4), torch.bfloat16: (16, 8, 4, 2)}
 launches = 0                 # kernel launches since the last reset
@@ -62,9 +62,6 @@ def _check(own, neighbors, w, index, any_ok) -> int:
     if not own.is_contiguous() or neighbors.stride(1) != 1:
         raise ValueError("own and each neighbor row must be contiguous")
     M = neighbors.shape[0] if index is None else index.shape[0]
-    if M > MAX_COMPONENTS:
-        raise ValueError(f"M = {M} neighbors; the kernel takes at most "
-                         f"{MAX_COMPONENTS}")
     if w.shape != (M,) or w.dtype != torch.float32 or not w.is_contiguous():
         raise ValueError(f"w must be contiguous ({M},) float32, got "
                          f"{tuple(w.shape)} {w.dtype}")

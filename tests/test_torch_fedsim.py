@@ -118,6 +118,47 @@ def test_engine_matches_reference_with_replayed_draws(engines, method):
     assert len(h["round_ms"]) == len(block_schedule(ROUNDS, EVAL_EVERY))
 
 
+def test_pfedwn_past_32_neighbors_matches_reference():
+    """40 clients, all of them taking part, so the target mixes M = 39
+    neighbours (past the 32 lanes of a warp): the port's fused engine
+    against the reference's on replayed draws."""
+    n = 40
+    cfg_kw = dict(image_size=8, widths=(4,), hidden=16, n_classes=4)
+    sim_kw = dict(rounds=2, batch_size=16, em_iters=1, em_subset=64,
+                  eval_every=2, seed=0)
+    pm = np.ones(n, bool)
+    p_err = np.linspace(0.0, 0.2, n).astype(np.float32)
+    data = []
+    for synth, part, make, split in (
+            (synthetic_image_dataset, dirichlet_partition,
+             make_client_datasets, train_test_split),
+            (tdata.synthetic_image_dataset, tdata.dirichlet_partition,
+             tdata.make_client_datasets, tdata.train_test_split)):
+        base = synth(0, 4000, image_size=8, n_classes=4)
+        parts = part(base.y, n, alpha=1.0, seed=0)
+        data.append((make(base, [split(p, seed=1)[0] for p in parts]),
+                     make(base, [split(p, seed=1)[1] for p in parts])))
+    ref = RefSimulation(RefCNNConfig(**cfg_kw), *data[0], pm, p_err,
+                        RefFedSimConfig(**sim_kw))
+    params0 = from_jax_params(jax.tree.map(np.asarray, ref.params0), "cpu")
+    port = FederatedSimulation(CNNConfig(**cfg_kw), *data[1], pm, p_err,
+                               FedSimConfig(**sim_kw), params0=params0,
+                               device="cpu")
+    assert port.m == n - 1
+    idx, masks = _replayed_draws(ref)
+    evals, ref_params = _ref_blocks(ref, "pfedwn")
+    h = port.run("pfedwn", idx_stream=idx, link_masks=masks)
+    np.testing.assert_allclose(np.stack(h["pi"]),
+                               np.stack([e[2] for e in evals]), atol=1e-4)
+    np.testing.assert_allclose(h["target_acc"], [e[0] for e in evals],
+                               atol=5e-3)
+    np.testing.assert_allclose(h["mean_participant_acc"],
+                               [e[1] for e in evals], atol=5e-3)
+    got = to_numpy(port.last_state["params"], port.layout)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref_params)):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+
+
 def test_engine_draws_its_own_stream(engines):
     """Without injected draws the engine samples on its device; π stays on
     the simplex and the taps are finite."""
@@ -175,7 +216,14 @@ for method in ("fedavg", "perfedavg", "fedamp"):
 xi = baselines.fedamp_weights(sim.params0, 1e4, sim.participants)
 assert torch.allclose(xi.sum(1), torch.ones(3))
 from benchmarks import (torch_ablations, torch_common,  # the port's tables
-                        torch_table2_accuracy, torch_table3_accuracy)
+                        torch_table2_accuracy, torch_table3_accuracy,
+                        torch_fig1_gap, torch_fig5_neighbors,
+                        torch_fig6_selection, torch_fig8_em_weights,
+                        torch_fedsim_bench, torch_kernel_times)
+legacy = FederatedSimulation(*args[:-1], FedSimConfig(
+    rounds=2, batch_size=16, em_iters=2, em_subset=32, fused=False),
+    device="cpu")
+assert legacy.run("pfedwn")["pi"][-1].shape == (2,)
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
        or m.startswith("repro.")]

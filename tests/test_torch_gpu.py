@@ -146,6 +146,40 @@ def test_em_posterior_kernel_infinite_rows_on_card(cuda, V):
     assert ell[11, 0] == 0
 
 
+# past 32 components: M on both sides of 32, 64 and 256 (where a tile of
+# one token outgrows the kernel's shared-memory stage, which it then keeps
+# in its outputs) and 1000; T small at the vocabulary's width
+WIDE_M = [33, 39, 63, 64, 65, 256, 257, 1000]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", WIDE_M)
+@pytest.mark.parametrize("V,T", [(10, 512), (1025, 37), (49_152, 2)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_em_posterior_kernel_past_32_components_on_card(cuda, M, V, T,
+                                                        dtype):
+    g = torch.Generator(device=cuda).manual_seed(M)
+    pi = torch.softmax(torch.randn(M, generator=g, device=cuda), 0)
+    logits = (torch.randn((M, T, V), generator=g, device=cuda) * 3).to(
+        DTYPES[dtype])
+    labels = torch.randint(0, V, (T,), generator=g, device=cuda)
+    _em_check((pi, logits, labels), dtype)
+
+
+@pytest.mark.gpu
+def test_em_posterior_staged_kernel_infinite_rows_on_card(cuda):
+    """The output-staged path (M = 257) keeps the plain version's NaN and
+    +∞ rows."""
+    pi, logits, labels = _em_inputs(257, 37, 10)
+    logits[1, 5, :] = -np.inf
+    logits[200, 9, labels[9]] = -np.inf
+    args = _em_card(pi, logits, labels, cuda, "float32")
+    _em_check(args, "float32", equal_nan=True)
+    lam, ell = k1.em_posterior_forward(*args)
+    assert torch.isnan(ell[5, 1]) and torch.isnan(lam[5]).all()
+    assert ell[9, 200] == float("inf") and lam[9, 200] == 0
+
+
 @pytest.mark.gpu
 def test_em_posterior_counts_one_launch_per_call_on_card(cuda):
     """Each forward is one launch whatever the plan (teams of 2, 8 and 32
@@ -213,6 +247,36 @@ def test_weighted_agg_kernel_alignment_sweep_on_card(cuda, stride, M, dtype,
     tol = 1e-6 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), expect.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [188_810, 188_811, 188_812])
+@pytest.mark.parametrize("M", WIDE_M)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("any_ok", [True, False])
+def test_weighted_agg_kernel_past_32_neighbors_on_card(cuda, stride, M,
+                                                       dtype, any_ok):
+    """M = 32q + r past 32: q chunks of 32 rows and the instantiation for
+    r in one launch, at row strides giving 8-, 4- and 16-byte vectors in
+    fp32, the rows read in reverse; every link erased returns own."""
+    P = 188_810
+    g = torch.Generator(device=cuda).manual_seed(M)
+    stack = torch.randn((M + 1, stride), generator=g, device=cuda).to(
+        DTYPES[dtype])[:, :P]
+    w = torch.softmax(torch.randn(M, generator=g, device=cuda), 0)
+    rows = torch.arange(M, 0, -1, device=cuda)
+    ok = torch.tensor(any_ok, device=cuda)
+    before = k2.launches
+    out = k2.weighted_agg(stack[0], stack, w, 0.7, index=rows, any_ok=ok)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    expect = tref.weighted_agg_ref(stack[0], stack, w, 0.7, index=rows,
+                                   any_ok=ok)
+    tol = 1e-6 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), expect.float(), atol=tol,
+                               rtol=tol)
+    if not any_ok:
+        assert torch.equal(out, stack[0])
 
 
 # the reference's sweep (tests/test_kernels.py) and ragged shapes:
@@ -363,6 +427,74 @@ def test_method_on_card_matches_cpu(cuda, method):
         assert (n1, n2) == (3 * 2, 3)
     else:
         assert (n1, n2) == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", METHODS)
+def test_legacy_engine_on_card_matches_fused(cuda, method):
+    """The legacy host-driven engine against the fused one on the card,
+    same seed, so the same draws; pFedWN's legacy rounds launch K1 and K2
+    as the fused ones do."""
+    fused = _tiny_sim(cuda)
+    legacy = _tiny_sim(cuda, params0=fused.params0, fused=False)
+    hf = fused.run(method)
+    n1, n2 = k1.launches, k2.launches
+    hl = legacy.run(method)
+    launches = (k1.launches - n1, k2.launches - n2)
+    np.testing.assert_allclose(hl["target_acc"], hf["target_acc"], atol=5e-3)
+    np.testing.assert_allclose(hl["mean_participant_acc"],
+                               hf["mean_participant_acc"], atol=5e-3)
+    torch.testing.assert_close(legacy.last_state["params"],
+                               fused.last_state["params"], atol=1e-4,
+                               rtol=0)
+    if method == "pfedwn":
+        np.testing.assert_allclose(np.stack(hl["pi"]), np.stack(hf["pi"]),
+                                   atol=1e-4)
+    assert launches == ((3 * 2, 3) if method == "pfedwn" else (0, 0))
+    assert legacy.last_run_stats["engine"] == "legacy"
+    assert fused.last_run_stats["engine"] == "fused"
+
+
+@pytest.mark.gpu
+def test_pfedwn_past_32_neighbors_on_card_matches_cpu(cuda):
+    """40 clients, all taking part (M = 39): the card's pFedWN run against
+    the CPU's from the same params and draws, K1 once an EM iteration and
+    K2 once a round."""
+    from repro_torch.configs import CNNConfig
+    from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
+    from repro_torch.data import (dirichlet_partition, make_client_datasets,
+                                  synthetic_image_dataset, train_test_split)
+    base = synthetic_image_dataset(0, 4000, image_size=8, n_classes=4)
+    parts = dirichlet_partition(base.y, 40, alpha=1.0, seed=0)
+    train = make_client_datasets(base, [train_test_split(p, seed=1)[0]
+                                        for p in parts])
+    test = make_client_datasets(base, [train_test_split(p, seed=1)[1]
+                                       for p in parts])
+
+    def sim(device, params0=None):
+        return FederatedSimulation(
+            CNNConfig(image_size=8, widths=(4,), hidden=16, n_classes=4),
+            train, test, np.ones(40, bool),
+            np.linspace(0.0, 0.2, 40).astype(np.float32),
+            FedSimConfig(rounds=2, batch_size=16, em_iters=1, em_subset=64,
+                         eval_every=2), params0=params0, device=device)
+
+    gpu = sim(cuda)
+    cpu = sim("cpu", gpu.params0.cpu())
+    assert gpu.m == 39
+    rng = np.random.default_rng(1)
+    idx = np.stack([rng.integers(0, n, (2, gpu.steps_per_round, 16))
+                    for n in gpu._train_len], axis=1)
+    masks = rng.random((2, 39)) > 0.1
+    n1, n2 = k1.launches, k2.launches
+    hg = gpu.run("pfedwn", idx_stream=idx, link_masks=masks)
+    assert (k1.launches - n1, k2.launches - n2) == (2, 2)
+    hc = cpu.run("pfedwn", idx_stream=idx, link_masks=masks)
+    np.testing.assert_allclose(np.stack(hg["pi"]), np.stack(hc["pi"]),
+                               atol=1e-4)
+    np.testing.assert_allclose(hg["target_acc"], hc["target_acc"], atol=5e-3)
+    torch.testing.assert_close(gpu.last_state["params"].cpu(),
+                               cpu.last_state["params"], atol=1e-4, rtol=0)
 
 
 @pytest.mark.gpu

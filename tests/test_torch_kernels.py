@@ -91,6 +91,34 @@ def test_em_posterior_matches_core_posterior_on_ce_losses():
     np.testing.assert_allclose(ell.numpy(), np.asarray(ce).T, atol=1e-5)
 
 
+@pytest.mark.parametrize("M", [33, 39, 64, 257])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_em_posterior_past_32_components_matches_reference(M, dtype):
+    """More components than a warp's lanes (a target with more than 32
+    selected neighbours, which the reference runs): the port against the
+    reference's oracle in both dtypes and, in fp32, against the core
+    posterior on the same cross-entropies."""
+    tdtype, jdtype = DTYPES[dtype]
+    T, V = 24, 10
+    pi, logits, labels = _em_inputs(M, T, V, seed=3)
+    lam, ell = _em_port(pi, logits, labels, tdtype)
+    assert lam.shape == ell.shape == (T, M)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    jl = jnp.asarray(logits).astype(jdtype)
+    np.testing.assert_allclose(
+        lam.numpy(), np.asarray(jref.em_posterior_ref(pi, jl, labels)),
+        atol=tol)
+    np.testing.assert_allclose(lam.sum(1).numpy(), 1.0, atol=1e-4)
+    if dtype == "float32":
+        ce = (jax.nn.logsumexp(logits, axis=2)
+              - jnp.take_along_axis(logits, labels[None, :, None],
+                                    axis=2)[..., 0])
+        expect = ref_em.posterior(pi, ce.T, min_weight=0.0)
+        np.testing.assert_allclose(lam.numpy(), np.asarray(expect),
+                                   atol=1e-5)
+        np.testing.assert_allclose(ell.numpy(), np.asarray(ce).T, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_em_posterior_backward_matches_jax_vjp(dtype):
     """ℓ's backward, ct·(softmax_V(logits) − onehot(y)), equals the VJP of
@@ -160,9 +188,8 @@ def test_em_posterior_rejects_what_the_kernel_does_not_take():
     pi, logits, labels = _em_inputs(3, 8, 5)
     args = (torch.from_numpy(pi), torch.from_numpy(logits),
             torch.from_numpy(labels).long())
-    with pytest.raises(ValueError):
-        k1.em_posterior_forward(torch.ones(33) / 33,
-                                torch.zeros(33, 8, 5), args[2])
+    with pytest.raises(ValueError):   # no component (any M >= 1 runs)
+        k1.em_posterior_forward(torch.ones(0), torch.zeros(0, 8, 5), args[2])
     with pytest.raises(TypeError):
         k1.em_posterior_forward(args[0], args[1].double(), args[2])
     with pytest.raises(ValueError):
@@ -214,12 +241,14 @@ def test_em_posterior_plan_follows_width_and_alignment(M, T, V, dtype,
     assert tuple(k1.plan(M, T, V, dtype, address, 132, 4, 256)) == expect
 
 
-@pytest.mark.parametrize("M", [1, 10, 17, 32])
+@pytest.mark.parametrize("M", [1, 10, 17, 32, 33, 39, 64, 256, 257, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_em_posterior_plan_fits_the_kernel(M, dtype):
     """Over widths on both sides of every team-size switch, ragged T and
     unaligned views: every plan is one the launcher takes, covers every
-    token, and reads a row of up to a warp's share in one chunk."""
+    token, and reads a row of up to a warp's share in one chunk. A tile's
+    rows fit the kernel's shared-memory stage of 256, or (past M = 256)
+    the tile is one token, staged in the kernel's outputs."""
     elem = 4 if dtype == torch.float32 else 2
     for V in (1, 2, 10, 31, 32, 33, 255, 256, 1024, 1025, 49_152):
         for T in (1, 37, 131, 133, 512, 4099):
@@ -229,7 +258,8 @@ def test_em_posterior_plan_fits_the_kernel(M, dtype):
                 assert p.team in (1, 2, 4, 8, 16, 32)
                 assert V * elem % p.vector_bytes == 0
                 assert offset % p.vector_bytes == 0
-                assert 1 <= p.tile and p.tile * M <= 256
+                assert 1 <= p.tile
+                assert p.tile * M <= 256 or (p.tile == 1 and M > 256)
                 assert p.threads % 32 == 0 and p.tile <= p.threads <= 256
                 assert p.tile * M * p.team <= p.threads or p.tile == 1
                 assert blocks <= 132 or p.tile * M * p.team * 2 > 256
@@ -306,6 +336,39 @@ def test_weighted_agg_reads_rows_by_index_and_gates_on_any_ok():
     np.testing.assert_array_equal(kept.numpy(), own)
 
 
+@pytest.mark.parametrize("M", [33, 39, 64, 257])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_weighted_agg_past_32_neighbors_matches_reference(M, dtype):
+    """More than 32 neighbours: the mix against the reference's oracle
+    and Pallas kernel in both dtypes, and the flat erasure-gated mix that
+    the round runs (rows read in place, a third of the links erased)
+    against the reference's ``mix_params_with_erasures`` in fp32."""
+    tdtype, jdtype = DTYPES[dtype]
+    P = 1001
+    own, nb, pi = _agg_inputs(M, P, seed=4)
+    out = k2.weighted_agg(torch.from_numpy(own).to(tdtype),
+                          torch.from_numpy(nb).to(tdtype),
+                          torch.from_numpy(pi), 0.7)
+    jo, jn = jnp.asarray(own).astype(jdtype), jnp.asarray(nb).astype(jdtype)
+    tol = 1e-6 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(
+        out.float().numpy(),
+        np.asarray(jref.weighted_agg_ref(jo, jn, pi, 0.7), np.float32),
+        atol=tol, rtol=tol)
+    if dtype != "float32":
+        return
+    ok = np.random.default_rng(5).random(M) > 1 / 3
+    stack = torch.from_numpy(np.concatenate([own[None], nb]))
+    flat = aggregation.mix_flat_with_erasures(
+        stack, 0, torch.arange(1, M + 1), torch.from_numpy(pi), 0.7,
+        torch.from_numpy(ok))
+    expect = ref_aggregation.mix_params_with_erasures(
+        jnp.asarray(own), jnp.asarray(nb), jnp.asarray(pi), 0.7,
+        jnp.asarray(ok))
+    np.testing.assert_allclose(flat.numpy(), np.asarray(expect), atol=1e-6,
+                               rtol=1e-6)
+
+
 @pytest.mark.parametrize("link_ok", [[True, False, True], [False, True, True],
                                      [False, False, False]])
 def test_mix_params_with_erasures_on_cnn_tree(link_ok):
@@ -351,8 +414,6 @@ def test_weighted_agg_rejects_what_the_kernel_does_not_take():
         k2.weighted_agg(o, n[:, :32], w, 0.5)
     with pytest.raises(ValueError):
         k2.weighted_agg(o, n, w[:2], 0.5)
-    with pytest.raises(ValueError):
-        k2.weighted_agg(o, torch.zeros(33, 64), torch.ones(33) / 33, 0.5)
     with pytest.raises(ValueError):
         k2.weighted_agg(o, n, w, 0.5, index=torch.tensor([0, 1, 2],
                                                          dtype=torch.int32))
