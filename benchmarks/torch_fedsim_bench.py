@@ -3,7 +3,8 @@ host-driven loop (``FedSimConfig(fused=False)``), for all six methods at
 N = 8 and N = 32 clients; the port of ``benchmarks/fedsim_bench.py``'s
 base sweep.
 
-    python3 benchmarks/torch_fedsim_bench.py [--device cpu] [--smoke]
+    python3 benchmarks/torch_fedsim_bench.py [--device cpu]
+        [--smoke | --obs-overhead | --obs-smoke]
 
 It prints the card's name and power limit and one CSV line a method and
 client count, and writes ``BENCH_torch.json`` at the repo root: each
@@ -12,13 +13,16 @@ timed run of every round, evals included, on the host clock), and legacy ÷
 fused. The file is read, updated and written back, so top-level sections
 that other runs add survive (``_merge_write``). ``--smoke`` instead runs
 both engines at a seconds-scale shape, asserts that they agree, and writes
-nothing.
+nothing. ``--obs-overhead`` adds the ``obs_overhead`` section (fused
+pFedWN at N = 8 with the metric taps on against off) to an existing file,
+and ``--obs-smoke`` runs a tiny recorded run and checks its RunRecord.
 """
 from __future__ import annotations
 
 import json
 import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict
@@ -35,6 +39,7 @@ from repro_torch.core.fedsim import (METHODS,  # noqa: E402
                                      FederatedSimulation, FedSimConfig)
 from repro_torch.data import (make_client_datasets,  # noqa: E402
                               synthetic_image_dataset, train_test_split)
+from repro_torch.obs import report, validate_jsonl_lines  # noqa: E402
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 OUT_PATH = REPO_ROOT / "BENCH_torch.json"
@@ -42,7 +47,8 @@ ROUNDS, EVAL_EVERY = 8, 1
 
 
 def build_sim(n_clients: int, *, fused: bool, rounds: int, eval_every: int,
-              samples: int = 0, batch: int = 32,
+              samples: int = 0, batch: int = 32, taps: bool = True,
+              record_dir: str | None = None, run_name: str | None = None,
               device: str = "cuda") -> FederatedSimulation:
     """Every client participates, over links with a mild random error: the
     learning loop is what is timed, not the channel layer. Each client gets
@@ -64,7 +70,8 @@ def build_sim(n_clients: int, *, fused: bool, rounds: int, eval_every: int,
                           n_classes=10)
     cfg = FedSimConfig(rounds=rounds, batch_size=batch, lr=0.05, alpha=0.7,
                        em_iters=2, em_subset=32, adapt_subset=32,
-                       eval_every=eval_every, seed=0, fused=fused)
+                       eval_every=eval_every, seed=0, fused=fused,
+                       taps=taps, record_dir=record_dir, run_name=run_name)
     return FederatedSimulation(model_cfg, train_sets, test_sets, pm, p_err,
                                cfg, device=device)
 
@@ -162,17 +169,115 @@ def smoke(device: str = "cuda") -> None:
          f"parity_gap={gap:.1e};ok")
 
 
+def obs_overhead(device: str = "cuda", card: str = "",
+                 path: Path = OUT_PATH, rounds: int = ROUNDS,
+                 repeats: int = 5) -> Dict:
+    """The metric taps' cost: fused pFedWN at the base sweep's N = 8 shape
+    with ``taps`` on against off, each timed as in ``time_method`` (a
+    warm-up run first), the two interleaved ``repeats`` times; the medians
+    give the overhead. Adds an ``obs_overhead`` section to the existing
+    report at ``path`` (the base sweep is not re-measured) and asserts the
+    taps cost under 5 % of fused throughput, as the reference's bench
+    does."""
+    if not os.path.exists(path):
+        raise RuntimeError(f"{path} missing: run the base sweep first "
+                           "(obs_overhead extends it, it does not "
+                           "re-measure it)")
+    sims = {taps: build_sim(8, fused=True, rounds=rounds, eval_every=1,
+                            taps=taps, device=device)
+            for taps in (False, True)}
+    for sim in sims.values():
+        sim.run("pfedwn")
+    ms: Dict[bool, list] = {False: [], True: []}
+    for _ in range(repeats):
+        for taps, sim in sims.items():
+            t0 = time.perf_counter()
+            sim.run("pfedwn")
+            ms[taps].append((time.perf_counter() - t0) / rounds * 1e3)
+    med = {taps: float(np.median(v)) for taps, v in ms.items()}
+    rps = {taps: 1e3 / v for taps, v in med.items()}
+    overhead_pct = (rps[False] - rps[True]) / rps[False] * 100.0
+    entry = {
+        "note": "fused pfedwn N=8, per-round metric taps on vs off (one "
+                "packed host copy a block); medians of interleaved runs, "
+                "each after a warm-up run, ms per round on the host clock",
+        "device": card or str(device),
+        "rounds": rounds, "repeats": repeats,
+        "taps_off_ms_per_round": ms[False],
+        "taps_on_ms_per_round": ms[True],
+        "taps_off_rounds_per_sec": rps[False],
+        "taps_on_rounds_per_sec": rps[True],
+        "overhead_pct": overhead_pct,
+    }
+    _merge_write({"obs_overhead": entry}, path)
+    emit("torch_fedsim_obs_overhead", med[True] * 1e3,
+         f"taps_on_rps={rps[True]:.2f};taps_off_rps={rps[False]:.2f};"
+         f"overhead={overhead_pct:.2f}%")
+    assert overhead_pct < 5.0, (
+        f"metric-tap overhead {overhead_pct:.2f}% exceeds the 5% budget")
+    return entry
+
+
+def obs_smoke(device: str = "cuda") -> None:
+    """Seconds-scale guard of the recorder: a tiny recorded fused pFedWN
+    run writes ``obs_smoke.jsonl`` and its Chrome trace, the record passes
+    the schema check and the report, holds every event type, and the run
+    synced once a block. The files land in ``$OBS_SMOKE_DIR`` when set,
+    else in a fresh temporary directory."""
+    t0 = time.perf_counter()
+    out_dir = os.environ.get("OBS_SMOKE_DIR") or tempfile.mkdtemp(
+        prefix="torch_obs_smoke_")
+    sim = build_sim(4, fused=True, rounds=3, eval_every=2, samples=400,
+                    batch=16, record_dir=out_dir, run_name="obs_smoke",
+                    device=device)
+    sim.run("pfedwn")
+    jsonl = os.path.join(out_dir, "obs_smoke.jsonl")
+    if not os.path.exists(os.path.join(out_dir, "obs_smoke.trace.json")):
+        raise AssertionError("Chrome trace not written")
+    with open(jsonl) as f:
+        lines = f.readlines()
+    errors = validate_jsonl_lines(lines)
+    if errors:
+        raise AssertionError(f"RunRecord schema violations: {errors[:5]}")
+    types = [json.loads(ln)["type"] for ln in lines]
+    for expected in ("meta", "compile", "round", "eval", "summary"):
+        if expected not in types:
+            raise AssertionError(f"missing {expected!r} event")
+    if sim.last_run_stats["device_calls"] != 2:
+        raise AssertionError("the recorded run synced more than once a "
+                             "block")
+    if report.main([jsonl]) != 0:
+        raise AssertionError("the report rejected the record")
+    compile_s = sum(e["seconds"] for e in sim.recorder.events
+                    if e["type"] == "compile")
+    emit("torch_obs_smoke", (time.perf_counter() - t0) * 1e6,
+         f"events={len(types)};rounds={types.count('round')};"
+         f"compile_s={compile_s:.6f};ok")
+
+
 def main() -> None:
     p = parser(__doc__.split("\n")[0], str(OUT_PATH))
-    p.add_argument("--smoke", action="store_true",
-                   help="run both engines at a tiny shape, check that they "
-                   "agree, write nothing")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--smoke", action="store_true",
+                      help="run both engines at a tiny shape, check that "
+                      "they agree, write nothing")
+    mode.add_argument("--obs-overhead", action="store_true",
+                      help="add the taps-on/off section to an existing "
+                      "report")
+    mode.add_argument("--obs-smoke", action="store_true",
+                      help="run a tiny recorded run and check its record")
     args = p.parse_args()
     info = setup_device(args.device)
     if args.smoke:
         smoke(args.device)
         return
+    if args.obs_smoke:
+        obs_smoke(args.device)
+        return
     out = Path(args.out)
+    if args.obs_overhead:
+        obs_overhead(args.device, info.get("card", ""), out)
+        return
     report = run(device=args.device, card=info.get("card", ""), path=out)
     n32 = report["results"]["N=32"]["pfedwn"]
     emit("torch_fedsim_bench", 0.0,

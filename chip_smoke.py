@@ -37,6 +37,15 @@ Phases, each of which stops the run on failure:
   5d. every method on the legacy host-driven engine (``fused=False``)
      against the fused engine on the card (a small run), then each
      engine's ms per round at the full-width scenario of phase 5;
+  5e. RunRecord: phase 5's small pFedWN run recorded on the card and on
+     the CPU into a temporary directory; both files pass the port's
+     validator and ``python -m repro_torch.obs.report``, their round and
+     eval events agree (train loss, entropy, effective neighbours and π
+     within 1e-4, link success rate exactly, accuracies within 5e-3), a
+     compile event carries FLOPs; a recorded run syncs no more often than
+     an unrecorded one (``torch.cuda.set_sync_debug_mode("warn")``); then
+     the full-width pFedWN ms per round with the taps on and off
+     (interleaved runs, medians; printed, not asserted);
   6. hold K3 (GQA flash attention) against its plain version, fp32 and
      bf16, over the reference's sweep, two ragged shapes, the prefill
      attention shapes of smollm-135m, starcoder2-15b (window 4096) and
@@ -61,6 +70,7 @@ result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -616,6 +626,156 @@ def time_legacy_and_fused(dev) -> dict:
         out[method] = row
         print(f"{method}: ms per round fused {row['fused']}, legacy "
               f"{row['legacy']}, legacy/fused {row['legacy_over_fused']}")
+    return out
+
+
+def _record_events(path):
+    from repro_torch.obs import validate_jsonl_lines
+    with open(path) as f:
+        lines = f.readlines()
+    errors = validate_jsonl_lines(lines)
+    if errors:
+        raise AssertionError(f"{path}: schema violations {errors[:5]}")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", str(path)],
+        env={**os.environ,
+             "PYTHONPATH": str(Path(__file__).resolve().parent / "src")},
+        capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"the report rejected {path}: {out.stderr}")
+    return [json.loads(line) for line in lines]
+
+
+def check_run_record(dev, tmp: str) -> None:
+    """The small pFedWN run of phase 5 recorded on the card and on the CPU
+    (same params and draws) into ``tmp``: both files pass the validator and
+    ``python -m repro_torch.obs.report``, their round and eval events
+    agree (train loss, entropy, effective neighbours and π within 1e-4,
+    link success rate exactly, accuracies within 5e-3), a compile event
+    carries FLOPs, and the card's run launched K1 ``em_iters`` times a
+    round and K2 once a round."""
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+    gpu = _tiny_sim(dev, record_dir=tmp, run_name="card")
+    cpu = _tiny_sim("cpu", params0=gpu.params0.cpu(), record_dir=tmp,
+                    run_name="cpu")
+    rng = np.random.default_rng(1)
+    idx = np.stack([rng.integers(0, n, (3, gpu.steps_per_round, 16))
+                    for n in gpu._train_len], axis=1)
+    masks = rng.random((3, gpu.m)) > 0.3
+    k1.launches = 0
+    k2.launches = 0
+    gpu.run("pfedwn", idx_stream=idx, link_masks=masks)
+    n1, n2 = k1.launches, k2.launches
+    cpu.run("pfedwn", idx_stream=idx, link_masks=masks)
+    if (n1, n2) != (gpu.sim.em_iters * gpu.sim.rounds, gpu.sim.rounds):
+        raise AssertionError(f"recorded run launched K1 {n1} and K2 {n2} "
+                             "times")
+    events = {}
+    for name in ("card", "cpu"):
+        events[name] = _record_events(Path(tmp) / f"{name}.jsonl")
+    compiles = [e for e in events["card"] if e["type"] == "compile"]
+    if not compiles or min(e["flops"] for e in compiles) <= 0:
+        raise AssertionError(f"compile events without FLOPs: {compiles}")
+    print("compile events on the card: " + "; ".join(
+        f"{e['name']} {e['seconds']} s, {e['flops']:.6g} FLOP, "
+        f"{e['bytes_accessed']:.6g} B" for e in compiles))
+
+    def kept(evs):
+        return [e for e in evs if e["type"] in ("round", "eval")]
+
+    g, c = kept(events["card"]), kept(events["cpu"])
+    if [e["type"] for e in g] != [e["type"] for e in c] or len(g) != 5:
+        raise AssertionError("card and CPU records differ in their events")
+    worst = {"loss": 0.0, "scalars": 0.0, "acc": 0.0, "pi": 0.0}
+    for a, b in zip(g, c):
+        if a["type"] == "round":
+            worst["loss"] = max(worst["loss"], float(np.abs(
+                np.subtract(a["train_loss"], b["train_loss"])).max()))
+            for k in ("em_entropy", "effective_neighbors"):
+                worst["scalars"] = max(worst["scalars"], abs(a[k] - b[k]))
+            if a["link_success_rate"] != b["link_success_rate"]:
+                raise AssertionError("link success rates differ")
+        else:
+            for k in ("target_acc", "mean_participant_acc"):
+                worst["acc"] = max(worst["acc"], abs(a[k] - b[k]))
+            worst["pi"] = max(worst["pi"], float(np.abs(
+                np.subtract(a["pi"], b["pi"])).max()))
+    print(f"RunRecord card vs CPU: max|dloss|={worst['loss']:.3g} "
+          f"max|dentropy,eff|={worst['scalars']:.3g} (tol 1e-4) "
+          f"max|dacc|={worst['acc']:.3g} (tol 5e-3) max|dπ|="
+          f"{worst['pi']:.3g} (tol 1e-4); launches K1={n1} K2={n2}")
+    if not (worst["loss"] <= 1e-4 and worst["scalars"] <= 1e-4
+            and worst["acc"] <= 5e-3 and worst["pi"] <= 1e-4):
+        raise AssertionError("card and CPU records disagree")
+
+
+def _syncs(sim) -> int:
+    """Host syncs of one run of pFedWN, counted by
+    ``torch.cuda.set_sync_debug_mode("warn")``'s warnings."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.run("pfedwn")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def check_record_syncs(dev, tmp: str) -> None:
+    """A recorded run (taps on, files written) syncs no more often than an
+    unrecorded one (taps off, in memory): each syncs once a block."""
+    recorded = _tiny_sim(dev, record_dir=tmp, run_name="syncs")
+    plain = _tiny_sim(dev, params0=recorded.params0, taps=False)
+    for sim in (recorded, plain):
+        sim.run("pfedwn")                              # warm-up
+    n_rec, n_plain = _syncs(recorded), _syncs(plain)
+    blocks = len(recorded.last_run_stats["blocks"])
+    print(f"host syncs a run ({blocks} blocks): recorded {n_rec}, "
+          f"unrecorded {n_plain}")
+    if n_rec > n_plain:
+        raise AssertionError("recording added host syncs")
+
+
+def time_taps(dev, repeats: int = 5) -> dict:
+    """pFedWN at the full width of phase 5 with the taps on and off, runs
+    interleaved: the medians of the wall of a run over its rounds and of
+    the mean ms per round after the first block, and the K1 and K2
+    launches of each (they must not differ)."""
+    import dataclasses
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+    sim = _main_sim(dev)
+    walls = {True: [], False: []}
+    steady = {True: [], False: []}
+    launches = {}
+    for rep in range(repeats + 1):
+        for taps in (False, True):
+            sim.sim = dataclasses.replace(sim.sim, taps=taps)
+            k1.launches = 0
+            k2.launches = 0
+            t0 = time.perf_counter()
+            hist = sim.run("pfedwn")
+            wall = (time.perf_counter() - t0) / sim.sim.rounds * 1e3
+            launches[taps] = (k1.launches, k2.launches)
+            if rep:                                  # the first is warm-up
+                walls[taps].append(wall)
+                steady[taps].append(float(np.mean(hist["round_ms"][1:])))
+    if launches[True] != launches[False]:
+        raise AssertionError(f"taps changed the launches: {launches}")
+    out = {}
+    for taps in (True, False):
+        key = "taps_on" if taps else "taps_off"
+        out[key] = {"wall_ms_per_round": float(np.median(walls[taps])),
+                    "steady_ms_per_round": float(np.median(steady[taps])),
+                    "runs_wall": walls[taps], "runs_steady": steady[taps]}
+    out["on_over_off"] = (out["taps_on"]["wall_ms_per_round"]
+                          / out["taps_off"]["wall_ms_per_round"])
+    out["launches_k1_k2"] = list(launches[True])
     return out
 
 
@@ -1176,6 +1336,18 @@ def main() -> int:
     engines = time_legacy_and_fused(dev)
     print(f"engines wall {time.perf_counter() - t0:.1f} s; ms per round: "
           f"{json.dumps(engines)}")
+
+    _phase("5e. RunRecord: small run card vs CPU, syncs, taps on/off at "
+           "full width")
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        check_run_record(dev, tmp)
+        check_record_syncs(dev, tmp)
+    t0 = time.perf_counter()
+    taps = time_taps(dev)
+    print(f"taps wall {time.perf_counter() - t0:.1f} s; pfedwn ms per "
+          f"round, taps on and off (medians of 5 interleaved runs): "
+          f"{json.dumps(taps)}")
 
     _phase("6. K3 flash_attention vs plain")
     err3 = check_flash_attention(dev)

@@ -38,9 +38,24 @@ runs the same round math (:meth:`FederatedSimulation._round`, so pFedWN
 still launches K1 and K2), and at each eval point scores the target and
 then each participant in turn on its unpadded test set. With the same seed
 or the same injected draws both engines follow the same trajectory.
+
+Telemetry (:mod:`repro_torch.obs`): every simulation owns a
+``RunRecorder``, and each ``run`` writes the reference's schema-v1
+RunRecord into it (``meta``, then ``round`` and ``eval`` events, then
+``summary``; ``FedSimConfig.record_dir`` persists it as JSONL beside a
+Chrome trace). With ``FedSimConfig.taps`` on, each round computes its
+metric taps on the device (per-client train loss, EM weight entropy, link
+success rate, effective neighbours). The fused engine packs them with the
+block's accuracies and π into one tensor and copies it to the host once a
+block, so recording adds no host sync; the legacy engine reads them back
+each round, as the reference's does. The first block of each (method,
+block length) on an instance records a ``compile`` event: the seconds
+spent getting the method's kernels built or loaded, and the block's
+matmul work from :meth:`FederatedSimulation.block_cost`.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
@@ -49,6 +64,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.configs.base import PFLConfig
 from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.core import aggregation, baselines
@@ -57,6 +73,7 @@ from repro_torch.core.pfedwn import (ModelFns, effective_neighbors,
 from repro_torch.core.selection import link_success_mask, link_success_rate
 from repro_torch.data.synthetic import SyntheticImageDataset, stack_datasets
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
 from repro_torch.models import cnn
 from repro_torch.utils.bridge import ParamLayout
 
@@ -65,6 +82,11 @@ METHODS = ("local", "fedavg", "fedprox", "perfedavg", "fedamp", "pfedwn")
 # reference's legacy engine counts them (fedsim.py ``_run_legacy``)
 _LEGACY_CALLS = {"local": 1, "fedavg": 3, "fedprox": 4, "perfedavg": 3,
                  "fedamp": 3, "pfedwn": 5}
+# the CUDA kernels each method's round launches (``kernels/csrc``)
+_METHOD_KERNELS = {"pfedwn": ("em_posterior", "weighted_agg")}
+# the per-round scalars beside the train-loss row, in their packed order
+_TAP_SCALARS = ("em_entropy", "link_success_rate", "effective_neighbors")
+_F32 = 4                            # bytes an element: the engine is fp32
 
 
 @dataclass
@@ -86,6 +108,9 @@ class FedSimConfig:
     seed: int = 0
     fused: bool = True                 # False: the legacy host-driven loop
     em_uniform: bool = False           # ablation: uniform π instead of EM
+    taps: bool = True                  # per-round metric taps
+    record_dir: Optional[str] = None   # persist RunRecord JSONL + trace here
+    run_name: Optional[str] = None     # record file stem (default: derived)
 
 
 def block_schedule(rounds: int, eval_every: int) -> List[int]:
@@ -129,13 +154,18 @@ class FederatedSimulation:
                  p_err: np.ndarray,                # (N,) target-link P_err
                  sim: FedSimConfig, *,
                  params0: Optional[torch.Tensor] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 recorder: Optional[obs.RunRecorder] = None):
         """``params0``: initial (N, P) params (e.g. the reference's, through
         :func:`repro_torch.utils.bridge.from_jax_params`); drawn from a
-        generator seeded with ``sim.seed`` when None."""
+        generator seeded with ``sim.seed`` when None. ``recorder``: where
+        runs are recorded; an in-memory one (persisted under
+        ``sim.record_dir`` when set) when None."""
         self.device = resolve_device(device)
         self.model_cfg, self.sim = model_cfg, sim
         self.n = len(train_sets)
+        self.recorder = recorder or self._default_recorder()
+        self._compiled: set = set()        # (method, block length) recorded
         self.train_sets, self.test_sets = train_sets, test_sets
         self.layout = cnn.param_layout(model_cfg)
         self.fns = cnn_fns(self.layout)
@@ -173,10 +203,25 @@ class FederatedSimulation:
         """The engine ``run`` takes: ``fused`` or ``legacy``."""
         return "fused" if self.sim.fused else "legacy"
 
+    def _default_recorder(self) -> obs.RunRecorder:
+        """In-memory RunRecorder, persisted when ``record_dir`` is set."""
+        sim = self.sim
+        jsonl = trace = None
+        if sim.record_dir:
+            name = (sim.run_name
+                    or f"fedsim_{self.engine}_N{self.n}_seed{sim.seed}")
+            jsonl = os.path.join(sim.record_dir, f"{name}.jsonl")
+            trace = os.path.join(sim.record_dir, f"{name}.trace.json")
+        return obs.RunRecorder(jsonl_path=jsonl, trace_path=trace)
+
     # ------------------------------------------------------------- staging
 
     def _stage_data(self) -> None:
         """Move every tensor the round loop needs to the device, once."""
+        with self.recorder.span("stage_data", n_clients=self.n):
+            self._stage_data_inner()
+
+    def _stage_data_inner(self) -> None:
         sim, dev = self.sim, self.device
         tx, ty, tlen, _ = stack_datasets(self.train_sets)
         self._train_x = torch.as_tensor(tx, device=dev)
@@ -210,9 +255,10 @@ class FederatedSimulation:
 
     def invalidate_caches(self) -> None:
         """Restage the device tensors: call after mutating ``self.sim`` or
-        a dataset in place (the engine compiles nothing, so there is
-        nothing else to drop)."""
+        a dataset in place. The next block of each (method, length) records
+        its compile event again."""
         self._stage_data()
+        self._compiled.clear()
 
     # ---------------------------------------------------------- round math
 
@@ -240,7 +286,7 @@ class FederatedSimulation:
         K_max, ...), idx (K, steps, B). Each minibatch goes through
         ``step(params, xb, yb) -> (params, (K,) loss)``, an SGD step on the
         mean minibatch loss when None. Returns (params, (K,) mean of the
-        steps' losses)."""
+        steps' losses, or None with the taps off)."""
         step = step or self._sgd_step(self.fns.loss)
         rows = torch.arange(params.shape[0], device=self.device)[:, None]
         losses = []
@@ -248,6 +294,8 @@ class FederatedSimulation:
             it = idx[:, s]
             params, step_loss = step(params, x[rows, it], y[rows, it])
             losses.append(step_loss)
+        if not self.sim.taps:
+            return params, None
         return params, torch.mean(torch.stack(losses), dim=0)
 
     def _round(self, method: str, params: torch.Tensor, pi: torch.Tensor,
@@ -256,7 +304,7 @@ class FederatedSimulation:
         """One round of ``method`` (the reference's round body), training
         on the minibatches at positions ``idx`` (N, steps, B) of ``x`` (N,
         K, ...) and ``y`` (N, K); returns (params, π, tap dict of device
-        scalars)."""
+        scalars, None with the taps off)."""
         sim, fns, pm = self.sim, self.fns, self.participants
         step = None
         if method == "fedprox":
@@ -293,11 +341,7 @@ class FederatedSimulation:
             with record_function("fedsim.aggregate"):
                 g = baselines.fedavg_aggregate(params, self.sizes, pm)
                 params = baselines.broadcast_global(g, params, pm)
-        link_rate = torch.ones((), device=self.device)
-        eff_nbr = torch.clamp(torch.sum(pm.float()) - 1.0, min=0.0)
-        if method == "local":
-            eff_nbr = torch.zeros((), device=self.device)
-        elif method == "pfedwn":
+        if method == "pfedwn":
             if sim.em_uniform:
                 pi = torch.full((self.m,), 1.0 / max(self.m, 1),
                                 dtype=torch.float32, device=self.device)
@@ -317,6 +361,14 @@ class FederatedSimulation:
             with record_function("fedsim.target_sgd"):
                 mixed, loss0 = self._sgd(mixed[None], x[:1], y[:1], idx[:1])
             params[0] = mixed[0]
+        if not sim.taps:
+            return params, pi, None
+        link_rate = torch.ones((), device=self.device)
+        eff_nbr = torch.clamp(torch.sum(pm.float()) - 1.0, min=0.0)
+        if method == "local":
+            eff_nbr = torch.zeros((), device=self.device)
+        elif method == "pfedwn":
+            # the target's entry tracks its pass after aggregation
             train_loss[0] = loss0[0]
             link_rate = link_success_rate(link_ok)
             eff_nbr = effective_neighbors(pi, link_ok)
@@ -373,6 +425,112 @@ class FederatedSimulation:
                 for i in np.where(self.participants.cpu().numpy())[0]]
         mean = float(np.mean(accs)) if accs else float("nan")
         return t_acc, mean, len(accs)
+
+    # ---------------------------------------------------- compile events
+
+    def _pass_cost(self, models: int, samples: int, backward: bool):
+        """(FLOPs, bytes) of the CNN's matmuls for ``models`` models over
+        ``samples`` samples each: the forward, and with ``backward`` its
+        backward (two matmuls a layer, one at the first, whose input needs
+        no gradient)."""
+        flops = nbytes = 0
+        for i, (r, k, n) in enumerate(cnn.matmul_shapes(self.model_cfg)):
+            mults = 1 + ((2 if i else 1) if backward else 0)
+            rows = samples * r
+            flops += mults * 2 * models * rows * k * n
+            nbytes += mults * _F32 * models * (rows * k + k * n + rows * n)
+        return flops, nbytes
+
+    def block_cost(self, method: str, length: int) -> Dict[str, float]:
+        """The matmul work of one fused block of ``length`` rounds of
+        ``method`` and its eval: ``{"flops", "bytes_accessed"}``.
+
+        With the CNN's matmuls (r rows a sample, k, n) from
+        :func:`repro_torch.models.cnn.matmul_shapes`, a forward of K models
+        over S samples each is F(K, S) = Σ 2·K·S·r·k·n FLOPs and moves
+        Σ 4·K·(S·r·k + k·n + S·r·n) bytes (fp32 operands read once, the
+        output written once); a forward and backward, G(K, S), counts
+        every layer three times but the first twice. With N clients,
+        steps s and batch B a round, M neighbours, P params, EM on n_em
+        samples for I iterations of c component steps, T padded test rows
+        and A adaptation samples, a round is
+
+          s·G(N, B)                      every method's local SGD
+          (Per-FedAvg: s·(G(N, ⌊B/2⌋) + G(N, ⌈B/2⌉)), its two half-batches)
+          + 2·N·P a FedAvg aggregate     (FedAvg, Per-FedAvg 1; FedProx 2)
+          + 4·N²·P                       (FedAMP: the Gram W·Wᵀ, ξ·W)
+          + pFedWN: (I−1)·c·G(M, n_em) + F(M, n_em) for EM (F(M, n_em)
+            alone with c = 0, nothing under ``em_uniform``), 2·M·P for
+            the Eq-1 mix, and s·G(1, B) for the target's pass
+
+        and the eval is F(N, T), plus G(1, A) + F(1, T) for Per-FedAvg's
+        adapted target. A product u·W of a length-R vector with an (R, P)
+        matrix moves 4·(R + R·P + P) bytes. This is the work of the
+        matmuls only (the counts ``torch.utils.flop_counter`` gives), not
+        an XLA-style estimate with the elementwise work in it."""
+        sim, n, m = self.sim, self.n, self.m
+        p = self.layout.size
+        steps, b = self.steps_per_round, sim.batch_size
+        flops = nbytes = 0
+
+        def add(cost, times=1):
+            nonlocal flops, nbytes
+            flops += times * cost[0]
+            nbytes += times * cost[1]
+
+        def vec_mat(rows, times=1):     # (rows,) @ (rows, P)
+            add((2 * rows * p, _F32 * (rows + rows * p + p)), times)
+
+        if method == "perfedavg":
+            add(self._pass_cost(n, b // 2, True), steps)
+            add(self._pass_cost(n, b - b // 2, True), steps)
+        else:
+            add(self._pass_cost(n, b, True), steps)
+        if method in ("fedavg", "perfedavg"):
+            vec_mat(n)
+        elif method == "fedprox":
+            vec_mat(n, 2)
+        elif method == "fedamp":
+            add((2 * n * n * p, _F32 * (2 * n * p + n * n)))
+            add((2 * n * n * p, _F32 * (n * n + 2 * n * p)))
+        elif method == "pfedwn":
+            n_em = self._em_x.shape[0]
+            if not sim.em_uniform and sim.em_iters > 0:
+                if sim.em_component_steps > 0:
+                    add(self._pass_cost(m, n_em, True),
+                        (sim.em_iters - 1) * sim.em_component_steps)
+                add(self._pass_cost(m, n_em, False))
+            vec_mat(m)
+            add(self._pass_cost(1, b, True), steps)
+        flops, nbytes = length * flops, length * nbytes
+        t = self._test_x.shape[1]
+        add(self._pass_cost(n, t, False))
+        if method == "perfedavg":
+            add(self._pass_cost(1, self._adapt_x.shape[0], True))
+            add(self._pass_cost(1, t, False))
+        return {"flops": float(flops), "bytes_accessed": float(nbytes)}
+
+    def _compile_event(self, method: str, length: int) -> None:
+        """On the first block of each (method, length): get the method's
+        kernels built or loaded, and record it as a compile event (0.0 s
+        on the CPU, where no kernel runs) with the block's cost."""
+        key = (method, int(length))
+        if key in self._compiled:
+            return
+        t0 = time.perf_counter()
+        with self.recorder.span("compile", cat="compile", method=method,
+                                rounds=length):
+            names = _METHOD_KERNELS.get(method, ())
+            if self.device.type == "cuda" and names:
+                _build.build(names)        # one nvcc each, together
+                for name in names:
+                    _build.load(name)
+        seconds = (time.perf_counter() - t0 if self.device.type == "cuda"
+                   else 0.0)
+        self.recorder.record_compile(f"{method}/block{length}",
+                                     cost=self.block_cost(method, length),
+                                     seconds=seconds)
+        self._compiled.add(key)
 
     # ---------------------------------------------------------------- entry
 
@@ -431,31 +589,49 @@ class FederatedSimulation:
     def run(self, method: str, *, idx_stream=None,
             link_masks=None) -> Dict[str, Any]:
         """Run ``sim.rounds`` rounds of ``method`` from ``params0`` on the
-        engine ``sim.fused`` selects.
+        engine ``sim.fused`` selects, recording it in ``self.recorder``.
 
         ``idx_stream`` (rounds, N, steps, B) and ``link_masks`` (rounds, M)
         replace the on-device draws when given; with ``sim.erasures`` off
         every link succeeds, injected masks or not. Returns the reference's
         history dict (``target_acc``, ``mean_participant_acc``, ``pi`` per
         eval point, ``max_target_acc``) plus ``taps`` (per-round metrics as
-        numpy arrays) and ``round_ms`` (host ms per round, eval included:
-        of each block on the fused engine, of each round on the legacy
-        one). The final params and π are left in ``self.last_state``, and
-        ``self.last_run_stats`` holds the engine and its ``device_calls``:
-        the fused engine's host syncs (one per block), or the dispatches the
-        legacy engine drives, counted as the reference counts its own."""
+        numpy arrays; empty with ``sim.taps`` off) and ``round_ms`` (host
+        ms per round, eval included: of each block on the fused engine, of
+        each round on the legacy one). The final params and π are left in
+        ``self.last_state``, and ``self.last_run_stats`` holds the engine
+        and its ``device_calls``: the fused engine's host syncs (one per
+        block), or the dispatches the legacy engine drives, counted as the
+        reference counts its own."""
         method = method.lower()
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; have {METHODS}")
-        sim = self.sim
+        sim, rec, engine = self.sim, self.recorder, self.engine
         idx_all, masks_all = self._injected(idx_stream, link_masks)
+        rec.begin_run(method=method, engine=engine, meta={
+            "n_clients": self.n, "rounds": sim.rounds,
+            "eval_every": sim.eval_every, "batch_size": sim.batch_size,
+            "lr": sim.lr, "seed": sim.seed, "taps": sim.taps,
+            "steps_per_round": self.steps_per_round})
         gen = torch.Generator(self.device).manual_seed(sim.seed + 7)
         params = self.params0.clone()
         pi = torch.full((self.m,), 1.0 / max(self.m, 1), dtype=torch.float32,
                         device=self.device)
-        if self.engine == "legacy":
-            return self._run_legacy(method, gen, params, pi, idx_all,
-                                    masks_all)
+        run = self._run_legacy if engine == "legacy" else self._run_fused
+        history = run(method, gen, params, pi, idx_all, masks_all)
+        rec.end_run(method=method, engine=engine, rounds=sim.rounds,
+                    max_target_acc=history["max_target_acc"],
+                    final_target_acc=history["target_acc"][-1],
+                    extra={"device_calls":
+                           self.last_run_stats["device_calls"]})
+        return history
+
+    def _run_fused(self, method: str, gen: torch.Generator,
+                   params: torch.Tensor, pi: torch.Tensor, idx_all,
+                   masks_all) -> Dict[str, Any]:
+        """The fused loop: blocks of rounds between eval points, each
+        ending in one host copy of the block's accuracies, π and taps."""
+        sim, rec, n, m = self.sim, self.recorder, self.n, self.m
         history: Dict[str, Any] = {"target_acc": [], "pi": [],
                                    "mean_participant_acc": [],
                                    "round_ms": []}
@@ -463,29 +639,51 @@ class FederatedSimulation:
         rnd = 0
         blocks = block_schedule(sim.rounds, sim.eval_every)
         for length in blocks:
+            self._compile_event(method, length)
             t0 = time.perf_counter()
-            block_taps = []
-            for _ in range(length):
-                idx = self._draw_idx(gen) if idx_all is None else idx_all[rnd]
-                link_ok = self._link_ok(method, gen, masks_all, rnd)
-                params, pi, tap = self._round(method, params, pi,
-                                              self._train_x, self._train_y,
-                                              idx, link_ok)
-                block_taps.append(tap)
-                rnd += 1
-            with record_function("fedsim.eval"):
-                t_acc, mean_acc = self._eval(method, params)
-            # the one host sync of the block
-            t_acc, mean_acc = float(t_acc), float(mean_acc)
-            history["round_ms"].append(
-                (time.perf_counter() - t0) / length * 1e3)
-            for k in block_taps[0]:
-                taps.setdefault(k, []).append(
-                    torch.stack([t[k] for t in block_taps]).cpu().numpy())
+            with rec.span("block_exec", method=method, rounds=length):
+                rows = []               # each round's taps, packed
+                for r in range(rnd, rnd + length):
+                    idx = (self._draw_idx(gen) if idx_all is None
+                           else idx_all[r])
+                    link_ok = self._link_ok(method, gen, masks_all, r)
+                    params, pi, tap = self._round(
+                        method, params, pi, self._train_x, self._train_y,
+                        idx, link_ok)
+                    if tap is not None:
+                        rows += [tap["train_loss"],
+                                 torch.stack([tap[k] for k in _TAP_SCALARS])]
+                with record_function("fedsim.eval"):
+                    t_acc, mean_acc = self._eval(method, params)
+                # the one host sync of the block
+                host = torch.cat([torch.stack([t_acc, mean_acc]), pi]
+                                 + rows).cpu().numpy()
+            ms = (time.perf_counter() - t0) / length * 1e3
+            history["round_ms"].append(ms)
+            rec.observe_round_latency(ms, n=length)
+            t_acc, mean_acc = float(host[0]), float(host[1])
+            pi_host = host[2:2 + m]
+            with rec.span("drain", method=method, rounds=length):
+                if sim.taps:
+                    block = host[2 + m:].reshape(length, n + 3)
+                    taps.setdefault("train_loss", []).append(block[:, :n])
+                    for j, k in enumerate(_TAP_SCALARS):
+                        taps.setdefault(k, []).append(block[:, n + j])
+                    for i in range(length):
+                        rec.record_round(
+                            rnd + i, train_loss=block[i, :n].tolist(),
+                            em_entropy=float(block[i, n]),
+                            link_success_rate=float(block[i, n + 1]),
+                            effective_neighbors=float(block[i, n + 2]))
+            rnd += length
             history["target_acc"].append(t_acc)
             history["mean_participant_acc"].append(mean_acc)
             if method == "pfedwn":
-                history["pi"].append(pi.cpu().numpy())
+                history["pi"].append(pi_host.copy())
+            rec.record_eval(rnd - 1, target_acc=t_acc,
+                            mean_participant_acc=mean_acc,
+                            pi=pi_host.tolist() if method == "pfedwn"
+                            else None)
         history["max_target_acc"] = float(np.max(history["target_acc"]))
         history["taps"] = {k: np.concatenate(v) for k, v in taps.items()}
         self.last_state = {"params": params, "pi": pi}
@@ -498,9 +696,9 @@ class FederatedSimulation:
                     masks_all) -> Dict[str, Any]:
         """The legacy host-driven loop (the reference's ``_run_legacy``):
         one round at a time, its minibatches gathered on the host and
-        uploaded, its taps read back, and the host-driven evaluation at the
-        reference's eval points."""
-        sim = self.sim
+        uploaded, its taps read back and recorded, and the host-driven
+        evaluation at the reference's eval points."""
+        sim, rec = self.sim, self.recorder
         every = max(sim.eval_every, 1)
         history: Dict[str, Any] = {"target_acc": [], "pi": [],
                                    "mean_participant_acc": [],
@@ -514,17 +712,33 @@ class FederatedSimulation:
             link_ok = self._link_ok(method, gen, masks_all, rnd)
             params, pi, tap = self._round(method, params, pi, x, y, pos,
                                           link_ok)
-            for k, v in tap.items():
-                taps.setdefault(k, []).append(v.cpu().numpy()[None])
+            if tap is not None:
+                host = {k: v.cpu().numpy() for k, v in tap.items()}
+                for k, v in host.items():
+                    taps.setdefault(k, []).append(v[None])
+                rec.record_round(
+                    rnd, train_loss=host["train_loss"].tolist(),
+                    em_entropy=float(host["em_entropy"]),
+                    link_success_rate=float(host["link_success_rate"]),
+                    effective_neighbors=float(host["effective_neighbors"]))
             device_calls += 1 + _LEGACY_CALLS[method]
             if rnd % every == 0 or rnd == sim.rounds - 1:
-                t_acc, mean_acc, scored = self._eval_legacy(method, params)
-                device_calls += scored
-                history["target_acc"].append(t_acc)
-                history["mean_participant_acc"].append(mean_acc)
-                if method == "pfedwn":
-                    history["pi"].append(pi.cpu().numpy())
-            history["round_ms"].append((time.perf_counter() - t0) * 1e3)
+                with rec.span("eval", method=method, round=rnd):
+                    t_acc, mean_acc, scored = self._eval_legacy(method,
+                                                                params)
+                    device_calls += scored
+                    history["target_acc"].append(t_acc)
+                    history["mean_participant_acc"].append(mean_acc)
+                    pi_host = (pi.cpu().numpy() if method == "pfedwn"
+                               else None)
+                    if pi_host is not None:
+                        history["pi"].append(pi_host)
+                    rec.record_eval(
+                        rnd, target_acc=t_acc, mean_participant_acc=mean_acc,
+                        pi=None if pi_host is None else pi_host.tolist())
+            ms = (time.perf_counter() - t0) * 1e3
+            history["round_ms"].append(ms)
+            rec.observe_round_latency(ms)
         history["max_target_acc"] = float(np.max(history["target_acc"]))
         history["taps"] = {k: np.concatenate(v) for k, v in taps.items()}
         self.last_state = {"params": params, "pi": pi}

@@ -13,7 +13,7 @@ the packages with no transposes.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +37,19 @@ def param_layout(cfg: CNNConfig) -> ParamLayout:
             "fc1": {"w": (flat, cfg.hidden), "b": (cfg.hidden,)},
             "fc2": {"w": (cfg.hidden, cfg.n_classes), "b": (cfg.n_classes,)}}
     return ParamLayout.from_shapes(spec)
+
+
+def matmul_shapes(cfg: CNNConfig) -> List[Tuple[int, int, int]]:
+    """(rows a sample, k, n) of each matmul of one forward, in order: a
+    3×3 SAME conv at side s is (s², 9·C_in, C_out) (the contraction form
+    of :func:`_conv2d_same`), then ``fc1`` and ``fc2`` at one row."""
+    shapes, c_in, side = [], cfg.channels, cfg.image_size
+    for w in cfg.widths:
+        shapes.append((side * side, 9 * c_in, w))
+        c_in, side = w, side // 2
+    shapes.append((1, side * side * c_in, cfg.hidden))
+    shapes.append((1, cfg.hidden, cfg.n_classes))
+    return shapes
 
 
 def init_params(cfg: CNNConfig, generator: torch.Generator,

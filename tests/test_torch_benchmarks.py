@@ -1,6 +1,9 @@
 """The port's benchmark plumbing (``benchmarks/torch_common.py``) against
 the reference's (``benchmarks/common.py``): the same wireless scenarios and
-the same simulations for the Table II/III and ablation scripts."""
+the same simulations for the Table II/III and ablation scripts; and the
+round-loop bench's ``obs_overhead`` and ``obs_smoke`` sections on the
+CPU."""
+import json
 import os
 import sys
 
@@ -12,6 +15,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 from benchmarks import common as ref_common  # noqa: E402
 from benchmarks import torch_common  # noqa: E402
+from benchmarks import torch_fedsim_bench  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -62,3 +66,55 @@ def test_timed_times_the_one_call_that_gives_the_result():
     calls = []
     us, out = torch_common.timed(lambda k: calls.append(k) or len(calls), 7)
     assert out == 1 and calls == [7] and us >= 0
+
+
+class _Clock:
+    """Stands in for the bench's ``time``: each timed run of
+    ``obs_overhead`` reads ``perf_counter`` twice, taps off then on, so
+    the runs take the given ms per round in turn."""
+
+    def __init__(self, off_ms, on_ms, rounds):
+        self.durations = [off_ms * rounds / 1e3, on_ms * rounds / 1e3]
+        self.now, self.calls = 0.0, 0
+
+    def perf_counter(self):
+        if self.calls % 2:
+            self.now += self.durations[(self.calls // 2) % 2]
+        self.calls += 1
+        return self.now
+
+
+def test_obs_overhead_adds_its_section_and_keeps_the_budget(tmp_path,
+                                                            monkeypatch):
+    path = tmp_path / "BENCH_torch.json"
+    path.write_text(json.dumps({"results": {"N=8": {}}}))
+    monkeypatch.setattr(torch_fedsim_bench, "time", _Clock(10.0, 10.2, 2))
+    entry = torch_fedsim_bench.obs_overhead("cpu", path=path, rounds=2)
+    on_disk = json.loads(path.read_text())
+    assert on_disk["results"] == {"N=8": {}}
+    assert on_disk["obs_overhead"] == entry
+    repeats = entry["repeats"]
+    assert repeats >= 3
+    assert entry["taps_off_ms_per_round"] == pytest.approx([10.0] * repeats)
+    assert entry["taps_on_ms_per_round"] == pytest.approx([10.2] * repeats)
+    assert entry["overhead_pct"] == pytest.approx((1 - 10.0 / 10.2) * 100)
+    monkeypatch.setattr(torch_fedsim_bench, "time", _Clock(10.0, 11.0, 2))
+    with pytest.raises(AssertionError, match="5% budget"):
+        torch_fedsim_bench.obs_overhead("cpu", path=path, rounds=2)
+    assert json.loads(path.read_text())["obs_overhead"][
+        "overhead_pct"] == pytest.approx((1 - 10.0 / 11.0) * 100)
+
+
+def test_obs_overhead_needs_the_base_sweep(tmp_path):
+    with pytest.raises(RuntimeError, match="missing"):
+        torch_fedsim_bench.obs_overhead("cpu", path=tmp_path / "none.json")
+
+
+def test_obs_smoke_on_cpu(tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("OBS_SMOKE_DIR", str(tmp_path))
+    torch_fedsim_bench.obs_smoke("cpu")
+    assert sorted(os.listdir(tmp_path)) == ["obs_smoke.jsonl",
+                                            "obs_smoke.trace.json"]
+    out = capsys.readouterr().out
+    assert "torch_obs_smoke" in out
+    assert "rounds=3;compile_s=0.000000;ok" in out

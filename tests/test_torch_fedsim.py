@@ -224,6 +224,16 @@ legacy = FederatedSimulation(*args[:-1], FedSimConfig(
     rounds=2, batch_size=16, em_iters=2, em_subset=32, fused=False),
     device="cpu")
 assert legacy.run("pfedwn")["pi"][-1].shape == (2,)
+import os, tempfile
+from repro_torch import obs
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+from repro_torch.obs import report
+lines = [obs.encode_event(e) for e in legacy.recorder.events]
+assert obs.validate_jsonl_lines(lines) == []
+assert report.load_runs(lines)[0]["summary"]["engine"] == "legacy"
+path = os.path.join(tempfile.mkdtemp(), "p.npz")
+save_checkpoint(path, {"p": sim.params0}, step=3)
+assert load_checkpoint(path, {"p": sim.params0})[1] == 3
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
        or m.startswith("repro.")]
