@@ -4,7 +4,8 @@ N = 8 and N = 32 clients; the port of ``benchmarks/fedsim_bench.py``'s
 base sweep.
 
     python3 benchmarks/torch_fedsim_bench.py [--device cpu]
-        [--smoke | --obs-overhead | --obs-smoke]
+        [--smoke | --obs-overhead | --obs-smoke | --sharded
+         | --sharded-smoke | --hoist]
 
 It prints the card's name and power limit and one CSV line a method and
 client count, and writes ``BENCH_torch.json`` at the repo root: each
@@ -16,6 +17,12 @@ both engines at a seconds-scale shape, asserts that they agree, and writes
 nothing. ``--obs-overhead`` adds the ``obs_overhead`` section (fused
 pFedWN at N = 8 with the metric taps on against off) to an existing file,
 and ``--obs-smoke`` runs a tiny recorded run and checks its RunRecord.
+``--sharded`` adds the ``sharded`` section: the client-sharded engine at N
+= 32 over D = 1, 2 and 4 ranks (one process a rank; on one card every rank
+shares it, so this measures the exchange's overhead, not scaling).
+``--sharded-smoke`` checks the sharded engine at D = 4 against the fused
+one for every method at a tiny shape, and ``--hoist`` re-times fused
+pFedWN at N = 32 against the stored base-sweep row (``pfedwn_hoist``).
 """
 from __future__ import annotations
 
@@ -40,6 +47,8 @@ from repro_torch.core.fedsim import (METHODS,  # noqa: E402
 from repro_torch.data import (make_client_datasets,  # noqa: E402
                               synthetic_image_dataset, train_test_split)
 from repro_torch.obs import report, validate_jsonl_lines  # noqa: E402
+from repro_torch.sharding import default_backend, spawn  # noqa: E402
+from repro_torch.sharding.worker import run_methods  # noqa: E402
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 OUT_PATH = REPO_ROOT / "BENCH_torch.json"
@@ -49,6 +58,7 @@ ROUNDS, EVAL_EVERY = 8, 1
 def build_sim(n_clients: int, *, fused: bool, rounds: int, eval_every: int,
               samples: int = 0, batch: int = 32, taps: bool = True,
               record_dir: str | None = None, run_name: str | None = None,
+              sharded: bool = False, shard_devices: int | None = None,
               device: str = "cuda") -> FederatedSimulation:
     """Every client participates, over links with a mild random error: the
     learning loop is what is timed, not the channel layer. Each client gets
@@ -71,7 +81,8 @@ def build_sim(n_clients: int, *, fused: bool, rounds: int, eval_every: int,
     cfg = FedSimConfig(rounds=rounds, batch_size=batch, lr=0.05, alpha=0.7,
                        em_iters=2, em_subset=32, adapt_subset=32,
                        eval_every=eval_every, seed=0, fused=fused,
-                       taps=taps, record_dir=record_dir, run_name=run_name)
+                       taps=taps, record_dir=record_dir, run_name=run_name,
+                       sharded=sharded, shard_devices=shard_devices)
     return FederatedSimulation(model_cfg, train_sets, test_sets, pm, p_err,
                                cfg, device=device)
 
@@ -255,6 +266,113 @@ def obs_smoke(device: str = "cuda") -> None:
          f"compile_s={compile_s:.6f};ok")
 
 
+def _spawn_runs(devices: int, device: str, methods, repeat: int = 1,
+                **build_kw):
+    """Rank 0's results of ``methods`` on the sharded engine over
+    ``devices`` ranks (nccl when each rank has a card, else gloo)."""
+    backend = default_backend(devices, device)
+    kw = dict(build_kw, fused=True, sharded=True, shard_devices=devices,
+              device=device)
+    ranks = spawn(run_methods, devices, backend, device, build_sim, kw,
+                  list(methods), None, repeat)
+    return backend, ranks[0]
+
+
+def sharded_bench(device: str = "cuda", card: str = "",
+                  path: Path = OUT_PATH, n: int = 32, rounds: int = ROUNDS,
+                  devices=(1, 2, 4)) -> Dict:
+    """Add a ``sharded`` section to the report at ``path``: the client-
+    sharded engine at N = ``n`` over each of ``devices`` ranks, fedavg (the
+    all-reduce) and pfedwn (the all-gather and the replicated target
+    math), ms per round (rank 0's blocks, each ending in the block's
+    exchange and one host copy, after a warm-up run) and rounds per
+    second. The base sweep is not re-measured."""
+    results: Dict[str, Dict] = {}
+    for d in devices:
+        backend, runs = _spawn_runs(d, device, ("fedavg", "pfedwn"), 2,
+                                    n_clients=n, rounds=rounds,
+                                    eval_every=EVAL_EVERY)
+        row: Dict = {"backend": backend}
+        for res in runs:
+            ms = float(np.mean(res["history"]["round_ms"]))
+            row[f"{res['method']}_round_latency_ms"] = ms
+            row[f"{res['method']}_rounds_per_sec"] = 1e3 / ms
+        results[f"devices={d}"] = row
+        emit(f"torch_fedsim_sharded_devices{d}",
+             row["pfedwn_round_latency_ms"] * 1e3,
+             f"backend={backend};"
+             f"pfedwn_rps={row['pfedwn_rounds_per_sec']:.2f};"
+             f"fedavg_rps={row['fedavg_rounds_per_sec']:.2f}")
+    section = {
+        "note": f"client-sharded engine, N={n}, one process a rank; every "
+                "rank of a one-card machine shares that card (D = 1 on "
+                "nccl, more ranks on gloo, which stages through the host), "
+                "so this measures the exchange's overhead, not scaling; ms "
+                "per round on rank 0's host clock after a warm-up run, "
+                "evals included; the base sweep is not re-measured",
+        "device": card or str(device), "n_clients": n, "rounds": rounds,
+        "results": results,
+    }
+    _merge_write({"sharded": section}, path)
+    return section
+
+
+def sharded_smoke(device: str = "cuda") -> None:
+    """Seconds-scale guard of the sharded engine: every method at a tiny
+    shape on D = 4 ranks against the fused engine, same seed; fails past
+    |Δacc| 5e-3. Writes nothing."""
+    t0 = time.perf_counter()
+    common = dict(rounds=2, eval_every=2, samples=400, batch=16)
+    fused = build_sim(4, fused=True, device=device, **common)
+    _, runs = _spawn_runs(4, device, METHODS, n_clients=4, **common)
+    worst = 0.0
+    for res in runs:
+        hf = fused.run(res["method"])
+        gap = max(abs(a - b) for a, b in zip(hf["target_acc"],
+                                             res["history"]["target_acc"]))
+        worst = max(worst, gap)
+        if gap > 5e-3 or res["stats"]["engine"] != "sharded":
+            raise AssertionError(f"sharded and fused disagree on "
+                                 f"{res['method']}: |Δacc|={gap:.4f}")
+    emit("torch_fedsim_sharded_smoke", (time.perf_counter() - t0) * 1e6,
+         f"devices=4;methods={len(METHODS)};worst_gap={worst:.1e};ok")
+
+
+def hoist_bench(device: str = "cuda", card: str = "", path: Path = OUT_PATH,
+                n: int = 32, rounds: int = ROUNDS) -> Dict:
+    """Add a ``pfedwn_hoist`` section: fused pfedwn at N = ``n`` re-timed
+    against the stored base-sweep row (not re-measured). The port's EM
+    loop has carried the reference's hoists (one backward through the
+    component stack an iteration, the last refinement dropped) since it
+    was first ported, so the ratio is the spread between two runs of the
+    same code."""
+    if not os.path.exists(path):
+        raise RuntimeError(f"{path} missing: run the base sweep first")
+    with open(path) as f:
+        before = json.load(f)["results"][f"N={n}"]["pfedwn"]
+    sim = build_sim(n, fused=True, rounds=rounds, eval_every=EVAL_EVERY,
+                    device=device)
+    t = time_method(sim, "pfedwn")
+    section = {
+        "note": f"fused pfedwn N={n} re-timed against the stored base-sweep "
+                "row; the port's EM loop had the reference's hoists from "
+                "its first version, so this is the same code measured "
+                "twice (run-to-run spread, not a gain)",
+        "device": card or str(device), "rounds": rounds,
+        "before_round_latency_ms": before["fused_round_latency_ms"],
+        "after_round_latency_ms": t["round_latency_ms"],
+        "after_rounds_per_sec": t["rounds_per_sec"],
+        "before_over_after": (before["fused_round_latency_ms"]
+                              / t["round_latency_ms"]),
+    }
+    _merge_write({"pfedwn_hoist": section}, path)
+    emit("torch_fedsim_pfedwn_hoist", t["round_latency_ms"] * 1e3,
+         f"before_ms={section['before_round_latency_ms']:.2f};"
+         f"after_ms={section['after_round_latency_ms']:.2f};"
+         f"before/after={section['before_over_after']:.2f}x")
+    return section
+
+
 def main() -> None:
     p = parser(__doc__.split("\n")[0], str(OUT_PATH))
     mode = p.add_mutually_exclusive_group()
@@ -266,6 +384,14 @@ def main() -> None:
                       "report")
     mode.add_argument("--obs-smoke", action="store_true",
                       help="run a tiny recorded run and check its record")
+    mode.add_argument("--sharded", action="store_true",
+                      help="add the sharded engine's section (D = 1, 2, 4)")
+    mode.add_argument("--sharded-smoke", action="store_true",
+                      help="check the sharded engine against the fused one "
+                      "at a tiny shape, write nothing")
+    mode.add_argument("--hoist", action="store_true",
+                      help="re-time fused pfedwn at N = 32 against the "
+                      "stored row")
     args = p.parse_args()
     info = setup_device(args.device)
     if args.smoke:
@@ -274,9 +400,18 @@ def main() -> None:
     if args.obs_smoke:
         obs_smoke(args.device)
         return
+    if args.sharded_smoke:
+        sharded_smoke(args.device)
+        return
     out = Path(args.out)
     if args.obs_overhead:
         obs_overhead(args.device, info.get("card", ""), out)
+        return
+    if args.sharded:
+        sharded_bench(args.device, info.get("card", ""), out)
+        return
+    if args.hoist:
+        hoist_bench(args.device, info.get("card", ""), out)
         return
     report = run(device=args.device, card=info.get("card", ""), path=out)
     n32 = report["results"]["N=32"]["pfedwn"]

@@ -46,6 +46,21 @@ Phases, each of which stops the run on failure:
      an unrecorded one (``torch.cuda.set_sync_debug_mode("warn")``); then
      the full-width pFedWN ms per round with the taps on and off
      (interleaved runs, medians; printed, not asserted);
+  5f. the client-sharded engine (``FedSimConfig(sharded=True)``, one
+     process a rank through ``repro_torch.sharding.spawn``; the card is
+     one, so D = 1 runs nccl and D > 1 runs gloo, all ranks on this card):
+     every method of phase 5's small run at D = 2 against the fused engine
+     on the card (accuracies 5e-3, π and params 1e-4, K1 and K2 launches a
+     rank); then pFedWN on phase 5c's full-width scenario at D = 1, 2 and
+     4 against phase 5c's fused run (D = 1: params and π within 1e-4; D >
+     1: params and π, final and at the first eval point, within 10× of
+     the fused run's own move under a rounding-sized change of its
+     initial params and closer than a fused run on other draws; K1 20 and
+     K2 4
+     launches a rank, collectives a round, host syncs a block: one at
+     D = 1; gloo's are printed), with ms per round; then one ``pod_mix``
+     at C = 2 (a cifar10-cnn-sized tree) against the Eq-1 arithmetic in
+     numpy;
   6. hold K3 (GQA flash attention) against its plain version, fp32 and
      bf16, over the reference's sweep, two ragged shapes, the prefill
      attention shapes of smollm-135m, starcoder2-15b (window 4096) and
@@ -457,7 +472,7 @@ def check_baselines_full_width(sim) -> None:
                                  f"with the CPU at full width")
 
 
-def _wide_sim(device, full, params0=None):
+def _wide_sim(device, full, params0=None, **switches):
     """40 clients, all of them taking part, so the target mixes M = 39
     neighbours. Small: the 8×8 CNN on 4000 images in a Dirichlet(1.0)
     split, P_err from 0 to 0.2, 2 rounds of batch 16, one EM iteration on
@@ -492,8 +507,8 @@ def _wide_sim(device, full, params0=None):
                                        for p in parts])
     return FederatedSimulation(
         model, train, test, np.ones(n, bool), p_err,
-        FedSimConfig(lr=0.05, seed=0, **cfg), params0=params0,
-        device=device)
+        FedSimConfig(**{"lr": 0.05, "seed": 0, **cfg, **switches}),
+        params0=params0, device=device)
 
 
 def _compare(name, hg, hc, sim_g, sim_c, pfedwn) -> None:
@@ -777,6 +792,199 @@ def time_taps(dev, repeats: int = 5) -> dict:
                           / out["taps_off"]["wall_ms_per_round"])
     out["launches_k1_k2"] = list(launches[True])
     return out
+
+
+def _sharded(devices, backend, dev, build, build_kw, methods, repeat=1,
+             syncs=False):
+    """Each rank's results of ``methods`` on ``build(**build_kw)``, one
+    process a rank (:func:`repro_torch.sharding.worker.run_methods`). The
+    ranks share this card with this process, so its cached blocks are
+    given back first (four full-width ranks need ~40 GB at once)."""
+    from repro_torch.sharding import spawn
+    from repro_torch.sharding.worker import run_methods
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return spawn(run_methods, devices, backend, dev.type, build,
+                 dict(build_kw, device=dev.type), list(methods), None,
+                 repeat, syncs)
+
+
+def _run_errors(h, params, hist, ref_params) -> dict:
+    """max |Δ| of one run's final params, π history and accuracies against
+    another's, and of π and the accuracies at the first eval point."""
+    def accs(x, k=None):
+        return np.array(x["target_acc"][:k] + x["mean_participant_acc"][:k])
+
+    pi = first_pi = 0.0
+    if hist["pi"]:
+        d = np.abs(np.stack(h["pi"]) - np.stack(hist["pi"]))
+        pi, first_pi = float(d.max()), float(d[0].max())
+    return {"params": float((params.cpu() - ref_params.cpu()).abs().max()),
+            "pi": pi, "acc": float(np.abs(accs(h) - accs(hist)).max()),
+            "first_pi": first_pi,
+            "first_acc": float(np.abs(accs(h, 1) - accs(hist, 1)).max())}
+
+
+def _sharded_errors(ranks, i, hist, params) -> dict:
+    """:func:`_run_errors` of the ranks' i-th run (their slabs joined)
+    against a fused run's."""
+    from repro_torch.sharding import join_slabs
+    return _run_errors(ranks[0][i]["history"],
+                       join_slabs([r[i]["params"] for r in ranks]), hist,
+                       params)
+
+
+def check_sharded_small(dev) -> None:
+    """Every method of phase 5's small run on the sharded engine at D = 2
+    (gloo, both ranks on this card) against the fused engine on the card,
+    same params and seed: accuracies 5e-3, π and params 1e-4; pFedWN
+    launches K1 once an EM iteration and K2 once a round on each rank, the
+    others neither."""
+    from repro_torch.core.fedsim import METHODS
+    fused = _tiny_sim(dev)
+    ranks = _sharded(2, "gloo", dev, _tiny_sim, dict(
+        params0=fused.params0.cpu(), sharded=True, shard_devices=2),
+        METHODS)
+    for i, method in enumerate(METHODS):
+        hist = fused.run(method)
+        err = _sharded_errors(ranks, i, hist, fused.last_state["params"])
+        want = ((fused.sim.em_iters * fused.sim.rounds, fused.sim.rounds)
+                if method == "pfedwn" else (0, 0))
+        launches = [(r[i]["k1"], r[i]["k2"]) for r in ranks]
+        print(f"small {method} sharded D=2 vs fused on the card: "
+              f"max|dparams|={err['params']:.3g} max|dπ|={err['pi']:.3g} "
+              f"(tol 1e-4) max|dacc|={err['acc']:.3g} (tol 5e-3); "
+              f"K1, K2 a rank {launches}")
+        if not (err["params"] <= 1e-4 and err["pi"] <= 1e-4
+                and err["acc"] <= 5e-3):
+            raise AssertionError(f"sharded {method} disagrees with fused")
+        if any(n != want for n in launches):
+            raise AssertionError(f"sharded {method} launched {launches}, "
+                                 f"expected {want} a rank")
+
+
+def fused_spread(dev, wide_hist, wide_sim) -> dict:
+    """How far phase 5c's full-width pFedWN run moves, on the fused engine,
+    when its initial params move by rounding (noise of 1e-7 of their
+    largest magnitude) and when it draws other minibatches and link masks
+    (seed 1), each against phase 5c's run."""
+    gen = torch.Generator(dev).manual_seed(5)
+    p0 = wide_sim.params0
+    noise = 1e-7 * p0.abs().max() * torch.randn(p0.shape, generator=gen,
+                                               device=dev)
+    out = {}
+    for name, kw in (("rounding", dict(params0=p0 + noise)),
+                     ("draws", dict(params0=p0, seed=1))):
+        moved = _wide_sim(dev, full=True, **kw)
+        h = moved.run("pfedwn")
+        out[name] = _run_errors(h, moved.last_state["params"], wide_hist,
+                                wide_sim.last_state["params"])
+    out["noise"] = float(noise.abs().max())
+    print(f"fused pfedwn M={wide_sim.m} moved, params0 by "
+          f"{out['noise']:.3g} and to seed 1: {json.dumps(out)}")
+    return out
+
+
+def run_sharded_wide(dev, wide_hist, wide_sim, spread) -> dict:
+    """pFedWN on phase 5c's full-width scenario on the sharded engine at D
+    = 1 (nccl), 2 and 4 (gloo), each a warm-up run and a watched one,
+    against phase 5c's fused run (same seed, so the same draws). Returns,
+    by D, rank 0's ms per round after the first block, the launches, the
+    collectives a round and the host syncs a block of every rank, and the
+    max |Δ| against fused.
+
+    D = 1 trains all 40 clients in one batch, as the fused engine does,
+    and must match it within the parity tolerances. With D > 1 a rank
+    trains S < 40 models at once, cuBLAS picks another algorithm for the
+    batched products (their gradients differ by ~1e-8), and this scenario
+    amplifies rounding ~3e4-fold in four rounds, π from the first EM on
+    (``fused_spread``). So at D > 1 the params and π, final and at the
+    first eval point, must stay within 10× of how far the fused run itself
+    moves under rounding, and closer than a fused run on other draws."""
+    from repro_torch.lint.blocks import PER_ROUND
+    rounds, iters = wide_sim.sim.rounds, wide_sim.sim.em_iters
+    out = {}
+    one = "nccl" if dev.type == "cuda" else "gloo"
+    for d, backend in ((1, one), (2, "gloo"), (4, "gloo")):
+        t0 = time.perf_counter()
+        ranks = _sharded(d, backend, dev, _wide_sim, dict(
+            full=True, sharded=True, shard_devices=d), ["pfedwn"], repeat=2,
+            syncs=True)
+        wall = time.perf_counter() - t0
+        res = [r[0] for r in ranks]
+        blocks = len(res[0]["stats"]["blocks"])
+        err = _sharded_errors(ranks, 0, wide_hist,
+                              wide_sim.last_state["params"])
+        row = {"backend": backend,
+               "ms_per_round": float(np.mean(
+                   res[0]["history"]["round_ms"][1:])),
+               "round_ms": res[0]["history"]["round_ms"],
+               "k1_k2_per_rank": [(r["k1"], r["k2"]) for r in res],
+               "collectives_a_round": [
+                   (r["calls"]["client_weighted_mean"]
+                    + r["calls"]["gather_clients"]) / rounds for r in res],
+               "exchanges_a_block": [r["calls"]["exchange_block"] / blocks
+                                     for r in res],
+               "syncs_a_block": [None if r["syncs"] is None
+                                 else r["syncs"] / blocks for r in res],
+               "max_abs_err": err, "wall_s": wall}
+        print(f"sharded pfedwn M={wide_sim.m} D={d} ({backend}): "
+              f"{json.dumps(row)}")
+        if any(k != (iters * rounds, rounds)
+               for k in row["k1_k2_per_rank"]):
+            raise AssertionError(f"D={d}: launches {row['k1_k2_per_rank']}, "
+                                 f"expected {(iters * rounds, rounds)}")
+        if any(c != PER_ROUND["pfedwn"] for c in row["collectives_a_round"]) \
+                or any(e != 1 for e in row["exchanges_a_block"]):
+            raise AssertionError(f"D={d}: collectives a round "
+                                 f"{row['collectives_a_round']}, exchanges "
+                                 f"a block {row['exchanges_a_block']}")
+        if d == 1:
+            ok = (err["params"] <= 1e-4 and err["pi"] <= 1e-4
+                  and err["acc"] <= 5e-3)
+        else:
+            ok = all(err[k] <= 10 * spread["rounding"][k]
+                     and err[k] < spread["draws"][k]
+                     for k in ("params", "pi", "first_pi"))
+        if not ok:
+            raise AssertionError(f"D={d}: sharded disagrees with fused "
+                                 f"{err}")
+        if backend == "nccl" and row["syncs_a_block"] != [1.0] * d:
+            raise AssertionError(f"D={d}: host syncs a block "
+                                 f"{row['syncs_a_block']}, expected 1")
+        out[f"D={d}"] = row
+    return out
+
+
+def check_pod_mix(dev) -> list:
+    """One ``pod_mix`` at C = 2 on the card (gloo, both ranks on this card)
+    on a cifar10-cnn-sized tree, against Eq 1 in numpy: rank 0's weights
+    go all to rank 1; rank 1's row keeps rank 0 only. One all-gather and
+    one K2 launch a rank. Returns the ranks' K2 launches."""
+    from repro_torch.sharding import spawn
+    from repro_torch.sharding.worker import run_pod_mix
+    rng = np.random.default_rng(3)
+    tree = {"w": rng.standard_normal((2, AGG_P - 10)).astype(np.float32),
+            "b": rng.standard_normal((2, 10)).astype(np.float32)}
+    pi = np.array([[0.0, 1.0], [0.6, 0.4]], np.float32)
+    alpha = 0.7
+    ranks = spawn(run_pod_mix, 2, "gloo", dev.type,
+                  [(tree, pi, alpha, np.ones((2, 2), bool))], dev.type)
+    err = 0.0
+    for rank, res in enumerate(ranks):
+        got = res[0]
+        for k, v in tree.items():
+            want = alpha * v[rank] + (1 - alpha) * v[1 - rank]
+            err = max(err, float(np.abs(got["mixed"][k][0] - want).max()))
+        if (got["collectives"], got["k2"]) != (1, int(dev.type == "cuda")):
+            raise AssertionError(f"pod_mix rank {rank}: {got['collectives']} "
+                                 f"collectives, {got['k2']} K2 launches")
+    print(f"pod_mix C=2 on the card vs numpy Eq 1: max|d|={err:.3g} (tol "
+          f"{AGG_TOL[torch.float32]}); one all-gather and one K2 launch a "
+          f"rank")
+    if err > AGG_TOL[torch.float32]:
+        raise AssertionError("pod_mix disagrees with Eq 1")
+    return [r[0]["k2"] for r in ranks]
 
 
 def _attn_inputs(shape, dtype, dev, seed=0):
@@ -1326,7 +1534,7 @@ def main() -> int:
            "at full width")
     check_wide_small_against_cpu(dev)
     t0 = time.perf_counter()
-    _, n1_wide, n2_wide, wide_sim = run_wide_main_path(dev)
+    wide_hist, n1_wide, n2_wide, wide_sim = run_wide_main_path(dev)
     print(f"M = {wide_sim.m} main path wall {time.perf_counter() - t0:.1f} "
           f"s, launches K1={n1_wide} K2={n2_wide}")
 
@@ -1349,6 +1557,15 @@ def main() -> int:
           f"round, taps on and off (medians of 5 interleaved runs): "
           f"{json.dumps(taps)}")
 
+    _phase("5f. sharded engine: small run vs fused, pfedwn at full width "
+           "over D = 1, 2, 4, pod_mix")
+    t0 = time.perf_counter()
+    check_sharded_small(dev)
+    spread = fused_spread(dev, wide_hist, wide_sim)
+    sharded = run_sharded_wide(dev, wide_hist, wide_sim, spread)
+    pod_k2 = check_pod_mix(dev)
+    print(f"sharded wall {time.perf_counter() - t0:.1f} s")
+
     _phase("6. K3 flash_attention vs plain")
     err3 = check_flash_attention(dev)
 
@@ -1366,6 +1583,11 @@ def main() -> int:
     rows = [k1_report(dev, n1, n1_wide, floor),
             agg_report(dev, sim, n2, err2, wide_sim, n2_wide, floor),
             attention_report(dev, n3, err3, floor)]
+    for row, j in ((rows[0], 0), (rows[1], 1)):   # phase 5f's main paths
+        row["sharded_launches_per_rank"] = {
+            d: [k[j] for k in r["k1_k2_per_rank"]]
+            for d, r in sharded.items()}
+    rows[1]["pod_mix_launches_per_rank"] = pod_k2
     if args.profile:
         _phase("9. profile")
         profile_rounds(sim)

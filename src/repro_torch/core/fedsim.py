@@ -30,6 +30,24 @@ The generator's bits differ from ``jax.random``'s, so :meth:`
 FederatedSimulation.run` also accepts injected index streams and link masks
 (a parity test replays the reference's draws through them).
 
+``FedSimConfig(sharded=True, shard_devices=D)`` selects the client-sharded
+engine, the reference's ``shard_map`` engine on ``torch.distributed``: one
+process a rank (:func:`repro_torch.sharding.spawn` starts them), each rank
+r holding the contiguous slab of S = N / D clients from r·S on in a
+``"clients"`` group of D ranks (:func:`repro_torch.sharding.client_group`).
+Every exchange across clients is an explicit collective
+(:mod:`repro_torch.core.aggregation`): one ``client_weighted_mean``
+all-reduce for the FedAvg-family mean (two for FedProx, whose anchor is the
+mean before training), one ``gather_clients`` all-gather a round of the
+peer models for FedAMP's attention and pFedWN's EM components, and one
+small ``exchange_block`` a block for the eval and the taps. The target's
+math (EM through K1, the Eq-1 mix through K2, its pass after aggregation)
+runs on every rank, and only the rank holding client 0 writes it back.
+Every rank draws the full (N, steps, B) indices and the link mask from the
+same generator and uses its slab, so with the same seed or the same
+injected draws the sharded engine follows the fused trajectory. Only rank
+0 writes the RunRecord's files.
+
 ``FedSimConfig(fused=False)`` selects the legacy host-driven engine, the
 reference's parity and debugging path: each round it brings the indices
 drawn on the device (from the same generator, in the same order) to the
@@ -58,10 +76,11 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch import obs
@@ -75,6 +94,8 @@ from repro_torch.data.synthetic import SyntheticImageDataset, stack_datasets
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.models import cnn
+from repro_torch.sharding import (ClientGroup, client_group, join_slabs,
+                                  take_slab)
 from repro_torch.utils.bridge import ParamLayout
 
 METHODS = ("local", "fedavg", "fedprox", "perfedavg", "fedamp", "pfedwn")
@@ -107,10 +128,20 @@ class FedSimConfig:
     eval_every: int = 1
     seed: int = 0
     fused: bool = True                 # False: the legacy host-driven loop
+    sharded: bool = False              # the client-sharded engine (wins)
+    shard_devices: Optional[int] = None  # its ranks (None: the world size)
     em_uniform: bool = False           # ablation: uniform π instead of EM
     taps: bool = True                  # per-round metric taps
     record_dir: Optional[str] = None   # persist RunRecord JSONL + trace here
     run_name: Optional[str] = None     # record file stem (default: derived)
+
+
+class Shard(NamedTuple):
+    """The clients one rank of the sharded engine holds."""
+    group: Any                 # the "clients" process group (None: D = 1)
+    offset: int                # its first client
+    size: int                  # S, its client count
+    weights: torch.Tensor      # (S,) its slice of the global FedAvg weights
 
 
 def block_schedule(rounds: int, eval_every: int) -> List[int]:
@@ -160,10 +191,20 @@ class FederatedSimulation:
         :func:`repro_torch.utils.bridge.from_jax_params`); drawn from a
         generator seeded with ``sim.seed`` when None. ``recorder``: where
         runs are recorded; an in-memory one (persisted under
-        ``sim.record_dir`` when set) when None."""
+        ``sim.record_dir`` when set, on rank 0 only) when None. Under the
+        sharded engine in a started process group, ``device="cuda"`` means
+        card rank mod the card count."""
         self.device = resolve_device(device)
         self.model_cfg, self.sim = model_cfg, sim
+        self._rank = (dist.get_rank() if sim.sharded and dist.is_available()
+                      and dist.is_initialized() else 0)
+        if self.device.type == "cuda" and self.device.index is None and \
+                sim.sharded:
+            self.device = torch.device(
+                "cuda", self._rank % torch.cuda.device_count())
         self.n = len(train_sets)
+        self._group: Optional[ClientGroup] = None  # made on a sharded run
+        self._shard: Optional[Shard] = None
         self.recorder = recorder or self._default_recorder()
         self._compiled: set = set()        # (method, block length) recorded
         self.train_sets, self.test_sets = train_sets, test_sets
@@ -200,14 +241,18 @@ class FederatedSimulation:
 
     @property
     def engine(self) -> str:
-        """The engine ``run`` takes: ``fused`` or ``legacy``."""
+        """The engine ``run`` takes: ``sharded`` wins over ``fused`` and
+        ``legacy``."""
+        if self.sim.sharded:
+            return "sharded"
         return "fused" if self.sim.fused else "legacy"
 
     def _default_recorder(self) -> obs.RunRecorder:
-        """In-memory RunRecorder, persisted when ``record_dir`` is set."""
+        """In-memory RunRecorder, persisted when ``record_dir`` is set (by
+        rank 0 alone under the sharded engine)."""
         sim = self.sim
         jsonl = trace = None
-        if sim.record_dir:
+        if sim.record_dir and self._rank == 0:
             name = (sim.run_name
                     or f"fedsim_{self.engine}_N{self.n}_seed{sim.seed}")
             jsonl = os.path.join(sim.record_dir, f"{name}.jsonl")
@@ -224,14 +269,25 @@ class FederatedSimulation:
     def _stage_data_inner(self) -> None:
         sim, dev = self.sim, self.device
         tx, ty, tlen, _ = stack_datasets(self.train_sets)
-        self._train_x = torch.as_tensor(tx, device=dev)
-        self._train_y = torch.as_tensor(ty, dtype=torch.int64, device=dev)
         self._train_len = np.maximum(tlen.astype(np.int64), 1)
         self._train_len_dev = torch.as_tensor(self._train_len, device=dev)
-        ex, ey, _, emask = stack_datasets(self.test_sets)
-        self._test_x = torch.as_tensor(ex, device=dev)
-        self._test_y = torch.as_tensor(ey, dtype=torch.int64, device=dev)
-        self._test_mask = torch.as_tensor(emask, device=dev)
+        if self.engine == "sharded":
+            # the client stacks wait for the group (_stage_sharded); every
+            # rank holds the target's own train row for its replicated pass
+            self._shard = None
+            self._train_x = self._train_y = None
+            self._test_x = self._test_y = self._test_mask = None
+            self._train_x0 = torch.as_tensor(tx[0], device=dev)
+            self._train_y0 = torch.as_tensor(ty[0], dtype=torch.int64,
+                                             device=dev)
+        else:
+            self._train_x = torch.as_tensor(tx, device=dev)
+            self._train_y = torch.as_tensor(ty, dtype=torch.int64,
+                                            device=dev)
+            ex, ey, _, emask = stack_datasets(self.test_sets)
+            self._test_x = torch.as_tensor(ex, device=dev)
+            self._test_y = torch.as_tensor(ey, dtype=torch.int64, device=dev)
+            self._test_mask = torch.as_tensor(emask, device=dev)
         # the E-step and Per-FedAvg's eval-time adaptation run on the
         # target's first em_subset / adapt_subset *unpadded* samples
         d0 = self.train_sets[0]
@@ -259,6 +315,50 @@ class FederatedSimulation:
         its compile event again."""
         self._stage_data()
         self._compiled.clear()
+
+    # ------------------------------------------------------ sharded engine
+
+    def _client_group_info(self) -> ClientGroup:
+        """The ``"clients"`` group of ``sim.shard_devices`` ranks (the
+        reference's ``_client_mesh_info``), made on the first sharded run
+        and kept. Raises ValueError when D does not divide N or exceeds the
+        world size."""
+        if self._group is None:
+            self._group = client_group(self.n, self.sim.shard_devices)
+        return self._group
+
+    def _stage_sharded(self) -> Shard:
+        """This rank's slabs of the padded train and test stacks, staged on
+        its device once (the stacks are padded over all N clients first,
+        as the reference pads them before partitioning), and its slice of
+        the globally normalised FedAvg weights."""
+        g = self._client_group_info()
+        if self._shard is None:
+            ofs, dev = g.rank * g.s, self.device
+
+            def put(a, dtype=None):
+                return torch.as_tensor(take_slab(a, ofs, g.s), dtype=dtype,
+                                       device=dev)
+
+            with self.recorder.span("stage_sharded", n_clients=self.n):
+                tx, ty, _, _ = stack_datasets(self.train_sets)
+                ex, ey, _, emask = stack_datasets(self.test_sets)
+                self._train_x, self._train_y = put(tx), put(ty, torch.int64)
+                self._test_x, self._test_y = put(ex), put(ey, torch.int64)
+                self._test_mask = put(emask)
+            w = self.sizes * self.participants.float()
+            w = w / torch.clamp(torch.sum(w), min=1e-30)
+            self._shard = Shard(g.group, ofs, g.s, take_slab(w, ofs, g.s))
+        return self._shard
+
+    def initial_sharded_state(self):
+        """(params, π) at round 0 on this rank: its (S, P) slab of the full
+        ``params0`` (a copy) and uniform π, replicated."""
+        shard = self._stage_sharded()
+        params = take_slab(self.params0, shard.offset, shard.size).clone()
+        pi = torch.full((self.m,), 1.0 / max(self.m, 1), dtype=torch.float32,
+                        device=self.device)
+        return params, pi
 
     # ---------------------------------------------------------- round math
 
@@ -300,29 +400,61 @@ class FederatedSimulation:
 
     def _round(self, method: str, params: torch.Tensor, pi: torch.Tensor,
                x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
-               link_ok: Optional[torch.Tensor]):
+               link_ok: Optional[torch.Tensor],
+               shard: Optional[Shard] = None):
         """One round of ``method`` (the reference's round body), training
         on the minibatches at positions ``idx`` (N, steps, B) of ``x`` (N,
         K, ...) and ``y`` (N, K); returns (params, π, tap dict of device
-        scalars, None with the taps off)."""
+        scalars, None with the taps off).
+
+        Under the sharded engine (``shard`` given) ``params``, ``x`` and
+        ``y`` are this rank's slabs and ``idx`` is the full draw, of which
+        the rank takes its slab; the cross-client reads become the
+        aggregation collectives, the target's math runs on every rank, and
+        only the rank holding client 0 writes it back. The train-loss tap
+        is then the rank's slab."""
         sim, fns, pm = self.sim, self.fns, self.participants
+        if shard is None:
+            pm_l, idx_l, x0, y0 = pm, idx, x[:1], y[:1]
+            holds_target = True
+
+            def mean(p):
+                return baselines.fedavg_aggregate(p, self.sizes, pm)
+
+            def gather(p):
+                return p
+        else:
+            ofs, size = shard.offset, shard.size
+            pm_l, idx_l = take_slab(pm, ofs, size), take_slab(idx, ofs, size)
+            x0, y0 = self._train_x0[None], self._train_y0[None]
+            holds_target = ofs == 0
+
+            def mean(p):
+                return aggregation.client_weighted_mean(p, shard.weights,
+                                                        shard.group)
+
+            def gather(p):
+                return aggregation.gather_clients(p, shard.group)
         step = None
         if method == "fedprox":
             # the anchor is the global model *before* local training; one
             # pass over all clients, the pull gated by participation
             with record_function("fedsim.aggregate"):
-                anchor = baselines.fedavg_aggregate(params, self.sizes, pm)
-            active = pm.float()
+                anchor = mean(params)
+            active = pm_l.float()
             step = self._sgd_step(
                 lambda p, xb, yb: fns.loss(p, xb, yb) + active
                 * baselines.prox_term(p, anchor, sim.prox_mu))
         elif method == "fedamp":
             # clouds from the round's starting params; a non-participant's
-            # cloud is its own start
+            # cloud is its own start; a rank computes its slab's rows
             with record_function("fedsim.aggregate"):
-                xi = baselines.fedamp_weights(params, sim.fedamp_sigma, pm,
+                allp = gather(params)
+                xi = baselines.fedamp_weights(allp, sim.fedamp_sigma, pm,
                                               sim.fedamp_self_weight)
-                cloud = baselines.fedamp_cloud_models(params, xi)
+                if shard is not None:
+                    xi = take_slab(xi, shard.offset, shard.size)
+                cloud = baselines.fedamp_cloud_models(allp, xi)
             step = self._sgd_step(
                 lambda p, xb, yb: fns.loss(p, xb, yb)
                 + baselines.prox_term(p, cloud, sim.prox_mu))
@@ -336,31 +468,34 @@ class FederatedSimulation:
                     fns.loss, p, xb[:, :half], yb[:, :half], xb[:, half:],
                     yb[:, half:], sim.maml_inner_lr, sim.lr)
         with record_function("fedsim.local_sgd"):
-            params, train_loss = self._sgd(params, x, y, idx, step)
+            params, train_loss = self._sgd(params, x, y, idx_l, step)
         if method in ("fedavg", "fedprox", "perfedavg"):
             with record_function("fedsim.aggregate"):
-                g = baselines.fedavg_aggregate(params, self.sizes, pm)
-                params = baselines.broadcast_global(g, params, pm)
+                g = mean(params)
+                params = baselines.broadcast_global(g, params, pm_l)
         if method == "pfedwn":
+            # the peer stack, gathered once a round under the sharded engine
+            allp = gather(params)
             if sim.em_uniform:
                 pi = torch.full((self.m,), 1.0 / max(self.m, 1),
                                 dtype=torch.float32, device=self.device)
             else:
                 # EM refines copies of the neighbours (the advanced index
-                # copies); Eq 1 mixes the unrefined rows of `params`
+                # copies); Eq 1 mixes the unrefined rows of the stack
                 with record_function("fedsim.em"):
                     _, pi, _ = em_refine_loop(
-                        fns, params[self._nbr], pi, self._em_x, self._em_y,
+                        fns, allp[self._nbr], pi, self._em_x, self._em_y,
                         iters=sim.em_iters, lr=sim.lr,
                         min_weight=PFLConfig().em_min_weight,
                         component_steps=sim.em_component_steps)
             with record_function("fedsim.mix"):
                 mixed = aggregation.mix_flat_with_erasures(
-                    params, 0, self._nbr, pi, sim.alpha, link_ok)
+                    allp, 0, self._nbr, pi, sim.alpha, link_ok)
             # the target's pass after aggregation reuses round's idx[0]
             with record_function("fedsim.target_sgd"):
-                mixed, loss0 = self._sgd(mixed[None], x[:1], y[:1], idx[:1])
-            params[0] = mixed[0]
+                mixed, loss0 = self._sgd(mixed[None], x0, y0, idx[:1])
+            if holds_target:
+                params[0] = mixed[0]
         if not sim.taps:
             return params, pi, None
         link_rate = torch.ones((), device=self.device)
@@ -369,7 +504,8 @@ class FederatedSimulation:
             eff_nbr = torch.zeros((), device=self.device)
         elif method == "pfedwn":
             # the target's entry tracks its pass after aggregation
-            train_loss[0] = loss0[0]
+            if holds_target:
+                train_loss[0] = loss0[0]
             link_rate = link_success_rate(link_ok)
             eff_nbr = effective_neighbors(pi, link_ok)
         tap = {"train_loss": train_loss, "em_entropy": pi_entropy(pi),
@@ -378,15 +514,22 @@ class FederatedSimulation:
         return params, pi, tap
 
     @torch.no_grad()
-    def _eval(self, method: str, params: torch.Tensor):
+    def _eval(self, method: str, params: torch.Tensor,
+              shard: Optional[Shard] = None):
         """(target accuracy, mean participant accuracy) on the padded test
         stacks, as device scalars. Per-FedAvg's target is scored after one
         MAML step on its adaptation set; the mean scores every participant
-        unadapted."""
+        unadapted. Under the sharded engine: (target accuracy, 0 on a rank
+        that does not hold the target; the sum of the slab's participant
+        accuracies)."""
         accs = self.fns.accuracy(params, self._test_x, self._test_y,
                                  self._test_mask)
-        t_acc = accs[0]
-        if method == "perfedavg":
+        pmf = self.participants.float()
+        if shard is not None:
+            pmf = take_slab(pmf, shard.offset, shard.size)
+        holds_target = shard is None or shard.offset == 0
+        t_acc = accs[0] if holds_target else accs.new_zeros(())
+        if method == "perfedavg" and holds_target:
             tgt = baselines.maml_adapt(self.fns.loss, params[:1],
                                        self._adapt_x[None],
                                        self._adapt_y[None],
@@ -394,9 +537,32 @@ class FederatedSimulation:
             t_acc = self.fns.accuracy(tgt, self._test_x[:1],
                                       self._test_y[:1],
                                       self._test_mask[:1])[0]
-        pmf = self.participants.float()
-        return t_acc, torch.sum(accs * pmf) / torch.clamp(torch.sum(pmf),
-                                                          min=1.0)
+        acc_sum = torch.sum(accs * pmf)
+        if shard is not None:
+            return t_acc, acc_sum
+        return t_acc, acc_sum / torch.clamp(torch.sum(pmf), min=1.0)
+
+    def _exchange_block(self, shard: Shard, t_acc: torch.Tensor,
+                        acc_sum: torch.Tensor, pi: torch.Tensor,
+                        rows: List[torch.Tensor],
+                        length: int) -> torch.Tensor:
+        """The sharded block's one small exchange: every rank's target
+        accuracy (0 off the target's rank), its participants' accuracy sum
+        and, a round, its train-loss slab and the three tap scalars, all
+        gathered at once; returned laid out as the fused engine packs its
+        block (target accuracy, mean participant accuracy, π, the rounds'
+        taps), still on the device."""
+        local = torch.cat([torch.stack([t_acc, acc_sum])] + rows)
+        allb = aggregation.exchange_block(local, shard.group)   # (D, K)
+        mean = torch.sum(allb[:, 1]) / torch.clamp(
+            torch.sum(self.participants.float()), min=1.0)
+        packed = [allb[0, :1], mean[None], pi]     # rank 0 holds client 0
+        if rows:
+            s = shard.size
+            taps = allb[:, 2:].reshape(allb.shape[0], length, s + 3)
+            loss = join_slabs(taps[:, :, :s].unbind(0), client_axis=1)
+            packed.append(torch.cat([loss, taps[0, :, s:]], 1).reshape(-1))
+        return torch.cat(packed)
 
     @torch.no_grad()
     def _eval_legacy(self, method: str, params: torch.Tensor):
@@ -467,8 +633,18 @@ class FederatedSimulation:
         adapted target. A product u·W of a length-R vector with an (R, P)
         matrix moves 4·(R + R·P + P) bytes. This is the work of the
         matmuls only (the counts ``torch.utils.flop_counter`` gives), not
-        an XLA-style estimate with the elementwise work in it."""
+        an XLA-style estimate with the elementwise work in it.
+
+        Under the sharded engine it is one rank's work: its S clients take
+        N's place in the local SGD, the FedAvg contractions, FedAMP's
+        clouds (2·S·N·P after the Gram of all N) and the eval; the target's
+        math is on every rank, and Per-FedAvg's adaptation on the rank that
+        holds the target only."""
         sim, n, m = self.sim, self.n, self.m
+        k, holds_target = n, True     # the clients this process trains
+        if self.engine == "sharded":
+            shard = self._stage_sharded()
+            k, holds_target = shard.size, shard.offset == 0
         p = self.layout.size
         steps, b = self.steps_per_round, sim.batch_size
         flops = nbytes = 0
@@ -482,17 +658,17 @@ class FederatedSimulation:
             add((2 * rows * p, _F32 * (rows + rows * p + p)), times)
 
         if method == "perfedavg":
-            add(self._pass_cost(n, b // 2, True), steps)
-            add(self._pass_cost(n, b - b // 2, True), steps)
+            add(self._pass_cost(k, b // 2, True), steps)
+            add(self._pass_cost(k, b - b // 2, True), steps)
         else:
-            add(self._pass_cost(n, b, True), steps)
+            add(self._pass_cost(k, b, True), steps)
         if method in ("fedavg", "perfedavg"):
-            vec_mat(n)
+            vec_mat(k)
         elif method == "fedprox":
-            vec_mat(n, 2)
+            vec_mat(k, 2)
         elif method == "fedamp":
             add((2 * n * n * p, _F32 * (2 * n * p + n * n)))
-            add((2 * n * n * p, _F32 * (n * n + 2 * n * p)))
+            add((2 * k * n * p, _F32 * (k * n + n * p + k * p)))
         elif method == "pfedwn":
             n_em = self._em_x.shape[0]
             if not sim.em_uniform and sim.em_iters > 0:
@@ -504,8 +680,8 @@ class FederatedSimulation:
             add(self._pass_cost(1, b, True), steps)
         flops, nbytes = length * flops, length * nbytes
         t = self._test_x.shape[1]
-        add(self._pass_cost(n, t, False))
-        if method == "perfedavg":
+        add(self._pass_cost(k, t, False))
+        if method == "perfedavg" and holds_target:
             add(self._pass_cost(1, self._adapt_x.shape[0], True))
             add(self._pass_cost(1, t, False))
         return {"flops": float(flops), "bytes_accessed": float(nbytes)}
@@ -589,7 +765,9 @@ class FederatedSimulation:
     def run(self, method: str, *, idx_stream=None,
             link_masks=None) -> Dict[str, Any]:
         """Run ``sim.rounds`` rounds of ``method`` from ``params0`` on the
-        engine ``sim.fused`` selects, recording it in ``self.recorder``.
+        engine ``sim.sharded`` and ``sim.fused`` select (:attr:`engine`),
+        recording it in ``self.recorder``. Under the sharded engine every
+        rank of the client group calls it with the same arguments.
 
         ``idx_stream`` (rounds, N, steps, B) and ``link_masks`` (rounds, M)
         replace the on-device draws when given; with ``sim.erasures`` off
@@ -598,10 +776,11 @@ class FederatedSimulation:
         eval point, ``max_target_acc``) plus ``taps`` (per-round metrics as
         numpy arrays; empty with ``sim.taps`` off) and ``round_ms`` (host
         ms per round, eval included: of each block on the fused engine, of
-        each round on the legacy one). The final params and π are left in
-        ``self.last_state``, and ``self.last_run_stats`` holds the engine
-        and its ``device_calls``: the fused engine's host syncs (one per
-        block), or the dispatches the legacy engine drives, counted as the
+        each round on the legacy one). The final params (this rank's slab
+        under the sharded engine) and π are left in ``self.last_state``,
+        and ``self.last_run_stats`` holds the engine and its
+        ``device_calls``: the fused and sharded engines' host syncs (one
+        per block), or the dispatches the legacy engine drives, counted as the
         reference counts its own."""
         method = method.lower()
         if method not in METHODS:
@@ -614,9 +793,12 @@ class FederatedSimulation:
             "lr": sim.lr, "seed": sim.seed, "taps": sim.taps,
             "steps_per_round": self.steps_per_round})
         gen = torch.Generator(self.device).manual_seed(sim.seed + 7)
-        params = self.params0.clone()
-        pi = torch.full((self.m,), 1.0 / max(self.m, 1), dtype=torch.float32,
-                        device=self.device)
+        if engine == "sharded":
+            params, pi = self.initial_sharded_state()
+        else:
+            params = self.params0.clone()
+            pi = torch.full((self.m,), 1.0 / max(self.m, 1),
+                            dtype=torch.float32, device=self.device)
         run = self._run_legacy if engine == "legacy" else self._run_fused
         history = run(method, gen, params, pi, idx_all, masks_all)
         rec.end_run(method=method, engine=engine, rounds=sim.rounds,
@@ -629,9 +811,12 @@ class FederatedSimulation:
     def _run_fused(self, method: str, gen: torch.Generator,
                    params: torch.Tensor, pi: torch.Tensor, idx_all,
                    masks_all) -> Dict[str, Any]:
-        """The fused loop: blocks of rounds between eval points, each
-        ending in one host copy of the block's accuracies, π and taps."""
+        """The fused loop, shared with the sharded engine: blocks of rounds
+        between eval points, each ending in one host copy of the block's
+        accuracies, π and taps (sharded: after the block's one small
+        exchange across the ranks)."""
         sim, rec, n, m = self.sim, self.recorder, self.n, self.m
+        shard = self._stage_sharded() if self.engine == "sharded" else None
         history: Dict[str, Any] = {"target_acc": [], "pi": [],
                                    "mean_participant_acc": [],
                                    "round_ms": []}
@@ -649,15 +834,20 @@ class FederatedSimulation:
                     link_ok = self._link_ok(method, gen, masks_all, r)
                     params, pi, tap = self._round(
                         method, params, pi, self._train_x, self._train_y,
-                        idx, link_ok)
+                        idx, link_ok, shard)
                     if tap is not None:
                         rows += [tap["train_loss"],
                                  torch.stack([tap[k] for k in _TAP_SCALARS])]
                 with record_function("fedsim.eval"):
-                    t_acc, mean_acc = self._eval(method, params)
+                    t_acc, mean_acc = self._eval(method, params, shard)
+                if shard is None:
+                    packed = torch.cat([torch.stack([t_acc, mean_acc]), pi]
+                                       + rows)
+                else:
+                    packed = self._exchange_block(shard, t_acc, mean_acc, pi,
+                                                  rows, length)
                 # the one host sync of the block
-                host = torch.cat([torch.stack([t_acc, mean_acc]), pi]
-                                 + rows).cpu().numpy()
+                host = packed.cpu().numpy()
             ms = (time.perf_counter() - t0) / length * 1e3
             history["round_ms"].append(ms)
             rec.observe_round_latency(ms, n=length)
@@ -687,7 +877,7 @@ class FederatedSimulation:
         history["max_target_acc"] = float(np.max(history["target_acc"]))
         history["taps"] = {k: np.concatenate(v) for k, v in taps.items()}
         self.last_state = {"params": params, "pi": pi}
-        self.last_run_stats = {"engine": "fused", "blocks": blocks,
+        self.last_run_stats = {"engine": self.engine, "blocks": blocks,
                                "device_calls": len(blocks)}
         return history
 

@@ -118,3 +118,40 @@ def test_obs_smoke_on_cpu(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "torch_obs_smoke" in out
     assert "rounds=3;compile_s=0.000000;ok" in out
+
+
+def test_sharded_smoke_on_cpu(capsys):
+    torch_fedsim_bench.sharded_smoke("cpu")
+    out = capsys.readouterr().out
+    assert "torch_fedsim_sharded_smoke" in out
+    assert "devices=4;methods=6;" in out and out.rstrip().endswith("ok")
+
+
+def test_sharded_bench_adds_its_section(tmp_path):
+    path = tmp_path / "BENCH_torch.json"
+    path.write_text(json.dumps({"results": {"N=8": {}}, "other": 1}))
+    entry = torch_fedsim_bench.sharded_bench("cpu", path=path, n=4,
+                                             rounds=2, devices=(1, 2))
+    on_disk = json.loads(path.read_text())
+    assert on_disk["results"] == {"N=8": {}} and on_disk["other"] == 1
+    assert on_disk["sharded"] == entry
+    assert sorted(entry["results"]) == ["devices=1", "devices=2"]
+    for row in entry["results"].values():
+        assert row["backend"] == "gloo"
+        for m in ("fedavg", "pfedwn"):
+            ms = row[f"{m}_round_latency_ms"]
+            assert ms > 0 and row[f"{m}_rounds_per_sec"] == \
+                pytest.approx(1e3 / ms)
+
+
+def test_hoist_bench_reads_the_stored_row(tmp_path):
+    path = tmp_path / "BENCH_torch.json"
+    with pytest.raises(RuntimeError, match="missing"):
+        torch_fedsim_bench.hoist_bench("cpu", path=path, n=4, rounds=2)
+    path.write_text(json.dumps({"results": {"N=4": {"pfedwn": {
+        "fused_round_latency_ms": 10.0}}}}))
+    entry = torch_fedsim_bench.hoist_bench("cpu", path=path, n=4, rounds=2)
+    assert json.loads(path.read_text())["pfedwn_hoist"] == entry
+    assert entry["before_round_latency_ms"] == 10.0
+    assert entry["before_over_after"] == pytest.approx(
+        10.0 / entry["after_round_latency_ms"])

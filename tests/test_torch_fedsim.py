@@ -234,6 +234,14 @@ assert report.load_runs(lines)[0]["summary"]["engine"] == "legacy"
 path = os.path.join(tempfile.mkdtemp(), "p.npz")
 save_checkpoint(path, {"p": sim.params0}, step=3)
 assert load_checkpoint(path, {"p": sim.params0})[1] == 3
+import repro_torch.sharding
+from repro_torch.lint import blocks
+from repro_torch.sharding import worker
+one = FederatedSimulation(*args[:-1], FedSimConfig(
+    rounds=2, batch_size=16, em_iters=2, em_subset=32, sharded=True),
+    device="cpu")
+assert one.run("pfedwn")["pi"][-1].shape == (2,)
+assert one.last_run_stats["engine"] == "sharded"
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
        or m.startswith("repro.")]

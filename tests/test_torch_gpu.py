@@ -506,3 +506,67 @@ def test_ablation_switches_on_card_match_cpu(cuda, em_uniform, erasures):
     n1, n2 = _card_vs_cpu(cuda, "pfedwn", em_uniform=em_uniform,
                           erasures=erasures)
     assert n1 == (0 if em_uniform else 3 * 2) and n2 == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("devices,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_engine_on_card_matches_fused(cuda, devices, backend):
+    """Every method on the client-sharded engine (one process a rank, all
+    on this card) against the fused engine on the card, same seed, so the
+    same draws; each rank's pFedWN launches K1 once an EM iteration and K2
+    once a round, and a block syncs once with the host on nccl."""
+    from repro_torch.lint.blocks import build_sim
+    from repro_torch.sharding import join_slabs, spawn
+    from repro_torch.sharding.worker import run_methods
+    fused = build_sim("fused", 1, "cuda")
+    torch.cuda.empty_cache()
+    ranks = spawn(run_methods, devices, backend, "cuda", build_sim,
+                  dict(engine="sharded", devices=devices, device="cuda"),
+                  list(METHODS), None, 2, True)
+    for i, method in enumerate(METHODS):
+        hf = fused.run(method)
+        hs = ranks[0][i]["history"]
+        np.testing.assert_allclose(hs["target_acc"], hf["target_acc"],
+                                   atol=5e-3)
+        np.testing.assert_allclose(hs["mean_participant_acc"],
+                                   hf["mean_participant_acc"], atol=5e-3)
+        torch.testing.assert_close(
+            join_slabs([r[i]["params"] for r in ranks]),
+            fused.last_state["params"].cpu(), atol=1e-4, rtol=0)
+        if method == "pfedwn":
+            np.testing.assert_allclose(np.stack(hs["pi"]),
+                                       np.stack(hf["pi"]), atol=1e-4)
+        want = (3 * 2, 3) if method == "pfedwn" else (0, 0)
+        assert [(r[i]["k1"], r[i]["k2"]) for r in ranks] == [want] * devices
+        if backend == "nccl":
+            assert ranks[0][i]["syncs"] == 2            # blocks [1, 2]
+
+
+@pytest.mark.gpu
+def test_pod_mix_on_card_is_one_gather_and_one_k2_launch(cuda):
+    from repro_torch.sharding import spawn
+    from repro_torch.sharding.worker import run_pod_mix
+    rng = np.random.default_rng(0)
+    tree = {"w": rng.standard_normal((2, 1000)).astype(np.float32),
+            "b": rng.standard_normal((2, 7)).astype(np.float32)}
+    pi = np.array([[0.0, 1.0], [0.5, 0.5]], np.float32)
+    ok = np.array([[True, True], [False, True]])
+    ranks = spawn(run_pod_mix, 2, "gloo", "cuda",
+                  [(tree, pi, 0.6, ok)], "cuda")
+    for rank, (res,) in enumerate(ranks):
+        assert (res["collectives"], res["k2"]) == (1, 1)
+        for k, v in tree.items():
+            # rank 1's one link is erased: it keeps its own model
+            want = (0.6 * v[0] + 0.4 * v[1]) if rank == 0 else v[1]
+            np.testing.assert_allclose(res["mixed"][k][0], want, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine,devices", [("both", 2), ("sharded", 1)])
+def test_lint_blocks_on_card(cuda, engine, devices):
+    """The round-block lint on the card: launches, and one host sync a
+    block on the fused engine and on nccl (D = 1)."""
+    from repro_torch.lint import blocks
+    torch.cuda.empty_cache()
+    assert blocks.main(["--engine", engine, "--devices", str(devices),
+                        "--device", "cuda"]) == 0

@@ -202,5 +202,6 @@ def test_config_defaults_match_reference():
                   "fedamp_sigma", "fedamp_self_weight", "erasures",
                   "em_uniform", "rounds", "batch_size", "lr", "alpha",
                   "em_iters", "em_component_steps", "em_subset",
-                  "eval_every", "seed"):
+                  "eval_every", "seed", "sharded", "shard_devices", "fused",
+                  "taps"):
         assert getattr(port, field) == getattr(ref, field), field
