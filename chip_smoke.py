@@ -64,20 +64,39 @@ Phases, each of which stops the run on failure:
   6. hold K3 (GQA flash attention) against its plain version, fp32 and
      bf16, over the reference's sweep, two ragged shapes, the prefill
      attention shapes of smollm-135m, starcoder2-15b (window 4096) and
-     chatglm3-6b, and shapes at the kernel's tile edges;
+     chatglm3-6b, and shapes at the kernel's tile edges; then K3's
+     backward (``csrc/flash_attention_bwd.cu``, through the autograd
+     path) against ``flash_attention_bwd_ref`` in float64 on the card over
+     the reference's sweep, ragged shapes and tile edges, causal and
+     window, G 1 to 16, Dh 64 and 128, smollm-135m's training (B 8, S
+     256) and serving (B 8, S 1024) shapes and fully masked rows (whose
+     grads must be 0): two runs bitwise equal, the training forward's
+     output bitwise the serving forward's, its row LSE against the plain
+     one;
   7. serve a reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights and prompts, without and with a window
      that wraps, and compare logits and tokens; then serve the main path at
      full width (smollm-135m, 8 prompts of 1024 tokens, 32 generated) and
      check that K3 carried every layer of the prefill;
+  7b. LM training: reduced smollm-135m on the card and on the CPU (plain
+     kernels) with the same weights, batches and link masks, 3 SGD steps
+     and one federated round at C = 3; then the main path at full width,
+     single-client smollm-135m (B 8 x S 256, 20 SGD steps at lr 3e-3:
+     the loss falls, K3's forward and each backward kernel launch 30
+     times a step, nothing is NaN; ms per step, tokens/s, peak memory),
+     then federated pFedWN (C 4, B 4 x S 128, 10 local steps, 2 rounds,
+     the example's 5 cut to 2: K2 12 launches a round, π* on the
+     simplex; links and ms per round printed);
   8. time each kernel, its plain version and the one-call PyTorch yardstick
      at the main paths' shapes (K1 also in bf16, at smollm-135m's
      vocabulary and at the M = 39 round's shape, K2 also from a
-     16-byte-aligned stride and at M = 39, K3 also in bf16,
-     SDPA under each backend) beside the card's floor (a 1-element
-     ``zero_()`` in the same bracket) and print them as one JSON line;
-  9. with ``--profile`` only: profile two pFedWN rounds and one serving run
-     with ``torch.profiler``.
+     16-byte-aligned stride, at M = 39 and at the federated LM mix, K3
+     also in bf16, SDPA under each backend; K3's backward at the training
+     shape, SDPA's backward under each backend that takes fp32) beside the
+     card's floor (a 1-element ``zero_()`` in the same bracket) and print
+     them as one JSON line;
+  9. with ``--profile`` only: profile two pFedWN rounds, one serving run
+     and one full-width training step with ``torch.profiler``.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the repo's ``src/`` beside it, it exits non-zero and prints no
 result.
@@ -160,6 +179,41 @@ ATTN_SHAPES = [
 AGG_P = 188_810
 AGG_STRIDES = (188_810, 188_811, 188_812)
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
+# K3's backward: (B, Sq, Skv, H, KH, Dh, causal, window); the first is the
+# training main path's (smollm-135m, B 8 x S 256)
+BWD_MAIN = (8, 256, 256, 9, 3, 64, True, 0)
+BWD_SHAPES = [
+    BWD_MAIN,
+    (4, 128, 128, 9, 3, 64, True, 0),        # the federated run's
+    (8, 1024, 1024, 9, 3, 64, True, 0),      # smollm-135m's serving shape
+    (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
+    (1, 256, 256, 8, 8, 64, True, 0),
+    (2, 128, 128, 4, 1, 64, False, 0),
+    (1, 384, 384, 6, 2, 128, True, 96),
+    (1, 128, 128, 2, 2, 128, True, 0),
+    (2, 200, 200, 9, 3, 64, True, 0),        # ragged
+    (3, 1, 77, 12, 4, 128, True, 0),
+    (1, 77, 50, 16, 1, 64, False, 20),       # rows 69.. fully masked
+    (1, 100, 100, 8, 2, 128, True, 0),       # G 4
+    (2, 70, 200, 4, 1, 64, True, 0),         # keys no query sees
+    (1, 200, 130, 6, 2, 64, True, 70),       # a window across tiles
+    # tile edges: queries and keys just off the 64-row tiles
+    (2, 42, 43, 3, 1, 64, True, 0),
+    (1, 63, 65, 1, 1, 64, False, 0),
+    (1, 64, 127, 2, 1, 64, False, 0),
+    (1, 65, 129, 1, 1, 64, False, 0),
+    (1, 43, 65, 3, 1, 64, True, 0),
+    (1, 32, 33, 2, 1, 128, True, 0),
+    (1, 127, 95, 1, 1, 128, False, 0),
+    (1, 43, 33, 3, 1, 128, True, 16),
+]
+# |d| <= tol + tol·|ref| for the fp32 kernel against the float64 plain
+# backward (tests/test_torch_gpu.py's tolerance); the row LSE likewise
+BWD_TOL = 1e-5
+TRAIN_TOL = 1e-4             # card vs CPU losses and params, TF32 off
+# phase 7b: full-width training (tokens of examples/torch_federated_lm.py)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 256, 20, 3e-3
+FED_C, FED_B, FED_S, FED_LOCAL, FED_ROUNDS = 4, 4, 128, 10, 2
 # H100 SXM peaks (NVIDIA data sheet): device memory B/s, fp32 FLOP/s
 # outside the tensor cores and TF32 FLOP/s on them (dense); the bounds
 # below are taken against them
@@ -249,13 +303,14 @@ def check_weighted_agg(dev) -> float:
     """K2 against its plain version at the cifar10-cnn shape (M 10, P
     188,810), then over row strides of 188,810, 188,811 and 188,812
     elements (8-, 4- and 16-byte vectors in fp32) with M 1, 10, 32 and
-    every M of ``WIDE_M``; fp32 and bf16, links up and all erased. Returns
-    the max |d| at the main shape in fp32."""
+    every M of ``WIDE_M``, and M 3 (the federated LM mix's C − 1); fp32
+    and bf16, links up and all erased. Returns the max |d| at the main
+    shape in fp32."""
     from repro_torch.kernels import weighted_agg as k2
     from repro_torch.kernels.ref import weighted_agg_ref
     main_err = None
     cases = [(10, AGG_P)] + [(M, stride) for stride in AGG_STRIDES
-                             for M in (1, 10, 32) + WIDE_M]
+                             for M in (1, 3, 10, 32) + WIDE_M]
     for M, stride in cases:
         for dtype in (torch.float32, torch.bfloat16):
             buf, w, rows = _agg_inputs(M, stride, dtype, dev)
@@ -1093,6 +1148,216 @@ def run_serve_main_path(dev):
     return res, n3, (cfg, params, prompts)
 
 
+def _bwd_inputs(shape, dev, seed=0):
+    """K3's inputs at ``shape`` (fp32) and an output cotangent dO."""
+    q, k, v = _attn_inputs(shape, torch.float32, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    return q, k, v, torch.randn(q.shape, generator=g, device=dev)
+
+
+def _autograd_grads(q, k, v, dout, causal, window):
+    """(out, dq, dk, dv) through ``flash_attention``'s autograd path."""
+    from repro_torch.kernels import flash_attention as k3
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = k3.flash_attention(q, k, v, causal=causal, window=window)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    return (out.detach(),) + grads
+
+
+def check_flash_attention_backward(dev) -> float:
+    """K3's backward against the float64 plain backward at every shape of
+    ``BWD_SHAPES``, |d| <= tol + tol·|plain| for dq, dk, dv and the row
+    LSE; a second run bitwise equal; the training forward's output bitwise
+    the serving forward's; fully masked rows' dq and output exactly 0.
+    Raises past any. Returns the max |d| at ``BWD_MAIN`` and its worst
+    excess max(|d| − tol·|plain|), which the check holds to <= tol."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ref
+    main = None
+    for shape in BWD_SHAPES:
+        causal, window = shape[6], shape[7]
+        q, k, v, dout = _bwd_inputs(shape, dev)
+        first = _autograd_grads(q, k, v, dout, causal, window)
+        second = _autograd_grads(q, k, v, dout, causal, window)
+        bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
+        with torch.no_grad():
+            served = k3.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+            _, lse = k3._launch(q, k, v, causal, window, with_lse=True)
+        torch.cuda.synchronize()
+        same_out = torch.equal(first[0], served)
+        q64, k64, v64 = q.double(), k.double(), v.double()
+        out64 = ref.flash_attention_ref(q64, k64, v64, causal=causal,
+                                        window=window)
+        lse64 = ref.attention_lse_ref(q64, k64, causal=causal, window=window)
+        expect = ref.flash_attention_bwd_ref(q64, k64, v64, out64, lse64,
+                                             dout.double(), causal=causal,
+                                             window=window)
+        errs, excess = [], []
+        for got, want in zip(first[1:], expect):
+            diff = (got.double() - want).abs()
+            errs.append(float(diff.max()))
+            excess.append(float((diff - BWD_TOL * want.abs()).max()))
+        masked = torch.isinf(lse64)                       # (B, H, Sq)
+        if not bool((torch.isinf(lse) == masked).all()):
+            raise AssertionError(f"K3 LSE: fully masked rows differ at "
+                                 f"{shape}")
+        ldiff = (lse.double() - lse64)[~masked].abs()
+        lse_err = float(ldiff.max()) if ldiff.numel() else 0.0
+        lse_excess = (float((ldiff - BWD_TOL * lse64[~masked].abs()).max())
+                      if ldiff.numel() else 0.0)
+        rows = masked.transpose(1, 2)                     # (B, Sq, H)
+        zero_rows = bool((first[1][rows] == 0).all()
+                         and (first[0][rows] == 0).all())
+        finite = all(bool(torch.isfinite(t).all()) for t in first)
+        print(f"K3 backward {shape}: max|d| dq={errs[0]:.3g} dk={errs[1]:.3g}"
+              f" dv={errs[2]:.3g} lse={lse_err:.3g} (tol {BWD_TOL:g}, atol "
+              f"and rtol), bitwise repeat {bitwise}, out == serving "
+              f"{same_out}, masked rows {int(rows.sum())} zero {zero_rows}")
+        del expect, out64, q64, k64, v64
+        if not (max(excess) <= BWD_TOL and lse_excess <= BWD_TOL and bitwise
+                and same_out and zero_rows and finite):
+            raise AssertionError(f"K3 backward disagrees with its plain "
+                                 f"version at {shape}")
+        if main is None:
+            main = (max(errs), max(excess))
+    torch.cuda.empty_cache()
+    return main
+
+
+def check_train_against_cpu(dev) -> None:
+    """LM training on the card (K3 forward and backward, K2) against the
+    CPU (plain versions): reduced smollm-135m, the same weights, batches
+    and link masks; 3 SGD steps, then one federated round at C = 3 with 2
+    local steps and one link erased. Losses, π* and params within
+    ``TRAIN_TOL``."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    quiet = dict(log=lambda line: None)
+    cfg = get_config("smollm-135m").reduced()
+    p0 = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    kw = dict(steps=3, batch=2, seq=64, lr=TRAIN_LR, **quiet)
+    ref = train.single_client(cfg, params=p0, device="cpu", **kw)
+    got = train.single_client(cfg, params=_tree_to(p0, dev), device=dev,
+                              **kw)
+    errs = [max(abs(a - b) for a, b in zip(got["losses"], ref["losses"])),
+            _tree_err(got["params"], ref["params"])]
+    inits = [init_params(cfg, torch.Generator().manual_seed(c), "cpu")
+             for c in range(3)]
+    stacked = tree_map(lambda *xs: torch.stack(xs), *inits)
+    masks = np.array([[True, False]])
+    kw = dict(clients=3, rounds=1, local_steps=2, batch=2, seq=64,
+              lr=TRAIN_LR, link_masks=masks, **quiet)
+    fref = train.federated(cfg, params=tree_map(torch.clone, stacked),
+                           device="cpu", **kw)
+    fgot = train.federated(cfg, params=_tree_to(stacked, dev), device=dev,
+                           **kw)
+    errs += [abs(fgot["target_loss"][0] - fref["target_loss"][0]),
+             float(np.abs(fgot["pi"][0] - fref["pi"][0]).max()),
+             _tree_err(fgot["params"], fref["params"])]
+    print(f"train reduced smollm-135m, card vs CPU: 3 SGD steps max|dloss|="
+          f"{errs[0]:.3g} max|dparams|={errs[1]:.3g}; one federated round "
+          f"at C = 3: |dloss|={errs[2]:.3g} max|dpi|={errs[3]:.3g} "
+          f"max|dparams|={errs[4]:.3g} (tol {TRAIN_TOL:g})")
+    if not (max(errs) <= TRAIN_TOL and np.array_equal(
+            fgot["links"][0], masks[0])):
+        raise AssertionError("the card's training run disagrees with the "
+                             "CPU's")
+
+
+def _tree_err(a, b) -> float:
+    """Max |a − b| over two trees of one structure."""
+    from torch.utils._pytree import tree_flatten
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+
+
+def run_train_main_path(dev) -> dict:
+    """smollm-135m at full width through ``single_client``: B 8 x S 256,
+    ``TRAIN_STEPS`` SGD steps at lr 3e-3, fp32. K3's forward and each of
+    its three backward kernels must launch once per layer per step, the
+    loss must fall and stay finite. Returns the timings, losses, peak
+    memory and launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import train
+    cfg = get_config("smollm-135m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k3.reset_counts()
+    res = train.single_client(cfg, steps=TRAIN_STEPS, batch=TRAIN_B,
+                              seq=TRAIN_S, lr=TRAIN_LR, device=dev)
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * TRAIN_STEPS
+    losses = res["losses"]
+    t = res["timings"]
+    print(f"smollm-135m training B={TRAIN_B} S={TRAIN_S} {TRAIN_STEPS} SGD "
+          f"steps fp32: {t['ms_per_step']} ms per step after the first "
+          f"({t['first_step_ms']} ms), {t['tokens_per_s']} tokens/s, peak "
+          f"memory {peak / 2**30:.3f} GiB; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches K3 forward {n_fwd}, backward "
+          f"{n_bwd}")
+    if n_fwd != want or any(n != want for n in n_bwd.values()):
+        raise AssertionError(f"K3 launched {n_fwd} forward and {n_bwd} "
+                             f"backward in {TRAIN_STEPS} steps, expected "
+                             f"{want} each")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise AssertionError(f"the training loss did not fall: {losses}")
+    return {"timings": t, "losses": losses, "peak_bytes": peak,
+            "k3_forward": n_fwd, "k3_backward": n_bwd}
+
+
+def run_fed_main_path(dev) -> dict:
+    """Federated pFedWN over ``FED_C`` full-width smollm-135m clients
+    (``examples/torch_federated_lm.py``'s shape, its 5 rounds cut to
+    ``FED_ROUNDS``). K2 must launch once per param leaf a round (12), π*
+    must lie on the simplex. Returns the round times, history and
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import weighted_agg as k2
+    from repro_torch.launch import train
+    from torch.utils._pytree import tree_flatten
+    cfg = get_config("smollm-135m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k3.reset_counts()
+    k2.launches = 0
+    hist = train.federated(cfg, clients=FED_C, rounds=FED_ROUNDS,
+                           local_steps=FED_LOCAL, batch=FED_B, seq=FED_S,
+                           lr=TRAIN_LR, device=dev)
+    torch.cuda.synchronize()
+    n2, n_fwd, n_bwd = k2.launches, k3.launches, dict(k3.backward_launches)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = len(tree_flatten(hist["params"])[0])
+    steps = FED_ROUNDS * FED_C * FED_LOCAL
+    print(f"smollm-135m federated C={FED_C} B={FED_B} S={FED_S} "
+          f"{FED_LOCAL} local steps, {FED_ROUNDS} rounds: ms per round "
+          f"{hist['round_ms']}, peak memory {peak / 2**30:.3f} GiB; target "
+          f"loss {hist['target_loss']}; pi* {[p.tolist() for p in hist['pi']]}"
+          f"; links {[l.astype(int).tolist() for l in hist['links']]}; "
+          f"launches K2 {n2} ({leaves} leaves), K3 forward {n_fwd}, "
+          f"backward {n_bwd}")
+    simplex = all(abs(float(p.sum()) - 1) < 1e-5 and (p >= 0).all()
+                  for p in hist["pi"])
+    want_fwd = FED_ROUNDS * cfg.n_layers * (FED_C * FED_LOCAL + FED_C)
+    if not (n2 == leaves * FED_ROUNDS == 12 * FED_ROUNDS and simplex
+            and n_fwd == want_fwd
+            and all(n == cfg.n_layers * steps for n in n_bwd.values())
+            and all(np.isfinite(hist["target_loss"]))):
+        raise AssertionError(f"federated LM: K2 {n2}, K3 {n_fwd}/{n_bwd}, "
+                             f"pi {hist['pi']}")
+    return {"round_ms": hist["round_ms"], "target_loss": hist["target_loss"],
+            "peak_bytes": peak, "k2": n2, "k3_forward": n_fwd,
+            "k3_backward": n_bwd}
+
+
 def time_ms(fn, iters=20, reps=10) -> float:
     """Steady-state device ms per call of ``fn``: ``iters`` calls enqueued
     back to back between two CUDA events while ``torch.cuda._sleep`` holds
@@ -1312,6 +1577,12 @@ def agg_report(dev, sim, n2, err2, wide_sim, n2_wide, floor):
         "shapes": [wide]}
 
 
+def _unmasked_pairs(Sq, Skv, causal, window) -> int:
+    """The (query, key) pairs of one head that the masks leave."""
+    from repro_torch.kernels.ref import _attention_mask
+    return int(_attention_mask(Sq, Skv, causal, window, "cpu").sum())
+
+
 def attention_report(dev, n3, err3, floor):
     """K3's row at the main path's shape (smollm-135m prefill, fp32)."""
     import torch.nn.functional as F
@@ -1319,14 +1590,7 @@ def attention_report(dev, n3, err3, floor):
     from repro_torch.kernels.ref import flash_attention_ref
     B, Sq, Skv, H, KH, Dh, causal, window = ATTN_MAIN
     q, k, v = _attn_inputs(ATTN_MAIN, torch.float32, dev)
-    qpos = torch.arange(Sq)[:, None]
-    kpos = torch.arange(Skv)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
-    pairs = int(mask.sum())                  # unmasked (query, key) pairs
+    pairs = _unmasked_pairs(Sq, Skv, causal, window)
     ops = 4 * Dh * pairs * B * H             # score and P.V multiply-adds
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1363,6 +1627,151 @@ def attention_report(dev, n3, err3, floor):
         "ms_bf16": time_ms(lambda: k3._launch(qb, kb, vb, causal, window)),
         "floor_ms": floor, "library_ms": time_ms(sdpa),
         "library_backend": sdpa_backends(sdpa)}
+
+
+def attention_bwd_report(dev, n_bwd, err, floor):
+    """K3's backward row at the training main path's shape (smollm-135m, B
+    8 x S 256, fp32): the three kernels' steady and cold ms together, the
+    plain backward's ms, the bound (five products of 2·Dh FLOPs for each
+    unmasked (query, key) pair of each head at 67 TFLOP/s fp32, or the
+    bytes of q, k, v, o, dO and the LSE read and dq, dk, dv and D written),
+    and
+    SDPA's backward (forward and backward less the forward) under each
+    backend that takes fp32 as the yardstick."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    B, Sq, Skv, H, KH, Dh, causal, window = BWD_MAIN
+    q, k, v, dout = _bwd_inputs(BWD_MAIN, dev)
+    out, lse = k3._launch(q, k, v, causal, window, with_lse=True)
+    pairs = _unmasked_pairs(Sq, Skv, causal, window)
+    ops = 5 * 2 * Dh * pairs * B * H
+    nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + 2 * lse.numel())      # q, o, dO, dq; k, dk; v, dv; LSE, D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS * 1e3
+
+    def bwd():
+        return k3._launch_backward(q, k, v, out, lse, dout, causal, window)
+
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "design": "three kernels, fp32 FMAs on the CUDA cores: D = "
+                  "rowsum(dO*O); dK, dV a block per (KV tile, KV head, "
+                  "batch) over the visible query tiles and the G heads; dQ "
+                  "a block per (query tile, head, batch); P recomputed from "
+                  "the forward's row LSE; no atomics",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "replaces_note": "K3 has no backward on the TPU: the reference "
+                         "differentiates chunked_attention "
+                         "(src/repro/models/attention.py:33) under "
+                         "jax.checkpoint",
+        "launches": sum(n_bwd.values()), "launches_by_kernel": n_bwd,
+        "launches_per_step": sum(n_bwd.values()) // TRAIN_STEPS,
+        "max_abs_err": err[0], "atol": BWD_TOL, "rtol": BWD_TOL,
+        "max_excess_over_rtol": err[1],
+        "tolerance_note": "|d| <= atol + rtol·|plain|, i.e. max_excess_"
+                          "over_rtol = max(|d| − rtol·|plain|) <= atol",
+        "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KH": KH, "Dh": Dh,
+                  "causal": causal, "window": window, "dtype": "float32"},
+        "ms": time_ms(bwd), "cold_ms": cold_ms(bwd, dev),
+        "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, causal=causal, window=window),
+            iters=5, reps=5),
+        "back_to_back_ms": back_to_back_ms(bwd, iters=50),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_flops": ops, "bound_bytes_ms": bytes_ms,
+        "forward_lse_ms": time_ms(lambda: k3._launch(q, k, v, causal, window,
+                                                     with_lse=True)),
+        "forward_serving_ms": time_ms(lambda: k3._launch(q, k, v, causal,
+                                                         window)),
+        "floor_ms": floor, **sdpa_backward(q, k, v, dout, causal)}
+
+
+def sdpa_backward(q, k, v, dout, causal) -> dict:
+    """SDPA's backward on the same inputs, timed only: forward and
+    backward less the forward, with K and V repeated to H heads (so every
+    backend that takes fp32 applies), under each backend in turn and
+    unrestricted (``library_ms``)."""
+    import warnings
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+              .requires_grad_() for t in (k, v))
+    dt = dout.transpose(1, 2).contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    def both():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), dt)
+
+    def backward_ms():
+        return (time_ms(both, iters=5, reps=5)
+                - time_ms(fwd, iters=5, reps=5))
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # why each one refuses
+                times[backend.name] = backward_ms()
+        except RuntimeError:
+            times[backend.name] = None
+    return {"library_ms": backward_ms(), "library_backward_ms": times,
+            "library_note": "SDPA forward + backward less its forward, K/V "
+                            "repeated to H heads"}
+
+
+def lm_mix_times(dev, n2) -> dict:
+    """K2 at the federated LM mix's widest leaf: smollm-135m's (49,152,
+    576) embedding, M = 3 neighbours, as ``mix_params_with_erasures``
+    calls it (neighbour rows read in place from the (C, ...) stack). Held
+    to its plain version within ``AGG_TOL`` (max|d|/(1+|ref|)), links up
+    and all erased; raises past it."""
+    from repro_torch.kernels import weighted_agg as k2
+    from repro_torch.kernels.ref import weighted_agg_ref
+    P = 49_152 * 576
+    g = torch.Generator(device=dev).manual_seed(3)
+    stack = torch.randn((FED_C, P), generator=g, device=dev)
+    w = torch.full((FED_C - 1,), 1.0 / (FED_C - 1), device=dev)
+    own, nb = stack[0], stack[1:]
+    tol = AGG_TOL[torch.float32]
+    errs = {}
+    for any_ok in (True, False):
+        ok = torch.tensor(any_ok, device=dev)
+        out = k2.weighted_agg(own, nb, w, 0.5, any_ok=ok)
+        expect = weighted_agg_ref(own, nb, w, 0.5, any_ok=ok)
+        diff = (out - expect).abs()
+        errs[any_ok] = float(diff.max())
+        rel = float((diff / (1 + expect.abs())).max())
+        print(f"K2 LM mix M={FED_C - 1} P={P} any_ok={any_ok}: max|d|="
+              f"{errs[any_ok]:.3g} max|d|/(1+|ref|)={rel:.3g} tol={tol:g}")
+        if not rel <= tol:
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"the LM mix (any_ok={any_ok}): {rel}")
+        if not any_ok and not torch.equal(out, own):
+            raise AssertionError("K2 with every link erased must return "
+                                 "own unchanged")
+    ok = torch.tensor(True, device=dev)
+    M = FED_C - 1
+    bytes_ms = ((M + 2) * P * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (2 * M + 3) * P / FP32_FLOPS * 1e3
+    return {"shape": {"M": M, "P": P, "dtype": "float32"},
+            "launches": n2, "max_abs_err": errs[True],
+            "max_abs_err_all_erased": errs[False], "tolerance": tol,
+            "ms": time_ms(lambda: k2._launch(own, nb, w, 0.5, None, ok, M)),
+            "plain_ms": time_ms(lambda: weighted_agg_ref(own, nb, w, 0.5,
+                                                         any_ok=ok)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": time_ms(lambda: torch.addmv(
+                own, nb.T, w, beta=0.5, alpha=0.5))}
 
 
 def sdpa_backends(fn) -> dict:
@@ -1479,12 +1888,54 @@ def profile_serve(dev, cfg, params, prompts) -> None:
           f"({100 * busy_ms / step_ms:.1f} %)")
 
 
+def profile_train(dev) -> None:
+    """One full-width smollm-135m training step (B 8 x S 256, SGD) under
+    ``torch.profiler``, after a warm step: its wall time, kernels and the
+    device's busy share, and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batch_stream
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import sgd_update
+    cfg = get_config("smollm-135m")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    stream = token_batch_stream(0, batch=TRAIN_B, seq_len=TRAIN_S,
+                                vocab=cfg.vocab)
+
+    def step(p):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(stream).items()}
+        _, _, grads = value_and_grad(p, cfg, batch)
+        return sgd_update(p, grads, TRAIN_LR)
+
+    params = step(params)                                 # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params = step(params)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    rows = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"profile: one training step, wall {wall_ms:.1f} ms under the "
+          f"profiler, {sum(e.count for e in rows)} kernels, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    print(avgs.table(sort_by="self_device_time_total", row_limit=20,
+                     max_name_column_width=60))
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile two pFedWN rounds and one serving "
-                        "run and print where the device time goes")
+                        help="also profile two pFedWN rounds, one serving "
+                        "run and one training step and print where the "
+                        "device time goes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1566,8 +2017,9 @@ def main() -> int:
     pod_k2 = check_pod_mix(dev)
     print(f"sharded wall {time.perf_counter() - t0:.1f} s")
 
-    _phase("6. K3 flash_attention vs plain")
+    _phase("6. K3 flash_attention vs plain, forward and backward")
     err3 = check_flash_attention(dev)
+    err3_bwd = check_flash_attention_backward(dev)
 
     _phase("7. serving: small run vs CPU, then the main path")
     check_serve_against_cpu(dev)
@@ -1576,13 +2028,28 @@ def main() -> int:
     print(f"serving main path wall {time.perf_counter() - t0:.1f} s (warm-up "
           f"run included), launches K3={n3}")
 
+    _phase("7b. LM training: small run vs CPU, then single-client and "
+           "federated at full width")
+    check_train_against_cpu(dev)
+    t0 = time.perf_counter()
+    trained = run_train_main_path(dev)
+    print(f"training main path wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fed = run_fed_main_path(dev)
+    print(f"federated main path wall {time.perf_counter() - t0:.1f} s")
+
     _phase("8. kernel times")
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
     floor = floor_ms(dev)
     print(f"floor (1-element zero_, steady bracket): {floor:.6f} ms")
     rows = [k1_report(dev, n1, n1_wide, floor),
             agg_report(dev, sim, n2, err2, wide_sim, n2_wide, floor),
-            attention_report(dev, n3, err3, floor)]
+            attention_report(dev, n3, err3, floor),
+            attention_bwd_report(dev, trained["k3_backward"], err3_bwd,
+                                 floor)]
+    rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
+    rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
+                                    "federated": fed["k3_forward"]}
     for row, j in ((rows[0], 0), (rows[1], 1)):   # phase 5f's main paths
         row["sharded_launches_per_rank"] = {
             d: [k[j] for k in r["k1_k2_per_rank"]]
@@ -1592,6 +2059,7 @@ def main() -> int:
         _phase("9. profile")
         profile_rounds(sim)
         profile_serve(dev, *serve_args)
+        profile_train(dev)
     torch.cuda.synchronize()
     print(card_line)
     print(json.dumps({"kernels": rows}))

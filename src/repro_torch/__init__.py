@@ -13,6 +13,9 @@ Eq-9 E-step (``kernels.em_posterior``) and the erasure-gated Eq-1 mix
 (``kernels.weighted_agg``); on the language models' serving path
 (``launch.serve``: prefill, then greedy decode) GQA flash attention
 (``kernels.flash_attention``), which every layer's prefill attention runs.
+LM training (``launch.train``: single-client, and federated pFedWN over LM
+clients) runs that attention's forward and its hand-written backward in
+every layer, and the Eq-1 mix once per param leaf.
 """
 from repro_torch.device import disable_tf32, resolve_device
 

@@ -2,10 +2,10 @@
 from repro_torch.configs import (chatglm3_6b, smollm_135m,  # noqa: F401
                                  starcoder2_15b)
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      PFLConfig, SSMConfig, WirelessConfig,
-                                      get_config, list_archs)
+                                      PFLConfig, SSMConfig, TrainConfig,
+                                      WirelessConfig, get_config, list_archs)
 from repro_torch.configs.paper_cnn import CNNConfig, cifar10_cnn, mnist_cnn
 
 __all__ = ["CNNConfig", "MLAConfig", "ModelConfig", "MoEConfig", "PFLConfig",
-           "SSMConfig", "WirelessConfig", "cifar10_cnn", "get_config",
-           "list_archs", "mnist_cnn"]
+           "SSMConfig", "TrainConfig", "WirelessConfig", "cifar10_cnn",
+           "get_config", "list_archs", "mnist_cnn"]

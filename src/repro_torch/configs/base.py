@@ -1,5 +1,6 @@
-"""Federated-learning and wireless-channel configs (paper Table I), the
-language models' ``ModelConfig`` and the registry ``--arch`` selects from."""
+"""Federated-learning and wireless-channel configs (paper Table I), LM
+training's ``TrainConfig``, the language models' ``ModelConfig`` and the
+registry ``--arch`` selects from."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,6 +42,19 @@ class PFLConfig:
     rounds: int = 100                 # T
     em_iters: int = 5                 # EM refinement iterations per round
     em_min_weight: float = 1e-6       # simplex floor for numerical safety
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "sgd"            # sgd | momentum | adamw
+    lr: float = 3e-4
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    grad_clip: float = 1.0
+    remat: bool = True
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
     seed: int = 0
 
 

@@ -1,4 +1,5 @@
-"""Synthetic class-conditional image datasets (numpy).
+"""Synthetic class-conditional image datasets and the LM token stream
+(numpy).
 
 Each class c is a Gaussian blob around a class prototype with within-class
 variability, so clients whose label mixtures overlap have genuinely similar
@@ -8,7 +9,7 @@ gives byte-identical arrays to the reference package's generator.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -68,3 +69,25 @@ def stack_datasets(datasets: List[SyntheticImageDataset]
         mask[i, :k] = True
     lengths = np.asarray([len(d) for d in datasets], np.int32)
     return x, y, lengths, mask
+
+
+def token_batch_stream(seed: int, *, batch: int, seq_len: int, vocab: int,
+                       n_batches: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic LM stream: Zipf unigrams + deterministic bigram bleed so
+    next-token prediction is learnable. The reference's draws, byte for
+    byte: ``tokens`` and ``labels`` (batch, seq_len) int32, labels the
+    tokens shifted by one."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks ** 1.1
+    probs /= probs.sum()
+    i = 0
+    while n_batches == 0 or i < n_batches:
+        base = rng.choice(vocab, size=(batch, seq_len + 1), p=probs)
+        # bigram structure: with p=0.5, token t+1 = (token t * 7 + 13) % vocab
+        follow = (base * 7 + 13) % vocab
+        use = rng.random((batch, seq_len + 1)) < 0.5
+        toks = np.where(use, np.roll(follow, 1, axis=1), base)
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+        i += 1

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("em_posterior", "weighted_agg", "flash_attention")
+KERNELS = ("em_posterior", "weighted_agg", "flash_attention",
+           "flash_attention_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

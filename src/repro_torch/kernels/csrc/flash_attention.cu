@@ -19,6 +19,12 @@
 // and bf16 inputs; the output has q's type. Ragged Sq and Skv are masked
 // here, so nothing is padded.
 //
+// For training, an fp32 instantiation (template flag kLse) also writes
+// each row's log-sum-exp of the scaled scores, lse[b, h, i] = m + log(l),
+// for the backward (csrc/flash_attention_bwd.cu) to recompute P from; a
+// fully masked row gets +inf, so that exp(s - lse) is 0 there. The flag
+// adds only that store: the serving instantiation is the kernel as it was.
+//
 // The GQA fold: the G query heads of one KV head are G adjacent rows of
 // the (Sq*G, Dh) row space (row = i*G + g), read in place by stride, so
 // each K/V tile a block loads serves all G heads.
@@ -313,13 +319,13 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool kLse>
 __global__ void __launch_bounds__(Layout<T, DH>::kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
                        const __grid_constant__ CUtensorMap tmap_v,
-                       const T* __restrict__ q, T* __restrict__ o, int Sq,
-                       int Skv, int H, int KH, int causal, int window,
-                       float scale) {
+                       const T* __restrict__ q, T* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Skv, int H,
+                       int KH, int causal, int window, float scale) {
   using L = Layout<T, DH>;
   constexpr int kKeys = L::kKeys, kRows = L::kRows, kStages = L::kStages;
   constexpr int kCons = L::kConsumers;
@@ -550,6 +556,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const float dA = fmaxf(l_a, 1e-30f), dB = fmaxf(l_b, 1e-30f);
+  if constexpr (kLse) {  // (B, H, Sq); one thread of the row's quad writes
+    const int64_t bh = static_cast<int64_t>(b) * H + kh * G;
+    if (okA && t4 == 0)
+      lse[(bh + rA % G) * Sq + posA] = l_a > 0.f ? m_a + logf(l_a) : INFINITY;
+    if (okB && t4 == 0)
+      lse[(bh + rB % G) * Sq + posB] = l_b > 0.f ? m_b + logf(l_b) : INFINITY;
+  }
   if (okA) {
     T* dst = o + ((static_cast<int64_t>(b) * Sq + posA) * H + kh * G +
                   rA % G) * DH;
@@ -618,15 +631,15 @@ int encode(CUtensorMap* map, const void* base, int B, int Skv, int KH,
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KH, int causal, int window,
+template <typename T, int DH, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int KH, int causal, int window,
            cudaStream_t st) {
   using L = Layout<T, DH>;
   static bool configured = false;  // the attribute holds per function
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, DH>,
+        flash_attention_kernel<T, DH, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L::kBytes));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -642,34 +655,49 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (rc != 0) return rc;
   const dim3 grid(B * KH, static_cast<unsigned>(tiles));
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
-  flash_attention_kernel<T, DH><<<grid, L::kThreads, L::kBytes, st>>>(
-      map_k, map_v, static_cast<const T*>(q), static_cast<T*>(o), Sq, Skv, H,
-      KH, causal, window, scale);
+  flash_attention_kernel<T, DH, kLse><<<grid, L::kThreads, L::kBytes, st>>>(
+      map_k, map_v, static_cast<const T*>(q), static_cast<T*>(o), lse, Sq,
+      Skv, H, KH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for a head size other than 64 or 128 or more than
-// 65535 row tiles, or 10000 + the CUresult if a tensor map cannot be
-// encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); contiguous, of
-// one type (fp32, or bf16 when is_bf16), 16-byte aligned (TMA's rule).
+// cudaErrorInvalidValue for a head size other than 64 or 128, more than
+// 65535 row tiles or an lse with bf16, or 10000 + the CUresult if a tensor
+// map cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh);
+// contiguous, of one type (fp32, or bf16 when is_bf16), 16-byte aligned
+// (TMA's rule). lse: null (serving), or (B, H, Sq) fp32 written by the
+// training instantiation (fp32 inputs only).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Skv, int H, int KH, int Dh,
-                                      int causal, int window, int is_bf16,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int Sq, int Skv, int H, int KH,
+                                      int Dh, int causal, int window,
+                                      int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (l != nullptr) {
+    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    if (Dh == 64)
+      return launch<float, 64, true>(q, k, v, o, l, B, Sq, Skv, H, KH, causal,
+                                     window, st);
+    if (Dh == 128)
+      return launch<float, 128, true>(q, k, v, o, l, B, Sq, Skv, H, KH,
+                                      causal, window, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (Dh == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Skv, H, KH,
-                                               causal, window, st)
-                   : launch<float, 64>(q, k, v, o, B, Sq, Skv, H, KH, causal,
-                                       window, st);
+    return is_bf16 ? launch<__nv_bfloat16, 64, false>(q, k, v, o, l, B, Sq,
+                                                      Skv, H, KH, causal,
+                                                      window, st)
+                   : launch<float, 64, false>(q, k, v, o, l, B, Sq, Skv, H,
+                                              KH, causal, window, st);
   if (Dh == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Skv, H,
-                                                KH, causal, window, st)
-                   : launch<float, 128>(q, k, v, o, B, Sq, Skv, H, KH, causal,
-                                        window, st);
+    return is_bf16 ? launch<__nv_bfloat16, 128, false>(q, k, v, o, l, B, Sq,
+                                                       Skv, H, KH, causal,
+                                                       window, st)
+                   : launch<float, 128, false>(q, k, v, o, l, B, Sq, Skv, H,
+                                               KH, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,11 @@
 """Plain PyTorch versions of the port's kernels: what the wrappers run on CPU
 tensors, and what ``chip_smoke.py`` holds each CUDA kernel against on the
 card. Counterparts of the reference's ``flash_attention_ref``,
-``em_posterior_ref`` and ``weighted_agg_ref``; ragged shapes are allowed."""
+``em_posterior_ref`` and ``weighted_agg_ref``; ragged shapes are allowed.
+``flash_attention_bwd_ref`` and ``attention_lse_ref`` are the plain
+versions of K3's backward and of the row log-sum-exp its training forward
+saves; only the tests and ``chip_smoke.py`` call them (on a CPU tensor the
+plain forward is differentiated by autograd)."""
 from __future__ import annotations
 
 import math
@@ -13,26 +17,90 @@ import torch
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, Dh); k/v: (B, Skv, KH, Dh), H % KH == 0; query head
-    h = kh·G + g reads KV head kh. Full-matrix attention in fp32 with the
-    masks taken from positions counted from 0 on both sides (causal:
-    k_pos <= q_pos; window: k_pos > q_pos − window); a fully masked row
-    gives 0. Returns (B, Sq, H, Dh) in q's dtype."""
+    h = kh·G + g reads KV head kh. Full-matrix attention in fp32 (float64
+    for float64 inputs) with the masks taken from positions counted from 0
+    on both sides (causal: k_pos <= q_pos; window: k_pos > q_pos −
+    window); a fully masked row gives 0. Returns (B, Sq, H, Dh) in q's
+    dtype. Differentiable by autograd."""
     B, Sq, H, Dh = q.shape
-    Skv, KH = k.shape[1], k.shape[2]
-    G = H // KH
-    qg = q.reshape(B, Sq, KH, G, Dh).float()
-    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float()) / math.sqrt(Dh)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    s = _scores(q, k)
+    mask = _attention_mask(Sq, k.shape[1], causal, window, q.device)
+    s.masked_fill_(~mask[None, :, None, None, :], -math.inf)
+    # out of place: autograd's softmax backward reads the softmax's output
+    p = torch.softmax(s, dim=-1).nan_to_num(nan=0.0)
+    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.to(p.dtype))
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def _attention_mask(Sq: int, Skv: int, causal: bool, window: int,
+                    device) -> torch.Tensor:
+    """(Sq, Skv) bool: True where query i sees key j (positions from 0)."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window:
         mask &= kpos > qpos - window
-    s.masked_fill_(~mask[None, :, None, None, :], -math.inf)
-    p = torch.softmax(s, dim=-1).nan_to_num_(nan=0.0)
-    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    return mask
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B, Sq, KH, G, Skv) scaled scores, in float64 for float64 inputs and
+    fp32 otherwise."""
+    B, Sq, H, Dh = q.shape
+    KH = k.shape[2]
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.reshape(B, Sq, KH, H // KH, Dh).to(ct)
+    return torch.einsum("bqhgd,bkhd->bqhgk", qg, k.to(ct)) / math.sqrt(Dh)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The row log-sum-exp of the scaled, masked scores, (B, H, Sq), with
+    +inf for a fully masked row: what K3's training forward saves."""
+    B, Sq, H, _ = q.shape
+    s = _scores(q, k)
+    mask = _attention_mask(Sq, k.shape[1], causal, window, q.device)
+    s = s.masked_fill(~mask[None, :, None, None, :], -math.inf)
+    lse = torch.logsumexp(s, dim=-1)                       # (B, Sq, KH, G)
+    lse = torch.where(torch.isneginf(lse), math.inf, lse)
+    return lse.reshape(B, Sq, H).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True, window: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """K3's backward written out: P = exp(S − LSE) where unmasked (else 0),
+    D = rowsum(dO∘O), dS = P∘(dO·Vᵀ − D), dQ = dS·K·scale, dK = dSᵀ·Q·scale
+    and dV = Pᵀ·dO, with dK and dV summed over the G query heads of each KV
+    head. q, out, dout: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); lse (B, H,
+    Sq) as :func:`attention_lse_ref` gives it. Computes in float64 for
+    float64 inputs and fp32 otherwise; returns (dq, dk, dv) in q's dtype."""
+    B, Sq, H, Dh = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = 1.0 / math.sqrt(Dh)
+    s = _scores(q, k)
+    mask = _attention_mask(Sq, Skv, causal, window, q.device)
+    row_lse = lse.to(ct).transpose(1, 2).reshape(B, Sq, KH, G)[..., None]
+    p = torch.where(mask[None, :, None, None, :], torch.exp(s - row_lse),
+                    torch.zeros((), dtype=ct, device=q.device))
+    qg = q.reshape(B, Sq, KH, G, Dh).to(ct)
+    dog = dout.reshape(B, Sq, KH, G, Dh).to(ct)
+    d = torch.sum(dog * out.reshape(B, Sq, KH, G, Dh).to(ct), dim=-1,
+                  keepdim=True)
+    dp = torch.einsum("bqhgd,bkhd->bqhgk", dog, v.to(ct))
+    ds = p * (dp - d)
+    dq = torch.einsum("bqhgk,bkhd->bqhgd", ds, k.to(ct)) * scale
+    dk = torch.einsum("bqhgk,bqhgd->bkhd", ds, qg) * scale
+    dv = torch.einsum("bqhgk,bqhgd->bkhd", p, dog)
+    return (dq.reshape(B, Sq, H, Dh).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
 
 
 def em_posterior_ref(pi: torch.Tensor, logits: torch.Tensor,

@@ -2,8 +2,12 @@
 
 Prefill (``gqa_apply``, ``gqa_prefill``) runs its attention through K3,
 :func:`repro_torch.kernels.flash_attention.flash_attention`, where the
-reference runs its pure-JAX twin ``chunked_attention``. Decode attends one
-query token to a cache in plain PyTorch, as the reference does:
+reference runs its pure-JAX twin ``chunked_attention``. Training runs the
+same call under autograd: on a card, K3's forward (saving its row
+log-sum-exp) and its hand-written backward, where the reference
+differentiates ``chunked_attention`` under ``jax.checkpoint``. Decode
+attends one query token to a cache in plain PyTorch, as the reference
+does:
   - full cache:     (B, S, KH, Dh) K/V, valid-prefix mask;
   - sliding window: ring buffer (B, W, KH, Dh), slot = position % W, masked
     by the position each slot holds.

@@ -8,13 +8,18 @@ layer loop is a Python loop over that axis.
 
 Entry points:
   init_params(cfg, gen, device)                          -> params
-  forward_hidden(params, cfg, tokens, *, window)         -> (hidden, aux)
+  forward_hidden(params, cfg, tokens, *, window, remat)  -> (hidden, aux)
   logits_from_hidden(params, cfg, h)                     -> fp32 logits
+  softmax_xent(logits, labels)                           -> mean xent
+  loss_fn(params, cfg, batch, *, window, remat)          -> (loss, metrics)
   prefill(params, cfg, tokens, *, window)                -> (logits, cache)
   decode(params, cfg, token, cache, pos, *, window)      -> (logits, cache)
   init_cache(cfg, batch, max_len, *, window, device)     -> cache
 
-Weights and cache are fp32, as the reference's ``launch/serve.py`` runs.
+Weights and cache are fp32, as the reference's ``launch/serve.py`` and
+``launch/train.py`` run. Training differentiates ``loss_fn`` with autograd;
+on a card every layer's attention runs K3's forward and its hand-written
+backward.
 Decode cache: ``{"layers": {"k", "v"}}``, each (L, B, S, KH, Dh), a ring
 buffer of S = min(window, max_len) slots when windowed. ``decode`` writes
 the new token's K/V into it in place (the reference returns an updated
@@ -28,6 +33,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -53,11 +59,16 @@ def _check_supported(cfg: ModelConfig) -> None:
             "(ROADMAP Queue A item 13)")
 
 
-def layer(stacked: Params, i: int) -> Params:
-    """Layer ``i`` of the stacked ``layers`` tree, as views."""
+def unstack(stacked: Params) -> list:
+    """The stacked ``layers`` tree as a list of per-layer trees of views,
+    one ``unbind`` per leaf: autograd's backward then stacks the layers'
+    grads in one op, where indexing each layer would give each a
+    zero-filled gradient of the whole stack to add up."""
     if isinstance(stacked, dict):
-        return {k: layer(v, i) for k, v in stacked.items()}
-    return stacked[i]
+        parts = {k: unstack(v) for k, v in stacked.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(stacked))
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -104,11 +115,21 @@ def _block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps)), kv
 
 
+def _train_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 pos: torch.Tensor, window: int) -> torch.Tensor:
+    x = x + attn.gqa_apply(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
+                           positions=pos, window=window)
+    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                    positions: Optional[torch.Tensor] = None,
-                   window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                   window: int = 0, remat: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward to the final normed hidden states (B, S, D),
-    and the aux loss (0 for dense)."""
+    and the aux loss (0 for dense). ``remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` of the layer body."""
     _check_supported(cfg)
     if positions is not None:
         raise NotImplementedError("custom positions are not ported yet "
@@ -116,12 +137,12 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     window = window or cfg.sliding_window
     x = embed_apply(params["embed"], tokens)
     pos = _positions(tokens)
-    for i in range(cfg.n_layers):
-        p = layer(params["layers"], i)
-        x = x + attn.gqa_apply(p["attn"], cfg, rmsnorm(p["ln1"], x,
-                                                        cfg.norm_eps),
-                               positions=pos, window=window)
-        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    for p in unstack(params["layers"]):
+        if remat:
+            x = checkpoint(_train_block, p, cfg, x, pos, window,
+                           use_reentrant=False)
+        else:
+            x = _train_block(p, cfg, x, pos, window)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
@@ -131,6 +152,33 @@ def logits_from_hidden(params: Params, cfg: ModelConfig,
     if cfg.tie_embeddings:
         return unembed_apply(params["embed"], h, transpose=True)
     return unembed_apply(params["lm_head"], h, transpose=False)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of fp32 ``logits`` (..., V) at integer ``labels``
+    (...); a negative label is masked, and the mean runs over the unmasked
+    ones (at least 1)."""
+    mask = (labels >= 0).float()
+    safe = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    loss = (lse - ll) * mask
+    return torch.sum(loss) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict, *,
+            window: int = 0, remat: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens (B, S), labels (B, S). Returns (xent + aux, {"xent",
+    "aux", "mtp"}); MTP, stub embeddings and custom positions raise until
+    their families are ported."""
+    h, aux = forward_hidden(params, cfg, batch["tokens"],
+                            positions=batch.get("positions"), window=window,
+                            remat=remat)
+    logits = logits_from_hidden(params, cfg, h)
+    loss = softmax_xent(logits, batch["labels"])
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, {"xent": loss, "aux": aux, "mtp": zero}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
@@ -159,9 +207,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = embed_apply(params["embed"], tokens)
     pos = _positions(tokens)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, kv = _block_apply(layer(params["layers"], i), cfg, x,
-                             positions=pos, window=window)
+    for p in unstack(params["layers"]):
+        x, kv = _block_apply(p, cfg, x, positions=pos, window=window)
         ks.append(kv["k"])
         vs.append(kv["v"])
     h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
@@ -179,8 +226,7 @@ def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
     x = embed_apply(params["embed"], token)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     kc = cache["layers"]
-    for i in range(cfg.n_layers):
-        p = layer(params["layers"], i)
+    for i, p in enumerate(unstack(params["layers"])):
         y, _ = attn.gqa_decode(p["attn"], cfg,
                                rmsnorm(p["ln1"], x, cfg.norm_eps),
                                cache={"k": kc["k"][i], "v": kc["v"][i]},

@@ -237,6 +237,12 @@ assert load_checkpoint(path, {"p": sim.params0})[1] == 3
 import repro_torch.sharding
 from repro_torch.lint import blocks
 from repro_torch.sharding import worker
+import repro_torch.optim
+from repro_torch.configs import get_config
+from repro_torch.launch import train
+lm = get_config("smollm-135m").reduced()
+assert len(train.single_client(lm, steps=1, batch=1, seq=4,
+                               device="cpu")["losses"]) == 1
 one = FederatedSimulation(*args[:-1], FedSimConfig(
     rounds=2, batch_size=16, em_iters=2, em_subset=32, sharded=True),
     device="cpu")
@@ -252,7 +258,11 @@ if not torch.cuda.is_available():
     for call in (lambda: FederatedSimulation(*args),
                  lambda: selection.select_neighbors(
                      WirelessConfig(), [1.0, 1.0], [[2.0, 2.0]]),
-                 lambda: cnn.init_params(args[0], torch.Generator())):
+                 lambda: cnn.init_params(args[0], torch.Generator()),
+                 lambda: train.single_client(lm, steps=1, batch=1, seq=4),
+                 lambda: train.federated(lm, clients=2, rounds=1,
+                                         local_steps=1, batch=1, seq=4),
+                 lambda: train.main(["--arch", "smollm-135m"])):
         try:
             call()
         except RuntimeError:
@@ -274,4 +284,4 @@ def test_port_imports_no_jax_and_defaults_to_cuda():
                  if l.startswith(("LOADED", "RAISED")))
     assert lines["LOADED"] == "[]"
     if not torch.cuda.is_available():
-        assert lines["RAISED"] == "[True, True, True]"
+        assert lines["RAISED"] == str([True] * 6)

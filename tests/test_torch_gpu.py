@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the reference's sweep shapes, the pFedWN round's shapes and the LM
-prefill's; every federated method and the serving path on the card against
+prefill's, K3's backward against its plain version in float64; every
+federated method, the serving path and LM training on the card against
 the CPU, with the kernel launches each path makes. Every test
 here needs a CUDA card and skips without one; the file imports nothing of
 JAX, so it runs where only the port is installed:
@@ -338,6 +339,109 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
                                rtol=tol)
 
 
+# K3's backward: the forward's sweep and tile edges, and shapes of its own:
+# G = 4, keys past the queries under causal (blocks with no visible query),
+# a window that crosses tiles, and the training shape (smollm-135m, B 8,
+# S 256). (1, 77, 50, 16, 1, 64, False, 20) has fully masked rows.
+BWD_SHAPES = ATTN_SHAPES + EDGE_SHAPES + [
+    (1, 100, 100, 8, 2, 128, True, 0),
+    (2, 70, 200, 4, 1, 64, True, 0),
+    (1, 200, 130, 6, 2, 64, True, 70),
+    (8, 256, 256, 9, 3, 64, True, 0),
+]
+# |d| <= tol + tol·|ref| against the float64 plain backward: fp32 sums of
+# at most a few thousand terms, from an LSE the split-TF32 forward gives to
+# ~1e-6
+BWD_TOL = 1e-5
+
+
+def _bwd_case(cuda, B, Sq, Skv, H, KH, Dh, causal, window, seed=0):
+    """(q, k, v, dO) on the card, fp32, the inputs needing grads."""
+    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
+               for a in _attn_inputs(B, Sq, Skv, H, KH, Dh, seed))
+    dout = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=(B, Sq, H, Dh)).astype(np.float32)).to(cuda)
+    return q, k, v, dout
+
+
+def _kernel_grads(q, k, v, dout, causal, window):
+    for t in (q, k, v):
+        t.grad = None
+    out = k3.flash_attention(q, k, v, causal=causal, window=window)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    return out, q.grad.clone(), k.grad.clone(), v.grad.clone()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,Dh,causal,window", BWD_SHAPES)
+def test_flash_attention_backward_matches_plain_on_card(cuda, B, Sq, Skv, H,
+                                                        KH, Dh, causal,
+                                                        window):
+    q, k, v, dout = _bwd_case(cuda, B, Sq, Skv, H, KH, Dh, causal, window)
+    out, *grads = _kernel_grads(q, k, v, dout, causal, window)
+    q64, k64, v64 = (t.detach().double() for t in (q, k, v))
+    out64 = tref.flash_attention_ref(q64, k64, v64, causal=causal,
+                                     window=window)
+    lse64 = tref.attention_lse_ref(q64, k64, causal=causal, window=window)
+    expect = tref.flash_attention_bwd_ref(q64, k64, v64, out64, lse64,
+                                          dout.double(), causal=causal,
+                                          window=window)
+    for got, want in zip(grads, expect):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.double(), want, atol=BWD_TOL,
+                                   rtol=BWD_TOL)
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_zero_on_fully_masked_rows_on_card(cuda):
+    # rows 69.. see no key: Skv 50, window 20, not causal
+    q, k, v, dout = _bwd_case(cuda, 1, 77, 50, 4, 2, 64, False, 20)
+    out, dq, dk, dv = _kernel_grads(q, k, v, dout, False, 20)
+    assert torch.equal(out[:, 69:], torch.zeros_like(out[:, 69:]))
+    assert torch.equal(dq[:, 69:], torch.zeros_like(dq[:, 69:]))
+    assert all(torch.isfinite(g).all() for g in (dq, dk, dv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 200, 200, 9, 3, 64, True, 0),
+                                   (1, 130, 97, 4, 1, 128, True, 40)])
+def test_flash_attention_backward_is_bitwise_repeatable_on_card(cuda, shape):
+    q, k, v, dout = _bwd_case(cuda, *shape)
+    causal, window = shape[6], shape[7]
+    first = _kernel_grads(q, k, v, dout, causal, window)
+    second = _kernel_grads(q, k, v, dout, causal, window)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_counts_its_launches_on_card(cuda):
+    q, k, v, dout = _bwd_case(cuda, 2, 96, 96, 6, 2, 64, True, 0)
+    n, bwd = k3.launches, dict(k3.backward_launches)
+    out = k3.flash_attention(q, k, v)
+    assert k3.launches == n + 1 and k3.backward_launches == bwd
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert k3.launches == n + 1
+    assert k3.backward_launches == {name: c + 1 for name, c in bwd.items()}
+    # the training instantiation's output is the serving one's, bit for bit
+    with torch.no_grad():
+        served = k3.flash_attention(q, k, v)
+    assert torch.equal(out.detach(), served)
+    k3.reset_counts()
+    assert k3.launches == 0 and set(k3.backward_launches.values()) == {0}
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_refuses_bf16_on_card(cuda):
+    q, k, v, dout = _bwd_case(cuda, 1, 64, 64, 2, 1, 64, True, 0)
+    qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
+    out = k3.flash_attention(qb, kb, vb)
+    with pytest.raises(TypeError, match="fp32 only"):
+        out.backward(dout.bfloat16())
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -366,6 +470,32 @@ def test_serve_on_card_matches_cpu(cuda, arch, window):
     torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
                                rtol=1e-4)
     assert torch.equal(got.tokens.cpu(), ref.tokens)
+
+
+@pytest.mark.gpu
+def test_train_steps_on_card_match_cpu(cuda):
+    """Two SGD steps of reduced smollm-135m on the card (K3's forward and
+    backward in every layer) against the CPU (plain versions): same
+    weights and batches, losses and params within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    cfg = get_config("smollm-135m").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    kw = dict(steps=2, batch=2, seq=70, lr=3e-3, log=lambda s: None)
+    ref = train.single_client(cfg, params=params, device="cpu", **kw)
+    n, bwd = k3.launches, dict(k3.backward_launches)
+    got = train.single_client(cfg, params=_to(params, cuda), device=cuda,
+                              **kw)
+    assert k3.launches == n + 2 * cfg.n_layers
+    assert k3.backward_launches == {name: c + 2 * cfg.n_layers
+                                    for name, c in bwd.items()}
+    np.testing.assert_allclose(got["losses"], ref["losses"], atol=1e-4,
+                               rtol=1e-4)
+    from torch.utils._pytree import tree_flatten
+    for a, b in zip(tree_flatten(got["params"])[0],
+                    tree_flatten(ref["params"])[0]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
 
 
 def _tiny_sim(device, params0=None, **switches):

@@ -181,8 +181,8 @@ def test_gqa_prefill_matches_reference(arch, window):
     x = np.random.default_rng(2).normal(size=(B, S, tcfg.d_model)).astype(
         np.float32)
     pos = np.arange(S, dtype=np.int32)
-    out, kv = tattn.gqa_prefill(tmodel.layer(tp["layers"], 0)["attn"], tcfg,
-                                torch.from_numpy(x),
+    attn0 = tmodel.unstack(tp["layers"])[0]["attn"]
+    out, kv = tattn.gqa_prefill(attn0, tcfg, torch.from_numpy(x),
                                 positions=torch.from_numpy(pos),
                                 window=window)
     jout, jkv = jattn.gqa_prefill(_jax_layer(jp, 0)["attn"], jcfg, x,
@@ -191,8 +191,7 @@ def test_gqa_prefill_matches_reference(arch, window):
     for name in ("k", "v"):
         assert kv[name].shape == jkv[name].shape
         _close(kv[name], jkv[name])
-    _close(tattn.gqa_apply(tmodel.layer(tp["layers"], 0)["attn"], tcfg,
-                           torch.from_numpy(x),
+    _close(tattn.gqa_apply(attn0, tcfg, torch.from_numpy(x),
                            positions=torch.from_numpy(pos), window=window),
            jout)
 
@@ -208,7 +207,7 @@ def test_gqa_decode_matches_reference(arch, window, S, pos):
     cache = {n: rng.normal(size=(B, S, tcfg.n_kv_heads, dh)).astype(
         np.float32) for n in ("k", "v")}
     out, new = tattn.gqa_decode(
-        tmodel.layer(tp["layers"], 1)["attn"], tcfg, torch.from_numpy(x),
+        tmodel.unstack(tp["layers"])[1]["attn"], tcfg, torch.from_numpy(x),
         cache={n: torch.from_numpy(c.copy()) for n, c in cache.items()},
         pos=pos, positions=torch.tensor([pos], dtype=torch.int32),
         window=window)
