@@ -65,14 +65,15 @@ Phases, each of which stops the run on failure:
      bf16, over the reference's sweep, two ragged shapes, the prefill
      attention shapes of smollm-135m, starcoder2-15b (window 4096) and
      chatglm3-6b, and shapes at the kernel's tile edges; then K3's
-     backward (``csrc/flash_attention_bwd.cu``, through the autograd
-     path) against ``flash_attention_bwd_ref`` in float64 on the card over
-     the reference's sweep, ragged shapes and tile edges, causal and
-     window, G 1 to 16, Dh 64 and 128, smollm-135m's training (B 8, S
-     256) and serving (B 8, S 1024) shapes and fully masked rows (whose
-     grads must be 0): two runs bitwise equal, the training forward's
-     output bitwise the serving forward's, its row LSE against the plain
-     one;
+     backward (``csrc/flash_attention_bwd.cu``: split-TF32 ``wgmma``, dK/dV
+     split over blocks where one a key tile leaves SMs idle, through the
+     autograd path) against ``flash_attention_bwd_ref`` in float64 on the
+     card over the reference's sweep, ragged shapes and tile edges, causal
+     and window, G 1 to 16, Dh 64 and 128, smollm-135m's training (B 8, S
+     256), federated (B 4, S 128) and serving (B 8, S 1024) shapes and
+     fully masked rows (whose grads must be 0): two runs bitwise equal,
+     the training forward's output bitwise the serving forward's, its row
+     LSE against the plain one;
   7. serve a reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights and prompts, without and with a window
      that wraps, and compare logits and tokens; then serve the main path at
@@ -82,8 +83,9 @@ Phases, each of which stops the run on failure:
      kernels) with the same weights, batches and link masks, 3 SGD steps
      and one federated round at C = 3; then the main path at full width,
      single-client smollm-135m (B 8 x S 256, 20 SGD steps at lr 3e-3:
-     the loss falls, K3's forward and each backward kernel launch 30
-     times a step, nothing is NaN; ms per step, tokens/s, peak memory),
+     the loss falls, K3's forward and each backward kernel that
+     ``backward_plan`` picks at this shape launch 30 times a step, nothing
+     is NaN; ms per step, tokens/s, peak memory),
      then federated pFedWN (C 4, B 4 x S 128, 10 local steps, 2 rounds,
      the example's 5 cut to 2: K2 12 launches a round, π* on the
      simplex; links and ms per round printed);
@@ -92,9 +94,10 @@ Phases, each of which stops the run on failure:
      vocabulary and at the M = 39 round's shape, K2 also from a
      16-byte-aligned stride, at M = 39 and at the federated LM mix, K3
      also in bf16, SDPA under each backend; K3's backward at the training
-     shape, SDPA's backward under each backend that takes fp32) beside the
-     card's floor (a 1-element ``zero_()`` in the same bracket) and print
-     them as one JSON line;
+     and the federated shapes, each kernel's ms, the split-TF32, CUDA-core
+     and bytes bounds, SDPA's backward under each backend that takes fp32)
+     beside the card's floor (a 1-element ``zero_()`` in the same bracket)
+     and print them as one JSON line;
   9. with ``--profile`` only: profile two pFedWN rounds, one serving run
      and one full-width training step with ``torch.profiler``.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
@@ -182,9 +185,10 @@ SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
 # K3's backward: (B, Sq, Skv, H, KH, Dh, causal, window); the first is the
 # training main path's (smollm-135m, B 8 x S 256)
 BWD_MAIN = (8, 256, 256, 9, 3, 64, True, 0)
+BWD_FED = (4, 128, 128, 9, 3, 64, True, 0)    # the federated run's
 BWD_SHAPES = [
     BWD_MAIN,
-    (4, 128, 128, 9, 3, 64, True, 0),        # the federated run's
+    BWD_FED,
     (8, 1024, 1024, 9, 3, 64, True, 0),      # smollm-135m's serving shape
     (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
     (1, 256, 256, 8, 8, 64, True, 0),
@@ -1170,11 +1174,13 @@ def check_flash_attention_backward(dev) -> float:
     ``BWD_SHAPES``, |d| <= tol + tol·|plain| for dq, dk, dv and the row
     LSE; a second run bitwise equal; the training forward's output bitwise
     the serving forward's; fully masked rows' dq and output exactly 0.
-    Raises past any. Returns the max |d| at ``BWD_MAIN`` and its worst
-    excess max(|d| − tol·|plain|), which the check holds to <= tol."""
+    Raises past any. Returns, for the training main path's shape
+    (``BWD_MAIN``) and the federated one's (``BWD_FED``), the max |d| and
+    the worst excess max(|d| − tol·|plain|), which the check holds to <=
+    tol."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ref
-    main = None
+    errs_at = {}
     for shape in BWD_SHAPES:
         causal, window = shape[6], shape[7]
         q, k, v, dout = _bwd_inputs(shape, dev)
@@ -1220,10 +1226,10 @@ def check_flash_attention_backward(dev) -> float:
                 and same_out and zero_rows and finite):
             raise AssertionError(f"K3 backward disagrees with its plain "
                                  f"version at {shape}")
-        if main is None:
-            main = (max(errs), max(excess))
+        if shape in (BWD_MAIN, BWD_FED):
+            errs_at[shape] = (max(errs), max(excess))
     torch.cuda.empty_cache()
-    return main
+    return errs_at
 
 
 def check_train_against_cpu(dev) -> None:
@@ -1275,12 +1281,25 @@ def _tree_err(a, b) -> float:
                for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
 
 
+def _bwd_kernels(shape, dev) -> tuple:
+    """The backward kernels that ``backward_plan`` launches at ``shape`` on
+    this card, in order."""
+    from repro_torch.kernels import flash_attention as k3
+    return k3.backward_plan(*shape, k3._sm_count(dev))["kernels"]
+
+
+def _bwd_counts_ok(n_bwd, kernels, want) -> bool:
+    """Each kernel of ``kernels`` launched ``want`` times, the others not."""
+    return all(n == (want if name in kernels else 0)
+               for name, n in n_bwd.items())
+
+
 def run_train_main_path(dev) -> dict:
     """smollm-135m at full width through ``single_client``: B 8 x S 256,
     ``TRAIN_STEPS`` SGD steps at lr 3e-3, fp32. K3's forward and each of
-    its three backward kernels must launch once per layer per step, the
-    loss must fall and stay finite. Returns the timings, losses, peak
-    memory and launches."""
+    its backward kernels at this shape must launch once per layer per
+    step, the loss must fall and stay finite. Returns the timings, losses,
+    peak memory and launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.launch import train
@@ -1302,7 +1321,8 @@ def run_train_main_path(dev) -> dict:
           f"memory {peak / 2**30:.3f} GiB; loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; launches K3 forward {n_fwd}, backward "
           f"{n_bwd}")
-    if n_fwd != want or any(n != want for n in n_bwd.values()):
+    if n_fwd != want or not _bwd_counts_ok(n_bwd, _bwd_kernels(BWD_MAIN, dev),
+                                           want):
         raise AssertionError(f"K3 launched {n_fwd} forward and {n_bwd} "
                              f"backward in {TRAIN_STEPS} steps, expected "
                              f"{want} each")
@@ -1349,7 +1369,8 @@ def run_fed_main_path(dev) -> dict:
     want_fwd = FED_ROUNDS * cfg.n_layers * (FED_C * FED_LOCAL + FED_C)
     if not (n2 == leaves * FED_ROUNDS == 12 * FED_ROUNDS and simplex
             and n_fwd == want_fwd
-            and all(n == cfg.n_layers * steps for n in n_bwd.values())
+            and _bwd_counts_ok(n_bwd, _bwd_kernels(BWD_FED, dev),
+                               cfg.n_layers * steps)
             and all(np.isfinite(hist["target_loss"]))):
         raise AssertionError(f"federated LM: K2 {n2}, K3 {n_fwd}/{n_bwd}, "
                              f"pi {hist['pi']}")
@@ -1629,37 +1650,80 @@ def attention_report(dev, n3, err3, floor):
         "library_backend": sdpa_backends(sdpa)}
 
 
-def attention_bwd_report(dev, n_bwd, err, floor):
-    """K3's backward row at the training main path's shape (smollm-135m, B
-    8 x S 256, fp32): the three kernels' steady and cold ms together, the
-    plain backward's ms, the bound (five products of 2·Dh FLOPs for each
-    unmasked (query, key) pair of each head at 67 TFLOP/s fp32, or the
-    bytes of q, k, v, o, dO and the LSE read and dq, dk, dv and D written),
-    and
-    SDPA's backward (forward and backward less the forward) under each
-    backend that takes fp32 as the yardstick."""
-    from repro_torch.kernels import flash_attention as k3
-    from repro_torch.kernels.ref import flash_attention_bwd_ref
-    B, Sq, Skv, H, KH, Dh, causal, window = BWD_MAIN
-    q, k, v, dout = _bwd_inputs(BWD_MAIN, dev)
+def k3_bwd_times(dev, shape, k3=None, calls=None) -> dict:
+    """K3's backward at ``shape`` (fp32): the kernels' steady and cold ms
+    together and each one's steady ms (its launches at ``shape``), the
+    bounds (five products of 2·Dh FLOPs for each unmasked (query, key)
+    pair of each head: split TF32 at 495 TFLOP/s, three TF32 products for
+    each; fp32 at 67 TFLOP/s on the CUDA cores; the bytes of q, k, v, o, dO
+    and the LSE read and dq, dk, dv and D written), and SDPA's backward on
+    the same inputs. ``k3`` is the module whose forward gives o and the
+    LSE (the port on the path by default); ``calls(q, k, v, out, lse, dout,
+    causal, window)`` returns the backward's launches as (name, launch)
+    pairs (by default ``k3._backward_launches``'s), so another version of
+    the kernels can be timed the same way."""
+    if k3 is None:
+        from repro_torch.kernels import flash_attention as k3
+    if calls is None:
+        def calls(*args):
+            return k3._backward_launches(*args)[1]
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    q, k, v, dout = _bwd_inputs(shape, dev)
     out, lse = k3._launch(q, k, v, causal, window, with_lse=True)
+    launches = calls(q, k, v, out, lse, dout, causal, window)
+
+    def bwd():
+        for _, launch in launches:
+            launch()
+
     pairs = _unmasked_pairs(Sq, Skv, causal, window)
     ops = 5 * 2 * Dh * pairs * B * H
     nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
                   + 2 * lse.numel())      # q, o, dO, dq; k, dk; v, dv; LSE, D
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS * 1e3
+    split_ms = SPLIT_TF32_TERMS * ops / TF32_FLOPS * 1e3
+    fp32_ms = ops / FP32_FLOPS * 1e3
+    ms = time_ms(bwd)
+    row = {
+        "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KH": KH, "Dh": Dh,
+                  "causal": causal, "window": window, "dtype": "float32"},
+        "ms": ms, "cold_ms": cold_ms(bwd, dev),
+        "kernel_ms": {name: time_ms(launch) for name, launch in launches},
+        "bound_ms": max(bytes_ms, split_ms),
+        "bound_by": "bytes" if bytes_ms >= split_ms else "operations",
+        "bound_route": "split TF32: 3 x the FLOPs at 495 TFLOP/s",
+        "bound_tf32_ms": split_ms, "bound_fp32_cuda_core_ms": fp32_ms,
+        "bound_bytes_ms": bytes_ms, "bound_flops": ops,
+        "bound_share": max(bytes_ms, split_ms) / ms,
+        **sdpa_backward(q, k, v, dout, causal)}
+    del q, k, v, dout, out, lse, launches
+    torch.cuda.empty_cache()
+    return row
 
-    def bwd():
-        return k3._launch_backward(q, k, v, out, lse, dout, causal, window)
 
+def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path):
+    """K3's backward row at one main path's shape (the training path's, B 8
+    x S 256, or the federated one's, B 4 x S 128; fp32): ``k3_bwd_times``
+    with the launches that path made, the error phase 6 found at that
+    shape and the plain backward's ms."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    causal, window = shape[6], shape[7]
+    q, k, v, dout = _bwd_inputs(shape, dev)
+    out, lse = k3._launch(q, k, v, causal, window, with_lse=True)
+    plain_ms = time_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, out, lse, dout, causal=causal, window=window),
+        iters=5, reps=5)
+    plan = k3.backward_plan(*shape, k3._sm_count(dev))
     return {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "design": "three kernels, fp32 FMAs on the CUDA cores: D = "
-                  "rowsum(dO*O); dK, dV a block per (KV tile, KV head, "
-                  "batch) over the visible query tiles and the G heads; dQ "
-                  "a block per (query tile, head, batch); P recomputed from "
-                  "the forward's row LSE; no atomics",
+        "name": "flash_attention_bwd", "route": "cuda", "main_path": main_path,
+        "design": "split-TF32 wgmma for every product (S^T, dP^T, dV, dK "
+                  "in the dK/dV kernel; S, dP, dQ in the dQ kernel), two "
+                  "warpgroups a block sharing its K/V (dK/dV) or Q/dO (dQ) "
+                  "and streaming their own half of the tiles by cp.async; "
+                  "dK/dV split over the (head, query tile) steps when one "
+                  "block a key tile would leave SMs idle, the partials "
+                  "summed in split order; D = rowsum(dO*O); no atomics",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "replaces_note": "K3 has no backward on the TPU: the reference "
@@ -1667,26 +1731,24 @@ def attention_bwd_report(dev, n_bwd, err, floor):
                          "(src/repro/models/attention.py:33) under "
                          "jax.checkpoint",
         "launches": sum(n_bwd.values()), "launches_by_kernel": n_bwd,
-        "launches_per_step": sum(n_bwd.values()) // TRAIN_STEPS,
+        "launches_per_step": sum(n_bwd.values()) // (
+            TRAIN_STEPS if main_path == "train"
+            else FED_ROUNDS * FED_C * FED_LOCAL),
+        "splits": plan["splits"], "dkdv_blocks": plan["dkdv_blocks"],
+        "dq_blocks": plan["dq_blocks"],
         "max_abs_err": err[0], "atol": BWD_TOL, "rtol": BWD_TOL,
         "max_excess_over_rtol": err[1],
         "tolerance_note": "|d| <= atol + rtol·|plain|, i.e. max_excess_"
                           "over_rtol = max(|d| − rtol·|plain|) <= atol",
-        "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KH": KH, "Dh": Dh,
-                  "causal": causal, "window": window, "dtype": "float32"},
-        "ms": time_ms(bwd), "cold_ms": cold_ms(bwd, dev),
-        "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
-            q, k, v, out, lse, dout, causal=causal, window=window),
-            iters=5, reps=5),
-        "back_to_back_ms": back_to_back_ms(bwd, iters=50),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bound_flops": ops, "bound_bytes_ms": bytes_ms,
+        **k3_bwd_times(dev, shape),
+        "plain_ms": plain_ms,
+        "back_to_back_ms": back_to_back_ms(lambda: k3._launch_backward(
+            q, k, v, out, lse, dout, causal, window), iters=50),
         "forward_lse_ms": time_ms(lambda: k3._launch(q, k, v, causal, window,
                                                      with_lse=True)),
         "forward_serving_ms": time_ms(lambda: k3._launch(q, k, v, causal,
                                                          window)),
-        "floor_ms": floor, **sdpa_backward(q, k, v, dout, causal)}
+        "floor_ms": floor}
 
 
 def sdpa_backward(q, k, v, dout, causal) -> dict:
@@ -2045,8 +2107,10 @@ def main() -> int:
     rows = [k1_report(dev, n1, n1_wide, floor),
             agg_report(dev, sim, n2, err2, wide_sim, n2_wide, floor),
             attention_report(dev, n3, err3, floor),
-            attention_bwd_report(dev, trained["k3_backward"], err3_bwd,
-                                 floor)]
+            attention_bwd_report(dev, BWD_MAIN, trained["k3_backward"],
+                                 err3_bwd[BWD_MAIN], floor, "train"),
+            attention_bwd_report(dev, BWD_FED, fed["k3_backward"],
+                                 err3_bwd[BWD_FED], floor, "federated")]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}

@@ -4,10 +4,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` into ``build/lib<name>-<hash>.so`` beside this file,
-where ``<hash>`` covers the source and the flags, so an edited source
-rebuilds and an unchanged one loads from the cache. Only the package's own
-sources are built. :func:`build` starts one ``nvcc`` per source, all
-together, and waits for them.
+where ``<hash>`` covers the source, every header of the package
+(``csrc/*.cuh``, which the sources include) and the flags, so an edited
+source or header rebuilds and an unchanged one loads from the cache. Only
+the package's own sources are built. :func:`build` starts one ``nvcc`` per
+source, all together, and waits for them.
 """
 from __future__ import annotations
 
@@ -43,11 +44,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, keyed on its source and flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` is built, keyed on its source, the
+    package's headers and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: List[str] | tuple = KERNELS) -> float:

@@ -5,7 +5,9 @@
 // jax.checkpoint per KV chunk, so its backward recomputes each chunk's
 // scores; no Pallas backward exists. This file does the same recomputation
 // on the card, from the row log-sum-exp that K3's training instantiation
-// (csrc/flash_attention.cu, kLse) saves.
+// (csrc/flash_attention.cu, kLse) saves. It replaces the first version of
+// this file, whose dK/dV and dQ kernels ran every product as fp32 FMAs on
+// the CUDA cores with one dK/dV block per (key tile, KV head, batch).
 //
 // Computes, for q, dO (B, Sq, H, Dh), k, v (B, Skv, KH, Dh), the forward's
 // o (B, Sq, H, Dh) and lse (B, H, Sq), all fp32 and contiguous, G = H / KH
@@ -20,97 +22,138 @@
 // Skv masked here. A fully masked row has lse = +inf and o = 0, so its P,
 // D and dS are 0 and it adds nothing to any gradient.
 //
-// Three kernels, no atomics: every output element is written by one
-// thread of one block, which sums its terms in a fixed order, so two runs
-// give the same bits.
-//   (a) attn_bwd_dot_kernel: D, one warp a (b, i, h) row.
-//   (b) attn_bwd_dkdv_kernel: one block a (KV tile, KV head, batch). It
-//       keeps its K and V tiles in shared memory and walks, for each of the
-//       G query heads, the query tiles that the causal and window bands let
-//       see its keys; each step recomputes S and dP for a 64 x 64 tile,
-//       forms P and dS, and adds P^T.dO and dS^T.Q into dV and dK, held in
-//       registers.
-//   (c) attn_bwd_dq_kernel: one block a (query tile, head, batch). It keeps
-//       its Q and dO tiles and walks the KV tiles its rows can see, adding
-//       dS.K into dQ.
+// Four kernels, no floating-point atomics: every output element is summed
+// in one fixed order, so two runs give the same bits.
+//   (a) attn_bwd_dot_kernel: D, Dh / 4 lanes a (b, i, h) row.
+//   (b) attn_bwd_dkdv_kernel: a block owns 64 keys of one KV head and walks
+//       a contiguous range of their (head g, query tile) steps; `splits`
+//       blocks share a key tile's steps (split c takes steps
+//       [n*c/splits, n*(c+1)/splits) of the n that the causal and window
+//       bands leave) and write partial dK, dV.
+//   (r) attn_bwd_reduce_kernel: with splits > 1, dK and dV as the sum of
+//       the partials in split order.
+//   (c) attn_bwd_dq_kernel: a block owns 64 query rows of one head and
+//       walks the key tiles its rows can see.
 //
-// What bounds it on this card: operations. Each unmasked (query, key)
-// pair of each head costs five products of Dh multiply-adds in the
-// algorithm (S, dP, dV, dK, dQ); this design computes S and dP twice (in
-// (b) and in (c)), seven in all. At the training shape (B 8, S 256, H 9,
-// Dh 64, causal) the five are 1.5 GFLOP, 22.5 us at 67 TFLOP/s fp32; the
-// bytes (q, k, v, o, dO, lse read, dq, dk, dv written, ~8 MB) take 2.5 us
-// at 3.35 TB/s.
+// What bounds it on this card: operations. Each unmasked (query, key) pair
+// of each head costs five products of Dh multiply-adds (S, dP, dV, dK,
+// dQ). At the training shape (B 8, S 256, H 9, KH 3, Dh 64, causal) that
+// is 1.516 GFLOP: in split TF32 (three TF32 products for each) 4.55 GFLOP
+// at 495 TFLOP/s, 9.19 us; on the fp32 CUDA cores 22.6 us at 67 TFLOP/s;
+// the bytes (q, k, v, o, dO, lse read, dq, dk, dv, D written, ~25 MB) take
+// 7.6 us at 3.35 TB/s. As run, (b) and (c) each recompute S and dP (seven
+// products) over whole tiles (40,960 pairs a head against 32,896
+// unmasked), so the tensor cores do 1.74 times the bound's work: 16 us.
 //
-// What the design does about it: fp32 FMAs on the CUDA cores (the
-// gradients are checked against a float64 reference, and TF32 would need
-// the forward's split into three products). 256 threads a block as a
-// 16 x 16 grid; each thread owns a 4 x 4 tile of S and dP and a 4 x Dh/16
-// tile of its block's gradient, rows ty + 16 i and columns tx + 16 j, so
-// in every product a warp reads two broadcast addresses of one operand
-// and 16 consecutive (or odd-stride) words of the other, free of bank
-// conflicts with rows padded to Dh + 1 and 64 + 1 words. Tiles wholly
-// outside the causal or window band are skipped.
-// Left for later: tensor cores (split TF32 wgmma, as the forward), and
-// a single pass for dK, dV and dQ.
+// What the design does about it:
+// - Every product runs on the tensor cores as wgmma.mma_async ... .tf32 in
+//   split TF32 (wgmma_tf32.cuh, shared with the forward; the split rounds
+//   with two integer operations, split4_int, not cvt.rna). Each tile's dV,
+//   dK or dQ product is summed in fresh registers and joins its running
+//   sum in one fp32 add: a chain that accumulated inside the tensor core
+//   would drift past the fp32 gate, as the forward's P.V did.
+// - Layouts for TF32 wgmma, which reads only K-major operands from shared
+//   memory. (b): S^T = K.Q^T and dP^T = V.dO^T with K and V as A and Q and
+//   dO K-major as stored; then dV += P^T.dO and dK += dS^T.Q with P^T and
+//   dS^T as register A fragments taken straight from the S^T and dP^T
+//   accumulators, so dO and Q are also written transposed (head dim as
+//   rows, queries as the contraction, permuted within each group of 8 so
+//   that a thread's accumulator columns 2t, 2t+1 are its A positions t,
+//   t+4). (c): the forward's S = Q.K^T and dP = dO.V^T, then dQ += dS.K
+//   with K written transposed and permuted the same way. Every operand is
+//   split into big and small halves on its way into the canonical
+//   no-swizzle layout (conflict-free: 8 threads write one 128-byte core
+//   matrix).
+// - Two warpgroups a block at Dh 64. They share the block's own operand
+//   (K and V in (b), Q and dO in (c), loaded once by both) and each walks
+//   every other step with tiles of its own, so one group's conversion and
+//   softmax run while the other's products do; at the end the second
+//   group's sums join the first's through shared memory, in that order.
+//   Steps are 32 queries in (b) and 32 keys in (c). Shared memory: (b) K
+//   and V in both halves (64 KB), and per group Q, Q^T, dO, dO^T (64 KB),
+//   the next step's raw Q and dO (16 KB) and two sets of the step's lse
+//   and D: 225 KB of the 227 KB a block can have; (c) Q and dO (64 KB),
+//   per group K, V, K^T (48 KB) and the raw K and V (16 KB): 192 KB. At
+//   Dh 128 one warpgroup a block, with 16-wide steps (208 KB and 192 KB;
+//   (b) holds 128 accumulators a thread and spills a few hundred bytes).
+//   Blocks of 256 threads (128 at Dh 128) at up to 255 registers, one a
+//   SM.
+// - A group's next step's raw tiles (and lse, D) are copied with cp.async
+//   while its current step's products run; the conversion into split
+//   layouts sits between two barriers of that group alone. S (S^T) and dP
+//   (dP^T) are committed as two groups, so P is formed while dP is still
+//   on the tensor cores. Steps whose tile is wholly unmasked skip the
+//   per-element mask.
+// - Filling the card: at the training shape one block per (key tile, KV
+//   head, batch) is 4 x 3 x 8 = 96 blocks on 132 SMs, and under the causal
+//   mask key tile 0 walks 24 steps (8 query tiles x 3 heads) while the
+//   mean SM has 1440 / 132 = 10.9: the heaviest blocks set the time. The
+//   wrapper (kernels/flash_attention.py::backward_plan) picks `splits`, the
+//   smallest count that gives at least one block a SM, capped so that the
+//   busiest key tile still gives each split a step a warpgroup: 2 at the
+//   training shape (192 blocks of 12, 9, 6 or 3 steps, key tile 0 first;
+//   on an H100 dK/dV took 41 us against 66 us unsplit, and 3, 4 or 6
+//   splits were slower than 2), 6 at the federated shape (B 4, S 128: 144
+//   blocks of at most 2 steps, where one block a key tile gave 24). With
+//   splits > 1 the partials ((splits, B, Skv, KH, Dh) each for dK and dV,
+//   6.3 MB at the training shape, held in L2) are summed by (r). (c)'s
+//   grid is (query tile, head, batch) with the last query tiles (the most
+//   keys under causal) first, as the forward orders its rows.
+// Left for later: computing S and dP once for both dK/dV and dQ, a deeper
+// cp.async ring (shared memory is full at Dh 64), folding D and the reduce
+// into the other kernels, and bf16 (the reference trains in fp32).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma_tf32.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid
-constexpr int kBQ = 64;        // query rows a tile
-constexpr int kBK = 64;        // keys a tile
-constexpr int kPad = 1;        // words added to each shared-memory row
+constexpr int kWGThreads = 128;   // a warpgroup
+constexpr int kDotThreads = 256;  // (a), (r)
+constexpr int kKeyTile = 64;      // (b): the keys a block owns (wgmma's M)
+constexpr int kRowTile = 64;      // (c): the query rows a block owns
 
-template <int DH>
-struct Smem {
-  static constexpr int kLd = DH + kPad;     // Q, dO, K, V rows
-  static constexpr int kLdP = kBK + kPad;   // P, dS rows
-  static constexpr int kTile = kBQ * kLd;   // = kBK * kLd
-  static constexpr int kPTile = kBQ * kLdP;
-  // (b): K, V, Q, dO, P, dS, lse, D;  (c): Q, dO, K, V, dS, lse, D
-  static constexpr int kDkdvBytes = (4 * kTile + 2 * kPTile + 2 * kBQ) * 4;
-  static constexpr int kDqBytes = (4 * kTile + kPTile + 2 * kBQ) * 4;
+// Warpgroups a block, (b)'s query tile and (c)'s key tile (the N of S^T
+// and S, and the contraction of the dV, dK and dQ products)
+template <int DH> struct Cfg;
+template <> struct Cfg<64> {
+  static constexpr int kWG = 2, kQ = 32, kK = 32;
+};
+template <> struct Cfg<128> {
+  static constexpr int kWG = 1, kQ = 16, kK = 16;
 };
 
-// acc[i][j] += sum_{c < n} A(ty + 16 i, c) * B(c, tx + 16 j) with
-// A(r, c) = a[r * ar + c * ac] and B(c, n) = b[c * bc + n * bn]
-template <int RM, int RN>
-__device__ __forceinline__ void tile_mma(float (&acc)[RM][RN],
-                                         const float* a, int ar, int ac,
-                                         const float* b, int bc, int bn,
-                                         int n, int ty, int tx) {
-#pragma unroll 4
-  for (int c = 0; c < n; ++c) {
-    float av[RM], bv[RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) av[i] = a[(ty + 16 * i) * ar + c * ac];
-#pragma unroll
-    for (int j = 0; j < RN; ++j) bv[j] = b[c * bc + (tx + 16 * j) * bn];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// rows [r0, r0 + 64) of a (.., rows, heads, DH) tensor's head `head` into a
-// padded shared tile; rows past `rows` read as 0
+// (b)'s shared memory, in bytes from a 128-aligned base: K and V, then
+// each warpgroup's Q, Q^T, dO, dO^T, raw Q and dO and two sets of lse and
+// D. Each split operand is a big half then a small half, `half` bytes on.
 template <int DH>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t batch_off, int r0,
-                                          int rows, int heads, int head,
-                                          int tid) {
-  for (int u = tid; u < 64 * DH; u += kThreads) {
-    const int r = u / DH, c = u % DH, row = r0 + r;
-    dst[r * (DH + kPad) + c] =
-        row < rows
-            ? src[((batch_off + row) * heads + head) * static_cast<int64_t>(DH) + c]
-            : 0.f;
-  }
-}
+struct DkdvSmem {
+  static constexpr int kWG = Cfg<DH>::kWG, kQT = Cfg<DH>::kQ;
+  static constexpr uint32_t kKV = kKeyTile * DH * 4;  // K or V, one half
+  static constexpr uint32_t kQh = kQT * DH * 4;       // Q-sized, one half
+  static constexpr uint32_t kK = 0, kV = 2 * kKV, kGroup0 = 4 * kKV;
+  static constexpr uint32_t kQ = 0, kQt = 2 * kQh, kO = 4 * kQh,
+                            kOt = 6 * kQh, kRawQ = 8 * kQh, kRawO = 9 * kQh,
+                            kStats = 10 * kQh;        // within a group
+  static constexpr uint32_t kGroup = kStats + 2 * 2 * kQT * 4;
+  static constexpr uint32_t kBytes = kGroup0 + kWG * kGroup + 128;
+};
+
+// (c)'s shared memory: Q and dO, then each warpgroup's K, V, K^T and raw
+// K and V
+template <int DH>
+struct DqSmem {
+  static constexpr int kWG = Cfg<DH>::kWG, kKT = Cfg<DH>::kK;
+  static constexpr uint32_t kQh = kRowTile * DH * 4;  // Q or dO, one half
+  static constexpr uint32_t kKh = kKT * DH * 4;       // K-sized, one half
+  static constexpr uint32_t kQ = 0, kO = 2 * kQh, kGroup0 = 4 * kQh;
+  static constexpr uint32_t kK = 0, kV = 2 * kKh, kKt = 4 * kKh,
+                            kRawK = 6 * kKh, kRawV = 7 * kKh;  // in a group
+  static constexpr uint32_t kGroup = 8 * kKh;
+  static constexpr uint32_t kBytes = kGroup0 + kWG * kGroup + 128;
+};
 
 __device__ __forceinline__ bool visible(int i, int j, int Sq, int Skv,
                                         int causal, int window) {
@@ -118,65 +161,220 @@ __device__ __forceinline__ bool visible(int i, int j, int Sq, int Skv,
          (window <= 0 || j > i - window);
 }
 
-// S and dP for the 64 x 64 tile of queries q0.. (rows of Qs, dOs) and keys
-// k0.. (rows of Ks, Vs); writes P into Ps (when non-null) and dS into dSs
+// whether every (i, j) of queries [i_lo, i_hi] x keys [j_lo, j_hi] is
+// unmasked, so that a step can skip the per-element test
+__device__ __forceinline__ bool all_visible(int i_lo, int i_hi, int j_lo,
+                                            int j_hi, int Sq, int Skv,
+                                            int causal, int window) {
+  return i_hi < Sq && j_hi < Skv && (!causal || j_hi <= i_lo) &&
+         (window <= 0 || j_lo > i_hi - window);
+}
+
+// a barrier over the 128 threads of warpgroup wg only (ids 1, 2, ...)
+__device__ __forceinline__ void group_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ void store_split(uint8_t* big, uint32_t half,
+                                            uint32_t off, const float4& x) {
+  float4 hi, lo;
+  split4_int(x, hi, lo);
+  *reinterpret_cast<float4*>(big + off) = hi;
+  *reinterpret_cast<float4*>(big + half + off) = lo;
+}
+
+// Loops over the u < N elements of a tile, u = it * T + tid for T
+// threads, fully unrolled so that a thread's loads are all in flight
+// together
+template <int N, int T>
+struct Passes {
+  static_assert(N % T == 0, "a tile is a whole number of passes");
+  static constexpr int value = N / T;
+};
+
+// Row and column (in c) of float4 u of a tile of DH-float rows, in an
+// order free of bank conflicts for the K-major writes (and reads of a
+// row-major tile): each 8 threads take rows r..r+7 at column groups
+// rotated by the row.
 template <int DH>
-__device__ __forceinline__ void probs_and_ds(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    const float* lse_s, const float* D_s, float* Ps, float* dSs, int q0,
-    int k0, int Sq, int Skv, int causal, int window, float scale, int ty,
-    int tx) {
-  constexpr int kLd = DH + kPad, kLdP = kBK + kPad;
-  float s[4][4], dp[4][4];
+__device__ __forceinline__ int rotated(int u, int& c) {
+  const int j = u & 7, rest = u >> 3;
+  const int cc = rest % (DH / 4);
+  c = ((cc & ~7) | ((cc + j) & 7)) * 4;
+  return (rest / (DH / 4)) * 8 + j;
+}
+
+// ROWS rows of DH floats, row-major at `raw`, into a split K-major operand
+// (rows as rows), by one warpgroup
+template <int ROWS, int DH>
+__device__ __forceinline__ void to_kmajor(const float* raw, uint8_t* dst,
+                                          uint32_t half, int tid) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-  tile_mma<4, 4>(s, Qs, kLd, 1, Ks, 1, kLd, DH, ty, tx);
-  tile_mma<4, 4>(dp, dOs, kLd, 1, Vs, 1, kLd, DH, ty, tx);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const float p = visible(q0 + r, k0 + c, Sq, Skv, causal, window)
-                          ? expf(s[i][j] * scale - lse_s[r])
-                          : 0.f;
-      if (Ps != nullptr) Ps[r * kLdP + c] = p;
-      dSs[r * kLdP + c] = p * (dp[i][j] - D_s[r]);
-    }
+  for (int it = 0; it < Passes<ROWS * (DH / 4), kWGThreads>::value; ++it) {
+    int c;
+    const int r = rotated<DH>(it * kWGThreads + tid, c);
+    store_split(dst, half, kmajor(r, c, ROWS),
+                *reinterpret_cast<const float4*>(raw + r * DH + c));
   }
 }
 
-// lse and D of the query rows q0.. of head h; rows past Sq read as 0
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* D_s,
-                                               const float* lse,
-                                               const float* D, int64_t bh,
-                                               int q0, int Sq, int tid) {
-  if (tid < kBQ) {
-    const int i = q0 + tid;
-    lse_s[tid] = i < Sq ? lse[bh * Sq + i] : 0.f;
-    D_s[tid] = i < Sq ? D[bh * Sq + i] : 0.f;
+// The same rows transposed: head dim as rows, the ROWS positions as the
+// contraction, position p of each group of 8 holding row 2*(p%4) + p/4,
+// so that an accumulator fragment (a thread's columns 2t, 2t+1) is the A
+// fragment (positions t, t+4) of a product over those rows
+template <int ROWS, int DH>
+__device__ __forceinline__ void to_transposed(const float* raw, uint8_t* dst,
+                                              uint32_t half, int tid) {
+#pragma unroll
+  for (int it = 0; it < Passes<DH * (ROWS / 4), kWGThreads>::value; ++it) {
+    const int u = it * kWGThreads + tid;
+    const int n = u % DH, p4 = u / DH;
+    const int r0 = (p4 >> 1) * 8 + (p4 & 1);
+    store_split(dst, half, kmajor(n, p4 * 4, DH),
+                make_float4(raw[r0 * DH + n], raw[(r0 + 2) * DH + n],
+                            raw[(r0 + 4) * DH + n], raw[(r0 + 6) * DH + n]));
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ROWS rows row0.. of head `head` of a (.., rows, heads, DH) tensor straight
+// from global memory into a split K-major operand, by the T threads of the
+// block; rows past `rows` are 0
+template <int ROWS, int DH, int T>
+__device__ __forceinline__ void load_kmajor(const float* src,
+                                            int64_t batch_off, int row0,
+                                            int rows, int heads, int head,
+                                            uint8_t* dst, uint32_t half,
+                                            int tid) {
+  constexpr int kIt = Passes<ROWS * (DH / 4), T>::value;
+  float4 x[kIt];
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    int c;
+    const int r = rotated<DH>(it * T + tid, c);
+    x[it] = row0 + r < rows
+                ? *reinterpret_cast<const float4*>(
+                      src + ((batch_off + row0 + r) * heads + head) *
+                                static_cast<int64_t>(DH) + c)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int it = 0; it < kIt; ++it) {
+    int c;
+    const int r = rotated<DH>(it * T + tid, c);
+    store_split(dst, half, kmajor(r, c, ROWS), x[it]);
+  }
+}
+
+// cp.async of ROWS rows row0.. of head `head` into a row-major raw tile, by
+// one warpgroup; rows past `rows` are zero-filled
+template <int ROWS, int DH>
+__device__ __forceinline__ void copy_rows(const float* src, int64_t batch_off,
+                                          int row0, int rows, int heads,
+                                          int head, uint32_t dst, int tid) {
+#pragma unroll
+  for (int it = 0; it < Passes<ROWS * (DH / 4), kWGThreads>::value; ++it) {
+    const int u = it * kWGThreads + tid;
+    const int r = u / (DH / 4), c = (u % (DH / 4)) * 4;
+    const bool ok = row0 + r < rows;
+    const float* p =
+        ok ? src + ((batch_off + row0 + r) * heads + head) *
+                       static_cast<int64_t>(DH) + c
+           : src;
+    cp_async16(dst + u * 16, p, ok ? 16 : 0);
+  }
+}
+
+// acc += A . B over K/8 k-steps: A from registers (a[4j..4j+3] are the
+// accumulator fragment of a 64 x K product, so positions t, t+4 of k-step j
+// are its columns 8j + 2t, 8j + 2t + 1), B the transposed operand (DH rows,
+// big half at `bb`, small half at `bs`) for output columns 64c.. of DH.
+// Split TF32, small terms first, in fresh registers, then one fp32 add.
+template <int K, int DH>
+__device__ __forceinline__ void product_rs(float (&acc)[DH / 2],
+                                           const uint32_t (&ab)[K / 2],
+                                           const uint32_t (&as)[K / 2],
+                                           uint32_t bb, uint32_t bs) {
+#pragma unroll
+  for (int c = 0; c < DH / 64; ++c) {
+    float t[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) t[x] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j)
+      wgmma_rs_n64(t, as[4 * j], as[4 * j + 2], as[4 * j + 1], as[4 * j + 3],
+                   desc(bb + c * 2048 + j * DH * 32));
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j)
+      wgmma_rs_n64(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
+                   desc(bs + c * 2048 + j * DH * 32));
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j)
+      wgmma_rs_n64(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
+                   desc(bb + c * 2048 + j * DH * 32));
+    wgmma_commit_and_wait();
+    fence_regs(t);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[32 * c + x] += t[x];
+  }
+}
+
+// d (64 x N) = A . B^T over DH, both split K-major in shared memory (A of
+// 64 rows, B of N rows; big halves at ab, bb, small ones `ah`, `bh` bytes
+// on): small terms first. Issued, not waited for.
+template <int N, int DH>
+__device__ __forceinline__ void product_ss(float (&d)[N / 2], uint32_t ab,
+                                           uint32_t ah, uint32_t bb,
+                                           uint32_t bh) {
+#pragma unroll
+  for (int k8 = 0; k8 < DH / 8; ++k8)
+    wgmma_ss<N>(d, desc(ab + ah + k8 * 64 * 32), desc(bb + k8 * N * 32),
+                k8 > 0);
+#pragma unroll
+  for (int k8 = 0; k8 < DH / 8; ++k8)
+    wgmma_ss<N>(d, desc(ab + k8 * 64 * 32), desc(bb + bh + k8 * N * 32), 1);
+#pragma unroll
+  for (int k8 = 0; k8 < DH / 8; ++k8)
+    wgmma_ss<N>(d, desc(ab + k8 * 64 * 32), desc(bb + k8 * N * 32), 1);
+}
+
+// With two warpgroups a block, the second parks its sums in shared memory
+// (`buf`, N floats a thread) and the first adds them to its own: first +
+// second, a fixed order
+template <int N>
+__device__ __forceinline__ void park(const float (&a)[N], float* buf,
+                                     int tid) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) buf[x * kWGThreads + tid] = a[x];
+}
+template <int N>
+__device__ __forceinline__ void gather(float (&a)[N], const float* buf,
+                                       int tid) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) a[x] += buf[x * kWGThreads + tid];
+}
+
+// one float4 a thread, DH / 4 lanes a row
+template <int DH>
+__global__ void __launch_bounds__(kDotThreads)
 attn_bwd_dot_kernel(const float* __restrict__ dout,
                     const float* __restrict__ out, float* __restrict__ D,
-                    int B, int Sq, int H, int DH) {
-  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kThreads +
-                       threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= static_cast<int64_t>(B) * Sq * H) return;
-  const float* a = dout + row * DH;
-  const float* o = out + row * DH;
+                    int B, int Sq, int H) {
+  constexpr int kLanes = DH / 4;
+  const int64_t u = static_cast<int64_t>(blockIdx.x) * kDotThreads +
+                    threadIdx.x;
+  const int64_t row = u / kLanes;
+  const bool ok = row < static_cast<int64_t>(B) * Sq * H;
   float s = 0.f;
-  for (int d = lane; d < DH; d += 32) s = fmaf(a[d], o[d], s);
+  if (ok) {
+    const float4 a = reinterpret_cast<const float4*>(dout)[u];
+    const float4 o = reinterpret_cast<const float4*>(out)[u];
+    s = fmaf(a.x, o.x, fmaf(a.y, o.y, fmaf(a.z, o.z, a.w * o.w)));
+  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = kLanes / 2; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {  // row = (b * Sq + i) * H + h  ->  D[(b * H + h) * Sq + i]
+  if (ok && u % kLanes == 0) {  // row = (b * Sq + i) * H + h -> (b, h, i)
     const int64_t h = row % H, bi = row / H;
     const int64_t b = bi / Sq, i = bi % Sq;
     D[(b * H + h) * Sq + i] = s;
@@ -184,132 +382,356 @@ attn_bwd_dot_kernel(const float* __restrict__ dout,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Cfg<DH>::kWG * kWGThreads, 1)
 attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ D, float* __restrict__ dk,
-                     float* __restrict__ dv, int Sq, int Skv, int H, int KH,
-                     int causal, int window, float scale) {
-  using S = Smem<DH>;
-  constexpr int kLd = S::kLd, kLdP = S::kLdP, RN = DH / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + S::kTile;
-  float* Qs = Vs + S::kTile;
-  float* dOs = Qs + S::kTile;
-  float* Ps = dOs + S::kTile;
-  float* dSs = Ps + S::kPTile;
-  float* lse_s = dSs + S::kPTile;
-  float* D_s = lse_s + kBQ;
+                     float* __restrict__ dv, int B, int Sq, int Skv, int H,
+                     int KH, int causal, int window, int splits,
+                     int64_t split_stride, float scale) {
+  using L = DkdvSmem<DH>;
+  constexpr int QT = L::kQT, WG = L::kWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 127u) & ~127u;
+  uint8_t* smem = smem_raw + (base - raw_base);
 
-  const int k0 = blockIdx.x * kBK, kh = blockIdx.y, b = blockIdx.z;
+  // block -> (key tile, batch, KV head, split), key tile slowest: under the
+  // causal mask the first key tiles have the most steps and start first
+  int id = blockIdx.x;
+  const int c = id % splits;
+  id /= splits;
+  const int kh = id % KH;
+  id /= KH;
+  const int b = id % B, k0 = (id / B) * kKeyTile;
   const int G = H / KH;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  load_rows<DH>(Ks, k, static_cast<int64_t>(b) * Skv, k0, Skv, KH, kh, tid);
-  load_rows<DH>(Vs, v, static_cast<int64_t>(b) * Skv, k0, Skv, KH, kh, tid);
+  const int wg = threadIdx.x / kWGThreads, tid = threadIdx.x % kWGThreads;
+  const uint32_t gbase = base + L::kGroup0 + wg * L::kGroup;
+  uint8_t* gsmem = smem + L::kGroup0 + wg * L::kGroup;
 
-  // the queries that can see keys [k0, k_last]
-  const int k_last = min(k0 + kBK, Skv) - 1;
+  // the queries that can see keys [k0, k_last], in tiles; the steps are
+  // (g, query tile) with g slowest, this block takes [s_lo, s_hi) and
+  // warpgroup wg every WG-th of them from s_lo + wg
+  const int k_last = min(k0 + kKeyTile, Skv) - 1;
   const int q_begin = causal ? k0 : 0;
   const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int qt0 = q_begin / QT;
+  const int nq = q_end > q_begin ? (q_end + QT - 1) / QT - qt0 : 0;
+  const int64_t n = static_cast<int64_t>(G) * nq;
+  const int s_lo = static_cast<int>(n * c / splits);
+  const int s_hi = static_cast<int>(n * (c + 1) / splits);
 
-  float dk_acc[4][RN], dv_acc[4][RN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kh * G + g;
-    const int64_t bh = static_cast<int64_t>(b) * H + h;
-    for (int q0 = (q_begin / kBQ) * kBQ; q0 < q_end; q0 += kBQ) {
-      __syncthreads();  // the last step is done with Qs, dOs, Ps, dSs
-      load_rows<DH>(Qs, q, static_cast<int64_t>(b) * Sq, q0, Sq, H, h, tid);
-      load_rows<DH>(dOs, dout, static_cast<int64_t>(b) * Sq, q0, Sq, H, h,
-                    tid);
-      load_row_stats(lse_s, D_s, lse, D, bh, q0, Sq, tid);
-      __syncthreads();
-      probs_and_ds<DH>(Qs, dOs, Ks, Vs, lse_s, D_s, Ps, dSs, q0, k0, Sq, Skv,
-                       causal, window, scale, ty, tx);
-      __syncthreads();
-      // dV[key][d] += sum_i P[i][key] dO[i][d]; dK likewise with dS and Q
-      tile_mma<4, RN>(dv_acc, Ps, 1, kLdP, dOs, kLd, 1, kBQ, ty, tx);
-      tile_mma<4, RN>(dk_acc, dSs, 1, kLdP, Qs, kLd, 1, kBQ, ty, tx);
+  const int64_t q_batch = static_cast<int64_t>(b) * Sq;
+  // the warpgroup's i-th step's raw Q, dO, lse and D, by cp.async
+  auto issue = [&](int i) {
+    const int s = s_lo + wg + i * WG;
+    const int h = kh * G + s / nq, q0 = (qt0 + s % nq) * QT;
+    copy_rows<QT, DH>(q, q_batch, q0, Sq, H, h, gbase + L::kRawQ, tid);
+    copy_rows<QT, DH>(dout, q_batch, q0, Sq, H, h, gbase + L::kRawO, tid);
+    if (tid < QT) {
+      const uint32_t st = gbase + L::kStats + (i & 1) * 2 * QT * 4 + tid * 4;
+      const bool ok = q0 + tid < Sq;
+      const int64_t off =
+          ok ? (static_cast<int64_t>(b) * H + h) * Sq + q0 + tid : 0;
+      cp_async4(st, lse + off, ok ? 4 : 0);
+      cp_async4(st + QT * 4, D + off, ok ? 4 : 0);
     }
+    cp_async_commit();
+  };
+  const int steps = s_hi - s_lo > wg ? (s_hi - s_lo - wg + WG - 1) / WG : 0;
+  if (steps > 0) issue(0);
+
+  // K and V: this block's keys, split, K-major, by every thread; zeros
+  // past Skv
+  const int64_t kv_batch = static_cast<int64_t>(b) * Skv;
+  load_kmajor<kKeyTile, DH, WG * kWGThreads>(
+      k, kv_batch, k0, Skv, KH, kh, smem + L::kK, L::kKV, threadIdx.x);
+  load_kmajor<kKeyTile, DH, WG * kWGThreads>(
+      v, kv_batch, k0, Skv, KH, kh, smem + L::kV, L::kKV, threadIdx.x);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  // this thread's two key rows of the accumulators
+  const int warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const int keyA = k0 + warp * 16 + lane / 4, keyB = keyA + 8;
+  float dk_acc[DH / 2], dv_acc[DH / 2];
+#pragma unroll
+  for (int x = 0; x < DH / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    const int s = s_lo + wg + i * WG;
+    cp_async_wait_all();
+    group_sync(wg);  // step i's raw tiles are in; step i-1's products done
+    const float* rq = reinterpret_cast<const float*>(gsmem + L::kRawQ);
+    const float* ro = reinterpret_cast<const float*>(gsmem + L::kRawO);
+    to_kmajor<QT, DH>(rq, gsmem + L::kQ, L::kQh, tid);
+    to_transposed<QT, DH>(rq, gsmem + L::kQt, L::kQh, tid);
+    to_kmajor<QT, DH>(ro, gsmem + L::kO, L::kQh, tid);
+    to_transposed<QT, DH>(ro, gsmem + L::kOt, L::kQh, tid);
+    // the split tiles were written by the generic proxy; wgmma reads them
+    // through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    group_sync(wg);  // the raw buffers are free
+    if (i + 1 < steps) issue(i + 1);
+    const int q0 = (qt0 + s % nq) * QT;
+    const float* lse_s = reinterpret_cast<const float*>(
+        gsmem + L::kStats + (i & 1) * 2 * QT * 4);
+    const float* D_s = lse_s + QT;
+
+    // S^T = K.Q^T and dP^T = V.dO^T (64 keys x QT queries), two groups:
+    // P is formed while dP^T is still on the tensor cores
+    float st[QT / 2], dpt[QT / 2];
+#pragma unroll
+    for (int x = 0; x < QT / 2; ++x) st[x] = dpt[x] = 0.f;
+    wgmma_fence();
+    product_ss<QT, DH>(st, base + L::kK, L::kKV, gbase + L::kQ, L::kQh);
+    wgmma_commit();
+    product_ss<QT, DH>(dpt, base + L::kV, L::kKV, gbase + L::kO, L::kQh);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // P^T on the fragments, split: st[4j + e] is (keyA, query q0 + 8j +
+    // 2t4 + e) and st[4j + 2 + e] is (keyB, the same query)
+    const bool all = all_visible(q0, q0 + QT - 1, k0, k0 + kKeyTile - 1, Sq,
+                                 Skv, causal, window);
+    uint32_t pb[QT / 2], ps[QT / 2];
+#pragma unroll
+    for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t4 + e, qi = q0 + col;
+        const float l = lse_s[col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * j + 2 * r + e;
+          const float p =
+              all || visible(qi, r ? keyB : keyA, Sq, Skv, causal, window)
+                  ? expf(st[x] * scale - l)
+                  : 0.f;
+          pb[x] = tf32_int(p);
+          ps[x] = tf32_int(p - __uint_as_float(pb[x]));
+        }
+      }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    // dV += P^T.dO; then dS^T = P^T (dP^T - D), with P as its two parts
+    // (within 2^-22 of it), split, and dK += dS^T.Q (scaled at the end)
+    product_rs<QT, DH>(dv_acc, pb, ps, gbase + L::kOt,
+                       gbase + L::kOt + L::kQh);
+#pragma unroll
+    for (int x = 0; x < QT / 2; ++x) {
+      const float d = D_s[8 * (x / 4) + 2 * t4 + (x & 1)];
+      const float g = (__uint_as_float(pb[x]) + __uint_as_float(ps[x])) *
+                      (dpt[x] - d);
+      pb[x] = tf32_int(g);
+      ps[x] = tf32_int(g - __uint_as_float(pb[x]));
+    }
+    product_rs<QT, DH>(dk_acc, pb, ps, gbase + L::kQt,
+                       gbase + L::kQt + L::kQh);
   }
+
+  if constexpr (WG > 1) {  // the second group's sums join the first's
+    float* buf = reinterpret_cast<float*>(smem + L::kGroup0 + L::kGroup);
+    if (wg == 1) {
+      park(dk_acc, buf, tid);
+      park(dv_acc, buf + (DH / 2) * kWGThreads, tid);
+    }
+    __syncthreads();
+    if (wg == 1) return;
+    gather(dk_acc, buf, tid);
+    gather(dv_acc, buf + (DH / 2) * kWGThreads, tid);
+  }
+
+  // dK, dV (or this split's partials): rows past Skv are not written
+  float* dk_out = dk + c * split_stride;
+  float* dv_out = dv + c * split_stride;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int key = r ? keyB : keyA;
     if (key >= Skv) continue;
-    const int64_t off =
-        ((static_cast<int64_t>(b) * Skv + key) * KH + kh) * DH;
+    const int64_t off = ((kv_batch + key) * KH + kh) * DH + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      dk[off + tx + 16 * j] = dk_acc[i][j] * scale;
-      dv[off + tx + 16 * j] = dv_acc[i][j];
+    for (int x = 0; x < DH / 8; ++x) {  // columns 8x + 2t4, +1
+      const int a = 4 * x + 2 * r;
+      *reinterpret_cast<float2*>(dk_out + off + 8 * x) =
+          make_float2(dk_acc[a] * scale, dk_acc[a + 1] * scale);
+      *reinterpret_cast<float2*>(dv_out + off + 8 * x) =
+          make_float2(dv_acc[a], dv_acc[a + 1]);
     }
   }
 }
 
+// dk, dv (n floats each) = the sum over s < splits, in order, of the
+// partials part[s * n ..] and part[(splits + s) * n ..]
+__global__ void __launch_bounds__(kDotThreads)
+attn_bwd_reduce_kernel(const float4* __restrict__ part,
+                       float4* __restrict__ dk, float4* __restrict__ dv,
+                       int64_t n4, int splits) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kDotThreads +
+                   threadIdx.x;
+       i < 2 * n4; i += static_cast<int64_t>(gridDim.x) * kDotThreads) {
+    const int64_t w = i >= n4, e = i - w * n4;
+    const float4* p = part + w * splits * n4 + e;
+    float4 s = p[0];
+    for (int c = 1; c < splits; ++c) {
+      const float4 x = p[c * n4];
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    (w ? dv : dk)[e] = s;
+  }
+}
+
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Cfg<DH>::kWG * kWGThreads, 1)
 attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ D, float* __restrict__ dq,
+                   const float* __restrict__ D, float* __restrict__ dq, int B,
                    int Sq, int Skv, int H, int KH, int causal, int window,
                    float scale) {
-  using S = Smem<DH>;
-  constexpr int kLd = S::kLd, kLdP = S::kLdP, RN = DH / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + S::kTile;
-  float* Ks = dOs + S::kTile;
-  float* Vs = Ks + S::kTile;
-  float* dSs = Vs + S::kTile;
-  float* lse_s = dSs + S::kPTile;
-  float* D_s = lse_s + kBQ;
+  using L = DqSmem<DH>;
+  constexpr int KT = L::kKT, WG = L::kWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 127u) & ~127u;
+  uint8_t* smem = smem_raw + (base - raw_base);
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  // block -> (query tile, batch, head), the last query tiles (the most keys
+  // under the causal mask) first
+  int id = blockIdx.x;
+  const int h = id % H;
+  id /= H;
+  const int b = id % B;
+  const int n_qt = (Sq + kRowTile - 1) / kRowTile;
+  const int q0 = (n_qt - 1 - id / B) * kRowTile;
   const int kh = h / (H / KH);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int64_t bh = static_cast<int64_t>(b) * H + h;
-  load_rows<DH>(Qs, q, static_cast<int64_t>(b) * Sq, q0, Sq, H, h, tid);
-  load_rows<DH>(dOs, dout, static_cast<int64_t>(b) * Sq, q0, Sq, H, h, tid);
-  load_row_stats(lse_s, D_s, lse, D, bh, q0, Sq, tid);
+  const int wg = threadIdx.x / kWGThreads, tid = threadIdx.x % kWGThreads;
+  const uint32_t gbase = base + L::kGroup0 + wg * L::kGroup;
+  uint8_t* gsmem = smem + L::kGroup0 + wg * L::kGroup;
 
-  // the keys that rows [q0, q_last] can see
-  const int q_last = min(q0 + kBQ, Sq) - 1;
+  // the key tiles that rows [q0, q_last] can see; warpgroup wg takes every
+  // WG-th from the wg-th
+  const int q_last = min(q0 + kRowTile, Sq) - 1;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   const int k_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int kt0 = k_begin / KT;
+  const int nk = k_end > k_begin ? (k_end + KT - 1) / KT - kt0 : 0;
+  const int steps = nk > wg ? (nk - wg + WG - 1) / WG : 0;
 
-  float dq_acc[4][RN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) dq_acc[i][j] = 0.f;
+  const int64_t kv_batch = static_cast<int64_t>(b) * Skv;
+  auto issue = [&](int i) {  // the i-th step's raw K and V, by cp.async
+    const int key0 = (kt0 + wg + i * WG) * KT;
+    copy_rows<KT, DH>(k, kv_batch, key0, Skv, KH, kh, gbase + L::kRawK, tid);
+    copy_rows<KT, DH>(v, kv_batch, key0, Skv, KH, kh, gbase + L::kRawV, tid);
+    cp_async_commit();
+  };
+  if (steps > 0) issue(0);
 
-  for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the last step is done with Ks, Vs, dSs
-    load_rows<DH>(Ks, k, static_cast<int64_t>(b) * Skv, k0, Skv, KH, kh, tid);
-    load_rows<DH>(Vs, v, static_cast<int64_t>(b) * Skv, k0, Skv, KH, kh, tid);
-    __syncthreads();
-    probs_and_ds<DH>(Qs, dOs, Ks, Vs, lse_s, D_s, nullptr, dSs, q0, k0, Sq,
-                     Skv, causal, window, scale, ty, tx);
-    __syncthreads();
-    // dQ[i][d] += sum_key dS[i][key] K[key][d]
-    tile_mma<4, RN>(dq_acc, dSs, kLdP, 1, Ks, kLd, 1, kBK, ty, tx);
+  // Q and dO: this block's rows, split, K-major, by every thread; zeros
+  // past Sq
+  const int64_t q_batch = static_cast<int64_t>(b) * Sq;
+  load_kmajor<kRowTile, DH, WG * kWGThreads>(
+      q, q_batch, q0, Sq, H, h, smem + L::kQ, L::kQh, threadIdx.x);
+  load_kmajor<kRowTile, DH, WG * kWGThreads>(
+      dout, q_batch, q0, Sq, H, h, smem + L::kO, L::kQh, threadIdx.x);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  // this thread's two query rows of the accumulators, and their stats
+  const int warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const int rowA = q0 + warp * 16 + lane / 4, rowB = rowA + 8;
+  const int64_t bh = (static_cast<int64_t>(b) * H + h) * Sq;
+  const float lseA = rowA < Sq ? lse[bh + rowA] : 0.f;
+  const float lseB = rowB < Sq ? lse[bh + rowB] : 0.f;
+  const float dA = rowA < Sq ? D[bh + rowA] : 0.f;
+  const float dB = rowB < Sq ? D[bh + rowB] : 0.f;
+  float dq_acc[DH / 2];
+#pragma unroll
+  for (int x = 0; x < DH / 2; ++x) dq_acc[x] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait_all();
+    group_sync(wg);  // step i's raw K, V are in; step i-1's products done
+    const float* rk = reinterpret_cast<const float*>(gsmem + L::kRawK);
+    const float* rv = reinterpret_cast<const float*>(gsmem + L::kRawV);
+    to_kmajor<KT, DH>(rk, gsmem + L::kK, L::kKh, tid);
+    to_transposed<KT, DH>(rk, gsmem + L::kKt, L::kKh, tid);
+    to_kmajor<KT, DH>(rv, gsmem + L::kV, L::kKh, tid);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    group_sync(wg);  // the raw buffers are free
+    if (i + 1 < steps) issue(i + 1);
+    const int key0 = (kt0 + wg + i * WG) * KT;
+
+    // S = Q.K^T and dP = dO.V^T (64 rows x KT keys), two groups: P is
+    // formed while dP is still on the tensor cores
+    float sc[KT / 2], dp[KT / 2];
+#pragma unroll
+    for (int x = 0; x < KT / 2; ++x) sc[x] = dp[x] = 0.f;
+    wgmma_fence();
+    product_ss<KT, DH>(sc, base + L::kQ, L::kQh, gbase + L::kK, L::kKh);
+    wgmma_commit();
+    product_ss<KT, DH>(dp, base + L::kO, L::kQh, gbase + L::kV, L::kKh);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P, then dS, on the fragments: sc[4j + e] is (rowA, key key0 + 8j +
+    // 2t4 + e) and sc[4j + 2 + e] is (rowB, the same key)
+    const bool all = all_visible(q0, q0 + kRowTile - 1, key0, key0 + KT - 1,
+                                 Sq, Skv, causal, window);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + 2 * t4 + e;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * j + 2 * r + e;
+          sc[x] = all || visible(r ? rowB : rowA, key, Sq, Skv, causal, window)
+                      ? expf(sc[x] * scale - (r ? lseB : lseA))
+                      : 0.f;
+        }
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t ab[KT / 2], as[KT / 2];
+#pragma unroll
+    for (int x = 0; x < KT / 2; ++x) {
+      const float g = sc[x] * (dp[x] - ((x & 2) ? dB : dA));
+      ab[x] = tf32_int(g);
+      as[x] = tf32_int(g - __uint_as_float(ab[x]));
+    }
+    // dQ += dS.K (scaled at the end)
+    product_rs<KT, DH>(dq_acc, ab, as, gbase + L::kKt,
+                       gbase + L::kKt + L::kKh);
   }
+
+  if constexpr (WG > 1) {  // the second group's sums join the first's
+    float* buf = reinterpret_cast<float*>(smem + L::kGroup0 + L::kGroup);
+    if (wg == 1) park(dq_acc, buf, tid);
+    __syncthreads();
+    if (wg == 1) return;
+    gather(dq_acc, buf, tid);
+  }
+
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? rowB : rowA;
     if (row >= Sq) continue;
-    const int64_t off = ((static_cast<int64_t>(b) * Sq + row) * H + h) * DH;
+    float* dst = dq + ((q_batch + row) * H + h) * DH + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < RN; ++j) dq[off + tx + 16 * j] = dq_acc[i][j] * scale;
+    for (int x = 0; x < DH / 8; ++x) {
+      const int a = 4 * x + 2 * r;
+      *reinterpret_cast<float2*>(dst + 8 * x) =
+          make_float2(dq_acc[a] * scale, dq_acc[a + 1] * scale);
+    }
   }
 }
 
@@ -327,14 +749,21 @@ template <int DH>
 int launch_dkdv(const float* q, const float* k, const float* v,
                 const float* dout, const float* lse, const float* D,
                 float* dk, float* dv, int B, int Sq, int Skv, int H, int KH,
-                int causal, int window, float scale, cudaStream_t st) {
+                int causal, int window, int splits, float scale,
+                cudaStream_t st) {
   static bool done = false;
-  const int bytes = Smem<DH>::kDkdvBytes;
+  const int bytes = DkdvSmem<DH>::kBytes;
   const int rc = configure(attn_bwd_dkdv_kernel<DH>, bytes, done);
   if (rc != 0) return rc;
-  const dim3 grid((Skv + kBK - 1) / kBK, KH, B);
-  attn_bwd_dkdv_kernel<DH><<<grid, kThreads, bytes, st>>>(
-      q, k, v, dout, lse, D, dk, dv, Sq, Skv, H, KH, causal, window, scale);
+  const int64_t blocks =
+      static_cast<int64_t>((Skv + kKeyTile - 1) / kKeyTile) * B * KH * splits;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t stride =
+      splits > 1 ? static_cast<int64_t>(B) * Skv * KH * DH : 0;
+  attn_bwd_dkdv_kernel<DH><<<static_cast<unsigned>(blocks),
+                             Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
+      q, k, v, dout, lse, D, dk, dv, B, Sq, Skv, H, KH, causal, window,
+      splits, stride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -344,18 +773,21 @@ int launch_dq(const float* q, const float* k, const float* v,
               int B, int Sq, int Skv, int H, int KH, int causal, int window,
               float scale, cudaStream_t st) {
   static bool done = false;
-  const int bytes = Smem<DH>::kDqBytes;
+  const int bytes = DqSmem<DH>::kBytes;
   const int rc = configure(attn_bwd_dq_kernel<DH>, bytes, done);
   if (rc != 0) return rc;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  attn_bwd_dq_kernel<DH><<<grid, kThreads, bytes, st>>>(
-      q, k, v, dout, lse, D, dq, Sq, Skv, H, KH, causal, window, scale);
+  const int64_t blocks =
+      static_cast<int64_t>((Sq + kRowTile - 1) / kRowTile) * B * H;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  attn_bwd_dq_kernel<DH><<<static_cast<unsigned>(blocks),
+                           Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
+      q, k, v, dout, lse, D, dq, B, Sq, Skv, H, KH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool shape_ok(int B, int Sq, int Skv, int H, int KH, int Dh) {
-  return B >= 1 && B <= 65535 && Sq >= 1 && Skv >= 1 && KH >= 1 &&
-         H % KH == 0 && H <= 65535 && (Dh == 64 || Dh == 128);
+  return B >= 1 && Sq >= 1 && Skv >= 1 && KH >= 1 && H % KH == 0 &&
+         (Dh == 64 || Dh == 128);
 }
 
 float scale_of(int Dh) {
@@ -366,9 +798,24 @@ float scale_of(int Dh) {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue for a shape the kernels do not take
-// (Dh other than 64 or 128, H % KH != 0, B or H past 65535). Layouts as at
-// the top; every tensor fp32 and contiguous. Call (a), then (b) and (c),
-// which read D.
+// (Dh other than 64 or 128, H % KH != 0, more than 2^31 - 1 blocks).
+// Layouts as at the top; every tensor fp32, contiguous and, for q, k, v
+// and dO, 16-byte aligned (cp.async). Call (a), then (b), then (r) when
+// splits > 1, and (c); (b) and (c) read D.
+
+// The tiles, for the wrapper to check its copy of the schedule against:
+// (b)'s keys and query tile, (c)'s rows and key tile, and the warpgroups a
+// block, at head size Dh.
+extern "C" int attn_bwd_tiles(int Dh, int* key_tile, int* query_tile,
+                              int* rows, int* key_step, int* groups) {
+  if (Dh != 64 && Dh != 128) return static_cast<int>(cudaErrorInvalidValue);
+  *key_tile = kKeyTile;
+  *rows = kRowTile;
+  *groups = Dh == 64 ? Cfg<64>::kWG : Cfg<128>::kWG;
+  *query_tile = Dh == 64 ? Cfg<64>::kQ : Cfg<128>::kQ;
+  *key_step = Dh == 64 ? Cfg<64>::kK : Cfg<128>::kK;
+  return 0;
+}
 
 // (a) D (B, H, Sq) from dO and o (B, Sq, H, Dh)
 extern "C" int attn_bwd_dot_launch(const void* dout, const void* out,
@@ -376,35 +823,59 @@ extern "C" int attn_bwd_dot_launch(const void* dout, const void* out,
                                    void* stream) {
   if (!shape_ok(B, Sq, 1, H, 1, Dh))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t rows = static_cast<int64_t>(B) * Sq * H;
-  const int64_t blocks = (rows * 32 + kThreads - 1) / kThreads;
+  const int64_t lanes = static_cast<int64_t>(B) * Sq * H * (Dh / 4);
+  const int64_t blocks = (lanes + kDotThreads - 1) / kDotThreads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  attn_bwd_dot_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dout), static_cast<const float*>(out),
-      static_cast<float*>(D), B, Sq, H, Dh);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (Dh == 64)
+    attn_bwd_dot_kernel<64><<<static_cast<unsigned>(blocks), kDotThreads, 0,
+                              st>>>(f(dout), f(out), static_cast<float*>(D),
+                                    B, Sq, H);
+  else
+    attn_bwd_dot_kernel<128><<<static_cast<unsigned>(blocks), kDotThreads, 0,
+                               st>>>(f(dout), f(out), static_cast<float*>(D),
+                                     B, Sq, H);
   return static_cast<int>(cudaGetLastError());
 }
 
-// (b) dk, dv (B, Skv, KH, Dh)
+// (b) dk, dv (B, Skv, KH, Dh) with splits = 1; with splits > 1 dk and dv
+// are (splits, B, Skv, KH, Dh) partials for (r)
 extern "C" int attn_bwd_dkdv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* D, void* dk,
                                     void* dv, int B, int Sq, int Skv, int H,
                                     int KH, int Dh, int causal, int window,
-                                    void* stream) {
-  if (!shape_ok(B, Sq, Skv, H, KH, Dh))
+                                    int splits, void* stream) {
+  if (!shape_ok(B, Sq, Skv, H, KH, Dh) || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 64)
     return launch_dkdv<64>(f(q), f(k), f(v), f(dout), f(lse), f(D),
                            static_cast<float*>(dk), static_cast<float*>(dv),
-                           B, Sq, Skv, H, KH, causal, window, scale_of(Dh),
-                           st);
+                           B, Sq, Skv, H, KH, causal, window, splits,
+                           scale_of(Dh), st);
   return launch_dkdv<128>(f(q), f(k), f(v), f(dout), f(lse), f(D),
                           static_cast<float*>(dk), static_cast<float*>(dv), B,
-                          Sq, Skv, H, KH, causal, window, scale_of(Dh), st);
+                          Sq, Skv, H, KH, causal, window, splits,
+                          scale_of(Dh), st);
+}
+
+// (r) dk, dv (n floats each, n % 4 == 0) from part (2, splits, n): dK's
+// partials, then dV's
+extern "C" int attn_bwd_reduce_launch(const void* part, void* dk, void* dv,
+                                      long long n, int splits, void* stream) {
+  if (n < 4 || n % 4 != 0 || splits < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n4 = n / 4;
+  int64_t blocks = (2 * n4 + kDotThreads - 1) / kDotThreads;
+  if (blocks > 8192) blocks = 8192;  // grid-stride past that
+  attn_bwd_reduce_kernel<<<static_cast<unsigned>(blocks), kDotThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(part), static_cast<float4*>(dk),
+      static_cast<float4*>(dv), n4, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // (c) dq (B, Sq, H, Dh)

@@ -14,22 +14,26 @@ On a CUDA tensor that needs a gradient, the call goes through
 :class:`_FlashAttention`: its forward launches the kernel's training
 instantiation, which also writes each row's log-sum-exp (B, H, Sq) fp32
 (+inf for a fully masked row), and saves q, k, v, the output and that LSE;
-its backward launches the three kernels of ``csrc/flash_attention_bwd.cu``
-(D = rowsum(dO∘O), then dK and dV, then dQ), which recompute P from the
-LSE as the reference's ``chunked_attention`` recomputes each chunk under
-``jax.checkpoint``. The backward is fp32 only (the reference trains in
-fp32) and raises for bf16. Nothing falls back to the plain version on a
-card.
+its backward launches the kernels of ``csrc/flash_attention_bwd.cu`` (D =
+rowsum(dO∘O); dK and dV, in ``splits`` partials when one block per key
+tile would leave the card idle; their fixed-order sum; dQ), which
+recompute P from the LSE as the reference's ``chunked_attention``
+recomputes each chunk under ``jax.checkpoint``. :func:`backward_plan`
+picks the split. The backward is fp32 only
+(the reference trains in fp32) and raises for bf16. Nothing falls back to
+the plain version on a card.
 
-The forward multiplies on the tensor cores (``wgmma`` in TF32 with every
-operand split into a big and a small TF32 part, so fp32 keeps fp32's
-accuracy) and reads K and V through TMA, which needs 16-byte-aligned
-bases; the wrapper raises on anything less. The backward runs fp32 FMAs
-on the CUDA cores and reads plain pointers.
+Both directions multiply on the tensor cores (``wgmma`` in TF32 with
+every operand split into a big and a small TF32 part, so fp32 keeps fp32's
+accuracy). The forward reads K and V through TMA and the backward its
+tiles through ``cp.async``; both need 16-byte-aligned bases, and the
+wrapper raises on anything less (an unaligned dO is copied).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from types import MappingProxyType
 
 import torch
 
@@ -37,10 +41,20 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (64, 128)
-ALIGN = 16                   # bytes; TMA reads k and v from 16-byte bases
+ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
-# backward kernel launches since the last reset, by kernel
-backward_launches = {"dot": 0, "dkdv": 0, "dq": 0}
+# backward kernel launches since the last reset, by kernel ("reduce" runs
+# only when the plan splits dK/dV)
+backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
+# the backward's tiles (csrc/flash_attention_bwd.cu, checked against the
+# library when it loads): keys a dK/dV block owns and the query tile of its
+# steps, by head size; query rows a dQ block owns and the key tile of its
+# steps; warpgroups a block, which share its steps
+BWD_KEY_TILE = 64
+BWD_QUERY_TILE = {64: 32, 128: 16}
+BWD_ROW_TILE = 64
+BWD_KEY_STEP = {64: 32, 128: 16}
+BWD_GROUPS = {64: 2, 128: 1}
 
 _lib = None
 _bwd_lib = None
@@ -62,14 +76,77 @@ def _bwd_library() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = _build.load("flash_attention_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.attn_bwd_tiles.argtypes = [i] + [ctypes.POINTER(i)] * 5
         lib.attn_bwd_dot_launch.argtypes = [p] * 3 + [i] * 4 + [p]
-        lib.attn_bwd_dkdv_launch.argtypes = [p] * 8 + [i] * 8 + [p]
+        lib.attn_bwd_dkdv_launch.argtypes = [p] * 8 + [i] * 9 + [p]
+        lib.attn_bwd_reduce_launch.argtypes = [p] * 3 + [ctypes.c_longlong,
+                                                         i, p]
         lib.attn_bwd_dq_launch.argtypes = [p] * 7 + [i] * 8 + [p]
-        for fn in (lib.attn_bwd_dot_launch, lib.attn_bwd_dkdv_launch,
+        for fn in (lib.attn_bwd_tiles, lib.attn_bwd_dot_launch,
+                   lib.attn_bwd_dkdv_launch, lib.attn_bwd_reduce_launch,
                    lib.attn_bwd_dq_launch):
             fn.restype = ctypes.c_int
+        for dh in HEAD_DIMS:
+            got = [ctypes.c_int() for _ in range(5)]
+            lib.attn_bwd_tiles(dh, *(ctypes.byref(x) for x in got))
+            want = [BWD_KEY_TILE, BWD_QUERY_TILE[dh], BWD_ROW_TILE,
+                    BWD_KEY_STEP[dh], BWD_GROUPS[dh]]
+            if [x.value for x in got] != want:
+                raise RuntimeError(f"flash_attention_bwd's tiles at Dh {dh} "
+                                   f"are {[x.value for x in got]}, the "
+                                   f"wrapper's {want}")
         _bwd_lib = lib
     return _bwd_lib
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
+def _tiles(lo: int, hi: int, size: int):
+    """(first, count) of the tiles of ``size`` that hold [lo, hi)."""
+    return lo // size, (-(-hi // size) - lo // size if hi > lo else 0)
+
+
+def dkdv_query_tiles(t, Sq, Skv, Dh, causal, window):
+    """(first, count) of the query tiles that can see key tile ``t``."""
+    k0 = t * BWD_KEY_TILE
+    k_last = min(k0 + BWD_KEY_TILE, Skv) - 1
+    q_end = min(Sq, k_last + window) if window > 0 else Sq
+    return _tiles(k0 if causal else 0, q_end, BWD_QUERY_TILE[Dh])
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(B, Sq, Skv, H, KH, Dh, causal, window,
+                  sms) -> MappingProxyType:
+    """The backward's work split on a card of ``sms`` SMs. dK/dV has one
+    block per (key tile, batch, KV head) times ``splits``: 1 when that
+    gives at least one block a SM, else the smallest count that does,
+    capped so that the busiest key tile's (head, query tile) steps still
+    give each split one step a warpgroup (at smollm-135m's training shape
+    2 splits ran 0.083 ms on an H100, 1 split 0.102, 3 0.085, 4 0.088, 6
+    0.098: ``benchmarks/torch_kernel_times.py --bwd-splits``). Returns
+    ``splits``, both grids' block counts and the kernels launched, in
+    order ("reduce" only when splits > 1)."""
+    G = H // KH
+    n_kt = -(-Skv // BWD_KEY_TILE)
+    steps = max(G * dkdv_query_tiles(t, Sq, Skv, Dh, causal, window)[1]
+                 for t in range(n_kt))
+    base = n_kt * B * KH
+    cap = -(-steps // BWD_GROUPS[Dh])
+    splits = 1 if base >= sms else max(1, min(-(-sms // base), cap))
+    kernels = ("dot", "dkdv") + (("reduce",) if splits > 1 else ()) + ("dq",)
+    return MappingProxyType({   # cached: one read-only plan a shape
+        "splits": splits, "dkdv_blocks": base * splits,
+        "dq_blocks": -(-Sq // BWD_ROW_TILE) * B * H, "kernels": kernels})
 
 
 def reset_counts() -> None:
@@ -136,32 +213,62 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
-def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int):
-    """The three backward launches; returns (dq, dk, dv)."""
+def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
+                       splits: int | None = None):
+    """Allocates the backward's outputs and scratch and returns ((dq, dk,
+    dv), launches): the launches in order as (name, launch) pairs, each of
+    which enqueues its kernel on the current stream, adds one to its count
+    in :data:`backward_launches` and raises if the launch fails. ``splits``
+    overrides the plan's dK/dV split (to measure the rule)."""
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     lib = _bwd_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    d = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dev = q.device
+    if splits is None:
+        splits = backward_plan(B, Sq, Skv, H, KH, Dh, bool(causal),
+                               int(window), _sm_count(dev))["splits"]
+    d = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    calls = (
-        ("dot", lib.attn_bwd_dot_launch,
-         (dout.data_ptr(), out.data_ptr(), d.data_ptr(), B, Sq, H, Dh)),
-        ("dkdv", lib.attn_bwd_dkdv_launch,
-         (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-          lse.data_ptr(), d.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq,
-          Skv, H, KH, Dh, int(causal), int(window))),
-        ("dq", lib.attn_bwd_dq_launch,
-         (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-          lse.data_ptr(), d.data_ptr(), dq.data_ptr(), B, Sq, Skv, H, KH,
-          Dh, int(causal), int(window))))
-    for name, fn, args in calls:
-        rc = fn(*args, stream)
-        if rc != 0:
-            raise RuntimeError(f"flash_attention backward kernel {name} "
-                               f"launch failed: CUDA error {rc}")
-        backward_launches[name] += 1
-    return dq, dk, dv
+    masks = (int(causal), int(window))
+    calls = {
+        "dot": (lib.attn_bwd_dot_launch, (dout, out, d), (B, Sq, H, Dh)),
+        "dq": (lib.attn_bwd_dq_launch, (q, k, v, dout, lse, d, dq),
+               (B, Sq, Skv, H, KH, Dh) + masks)}
+    if splits > 1:
+        part = torch.empty((2, splits) + tuple(dk.shape), dtype=torch.float32,
+                           device=dev)
+        partials = (part[0], part[1])
+        calls["reduce"] = (lib.attn_bwd_reduce_launch, (part, dk, dv),
+                           (dk.numel(), splits))
+    else:
+        partials = (dk, dv)
+    calls["dkdv"] = (lib.attn_bwd_dkdv_launch,
+                     (q, k, v, dout, lse, d) + partials,
+                     (B, Sq, Skv, H, KH, Dh) + masks + (splits,))
+
+    def launcher(name):
+        fn, tensors, ints = calls[name]
+
+        def launch():
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(*(t.data_ptr() for t in tensors), *ints, stream)
+            if rc != 0:
+                raise RuntimeError(f"flash_attention backward kernel {name} "
+                                   f"launch failed: CUDA error {rc}")
+            backward_launches[name] += 1
+        return launch
+
+    order = ("dot", "dkdv") + (("reduce",) if splits > 1 else ()) + ("dq",)
+    return (dq, dk, dv), [(n, launcher(n)) for n in order]
+
+
+def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int):
+    """The backward's launches; returns (dq, dk, dv)."""
+    grads, launches_ = _backward_launches(q, k, v, out, lse, dout, causal,
+                                          window)
+    for _, launch in launches_:
+        launch()
+    return grads
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -184,8 +291,10 @@ class _FlashAttention(torch.autograd.Function):
             raise TypeError(f"the flash_attention backward is fp32 only, "
                             f"got {saved[0].dtype}")
         q, k, v, out, lse = saved
-        dq, dk, dv = _launch_backward(q, k, v, out, lse,
-                                      dout.float().contiguous(), ctx.causal,
+        dout = dout.float().contiguous()
+        if dout.data_ptr() % ALIGN:      # cp.async reads 16-byte chunks
+            dout = dout.clone()
+        dq, dk, dv = _launch_backward(q, k, v, out, lse, dout, ctx.causal,
                                       ctx.window)
         return dq, dk, dv, None, None
 

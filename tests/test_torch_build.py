@@ -1,0 +1,51 @@
+"""The port's kernel build cache (``repro_torch/kernels/_build.py``): a
+library's path is keyed on its source, the package's shared headers
+(``csrc/*.cuh``) and the flags, so an edited header rebuilds every source
+instead of loading a stale library; and the split-TF32 helpers live in
+one header that K3's forward and backward both include. CPU only: nothing
+is compiled."""
+import re
+
+import pytest
+
+from repro_torch.kernels import _build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\nint k;\n')
+    (tmp_path / "h.cuh").write_text("// first\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    return tmp_path
+
+
+def test_library_path_follows_the_source(csrc):
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first          # unchanged: cached
+    (csrc / "k.cu").write_text('#include "h.cuh"\nint k2;\n')
+    assert _build.library_path("k") != first
+
+
+@pytest.mark.parametrize("edit", ["change", "add", "remove"])
+def test_library_path_follows_every_header(csrc, edit):
+    first = _build.library_path("k")
+    if edit == "change":
+        (csrc / "h.cuh").write_text("// second\n")
+    elif edit == "add":
+        (csrc / "g.cuh").write_text("")
+    else:
+        (csrc / "h.cuh").unlink()
+    assert _build.library_path("k") != first
+    assert _build.library_path("k").parent == _build.BUILD_DIR
+
+
+def test_k3_sources_share_the_split_tf32_helpers():
+    header = _build.CSRC / "wgmma_tf32.cuh"
+    helpers = ("kmajor", "desc", "split", "split4", "wgmma_ss_n32",
+               "wgmma_ss_n64", "wgmma_rs_n64", "mbar_wait", "tma_load_3d")
+    defined = re.compile(r"__device__ __forceinline__ \w+ (\w+)\(")
+    assert set(helpers) <= set(defined.findall(header.read_text()))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "wgmma_tf32.cuh"' in src
+        assert not set(helpers) & set(defined.findall(src))

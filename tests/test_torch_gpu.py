@@ -342,12 +342,27 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
 # K3's backward: the forward's sweep and tile edges, and shapes of its own:
 # G = 4, keys past the queries under causal (blocks with no visible query),
 # a window that crosses tiles, and the training shape (smollm-135m, B 8,
-# S 256). (1, 77, 50, 16, 1, 64, False, 20) has fully masked rows.
+# S 256). (1, 77, 50, 16, 1, 64, False, 20) has fully masked rows. Then
+# the dK/dV work split (``backward_plan``): G 1, 3, 4 and 9; key and query
+# tiles just off 64 (and off the 32- and 16-wide steps) under causal and a
+# window; Sq much smaller and much larger than Skv; the federated run's
+# shape (B 4, S 128)
 BWD_SHAPES = ATTN_SHAPES + EDGE_SHAPES + [
     (1, 100, 100, 8, 2, 128, True, 0),
     (2, 70, 200, 4, 1, 64, True, 0),
     (1, 200, 130, 6, 2, 64, True, 70),
     (8, 256, 256, 9, 3, 64, True, 0),
+    (2, 65, 65, 3, 3, 64, True, 0),
+    (1, 129, 127, 4, 1, 64, True, 0),
+    (2, 63, 127, 9, 1, 64, True, 33),
+    (1, 129, 65, 9, 3, 64, False, 64),
+    (1, 97, 161, 4, 2, 128, True, 0),
+    (1, 33, 47, 4, 4, 128, True, 17),
+    (1, 17, 300, 4, 1, 64, True, 0),
+    (1, 8, 500, 3, 1, 128, False, 0),
+    (1, 300, 17, 9, 3, 64, True, 0),
+    (1, 500, 8, 4, 2, 128, False, 5),
+    (4, 128, 128, 9, 3, 64, True, 0),
 ]
 # |d| <= tol + tol·|ref| against the float64 plain backward: fp32 sums of
 # at most a few thousand terms, from an LSE the split-TF32 forward gives to
@@ -415,16 +430,27 @@ def test_flash_attention_backward_is_bitwise_repeatable_on_card(cuda, shape):
         assert torch.equal(a, b)
 
 
+def _bwd_kernels(cuda, *shape):
+    """The backward kernels ``backward_plan`` launches at ``shape``."""
+    return k3.backward_plan(*shape, k3._sm_count(cuda))["kernels"]
+
+
 @pytest.mark.gpu
-def test_flash_attention_backward_counts_its_launches_on_card(cuda):
-    q, k, v, dout = _bwd_case(cuda, 2, 96, 96, 6, 2, 64, True, 0)
+@pytest.mark.parametrize("shape", [(2, 96, 96, 6, 2, 64, True, 0),
+                                   (8, 1024, 1024, 9, 3, 64, True, 0)])
+def test_flash_attention_backward_counts_its_launches_on_card(cuda, shape):
+    # the first shape splits dK/dV (a reduce follows), the second does not
+    q, k, v, dout = _bwd_case(cuda, *shape)
+    kernels = _bwd_kernels(cuda, *shape)
+    assert ("reduce" in kernels) == (shape[0] == 2)
     n, bwd = k3.launches, dict(k3.backward_launches)
     out = k3.flash_attention(q, k, v)
     assert k3.launches == n + 1 and k3.backward_launches == bwd
     out.backward(dout)
     torch.cuda.synchronize()
     assert k3.launches == n + 1
-    assert k3.backward_launches == {name: c + 1 for name, c in bwd.items()}
+    assert k3.backward_launches == {name: c + (name in kernels)
+                                    for name, c in bwd.items()}
     # the training instantiation's output is the serving one's, bit for bit
     with torch.no_grad():
         served = k3.flash_attention(q, k, v)
@@ -488,8 +514,11 @@ def test_train_steps_on_card_match_cpu(cuda):
     got = train.single_client(cfg, params=_to(params, cuda), device=cuda,
                               **kw)
     assert k3.launches == n + 2 * cfg.n_layers
-    assert k3.backward_launches == {name: c + 2 * cfg.n_layers
-                                    for name, c in bwd.items()}
+    kernels = _bwd_kernels(cuda, 2, 70, 70, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.resolved_head_dim, True, 0)
+    assert k3.backward_launches == {
+        name: c + 2 * cfg.n_layers * (name in kernels)
+        for name, c in bwd.items()}
     np.testing.assert_allclose(got["losses"], ref["losses"], atol=1e-4,
                                rtol=1e-4)
     from torch.utils._pytree import tree_flatten
