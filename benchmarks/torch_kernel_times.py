@@ -1,8 +1,8 @@
-"""K1 (the port's fused EM E-step), K2 (the Eq-1 mix) and K3's backward
-timed on the card, taken from the port under a given ``src/`` directory:
-this checkout's by default, or another checkout's (say an older commit
-unpacked with ``git archive``), so that two versions can be set side by
-side in one run on one card.
+"""K1 (the port's fused EM E-step), K2 (the Eq-1 mix), K3's forward and
+its backward timed on the card, taken from the port under a given
+``src/`` directory: this checkout's by default, or another checkout's
+(say an older commit unpacked with ``git archive``), so that two versions
+can be set side by side in one run on one card.
 
     python3 benchmarks/torch_kernel_times.py [--src OTHER/src]
         [--bwd-splits 1,2,3,4,6]
@@ -20,9 +20,12 @@ smollm-135m's training shape (B 8 x S 256) and the federated run's (B 4 x
 S 128), and with ``--bwd-splits 1,2,...`` at the training shape with
 those dK/dV split counts; a port without a backward is recorded as
 absent, and the three-kernel backward that preceded the split-TF32 one
-is driven through its own C entry points. It prints the card's name and power limit, then
-one JSON line with the card's floor, a 1-element ``zero_()`` in the same
-bracket. It needs a CUDA card and checks nothing else.
+is driven through its own C entry points. K3's forward is timed at
+smollm-135m's prefill (Dh 64) and minicpm3-4b's (Dh 96), fp32 and bf16
+(a port that refuses a head dim is recorded as refusing it). It prints
+the card's name and power limit, then one JSON line with the card's
+floor, a 1-element ``zero_()`` in the same bracket. It needs a CUDA card
+and checks nothing else.
 """
 from __future__ import annotations
 
@@ -96,6 +99,26 @@ def k3_backward(dev, splits=()) -> list:
     return rows
 
 
+def k3_forward(dev) -> list:
+    """K3's forward (serving instantiation) at smollm-135m's and
+    minicpm3-4b's prefill shapes, fp32 and bf16: steady ms, or why the
+    port refuses the shape."""
+    from repro_torch.kernels import flash_attention as k3
+    rows = []
+    for shape in (chip_smoke.ATTN_MAIN, chip_smoke.ATTN_MLA):
+        causal, window = shape[6], shape[7]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = chip_smoke._attn_inputs(shape, dtype, dev)
+            row = {"shape": shape, "dtype": str(dtype)[6:]}
+            try:
+                row["ms"] = chip_smoke.time_ms(
+                    lambda: k3._launch(q, k, v, causal, window))
+            except RuntimeError as e:     # the library refuses the head dim
+                row["refused"] = str(e)
+            rows.append(row)
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--src", type=Path, default=ROOT / "src",
@@ -134,11 +157,13 @@ def main() -> int:
     except ValueError as e:          # a port that caps the components
         k1.append({"shape": chip_smoke.EM_WIDE, "refused": str(e)})
         k2.append({"shape": {"M": 39, "P": P_CIFAR}, "refused": str(e)})
+    k3_fwd = k3_forward(dev)
     k3_bwd = k3_backward(dev, [int(n) for n in args.bwd_splits.split(",")
                                if n])
     print(card_line)
     print(json.dumps({"src": str(src), "build_s": secs, "floor_ms": floor,
-                      "k1": k1, "k2": k2, "k3_backward": k3_bwd}))
+                      "k1": k1, "k2": k2, "k3_forward": k3_fwd,
+                      "k3_backward": k3_bwd}))
     return 0
 
 

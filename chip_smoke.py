@@ -64,7 +64,12 @@ Phases, each of which stops the run on failure:
   6. hold K3 (GQA flash attention) against its plain version, fp32 and
      bf16, over the reference's sweep, two ragged shapes, the prefill
      attention shapes of smollm-135m, starcoder2-15b (window 4096) and
-     chatglm3-6b, and shapes at the kernel's tile edges; then K3's
+     chatglm3-6b, and shapes at the kernel's tile edges; at MLA's head dims
+     48 and 96 over the sweep's shapes, ragged shapes, the tile edges of
+     those dims and minicpm3-4b's prefill (B 8, S 1024, H 40, KH 40, Dh
+     96), with the fp32 training instantiation there (output bitwise the
+     serving one's, row LSE against the plain one); a call at Dh 96 that
+     needs a gradient must raise before any launch; then K3's
      backward (``csrc/flash_attention_bwd.cu``: split-TF32 ``wgmma``, dK/dV
      split over blocks where one a key tile leaves SMs idle, through the
      autograd path) against ``flash_attention_bwd_ref`` in float64 on the
@@ -78,7 +83,14 @@ Phases, each of which stops the run on failure:
      kernels) with the same weights and prompts, without and with a window
      that wraps, and compare logits and tokens; then serve the main path at
      full width (smollm-135m, 8 prompts of 1024 tokens, 32 generated) and
-     check that K3 carried every layer of the prefill;
+     check that K3 carried every layer of the prefill; then MLA: a reduced
+     minicpm3-4b (K3 at Dh 48) on the card against the CPU (logits within
+     1e-4, tokens equal) and its first weight-absorbed decode step against
+     a prefill of the P + 1 tokens on the card (1e-4); then minicpm3-4b at
+     full width and depth (62 layers, 4.3 B params, fp32, random weights,
+     8 prompts of 1024 tokens, 32 generated: K3 at Dh 96 launches 62
+     times a prefill, logits finite, tokens in range; prefill ms, decode ms
+     a step, tok/s, peak memory and the decode-vs-prefill gap printed);
   7b. LM training: reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights, batches and link masks, 3 SGD steps
      and one federated round at C = 3; then the main path at full width,
@@ -93,13 +105,16 @@ Phases, each of which stops the run on failure:
      at the main paths' shapes (K1 also in bf16, at smollm-135m's
      vocabulary and at the M = 39 round's shape, K2 also from a
      16-byte-aligned stride, at M = 39 and at the federated LM mix, K3
-     also in bf16, SDPA under each backend; K3's backward at the training
-     and the federated shapes, each kernel's ms, the split-TF32, CUDA-core
-     and bytes bounds, SDPA's backward under each backend that takes fp32)
+     also in bf16, SDPA under each backend, K3 also at minicpm3-4b's
+     prefill (Dh 96) and reduced minicpm3-4b's (Dh 48); K3's backward at
+     the training and the federated shapes, each kernel's ms, the
+     split-TF32, CUDA-core and bytes bounds, SDPA's backward under each
+     backend that takes fp32)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
      and print them as one JSON line;
   9. with ``--profile`` only: profile two pFedWN rounds, one serving run
-     and one full-width training step with ``torch.profiler``.
+     of smollm-135m and one of minicpm3-4b, and one full-width training
+     step with ``torch.profiler``.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the repo's ``src/`` beside it, it exits non-zero and prints no
 result.
@@ -176,6 +191,35 @@ ATTN_SHAPES = [
     (1, 32, 33, 2, 1, 128, True, 0),
     (1, 127, 95, 1, 1, 128, False, 0),
     (1, 43, 33, 3, 1, 128, True, 16),
+]
+# K3 at MLA's head dims (qk_nope + qk_rope): minicpm3-4b's prefill (B 8 x
+# S 1024, 40 heads over 40 "KV heads", Dh 96, causal) first; the sweep's
+# shapes at Dh 48 (minicpm3-4b at reduced()) and 96; ragged shapes; tile
+# edges: folded rows just below, at and above 64 and 128 (a block's 128
+# rows at both dims), keys just off the key tile (64 at Dh 48, 32 at 96)
+ATTN_MLA = (8, 1024, 1024, 40, 40, 96, True, 0)
+ATTN_MLA_SMALL = (2, 37, 37, 4, 4, 48, True, 0)   # reduced minicpm3-4b's
+ATTN_MLA_SHAPES = [
+    ATTN_MLA,
+    (2, 256, 256, 4, 2, 48, True, 0),        # tests/test_kernels.py sweep
+    (1, 256, 256, 8, 8, 96, True, 0),
+    (2, 128, 128, 4, 1, 48, False, 0),
+    (1, 384, 384, 6, 2, 96, True, 96),
+    (1, 128, 128, 2, 2, 48, True, 0),
+    (1, 128, 128, 2, 2, 96, True, 0),
+    ATTN_MLA_SMALL,
+    (2, 200, 200, 4, 4, 96, True, 0),        # ragged
+    (3, 1, 77, 12, 4, 96, True, 0),
+    (1, 77, 50, 16, 1, 48, False, 20),       # rows 69.. fully masked
+    (1, 63, 65, 1, 1, 48, False, 0),         # tile edges
+    (1, 64, 127, 2, 1, 48, False, 0),
+    (1, 43, 65, 3, 1, 48, True, 0),
+    (1, 65, 129, 1, 1, 48, True, 16),
+    (1, 63, 31, 1, 1, 96, False, 0),
+    (1, 32, 33, 2, 1, 96, True, 0),
+    (1, 43, 33, 3, 1, 96, True, 16),
+    (1, 129, 97, 1, 1, 96, False, 0),
+    (2, 42, 43, 3, 1, 96, True, 0),
 ]
 # K2: the cifar10-cnn round's P, and row strides that give the kernel 8-,
 # 4- and 16-byte vectors in fp32 (the round's stack has the first)
@@ -1055,14 +1099,17 @@ def _attn_inputs(shape, dtype, dev, seed=0):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def check_flash_attention(dev) -> float:
+def check_flash_attention(dev) -> dict:
     """K3 against its plain version at every checked shape, |d| <= tol +
-    tol·|plain|; raises past it. Returns the max |d| at the main-path shape
-    in fp32."""
+    tol·|plain|; raises past it. At MLA's head dims (48, 96) also the
+    fp32 training instantiation: its output bitwise the serving one's, its
+    row LSE within ``BWD_TOL`` of the plain one; and a call at Dh 96 that
+    needs a gradient must raise before it launches anything (the backward
+    takes Dh 64 and 128). Returns the max |d| in fp32 by shape."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import flash_attention_ref
-    main_err = None
-    for shape in ATTN_SHAPES:
+    errs = {}
+    for shape in ATTN_SHAPES + ATTN_MLA_SHAPES:
         causal, window = shape[6], shape[7]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _attn_inputs(shape, dtype, dev)
@@ -1080,9 +1127,48 @@ def check_flash_attention(dev) -> float:
             if not (out.dtype == dtype and excess <= tol):
                 raise AssertionError(f"K3 disagrees with its plain version "
                                      f"at {shape} {dtype}: {err}")
-            if main_err is None:
-                main_err = err
-    return main_err
+            if dtype == torch.float32:
+                errs[shape] = err
+            if dtype == torch.float32 and shape[5] in (48, 96):
+                _check_lse_instantiation(q, k, v, out, causal, window, shape)
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(
+        (1, 64, 64, 2, 2, 96), torch.float32, dev))
+    n, bwd = k3.launches, dict(k3.backward_launches)
+    try:
+        k3.flash_attention(q, k, v)
+    except ValueError as e:
+        print(f"K3 at Dh 96 with a gradient: raises before launching "
+              f"({e})")
+    else:
+        raise AssertionError("K3 at Dh 96 took a call that needs a "
+                             "gradient")
+    torch.cuda.synchronize()
+    if (k3.launches, k3.backward_launches) != (n, bwd):
+        raise AssertionError("K3 launched before refusing a gradient at Dh "
+                             "96")
+    return errs
+
+
+def _check_lse_instantiation(q, k, v, served, causal, window, shape):
+    """K3's fp32 training instantiation at ``shape``: output bitwise the
+    serving instantiation's, fully masked rows' LSE +inf, the rest within
+    ``BWD_TOL`` (atol and rtol) of the plain LSE."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import attention_lse_ref
+    out, lse = k3._launch(q, k, v, causal, window, with_lse=True)
+    want = attention_lse_ref(q, k, causal=causal, window=window)
+    masked = torch.isinf(want)
+    d = (lse - want)[~masked].abs()
+    excess = (float((d - BWD_TOL * want[~masked].abs()).max())
+              if d.numel() else 0.0)
+    ok = (torch.equal(out, served) and excess <= BWD_TOL
+          and bool((torch.isinf(lse) == masked).all()))
+    print(f"K3 LSE instantiation {shape}: max|dlse|="
+          f"{float(d.max()) if d.numel() else 0.0:.3g}, out == serving "
+          f"{torch.equal(out, served)}")
+    if not ok:
+        raise AssertionError(f"K3's training instantiation disagrees at "
+                             f"{shape}")
 
 
 def check_serve_against_cpu(dev) -> None:
@@ -1149,6 +1235,98 @@ def run_serve_main_path(dev):
           f"{t['decode_ms_per_step']} ms per step, "
           f"{t['decode_tok_per_s']} generated tok/s")
     print(f"first 16 tokens of prompt 0: {res.tokens[0, :16].tolist()}")
+    return res, n3, (cfg, params, prompts)
+
+
+def _first_decode_gap(cfg, params, prompts) -> float:
+    """max |d| between the first decode step's logits (weight-absorbed,
+    latent-space attention) and the last logits of a prefill of all P + 1
+    tokens (K3 over the expanded heads)."""
+    from repro_torch.launch.serve import prefill_to_cache
+    from repro_torch.models.model import decode, prefill
+    with torch.no_grad():
+        full, _ = prefill(params, cfg, prompts)
+        P = prompts.shape[1] - 1
+        _, cache = prefill_to_cache(params, cfg, prompts[:, :P], P + 1)
+        step, _ = decode(params, cfg, prompts[:, P:], cache, P)
+    return float((step - full).abs().max())
+
+
+def check_mla_serve_against_cpu(dev) -> int:
+    """MLA serving on the card (K3 at Dh 48) against the CPU (plain
+    version): reduced minicpm3-4b, the same weights and ragged prompts, 4
+    greedy decode steps; then, on the card, the first absorbed decode step
+    against a prefill of the P + 1 tokens, both within ``SERVE_TOL``.
+    Returns K3's launches in the card's serving run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params
+    cfg = get_config("minicpm3-4b").reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    card_params = _tree_to(cpu_params, dev)
+    prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+    ref = serve(cfg, cpu_params, prompts, 5, device="cpu")
+    k3.launches = 0
+    got = serve(cfg, card_params, prompts.to(dev), 5, device=dev)
+    n = k3.launches
+    diff = (got.logits.cpu() - ref.logits).abs()
+    excess = float((diff - SERVE_TOL * ref.logits.abs()).max())
+    same = torch.equal(got.tokens.cpu(), ref.tokens)
+    gap = _first_decode_gap(cfg, card_params, prompts.to(dev))
+    print(f"serve reduced minicpm3-4b (MLA, K3 at Dh 48): max|dlogits|="
+          f"{float(diff.max()):.3g} (tol {SERVE_TOL:g}), tokens equal: "
+          f"{same}, K3 launches {n}; first absorbed decode vs prefill of "
+          f"P + 1 on the card: max|d|={gap:.3g}")
+    if not (excess <= SERVE_TOL and same and n == cfg.n_layers
+            and gap <= SERVE_TOL):
+        raise AssertionError("reduced minicpm3-4b serving on the card "
+                             "disagrees with the CPU or with its prefill")
+    return n
+
+
+def run_mla_main_path(dev):
+    """minicpm3-4b at full width and depth through ``serve``: fp32, random
+    weights (seed 0), 8 prompts of 1024 tokens, 32 generated; one warm run,
+    then one timed run whose prefill must launch K3 once a layer (62).
+    Prints the timings, peak memory and the first-decode-vs-prefill gap.
+    Returns (result, K3 launches, (cfg, params, prompts))."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params
+    cfg = get_config("minicpm3-4b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    prompts = make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=1, device=dev)
+    serve(cfg, params, prompts, SERVE_GEN, device=dev)     # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.launches = 0
+    res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    n3 = k3.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if n3 != cfg.n_layers:
+        raise AssertionError(f"K3 launched {n3} times in one minicpm3-4b "
+                             f"prefill, expected {cfg.n_layers}")
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError("non-finite logits on the MLA serving path")
+    if res.tokens.shape != (SERVE_B, SERVE_GEN) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad tokens {tuple(res.tokens.shape)}")
+    t = res.timings
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"minicpm3-4b ({n_params} params) B={SERVE_B} "
+          f"prompt={SERVE_PROMPT} gen={SERVE_GEN} fp32: prefill "
+          f"{t['prefill_ms']} ms, decode {t['decode_ms_per_step']} ms per "
+          f"step, {t['decode_tok_per_s']} generated tok/s, peak memory "
+          f"{peak:.3f} GiB, K3 launches {n3}")
+    print(f"first 16 tokens of prompt 0: {res.tokens[0, :16].tolist()}")
+    gap = _first_decode_gap(cfg, params, torch.cat(
+        [prompts, res.tokens[:, :1]], dim=1))
+    print(f"minicpm3-4b first absorbed decode step vs prefill of P + 1: "
+          f"max|dlogits|={gap:.3g} (printed, not gated)")
     return res, n3, (cfg, params, prompts)
 
 
@@ -1604,13 +1782,16 @@ def _unmasked_pairs(Sq, Skv, causal, window) -> int:
     return int(_attention_mask(Sq, Skv, causal, window, "cpu").sum())
 
 
-def attention_report(dev, n3, err3, floor):
-    """K3's row at the main path's shape (smollm-135m prefill, fp32)."""
+def attention_report(dev, shape, n3, err3, floor, main_path):
+    """K3's row at a main path's ``shape`` in fp32 (smollm-135m's prefill
+    at Dh 64, minicpm3-4b's at 96, reduced minicpm3-4b's at 48), with the
+    launches ``n3`` that path made and the error ``err3`` phase 6 found
+    there."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import flash_attention_ref
-    B, Sq, Skv, H, KH, Dh, causal, window = ATTN_MAIN
-    q, k, v = _attn_inputs(ATTN_MAIN, torch.float32, dev)
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    q, k, v = _attn_inputs(shape, torch.float32, dev)
     pairs = _unmasked_pairs(Sq, Skv, causal, window)
     ops = 4 * Dh * pairs * B * H             # score and P.V multiply-adds
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
@@ -1630,7 +1811,7 @@ def attention_report(dev, n3, err3, floor):
                   "for P.V in bf16), TMA-fed K/V ring",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": n3, "max_abs_err": err3,
+        "main_path": main_path, "launches": n3, "max_abs_err": err3,
         "tolerance": ATTN_TOL[torch.float32],
         "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KH": KH, "Dh": Dh,
                   "causal": causal, "window": window, "dtype": "float32"},
@@ -1995,9 +2176,10 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile two pFedWN rounds, one serving "
-                        "run and one training step and print where the "
-                        "device time goes")
+                        help="also profile two pFedWN rounds, a serving "
+                        "run of smollm-135m and of minicpm3-4b and one "
+                        "training step and print where the device time "
+                        "goes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2083,12 +2265,22 @@ def main() -> int:
     err3 = check_flash_attention(dev)
     err3_bwd = check_flash_attention_backward(dev)
 
-    _phase("7. serving: small run vs CPU, then the main path")
+    _phase("7. serving: small runs vs CPU, then the main paths (smollm-135m, "
+           "then minicpm3-4b's MLA at full width)")
     check_serve_against_cpu(dev)
     t0 = time.perf_counter()
     _, n3, serve_args = run_serve_main_path(dev)
     print(f"serving main path wall {time.perf_counter() - t0:.1f} s (warm-up "
           f"run included), launches K3={n3}")
+    n3_small_mla = check_mla_serve_against_cpu(dev)
+    t0 = time.perf_counter()
+    _, n3_mla, mla_args = run_mla_main_path(dev)
+    print(f"MLA serving main path wall {time.perf_counter() - t0:.1f} s "
+          f"(warm-up run and the P + 1 prefill included), launches "
+          f"K3={n3_mla}")
+    if not args.profile:
+        del mla_args                  # 17 GB of weights
+    torch.cuda.empty_cache()
 
     _phase("7b. LM training: small run vs CPU, then single-client and "
            "federated at full width")
@@ -2106,11 +2298,18 @@ def main() -> int:
     print(f"floor (1-element zero_, steady bracket): {floor:.6f} ms")
     rows = [k1_report(dev, n1, n1_wide, floor),
             agg_report(dev, sim, n2, err2, wide_sim, n2_wide, floor),
-            attention_report(dev, n3, err3, floor),
+            attention_report(dev, ATTN_MAIN, n3, err3[ATTN_MAIN], floor,
+                             "serve smollm-135m"),
             attention_bwd_report(dev, BWD_MAIN, trained["k3_backward"],
                                  err3_bwd[BWD_MAIN], floor, "train"),
             attention_bwd_report(dev, BWD_FED, fed["k3_backward"],
-                                 err3_bwd[BWD_FED], floor, "federated")]
+                                 err3_bwd[BWD_FED], floor, "federated"),
+            attention_report(dev, ATTN_MLA, n3_mla, err3[ATTN_MLA], floor,
+                             "serve minicpm3-4b (MLA)"),
+            attention_report(dev, ATTN_MLA_SMALL, n3_small_mla,
+                             err3[ATTN_MLA_SMALL], floor,
+                             "serve reduced minicpm3-4b (MLA), card vs "
+                             "CPU")]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}
@@ -2123,6 +2322,7 @@ def main() -> int:
         _phase("9. profile")
         profile_rounds(sim)
         profile_serve(dev, *serve_args)
+        profile_serve(dev, *mla_args)
         profile_train(dev)
     torch.cuda.synchronize()
     print(card_line)

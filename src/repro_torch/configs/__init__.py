@@ -1,6 +1,6 @@
 # one module per ported architecture (registry side effects)
-from repro_torch.configs import (chatglm3_6b, smollm_135m,  # noqa: F401
-                                 starcoder2_15b)
+from repro_torch.configs import (chatglm3_6b, minicpm3_4b,  # noqa: F401
+                                 smollm_135m, starcoder2_15b)
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
                                       PFLConfig, SSMConfig, TrainConfig,
                                       WirelessConfig, get_config, list_archs)

@@ -70,9 +70,12 @@
 //   second starts its Q.K^T when the first's is done (a named barrier),
 //   so each one's softmax overlaps the other's products.
 // - Shared memory: Q big/small, one set of K and V big/small tiles, and
-//   the raw ring: 192 KB for fp32 at Dh 64 (128 rows, 64-key tiles, 2
-//   stages) and at Dh 128 (64 rows, 32-key tiles, 2 stages), one block per
-//   SM.
+//   the raw ring, for fp32: 144 KB at Dh 48 (128 rows, 64-key tiles, 2
+//   stages), 192 KB at Dh 64 (128 rows, 64-key tiles), at Dh 96 (128 rows,
+//   32-key tiles: 64-key tiles would need 288 KB) and at Dh 128 (64 rows,
+//   32-key tiles), one block per SM.
+// - P.V is issued 64 output columns at a time, or 48 at Dh 48 and 96
+//   (m64n48k8), so every width is whole wgmma products.
 // - Causal schedule: the row tiles are the grid's slow axis, launched
 //   heaviest (last rows) first; K/V tiles wholly outside the causal or
 //   window band are skipped.
@@ -101,12 +104,21 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
+// Per head size: consumer warpgroups, keys a K/V tile, ring stages, and
+// the output columns one P.V wgmma issues (48 at Dh 48 and 96, whose
+// tiles are not a multiple of 64 wide)
 template <int DH> struct Cfg;
+template <> struct Cfg<48> {
+  static constexpr int kWG = 2, kKeys = 64, kStages = 2, kPV = 48;
+};
 template <> struct Cfg<64> {
-  static constexpr int kWG = 2, kKeys = 64, kStages = 2;
+  static constexpr int kWG = 2, kKeys = 64, kStages = 2, kPV = 64;
+};
+template <> struct Cfg<96> {
+  static constexpr int kWG = 2, kKeys = 32, kStages = 2, kPV = 48;
 };
 template <> struct Cfg<128> {
-  static constexpr int kWG = 1, kKeys = 32, kStages = 2;
+  static constexpr int kWG = 1, kKeys = 32, kStages = 2, kPV = 64;
 };
 
 // Shared memory of one block, in bytes from a 1024-aligned base.
@@ -164,7 +176,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
                        int KH, int causal, int window, float scale) {
   using L = Layout<T, DH>;
   constexpr int kKeys = L::kKeys, kRows = L::kRows, kStages = L::kStages;
-  constexpr int kCons = L::kConsumers;
+  constexpr int kCons = L::kConsumers, kPV = Cfg<DH>::kPV;
+  // K's column groups of 4 are rotated within runs of kRot (8, or 4 at Dh
+  // 48, whose 12 groups are not a multiple of 8)
+  constexpr int kRot = (DH / 4) % 8 == 0 ? 8 : 4;
   constexpr bool kSplitInputs = sizeof(T) == 4;  // bf16 is exact in TF32
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -254,11 +269,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const T* rk = reinterpret_cast<const T*>(smem + L::kRaw + s * 2 * L::kTile);
     const T* rv = rk + kKeys * DH;
     // K, split, K-major. Each 8 threads take rows r..r+7 at column groups
-    // rotated by the row, so reads and writes are free of bank conflicts.
+    // rotated by the row, so that reads and writes spread over the banks.
     for (int u = tid; u < kKeys * (DH / 4); u += kCons) {
       const int j = u & 7, rest = u >> 3;
       const int cc = rest % (DH / 4), r = (rest / (DH / 4)) * 8 + j;
-      const int c = ((cc & ~7) | ((cc + j) & 7)) * 4;
+      const int c = ((cc & ~(kRot - 1)) | ((cc + j) & (kRot - 1))) * 4;
       float4 hi, lo;
       split4(load4(rk + r * DH + c), hi, lo);
       const uint32_t off = kmajor(r, c, kKeys);
@@ -355,34 +370,35 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
     l_a = l_a * cA + sumA;  // this thread's keys; the quad sums at the end
     l_b = l_b * cB + sumB;
 
-    // O = O*corr + P.V, 64 output columns at a time: the tile's P.V in
+    // O = O*corr + P.V, kPV output columns at a time: the tile's P.V in
     // fresh registers, small terms first, then one rounded fp32 FMA
 #pragma unroll
-    for (int c = 0; c < DH / 64; ++c) {
-      float pv[32];
+    for (int c = 0; c < DH / kPV; ++c) {
+      float pv[kPV / 2];
 #pragma unroll
-      for (int x = 0; x < 32; ++x) pv[x] = 0.f;
-      const uint32_t vbc = vb + c * 2048, vsc = vs + c * 2048;
+      for (int x = 0; x < kPV / 2; ++x) pv[x] = 0.f;
+      const uint32_t vbc = vb + c * kPV * 32, vsc = vs + c * kPV * 32;
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < kKeys / 8; ++j)
-        wgmma_rs_n64(pv, ps[4 * j], ps[4 * j + 2], ps[4 * j + 1],
-                     ps[4 * j + 3], desc(vbc + j * DH * 32));
+        wgmma_rs<kPV>(pv, ps[4 * j], ps[4 * j + 2], ps[4 * j + 1],
+                      ps[4 * j + 3], desc(vbc + j * DH * 32));
       if constexpr (kSplitInputs) {
 #pragma unroll
         for (int j = 0; j < kKeys / 8; ++j)
-          wgmma_rs_n64(pv, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
-                       pb[4 * j + 3], desc(vsc + j * DH * 32));
+          wgmma_rs<kPV>(pv, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
+                        pb[4 * j + 3], desc(vsc + j * DH * 32));
       }
 #pragma unroll
       for (int j = 0; j < kKeys / 8; ++j)
-        wgmma_rs_n64(pv, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
-                     pb[4 * j + 3], desc(vbc + j * DH * 32));
+        wgmma_rs<kPV>(pv, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
+                      pb[4 * j + 3], desc(vbc + j * DH * 32));
       wgmma_commit_and_wait();
       fence_regs(pv);
 #pragma unroll
-      for (int x = 0; x < 32; ++x)
-        acc[32 * c + x] = fmaf(acc[32 * c + x], (x & 2) ? cB : cA, pv[x]);
+      for (int x = 0; x < kPV / 2; ++x)
+        acc[kPV / 2 * c + x] =
+            fmaf(acc[kPV / 2 * c + x], (x & 2) ? cB : cA, pv[x]);
     }
   }
 
@@ -497,15 +513,31 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One head size: the training instantiation when lse is set (fp32 only),
+// else the serving one in q's type.
+template <int DH>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int Sq, int Skv, int H, int KH, int causal,
+             int window, int is_bf16, cudaStream_t st) {
+  if (lse != nullptr)
+    return launch<float, DH, true>(q, k, v, o, lse, B, Sq, Skv, H, KH,
+                                   causal, window, st);
+  if (is_bf16)
+    return launch<__nv_bfloat16, DH, false>(q, k, v, o, lse, B, Sq, Skv, H,
+                                            KH, causal, window, st);
+  return launch<float, DH, false>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal,
+                                  window, st);
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for a head size other than 64 or 128, more than
-// 65535 row tiles or an lse with bf16, or 10000 + the CUresult if a tensor
-// map cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh);
-// contiguous, of one type (fp32, or bf16 when is_bf16), 16-byte aligned
-// (TMA's rule). lse: null (serving), or (B, H, Sq) fp32 written by the
-// training instantiation (fp32 inputs only).
+// cudaErrorInvalidValue for a head size other than 48, 64, 96 or 128,
+// more than 65535 row tiles or an lse with bf16, or 10000 + the CUresult
+// if a tensor map cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv,
+// KH, Dh); contiguous, of one type (fp32, or bf16 when is_bf16), 16-byte
+// aligned (TMA's rule). lse: null (serving), or (B, H, Sq) fp32 written by
+// the training instantiation (fp32 inputs only).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int Sq, int Skv, int H, int KH,
@@ -513,27 +545,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (l != nullptr) {
-    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
-    if (Dh == 64)
-      return launch<float, 64, true>(q, k, v, o, l, B, Sq, Skv, H, KH, causal,
-                                     window, st);
-    if (Dh == 128)
-      return launch<float, 128, true>(q, k, v, o, l, B, Sq, Skv, H, KH,
-                                      causal, window, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (l != nullptr && is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  switch (Dh) {
+    case 48:
+      return dispatch<48>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
+                          is_bf16, st);
+    case 64:
+      return dispatch<64>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
+                          is_bf16, st);
+    case 96:
+      return dispatch<96>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
+                          is_bf16, st);
+    case 128:
+      return dispatch<128>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
+                           is_bf16, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (Dh == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64, false>(q, k, v, o, l, B, Sq,
-                                                      Skv, H, KH, causal,
-                                                      window, st)
-                   : launch<float, 64, false>(q, k, v, o, l, B, Sq, Skv, H,
-                                              KH, causal, window, st);
-  if (Dh == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128, false>(q, k, v, o, l, B, Sq,
-                                                       Skv, H, KH, causal,
-                                                       window, st)
-                   : launch<float, 128, false>(q, k, v, o, l, B, Sq, Skv, H,
-                                               KH, causal, window, st);
-  return static_cast<int>(cudaErrorInvalidValue);
 }

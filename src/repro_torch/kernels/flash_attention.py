@@ -5,10 +5,12 @@ in the reference's layout, with query head h = kh·G + g reading KV head
 kh (G = H / KH), and returns (B, Sq, H, Dh) in q's dtype. Masks come from
 positions counted from 0 on both sides: causal keeps k_pos <= q_pos, a
 window keeps k_pos > q_pos − window; a fully masked row gives 0. On a CUDA
-tensor it launches the hand-written kernel ``csrc/flash_attention.cu``; on
-a CPU tensor it runs the plain version :func:`~repro_torch.kernels.ref.
-flash_attention_ref`, which autograd differentiates. Ragged Sq and Skv are
-masked in the kernel, where the reference's Pallas kernel refuses them.
+tensor it launches the hand-written kernel ``csrc/flash_attention.cu``
+(head dims :data:`FWD_HEAD_DIMS`); on a CPU tensor it runs the plain
+version :func:`~repro_torch.kernels.ref.flash_attention_ref` at any head
+dim, as the reference does, and autograd differentiates it. Ragged Sq and
+Skv are masked in the kernel, where the reference's Pallas kernel refuses
+them.
 
 On a CUDA tensor that needs a gradient, the call goes through
 :class:`_FlashAttention`: its forward launches the kernel's training
@@ -20,8 +22,10 @@ tile would leave the card idle; their fixed-order sum; dQ), which
 recompute P from the LSE as the reference's ``chunked_attention``
 recomputes each chunk under ``jax.checkpoint``. :func:`backward_plan`
 picks the split. The backward is fp32 only
-(the reference trains in fp32) and raises for bf16. Nothing falls back to
-the plain version on a card.
+(the reference trains in fp32) and raises for bf16; it takes the head dims
+:data:`BWD_HEAD_DIMS`, and a call that needs a gradient at another raises
+in the forward, before any launch. Nothing falls back to the plain version
+on a card.
 
 Both directions multiply on the tensor cores (``wgmma`` in TF32 with
 every operand split into a big and a small TF32 part, so fp32 keeps fp32's
@@ -40,7 +44,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (64, 128)
+FWD_HEAD_DIMS = (48, 64, 96, 128)   # the forward kernel's head sizes
+BWD_HEAD_DIMS = (64, 128)           # the backward's (ROADMAP Queue B, B1)
 ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
 # backward kernel launches since the last reset, by kernel ("reduce" runs
@@ -86,7 +91,7 @@ def _bwd_library() -> ctypes.CDLL:
                    lib.attn_bwd_dkdv_launch, lib.attn_bwd_reduce_launch,
                    lib.attn_bwd_dq_launch):
             fn.restype = ctypes.c_int
-        for dh in HEAD_DIMS:
+        for dh in BWD_HEAD_DIMS:
             got = [ctypes.c_int() for _ in range(5)]
             lib.attn_bwd_tiles(dh, *(ctypes.byref(x) for x in got))
             want = [BWD_KEY_TILE, BWD_QUERY_TILE[dh], BWD_ROW_TILE,
@@ -170,8 +175,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(B, Sq, k.shape[1], H, KH) < 1 or H % KH:
         raise ValueError(f"H = {H} query heads over KH = {KH} KV heads: "
                          "need 1 <= KH, H % KH == 0 and non-empty sequences")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {Dh}; the kernel takes {HEAD_DIMS}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -276,6 +279,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
+        Dh = q.shape[3]
+        if Dh not in BWD_HEAD_DIMS:
+            raise ValueError(f"head dim {Dh}: the flash_attention backward "
+                             f"takes {BWD_HEAD_DIMS} (ROADMAP Queue B, B1); "
+                             "call it without gradients to serve")
         ctx.causal, ctx.window = causal, window
         if q.dtype != torch.float32:       # the backward raises for it
             ctx.save_for_backward(q)
@@ -302,12 +310,16 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention of q over k, v (layouts above): the kernel for CUDA
-    tensors, differentiable through the hand-written backward when any
-    input needs a gradient; the plain version (autograd's own backward)
-    for CPU tensors; an error for anything else."""
+    tensors at a head dim of :data:`FWD_HEAD_DIMS`, differentiable through
+    the hand-written backward when any input needs a gradient (head dims
+    :data:`BWD_HEAD_DIMS`); the plain version (autograd's own backward)
+    for CPU tensors at any head dim; an error for anything else."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.shape[3] not in FWD_HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]}; the CUDA kernel takes "
+                         f"{FWD_HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

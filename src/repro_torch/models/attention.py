@@ -1,4 +1,5 @@
-"""Grouped-query attention (full and sliding-window) for prefill and decode.
+"""Attention for prefill and decode: grouped-query attention (full and
+sliding-window) and multi-head latent attention (MLA: deepseek, minicpm3).
 
 Prefill (``gqa_apply``, ``gqa_prefill``) runs its attention through K3,
 :func:`repro_torch.kernels.flash_attention.flash_attention`, where the
@@ -11,7 +12,16 @@ does:
   - full cache:     (B, S, KH, Dh) K/V, valid-prefix mask;
   - sliding window: ring buffer (B, W, KH, Dh), slot = position % W, masked
     by the position each slot holds.
-MLA (deepseek, minicpm3) waits for its own port.
+
+MLA keeps a compressed cache, the normed latent c_kv (B, S, kv_lora) and
+the roped k_rope (B, S, qk_rope) shared by every head. Prefill
+(``mla_apply``, ``mla_prefill``) expands each position's K and V per head
+and runs K3 at head dim qk_nope + qk_rope with v zero-padded to that
+width, where the reference runs ``chunked_attention``. Decode
+(``mla_decode``) absorbs ``wkv_b`` into the query and attends in latent
+space, in plain einsums as the reference does. Off a mesh the reference
+pads no heads (``_padded_heads``) and its sharding hints do nothing, so
+the port has neither.
 """
 from __future__ import annotations
 
@@ -20,9 +30,12 @@ from typing import Dict, Tuple
 
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import dense_init, linear
+from repro_torch.models.layers import (dense_init, linear, rmsnorm,
+                                       rmsnorm_init)
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
@@ -140,3 +153,139 @@ def gqa_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     out = decode_attention(q, k, v, mask)
     out = linear(params["wo"], out.reshape(B, 1, -1))
     return out, {"k": k, "v": v}
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig,
+             device) -> Dict[str, torch.Tensor]:
+    """The reference's MLA params: a q LoRA (``wq_a``, ``q_norm``,
+    ``wq_b``) or a full ``wq``; ``wkv_a`` to the latent and k_rope,
+    ``kv_norm``, ``wkv_b`` from the latent to each head's k_nope and v;
+    ``wo``."""
+    m = cfg.mla
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    p: Dict[str, torch.Tensor] = {}
+    if m.q_lora_rank:
+        p["wq_a"] = dense_init(gen, cfg.d_model, m.q_lora_rank, device)
+        p["q_norm"] = rmsnorm_init(m.q_lora_rank, device)
+        p["wq_b"] = dense_init(gen, m.q_lora_rank, cfg.n_heads * qk_dim,
+                               device)
+    else:
+        p["wq"] = dense_init(gen, cfg.d_model, cfg.n_heads * qk_dim, device)
+    p["wkv_a"] = dense_init(gen, cfg.d_model,
+                            m.kv_lora_rank + m.qk_rope_head_dim, device)
+    p["kv_norm"] = rmsnorm_init(m.kv_lora_rank, device)
+    p["wkv_b"] = dense_init(
+        gen, m.kv_lora_rank,
+        cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim), device)
+    p["wo"] = dense_init(gen, cfg.n_heads * m.v_head_dim, cfg.d_model,
+                         device)
+    return p
+
+
+def _mla_q(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    """(q_nope, q_rope), each (B, S, H, ·), q_rope roped."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    if m.q_lora_rank:
+        q = rmsnorm(params["q_norm"], linear(params["wq_a"], x), cfg.norm_eps)
+        q = linear(params["wq_b"], q)
+    else:
+        q = linear(params["wq"], x)
+    q = q.reshape(B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, variant="rope",
+                              theta=cfg.rope_theta)
+
+
+def _mla_latent_kv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor):
+    """The compressed KV: c_kv (B, S, kv_lora), normed, and k_rope (B, S,
+    qk_rope), roped."""
+    m = cfg.mla
+    ckv = linear(params["wkv_a"], x)
+    c_kv = rmsnorm(params["kv_norm"], ckv[..., :m.kv_lora_rank], cfg.norm_eps)
+    k_rope = apply_rope(ckv[..., None, m.kv_lora_rank:], positions,
+                        variant="rope", theta=cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_attend(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, window: int):
+    """MLA over the full sequence: (output, c_kv, k_rope). Each position's
+    k_nope and v are expanded per head from the latent, k_rope is
+    broadcast to every head, v is zero-padded to the q/k width so that one
+    K3 call at head dim qk_nope + qk_rope (G = 1) serves, and the padding
+    is sliced off before ``wo``."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_latent_kv(params, cfg, x, positions)
+    kv = linear(params["wkv_b"], c_kv).reshape(
+        B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    v = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
+    out = flash_attention(q, k, v, causal=True,
+                          window=window)[..., :m.v_head_dim]
+    return linear(params["wo"], out.reshape(B, S, -1)), c_kv, k_rope
+
+
+def mla_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
+              positions: torch.Tensor, window: int) -> torch.Tensor:
+    """Full-sequence MLA self attention (causal, optionally windowed);
+    positions (S,) consecutive, as for ``gqa_apply``."""
+    return _mla_attend(params, cfg, x, positions, window)[0]
+
+
+def mla_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
+                positions: torch.Tensor, window: int
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Like ``mla_apply`` but also returns this layer's cache ``{"c_kv",
+    "k_rope"}`` at full length, windowed or not, as the reference does
+    (it computes the latents twice; here the attention's are kept)."""
+    out, c_kv, k_rope = _mla_attend(params, cfg, x, positions, window)
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
+               cache: Dict[str, torch.Tensor], pos: int,
+               positions: torch.Tensor, window: int
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weight-absorbed one-token MLA decode at absolute position ``pos``:
+    q_nope is taken into latent space through ``wkv_b``'s k part, scored
+    against c_kv (plus q_rope against k_rope) at 1/sqrt(qk_nope +
+    qk_rope), and the latent context leaves through ``wkv_b``'s v part.
+    cache c_kv (B, S, kv_lora), k_rope (B, S, qk_rope); with a window it is
+    a ring of S slots (slot = pos % S). The new latents are written into
+    the cache tensors in place; the same tensors are returned."""
+    m = cfg.mla
+    B = x.shape[0]
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)          # (B,1,H,·)
+    c_new, kr_new = _mla_latent_kv(params, cfg, x, positions)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    S = c_kv.shape[1]
+    slot = (pos % S) if window else pos
+    c_kv[:, slot] = c_new[:, 0]
+    k_rope[:, slot] = kr_new[:, 0]
+    wkv_b = params["wkv_b"].reshape(m.kv_lora_rank, cfg.n_heads,
+                                    m.qk_nope_head_dim + m.v_head_dim)
+    w_k = wkv_b[..., :m.qk_nope_head_dim]                       # (r, H, dn)
+    w_v = wkv_b[..., m.qk_nope_head_dim:]                       # (r, H, dv)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_k)
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv)
+         + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope))
+    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if window:
+        slot_pos = ring_slot_positions(pos, S, x.device)
+        mask = (slot_pos >= 0) & (slot_pos > pos - window)
+    else:
+        mask = torch.arange(S, device=x.device) <= pos
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", p, c_kv)
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, w_v)              # (B,1,H,dv)
+    out = linear(params["wo"], out.reshape(B, 1, -1))
+    return out, {"c_kv": c_kv, "k_rope": k_rope}

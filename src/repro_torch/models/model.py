@@ -1,10 +1,13 @@
-"""The dense GQA language model: params, full forward, prefill and decode.
+"""The dense language model, with GQA or MLA attention: params, full
+forward, prefill and decode.
 
 Params are the reference's tree, as tensors: ``{"embed" (V, D), "ln_f"
-(D,), "lm_head" (D, V) unless tied, "layers": {"ln1", "ln2", "attn":
-{"wq", "wk", "wv", "wo"[, "bq", "bk", "bv"]}, "mlp": {"w_gate", "w_up",
-"w_down"}}}`` with every ``layers`` leaf stacked over a leading L axis. The
-layer loop is a Python loop over that axis.
+(D,), "lm_head" (D, V) unless tied, "layers": {"ln1", "ln2", "attn",
+"mlp": {"w_gate", "w_up", "w_down"}}}`` with every ``layers`` leaf stacked
+over a leading L axis; ``attn`` is ``{"wq", "wk", "wv", "wo"[, "bq", "bk",
+"bv"]}`` for GQA and ``{"wq_a", "q_norm", "wq_b" (or "wq"), "wkv_a",
+"kv_norm", "wkv_b", "wo"}`` for MLA (``cfg.mla``). The layer loop is a
+Python loop over that axis.
 
 Entry points:
   init_params(cfg, gen, device)                          -> params
@@ -19,14 +22,17 @@ Entry points:
 Weights and cache are fp32, as the reference's ``launch/serve.py`` and
 ``launch/train.py`` run. Training differentiates ``loss_fn`` with autograd;
 on a card every layer's attention runs K3's forward and its hand-written
-backward.
-Decode cache: ``{"layers": {"k", "v"}}``, each (L, B, S, KH, Dh), a ring
-buffer of S = min(window, max_len) slots when windowed. ``decode`` writes
-the new token's K/V into it in place (the reference returns an updated
-copy) and returns the same tensors.
+backward, which takes GQA's head dims; MLA's (qk_nope + qk_rope: 96 for
+minicpm3-4b, 48 at ``reduced()``) wait for it (ROADMAP Queue B, B1), so
+on a card an MLA forward that needs gradients raises. MLA serves.
+Decode cache: ``{"layers": {"k", "v"}}``, each (L, B, S, KH, Dh), for GQA,
+and ``{"layers": {"c_kv", "k_rope"}}``, (L, B, S, kv_lora) and (L, B, S,
+qk_rope), for MLA; a ring buffer of S = min(window, max_len) slots when
+windowed. ``decode`` writes the new token's entries into it in place (the
+reference returns an updated copy) and returns the same tensors.
 
-The moe, ssm, hybrid, MLA, vlm/audio (stub embeddings) and mrope branches
-raise until their families are ported (ROADMAP Queue A item 13).
+The moe, ssm, hybrid, vlm/audio (stub embeddings) and mrope branches
+raise until their families are ported (ROADMAP Queue A items 2-4).
 """
 from __future__ import annotations
 
@@ -49,14 +55,11 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.moe or cfg.ssm or cfg.hybrid_attn_every:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the LM "
-            "port runs dense GQA only (ROADMAP Queue A item 13)")
-    if cfg.mla:
-        raise NotImplementedError(f"{cfg.name}: MLA is not ported yet "
-                                  "(ROADMAP Queue A item 13)")
+            "port runs dense GQA and MLA only (ROADMAP Queue A items 2-3)")
     if cfg.rope == "mrope" or cfg.n_stub_tokens or cfg.mtp_depth:
         raise NotImplementedError(
             f"{cfg.name}: mrope, stub embeddings and MTP are not ported yet "
-            "(ROADMAP Queue A item 13)")
+            "(ROADMAP Queue A items 2 and 4)")
 
 
 def unstack(stacked: Params) -> list:
@@ -74,7 +77,8 @@ def unstack(stacked: Params) -> list:
 def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     return {"ln1": rmsnorm_init(cfg.d_model, device),
             "ln2": rmsnorm_init(cfg.d_model, device),
-            "attn": attn.gqa_init(gen, cfg, device),
+            "attn": (attn.mla_init if cfg.mla else attn.gqa_init)(gen, cfg,
+                                                                  device),
             "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, device)}
 
 
@@ -107,18 +111,19 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 def _block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                  positions: torch.Tensor, window: int):
-    """One pre-norm block; returns (h, this layer's KV cache)."""
-    y, kv = attn.gqa_prefill(p["attn"], cfg, rmsnorm(p["ln1"], x,
-                                                     cfg.norm_eps),
-                             positions=positions, window=window)
+    """One pre-norm block; returns (h, this layer's cache)."""
+    pre = attn.mla_prefill if cfg.mla else attn.gqa_prefill
+    y, kv = pre(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
+                positions=positions, window=window)
     h = x + y
     return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps)), kv
 
 
 def _train_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  pos: torch.Tensor, window: int) -> torch.Tensor:
-    x = x + attn.gqa_apply(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
-                           positions=pos, window=window)
+    apply = attn.mla_apply if cfg.mla else attn.gqa_apply
+    x = x + apply(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
+                  positions=pos, window=window)
     return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
 
 
@@ -133,7 +138,7 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     _check_supported(cfg)
     if positions is not None:
         raise NotImplementedError("custom positions are not ported yet "
-                                  "(ROADMAP Queue A item 13)")
+                                  "(ROADMAP Queue A item 4)")
     window = window or cfg.sliding_window
     x = embed_apply(params["embed"], tokens)
     pos = _positions(tokens)
@@ -186,8 +191,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     _check_supported(cfg)
     window = window or cfg.sliding_window
     S = min(window, max_len) if window else max_len
-    shape = (cfg.n_layers, batch_size, S, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    L = cfg.n_layers
+    if cfg.mla:
+        m = cfg.mla
+        return {"layers": {
+            "c_kv": torch.zeros((L, batch_size, S, m.kv_lora_rank),
+                                device=device),
+            "k_rope": torch.zeros((L, batch_size, S, m.qk_rope_head_dim),
+                                  device=device)}}
+    shape = (L, batch_size, S, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"layers": {"k": torch.zeros(shape, device=device),
                        "v": torch.zeros(shape, device=device)}}
 
@@ -197,23 +209,25 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, Dict]:
     """Run a full prompt (B, S); returns (last-token logits (B, V) fp32,
     cache ``{"layers": {"k", "v"}}`` of (L, B, S_c, KH, Dh)), where S_c is S,
-    or min(window, S) ring-packed when windowed. Every layer's attention is
-    one launch of K3 on a card."""
+    or min(window, S) ring-packed when windowed; for MLA ``{"layers":
+    {"c_kv", "k_rope"}}`` of (L, B, S, ·), full length even when windowed,
+    as the reference's. Every layer's attention is one launch of K3 on a
+    card."""
     _check_supported(cfg)
     if positions is not None:
         raise NotImplementedError("custom positions are not ported yet "
-                                  "(ROADMAP Queue A item 13)")
+                                  "(ROADMAP Queue A item 4)")
     window = window or cfg.sliding_window
     x = embed_apply(params["embed"], tokens)
     pos = _positions(tokens)
-    ks, vs = [], []
+    caches = []
     for p in unstack(params["layers"]):
         x, kv = _block_apply(p, cfg, x, positions=pos, window=window)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
+        caches.append(kv)
     h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     logits = logits_from_hidden(params, cfg, h)[:, 0]
-    return logits, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return logits, {"layers": {name: torch.stack([c[name] for c in caches])
+                               for name in caches[0]}}
 
 
 def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -225,12 +239,12 @@ def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
     window = window or cfg.sliding_window
     x = embed_apply(params["embed"], token)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    dec = attn.mla_decode if cfg.mla else attn.gqa_decode
     kc = cache["layers"]
     for i, p in enumerate(unstack(params["layers"])):
-        y, _ = attn.gqa_decode(p["attn"], cfg,
-                               rmsnorm(p["ln1"], x, cfg.norm_eps),
-                               cache={"k": kc["k"][i], "v": kc["v"][i]},
-                               pos=pos, positions=positions, window=window)
+        y, _ = dec(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
+                   cache={name: c[i] for name, c in kc.items()}, pos=pos,
+                   positions=positions, window=window)
         x = x + y
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
     h = rmsnorm(params["ln_f"], x, cfg.norm_eps)

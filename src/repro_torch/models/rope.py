@@ -24,7 +24,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, variant: str,
         return x
     if variant == "mrope":
         raise NotImplementedError("mrope comes with the qwen2-vl family "
-                                  "(ROADMAP Queue A item 13)")
+                                  "(ROADMAP Queue A item 4)")
     if variant not in ("rope", "rope2d"):
         raise ValueError(f"unknown rope variant {variant!r}")
     dh = x.shape[-1]

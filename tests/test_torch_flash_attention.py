@@ -2,8 +2,10 @@
 tensors, where it runs its plain version, against the reference: its jnp
 oracle over the sweep of ``tests/test_kernels.py`` (fp32 2e-6, bf16 2e-2),
 its Pallas kernel in interpret mode on two of those shapes, and
-``chunked_attention`` on the ragged cases (2e-5). Also the ragged Sq and
-Skv the Pallas kernel refuses, and what the wrapper refuses.
+``chunked_attention`` on the ragged cases (2e-5). The CPU route takes
+any head dim, as the reference does: held to the Pallas kernel at 48, 96,
+112 and 192 (2e-6). Also the ragged Sq and Skv the Pallas kernel refuses,
+and what the wrapper refuses.
 ``test_torch_gpu.py`` holds the CUDA kernel against the plain version on
 the card."""
 import jax.numpy as jnp
@@ -69,10 +71,21 @@ def test_flash_attention_plain_matches_pallas_kernel(B, S, H, KH, Dh, causal,
     np.testing.assert_allclose(got, np.asarray(expect), atol=2e-6, rtol=2e-6)
 
 
+@pytest.mark.parametrize("Dh", [48, 96, 112, 192])
+def test_flash_attention_plain_takes_any_head_dim(Dh):
+    """The head dims the reference's kernel takes and the CUDA kernel does
+    not (or not yet: 112, 192): the CPU route against the Pallas kernel in
+    interpret mode, B 1, S 128, H 4, KH 2, causal, seed 0."""
+    q, k, v = _inputs(1, 128, 128, 4, 2, Dh, seed=0)
+    got = _port(q, k, v, causal=True)
+    expect = pallas_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True)
+    np.testing.assert_allclose(got, np.asarray(expect), atol=2e-6, rtol=2e-6)
+
+
 @pytest.mark.parametrize("B,S,H,KH,Dh,window,chunk", [
     (2, 200, 6, 2, 64, 0, 64),
-    # the reference's window case at Dh 32, which K3 does not take, at 64
-    (1, 160, 4, 4, 64, 48, 32)])
+    (1, 160, 4, 4, 32, 48, 32)])          # the reference's window case
 def test_flash_attention_matches_chunked_attention(B, S, H, KH, Dh, window,
                                                    chunk):
     q, k, v = _inputs(B, S, S, H, KH, Dh, seed=2)
@@ -103,8 +116,10 @@ def test_flash_attention_takes_ragged_lengths(B, Sq, Skv, H, KH, Dh, causal,
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 16, 4, 2, 64))
-    with pytest.raises(ValueError):                    # head dim
-        k3.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    q32, k32, v32 = (t[..., :32].contiguous() for t in (q, k, v))
+    k3._check(q32, k32, v32, 0)           # the CPU route takes any head dim
+    with pytest.raises(ValueError, match="head dim"):  # off the CPU it does
+        k3.flash_attention(q32.to("meta"), k32.to("meta"), v32.to("meta"))
     with pytest.raises(ValueError):                    # H % KH
         k3.flash_attention(q[:, :, :3].contiguous(), k, v)
     with pytest.raises(ValueError):                    # k and v differ

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the reference's sweep shapes, the pFedWN round's shapes and the LM
-prefill's, K3's backward against its plain version in float64; every
-federated method, the serving path and LM training on the card against
-the CPU, with the kernel launches each path makes. Every test
+prefill's, K3 also at MLA's head dims (48, 96), K3's backward against its
+plain version in float64; every federated method, the serving path (GQA
+and MLA) and LM training on the card against the CPU, with the kernel
+launches each path makes. Every test
 here needs a CUDA card and skips without one; the file imports nothing of
 JAX, so it runs where only the port is installed:
 
@@ -311,6 +312,30 @@ EDGE_SHAPES = [
 ]
 
 
+# MLA's head dims (qk_nope + qk_rope): 48 (minicpm3-4b at reduced()) and 96
+# (minicpm3-4b) over the sweep's shapes, ragged shapes, the tile edges of
+# those dims (rows off 64 and 128; keys off 64 at Dh 48 and 32 at Dh 96)
+# and minicpm3-4b's prefill shape (G = 1)
+MLA_ATTN_SHAPES = [
+    (2, 256, 256, 4, 2, 48, True, 0),
+    (1, 256, 256, 8, 8, 96, True, 0),
+    (2, 128, 128, 4, 1, 48, False, 0),
+    (1, 384, 384, 6, 2, 96, True, 96),
+    (2, 37, 37, 4, 4, 48, True, 0),
+    (2, 200, 200, 4, 4, 96, True, 0),
+    (3, 1, 77, 12, 4, 96, True, 0),
+    (1, 77, 50, 16, 1, 48, False, 20),
+    (1, 63, 65, 1, 1, 48, False, 0),
+    (1, 43, 65, 3, 1, 48, True, 0),
+    (1, 65, 129, 1, 1, 48, True, 16),
+    (1, 63, 31, 1, 1, 96, False, 0),
+    (1, 32, 33, 2, 1, 96, True, 0),
+    (1, 43, 33, 3, 1, 96, True, 16),
+    (1, 129, 97, 1, 1, 96, False, 0),
+    (8, 1024, 1024, 40, 40, 96, True, 0),
+]
+
+
 def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(B, Sq, H, Dh)).astype(np.float32),
@@ -320,7 +345,7 @@ def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Skv,H,KH,Dh,causal,window",
-                         ATTN_SHAPES + EDGE_SHAPES)
+                         ATTN_SHAPES + EDGE_SHAPES + MLA_ATTN_SHAPES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
                                                       Dh, causal, window,
@@ -337,6 +362,22 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
     tol = 2e-6 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), expect.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_a_gradient_at_dh96_on_card(cuda):
+    """The backward takes Dh 64 and 128: at MLA's 96 a call that needs a
+    gradient raises before any launch; without one it serves."""
+    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
+               for a in _attn_inputs(1, 64, 64, 2, 2, 96))
+    n, bwd = k3.launches, dict(k3.backward_launches)
+    with pytest.raises(ValueError, match="B1"):
+        k3.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.backward_launches) == (n, bwd)
+    with torch.no_grad():
+        k3.flash_attention(q, k, v)
+    assert k3.launches == n + 1
 
 
 # K3's backward: the forward's sweep and tile edges, and shapes of its own:
@@ -496,6 +537,35 @@ def test_serve_on_card_matches_cpu(cuda, arch, window):
     torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
                                rtol=1e-4)
     assert torch.equal(got.tokens.cpu(), ref.tokens)
+
+
+@pytest.mark.gpu
+def test_mla_serve_on_card_matches_cpu(cuda):
+    """Reduced minicpm3-4b (MLA, K3 at Dh 48) served on the card against
+    the CPU: same weights and ragged prompts, logits within 1e-4 and the
+    same greedy tokens; the first absorbed decode step within 1e-4 of a
+    prefill of the P + 1 tokens, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (make_prompts, prefill_to_cache,
+                                          serve)
+    from repro_torch.models.model import decode, init_params, prefill
+    cfg = get_config("minicpm3-4b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+    ref = serve(cfg, params, prompts, 5, device="cpu")
+    card = _to(params, cuda)
+    before = k3.launches
+    got = serve(cfg, card, prompts.to(cuda), 5, device=cuda)
+    assert k3.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(got.tokens.cpu(), ref.tokens)
+    toks = prompts.to(cuda)
+    with torch.no_grad():
+        full, _ = prefill(card, cfg, toks)
+        _, cache = prefill_to_cache(card, cfg, toks[:, :-1], 40)
+        step, _ = decode(card, cfg, toks[:, -1:], cache, 36)
+    torch.testing.assert_close(step, full, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu

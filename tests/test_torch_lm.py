@@ -308,8 +308,7 @@ def test_unported_families_raise():
     cfg = tconfigs.get_config("smollm-135m").reduced()
     for kw in (dict(family="moe", moe=tconfigs.MoEConfig(n_experts=4)),
                dict(family="ssm", ssm=tconfigs.SSMConfig()),
-               dict(mla=tconfigs.MLAConfig()), dict(rope="mrope"),
-               dict(n_stub_tokens=8)):
+               dict(rope="mrope"), dict(n_stub_tokens=8)):
         with pytest.raises(NotImplementedError):
             tmodel.init_params(dataclasses.replace(cfg, **kw),
                                torch.Generator(), device="cpu")
@@ -326,12 +325,13 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models.model import init_params
 
-cfg = get_config("smollm-135m").reduced()
+ARCH = sys.argv[1]
+cfg = get_config(ARCH).reduced()
 params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 prompts = serve_mod.make_prompts(cfg, 2, 5, seed=1, device="cpu")
 res = serve_mod.serve(cfg, params, prompts, 3, device="cpu")
 assert res.tokens.shape == (2, 3)
-serve_mod.main(["--arch", "smollm-135m", "--batch", "1", "--prompt-len",
+serve_mod.main(["--arch", ARCH, "--batch", "1", "--prompt-len",
                 "4", "--gen", "2", "--device", "cpu"])
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
@@ -341,7 +341,7 @@ print("LOADED", bad)
 raised = []
 if not torch.cuda.is_available():
     for call in (lambda: serve_mod.serve(cfg, params, prompts, 3),
-                 lambda: serve_mod.main(["--arch", "smollm-135m"]),
+                 lambda: serve_mod.main(["--arch", ARCH]),
                  lambda: serve_mod.make_prompts(cfg, 2, 5, seed=1)):
         try:
             call()
@@ -353,11 +353,14 @@ print("RAISED", raised)
 """
 
 
-def test_serve_imports_no_jax_and_defaults_to_cuda():
+@pytest.mark.parametrize("arch", ["smollm-135m", "minicpm3-4b"])
+def test_serve_imports_no_jax_and_defaults_to_cuda(arch):
+    """GQA and MLA serving import neither ``jax`` nor ``repro``."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
                OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", _SERVE_ISOLATION], env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _SERVE_ISOLATION, arch],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     assert "sample tokens:" in out.stdout
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
