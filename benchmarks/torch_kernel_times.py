@@ -21,8 +21,11 @@ S 128), and with ``--bwd-splits 1,2,...`` at the training shape with
 those dK/dV split counts; a port without a backward is recorded as
 absent, and the three-kernel backward that preceded the split-TF32 one
 is driven through its own C entry points. K3's forward is timed at
-smollm-135m's prefill (Dh 64) and minicpm3-4b's (Dh 96), fp32 and bf16
-(a port that refuses a head dim is recorded as refusing it). It prints
+smollm-135m's prefill (Dh 64), minicpm3-4b's (Dh 96) and granite-moe's
+(H 24 over KH 8, Dh 64), fp32 and bf16 (a port that refuses a head dim is
+recorded as refusing it), and at granite-moe's shape also with
+``chip_smoke.attention_report`` (cold ms, the bounds, the plain version,
+SDPA under each backend, the error against the plain version). It prints
 the card's name and power limit, then one JSON line with the card's
 floor, a 1-element ``zero_()`` in the same bracket. It needs a CUDA card
 and checks nothing else.
@@ -100,12 +103,13 @@ def k3_backward(dev, splits=()) -> list:
 
 
 def k3_forward(dev) -> list:
-    """K3's forward (serving instantiation) at smollm-135m's and
-    minicpm3-4b's prefill shapes, fp32 and bf16: steady ms, or why the
-    port refuses the shape."""
+    """K3's forward (serving instantiation) at smollm-135m's,
+    minicpm3-4b's and granite-moe's prefill shapes, fp32 and bf16: steady
+    ms, or why the port refuses the shape."""
     from repro_torch.kernels import flash_attention as k3
     rows = []
-    for shape in (chip_smoke.ATTN_MAIN, chip_smoke.ATTN_MLA):
+    for shape in (chip_smoke.ATTN_MAIN, chip_smoke.ATTN_MLA,
+                  chip_smoke.ATTN_GRANITE):
         causal, window = shape[6], shape[7]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = chip_smoke._attn_inputs(shape, dtype, dev)
@@ -117,6 +121,16 @@ def k3_forward(dev) -> list:
                 row["refused"] = str(e)
             rows.append(row)
     return rows
+
+
+def _attention_error(dev, shape) -> float:
+    """max |K3 − plain| in fp32 at ``shape``."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import flash_attention_ref
+    q, k, v = chip_smoke._attn_inputs(shape, torch.float32, dev)
+    out = k3._launch(q, k, v, shape[6], shape[7])
+    ref = flash_attention_ref(q, k, v, causal=shape[6], window=shape[7])
+    return float((out - ref).abs().max())
 
 
 def main() -> int:
@@ -158,11 +172,16 @@ def main() -> int:
         k1.append({"shape": chip_smoke.EM_WIDE, "refused": str(e)})
         k2.append({"shape": {"M": 39, "P": P_CIFAR}, "refused": str(e)})
     k3_fwd = k3_forward(dev)
+    granite = chip_smoke.attention_report(
+        dev, chip_smoke.ATTN_GRANITE, None, None, floor,
+        "granite-moe-3b-a800m prefill, timed alone")
+    granite["max_abs_err"] = _attention_error(dev, chip_smoke.ATTN_GRANITE)
     k3_bwd = k3_backward(dev, [int(n) for n in args.bwd_splits.split(",")
                                if n])
     print(card_line)
     print(json.dumps({"src": str(src), "build_s": secs, "floor_ms": floor,
                       "k1": k1, "k2": k2, "k3_forward": k3_fwd,
+                      "k3_granite": granite,
                       "k3_backward": k3_bwd}))
     return 0
 

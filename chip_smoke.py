@@ -91,6 +91,19 @@ Phases, each of which stops the run on failure:
      8 prompts of 1024 tokens, 32 generated: K3 at Dh 96 launches 62
      times a prefill, logits finite, tokens in range; prefill ms, decode ms
      a step, tok/s, peak memory and the decode-vs-prefill gap printed);
+  7c. MoE serving: reduced granite-moe-3b-a800m (K3 at Dh 64) and reduced
+     deepseek-v3-671b (MLA, K3 at Dh 48; a dense layer, a shared expert)
+     on the card against the CPU with the same weights and ragged prompts,
+     free of drops and at a capacity factor that drops (logits within
+     1e-4, tokens equal; the dropped pairs and the smallest gap between a
+     token's k-th and (k+1)-th router probability printed); the dispatch
+     run under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+     then granite-moe-3b-a800m at full width and depth (32 layers of 40
+     experts, 3.37 B params, fp32, random weights, 8 prompts of 1024
+     tokens, 32 generated: K3 launches 32 times a prefill, logits finite,
+     tokens in range; prefill ms, decode ms a step, tok/s, peak memory and
+     the share of pairs the prefill drops printed); its weights are freed
+     before 7b;
   7b. LM training: reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights, batches and link masks, 3 SGD steps
      and one federated round at C = 3; then the main path at full width,
@@ -106,15 +119,16 @@ Phases, each of which stops the run on failure:
      vocabulary and at the M = 39 round's shape, K2 also from a
      16-byte-aligned stride, at M = 39 and at the federated LM mix, K3
      also in bf16, SDPA under each backend, K3 also at minicpm3-4b's
-     prefill (Dh 96) and reduced minicpm3-4b's (Dh 48); K3's backward at
+     prefill (Dh 96), reduced minicpm3-4b's (Dh 48) and granite-moe's (H
+     24 over KH 8, Dh 64); K3's backward at
      the training and the federated shapes, each kernel's ms, the
      split-TF32, CUDA-core and bytes bounds, SDPA's backward under each
      backend that takes fp32)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
      and print them as one JSON line;
   9. with ``--profile`` only: profile two pFedWN rounds, one serving run
-     of smollm-135m and one of minicpm3-4b, and one full-width training
-     step with ``torch.profiler``.
+     each of smollm-135m, minicpm3-4b and granite-moe-3b-a800m, and one
+     full-width training step with ``torch.profiler``.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the repo's ``src/`` beside it, it exits non-zero and prints no
 result.
@@ -172,6 +186,7 @@ EM_CASES = [(EM_MAIN, 100, 0, False), ((3, 64, 1024), 100, 0, False),
 # K3 shapes: (B, Sq, Skv, H, KH, Dh, causal, window); the first is the main
 # path's (smollm-135m's prefill of 8 x 1024 tokens)
 ATTN_MAIN = (8, 1024, 1024, 9, 3, 64, True, 0)
+ATTN_GRANITE = (8, 1024, 1024, 24, 8, 64, True, 0)   # granite-moe's prefill
 ATTN_SHAPES = [
     ATTN_MAIN,
     (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
@@ -183,6 +198,7 @@ ATTN_SHAPES = [
     (3, 1, 77, 12, 4, 128, True, 0),
     (1, 5000, 5000, 48, 4, 128, True, 4096),  # starcoder2-15b, its window
     (1, 2048, 2048, 32, 2, 128, True, 0),    # chatglm3-6b
+    ATTN_GRANITE,
     # tile edges: folded rows just below, at and above 64 and 128, keys
     # just off the key tile (64 at Dh 64, 32 at Dh 128)
     (2, 42, 43, 3, 1, 64, True, 0),
@@ -226,6 +242,10 @@ ATTN_MLA_SHAPES = [
 AGG_P = 188_810
 AGG_STRIDES = (188_810, 188_811, 188_812)
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
+# phase 7c: the MoE configs served card vs CPU, and a capacity factor that
+# drops pairs in their prefill (reduced() sets 4.0, which never drops)
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b")
+MOE_DROP_FACTOR = 0.25
 # K3's backward: (B, Sq, Skv, H, KH, Dh, causal, window); the first is the
 # training main path's (smollm-135m, B 8 x S 256)
 BWD_MAIN = (8, 256, 256, 9, 3, 64, True, 0)
@@ -1330,6 +1350,154 @@ def run_mla_main_path(dev):
     return res, n3, (cfg, params, prompts)
 
 
+class _Routing:
+    """Records ``routing_stats`` of every ``moe_apply`` call made inside
+    the ``with`` (dropped pairs, pairs, smallest top-k gap, kept on the
+    device until read), by wrapping the function the model calls."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._apply = [], moe.moe_apply
+
+        def recording(params, cfg, x):
+            self.calls.append(moe.routing_stats(params["router"], x,
+                                                cfg.moe))
+            return self._apply(params, cfg, x)
+
+        moe.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_apply = self._apply
+
+    def summary(self, n=None) -> tuple:
+        """(dropped pairs, pairs, smallest gap) over the first ``n``
+        calls (all when None)."""
+        calls = self.calls[:n]
+        return (int(sum(int(c[0]) for c in calls)),
+                sum(c[1] for c in calls),
+                min(float(c[2]) for c in calls))
+
+
+def _moe_cfg(arch, factor=None):
+    """``arch`` reduced, at capacity ``factor`` (reduced()'s when None)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=factor))
+    return cfg
+
+
+def check_moe_serve_against_cpu(dev) -> dict:
+    """MoE serving on the card (K3 at Dh 64 for granite-moe, 48 for
+    deepseek-v3's MLA) against the CPU (plain version): each of
+    ``MOE_ARCHS`` reduced, the same weights and ragged prompts, 4 greedy
+    decode steps, free of drops and at ``MOE_DROP_FACTOR``, where the
+    prefill must drop pairs; logits within ``SERVE_TOL``, tokens equal, K3
+    once a layer. Then one ``moe_apply`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``. Returns K3's launches in
+    each card serving run, by (arch, capacity)."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params, unstack
+    launches = {}
+    for arch in MOE_ARCHS:
+        cpu_params = init_params(_moe_cfg(arch), torch.Generator().manual_seed(
+            0), device="cpu")
+        card_params = _tree_to(cpu_params, dev)
+        prompts = make_prompts(_moe_cfg(arch), 2, 37, seed=1, device="cpu")
+        for label, factor in (("free", None), ("drops", MOE_DROP_FACTOR)):
+            cfg = _moe_cfg(arch, factor)
+            n_moe = cfg.n_layers - cfg.moe.first_k_dense
+            with _Routing() as cpu_routes:
+                ref = serve(cfg, cpu_params, prompts, 5, device="cpu")
+            k3.launches = 0
+            with _Routing() as card_routes:
+                got = serve(cfg, card_params, prompts.to(dev), 5, device=dev)
+            n = launches[arch, label] = k3.launches
+            dropped, pairs, gap = card_routes.summary(n_moe)
+            gap = min(gap, cpu_routes.summary()[2], card_routes.summary()[2])
+            diff = (got.logits.cpu() - ref.logits).abs()
+            excess = float((diff - SERVE_TOL * ref.logits.abs()).max())
+            same = torch.equal(got.tokens.cpu(), ref.tokens)
+            print(f"serve reduced {arch} ({label}, capacity factor "
+                  f"{cfg.moe.capacity_factor:g}): max|dlogits|="
+                  f"{float(diff.max()):.3g} (tol {SERVE_TOL:g}), tokens "
+                  f"equal: {same}, K3 launches {n}; prefill dropped "
+                  f"{dropped} of {pairs} pairs; smallest top-k gap {gap:.3g}")
+            if not (excess <= SERVE_TOL and same and n == cfg.n_layers
+                    and (dropped > 0) == (label == "drops")):
+                raise AssertionError(f"reduced {arch} ({label}) serving on "
+                                     "the card disagrees with the CPU")
+    cfg = _moe_cfg(MOE_ARCHS[0], MOE_DROP_FACTOR)
+    layer = unstack(_tree_to(init_params(cfg, torch.Generator().manual_seed(
+        0), device="cpu"), dev)["layers"])[0]["moe"]
+    x = torch.randn((2, 64, cfg.d_model), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe.moe_apply(layer, cfg, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("moe_apply on the card under set_sync_debug_mode('error'): no "
+          "host sync")
+    return launches
+
+
+def run_moe_main_path(dev):
+    """granite-moe-3b-a800m at full width and depth through ``serve``:
+    fp32, random weights (seed 0), 8 prompts of 1024 tokens, 32 generated;
+    one warm run, then one timed run whose prefill must launch K3 once a
+    layer (32). Prints the timings, peak memory and, from one more prefill
+    with the routing recorded (untimed), the share of pairs dropped past
+    capacity. Returns (result, K3 launches, (cfg, params, prompts))."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params, prefill
+    cfg = get_config("granite-moe-3b-a800m")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    prompts = make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=1, device=dev)
+    serve(cfg, params, prompts, SERVE_GEN, device=dev)     # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.launches = 0
+    res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    n3 = k3.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if n3 != cfg.n_layers:
+        raise AssertionError(f"K3 launched {n3} times in one granite-moe "
+                             f"prefill, expected {cfg.n_layers}")
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError("non-finite logits on the MoE serving path")
+    if res.tokens.shape != (SERVE_B, SERVE_GEN) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad tokens {tuple(res.tokens.shape)}")
+    with torch.no_grad(), _Routing() as routes:
+        prefill(params, cfg, prompts)
+    dropped, pairs, gap = routes.summary()
+    t = res.timings
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"granite-moe-3b-a800m ({n_params} params) B={SERVE_B} "
+          f"prompt={SERVE_PROMPT} gen={SERVE_GEN} fp32: prefill "
+          f"{t['prefill_ms']} ms, decode {t['decode_ms_per_step']} ms per "
+          f"step, {t['decode_tok_per_s']} generated tok/s, peak memory "
+          f"{peak:.3f} GiB, K3 launches {n3}")
+    cap = moe.capacity(cfg.moe, SERVE_B * SERVE_PROMPT)
+    print(f"granite-moe prefill: capacity {cap} slots an expert, dropped "
+          f"{dropped} of {pairs} pairs ({100 * dropped / pairs:.3f} %) "
+          f"over {cfg.n_layers} layers; smallest top-k gap {gap:.3g}")
+    print(f"first 16 tokens of prompt 0: {res.tokens[0, :16].tolist()}")
+    return res, n3, (cfg, params, prompts)
+
+
 def _bwd_inputs(shape, dev, seed=0):
     """K3's inputs at ``shape`` (fp32) and an output cotangent dO."""
     q, k, v = _attn_inputs(shape, torch.float32, dev, seed)
@@ -1783,8 +1951,9 @@ def _unmasked_pairs(Sq, Skv, causal, window) -> int:
 
 
 def attention_report(dev, shape, n3, err3, floor, main_path):
-    """K3's row at a main path's ``shape`` in fp32 (smollm-135m's prefill
-    at Dh 64, minicpm3-4b's at 96, reduced minicpm3-4b's at 48), with the
+    """K3's row at a main path's ``shape`` in fp32 (smollm-135m's and
+    granite-moe's prefill at Dh 64, minicpm3-4b's at 96, reduced
+    minicpm3-4b's at 48), with the
     launches ``n3`` that path made and the error ``err3`` phase 6 found
     there."""
     import torch.nn.functional as F
@@ -2177,9 +2346,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile two pFedWN rounds, a serving "
-                        "run of smollm-135m and of minicpm3-4b and one "
-                        "training step and print where the device time "
-                        "goes")
+                        "run of smollm-135m, minicpm3-4b and granite-moe-"
+                        "3b-a800m and one training step and print where "
+                        "the device time goes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2282,6 +2451,19 @@ def main() -> int:
         del mla_args                  # 17 GB of weights
     torch.cuda.empty_cache()
 
+    _phase("7c. MoE serving: reduced granite-moe and deepseek-v3 vs CPU, "
+           "free of drops and dropping, then granite-moe at full width")
+    n3_small_moe = check_moe_serve_against_cpu(dev)
+    t0 = time.perf_counter()
+    _, n3_moe, moe_args = run_moe_main_path(dev)
+    small = ", ".join(f"{a} {c} {n}" for (a, c), n in n3_small_moe.items())
+    print(f"MoE serving main path wall {time.perf_counter() - t0:.1f} s "
+          f"(warm-up run and the routing-recorded prefill included), "
+          f"launches K3={n3_moe}; reduced runs' K3 launches: {small}")
+    if not args.profile:
+        del moe_args                  # 13.5 GB of weights
+    torch.cuda.empty_cache()
+
     _phase("7b. LM training: small run vs CPU, then single-client and "
            "federated at full width")
     check_train_against_cpu(dev)
@@ -2309,7 +2491,9 @@ def main() -> int:
             attention_report(dev, ATTN_MLA_SMALL, n3_small_mla,
                              err3[ATTN_MLA_SMALL], floor,
                              "serve reduced minicpm3-4b (MLA), card vs "
-                             "CPU")]
+                             "CPU"),
+            attention_report(dev, ATTN_GRANITE, n3_moe, err3[ATTN_GRANITE],
+                             floor, "serve granite-moe-3b-a800m (MoE)")]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}
@@ -2323,6 +2507,7 @@ def main() -> int:
         profile_rounds(sim)
         profile_serve(dev, *serve_args)
         profile_serve(dev, *mla_args)
+        profile_serve(dev, *moe_args)
         profile_train(dev)
     torch.cuda.synchronize()
     print(card_line)

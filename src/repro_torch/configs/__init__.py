@@ -1,5 +1,6 @@
 # one module per ported architecture (registry side effects)
-from repro_torch.configs import (chatglm3_6b, minicpm3_4b,  # noqa: F401
+from repro_torch.configs import (chatglm3_6b, deepseek_v3_671b,  # noqa: F401
+                                 granite_moe_3b_a800m, minicpm3_4b,
                                  smollm_135m, starcoder2_15b)
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
                                       PFLConfig, SSMConfig, TrainConfig,

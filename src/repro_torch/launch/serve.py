@@ -43,7 +43,8 @@ def prefill_to_cache(params: Dict, cfg: ModelConfig, prompts: torch.Tensor,
                      max_len: int, *, window: int = 0):
     """Prefill ``prompts`` (B, P) and move the prefill KV into a decode
     cache of ``max_len`` positions (a ring of min(window, max_len) slots
-    when windowed). Returns (last-token logits, cache). MLA's prefill keeps
+    when windowed), ``dense_layers`` included. Returns (last-token logits,
+    cache). MLA's prefill keeps
     full-length latents under a window, as the reference's does; a prompt
     longer than the window therefore does not fit the ring, and raises
     (the reference's ``launch/serve.py`` drops that prefill cache: ROADMAP
@@ -51,14 +52,15 @@ def prefill_to_cache(params: Dict, cfg: ModelConfig, prompts: torch.Tensor,
     logits, pcache = prefill(params, cfg, prompts, window=window)
     cache = init_cache(cfg, prompts.shape[0], max_len, window=window,
                        device=prompts.device)
-    for name, c in cache["layers"].items():
-        pc = pcache["layers"][name]
-        if pc.shape[2] > c.shape[2]:
-            raise NotImplementedError(
-                f"{cfg.name}: the prefill's {name!r} holds {pc.shape[2]} "
-                f"positions, the decode ring {c.shape[2]} (ROADMAP Queue C, "
-                "C4)")
-        c[:, :, :pc.shape[2]] = pc
+    for group, entries in cache.items():
+        for name, c in entries.items():
+            pc = pcache[group][name]
+            if pc.shape[2] > c.shape[2]:
+                raise NotImplementedError(
+                    f"{cfg.name}: the prefill's {name!r} holds "
+                    f"{pc.shape[2]} positions, the decode ring "
+                    f"{c.shape[2]} (ROADMAP Queue C, C4)")
+            c[:, :, :pc.shape[2]] = pc
     return logits, cache
 
 

@@ -1,5 +1,5 @@
-"""The dense language model, with GQA or MLA attention: params, full
-forward, prefill and decode.
+"""The language model, dense or MoE, with GQA or MLA attention: params,
+full forward, prefill and decode.
 
 Params are the reference's tree, as tensors: ``{"embed" (V, D), "ln_f"
 (D,), "lm_head" (D, V) unless tied, "layers": {"ln1", "ln2", "attn",
@@ -7,7 +7,12 @@ Params are the reference's tree, as tensors: ``{"embed" (V, D), "ln_f"
 over a leading L axis; ``attn`` is ``{"wq", "wk", "wv", "wo"[, "bq", "bk",
 "bv"]}`` for GQA and ``{"wq_a", "q_norm", "wq_b" (or "wq"), "wkv_a",
 "kv_norm", "wkv_b", "wo"}`` for MLA (``cfg.mla``). The layer loop is a
-Python loop over that axis.
+Python loop over that axis. An MoE config (``family="moe"``) keeps its
+first ``first_k_dense`` layers as such blocks in ``dense_layers`` and its
+other layers in ``layers``, each with ``"moe": {"router", "w_gate",
+"w_up", "w_down"[, "shared"]}`` (``models/moe.py``) for ``"mlp"``; with
+``mtp_depth`` it also has ``"mtp"``, one dense block, and ``"mtp_ln"``,
+which train a loss term on the token after next and never serve.
 
 Entry points:
   init_params(cfg, gen, device)                          -> params
@@ -28,11 +33,13 @@ on a card an MLA forward that needs gradients raises. MLA serves.
 Decode cache: ``{"layers": {"k", "v"}}``, each (L, B, S, KH, Dh), for GQA,
 and ``{"layers": {"c_kv", "k_rope"}}``, (L, B, S, kv_lora) and (L, B, S,
 qk_rope), for MLA; a ring buffer of S = min(window, max_len) slots when
-windowed. ``decode`` writes the new token's entries into it in place (the
-reference returns an updated copy) and returns the same tensors.
+windowed; an MoE config's ``dense_layers`` have a ``"dense_layers"`` entry
+of the same form. ``decode`` writes the new token's entries into it in
+place (the reference returns an updated copy) and returns the same
+tensors.
 
-The moe, ssm, hybrid, vlm/audio (stub embeddings) and mrope branches
-raise until their families are ported (ROADMAP Queue A items 2-4).
+The ssm, hybrid, vlm/audio (stub embeddings) and mrope branches raise
+until their families are ported (ROADMAP Queue A items 3-4).
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
                                        mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init, unembed_apply)
@@ -52,14 +60,16 @@ Params = Dict
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise for configs whose family this port does not run yet."""
-    if cfg.family != "dense" or cfg.moe or cfg.ssm or cfg.hybrid_attn_every:
+    if (cfg.family not in ("dense", "moe") or (cfg.family == "moe")
+            != bool(cfg.moe) or cfg.ssm or cfg.hybrid_attn_every):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the LM "
-            "port runs dense GQA and MLA only (ROADMAP Queue A items 2-3)")
-    if cfg.rope == "mrope" or cfg.n_stub_tokens or cfg.mtp_depth:
+            "port runs dense and MoE, with GQA or MLA (ROADMAP Queue A "
+            "item 3)")
+    if cfg.rope == "mrope" or cfg.n_stub_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: mrope, stub embeddings and MTP are not ported yet "
-            "(ROADMAP Queue A items 2 and 4)")
+            f"{cfg.name}: mrope and stub embeddings are not ported yet "
+            "(ROADMAP Queue A item 4)")
 
 
 def unstack(stacked: Params) -> list:
@@ -74,12 +84,19 @@ def unstack(stacked: Params) -> list:
     return list(torch.unbind(stacked))
 
 
-def _block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    return {"ln1": rmsnorm_init(cfg.d_model, device),
-            "ln2": rmsnorm_init(cfg.d_model, device),
-            "attn": (attn.mla_init if cfg.mla else attn.gqa_init)(gen, cfg,
-                                                                  device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, device)}
+def _block_init(gen: torch.Generator, cfg: ModelConfig, device, *,
+                moe: bool = False) -> Params:
+    """One block: attention, then an MLP of width ``d_ff``, or the MoE
+    when ``moe``."""
+    p = {"ln1": rmsnorm_init(cfg.d_model, device),
+         "ln2": rmsnorm_init(cfg.d_model, device),
+         "attn": (attn.mla_init if cfg.mla else attn.gqa_init)(gen, cfg,
+                                                               device)}
+    if moe:
+        p["moe"] = moe_mod.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, device)
+    return p
 
 
 def _stack(trees):
@@ -99,9 +116,38 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                       "ln_f": rmsnorm_init(cfg.d_model, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device)
-    params["layers"] = _stack([_block_init(gen, cfg, device)
-                               for _ in range(cfg.n_layers)])
+    fk = _n_dense(cfg)
+    if fk:
+        params["dense_layers"] = _stack([_block_init(gen, cfg, device)
+                                         for _ in range(fk)])
+    params["layers"] = _stack([
+        _block_init(gen, cfg, device, moe=cfg.family == "moe")
+        for _ in range(cfg.n_layers - fk)])
+    if cfg.mtp_depth:
+        params["mtp"] = _block_init(gen, cfg, device)
+        params["mtp_ln"] = rmsnorm_init(cfg.d_model, device)
     return params
+
+
+def _n_dense(cfg: ModelConfig) -> int:
+    """The leading dense layers an MoE config keeps in ``dense_layers``."""
+    return cfg.moe.first_k_dense if cfg.moe else 0
+
+
+def _groups(params: Params):
+    """The stacked layer groups in order: ``dense_layers`` (MoE configs
+    with leading dense layers), then ``layers``."""
+    return [g for g in ("dense_layers", "layers") if g in params]
+
+
+def _ffn(p: Params, cfg: ModelConfig, h: torch.Tensor):
+    """The block's second half on the residual ``h``: (h + MLP or MoE of
+    its norm, the MoE's aux loss or None)."""
+    hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
+    if "mlp" in p:
+        return h + mlp_apply(p["mlp"], hn), None
+    y, aux = moe_mod.moe_apply(p["moe"], cfg, hn)
+    return h + y, aux
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -115,16 +161,16 @@ def _block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     pre = attn.mla_prefill if cfg.mla else attn.gqa_prefill
     y, kv = pre(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
                 positions=positions, window=window)
-    h = x + y
-    return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps)), kv
+    return _ffn(p, cfg, x + y)[0], kv
 
 
 def _train_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                 pos: torch.Tensor, window: int) -> torch.Tensor:
+                 pos: torch.Tensor, window: int):
+    """One block of the training forward: (h, MoE aux loss or None)."""
     apply = attn.mla_apply if cfg.mla else attn.gqa_apply
     x = x + apply(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
                   positions=pos, window=window)
-    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return _ffn(p, cfg, x)
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -132,9 +178,9 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                    window: int = 0, remat: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward to the final normed hidden states (B, S, D),
-    and the aux loss (0 for dense). ``remat`` recomputes each layer in the
-    backward (``torch.utils.checkpoint``), as the reference's
-    ``jax.checkpoint`` of the layer body."""
+    and the MoE layers' aux losses summed (0 for dense). ``remat``
+    recomputes each layer in the backward (``torch.utils.checkpoint``), as
+    the reference's ``jax.checkpoint`` of the layer body."""
     _check_supported(cfg)
     if positions is not None:
         raise NotImplementedError("custom positions are not ported yet "
@@ -142,14 +188,21 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     window = window or cfg.sliding_window
     x = embed_apply(params["embed"], tokens)
     pos = _positions(tokens)
-    for p in unstack(params["layers"]):
-        if remat:
-            x = checkpoint(_train_block, p, cfg, x, pos, window,
-                           use_reentrant=False)
-        else:
-            x = _train_block(p, cfg, x, pos, window)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for group in _groups(params):
+        for p in unstack(params[group]):
+            x, a = _train_layer(p, cfg, x, pos, window, remat)
+            if a is not None:
+                aux = aux + a
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+
+def _train_layer(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 pos: torch.Tensor, window: int, remat: bool):
+    if remat:
+        return checkpoint(_train_block, p, cfg, x, pos, window,
+                          use_reentrant=False)
+    return _train_block(p, cfg, x, pos, window)
 
 
 def logits_from_hidden(params: Params, cfg: ModelConfig,
@@ -174,16 +227,27 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict, *,
             window: int = 0, remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: tokens (B, S), labels (B, S). Returns (xent + aux, {"xent",
-    "aux", "mtp"}); MTP, stub embeddings and custom positions raise until
-    their families are ported."""
+    """batch: tokens (B, S), labels (B, S). Returns (xent + 0.3 · mtp + aux,
+    {"xent", "aux", "mtp"}); ``mtp`` is 0 without an MTP head, else the
+    cross-entropy of the head (one block on the final hidden states, then
+    ``mtp_ln``) at the token after next. Stub embeddings and custom
+    positions raise until their families are ported."""
     h, aux = forward_hidden(params, cfg, batch["tokens"],
                             positions=batch.get("positions"), window=window,
                             remat=remat)
     logits = logits_from_hidden(params, cfg, h)
-    loss = softmax_xent(logits, batch["labels"])
-    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss + aux, {"xent": loss, "aux": aux, "mtp": zero}
+    xent = softmax_xent(logits, batch["labels"])
+    loss = xent
+    mtp = torch.zeros((), dtype=torch.float32, device=xent.device)
+    if cfg.mtp_depth:
+        # the reference passes loss_fn's own window here, unresolved
+        h2, _ = _train_layer(params["mtp"], cfg, h, _positions(h), window,
+                             remat)
+        h2 = rmsnorm(params["mtp_ln"], h2, cfg.norm_eps)
+        mtp = softmax_xent(logits_from_hidden(params, cfg, h2[:, :-1]),
+                           batch["labels"][:, 1:])
+        loss = loss + 0.3 * mtp
+    return loss + aux, {"xent": xent, "aux": aux, "mtp": mtp}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
@@ -191,17 +255,23 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     _check_supported(cfg)
     window = window or cfg.sliding_window
     S = min(window, max_len) if window else max_len
-    L = cfg.n_layers
-    if cfg.mla:
-        m = cfg.mla
-        return {"layers": {
-            "c_kv": torch.zeros((L, batch_size, S, m.kv_lora_rank),
-                                device=device),
-            "k_rope": torch.zeros((L, batch_size, S, m.qk_rope_head_dim),
-                                  device=device)}}
-    shape = (L, batch_size, S, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"layers": {"k": torch.zeros(shape, device=device),
-                       "v": torch.zeros(shape, device=device)}}
+
+    def zeros(L):
+        if cfg.mla:
+            m = cfg.mla
+            return {"c_kv": torch.zeros((L, batch_size, S, m.kv_lora_rank),
+                                        device=device),
+                    "k_rope": torch.zeros(
+                        (L, batch_size, S, m.qk_rope_head_dim),
+                        device=device)}
+        shape = (L, batch_size, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, device=device),
+                "v": torch.zeros(shape, device=device)}
+
+    fk = _n_dense(cfg)
+    cache = {"dense_layers": zeros(fk)} if fk else {}
+    cache["layers"] = zeros(cfg.n_layers - fk)
+    return cache
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -211,8 +281,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     cache ``{"layers": {"k", "v"}}`` of (L, B, S_c, KH, Dh)), where S_c is S,
     or min(window, S) ring-packed when windowed; for MLA ``{"layers":
     {"c_kv", "k_rope"}}`` of (L, B, S, ·), full length even when windowed,
-    as the reference's. Every layer's attention is one launch of K3 on a
-    card."""
+    as the reference's; an MoE config's ``dense_layers`` under their own
+    key. Every layer's attention is one launch of K3 on a card."""
     _check_supported(cfg)
     if positions is not None:
         raise NotImplementedError("custom positions are not ported yet "
@@ -220,14 +290,16 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     window = window or cfg.sliding_window
     x = embed_apply(params["embed"], tokens)
     pos = _positions(tokens)
-    caches = []
-    for p in unstack(params["layers"]):
-        x, kv = _block_apply(p, cfg, x, positions=pos, window=window)
-        caches.append(kv)
+    cache = {}
+    for group in _groups(params):
+        caches = []
+        for p in unstack(params[group]):
+            x, kv = _block_apply(p, cfg, x, positions=pos, window=window)
+            caches.append(kv)
+        cache[group] = {name: torch.stack([c[name] for c in caches])
+                        for name in caches[0]}
     h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
-    logits = logits_from_hidden(params, cfg, h)[:, 0]
-    return logits, {"layers": {name: torch.stack([c[name] for c in caches])
-                               for name in caches[0]}}
+    return logits_from_hidden(params, cfg, h)[:, 0], cache
 
 
 def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -240,12 +312,12 @@ def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
     x = embed_apply(params["embed"], token)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     dec = attn.mla_decode if cfg.mla else attn.gqa_decode
-    kc = cache["layers"]
-    for i, p in enumerate(unstack(params["layers"])):
-        y, _ = dec(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
-                   cache={name: c[i] for name, c in kc.items()}, pos=pos,
-                   positions=positions, window=window)
-        x = x + y
-        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    for group in _groups(params):
+        kc = cache[group]
+        for i, p in enumerate(unstack(params[group])):
+            y, _ = dec(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
+                       cache={name: c[i] for name, c in kc.items()},
+                       pos=pos, positions=positions, window=window)
+            x, _ = _ffn(p, cfg, x + y)
     h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return logits_from_hidden(params, cfg, h)[:, 0], cache

@@ -118,12 +118,15 @@ def to_numpy(flat: torch.Tensor, layout: ParamLayout) -> Tree:
 
 
 def from_jax_lm_params(tree: Tree, cfg, device: str | torch.device) -> Tree:
-    """The reference's ``init_params`` tree for a dense LM config (numpy
-    leaves; ``layers`` leaves stacked ``(L, ...)``) as the port's params."""
-    if cfg.family != "dense" or "layers" not in tree:
-        raise ValueError(f"{cfg.name}: only dense LM trees are carried "
-                         "across")
-    n = np.shape(tree["layers"]["ln1"])[0]
+    """The reference's ``init_params`` tree for a dense or MoE LM config
+    (numpy leaves; ``layers`` and an MoE config's ``dense_layers`` stacked
+    ``(L, ...)``; ``mtp`` and ``mtp_ln`` when the config has an MTP head)
+    as the port's params."""
+    if cfg.family not in ("dense", "moe") or "layers" not in tree:
+        raise ValueError(f"{cfg.name}: only dense and MoE LM trees are "
+                         "carried across")
+    n = sum(np.shape(tree[g]["ln1"])[0] for g in ("dense_layers", "layers")
+            if g in tree)
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} layers, {cfg.name} {cfg.n_layers}")
     leaves, template = _flatten(tree)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the reference's sweep shapes, the pFedWN round's shapes and the LM
-prefill's, K3 also at MLA's head dims (48, 96), K3's backward against its
-plain version in float64; every federated method, the serving path (GQA
-and MLA) and LM training on the card against the CPU, with the kernel
-launches each path makes. Every test
+prefill's (granite-moe's H 24 over KH 8 among them), K3 also at MLA's head
+dims (48, 96), K3's backward against its plain version in float64; every
+federated method, the serving path (GQA, MLA and MoE, the MoE layer with
+and without capacity drops) and LM training on the card against the CPU,
+with the kernel launches each path makes. Every test
 here needs a CUDA card and skips without one; the file imports nothing of
 JAX, so it runs where only the port is installed:
 
@@ -334,6 +335,8 @@ MLA_ATTN_SHAPES = [
     (1, 129, 97, 1, 1, 96, False, 0),
     (8, 1024, 1024, 40, 40, 96, True, 0),
 ]
+# granite-moe-3b-a800m's prefill: 8 x 1024 tokens, 24 heads over 8 KV heads
+GRANITE_PREFILL = (8, 1024, 1024, 24, 8, 64, True, 0)
 
 
 def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
@@ -345,7 +348,8 @@ def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Skv,H,KH,Dh,causal,window",
-                         ATTN_SHAPES + EDGE_SHAPES + MLA_ATTN_SHAPES)
+                         ATTN_SHAPES + EDGE_SHAPES + MLA_ATTN_SHAPES
+                         + [GRANITE_PREFILL])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
                                                       Dh, causal, window,
@@ -566,6 +570,69 @@ def test_mla_serve_on_card_matches_cpu(cuda):
         _, cache = prefill_to_cache(card, cfg, toks[:, :-1], 40)
         step, _ = decode(card, cfg, toks[:, -1:], cache, 36)
     torch.testing.assert_close(step, full, atol=1e-4, rtol=1e-4)
+
+
+def _moe_cfg(arch, factor):
+    """``arch`` reduced, at capacity ``factor`` (reduced()'s 4.0 never
+    drops; 0.25 drops pairs in a prefill of 2 x 37 tokens)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+
+
+MOE_ARCHS = ["granite-moe-3b-a800m", "deepseek-v3-671b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("factor", [4.0, 0.25])
+def test_moe_apply_on_card_matches_cpu(cuda, arch, factor):
+    """The MoE layer (router, stable-sort dispatch, expert products,
+    combine) on the card against the CPU, with and without drops, with no
+    host sync in the dispatch; 1e-5, the CPU tests' tolerance."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params, unstack
+    cfg = _moe_cfg(arch, factor)
+    layer = unstack(init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")["layers"])[0]["moe"]
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 37, cfg.d_model)).astype(np.float32))
+    ref, ref_aux = moe.moe_apply(layer, cfg, x)
+    card, xc = _to(layer, cuda), x.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = moe.moe_apply(card, cfg, xc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    dropped, _, gap = moe.routing_stats(card["router"], xc, cfg.moe)
+    assert (int(dropped) > 0) == (factor < 1), float(gap)
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux.cpu(), ref_aux, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("factor", [4.0, 0.25])
+def test_moe_serve_on_card_matches_cpu(cuda, arch, factor):
+    """Reduced granite-moe (K3 at Dh 64) and deepseek-v3 (MLA, K3 at Dh
+    48; a dense layer and a shared expert) served on the card against the
+    CPU: same weights and ragged prompts, logits within 1e-4 and the same
+    greedy tokens, K3 once a layer."""
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params
+    cfg = _moe_cfg(arch, factor)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+    ref = serve(cfg, params, prompts, 5, device="cpu")
+    before = k3.launches
+    got = serve(cfg, _to(params, cuda), prompts.to(cuda), 5, device=cuda)
+    assert k3.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(got.tokens.cpu(), ref.tokens)
 
 
 @pytest.mark.gpu
