@@ -21,8 +21,9 @@ S 128), and with ``--bwd-splits 1,2,...`` at the training shape with
 those dK/dV split counts; a port without a backward is recorded as
 absent, and the three-kernel backward that preceded the split-TF32 one
 is driven through its own C entry points. K3's forward is timed at
-smollm-135m's prefill (Dh 64), minicpm3-4b's (Dh 96) and granite-moe's
-(H 24 over KH 8, Dh 64), fp32 and bf16 (a port that refuses a head dim is
+smollm-135m's prefill (Dh 64), minicpm3-4b's (Dh 96), granite-moe's
+(H 24 over KH 8, Dh 64) and zamba2-7b's (H 32, Dh 112), fp32 and bf16 (a
+port that refuses a head dim is
 recorded as refusing it), and at granite-moe's shape also with
 ``chip_smoke.attention_report`` (cold ms, the bounds, the plain version,
 SDPA under each backend, the error against the plain version). It prints
@@ -104,12 +105,13 @@ def k3_backward(dev, splits=()) -> list:
 
 def k3_forward(dev) -> list:
     """K3's forward (serving instantiation) at smollm-135m's,
-    minicpm3-4b's and granite-moe's prefill shapes, fp32 and bf16: steady
-    ms, or why the port refuses the shape."""
+    minicpm3-4b's, granite-moe's and zamba2-7b's prefill shapes, fp32 and
+    bf16: steady ms (and in fp32 the max error against the plain
+    version), or why the port refuses the shape."""
     from repro_torch.kernels import flash_attention as k3
     rows = []
     for shape in (chip_smoke.ATTN_MAIN, chip_smoke.ATTN_MLA,
-                  chip_smoke.ATTN_GRANITE):
+                  chip_smoke.ATTN_GRANITE, chip_smoke.ATTN_SSM):
         causal, window = shape[6], shape[7]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = chip_smoke._attn_inputs(shape, dtype, dev)
@@ -119,6 +121,9 @@ def k3_forward(dev) -> list:
                     lambda: k3._launch(q, k, v, causal, window))
             except RuntimeError as e:     # the library refuses the head dim
                 row["refused"] = str(e)
+            else:
+                if dtype == torch.float32:
+                    row["max_abs_err"] = _attention_error(dev, shape)
             rows.append(row)
     return rows
 

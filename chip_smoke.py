@@ -68,8 +68,11 @@ Phases, each of which stops the run on failure:
      48 and 96 over the sweep's shapes, ragged shapes, the tile edges of
      those dims and minicpm3-4b's prefill (B 8, S 1024, H 40, KH 40, Dh
      96), with the fp32 training instantiation there (output bitwise the
-     serving one's, row LSE against the plain one); a call at Dh 96 that
-     needs a gradient must raise before any launch; then K3's
+     serving one's, row LSE against the plain one); at zamba2's head dim
+     112 over the sweep's shapes, ragged shapes, the tile edges and
+     zamba2-7b's prefill (B 8, S 1024, H 32, KH 32, causal, and with a
+     window of 256), with the training instantiation too; a call at Dh 96
+     or 112 that needs a gradient must raise before any launch; then K3's
      backward (``csrc/flash_attention_bwd.cu``: split-TF32 ``wgmma``, dK/dV
      split over blocks where one a key tile leaves SMs idle, through the
      autograd path) against ``flash_attention_bwd_ref`` in float64 on the
@@ -103,7 +106,20 @@ Phases, each of which stops the run on failure:
      tokens, 32 generated: K3 launches 32 times a prefill, logits finite,
      tokens in range; prefill ms, decode ms a step, tok/s, peak memory and
      the share of pairs the prefill drops printed); its weights are freed
-     before 7b;
+     before 7d;
+  7d. SSM serving: reduced falcon-mamba-7b (Mamba1, no attention) and
+     reduced zamba2-7b (Mamba2 and its shared attention block, K3 at Dh
+     64), also with a window of 8 that the prompt wraps, on the card
+     against the CPU with the same weights and ragged prompts (logits
+     within 1e-4, tokens equal) and the first decode step against a
+     prefill of the P + 1 tokens on the card (1e-4); then each at full
+     width and depth (falcon-mamba-7b: 64 layers, 7.27 B params;
+     zamba2-7b: 81 layers and 13 applications of the shared block, 6.75 B
+     params; fp32, random weights, 8 prompts of 1024 tokens, 32
+     generated: K3 at Dh 112 launches 13 times a zamba2 prefill and 0
+     times a falcon-mamba one, logits finite, tokens in range; prefill ms,
+     decode ms a step, tok/s, peak memory and the decode-vs-prefill gap
+     printed), each model's weights freed before the next and before 7b;
   7b. LM training: reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights, batches and link masks, 3 SGD steps
      and one federated round at C = 3; then the main path at full width,
@@ -120,15 +136,17 @@ Phases, each of which stops the run on failure:
      16-byte-aligned stride, at M = 39 and at the federated LM mix, K3
      also in bf16, SDPA under each backend, K3 also at minicpm3-4b's
      prefill (Dh 96), reduced minicpm3-4b's (Dh 48) and granite-moe's (H
-     24 over KH 8, Dh 64); K3's backward at
+     24 over KH 8, Dh 64) and zamba2-7b's (Dh 112); K3's backward at
      the training and the federated shapes, each kernel's ms, the
      split-TF32, CUDA-core and bytes bounds, SDPA's backward under each
      backend that takes fp32)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
      and print them as one JSON line;
   9. with ``--profile`` only: profile two pFedWN rounds, one serving run
-     each of smollm-135m, minicpm3-4b and granite-moe-3b-a800m, and one
-     full-width training step with ``torch.profiler``.
+     of smollm-135m and one full-width training step with
+     ``torch.profiler``; the serving runs of minicpm3-4b,
+     granite-moe-3b-a800m, falcon-mamba-7b and zamba2-7b are profiled in
+     their own phases, before their weights are freed.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the repo's ``src/`` beside it, it exits non-zero and prints no
 result.
@@ -237,6 +255,33 @@ ATTN_MLA_SHAPES = [
     (1, 129, 97, 1, 1, 96, False, 0),
     (2, 42, 43, 3, 1, 96, True, 0),
 ]
+# K3 at zamba2-7b's head dim 112 (d_model 3584 / 32 heads): its prefill (B
+# 8 x S 1024, 32 heads over 32 KV heads, causal) first, then with a window;
+# the sweep's shapes; ragged shapes; tile edges: folded rows just below, at
+# and above 64 and 128 (a block's rows), keys just off the 32-key tile
+ATTN_SSM = (8, 1024, 1024, 32, 32, 112, True, 0)
+ATTN_SSM_SHAPES = [
+    ATTN_SSM,
+    (8, 1024, 1024, 32, 32, 112, True, 256),
+    (2, 256, 256, 4, 2, 112, True, 0),       # tests/test_kernels.py sweep
+    (1, 256, 256, 8, 8, 112, True, 0),
+    (2, 128, 128, 4, 1, 112, False, 0),
+    (1, 384, 384, 6, 2, 112, True, 96),
+    (1, 128, 128, 2, 2, 112, True, 0),
+    (2, 200, 200, 4, 4, 112, True, 0),       # ragged
+    (3, 1, 77, 12, 4, 112, True, 0),
+    (1, 77, 50, 16, 1, 112, False, 20),      # rows 69.. fully masked
+    (1, 63, 31, 1, 1, 112, False, 0),        # tile edges
+    (1, 32, 33, 2, 1, 112, True, 0),
+    (2, 42, 43, 3, 1, 112, True, 0),
+    (1, 64, 127, 2, 1, 112, False, 0),
+    (1, 43, 33, 3, 1, 112, True, 16),
+    (1, 65, 129, 1, 1, 112, True, 16),
+    (1, 129, 97, 1, 1, 112, False, 0),
+]
+# phase 7d: the SSM configs, and the window zamba2's card-vs-CPU run wraps
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
+SSM_WINDOW = 8
 # K2: the cifar10-cnn round's P, and row strides that give the kernel 8-,
 # 4- and 16-byte vectors in fp32 (the round's stack has the first)
 AGG_P = 188_810
@@ -1121,15 +1166,16 @@ def _attn_inputs(shape, dtype, dev, seed=0):
 
 def check_flash_attention(dev) -> dict:
     """K3 against its plain version at every checked shape, |d| <= tol +
-    tol·|plain|; raises past it. At MLA's head dims (48, 96) also the
-    fp32 training instantiation: its output bitwise the serving one's, its
-    row LSE within ``BWD_TOL`` of the plain one; and a call at Dh 96 that
+    tol·|plain|; raises past it. At the head dims the backward does not
+    take (MLA's 48 and 96, zamba2's 112) also the fp32 training
+    instantiation: its output bitwise the serving one's, its row LSE
+    within ``BWD_TOL`` of the plain one; and a call at Dh 96 or 112 that
     needs a gradient must raise before it launches anything (the backward
     takes Dh 64 and 128). Returns the max |d| in fp32 by shape."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import flash_attention_ref
     errs = {}
-    for shape in ATTN_SHAPES + ATTN_MLA_SHAPES:
+    for shape in ATTN_SHAPES + ATTN_MLA_SHAPES + ATTN_SSM_SHAPES:
         causal, window = shape[6], shape[7]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _attn_inputs(shape, dtype, dev)
@@ -1149,23 +1195,25 @@ def check_flash_attention(dev) -> dict:
                                      f"at {shape} {dtype}: {err}")
             if dtype == torch.float32:
                 errs[shape] = err
-            if dtype == torch.float32 and shape[5] in (48, 96):
+            if (dtype == torch.float32
+                    and shape[5] not in k3.BWD_HEAD_DIMS):
                 _check_lse_instantiation(q, k, v, out, causal, window, shape)
-    q, k, v = (t.requires_grad_() for t in _attn_inputs(
-        (1, 64, 64, 2, 2, 96), torch.float32, dev))
-    n, bwd = k3.launches, dict(k3.backward_launches)
-    try:
-        k3.flash_attention(q, k, v)
-    except ValueError as e:
-        print(f"K3 at Dh 96 with a gradient: raises before launching "
-              f"({e})")
-    else:
-        raise AssertionError("K3 at Dh 96 took a call that needs a "
-                             "gradient")
-    torch.cuda.synchronize()
-    if (k3.launches, k3.backward_launches) != (n, bwd):
-        raise AssertionError("K3 launched before refusing a gradient at Dh "
-                             "96")
+    for dh in (96, 112):
+        q, k, v = (t.requires_grad_() for t in _attn_inputs(
+            (1, 64, 64, 2, 2, dh), torch.float32, dev))
+        n, bwd = k3.launches, dict(k3.backward_launches)
+        try:
+            k3.flash_attention(q, k, v)
+        except ValueError as e:
+            print(f"K3 at Dh {dh} with a gradient: raises before launching "
+                  f"({e})")
+        else:
+            raise AssertionError(f"K3 at Dh {dh} took a call that needs a "
+                                 "gradient")
+        torch.cuda.synchronize()
+        if (k3.launches, k3.backward_launches) != (n, bwd):
+            raise AssertionError(f"K3 launched before refusing a gradient "
+                                 f"at Dh {dh}")
     return errs
 
 
@@ -1258,17 +1306,20 @@ def run_serve_main_path(dev):
     return res, n3, (cfg, params, prompts)
 
 
-def _first_decode_gap(cfg, params, prompts) -> float:
-    """max |d| between the first decode step's logits (weight-absorbed,
-    latent-space attention) and the last logits of a prefill of all P + 1
-    tokens (K3 over the expanded heads)."""
+def _first_decode_gap(cfg, params, prompts, window=0) -> float:
+    """max |d| between the first decode step's logits (MLA: weight-absorbed,
+    latent-space attention; SSM: the recurrent step) and the last logits of
+    a prefill of all P + 1 tokens (MLA: K3 over the expanded heads; SSM:
+    the chunked scan or SSD)."""
     from repro_torch.launch.serve import prefill_to_cache
     from repro_torch.models.model import decode, prefill
     with torch.no_grad():
-        full, _ = prefill(params, cfg, prompts)
+        full, _ = prefill(params, cfg, prompts, window=window)
         P = prompts.shape[1] - 1
-        _, cache = prefill_to_cache(params, cfg, prompts[:, :P], P + 1)
-        step, _ = decode(params, cfg, prompts[:, P:], cache, P)
+        _, cache = prefill_to_cache(params, cfg, prompts[:, :P], P + 1,
+                                    window=window)
+        step, _ = decode(params, cfg, prompts[:, P:], cache, P,
+                         window=window)
     return float((step - full).abs().max())
 
 
@@ -1496,6 +1547,97 @@ def run_moe_main_path(dev):
           f"over {cfg.n_layers} layers; smallest top-k gap {gap:.3g}")
     print(f"first 16 tokens of prompt 0: {res.tokens[0, :16].tolist()}")
     return res, n3, (cfg, params, prompts)
+
+
+def check_ssm_serve_against_cpu(dev) -> dict:
+    """SSM serving on the card against the CPU (plain K3): each of
+    ``SSM_ARCHS`` reduced, the same weights and ragged prompts, 4 greedy
+    decode steps, without a window and, for zamba2, with ``SSM_WINDOW``,
+    which the prompt wraps; logits within ``SERVE_TOL``, tokens equal, K3
+    once an application of the shared block (never for falcon-mamba); then,
+    on the card, the first decode step against a prefill of the P + 1
+    tokens (``SERVE_TOL``). Returns K3's launches in each card serving run,
+    by (arch, window)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import _n_shared_apps, init_params
+    launches = {}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch).reduced()
+        cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+        card_params = _tree_to(cpu_params, dev)
+        prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+        for window in (0, SSM_WINDOW) if cfg.hybrid_attn_every else (0,):
+            ref = serve(cfg, cpu_params, prompts, 5, window=window,
+                        device="cpu")
+            k3.launches = 0
+            got = serve(cfg, card_params, prompts.to(dev), 5, window=window,
+                        device=dev)
+            n = launches[arch, window] = k3.launches
+            diff = (got.logits.cpu() - ref.logits).abs()
+            excess = float((diff - SERVE_TOL * ref.logits.abs()).max())
+            same = torch.equal(got.tokens.cpu(), ref.tokens)
+            gap = _first_decode_gap(cfg, card_params, prompts.to(dev),
+                                    window)
+            print(f"serve reduced {arch} window={window}: max|dlogits|="
+                  f"{float(diff.max()):.3g} (tol {SERVE_TOL:g}), tokens "
+                  f"equal: {same}, K3 launches {n}; first decode vs prefill "
+                  f"of P + 1 on the card: max|d|={gap:.3g}")
+            if not (excess <= SERVE_TOL and same and gap <= SERVE_TOL
+                    and n == _n_shared_apps(cfg)):
+                raise AssertionError(f"reduced {arch} serving on the card "
+                                     f"(window {window}) disagrees with the "
+                                     "CPU or with its prefill")
+    return launches
+
+
+def run_ssm_main_path(dev, arch, profile=False):
+    """``arch`` (falcon-mamba-7b or zamba2-7b) at full width and depth
+    through ``serve``: fp32, random weights (seed 0), 8 prompts of 1024
+    tokens, 32 generated; one warm run, then one timed run whose prefill
+    must launch K3 once an application of the shared block (zamba2: 13, at
+    Dh 112; falcon-mamba: none). Prints the timings, peak memory and the
+    first-decode-vs-prefill gap; with ``profile`` profiles one serve. The
+    weights are freed on return. Returns (timings, K3 launches)."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import _n_shared_apps, init_params
+    cfg = get_config(arch)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    prompts = make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=1, device=dev)
+    serve(cfg, params, prompts, SERVE_GEN, device=dev)     # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.launches = 0
+    res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    n3 = k3.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if n3 != _n_shared_apps(cfg):
+        raise AssertionError(f"K3 launched {n3} times in one {arch} "
+                             f"prefill, expected {_n_shared_apps(cfg)}")
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError(f"non-finite logits on {arch}'s serving path")
+    if res.tokens.shape != (SERVE_B, SERVE_GEN) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad tokens {tuple(res.tokens.shape)}")
+    t = res.timings
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"{arch} ({n_params} params) B={SERVE_B} prompt={SERVE_PROMPT} "
+          f"gen={SERVE_GEN} fp32: prefill {t['prefill_ms']} ms, decode "
+          f"{t['decode_ms_per_step']} ms per step, {t['decode_tok_per_s']} "
+          f"generated tok/s, peak memory {peak:.3f} GiB, K3 launches {n3}")
+    print(f"first 16 tokens of prompt 0: {res.tokens[0, :16].tolist()}")
+    gap = _first_decode_gap(cfg, params, torch.cat(
+        [prompts, res.tokens[:, :1]], dim=1))
+    print(f"{arch} first decode step vs prefill of P + 1: max|dlogits|="
+          f"{gap:.3g} (printed, not gated)")
+    if profile:
+        profile_serve(dev, cfg, params, prompts)
+    return t, n3
 
 
 def _bwd_inputs(shape, dev, seed=0):
@@ -1953,7 +2095,7 @@ def _unmasked_pairs(Sq, Skv, causal, window) -> int:
 def attention_report(dev, shape, n3, err3, floor, main_path):
     """K3's row at a main path's ``shape`` in fp32 (smollm-135m's and
     granite-moe's prefill at Dh 64, minicpm3-4b's at 96, reduced
-    minicpm3-4b's at 48), with the
+    minicpm3-4b's at 48, zamba2-7b's at 112), with the
     launches ``n3`` that path made and the error ``err3`` phase 6 found
     there."""
     import torch.nn.functional as F
@@ -2346,9 +2488,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile two pFedWN rounds, a serving "
-                        "run of smollm-135m, minicpm3-4b and granite-moe-"
-                        "3b-a800m and one training step and print where "
-                        "the device time goes")
+                        "run of smollm-135m, minicpm3-4b, granite-moe-"
+                        "3b-a800m, falcon-mamba-7b and zamba2-7b and one "
+                        "training step and print where the device time "
+                        "goes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2447,8 +2590,9 @@ def main() -> int:
     print(f"MLA serving main path wall {time.perf_counter() - t0:.1f} s "
           f"(warm-up run and the P + 1 prefill included), launches "
           f"K3={n3_mla}")
-    if not args.profile:
-        del mla_args                  # 17 GB of weights
+    if args.profile:
+        profile_serve(dev, *mla_args)
+    del mla_args                      # 17 GB of weights
     torch.cuda.empty_cache()
 
     _phase("7c. MoE serving: reduced granite-moe and deepseek-v3 vs CPU, "
@@ -2460,9 +2604,25 @@ def main() -> int:
     print(f"MoE serving main path wall {time.perf_counter() - t0:.1f} s "
           f"(warm-up run and the routing-recorded prefill included), "
           f"launches K3={n3_moe}; reduced runs' K3 launches: {small}")
-    if not args.profile:
-        del moe_args                  # 13.5 GB of weights
+    if args.profile:
+        profile_serve(dev, *moe_args)
+    del moe_args                      # 13.5 GB of weights
     torch.cuda.empty_cache()
+
+    _phase("7d. SSM serving: reduced falcon-mamba and zamba2 vs CPU, then "
+           "each at full width")
+    n3_small_ssm = check_ssm_serve_against_cpu(dev)
+    ssm_main = {}
+    for arch in SSM_ARCHS:            # ~29 and ~27 GB of weights, in turn
+        t0 = time.perf_counter()
+        ssm_main[arch] = run_ssm_main_path(dev, arch, args.profile)
+        torch.cuda.empty_cache()
+        print(f"{arch} serving main path wall {time.perf_counter() - t0:.1f}"
+              f" s (warm-up run and the P + 1 prefill included), launches "
+              f"K3={ssm_main[arch][1]}")
+    small = ", ".join(f"{a} window {w} {n}"
+                      for (a, w), n in n3_small_ssm.items())
+    print(f"reduced SSM runs' K3 launches: {small}")
 
     _phase("7b. LM training: small run vs CPU, then single-client and "
            "federated at full width")
@@ -2493,7 +2653,12 @@ def main() -> int:
                              "serve reduced minicpm3-4b (MLA), card vs "
                              "CPU"),
             attention_report(dev, ATTN_GRANITE, n3_moe, err3[ATTN_GRANITE],
-                             floor, "serve granite-moe-3b-a800m (MoE)")]
+                             floor, "serve granite-moe-3b-a800m (MoE)"),
+            attention_report(dev, ATTN_SSM, ssm_main["zamba2-7b"][1],
+                             err3[ATTN_SSM], floor,
+                             "serve zamba2-7b (hybrid: the shared attention "
+                             "block, 13 applications)")]
+    rows[-1]["launches_falcon_mamba"] = ssm_main["falcon-mamba-7b"][1]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}
@@ -2506,8 +2671,6 @@ def main() -> int:
         _phase("9. profile")
         profile_rounds(sim)
         profile_serve(dev, *serve_args)
-        profile_serve(dev, *mla_args)
-        profile_serve(dev, *moe_args)
         profile_train(dev)
     torch.cuda.synchronize()
     print(card_line)

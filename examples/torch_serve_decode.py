@@ -1,8 +1,10 @@
 """Serving example on the PyTorch port: batched prefill + greedy decode
-with a KV cache (a latent cache for MLA) on a selectable architecture.
+with a KV cache (a latent cache for MLA, per-layer states for Mamba) on a
+selectable architecture.
 
     python3 examples/torch_serve_decode.py --arch starcoder2-15b
     python3 examples/torch_serve_decode.py --arch minicpm3-4b --full
+    python3 examples/torch_serve_decode.py --arch falcon-mamba-7b
 
 Reduced widths by default; ``--full`` for the published config. Runs on
 the card unless given ``--device cpu``.

@@ -73,9 +73,12 @@
 //   the raw ring, for fp32: 144 KB at Dh 48 (128 rows, 64-key tiles, 2
 //   stages), 192 KB at Dh 64 (128 rows, 64-key tiles), at Dh 96 (128 rows,
 //   32-key tiles: 64-key tiles would need 288 KB) and at Dh 128 (64 rows,
-//   32-key tiles), one block per SM.
+//   32-key tiles), 224 KB at Dh 112 (128 rows, 32-key tiles: 230,432
+//   bytes with the barriers and the alignment slack, against the
+//   232,448-byte opt-in limit), one block per SM.
 // - P.V is issued 64 output columns at a time, or 48 at Dh 48 and 96
-//   (m64n48k8), so every width is whole wgmma products.
+//   (m64n48k8) and 56 at Dh 112 (m64n56k8), so every width is whole wgmma
+//   products.
 // - Causal schedule: the row tiles are the grid's slow axis, launched
 //   heaviest (last rows) first; K/V tiles wholly outside the causal or
 //   window band are skipped.
@@ -91,7 +94,9 @@
 // Left for later: overlapping the conversion with the products (the
 // split tiles are single-buffered, so the warpgroups meet at two barriers
 // a tile), and setmaxnreg for the consumers (ptxas gives 168 registers a
-// thread to 288 threads and spills a few bytes at Dh 64).
+// thread to 288 threads; the fp32 serving instantiations spill 64 B at Dh
+// 64, 132 B at 96 and 348 B at 112, whose 56 O accumulators a thread
+// are the most).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,8 +110,8 @@ namespace {
 constexpr float kNegInf = -1e30f;
 
 // Per head size: consumer warpgroups, keys a K/V tile, ring stages, and
-// the output columns one P.V wgmma issues (48 at Dh 48 and 96, whose
-// tiles are not a multiple of 64 wide)
+// the output columns one P.V wgmma issues (48 at Dh 48 and 96 and 56 at
+// Dh 112, whose tiles are not a multiple of 64 wide)
 template <int DH> struct Cfg;
 template <> struct Cfg<48> {
   static constexpr int kWG = 2, kKeys = 64, kStages = 2, kPV = 48;
@@ -116,6 +121,9 @@ template <> struct Cfg<64> {
 };
 template <> struct Cfg<96> {
   static constexpr int kWG = 2, kKeys = 32, kStages = 2, kPV = 48;
+};
+template <> struct Cfg<112> {
+  static constexpr int kWG = 2, kKeys = 32, kStages = 2, kPV = 56;
 };
 template <> struct Cfg<128> {
   static constexpr int kWG = 1, kKeys = 32, kStages = 2, kPV = 64;
@@ -137,6 +145,8 @@ struct Layout {
                             kVs = kVb + kKV, kRaw = kVs + kKV,
                             kBars = kRaw + kStages * 2 * kTile;
   static constexpr uint32_t kBytes = kBars + 2 * kStages * 8 + 1024;
+  static_assert(kBytes <= 232448, "over the 227 KB opt-in shared memory");
+  static_assert(DH % Cfg<DH>::kPV == 0, "P.V must be whole wgmma products");
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -178,8 +188,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
   constexpr int kKeys = L::kKeys, kRows = L::kRows, kStages = L::kStages;
   constexpr int kCons = L::kConsumers, kPV = Cfg<DH>::kPV;
   // K's column groups of 4 are rotated within runs of kRot (8, or 4 at Dh
-  // 48, whose 12 groups are not a multiple of 8)
+  // 48 and 112, whose 12 and 28 groups are not a multiple of 8). A raw row
+  // of Dh 48 or 112 starts half a bank row (64 B) after the last, so rows
+  // 2 apart share banks there: the rotation steps every second row.
   constexpr int kRot = (DH / 4) % 8 == 0 ? 8 : 4;
+  constexpr int kRotShift = kRot == 8 ? 0 : 1;
   constexpr bool kSplitInputs = sizeof(T) == 4;  // bf16 is exact in TF32
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -273,7 +286,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
     for (int u = tid; u < kKeys * (DH / 4); u += kCons) {
       const int j = u & 7, rest = u >> 3;
       const int cc = rest % (DH / 4), r = (rest / (DH / 4)) * 8 + j;
-      const int c = ((cc & ~(kRot - 1)) | ((cc + j) & (kRot - 1))) * 4;
+      const int c =
+          ((cc & ~(kRot - 1)) | ((cc + (j >> kRotShift)) & (kRot - 1))) * 4;
       float4 hi, lo;
       split4(load4(rk + r * DH + c), hi, lo);
       const uint32_t off = kmajor(r, c, kKeys);
@@ -532,7 +546,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for a head size other than 48, 64, 96 or 128,
+// cudaErrorInvalidValue for a head size other than 48, 64, 96, 112 or 128,
 // more than 65535 row tiles or an lse with bf16, or 10000 + the CUresult
 // if a tensor map cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv,
 // KH, Dh); contiguous, of one type (fp32, or bf16 when is_bf16), 16-byte
@@ -556,6 +570,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 96:
       return dispatch<96>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
                           is_bf16, st);
+    case 112:
+      return dispatch<112>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
+                           is_bf16, st);
     case 128:
       return dispatch<128>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
                            is_bf16, st);

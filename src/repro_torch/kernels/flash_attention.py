@@ -44,8 +44,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-FWD_HEAD_DIMS = (48, 64, 96, 128)   # the forward kernel's head sizes
-BWD_HEAD_DIMS = (64, 128)           # the backward's (ROADMAP Queue B, B1)
+FWD_HEAD_DIMS = (48, 64, 96, 112, 128)  # the forward kernel's head sizes
+BWD_HEAD_DIMS = (64, 128)               # the backward's (ROADMAP Queue B, B1)
 ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
 # backward kernel launches since the last reset, by kernel ("reduce" runs

@@ -43,8 +43,10 @@ def prefill_to_cache(params: Dict, cfg: ModelConfig, prompts: torch.Tensor,
                      max_len: int, *, window: int = 0):
     """Prefill ``prompts`` (B, P) and move the prefill KV into a decode
     cache of ``max_len`` positions (a ring of min(window, max_len) slots
-    when windowed), ``dense_layers`` included. Returns (last-token logits,
-    cache). MLA's prefill keeps
+    when windowed), ``dense_layers`` and a hybrid's ``shared_attn``
+    included; an ssm or hybrid config's ``ssm`` states (h and the conv
+    window) are states, not positions, and are copied whole. Returns
+    (last-token logits, cache). MLA's prefill keeps
     full-length latents under a window, as the reference's does; a prompt
     longer than the window therefore does not fit the ring, and raises
     (the reference's ``launch/serve.py`` drops that prefill cache: ROADMAP
@@ -55,12 +57,15 @@ def prefill_to_cache(params: Dict, cfg: ModelConfig, prompts: torch.Tensor,
     for group, entries in cache.items():
         for name, c in entries.items():
             pc = pcache[group][name]
-            if pc.shape[2] > c.shape[2]:
+            if group == "ssm":                  # states, not positions
+                c.copy_(pc)
+            elif pc.shape[2] > c.shape[2]:
                 raise NotImplementedError(
                     f"{cfg.name}: the prefill's {name!r} holds "
                     f"{pc.shape[2]} positions, the decode ring "
                     f"{c.shape[2]} (ROADMAP Queue C, C4)")
-            c[:, :, :pc.shape[2]] = pc
+            else:
+                c[:, :, :pc.shape[2]] = pc
     return logits, cache
 
 

@@ -1,5 +1,5 @@
-"""The language model, dense or MoE, with GQA or MLA attention: params,
-full forward, prefill and decode.
+"""The language model, dense, MoE, state-space (ssm) or hybrid, with GQA
+or MLA attention: params, full forward, prefill and decode.
 
 Params are the reference's tree, as tensors: ``{"embed" (V, D), "ln_f"
 (D,), "lm_head" (D, V) unless tied, "layers": {"ln1", "ln2", "attn",
@@ -12,7 +12,12 @@ first ``first_k_dense`` layers as such blocks in ``dense_layers`` and its
 other layers in ``layers``, each with ``"moe": {"router", "w_gate",
 "w_up", "w_down"[, "shared"]}`` (``models/moe.py``) for ``"mlp"``; with
 ``mtp_depth`` it also has ``"mtp"``, one dense block, and ``"mtp_ln"``,
-which train a loss term on the token after next and never serve.
+which train a loss term on the token after next and never serve. An ssm
+config (falcon-mamba) has ``layers`` of ``{"ln", "mamba"}`` (Mamba1 or
+Mamba2, ``models/ssm.py``) and no attention; a hybrid config (zamba2)
+adds one unstacked ``shared_attn`` block (attention and MLP, as a dense
+layer) that runs after every ``hybrid_attn_every``-th layer, the same
+weights each time.
 
 Entry points:
   init_params(cfg, gen, device)                          -> params
@@ -34,12 +39,20 @@ Decode cache: ``{"layers": {"k", "v"}}``, each (L, B, S, KH, Dh), for GQA,
 and ``{"layers": {"c_kv", "k_rope"}}``, (L, B, S, kv_lora) and (L, B, S,
 qk_rope), for MLA; a ring buffer of S = min(window, max_len) slots when
 windowed; an MoE config's ``dense_layers`` have a ``"dense_layers"`` entry
-of the same form. ``decode`` writes the new token's entries into it in
-place (the reference returns an updated copy) and returns the same
-tensors.
+of the same form. An ssm config's cache is ``{"ssm": {"h", "conv"}}``,
+the states stacked over L: h (L, B, Di, N) for Mamba1 and (L, B, H, P, N)
+for Mamba2, conv (L, B, K − 1, C); a hybrid config's also has
+``"shared_attn": {"k", "v"}``, (A, B, S, KH, Dh) with one entry for each
+of the A = L // ``hybrid_attn_every`` applications of the shared block
+(a window applies to it only). ``decode`` writes the new token's entries
+(and the new states) into it in place (the reference returns an updated
+copy) and returns the same tensors.
 
-The ssm, hybrid, vlm/audio (stub embeddings) and mrope branches raise
-until their families are ported (ROADMAP Queue A items 3-4).
+The vlm/audio (stub embeddings) and mrope branches raise until their
+families are ported (ROADMAP Queue A item 4). zamba2's shared block
+attends at head dim 112 (d_model / heads), which K3's forward takes on a
+card and its backward does not yet (ROADMAP Queue B, B1): on a card it
+serves and does not train.
 """
 from __future__ import annotations
 
@@ -51,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed_apply, embed_init,
                                        mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init, unembed_apply)
@@ -60,12 +74,15 @@ Params = Dict
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise for configs whose family this port does not run yet."""
-    if (cfg.family not in ("dense", "moe") or (cfg.family == "moe")
-            != bool(cfg.moe) or cfg.ssm or cfg.hybrid_attn_every):
+    ssm = cfg.family in ("ssm", "hybrid")
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or (cfg.family == "moe") != bool(cfg.moe)
+            or ssm != bool(cfg.ssm)
+            or (cfg.family == "hybrid") != bool(cfg.hybrid_attn_every)
+            or (ssm and cfg.mla)):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the LM "
-            "port runs dense and MoE, with GQA or MLA (ROADMAP Queue A "
-            "item 3)")
+            "port runs dense and MoE (GQA or MLA), ssm and hybrid (GQA)")
     if cfg.rope == "mrope" or cfg.n_stub_tokens:
         raise NotImplementedError(
             f"{cfg.name}: mrope and stub embeddings are not ported yet "
@@ -99,30 +116,78 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, device, *,
     return p
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked_init(n: int, init) -> Params:
+    """``n`` layers of ``init()``, drawn in order and stacked over a leading
+    axis. Each layer is copied into the stack as it is drawn, so at most
+    one layer is held beside the stack (a 7B model's fp32 weights fit a
+    card once, not twice)."""
+    first = init()
+    stack = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for i in range(n):
+        layer = first if i == 0 else init()
+        _map(lambda dst, src: dst[i].copy_(src), stack, layer)
+        first = None
+    return stack
+
+
+def _map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of
+    ``rest``), as a tree."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _ssm_block_init(gen: torch.Generator, cfg: ModelConfig,
+                    device) -> Params:
+    init = (ssm_mod.mamba2_init if cfg.ssm.version == 2
+            else ssm_mod.mamba1_init)
+    return {"ln": rmsnorm_init(cfg.d_model, device),
+            "mamba": init(gen, cfg, device)}
+
+
+def _n_shared_apps(cfg: ModelConfig) -> int:
+    """Applications of a hybrid config's shared block (0 otherwise)."""
+    if not cfg.hybrid_attn_every:
+        return 0
+    return cfg.n_layers // cfg.hybrid_attn_every
+
+
+def _shared_app_index(cfg: ModelConfig, layer_idx: int):
+    """(does the shared block run after layer ``layer_idx``?, which
+    application it is); never for a config without one."""
+    k = cfg.hybrid_attn_every
+    if not k:
+        return False, -1
+    return (layer_idx + 1) % k == 0, (layer_idx + 1) // k - 1
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device: str | torch.device = "cuda") -> Params:
     """Random fp32 weights from ``gen`` (on ``device``) with the
     reference's distributions: N(0, 1/in) dense, N(0, 0.02²) embedding,
-    ones for the norms, zeros for biases."""
+    ones for the norms, zeros for biases, and ``models/ssm.py``'s for the
+    Mamba layers."""
     _check_supported(cfg)
     params: Params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model,
                                           device),
                       "ln_f": rmsnorm_init(cfg.d_model, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device)
+    if cfg.ssm:
+        params["layers"] = _stacked_init(
+            cfg.n_layers, lambda: _ssm_block_init(gen, cfg, device))
+        if cfg.hybrid_attn_every:
+            params["shared_attn"] = _block_init(gen, cfg, device)
+        return params
     fk = _n_dense(cfg)
     if fk:
-        params["dense_layers"] = _stack([_block_init(gen, cfg, device)
-                                         for _ in range(fk)])
-    params["layers"] = _stack([
-        _block_init(gen, cfg, device, moe=cfg.family == "moe")
-        for _ in range(cfg.n_layers - fk)])
+        params["dense_layers"] = _stacked_init(
+            fk, lambda: _block_init(gen, cfg, device))
+    params["layers"] = _stacked_init(
+        cfg.n_layers - fk,
+        lambda: _block_init(gen, cfg, device, moe=cfg.family == "moe"))
     if cfg.mtp_depth:
         params["mtp"] = _block_init(gen, cfg, device)
         params["mtp_ln"] = rmsnorm_init(cfg.d_model, device)
@@ -189,6 +254,13 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = embed_apply(params["embed"], tokens)
     pos = _positions(tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.ssm:
+        for i, p in enumerate(unstack(params["layers"])):
+            x = _remat(_ssm_block, remat, p, cfg, x)
+            if _shared_app_index(cfg, i)[0]:
+                x, _ = _train_layer(params["shared_attn"], cfg, x, pos,
+                                    window, remat)
+        return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
     for group in _groups(params):
         for p in unstack(params[group]):
             x, a = _train_layer(p, cfg, x, pos, window, remat)
@@ -197,12 +269,23 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
 
+def _remat(fn, remat: bool, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _train_layer(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  pos: torch.Tensor, window: int, remat: bool):
-    if remat:
-        return checkpoint(_train_block, p, cfg, x, pos, window,
-                          use_reentrant=False)
-    return _train_block(p, cfg, x, pos, window)
+    return _remat(_train_block, remat, p, cfg, x, pos, window)
+
+
+def _ssm_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """One pre-norm Mamba layer of the training forward."""
+    apply = (ssm_mod.mamba2_apply if cfg.ssm.version == 2
+             else ssm_mod.mamba1_apply)
+    return x + apply(p["mamba"], cfg, rmsnorm(p["ln"], x, cfg.norm_eps))
 
 
 def logits_from_hidden(params: Params, cfg: ModelConfig,
@@ -256,22 +339,40 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     window = window or cfg.sliding_window
     S = min(window, max_len) if window else max_len
 
-    def zeros(L):
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+
+    def kv(L):
         if cfg.mla:
             m = cfg.mla
-            return {"c_kv": torch.zeros((L, batch_size, S, m.kv_lora_rank),
-                                        device=device),
-                    "k_rope": torch.zeros(
-                        (L, batch_size, S, m.qk_rope_head_dim),
-                        device=device)}
+            return {"c_kv": zeros(L, batch_size, S, m.kv_lora_rank),
+                    "k_rope": zeros(L, batch_size, S, m.qk_rope_head_dim)}
         shape = (L, batch_size, S, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, device=device),
-                "v": torch.zeros(shape, device=device)}
+        return {"k": zeros(*shape), "v": zeros(*shape)}
 
+    if cfg.ssm:
+        s, L = cfg.ssm, cfg.n_layers
+        di = s.expand * cfg.d_model
+        if s.version == 2:
+            h = zeros(L, batch_size, di // s.head_dim, s.head_dim,
+                      s.state_dim)
+            channels = di + 2 * s.n_groups * s.state_dim
+        else:
+            h, channels = zeros(L, batch_size, di, s.state_dim), di
+        cache = {"ssm": {"h": h, "conv": zeros(L, batch_size,
+                                               s.conv_dim - 1, channels)}}
+        if cfg.hybrid_attn_every:
+            cache["shared_attn"] = kv(_n_shared_apps(cfg))
+        return cache
     fk = _n_dense(cfg)
-    cache = {"dense_layers": zeros(fk)} if fk else {}
-    cache["layers"] = zeros(cfg.n_layers - fk)
+    cache = {"dense_layers": kv(fk)} if fk else {}
+    cache["layers"] = kv(cfg.n_layers - fk)
     return cache
+
+
+def _stack_caches(caches: list) -> Dict[str, torch.Tensor]:
+    return {name: torch.stack([c[name] for c in caches])
+            for name in caches[0]}
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -282,7 +383,10 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     or min(window, S) ring-packed when windowed; for MLA ``{"layers":
     {"c_kv", "k_rope"}}`` of (L, B, S, ·), full length even when windowed,
     as the reference's; an MoE config's ``dense_layers`` under their own
-    key. Every layer's attention is one launch of K3 on a card."""
+    key; for ssm and hybrid ``{"ssm": {"h", "conv"}}`` (the states after
+    the prompt) and a hybrid's ``{"shared_attn": {"k", "v"}}`` (A, B, S_c,
+    KH, Dh). Every attention layer (every application of the shared block)
+    is one launch of K3 on a card."""
     _check_supported(cfg)
     if positions is not None:
         raise NotImplementedError("custom positions are not ported yet "
@@ -291,15 +395,49 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = embed_apply(params["embed"], tokens)
     pos = _positions(tokens)
     cache = {}
-    for group in _groups(params):
-        caches = []
-        for p in unstack(params[group]):
-            x, kv = _block_apply(p, cfg, x, positions=pos, window=window)
-            caches.append(kv)
-        cache[group] = {name: torch.stack([c[name] for c in caches])
-                        for name in caches[0]}
+    if cfg.ssm:
+        pre = (ssm_mod.mamba2_prefill if cfg.ssm.version == 2
+               else ssm_mod.mamba1_prefill)
+        states, kvs = [], []
+        for i, p in enumerate(unstack(params["layers"])):
+            y, state = pre(p["mamba"], cfg,
+                           rmsnorm(p["ln"], x, cfg.norm_eps))
+            x = x + y
+            states.append(state)
+            if _shared_app_index(cfg, i)[0]:
+                x, kv = _block_apply(params["shared_attn"], cfg, x,
+                                     positions=pos, window=window)
+                kvs.append(kv)
+        cache["ssm"] = _stack_caches(states)
+        if kvs:
+            cache["shared_attn"] = _stack_caches(kvs)
+    else:
+        for group in _groups(params):
+            caches = []
+            for p in unstack(params[group]):
+                x, kv = _block_apply(p, cfg, x, positions=pos,
+                                     window=window)
+                caches.append(kv)
+            cache[group] = _stack_caches(caches)
     h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     return logits_from_hidden(params, cfg, h)[:, 0], cache
+
+
+def _decode_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  layer_cache: Dict[str, torch.Tensor], pos: int,
+                  positions: torch.Tensor, window: int) -> torch.Tensor:
+    """One attention block's decode step; writes ``layer_cache`` in
+    place."""
+    dec = attn.mla_decode if cfg.mla else attn.gqa_decode
+    y, _ = dec(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
+               cache=layer_cache, pos=pos, positions=positions,
+               window=window)
+    return _ffn(p, cfg, x + y)[0]
+
+
+def _layer(cache: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Entry ``i`` of a stacked cache, as views."""
+    return {name: c[i] for name, c in cache.items()}
 
 
 def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -311,13 +449,22 @@ def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
     window = window or cfg.sliding_window
     x = embed_apply(params["embed"], token)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    dec = attn.mla_decode if cfg.mla else attn.gqa_decode
-    for group in _groups(params):
-        kc = cache[group]
-        for i, p in enumerate(unstack(params[group])):
-            y, _ = dec(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
-                       cache={name: c[i] for name, c in kc.items()},
-                       pos=pos, positions=positions, window=window)
-            x, _ = _ffn(p, cfg, x + y)
+    if cfg.ssm:
+        dec = (ssm_mod.mamba2_decode if cfg.ssm.version == 2
+               else ssm_mod.mamba1_decode)
+        for i, p in enumerate(unstack(params["layers"])):
+            y, _ = dec(p["mamba"], cfg, rmsnorm(p["ln"], x, cfg.norm_eps),
+                       _layer(cache["ssm"], i))
+            x = x + y
+            applied, app = _shared_app_index(cfg, i)
+            if applied:
+                x = _decode_block(params["shared_attn"], cfg, x,
+                                  _layer(cache["shared_attn"], app), pos,
+                                  positions, window)
+    else:
+        for group in _groups(params):
+            for i, p in enumerate(unstack(params[group])):
+                x = _decode_block(p, cfg, x, _layer(cache[group], i), pos,
+                                  positions, window)
     h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return logits_from_hidden(params, cfg, h)[:, 0], cache

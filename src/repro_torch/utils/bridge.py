@@ -118,15 +118,17 @@ def to_numpy(flat: torch.Tensor, layout: ParamLayout) -> Tree:
 
 
 def from_jax_lm_params(tree: Tree, cfg, device: str | torch.device) -> Tree:
-    """The reference's ``init_params`` tree for a dense or MoE LM config
-    (numpy leaves; ``layers`` and an MoE config's ``dense_layers`` stacked
-    ``(L, ...)``; ``mtp`` and ``mtp_ln`` when the config has an MTP head)
-    as the port's params."""
-    if cfg.family not in ("dense", "moe") or "layers" not in tree:
-        raise ValueError(f"{cfg.name}: only dense and MoE LM trees are "
-                         "carried across")
-    n = sum(np.shape(tree[g]["ln1"])[0] for g in ("dense_layers", "layers")
-            if g in tree)
+    """The reference's ``init_params`` tree for a dense, MoE, ssm or hybrid
+    LM config (numpy leaves; ``layers`` and an MoE config's
+    ``dense_layers`` stacked ``(L, ...)``; ``mtp`` and ``mtp_ln`` when the
+    config has an MTP head; a hybrid config's one unstacked
+    ``shared_attn`` block) as the port's params."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or "layers" not in tree
+            or ("shared_attn" in tree) != (cfg.family == "hybrid")):
+        raise ValueError(f"{cfg.name}: not a {cfg.family} LM tree")
+    n = sum(np.shape(_flatten(tree[g])[0][0])[0]
+            for g in ("dense_layers", "layers") if g in tree)
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} layers, {cfg.name} {cfg.n_layers}")
     leaves, template = _flatten(tree)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the reference's sweep shapes, the pFedWN round's shapes and the LM
 prefill's (granite-moe's H 24 over KH 8 among them), K3 also at MLA's head
-dims (48, 96), K3's backward against its plain version in float64; every
-federated method, the serving path (GQA, MLA and MoE, the MoE layer with
-and without capacity drops) and LM training on the card against the CPU,
+dims (48, 96) and zamba2's (112), K3's backward against its plain version
+in float64; every federated method, the serving path (GQA, MLA, MoE with
+and without capacity drops, Mamba1 and Mamba2 with zamba2's shared block)
+and LM training on the card against the CPU,
 with the kernel launches each path makes. Every test
 here needs a CUDA card and skips without one; the file imports nothing of
 JAX, so it runs where only the port is installed:
@@ -337,6 +338,29 @@ MLA_ATTN_SHAPES = [
 ]
 # granite-moe-3b-a800m's prefill: 8 x 1024 tokens, 24 heads over 8 KV heads
 GRANITE_PREFILL = (8, 1024, 1024, 24, 8, 64, True, 0)
+# zamba2-7b's shared attention at head dim 112 (d_model 3584 / 32 heads):
+# the sweep's shapes, ragged shapes, the tile edges (rows off 64 and 128,
+# keys off the 32-key tile), zamba2's prefill (8 x 1024 tokens, 32 heads
+# over 32 KV heads), causal and with a window
+SSM_ATTN_SHAPES = [
+    (2, 256, 256, 4, 2, 112, True, 0),
+    (1, 256, 256, 8, 8, 112, True, 0),
+    (2, 128, 128, 4, 1, 112, False, 0),
+    (1, 384, 384, 6, 2, 112, True, 96),
+    (1, 128, 128, 2, 2, 112, True, 0),
+    (2, 200, 200, 4, 4, 112, True, 0),
+    (3, 1, 77, 12, 4, 112, True, 0),
+    (1, 77, 50, 16, 1, 112, False, 20),
+    (1, 63, 31, 1, 1, 112, False, 0),
+    (1, 32, 33, 2, 1, 112, True, 0),
+    (2, 42, 43, 3, 1, 112, True, 0),
+    (1, 64, 127, 2, 1, 112, False, 0),
+    (1, 43, 33, 3, 1, 112, True, 16),
+    (1, 65, 129, 1, 1, 112, True, 16),
+    (1, 129, 97, 1, 1, 112, False, 0),
+    (8, 1024, 1024, 32, 32, 112, True, 0),
+    (8, 1024, 1024, 32, 32, 112, True, 256),
+]
 
 
 def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
@@ -349,7 +373,7 @@ def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Skv,H,KH,Dh,causal,window",
                          ATTN_SHAPES + EDGE_SHAPES + MLA_ATTN_SHAPES
-                         + [GRANITE_PREFILL])
+                         + [GRANITE_PREFILL] + SSM_ATTN_SHAPES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
                                                       Dh, causal, window,
@@ -374,6 +398,22 @@ def test_flash_attention_refuses_a_gradient_at_dh96_on_card(cuda):
     gradient raises before any launch; without one it serves."""
     q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
                for a in _attn_inputs(1, 64, 64, 2, 2, 96))
+    n, bwd = k3.launches, dict(k3.backward_launches)
+    with pytest.raises(ValueError, match="B1"):
+        k3.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.backward_launches) == (n, bwd)
+    with torch.no_grad():
+        k3.flash_attention(q, k, v)
+    assert k3.launches == n + 1
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_a_gradient_at_dh112_on_card(cuda):
+    """zamba2's head dim 112 serves; a call that needs a gradient there
+    raises before any launch (the backward takes Dh 64 and 128)."""
+    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
+               for a in _attn_inputs(1, 64, 64, 2, 2, 112))
     n, bwd = k3.launches, dict(k3.backward_launches)
     with pytest.raises(ValueError, match="B1"):
         k3.flash_attention(q, k, v)
@@ -569,6 +609,71 @@ def test_mla_serve_on_card_matches_cpu(cuda):
         full, _ = prefill(card, cfg, toks)
         _, cache = prefill_to_cache(card, cfg, toks[:, :-1], 40)
         step, _ = decode(card, cfg, toks[:, -1:], cache, 36)
+    torch.testing.assert_close(step, full, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b"])
+@pytest.mark.parametrize("S", [2, 300])
+def test_mamba_layers_on_card_match_cpu(cuda, arch, S):
+    """Layer 0's Mamba prefill (the chunked scan, or the SSD past a chunk)
+    and one decode step on the card against the CPU: outputs and states
+    within 1e-5, the CPU tests' tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.model import init_params, unstack
+    cfg = get_config(arch).reduced()
+    layer = unstack(init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")["layers"])[0]["mamba"]
+    pre, dec = ((ssm.mamba2_prefill, ssm.mamba2_decode) if arch ==
+                "zamba2-7b" else (ssm.mamba1_prefill, ssm.mamba1_decode))
+    x = torch.from_numpy((np.random.default_rng(S).normal(
+        size=(2, S + 1, cfg.d_model)) * 0.5).astype(np.float32))
+    card = _to(layer, cuda)
+    with torch.no_grad():
+        ref = pre(layer, cfg, x[:, :S])
+        got = pre(card, cfg, x[:, :S].to(cuda))
+        ref_step = dec(layer, cfg, x[:, S:], ref[1])
+        got_step = dec(card, cfg, x[:, S:].to(cuda), got[1])
+    for g, r in ((got[0], ref[0]), (got_step[0], ref_step[0])):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-5, rtol=1e-5)
+    for name in ("h", "conv"):
+        torch.testing.assert_close(got_step[1][name].cpu(),
+                                   ref_step[1][name], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,window", [("falcon-mamba-7b", 0),
+                                         ("zamba2-7b", 0), ("zamba2-7b", 8)])
+def test_ssm_serve_on_card_matches_cpu(cuda, arch, window):
+    """Reduced falcon-mamba (no attention: K3 never launches) and zamba2
+    (its shared block once: K3 at Dh 64), with a window of 8 that the
+    prompt wraps, served on the card against the CPU: same weights and
+    ragged prompts, logits within 1e-4 and the same greedy tokens; the
+    first decode step within 1e-4 of a prefill of the P + 1 tokens, on
+    the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (make_prompts, prefill_to_cache,
+                                          serve)
+    from repro_torch.models.model import (_n_shared_apps, decode,
+                                          init_params, prefill)
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+    ref = serve(cfg, params, prompts, 5, window=window, device="cpu")
+    card = _to(params, cuda)
+    before = k3.launches
+    got = serve(cfg, card, prompts.to(cuda), 5, window=window, device=cuda)
+    assert k3.launches == before + _n_shared_apps(cfg)
+    torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(got.tokens.cpu(), ref.tokens)
+    toks = prompts.to(cuda)
+    with torch.no_grad():
+        full, _ = prefill(card, cfg, toks, window=window)
+        _, cache = prefill_to_cache(card, cfg, toks[:, :-1], 40,
+                                    window=window)
+        step, _ = decode(card, cfg, toks[:, -1:], cache, 36, window=window)
     torch.testing.assert_close(step, full, atol=1e-4, rtol=1e-4)
 
 

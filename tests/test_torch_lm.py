@@ -306,8 +306,7 @@ def test_serve_matches_reference_greedy_loop():
 
 def test_unported_families_raise():
     cfg = tconfigs.get_config("smollm-135m").reduced()
-    for kw in (dict(family="ssm", ssm=tconfigs.SSMConfig()),
-               dict(rope="mrope"), dict(n_stub_tokens=8)):
+    for kw in (dict(rope="mrope"), dict(n_stub_tokens=8)):
         with pytest.raises(NotImplementedError):
             tmodel.init_params(dataclasses.replace(cfg, **kw),
                                torch.Generator(), device="cpu")
@@ -353,9 +352,11 @@ print("RAISED", raised)
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "minicpm3-4b",
-                                  "granite-moe-3b-a800m", "deepseek-v3-671b"])
+                                  "granite-moe-3b-a800m", "deepseek-v3-671b",
+                                  "falcon-mamba-7b", "zamba2-7b"])
 def test_serve_imports_no_jax_and_defaults_to_cuda(arch):
-    """GQA, MLA and MoE serving import neither ``jax`` nor ``repro``."""
+    """GQA, MLA, MoE, SSM and hybrid serving import neither ``jax`` nor
+    ``repro``."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
                OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _SERVE_ISOLATION, arch],
