@@ -81,7 +81,18 @@ Phases, each of which stops the run on failure:
      256), federated (B 4, S 128) and serving (B 8, S 1024) shapes and
      fully masked rows (whose grads must be 0): two runs bitwise equal,
      the training forward's output bitwise the serving forward's, its row
-     LSE against the plain one;
+     LSE against the plain one; also at qwen2-vl's and musicgen's
+     prefill (B 8, S 1280, H 12, KH 2, Dh 128; B 8, S 1088, H 32, KH 32,
+     Dh 64) and training (B 8 x S 512 and 320) shapes; then K3 with
+     explicit positions (its position instantiations, forward, LSE and
+     backward, fp32, the forward also bf16) at qwen2-vl's and musicgen's
+     heads over S 320: the arange (output, LSE and gradients bitwise the
+     index path's), M-RoPE's temporal component (256 patches tied at 0,
+     then text from 16), a tail of -1s, a window of 256, keys past the
+     first 50 queries (fully masked rows, which must give 0) and the
+     M-RoPE positions permuted under a window of 100, and the same
+     forward and LSE checks at Dh 48, 96 and 112; then the forward at
+     qwen2-vl's prefill under its M-RoPE prompt's positions;
   7. serve a reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights and prompts, without and with a window
      that wraps, and compare logits and tokens; then serve the main path at
@@ -119,7 +130,26 @@ Phases, each of which stops the run on failure:
      generated: K3 at Dh 112 launches 13 times a zamba2 prefill and 0
      times a falcon-mamba one, logits finite, tokens in range; prefill ms,
      decode ms a step, tok/s, peak memory and the decode-vs-prefill gap
-     printed), each model's weights freed before the next and before 7b;
+     printed), each model's weights freed before the next and before 7e;
+  7e. stub-prefix families: reduced qwen2-vl-2b (M-RoPE, qkv biases) and
+     musicgen-large (no rope, G 1) served after their zero stub prefix on
+     the card against the CPU (logits within 1e-4, tokens equal, K3 once a
+     layer by index) and the first decode step against a prefill of the P
+     + 1 tokens on the card; then under custom M-RoPE positions and random
+     stub embeddings a prefill (logits and caches) and ``loss_fn`` with its
+     gradients card vs CPU (1e-4; K3's position path once a layer each
+     way); then each at full width and depth (qwen2-vl-2b: 28 layers,
+     1.78 B params; musicgen-large: 48 layers, 3.23 B; fp32, random
+     weights): a serve of 8 prompts of 1024 tokens after the 256- or
+     64-token stub prefix, 32 generated (K3 once a layer; prefill ms,
+     decode ms a step, tok/s, peak memory), for qwen2-vl one prefill under
+     its M-RoPE positions (the prefix a 16 x 16 image: K3's position path
+     once a layer), and 4 single-client SGD steps at B 8 x S 256 after a
+     prefix of N(0, 0.02²) embeddings (the reference trainer's zero prefix
+     overflows the backward at depth: ROADMAP C6; K3 forward and each
+     backward kernel once a layer a step, the loss finite and falling; ms
+     a step, peak memory); each model's weights freed before the next and
+     before 7b;
   7b. LM training: reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights, batches and link masks, 3 SGD steps
      and one federated round at C = 3; then the main path at full width,
@@ -136,8 +166,12 @@ Phases, each of which stops the run on failure:
      16-byte-aligned stride, at M = 39 and at the federated LM mix, K3
      also in bf16, SDPA under each backend, K3 also at minicpm3-4b's
      prefill (Dh 96), reduced minicpm3-4b's (Dh 48) and granite-moe's (H
-     24 over KH 8, Dh 64) and zamba2-7b's (Dh 112); K3's backward at
-     the training and the federated shapes, each kernel's ms, the
+     24 over KH 8, Dh 64), zamba2-7b's (Dh 112), qwen2-vl-2b's (Dh 128, G
+     6) and musicgen-large's (Dh 64, G 1), and with explicit positions at
+     qwen2-vl's prefill under its M-RoPE positions (SDPA given the
+     equivalent boolean mask as the library call); K3's backward at
+     smollm-135m's training and federated shapes and at qwen2-vl's and
+     musicgen's training shapes, each kernel's ms, the
      split-TF32, CUDA-core and bytes bounds, SDPA's backward under each
      backend that takes fp32)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
@@ -145,8 +179,9 @@ Phases, each of which stops the run on failure:
   9. with ``--profile`` only: profile two pFedWN rounds, one serving run
      of smollm-135m and one full-width training step with
      ``torch.profiler``; the serving runs of minicpm3-4b,
-     granite-moe-3b-a800m, falcon-mamba-7b and zamba2-7b are profiled in
-     their own phases, before their weights are freed.
+     granite-moe-3b-a800m, falcon-mamba-7b, zamba2-7b, qwen2-vl-2b and
+     musicgen-large are profiled in their own phases, before their weights
+     are freed.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the repo's ``src/`` beside it, it exits non-zero and prints no
 result.
@@ -205,6 +240,10 @@ EM_CASES = [(EM_MAIN, 100, 0, False), ((3, 64, 1024), 100, 0, False),
 # path's (smollm-135m's prefill of 8 x 1024 tokens)
 ATTN_MAIN = (8, 1024, 1024, 9, 3, 64, True, 0)
 ATTN_GRANITE = (8, 1024, 1024, 24, 8, 64, True, 0)   # granite-moe's prefill
+# qwen2-vl-2b's and musicgen-large's prefills: 8 prompts of 1024 tokens
+# after 256 image patches or 64 conditioning frames
+ATTN_QWEN2VL = (8, 1280, 1280, 12, 2, 128, True, 0)
+ATTN_MUSICGEN = (8, 1088, 1088, 32, 32, 64, True, 0)
 ATTN_SHAPES = [
     ATTN_MAIN,
     (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
@@ -217,6 +256,8 @@ ATTN_SHAPES = [
     (1, 5000, 5000, 48, 4, 128, True, 4096),  # starcoder2-15b, its window
     (1, 2048, 2048, 32, 2, 128, True, 0),    # chatglm3-6b
     ATTN_GRANITE,
+    ATTN_QWEN2VL,
+    ATTN_MUSICGEN,
     # tile edges: folded rows just below, at and above 64 and 128, keys
     # just off the key tile (64 at Dh 64, 32 at Dh 128)
     (2, 42, 43, 3, 1, 64, True, 0),
@@ -282,6 +323,22 @@ ATTN_SSM_SHAPES = [
 # phase 7d: the SSM configs, and the window zamba2's card-vs-CPU run wraps
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
 SSM_WINDOW = 8
+# phase 7e: the stub-prefix configs and their training steps
+STUB_ARCHS = ("qwen2-vl-2b", "musicgen-large")
+STUB_TRAIN_STEPS = 4
+# phase 6: K3 with explicit positions, (B, Sq, Skv, H, KH, Dh, causal,
+# window) at qwen2-vl's heads (12 over 2, Dh 128) and musicgen's (G 1, Dh
+# 64) over a 256-patch image and 64 text tokens, each under the patterns
+# of ``_position_pattern``
+POS_SHAPES = [(2, 320, 320, 12, 2, 128, True, 0),
+              (2, 320, 320, 8, 8, 64, True, 0)]
+# the forward's other head dims (MLA's 48 and 96, zamba2's 112), whose
+# position instantiations serve; the backward does not take them
+POS_FWD_SHAPES = [(2, 320, 320, 4, 4, 48, True, 0),
+                  (2, 320, 320, 8, 8, 96, True, 0),
+                  (2, 320, 320, 8, 8, 112, True, 0)]
+POS_PATTERNS = ("arange", "mrope", "pad", "window", "masked_rows",
+                "unsorted")
 # K2: the cifar10-cnn round's P, and row strides that give the kernel 8-,
 # 4- and 16-byte vectors in fp32 (the round's stack has the first)
 AGG_P = 188_810
@@ -295,9 +352,15 @@ MOE_DROP_FACTOR = 0.25
 # training main path's (smollm-135m, B 8 x S 256)
 BWD_MAIN = (8, 256, 256, 9, 3, 64, True, 0)
 BWD_FED = (4, 128, 128, 9, 3, 64, True, 0)    # the federated run's
+# qwen2-vl-2b's and musicgen-large's training steps: B 8 x S 256 after the
+# stub prefix
+BWD_QWEN2VL = (8, 512, 512, 12, 2, 128, True, 0)
+BWD_MUSICGEN = (8, 320, 320, 32, 32, 64, True, 0)
 BWD_SHAPES = [
     BWD_MAIN,
     BWD_FED,
+    BWD_QWEN2VL,
+    BWD_MUSICGEN,
     (8, 1024, 1024, 9, 3, 64, True, 0),      # smollm-135m's serving shape
     (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
     (1, 256, 256, 8, 8, 64, True, 0),
@@ -1310,15 +1373,19 @@ def _first_decode_gap(cfg, params, prompts, window=0) -> float:
     """max |d| between the first decode step's logits (MLA: weight-absorbed,
     latent-space attention; SSM: the recurrent step) and the last logits of
     a prefill of all P + 1 tokens (MLA: K3 over the expanded heads; SSM:
-    the chunked scan or SSD)."""
-    from repro_torch.launch.serve import prefill_to_cache
+    the chunked scan or SSD), both after ``serve``'s stub prefix
+    where the config has one."""
+    from repro_torch.launch.serve import prefill_to_cache, stub_prefix
     from repro_torch.models.model import decode, prefill
+    stub = stub_prefix(cfg, prompts.shape[0], prompts.device)
     with torch.no_grad():
-        full, _ = prefill(params, cfg, prompts, window=window)
+        full, _ = prefill(params, cfg, prompts, stub_embeds=stub,
+                          window=window)
         P = prompts.shape[1] - 1
-        _, cache = prefill_to_cache(params, cfg, prompts[:, :P], P + 1,
-                                    window=window)
-        step, _ = decode(params, cfg, prompts[:, P:], cache, P,
+        start = cfg.n_stub_tokens + P
+        _, cache = prefill_to_cache(params, cfg, prompts[:, :P], start + 1,
+                                    window=window, stub_embeds=stub)
+        step, _ = decode(params, cfg, prompts[:, P:], cache, start,
                          window=window)
     return float((step - full).abs().max())
 
@@ -1640,6 +1707,206 @@ def run_ssm_main_path(dev, arch, profile=False):
     return t, n3
 
 
+def check_stub_families_against_cpu(dev) -> dict:
+    """The stub-prefix configs (``STUB_ARCHS``) at ``reduced()`` on the
+    card against the CPU (plain K3), the same weights: ``serve`` with the
+    zero stub prefix on ragged prompts (logits within ``SERVE_TOL``,
+    tokens equal, K3 once a layer by index), the first decode step against
+    a prefill of the P + 1 tokens on the card (``SERVE_TOL``); then, under
+    custom M-RoPE positions (``_mrope_layout``; musicgen takes its
+    temporal component) and random stub embeddings, a prefill (logits and
+    caches) and ``loss_fn`` with its gradients (``TRAIN_TOL``), K3's
+    position path launching once a layer forward and each backward kernel
+    of the plan once a layer. Returns the launches by (arch, run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params, prefill
+    launches = {}
+    for arch in STUB_ARCHS:
+        cfg = get_config(arch).reduced()
+        L = cfg.n_layers
+        cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+        card_params = _tree_to(cpu_params, dev)
+        prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+        ref = serve(cfg, cpu_params, prompts, 5, device="cpu")
+        k3.reset_counts()
+        got = serve(cfg, card_params, prompts.to(dev), 5, device=dev)
+        launches[arch, "serve"] = n = (k3.launches, k3.position_launches)
+        diff = (got.logits.cpu() - ref.logits).abs()
+        excess = float((diff - SERVE_TOL * ref.logits.abs()).max())
+        same = torch.equal(got.tokens.cpu(), ref.tokens)
+        gap = _first_decode_gap(cfg, card_params, prompts.to(dev))
+        print(f"serve reduced {arch} (stub prefix {cfg.n_stub_tokens}): "
+              f"max|dlogits|={float(diff.max()):.3g} (tol {SERVE_TOL:g}), "
+              f"tokens equal: {same}, K3 launches {n[0]} (positions "
+              f"{n[1]}); first decode vs prefill of P + 1 on the card: "
+              f"max|d|={gap:.3g}")
+        if not (excess <= SERVE_TOL and same and gap <= SERVE_TOL
+                and n == (L, 0)):
+            raise AssertionError(f"reduced {arch} serving on the card "
+                                 "disagrees with the CPU or its prefill")
+        g = torch.Generator().manual_seed(2)
+        stub = torch.randn((2, cfg.n_stub_tokens, cfg.d_model), generator=g)
+        positions = _mrope_layout(cfg.n_stub_tokens, 37, "cpu")
+        if cfg.rope != "mrope":
+            positions = positions[:, 0].contiguous()
+        labels = torch.roll(prompts, -1, 1)
+        labels[:, -1] = -1
+        batch = {"tokens": prompts, "labels": labels, "stub_embeds": stub,
+                 "positions": positions}
+        card_batch = {name: t.to(dev) for name, t in batch.items()}
+        with torch.no_grad():
+            lc, cc = prefill(cpu_params, cfg, prompts, stub_embeds=stub,
+                             positions=positions)
+            k3.reset_counts()
+            lg, cg = prefill(card_params, cfg, prompts.to(dev),
+                             stub_embeds=stub.to(dev),
+                             positions=card_batch["positions"])
+        n_prefill = k3.position_launches
+        errs = [float((lg.cpu() - lc).abs().max()),
+                max(float((cg["layers"][name].cpu() - c).abs().max())
+                    for name, c in cc["layers"].items())]
+        loss_c, _, grads_c = train.value_and_grad(cpu_params, cfg, batch)
+        k3.reset_counts()
+        loss_g, _, grads_g = train.value_and_grad(card_params, cfg,
+                                                  card_batch)
+        torch.cuda.synchronize()
+        n_fwd, n_bwd = k3.position_launches, dict(k3.backward_launches)
+        launches[arch, "positions"] = (n_prefill, n_fwd, n_bwd)
+        errs += [abs(float(loss_g) - float(loss_c)),
+                 _tree_err(grads_g, grads_c)]
+        S_eff = cfg.n_stub_tokens + 37
+        kernels = _bwd_kernels((2, S_eff, S_eff, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.resolved_head_dim, True, 0), dev)
+        print(f"reduced {arch} under M-RoPE positions, card vs CPU: prefill "
+              f"max|dlogits|={errs[0]:.3g} max|dcache|={errs[1]:.3g}; "
+              f"loss_fn |dloss|={errs[2]:.3g} max|dgrads|={errs[3]:.3g} "
+              f"(tol {TRAIN_TOL:g}); K3 position launches: prefill "
+              f"{n_prefill}, training forward {n_fwd}, backward {n_bwd}")
+        if not (max(errs) <= TRAIN_TOL and n_prefill == L and n_fwd == L
+                and _bwd_counts_ok(n_bwd, kernels, L)):
+            raise AssertionError(f"reduced {arch} under custom positions "
+                                 "disagrees with the CPU")
+    return launches
+
+
+def run_stub_main_path(dev, arch, profile=False) -> dict:
+    """``arch`` (qwen2-vl-2b or musicgen-large) at full width and depth:
+    ``serve`` (fp32, random weights, seed 0, the zero stub prefix before 8
+    prompts of 1024 tokens, 32 generated; one warm run, then one timed run
+    whose prefill must launch K3 once a layer by index); for qwen2-vl also
+    one prefill of the same prompts under their M-RoPE positions (the
+    prefix as a 16 x 16 image, ``_mrope_layout``), which must launch K3's
+    position path once a layer; then ``STUB_TRAIN_STEPS`` single-client SGD
+    steps (B 8 x S 256 after a prefix of N(0, 0.02²) embeddings, the
+    token embeddings' scale: the reference trainer's zero prefix
+    overflows the backward at depth, ROADMAP C6; lr 3e-3) from the same
+    weights: K3's forward and each backward kernel of the plan once a
+    layer a step, the losses finite and falling. Prints timings and peaks; with ``profile``
+    profiles one serve. The weights are freed on return. Returns the
+    timings, peaks and launches."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import make_prompts, serve, stub_prefix
+    from repro_torch.models.model import init_params, prefill
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    prompts = make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=1, device=dev)
+    serve(cfg, params, prompts, SERVE_GEN, device=dev)     # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.reset_counts()
+    res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    n3, n_pos = k3.launches, k3.position_launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if (n3, n_pos) != (L, 0):
+        raise AssertionError(f"K3 launched {n3} times ({n_pos} with "
+                             f"positions) in one {arch} prefill, expected "
+                             f"{L} by index")
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError(f"non-finite logits on {arch}'s serving path")
+    if res.tokens.shape != (SERVE_B, SERVE_GEN) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"bad tokens {tuple(res.tokens.shape)}")
+    t = res.timings
+    print(f"{arch} ({n_params} params) B={SERVE_B} stub={cfg.n_stub_tokens} "
+          f"prompt={SERVE_PROMPT} gen={SERVE_GEN} fp32: prefill "
+          f"{t['prefill_ms']} ms, decode {t['decode_ms_per_step']} ms per "
+          f"step, {t['decode_tok_per_s']} generated tok/s, peak memory "
+          f"{peak:.3f} GiB, K3 launches {n3}")
+    print(f"first 16 tokens of prompt 0: {res.tokens[0, :16].tolist()}")
+    gap = _first_decode_gap(cfg, params, torch.cat(
+        [prompts, res.tokens[:, :1]], dim=1))
+    print(f"{arch} first decode step vs prefill of P + 1: max|dlogits|="
+          f"{gap:.3g} (printed, not gated)")
+    if profile:
+        profile_serve(dev, cfg, params, prompts)
+    out = {"serve": t, "serve_peak_gib": peak, "k3": n3, "params": n_params}
+    if cfg.rope == "mrope":
+        positions = _mrope_layout(cfg.n_stub_tokens, SERVE_PROMPT, dev)
+        stub = stub_prefix(cfg, SERVE_B, dev)
+        with torch.no_grad():
+            prefill(params, cfg, prompts, stub_embeds=stub,
+                    positions=positions)                     # warm
+            torch.cuda.synchronize()
+            k3.reset_counts()
+            t0 = time.perf_counter()
+            logits, _ = prefill(params, cfg, prompts, stub_embeds=stub,
+                                positions=positions)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out["k3_positions"] = n_pos = k3.position_launches
+        out["mrope_prefill_ms"] = ms
+        print(f"{arch} M-RoPE prefill (the prefix as a 16 x 16 image, text "
+              f"from 16): {ms} ms, K3 position launches {n_pos}")
+        if not (n_pos == k3.launches == L
+                and bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"{arch}'s M-RoPE prefill: K3 position "
+                                 f"launches {n_pos}")
+        del logits
+    box = [params]
+    del params, res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.reset_counts()
+    g = torch.Generator(device=dev).manual_seed(3)
+    stub = 0.02 * torch.randn((TRAIN_B, cfg.n_stub_tokens, cfg.d_model),
+                              generator=g, device=dev)
+    tr = train.single_client(cfg, steps=STUB_TRAIN_STEPS, batch=TRAIN_B,
+                             seq=TRAIN_S, lr=TRAIN_LR, params=box.pop(),
+                             stub_embeds=stub, device=dev)
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del tr["params"]
+    shape = BWD_QWEN2VL if arch == "qwen2-vl-2b" else BWD_MUSICGEN
+    want = L * STUB_TRAIN_STEPS
+    tt = tr["timings"]
+    print(f"{arch} training B={TRAIN_B} S={TRAIN_S} after the stub prefix, "
+          f"{STUB_TRAIN_STEPS} SGD steps fp32: {tt['ms_per_step']} ms per "
+          f"step after the first ({tt['first_step_ms']} ms), "
+          f"{tt['tokens_per_s']} tokens/s, peak memory {train_peak:.3f} GiB;"
+          f" losses {tr['losses']}; launches K3 forward {n_fwd}, backward "
+          f"{n_bwd}")
+    if not (n_fwd == want and k3.position_launches == 0
+            and _bwd_counts_ok(n_bwd, _bwd_kernels(shape, dev), want)
+            and all(np.isfinite(tr["losses"]))
+            and tr["losses"][-1] < tr["losses"][0]):
+        raise AssertionError(f"{arch} training: K3 {n_fwd}/{n_bwd}, losses "
+                             f"{tr['losses']}")
+    torch.cuda.empty_cache()
+    out.update(train=tt, train_peak_gib=train_peak, losses=tr["losses"],
+               k3_forward=n_fwd, k3_backward=n_bwd)
+    return out
+
+
 def _bwd_inputs(shape, dev, seed=0):
     """K3's inputs at ``shape`` (fp32) and an output cotangent dO."""
     q, k, v = _attn_inputs(shape, torch.float32, dev, seed)
@@ -1647,11 +1914,13 @@ def _bwd_inputs(shape, dev, seed=0):
     return q, k, v, torch.randn(q.shape, generator=g, device=dev)
 
 
-def _autograd_grads(q, k, v, dout, causal, window):
-    """(out, dq, dk, dv) through ``flash_attention``'s autograd path."""
+def _autograd_grads(q, k, v, dout, causal, window, **positions):
+    """(out, dq, dk, dv) through ``flash_attention``'s autograd path, with
+    explicit ``q_positions`` and ``kv_positions`` when given."""
     from repro_torch.kernels import flash_attention as k3
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-    out = k3.flash_attention(q, k, v, causal=causal, window=window)
+    out = k3.flash_attention(q, k, v, causal=causal, window=window,
+                             **positions)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
     return (out.detach(),) + grads
@@ -1662,8 +1931,9 @@ def check_flash_attention_backward(dev) -> float:
     ``BWD_SHAPES``, |d| <= tol + tol·|plain| for dq, dk, dv and the row
     LSE; a second run bitwise equal; the training forward's output bitwise
     the serving forward's; fully masked rows' dq and output exactly 0.
-    Raises past any. Returns, for the training main path's shape
-    (``BWD_MAIN``) and the federated one's (``BWD_FED``), the max |d| and
+    Raises past any. Returns, for the training main paths' shapes
+    (``BWD_MAIN``, ``BWD_QWEN2VL``, ``BWD_MUSICGEN``) and the federated
+    one's (``BWD_FED``), the max |d| and
     the worst excess max(|d| − tol·|plain|), which the check holds to <=
     tol."""
     from repro_torch.kernels import flash_attention as k3
@@ -1714,10 +1984,164 @@ def check_flash_attention_backward(dev) -> float:
                 and same_out and zero_rows and finite):
             raise AssertionError(f"K3 backward disagrees with its plain "
                                  f"version at {shape}")
-        if shape in (BWD_MAIN, BWD_FED):
+        if shape in (BWD_MAIN, BWD_FED, BWD_QWEN2VL, BWD_MUSICGEN):
             errs_at[shape] = (max(errs), max(excess))
     torch.cuda.empty_cache()
     return errs_at
+
+
+def _mrope_layout(n_stub, text, device):
+    """qwen2-vl's positions for a prompt of ``n_stub`` image patches (a
+    grid of isqrt(n_stub) rows: t 0, h the row, w the column) and then
+    ``text`` tokens from the grid's largest side on, every component
+    counting: (n_stub + text, 3) int32."""
+    import math
+    rows = math.isqrt(n_stub)
+    cols = n_stub // rows
+    i = torch.arange(n_stub)
+    image = torch.stack([torch.zeros_like(i), i // cols, i % cols], dim=-1)
+    t = torch.arange(text)[:, None].expand(text, 3) + max(rows, cols)
+    return torch.cat([image, t]).to(device=device, dtype=torch.int32)
+
+
+def _position_pattern(name, n, device):
+    """(q_positions, kv_positions, window) int32 for self attention over
+    ``n`` tokens: ``arange`` (the indices), ``mrope`` (the temporal
+    component of ``_mrope_layout(256, n - 256)``: 256 tied at 0, then text
+    from 16), ``pad`` (the indices with a tail of forty -1s), ``window``
+    (``mrope`` under a window of 256), ``masked_rows`` (keys at the
+    indices + 50: causal rows 0..49 see none), ``unsorted`` (``mrope``
+    permuted, under a window of 100)."""
+    ar = torch.arange(n, dtype=torch.int32)
+    mrope = _mrope_layout(256, n - 256, "cpu")[:, 0]
+    window = 0
+    if name == "arange":
+        qp = kp = ar
+    elif name in ("mrope", "window"):
+        qp = kp = mrope
+        window = 256 if name == "window" else 0
+    elif name == "pad":
+        qp = kp = torch.where(ar < n - 40, ar, -1).to(torch.int32)
+    elif name == "masked_rows":
+        qp, kp = ar, ar + 50
+    elif name == "unsorted":
+        g = torch.Generator().manual_seed(n)
+        qp = kp = mrope[torch.randperm(n, generator=g)]
+        window = 100
+    else:
+        raise ValueError(name)
+    return qp.to(device), kp.to(device), window
+
+
+def check_flash_attention_positions(dev) -> dict:
+    """K3 with explicit positions (``POS_SHAPES`` and ``POS_FWD_SHAPES``
+    x ``POS_PATTERNS``) against its plain versions on the card: the
+    serving forward in fp32 and bf16 (``ATTN_TOL``; fully masked rows
+    exactly 0), the fp32 training instantiation (output bitwise the
+    serving one's, row LSE within ``BWD_TOL``, +inf exactly on the fully
+    masked rows) and, at the backward's head dims, the backward through
+    the autograd path against the float64 plain backward (``BWD_TOL``;
+    fully masked rows' dq exactly 0); for the arange, the output, LSE and
+    gradients bitwise the index path's. Every call with positions must
+    count one position launch. Then the forward at qwen2-vl's full prefill
+    (``ATTN_QWEN2VL``) under its M-RoPE prompt's temporal positions.
+    Raises past any; returns the max |d| of the last (phase 8's positions
+    row)."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ref
+    for shape in POS_SHAPES + POS_FWD_SHAPES:
+        B, Sq, Skv, H, KH, Dh, causal, _ = shape
+        bwd = Dh in k3.BWD_HEAD_DIMS
+        for name in POS_PATTERNS:
+            qp, kp, window = _position_pattern(name, Sq, dev)
+            pos = dict(q_positions=qp, kv_positions=kp)
+            q, k, v, dout = _bwd_inputs(shape, dev)
+            n_pos = k3.position_launches
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+                out = k3.flash_attention(qd, kd, vd, causal=causal,
+                                         window=window, **pos)
+                expect = ref.flash_attention_ref(
+                    qd, kd, vd, causal=causal, window=window, **pos).float()
+                diff = (out.float() - expect).abs()
+                errs[str(dtype)[6:]] = float(diff.max())
+                tol = ATTN_TOL[dtype]
+                if not (out.dtype == dtype and float(
+                        (diff - tol * expect.abs()).max()) <= tol):
+                    raise AssertionError(f"K3 with positions {name} at "
+                                         f"{shape} {dtype}: {errs}")
+                if dtype == torch.float32:
+                    served = out
+            trained, lse = k3._launch(q, k, v, causal, window,
+                                      with_lse=True, **pos)
+            want = ref.attention_lse_ref(q.double(), k.double(),
+                                         causal=causal, window=window, **pos)
+            masked = torch.isinf(want)
+            d = (lse.double() - want)[~masked].abs()
+            lse_ok = (torch.equal(trained, served)
+                      and bool((torch.isinf(lse) == masked).all())
+                      and (not d.numel() or float(
+                          (d - BWD_TOL * want[~masked].abs()).max())
+                          <= BWD_TOL))
+            rows = masked.transpose(1, 2)                    # (B, Sq, H)
+            zero = bool((served[rows] == 0).all())
+            bwd_ok, grads = True, ()
+            if bwd:
+                grads = _autograd_grads(q, k, v, dout, causal, window,
+                                        **pos)
+                q64, k64, v64 = q.double(), k.double(), v.double()
+                expect = ref.flash_attention_bwd_ref(
+                    q64, k64, v64, ref.flash_attention_ref(
+                        q64, k64, v64, causal=causal, window=window, **pos),
+                    want, dout.double(), causal=causal, window=window,
+                    **pos)
+                for got, w, key in zip(grads[1:], expect,
+                                       ("dq", "dk", "dv")):
+                    diff = (got.double() - w).abs()
+                    errs[key] = float(diff.max())
+                    bwd_ok &= (bool(torch.isfinite(got).all()) and float(
+                        (diff - BWD_TOL * w.abs()).max()) <= BWD_TOL)
+                zero &= bool((grads[1][rows] == 0).all())
+                del expect, q64, k64, v64
+            same = True
+            if name == "arange":             # bitwise the index path
+                idx_out, idx_lse = k3._launch(q, k, v, causal, window,
+                                              with_lse=True)
+                idx = (_autograd_grads(q, k, v, dout, causal, window)
+                       if bwd else ())
+                same = (torch.equal(idx_out, trained)
+                        and torch.equal(idx_lse, lse)
+                        and all(torch.equal(a, b)
+                                for a, b in zip(idx, grads)))
+            launched = k3.position_launches - n_pos
+            print(f"K3 positions {name} {shape} window={window}: max|d| "
+                  + " ".join(f"{key}={e:.3g}" for key, e in errs.items())
+                  + f", LSE ok {lse_ok}, masked rows {int(rows.sum())} "
+                  f"zero {zero}, bitwise the index path {same}, position "
+                  f"launches {launched}")
+            if not (lse_ok and bwd_ok and zero and same
+                    and launched == 3 + bwd):
+                raise AssertionError(f"K3 with positions {name} disagrees "
+                                     f"at {shape}")
+    B, Sq, Skv, H, KH, Dh, causal, window = ATTN_QWEN2VL
+    qp = _mrope_layout(256, Sq - 256, dev)[:, 0].contiguous()
+    q, k, v = _attn_inputs(ATTN_QWEN2VL, torch.float32, dev)
+    out = k3.flash_attention(q, k, v, causal=causal, window=window,
+                             q_positions=qp, kv_positions=qp)
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     q_positions=qp, kv_positions=qp)
+    diff = (out - expect).abs()
+    err = float(diff.max())
+    excess = float((diff - ATTN_TOL[torch.float32] * expect.abs()).max())
+    print(f"K3 positions, qwen2-vl's M-RoPE prefill {ATTN_QWEN2VL}: max|d|="
+          f"{err:.3g} (tol {ATTN_TOL[torch.float32]:g})")
+    if excess > ATTN_TOL[torch.float32]:
+        raise AssertionError("K3 with positions disagrees at qwen2-vl's "
+                             "prefill")
+    del expect, diff
+    torch.cuda.empty_cache()
+    return err
 
 
 def check_train_against_cpu(dev) -> None:
@@ -2142,6 +2566,64 @@ def attention_report(dev, shape, n3, err3, floor, main_path):
         "library_backend": sdpa_backends(sdpa)}
 
 
+def attention_positions_report(dev, shape, n_pos, err, floor, main_path):
+    """K3's row with explicit positions at ``shape`` (qwen2-vl's prefill)
+    under the temporal positions of its M-RoPE prompt
+    (``_mrope_layout``), fp32, beside the index path at the same shape and
+    SDPA given the equivalent boolean ``attn_mask``; the bound counts the
+    pairs this mask leaves and the positions read."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import _attention_mask, flash_attention_ref
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    q, k, v = _attn_inputs(shape, torch.float32, dev)
+    qp = _mrope_layout(256, Sq - 256, dev)[:, 0].contiguous()
+    pos = dict(q_positions=qp, kv_positions=qp)
+    mask = _attention_mask(Sq, Skv, causal, window, dev, qp, qp)
+    pairs = int(mask.sum())
+    ops = 4 * Dh * pairs * B * H
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + Sq + Skv)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    split_ms = SPLIT_TF32_TERMS * ops / TF32_FLOPS * 1e3
+    return {
+        "name": "flash_attention (explicit positions)", "route": "cuda",
+        "design": "the forward's position instantiation: the block's tile "
+                  "range from its rows' least and greatest position and "
+                  "every key's, each tile's key positions in shared memory, "
+                  "an element mask from them",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "replaces_note": "the reference's model path masks chunked_"
+                         "attention by positions (src/repro/models/"
+                         "attention.py:72-80); its Pallas K3 masks by index",
+        "main_path": main_path, "launches": n_pos, "max_abs_err": err,
+        "tolerance": ATTN_TOL[torch.float32],
+        "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KH": KH, "Dh": Dh,
+                  "causal": causal, "window": window, "dtype": "float32",
+                  "positions": "256 tied at 0, then 16.."},
+        "unmasked_pairs_per_head": pairs,
+        "ms": time_ms(lambda: k3._launch(q, k, v, causal, window, **pos)),
+        "cold_ms": cold_ms(lambda: k3._launch(q, k, v, causal, window,
+                                              **pos), dev),
+        "index_path_ms": time_ms(lambda: k3._launch(q, k, v, causal,
+                                                    window)),
+        "plain_ms": time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window, **pos), iters=5, reps=5),
+        "bound_ms": max(bytes_ms, split_ms),
+        "bound_by": "bytes" if bytes_ms >= split_ms else "operations",
+        "bound_route": "split TF32: 3 x the FLOPs at 495 TFLOP/s",
+        "bound_bytes_ms": bytes_ms,
+        "floor_ms": floor, "library_ms": time_ms(sdpa, iters=5, reps=5),
+        "library_note": "SDPA with the boolean attn_mask of these positions",
+        "library_backend": sdpa_backends(sdpa)}
+
+
 def k3_bwd_times(dev, shape, k3=None, calls=None) -> dict:
     """K3's backward at ``shape`` (fp32): the kernels' steady and cold ms
     together and each one's steady ms (its launches at ``shape``), the
@@ -2193,11 +2675,13 @@ def k3_bwd_times(dev, shape, k3=None, calls=None) -> dict:
     return row
 
 
-def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path):
-    """K3's backward row at one main path's shape (the training path's, B 8
-    x S 256, or the federated one's, B 4 x S 128; fp32): ``k3_bwd_times``
-    with the launches that path made, the error phase 6 found at that
-    shape and the plain backward's ms."""
+def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path, steps):
+    """K3's backward row at one main path's shape (smollm-135m's training
+    path's, B 8 x S 256, or its federated one's, B 4 x S 128; qwen2-vl's
+    or musicgen's training path's, B 8 x S 256 after the stub prefix;
+    fp32): ``k3_bwd_times`` with the launches that path made in its
+    ``steps`` steps, the error phase 6 found at that shape and the plain
+    backward's ms."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import flash_attention_bwd_ref
     causal, window = shape[6], shape[7]
@@ -2223,9 +2707,7 @@ def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path):
                          "(src/repro/models/attention.py:33) under "
                          "jax.checkpoint",
         "launches": sum(n_bwd.values()), "launches_by_kernel": n_bwd,
-        "launches_per_step": sum(n_bwd.values()) // (
-            TRAIN_STEPS if main_path == "train"
-            else FED_ROUNDS * FED_C * FED_LOCAL),
+        "launches_per_step": sum(n_bwd.values()) // steps,
         "splits": plan["splits"], "dkdv_blocks": plan["dkdv_blocks"],
         "dq_blocks": plan["dq_blocks"],
         "max_abs_err": err[0], "atol": BWD_TOL, "rtol": BWD_TOL,
@@ -2394,7 +2876,7 @@ def profile_serve(dev, cfg, params, prompts) -> None:
     the device's share of its wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import prefill_to_cache, serve
+    from repro_torch.launch.serve import prefill_to_cache, serve, stub_prefix
     from repro_torch.models.model import decode
 
     def kernels(avgs):
@@ -2424,9 +2906,11 @@ def profile_serve(dev, cfg, params, prompts) -> None:
     print(avgs.table(sort_by="self_device_time_total", row_limit=20,
                      max_name_column_width=60))
 
-    P = prompts.shape[1]
+    P = prompts.shape[1] + cfg.n_stub_tokens
     with torch.no_grad():
-        logits, cache = prefill_to_cache(params, cfg, prompts, P + SERVE_GEN)
+        logits, cache = prefill_to_cache(
+            params, cfg, prompts, P + SERVE_GEN,
+            stub_embeds=stub_prefix(cfg, prompts.shape[0], dev))
         token = torch.argmax(logits, dim=-1)[:, None]
         decode(params, cfg, token, cache, P)                 # warm
         torch.cuda.synchronize()
@@ -2489,9 +2973,9 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile two pFedWN rounds, a serving "
                         "run of smollm-135m, minicpm3-4b, granite-moe-"
-                        "3b-a800m, falcon-mamba-7b and zamba2-7b and one "
-                        "training step and print where the device time "
-                        "goes")
+                        "3b-a800m, falcon-mamba-7b, zamba2-7b, qwen2-vl-2b "
+                        "and musicgen-large and one training step and print "
+                        "where the device time goes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2576,6 +3060,7 @@ def main() -> int:
     _phase("6. K3 flash_attention vs plain, forward and backward")
     err3 = check_flash_attention(dev)
     err3_bwd = check_flash_attention_backward(dev)
+    err3_pos = check_flash_attention_positions(dev)
 
     _phase("7. serving: small runs vs CPU, then the main paths (smollm-135m, "
            "then minicpm3-4b's MLA at full width)")
@@ -2624,6 +3109,20 @@ def main() -> int:
                       for (a, w), n in n3_small_ssm.items())
     print(f"reduced SSM runs' K3 launches: {small}")
 
+    _phase("7e. stub-prefix families: reduced qwen2-vl and musicgen vs CPU "
+           "(serving, M-RoPE positions, gradients), then each at full width "
+           "(serving, training steps)")
+    stub_small = check_stub_families_against_cpu(dev)
+    stub_main = {}
+    for arch in STUB_ARCHS:           # ~7 and ~13 GB of weights, in turn
+        t0 = time.perf_counter()
+        stub_main[arch] = run_stub_main_path(dev, arch, args.profile)
+        print(f"{arch} main paths wall {time.perf_counter() - t0:.1f} s "
+              f"(warm-up serve, the P + 1 prefill and the training steps "
+              f"included)")
+    small = ", ".join(f"{a} {r} {n}" for (a, r), n in stub_small.items())
+    print(f"reduced stub-prefix runs' K3 launches: {small}")
+
     _phase("7b. LM training: small run vs CPU, then single-client and "
            "federated at full width")
     check_train_against_cpu(dev)
@@ -2643,9 +3142,11 @@ def main() -> int:
             attention_report(dev, ATTN_MAIN, n3, err3[ATTN_MAIN], floor,
                              "serve smollm-135m"),
             attention_bwd_report(dev, BWD_MAIN, trained["k3_backward"],
-                                 err3_bwd[BWD_MAIN], floor, "train"),
+                                 err3_bwd[BWD_MAIN], floor, "train",
+                                 TRAIN_STEPS),
             attention_bwd_report(dev, BWD_FED, fed["k3_backward"],
-                                 err3_bwd[BWD_FED], floor, "federated"),
+                                 err3_bwd[BWD_FED], floor, "federated",
+                                 FED_ROUNDS * FED_C * FED_LOCAL),
             attention_report(dev, ATTN_MLA, n3_mla, err3[ATTN_MLA], floor,
                              "serve minicpm3-4b (MLA)"),
             attention_report(dev, ATTN_MLA_SMALL, n3_small_mla,
@@ -2659,6 +3160,23 @@ def main() -> int:
                              "serve zamba2-7b (hybrid: the shared attention "
                              "block, 13 applications)")]
     rows[-1]["launches_falcon_mamba"] = ssm_main["falcon-mamba-7b"][1]
+    qwen, musicgen = stub_main["qwen2-vl-2b"], stub_main["musicgen-large"]
+    rows += [
+        attention_report(dev, ATTN_QWEN2VL, qwen["k3"], err3[ATTN_QWEN2VL],
+                         floor, "serve qwen2-vl-2b (256 stub patches, G 6, "
+                         "Dh 128)"),
+        attention_report(dev, ATTN_MUSICGEN, musicgen["k3"],
+                         err3[ATTN_MUSICGEN], floor, "serve musicgen-large "
+                         "(64 stub frames, G 1, Dh 64)"),
+        attention_positions_report(dev, ATTN_QWEN2VL, qwen["k3_positions"],
+                                   err3_pos, floor, "prefill qwen2-vl-2b "
+                                   "under M-RoPE positions"),
+        attention_bwd_report(dev, BWD_QWEN2VL, qwen["k3_backward"],
+                             err3_bwd[BWD_QWEN2VL], floor,
+                             "train qwen2-vl-2b", STUB_TRAIN_STEPS),
+        attention_bwd_report(dev, BWD_MUSICGEN, musicgen["k3_backward"],
+                             err3_bwd[BWD_MUSICGEN], floor,
+                             "train musicgen-large", STUB_TRAIN_STEPS)]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}

@@ -11,8 +11,12 @@
 // G = H / KH and query head h = kh*G + g reading KV head kh:
 //   o[b, i, h] = sum_j softmax_j(s_ij) v[b, j, kh],
 //   s_ij = (q[b, i, h] . k[b, j, kh]) / sqrt(Dh)  over the unmasked j,
-// masked where causal and j > i, or where window > 0 and j <= i - window
-// (positions count from 0 on both sides, as in the reference). Masked
+// masked where causal and pos_j > pos_i, or where window > 0 and pos_j <=
+// pos_i - window, and where pos_j < 0. The positions are the indices
+// (counted from 0 on both sides) or, in the position instantiations
+// (template flag kPos), explicit q_pos (Sq,) and kv_pos (Skv,) int32,
+// shared by the batch: what the reference's model path hands
+// chunked_attention (src/repro/models/attention.py:72-80). Masked
 // scores are -inf while the running max starts at -1e30, so their
 // probabilities are exactly 0 and a fully masked row gives 0 (acc /
 // max(l, 1e-30)). fp32 arithmetic for fp32
@@ -89,6 +93,20 @@
 // - The tensor core truncates as it accumulates, so a P.V chain over every
 //   key drifts past the fp32 gate (3.5e-6 at smollm's prefill): each
 //   tile's P.V is summed in fresh registers and joins O in one fp32 FMA.
+// - Explicit positions (kPos): an M-RoPE prompt's image patches share one
+//   temporal position, so positions tie and need not be sorted, and no
+//   index band bounds the keys a row sees. Before the warp roles split,
+//   the block reads its rows' least and greatest position and then every
+//   key's position, and keeps the first and last key that any of its rows
+//   may see (valid, at most its greatest position under causal, after its
+//   least one's window start): the ring walks the tiles between them.
+//   Each tile's key positions (-1 past Skv) go to shared memory beside
+//   its K/V, written by the consumers with plain loads (no TMA, so no
+//   alignment rule for them), and the softmax builds each element's mask
+//   from them. For an arange the bounds are the index band's, so the
+//   output and LSE are the index instantiation's bit for bit; a tile in
+//   which a row sees nothing leaves its m, l and accumulator exactly as
+//   they were (its scores are -inf, not the -1e30 that m starts at).
 // The layout, split, wgmma, mbarrier and TMA helpers are in wgmma_tf32.cuh,
 // shared with the backward.
 // Left for later: overlapping the conversion with the products (the
@@ -100,6 +118,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -129,8 +148,9 @@ template <> struct Cfg<128> {
   static constexpr int kWG = 1, kKeys = 32, kStages = 2, kPV = 64;
 };
 
-// Shared memory of one block, in bytes from a 1024-aligned base.
-template <typename T, int DH>
+// Shared memory of one block, in bytes from a 1024-aligned base. The
+// position instantiations add 4 bounds and a tile's key positions.
+template <typename T, int DH, bool kPos>
 struct Layout {
   static constexpr int kWG = Cfg<DH>::kWG, kKeys = Cfg<DH>::kKeys;
   static constexpr int kStages = Cfg<DH>::kStages;
@@ -144,7 +164,9 @@ struct Layout {
                             kKs = kKb + kKV, kVb = kKs + kKV,
                             kVs = kVb + kKV, kRaw = kVs + kKV,
                             kBars = kRaw + kStages * 2 * kTile;
-  static constexpr uint32_t kBytes = kBars + 2 * kStages * 8 + 1024;
+  static constexpr uint32_t kPosAt = kBars + 2 * kStages * 8;
+  static constexpr uint32_t kBytes =
+      kPosAt + (kPos ? (4 + kKeys) * 4 : 0) + 1024;
   static_assert(kBytes <= 232448, "over the 227 KB opt-in shared memory");
   static_assert(DH % Cfg<DH>::kPV == 0, "P.V must be whole wgmma products");
 };
@@ -171,20 +193,38 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// whether a query at position qp sees a key at position kp
+__device__ __forceinline__ bool sees(int qp, int kp, int causal,
+                                     int window) {
+  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+}
+
+// min (or max) of v over a warp, then into *dst over the block
+__device__ __forceinline__ void block_min(int* dst, int v) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicMin(dst, v);
+}
+__device__ __forceinline__ void block_max(int* dst, int v) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicMax(dst, v);
+}
+
 // barrier 1 over the consumer warpgroups only (the producer never joins)
 template <int N>
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
 }
 
-template <typename T, int DH, bool kLse>
-__global__ void __launch_bounds__(Layout<T, DH>::kThreads, 1)
+template <typename T, int DH, bool kLse, bool kPos>
+__global__ void __launch_bounds__(Layout<T, DH, kPos>::kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
                        const __grid_constant__ CUtensorMap tmap_v,
                        const T* __restrict__ q, T* __restrict__ o,
-                       float* __restrict__ lse, int Sq, int Skv, int H,
-                       int KH, int causal, int window, float scale) {
-  using L = Layout<T, DH>;
+                       float* __restrict__ lse,
+                       const int* __restrict__ q_pos,
+                       const int* __restrict__ kv_pos, int Sq, int Skv,
+                       int H, int KH, int causal, int window, float scale) {
+  using L = Layout<T, DH, kPos>;
   constexpr int kKeys = L::kKeys, kRows = L::kRows, kStages = L::kStages;
   constexpr int kCons = L::kConsumers, kPV = Cfg<DH>::kPV;
   // K's column groups of 4 are rotated within runs of kRot (8, or 4 at Dh
@@ -206,11 +246,49 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const int row0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
   // keys these rows can see: K/V tiles outside the band are skipped
   const int q_lo = row0 / G, q_hi = (min(row0 + kRows, n_rows) - 1) / G;
-  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
-  const int k_end = causal ? min(Skv, q_hi + 1) : Skv;
-  const int t_begin = k_begin / kKeys;
-  const int t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
   const int tid = threadIdx.x;
+  int t_begin, t_end;
+  // explicit positions: bounds {least, greatest query position, first,
+  // last key any row may see}, then the tile's key positions
+  int* const bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+  int* const tile_pos = bounds + 4;
+  if constexpr (kPos) {
+    if (tid == 0) {
+      bounds[0] = bounds[2] = INT_MAX;
+      bounds[1] = bounds[3] = INT_MIN;
+    }
+    __syncthreads();
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int i = q_lo + tid; i <= q_hi; i += L::kThreads) {
+      lo = min(lo, q_pos[i]);
+      hi = max(hi, q_pos[i]);
+    }
+    block_min(bounds, lo);
+    block_max(bounds + 1, hi);
+    __syncthreads();
+    const int qmin = bounds[0], qmax = bounds[1];
+    lo = INT_MAX;
+    hi = INT_MIN;
+    for (int j = tid; j < Skv; j += L::kThreads) {
+      const int kp = kv_pos[j];
+      if (kp >= 0 && (!causal || kp <= qmax) &&
+          (window <= 0 || kp > qmin - window)) {
+        lo = min(lo, j);
+        hi = max(hi, j);
+      }
+    }
+    block_min(bounds + 2, lo);
+    block_max(bounds + 3, hi);
+    __syncthreads();
+    const bool any = bounds[2] <= bounds[3];
+    t_begin = any ? bounds[2] / kKeys : 0;
+    t_end = any ? bounds[3] / kKeys + 1 : 0;
+  } else {
+    const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+    const int k_end = causal ? min(Skv, q_hi + 1) : Skv;
+    t_begin = k_begin / kKeys;
+    t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
+  }
 
   if (tid == 0) {
 #pragma unroll
@@ -266,6 +344,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const int hiB = okB ? (causal ? min(posB, Skv - 1) : Skv - 1) : -1;
   const int loA = window > 0 ? posA - window + 1 : 0;
   const int loB = window > 0 ? posB - window + 1 : 0;
+  int qpA = 0, qpB = 0;  // explicit positions of the two rows
+  if constexpr (kPos) {
+    qpA = okA ? q_pos[posA] : 0;
+    qpB = okB ? q_pos[posB] : 0;
+  }
   const uint32_t qb = base + L::kQb + wg * 2048, qs = base + L::kQs + wg * 2048;
   const uint32_t kb = base + L::kKb, ks = base + L::kKs;
   const uint32_t vb = base + L::kVb, vs = base + L::kVs;
@@ -295,6 +378,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
       if constexpr (kSplitInputs)
         *reinterpret_cast<float4*>(smem + L::kKs + off) = lo;
     }
+    if constexpr (kPos)  // the tile's key positions, -1 past Skv
+      if (tid < kKeys)
+        tile_pos[tid] = key0 + tid < Skv ? kv_pos[key0 + tid] : -1;
     // V transposed (row n = head dim, contraction over key positions),
     // split. Position p of each group of 8 keys holds key 2*(p%4) + p/4, so
     // the S fragment a thread holds (keys 2t, 2t+1) is its A fragment of
@@ -354,10 +440,17 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = key0 + 8 * j + 2 * t4 + e;
-        sc[4 * j + e] =
-            key >= loA && key <= hiA ? sc[4 * j + e] * scale : -INFINITY;
-        sc[4 * j + 2 + e] =
-            key >= loB && key <= hiB ? sc[4 * j + 2 + e] * scale : -INFINITY;
+        bool inA, inB;
+        if constexpr (kPos) {
+          const int kp = tile_pos[8 * j + 2 * t4 + e];
+          inA = okA && sees(qpA, kp, causal, window);
+          inB = okB && sees(qpB, kp, causal, window);
+        } else {
+          inA = key >= loA && key <= hiA;
+          inB = key >= loB && key <= hiB;
+        }
+        sc[4 * j + e] = inA ? sc[4 * j + e] * scale : -INFINITY;
+        sc[4 * j + 2 + e] = inB ? sc[4 * j + 2 + e] * scale : -INFINITY;
         mxA = fmaxf(mxA, sc[4 * j + e]);
         mxB = fmaxf(mxB, sc[4 * j + 2 + e]);
       }
@@ -497,15 +590,15 @@ int encode(CUtensorMap* map, const void* base, int B, int Skv, int KH,
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
-template <typename T, int DH, bool kLse>
+template <typename T, int DH, bool kLse, bool kPos>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Sq, int Skv, int H, int KH, int causal, int window,
-           cudaStream_t st) {
-  using L = Layout<T, DH>;
+           const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
+           int H, int KH, int causal, int window, cudaStream_t st) {
+  using L = Layout<T, DH, kPos>;
   static bool configured = false;  // the attribute holds per function
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, DH, kLse>,
+        flash_attention_kernel<T, DH, kLse, kPos>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L::kBytes));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -521,26 +614,42 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (rc != 0) return rc;
   const dim3 grid(B * KH, static_cast<unsigned>(tiles));
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
-  flash_attention_kernel<T, DH, kLse><<<grid, L::kThreads, L::kBytes, st>>>(
-      map_k, map_v, static_cast<const T*>(q), static_cast<T*>(o), lse, Sq,
-      Skv, H, KH, causal, window, scale);
+  flash_attention_kernel<T, DH, kLse, kPos>
+      <<<grid, L::kThreads, L::kBytes, st>>>(
+          map_k, map_v, static_cast<const T*>(q), static_cast<T*>(o), lse,
+          q_pos, kv_pos, Sq, Skv, H, KH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One head size: the training instantiation when lse is set (fp32 only),
-// else the serving one in q's type.
+// One head size and mask source: the training instantiation when lse is
+// set (fp32 only), else the serving one in q's type.
+template <int DH, bool kPos>
+int dispatch_type(const void* q, const void* k, const void* v, void* o,
+                  float* lse, const int* q_pos, const int* kv_pos, int B,
+                  int Sq, int Skv, int H, int KH, int causal, int window,
+                  int is_bf16, cudaStream_t st) {
+  if (lse != nullptr)
+    return launch<float, DH, true, kPos>(q, k, v, o, lse, q_pos, kv_pos, B,
+                                         Sq, Skv, H, KH, causal, window, st);
+  if (is_bf16)
+    return launch<__nv_bfloat16, DH, false, kPos>(q, k, v, o, lse, q_pos,
+                                                  kv_pos, B, Sq, Skv, H, KH,
+                                                  causal, window, st);
+  return launch<float, DH, false, kPos>(q, k, v, o, lse, q_pos, kv_pos, B,
+                                        Sq, Skv, H, KH, causal, window, st);
+}
+
+// The position instantiations when q_pos is set, else the index ones.
 template <int DH>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int Sq, int Skv, int H, int KH, int causal,
-             int window, int is_bf16, cudaStream_t st) {
-  if (lse != nullptr)
-    return launch<float, DH, true>(q, k, v, o, lse, B, Sq, Skv, H, KH,
-                                   causal, window, st);
-  if (is_bf16)
-    return launch<__nv_bfloat16, DH, false>(q, k, v, o, lse, B, Sq, Skv, H,
-                                            KH, causal, window, st);
-  return launch<float, DH, false>(q, k, v, o, lse, B, Sq, Skv, H, KH, causal,
-                                  window, st);
+             float* lse, const int* q_pos, const int* kv_pos, int B, int Sq,
+             int Skv, int H, int KH, int causal, int window, int is_bf16,
+             cudaStream_t st) {
+  if (q_pos != nullptr)
+    return dispatch_type<DH, true>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
+                                   Skv, H, KH, causal, window, is_bf16, st);
+  return dispatch_type<DH, false>(q, k, v, o, lse, q_pos, kv_pos, B, Sq, Skv,
+                                  H, KH, causal, window, is_bf16, st);
 }
 
 }  // namespace
@@ -551,31 +660,38 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 // if a tensor map cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv,
 // KH, Dh); contiguous, of one type (fp32, or bf16 when is_bf16), 16-byte
 // aligned (TMA's rule). lse: null (serving), or (B, H, Sq) fp32 written by
-// the training instantiation (fp32 inputs only).
+// the training instantiation (fp32 inputs only). q_pos, kv_pos: both null
+// (mask by index), or (Sq,) and (Skv,) contiguous int32 (mask by them; a
+// cudaErrorInvalidValue if only one is set).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
+                                      const void* q_pos, const void* kv_pos,
                                       int B, int Sq, int Skv, int H, int KH,
                                       int Dh, int causal, int window,
                                       int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (l != nullptr && is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if ((q_pos == nullptr) != (kv_pos == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* qp = static_cast<const int*>(q_pos);
+  const int* kp = static_cast<const int*>(kv_pos);
   switch (Dh) {
     case 48:
-      return dispatch<48>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
-                          is_bf16, st);
+      return dispatch<48>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
+                          window, is_bf16, st);
     case 64:
-      return dispatch<64>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
-                          is_bf16, st);
+      return dispatch<64>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
+                          window, is_bf16, st);
     case 96:
-      return dispatch<96>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
-                          is_bf16, st);
+      return dispatch<96>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
+                          window, is_bf16, st);
     case 112:
-      return dispatch<112>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
-                           is_bf16, st);
+      return dispatch<112>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
+                           window, is_bf16, st);
     case 128:
-      return dispatch<128>(q, k, v, o, l, B, Sq, Skv, H, KH, causal, window,
-                           is_bf16, st);
+      return dispatch<128>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
+                           window, is_bf16, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,10 +17,13 @@
 //   dP_ij = dO_i . v_j,   dS_ij = P_ij (dP_ij - D_i)
 //   dq_i  = scale * sum_j dS_ij k_j
 //   dk_j  = scale * sum_{g, i} dS_ij q_i,    dv_j = sum_{g, i} P_ij dO_i
-// with the forward's masks: causal keeps j <= i, a window keeps
-// j > i - window, positions counted from 0 on both sides, ragged Sq and
-// Skv masked here. A fully masked row has lse = +inf and o = 0, so its P,
-// D and dS are 0 and it adds nothing to any gradient.
+// with the forward's masks: causal keeps pos_j <= pos_i, a window keeps
+// pos_j > pos_i - window, a key at a negative position is invalid, with
+// the indices as positions (counted from 0 on both sides) or, in the
+// position instantiations (template flag kPos), explicit q_pos and kv_pos
+// int32; ragged Sq and Skv masked here. A fully masked row has lse = +inf
+// and o = 0, so its P, D and dS are 0 and it adds nothing to any
+// gradient.
 //
 // Four kernels, no floating-point atomics: every output element is summed
 // in one fixed order, so two runs give the same bits.
@@ -99,10 +102,23 @@
 //   6.3 MB at the training shape, held in L2) are summed by (r). (c)'s
 //   grid is (query tile, head, batch) with the last query tiles (the most
 //   keys under causal) first, as the forward orders its rows.
+// - Explicit positions (kPos): no index band bounds the steps, and the
+//   positions may tie and need not be sorted. A dK/dV block first reads
+//   its keys' least and greatest valid position, then every query's, and
+//   walks the query tiles from the first to the last that holds a query
+//   that may see one of its keys; a dQ block likewise reads its rows'
+//   least and greatest position and walks the key tiles from the first to
+//   the last that holds a key one of its rows may see. Within those, each
+//   element is masked by its positions (the keys' in registers, the
+//   queries' read with plain loads; no cp.async, so no alignment rule for
+//   them). For an arange these are the index band's tiles, and with the
+//   wrapper's plan (sized from the index bounds) the gradients are the
+//   index instantiations' bit for bit.
 // Left for later: computing S and dP once for both dK/dV and dQ, a deeper
 // cp.async ring (shared memory is full at Dh 64), folding D and the reduce
 // into the other kernels, and bf16 (the reference trains in fp32).
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -127,8 +143,9 @@ template <> struct Cfg<128> {
 
 // (b)'s shared memory, in bytes from a 128-aligned base: K and V, then
 // each warpgroup's Q, Q^T, dO, dO^T, raw Q and dO and two sets of lse and
-// D. Each split operand is a big half then a small half, `half` bytes on.
-template <int DH>
+// D, then, with explicit positions, 4 bounds. Each split operand is a big
+// half then a small half, `half` bytes on.
+template <int DH, bool kPos>
 struct DkdvSmem {
   static constexpr int kWG = Cfg<DH>::kWG, kQT = Cfg<DH>::kQ;
   static constexpr uint32_t kKV = kKeyTile * DH * 4;  // K or V, one half
@@ -138,12 +155,13 @@ struct DkdvSmem {
                             kOt = 6 * kQh, kRawQ = 8 * kQh, kRawO = 9 * kQh,
                             kStats = 10 * kQh;        // within a group
   static constexpr uint32_t kGroup = kStats + 2 * 2 * kQT * 4;
-  static constexpr uint32_t kBytes = kGroup0 + kWG * kGroup + 128;
+  static constexpr uint32_t kPosAt = kGroup0 + kWG * kGroup;
+  static constexpr uint32_t kBytes = kPosAt + (kPos ? 16 : 0) + 128;
 };
 
 // (c)'s shared memory: Q and dO, then each warpgroup's K, V, K^T and raw
-// K and V
-template <int DH>
+// K and V, then, with explicit positions, 4 bounds
+template <int DH, bool kPos>
 struct DqSmem {
   static constexpr int kWG = Cfg<DH>::kWG, kKT = Cfg<DH>::kK;
   static constexpr uint32_t kQh = kRowTile * DH * 4;  // Q or dO, one half
@@ -152,7 +170,8 @@ struct DqSmem {
   static constexpr uint32_t kK = 0, kV = 2 * kKh, kKt = 4 * kKh,
                             kRawK = 6 * kKh, kRawV = 7 * kKh;  // in a group
   static constexpr uint32_t kGroup = 8 * kKh;
-  static constexpr uint32_t kBytes = kGroup0 + kWG * kGroup + 128;
+  static constexpr uint32_t kPosAt = kGroup0 + kWG * kGroup;
+  static constexpr uint32_t kBytes = kPosAt + (kPos ? 16 : 0) + 128;
 };
 
 __device__ __forceinline__ bool visible(int i, int j, int Sq, int Skv,
@@ -168,6 +187,44 @@ __device__ __forceinline__ bool all_visible(int i_lo, int i_hi, int j_lo,
                                             int causal, int window) {
   return i_hi < Sq && j_hi < Skv && (!causal || j_hi <= i_lo) &&
          (window <= 0 || j_lo > i_hi - window);
+}
+
+// whether a query at position qp sees a key at position kp
+__device__ __forceinline__ bool sees(int qp, int kp, int causal,
+                                     int window) {
+  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+}
+
+// min (or max) of v over a warp, then into *dst over the block
+__device__ __forceinline__ void block_min(int* dst, int v) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicMin(dst, v);
+}
+__device__ __forceinline__ void block_max(int* dst, int v) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicMax(dst, v);
+}
+
+// With explicit positions: the first and last index in [0, n) whose
+// position p satisfies may_see(p), by the block's T threads, through the
+// 4 ints at `bounds` (whose first two the caller has set). Returns false
+// if there is none.
+template <int T, typename Pred>
+__device__ __forceinline__ bool index_range(const int* __restrict__ pos,
+                                            int n, Pred may_see, int* bounds,
+                                            int& first, int& last) {
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int i = threadIdx.x; i < n; i += T)
+    if (may_see(pos[i])) {
+      lo = min(lo, i);
+      hi = max(hi, i);
+    }
+  block_min(bounds + 2, lo);
+  block_max(bounds + 3, hi);
+  __syncthreads();
+  first = bounds[2];
+  last = bounds[3];
+  return first <= last;
 }
 
 // a barrier over the 128 threads of warpgroup wg only (ids 1, 2, ...)
@@ -381,17 +438,18 @@ attn_bwd_dot_kernel(const float* __restrict__ dout,
   }
 }
 
-template <int DH>
+template <int DH, bool kPos>
 __global__ void __launch_bounds__(Cfg<DH>::kWG * kWGThreads, 1)
 attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ D, float* __restrict__ dk,
-                     float* __restrict__ dv, int B, int Sq, int Skv, int H,
-                     int KH, int causal, int window, int splits,
+                     float* __restrict__ dv, const int* __restrict__ q_pos,
+                     const int* __restrict__ kv_pos, int B, int Sq, int Skv,
+                     int H, int KH, int causal, int window, int splits,
                      int64_t split_stride, float scale) {
-  using L = DkdvSmem<DH>;
+  using L = DkdvSmem<DH, kPos>;
   constexpr int QT = L::kQT, WG = L::kWG;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -415,10 +473,39 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // (g, query tile) with g slowest, this block takes [s_lo, s_hi) and
   // warpgroup wg every WG-th of them from s_lo + wg
   const int k_last = min(k0 + kKeyTile, Skv) - 1;
-  const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
-  const int qt0 = q_begin / QT;
-  const int nq = q_end > q_begin ? (q_end + QT - 1) / QT - qt0 : 0;
+  int qt0, nq;
+  if constexpr (kPos) {  // bounds: {least, greatest key position, first,
+                         // last query that may see one}
+    int* bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+    if (threadIdx.x == 0) {
+      bounds[0] = bounds[2] = INT_MAX;
+      bounds[1] = bounds[3] = INT_MIN;
+    }
+    __syncthreads();
+    const int j = k0 + static_cast<int>(threadIdx.x);
+    const int kp = j <= k_last && threadIdx.x < kKeyTile ? kv_pos[j] : -1;
+    block_min(bounds, kp >= 0 ? kp : INT_MAX);
+    block_max(bounds + 1, kp);
+    __syncthreads();
+    const int kp_min = bounds[0], kp_max = bounds[1];
+    int first, last;
+    const bool any =
+        kp_min <= kp_max &&
+        index_range<WG * kWGThreads>(
+            q_pos, Sq,
+            [=](int qp) {
+              return (!causal || kp_min <= qp) &&
+                     (window <= 0 || kp_max > qp - window);
+            },
+            bounds, first, last);
+    qt0 = any ? first / QT : 0;
+    nq = any ? last / QT + 1 - qt0 : 0;
+  } else {
+    const int q_begin = causal ? k0 : 0;
+    const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+    qt0 = q_begin / QT;
+    nq = q_end > q_begin ? (q_end + QT - 1) / QT - qt0 : 0;
+  }
   const int64_t n = static_cast<int64_t>(G) * nq;
   const int s_lo = static_cast<int>(n * c / splits);
   const int s_hi = static_cast<int>(n * (c + 1) / splits);
@@ -456,6 +543,11 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // this thread's two key rows of the accumulators
   const int warp = tid / 32, lane = tid % 32, t4 = lane % 4;
   const int keyA = k0 + warp * 16 + lane / 4, keyB = keyA + 8;
+  int kpA = -1, kpB = -1;  // their explicit positions (-1 past Skv)
+  if constexpr (kPos) {
+    kpA = keyA < Skv ? kv_pos[keyA] : -1;
+    kpB = keyB < Skv ? kv_pos[keyB] : -1;
+  }
   float dk_acc[DH / 2], dv_acc[DH / 2];
 #pragma unroll
   for (int x = 0; x < DH / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
@@ -495,8 +587,9 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // P^T on the fragments, split: st[4j + e] is (keyA, query q0 + 8j +
     // 2t4 + e) and st[4j + 2 + e] is (keyB, the same query)
-    const bool all = all_visible(q0, q0 + QT - 1, k0, k0 + kKeyTile - 1, Sq,
-                                 Skv, causal, window);
+    const bool all = !kPos && all_visible(q0, q0 + QT - 1, k0,
+                                          k0 + kKeyTile - 1, Sq, Skv, causal,
+                                          window);
     uint32_t pb[QT / 2], ps[QT / 2];
 #pragma unroll
     for (int j = 0; j < QT / 8; ++j)
@@ -504,13 +597,17 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * t4 + e, qi = q0 + col;
         const float l = lse_s[col];
+        int qp = 0;
+        if constexpr (kPos) qp = qi < Sq ? q_pos[qi] : 0;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int x = 4 * j + 2 * r + e;
-          const float p =
-              all || visible(qi, r ? keyB : keyA, Sq, Skv, causal, window)
-                  ? expf(st[x] * scale - l)
-                  : 0.f;
+          bool in;
+          if constexpr (kPos)
+            in = qi < Sq && sees(qp, r ? kpB : kpA, causal, window);
+          else
+            in = all || visible(qi, r ? keyB : keyA, Sq, Skv, causal, window);
+          const float p = in ? expf(st[x] * scale - l) : 0.f;
           pb[x] = tf32_int(p);
           ps[x] = tf32_int(p - __uint_as_float(pb[x]));
         }
@@ -587,16 +684,17 @@ attn_bwd_reduce_kernel(const float4* __restrict__ part,
   }
 }
 
-template <int DH>
+template <int DH, bool kPos>
 __global__ void __launch_bounds__(Cfg<DH>::kWG * kWGThreads, 1)
 attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ D, float* __restrict__ dq, int B,
-                   int Sq, int Skv, int H, int KH, int causal, int window,
-                   float scale) {
-  using L = DqSmem<DH>;
+                   const float* __restrict__ D, float* __restrict__ dq,
+                   const int* __restrict__ q_pos,
+                   const int* __restrict__ kv_pos, int B, int Sq, int Skv,
+                   int H, int KH, int causal, int window, float scale) {
+  using L = DqSmem<DH, kPos>;
   constexpr int KT = L::kKT, WG = L::kWG;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -619,10 +717,37 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the key tiles that rows [q0, q_last] can see; warpgroup wg takes every
   // WG-th from the wg-th
   const int q_last = min(q0 + kRowTile, Sq) - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(Skv, q_last + 1) : Skv;
-  const int kt0 = k_begin / KT;
-  const int nk = k_end > k_begin ? (k_end + KT - 1) / KT - kt0 : 0;
+  int kt0, nk;
+  if constexpr (kPos) {  // bounds: {least, greatest row position, first,
+                         // last key one of them may see}
+    int* bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+    if (threadIdx.x == 0) {
+      bounds[0] = bounds[2] = INT_MAX;
+      bounds[1] = bounds[3] = INT_MIN;
+    }
+    __syncthreads();
+    const int i = q0 + static_cast<int>(threadIdx.x);
+    const bool mine = i <= q_last && threadIdx.x < kRowTile;
+    block_min(bounds, mine ? q_pos[i] : INT_MAX);
+    block_max(bounds + 1, mine ? q_pos[i] : INT_MIN);
+    __syncthreads();
+    const int qp_min = bounds[0], qp_max = bounds[1];
+    int first, last;
+    const bool any = index_range<WG * kWGThreads>(
+        kv_pos, Skv,
+        [=](int kp) {
+          return kp >= 0 && (!causal || kp <= qp_max) &&
+                 (window <= 0 || kp > qp_min - window);
+        },
+        bounds, first, last);
+    kt0 = any ? first / KT : 0;
+    nk = any ? last / KT + 1 - kt0 : 0;
+  } else {
+    const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int k_end = causal ? min(Skv, q_last + 1) : Skv;
+    kt0 = k_begin / KT;
+    nk = k_end > k_begin ? (k_end + KT - 1) / KT - kt0 : 0;
+  }
   const int steps = nk > wg ? (nk - wg + WG - 1) / WG : 0;
 
   const int64_t kv_batch = static_cast<int64_t>(b) * Skv;
@@ -652,6 +777,11 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float lseB = rowB < Sq ? lse[bh + rowB] : 0.f;
   const float dA = rowA < Sq ? D[bh + rowA] : 0.f;
   const float dB = rowB < Sq ? D[bh + rowB] : 0.f;
+  int qpA = 0, qpB = 0;  // their explicit positions
+  if constexpr (kPos) {
+    qpA = rowA < Sq ? q_pos[rowA] : 0;
+    qpB = rowB < Sq ? q_pos[rowB] : 0;
+  }
   float dq_acc[DH / 2];
 #pragma unroll
   for (int x = 0; x < DH / 2; ++x) dq_acc[x] = 0.f;
@@ -684,19 +814,27 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // P, then dS, on the fragments: sc[4j + e] is (rowA, key key0 + 8j +
     // 2t4 + e) and sc[4j + 2 + e] is (rowB, the same key)
-    const bool all = all_visible(q0, q0 + kRowTile - 1, key0, key0 + KT - 1,
-                                 Sq, Skv, causal, window);
+    const bool all = !kPos && all_visible(q0, q0 + kRowTile - 1, key0,
+                                          key0 + KT - 1, Sq, Skv, causal,
+                                          window);
 #pragma unroll
     for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = key0 + 8 * j + 2 * t4 + e;
+        int kp = -1;
+        if constexpr (kPos) kp = key < Skv ? kv_pos[key] : -1;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int x = 4 * j + 2 * r + e;
-          sc[x] = all || visible(r ? rowB : rowA, key, Sq, Skv, causal, window)
-                      ? expf(sc[x] * scale - (r ? lseB : lseA))
-                      : 0.f;
+          bool in;
+          if constexpr (kPos)
+            in = (r ? rowB : rowA) < Sq &&
+                 sees(r ? qpB : qpA, kp, causal, window);
+          else
+            in = all ||
+                 visible(r ? rowB : rowA, key, Sq, Skv, causal, window);
+          sc[x] = in ? expf(sc[x] * scale - (r ? lseB : lseA)) : 0.f;
         }
       }
     wgmma_wait<0>();
@@ -745,44 +883,75 @@ int configure(Kernel kernel, int bytes, bool& done) {
   return 0;
 }
 
-template <int DH>
+template <int DH, bool kPos>
 int launch_dkdv(const float* q, const float* k, const float* v,
                 const float* dout, const float* lse, const float* D,
-                float* dk, float* dv, int B, int Sq, int Skv, int H, int KH,
-                int causal, int window, int splits, float scale,
-                cudaStream_t st) {
+                float* dk, float* dv, const int* q_pos, const int* kv_pos,
+                int B, int Sq, int Skv, int H, int KH, int causal, int window,
+                int splits, float scale, cudaStream_t st) {
   static bool done = false;
-  const int bytes = DkdvSmem<DH>::kBytes;
-  const int rc = configure(attn_bwd_dkdv_kernel<DH>, bytes, done);
+  const int bytes = DkdvSmem<DH, kPos>::kBytes;
+  const int rc = configure(attn_bwd_dkdv_kernel<DH, kPos>, bytes, done);
   if (rc != 0) return rc;
   const int64_t blocks =
       static_cast<int64_t>((Skv + kKeyTile - 1) / kKeyTile) * B * KH * splits;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t stride =
       splits > 1 ? static_cast<int64_t>(B) * Skv * KH * DH : 0;
-  attn_bwd_dkdv_kernel<DH><<<static_cast<unsigned>(blocks),
-                             Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
-      q, k, v, dout, lse, D, dk, dv, B, Sq, Skv, H, KH, causal, window,
-      splits, stride, scale);
+  attn_bwd_dkdv_kernel<DH, kPos><<<static_cast<unsigned>(blocks),
+                                   Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
+      q, k, v, dout, lse, D, dk, dv, q_pos, kv_pos, B, Sq, Skv, H, KH,
+      causal, window, splits, stride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
+template <int DH, bool kPos>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* lse, const float* D, float* dq,
-              int B, int Sq, int Skv, int H, int KH, int causal, int window,
-              float scale, cudaStream_t st) {
+              const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
+              int H, int KH, int causal, int window, float scale,
+              cudaStream_t st) {
   static bool done = false;
-  const int bytes = DqSmem<DH>::kBytes;
-  const int rc = configure(attn_bwd_dq_kernel<DH>, bytes, done);
+  const int bytes = DqSmem<DH, kPos>::kBytes;
+  const int rc = configure(attn_bwd_dq_kernel<DH, kPos>, bytes, done);
   if (rc != 0) return rc;
   const int64_t blocks =
       static_cast<int64_t>((Sq + kRowTile - 1) / kRowTile) * B * H;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  attn_bwd_dq_kernel<DH><<<static_cast<unsigned>(blocks),
-                           Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
-      q, k, v, dout, lse, D, dq, B, Sq, Skv, H, KH, causal, window, scale);
+  attn_bwd_dq_kernel<DH, kPos><<<static_cast<unsigned>(blocks),
+                                 Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
+      q, k, v, dout, lse, D, dq, q_pos, kv_pos, B, Sq, Skv, H, KH, causal,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// (b) at one head size, the position instantiation when q_pos is set
+template <int DH>
+int dkdv_at(const float* q, const float* k, const float* v,
+            const float* dout, const float* lse, const float* D, float* dk,
+            float* dv, const int* q_pos, const int* kv_pos, int B, int Sq,
+            int Skv, int H, int KH, int causal, int window, int splits,
+            float scale, cudaStream_t st) {
+  if (q_pos != nullptr)
+    return launch_dkdv<DH, true>(q, k, v, dout, lse, D, dk, dv, q_pos,
+                                 kv_pos, B, Sq, Skv, H, KH, causal, window,
+                                 splits, scale, st);
+  return launch_dkdv<DH, false>(q, k, v, dout, lse, D, dk, dv, q_pos, kv_pos,
+                                B, Sq, Skv, H, KH, causal, window, splits,
+                                scale, st);
+}
+
+// (c) at one head size, the position instantiation when q_pos is set
+template <int DH>
+int dq_at(const float* q, const float* k, const float* v, const float* dout,
+          const float* lse, const float* D, float* dq, const int* q_pos,
+          const int* kv_pos, int B, int Sq, int Skv, int H, int KH,
+          int causal, int window, float scale, cudaStream_t st) {
+  if (q_pos != nullptr)
+    return launch_dq<DH, true>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
+                               Sq, Skv, H, KH, causal, window, scale, st);
+  return launch_dq<DH, false>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
+                              Sq, Skv, H, KH, causal, window, scale, st);
 }
 
 bool shape_ok(int B, int Sq, int Skv, int H, int KH, int Dh) {
@@ -840,26 +1009,31 @@ extern "C" int attn_bwd_dot_launch(const void* dout, const void* out,
 }
 
 // (b) dk, dv (B, Skv, KH, Dh) with splits = 1; with splits > 1 dk and dv
-// are (splits, B, Skv, KH, Dh) partials for (r)
+// are (splits, B, Skv, KH, Dh) partials for (r). q_pos, kv_pos: both null
+// (mask by index) or (Sq,) and (Skv,) int32 (mask by them).
 extern "C" int attn_bwd_dkdv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* D, void* dk,
-                                    void* dv, int B, int Sq, int Skv, int H,
-                                    int KH, int Dh, int causal, int window,
-                                    int splits, void* stream) {
-  if (!shape_ok(B, Sq, Skv, H, KH, Dh) || splits < 1)
+                                    void* dv, const void* q_pos,
+                                    const void* kv_pos, int B, int Sq,
+                                    int Skv, int H, int KH, int Dh,
+                                    int causal, int window, int splits,
+                                    void* stream) {
+  if (!shape_ok(B, Sq, Skv, H, KH, Dh) || splits < 1 ||
+      (q_pos == nullptr) != (kv_pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto i = [](const void* p) { return static_cast<const int*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 64)
-    return launch_dkdv<64>(f(q), f(k), f(v), f(dout), f(lse), f(D),
-                           static_cast<float*>(dk), static_cast<float*>(dv),
-                           B, Sq, Skv, H, KH, causal, window, splits,
-                           scale_of(Dh), st);
-  return launch_dkdv<128>(f(q), f(k), f(v), f(dout), f(lse), f(D),
-                          static_cast<float*>(dk), static_cast<float*>(dv), B,
-                          Sq, Skv, H, KH, causal, window, splits,
-                          scale_of(Dh), st);
+    return dkdv_at<64>(f(q), f(k), f(v), f(dout), f(lse), f(D),
+                       static_cast<float*>(dk), static_cast<float*>(dv),
+                       i(q_pos), i(kv_pos), B, Sq, Skv, H, KH, causal, window,
+                       splits, scale_of(Dh), st);
+  return dkdv_at<128>(f(q), f(k), f(v), f(dout), f(lse), f(D),
+                      static_cast<float*>(dk), static_cast<float*>(dv),
+                      i(q_pos), i(kv_pos), B, Sq, Skv, H, KH, causal, window,
+                      splits, scale_of(Dh), st);
 }
 
 // (r) dk, dv (n floats each, n % 4 == 0) from part (2, splits, n): dK's
@@ -878,21 +1052,24 @@ extern "C" int attn_bwd_reduce_launch(const void* part, void* dk, void* dv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (c) dq (B, Sq, H, Dh)
+// (c) dq (B, Sq, H, Dh); q_pos, kv_pos as for (b)
 extern "C" int attn_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
-                                  const void* D, void* dq, int B, int Sq,
-                                  int Skv, int H, int KH, int Dh, int causal,
+                                  const void* D, void* dq, const void* q_pos,
+                                  const void* kv_pos, int B, int Sq, int Skv,
+                                  int H, int KH, int Dh, int causal,
                                   int window, void* stream) {
-  if (!shape_ok(B, Sq, Skv, H, KH, Dh))
+  if (!shape_ok(B, Sq, Skv, H, KH, Dh) ||
+      (q_pos == nullptr) != (kv_pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto i = [](const void* p) { return static_cast<const int*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 64)
-    return launch_dq<64>(f(q), f(k), f(v), f(dout), f(lse), f(D),
-                         static_cast<float*>(dq), B, Sq, Skv, H, KH, causal,
-                         window, scale_of(Dh), st);
-  return launch_dq<128>(f(q), f(k), f(v), f(dout), f(lse), f(D),
-                        static_cast<float*>(dq), B, Sq, Skv, H, KH, causal,
-                        window, scale_of(Dh), st);
+    return dq_at<64>(f(q), f(k), f(v), f(dout), f(lse), f(D),
+                     static_cast<float*>(dq), i(q_pos), i(kv_pos), B, Sq,
+                     Skv, H, KH, causal, window, scale_of(Dh), st);
+  return dq_at<128>(f(q), f(k), f(v), f(dout), f(lse), f(D),
+                    static_cast<float*>(dq), i(q_pos), i(kv_pos), B, Sq, Skv,
+                    H, KH, causal, window, scale_of(Dh), st);
 }

@@ -3,14 +3,23 @@
 :func:`flash_attention` takes q (B, Sq, H, Dh) and k, v (B, Skv, KH, Dh)
 in the reference's layout, with query head h = kh·G + g reading KV head
 kh (G = H / KH), and returns (B, Sq, H, Dh) in q's dtype. Masks come from
-positions counted from 0 on both sides: causal keeps k_pos <= q_pos, a
-window keeps k_pos > q_pos − window; a fully masked row gives 0. On a CUDA
-tensor it launches the hand-written kernel ``csrc/flash_attention.cu``
+positions: by default the indices, counted from 0 on both sides; or
+explicit ``q_positions`` (Sq,) and ``kv_positions`` (Skv,), shared by the
+batch, as the reference's model path hands its positions to
+``chunked_attention`` (an M-RoPE prompt's image patches share one
+temporal position, so they see each other both ways). Causal keeps k_pos
+<= q_pos, a window keeps k_pos > q_pos − window, a key at a negative
+position is invalid, and a row with no visible key gives 0 (and a zero
+gradient). On a CUDA tensor it launches the hand-written kernel
+``csrc/flash_attention.cu``
 (head dims :data:`FWD_HEAD_DIMS`); on a CPU tensor it runs the plain
 version :func:`~repro_torch.kernels.ref.flash_attention_ref` at any head
 dim, as the reference does, and autograd differentiates it. Ragged Sq and
 Skv are masked in the kernel, where the reference's Pallas kernel refuses
-them.
+them. With explicit positions it launches the kernels' position
+instantiations, which read each tile's positions and bound the tiles a
+block visits by the positions it holds, sorted or not; without them, the
+index instantiations, which read no positions.
 
 On a CUDA tensor that needs a gradient, the call goes through
 :class:`_FlashAttention`: its forward launches the kernel's training
@@ -38,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from types import MappingProxyType
+from typing import Optional
 
 import torch
 
@@ -48,6 +58,7 @@ FWD_HEAD_DIMS = (48, 64, 96, 112, 128)  # the forward kernel's head sizes
 BWD_HEAD_DIMS = (64, 128)               # the backward's (ROADMAP Queue B, B1)
 ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
+position_launches = 0        # of those, launches with explicit positions
 # backward kernel launches since the last reset, by kernel ("reduce" runs
 # only when the plan splits dK/dV)
 backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
@@ -70,7 +81,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("flash_attention")
         lib.flash_attention_launch.argtypes = [
-            ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         lib.flash_attention_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -83,10 +94,10 @@ def _bwd_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.attn_bwd_tiles.argtypes = [i] + [ctypes.POINTER(i)] * 5
         lib.attn_bwd_dot_launch.argtypes = [p] * 3 + [i] * 4 + [p]
-        lib.attn_bwd_dkdv_launch.argtypes = [p] * 8 + [i] * 9 + [p]
+        lib.attn_bwd_dkdv_launch.argtypes = [p] * 10 + [i] * 9 + [p]
         lib.attn_bwd_reduce_launch.argtypes = [p] * 3 + [ctypes.c_longlong,
                                                          i, p]
-        lib.attn_bwd_dq_launch.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.attn_bwd_dq_launch.argtypes = [p] * 9 + [i] * 8 + [p]
         for fn in (lib.attn_bwd_tiles, lib.attn_bwd_dot_launch,
                    lib.attn_bwd_dkdv_launch, lib.attn_bwd_reduce_launch,
                    lib.attn_bwd_dq_launch):
@@ -140,7 +151,11 @@ def backward_plan(B, Sq, Skv, H, KH, Dh, causal, window,
     2 splits ran 0.083 ms on an H100, 1 split 0.102, 3 0.085, 4 0.088, 6
     0.098: ``benchmarks/torch_kernel_times.py --bwd-splits``). Returns
     ``splits``, both grids' block counts and the kernels launched, in
-    order ("reduce" only when splits > 1)."""
+    order ("reduce" only when splits > 1). With explicit positions the
+    kernels find each block's tiles on the card from the positions; the
+    split is then sized from these index bounds, a guess at the work
+    (every split is correct), which equals the index path's for an
+    arange."""
     G = H // KH
     n_kt = -(-Skv // BWD_KEY_TILE)
     steps = max(G * dkdv_query_tiles(t, Sq, Skv, Dh, causal, window)[1]
@@ -155,15 +170,16 @@ def backward_plan(B, Sq, Skv, H, KH, Dh, causal, window,
 
 
 def reset_counts() -> None:
-    """Set :data:`launches` and every :data:`backward_launches` to 0."""
-    global launches
-    launches = 0
+    """Set :data:`launches`, :data:`position_launches` and every
+    :data:`backward_launches` to 0."""
+    global launches, position_launches
+    launches = position_launches = 0
     for name in backward_launches:
         backward_launches[name] = 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int) -> None:
+           window: int, q_positions=None, kv_positions=None) -> None:
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be (B, Sq, H, Dh) and k, v (B, Skv, KH, "
                          f"Dh); got {tuple(q.shape)}, {tuple(k.shape)}")
@@ -187,13 +203,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if (q_positions is None) != (kv_positions is None):
+        raise ValueError("give both q_positions and kv_positions, or "
+                         "neither")
+    if q_positions is None:
+        return
+    for name, t, n in (("q_positions", q_positions, Sq),
+                       ("kv_positions", kv_positions, k.shape[1])):
+        if t.shape != (n,):
+            raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
+        if t.dtype.is_floating_point or t.dtype.is_complex \
+                or t.dtype == torch.bool:
+            raise TypeError(f"{name} must be integer, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, window: int, with_lse: bool = False):
+            causal: bool, window: int, with_lse: bool = False, *,
+            q_positions: Optional[torch.Tensor] = None,
+            kv_positions: Optional[torch.Tensor] = None):
     """One forward launch. Returns the output, or (output, LSE) with
-    ``with_lse`` (the fp32 training instantiation)."""
-    global launches
+    ``with_lse`` (the fp32 training instantiation). Explicit positions are
+    contiguous int32 (:func:`_int32`)."""
+    global launches, position_launches
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -207,22 +240,41 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KH, Dh,
-        int(causal), int(window), int(q.dtype == torch.bfloat16), stream)
+        None if lse is None else lse.data_ptr(), *_pointers(q_positions,
+                                                           kv_positions),
+        B, Sq, Skv, H, KH, Dh, int(causal), int(window),
+        int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
+    position_launches += q_positions is not None
     return (out, lse) if with_lse else out
 
 
+def _int32(positions: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Positions as the kernels read them: contiguous int32."""
+    if positions is None:
+        return None
+    return positions.to(torch.int32).contiguous()
+
+
+def _pointers(q_positions, kv_positions):
+    """The positions' device pointers, or two nulls (the index path)."""
+    if q_positions is None:
+        return None, None
+    return q_positions.data_ptr(), kv_positions.data_ptr()
+
+
 def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
-                       splits: int | None = None):
+                       splits: int | None = None, *, q_positions=None,
+                       kv_positions=None):
     """Allocates the backward's outputs and scratch and returns ((dq, dk,
     dv), launches): the launches in order as (name, launch) pairs, each of
     which enqueues its kernel on the current stream, adds one to its count
     in :data:`backward_launches` and raises if the launch fails. ``splits``
-    overrides the plan's dK/dV split (to measure the rule)."""
+    overrides the plan's dK/dV split (to measure the rule). Explicit
+    positions are contiguous int32 (:func:`_int32`)."""
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     lib = _bwd_library()
@@ -233,10 +285,11 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
     d = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     masks = (int(causal), int(window))
+    pos = _pointers(q_positions, kv_positions)
     calls = {
         "dot": (lib.attn_bwd_dot_launch, (dout, out, d), (B, Sq, H, Dh)),
         "dq": (lib.attn_bwd_dq_launch, (q, k, v, dout, lse, d, dq),
-               (B, Sq, Skv, H, KH, Dh) + masks)}
+               pos + (B, Sq, Skv, H, KH, Dh) + masks)}
     if splits > 1:
         part = torch.empty((2, splits) + tuple(dk.shape), dtype=torch.float32,
                            device=dev)
@@ -247,7 +300,7 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
         partials = (dk, dv)
     calls["dkdv"] = (lib.attn_bwd_dkdv_launch,
                      (q, k, v, dout, lse, d) + partials,
-                     (B, Sq, Skv, H, KH, Dh) + masks + (splits,))
+                     pos + (B, Sq, Skv, H, KH, Dh) + masks + (splits,))
 
     def launcher(name):
         fn, tensors, ints = calls[name]
@@ -265,10 +318,12 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
     return (dq, dk, dv), [(n, launcher(n)) for n in order]
 
 
-def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int):
+def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int, *,
+                     q_positions=None, kv_positions=None):
     """The backward's launches; returns (dq, dk, dv)."""
     grads, launches_ = _backward_launches(q, k, v, out, lse, dout, causal,
-                                          window)
+                                          window, q_positions=q_positions,
+                                          kv_positions=kv_positions)
     for _, launch in launches_:
         launch()
     return grads
@@ -278,17 +333,21 @@ class _FlashAttention(torch.autograd.Function):
     """K3 on CUDA tensors with its hand-written backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, q_positions=None,
+                kv_positions=None):
         Dh = q.shape[3]
         if Dh not in BWD_HEAD_DIMS:
             raise ValueError(f"head dim {Dh}: the flash_attention backward "
                              f"takes {BWD_HEAD_DIMS} (ROADMAP Queue B, B1); "
                              "call it without gradients to serve")
         ctx.causal, ctx.window = causal, window
+        ctx.positions = dict(q_positions=q_positions,
+                             kv_positions=kv_positions)
         if q.dtype != torch.float32:       # the backward raises for it
             ctx.save_for_backward(q)
-            return _launch(q, k, v, causal, window)
-        out, lse = _launch(q, k, v, causal, window, with_lse=True)
+            return _launch(q, k, v, causal, window, **ctx.positions)
+        out, lse = _launch(q, k, v, causal, window, with_lse=True,
+                           **ctx.positions)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -303,26 +362,36 @@ class _FlashAttention(torch.autograd.Function):
         if dout.data_ptr() % ALIGN:      # cp.async reads 16-byte chunks
             dout = dout.clone()
         dq, dk, dv = _launch_backward(q, k, v, out, lse, dout, ctx.causal,
-                                      ctx.window)
-        return dq, dk, dv, None, None
+                                      ctx.window, **ctx.positions)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Attention of q over k, v (layouts above): the kernel for CUDA
-    tensors at a head dim of :data:`FWD_HEAD_DIMS`, differentiable through
-    the hand-written backward when any input needs a gradient (head dims
+                    causal: bool = True, window: int = 0,
+                    q_positions: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Attention of q over k, v (layouts and masks above; explicit
+    positions are integer (Sq,) and (Skv,) on q's device, both or
+    neither): the kernel for CUDA tensors at a head dim of
+    :data:`FWD_HEAD_DIMS`, differentiable through the hand-written
+    backward when any input needs a gradient (head dims
     :data:`BWD_HEAD_DIMS`); the plain version (autograd's own backward)
     for CPU tensors at any head dim; an error for anything else."""
-    _check(q, k, v, window)
+    _check(q, k, v, window, q_positions, kv_positions)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_positions=q_positions,
+                                   kv_positions=kv_positions)
     if q.shape[3] not in FWD_HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[3]}; the CUDA kernel takes "
                          f"{FWD_HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
+    q_positions, kv_positions = _int32(q_positions), _int32(kv_positions)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return _launch(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, q_positions,
+                                     kv_positions)
+    return _launch(q, k, v, causal, window, q_positions=q_positions,
+                   kv_positions=kv_positions)

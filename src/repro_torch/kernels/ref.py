@@ -15,16 +15,19 @@ import torch
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        q_positions: Optional[torch.Tensor] = None,
+                        kv_positions: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """q: (B, Sq, H, Dh); k/v: (B, Skv, KH, Dh), H % KH == 0; query head
     h = kh·G + g reads KV head kh. Full-matrix attention in fp32 (float64
-    for float64 inputs) with the masks taken from positions counted from 0
-    on both sides (causal: k_pos <= q_pos; window: k_pos > q_pos −
-    window); a fully masked row gives 0. Returns (B, Sq, H, Dh) in q's
-    dtype. Differentiable by autograd."""
+    for float64 inputs) with the masks of :func:`_attention_mask`; a fully
+    masked row gives 0. Returns (B, Sq, H, Dh) in q's dtype.
+    Differentiable by autograd."""
     B, Sq, H, Dh = q.shape
     s = _scores(q, k)
-    mask = _attention_mask(Sq, k.shape[1], causal, window, q.device)
+    mask = _attention_mask(Sq, k.shape[1], causal, window, q.device,
+                           q_positions, kv_positions)
     s.masked_fill_(~mask[None, :, None, None, :], -math.inf)
     # out of place: autograd's softmax backward reads the softmax's output
     p = torch.softmax(s, dim=-1).nan_to_num(nan=0.0)
@@ -33,11 +36,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _attention_mask(Sq: int, Skv: int, causal: bool, window: int,
-                    device) -> torch.Tensor:
-    """(Sq, Skv) bool: True where query i sees key j (positions from 0)."""
-    qpos = torch.arange(Sq, device=device)[:, None]
-    kpos = torch.arange(Skv, device=device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+                    device, q_positions: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """(Sq, Skv) bool: True where query i sees key j. Positions are
+    ``q_positions`` (Sq,) and ``kv_positions`` (Skv,), or the indices when
+    they are None. As the reference's ``chunked_attention`` takes them: a
+    key at a negative position is invalid, causal keeps k_pos <= q_pos and
+    a window keeps k_pos > q_pos − window."""
+    if q_positions is None:
+        qpos = torch.arange(Sq, device=device)[:, None]
+        kpos = torch.arange(Skv, device=device)[None, :]
+        mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    else:
+        qpos = q_positions.to(device=device, dtype=torch.long)[:, None]
+        kpos = kv_positions.to(device=device, dtype=torch.long)[None, :]
+        mask = (kpos >= 0).expand(Sq, Skv).clone()
     if causal:
         mask &= kpos <= qpos
     if window:
@@ -56,12 +70,16 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
-                      causal: bool = True, window: int = 0) -> torch.Tensor:
+                      causal: bool = True, window: int = 0,
+                      q_positions: Optional[torch.Tensor] = None,
+                      kv_positions: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """The row log-sum-exp of the scaled, masked scores, (B, H, Sq), with
     +inf for a fully masked row: what K3's training forward saves."""
     B, Sq, H, _ = q.shape
     s = _scores(q, k)
-    mask = _attention_mask(Sq, k.shape[1], causal, window, q.device)
+    mask = _attention_mask(Sq, k.shape[1], causal, window, q.device,
+                           q_positions, kv_positions)
     s = s.masked_fill(~mask[None, :, None, None, :], -math.inf)
     lse = torch.logsumexp(s, dim=-1)                       # (B, Sq, KH, G)
     lse = torch.where(torch.isneginf(lse), math.inf, lse)
@@ -71,22 +89,26 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
                             lse: torch.Tensor, dout: torch.Tensor, *,
-                            causal: bool = True, window: int = 0
+                            causal: bool = True, window: int = 0,
+                            q_positions: Optional[torch.Tensor] = None,
+                            kv_positions: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """K3's backward written out: P = exp(S − LSE) where unmasked (else 0),
     D = rowsum(dO∘O), dS = P∘(dO·Vᵀ − D), dQ = dS·K·scale, dK = dSᵀ·Q·scale
     and dV = Pᵀ·dO, with dK and dV summed over the G query heads of each KV
     head. q, out, dout: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); lse (B, H,
-    Sq) as :func:`attention_lse_ref` gives it. Computes in float64 for
-    float64 inputs and fp32 otherwise; returns (dq, dk, dv) in q's dtype."""
+    Sq) as :func:`attention_lse_ref` gives it; the masks of
+    :func:`_attention_mask`. Computes in float64 for float64 inputs and
+    fp32 otherwise; returns (dq, dk, dv) in q's dtype."""
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
     ct = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = 1.0 / math.sqrt(Dh)
     s = _scores(q, k)
-    mask = _attention_mask(Sq, Skv, causal, window, q.device)
+    mask = _attention_mask(Sq, Skv, causal, window, q.device, q_positions,
+                           kv_positions)
     row_lse = lse.to(ct).transpose(1, 2).reshape(B, Sq, KH, G)[..., None]
     p = torch.where(mask[None, :, None, None, :], torch.exp(s - row_lse),
                     torch.zeros((), dtype=ct, device=q.device))

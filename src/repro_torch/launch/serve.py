@@ -5,15 +5,18 @@
 
 Runs on the card unless ``--device cpu`` is given. Weights are random fp32,
 from the port's ``init_params`` seeded with 0; prompts come from a second
-``torch.Generator`` seeded with 1. :func:`serve` is the one function the
-CLI, the tests and ``chip_smoke.py`` call.
+``torch.Generator`` seeded with 1. A config with a stub frontend
+(qwen2-vl's image patches, musicgen's conditioning frames) gets a prefix
+of ``n_stub_tokens`` zero embeddings before each prompt, as the
+reference's ``launch/serve.py`` feeds it. :func:`serve` is the one
+function the CLI, the tests and ``chip_smoke.py`` call.
 """
 from __future__ import annotations
 
 import argparse
 import time
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.profiler import record_function
@@ -39,10 +42,24 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
     return toks.to(resolve_device(device))
 
 
+def stub_prefix(cfg: ModelConfig, batch: int,
+                device: str | torch.device) -> Optional[torch.Tensor]:
+    """The stub frontend's output that :func:`serve` feeds: zeros (batch,
+    n_stub_tokens, d_model) fp32, as the reference's ``launch/serve.py``;
+    None for a config without a stub frontend."""
+    if not cfg.n_stub_tokens:
+        return None
+    return torch.zeros((batch, cfg.n_stub_tokens, cfg.d_model),
+                       device=device)
+
+
 def prefill_to_cache(params: Dict, cfg: ModelConfig, prompts: torch.Tensor,
-                     max_len: int, *, window: int = 0):
-    """Prefill ``prompts`` (B, P) and move the prefill KV into a decode
-    cache of ``max_len`` positions (a ring of min(window, max_len) slots
+                     max_len: int, *, window: int = 0,
+                     stub_embeds: Optional[torch.Tensor] = None):
+    """Prefill ``prompts`` (B, P), after ``stub_embeds`` when given (the
+    prefill then holds n_stub + P positions, and ``max_len`` must count
+    them), and move the prefill KV into a decode cache of ``max_len``
+    positions (a ring of min(window, max_len) slots
     when windowed), ``dense_layers`` and a hybrid's ``shared_attn``
     included; an ssm or hybrid config's ``ssm`` states (h and the conv
     window) are states, not positions, and are copied whole. Returns
@@ -51,7 +68,8 @@ def prefill_to_cache(params: Dict, cfg: ModelConfig, prompts: torch.Tensor,
     longer than the window therefore does not fit the ring, and raises
     (the reference's ``launch/serve.py`` drops that prefill cache: ROADMAP
     Queue C, C4)."""
-    logits, pcache = prefill(params, cfg, prompts, window=window)
+    logits, pcache = prefill(params, cfg, prompts, stub_embeds=stub_embeds,
+                             window=window)
     cache = init_cache(cfg, prompts.shape[0], max_len, window=window,
                        device=prompts.device)
     for group, entries in cache.items():
@@ -60,6 +78,11 @@ def prefill_to_cache(params: Dict, cfg: ModelConfig, prompts: torch.Tensor,
             if group == "ssm":                  # states, not positions
                 c.copy_(pc)
             elif pc.shape[2] > c.shape[2]:
+                if not window:   # the reference drops it (ROADMAP C5)
+                    raise ValueError(
+                        f"{cfg.name}: the prefill holds {pc.shape[2]} "
+                        f"positions, more than the cache's max_len "
+                        f"{c.shape[2]}")
                 raise NotImplementedError(
                     f"{cfg.name}: the prefill's {name!r} holds "
                     f"{pc.shape[2]} positions, the decode ring "
@@ -78,20 +101,27 @@ def _sync(dev: torch.device) -> None:
 def serve(cfg: ModelConfig, params: Dict, prompts: torch.Tensor, gen: int, *,
           window: int = 0, device: str | torch.device = "cuda"
           ) -> ServeResult:
-    """Prefill ``prompts`` (B, P) into a cache of P + gen positions
-    (:func:`prefill_to_cache`), then decode greedily: ``gen`` tokens in all, the first from the
-    prefill's logits and one per decode step after it. Timings are host
-    milliseconds around work that ends in a device sync; the two phases
-    are ``torch.profiler`` ranges ``serve.prefill`` and ``serve.decode``."""
+    """Prefill ``prompts`` (B, P) after the stub prefix
+    (:func:`stub_prefix`; n_stub = 0 without one) into a cache of n_stub
+    + P + gen positions (:func:`prefill_to_cache`), then decode greedily
+    from position n_stub + P on: ``gen`` tokens in all, the first from the
+    prefill's logits and one per decode step after it. (The reference's
+    ``launch/serve.py`` sizes its cache at P + gen, which drops the
+    prefill's cache whenever n_stub > gen: ROADMAP Queue C, C5.) Timings
+    are host milliseconds around work that ends in a device sync; the two
+    phases are ``torch.profiler`` ranges ``serve.prefill`` and
+    ``serve.decode``."""
     dev = resolve_device(device)
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     B, P = prompts.shape
+    stub = stub_prefix(cfg, B, dev)
+    start = P + cfg.n_stub_tokens          # the first decode position
     _sync(dev)
     t0 = time.perf_counter()
     with record_function("serve.prefill"):
-        logits, cache = prefill_to_cache(params, cfg, prompts, P + gen,
-                                         window=window)
+        logits, cache = prefill_to_cache(params, cfg, prompts, start + gen,
+                                         window=window, stub_embeds=stub)
         _sync(dev)
     t1 = time.perf_counter()
 
@@ -99,7 +129,7 @@ def serve(cfg: ModelConfig, params: Dict, prompts: torch.Tensor, gen: int, *,
     tokens, step_logits = [token], [logits]
     with record_function("serve.decode"):
         for i in range(gen - 1):
-            logits, cache = decode(params, cfg, token, cache, P + i,
+            logits, cache = decode(params, cfg, token, cache, start + i,
                                    window=window)
             token = torch.argmax(logits, dim=-1)[:, None]
             tokens.append(token)

@@ -15,7 +15,10 @@ Runs on the card unless ``--device cpu`` is given; ``--full`` takes the
 published widths and depth (else ``reduced()``). On a card every layer's
 attention runs K3's forward and its hand-written backward. Weights are
 random fp32 from a ``torch.Generator`` (seed 0) unless injected; the
-batches are the reference's ``token_batch_stream`` draws. The clients are
+batches are the reference's ``token_batch_stream`` draws, and
+``single_client`` puts a stub prefix of zero embeddings before them for a
+config with a stub frontend (qwen2-vl, musicgen), as the reference does;
+``federated`` puts none, as the reference does not. The clients are
 a Python loop: ``torch.func.vmap`` cannot pass through the ctypes
 kernels. :func:`single_client` and :func:`federated` are what the CLI,
 the tests and ``chip_smoke.py`` call.
@@ -35,6 +38,7 @@ from repro_torch.configs import ModelConfig, TrainConfig, get_config
 from repro_torch.core import aggregation, em
 from repro_torch.data import token_batch_stream
 from repro_torch.device import disable_tf32, resolve_device
+from repro_torch.launch.serve import stub_prefix
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.optim import make_optimizer, sgd_update
 
@@ -71,6 +75,7 @@ def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                   lr: float = 3e-3, optimizer: str = "sgd",
                   ckpt: Optional[str] = None,
                   params: Optional[Params] = None,
+                  stub_embeds: Optional[torch.Tensor] = None,
                   device: str | torch.device = "cuda",
                   log: Callable[[str], None] = print) -> Dict:
     """``steps`` optimizer steps on ``token_batch_stream(0)``, printing the
@@ -78,7 +83,13 @@ def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     (fp32, on the device) default to ``init_params`` from seed 0. Returns
     ``{"losses": [float] a step, "params", "timings"}``: ms per step and
     tokens/s over the steps after the first (host clock, ending in a
-    sync), and the first step's ms."""
+    sync), and the first step's ms. A config with a stub frontend gets
+    ``stub_embeds`` (batch, n_stub, D) before every batch, by default
+    :func:`~repro_torch.launch.serve.stub_prefix`'s zeros, as the
+    reference's trainer feeds; at depth a zero prefix overflows the
+    backward (each layer's RMSNorm of a zero row scales its gradient by
+    1/sqrt(eps): ROADMAP Queue C, C6), so a caller that wants a finite
+    run at full depth passes nonzero embeddings."""
     dev = resolve_device(device)
     train = TrainConfig(lr=lr, optimizer=optimizer)
     if params is None:
@@ -87,12 +98,17 @@ def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     opt_init, opt_update = make_optimizer(train.optimizer)
     opt_state = opt_init(params)
     stream = token_batch_stream(0, batch=batch, seq_len=seq, vocab=cfg.vocab)
+    stub = stub_prefix(cfg, batch, dev) if stub_embeds is None \
+        else stub_embeds
     losses: List[torch.Tensor] = []
     _sync(dev)
     t0 = time.perf_counter()
     t_first = t0
     for i, raw in zip(range(steps), stream):
-        loss, _, grads = value_and_grad(params, cfg, _to_device(raw, dev))
+        inputs = _to_device(raw, dev)
+        if stub is not None:
+            inputs["stub_embeds"] = stub
+        loss, _, grads = value_and_grad(params, cfg, inputs)
         params, opt_state = opt_update(params, grads, opt_state, train.lr)
         losses.append(loss)
         if i == 0:

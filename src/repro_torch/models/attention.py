@@ -3,7 +3,13 @@ sliding-window) and multi-head latent attention (MLA: deepseek, minicpm3).
 
 Prefill (``gqa_apply``, ``gqa_prefill``) runs its attention through K3,
 :func:`repro_torch.kernels.flash_attention.flash_attention`, where the
-reference runs its pure-JAX twin ``chunked_attention``. Training runs the
+reference runs its pure-JAX twin ``chunked_attention``. Both mask by the
+positions they are given, (S,) or mrope's (S, 3) (its temporal
+component), shared by the batch: an M-RoPE image's patches share one
+temporal position and see each other both ways. The model's default
+positions are 0..S-1, and it says so (``consecutive=True``): K3 then
+masks by index, its path without position reads, with the same mask.
+Training runs the
 same call under autograd: on a card, K3's forward (saving its row
 log-sum-exp) and its hand-written backward, where the reference
 differentiates ``chunked_attention`` under ``jax.checkpoint``. Decode
@@ -26,7 +32,7 @@ the port has neither.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -96,29 +102,46 @@ def _gqa_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _mask_positions(positions: torch.Tensor,
+                    consecutive: bool) -> Optional[torch.Tensor]:
+    """The positions K3 masks by: the (S,) positions, or the temporal
+    component of mrope's (S, 3); None, masking by index, when they are
+    known to be 0..S-1."""
+    if consecutive:
+        return None
+    return positions[..., 0] if positions.dim() == 2 else positions
+
+
 def _attend(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-            positions: torch.Tensor, window: int):
+            positions: torch.Tensor, window: int, consecutive: bool):
     q, k, v = _gqa_qkv(params, cfg, x, positions)
+    pos = _mask_positions(positions, consecutive)
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=True, window=window)
+                          causal=True, window=window, q_positions=pos,
+                          kv_positions=pos)
     return linear(params["wo"], out.reshape(x.shape[0], x.shape[1], -1)), k, v
 
 
 def gqa_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
-              positions: torch.Tensor, window: int) -> torch.Tensor:
+              positions: torch.Tensor, window: int,
+              consecutive: bool = False) -> torch.Tensor:
     """Full-sequence self attention (causal, optionally windowed).
-    positions: (S,) consecutive, as K3 takes its masks from the row and
-    column indices."""
-    return _attend(params, cfg, x, positions, window)[0]
+    positions: (S,), or (S, 3) for mrope, shared by the batch; the rope
+    takes them and K3 masks by them (mrope's by the temporal component),
+    as the reference's ``chunked_attention`` does. ``consecutive`` says
+    they are 0..S-1 (in mrope's form, each component), so K3 may mask by
+    index."""
+    return _attend(params, cfg, x, positions, window, consecutive)[0]
 
 
 def gqa_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
-                positions: torch.Tensor, window: int
+                positions: torch.Tensor, window: int,
+                consecutive: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Like ``gqa_apply`` but also returns this layer's KV cache: (B, S,
     KH, Dh), or with a window the last min(W, S) positions rolled so that
     slot = position % W (the ring-buffer invariant)."""
-    out, k, v = _attend(params, cfg, x, positions, window)
+    out, k, v = _attend(params, cfg, x, positions, window, consecutive)
     if window:
         S = k.shape[1]
         W = min(window, S)
@@ -211,7 +234,7 @@ def _mla_latent_kv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _mla_attend(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, window: int):
+                positions: torch.Tensor, window: int, consecutive: bool):
     """MLA over the full sequence: (output, c_kv, k_rope). Each position's
     k_nope and v are expanded per head from the latent, k_rope is
     broadcast to every head, v is zero-padded to the q/k width so that one
@@ -229,25 +252,31 @@ def _mla_attend(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     v = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
-    out = flash_attention(q, k, v, causal=True,
-                          window=window)[..., :m.v_head_dim]
+    pos = _mask_positions(positions, consecutive)
+    out = flash_attention(q, k, v, causal=True, window=window,
+                          q_positions=pos,
+                          kv_positions=pos)[..., :m.v_head_dim]
     return linear(params["wo"], out.reshape(B, S, -1)), c_kv, k_rope
 
 
 def mla_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
-              positions: torch.Tensor, window: int) -> torch.Tensor:
+              positions: torch.Tensor, window: int,
+              consecutive: bool = False) -> torch.Tensor:
     """Full-sequence MLA self attention (causal, optionally windowed);
-    positions (S,) consecutive, as for ``gqa_apply``."""
-    return _mla_attend(params, cfg, x, positions, window)[0]
+    positions (S,), for the rope and K3's masks, and ``consecutive`` as
+    for ``gqa_apply``."""
+    return _mla_attend(params, cfg, x, positions, window, consecutive)[0]
 
 
 def mla_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
-                positions: torch.Tensor, window: int
+                positions: torch.Tensor, window: int,
+                consecutive: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Like ``mla_apply`` but also returns this layer's cache ``{"c_kv",
     "k_rope"}`` at full length, windowed or not, as the reference does
     (it computes the latents twice; here the attention's are kept)."""
-    out, c_kv, k_rope = _mla_attend(params, cfg, x, positions, window)
+    out, c_kv, k_rope = _mla_attend(params, cfg, x, positions, window,
+                                    consecutive)
     return out, {"c_kv": c_kv, "k_rope": k_rope}
 
 

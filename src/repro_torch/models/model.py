@@ -19,15 +19,27 @@ adds one unstacked ``shared_attn`` block (attention and MLP, as a dense
 layer) that runs after every ``hybrid_attn_every``-th layer, the same
 weights each time.
 
-Entry points:
+A vlm or audio config (qwen2-vl, musicgen) is a dense one whose inputs
+may start with ``n_stub_tokens`` precomputed frontend embeddings
+(``stub_embeds`` (B, n_stub, D): image patches, text-conditioning
+frames), which take positions like tokens and produce no logits in
+``loss_fn``. qwen2-vl rotates by M-RoPE, whose positions are (S, 3).
+
+Entry points (``positions``: (S,), or (S, 3) for mrope, shared by the
+batch; by default 0..S-1 over the stub prefix and the tokens):
   init_params(cfg, gen, device)                          -> params
-  forward_hidden(params, cfg, tokens, *, window, remat)  -> (hidden, aux)
+  forward_hidden(params, cfg, tokens, *, stub_embeds, positions, window,
+                 remat)                                  -> (hidden, aux)
   logits_from_hidden(params, cfg, h)                     -> fp32 logits
   softmax_xent(logits, labels)                           -> mean xent
   loss_fn(params, cfg, batch, *, window, remat)          -> (loss, metrics)
-  prefill(params, cfg, tokens, *, window)                -> (logits, cache)
+  prefill(params, cfg, tokens, *, stub_embeds, positions, window)
+                                                         -> (logits, cache)
   decode(params, cfg, token, cache, pos, *, window)      -> (logits, cache)
   init_cache(cfg, batch, max_len, *, window, device)     -> cache
+
+Every attention layer masks by the positions (K3's position path); with
+the default positions it masks by index (K3's index path), the same mask.
 
 Weights and cache are fp32, as the reference's ``launch/serve.py`` and
 ``launch/train.py`` run. Training differentiates ``loss_fn`` with autograd;
@@ -48,8 +60,7 @@ of the A = L // ``hybrid_attn_every`` applications of the shared block
 (and the new states) into it in place (the reference returns an updated
 copy) and returns the same tensors.
 
-The vlm/audio (stub embeddings) and mrope branches raise until their
-families are ported (ROADMAP Queue A item 4). zamba2's shared block
+zamba2's shared block
 attends at head dim 112 (d_model / heads), which K3's forward takes on a
 card and its backward does not yet (ROADMAP Queue B, B1): on a card it
 serves and does not train.
@@ -73,20 +84,17 @@ Params = Dict
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for configs whose family this port does not run yet."""
+    """Raise for configs of a family this port does not run."""
     ssm = cfg.family in ("ssm", "hybrid")
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
             or (cfg.family == "moe") != bool(cfg.moe)
             or ssm != bool(cfg.ssm)
             or (cfg.family == "hybrid") != bool(cfg.hybrid_attn_every)
             or (ssm and cfg.mla)):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the LM "
-            "port runs dense and MoE (GQA or MLA), ssm and hybrid (GQA)")
-    if cfg.rope == "mrope" or cfg.n_stub_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: mrope and stub embeddings are not ported yet "
-            "(ROADMAP Queue A item 4)")
+            f"{cfg.name}: family {cfg.family!r} is not ported; the LM port "
+            "runs dense, vlm, audio and MoE (GQA or MLA), ssm and hybrid "
+            "(GQA)")
 
 
 def unstack(stacked: Params) -> list:
@@ -215,55 +223,81 @@ def _ffn(p: Params, cfg: ModelConfig, h: torch.Tensor):
     return h + y, aux
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    return torch.arange(tokens.shape[1], dtype=torch.int32,
-                        device=tokens.device)
+def _positions_default(cfg: ModelConfig, s_eff: int,
+                       device) -> torch.Tensor:
+    """0..s_eff-1 as int32 (S,), or (S, 3) with each component so for
+    mrope."""
+    pos = torch.arange(s_eff, dtype=torch.int32, device=device)
+    if cfg.rope == "mrope":
+        return torch.stack([pos, pos, pos], dim=-1)
+    return pos
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  stub_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The tokens' embeddings (B, S, D), after the stub prefix (B,
+    n_stub, D) when the config has one and it is given (the reference's
+    federated trainer gives none)."""
+    x = embed_apply(params["embed"], tokens)
+    if cfg.n_stub_tokens and stub_embeds is not None:
+        x = torch.cat([stub_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def _inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            stub_embeds: Optional[torch.Tensor],
+            positions: Optional[torch.Tensor]):
+    """(embedded inputs, positions, whether they are the default
+    0..S-1, which K3 may take by index)."""
+    x = _embed_inputs(params, cfg, tokens, stub_embeds)
+    if positions is None:
+        return x, _positions_default(cfg, x.shape[1], x.device), True
+    return x, positions, False
 
 
 def _block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                 positions: torch.Tensor, window: int):
+                 positions: torch.Tensor, window: int, consecutive: bool):
     """One pre-norm block; returns (h, this layer's cache)."""
     pre = attn.mla_prefill if cfg.mla else attn.gqa_prefill
     y, kv = pre(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
-                positions=positions, window=window)
+                positions=positions, window=window, consecutive=consecutive)
     return _ffn(p, cfg, x + y)[0], kv
 
 
 def _train_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                 pos: torch.Tensor, window: int):
+                 pos: torch.Tensor, window: int, consecutive: bool):
     """One block of the training forward: (h, MoE aux loss or None)."""
     apply = attn.mla_apply if cfg.mla else attn.gqa_apply
     x = x + apply(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
-                  positions=pos, window=window)
+                  positions=pos, window=window, consecutive=consecutive)
     return _ffn(p, cfg, x)
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   stub_embeds: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
                    window: int = 0, remat: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward to the final normed hidden states (B, S, D),
-    and the MoE layers' aux losses summed (0 for dense). ``remat``
-    recomputes each layer in the backward (``torch.utils.checkpoint``), as
-    the reference's ``jax.checkpoint`` of the layer body."""
+    """Full-sequence forward to the final normed hidden states (B,
+    S_eff, D), S_eff = the stub prefix's length (when given) + S, and the
+    MoE layers' aux losses summed (0 for dense). ``remat`` recomputes each
+    layer in the backward (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint`` of the layer body."""
     _check_supported(cfg)
-    if positions is not None:
-        raise NotImplementedError("custom positions are not ported yet "
-                                  "(ROADMAP Queue A item 4)")
     window = window or cfg.sliding_window
-    x = embed_apply(params["embed"], tokens)
-    pos = _positions(tokens)
+    x, pos, consecutive = _inputs(params, cfg, tokens, stub_embeds,
+                                  positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.ssm:
         for i, p in enumerate(unstack(params["layers"])):
             x = _remat(_ssm_block, remat, p, cfg, x)
             if _shared_app_index(cfg, i)[0]:
                 x, _ = _train_layer(params["shared_attn"], cfg, x, pos,
-                                    window, remat)
+                                    window, consecutive, remat)
         return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
     for group in _groups(params):
         for p in unstack(params[group]):
-            x, a = _train_layer(p, cfg, x, pos, window, remat)
+            x, a = _train_layer(p, cfg, x, pos, window, consecutive, remat)
             if a is not None:
                 aux = aux + a
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
@@ -277,8 +311,9 @@ def _remat(fn, remat: bool, *args):
 
 
 def _train_layer(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                 pos: torch.Tensor, window: int, remat: bool):
-    return _remat(_train_block, remat, p, cfg, x, pos, window)
+                 pos: torch.Tensor, window: int, consecutive: bool,
+                 remat: bool):
+    return _remat(_train_block, remat, p, cfg, x, pos, window, consecutive)
 
 
 def _ssm_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -310,23 +345,30 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict, *,
             window: int = 0, remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: tokens (B, S), labels (B, S). Returns (xent + 0.3 · mtp + aux,
-    {"xent", "aux", "mtp"}); ``mtp`` is 0 without an MTP head, else the
-    cross-entropy of the head (one block on the final hidden states, then
-    ``mtp_ln``) at the token after next. Stub embeddings and custom
-    positions raise until their families are ported."""
+    """batch: tokens (B, S), labels (B, S), optionally stub_embeds (B,
+    n_stub, D) and positions (over the S_eff inputs, as for
+    ``forward_hidden``). Returns (xent + 0.3 · mtp + aux, {"xent", "aux",
+    "mtp"}): the stub positions give no logits; ``mtp`` is 0 without an
+    MTP head, else the cross-entropy of the head (one block on the final
+    hidden states at the same positions, then ``mtp_ln``) at the token
+    after next."""
+    S = batch["tokens"].shape[1]
+    positions = batch.get("positions")
     h, aux = forward_hidden(params, cfg, batch["tokens"],
-                            positions=batch.get("positions"), window=window,
-                            remat=remat)
-    logits = logits_from_hidden(params, cfg, h)
+                            stub_embeds=batch.get("stub_embeds"),
+                            positions=positions, window=window, remat=remat)
+    logits = logits_from_hidden(params, cfg, h[:, -S:])
     xent = softmax_xent(logits, batch["labels"])
     loss = xent
     mtp = torch.zeros((), dtype=torch.float32, device=xent.device)
     if cfg.mtp_depth:
+        consecutive = positions is None
+        if consecutive:
+            positions = _positions_default(cfg, h.shape[1], h.device)
         # the reference passes loss_fn's own window here, unresolved
-        h2, _ = _train_layer(params["mtp"], cfg, h, _positions(h), window,
-                             remat)
-        h2 = rmsnorm(params["mtp_ln"], h2, cfg.norm_eps)
+        h2, _ = _train_layer(params["mtp"], cfg, h, positions, window,
+                             consecutive, remat)
+        h2 = rmsnorm(params["mtp_ln"], h2, cfg.norm_eps)[:, -S:]
         mtp = softmax_xent(logits_from_hidden(params, cfg, h2[:, :-1]),
                            batch["labels"][:, 1:])
         loss = loss + 0.3 * mtp
@@ -376,11 +418,14 @@ def _stack_caches(caches: list) -> Dict[str, torch.Tensor]:
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            stub_embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None, window: int = 0
             ) -> Tuple[torch.Tensor, Dict]:
-    """Run a full prompt (B, S); returns (last-token logits (B, V) fp32,
-    cache ``{"layers": {"k", "v"}}`` of (L, B, S_c, KH, Dh)), where S_c is S,
-    or min(window, S) ring-packed when windowed; for MLA ``{"layers":
+    """Run a full prompt (B, S), after the stub prefix when one is given
+    (S_eff positions in all, as for ``forward_hidden``); returns
+    (last-token logits (B, V) fp32, cache ``{"layers": {"k", "v"}}`` of
+    (L, B, S_c, KH, Dh)), where S_c is S_eff, or min(window, S_eff)
+    ring-packed when windowed; for MLA ``{"layers":
     {"c_kv", "k_rope"}}`` of (L, B, S, ·), full length even when windowed,
     as the reference's; an MoE config's ``dense_layers`` under their own
     key; for ssm and hybrid ``{"ssm": {"h", "conv"}}`` (the states after
@@ -388,12 +433,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     KH, Dh). Every attention layer (every application of the shared block)
     is one launch of K3 on a card."""
     _check_supported(cfg)
-    if positions is not None:
-        raise NotImplementedError("custom positions are not ported yet "
-                                  "(ROADMAP Queue A item 4)")
     window = window or cfg.sliding_window
-    x = embed_apply(params["embed"], tokens)
-    pos = _positions(tokens)
+    x, pos, consecutive = _inputs(params, cfg, tokens, stub_embeds,
+                                  positions)
     cache = {}
     if cfg.ssm:
         pre = (ssm_mod.mamba2_prefill if cfg.ssm.version == 2
@@ -406,7 +448,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             states.append(state)
             if _shared_app_index(cfg, i)[0]:
                 x, kv = _block_apply(params["shared_attn"], cfg, x,
-                                     positions=pos, window=window)
+                                     positions=pos, window=window,
+                                     consecutive=consecutive)
                 kvs.append(kv)
         cache["ssm"] = _stack_caches(states)
         if kvs:
@@ -416,7 +459,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             caches = []
             for p in unstack(params[group]):
                 x, kv = _block_apply(p, cfg, x, positions=pos,
-                                     window=window)
+                                     window=window, consecutive=consecutive)
                 caches.append(kv)
             cache[group] = _stack_caches(caches)
     h = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
@@ -443,12 +486,14 @@ def _layer(cache: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
 def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
            cache: Dict, pos: int, *, window: int = 0
            ) -> Tuple[torch.Tensor, Dict]:
-    """token: (B, 1); pos: the new token's absolute position. Returns
+    """token: (B, 1); pos: the new token's absolute position (its cache
+    slot and, in each component for mrope, its rope position). Returns
     (logits (B, V) fp32, cache), the cache updated in place."""
     _check_supported(cfg)
     window = window or cfg.sliding_window
     x = embed_apply(params["embed"], token)
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    shape = (1, 3) if cfg.rope == "mrope" else (1,)
+    positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
     if cfg.ssm:
         dec = (ssm_mod.mamba2_decode if cfg.ssm.version == 2
                else ssm_mod.mamba1_decode)

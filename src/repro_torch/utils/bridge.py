@@ -118,12 +118,12 @@ def to_numpy(flat: torch.Tensor, layout: ParamLayout) -> Tree:
 
 
 def from_jax_lm_params(tree: Tree, cfg, device: str | torch.device) -> Tree:
-    """The reference's ``init_params`` tree for a dense, MoE, ssm or hybrid
-    LM config (numpy leaves; ``layers`` and an MoE config's
+    """The reference's ``init_params`` tree for a dense, vlm, audio, MoE,
+    ssm or hybrid LM config (numpy leaves; ``layers`` and an MoE config's
     ``dense_layers`` stacked ``(L, ...)``; ``mtp`` and ``mtp_ln`` when the
     config has an MTP head; a hybrid config's one unstacked
     ``shared_attn`` block) as the port's params."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+    if (cfg.family not in ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
             or "layers" not in tree
             or ("shared_attn" in tree) != (cfg.family == "hybrid")):
         raise ValueError(f"{cfg.name}: not a {cfg.family} LM tree")

@@ -145,3 +145,197 @@ def test_training_and_federated_shapes_fill_the_card():
         dq = [len(_dq_steps(blk, *shape))
               for blk in range(plan["dq_blocks"])]
         assert dq == sorted(dq, reverse=True)
+
+
+# ---------------------------------------------------- explicit positions
+#
+# With explicit positions (the kernels' kPos instantiations) no index band
+# bounds a block's tiles: a dK/dV block walks the query tiles from the
+# first to the last that holds a query that may see one of its keys (by
+# its keys' least and greatest valid position), a dQ block the key tiles
+# from the first to the last that holds a key one of its rows may see (by
+# its rows' least and greatest position), and a forward block likewise
+# the key tiles of its folded rows. The split and the grids are the
+# plan's. Positions tie, carry -1 and need not be sorted.
+
+# the forward's (rows a block, keys a tile) by head dim
+# (csrc/flash_attention.cu, Cfg)
+FWD_TILES = {48: (128, 64), 64: (128, 64), 96: (128, 32), 112: (128, 32),
+             128: (64, 32)}
+POSITION_SHAPES = EXTRA + [chip_smoke.BWD_MAIN, chip_smoke.BWD_FED,
+                           (2, 200, 200, 9, 3, 64, True, 0),
+                           (1, 77, 50, 16, 1, 64, False, 20),
+                           (1, 200, 130, 6, 2, 64, True, 70)]
+PATTERNS = ["mrope", "pad", "unsorted", "shifted"]
+
+
+def _pattern(name, n, seed=0):
+    """Positions of ``n`` tokens: ``mrope`` ties the first 16 at 0 (a 4 x
+    4 image) and counts on from 4; ``pad`` ends in ten -1s; ``unsorted``
+    permutes ``mrope``; ``shifted`` is the indices + 20 (keys past every
+    query); else the indices."""
+    ar = torch.arange(n, dtype=torch.int32)
+    if name in ("mrope", "unsorted"):
+        pos = torch.where(ar < 16, 0, ar - 12).to(torch.int32)
+        if name == "unsorted":
+            g = torch.Generator().manual_seed(seed)
+            pos = pos[torch.randperm(n, generator=g)]
+        return pos
+    if name == "pad":
+        return torch.where(ar < n - 10, ar, -1).to(torch.int32)
+    if name == "shifted":
+        return ar + 20
+    return ar
+
+
+def _may_see_range(pos, may):
+    """(first, count) of the tiles, in units of ``tile``, between the
+    first and the last index whose position passes ``may``."""
+    hits = may(pos).nonzero()
+    if not len(hits):
+        return None
+    return int(hits[0]), int(hits[-1])
+
+
+def _tile_span(first_last, tile):
+    if first_last is None:
+        return 0, 0
+    first, last = first_last
+    return first // tile, last // tile + 1 - first // tile
+
+
+def _position_dkdv_steps(block, B, Sq, Skv, H, KH, Dh, causal, window,
+                         splits, qpos, kpos):
+    c, rest = block % splits, block // splits
+    kh, rest = rest % KH, rest // KH
+    b, t = rest % B, rest // B
+    G, QT = H // KH, k3.BWD_QUERY_TILE[Dh]
+    keys = kpos[t * k3.BWD_KEY_TILE:(t + 1) * k3.BWD_KEY_TILE]
+    valid = keys[keys >= 0]
+    span = None
+    if len(valid):
+        lo, hi = int(valid.min()), int(valid.max())
+        span = _may_see_range(qpos, lambda p: (~torch.tensor(causal)
+                                               | (lo <= p))
+                              & ((window <= 0) | (hi > p - window)))
+    qt0, nq = _tile_span(span, QT)
+    n = G * nq
+    return [(b, t, kh * G + s // nq, qt0 + s % nq)
+            for s in range(n * c // splits, n * (c + 1) // splits)]
+
+
+def _position_dq_steps(block, B, Sq, Skv, H, KH, Dh, causal, window, qpos,
+                       kpos):
+    h, rest = block % H, block // H
+    b = rest % B
+    qt = -(-Sq // k3.BWD_ROW_TILE) - 1 - rest // B
+    rows = qpos[qt * k3.BWD_ROW_TILE:(qt + 1) * k3.BWD_ROW_TILE]
+    lo, hi = int(rows.min()), int(rows.max())
+    span = _may_see_range(kpos, lambda p: (p >= 0)
+                          & (~torch.tensor(causal) | (p <= hi))
+                          & ((window <= 0) | (p > lo - window)))
+    kt0, nk = _tile_span(span, k3.BWD_KEY_STEP[Dh])
+    return [(b, qt, h, kt0 + i) for i in range(nk)]
+
+
+def _forward_tiles(row0, Sq, Skv, H, KH, Dh, causal, window, qpos=None,
+                   kpos=None):
+    """The key tiles a forward block whose folded rows start at ``row0``
+    walks: from the index band, or from the positions."""
+    rows, keys = FWD_TILES[Dh]
+    G = H // KH
+    q_lo, q_hi = row0 // G, (min(row0 + rows, Sq * G) - 1) // G
+    if qpos is None:
+        k_begin = max(0, q_lo - window + 1) if window > 0 else 0
+        k_end = min(Skv, q_hi + 1) if causal else Skv
+        t0 = k_begin // keys
+        return range(t0, -(-k_end // keys) if k_end > k_begin else t0)
+    lo, hi = int(qpos[q_lo:q_hi + 1].min()), int(qpos[q_lo:q_hi + 1].max())
+    span = _may_see_range(kpos, lambda p: (p >= 0)
+                          & (~torch.tensor(causal) | (p <= hi))
+                          & ((window <= 0) | (p > lo - window)))
+    t0, n = _tile_span(span, keys)
+    return range(t0, t0 + n)
+
+
+def _positions(shape, name):
+    Sq, Skv = shape[1], shape[2]
+    return _pattern(name, Sq), _pattern(name, Skv)
+
+
+def _visible_at(Sq, Skv, causal, window, rows, cols, qpos, kpos):
+    mask = _attention_mask(Sq, Skv, causal, window, "cpu", qpos, kpos)
+    nr, nc = -(-Sq // rows), -(-Skv // cols)
+    padded = torch.zeros((nr * rows, nc * cols), dtype=torch.bool)
+    padded[:Sq, :Skv] = mask
+    hit = padded.view(nr, rows, nc, cols).any(dim=3).any(dim=1)
+    return [(int(i), int(j)) for i, j in hit.nonzero()]
+
+
+@pytest.mark.parametrize("name", PATTERNS)
+@pytest.mark.parametrize("shape", POSITION_SHAPES)
+def test_position_dkdv_blocks_cover_every_visible_tile_once(shape, name):
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    qpos, kpos = _positions(shape, name)
+    plan = k3.backward_plan(*shape, 132)
+    steps = [s for blk in range(plan["dkdv_blocks"])
+             for s in _position_dkdv_steps(blk, *shape, plan["splits"],
+                                           qpos, kpos)]
+    want = {(b, kt, h, qt) for b in range(B) for h in range(H)
+            for qt, kt in _visible_at(Sq, Skv, causal, window,
+                                      k3.BWD_QUERY_TILE[Dh],
+                                      k3.BWD_KEY_TILE, qpos, kpos)}
+    assert len(steps) == len(set(steps))
+    assert want <= set(steps)
+
+
+@pytest.mark.parametrize("name", PATTERNS)
+@pytest.mark.parametrize("shape", POSITION_SHAPES)
+def test_position_dq_and_forward_blocks_cover_every_visible_tile(shape,
+                                                                 name):
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    qpos, kpos = _positions(shape, name)
+    plan = k3.backward_plan(*shape, 132)
+    steps = [s for blk in range(plan["dq_blocks"])
+             for s in _position_dq_steps(blk, *shape, qpos, kpos)]
+    want = {(b, qt, h, kt) for b in range(B) for h in range(H)
+            for qt, kt in _visible_at(Sq, Skv, causal, window,
+                                      k3.BWD_ROW_TILE, k3.BWD_KEY_STEP[Dh],
+                                      qpos, kpos)}
+    assert len(steps) == len(set(steps))
+    assert want <= set(steps)
+    rows, keys = FWD_TILES[Dh]
+    G = H // KH
+    mask = _attention_mask(Sq, Skv, causal, window, "cpu", qpos, kpos)
+    for row0 in range(0, Sq * G, rows):
+        q_lo, q_hi = row0 // G, (min(row0 + rows, Sq * G) - 1) // G
+        seen = mask[q_lo:q_hi + 1].any(0).nonzero()
+        walked = _forward_tiles(row0, Sq, Skv, H, KH, Dh, causal, window,
+                                qpos, kpos)
+        assert {int(j) // keys for j in seen} <= set(walked)
+
+
+@pytest.mark.parametrize("shape", POSITION_SHAPES + [
+    (1, 300, 300, 6, 2, 112, True, 0), (2, 129, 97, 40, 40, 96, True, 16),
+    (1, 77, 50, 16, 1, 48, False, 20)])
+def test_arange_positions_walk_the_index_tiles(shape):
+    """For an arange the position rules give every block the index band's
+    tiles, in the same order: the position instantiations then sum the
+    same products in the same order, bit for bit the index ones."""
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    qpos, kpos = _positions(shape, "arange")
+    G = H // KH
+    for row0 in range(0, Sq * G, FWD_TILES[Dh][0]):
+        assert list(_forward_tiles(row0, *shape[1:6], causal, window, qpos,
+                                   kpos)) == list(_forward_tiles(
+                                       row0, *shape[1:6], causal, window))
+    if Dh not in k3.BWD_HEAD_DIMS:
+        return
+    plan = k3.backward_plan(*shape, 132)
+    for blk in range(plan["dkdv_blocks"]):
+        assert _position_dkdv_steps(blk, *shape, plan["splits"], qpos,
+                                    kpos) == _dkdv_steps(blk, *shape,
+                                                         plan["splits"])
+    for blk in range(plan["dq_blocks"]):
+        assert _position_dq_steps(blk, *shape, qpos, kpos) == _dq_steps(
+            blk, *shape)

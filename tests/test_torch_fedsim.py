@@ -238,8 +238,10 @@ import repro_torch.sharding
 from repro_torch.lint import blocks
 from repro_torch.sharding import worker
 import repro_torch.optim
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, musicgen_large, qwen2_vl_2b
 from repro_torch.launch import train
+assert {get_config(a).family for a in ("qwen2-vl-2b", "musicgen-large")} \
+    == {"vlm", "audio"}
 lm = get_config("smollm-135m").reduced()
 assert len(train.single_client(lm, steps=1, batch=1, seq=4,
                                device="cpu")["losses"]) == 1

@@ -2,9 +2,11 @@
 at the reference's sweep shapes, the pFedWN round's shapes and the LM
 prefill's (granite-moe's H 24 over KH 8 among them), K3 also at MLA's head
 dims (48, 96) and zamba2's (112), K3's backward against its plain version
-in float64; every federated method, the serving path (GQA, MLA, MoE with
-and without capacity drops, Mamba1 and Mamba2 with zamba2's shared block)
-and LM training on the card against the CPU,
+in float64, K3 with explicit positions (forward and backward, and the
+arange bitwise the index path); every federated method, the serving path
+(GQA, MLA, MoE with and without capacity drops, Mamba1 and Mamba2 with
+zamba2's shared block, qwen2-vl and musicgen after their stub prefix) and
+LM training (also under M-RoPE positions) on the card against the CPU,
 with the kernel launches each path makes. Every test
 here needs a CUDA card and skips without one; the file imports nothing of
 JAX, so it runs where only the port is installed:
@@ -464,10 +466,11 @@ def _bwd_case(cuda, B, Sq, Skv, H, KH, Dh, causal, window, seed=0):
     return q, k, v, dout
 
 
-def _kernel_grads(q, k, v, dout, causal, window):
+def _kernel_grads(q, k, v, dout, causal, window, **positions):
     for t in (q, k, v):
         t.grad = None
-    out = k3.flash_attention(q, k, v, causal=causal, window=window)
+    out = k3.flash_attention(q, k, v, causal=causal, window=window,
+                             **positions)
     out.backward(dout)
     torch.cuda.synchronize()
     return out, q.grad.clone(), k.grad.clone(), v.grad.clone()
@@ -557,6 +560,242 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+# K3 with explicit positions (the position instantiations): qwen2-vl's
+# heads (12 over 2, Dh 128) and musicgen's (G 1, Dh 64) over a 64-patch
+# "image" and text; tile edges at both head dims
+POS_SHAPES = [(2, 160, 160, 12, 2, 128, True, 0),
+              (2, 160, 160, 8, 8, 64, True, 0),
+              (1, 65, 65, 3, 1, 64, True, 0),
+              (1, 97, 97, 4, 2, 128, True, 0)]
+POS_PATTERNS = ["arange", "mrope", "pad", "window", "masked_rows",
+                "unsorted", "bidirectional"]
+
+
+def _position_case(name, n):
+    """(q_positions, kv_positions, causal, window) for self attention over
+    ``n`` tokens (int32, CPU): the indices; ``n // 2`` tied at 0 and text
+    counting on (M-RoPE's temporal component); a -1 tail; that under a
+    window; keys past the first 20 queries; the tied pattern permuted;
+    the -1 tail without the causal mask."""
+    ar = torch.arange(n, dtype=torch.int32)
+    tied = torch.where(ar < n // 2, 0, ar - n // 2 + 8).to(torch.int32)
+    pad = torch.where(ar < n - 12, ar, -1).to(torch.int32)
+    if name == "arange":
+        return ar, ar, True, 0
+    if name == "mrope":
+        return tied, tied, True, 0
+    if name == "pad":
+        return pad, pad, True, 0
+    if name == "window":
+        return tied, tied, True, 24
+    if name == "masked_rows":
+        return ar, ar + 20, True, 0
+    if name == "unsorted":
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(n))
+        return tied[perm], tied[perm], True, 30
+    if name == "bidirectional":
+        return pad, pad, False, 16
+    raise ValueError(name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", POS_SHAPES)
+@pytest.mark.parametrize("name", POS_PATTERNS)
+def test_flash_attention_positions_match_plain_on_card(cuda, shape, name):
+    """The position instantiations against the plain versions: the serving
+    forward in fp32 and bf16 (2e-6, 2e-2), the training forward's output
+    (the serving one's, bit for bit) and LSE (+inf exactly on the fully
+    masked rows), the backward against float64 (``BWD_TOL``), fully masked
+    rows 0; one position launch a forward."""
+    B, Sq, Skv, H, KH, Dh = shape[:6]
+    qp, kp, causal, window = (t.to(cuda) if torch.is_tensor(t) else t
+                              for t in _position_case(name, Sq))
+    pos = dict(q_positions=qp, kv_positions=kp)
+    q, k, v, dout = _bwd_case(cuda, B, Sq, Skv, H, KH, Dh, causal, window)
+    for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
+        qd, kd, vd = (t.detach().to(dtype) for t in (q, k, v))
+        n = k3.position_launches
+        with torch.no_grad():
+            out = k3.flash_attention(qd, kd, vd, causal=causal,
+                                     window=window, **pos)
+        torch.cuda.synchronize()
+        assert k3.position_launches == n + 1
+        expect = tref.flash_attention_ref(qd, kd, vd, causal=causal,
+                                          window=window, **pos)
+        torch.testing.assert_close(out.float(), expect.float(), atol=tol,
+                                   rtol=tol)
+        if dtype == torch.float32:
+            served = out
+    out, lse = k3._launch(q.detach(), k.detach(), v.detach(), causal,
+                          window, with_lse=True, **pos)
+    assert torch.equal(out, served)
+    q64, k64, v64 = (t.detach().double() for t in (q, k, v))
+    lse64 = tref.attention_lse_ref(q64, k64, causal=causal, window=window,
+                                   **pos)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse64))
+    fin = ~torch.isinf(lse64)
+    torch.testing.assert_close(lse.double()[fin], lse64[fin], atol=BWD_TOL,
+                               rtol=BWD_TOL)
+    out, *grads = _kernel_grads(q, k, v, dout, causal, window, **pos)
+    expect = tref.flash_attention_bwd_ref(
+        q64, k64, v64, tref.flash_attention_ref(
+            q64, k64, v64, causal=causal, window=window, **pos),
+        lse64, dout.double(), causal=causal, window=window, **pos)
+    for got, want in zip(grads, expect):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.double(), want, atol=BWD_TOL,
+                                   rtol=BWD_TOL)
+    rows = (~fin).transpose(1, 2)
+    assert not out.detach()[rows].any() and not grads[0][rows].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 97, 97, 4, 4, 48, True, 0),
+                                   (2, 160, 160, 4, 2, 96, True, 0),
+                                   (1, 97, 97, 8, 8, 112, True, 0)])
+@pytest.mark.parametrize("name", POS_PATTERNS)
+def test_flash_attention_positions_forward_at_serving_head_dims_on_card(
+        cuda, shape, name):
+    """The forward's position instantiations at the head dims the backward
+    does not take (MLA's 48 and 96, zamba2's 112): serving output in fp32
+    and bf16 against the plain version, the training instantiation's
+    output (bitwise) and LSE, fully masked rows 0; the arange bitwise the
+    index path."""
+    B, Sq, Skv, H, KH, Dh = shape[:6]
+    qp, kp, causal, window = (t.to(cuda) if torch.is_tensor(t) else t
+                              for t in _position_case(name, Sq))
+    pos = dict(q_positions=qp, kv_positions=kp)
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in _attn_inputs(B, Sq, Skv, H, KH, Dh))
+    for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        out = k3.flash_attention(qd, kd, vd, causal=causal, window=window,
+                                 **pos)
+        expect = tref.flash_attention_ref(qd, kd, vd, causal=causal,
+                                          window=window, **pos)
+        torch.testing.assert_close(out.float(), expect.float(), atol=tol,
+                                   rtol=tol)
+        if dtype == torch.float32:
+            served = out
+    out, lse = k3._launch(q, k, v, causal, window, with_lse=True, **pos)
+    assert torch.equal(out, served)
+    lse64 = tref.attention_lse_ref(q.double(), k.double(), causal=causal,
+                                   window=window, **pos)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse64))
+    fin = ~torch.isinf(lse64)
+    torch.testing.assert_close(lse.double()[fin], lse64[fin], atol=BWD_TOL,
+                               rtol=BWD_TOL)
+    assert not served[(~fin).transpose(1, 2)].any()
+    if name == "arange":
+        for a, b in zip((out, lse), k3._launch(q, k, v, causal, window,
+                                               with_lse=True)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", POS_SHAPES + [
+    (2, 200, 200, 9, 3, 64, True, 0), (1, 77, 50, 16, 1, 64, False, 20),
+    (1, 130, 97, 4, 1, 128, True, 40), (8, 256, 256, 9, 3, 64, True, 0)])
+def test_flash_attention_arange_positions_are_the_index_path_on_card(
+        cuda, shape):
+    """Positions 0..S-1 give the index instantiations' output, LSE and
+    gradients bit for bit: the position rules walk the same tiles in the
+    same order, and the plan's split is the index one's."""
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    pos = dict(q_positions=torch.arange(Sq, device=cuda),
+               kv_positions=torch.arange(Skv, device=cuda))
+    q, k, v, dout = _bwd_case(cuda, *shape)
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.detach().to(dtype) for t in (q, k, v))
+            assert torch.equal(
+                k3.flash_attention(qd, kd, vd, causal=causal, window=window,
+                                   **pos),
+                k3.flash_attention(qd, kd, vd, causal=causal, window=window))
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        for a, b in zip(k3._launch(qd, kd, vd, causal, window, with_lse=True,
+                                   q_positions=pos["q_positions"].int(),
+                                   kv_positions=pos["kv_positions"].int()),
+                        k3._launch(qd, kd, vd, causal, window,
+                                   with_lse=True)):
+            assert torch.equal(a, b)
+    got = _kernel_grads(q, k, v, dout, causal, window, **pos)
+    want = _kernel_grads(q, k, v, dout, causal, window)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-large"])
+def test_stub_serve_on_card_matches_cpu(cuda, arch):
+    """Reduced qwen2-vl (M-RoPE, G 2 at reduced(), qkv biases) and musicgen
+    (no rope, G 1) served after their zero stub prefix on the card against
+    the CPU: same weights and ragged prompts, logits within 1e-4, the same
+    greedy tokens, K3 once a layer by index; the first decode step within
+    1e-4 of a prefill of the P + 1 tokens, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (make_prompts, prefill_to_cache,
+                                          serve, stub_prefix)
+    from repro_torch.models.model import decode, init_params, prefill
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+    ref = serve(cfg, params, prompts, 5, device="cpu")
+    card = _to(params, cuda)
+    before, pos_before = k3.launches, k3.position_launches
+    got = serve(cfg, card, prompts.to(cuda), 5, device=cuda)
+    assert k3.launches == before + cfg.n_layers
+    assert k3.position_launches == pos_before
+    torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(got.tokens.cpu(), ref.tokens)
+    toks, stub = prompts.to(cuda), stub_prefix(cfg, 2, cuda)
+    start = cfg.n_stub_tokens + 36
+    with torch.no_grad():
+        full, _ = prefill(card, cfg, toks, stub_embeds=stub)
+        _, cache = prefill_to_cache(card, cfg, toks[:, :-1], start + 4,
+                                    stub_embeds=stub)
+        step, _ = decode(card, cfg, toks[:, -1:], cache, start)
+    torch.testing.assert_close(step, full, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "musicgen-large"])
+def test_stub_loss_under_positions_on_card_matches_cpu(cuda, arch):
+    """``loss_fn`` and its gradients with random stub embeddings under
+    custom positions (an M-RoPE prompt: the prefix as a 2 x 4 image, then
+    text; musicgen takes the temporal component) on the card against the
+    CPU, 1e-4: K3's position path forward and backward once a layer."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models.model import init_params
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 21), generator=g)
+    n = cfg.n_stub_tokens
+    i = torch.arange(n)
+    image = torch.stack([torch.zeros_like(i), i // 4, i % 4], -1)
+    text = torch.arange(21)[:, None].expand(21, 3) + 4
+    positions = torch.cat([image, text]).int()
+    if cfg.rope != "mrope":
+        positions = positions[:, 0].contiguous()
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1),
+             "stub_embeds": torch.randn((2, n, cfg.d_model), generator=g),
+             "positions": positions}
+    loss, _, grads = value_and_grad(params, cfg, batch)
+    n_pos = k3.position_launches
+    bwd = dict(k3.backward_launches)
+    got_loss, _, got = value_and_grad(
+        _to(params, cuda), cfg, {k: t.to(cuda) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    assert k3.position_launches == n_pos + cfg.n_layers
+    assert k3.backward_launches["dq"] == bwd["dq"] + cfg.n_layers
+    torch.testing.assert_close(got_loss.cpu(), loss, atol=1e-4, rtol=1e-4)
+    for a, b in zip(tree_leaves(got), tree_leaves(grads)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu

@@ -168,9 +168,11 @@ def test_apply_rope_matches_reference(variant, fraction, theta):
     expect = jrope.apply_rope(x, pos, variant=variant, theta=theta,
                               fraction=fraction)
     _close(got, expect, 1e-5)
-    with pytest.raises(NotImplementedError):
-        trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
-                         variant="mrope", theta=theta)
+    # M-RoPE, which raised before qwen2-vl was ported: (S, 3) positions
+    pos3 = np.stack([pos, pos + 7, pos * 2], -1).astype(np.int32)
+    _close(trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos3),
+                            variant="mrope", theta=theta),
+           jrope.apply_rope(x, pos3, variant="mrope", theta=theta), 1e-5)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -305,15 +307,25 @@ def test_serve_matches_reference_greedy_loop():
 
 
 def test_unported_families_raise():
+    """A family the port does not run raises. mrope, stub tokens and
+    custom positions raised until qwen2-vl and musicgen were ported; they
+    now run, and a prefill at custom positions matches the reference."""
     cfg = tconfigs.get_config("smollm-135m").reduced()
-    for kw in (dict(rope="mrope"), dict(n_stub_tokens=8)):
-        with pytest.raises(NotImplementedError):
-            tmodel.init_params(dataclasses.replace(cfg, **kw),
-                               torch.Generator(), device="cpu")
-    _, tcfg, _, tp = _weights("smollm-135m")
-    toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError):
-        tmodel.prefill(tp, tcfg, toks, positions=torch.arange(4) + 3)
+        tmodel.init_params(dataclasses.replace(cfg, family="encoder"),
+                           torch.Generator(), device="cpu")
+    for kw in (dict(rope="mrope"), dict(n_stub_tokens=8)):
+        tmodel.init_params(dataclasses.replace(cfg, **kw),
+                           torch.Generator(), device="cpu")
+    jcfg, tcfg, jp, tp = _weights("smollm-135m")
+    toks = _tokens(tcfg, 4)
+    pos = np.arange(4, dtype=np.int32) + 3
+    logits, cache = tmodel.prefill(tp, tcfg, torch.from_numpy(toks),
+                                   positions=torch.from_numpy(pos))
+    jlogits, jcache = jmodel.prefill(jp, jcfg, jnp.asarray(toks),
+                                     positions=jnp.asarray(pos))
+    _close(logits, jlogits)
+    _close(cache["layers"]["k"], jcache["layers"]["k"])
 
 
 _SERVE_ISOLATION = r"""
