@@ -71,14 +71,18 @@ Phases, each of which stops the run on failure:
      serving one's, row LSE against the plain one); at zamba2's head dim
      112 over the sweep's shapes, ragged shapes, the tile edges and
      zamba2-7b's prefill (B 8, S 1024, H 32, KH 32, causal, and with a
-     window of 256), with the training instantiation too; a call at Dh 96
-     or 112 that needs a gradient must raise before any launch; then K3's
+     window of 256), with the training instantiation too; a call at Dh
+     192 that needs a gradient must raise before any launch; then K3's
      backward (``csrc/flash_attention_bwd.cu``: split-TF32 ``wgmma``, dK/dV
      split over blocks where one a key tile leaves SMs idle, through the
      autograd path) against ``flash_attention_bwd_ref`` in float64 on the
      card over the reference's sweep, ragged shapes and tile edges, causal
-     and window, G 1 to 16, Dh 64 and 128, smollm-135m's training (B 8, S
-     256), federated (B 4, S 128) and serving (B 8, S 1024) shapes and
+     and window, G 1 to 16, Dh 48, 64, 96, 112 and 128 (at the new three:
+     queries off each query step, keys off the 64-key tile and the dQ
+     kernel's key steps, G > 1, windows), minicpm3-4b's (B 8, S 256, H 40,
+     Dh 96), zamba2-7b's (H 32, Dh 112) and granite-moe's (H 24 over KH
+     8) training shapes and Dh 48 at B 2 x S 64, smollm-135m's training
+     (B 8, S 256), federated (B 4, S 128) and serving (B 8, S 1024) shapes and
      fully masked rows (whose grads must be 0): two runs bitwise equal,
      the training forward's output bitwise the serving forward's, its row
      LSE against the plain one; also at qwen2-vl's and musicgen's
@@ -91,7 +95,8 @@ Phases, each of which stops the run on failure:
      then text from 16), a tail of -1s, a window of 256, keys past the
      first 50 queries (fully masked rows, which must give 0) and the
      M-RoPE positions permuted under a window of 100, and the same
-     forward and LSE checks at Dh 48, 96 and 112; then the forward at
+     forward and LSE checks at Dh 48, 96 and 112 (whose backward takes no
+     positions); then the forward at
      qwen2-vl's prefill under its M-RoPE prompt's positions;
   7. serve a reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights and prompts, without and with a window
@@ -149,7 +154,24 @@ Phases, each of which stops the run on failure:
      overflows the backward at depth: ROADMAP C6; K3 forward and each
      backward kernel once a layer a step, the loss finite and falling; ms
      a step, peak memory); each model's weights freed before the next and
-     before 7b;
+     before 7f;
+  7f. family training: reduced granite-moe-3b-a800m, deepseek-v3-671b
+     (MLA at Dh 48, a dense layer, a shared expert, the MTP head),
+     minicpm3-4b (Dh 48), falcon-mamba-7b and zamba2-7b, 3 single-client
+     SGD steps on the card against the CPU with the same weights and
+     batches (losses and params within 1e-4; K3's forward and each
+     backward kernel once an attention layer a step), and one federated
+     round at C = 3 of granite-moe and zamba2 likewise; then
+     granite-moe-3b-a800m, minicpm3-4b, falcon-mamba-7b and zamba2-7b at
+     full width and depth, 4 SGD steps each at B 8 x S 256, lr 3e-3, fp32,
+     from seed-0 weights (the two 7 B models recomputing each layer in the
+     backward, without which they do not fit: ``FAMILY_REMAT``): each K3
+     backward kernel 32, 62 (Dh 96), 0 and 13 (Dh 112) times a step, the
+     forward as often (twice that under remat, whose recompute runs it
+     again), the losses finite and falling (the last below the first, and
+     the trained weights' loss on the first batch below the first step's);
+     ms a step, tokens/s and peak memory printed; each model freed before
+     the next and before 7b;
   7b. LM training: reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights, batches and link masks, 3 SGD steps
      and one federated round at C = 3; then the main path at full width,
@@ -171,7 +193,8 @@ Phases, each of which stops the run on failure:
      qwen2-vl's prefill under its M-RoPE positions (SDPA given the
      equivalent boolean mask as the library call); K3's backward at
      smollm-135m's training and federated shapes and at qwen2-vl's and
-     musicgen's training shapes, each kernel's ms, the
+     musicgen's training shapes, at minicpm3-4b's (Dh 96) and zamba2-7b's
+     (Dh 112) and at Dh 48 (reduced minicpm3-4b), each kernel's ms, the
      split-TF32, CUDA-core and bytes bounds, SDPA's backward under each
      backend that takes fp32)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
@@ -333,7 +356,8 @@ STUB_TRAIN_STEPS = 4
 POS_SHAPES = [(2, 320, 320, 12, 2, 128, True, 0),
               (2, 320, 320, 8, 8, 64, True, 0)]
 # the forward's other head dims (MLA's 48 and 96, zamba2's 112), whose
-# position instantiations serve; the backward does not take them
+# position instantiations serve; the backward takes positions at 64 and 128
+# only
 POS_FWD_SHAPES = [(2, 320, 320, 4, 4, 48, True, 0),
                   (2, 320, 320, 8, 8, 96, True, 0),
                   (2, 320, 320, 8, 8, 112, True, 0)]
@@ -383,12 +407,62 @@ BWD_SHAPES = [
     (1, 127, 95, 1, 1, 128, False, 0),
     (1, 43, 33, 3, 1, 128, True, 16),
 ]
+# the MoE, MLA, SSM and hybrid families' training steps (phase 7f): B 8 x
+# S 256 at minicpm3-4b's heads (40 over 40, Dh 96: qk_nope + qk_rope, v
+# padded to 96), zamba2-7b's shared block (32 over 32, Dh 112) and
+# granite-moe-3b-a800m's (24 over 8, Dh 64); B 2 x S 64 at MLA's Dh 48
+# (minicpm3-4b and deepseek-v3 at reduced())
+BWD_MINICPM = (8, 256, 256, 40, 40, 96, True, 0)
+BWD_ZAMBA2 = (8, 256, 256, 32, 32, 112, True, 0)
+BWD_GRANITE = (8, 256, 256, 24, 8, 64, True, 0)
+BWD_MLA_SMALL = (2, 64, 64, 4, 4, 48, True, 0)
+BWD_SHAPES += [
+    BWD_MINICPM,
+    BWD_ZAMBA2,
+    BWD_GRANITE,
+    BWD_MLA_SMALL,
+    (2, 200, 200, 4, 4, 96, True, 0),        # ragged
+    (3, 1, 77, 12, 4, 112, True, 0),
+    (2, 70, 200, 4, 1, 48, True, 0),         # keys no query sees
+    (1, 77, 50, 16, 1, 48, False, 20),       # rows 69.. fully masked
+    (1, 100, 100, 8, 2, 48, True, 0),        # G 4
+    (2, 96, 96, 6, 2, 96, True, 0),          # G 3
+    (1, 100, 100, 8, 2, 112, True, 0),       # G 4
+    (1, 200, 130, 6, 2, 112, True, 70),      # windows across tiles
+    (1, 384, 384, 6, 2, 96, True, 96),
+    (1, 129, 65, 9, 3, 48, False, 64),
+    # tile edges: keys just off the 64-key tile, queries just off each
+    # query step (32 at Dh 48, 16 at 96 and 112) and keys off the dQ
+    # kernel's key steps (32 at 48 and 112, 16 at 96)
+    (1, 63, 65, 1, 1, 48, False, 0),
+    (1, 65, 129, 1, 1, 96, False, 0),
+    (1, 64, 127, 2, 1, 112, False, 0),
+    (1, 33, 47, 4, 4, 48, True, 17),
+    (1, 31, 33, 2, 1, 48, True, 0),
+    (1, 17, 33, 2, 1, 96, True, 0),
+    (1, 15, 17, 3, 3, 96, False, 0),
+    (1, 17, 300, 4, 1, 112, True, 0),
+    (1, 47, 33, 3, 1, 112, True, 0),
+    (2, 42, 43, 3, 1, 112, True, 0),
+]
 # |d| <= tol + tol·|ref| for the fp32 kernel against the float64 plain
 # backward (tests/test_torch_gpu.py's tolerance); the row LSE likewise
 BWD_TOL = 1e-5
 TRAIN_TOL = 1e-4             # card vs CPU losses and params, TF32 off
 # phase 7b: full-width training (tokens of examples/torch_federated_lm.py)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 256, 20, 3e-3
+# phase 7f: the families trained card vs CPU at reduced() (the first two
+# also one federated round), then at full width for FAMILY_STEPS steps;
+# the full-width runs in FAMILY_REMAT recompute each layer in the
+# backward, without which they do not fit 80 GB
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b", "minicpm3-4b",
+                "falcon-mamba-7b", "zamba2-7b")
+FAMILY_FED_ARCHS = ("granite-moe-3b-a800m", "zamba2-7b")
+FAMILY_FULL = {"granite-moe-3b-a800m": BWD_GRANITE,
+               "minicpm3-4b": BWD_MINICPM, "falcon-mamba-7b": None,
+               "zamba2-7b": BWD_ZAMBA2}
+FAMILY_REMAT = ("falcon-mamba-7b", "zamba2-7b")
+FAMILY_STEPS = 4
 FED_C, FED_B, FED_S, FED_LOCAL, FED_ROUNDS = 4, 4, 128, 10, 2
 # H100 SXM peaks (NVIDIA data sheet): device memory B/s, fp32 FLOP/s
 # outside the tensor cores and TF32 FLOP/s on them (dense); the bounds
@@ -1229,12 +1303,12 @@ def _attn_inputs(shape, dtype, dev, seed=0):
 
 def check_flash_attention(dev) -> dict:
     """K3 against its plain version at every checked shape, |d| <= tol +
-    tol·|plain|; raises past it. At the head dims the backward does not
-    take (MLA's 48 and 96, zamba2's 112) also the fp32 training
-    instantiation: its output bitwise the serving one's, its row LSE
-    within ``BWD_TOL`` of the plain one; and a call at Dh 96 or 112 that
-    needs a gradient must raise before it launches anything (the backward
-    takes Dh 64 and 128). Returns the max |d| in fp32 by shape."""
+    tol·|plain|; raises past it. At MLA's head dims 48 and 96 and
+    zamba2's 112 also the fp32 training instantiation at their prefill
+    shapes: its output bitwise the serving one's, its row LSE within
+    ``BWD_TOL`` of the plain one; and a call at Dh 192 that needs a
+    gradient must raise before it launches anything (ROADMAP B1). Returns
+    the max |d| in fp32 by shape."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import flash_attention_ref
     errs = {}
@@ -1258,10 +1332,9 @@ def check_flash_attention(dev) -> dict:
                                      f"at {shape} {dtype}: {err}")
             if dtype == torch.float32:
                 errs[shape] = err
-            if (dtype == torch.float32
-                    and shape[5] not in k3.BWD_HEAD_DIMS):
+            if dtype == torch.float32 and shape[5] in (48, 96, 112):
                 _check_lse_instantiation(q, k, v, out, causal, window, shape)
-    for dh in (96, 112):
+    for dh in (192,):
         q, k, v = (t.requires_grad_() for t in _attn_inputs(
             (1, 64, 64, 2, 2, dh), torch.float32, dev))
         n, bwd = k3.launches, dict(k3.backward_launches)
@@ -1932,8 +2005,9 @@ def check_flash_attention_backward(dev) -> float:
     LSE; a second run bitwise equal; the training forward's output bitwise
     the serving forward's; fully masked rows' dq and output exactly 0.
     Raises past any. Returns, for the training main paths' shapes
-    (``BWD_MAIN``, ``BWD_QWEN2VL``, ``BWD_MUSICGEN``) and the federated
-    one's (``BWD_FED``), the max |d| and
+    (``BWD_MAIN``, ``BWD_QWEN2VL``, ``BWD_MUSICGEN``, ``BWD_MINICPM``,
+    ``BWD_ZAMBA2``, ``BWD_MLA_SMALL``) and the federated one's
+    (``BWD_FED``), the max |d| and
     the worst excess max(|d| − tol·|plain|), which the check holds to <=
     tol."""
     from repro_torch.kernels import flash_attention as k3
@@ -1984,7 +2058,8 @@ def check_flash_attention_backward(dev) -> float:
                 and same_out and zero_rows and finite):
             raise AssertionError(f"K3 backward disagrees with its plain "
                                  f"version at {shape}")
-        if shape in (BWD_MAIN, BWD_FED, BWD_QWEN2VL, BWD_MUSICGEN):
+        if shape in (BWD_MAIN, BWD_FED, BWD_QWEN2VL, BWD_MUSICGEN,
+                     BWD_MINICPM, BWD_ZAMBA2, BWD_MLA_SMALL):
             errs_at[shape] = (max(errs), max(excess))
     torch.cuda.empty_cache()
     return errs_at
@@ -2051,7 +2126,7 @@ def check_flash_attention_positions(dev) -> dict:
     from repro_torch.kernels import ref
     for shape in POS_SHAPES + POS_FWD_SHAPES:
         B, Sq, Skv, H, KH, Dh, causal, _ = shape
-        bwd = Dh in k3.BWD_HEAD_DIMS
+        bwd = Dh in k3.BWD_POSITION_HEAD_DIMS
         for name in POS_PATTERNS:
             qp, kp, window = _position_pattern(name, Sq, dev)
             pos = dict(q_positions=qp, kv_positions=kp)
@@ -2144,46 +2219,144 @@ def check_flash_attention_positions(dev) -> dict:
     return err
 
 
-def check_train_against_cpu(dev) -> None:
+def check_train_against_cpu(dev, arch="smollm-135m", fed=True) -> dict:
     """LM training on the card (K3 forward and backward, K2) against the
-    CPU (plain versions): reduced smollm-135m, the same weights, batches
-    and link masks; 3 SGD steps, then one federated round at C = 3 with 2
-    local steps and one link erased. Losses, π* and params within
-    ``TRAIN_TOL``."""
+    CPU (plain versions): ``arch`` at reduced(), the same weights, batches
+    and link masks; 3 SGD steps, then, with ``fed``, one federated round
+    at C = 3 with 2 local steps and one link erased. Losses, π* and params
+    within ``TRAIN_TOL``; K3's forward and each backward kernel of the plan
+    once an attention layer a step of the card's single-client run.
+    Returns that run's backward launches."""
     from torch.utils._pytree import tree_map
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
     from repro_torch.launch import train
     from repro_torch.models.model import init_params
     quiet = dict(log=lambda line: None)
-    cfg = get_config("smollm-135m").reduced()
+    cfg = get_config(arch).reduced()
     p0 = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     kw = dict(steps=3, batch=2, seq=64, lr=TRAIN_LR, **quiet)
     ref = train.single_client(cfg, params=p0, device="cpu", **kw)
+    k3.reset_counts()
     got = train.single_client(cfg, params=_tree_to(p0, dev), device=dev,
                               **kw)
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    want = _attention_layers(cfg) * kw["steps"]
+    shape = (2, 64, 64, cfg.n_heads, cfg.n_kv_heads, _attn_head_dim(cfg),
+             True, cfg.sliding_window)
     errs = [max(abs(a - b) for a, b in zip(got["losses"], ref["losses"])),
             _tree_err(got["params"], ref["params"])]
-    inits = [init_params(cfg, torch.Generator().manual_seed(c), "cpu")
-             for c in range(3)]
-    stacked = tree_map(lambda *xs: torch.stack(xs), *inits)
-    masks = np.array([[True, False]])
-    kw = dict(clients=3, rounds=1, local_steps=2, batch=2, seq=64,
-              lr=TRAIN_LR, link_masks=masks, **quiet)
-    fref = train.federated(cfg, params=tree_map(torch.clone, stacked),
-                           device="cpu", **kw)
-    fgot = train.federated(cfg, params=_tree_to(stacked, dev), device=dev,
-                           **kw)
-    errs += [abs(fgot["target_loss"][0] - fref["target_loss"][0]),
-             float(np.abs(fgot["pi"][0] - fref["pi"][0]).max()),
-             _tree_err(fgot["params"], fref["params"])]
-    print(f"train reduced smollm-135m, card vs CPU: 3 SGD steps max|dloss|="
-          f"{errs[0]:.3g} max|dparams|={errs[1]:.3g}; one federated round "
-          f"at C = 3: |dloss|={errs[2]:.3g} max|dpi|={errs[3]:.3g} "
-          f"max|dparams|={errs[4]:.3g} (tol {TRAIN_TOL:g})")
-    if not (max(errs) <= TRAIN_TOL and np.array_equal(
-            fgot["links"][0], masks[0])):
-        raise AssertionError("the card's training run disagrees with the "
-                             "CPU's")
+    line = (f"train reduced {arch}, card vs CPU: 3 SGD steps max|dloss|="
+            f"{errs[0]:.3g} max|dparams|={errs[1]:.3g}, K3 forward {n_fwd} "
+            f"backward {n_bwd}")
+    links_ok = True
+    if fed:
+        inits = [init_params(cfg, torch.Generator().manual_seed(c), "cpu")
+                 for c in range(3)]
+        stacked = tree_map(lambda *xs: torch.stack(xs), *inits)
+        masks = np.array([[True, False]])
+        kw = dict(clients=3, rounds=1, local_steps=2, batch=2, seq=64,
+                  lr=TRAIN_LR, link_masks=masks, **quiet)
+        fref = train.federated(cfg, params=tree_map(torch.clone, stacked),
+                               device="cpu", **kw)
+        fgot = train.federated(cfg, params=_tree_to(stacked, dev),
+                               device=dev, **kw)
+        errs += [abs(fgot["target_loss"][0] - fref["target_loss"][0]),
+                 float(np.abs(fgot["pi"][0] - fref["pi"][0]).max()),
+                 _tree_err(fgot["params"], fref["params"])]
+        links_ok = np.array_equal(fgot["links"][0], masks[0])
+        line += (f"; one federated round at C = 3: |dloss|={errs[2]:.3g} "
+                 f"max|dpi|={errs[3]:.3g} max|dparams|={errs[4]:.3g}")
+    print(f"{line} (tol {TRAIN_TOL:g})")
+    if not (max(errs) <= TRAIN_TOL and links_ok and n_fwd == want
+            and _bwd_counts_ok(n_bwd, _bwd_kernels(shape, dev)
+                               if want else (), want)):
+        raise AssertionError(f"the card's training run of reduced {arch} "
+                             f"disagrees with the CPU's")
+    return n_bwd
+
+
+def _attention_layers(cfg) -> int:
+    """K3 launches in one training forward of ``cfg``: one an attention
+    layer (and one for an MTP head's block), or one an application of a
+    hybrid's shared block; 0 for a pure SSM."""
+    if cfg.ssm:
+        return (cfg.n_layers // cfg.hybrid_attn_every
+                if cfg.hybrid_attn_every else 0)
+    return cfg.n_layers + (1 if cfg.mtp_depth else 0)
+
+
+def _attn_head_dim(cfg) -> int:
+    """The head dim ``cfg``'s attention gives K3: qk_nope + qk_rope under
+    MLA (v padded to it), else the head dim."""
+    if cfg.mla:
+        return cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    return cfg.resolved_head_dim
+
+
+def run_family_train_main_path(dev, arch) -> dict:
+    """``arch`` at full width and depth through ``single_client``: B 8 x S
+    256, ``FAMILY_STEPS`` SGD steps at lr 3e-3, fp32, from seed-0 weights,
+    recomputing each layer in the backward for ``FAMILY_REMAT``. Each
+    backward kernel of the plan at the family's training shape
+    (``FAMILY_FULL``) launches once an attention layer a step (none for
+    falcon-mamba), K3's forward once, or twice under remat (the recompute
+    runs it again); the losses are finite and falling: the last step's
+    below the first's, as phase 7e gates, and the trained weights' loss on
+    the first step's batch below that step's (the same batch, so no
+    batch-to-batch spread in it). The weights are freed on return.
+    Returns the timings, losses, peak and launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batch_stream
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import train
+    from repro_torch.models.model import loss_fn
+    cfg = get_config(arch)
+    shape = FAMILY_FULL[arch]
+    remat = arch in FAMILY_REMAT
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.reset_counts()
+    tr = train.single_client(cfg, steps=FAMILY_STEPS, batch=TRAIN_B,
+                             seq=TRAIN_S, lr=TRAIN_LR, remat=remat,
+                             device=dev)
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    first = next(token_batch_stream(0, batch=TRAIN_B, seq_len=TRAIN_S,
+                                    vocab=cfg.vocab))
+    with torch.no_grad():
+        held = float(loss_fn(tr.pop("params"), cfg, {
+            k: torch.from_numpy(v).to(dev) for k, v in first.items()})[0])
+    torch.cuda.empty_cache()
+    want = _attention_layers(cfg) * FAMILY_STEPS
+    if shape is not None and shape != (TRAIN_B, TRAIN_S, TRAIN_S,
+                                       cfg.n_heads, cfg.n_kv_heads,
+                                       _attn_head_dim(cfg), True, 0):
+        raise AssertionError(f"FAMILY_FULL's shape for {arch} is not its "
+                             f"training shape")
+    tt = tr["timings"]
+    print(f"{arch} training B={TRAIN_B} S={TRAIN_S} {FAMILY_STEPS} SGD "
+          f"steps fp32, remat {remat}: {tt['ms_per_step']} ms per step after"
+          f" the first ({tt['first_step_ms']} ms), {tt['tokens_per_s']} "
+          f"tokens/s, peak memory {peak:.3f} GiB; losses {tr['losses']}, "
+          f"the first batch's after training {held}; launches K3 forward "
+          f"{n_fwd}, backward {n_bwd}")
+    losses = tr["losses"]
+    if not (n_fwd == want * (2 if remat else 1)
+            and k3.position_launches == 0
+            and _bwd_counts_ok(n_bwd, _bwd_kernels(shape, dev) if shape
+                               else (), want)
+            and all(np.isfinite(losses + [held])) and losses[-1] < losses[0]
+            and held < losses[0]):
+        raise AssertionError(f"{arch} training: K3 {n_fwd}/{n_bwd} "
+                             f"(expected {want} a kernel, the forward twice "
+                             f"under remat), losses {losses}, "
+                             f"the first batch's after training {held}")
+    return {"timings": tt, "peak_gib": peak, "losses": losses,
+            "first_batch_after": held, "remat": remat, "k3_forward": n_fwd,
+            "k3_backward": n_bwd}
 
 
 def _tree_err(a, b) -> float:
@@ -3123,6 +3296,19 @@ def main() -> int:
     small = ", ".join(f"{a} {r} {n}" for (a, r), n in stub_small.items())
     print(f"reduced stub-prefix runs' K3 launches: {small}")
 
+    _phase("7f. family training: reduced granite-moe, deepseek-v3, "
+           "minicpm3-4b, falcon-mamba and zamba2 vs CPU (federated rounds "
+           "of granite-moe and zamba2), then granite-moe, minicpm3-4b, "
+           "falcon-mamba and zamba2 at full width")
+    family_small = {arch: check_train_against_cpu(
+        dev, arch, fed=arch in FAMILY_FED_ARCHS) for arch in FAMILY_ARCHS}
+    family_main = {}
+    for arch in FAMILY_FULL:          # 13.5 to 29 GB of weights, in turn
+        t0 = time.perf_counter()
+        family_main[arch] = run_family_train_main_path(dev, arch)
+        print(f"{arch} training main path wall "
+              f"{time.perf_counter() - t0:.1f} s")
+
     _phase("7b. LM training: small run vs CPU, then single-client and "
            "federated at full width")
     check_train_against_cpu(dev)
@@ -3176,7 +3362,20 @@ def main() -> int:
                              "train qwen2-vl-2b", STUB_TRAIN_STEPS),
         attention_bwd_report(dev, BWD_MUSICGEN, musicgen["k3_backward"],
                              err3_bwd[BWD_MUSICGEN], floor,
-                             "train musicgen-large", STUB_TRAIN_STEPS)]
+                             "train musicgen-large", STUB_TRAIN_STEPS),
+        attention_bwd_report(dev, BWD_MINICPM,
+                             family_main["minicpm3-4b"]["k3_backward"],
+                             err3_bwd[BWD_MINICPM], floor,
+                             "train minicpm3-4b (MLA, Dh 96)", FAMILY_STEPS),
+        attention_bwd_report(dev, BWD_ZAMBA2,
+                             family_main["zamba2-7b"]["k3_backward"],
+                             err3_bwd[BWD_ZAMBA2], floor,
+                             "train zamba2-7b (the shared attention block, "
+                             "Dh 112)", FAMILY_STEPS),
+        attention_bwd_report(dev, BWD_MLA_SMALL, family_small["minicpm3-4b"],
+                             err3_bwd[BWD_MLA_SMALL], floor,
+                             "train reduced minicpm3-4b (MLA, Dh 48), card "
+                             "vs CPU", 3)]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}

@@ -27,7 +27,8 @@
 //
 // Four kernels, no floating-point atomics: every output element is summed
 // in one fixed order, so two runs give the same bits.
-//   (a) attn_bwd_dot_kernel: D, Dh / 4 lanes a (b, i, h) row.
+//   (a) attn_bwd_dot_kernel: D, Dh / 4 lanes a (b, i, h) row (rounded up
+//       to 16 or 32, the extra lanes adding 0).
 //   (b) attn_bwd_dkdv_kernel: a block owns 64 keys of one KV head and walks
 //       a contiguous range of their (head g, query tile) steps; `splits`
 //       blocks share a key tile's steps (split c takes steps
@@ -81,6 +82,19 @@
 //   (b) holds 128 accumulators a thread and spills a few hundred bytes).
 //   Blocks of 256 threads (128 at Dh 128) at up to 255 registers, one a
 //   SM.
+// - Head sizes 48, 96 and 112 (MLA at reduced() and minicpm3-4b's qk_nope
+//   + qk_rope; zamba2-7b's shared block) keep this design with their own
+//   tiles (Cfg): Dh 48 as Dh 64 (two warpgroups, 32-wide steps; 169 KB
+//   and 144 KB); Dh 96 two warpgroups with 16-wide steps (217 KB and 192
+//   KB); Dh 112 one warpgroup, 16-query steps in (b) (182 KB: 32 would
+//   take 253 KB) and 32-key steps in (c) (224 KB). The register-A products
+//   (dV, dK, dQ) issue 48 output columns at a time at Dh 48 and 96
+//   (m64n48k8) and 56 at 112 (m64n56k8), each summed in fresh registers
+//   as at 64. Dh 112's 16-row tiles are 448 float4s, three and a half
+//   passes of a warpgroup: the last pass is partial. Column groups rotate
+//   within runs of 4 where a row's 12 or 28 groups are not a multiple of
+//   8. Position instantiations exist at Dh 64 and 128 only (M-RoPE trains
+//   at 128); the launch refuses positions at the others.
 // - A group's next step's raw tiles (and lse, D) are copied with cp.async
 //   while its current step's products run; the conversion into split
 //   layouts sits between two barriers of that group alone. S (S^T) and dP
@@ -116,11 +130,14 @@
 //   index instantiations' bit for bit.
 // Left for later: computing S and dP once for both dK/dV and dQ, a deeper
 // cp.async ring (shared memory is full at Dh 64), folding D and the reduce
-// into the other kernels, and bf16 (the reference trains in fp32).
+// into the other kernels, bf16 (the reference trains in fp32), and Dh 192
+// (deepseek-v3 at full width; ROADMAP B1).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wgmma_tf32.cuh"
 
@@ -132,14 +149,31 @@ constexpr int kKeyTile = 64;      // (b): the keys a block owns (wgmma's M)
 constexpr int kRowTile = 64;      // (c): the query rows a block owns
 
 // Warpgroups a block, (b)'s query tile and (c)'s key tile (the N of S^T
-// and S, and the contraction of the dV, dK and dQ products)
+// and S, and the contraction of the dV, dK and dQ products), and the
+// output columns one register-A wgmma of those products issues (48 at Dh
+// 48 and 96, 56 at 112: their widths are not a multiple of 64)
 template <int DH> struct Cfg;
+template <> struct Cfg<48> {
+  static constexpr int kWG = 2, kQ = 32, kK = 32, kN = 48;
+};
 template <> struct Cfg<64> {
-  static constexpr int kWG = 2, kQ = 32, kK = 32;
+  static constexpr int kWG = 2, kQ = 32, kK = 32, kN = 64;
+};
+template <> struct Cfg<96> {
+  static constexpr int kWG = 2, kQ = 16, kK = 16, kN = 48;
+};
+template <> struct Cfg<112> {
+  static constexpr int kWG = 1, kQ = 16, kK = 32, kN = 56;
 };
 template <> struct Cfg<128> {
-  static constexpr int kWG = 1, kQ = 16, kK = 16;
+  static constexpr int kWG = 1, kQ = 16, kK = 16, kN = 64;
 };
+// the head sizes whose position instantiations (kPos) are built: M-RoPE
+// trains at qwen2-vl's 128 and musicgen's 64; no training path takes
+// positions at the others
+template <int DH>
+constexpr bool kPosBuilt = DH == 64 || DH == 128;
+constexpr int kSmemLimit = 232448;  // the opt-in shared memory of a block
 
 // (b)'s shared memory, in bytes from a 128-aligned base: K and V, then
 // each warpgroup's Q, Q^T, dO, dO^T, raw Q and dO and two sets of lse and
@@ -157,6 +191,9 @@ struct DkdvSmem {
   static constexpr uint32_t kGroup = kStats + 2 * 2 * kQT * 4;
   static constexpr uint32_t kPosAt = kGroup0 + kWG * kGroup;
   static constexpr uint32_t kBytes = kPosAt + (kPos ? 16 : 0) + 128;
+  static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
+  static_assert(kWG == 1 || DH * kWGThreads * 4 <= kGroup,
+                "the second group's dK, dV sums fit its region");
 };
 
 // (c)'s shared memory: Q and dO, then each warpgroup's K, V, K^T and raw
@@ -172,6 +209,9 @@ struct DqSmem {
   static constexpr uint32_t kGroup = 8 * kKh;
   static constexpr uint32_t kPosAt = kGroup0 + kWG * kGroup;
   static constexpr uint32_t kBytes = kPosAt + (kPos ? 16 : 0) + 128;
+  static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
+  static_assert(kWG == 1 || DH / 2 * kWGThreads * 4 <= kGroup,
+                "the second group's dQ sums fit its region");
 };
 
 __device__ __forceinline__ bool visible(int i, int j, int Sq, int Skv,
@@ -242,23 +282,28 @@ __device__ __forceinline__ void store_split(uint8_t* big, uint32_t half,
 
 // Loops over the u < N elements of a tile, u = it * T + tid for T
 // threads, fully unrolled so that a thread's loads are all in flight
-// together
+// together. Where T does not divide N (Dh 112's 16-row tiles: 448 float4s
+// over 128 threads) the last pass is partial and `in` skips the rest.
 template <int N, int T>
 struct Passes {
-  static_assert(N % T == 0, "a tile is a whole number of passes");
-  static constexpr int value = N / T;
+  static constexpr int value = (N + T - 1) / T;
+  static __device__ __forceinline__ bool in(int u) {
+    return N % T == 0 || u < N;
+  }
 };
 
 // Row and column (in c) of float4 u of a tile of DH-float rows, in an
 // order free of bank conflicts for the K-major writes (and reads of a
 // row-major tile): each 8 threads take rows r..r+7 at column groups
-// rotated by the row.
+// rotated by the row, within runs of 8 groups (of 4 at Dh 48 and 112,
+// whose 12 and 28 groups are not a multiple of 8).
 template <int DH>
 __device__ __forceinline__ int rotated(int u, int& c) {
+  constexpr int kGroups = DH / 4, kRot = kGroups % 8 == 0 ? 8 : 4;
   const int j = u & 7, rest = u >> 3;
-  const int cc = rest % (DH / 4);
-  c = ((cc & ~7) | ((cc + j) & 7)) * 4;
-  return (rest / (DH / 4)) * 8 + j;
+  const int cc = rest % kGroups;
+  c = ((cc & ~(kRot - 1)) | ((cc + j) & (kRot - 1))) * 4;
+  return (rest / kGroups) * 8 + j;
 }
 
 // ROWS rows of DH floats, row-major at `raw`, into a split K-major operand
@@ -266,10 +311,13 @@ __device__ __forceinline__ int rotated(int u, int& c) {
 template <int ROWS, int DH>
 __device__ __forceinline__ void to_kmajor(const float* raw, uint8_t* dst,
                                           uint32_t half, int tid) {
+  using P = Passes<ROWS * (DH / 4), kWGThreads>;
 #pragma unroll
-  for (int it = 0; it < Passes<ROWS * (DH / 4), kWGThreads>::value; ++it) {
+  for (int it = 0; it < P::value; ++it) {
+    const int u = it * kWGThreads + tid;
+    if (!P::in(u)) continue;
     int c;
-    const int r = rotated<DH>(it * kWGThreads + tid, c);
+    const int r = rotated<DH>(u, c);
     store_split(dst, half, kmajor(r, c, ROWS),
                 *reinterpret_cast<const float4*>(raw + r * DH + c));
   }
@@ -282,9 +330,11 @@ __device__ __forceinline__ void to_kmajor(const float* raw, uint8_t* dst,
 template <int ROWS, int DH>
 __device__ __forceinline__ void to_transposed(const float* raw, uint8_t* dst,
                                               uint32_t half, int tid) {
+  using P = Passes<DH * (ROWS / 4), kWGThreads>;
 #pragma unroll
-  for (int it = 0; it < Passes<DH * (ROWS / 4), kWGThreads>::value; ++it) {
+  for (int it = 0; it < P::value; ++it) {
     const int u = it * kWGThreads + tid;
+    if (!P::in(u)) continue;
     const int n = u % DH, p4 = u / DH;
     const int r0 = (p4 >> 1) * 8 + (p4 & 1);
     store_split(dst, half, kmajor(n, p4 * 4, DH),
@@ -302,10 +352,11 @@ __device__ __forceinline__ void load_kmajor(const float* src,
                                             int rows, int heads, int head,
                                             uint8_t* dst, uint32_t half,
                                             int tid) {
-  constexpr int kIt = Passes<ROWS * (DH / 4), T>::value;
-  float4 x[kIt];
+  using P = Passes<ROWS * (DH / 4), T>;
+  float4 x[P::value];
 #pragma unroll
-  for (int it = 0; it < kIt; ++it) {
+  for (int it = 0; it < P::value; ++it) {
+    if (!P::in(it * T + tid)) continue;
     int c;
     const int r = rotated<DH>(it * T + tid, c);
     x[it] = row0 + r < rows
@@ -315,7 +366,8 @@ __device__ __forceinline__ void load_kmajor(const float* src,
                 : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
-  for (int it = 0; it < kIt; ++it) {
+  for (int it = 0; it < P::value; ++it) {
+    if (!P::in(it * T + tid)) continue;
     int c;
     const int r = rotated<DH>(it * T + tid, c);
     store_split(dst, half, kmajor(r, c, ROWS), x[it]);
@@ -328,9 +380,11 @@ template <int ROWS, int DH>
 __device__ __forceinline__ void copy_rows(const float* src, int64_t batch_off,
                                           int row0, int rows, int heads,
                                           int head, uint32_t dst, int tid) {
+  using P = Passes<ROWS * (DH / 4), kWGThreads>;
 #pragma unroll
-  for (int it = 0; it < Passes<ROWS * (DH / 4), kWGThreads>::value; ++it) {
+  for (int it = 0; it < P::value; ++it) {
     const int u = it * kWGThreads + tid;
+    if (!P::in(u)) continue;
     const int r = u / (DH / 4), c = (u % (DH / 4)) * 4;
     const bool ok = row0 + r < rows;
     const float* p =
@@ -344,35 +398,38 @@ __device__ __forceinline__ void copy_rows(const float* src, int64_t batch_off,
 // acc += A . B over K/8 k-steps: A from registers (a[4j..4j+3] are the
 // accumulator fragment of a 64 x K product, so positions t, t+4 of k-step j
 // are its columns 8j + 2t, 8j + 2t + 1), B the transposed operand (DH rows,
-// big half at `bb`, small half at `bs`) for output columns 64c.. of DH.
-// Split TF32, small terms first, in fresh registers, then one fp32 add.
+// big half at `bb`, small half at `bs`) for output columns N c.. of DH, N =
+// Cfg<DH>::kN. Split TF32, small terms first, in fresh registers, then one
+// fp32 add.
 template <int K, int DH>
 __device__ __forceinline__ void product_rs(float (&acc)[DH / 2],
                                            const uint32_t (&ab)[K / 2],
                                            const uint32_t (&as)[K / 2],
                                            uint32_t bb, uint32_t bs) {
+  constexpr int N = Cfg<DH>::kN;
+  static_assert(DH % N == 0, "whole wgmma products");
 #pragma unroll
-  for (int c = 0; c < DH / 64; ++c) {
-    float t[32];
+  for (int c = 0; c < DH / N; ++c) {
+    float t[N / 2];
 #pragma unroll
-    for (int x = 0; x < 32; ++x) t[x] = 0.f;
+    for (int x = 0; x < N / 2; ++x) t[x] = 0.f;
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < K / 8; ++j)
-      wgmma_rs_n64(t, as[4 * j], as[4 * j + 2], as[4 * j + 1], as[4 * j + 3],
-                   desc(bb + c * 2048 + j * DH * 32));
+      wgmma_rs<N>(t, as[4 * j], as[4 * j + 2], as[4 * j + 1], as[4 * j + 3],
+                  desc(bb + c * N * 32 + j * DH * 32));
 #pragma unroll
     for (int j = 0; j < K / 8; ++j)
-      wgmma_rs_n64(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
-                   desc(bs + c * 2048 + j * DH * 32));
+      wgmma_rs<N>(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
+                  desc(bs + c * N * 32 + j * DH * 32));
 #pragma unroll
     for (int j = 0; j < K / 8; ++j)
-      wgmma_rs_n64(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
-                   desc(bb + c * 2048 + j * DH * 32));
+      wgmma_rs<N>(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
+                  desc(bb + c * N * 32 + j * DH * 32));
     wgmma_commit_and_wait();
     fence_regs(t);
 #pragma unroll
-    for (int x = 0; x < 32; ++x) acc[32 * c + x] += t[x];
+    for (int x = 0; x < N / 2; ++x) acc[N / 2 * c + x] += t[x];
   }
 }
 
@@ -411,27 +468,37 @@ __device__ __forceinline__ void gather(float (&a)[N], const float* buf,
   for (int x = 0; x < N; ++x) a[x] += buf[x * kWGThreads + tid];
 }
 
-// one float4 a thread, DH / 4 lanes a row
+// (a)'s lanes a row: DH / 4 float4s, rounded up to a power of two (16 at
+// Dh 48 and 64, 32 at 96, 112 and 128) so that a row's lanes are one
+// shuffle tree within a warp; the lanes past DH / 4 add 0
+template <int DH>
+struct DotLanes {
+  static constexpr int value = DH / 4 <= 16 ? 16 : 32;
+};
+
+// one float4 a thread
 template <int DH>
 __global__ void __launch_bounds__(kDotThreads)
 attn_bwd_dot_kernel(const float* __restrict__ dout,
                     const float* __restrict__ out, float* __restrict__ D,
                     int B, int Sq, int H) {
-  constexpr int kLanes = DH / 4;
+  constexpr int kLanes = DotLanes<DH>::value, kVec = DH / 4;
   const int64_t u = static_cast<int64_t>(blockIdx.x) * kDotThreads +
                     threadIdx.x;
   const int64_t row = u / kLanes;
+  const int lane = static_cast<int>(u % kLanes);
   const bool ok = row < static_cast<int64_t>(B) * Sq * H;
   float s = 0.f;
-  if (ok) {
-    const float4 a = reinterpret_cast<const float4*>(dout)[u];
-    const float4 o = reinterpret_cast<const float4*>(out)[u];
+  if (ok && lane < kVec) {
+    const int64_t e = row * kVec + lane;
+    const float4 a = reinterpret_cast<const float4*>(dout)[e];
+    const float4 o = reinterpret_cast<const float4*>(out)[e];
     s = fmaf(a.x, o.x, fmaf(a.y, o.y, fmaf(a.z, o.z, a.w * o.w)));
   }
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (ok && u % kLanes == 0) {  // row = (b * Sq + i) * H + h -> (b, h, i)
+  if (ok && lane == 0) {  // row = (b * Sq + i) * H + h -> (b, h, i)
     const int64_t h = row % H, bi = row / H;
     const int64_t b = bi / Sq, i = bi % Sq;
     D[(b * H + h) * Sq + i] = s;
@@ -932,10 +999,13 @@ int dkdv_at(const float* q, const float* k, const float* v,
             float* dv, const int* q_pos, const int* kv_pos, int B, int Sq,
             int Skv, int H, int KH, int causal, int window, int splits,
             float scale, cudaStream_t st) {
-  if (q_pos != nullptr)
-    return launch_dkdv<DH, true>(q, k, v, dout, lse, D, dk, dv, q_pos,
-                                 kv_pos, B, Sq, Skv, H, KH, causal, window,
-                                 splits, scale, st);
+  if (q_pos != nullptr) {
+    if constexpr (kPosBuilt<DH>)
+      return launch_dkdv<DH, true>(q, k, v, dout, lse, D, dk, dv, q_pos,
+                                   kv_pos, B, Sq, Skv, H, KH, causal, window,
+                                   splits, scale, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return launch_dkdv<DH, false>(q, k, v, dout, lse, D, dk, dv, q_pos, kv_pos,
                                 B, Sq, Skv, H, KH, causal, window, splits,
                                 scale, st);
@@ -947,16 +1017,33 @@ int dq_at(const float* q, const float* k, const float* v, const float* dout,
           const float* lse, const float* D, float* dq, const int* q_pos,
           const int* kv_pos, int B, int Sq, int Skv, int H, int KH,
           int causal, int window, float scale, cudaStream_t st) {
-  if (q_pos != nullptr)
-    return launch_dq<DH, true>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
-                               Sq, Skv, H, KH, causal, window, scale, st);
+  if (q_pos != nullptr) {
+    if constexpr (kPosBuilt<DH>)
+      return launch_dq<DH, true>(q, k, v, dout, lse, D, dq, q_pos, kv_pos,
+                                 B, Sq, Skv, H, KH, causal, window, scale,
+                                 st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return launch_dq<DH, false>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
                               Sq, Skv, H, KH, causal, window, scale, st);
 }
 
-bool shape_ok(int B, int Sq, int Skv, int H, int KH, int Dh) {
-  return B >= 1 && Sq >= 1 && Skv >= 1 && KH >= 1 && H % KH == 0 &&
-         (Dh == 64 || Dh == 128);
+// Calls f(std::integral_constant<int, Dh>) at a head size the kernels
+// take, else returns cudaErrorInvalidValue
+template <typename F>
+int at_head_dim(int Dh, F f) {
+  switch (Dh) {
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool shape_ok(int B, int Sq, int Skv, int H, int KH) {
+  return B >= 1 && Sq >= 1 && Skv >= 1 && KH >= 1 && H % KH == 0;
 }
 
 float scale_of(int Dh) {
@@ -967,45 +1054,58 @@ float scale_of(int Dh) {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue for a shape the kernels do not take
-// (Dh other than 64 or 128, H % KH != 0, more than 2^31 - 1 blocks).
-// Layouts as at the top; every tensor fp32, contiguous and, for q, k, v
-// and dO, 16-byte aligned (cp.async). Call (a), then (b), then (r) when
-// splits > 1, and (c); (b) and (c) read D.
+// (Dh other than 48, 64, 96, 112 or 128, explicit positions at a Dh other
+// than 64 or 128, H % KH != 0, more than 2^31 - 1 blocks). Layouts as at
+// the top; every tensor fp32, contiguous and, for q, k, v and dO, 16-byte
+// aligned (cp.async). Call (a), then (b), then (r) when splits > 1, and
+// (c); (b) and (c) read D.
 
 // The tiles, for the wrapper to check its copy of the schedule against:
 // (b)'s keys and query tile, (c)'s rows and key tile, and the warpgroups a
 // block, at head size Dh.
 extern "C" int attn_bwd_tiles(int Dh, int* key_tile, int* query_tile,
                               int* rows, int* key_step, int* groups) {
-  if (Dh != 64 && Dh != 128) return static_cast<int>(cudaErrorInvalidValue);
-  *key_tile = kKeyTile;
-  *rows = kRowTile;
-  *groups = Dh == 64 ? Cfg<64>::kWG : Cfg<128>::kWG;
-  *query_tile = Dh == 64 ? Cfg<64>::kQ : Cfg<128>::kQ;
-  *key_step = Dh == 64 ? Cfg<64>::kK : Cfg<128>::kK;
-  return 0;
+  return at_head_dim(Dh, [&](auto dh) {
+    using C = Cfg<decltype(dh)::value>;
+    *key_tile = kKeyTile;
+    *rows = kRowTile;
+    *groups = C::kWG;
+    *query_tile = C::kQ;
+    *key_step = C::kK;
+    return 0;
+  });
+}
+
+// 1 if the library holds the position instantiations at head size Dh,
+// else 0
+extern "C" int attn_bwd_positions_built(int Dh) {
+  int built = 0;
+  at_head_dim(Dh, [&](auto dh) {
+    built = kPosBuilt<decltype(dh)::value>;
+    return 0;
+  });
+  return built;
 }
 
 // (a) D (B, H, Sq) from dO and o (B, Sq, H, Dh)
 extern "C" int attn_bwd_dot_launch(const void* dout, const void* out,
                                    void* D, int B, int Sq, int H, int Dh,
                                    void* stream) {
-  if (!shape_ok(B, Sq, 1, H, 1, Dh))
+  if (!shape_ok(B, Sq, 1, H, 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t lanes = static_cast<int64_t>(B) * Sq * H * (Dh / 4);
-  const int64_t blocks = (lanes + kDotThreads - 1) / kDotThreads;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  if (Dh == 64)
-    attn_bwd_dot_kernel<64><<<static_cast<unsigned>(blocks), kDotThreads, 0,
-                              st>>>(f(dout), f(out), static_cast<float*>(D),
-                                    B, Sq, H);
-  else
-    attn_bwd_dot_kernel<128><<<static_cast<unsigned>(blocks), kDotThreads, 0,
-                               st>>>(f(dout), f(out), static_cast<float*>(D),
-                                     B, Sq, H);
-  return static_cast<int>(cudaGetLastError());
+  return at_head_dim(Dh, [&](auto dh) {
+    constexpr int DH = decltype(dh)::value;
+    const int64_t lanes =
+        static_cast<int64_t>(B) * Sq * H * DotLanes<DH>::value;
+    const int64_t blocks = (lanes + kDotThreads - 1) / kDotThreads;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    attn_bwd_dot_kernel<DH><<<static_cast<unsigned>(blocks), kDotThreads,
+                              0, st>>>(static_cast<const float*>(dout),
+                                       static_cast<const float*>(out),
+                                       static_cast<float*>(D), B, Sq, H);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // (b) dk, dv (B, Skv, KH, Dh) with splits = 1; with splits > 1 dk and dv
@@ -1019,21 +1119,19 @@ extern "C" int attn_bwd_dkdv_launch(const void* q, const void* k,
                                     int Skv, int H, int KH, int Dh,
                                     int causal, int window, int splits,
                                     void* stream) {
-  if (!shape_ok(B, Sq, Skv, H, KH, Dh) || splits < 1 ||
+  if (!shape_ok(B, Sq, Skv, H, KH) || splits < 1 ||
       (q_pos == nullptr) != (kv_pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto i = [](const void* p) { return static_cast<const int*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 64)
-    return dkdv_at<64>(f(q), f(k), f(v), f(dout), f(lse), f(D),
+  return at_head_dim(Dh, [&](auto dh) {
+    constexpr int DH = decltype(dh)::value;
+    return dkdv_at<DH>(f(q), f(k), f(v), f(dout), f(lse), f(D),
                        static_cast<float*>(dk), static_cast<float*>(dv),
                        i(q_pos), i(kv_pos), B, Sq, Skv, H, KH, causal, window,
-                       splits, scale_of(Dh), st);
-  return dkdv_at<128>(f(q), f(k), f(v), f(dout), f(lse), f(D),
-                      static_cast<float*>(dk), static_cast<float*>(dv),
-                      i(q_pos), i(kv_pos), B, Sq, Skv, H, KH, causal, window,
-                      splits, scale_of(Dh), st);
+                       splits, scale_of(DH), st);
+  });
 }
 
 // (r) dk, dv (n floats each, n % 4 == 0) from part (2, splits, n): dK's
@@ -1059,17 +1157,16 @@ extern "C" int attn_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* kv_pos, int B, int Sq, int Skv,
                                   int H, int KH, int Dh, int causal,
                                   int window, void* stream) {
-  if (!shape_ok(B, Sq, Skv, H, KH, Dh) ||
+  if (!shape_ok(B, Sq, Skv, H, KH) ||
       (q_pos == nullptr) != (kv_pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto i = [](const void* p) { return static_cast<const int*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 64)
-    return dq_at<64>(f(q), f(k), f(v), f(dout), f(lse), f(D),
+  return at_head_dim(Dh, [&](auto dh) {
+    constexpr int DH = decltype(dh)::value;
+    return dq_at<DH>(f(q), f(k), f(v), f(dout), f(lse), f(D),
                      static_cast<float*>(dq), i(q_pos), i(kv_pos), B, Sq,
-                     Skv, H, KH, causal, window, scale_of(Dh), st);
-  return dq_at<128>(f(q), f(k), f(v), f(dout), f(lse), f(D),
-                    static_cast<float*>(dq), i(q_pos), i(kv_pos), B, Sq, Skv,
-                    H, KH, causal, window, scale_of(Dh), st);
+                     Skv, H, KH, causal, window, scale_of(DH), st);
+  });
 }

@@ -32,9 +32,9 @@ recompute P from the LSE as the reference's ``chunked_attention``
 recomputes each chunk under ``jax.checkpoint``. :func:`backward_plan`
 picks the split. The backward is fp32 only
 (the reference trains in fp32) and raises for bf16; it takes the head dims
-:data:`BWD_HEAD_DIMS`, and a call that needs a gradient at another raises
-in the forward, before any launch. Nothing falls back to the plain version
-on a card.
+:data:`BWD_HEAD_DIMS` (explicit positions at :data:`BWD_POSITION_HEAD_DIMS`
+only), and a call that needs a gradient at another raises in the forward,
+before any launch. Nothing falls back to the plain version on a card.
 
 Both directions multiply on the tensor cores (``wgmma`` in TF32 with
 every operand split into a big and a small TF32 part, so fp32 keeps fp32's
@@ -55,7 +55,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 FWD_HEAD_DIMS = (48, 64, 96, 112, 128)  # the forward kernel's head sizes
-BWD_HEAD_DIMS = (64, 128)               # the backward's (ROADMAP Queue B, B1)
+BWD_HEAD_DIMS = (48, 64, 96, 112, 128)  # the backward's (192: ROADMAP B1)
+# the head dims at which the backward takes explicit positions (M-RoPE
+# trains at qwen2-vl's 128; no training path gives positions at the others)
+BWD_POSITION_HEAD_DIMS = (64, 128)
 ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
 position_launches = 0        # of those, launches with explicit positions
@@ -67,10 +70,10 @@ backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
 # steps, by head size; query rows a dQ block owns and the key tile of its
 # steps; warpgroups a block, which share its steps
 BWD_KEY_TILE = 64
-BWD_QUERY_TILE = {64: 32, 128: 16}
+BWD_QUERY_TILE = {48: 32, 64: 32, 96: 16, 112: 16, 128: 16}
 BWD_ROW_TILE = 64
-BWD_KEY_STEP = {64: 32, 128: 16}
-BWD_GROUPS = {64: 2, 128: 1}
+BWD_KEY_STEP = {48: 32, 64: 32, 96: 16, 112: 32, 128: 16}
+BWD_GROUPS = {48: 2, 64: 2, 96: 2, 112: 1, 128: 1}
 
 _lib = None
 _bwd_lib = None
@@ -93,12 +96,14 @@ def _bwd_library() -> ctypes.CDLL:
         lib = _build.load("flash_attention_bwd")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.attn_bwd_tiles.argtypes = [i] + [ctypes.POINTER(i)] * 5
+        lib.attn_bwd_positions_built.argtypes = [i]
         lib.attn_bwd_dot_launch.argtypes = [p] * 3 + [i] * 4 + [p]
         lib.attn_bwd_dkdv_launch.argtypes = [p] * 10 + [i] * 9 + [p]
         lib.attn_bwd_reduce_launch.argtypes = [p] * 3 + [ctypes.c_longlong,
                                                          i, p]
         lib.attn_bwd_dq_launch.argtypes = [p] * 9 + [i] * 8 + [p]
-        for fn in (lib.attn_bwd_tiles, lib.attn_bwd_dot_launch,
+        for fn in (lib.attn_bwd_tiles, lib.attn_bwd_positions_built,
+                   lib.attn_bwd_dot_launch,
                    lib.attn_bwd_dkdv_launch, lib.attn_bwd_reduce_launch,
                    lib.attn_bwd_dq_launch):
             fn.restype = ctypes.c_int
@@ -111,6 +116,11 @@ def _bwd_library() -> ctypes.CDLL:
                 raise RuntimeError(f"flash_attention_bwd's tiles at Dh {dh} "
                                    f"are {[x.value for x in got]}, the "
                                    f"wrapper's {want}")
+            if bool(lib.attn_bwd_positions_built(dh)) != (
+                    dh in BWD_POSITION_HEAD_DIMS):
+                raise RuntimeError(f"flash_attention_bwd's position "
+                                   f"instantiations at Dh {dh} do not match "
+                                   f"BWD_POSITION_HEAD_DIMS")
         _bwd_lib = lib
     return _bwd_lib
 
@@ -340,6 +350,11 @@ class _FlashAttention(torch.autograd.Function):
             raise ValueError(f"head dim {Dh}: the flash_attention backward "
                              f"takes {BWD_HEAD_DIMS} (ROADMAP Queue B, B1); "
                              "call it without gradients to serve")
+        if q_positions is not None and Dh not in BWD_POSITION_HEAD_DIMS:
+            raise ValueError(f"head dim {Dh}: the flash_attention backward "
+                             f"takes explicit positions at "
+                             f"{BWD_POSITION_HEAD_DIMS} (ROADMAP Queue B, "
+                             "B1); call it without gradients to serve")
         ctx.causal, ctx.window = causal, window
         ctx.positions = dict(q_positions=q_positions,
                              kv_positions=kv_positions)
@@ -385,7 +400,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    kv_positions=kv_positions)
     if q.shape[3] not in FWD_HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[3]}; the CUDA kernel takes "
-                         f"{FWD_HEAD_DIMS}")
+                         f"{FWD_HEAD_DIMS} (ROADMAP Queue B, B1)")
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     q_positions, kv_positions = _int32(q_positions), _int32(kv_positions)

@@ -39,8 +39,8 @@ from repro_torch.core import aggregation, em
 from repro_torch.data import token_batch_stream
 from repro_torch.device import disable_tf32, resolve_device
 from repro_torch.launch.serve import stub_prefix
-from repro_torch.models.model import init_params, loss_fn
-from repro_torch.optim import make_optimizer, sgd_update
+from repro_torch.models.model import init_params, loss_fn, unstack
+from repro_torch.optim import make_optimizer, sgd_update, sgd_update_
 
 Params = Dict
 
@@ -59,11 +59,27 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+_STACKED = ("dense_layers", "layers")   # (L, ...) layer groups
+
+
+def _layered(params: Params) -> Params:
+    """``params`` with each stacked layer group as a list of per-layer
+    trees of views (``models.model.unstack``)."""
+    return {k: unstack(v) if k in _STACKED else v for k, v in params.items()}
+
+
 def value_and_grad(params: Params, cfg: ModelConfig, batch: Dict, *,
-                   window: int = 0, remat: bool = False):
+                   window: int = 0, remat: bool = False,
+                   by_layer: bool = False):
     """(loss, metrics, grads) of :func:`loss_fn` at ``params``; the grads
-    are a tree of ``params``' structure."""
-    leaves, spec = tree_flatten(params)
+    are a tree of ``params``' structure, or with ``by_layer`` of
+    ``_layered(params)``'s: each stacked layer group's grads as a list of
+    per-layer trees, as autograd makes them layer by layer. Through the
+    stack's ``unbind`` autograd holds every layer's gradient to the end of
+    the backward and then stacks them into a second copy (16 GiB more for
+    falcon-mamba-7b's stacked in_proj, past 80 GB at full width). The
+    values are the same."""
+    leaves, spec = tree_flatten(_layered(params) if by_layer else params)
     leaves = [x.detach().requires_grad_() for x in leaves]
     loss, metrics = loss_fn(tree_unflatten(leaves, spec), cfg, batch,
                             window=window, remat=remat)
@@ -76,11 +92,22 @@ def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                   ckpt: Optional[str] = None,
                   params: Optional[Params] = None,
                   stub_embeds: Optional[torch.Tensor] = None,
+                  remat: bool = False,
                   device: str | torch.device = "cuda",
                   log: Callable[[str], None] = print) -> Dict:
     """``steps`` optimizer steps on ``token_batch_stream(0)``, printing the
     reference's schedule (every ``steps // 10`` and the last). ``params``
-    (fp32, on the device) default to ``init_params`` from seed 0. Returns
+    (fp32, on the device) default to ``init_params`` from seed 0; given
+    ones are copied first and left as they are. SGD updates its own
+    params in place, each stacked layer's slice from that layer's
+    gradient (:func:`~repro_torch.optim.sgd_update_` over
+    ``value_and_grad(by_layer=True)``: the bits of ``sgd_update`` on the
+    stacked gradients), so a step holds the weights, one set of gradients
+    and the activations, and neither a second set of weights nor a
+    stacked copy of the gradients.
+    ``remat`` recomputes each layer in the backward (the reference's
+    ``loss_fn(remat=)``; its trainer passes False): a full-width 7 B
+    model's B 8 × S 256 step fits one 80 GB card only with it. Returns
     ``{"losses": [float] a step, "params", "timings"}``: ms per step and
     tokens/s over the steps after the first (host clock, ending in a
     sync), and the first step's ms. A config with a stub frontend gets
@@ -95,6 +122,8 @@ def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     if params is None:
         params = init_params(
             cfg, torch.Generator(device=dev).manual_seed(train.seed), dev)
+    else:
+        params = tree_map(torch.clone, params)
     opt_init, opt_update = make_optimizer(train.optimizer)
     opt_state = opt_init(params)
     stream = token_batch_stream(0, batch=batch, seq_len=seq, vocab=cfg.vocab)
@@ -108,8 +137,15 @@ def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         inputs = _to_device(raw, dev)
         if stub is not None:
             inputs["stub_embeds"] = stub
-        loss, _, grads = value_and_grad(params, cfg, inputs)
-        params, opt_state = opt_update(params, grads, opt_state, train.lr)
+        if train.optimizer == "sgd":  # in place, a layer's slice at a time
+            loss, _, grads = value_and_grad(params, cfg, inputs, remat=remat,
+                                            by_layer=True)
+            sgd_update_(_layered(params), grads, train.lr)
+        else:
+            loss, _, grads = value_and_grad(params, cfg, inputs, remat=remat)
+            params, opt_state = opt_update(params, grads, opt_state,
+                                           train.lr)
+        del grads                     # before the next step's backward
         losses.append(loss)
         if i == 0:
             _sync(dev)
@@ -230,6 +266,8 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="sgd")
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer in the backward")
     # federated mode
     ap.add_argument("--clients", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=5)
@@ -250,7 +288,7 @@ def main(argv=None) -> None:
     else:
         single_client(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                       lr=args.lr, optimizer=args.optimizer, ckpt=args.ckpt,
-                      device=dev)
+                      remat=args.remat, device=dev)
 
 
 if __name__ == "__main__":

@@ -101,7 +101,11 @@ def unstack(stacked: Params) -> list:
     """The stacked ``layers`` tree as a list of per-layer trees of views,
     one ``unbind`` per leaf: autograd's backward then stacks the layers'
     grads in one op, where indexing each layer would give each a
-    zero-filled gradient of the whole stack to add up."""
+    zero-filled gradient of the whole stack to add up. A list (the
+    trainer's per-layer leaves, ``launch/train.py::value_and_grad``)
+    passes through."""
+    if isinstance(stacked, list):
+        return stacked
     if isinstance(stacked, dict):
         parts = {k: unstack(v) for k, v in stacked.items()}
         n = len(next(iter(parts.values())))

@@ -110,14 +110,17 @@ def _linear_recurrence_chunked(params: Dict, dt: torch.Tensor,
     """h_t = a_t h_{t-1} + bx_t; y_t = <h_t, C_t>. dt, xc: (B, S, Di);
     Bmat, Cmat: (B, S, N); h0: (B, Di, N). Returns (y (B, S, Di), the last
     state). Each chunk of ``CHUNK`` steps forms its (a, bx), walks its
-    steps and contracts its states with C at once."""
+    steps and contracts its states with C at once. The steps are read
+    through one ``unbind`` of a and bx each: indexing a[:, t] would give
+    every step's backward a zero-filled gradient of the whole chunk to add
+    up (2 × 256 of 1.07 GB a layer at falcon-mamba-7b's B 8 × S 256)."""
     ys, h = [], h0
     for c0 in range(0, dt.shape[1], CHUNK):
         part = slice(c0, c0 + CHUNK)
         a, bx = _discretize(params, dt[:, part], Bmat[:, part], xc[:, part])
         states = []
-        for t in range(a.shape[1]):
-            h = torch.addcmul(bx[:, t], a[:, t], h)
+        for a_t, bx_t in zip(torch.unbind(a, 1), torch.unbind(bx, 1)):
+            h = torch.addcmul(bx_t, a_t, h)
             states.append(h)
         ys.append(torch.einsum("bcdn,bcn->bcd", torch.stack(states, 1),
                                Cmat[:, part]))

@@ -1,8 +1,8 @@
 """K3's gradients on the CPU against the reference: ``jax.vjp`` of
 ``chunked_attention`` (the function the reference trains through, with
 ``jax.checkpoint`` per KV chunk) on the same numpy inputs and output
-cotangent, over a sweep of G, causal and window, Dh 64 and 128, ragged
-Sq ≠ Skv, fully masked rows and several KV chunks. Two things are held to
+cotangent, over a sweep of G, causal and window, Dh 48, 64, 96, 112, 128
+and 192, ragged Sq ≠ Skv, fully masked rows and several KV chunks. Two things are held to
 it at 1e-5 (atol and rtol, fp32 against fp32):
   - the port's attention gradients on its plain path (``flash_attention``
     on CPU tensors: autograd through ``flash_attention_ref``);
@@ -33,6 +33,16 @@ CASES = [
     (1, 50, 30, 4, 4, 64, False, 12, 512),    # rows 41.. fully masked
     (1, 20, 45, 2, 1, 128, True, 0, 16),      # keys past the queries
     (1, 70, 70, 3, 1, 64, True, 20, 32),      # window across chunks
+    # MLA's head dims (48 at reduced(), minicpm3-4b's 96), zamba2-7b's 112
+    # and deepseek-v3's 192 (qk_nope 128 + qk_rope 64; the card refuses it)
+    (2, 40, 40, 4, 2, 48, True, 0, 512),      # G 2, Dh 48
+    (1, 50, 30, 4, 1, 48, False, 12, 16),     # G 4, rows 41.. masked
+    (1, 37, 45, 3, 1, 96, True, 16, 16),      # G 3, ragged, window
+    (2, 33, 33, 4, 4, 96, False, 0, 512),     # G 1, Dh 96
+    (1, 45, 37, 4, 2, 112, True, 0, 16),      # G 2, ragged, Dh 112
+    (1, 60, 60, 2, 2, 112, True, 20, 32),     # window across chunks
+    (1, 24, 24, 2, 1, 192, True, 0, 512),     # G 2, Dh 192
+    (1, 30, 41, 4, 4, 192, True, 8, 16),      # ragged, window, Dh 192
 ]
 _CACHE = {}
 

@@ -13,15 +13,21 @@ JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.fedsim import METHODS
-from repro_torch.kernels import em_posterior as k1
-from repro_torch.kernels import flash_attention as k3
-from repro_torch.kernels import ref as tref
-from repro_torch.kernels import weighted_agg as k2
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+
+import chip_smoke  # noqa: E402
+from repro_torch.core.fedsim import METHODS  # noqa: E402
+from repro_torch.kernels import em_posterior as k1  # noqa: E402
+from repro_torch.kernels import flash_attention as k3  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import weighted_agg as k2  # noqa: E402
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -395,34 +401,61 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
 
 
 @pytest.mark.gpu
-def test_flash_attention_refuses_a_gradient_at_dh96_on_card(cuda):
-    """The backward takes Dh 64 and 128: at MLA's 96 a call that needs a
-    gradient raises before any launch; without one it serves."""
-    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
-               for a in _attn_inputs(1, 64, 64, 2, 2, 96))
+@pytest.mark.parametrize("Dh", [48, 96, 112])
+def test_flash_attention_gradient_at_mla_and_zamba2_dims_on_card(cuda, Dh):
+    """MLA's head dims (48 at reduced(), minicpm3-4b's 96) and zamba2's
+    112 train: the forward and each backward kernel of the plan launch
+    once, the gradients match the float64 plain backward, and the training
+    forward's output is the serving one's bit for bit."""
+    shape = (2, 70, 70, 4, 2, Dh, True, 0)
+    q, k, v, dout = _bwd_case(cuda, *shape)
     n, bwd = k3.launches, dict(k3.backward_launches)
-    with pytest.raises(ValueError, match="B1"):
-        k3.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert (k3.launches, k3.backward_launches) == (n, bwd)
-    with torch.no_grad():
-        k3.flash_attention(q, k, v)
+    out, *grads = _kernel_grads(q, k, v, dout, True, 0)
+    kernels = _bwd_kernels(cuda, *shape)
     assert k3.launches == n + 1
+    assert k3.backward_launches == {name: c + (name in kernels)
+                                    for name, c in bwd.items()}
+    q64, k64, v64 = (t.detach().double() for t in (q, k, v))
+    expect = tref.flash_attention_bwd_ref(
+        q64, k64, v64, tref.flash_attention_ref(q64, k64, v64),
+        tref.attention_lse_ref(q64, k64), dout.double())
+    for got, want in zip(grads, expect):
+        torch.testing.assert_close(got.double(), want, atol=BWD_TOL,
+                                   rtol=BWD_TOL)
+    with torch.no_grad():
+        assert torch.equal(out.detach(), k3.flash_attention(q, k, v))
 
 
 @pytest.mark.gpu
-def test_flash_attention_refuses_a_gradient_at_dh112_on_card(cuda):
-    """zamba2's head dim 112 serves; a call that needs a gradient there
-    raises before any launch (the backward takes Dh 64 and 128)."""
+def test_flash_attention_refuses_a_gradient_at_dh192_on_card(cuda):
+    """deepseek-v3's full-width MLA dim 192 (ROADMAP B1): a call that needs
+    a gradient raises before any launch."""
     q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
-               for a in _attn_inputs(1, 64, 64, 2, 2, 112))
+               for a in _attn_inputs(1, 64, 64, 2, 2, 192))
     n, bwd = k3.launches, dict(k3.backward_launches)
     with pytest.raises(ValueError, match="B1"):
         k3.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert (k3.launches, k3.backward_launches) == (n, bwd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [48, 96, 112])
+def test_flash_attention_refuses_positions_with_a_gradient_on_card(cuda,
+                                                                   Dh):
+    """The backward takes explicit positions at Dh 64 and 128 only: at the
+    other dims a call with positions that needs a gradient raises before
+    any launch; without one it serves through the position path."""
+    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
+               for a in _attn_inputs(1, 64, 64, 2, 2, Dh))
+    pos = torch.arange(64, device=cuda)
+    n, bwd = k3.launches, dict(k3.backward_launches)
+    with pytest.raises(ValueError, match="B1"):
+        k3.flash_attention(q, k, v, q_positions=pos, kv_positions=pos)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.backward_launches) == (n, bwd)
     with torch.no_grad():
-        k3.flash_attention(q, k, v)
+        k3.flash_attention(q, k, v, q_positions=pos, kv_positions=pos)
     assert k3.launches == n + 1
 
 
@@ -450,6 +483,28 @@ BWD_SHAPES = ATTN_SHAPES + EDGE_SHAPES + [
     (1, 300, 17, 9, 3, 64, True, 0),
     (1, 500, 8, 4, 2, 128, False, 5),
     (4, 128, 128, 9, 3, 64, True, 0),
+    # MLA's head dims 48 and 96 and zamba2's 112: G 1 to 4, ragged,
+    # windows, fully masked rows, keys off the 64-key tile, queries off
+    # the 32- and 16-wide steps and keys off the dQ kernel's 32- and
+    # 16-wide steps, minicpm3-4b's and zamba2-7b's training shapes
+    (2, 64, 64, 4, 4, 48, True, 0),
+    (1, 100, 100, 8, 2, 48, True, 0),
+    (1, 77, 50, 16, 1, 48, False, 20),
+    (1, 63, 65, 1, 1, 48, False, 0),
+    (1, 33, 47, 4, 4, 48, True, 17),
+    (2, 200, 200, 4, 4, 96, True, 0),
+    (2, 96, 96, 6, 2, 96, True, 0),
+    (1, 384, 384, 6, 2, 96, True, 96),
+    (1, 17, 33, 2, 1, 96, True, 0),
+    (1, 65, 129, 1, 1, 96, False, 0),
+    (3, 1, 77, 12, 4, 112, True, 0),
+    (1, 100, 100, 8, 2, 112, True, 0),
+    (1, 200, 130, 6, 2, 112, True, 70),
+    (1, 64, 127, 2, 1, 112, False, 0),
+    (1, 17, 300, 4, 1, 112, True, 0),
+    (1, 47, 33, 3, 1, 112, True, 0),
+    (8, 256, 256, 40, 40, 96, True, 0),
+    (8, 256, 256, 32, 32, 112, True, 0),
 ]
 # |d| <= tol + tol·|ref| against the float64 plain backward: fp32 sums of
 # at most a few thousand terms, from an LSE the split-TF32 forward gives to
@@ -1003,6 +1058,38 @@ def test_train_steps_on_card_match_cpu(cuda):
     np.testing.assert_allclose(got["losses"], ref["losses"], atol=1e-4,
                                rtol=1e-4)
     from torch.utils._pytree import tree_flatten
+    for a, b in zip(tree_flatten(got["params"])[0],
+                    tree_flatten(ref["params"])[0]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", chip_smoke.FAMILY_ARCHS)
+def test_family_train_steps_on_card_match_cpu(cuda, arch):
+    """Two SGD steps of each reduced MoE, MLA, SSM and hybrid config on
+    the card (K3's forward and backward in every attention layer: Dh 64,
+    or 48 under MLA) against the CPU: same weights and batches, losses and
+    params within 1e-4."""
+    from torch.utils._pytree import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    kw = dict(steps=2, batch=2, seq=70, lr=3e-3, log=lambda s: None)
+    ref = train.single_client(cfg, params=params, device="cpu", **kw)
+    n, bwd = k3.launches, dict(k3.backward_launches)
+    got = train.single_client(cfg, params=_to(params, cuda), device=cuda,
+                              **kw)
+    want = 2 * chip_smoke._attention_layers(cfg)
+    assert k3.launches == n + want
+    kernels = _bwd_kernels(cuda, 2, 70, 70, cfg.n_heads, cfg.n_kv_heads,
+                           chip_smoke._attn_head_dim(cfg), True,
+                           0) if want else ()
+    assert k3.backward_launches == {
+        name: c + want * (name in kernels) for name, c in bwd.items()}
+    np.testing.assert_allclose(got["losses"], ref["losses"], atol=1e-4,
+                               rtol=1e-4)
     for a, b in zip(tree_flatten(got["params"])[0],
                     tree_flatten(ref["params"])[0]):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)

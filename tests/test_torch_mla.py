@@ -323,9 +323,10 @@ def test_windowed_prompt_longer_than_the_ring_raises():
 
 
 def test_mla_gradient_at_the_kernel_refuses_up_front():
-    """K3's backward takes Dh 64 and 128: a call at MLA's 96 that needs a
-    gradient raises in the autograd forward, before any launch."""
-    q, k, v = (torch.zeros((1, 16, 2, 96), requires_grad=True)
+    """K3's backward takes Dh 48, 64, 96, 112 and 128: a call at
+    deepseek-v3's full-width MLA dim 192 (qk_nope 128 + qk_rope 64) that
+    needs a gradient raises in the autograd forward, before any launch."""
+    q, k, v = (torch.zeros((1, 16, 2, 192), requires_grad=True)
                for _ in range(3))
     n = k3.launches
     with pytest.raises(ValueError, match="B1"):
