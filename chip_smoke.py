@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each of which stops the run on failure:
+Phases, each of which stops the run on failure and prints its seconds
+when it ends:
   1. print the card's name and power limit; turn TF32 off;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. hold K1 (the EM E-step) against its plain version on the card, at the
@@ -97,7 +98,15 @@ Phases, each of which stops the run on failure:
      M-RoPE positions permuted under a window of 100, and the same
      forward and LSE checks at Dh 48, 96 and 112 (whose backward takes no
      positions); then the forward at
-     qwen2-vl's prefill under its M-RoPE prompt's positions;
+     qwen2-vl's prefill under its M-RoPE prompt's positions; K3's fp32
+     backward also at chatglm3-6b's training shape (B 8, S 256, 32 heads
+     over 2: G 16, Dh 128), and K3's bf16 training forward and backward
+     (``BWD_BF16_SHAPES``: that shape, train_4k's at B 2, the sweep's Dh
+     64 and 128 shapes, ragged, windowed, G 1 to 16, fully masked rows, a
+     split plan) against the float64 plain backward of the same bf16
+     values within 2e-2 and within the final bf16 rounding (2^-8 relative,
+     1e-4 absolute), the LSE within 1e-5, two runs bitwise equal; a
+     bf16 call that needs a gradient at Dh 96 must raise before a launch;
   7. serve a reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights and prompts, without and with a window
      that wraps, and compare logits and tokens; then serve the main path at
@@ -171,7 +180,27 @@ Phases, each of which stops the run on failure:
      again), the losses finite and falling (the last below the first, and
      the trained weights' loss on the first batch below the first step's);
      ms a step, tokens/s and peak memory printed; each model freed before
-     the next and before 7b;
+     the next and before 7g;
+  7g. the dense configs and the step builders: reduced
+     chatglm3-6b and starcoder2-15b in bf16 on the card against the CPU
+     (serving without and with a window of 8 that the prompts wrap, the
+     CPU fed the card's tokens: logits within max(2e-2, the CPU's own
+     bf16-vs-fp32 gap), greedy tokens equal wherever the top-2 gap is
+     clear; one bf16 ``make_train_step``, loss and params within the same
+     gate, its gradients and its update against the CPU's in relative
+     norm); then chatglm3-6b at full width and depth (28 layers, 6.24 B
+     params, seed-0 weights): fp32 serving of 8 prompts of 1024 tokens, 32
+     generated (K3 28 launches a prefill), 4 fp32 SGD steps at B 8 x S 256
+     (K3's backward at G 16, Dh 128) and 2 bf16 ones, the loss falling in
+     both; the four step
+     builders of ``launch/steps.py`` in bf16 at its width, each shape's
+     global_batch cut to one card (train_4k 256 -> 2 for 2 steps,
+     prefill_32k 32 -> 1, decode_32k 128 -> 8, a 7.0 GiB cache; long_500k
+     one step at position 524,287 in a 4096-slot ring); starcoder2-15b at
+     full width in bf16 (40 layers, 22.0 B params, 41 GiB): 4 prompts of
+     4600 tokens, 32 generated, its 4096-slot ring wrapping in the prefill
+     and in decode (K3 40 launches a prefill); ms, tokens/s and peaks
+     printed, each model freed before the next;
   7b. LM training: reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights, batches and link masks, 3 SGD steps
      and one federated round at C = 3; then the main path at full width,
@@ -196,7 +225,10 @@ Phases, each of which stops the run on failure:
      musicgen's training shapes, at minicpm3-4b's (Dh 96) and zamba2-7b's
      (Dh 112) and at Dh 48 (reduced minicpm3-4b), each kernel's ms, the
      split-TF32, CUDA-core and bytes bounds, SDPA's backward under each
-     backend that takes fp32)
+     backend that takes fp32; K3's bf16 forward at
+     starcoder2-15b's prefill, its fp32 backward at chatglm3-6b's training
+     shape and its bf16 backward there and at train_4k's, the bf16 rows
+     bounded at bf16's 989 TFLOP/s against SDPA in bf16)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
      and print them as one JSON line;
   9. with ``--profile`` only: profile two pFedWN rounds, one serving run
@@ -267,6 +299,10 @@ ATTN_GRANITE = (8, 1024, 1024, 24, 8, 64, True, 0)   # granite-moe's prefill
 # after 256 image patches or 64 conditioning frames
 ATTN_QWEN2VL = (8, 1280, 1280, 12, 2, 128, True, 0)
 ATTN_MUSICGEN = (8, 1088, 1088, 32, 32, 64, True, 0)
+# starcoder2-15b's bf16 prefill in phase 7g: 4 prompts of 4600 tokens,
+# past its 4096 window
+STAR_B, STAR_PROMPT = 4, 4600
+ATTN_STARCODER = (STAR_B, STAR_PROMPT, STAR_PROMPT, 48, 4, 128, True, 4096)
 ATTN_SHAPES = [
     ATTN_MAIN,
     (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
@@ -278,6 +314,7 @@ ATTN_SHAPES = [
     (3, 1, 77, 12, 4, 128, True, 0),
     (1, 5000, 5000, 48, 4, 128, True, 4096),  # starcoder2-15b, its window
     (1, 2048, 2048, 32, 2, 128, True, 0),    # chatglm3-6b
+    ATTN_STARCODER,
     ATTN_GRANITE,
     ATTN_QWEN2VL,
     ATTN_MUSICGEN,
@@ -416,6 +453,11 @@ BWD_MINICPM = (8, 256, 256, 40, 40, 96, True, 0)
 BWD_ZAMBA2 = (8, 256, 256, 32, 32, 112, True, 0)
 BWD_GRANITE = (8, 256, 256, 24, 8, 64, True, 0)
 BWD_MLA_SMALL = (2, 64, 64, 4, 4, 48, True, 0)
+# chatglm3-6b's training step (B 8 x S 256, 32 heads over 2: G 16, Dh 128),
+# fp32 and bf16, and train_4k at its heads with global_batch cut to 2 (the
+# bf16 make_train_step of phase 7g)
+BWD_CHATGLM = (8, 256, 256, 32, 2, 128, True, 0)
+BWD_TRAIN_4K = (2, 4096, 4096, 32, 2, 128, True, 0)
 BWD_SHAPES += [
     BWD_MINICPM,
     BWD_ZAMBA2,
@@ -444,10 +486,41 @@ BWD_SHAPES += [
     (1, 17, 300, 4, 1, 112, True, 0),
     (1, 47, 33, 3, 1, 112, True, 0),
     (2, 42, 43, 3, 1, 112, True, 0),
+    BWD_CHATGLM,
+]
+# K3's bf16 training forward and backward (the head dims of
+# BWD_BF16_HEAD_DIMS): chatglm3-6b's training shape and train_4k's (whose
+# plans differ: 3 dK/dV splits and a reduce, 1 split), the sweep's Dh 64
+# and 128 shapes, ragged shapes, causal and windowed, G 1 to 16, fully
+# masked rows, and a split plan at Dh 64 (the federated shape)
+BWD_BF16_SHAPES = [
+    BWD_CHATGLM,
+    BWD_TRAIN_4K,
+    (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
+    (1, 256, 256, 8, 8, 64, True, 0),
+    (2, 128, 128, 4, 1, 64, False, 0),
+    (1, 384, 384, 6, 2, 128, True, 96),
+    (1, 128, 128, 2, 2, 128, True, 0),
+    (2, 200, 200, 9, 3, 64, True, 0),        # ragged
+    (3, 1, 77, 12, 4, 128, True, 0),
+    (1, 200, 130, 6, 2, 64, True, 70),       # a window across tiles
+    (1, 43, 33, 3, 1, 128, True, 16),
+    (1, 77, 50, 16, 1, 64, False, 20),       # rows 69.. fully masked; G 16
+    (1, 100, 100, 8, 2, 128, True, 0),       # G 4
+    (1, 64, 64, 16, 1, 128, True, 0),        # G 16
+    BWD_FED,                                 # 6 splits and the reduce
 ]
 # |d| <= tol + tol·|ref| for the fp32 kernel against the float64 plain
 # backward (tests/test_torch_gpu.py's tolerance); the row LSE likewise
 BWD_TOL = 1e-5
+# the bf16 kernel against the float64 plain backward of the same bf16
+# values: the reference's bf16 kernel tolerance (tests/test_kernels.py),
+# atol and rtol
+BWD_BF16_TOL = 2e-2
+# and within the final bf16 rounding of fp32 sums: half an ulp, at most
+# 2^-8 of the value, over the fp32 kernel's error (|d| <= atol + rtol·|ref|);
+# a kernel that rounds P, dS or a partial sum to bf16 inside lands past it
+BWD_BF16_ROUND_RTOL, BWD_BF16_ROUND_ATOL = 2.0 ** -8, 1e-4
 TRAIN_TOL = 1e-4             # card vs CPU losses and params, TF32 off
 # phase 7b: full-width training (tokens of examples/torch_federated_lm.py)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 256, 20, 3e-3
@@ -464,16 +537,43 @@ FAMILY_FULL = {"granite-moe-3b-a800m": BWD_GRANITE,
 FAMILY_REMAT = ("falcon-mamba-7b", "zamba2-7b")
 FAMILY_STEPS = 4
 FED_C, FED_B, FED_S, FED_LOCAL, FED_ROUNDS = 4, 4, 128, 10, 2
+# phase 7g: the dense configs never run at full width before; their
+# reduced card-vs-CPU runs in bf16 serve without and with a window the
+# prompts wrap; chatglm3-6b trains GLM_STEPS fp32 steps and GLM_BF16_STEPS
+# bf16 ones at B 8 x S 256; the step builders' shapes are cut to one card
+# in batch and steps only (BUILDER_CUTS)
+DENSE_ARCHS = ("chatglm3-6b", "starcoder2-15b")
+DENSE_WINDOW = 8
+GLM_STEPS, GLM_BF16_STEPS = 4, 2
+BUILDER_CUTS = {"train_4k": 2, "prefill_32k": 1, "decode_32k": 8,
+                "long_500k": 1}           # global_batch on one card
+BUILDER_TRAIN_STEPS = 2
 # H100 SXM peaks (NVIDIA data sheet): device memory B/s, fp32 FLOP/s
 # outside the tensor cores and TF32 FLOP/s on them (dense); the bounds
 # below are taken against them
 HBM_BYTES_PER_S, FP32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
+BF16_FLOPS = 989e12                   # dense, on the tensor cores
 # K3's fp32 route runs three TF32 products for each (split TF32)
 SPLIT_TF32_TERMS = 3
 
 
-def _phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+_PHASE = {"name": None, "start": 0.0, "first": None}
+
+
+def _phase(name) -> None:
+    """End the running phase, printing its seconds, and start ``name``
+    (None: only end it, and print the seconds since the first phase)."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"-- phase {_PHASE['name'].split(' ')[0].rstrip('.')} took "
+              f"{now - _PHASE['start']:.1f} s", flush=True)
+    if _PHASE["first"] is None:
+        _PHASE["first"] = now
+    if name is None:
+        print(f"-- all phases took {now - _PHASE['first']:.1f} s")
+    else:
+        print(f"== {name}", flush=True)
+    _PHASE.update(name=name, start=now)
 
 
 def _em_inputs(M, T, V, dtype, dev, seed=0, scale=3, offset=0,
@@ -1307,8 +1407,9 @@ def check_flash_attention(dev) -> dict:
     zamba2's 112 also the fp32 training instantiation at their prefill
     shapes: its output bitwise the serving one's, its row LSE within
     ``BWD_TOL`` of the plain one; and a call at Dh 192 that needs a
-    gradient must raise before it launches anything (ROADMAP B1). Returns
-    the max |d| in fp32 by shape."""
+    gradient, or one in bf16 at Dh 96, must raise before it launches
+    anything (ROADMAP B1). Returns the max |d| in fp32 by shape, and in
+    bf16 under (shape, "bf16")."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import flash_attention_ref
     errs = {}
@@ -1330,26 +1431,25 @@ def check_flash_attention(dev) -> dict:
             if not (out.dtype == dtype and excess <= tol):
                 raise AssertionError(f"K3 disagrees with its plain version "
                                      f"at {shape} {dtype}: {err}")
-            if dtype == torch.float32:
-                errs[shape] = err
+            errs[shape if dtype == torch.float32 else (shape, "bf16")] = err
             if dtype == torch.float32 and shape[5] in (48, 96, 112):
                 _check_lse_instantiation(q, k, v, out, causal, window, shape)
-    for dh in (192,):
+    for dh, dtype in ((192, torch.float32), (96, torch.bfloat16)):
         q, k, v = (t.requires_grad_() for t in _attn_inputs(
-            (1, 64, 64, 2, 2, dh), torch.float32, dev))
+            (1, 64, 64, 2, 2, dh), dtype, dev))
         n, bwd = k3.launches, dict(k3.backward_launches)
         try:
             k3.flash_attention(q, k, v)
         except ValueError as e:
-            print(f"K3 at Dh {dh} with a gradient: raises before launching "
-                  f"({e})")
+            print(f"K3 at Dh {dh} {str(dtype)[6:]} with a gradient: raises "
+                  f"before launching ({e})")
         else:
-            raise AssertionError(f"K3 at Dh {dh} took a call that needs a "
-                                 "gradient")
+            raise AssertionError(f"K3 at Dh {dh} {dtype} took a call that "
+                                 "needs a gradient")
         torch.cuda.synchronize()
         if (k3.launches, k3.backward_launches) != (n, bwd):
             raise AssertionError(f"K3 launched before refusing a gradient "
-                                 f"at Dh {dh}")
+                                 f"at Dh {dh} {dtype}")
     return errs
 
 
@@ -1980,11 +2080,12 @@ def run_stub_main_path(dev, arch, profile=False) -> dict:
     return out
 
 
-def _bwd_inputs(shape, dev, seed=0):
-    """K3's inputs at ``shape`` (fp32) and an output cotangent dO."""
-    q, k, v = _attn_inputs(shape, torch.float32, dev, seed)
+def _bwd_inputs(shape, dev, seed=0, dtype=torch.float32):
+    """K3's inputs at ``shape`` and an output cotangent dO, in ``dtype``
+    (drawn in fp32)."""
+    q, k, v = _attn_inputs(shape, dtype, dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 7)
-    return q, k, v, torch.randn(q.shape, generator=g, device=dev)
+    return q, k, v, torch.randn(q.shape, generator=g, device=dev).to(dtype)
 
 
 def _autograd_grads(q, k, v, dout, causal, window, **positions):
@@ -2059,9 +2160,85 @@ def check_flash_attention_backward(dev) -> float:
             raise AssertionError(f"K3 backward disagrees with its plain "
                                  f"version at {shape}")
         if shape in (BWD_MAIN, BWD_FED, BWD_QWEN2VL, BWD_MUSICGEN,
-                     BWD_MINICPM, BWD_ZAMBA2, BWD_MLA_SMALL):
+                     BWD_MINICPM, BWD_ZAMBA2, BWD_MLA_SMALL, BWD_CHATGLM):
             errs_at[shape] = (max(errs), max(excess))
     torch.cuda.empty_cache()
+    return errs_at
+
+
+def check_flash_attention_backward_bf16(dev) -> dict:
+    """K3's bf16 training forward and backward at every shape of
+    ``BWD_BF16_SHAPES``: dq, dk, dv (bf16) against the float64 plain
+    backward of the same bf16 values within ``BWD_BF16_TOL`` (|d| <= tol
+    + tol·|plain|) and within the final rounding (``BWD_BF16_ROUND_*``);
+    the bf16 training forward's row LSE within
+    ``BWD_TOL`` of the float64 one (+inf exactly on fully masked rows),
+    its output bitwise the bf16 serving forward's; a second run bitwise
+    equal; fully masked rows' dq and output exactly 0. Raises past any.
+    Returns (max |d|, worst excess) at ``BWD_CHATGLM`` and
+    ``BWD_TRAIN_4K``."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ref
+    errs_at = {}
+    for shape in BWD_BF16_SHAPES:
+        causal, window = shape[6], shape[7]
+        q, k, v, dout = _bwd_inputs(shape, dev, dtype=torch.bfloat16)
+        first = _autograd_grads(q, k, v, dout, causal, window)
+        second = _autograd_grads(q, k, v, dout, causal, window)
+        bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
+        dtypes_ok = all(t.dtype == torch.bfloat16 for t in first)
+        with torch.no_grad():
+            served = k3.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+            _, lse = k3._launch(q, k, v, causal, window, with_lse=True)
+        torch.cuda.synchronize()
+        same_out = torch.equal(first[0], served)
+        q64, k64, v64 = q.double(), k.double(), v.double()
+        out64 = ref.flash_attention_ref(q64, k64, v64, causal=causal,
+                                        window=window)
+        lse64 = ref.attention_lse_ref(q64, k64, causal=causal, window=window)
+        expect = ref.flash_attention_bwd_ref(q64, k64, v64, out64, lse64,
+                                             dout.double(), causal=causal,
+                                             window=window)
+        del out64
+        errs, excess, rounding = [], [], []
+        for got, want in zip(first[1:], expect):
+            diff = (got.double() - want).abs()
+            errs.append(float(diff.max()))
+            excess.append(float((diff - BWD_BF16_TOL * want.abs()).max()))
+            rounding.append(float(
+                (diff - BWD_BF16_ROUND_RTOL * want.abs()).max()))
+            del diff
+        del expect
+        masked = torch.isinf(lse64)
+        ldiff = (lse.double() - lse64)[~masked].abs()
+        lse_err = float(ldiff.max()) if ldiff.numel() else 0.0
+        lse_excess = (float((ldiff - BWD_TOL * lse64[~masked].abs()).max())
+                      if ldiff.numel() else 0.0)
+        inf_ok = bool((torch.isinf(lse) == masked).all())
+        rows = masked.transpose(1, 2)
+        zero_rows = bool((first[1][rows] == 0).all()
+                         and (first[0][rows] == 0).all())
+        finite = all(bool(torch.isfinite(t).all()) for t in first)
+        print(f"K3 bf16 backward {shape}: max|d| dq={errs[0]:.3g} "
+              f"dk={errs[1]:.3g} dv={errs[2]:.3g} (tol {BWD_BF16_TOL:g}, "
+              f"atol and rtol; worst excess {max(excess):.3g}; past the "
+              f"bf16 rounding {max(rounding):.3g}, tol "
+              f"{BWD_BF16_ROUND_ATOL:g}), lse="
+              f"{lse_err:.3g} (tol {BWD_TOL:g}), bitwise repeat {bitwise}, "
+              f"out == serving {same_out}, masked rows {int(rows.sum())} "
+              f"zero {zero_rows}, plan "
+              f"{k3.backward_plan(*shape, k3._sm_count(dev))['kernels']}")
+        del q64, k64, v64, lse64
+        if not (max(excess) <= BWD_BF16_TOL and lse_excess <= BWD_TOL
+                and max(rounding) <= BWD_BF16_ROUND_ATOL and inf_ok
+                and bitwise and same_out and zero_rows and finite
+                and dtypes_ok):
+            raise AssertionError(f"K3's bf16 backward disagrees with its "
+                                 f"plain version at {shape}")
+        if shape in (BWD_CHATGLM, BWD_TRAIN_4K):
+            errs_at[shape] = (max(errs), max(excess))
+        torch.cuda.empty_cache()
     return errs_at
 
 
@@ -2464,6 +2641,449 @@ def run_fed_main_path(dev) -> dict:
             "k3_backward": n_bwd}
 
 
+def _teacher_forced(cfg, params, prompts, tokens, window):
+    """``serve``'s logits (gen, B, V) for ``prompts`` when its decode is fed
+    ``tokens`` (B, gen) instead of its own argmax: the same prefill into
+    the same cache, then a decode step a token."""
+    from repro_torch.launch.serve import prefill_to_cache
+    from repro_torch.models.model import decode
+    P, gen = prompts.shape[1], tokens.shape[1]
+    with torch.no_grad():
+        logits, cache = prefill_to_cache(params, cfg, prompts, P + gen,
+                                         window=window)
+        out = [logits]
+        for i in range(gen - 1):
+            logits, cache = decode(params, cfg, tokens[:, i:i + 1], cache,
+                                   P + i, window=window)
+            out.append(logits)
+    return torch.stack(out)
+
+
+# what bf16_step_against_cpu compares, each (gap, gate)
+BF16_STEP_GAPS = ("|dloss|", "max|dparams|", "grads", "update")
+
+
+def _rel_err(got, want) -> float:
+    """||got − want|| / ||want|| over two lists of tensors, in float64."""
+    num = sum(float(((a.cpu().double() - b.cpu().double()) ** 2).sum())
+              for a, b in zip(got, want))
+    den = sum(float((b.cpu().double() ** 2).sum()) for b in want)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def bf16_step_against_cpu(cfg, p32, batch, dev) -> dict:
+    """One bf16 ``make_train_step`` (lr ``TRAIN_LR``, remat) of ``cfg`` on
+    the card (K3's bf16 forward and backward) against the CPU's (plain
+    versions), from ``p32`` rounded to bf16 and ``batch`` (CPU tensors).
+    Returns, under each name of ``BF16_STEP_GAPS``, (gap, gate): the loss
+    and the params, |d| within max(2e-2, g), g the CPU's own gap between
+    its bf16 step and its step from ``p32`` (the card-vs-CPU gate of
+    ``tests/test_torch_bf16.py``); as a step moves most bf16 params by
+    less than half an ulp, these cannot see a wrong gradient, and two
+    more gaps can: "grads", ``value_and_grad``'s bf16 gradients, the
+    largest leaf's relative-norm gap, within max(2e-2, 2g), g the CPU's
+    largest leaf gap between its bf16 and fp32 gradients (two bf16
+    computations of one gradient, each about g from its fp32 value); and
+    "update", Δ = new − old in relative norm, within max(2e-2, 2g), g the
+    gap between the CPU's Δ and the Δ its rule gives from the fp32
+    gradients rounded to bf16 (a sign-flipped gradient puts Δ 2 away).
+    Also the card step's K3 launches, "k3_forward" and "k3_backward"."""
+    from torch.utils._pytree import tree_flatten, tree_map
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.steps import effective_window, make_train_step
+    from repro_torch.launch.train import _sgd_in_param_dtype_, value_and_grad
+    p16 = tree_map(lambda t: t.bfloat16(), p32)
+    old = [t.float() for t in tree_flatten(p16)[0]]
+    B, S = batch["tokens"].shape
+    shape = ShapeConfig("card_vs_cpu", seq_len=S, global_batch=B,
+                        mode="train")
+    train = TrainConfig(lr=TRAIN_LR)
+    step = make_train_step(cfg, train, shape)
+    window = effective_window(cfg, shape)
+
+    def grads(params, b):
+        return tree_flatten(value_and_grad(params, cfg, b, window=window,
+                                           remat=train.remat)[2])[0]
+
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    card = _tree_to(p16, dev)
+    g16, g32, gcard = grads(p16, batch), grads(p32, batch), grads(card,
+                                                                  on_card)
+    ref, rm = step(tree_map(torch.clone, p16), batch)
+    ref32, rm32 = step(tree_map(torch.clone, p32), batch)
+    alt = [t.clone() for t in tree_flatten(p16)[0]]
+    _sgd_in_param_dtype_(alt, g32, train.lr)
+    k3.reset_counts()
+    got, gm = step(card, on_card)
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+
+    def delta(leaves):
+        return [t.cpu().float() - o for t, o in zip(leaves, old)]
+
+    def leaf_gap(xs, ys):
+        return max(_rel_err([a], [b]) for a, b in zip(xs, ys))
+
+    cpu_delta = delta(tree_flatten(ref)[0])
+    return {
+        "|dloss|": (abs(float(gm["loss"]) - float(rm["loss"])),
+                    max(BWD_BF16_TOL, abs(float(rm["loss"])
+                                          - float(rm32["loss"])))),
+        "max|dparams|": (_tree_err(got, ref),
+                         max(BWD_BF16_TOL, _tree_err(ref, ref32))),
+        "grads": (leaf_gap(gcard, g16),
+                  max(BWD_BF16_TOL, 2 * leaf_gap(g16, g32))),
+        "update": (_rel_err(delta(tree_flatten(got)[0]), cpu_delta),
+                   max(BWD_BF16_TOL, 2 * _rel_err(delta(alt), cpu_delta))),
+        "k3_forward": n_fwd, "k3_backward": n_bwd}
+
+
+def check_dense_bf16_against_cpu(dev) -> dict:
+    """Reduced chatglm3-6b and starcoder2-15b in bf16 on the card (K3's
+    bf16 forward, and its bf16 backward in the step) against the CPU
+    (plain versions), the same bf16 weights (the seed-0 fp32 draws rounded,
+    which ``init_params(dtype=bf16)`` gives), prompts and batch. The gate
+    is ``tests/test_torch_bf16.py``'s, max(2e-2, g), with g the port's own
+    gap on the CPU between this bf16 run and its fp32 run on the same
+    draws (the tests take the reference's; this machine has no JAX).
+    Serving, without a window and with ``DENSE_WINDOW``, which the
+    37-token prompts wrap: the card's ``serve``, and the CPU fed the
+    card's tokens; logits within the gate, and the card's greedy tokens
+    equal to the CPU's argmax wherever the CPU's top-2 logit gap exceeds
+    twice it (the count printed). Then one ``make_train_step`` (lr 3e-3,
+    remat, B 2 × S 64): loss, params, gradients and update within the
+    gates of :func:`bf16_step_against_cpu`; K3's forward twice a layer
+    (remat) and each backward kernel of the plan once. Returns the card's
+    K3 launches by (arch, run)."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batch_stream
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params
+    launches = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch).reduced()
+        p32 = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        p16 = tree_map(lambda t: t.bfloat16(), p32)
+        card = _tree_to(p16, dev)
+        prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+        for window in (0, DENSE_WINDOW):
+            k3.reset_counts()
+            got = serve(cfg, card, prompts.to(dev), 5, window=window,
+                        device=dev)
+            n3 = launches[(arch, f"serve window {window}")] = k3.launches
+            tokens = got.tokens.cpu()
+            ref = _teacher_forced(cfg, p16, prompts, tokens, window)
+            ref32 = _teacher_forced(cfg, p32, prompts, tokens, window)
+            gate = max(BWD_BF16_TOL, float((ref - ref32).abs().max()))
+            d = float((got.logits.cpu() - ref).abs().max())
+            top2 = torch.topk(ref, 2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > 2 * gate   # (gen, B)
+            same = torch.equal(tokens.T[clear], ref.argmax(-1)[clear])
+            print(f"serve reduced {arch} bf16 window={window}, card vs CPU: "
+                  f"max|dlogits|={d:.4g} (gate {gate:.4g}: max(2e-2, the "
+                  f"CPU's bf16 vs fp32 {float((ref - ref32).abs().max()):.4g}"
+                  f")), greedy tokens equal at {int(clear.sum())} of "
+                  f"{clear.numel()} with a clear top-2 gap: {same}; K3 "
+                  f"{n3}")
+            if not (d <= gate and same and n3 == cfg.n_layers):
+                raise AssertionError(f"reduced {arch}'s bf16 serve on the "
+                                     f"card disagrees with the CPU's "
+                                     f"(window {window})")
+        raw = next(token_batch_stream(0, batch=2, seq_len=64,
+                                      vocab=cfg.vocab))
+        r = bf16_step_against_cpu(
+            cfg, p32, {k: torch.from_numpy(v) for k, v in raw.items()}, dev)
+        n_fwd, n_bwd = r["k3_forward"], r["k3_backward"]
+        launches[(arch, "make_train_step")] = (n_fwd, n_bwd)
+        kernels = _bwd_kernels((2, 64, 64, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.resolved_head_dim, True,
+                                cfg.sliding_window), dev)
+        print(f"make_train_step reduced {arch} bf16, card vs CPU: "
+              + ", ".join(f"{name} {r[name][0]:.4g} (gate {r[name][1]:.4g})"
+                          for name in BF16_STEP_GAPS)
+              + f"; K3 forward {n_fwd}, backward {n_bwd}")
+        if not (all(r[name][0] <= r[name][1] for name in BF16_STEP_GAPS)
+                and n_fwd == 2 * cfg.n_layers
+                and _bwd_counts_ok(n_bwd, kernels, cfg.n_layers)):
+            raise AssertionError(f"reduced {arch}'s bf16 train step on the "
+                                 f"card disagrees with the CPU's")
+    return launches
+
+
+def _tree_gib(tree) -> float:
+    """GiB held by the tensors of ``tree``."""
+    from torch.utils._pytree import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(tree)) / 2**30
+
+
+def _check_served(arch, cfg, res, n3) -> None:
+    """A full-width serve's gates: K3 once a layer of the prefill, logits
+    finite, tokens in range."""
+    if n3 != cfg.n_layers:
+        raise AssertionError(f"K3 launched {n3} times in one {arch} "
+                             f"prefill, expected {cfg.n_layers}")
+    if not bool(torch.isfinite(res.logits).all()):
+        raise AssertionError(f"non-finite logits serving {arch}")
+    if not bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"{arch}: tokens out of range")
+
+
+def run_glm_main_path(dev) -> dict:
+    """chatglm3-6b at full width and depth (28 layers, rope2d at half of
+    Dh 128, 32 heads over 2: G 16), random seed-0 weights: fp32 serving of
+    ``SERVE_B`` prompts of ``SERVE_PROMPT`` tokens, ``SERVE_GEN``
+    generated (a warm serve of 2 first; K3 28 launches a prefill); then
+    ``GLM_STEPS`` fp32 SGD steps at B 8 × S 256 through ``single_client``
+    (each backward kernel of the plan once a layer a step; the losses
+    finite and the trained weights' loss on the first batch below the
+    first step's), and ``GLM_BF16_STEPS`` bf16 steps (``--dtype
+    bfloat16``: K3's bf16 backward, SGD in the params' dtype as
+    ``make_train_step``'s; the same gates). Prints ms, tokens/s and
+    peaks; the weights are freed on return."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batch_stream
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params, loss_fn
+    cfg = get_config("chatglm3-6b")
+    out = {}
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    prompts = make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=1, device=dev)
+    serve(cfg, params, prompts, 2, device=dev)                 # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.reset_counts()
+    res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    n3 = k3.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    _check_served("chatglm3-6b", cfg, res, n3)
+    t = res.timings
+    print(f"chatglm3-6b ({_tree_gib(params):.3f} GiB fp32) B={SERVE_B} "
+          f"prompt={SERVE_PROMPT} gen={SERVE_GEN}: prefill "
+          f"{t['prefill_ms']} ms, decode {t['decode_ms_per_step']} ms per "
+          f"step, {t['decode_tok_per_s']} generated tok/s, peak memory "
+          f"{peak:.3f} GiB, K3 launches {n3}")
+    out["serve"] = {"timings": t, "peak_gib": peak, "k3": n3}
+    del params, res
+    torch.cuda.empty_cache()
+    first = next(token_batch_stream(0, batch=TRAIN_B, seq_len=TRAIN_S,
+                                    vocab=cfg.vocab))
+    kernels = _bwd_kernels(BWD_CHATGLM, dev)
+    for dtype, steps in ((torch.float32, GLM_STEPS),
+                         (torch.bfloat16, GLM_BF16_STEPS)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        k3.reset_counts()
+        tr = train.single_client(cfg, steps=steps, batch=TRAIN_B,
+                                 seq=TRAIN_S, lr=TRAIN_LR, dtype=dtype,
+                                 device=dev)
+        torch.cuda.synchronize()
+        n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        with torch.no_grad():
+            held = float(loss_fn(tr.pop("params"), cfg, {
+                k: torch.from_numpy(v).to(dev) for k, v in first.items()})[0])
+        torch.cuda.empty_cache()
+        tt, losses = tr["timings"], tr["losses"]
+        name = str(dtype)[6:]
+        print(f"chatglm3-6b training B={TRAIN_B} S={TRAIN_S} {steps} SGD "
+              f"steps {name}: {tt['ms_per_step']} ms per step after the "
+              f"first ({tt['first_step_ms']} ms), {tt['tokens_per_s']} "
+              f"tokens/s, peak memory {peak:.3f} GiB; losses {losses}, the "
+              f"first batch's after training {held}; launches K3 forward "
+              f"{n_fwd}, backward {n_bwd}")
+        want = cfg.n_layers * steps
+        if not (n_fwd == want and _bwd_counts_ok(n_bwd, kernels, want)
+                and all(np.isfinite(losses + [held])) and held < losses[0]):
+            raise AssertionError(f"chatglm3-6b {name} training: K3 "
+                                 f"{n_fwd}/{n_bwd} (expected {want} a "
+                                 f"kernel), losses {losses}, the first "
+                                 f"batch's after training {held}")
+        out[name] = {"timings": tt, "peak_gib": peak, "losses": losses,
+                     "first_batch_after": held, "k3_forward": n_fwd,
+                     "k3_backward": n_bwd}
+    return out
+
+
+def run_step_builders(dev) -> dict:
+    """The four step builders (``launch/steps.py``) in bf16 at chatglm3-6b's
+    full width and depth (11.6 GiB of seed-0 weights), each shape's
+    global_batch cut to one card (``BUILDER_CUTS``), widths and depth the
+    config's: ``make_train_step`` at train_4k (S 4096) for
+    ``BUILDER_TRAIN_STEPS`` steps (remat, lr 3e-3: losses finite, params
+    changed; K3's forward twice a layer a step, each backward kernel once);
+    ``make_prefill_step`` at prefill_32k (S 32,768: K3 once a layer,
+    logits finite); ``make_decode_step`` at decode_32k (a zero bf16 cache
+    of 32,768 positions, one step at the last) and at long_500k under its
+    forced 4096 window (a ring of 4096, one step at position 524,287).
+    Prints each cut, ms, peak and cache size; the weights are freed on
+    return."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config, get_shape
+    from repro_torch.data import token_batch_stream
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_cache, init_params
+    cfg = get_config("chatglm3-6b")
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    out = {}
+    shapes = {}
+    for name, batch in BUILDER_CUTS.items():
+        full = get_shape(name)
+        shapes[name] = dataclasses.replace(full, global_batch=batch)
+        print(f"{name}: global_batch {full.global_batch} -> {batch} (one "
+              f"card), seq_len {full.seq_len}, effective window "
+              f"{steps.effective_window(cfg, shapes[name])}"
+              + (f", {BUILDER_TRAIN_STEPS} steps" if full.mode == "train"
+                 else ", one step" if full.mode == "decode" else ""))
+    # make_train_step at train_4k
+    shape = shapes["train_4k"]
+    specs = steps.input_specs(cfg, shape)
+    stream = token_batch_stream(0, batch=shape.global_batch,
+                                seq_len=shape.seq_len, vocab=cfg.vocab)
+    step = steps.make_train_step(cfg, TrainConfig(lr=TRAIN_LR), shape)
+    before = params["layers"]["mlp"]["w_down"][0, :64].clone()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.reset_counts()
+    losses, ms = [], []
+    for _ in range(BUILDER_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev, specs[k].dtype)
+                 for k, v in next(stream).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, metrics = step(params, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    changed = not torch.equal(before, params["layers"]["mlp"]["w_down"][0,
+                                                                       :64])
+    want = cfg.n_layers * BUILDER_TRAIN_STEPS
+    print(f"make_train_step train_4k bf16 B={shape.global_batch} "
+          f"S={shape.seq_len}: ms per step {ms}, losses {losses}, params "
+          f"changed {changed}, peak memory {peak:.3f} GiB; launches K3 "
+          f"forward {n_fwd}, backward {n_bwd}")
+    if not (all(np.isfinite(losses)) and changed and n_fwd == 2 * want
+            and _bwd_counts_ok(n_bwd, _bwd_kernels(BWD_TRAIN_4K, dev),
+                               want)):
+        raise AssertionError(f"make_train_step at train_4k: losses {losses},"
+                             f" changed {changed}, K3 {n_fwd}/{n_bwd}")
+    out["train_4k"] = {"ms": ms, "losses": losses, "peak_gib": peak,
+                       "k3_forward": n_fwd, "k3_backward": n_bwd}
+    del batch, metrics
+    torch.cuda.empty_cache()
+    # make_prefill_step at prefill_32k
+    shape = shapes["prefill_32k"]
+    tokens = torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len),
+                           generator=torch.Generator().manual_seed(2),
+                           dtype=torch.int32).to(dev)
+    prefill = steps.make_prefill_step(cfg, shape)
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n3 = k3.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"make_prefill_step prefill_32k bf16 B={shape.global_batch} "
+          f"S={shape.seq_len}: {ms} ms (first call), logits "
+          f"{tuple(logits.shape)}, cache k {tuple(cache['layers']['k'].shape)}"
+          f" {cache['layers']['k'].dtype}, peak memory {peak:.3f} GiB, K3 "
+          f"launches {n3}")
+    if not (n3 == cfg.n_layers and bool(torch.isfinite(logits).all())
+            and cache["layers"]["k"].dtype == torch.bfloat16):
+        raise AssertionError(f"make_prefill_step at prefill_32k: K3 {n3}")
+    out["prefill_32k"] = {"ms": ms, "peak_gib": peak, "k3": n3}
+    del logits, cache, tokens
+    torch.cuda.empty_cache()
+    # make_decode_step at decode_32k and long_500k
+    for name in ("decode_32k", "long_500k"):
+        shape = shapes[name]
+        window = steps.effective_window(cfg, shape)
+        cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                           window=window, device=dev, dtype=torch.bfloat16)
+        abstract = steps.abstract_cache(cfg, shape)
+        same = all(cache["layers"][n].shape == abstract["layers"][n].shape
+                   and cache["layers"][n].dtype == abstract["layers"][n].dtype
+                   for n in ("k", "v"))
+        gib = _tree_gib(cache)
+        token = torch.randint(0, cfg.vocab, (shape.global_batch, 1),
+                              generator=torch.Generator().manual_seed(3),
+                              dtype=torch.int32).to(dev)
+        pos = shape.seq_len - 1
+        decode = steps.make_decode_step(cfg, shape)
+        decode(params, cache, {"token": token, "pos": pos})      # warm
+        torch.cuda.reset_peak_memory_stats(dev)
+        k3.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, {"token": token, "pos": pos})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"make_decode_step {name} bf16 B={shape.global_batch}: cache "
+              f"{tuple(cache['layers']['k'].shape)} k and v, {gib:.3f} GiB "
+              f"(abstract_cache's shapes: {same}), window {window}, one step "
+              f"at position {pos}: {ms} ms, logits finite "
+              f"{bool(torch.isfinite(logits).all())}, peak memory "
+              f"{peak:.3f} GiB, K3 launches {k3.launches}")
+        if not (same and bool(torch.isfinite(logits).all())
+                and k3.launches == 0):
+            raise AssertionError(f"make_decode_step at {name}")
+        out[name] = {"ms": ms, "cache_gib": gib, "peak_gib": peak,
+                     "window": window}
+        del cache, logits
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_starcoder2_main_path(dev) -> dict:
+    """starcoder2-15b at full width and depth in bf16 (40 layers, 48 heads
+    over 4 at Dh 128, its 4096 window; 22.0 B params, 41 GiB; fp32 fits no
+    card): ``STAR_B`` prompts of ``STAR_PROMPT`` tokens, ``SERVE_GEN``
+    generated, so the 4096-slot ring wraps in the prefill and in decode (a
+    warm serve of 2 first; K3 40 launches a prefill, logits finite). Prints
+    prefill ms, decode ms a step and the peak; the weights are freed on
+    return."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import init_params
+    cfg = get_config("starcoder2-15b")
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    prompts = make_prompts(cfg, STAR_B, STAR_PROMPT, seed=1, device=dev)
+    serve(cfg, params, prompts, 2, device=dev)                 # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.reset_counts()
+    res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    n3 = k3.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    _check_served("starcoder2-15b", cfg, res, n3)
+    t = res.timings
+    print(f"starcoder2-15b ({_tree_gib(params):.3f} GiB bf16) B={STAR_B} "
+          f"prompt={STAR_PROMPT} gen={SERVE_GEN} window "
+          f"{cfg.sliding_window}: prefill {t['prefill_ms']} ms, decode "
+          f"{t['decode_ms_per_step']} ms per step, {t['decode_tok_per_s']} "
+          f"generated tok/s, peak memory {peak:.3f} GiB, K3 launches {n3}")
+    print(f"first 16 tokens of prompt 0: {res.tokens[0, :16].tolist()}")
+    del params, res
+    torch.cuda.empty_cache()
+    return {"timings": t, "peak_gib": peak, "k3": n3}
+
+
 def time_ms(fn, iters=20, reps=10) -> float:
     """Steady-state device ms per call of ``fn``: ``iters`` calls enqueued
     back to back between two CUDA events while ``torch.cuda._sleep`` holds
@@ -2797,25 +3417,27 @@ def attention_positions_report(dev, shape, n_pos, err, floor, main_path):
         "library_backend": sdpa_backends(sdpa)}
 
 
-def k3_bwd_times(dev, shape, k3=None, calls=None) -> dict:
-    """K3's backward at ``shape`` (fp32): the kernels' steady and cold ms
-    together and each one's steady ms (its launches at ``shape``), the
-    bounds (five products of 2·Dh FLOPs for each unmasked (query, key)
-    pair of each head: split TF32 at 495 TFLOP/s, three TF32 products for
-    each; fp32 at 67 TFLOP/s on the CUDA cores; the bytes of q, k, v, o, dO
-    and the LSE read and dq, dk, dv and D written), and SDPA's backward on
-    the same inputs. ``k3`` is the module whose forward gives o and the
-    LSE (the port on the path by default); ``calls(q, k, v, out, lse, dout,
-    causal, window)`` returns the backward's launches as (name, launch)
-    pairs (by default ``k3._backward_launches``'s), so another version of
-    the kernels can be timed the same way."""
+def k3_bwd_times(dev, shape, k3=None, calls=None, dtype=torch.float32,
+                 iters=20) -> dict:
+    """K3's backward at ``shape`` in ``dtype``: the kernels' steady and
+    cold ms together and each one's steady ms (its launches at ``shape``;
+    ``iters`` calls a bracket), the bounds (five products of 2·Dh FLOPs for
+    each unmasked (query, key) pair of each head: in fp32 split TF32 at 495
+    TFLOP/s, three TF32 products for each, and fp32 at 67 TFLOP/s on the
+    CUDA cores; in bf16 the FLOPs at bf16's 989 TFLOP/s; the bytes of q,
+    k, v, o, dO and the LSE read and dq, dk, dv and D written), and SDPA's
+    backward on the same inputs. ``k3`` is the module whose forward gives
+    o and the LSE (the port on the path by default); ``calls(q, k, v, out,
+    lse, dout, causal, window)`` returns the backward's launches as (name,
+    launch) pairs (by default ``k3._backward_launches``'s), so another
+    version of the kernels can be timed the same way."""
     if k3 is None:
         from repro_torch.kernels import flash_attention as k3
     if calls is None:
         def calls(*args):
             return k3._backward_launches(*args)[1]
     B, Sq, Skv, H, KH, Dh, causal, window = shape
-    q, k, v, dout = _bwd_inputs(shape, dev)
+    q, k, v, dout = _bwd_inputs(shape, dev, dtype=dtype)
     out, lse = k3._launch(q, k, v, causal, window, with_lse=True)
     launches = calls(q, k, v, out, lse, dout, causal, window)
 
@@ -2825,45 +3447,58 @@ def k3_bwd_times(dev, shape, k3=None, calls=None) -> dict:
 
     pairs = _unmasked_pairs(Sq, Skv, causal, window)
     ops = 5 * 2 * Dh * pairs * B * H
-    nbytes = 4 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                  + 2 * lse.numel())      # q, o, dO, dq; k, dk; v, dv; LSE, D
+    nbytes = (q.element_size() * (4 * q.numel() + 2 * k.numel()
+                                  + 2 * v.numel())
+              + 4 * 2 * lse.numel())      # q, o, dO, dq; k, dk; v, dv; LSE, D
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    split_ms = SPLIT_TF32_TERMS * ops / TF32_FLOPS * 1e3
     fp32_ms = ops / FP32_FLOPS * 1e3
-    ms = time_ms(bwd)
+    if dtype == torch.bfloat16:
+        ops_ms, route = ops / BF16_FLOPS * 1e3, "the FLOPs at bf16's 989 " \
+            "TFLOP/s (dense)"
+    else:
+        ops_ms = SPLIT_TF32_TERMS * ops / TF32_FLOPS * 1e3
+        route = "split TF32: 3 x the FLOPs at 495 TFLOP/s"
+    ms = time_ms(bwd, iters=iters)
     row = {
         "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KH": KH, "Dh": Dh,
-                  "causal": causal, "window": window, "dtype": "float32"},
-        "ms": ms, "cold_ms": cold_ms(bwd, dev),
-        "kernel_ms": {name: time_ms(launch) for name, launch in launches},
-        "bound_ms": max(bytes_ms, split_ms),
-        "bound_by": "bytes" if bytes_ms >= split_ms else "operations",
-        "bound_route": "split TF32: 3 x the FLOPs at 495 TFLOP/s",
-        "bound_tf32_ms": split_ms, "bound_fp32_cuda_core_ms": fp32_ms,
+                  "causal": causal, "window": window,
+                  "dtype": str(dtype)[6:]},
+        "ms": ms, "cold_ms": cold_ms(bwd, dev, iters=min(50, 5 * iters)),
+        "kernel_ms": {name: time_ms(launch, iters=iters)
+                      for name, launch in launches},
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_route": route,
+        "bound_ops_ms": ops_ms, "bound_fp32_cuda_core_ms": fp32_ms,
         "bound_bytes_ms": bytes_ms, "bound_flops": ops,
-        "bound_share": max(bytes_ms, split_ms) / ms,
+        "bound_share": max(bytes_ms, ops_ms) / ms,
         **sdpa_backward(q, k, v, dout, causal)}
     del q, k, v, dout, out, lse, launches
     torch.cuda.empty_cache()
     return row
 
 
-def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path, steps):
+def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path, steps,
+                         dtype=torch.float32):
     """K3's backward row at one main path's shape (smollm-135m's training
     path's, B 8 x S 256, or its federated one's, B 4 x S 128; qwen2-vl's
     or musicgen's training path's, B 8 x S 256 after the stub prefix;
-    fp32): ``k3_bwd_times`` with the launches that path made in its
-    ``steps`` steps, the error phase 6 found at that shape and the plain
-    backward's ms."""
+    chatglm3-6b's and train_4k's; fp32 or bf16): ``k3_bwd_times`` with the
+    launches that path made in its ``steps`` steps, the error phase 6
+    found at that shape and the plain backward's ms (in bf16 the plain
+    backward computes in float64; it and the kernels at train_4k's size
+    are timed over fewer calls)."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import flash_attention_bwd_ref
     causal, window = shape[6], shape[7]
-    q, k, v, dout = _bwd_inputs(shape, dev)
+    big = shape[0] * shape[1] * shape[2] * shape[3] >= 2**28
+    q, k, v, dout = _bwd_inputs(shape, dev, dtype=dtype)
     out, lse = k3._launch(q, k, v, causal, window, with_lse=True)
     plain_ms = time_ms(lambda: flash_attention_bwd_ref(
         q, k, v, out, lse, dout, causal=causal, window=window),
-        iters=5, reps=5)
+        iters=1 if big else 5, reps=3 if big else 5)
     plan = k3.backward_plan(*shape, k3._sm_count(dev))
+    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_TOL
     return {
         "name": "flash_attention_bwd", "route": "cuda", "main_path": main_path,
         "design": "split-TF32 wgmma for every product (S^T, dP^T, dV, dK "
@@ -2883,19 +3518,76 @@ def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path, steps):
         "launches_per_step": sum(n_bwd.values()) // steps,
         "splits": plan["splits"], "dkdv_blocks": plan["dkdv_blocks"],
         "dq_blocks": plan["dq_blocks"],
-        "max_abs_err": err[0], "atol": BWD_TOL, "rtol": BWD_TOL,
+        "max_abs_err": err[0], "atol": tol, "rtol": tol,
         "max_excess_over_rtol": err[1],
         "tolerance_note": "|d| <= atol + rtol·|plain|, i.e. max_excess_"
-                          "over_rtol = max(|d| − rtol·|plain|) <= atol",
-        **k3_bwd_times(dev, shape),
+                          "over_rtol = max(|d| − rtol·|plain|) <= atol; "
+                          "against the float64 plain backward",
+        **k3_bwd_times(dev, shape, dtype=dtype, iters=3 if big else 20),
         "plain_ms": plain_ms,
         "back_to_back_ms": back_to_back_ms(lambda: k3._launch_backward(
-            q, k, v, out, lse, dout, causal, window), iters=50),
+            q, k, v, out, lse, dout, causal, window), iters=5 if big else 50),
         "forward_lse_ms": time_ms(lambda: k3._launch(q, k, v, causal, window,
                                                      with_lse=True)),
         "forward_serving_ms": time_ms(lambda: k3._launch(q, k, v, causal,
                                                          window)),
         "floor_ms": floor}
+
+
+def attention_bf16_report(dev, shape, n3, err, floor, main_path):
+    """K3's bf16 serving forward's row at a main path's ``shape``
+    (starcoder2-15b's prefill under its window), with the launches ``n3``
+    that path made and the error ``err`` phase 6 found there: its ms
+    beside the plain bf16 version's, the bound (the unmasked pairs' 4·Dh
+    FLOPs at bf16's 989 TFLOP/s, or the bf16 bytes of q, k, v read and o
+    written at 3.35 TB/s) and SDPA in bf16 on the same inputs (K and V
+    repeated to H heads and the window's boolean mask, which the
+    memory-efficient backend takes)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels.ref import _attention_mask, flash_attention_ref
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    q, k, v = _attn_inputs(shape, torch.bfloat16, dev)
+    mask = _attention_mask(Sq, Skv, causal, window, dev)
+    pairs = int(mask.sum())
+    ops = 4 * Dh * pairs * B * H
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    G = H // KH
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+              for t in (k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_FLOPS * 1e3
+    return {
+        "name": "flash_attention (bf16)", "route": "cuda",
+        "design": "the fp32 route's split-TF32 wgmma with bf16 inputs exact "
+                  "in TF32: Q.K^T one product, P.V two (P split)",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "main_path": main_path, "launches": n3, "max_abs_err": err,
+        "tolerance": ATTN_TOL[torch.bfloat16],
+        "shape": {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "KH": KH, "Dh": Dh,
+                  "causal": causal, "window": window, "dtype": "bfloat16"},
+        "unmasked_pairs_per_head": pairs,
+        "ms": time_ms(lambda: k3._launch(q, k, v, causal, window), iters=5),
+        "cold_ms": cold_ms(lambda: k3._launch(q, k, v, causal, window), dev,
+                           iters=10),
+        "training_forward_ms": time_ms(lambda: k3._launch(
+            q, k, v, causal, window, with_lse=True), iters=5),
+        "plain_ms": time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), iters=1, reps=3),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_route": "the FLOPs at bf16's 989 TFLOP/s (dense)",
+        "bound_bytes_ms": bytes_ms, "bound_flops": ops,
+        "floor_ms": floor, "library_ms": time_ms(sdpa, iters=3, reps=5),
+        "library_note": "SDPA in bf16, K/V repeated to H heads, the "
+                        "window's boolean attn_mask",
+        "library_backend": sdpa_backends(sdpa)}
 
 
 def sdpa_backward(q, k, v, dout, causal) -> dict:
@@ -3233,6 +3925,7 @@ def main() -> int:
     _phase("6. K3 flash_attention vs plain, forward and backward")
     err3 = check_flash_attention(dev)
     err3_bwd = check_flash_attention_backward(dev)
+    err3_bf16 = check_flash_attention_backward_bf16(dev)
     err3_pos = check_flash_attention_positions(dev)
 
     _phase("7. serving: small runs vs CPU, then the main paths (smollm-135m, "
@@ -3309,6 +4002,24 @@ def main() -> int:
         print(f"{arch} training main path wall "
               f"{time.perf_counter() - t0:.1f} s")
 
+    _phase("7g. dense configs at full width and the step builders: reduced "
+           "chatglm3-6b and starcoder2-15b in bf16 vs CPU, chatglm3-6b fp32 "
+           "serving and training (and bf16 training), the four step "
+           "builders in bf16 at its width, starcoder2-15b bf16 serving")
+    t0 = time.perf_counter()
+    dense_small = check_dense_bf16_against_cpu(dev)
+    print(f"7g card vs CPU wall {time.perf_counter() - t0:.1f} s; K3 "
+          f"launches {dense_small}")
+    t0 = time.perf_counter()
+    glm = run_glm_main_path(dev)
+    print(f"chatglm3-6b main paths wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    builders = run_step_builders(dev)
+    print(f"step builders wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    star = run_starcoder2_main_path(dev)
+    print(f"starcoder2-15b main path wall {time.perf_counter() - t0:.1f} s")
+
     _phase("7b. LM training: small run vs CPU, then single-client and "
            "federated at full width")
     check_train_against_cpu(dev)
@@ -3375,7 +4086,24 @@ def main() -> int:
         attention_bwd_report(dev, BWD_MLA_SMALL, family_small["minicpm3-4b"],
                              err3_bwd[BWD_MLA_SMALL], floor,
                              "train reduced minicpm3-4b (MLA, Dh 48), card "
-                             "vs CPU", 3)]
+                             "vs CPU", 3),
+        attention_bf16_report(dev, ATTN_STARCODER, star["k3"],
+                              err3[(ATTN_STARCODER, "bf16")], floor,
+                              "serve starcoder2-15b (bf16, window 4096)"),
+        attention_bwd_report(dev, BWD_CHATGLM, glm["float32"]["k3_backward"],
+                             err3_bwd[BWD_CHATGLM], floor,
+                             "train chatglm3-6b (fp32, G 16)", GLM_STEPS),
+        attention_bwd_report(dev, BWD_CHATGLM,
+                             glm["bfloat16"]["k3_backward"],
+                             err3_bf16[BWD_CHATGLM], floor,
+                             "train chatglm3-6b (bf16, G 16)",
+                             GLM_BF16_STEPS, dtype=torch.bfloat16),
+        attention_bwd_report(dev, BWD_TRAIN_4K,
+                             builders["train_4k"]["k3_backward"],
+                             err3_bf16[BWD_TRAIN_4K], floor,
+                             "make_train_step chatglm3-6b at train_4k (bf16, "
+                             "global_batch cut to 2)", BUILDER_TRAIN_STEPS,
+                             dtype=torch.bfloat16)]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}
@@ -3390,6 +4118,7 @@ def main() -> int:
         profile_serve(dev, *serve_args)
         profile_train(dev)
     torch.cuda.synchronize()
+    _phase(None)
     print(card_line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

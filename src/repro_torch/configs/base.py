@@ -1,6 +1,7 @@
 """Federated-learning and wireless-channel configs (paper Table I), LM
-training's ``TrainConfig``, the language models' ``ModelConfig`` and the
-registry ``--arch`` selects from."""
+training's ``TrainConfig``, the language models' ``ModelConfig``, the
+step builders' ``ShapeConfig`` and the registry ``--arch`` selects
+from."""
 from __future__ import annotations
 
 import dataclasses
@@ -166,6 +167,17 @@ class ModelConfig:
                 self.ssm, state_dim=min(self.ssm.state_dim, 16),
                 head_dim=min(self.ssm.head_dim, 32))
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the step builders (``launch/steps.py``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                     # train | prefill | decode
+    # decode shapes: cache length == seq_len, step processes ONE new token
+    force_sliding_window: int = 0 # long_500k: SW substitution for dense archs
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

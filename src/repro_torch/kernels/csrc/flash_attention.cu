@@ -23,11 +23,18 @@
 // and bf16 inputs; the output has q's type. Ragged Sq and Skv are masked
 // here, so nothing is padded.
 //
-// For training, an fp32 instantiation (template flag kLse) also writes
-// each row's log-sum-exp of the scaled scores, lse[b, h, i] = m + log(l),
-// for the backward (csrc/flash_attention_bwd.cu) to recompute P from; a
-// fully masked row gets +inf, so that exp(s - lse) is 0 there. The flag
-// adds only that store: the serving instantiation is the kernel as it was.
+// For training, an instantiation in either type (template flag kLse) also
+// writes each row's log-sum-exp of the scaled scores, lse[b, h, i] = m +
+// log(l), in fp32, for the backward (csrc/flash_attention_bwd.cu) to
+// recompute P from; a fully masked row gets +inf, so that exp(s - lse) is 0
+// there. The reference trains in its params' dtype (bf16 by default,
+// src/repro/launch/steps.py:91-119), so bf16 has one too, which writes its
+// output in fp32: the backward's D = rowsum(dO o) then reads the output
+// unrounded, as the reference's autodiff of chunked_attention does, where
+// the rounded one adds an error growing with the keys a query sees (past
+// the bf16 gate at train_4k's S 4096); the wrapper rounds it to bf16 for
+// the caller, the bits the serving instantiation writes. The flag adds
+// only these stores: the serving instantiation is the kernel as it was.
 //
 // The GQA fold: the G query heads of one KV head are G adjacent rows of
 // the (Sq*G, Dh) row space (row = i*G + g), read in place by stride, so
@@ -122,6 +129,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "wgmma_tf32.cuh"
 
 namespace {
@@ -171,28 +180,6 @@ struct Layout {
   static_assert(DH % Cfg<DH>::kPV == 0, "P.V must be whole wgmma products");
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  *reinterpret_cast<uint32_t*>(&lo) = u.x;
-  *reinterpret_cast<uint32_t*>(&hi) = u.y;
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // whether a query at position qp sees a key at position kp
 __device__ __forceinline__ bool sees(int qp, int kp, int causal,
                                      int window) {
@@ -215,11 +202,16 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
 }
 
+// the output's type: q's, or fp32 in the training instantiations
+template <typename T, bool kLse>
+using OutT = std::conditional_t<kLse, float, T>;
+
 template <typename T, int DH, bool kLse, bool kPos>
 __global__ void __launch_bounds__(Layout<T, DH, kPos>::kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
                        const __grid_constant__ CUtensorMap tmap_v,
-                       const T* __restrict__ q, T* __restrict__ o,
+                       const T* __restrict__ q,
+                       OutT<T, kLse>* __restrict__ o,
                        float* __restrict__ lse,
                        const int* __restrict__ q_pos,
                        const int* __restrict__ kv_pos, int Sq, int Skv,
@@ -523,15 +515,17 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
       lse[(bh + rB % G) * Sq + posB] = l_b > 0.f ? m_b + logf(l_b) : INFINITY;
   }
   if (okA) {
-    T* dst = o + ((static_cast<int64_t>(b) * Sq + posA) * H + kh * G +
-                  rA % G) * DH;
+    OutT<T, kLse>* dst =
+        o + ((static_cast<int64_t>(b) * Sq + posA) * H + kh * G + rA % G) *
+                DH;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j)
       store2(dst + 8 * j + 2 * t4, acc[4 * j] / dA, acc[4 * j + 1] / dA);
   }
   if (okB) {
-    T* dst = o + ((static_cast<int64_t>(b) * Sq + posB) * H + kh * G +
-                  rB % G) * DH;
+    OutT<T, kLse>* dst =
+        o + ((static_cast<int64_t>(b) * Sq + posB) * H + kh * G + rB % G) *
+                DH;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j)
       store2(dst + 8 * j + 2 * t4, acc[4 * j + 2] / dB, acc[4 * j + 3] / dB);
@@ -616,27 +610,37 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
   flash_attention_kernel<T, DH, kLse, kPos>
       <<<grid, L::kThreads, L::kBytes, st>>>(
-          map_k, map_v, static_cast<const T*>(q), static_cast<T*>(o), lse,
+          map_k, map_v, static_cast<const T*>(q),
+          static_cast<OutT<T, kLse>*>(o), lse,
           q_pos, kv_pos, Sq, Skv, H, KH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One head size and mask source: the training instantiation when lse is
-// set (fp32 only), else the serving one in q's type.
+// One head size and mask source in q's type: the training instantiation
+// when lse is set, else the serving one.
+template <int DH, bool kPos, typename T>
+int dispatch_lse(const void* q, const void* k, const void* v, void* o,
+                 float* lse, const int* q_pos, const int* kv_pos, int B,
+                 int Sq, int Skv, int H, int KH, int causal, int window,
+                 cudaStream_t st) {
+  if (lse != nullptr)
+    return launch<T, DH, true, kPos>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
+                                     Skv, H, KH, causal, window, st);
+  return launch<T, DH, false, kPos>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
+                                    Skv, H, KH, causal, window, st);
+}
+
 template <int DH, bool kPos>
 int dispatch_type(const void* q, const void* k, const void* v, void* o,
                   float* lse, const int* q_pos, const int* kv_pos, int B,
                   int Sq, int Skv, int H, int KH, int causal, int window,
                   int is_bf16, cudaStream_t st) {
-  if (lse != nullptr)
-    return launch<float, DH, true, kPos>(q, k, v, o, lse, q_pos, kv_pos, B,
-                                         Sq, Skv, H, KH, causal, window, st);
   if (is_bf16)
-    return launch<__nv_bfloat16, DH, false, kPos>(q, k, v, o, lse, q_pos,
-                                                  kv_pos, B, Sq, Skv, H, KH,
-                                                  causal, window, st);
-  return launch<float, DH, false, kPos>(q, k, v, o, lse, q_pos, kv_pos, B,
-                                        Sq, Skv, H, KH, causal, window, st);
+    return dispatch_lse<DH, kPos, __nv_bfloat16>(q, k, v, o, lse, q_pos,
+                                                 kv_pos, B, Sq, Skv, H, KH,
+                                                 causal, window, st);
+  return dispatch_lse<DH, kPos, float>(q, k, v, o, lse, q_pos, kv_pos, B,
+                                       Sq, Skv, H, KH, causal, window, st);
 }
 
 // The position instantiations when q_pos is set, else the index ones.
@@ -655,12 +659,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for a head size other than 48, 64, 96, 112 or 128,
-// more than 65535 row tiles or an lse with bf16, or 10000 + the CUresult
-// if a tensor map cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv,
-// KH, Dh); contiguous, of one type (fp32, or bf16 when is_bf16), 16-byte
-// aligned (TMA's rule). lse: null (serving), or (B, H, Sq) fp32 written by
-// the training instantiation (fp32 inputs only). q_pos, kv_pos: both null
+// cudaErrorInvalidValue for a head size other than 48, 64, 96, 112 or 128
+// or more than 65535 row tiles, or 10000 + the CUresult if a tensor map
+// cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh);
+// contiguous, of one type (fp32, or bf16 when is_bf16; o fp32 whenever lse
+// is set), 16-byte aligned (TMA's rule). lse: null (serving), or (B, H,
+// Sq) fp32 written by the training instantiation (either type). q_pos,
+// kv_pos: both null
 // (mask by index), or (Sq,) and (Skv,) contiguous int32 (mask by them; a
 // cudaErrorInvalidValue if only one is set).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -671,7 +676,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (l != nullptr && is_bf16) return static_cast<int>(cudaErrorInvalidValue);
   if ((q_pos == nullptr) != (kv_pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* qp = static_cast<const int*>(q_pos);

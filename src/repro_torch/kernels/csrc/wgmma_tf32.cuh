@@ -2,8 +2,9 @@
 // K3's forward (flash_attention.cu) and its backward
 // (flash_attention_bwd.cu): the canonical no-swizzle operand layout and
 // its descriptor, the big/small TF32 split, wgmma.mma_async ... .tf32 with
-// operands from shared memory or registers, mbarriers and TMA loads, and
-// Ampere-style async copies.
+// operands from shared memory or registers, mbarriers and TMA loads,
+// Ampere-style async copies, and the loads and stores that widen bf16 to
+// fp32 and round fp32 to bf16 (the kernels compute in fp32 for both).
 //
 // Split TF32: each fp32 operand x is split into big = cvt.rna.tf32(x) and
 // small = cvt.rna.tf32(x - big), both exact in TF32, and a product is
@@ -18,6 +19,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,6 +83,44 @@ __device__ __forceinline__ void split4_int(const float4& x, float4& hi,
   split_int(x.y, hi.y, lo.y);
   split_int(x.z, hi.z, lo.z);
   split_int(x.w, hi.w, lo.w);
+}
+
+// ---- element types: fp32 as it is, bf16 widened on load (exactly) and
+// rounded to nearest on store
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+// 4 consecutive elements (16 bytes of fp32, 8 of bf16, so aligned to that)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  *reinterpret_cast<uint32_t*>(&lo) = u.x;
+  *reinterpret_cast<uint32_t*>(&hi) = u.y;
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+// 2 consecutive elements (8 bytes of fp32, 4 of bf16)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+// 4 consecutive elements (16 bytes of fp32, 8 of bf16)
+__device__ __forceinline__ void store4(float* p, const float4& x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // ---- mbarriers and TMA

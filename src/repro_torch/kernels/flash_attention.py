@@ -23,18 +23,22 @@ index instantiations, which read no positions.
 
 On a CUDA tensor that needs a gradient, the call goes through
 :class:`_FlashAttention`: its forward launches the kernel's training
-instantiation, which also writes each row's log-sum-exp (B, H, Sq) fp32
-(+inf for a fully masked row), and saves q, k, v, the output and that LSE;
+instantiation (fp32 or bf16), which writes the output in fp32 and each
+row's log-sum-exp (B, H, Sq) fp32 (+inf for a fully masked row), saves q,
+k, v, that output and the LSE, and returns the output in q's dtype;
 its backward launches the kernels of ``csrc/flash_attention_bwd.cu`` (D =
 rowsum(dO∘O); dK and dV, in ``splits`` partials when one block per key
 tile would leave the card idle; their fixed-order sum; dQ), which
 recompute P from the LSE as the reference's ``chunked_attention``
 recomputes each chunk under ``jax.checkpoint``. :func:`backward_plan`
-picks the split. The backward is fp32 only
-(the reference trains in fp32) and raises for bf16; it takes the head dims
-:data:`BWD_HEAD_DIMS` (explicit positions at :data:`BWD_POSITION_HEAD_DIMS`
-only), and a call that needs a gradient at another raises in the forward,
-before any launch. Nothing falls back to the plain version on a card.
+picks the split. The reference trains in its params' dtype
+(``launch/steps.py::make_train_step``, bf16 by default), so the backward
+takes fp32 at the head dims :data:`BWD_HEAD_DIMS` (explicit positions at
+:data:`BWD_POSITION_HEAD_DIMS` only) and bf16 at
+:data:`BWD_BF16_HEAD_DIMS` (without explicit positions), reading bf16 dO
+and returning bf16 gradients (every sum in fp32). A call that needs a
+gradient outside these raises in the forward, before any launch. Nothing
+falls back to the plain version on a card.
 
 Both directions multiply on the tensor cores (``wgmma`` in TF32 with
 every operand split into a big and a small TF32 part, so fp32 keeps fp32's
@@ -59,6 +63,10 @@ BWD_HEAD_DIMS = (48, 64, 96, 112, 128)  # the backward's (192: ROADMAP B1)
 # the head dims at which the backward takes explicit positions (M-RoPE
 # trains at qwen2-vl's 128; no training path gives positions at the others)
 BWD_POSITION_HEAD_DIMS = (64, 128)
+# the head dims at which the backward takes bf16: the dense configs' (64 at
+# reduced(), 128 for chatglm3-6b and starcoder2-15b); MLA's, zamba2's and
+# positions in bf16 wait (ROADMAP Queue A, A5)
+BWD_BF16_HEAD_DIMS = (64, 128)
 ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
 position_launches = 0        # of those, launches with explicit positions
@@ -97,13 +105,15 @@ def _bwd_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.attn_bwd_tiles.argtypes = [i] + [ctypes.POINTER(i)] * 5
         lib.attn_bwd_positions_built.argtypes = [i]
-        lib.attn_bwd_dot_launch.argtypes = [p] * 3 + [i] * 4 + [p]
-        lib.attn_bwd_dkdv_launch.argtypes = [p] * 10 + [i] * 9 + [p]
+        lib.attn_bwd_bf16_built.argtypes = [i]
+        # each launch ends (..., is_bf16, stream)
+        lib.attn_bwd_dot_launch.argtypes = [p] * 3 + [i] * 5 + [p]
+        lib.attn_bwd_dkdv_launch.argtypes = [p] * 10 + [i] * 10 + [p]
         lib.attn_bwd_reduce_launch.argtypes = [p] * 3 + [ctypes.c_longlong,
-                                                         i, p]
-        lib.attn_bwd_dq_launch.argtypes = [p] * 9 + [i] * 8 + [p]
+                                                         i, i, p]
+        lib.attn_bwd_dq_launch.argtypes = [p] * 9 + [i] * 9 + [p]
         for fn in (lib.attn_bwd_tiles, lib.attn_bwd_positions_built,
-                   lib.attn_bwd_dot_launch,
+                   lib.attn_bwd_bf16_built, lib.attn_bwd_dot_launch,
                    lib.attn_bwd_dkdv_launch, lib.attn_bwd_reduce_launch,
                    lib.attn_bwd_dq_launch):
             fn.restype = ctypes.c_int
@@ -121,6 +131,11 @@ def _bwd_library() -> ctypes.CDLL:
                 raise RuntimeError(f"flash_attention_bwd's position "
                                    f"instantiations at Dh {dh} do not match "
                                    f"BWD_POSITION_HEAD_DIMS")
+            if bool(lib.attn_bwd_bf16_built(dh)) != (
+                    dh in BWD_BF16_HEAD_DIMS):
+                raise RuntimeError(f"flash_attention_bwd's bf16 "
+                                   f"instantiations at Dh {dh} do not match "
+                                   f"BWD_BF16_HEAD_DIMS")
         _bwd_lib = lib
     return _bwd_lib
 
@@ -233,18 +248,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: int, with_lse: bool = False, *,
             q_positions: Optional[torch.Tensor] = None,
             kv_positions: Optional[torch.Tensor] = None):
-    """One forward launch. Returns the output, or (output, LSE) with
-    ``with_lse`` (the fp32 training instantiation). Explicit positions are
-    contiguous int32 (:func:`_int32`)."""
+    """One forward launch. Returns the output in q's dtype, or with
+    ``with_lse`` (the training instantiation) (output, LSE), both fp32
+    whatever q's dtype: the backward's D reads the output unrounded, and
+    the output rounded to bf16 is the serving instantiation's, bit for
+    bit. Explicit positions are contiguous int32 (:func:`_int32`)."""
     global launches, position_launches
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % ALIGN:
             raise ValueError(f"{name} must be {ALIGN}-byte aligned (TMA)")
-    if with_lse and q.dtype != torch.float32:
-        raise TypeError(f"the training forward is fp32 only, got {q.dtype}")
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if with_lse else q.dtype,
+                      device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -279,12 +295,17 @@ def _pointers(q_positions, kv_positions):
 def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
                        splits: int | None = None, *, q_positions=None,
                        kv_positions=None):
-    """Allocates the backward's outputs and scratch and returns ((dq, dk,
-    dv), launches): the launches in order as (name, launch) pairs, each of
-    which enqueues its kernel on the current stream, adds one to its count
-    in :data:`backward_launches` and raises if the launch fails. ``splits``
-    overrides the plan's dK/dV split (to measure the rule). Explicit
-    positions are contiguous int32 (:func:`_int32`)."""
+    """Allocates the backward's outputs (q's dtype) and scratch (fp32) and
+    returns ((dq, dk, dv), launches): the launches in order as (name,
+    launch) pairs, each of which enqueues its kernel on the current stream,
+    adds one to its count in :data:`backward_launches` and raises if the
+    launch fails. ``out`` and ``lse`` are the training forward's, both
+    fp32 (:func:`_launch` with ``with_lse``). ``splits`` overrides the
+    plan's dK/dV split (to measure the rule). Explicit positions are
+    contiguous int32 (:func:`_int32`)."""
+    if out.dtype != torch.float32 or lse.dtype != torch.float32:
+        raise TypeError(f"the backward reads the training forward's fp32 "
+                        f"output and LSE, got {out.dtype}, {lse.dtype}")
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     lib = _bwd_library()
@@ -296,21 +317,23 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     masks = (int(causal), int(window))
     pos = _pointers(q_positions, kv_positions)
+    bf16 = int(q.dtype == torch.bfloat16)
     calls = {
-        "dot": (lib.attn_bwd_dot_launch, (dout, out, d), (B, Sq, H, Dh)),
+        "dot": (lib.attn_bwd_dot_launch, (dout, out, d),
+                (B, Sq, H, Dh, bf16)),
         "dq": (lib.attn_bwd_dq_launch, (q, k, v, dout, lse, d, dq),
-               pos + (B, Sq, Skv, H, KH, Dh) + masks)}
+               pos + (B, Sq, Skv, H, KH, Dh) + masks + (bf16,))}
     if splits > 1:
         part = torch.empty((2, splits) + tuple(dk.shape), dtype=torch.float32,
                            device=dev)
         partials = (part[0], part[1])
         calls["reduce"] = (lib.attn_bwd_reduce_launch, (part, dk, dv),
-                           (dk.numel(), splits))
+                           (dk.numel(), splits, bf16))
     else:
         partials = (dk, dv)
     calls["dkdv"] = (lib.attn_bwd_dkdv_launch,
                      (q, k, v, dout, lse, d) + partials,
-                     pos + (B, Sq, Skv, H, KH, Dh) + masks + (splits,))
+                     pos + (B, Sq, Skv, H, KH, Dh) + masks + (splits, bf16))
 
     def launcher(name):
         fn, tensors, ints = calls[name]
@@ -345,40 +368,46 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_positions=None,
                 kv_positions=None):
-        Dh = q.shape[3]
-        if Dh not in BWD_HEAD_DIMS:
-            raise ValueError(f"head dim {Dh}: the flash_attention backward "
-                             f"takes {BWD_HEAD_DIMS} (ROADMAP Queue B, B1); "
-                             "call it without gradients to serve")
-        if q_positions is not None and Dh not in BWD_POSITION_HEAD_DIMS:
-            raise ValueError(f"head dim {Dh}: the flash_attention backward "
-                             f"takes explicit positions at "
-                             f"{BWD_POSITION_HEAD_DIMS} (ROADMAP Queue B, "
-                             "B1); call it without gradients to serve")
+        _check_backward(q.shape[3], q.dtype, q_positions is not None)
         ctx.causal, ctx.window = causal, window
         ctx.positions = dict(q_positions=q_positions,
                              kv_positions=kv_positions)
-        if q.dtype != torch.float32:       # the backward raises for it
-            ctx.save_for_backward(q)
-            return _launch(q, k, v, causal, window, **ctx.positions)
         out, lse = _launch(q, k, v, causal, window, with_lse=True,
                            **ctx.positions)
         ctx.save_for_backward(q, k, v, out, lse)
-        return out
+        return out.to(q.dtype)            # fp32: the same tensor
 
     @staticmethod
     def backward(ctx, dout):
-        saved = ctx.saved_tensors
-        if saved[0].dtype != torch.float32:
-            raise TypeError(f"the flash_attention backward is fp32 only, "
-                            f"got {saved[0].dtype}")
-        q, k, v, out, lse = saved
-        dout = dout.float().contiguous()
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()   # bf16 dO stays bf16
         if dout.data_ptr() % ALIGN:      # cp.async reads 16-byte chunks
             dout = dout.clone()
         dq, dk, dv = _launch_backward(q, k, v, out, lse, dout, ctx.causal,
                                       ctx.window, **ctx.positions)
         return dq, dk, dv, None, None, None, None
+
+
+def _check_backward(Dh: int, dtype: torch.dtype, positions: bool) -> None:
+    """Raise, before any launch, for a call that needs a gradient the
+    backward does not take: a head dim outside :data:`BWD_HEAD_DIMS`,
+    explicit positions outside :data:`BWD_POSITION_HEAD_DIMS`, bf16
+    outside :data:`BWD_BF16_HEAD_DIMS` or with explicit positions."""
+    hint = "call it without gradients to serve"
+    if Dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {Dh}: the flash_attention backward "
+                         f"takes {BWD_HEAD_DIMS} (ROADMAP Queue B, B1); "
+                         f"{hint}")
+    if positions and Dh not in BWD_POSITION_HEAD_DIMS:
+        raise ValueError(f"head dim {Dh}: the flash_attention backward "
+                         f"takes explicit positions at "
+                         f"{BWD_POSITION_HEAD_DIMS} (ROADMAP Queue B, B1); "
+                         f"{hint}")
+    if dtype == torch.bfloat16 and (Dh not in BWD_BF16_HEAD_DIMS
+                                    or positions):
+        raise ValueError(f"head dim {Dh}: the flash_attention backward "
+                         f"takes bf16 at {BWD_BF16_HEAD_DIMS} without "
+                         f"explicit positions (ROADMAP Queue A, A5); {hint}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -392,7 +421,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :data:`FWD_HEAD_DIMS`, differentiable through the hand-written
     backward when any input needs a gradient (head dims
     :data:`BWD_HEAD_DIMS`); the plain version (autograd's own backward)
-    for CPU tensors at any head dim; an error for anything else."""
+    for CPU tensors at any head dim; an error for anything else. The
+    bf16 plain version rounds P to bf16 before P·V, as the reference's
+    ``chunked_attention`` does."""
     _check(q, k, v, window, q_positions, kv_positions)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,

@@ -22,13 +22,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, Dh); k/v: (B, Skv, KH, Dh), H % KH == 0; query head
     h = kh·G + g reads KV head kh. Full-matrix attention in fp32 (float64
     for float64 inputs) with the masks of :func:`_attention_mask`; a fully
-    masked row gives 0. Returns (B, Sq, H, Dh) in q's dtype.
+    masked row gives 0. For bf16 inputs as the reference's
+    ``chunked_attention`` computes it: Q·Kᵀ and the softmax's max and sum
+    in fp32, the unnormalised P rounded to bf16 before P·V (summed in
+    fp32), then divided by the sum. Returns (B, Sq, H, Dh) in q's dtype.
     Differentiable by autograd."""
     B, Sq, H, Dh = q.shape
     s = _scores(q, k)
     mask = _attention_mask(Sq, k.shape[1], causal, window, q.device,
                            q_positions, kv_positions)
     s.masked_fill_(~mask[None, :, None, None, :], -math.inf)
+    if q.dtype == torch.bfloat16:
+        # a fully masked row's max is -inf: from -1e30 its P is exp(-inf)
+        m = torch.clamp(s.detach().amax(dim=-1, keepdim=True), min=-1e30)
+        p = torch.exp(s - m)
+        pv = torch.einsum("bqhgk,bkhd->bqhgd", p.bfloat16().float(),
+                          v.float())
+        out = pv / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        return out.reshape(B, Sq, H, Dh).to(q.dtype)
     # out of place: autograd's softmax backward reads the softmax's output
     p = torch.softmax(s, dim=-1).nan_to_num(nan=0.0)
     out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.to(p.dtype))
@@ -59,12 +70,14 @@ def _attention_mask(Sq: int, Skv: int, causal: bool, window: int,
     return mask
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """(B, Sq, KH, G, Skv) scaled scores, in float64 for float64 inputs and
-    fp32 otherwise."""
+def _scores(q: torch.Tensor, k: torch.Tensor,
+            ct: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(B, Sq, KH, G, Skv) scaled scores, in ``ct``: by default float64 for
+    float64 inputs and fp32 otherwise."""
     B, Sq, H, Dh = q.shape
     KH = k.shape[2]
-    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    if ct is None:
+        ct = torch.float64 if q.dtype == torch.float64 else torch.float32
     qg = q.reshape(B, Sq, KH, H // KH, Dh).to(ct)
     return torch.einsum("bqhgd,bkhd->bqhgk", qg, k.to(ct)) / math.sqrt(Dh)
 
@@ -99,14 +112,15 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     and dV = Pᵀ·dO, with dK and dV summed over the G query heads of each KV
     head. q, out, dout: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); lse (B, H,
     Sq) as :func:`attention_lse_ref` gives it; the masks of
-    :func:`_attention_mask`. Computes in float64 for float64 inputs and
+    :func:`_attention_mask`. Computes in float64 for float64 and bf16
+    inputs (the bf16 values widened: the oracle of K3's bf16 backward) and
     fp32 otherwise; returns (dq, dk, dv) in q's dtype."""
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
-    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    ct = torch.float32 if q.dtype == torch.float32 else torch.float64
     scale = 1.0 / math.sqrt(Dh)
-    s = _scores(q, k)
+    s = _scores(q, k, ct)
     mask = _attention_mask(Sq, Skv, causal, window, q.device, q_positions,
                            kv_positions)
     row_lse = lse.to(ct).transpose(1, 2).reshape(B, Sq, KH, G)[..., None]

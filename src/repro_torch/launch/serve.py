@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --full --batch 8 --prompt-len 1024 --gen 32
 
-Runs on the card unless ``--device cpu`` is given. Weights are random fp32,
-from the port's ``init_params`` seeded with 0; prompts come from a second
+Runs on the card unless ``--device cpu`` is given. Weights are random,
+fp32 (``--dtype bfloat16`` for bf16, the reference's default dtype, in
+which the decode cache is bf16 too), from the port's ``init_params``
+seeded with 0; prompts come from a second
 ``torch.Generator`` seeded with 1. A config with a stub frontend
 (qwen2-vl's image patches, musicgen's conditioning frames) gets a prefix
 of ``n_stub_tokens`` zero embeddings before each prompt, as the
@@ -24,6 +26,9 @@ from torch.profiler import record_function
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.device import disable_tf32, resolve_device
 from repro_torch.models.model import decode, init_cache, init_params, prefill
+
+# the params' dtypes the drivers' --dtype takes
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass
@@ -59,8 +64,8 @@ def prefill_to_cache(params: Dict, cfg: ModelConfig, prompts: torch.Tensor,
     """Prefill ``prompts`` (B, P), after ``stub_embeds`` when given (the
     prefill then holds n_stub + P positions, and ``max_len`` must count
     them), and move the prefill KV into a decode cache of ``max_len``
-    positions (a ring of min(window, max_len) slots
-    when windowed), ``dense_layers`` and a hybrid's ``shared_attn``
+    positions (a ring of min(window, max_len) slots when windowed), in
+    the params' dtype, ``dense_layers`` and a hybrid's ``shared_attn``
     included; an ssm or hybrid config's ``ssm`` states (h and the conv
     window) are states, not positions, and are copied whole. Returns
     (last-token logits, cache). MLA's prefill keeps
@@ -71,7 +76,7 @@ def prefill_to_cache(params: Dict, cfg: ModelConfig, prompts: torch.Tensor,
     logits, pcache = prefill(params, cfg, prompts, stub_embeds=stub_embeds,
                              window=window)
     cache = init_cache(cfg, prompts.shape[0], max_len, window=window,
-                       device=prompts.device)
+                       device=prompts.device, dtype=params["embed"].dtype)
     for group, entries in cache.items():
         for name, c in entries.items():
             pc = pcache[group][name]
@@ -155,6 +160,10 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--window", type=int, default=0)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
+                    help="the params' and the cache's dtype (the reference's "
+                    "launch/serve.py runs fp32; its init_params defaults to "
+                    "bf16)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -163,7 +172,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                         DTYPES[args.dtype])
     prompts = make_prompts(cfg, args.batch, args.prompt_len, 1, dev)
     res = serve(cfg, params, prompts, args.gen, window=args.window,
                 device=dev)

@@ -14,8 +14,9 @@
 Runs on the card unless ``--device cpu`` is given; ``--full`` takes the
 published widths and depth (else ``reduced()``). On a card every layer's
 attention runs K3's forward and its hand-written backward. Weights are
-random fp32 from a ``torch.Generator`` (seed 0) unless injected; the
-batches are the reference's ``token_batch_stream`` draws, and
+random, fp32 (single-client ``--dtype bfloat16`` for bf16, the
+reference's default dtype), from a ``torch.Generator`` (seed 0) unless
+injected; the batches are the reference's ``token_batch_stream`` draws, and
 ``single_client`` puts a stub prefix of zero embeddings before them for a
 config with a stub frontend (qwen2-vl, musicgen), as the reference does;
 ``federated`` puts none, as the reference does not. The clients are
@@ -38,9 +39,9 @@ from repro_torch.configs import ModelConfig, TrainConfig, get_config
 from repro_torch.core import aggregation, em
 from repro_torch.data import token_batch_stream
 from repro_torch.device import disable_tf32, resolve_device
-from repro_torch.launch.serve import stub_prefix
+from repro_torch.launch.serve import DTYPES, stub_prefix
 from repro_torch.models.model import init_params, loss_fn, unstack
-from repro_torch.optim import make_optimizer, sgd_update, sgd_update_
+from repro_torch.optim import make_optimizer, sgd_update
 
 Params = Dict
 
@@ -87,22 +88,40 @@ def value_and_grad(params: Params, cfg: ModelConfig, batch: Dict, *,
     return loss.detach(), metrics, tree_unflatten(list(grads), spec)
 
 
+@torch.no_grad()
+def _sgd_in_param_dtype_(params: Params, grads: Params, lr: float) -> None:
+    """p ← p − lr·g leaf by leaf, in place, computed as the reference's
+    ``make_train_step`` computes it (steps.py:112-115): lr rounded to the
+    param's dtype, g cast to it, their product rounded, then subtracted
+    and rounded. In fp32 these are the bits of ``optim.sgd_update`` (the
+    reference's ``optim/sgd.py``: lr·g in fp32, subtracted, rounded once);
+    in bf16 lr 3e-3 rounds to 0.0029907 and the two rules part."""
+    lrs: Dict[tuple, torch.Tensor] = {}
+    for p, g in zip(tree_flatten(params)[0], tree_flatten(grads)[0]):
+        key = (p.dtype, p.device)
+        if key not in lrs:
+            lrs[key] = torch.tensor(lr, dtype=p.dtype, device=p.device)
+        p.sub_(lrs[key] * g.to(p.dtype))
+
+
 def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                   lr: float = 3e-3, optimizer: str = "sgd",
                   ckpt: Optional[str] = None,
                   params: Optional[Params] = None,
                   stub_embeds: Optional[torch.Tensor] = None,
                   remat: bool = False,
+                  dtype: torch.dtype = torch.float32,
                   device: str | torch.device = "cuda",
                   log: Callable[[str], None] = print) -> Dict:
     """``steps`` optimizer steps on ``token_batch_stream(0)``, printing the
     reference's schedule (every ``steps // 10`` and the last). ``params``
-    (fp32, on the device) default to ``init_params`` from seed 0; given
-    ones are copied first and left as they are. SGD updates its own
+    (on the device) default to ``init_params`` in ``dtype`` from seed 0;
+    given ones are copied first and left as they are. SGD updates its own
     params in place, each stacked layer's slice from that layer's
-    gradient (:func:`~repro_torch.optim.sgd_update_` over
-    ``value_and_grad(by_layer=True)``: the bits of ``sgd_update`` on the
-    stacked gradients), so a step holds the weights, one set of gradients
+    gradient (:func:`_sgd_in_param_dtype_` over
+    ``value_and_grad(by_layer=True)``, the rule of ``launch.steps``'
+    ``make_train_step``: in fp32 the bits of ``sgd_update`` on the stacked
+    gradients), so a step holds the weights, one set of gradients
     and the activations, and neither a second set of weights nor a
     stacked copy of the gradients.
     ``remat`` recomputes each layer in the backward (the reference's
@@ -121,7 +140,8 @@ def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     train = TrainConfig(lr=lr, optimizer=optimizer)
     if params is None:
         params = init_params(
-            cfg, torch.Generator(device=dev).manual_seed(train.seed), dev)
+            cfg, torch.Generator(device=dev).manual_seed(train.seed), dev,
+            dtype)
     else:
         params = tree_map(torch.clone, params)
     opt_init, opt_update = make_optimizer(train.optimizer)
@@ -140,7 +160,7 @@ def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         if train.optimizer == "sgd":  # in place, a layer's slice at a time
             loss, _, grads = value_and_grad(params, cfg, inputs, remat=remat,
                                             by_layer=True)
-            sgd_update_(_layered(params), grads, train.lr)
+            _sgd_in_param_dtype_(_layered(params), grads, train.lr)
         else:
             loss, _, grads = value_and_grad(params, cfg, inputs, remat=remat)
             params, opt_state = opt_update(params, grads, opt_state,
@@ -274,12 +294,19 @@ def main(argv=None) -> None:
     ap.add_argument("--local-steps", type=int, default=10)
     ap.add_argument("--alpha", type=float, default=0.5)
     ap.add_argument("--p-err", type=float, nargs="*", default=None)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
+                    help="the params' dtype in single-client training (the "
+                    "reference's launch/train.py runs fp32; its init_params "
+                    "defaults to bf16); the federated rounds are fp32")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.clients and args.dtype != "float32":
+        ap.error("--clients runs fp32 rounds only; drop --dtype")
 
     dev = resolve_device(args.device)
     disable_tf32()
     cfg = reduced_or_full(args.arch, args.full)
+    dtype = DTYPES[args.dtype]
     if args.clients:
         federated(cfg, clients=args.clients, rounds=args.rounds,
                   local_steps=args.local_steps, batch=args.batch,
@@ -288,7 +315,7 @@ def main(argv=None) -> None:
     else:
         single_client(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                       lr=args.lr, optimizer=args.optimizer, ckpt=args.ckpt,
-                      remat=args.remat, device=dev)
+                      remat=args.remat, dtype=dtype, device=dev)
 
 
 if __name__ == "__main__":

@@ -12,9 +12,11 @@ masks by index, its path without position reads, with the same mask.
 Training runs the
 same call under autograd: on a card, K3's forward (saving its row
 log-sum-exp) and its hand-written backward, where the reference
-differentiates ``chunked_attention`` under ``jax.checkpoint``. Decode
-attends one query token to a cache in plain PyTorch, as the reference
-does:
+differentiates ``chunked_attention`` under ``jax.checkpoint``. Every
+tensor keeps the params' dtype (fp32, or bf16 as the reference defaults
+to), with scores and the softmax in fp32 and each output cast to q's
+dtype. Decode attends one query token to a cache in plain PyTorch, as
+the reference does:
   - full cache:     (B, S, KH, Dh) K/V, valid-prefix mask;
   - sliding window: ring buffer (B, W, KH, Dh), slot = position % W, masked
     by the position each slot holds.
@@ -49,18 +51,22 @@ NEG_INF = -1e30
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
-    """One-token attention in fp32. q: (B, 1, H, Dh); k/v: (B, S, KH, Dh);
-    mask: (B, S) or (S,) bool."""
+    """One-token attention. q: (B, 1, H, Dh); k/v: (B, S, KH, Dh);
+    mask: (B, S) or (S,) bool. As the reference's: the scores and softmax
+    in fp32, P rounded to v's dtype and P·V summed in fp32, the output in
+    q's dtype (for fp32 every cast is a no-op)."""
     B, _, H, Dh = q.shape
     KH = k.shape[2]
     G = H // KH
     scale = 1.0 / math.sqrt(Dh)
-    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, KH, G, Dh), k) * scale
+    s = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, KH, G, Dh).float(),
+                     k.float()) * scale
     if mask.dim() == 1:
         mask = mask[None]
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhgs,bshd->bhgd", p, v).reshape(B, 1, H, Dh)
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
 def ring_slot_positions(pos: int, window: int, device) -> torch.Tensor:
@@ -70,17 +76,17 @@ def ring_slot_positions(pos: int, window: int, device) -> torch.Tensor:
     return pos - torch.remainder(pos - slots, window)
 
 
-def gqa_init(gen: torch.Generator, cfg: ModelConfig,
-             device) -> Dict[str, torch.Tensor]:
+def gqa_init(gen: torch.Generator, cfg: ModelConfig, device,
+             dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     dh = cfg.resolved_head_dim
-    p = {"wq": dense_init(gen, cfg.d_model, cfg.n_heads * dh, device),
-         "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, device),
-         "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * dh, device),
-         "wo": dense_init(gen, cfg.n_heads * dh, cfg.d_model, device)}
+    d, hq, hkv = cfg.d_model, cfg.n_heads * dh, cfg.n_kv_heads * dh
+    p = {"wq": dense_init(gen, d, hq, device, dtype),
+         "wk": dense_init(gen, d, hkv, device, dtype),
+         "wv": dense_init(gen, d, hkv, device, dtype),
+         "wo": dense_init(gen, hq, d, device, dtype)}
     if cfg.qkv_bias:
-        for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
-                        ("bv", cfg.n_kv_heads)):
-            p[name] = torch.zeros((n * dh,), device=device)
+        for name, n in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p[name] = torch.zeros((n,), device=device, dtype=dtype)
     return p
 
 
@@ -178,8 +184,8 @@ def gqa_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     return out, {"k": k, "v": v}
 
 
-def mla_init(gen: torch.Generator, cfg: ModelConfig,
-             device) -> Dict[str, torch.Tensor]:
+def mla_init(gen: torch.Generator, cfg: ModelConfig, device,
+             dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The reference's MLA params: a q LoRA (``wq_a``, ``q_norm``,
     ``wq_b``) or a full ``wq``; ``wkv_a`` to the latent and k_rope,
     ``kv_norm``, ``wkv_b`` from the latent to each head's k_nope and v;
@@ -188,20 +194,23 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig,
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     p: Dict[str, torch.Tensor] = {}
     if m.q_lora_rank:
-        p["wq_a"] = dense_init(gen, cfg.d_model, m.q_lora_rank, device)
-        p["q_norm"] = rmsnorm_init(m.q_lora_rank, device)
+        p["wq_a"] = dense_init(gen, cfg.d_model, m.q_lora_rank, device,
+                               dtype)
+        p["q_norm"] = rmsnorm_init(m.q_lora_rank, device, dtype)
         p["wq_b"] = dense_init(gen, m.q_lora_rank, cfg.n_heads * qk_dim,
-                               device)
+                               device, dtype)
     else:
-        p["wq"] = dense_init(gen, cfg.d_model, cfg.n_heads * qk_dim, device)
+        p["wq"] = dense_init(gen, cfg.d_model, cfg.n_heads * qk_dim, device,
+                             dtype)
     p["wkv_a"] = dense_init(gen, cfg.d_model,
-                            m.kv_lora_rank + m.qk_rope_head_dim, device)
-    p["kv_norm"] = rmsnorm_init(m.kv_lora_rank, device)
+                            m.kv_lora_rank + m.qk_rope_head_dim, device,
+                            dtype)
+    p["kv_norm"] = rmsnorm_init(m.kv_lora_rank, device, dtype)
     p["wkv_b"] = dense_init(
         gen, m.kv_lora_rank,
-        cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim), device)
+        cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim), device, dtype)
     p["wo"] = dense_init(gen, cfg.n_heads * m.v_head_dim, cfg.d_model,
-                         device)
+                         device, dtype)
     return p
 
 

@@ -1,11 +1,13 @@
 """Primitive layers: init helpers, RMSNorm, linear, the SwiGLU MLP, the
 embedding and the fp32 unembedding.
 
-Params are plain nested dicts of fp32 tensors in the reference's layouts:
-``(in, out)`` dense weights, ``(V, D)`` embedding, ``(D,)`` norm scales.
-Inits draw from an explicit ``torch.Generator`` with the reference's
-distributions (its bits come from ``jax.random`` and cannot be repeated;
-the tests carry the reference's weights across instead).
+Params are plain nested dicts of tensors in the reference's layouts:
+``(in, out)`` dense weights, ``(V, D)`` embedding, ``(D,)`` norm scales,
+in the dtype the init is given (fp32 by default; the reference defaults
+to bf16). Inits draw in fp32 from an explicit ``torch.Generator`` with the
+reference's distributions and then cast, as the reference does (its bits
+come from ``jax.random`` and cannot be repeated; the tests carry the
+reference's weights across instead).
 """
 from __future__ import annotations
 
@@ -16,21 +18,23 @@ import torch
 import torch.nn.functional as F
 
 
-def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
-               device) -> torch.Tensor:
-    """N(0, 1/in_dim) of shape (in_dim, out_dim)."""
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, 1/in_dim) of shape (in_dim, out_dim), drawn in fp32."""
     w = torch.randn((in_dim, out_dim), generator=gen, device=device)
-    return w * (1.0 / math.sqrt(in_dim))
+    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d_model: int,
-               device) -> torch.Tensor:
-    """N(0, 0.02²) of shape (vocab, d_model)."""
-    return torch.randn((vocab, d_model), generator=gen, device=device) * 0.02
+def embed_init(gen: torch.Generator, vocab: int, d_model: int, device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, 0.02²) of shape (vocab, d_model), drawn in fp32."""
+    w = torch.randn((vocab, d_model), generator=gen, device=device)
+    return (w * 0.02).to(dtype)
 
 
-def rmsnorm_init(dim: int, device) -> torch.Tensor:
-    return torch.ones((dim,), device=device)
+def rmsnorm_init(dim: int, device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.ones((dim,), device=device, dtype=dtype)
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
@@ -51,10 +55,11 @@ def linear(w: torch.Tensor, x: torch.Tensor,
     return y
 
 
-def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, device) -> dict:
-    return {"w_gate": dense_init(gen, d_model, d_ff, device),
-            "w_up": dense_init(gen, d_model, d_ff, device),
-            "w_down": dense_init(gen, d_ff, d_model, device)}
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, device,
+             dtype: torch.dtype = torch.float32) -> dict:
+    return {"w_gate": dense_init(gen, d_model, d_ff, device, dtype),
+            "w_up": dense_init(gen, d_model, d_ff, device, dtype),
+            "w_down": dense_init(gen, d_ff, d_model, device, dtype)}
 
 
 def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:

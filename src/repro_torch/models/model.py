@@ -27,7 +27,7 @@ frames), which take positions like tokens and produce no logits in
 
 Entry points (``positions``: (S,), or (S, 3) for mrope, shared by the
 batch; by default 0..S-1 over the stub prefix and the tokens):
-  init_params(cfg, gen, device)                          -> params
+  init_params(cfg, gen, device, dtype)                   -> params
   forward_hidden(params, cfg, tokens, *, stub_embeds, positions, window,
                  remat)                                  -> (hidden, aux)
   logits_from_hidden(params, cfg, h)                     -> fp32 logits
@@ -36,17 +36,22 @@ batch; by default 0..S-1 over the stub prefix and the tokens):
   prefill(params, cfg, tokens, *, stub_embeds, positions, window)
                                                          -> (logits, cache)
   decode(params, cfg, token, cache, pos, *, window)      -> (logits, cache)
-  init_cache(cfg, batch, max_len, *, window, device)     -> cache
+  init_cache(cfg, batch, max_len, *, window, device, dtype) -> cache
 
 Every attention layer masks by the positions (K3's position path); with
 the default positions it masks by index (K3's index path), the same mask.
 
-Weights and cache are fp32, as the reference's ``launch/serve.py`` and
-``launch/train.py`` run. Training differentiates ``loss_fn`` with autograd;
-on a card every layer's attention runs K3's forward and its hand-written
-backward, which takes GQA's head dims; MLA's (qk_nope + qk_rope: 96 for
-minicpm3-4b, 48 at ``reduced()``) wait for it (ROADMAP Queue B, B1), so
-on a card an MLA forward that needs gradients raises. MLA serves.
+Weights and cache take ``init_params``'s and ``init_cache``'s ``dtype``:
+fp32 by default, as the reference's ``launch/serve.py`` and
+``launch/train.py`` run, or bf16, the reference's own default
+(``launch/steps.py``). Activations keep the params' dtype from end to end
+as the reference's do (norm statistics, attention scores and softmax in
+fp32, each output cast back); the logits, the loss and its logsumexp are
+fp32. Some leaves stay fp32 whatever the dtype, as the reference's do: an
+MoE router, the Mamba layers' ``A_log``, ``dt_bias`` and ``D``, and the
+ssm cache's ``h``. Training differentiates ``loss_fn`` with autograd; on
+a card every layer's attention runs K3's forward and its hand-written
+backward (fp32 at Dh 48 to 128; bf16 at the dense configs' 64 and 128).
 Decode cache: ``{"layers": {"k", "v"}}``, each (L, B, S, KH, Dh), for GQA,
 and ``{"layers": {"c_kv", "k_rope"}}``, (L, B, S, kv_lora) and (L, B, S,
 qk_rope), for MLA; a ring buffer of S = min(window, max_len) slots when
@@ -60,10 +65,7 @@ of the A = L // ``hybrid_attn_every`` applications of the shared block
 (and the new states) into it in place (the reference returns an updated
 copy) and returns the same tensors.
 
-zamba2's shared block
-attends at head dim 112 (d_model / heads), which K3's forward takes on a
-card and its backward does not yet (ROADMAP Queue B, B1): on a card it
-serves and does not train.
+zamba2's shared block attends at head dim 112 (d_model / heads).
 """
 from __future__ import annotations
 
@@ -113,18 +115,18 @@ def unstack(stacked: Params) -> list:
     return list(torch.unbind(stacked))
 
 
-def _block_init(gen: torch.Generator, cfg: ModelConfig, device, *,
-                moe: bool = False) -> Params:
+def _block_init(gen: torch.Generator, cfg: ModelConfig, device,
+                dtype: torch.dtype, *, moe: bool = False) -> Params:
     """One block: attention, then an MLP of width ``d_ff``, or the MoE
     when ``moe``."""
-    p = {"ln1": rmsnorm_init(cfg.d_model, device),
-         "ln2": rmsnorm_init(cfg.d_model, device),
-         "attn": (attn.mla_init if cfg.mla else attn.gqa_init)(gen, cfg,
-                                                               device)}
+    p = {"ln1": rmsnorm_init(cfg.d_model, device, dtype),
+         "ln2": rmsnorm_init(cfg.d_model, device, dtype),
+         "attn": (attn.mla_init if cfg.mla else attn.gqa_init)(
+             gen, cfg, device, dtype)}
     if moe:
-        p["moe"] = moe_mod.moe_init(gen, cfg, device)
+        p["moe"] = moe_mod.moe_init(gen, cfg, device, dtype)
     else:
-        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, device)
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, device, dtype)
     return p
 
 
@@ -132,7 +134,7 @@ def _stacked_init(n: int, init) -> Params:
     """``n`` layers of ``init()``, drawn in order and stacked over a leading
     axis. Each layer is copied into the stack as it is drawn, so at most
     one layer is held beside the stack (a 7B model's fp32 weights fit a
-    card once, not twice)."""
+    card once, not twice; starcoder2-15b's bf16 ones likewise)."""
     first = init()
     stack = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
     for i in range(n):
@@ -151,12 +153,12 @@ def _map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def _ssm_block_init(gen: torch.Generator, cfg: ModelConfig,
-                    device) -> Params:
+def _ssm_block_init(gen: torch.Generator, cfg: ModelConfig, device,
+                    dtype: torch.dtype) -> Params:
     init = (ssm_mod.mamba2_init if cfg.ssm.version == 2
             else ssm_mod.mamba1_init)
-    return {"ln": rmsnorm_init(cfg.d_model, device),
-            "mamba": init(gen, cfg, device)}
+    return {"ln": rmsnorm_init(cfg.d_model, device, dtype),
+            "mamba": init(gen, cfg, device, dtype)}
 
 
 def _n_shared_apps(cfg: ModelConfig) -> int:
@@ -176,33 +178,41 @@ def _shared_app_index(cfg: ModelConfig, layer_idx: int):
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device: str | torch.device = "cuda") -> Params:
-    """Random fp32 weights from ``gen`` (on ``device``) with the
-    reference's distributions: N(0, 1/in) dense, N(0, 0.02²) embedding,
-    ones for the norms, zeros for biases, and ``models/ssm.py``'s for the
-    Mamba layers."""
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype = torch.float32) -> Params:
+    """Random weights from ``gen`` (on ``device``) with the reference's
+    distributions: N(0, 1/in) dense, N(0, 0.02²) embedding, ones for the
+    norms, zeros for biases, and ``models/ssm.py``'s for the Mamba
+    layers; drawn in fp32 and cast to ``dtype`` leaf by leaf (the leaves
+    the reference keeps in fp32 stay so), so that a seed gives the same
+    draws in every dtype. The reference defaults to bf16; the port's
+    drivers pass their dtype, fp32 unless asked, as the reference's own
+    ``launch/serve.py`` and ``launch/train.py`` pass fp32. On the ``meta``
+    device it allocates nothing (``launch/steps.py::abstract_params``)."""
     _check_supported(cfg)
     params: Params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model,
-                                          device),
-                      "ln_f": rmsnorm_init(cfg.d_model, device)}
+                                          device, dtype),
+                      "ln_f": rmsnorm_init(cfg.d_model, device, dtype)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device)
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device,
+                                       dtype)
     if cfg.ssm:
         params["layers"] = _stacked_init(
-            cfg.n_layers, lambda: _ssm_block_init(gen, cfg, device))
+            cfg.n_layers, lambda: _ssm_block_init(gen, cfg, device, dtype))
         if cfg.hybrid_attn_every:
-            params["shared_attn"] = _block_init(gen, cfg, device)
+            params["shared_attn"] = _block_init(gen, cfg, device, dtype)
         return params
     fk = _n_dense(cfg)
     if fk:
         params["dense_layers"] = _stacked_init(
-            fk, lambda: _block_init(gen, cfg, device))
+            fk, lambda: _block_init(gen, cfg, device, dtype))
     params["layers"] = _stacked_init(
         cfg.n_layers - fk,
-        lambda: _block_init(gen, cfg, device, moe=cfg.family == "moe"))
+        lambda: _block_init(gen, cfg, device, dtype,
+                            moe=cfg.family == "moe"))
     if cfg.mtp_depth:
-        params["mtp"] = _block_init(gen, cfg, device)
-        params["mtp_ln"] = rmsnorm_init(cfg.d_model, device)
+        params["mtp"] = _block_init(gen, cfg, device, dtype)
+        params["mtp_ln"] = rmsnorm_init(cfg.d_model, device, dtype)
     return params
 
 
@@ -380,13 +390,18 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict, *,
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
-               window: int = 0, device: str | torch.device = "cuda") -> Dict:
+               window: int = 0, device: str | torch.device = "cuda",
+               dtype: torch.dtype = torch.float32) -> Dict:
+    """A zero decode cache of ``max_len`` positions (a ring of min(window,
+    max_len) slots when windowed) in the layout above, in ``dtype`` (the
+    params'), except the ssm states ``h``, which are fp32 as the
+    reference's."""
     _check_supported(cfg)
     window = window or cfg.sliding_window
     S = min(window, max_len) if window else max_len
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=device)
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros(shape, device=device, dtype=dtype)
 
     def kv(L):
         if cfg.mla:
@@ -399,12 +414,14 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     if cfg.ssm:
         s, L = cfg.ssm, cfg.n_layers
         di = s.expand * cfg.d_model
+        f32 = torch.float32
         if s.version == 2:
             h = zeros(L, batch_size, di // s.head_dim, s.head_dim,
-                      s.state_dim)
+                      s.state_dim, dtype=f32)
             channels = di + 2 * s.n_groups * s.state_dim
         else:
-            h, channels = zeros(L, batch_size, di, s.state_dim), di
+            h = zeros(L, batch_size, di, s.state_dim, dtype=f32)
+            channels = di
         cache = {"ssm": {"h": h, "conv": zeros(L, batch_size,
                                                s.conv_dim - 1, channels)}}
         if cfg.hybrid_attn_every:

@@ -28,23 +28,25 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
-    """Router (D, E) N(0, 1/D); ``w_gate``, ``w_up`` (E, D, F) N(0, 1/D);
-    ``w_down`` (E, F, D) N(0, 1/F); ``shared`` an MLP of width F ·
-    n_shared when the config has shared experts."""
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device,
+             dtype: torch.dtype = torch.float32) -> Dict:
+    """Router (D, E) N(0, 1/D), fp32 whatever ``dtype`` is, as the
+    reference's; ``w_gate``, ``w_up`` (E, D, F) N(0, 1/D); ``w_down`` (E,
+    F, D) N(0, 1/F); ``shared`` an MLP of width F · n_shared when the
+    config has shared experts; drawn in fp32, then cast to ``dtype``."""
     m = cfg.moe
     e, d, f = m.n_experts, cfg.d_model, m.expert_d_ff
 
     def normal(shape, fan_in):
         w = torch.randn(shape, generator=gen, device=device)
-        return w * (1.0 / math.sqrt(fan_in))
+        return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
 
     p = {"router": dense_init(gen, d, e, device),
          "w_gate": normal((e, d, f), d),
          "w_up": normal((e, d, f), d),
          "w_down": normal((e, f, d), f)}
     if m.n_shared_experts:
-        p["shared"] = mlp_init(gen, d, f * m.n_shared_experts, device)
+        p["shared"] = mlp_init(gen, d, f * m.n_shared_experts, device, dtype)
     return p
 
 

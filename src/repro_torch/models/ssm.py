@@ -58,26 +58,35 @@ def _conv_state(feed: torch.Tensor, K: int) -> torch.Tensor:
 
 # ------------------------------------------------------------------- mamba1
 
-def mamba1_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+def _conv_init(gen: torch.Generator, k: int, channels: int, device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The depthwise conv's (K, C) weights, N(0, 0.1²), drawn in fp32."""
+    w = torch.randn((k, channels), generator=gen, device=device)
+    return (w * 0.1).to(dtype)
+
+
+def mamba1_init(gen: torch.Generator, cfg: ModelConfig, device,
+                dtype: torch.dtype = torch.float32) -> Dict:
     """``w_in`` (D, 2 Di) to x and z; ``conv`` (K, Di) N(0, 0.1²);
     ``w_x`` to [dt (R), B (N), C (N)]; ``w_dt`` (R, Di); ``A_log`` =
-    log(1..N) for every channel; ``D`` ones; ``w_out`` (Di, D)."""
+    log(1..N) for every channel; ``D`` ones; ``w_out`` (Di, D). Drawn in
+    fp32 and cast to ``dtype``, except ``dt_bias``, ``A_log`` and ``D``,
+    which stay fp32 as the reference's do."""
     s = cfg.ssm
     d = cfg.d_model
     di = s.expand * d
     r = _dt_rank(cfg)
     A = torch.arange(1, s.state_dim + 1, dtype=torch.float32, device=device)
     return {
-        "w_in": dense_init(gen, d, 2 * di, device),
-        "conv": torch.randn((s.conv_dim, di), generator=gen,
-                            device=device) * 0.1,
-        "conv_b": torch.zeros((di,), device=device),
-        "w_x": dense_init(gen, di, r + 2 * s.state_dim, device),
-        "w_dt": dense_init(gen, r, di, device),
+        "w_in": dense_init(gen, d, 2 * di, device, dtype),
+        "conv": _conv_init(gen, s.conv_dim, di, device, dtype),
+        "conv_b": torch.zeros((di,), device=device, dtype=dtype),
+        "w_x": dense_init(gen, di, r + 2 * s.state_dim, device, dtype),
+        "w_dt": dense_init(gen, r, di, device, dtype),
         "dt_bias": torch.zeros((di,), device=device),
         "A_log": torch.log(A).expand(di, s.state_dim).contiguous(),
         "D": torch.ones((di,), device=device),
-        "w_out": dense_init(gen, di, d, device),
+        "w_out": dense_init(gen, di, d, device, dtype),
     }
 
 
@@ -185,24 +194,26 @@ def _mamba2_dims(cfg: ModelConfig):
     return di, di // s.head_dim, s.n_groups * s.state_dim
 
 
-def mamba2_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig, device,
+                dtype: torch.dtype = torch.float32) -> Dict:
     """``w_in`` (D, 2 Di + 2 G·N + H) to [x, z, B, C, dt]; ``conv`` (K, Di
     + 2 G·N) N(0, 0.1²); ``A_log``, ``dt_bias`` zeros and ``D`` ones, each
-    (H,); ``norm_scale`` (Di,) ones; ``w_out`` (Di, D)."""
+    (H,); ``norm_scale`` (Di,) ones; ``w_out`` (Di, D). Drawn in fp32 and
+    cast to ``dtype``, except ``A_log``, ``dt_bias`` and ``D``, which stay
+    fp32 as the reference's do."""
     s = cfg.ssm
     d = cfg.d_model
     di, nh, gn = _mamba2_dims(cfg)
     conv_ch = di + 2 * gn
     return {
-        "w_in": dense_init(gen, d, 2 * di + 2 * gn + nh, device),
-        "conv": torch.randn((s.conv_dim, conv_ch), generator=gen,
-                            device=device) * 0.1,
-        "conv_b": torch.zeros((conv_ch,), device=device),
+        "w_in": dense_init(gen, d, 2 * di + 2 * gn + nh, device, dtype),
+        "conv": _conv_init(gen, s.conv_dim, conv_ch, device, dtype),
+        "conv_b": torch.zeros((conv_ch,), device=device, dtype=dtype),
         "A_log": torch.zeros((nh,), device=device),
         "dt_bias": torch.zeros((nh,), device=device),
         "D": torch.ones((nh,), device=device),
-        "norm_scale": torch.ones((di,), device=device),
-        "w_out": dense_init(gen, di, d, device),
+        "norm_scale": torch.ones((di,), device=device, dtype=dtype),
+        "w_out": dense_init(gen, di, d, device, dtype),
     }
 
 

@@ -21,7 +21,10 @@ exactly the port's buffer.
 The language models keep the reference's tree itself, leaf for leaf, as
 tensors: ``(in, out)`` dense weights, ``(V, D)`` embedding, ``(D, V)``
 lm_head, every ``layers`` leaf stacked over L, again with no transposes
-(:func:`from_jax_lm_params`, :func:`lm_params_to_numpy`).
+(:func:`from_jax_lm_params`, :func:`lm_params_to_numpy`). A bf16 leaf
+(the reference's default dtype; numpy holds it as ``ml_dtypes.bfloat16``)
+crosses bit for bit through its 16-bit integer view, in both directions,
+as ``checkpoint/ckpt.py`` stores it.
 """
 from __future__ import annotations
 
@@ -132,11 +135,33 @@ def from_jax_lm_params(tree: Tree, cfg, device: str | torch.device) -> Tree:
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} layers, {cfg.name} {cfg.n_layers}")
     leaves, template = _flatten(tree)
-    return _fill(template, [torch.from_numpy(np.array(x)).to(device)
-                            for x in leaves])
+    return _fill(template, [_leaf_to_torch(x).to(device) for x in leaves])
 
 
 def lm_params_to_numpy(params: Tree) -> Tree:
-    """The port's LM params as the reference's tree of numpy arrays."""
+    """The port's LM params as the reference's tree of numpy arrays (bf16
+    leaves as ``ml_dtypes.bfloat16``)."""
     leaves, template = _flatten(params)
-    return _fill(template, [x.detach().cpu().numpy() for x in leaves])
+    return _fill(template, [_leaf_to_numpy(x) for x in leaves])
+
+
+def _leaf_to_torch(x) -> torch.Tensor:
+    """A numpy (or array-like) leaf as a CPU tensor of its dtype; a bf16
+    leaf, which torch cannot take from numpy, through its int16 view
+    (told by the dtype's name, so no dtype package is imported)."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _leaf_to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor leaf as a numpy array of its dtype; bf16, which torch
+    cannot hand numpy, through its int16 view as ``ml_dtypes.bfloat16``
+    (imported here only: the reference's numpy dtype for bf16)."""
+    t = x.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.contiguous().view(torch.int16).numpy().view(
+            ml_dtypes.bfloat16)
+    return t.numpy()

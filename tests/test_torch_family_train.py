@@ -136,8 +136,9 @@ def _clone(tree):
     (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("lr", [3e-3, torch.tensor(3e-3), 0.1])
 def test_sgd_update_in_place_gives_the_functional_bits(pdtype, gdtype, lr):
-    """``sgd_update_``, the trainer's step, writes ``sgd_update``'s bits
-    into the params it is given, over 3 steps, in each param dtype."""
+    """``sgd_update_``, the reference optimizer's rule in place, writes
+    ``sgd_update``'s bits into the params it is given, over 3 steps, in
+    each param dtype."""
     params, grads = _trees(0, pdtype, gdtype)
     want, got = params, _clone(params)
     for g in grads:
@@ -164,8 +165,9 @@ def _autograd_grads(params, cfg, batch, remat):
 def test_layer_by_layer_grads_and_step_give_the_stacked_bits(arch, remat):
     """``value_and_grad(by_layer=True)``'s per-layer gradients are, bit for
     bit, the slices of what autograd gives through the stacked layers'
-    ``unbind``, and ``sgd_update_`` over ``_layered(params)`` writes
-    ``sgd_update``'s bits on the stacked gradients."""
+    ``unbind``, and the trainer's update over ``_layered(params)``
+    (``_sgd_in_param_dtype_``, fp32) writes ``sgd_update``'s bits on the
+    stacked gradients."""
     cfg = tget_config(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     raw = next(tstream(0, batch=BATCH, seq_len=16, vocab=cfg.vocab))
@@ -184,7 +186,7 @@ def test_layer_by_layer_grads_and_step_give_the_stacked_bits(arch, remat):
     assert spec == tree_flatten(params)[1]
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     new = _clone(params)
-    toptim.sgd_update_(ttrain._layered(new), layered, LR)
+    ttrain._sgd_in_param_dtype_(ttrain._layered(new), layered, LR)
     for a, b in zip(tree_flatten(new)[0], tree_flatten(
             toptim.sgd_update(params, stacked, LR))[0]):
         assert torch.equal(a, b)

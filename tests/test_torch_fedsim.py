@@ -245,6 +245,16 @@ assert {get_config(a).family for a in ("qwen2-vl-2b", "musicgen-large")} \
 lm = get_config("smollm-135m").reduced()
 assert len(train.single_client(lm, steps=1, batch=1, seq=4,
                                device="cpu")["losses"]) == 1
+from repro_torch.configs import shapes, get_shape
+from repro_torch.launch import steps
+assert steps.input_specs(lm, get_shape("train_4k"))["tokens"].is_meta
+step = steps.make_train_step(lm, repro_torch.configs.TrainConfig(lr=3e-3),
+                             repro_torch.configs.ShapeConfig("t", 4, 1,
+                                                             "train"))
+tok = torch.zeros((1, 4), dtype=torch.int64)
+bf = repro_torch.models.model.init_params(lm, torch.Generator(), "cpu",
+                                          torch.bfloat16)
+assert torch.isfinite(step(bf, {"tokens": tok, "labels": tok})[1]["loss"])
 one = FederatedSimulation(*args[:-1], FedSimConfig(
     rounds=2, batch_size=16, em_iters=2, em_subset=32, sharded=True),
     device="cpu")

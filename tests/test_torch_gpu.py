@@ -2,11 +2,13 @@
 at the reference's sweep shapes, the pFedWN round's shapes and the LM
 prefill's (granite-moe's H 24 over KH 8 among them), K3 also at MLA's head
 dims (48, 96) and zamba2's (112), K3's backward against its plain version
-in float64, K3 with explicit positions (forward and backward, and the
+in float64 (fp32, and bf16 at the dense head dims), K3 with explicit
+positions (forward and backward, and the
 arange bitwise the index path); every federated method, the serving path
 (GQA, MLA, MoE with and without capacity drops, Mamba1 and Mamba2 with
-zamba2's shared block, qwen2-vl and musicgen after their stub prefix) and
-LM training (also under M-RoPE positions) on the card against the CPU,
+zamba2's shared block, qwen2-vl and musicgen after their stub prefix; the
+dense configs also in bf16) and LM training (also under M-RoPE positions,
+and a bf16 ``make_train_step``) on the card against the CPU,
 with the kernel launches each path makes. Every test
 here needs a CUDA card and skips without one; the file imports nothing of
 JAX, so it runs where only the port is installed:
@@ -604,11 +606,74 @@ def test_flash_attention_backward_counts_its_launches_on_card(cuda, shape):
 
 @pytest.mark.gpu
 def test_flash_attention_backward_refuses_bf16_on_card(cuda):
-    q, k, v, dout = _bwd_case(cuda, 1, 64, 64, 2, 1, 64, True, 0)
+    """bf16 with a gradient outside the bf16 head dims (96) or with
+    explicit positions raises in the forward, before any launch."""
+    n, bwd = k3.launches, dict(k3.backward_launches)
+    q, k, v, _ = _bwd_case(cuda, 1, 64, 64, 2, 1, 96, True, 0)
     qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
-    out = k3.flash_attention(qb, kb, vb)
-    with pytest.raises(TypeError, match="fp32 only"):
-        out.backward(dout.bfloat16())
+    with pytest.raises(ValueError, match="bf16"):
+        k3.flash_attention(qb, kb, vb)
+    q, k, v, _ = _bwd_case(cuda, 1, 64, 64, 2, 1, 64, True, 0)
+    qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
+    pos = torch.arange(64, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        k3.flash_attention(qb, kb, vb, q_positions=pos, kv_positions=pos)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.backward_launches) == (n, bwd)
+
+
+BF16_BWD_SHAPES = [(2, 200, 200, 9, 3, 64, True, 0),
+                   (1, 77, 50, 16, 1, 64, False, 20),
+                   (1, 384, 384, 6, 2, 128, True, 96),
+                   (4, 128, 128, 9, 3, 64, True, 0),
+                   (8, 256, 256, 32, 2, 128, True, 0),
+                   (3, 1, 77, 12, 4, 128, True, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BF16_BWD_SHAPES)
+def test_flash_attention_bf16_backward_matches_float64_on_card(cuda, shape):
+    """K3's bf16 training forward and backward: dq, dk, dv (bf16) within
+    2e-2 (atol and rtol) of the float64 plain backward of the same bf16
+    values, and within its final bf16 rounding (2^-8 relative over 1e-4,
+    ``chip_smoke.BWD_BF16_ROUND_*``), the LSE within ``BWD_TOL``, the
+    output the serving forward's bit for bit, fully masked rows 0, two
+    runs bitwise equal, each kernel of the plan launched once."""
+    causal, window = shape[6], shape[7]
+    q, k, v, dout = (t.detach().bfloat16() for t in _bwd_case(cuda, *shape))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    bwd = dict(k3.backward_launches)
+    first = _kernel_grads(q, k, v, dout, causal, window)
+    kernels = _bwd_kernels(cuda, *shape)
+    assert k3.backward_launches == {name: c + (name in kernels)
+                                    for name, c in bwd.items()}
+    second = _kernel_grads(q, k, v, dout, causal, window)
+    for a, b in zip(first, second):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    with torch.no_grad():
+        served = k3.flash_attention(q, k, v, causal=causal, window=window)
+        out32, lse = k3._launch(q.detach(), k.detach(), v.detach(), causal,
+                                window, with_lse=True)
+    assert torch.equal(first[0], served) and out32.dtype == torch.float32
+    assert torch.equal(out32.bfloat16(), served)
+    q64, k64, v64 = (t.detach().double() for t in (q, k, v))
+    lse64 = tref.attention_lse_ref(q64, k64, causal=causal, window=window)
+    fin = ~torch.isinf(lse64)
+    assert torch.equal(torch.isinf(lse), ~fin)
+    torch.testing.assert_close(lse.double()[fin], lse64[fin], atol=BWD_TOL,
+                               rtol=BWD_TOL)
+    out64 = tref.flash_attention_ref(q64, k64, v64, causal=causal,
+                                     window=window)
+    expect = tref.flash_attention_bwd_ref(q64, k64, v64, out64, lse64,
+                                          dout.double(), causal=causal,
+                                          window=window)
+    for got, want in zip(first[1:], expect):
+        torch.testing.assert_close(got.double(), want, atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(got.double(), want,
+                                   atol=chip_smoke.BWD_BF16_ROUND_ATOL,
+                                   rtol=chip_smoke.BWD_BF16_ROUND_RTOL)
+    rows = (~fin).transpose(1, 2)
+    assert bool((first[1][rows] == 0).all() and (first[0][rows] == 0).all())
 
 
 def _to(tree, dev):
@@ -857,24 +922,68 @@ def test_stub_loss_under_positions_on_card_matches_cpu(cuda, arch):
 @pytest.mark.parametrize("arch", ["smollm-135m", "starcoder2-15b",
                                   "chatglm3-6b"])
 @pytest.mark.parametrize("window", [0, 8])
-def test_serve_on_card_matches_cpu(cuda, arch, window):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serve_on_card_matches_cpu(cuda, arch, window, dtype):
     """The reduced serving run on the card (K3) against the CPU (plain
-    version): same weights and ragged prompts, logits within 1e-4 and the
-    same greedy tokens."""
+    version): same weights and ragged prompts. fp32: logits within 1e-4
+    and the same greedy tokens. bf16: the CPU fed the card's tokens,
+    logits within max(2e-2, g), g the CPU's own bf16-vs-fp32 gap
+    (``tests/test_torch_bf16.py``'s gate, the port's fp32 for the
+    reference's), and the card's tokens the CPU's argmax wherever its
+    top-2 gap exceeds twice that."""
+    from torch.utils._pytree import tree_map
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_prompts, serve
     from repro_torch.models.model import init_params
     cfg = get_config(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
-    ref = serve(cfg, params, prompts, 5, window=window, device="cpu")
+    cpu = tree_map(lambda t: t.to(DTYPES[dtype]), params)
     before = k3.launches
-    got = serve(cfg, _to(params, cuda), prompts.to(cuda), 5, window=window,
+    got = serve(cfg, _to(cpu, cuda), prompts.to(cuda), 5, window=window,
                 device=cuda)
     assert k3.launches == before + cfg.n_layers
-    torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
-                               rtol=1e-4)
-    assert torch.equal(got.tokens.cpu(), ref.tokens)
+    if dtype == "float32":
+        ref = serve(cfg, params, prompts, 5, window=window, device="cpu")
+        torch.testing.assert_close(got.logits.cpu(), ref.logits, atol=1e-4,
+                                   rtol=1e-4)
+        assert torch.equal(got.tokens.cpu(), ref.tokens)
+        return
+    tokens = got.tokens.cpu()
+    ref = chip_smoke._teacher_forced(cfg, cpu, prompts, tokens, window)
+    ref32 = chip_smoke._teacher_forced(cfg, params, prompts, tokens, window)
+    gate = max(2e-2, float((ref - ref32).abs().max()))
+    assert float((got.logits.cpu() - ref).abs().max()) <= gate
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * gate
+    assert torch.equal(tokens.T[clear], ref.argmax(-1)[clear])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "starcoder2-15b"])
+def test_bf16_train_step_on_card_matches_cpu(cuda, arch):
+    """One bf16 ``make_train_step`` (remat) of reduced ``arch`` on the card
+    (K3's bf16 forward and backward) against the CPU: loss and params
+    within max(2e-2, g), g the CPU's own bf16-vs-fp32 gap, and the bf16
+    gradients and the update Δ in relative norm within their gates
+    (``chip_smoke.bf16_step_against_cpu``); K3's forward twice a layer
+    (remat) and each backward kernel once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config(arch).reduced()
+    p32 = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 32), generator=g)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    r = chip_smoke.bf16_step_against_cpu(cfg, p32, batch, cuda)
+    kernels = _bwd_kernels(cuda, 2, 32, 32, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.resolved_head_dim, True, cfg.sliding_window)
+    assert r["k3_forward"] == 2 * cfg.n_layers
+    assert r["k3_backward"] == {name: cfg.n_layers * (name in kernels)
+                                for name in k3.backward_launches}
+    for name in chip_smoke.BF16_STEP_GAPS:
+        gap, gate = r[name]
+        assert gap <= gate, (name, gap, gate)
 
 
 @pytest.mark.gpu
