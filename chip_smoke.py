@@ -101,12 +101,17 @@ when it ends:
      qwen2-vl's prefill under its M-RoPE prompt's positions; K3's fp32
      backward also at chatglm3-6b's training shape (B 8, S 256, 32 heads
      over 2: G 16, Dh 128), and K3's bf16 training forward and backward
-     (``BWD_BF16_SHAPES``: that shape, train_4k's at B 2, the sweep's Dh
+     (``csrc/flash_attention_bf16.cu`` and
+     ``csrc/flash_attention_bwd_bf16.cu``: one bf16 ``wgmma`` a product;
+     ``BWD_BF16_SHAPES``: that shape, train_4k's at B 2, the sweep's Dh
      64 and 128 shapes, ragged, windowed, G 1 to 16, fully masked rows, a
      split plan) against the float64 plain backward of the same bf16
-     values within 2e-2 and within the final bf16 rounding (2^-8 relative,
-     1e-4 absolute), the LSE within 1e-5, two runs bitwise equal; a
-     bf16 call that needs a gradient at Dh 96 must raise before a launch;
+     values within 2e-2 and within twice the error of the plain version
+     of the kernels' bf16 arithmetic (``flash_attention_bwd_bf16_ref``:
+     P and dS rounded to bf16 before their products) + 1e-4, the LSE
+     within 1e-5, two runs bitwise equal, only the bf16 kernels launched;
+     a bf16 call that needs a gradient at Dh 96 must raise before a
+     launch;
   7. serve a reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights and prompts, without and with a window
      that wraps, and compare logits and tokens; then serve the main path at
@@ -228,7 +233,8 @@ when it ends:
      backend that takes fp32; K3's bf16 forward at
      starcoder2-15b's prefill, its fp32 backward at chatglm3-6b's training
      shape and its bf16 backward there and at train_4k's, the bf16 rows
-     bounded at bf16's 989 TFLOP/s against SDPA in bf16)
+     bounded at bf16's 989 TFLOP/s against SDPA in bf16, their launches
+     the bf16 kernels' own counts)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
      and print them as one JSON line;
   9. with ``--profile`` only: profile two pFedWN rounds, one serving run
@@ -517,10 +523,13 @@ BWD_TOL = 1e-5
 # values: the reference's bf16 kernel tolerance (tests/test_kernels.py),
 # atol and rtol
 BWD_BF16_TOL = 2e-2
-# and within the final bf16 rounding of fp32 sums: half an ulp, at most
-# 2^-8 of the value, over the fp32 kernel's error (|d| <= atol + rtol·|ref|);
-# a kernel that rounds P, dS or a partial sum to bf16 inside lands past it
-BWD_BF16_ROUND_RTOL, BWD_BF16_ROUND_ATOL = 2.0 ** -8, 1e-4
+# and, per gradient, max |kernel - float64| <= factor x max |plain -
+# float64| + atol, the plain version being the kernels' own bf16 arithmetic
+# (ref.flash_attention_bwd_bf16_ref: P and dS rounded to bf16 before their
+# products, as the forward and the reference's chunked_attention round P
+# before P.V) on the same inputs; tests/test_torch_bf16.py holds that
+# version within twice the reference's own bf16 error against float64
+BWD_BF16_PLAIN_FACTOR, BWD_BF16_PLAIN_ATOL = 2.0, 1e-4
 TRAIN_TOL = 1e-4             # card vs CPU losses and params, TF32 off
 # phase 7b: full-width training (tokens of examples/torch_federated_lm.py)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 256, 20, 3e-3
@@ -2167,22 +2176,28 @@ def check_flash_attention_backward(dev) -> float:
 
 
 def check_flash_attention_backward_bf16(dev) -> dict:
-    """K3's bf16 training forward and backward at every shape of
-    ``BWD_BF16_SHAPES``: dq, dk, dv (bf16) against the float64 plain
-    backward of the same bf16 values within ``BWD_BF16_TOL`` (|d| <= tol
-    + tol·|plain|) and within the final rounding (``BWD_BF16_ROUND_*``);
-    the bf16 training forward's row LSE within
-    ``BWD_TOL`` of the float64 one (+inf exactly on fully masked rows),
-    its output bitwise the bf16 serving forward's; a second run bitwise
-    equal; fully masked rows' dq and output exactly 0. Raises past any.
-    Returns (max |d|, worst excess) at ``BWD_CHATGLM`` and
-    ``BWD_TRAIN_4K``."""
+    """K3's bf16 training forward and backward
+    (``csrc/flash_attention_bf16.cu``, ``csrc/flash_attention_bwd_bf16.cu``)
+    at every shape of ``BWD_BF16_SHAPES``: dq, dk, dv (bf16) against the
+    float64 plain backward of the same bf16 values within ``BWD_BF16_TOL``
+    (|d| <= tol + tol·|plain|) and, per gradient, max |d| within
+    ``BWD_BF16_PLAIN_FACTOR`` times that of the plain version of the
+    kernels' bf16 arithmetic (``flash_attention_bwd_bf16_ref``, on the
+    card from the same inputs and the training forward's fp32 output and
+    LSE) + ``BWD_BF16_PLAIN_ATOL``; the bf16 training forward's row LSE
+    within ``BWD_TOL`` of the float64 one (+inf exactly on fully masked
+    rows), its output bitwise the bf16 serving forward's; a second run
+    bitwise equal; fully masked rows' dq and output exactly 0; every
+    launch the bf16 kernels' (``k3.bf16_launches``,
+    ``k3.bf16_backward_launches``). Raises past any. Returns (max |d|,
+    worst excess) at ``BWD_CHATGLM`` and ``BWD_TRAIN_4K``."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ref
     errs_at = {}
     for shape in BWD_BF16_SHAPES:
         causal, window = shape[6], shape[7]
         q, k, v, dout = _bwd_inputs(shape, dev, dtype=torch.bfloat16)
+        k3.reset_counts()
         first = _autograd_grads(q, k, v, dout, causal, window)
         second = _autograd_grads(q, k, v, dout, causal, window)
         bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
@@ -2190,9 +2205,15 @@ def check_flash_attention_backward_bf16(dev) -> dict:
         with torch.no_grad():
             served = k3.flash_attention(q, k, v, causal=causal,
                                         window=window)
-            _, lse = k3._launch(q, k, v, causal, window, with_lse=True)
+            out32, lse = k3._launch(q, k, v, causal, window, with_lse=True)
         torch.cuda.synchronize()
+        routed = (k3.bf16_launches == k3.launches == 4
+                  and k3.bf16_backward_launches == k3.backward_launches)
         same_out = torch.equal(first[0], served)
+        plain = ref.flash_attention_bwd_bf16_ref(q, k, v, out32, lse, dout,
+                                                 causal=causal,
+                                                 window=window)
+        del out32
         q64, k64, v64 = q.double(), k.double(), v.double()
         out64 = ref.flash_attention_ref(q64, k64, v64, causal=causal,
                                         window=window)
@@ -2201,15 +2222,16 @@ def check_flash_attention_backward_bf16(dev) -> dict:
                                              dout.double(), causal=causal,
                                              window=window)
         del out64
-        errs, excess, rounding = [], [], []
-        for got, want in zip(first[1:], expect):
+        errs, excess, plain_errs = [], [], []
+        for got, want, mine in zip(first[1:], expect, plain):
             diff = (got.double() - want).abs()
             errs.append(float(diff.max()))
             excess.append(float((diff - BWD_BF16_TOL * want.abs()).max()))
-            rounding.append(float(
-                (diff - BWD_BF16_ROUND_RTOL * want.abs()).max()))
+            plain_errs.append(float((mine.double() - want).abs().max()))
             del diff
-        del expect
+        del expect, plain
+        over_plain = max(e - BWD_BF16_PLAIN_FACTOR * p
+                         for e, p in zip(errs, plain_errs))
         masked = torch.isinf(lse64)
         ldiff = (lse.double() - lse64)[~masked].abs()
         lse_err = float(ldiff.max()) if ldiff.numel() else 0.0
@@ -2220,20 +2242,23 @@ def check_flash_attention_backward_bf16(dev) -> dict:
         zero_rows = bool((first[1][rows] == 0).all()
                          and (first[0][rows] == 0).all())
         finite = all(bool(torch.isfinite(t).all()) for t in first)
+        plan = k3.backward_plan(*shape, k3._sm_count(dev), torch.bfloat16)
         print(f"K3 bf16 backward {shape}: max|d| dq={errs[0]:.3g} "
               f"dk={errs[1]:.3g} dv={errs[2]:.3g} (tol {BWD_BF16_TOL:g}, "
-              f"atol and rtol; worst excess {max(excess):.3g}; past the "
-              f"bf16 rounding {max(rounding):.3g}, tol "
-              f"{BWD_BF16_ROUND_ATOL:g}), lse="
+              f"atol and rtol; worst excess {max(excess):.3g}); the plain "
+              f"bf16 version's dq={plain_errs[0]:.3g} dk={plain_errs[1]:.3g}"
+              f" dv={plain_errs[2]:.3g} (kernel - {BWD_BF16_PLAIN_FACTOR:g}"
+              f" x plain at most {over_plain:.3g}, tol "
+              f"{BWD_BF16_PLAIN_ATOL:g}), lse="
               f"{lse_err:.3g} (tol {BWD_TOL:g}), bitwise repeat {bitwise}, "
               f"out == serving {same_out}, masked rows {int(rows.sum())} "
-              f"zero {zero_rows}, plan "
-              f"{k3.backward_plan(*shape, k3._sm_count(dev))['kernels']}")
+              f"zero {zero_rows}, bf16 kernels only {routed}, plan "
+              f"{plan['kernels']} splits {plan['splits']}")
         del q64, k64, v64, lse64
         if not (max(excess) <= BWD_BF16_TOL and lse_excess <= BWD_TOL
-                and max(rounding) <= BWD_BF16_ROUND_ATOL and inf_ok
+                and over_plain <= BWD_BF16_PLAIN_ATOL and inf_ok
                 and bitwise and same_out and zero_rows and finite
-                and dtypes_ok):
+                and dtypes_ok and routed):
             raise AssertionError(f"K3's bf16 backward disagrees with its "
                                  f"plain version at {shape}")
         if shape in (BWD_CHATGLM, BWD_TRAIN_4K):
@@ -2543,11 +2568,11 @@ def _tree_err(a, b) -> float:
                for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
 
 
-def _bwd_kernels(shape, dev) -> tuple:
-    """The backward kernels that ``backward_plan`` launches at ``shape`` on
-    this card, in order."""
+def _bwd_kernels(shape, dev, dtype=torch.float32) -> tuple:
+    """The backward kernels that ``backward_plan`` launches at ``shape`` in
+    ``dtype`` on this card, in order."""
     from repro_torch.kernels import flash_attention as k3
-    return k3.backward_plan(*shape, k3._sm_count(dev))["kernels"]
+    return k3.backward_plan(*shape, k3._sm_count(dev), dtype)["kernels"]
 
 
 def _bwd_counts_ok(n_bwd, kernels, want) -> bool:
@@ -2718,6 +2743,10 @@ def bf16_step_against_cpu(cfg, p32, batch, dev) -> dict:
     got, gm = step(card, on_card)
     torch.cuda.synchronize()
     n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    if (k3.bf16_launches, k3.bf16_backward_launches) != (n_fwd, n_bwd):
+        raise AssertionError(f"a bf16 step launched fp32 kernels: "
+                             f"{k3.bf16_launches}/{n_fwd}, "
+                             f"{k3.bf16_backward_launches}/{n_bwd}")
 
     def delta(leaves):
         return [t.cpu().float() - o for t, o in zip(leaves, old)]
@@ -2774,6 +2803,9 @@ def check_dense_bf16_against_cpu(dev) -> dict:
             got = serve(cfg, card, prompts.to(dev), 5, window=window,
                         device=dev)
             n3 = launches[(arch, f"serve window {window}")] = k3.launches
+            if k3.bf16_launches != n3:
+                raise AssertionError(f"reduced {arch}'s bf16 serve launched "
+                                     f"the fp32 forward")
             tokens = got.tokens.cpu()
             ref = _teacher_forced(cfg, p16, prompts, tokens, window)
             ref32 = _teacher_forced(cfg, p32, prompts, tokens, window)
@@ -2800,7 +2832,7 @@ def check_dense_bf16_against_cpu(dev) -> dict:
         launches[(arch, "make_train_step")] = (n_fwd, n_bwd)
         kernels = _bwd_kernels((2, 64, 64, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.resolved_head_dim, True,
-                                cfg.sliding_window), dev)
+                                cfg.sliding_window), dev, torch.bfloat16)
         print(f"make_train_step reduced {arch} bf16, card vs CPU: "
               + ", ".join(f"{name} {r[name][0]:.4g} (gate {r[name][1]:.4g})"
                           for name in BF16_STEP_GAPS)
@@ -2874,9 +2906,9 @@ def run_glm_main_path(dev) -> dict:
     torch.cuda.empty_cache()
     first = next(token_batch_stream(0, batch=TRAIN_B, seq_len=TRAIN_S,
                                     vocab=cfg.vocab))
-    kernels = _bwd_kernels(BWD_CHATGLM, dev)
     for dtype, steps in ((torch.float32, GLM_STEPS),
                          (torch.bfloat16, GLM_BF16_STEPS)):
+        kernels = _bwd_kernels(BWD_CHATGLM, dev, dtype)
         torch.cuda.reset_peak_memory_stats(dev)
         k3.reset_counts()
         tr = train.single_client(cfg, steps=steps, batch=TRAIN_B,
@@ -2884,6 +2916,11 @@ def run_glm_main_path(dev) -> dict:
                                  device=dev)
         torch.cuda.synchronize()
         n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+        # bf16 steps launch the bf16 kernels only, fp32 steps none of them
+        bf16 = dtype == torch.bfloat16
+        routed = (k3.bf16_launches == n_fwd * bf16
+                  and all(k3.bf16_backward_launches[name] == n * bf16
+                          for name, n in n_bwd.items()))
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         with torch.no_grad():
             held = float(loss_fn(tr.pop("params"), cfg, {
@@ -2899,6 +2936,7 @@ def run_glm_main_path(dev) -> dict:
               f"{n_fwd}, backward {n_bwd}")
         want = cfg.n_layers * steps
         if not (n_fwd == want and _bwd_counts_ok(n_bwd, kernels, want)
+                and routed
                 and all(np.isfinite(losses + [held])) and held < losses[0]):
             raise AssertionError(f"chatglm3-6b {name} training: K3 "
                                  f"{n_fwd}/{n_bwd} (expected {want} a "
@@ -2906,7 +2944,9 @@ def run_glm_main_path(dev) -> dict:
                                  f"batch's after training {held}")
         out[name] = {"timings": tt, "peak_gib": peak, "losses": losses,
                      "first_batch_after": held, "k3_forward": n_fwd,
-                     "k3_backward": n_bwd}
+                     "k3_backward": n_bwd,
+                     "k3_bf16_forward": k3.bf16_launches,
+                     "k3_bf16_backward": dict(k3.bf16_backward_launches)}
     return out
 
 
@@ -2962,6 +3002,8 @@ def run_step_builders(dev) -> dict:
         losses.append(float(metrics["loss"]))
         ms.append((time.perf_counter() - t0) * 1e3)
     n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    routed = (k3.bf16_launches == n_fwd
+              and k3.bf16_backward_launches == n_bwd)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     changed = not torch.equal(before, params["layers"]["mlp"]["w_down"][0,
                                                                        :64])
@@ -2971,12 +3013,14 @@ def run_step_builders(dev) -> dict:
           f"changed {changed}, peak memory {peak:.3f} GiB; launches K3 "
           f"forward {n_fwd}, backward {n_bwd}")
     if not (all(np.isfinite(losses)) and changed and n_fwd == 2 * want
-            and _bwd_counts_ok(n_bwd, _bwd_kernels(BWD_TRAIN_4K, dev),
-                               want)):
+            and routed
+            and _bwd_counts_ok(n_bwd, _bwd_kernels(BWD_TRAIN_4K, dev,
+                                                   torch.bfloat16), want)):
         raise AssertionError(f"make_train_step at train_4k: losses {losses},"
                              f" changed {changed}, K3 {n_fwd}/{n_bwd}")
     out["train_4k"] = {"ms": ms, "losses": losses, "peak_gib": peak,
-                       "k3_forward": n_fwd, "k3_backward": n_bwd}
+                       "k3_forward": n_fwd, "k3_backward": n_bwd,
+                       "k3_bf16_backward": dict(k3.bf16_backward_launches)}
     del batch, metrics
     torch.cuda.empty_cache()
     # make_prefill_step at prefill_32k
@@ -2999,7 +3043,8 @@ def run_step_builders(dev) -> dict:
           f"{tuple(logits.shape)}, cache k {tuple(cache['layers']['k'].shape)}"
           f" {cache['layers']['k'].dtype}, peak memory {peak:.3f} GiB, K3 "
           f"launches {n3}")
-    if not (n3 == cfg.n_layers and bool(torch.isfinite(logits).all())
+    if not (n3 == k3.bf16_launches == cfg.n_layers
+            and bool(torch.isfinite(logits).all())
             and cache["layers"]["k"].dtype == torch.bfloat16):
         raise AssertionError(f"make_prefill_step at prefill_32k: K3 {n3}")
     out["prefill_32k"] = {"ms": ms, "peak_gib": peak, "k3": n3}
@@ -3072,6 +3117,9 @@ def run_starcoder2_main_path(dev) -> dict:
     n3 = k3.launches
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     _check_served("starcoder2-15b", cfg, res, n3)
+    if k3.bf16_launches != n3:
+        raise AssertionError("starcoder2-15b's bf16 prefill launched the "
+                             "fp32 forward")
     t = res.timings
     print(f"starcoder2-15b ({_tree_gib(params):.3f} GiB bf16) B={STAR_B} "
           f"prompt={STAR_PROMPT} gen={SERVE_GEN} window "
@@ -3335,8 +3383,9 @@ def attention_report(dev, shape, n3, err3, floor, main_path):
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
     return {
         "name": "flash_attention", "route": "cuda",
-        "design": "split-TF32 wgmma (3 products in fp32, 1 for Q.K^T and 2 "
-                  "for P.V in bf16), TMA-fed K/V ring",
+        "design": "split-TF32 wgmma (3 products a product), TMA-fed K/V "
+                  "ring; ms_bf16 is the bf16 kernel "
+                  "(csrc/flash_attention_bf16.cu) at the same shape",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "main_path": main_path, "launches": n3, "max_abs_err": err3,
@@ -3486,29 +3535,46 @@ def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path, steps,
     chatglm3-6b's and train_4k's; fp32 or bf16): ``k3_bwd_times`` with the
     launches that path made in its ``steps`` steps, the error phase 6
     found at that shape and the plain backward's ms (in bf16 the plain
-    backward computes in float64; it and the kernels at train_4k's size
-    are timed over fewer calls)."""
+    version of the bf16 kernels' arithmetic, ``flash_attention_bwd_bf16_ref``;
+    it and the kernels at train_4k's size are timed over fewer calls)."""
     from repro_torch.kernels import flash_attention as k3
-    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    from repro_torch.kernels import ref
     causal, window = shape[6], shape[7]
     big = shape[0] * shape[1] * shape[2] * shape[3] >= 2**28
     q, k, v, dout = _bwd_inputs(shape, dev, dtype=dtype)
     out, lse = k3._launch(q, k, v, causal, window, with_lse=True)
-    plain_ms = time_ms(lambda: flash_attention_bwd_ref(
+    plain = (ref.flash_attention_bwd_bf16_ref if dtype == torch.bfloat16
+             else ref.flash_attention_bwd_ref)
+    plain_ms = time_ms(lambda: plain(
         q, k, v, out, lse, dout, causal=causal, window=window),
         iters=1 if big else 5, reps=3 if big else 5)
-    plan = k3.backward_plan(*shape, k3._sm_count(dev))
-    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_TOL
+    plan = k3.backward_plan(*shape, k3._sm_count(dev), dtype)
+    bf16 = dtype == torch.bfloat16
+    tol = BWD_BF16_TOL if bf16 else BWD_TOL
+    design = (
+        "one bf16 wgmma a product (S^T, dP^T, dV, dK in the dK/dV kernel; "
+        "S, dP, dQ in the dQ kernel) on TMA-landed swizzled tiles, P and dS "
+        "rounded to bf16 as register A operands, Q/dO/K read MN-major by "
+        "the descriptor's transpose; a producer warpgroup (24 registers "
+        "by setmaxnreg) and two consumer warpgroups (240): dK/dV's share a "
+        "block's 64 keys and take alternate 64-query steps, dQ's own 64 "
+        "folded rows each; dK/dV split over the steps when one block a "
+        "key tile would leave SMs idle, the partials summed in split order; "
+        "D = rowsum(dO*O); no atomics" if bf16 else
+        "split-TF32 wgmma for every product (S^T, dP^T, dV, dK "
+        "in the dK/dV kernel; S, dP, dQ in the dQ kernel), two "
+        "warpgroups a block sharing its K/V (dK/dV) or Q/dO (dQ) "
+        "and streaming their own half of the tiles by cp.async; "
+        "dK/dV split over the (head, query tile) steps when one "
+        "block a key tile would leave SMs idle, the partials "
+        "summed in split order; D = rowsum(dO*O); no atomics")
     return {
-        "name": "flash_attention_bwd", "route": "cuda", "main_path": main_path,
-        "design": "split-TF32 wgmma for every product (S^T, dP^T, dV, dK "
-                  "in the dK/dV kernel; S, dP, dQ in the dQ kernel), two "
-                  "warpgroups a block sharing its K/V (dK/dV) or Q/dO (dQ) "
-                  "and streaming their own half of the tiles by cp.async; "
-                  "dK/dV split over the (head, query tile) steps when one "
-                  "block a key tile would leave SMs idle, the partials "
-                  "summed in split order; D = rowsum(dO*O); no atomics",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "name": "flash_attention_bwd (bf16)" if bf16 else
+                "flash_attention_bwd",
+        "route": "cuda", "main_path": main_path,
+        "design": design,
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd"
+                  + ("_bf16.cu" if bf16 else ".cu"),
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "replaces_note": "K3 has no backward on the TPU: the reference "
                          "differentiates chunked_attention "
@@ -3522,7 +3588,9 @@ def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path, steps,
         "max_excess_over_rtol": err[1],
         "tolerance_note": "|d| <= atol + rtol·|plain|, i.e. max_excess_"
                           "over_rtol = max(|d| − rtol·|plain|) <= atol; "
-                          "against the float64 plain backward",
+                          "against the float64 plain backward"
+                          + ("; and max|d| <= 2 x the plain bf16 version's "
+                             "+ 1e-4" if bf16 else ""),
         **k3_bwd_times(dev, shape, dtype=dtype, iters=3 if big else 20),
         "plain_ms": plain_ms,
         "back_to_back_ms": back_to_back_ms(lambda: k3._launch_backward(
@@ -3564,9 +3632,12 @@ def attention_bf16_report(dev, shape, n3, err, floor, main_path):
     ops_ms = ops / BF16_FLOPS * 1e3
     return {
         "name": "flash_attention (bf16)", "route": "cuda",
-        "design": "the fp32 route's split-TF32 wgmma with bf16 inputs exact "
-                  "in TF32: Q.K^T one product, P.V two (P split)",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "design": "one bf16 wgmma a product: S = Q.K^T from TMA-landed "
+                  "swizzled tiles (m64n128), P rounded to bf16 as the "
+                  "register A operand of O += P.V, V read MN-major; two "
+                  "consumer warpgroups of 64 folded rows, a producer warp, "
+                  "128-key tiles",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "main_path": main_path, "launches": n3, "max_abs_err": err,
         "tolerance": ATTN_TOL[torch.bfloat16],
@@ -4094,12 +4165,12 @@ def main() -> int:
                              err3_bwd[BWD_CHATGLM], floor,
                              "train chatglm3-6b (fp32, G 16)", GLM_STEPS),
         attention_bwd_report(dev, BWD_CHATGLM,
-                             glm["bfloat16"]["k3_backward"],
+                             glm["bfloat16"]["k3_bf16_backward"],
                              err3_bf16[BWD_CHATGLM], floor,
                              "train chatglm3-6b (bf16, G 16)",
                              GLM_BF16_STEPS, dtype=torch.bfloat16),
         attention_bwd_report(dev, BWD_TRAIN_4K,
-                             builders["train_4k"]["k3_backward"],
+                             builders["train_4k"]["k3_bf16_backward"],
                              err3_bf16[BWD_TRAIN_4K], floor,
                              "make_train_step chatglm3-6b at train_4k (bf16, "
                              "global_batch cut to 2)", BUILDER_TRAIN_STEPS,

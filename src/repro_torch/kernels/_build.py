@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 KERNELS = ("em_posterior", "weighted_agg", "flash_attention",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "flash_attention_bf16",
+           "flash_attention_bwd_bf16")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -19,22 +19,16 @@
 // chunked_attention (src/repro/models/attention.py:72-80). Masked
 // scores are -inf while the running max starts at -1e30, so their
 // probabilities are exactly 0 and a fully masked row gives 0 (acc /
-// max(l, 1e-30)). fp32 arithmetic for fp32
-// and bf16 inputs; the output has q's type. Ragged Sq and Skv are masked
-// here, so nothing is padded.
+// max(l, 1e-30)). fp32 inputs, arithmetic and output (bf16 inputs go to
+// flash_attention_bf16.cu). Ragged Sq and Skv are masked here, so nothing
+// is padded.
 //
-// For training, an instantiation in either type (template flag kLse) also
-// writes each row's log-sum-exp of the scaled scores, lse[b, h, i] = m +
-// log(l), in fp32, for the backward (csrc/flash_attention_bwd.cu) to
-// recompute P from; a fully masked row gets +inf, so that exp(s - lse) is 0
-// there. The reference trains in its params' dtype (bf16 by default,
-// src/repro/launch/steps.py:91-119), so bf16 has one too, which writes its
-// output in fp32: the backward's D = rowsum(dO o) then reads the output
-// unrounded, as the reference's autodiff of chunked_attention does, where
-// the rounded one adds an error growing with the keys a query sees (past
-// the bf16 gate at train_4k's S 4096); the wrapper rounds it to bf16 for
-// the caller, the bits the serving instantiation writes. The flag adds
-// only these stores: the serving instantiation is the kernel as it was.
+// For training, an instantiation (template flag kLse) also writes each
+// row's log-sum-exp of the scaled scores, lse[b, h, i] = m + log(l), in
+// fp32, for the backward (csrc/flash_attention_bwd.cu) to recompute P
+// from; a fully masked row gets +inf, so that exp(s - lse) is 0 there. The
+// flag adds only these stores: the serving instantiation is the kernel as
+// it was.
 //
 // The GQA fold: the G query heads of one KV head are G adjacent rows of
 // the (Sq*G, Dh) row space (row = i*G + g), read in place by stride, so
@@ -54,11 +48,8 @@
 //   with fp32 accumulators. Each operand x is split into big =
 //   cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and a product is
 //   small.big + big.small + big.big, the two small terms accumulated first
-//   (split TF32, about fp32's accuracy). bf16 inputs widened to fp32 are
-//   exact in TF32, so for bf16 Q.K^T is one product and P.V two (P is
-//   computed in fp32 and split): one design, with the number of terms
-//   following the dtype. Q is not scaled before the product (1/sqrt(Dh)
-//   is applied to the scores), so bf16 Q stays exact.
+//   (split TF32, about fp32's accuracy). Q is not scaled before the
+//   product (1/sqrt(Dh) is applied to the scores).
 // - Warp roles: kWG consumer warpgroups of 128 threads, each owning 64
 //   folded (query, head) rows, and one producer warp. The producer keeps a
 //   ring of kStages raw K/V tiles in flight with TMA
@@ -123,13 +114,10 @@
 // 64, 132 B at 96 and 348 B at 112, whose 56 O accumulators a thread
 // are the most).
 #include <cuda.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "wgmma_tf32.cuh"
 
@@ -159,7 +147,7 @@ template <> struct Cfg<128> {
 
 // Shared memory of one block, in bytes from a 1024-aligned base. The
 // position instantiations add 4 bounds and a tile's key positions.
-template <typename T, int DH, bool kPos>
+template <int DH, bool kPos>
 struct Layout {
   static constexpr int kWG = Cfg<DH>::kWG, kKeys = Cfg<DH>::kKeys;
   static constexpr int kStages = Cfg<DH>::kStages;
@@ -168,7 +156,7 @@ struct Layout {
   static constexpr int kThreads = kConsumers + 32;   // + the producer warp
   static constexpr uint32_t kQ = kRows * DH * 4;     // Q big, Q small
   static constexpr uint32_t kKV = kKeys * DH * 4;    // K, V big and small
-  static constexpr uint32_t kTile = kKeys * DH * sizeof(T);  // raw K or V
+  static constexpr uint32_t kTile = kKeys * DH * 4;  // raw K or V
   static constexpr uint32_t kQb = 0, kQs = kQ, kKb = 2 * kQ,
                             kKs = kKb + kKV, kVb = kKs + kKV,
                             kVs = kVb + kKV, kRaw = kVs + kKV,
@@ -180,43 +168,17 @@ struct Layout {
   static_assert(DH % Cfg<DH>::kPV == 0, "P.V must be whole wgmma products");
 };
 
-// whether a query at position qp sees a key at position kp
-__device__ __forceinline__ bool sees(int qp, int kp, int causal,
-                                     int window) {
-  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
-}
-
-// min (or max) of v over a warp, then into *dst over the block
-__device__ __forceinline__ void block_min(int* dst, int v) {
-  v = __reduce_min_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) atomicMin(dst, v);
-}
-__device__ __forceinline__ void block_max(int* dst, int v) {
-  v = __reduce_max_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) atomicMax(dst, v);
-}
-
-// barrier 1 over the consumer warpgroups only (the producer never joins)
-template <int N>
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
-}
-
-// the output's type: q's, or fp32 in the training instantiations
-template <typename T, bool kLse>
-using OutT = std::conditional_t<kLse, float, T>;
-
-template <typename T, int DH, bool kLse, bool kPos>
-__global__ void __launch_bounds__(Layout<T, DH, kPos>::kThreads, 1)
+template <int DH, bool kLse, bool kPos>
+__global__ void __launch_bounds__(Layout<DH, kPos>::kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
                        const __grid_constant__ CUtensorMap tmap_v,
-                       const T* __restrict__ q,
-                       OutT<T, kLse>* __restrict__ o,
+                       const float* __restrict__ q,
+                       float* __restrict__ o,
                        float* __restrict__ lse,
                        const int* __restrict__ q_pos,
                        const int* __restrict__ kv_pos, int Sq, int Skv,
                        int H, int KH, int causal, int window, float scale) {
-  using L = Layout<T, DH, kPos>;
+  using L = Layout<DH, kPos>;
   constexpr int kKeys = L::kKeys, kRows = L::kRows, kStages = L::kStages;
   constexpr int kCons = L::kConsumers, kPV = Cfg<DH>::kPV;
   // K's column groups of 4 are rotated within runs of kRot (8, or 4 at Dh
@@ -225,7 +187,6 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
   // 2 apart share banks there: the rotation steps every second row.
   constexpr int kRot = (DH / 4) % 8 == 0 ? 8 : 4;
   constexpr int kRotShift = kRot == 8 ? 0 : 1;
-  constexpr bool kSplitInputs = sizeof(T) == 4;  // bf16 is exact in TF32
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
   const uint32_t base = (raw_base + 1023u) & ~1023u;
@@ -321,8 +282,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
     split4(x, hi, lo);
     const uint32_t off = kmajor(r, c, kRows);
     *reinterpret_cast<float4*>(smem + L::kQb + off) = hi;
-    if constexpr (kSplitInputs)
-      *reinterpret_cast<float4*>(smem + L::kQs + off) = lo;
+    *reinterpret_cast<float4*>(smem + L::kQs + off) = lo;
   }
 
   // this thread's two rows of the warpgroup's 64 (the accumulator layout)
@@ -354,8 +314,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const int key0 = t * kKeys;
     consumers_sync<kCons>();  // every warpgroup is done with the last tile
     mbar_wait(full0 + 8 * s, (i / kStages) & 1);
-    const T* rk = reinterpret_cast<const T*>(smem + L::kRaw + s * 2 * L::kTile);
-    const T* rv = rk + kKeys * DH;
+    const float* rk =
+        reinterpret_cast<const float*>(smem + L::kRaw + s * 2 * L::kTile);
+    const float* rv = rk + kKeys * DH;
     // K, split, K-major. Each 8 threads take rows r..r+7 at column groups
     // rotated by the row, so that reads and writes spread over the banks.
     for (int u = tid; u < kKeys * (DH / 4); u += kCons) {
@@ -367,8 +328,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
       split4(load4(rk + r * DH + c), hi, lo);
       const uint32_t off = kmajor(r, c, kKeys);
       *reinterpret_cast<float4*>(smem + L::kKb + off) = hi;
-      if constexpr (kSplitInputs)
-        *reinterpret_cast<float4*>(smem + L::kKs + off) = lo;
+      *reinterpret_cast<float4*>(smem + L::kKs + off) = lo;
     }
     if constexpr (kPos)  // the tile's key positions, -1 past Skv
       if (tid < kKeys)
@@ -380,15 +340,14 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
     for (int u = tid; u < DH * (kKeys / 4); u += kCons) {
       const int n = u % DH, p4 = u / DH;
       const int k0 = (p4 >> 1) * 8 + (p4 & 1);
-      const float4 x = make_float4(
-          to_f32(rv[k0 * DH + n]), to_f32(rv[(k0 + 2) * DH + n]),
-          to_f32(rv[(k0 + 4) * DH + n]), to_f32(rv[(k0 + 6) * DH + n]));
+      const float4 x = make_float4(rv[k0 * DH + n], rv[(k0 + 2) * DH + n],
+                                   rv[(k0 + 4) * DH + n],
+                                   rv[(k0 + 6) * DH + n]);
       float4 hi, lo;
       split4(x, hi, lo);
       const uint32_t off = kmajor(n, p4 * 4, DH);
       *reinterpret_cast<float4*>(smem + L::kVb + off) = hi;
-      if constexpr (kSplitInputs)
-        *reinterpret_cast<float4*>(smem + L::kVs + off) = lo;
+      *reinterpret_cast<float4*>(smem + L::kVs + off) = lo;
     }
     mbar_arrive(empty0 + 8 * s);  // the raw tile may be refilled
     // the split tiles were written by the generic proxy; wgmma reads them
@@ -405,20 +364,18 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
 #pragma unroll
     for (int x = 0; x < kKeys / 2; ++x) sc[x] = 0.f;
     wgmma_fence();
-    if constexpr (kSplitInputs) {
 #pragma unroll
-      for (int k8 = 0; k8 < DH / 8; ++k8)
-        wgmma_ss<kKeys>(sc, desc(qs + k8 * kRows * 32),
-                        desc(kb + k8 * kKeys * 32), k8 > 0);
-#pragma unroll
-      for (int k8 = 0; k8 < DH / 8; ++k8)
-        wgmma_ss<kKeys>(sc, desc(qb + k8 * kRows * 32),
-                        desc(ks + k8 * kKeys * 32), 1);
-    }
+    for (int k8 = 0; k8 < DH / 8; ++k8)
+      wgmma_ss<kKeys>(sc, desc(qs + k8 * kRows * 32),
+                      desc(kb + k8 * kKeys * 32), k8 > 0);
 #pragma unroll
     for (int k8 = 0; k8 < DH / 8; ++k8)
       wgmma_ss<kKeys>(sc, desc(qb + k8 * kRows * 32),
-                      desc(kb + k8 * kKeys * 32), kSplitInputs || k8 > 0);
+                      desc(ks + k8 * kKeys * 32), 1);
+#pragma unroll
+    for (int k8 = 0; k8 < DH / 8; ++k8)
+      wgmma_ss<kKeys>(sc, desc(qb + k8 * kRows * 32),
+                      desc(kb + k8 * kKeys * 32), 1);
     wgmma_commit_and_wait();
     fence_regs(sc);
     if constexpr (L::kWG == 2)
@@ -482,12 +439,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
       for (int j = 0; j < kKeys / 8; ++j)
         wgmma_rs<kPV>(pv, ps[4 * j], ps[4 * j + 2], ps[4 * j + 1],
                       ps[4 * j + 3], desc(vbc + j * DH * 32));
-      if constexpr (kSplitInputs) {
 #pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j)
-          wgmma_rs<kPV>(pv, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
-                        pb[4 * j + 3], desc(vsc + j * DH * 32));
-      }
+      for (int j = 0; j < kKeys / 8; ++j)
+        wgmma_rs<kPV>(pv, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
+                      pb[4 * j + 3], desc(vsc + j * DH * 32));
 #pragma unroll
       for (int j = 0; j < kKeys / 8; ++j)
         wgmma_rs<kPV>(pv, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
@@ -515,7 +470,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
       lse[(bh + rB % G) * Sq + posB] = l_b > 0.f ? m_b + logf(l_b) : INFINITY;
   }
   if (okA) {
-    OutT<T, kLse>* dst =
+    float* dst =
         o + ((static_cast<int64_t>(b) * Sq + posA) * H + kh * G + rA % G) *
                 DH;
 #pragma unroll
@@ -523,7 +478,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
       store2(dst + 8 * j + 2 * t4, acc[4 * j] / dA, acc[4 * j + 1] / dA);
   }
   if (okB) {
-    OutT<T, kLse>* dst =
+    float* dst =
         o + ((static_cast<int64_t>(b) * Sq + posB) * H + kh * G + rB % G) *
                 DH;
 #pragma unroll
@@ -532,42 +487,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) == cudaSuccess && p)
-      fn = reinterpret_cast<EncodeTiled>(p);
-#endif
-  }
-  return fn;
-}
-
 // The (B, Skv, KH*Dh) view of k or v, read in boxes of (1, keys, Dh);
 // keys past Skv read as zeros. Returns 0, or kEncodeError + the CUresult.
-constexpr int kEncodeError = 10000;
-template <typename T>
 int encode(CUtensorMap* map, const void* base, int B, int Skv, int KH,
            int DH, int keys) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t es = sizeof(T);
+  const cuuint64_t es = 4;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(KH) * DH,
                               static_cast<cuuint64_t>(Skv),
                               static_cast<cuuint64_t>(B)};
@@ -576,23 +502,22 @@ int encode(CUtensorMap* map, const void* base, int B, int Skv, int KH,
                              static_cast<cuuint32_t>(keys), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(
-      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      3, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
-template <typename T, int DH, bool kLse, bool kPos>
+template <int DH, bool kLse, bool kPos>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
            int H, int KH, int causal, int window, cudaStream_t st) {
-  using L = Layout<T, DH, kPos>;
+  using L = Layout<DH, kPos>;
   static bool configured = false;  // the attribute holds per function
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, DH, kLse, kPos>,
+        flash_attention_kernel<DH, kLse, kPos>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L::kBytes));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -603,57 +528,44 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
                           L::kRows;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_k, map_v;
-  int rc = encode<T>(&map_k, k, B, Skv, KH, DH, L::kKeys);
-  if (rc == 0) rc = encode<T>(&map_v, v, B, Skv, KH, DH, L::kKeys);
+  int rc = encode(&map_k, k, B, Skv, KH, DH, L::kKeys);
+  if (rc == 0) rc = encode(&map_v, v, B, Skv, KH, DH, L::kKeys);
   if (rc != 0) return rc;
   const dim3 grid(B * KH, static_cast<unsigned>(tiles));
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
-  flash_attention_kernel<T, DH, kLse, kPos>
+  flash_attention_kernel<DH, kLse, kPos>
       <<<grid, L::kThreads, L::kBytes, st>>>(
-          map_k, map_v, static_cast<const T*>(q),
-          static_cast<OutT<T, kLse>*>(o), lse,
+          map_k, map_v, static_cast<const float*>(q),
+          static_cast<float*>(o), lse,
           q_pos, kv_pos, Sq, Skv, H, KH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One head size and mask source in q's type: the training instantiation
-// when lse is set, else the serving one.
-template <int DH, bool kPos, typename T>
+// One head size and mask source: the training instantiation when lse is
+// set, else the serving one.
+template <int DH, bool kPos>
 int dispatch_lse(const void* q, const void* k, const void* v, void* o,
                  float* lse, const int* q_pos, const int* kv_pos, int B,
                  int Sq, int Skv, int H, int KH, int causal, int window,
                  cudaStream_t st) {
   if (lse != nullptr)
-    return launch<T, DH, true, kPos>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
-                                     Skv, H, KH, causal, window, st);
-  return launch<T, DH, false, kPos>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
-                                    Skv, H, KH, causal, window, st);
-}
-
-template <int DH, bool kPos>
-int dispatch_type(const void* q, const void* k, const void* v, void* o,
-                  float* lse, const int* q_pos, const int* kv_pos, int B,
-                  int Sq, int Skv, int H, int KH, int causal, int window,
-                  int is_bf16, cudaStream_t st) {
-  if (is_bf16)
-    return dispatch_lse<DH, kPos, __nv_bfloat16>(q, k, v, o, lse, q_pos,
-                                                 kv_pos, B, Sq, Skv, H, KH,
-                                                 causal, window, st);
-  return dispatch_lse<DH, kPos, float>(q, k, v, o, lse, q_pos, kv_pos, B,
-                                       Sq, Skv, H, KH, causal, window, st);
+    return launch<DH, true, kPos>(q, k, v, o, lse, q_pos, kv_pos, B, Sq, Skv,
+                                  H, KH, causal, window, st);
+  return launch<DH, false, kPos>(q, k, v, o, lse, q_pos, kv_pos, B, Sq, Skv,
+                                 H, KH, causal, window, st);
 }
 
 // The position instantiations when q_pos is set, else the index ones.
 template <int DH>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              float* lse, const int* q_pos, const int* kv_pos, int B, int Sq,
-             int Skv, int H, int KH, int causal, int window, int is_bf16,
+             int Skv, int H, int KH, int causal, int window,
              cudaStream_t st) {
   if (q_pos != nullptr)
-    return dispatch_type<DH, true>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
-                                   Skv, H, KH, causal, window, is_bf16, st);
-  return dispatch_type<DH, false>(q, k, v, o, lse, q_pos, kv_pos, B, Sq, Skv,
-                                  H, KH, causal, window, is_bf16, st);
+    return dispatch_lse<DH, true>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
+                                  Skv, H, KH, causal, window, st);
+  return dispatch_lse<DH, false>(q, k, v, o, lse, q_pos, kv_pos, B, Sq, Skv,
+                                 H, KH, causal, window, st);
 }
 
 }  // namespace
@@ -661,11 +573,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 // Launches on `stream`; returns cudaGetLastError() (0 on success),
 // cudaErrorInvalidValue for a head size other than 48, 64, 96, 112 or 128
 // or more than 65535 row tiles, or 10000 + the CUresult if a tensor map
-// cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh);
-// contiguous, of one type (fp32, or bf16 when is_bf16; o fp32 whenever lse
-// is set), 16-byte aligned (TMA's rule). lse: null (serving), or (B, H,
-// Sq) fp32 written by the training instantiation (either type). q_pos,
-// kv_pos: both null
+// cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); fp32,
+// contiguous, 16-byte aligned (TMA's rule). lse: null (serving), or (B, H,
+// Sq) fp32 written by the training instantiation. q_pos, kv_pos: both null
 // (mask by index), or (Sq,) and (Skv,) contiguous int32 (mask by them; a
 // cudaErrorInvalidValue if only one is set).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -673,7 +583,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* q_pos, const void* kv_pos,
                                       int B, int Sq, int Skv, int H, int KH,
                                       int Dh, int causal, int window,
-                                      int is_bf16, void* stream) {
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if ((q_pos == nullptr) != (kv_pos == nullptr))
@@ -683,19 +593,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   switch (Dh) {
     case 48:
       return dispatch<48>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
-                          window, is_bf16, st);
+                          window, st);
     case 64:
       return dispatch<64>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
-                          window, is_bf16, st);
+                          window, st);
     case 96:
       return dispatch<96>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
-                          window, is_bf16, st);
+                          window, st);
     case 112:
       return dispatch<112>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
-                           window, is_bf16, st);
+                           window, st);
     case 128:
       return dispatch<128>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
-                           window, is_bf16, st);
+                           window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,11 +9,10 @@
 // this file, whose dK/dV and dQ kernels ran every product as fp32 FMAs on
 // the CUDA cores with one dK/dV block per (key tile, KV head, batch).
 //
-// Computes, for q, dO (B, Sq, H, Dh), k, v (B, Skv, KH, Dh), all of one type
-// (fp32, or bf16 at the head sizes of kBf16Built), the forward's o (B, Sq,
-// H, Dh) and lse (B, H, Sq) in fp32 (the training forward writes both in
-// fp32 for either type), all contiguous, G = H / KH
-// and query head h = kh*G + g reading KV head kh, scale = 1/sqrt(Dh):
+// Computes, for q, dO (B, Sq, H, Dh), k, v (B, Skv, KH, Dh), the forward's
+// o (B, Sq, H, Dh) and lse (B, H, Sq), all fp32 (bf16 goes to
+// flash_attention_bwd_bf16.cu) and contiguous, G = H / KH and query head
+// h = kh*G + g reading KV head kh, scale = 1/sqrt(Dh):
 //   P_ij  = exp(scale * q_i.k_j - lse_i)     where (i, j) is unmasked, else 0
 //   D_i   = sum_d dO_id o_id                 (= sum_j P_ij dP_ij)
 //   dP_ij = dO_i . v_j,   dS_ij = P_ij (dP_ij - D_i)
@@ -130,26 +129,10 @@
 //   them). For an arange these are the index band's tiles, and with the
 //   wrapper's plan (sized from the index bounds) the gradients are the
 //   index instantiations' bit for bit.
-// - bf16 (the reference trains in its params' dtype, bf16 by default:
-//   src/repro/launch/steps.py:91-119): the same kernels with the element
-//   type as a template parameter, at Dh 64 and 128 (kBf16Built: the dense
-//   configs' head sizes). cp.async copies raw bytes, so a bf16 tile lands
-//   in the fp32 tile's raw buffer at half its size and is widened to fp32
-//   (exactly) as the conversion pass writes the split operands, which are
-//   the fp32 route's: the products, P, dS and every sum run as in fp32.
-//   The shared-memory budget and the tiles are unchanged. D reads bf16 dO
-//   and the forward's fp32 o (a rounded o puts an error of 2^-9 |dO||o| in
-//   each D, which dK sums over every query that sees a key) and sums in
-//   fp32; dK/dV and dQ are rounded to bf16 once, as they are stored, or
-//   after the reduce when the plan splits (the partials stay fp32). A
-//   bf16 value widened to fp32 is exact in TF32, so its small half is 0:
-//   the split products spend a third of their work on zeros there, a
-//   saving left for later.
 // Left for later: computing S and dP once for both dK/dV and dQ, a deeper
 // cp.async ring (shared memory is full at Dh 64), folding D and the reduce
-// into the other kernels, bf16 at Dh 48, 96 and 112, and Dh 192
-// (deepseek-v3 at full width; ROADMAP B1).
-#include <cuda_bf16.h>
+// into the other kernels, and Dh 192 (deepseek-v3 at full width; ROADMAP
+// B1).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -191,10 +174,6 @@ template <> struct Cfg<128> {
 // positions at the others
 template <int DH>
 constexpr bool kPosBuilt = DH == 64 || DH == 128;
-// the head sizes whose bf16 instantiations are built: the dense configs'
-// (64 at reduced(), 128 for chatglm3-6b and starcoder2-15b)
-template <int DH>
-constexpr bool kBf16Built = DH == 64 || DH == 128;
 constexpr int kSmemLimit = 232448;  // the opt-in shared memory of a block
 
 // (b)'s shared memory, in bytes from a 128-aligned base: K and V, then
@@ -236,36 +215,6 @@ struct DqSmem {
                 "the second group's dQ sums fit its region");
 };
 
-__device__ __forceinline__ bool visible(int i, int j, int Sq, int Skv,
-                                        int causal, int window) {
-  return i < Sq && j < Skv && (!causal || j <= i) &&
-         (window <= 0 || j > i - window);
-}
-
-// whether every (i, j) of queries [i_lo, i_hi] x keys [j_lo, j_hi] is
-// unmasked, so that a step can skip the per-element test
-__device__ __forceinline__ bool all_visible(int i_lo, int i_hi, int j_lo,
-                                            int j_hi, int Sq, int Skv,
-                                            int causal, int window) {
-  return i_hi < Sq && j_hi < Skv && (!causal || j_hi <= i_lo) &&
-         (window <= 0 || j_lo > i_hi - window);
-}
-
-// whether a query at position qp sees a key at position kp
-__device__ __forceinline__ bool sees(int qp, int kp, int causal,
-                                     int window) {
-  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
-}
-
-// min (or max) of v over a warp, then into *dst over the block
-__device__ __forceinline__ void block_min(int* dst, int v) {
-  v = __reduce_min_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) atomicMin(dst, v);
-}
-__device__ __forceinline__ void block_max(int* dst, int v) {
-  v = __reduce_max_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) atomicMax(dst, v);
-}
 
 // With explicit positions: the first and last index in [0, n) whose
 // position p satisfies may_see(p), by the block's T threads, through the
@@ -328,10 +277,10 @@ __device__ __forceinline__ int rotated(int u, int& c) {
   return (rest / kGroups) * 8 + j;
 }
 
-// ROWS rows of DH elements (fp32 or bf16, widened), row-major at `raw`,
-// into a split K-major operand (rows as rows), by one warpgroup
-template <int ROWS, int DH, typename E>
-__device__ __forceinline__ void to_kmajor(const E* raw, uint8_t* dst,
+// ROWS rows of DH elements, row-major at `raw`, into a split K-major
+// operand (rows as rows), by one warpgroup
+template <int ROWS, int DH>
+__device__ __forceinline__ void to_kmajor(const float* raw, uint8_t* dst,
                                           uint32_t half, int tid) {
   using P = Passes<ROWS * (DH / 4), kWGThreads>;
 #pragma unroll
@@ -348,8 +297,8 @@ __device__ __forceinline__ void to_kmajor(const E* raw, uint8_t* dst,
 // contraction, position p of each group of 8 holding row 2*(p%4) + p/4,
 // so that an accumulator fragment (a thread's columns 2t, 2t+1) is the A
 // fragment (positions t, t+4) of a product over those rows
-template <int ROWS, int DH, typename E>
-__device__ __forceinline__ void to_transposed(const E* raw, uint8_t* dst,
+template <int ROWS, int DH>
+__device__ __forceinline__ void to_transposed(const float* raw, uint8_t* dst,
                                               uint32_t half, int tid) {
   using P = Passes<DH * (ROWS / 4), kWGThreads>;
 #pragma unroll
@@ -359,18 +308,16 @@ __device__ __forceinline__ void to_transposed(const E* raw, uint8_t* dst,
     const int n = u % DH, p4 = u / DH;
     const int r0 = (p4 >> 1) * 8 + (p4 & 1);
     store_split(dst, half, kmajor(n, p4 * 4, DH),
-                make_float4(to_f32(raw[r0 * DH + n]),
-                            to_f32(raw[(r0 + 2) * DH + n]),
-                            to_f32(raw[(r0 + 4) * DH + n]),
-                            to_f32(raw[(r0 + 6) * DH + n])));
+                make_float4(raw[r0 * DH + n], raw[(r0 + 2) * DH + n],
+                            raw[(r0 + 4) * DH + n], raw[(r0 + 6) * DH + n]));
   }
 }
 
 // ROWS rows row0.. of head `head` of a (.., rows, heads, DH) tensor straight
 // from global memory into a split K-major operand, by the T threads of the
 // block; rows past `rows` are 0
-template <int ROWS, int DH, int T, typename E>
-__device__ __forceinline__ void load_kmajor(const E* src,
+template <int ROWS, int DH, int T>
+__device__ __forceinline__ void load_kmajor(const float* src,
                                             int64_t batch_off, int row0,
                                             int rows, int heads, int head,
                                             uint8_t* dst, uint32_t half,
@@ -397,13 +344,13 @@ __device__ __forceinline__ void load_kmajor(const E* src,
 }
 
 // cp.async of ROWS rows row0.. of head `head` into a row-major raw tile, by
-// one warpgroup, in 16-byte chunks (4 fp32 or 8 bf16 elements); rows past
-// `rows` are zero-filled
-template <int ROWS, int DH, typename E>
-__device__ __forceinline__ void copy_rows(const E* src, int64_t batch_off,
+// one warpgroup, in 16-byte chunks of 4 elements; rows past `rows` are
+// zero-filled
+template <int ROWS, int DH>
+__device__ __forceinline__ void copy_rows(const float* src, int64_t batch_off,
                                           int row0, int rows, int heads,
                                           int head, uint32_t dst, int tid) {
-  constexpr int kVec = 16 / sizeof(E);
+  constexpr int kVec = 4;
   using P = Passes<ROWS * (DH / kVec), kWGThreads>;
 #pragma unroll
   for (int it = 0; it < P::value; ++it) {
@@ -411,7 +358,7 @@ __device__ __forceinline__ void copy_rows(const E* src, int64_t batch_off,
     if (!P::in(u)) continue;
     const int r = u / (DH / kVec), c = (u % (DH / kVec)) * kVec;
     const bool ok = row0 + r < rows;
-    const E* p =
+    const float* p =
         ok ? src + ((batch_off + row0 + r) * heads + head) *
                        static_cast<int64_t>(DH) + c
            : src;
@@ -500,10 +447,10 @@ struct DotLanes {
   static constexpr int value = DH / 4 <= 16 ? 16 : 32;
 };
 
-// four elements a thread, summed in fp32; dO in the inputs' type, o fp32
-template <typename E, int DH>
+// four elements a thread, summed in fp32
+template <int DH>
 __global__ void __launch_bounds__(kDotThreads)
-attn_bwd_dot_kernel(const E* __restrict__ dout,
+attn_bwd_dot_kernel(const float* __restrict__ dout,
                     const float* __restrict__ out, float* __restrict__ D,
                     int B, int Sq, int H) {
   constexpr int kLanes = DotLanes<DH>::value, kVec = DH / 4;
@@ -529,14 +476,14 @@ attn_bwd_dot_kernel(const E* __restrict__ dout,
   }
 }
 
-// E: the inputs' type; O: dK's and dV's (E, or fp32 for split partials)
-template <typename E, typename O, int DH, bool kPos>
+template <int DH, bool kPos>
 __global__ void __launch_bounds__(Cfg<DH>::kWG * kWGThreads, 1)
-attn_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                     const E* __restrict__ v, const E* __restrict__ dout,
+attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ D, O* __restrict__ dk,
-                     O* __restrict__ dv, const int* __restrict__ q_pos,
+                     const float* __restrict__ D, float* __restrict__ dk,
+                     float* __restrict__ dv, const int* __restrict__ q_pos,
                      const int* __restrict__ kv_pos, int B, int Sq, int Skv,
                      int H, int KH, int causal, int window, int splits,
                      int64_t split_stride, float scale) {
@@ -647,8 +594,8 @@ attn_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
     const int s = s_lo + wg + i * WG;
     cp_async_wait_all();
     group_sync(wg);  // step i's raw tiles are in; step i-1's products done
-    const E* rq = reinterpret_cast<const E*>(gsmem + L::kRawQ);
-    const E* ro = reinterpret_cast<const E*>(gsmem + L::kRawO);
+    const float* rq = reinterpret_cast<const float*>(gsmem + L::kRawQ);
+    const float* ro = reinterpret_cast<const float*>(gsmem + L::kRawO);
     to_kmajor<QT, DH>(rq, gsmem + L::kQ, L::kQh, tid);
     to_transposed<QT, DH>(rq, gsmem + L::kQt, L::kQh, tid);
     to_kmajor<QT, DH>(ro, gsmem + L::kO, L::kQh, tid);
@@ -734,8 +681,8 @@ attn_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 
   // dK, dV (or this split's partials): rows past Skv are not written
-  O* dk_out = dk + c * split_stride;
-  O* dv_out = dv + c * split_stride;
+  float* dk_out = dk + c * split_stride;
+  float* dv_out = dv + c * split_stride;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = r ? keyB : keyA;
@@ -750,13 +697,12 @@ attn_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 }
 
-// dk, dv (n elements each, of type O) = the sum over s < splits, in order,
-// of the fp32 partials part[s * n ..] and part[(splits + s) * n ..],
-// rounded to O once
-template <typename O>
+// dk, dv (n elements each) = the sum over s < splits, in order, of the
+// partials part[s * n ..] and part[(splits + s) * n ..]
 __global__ void __launch_bounds__(kDotThreads)
-attn_bwd_reduce_kernel(const float4* __restrict__ part, O* __restrict__ dk,
-                       O* __restrict__ dv, int64_t n4, int splits) {
+attn_bwd_reduce_kernel(const float4* __restrict__ part,
+                       float* __restrict__ dk, float* __restrict__ dv,
+                       int64_t n4, int splits) {
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kDotThreads +
                    threadIdx.x;
        i < 2 * n4; i += static_cast<int64_t>(gridDim.x) * kDotThreads) {
@@ -774,12 +720,13 @@ attn_bwd_reduce_kernel(const float4* __restrict__ part, O* __restrict__ dk,
   }
 }
 
-template <typename E, int DH, bool kPos>
+template <int DH, bool kPos>
 __global__ void __launch_bounds__(Cfg<DH>::kWG * kWGThreads, 1)
-attn_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                   const E* __restrict__ v, const E* __restrict__ dout,
+attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ D, E* __restrict__ dq,
+                   const float* __restrict__ D, float* __restrict__ dq,
                    const int* __restrict__ q_pos,
                    const int* __restrict__ kv_pos, int B, int Sq, int Skv,
                    int H, int KH, int causal, int window, float scale) {
@@ -878,8 +825,8 @@ attn_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
   for (int i = 0; i < steps; ++i) {
     cp_async_wait_all();
     group_sync(wg);  // step i's raw K, V are in; step i-1's products done
-    const E* rk = reinterpret_cast<const E*>(gsmem + L::kRawK);
-    const E* rv = reinterpret_cast<const E*>(gsmem + L::kRawV);
+    const float* rk = reinterpret_cast<const float*>(gsmem + L::kRawK);
+    const float* rv = reinterpret_cast<const float*>(gsmem + L::kRawV);
     to_kmajor<KT, DH>(rk, gsmem + L::kK, L::kKh, tid);
     to_transposed<KT, DH>(rk, gsmem + L::kKt, L::kKh, tid);
     to_kmajor<KT, DH>(rv, gsmem + L::kV, L::kKh, tid);
@@ -952,7 +899,7 @@ attn_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = r ? rowB : rowA;
     if (row >= Sq) continue;
-    E* dst = dq + ((q_batch + row) * H + h) * DH + 2 * t4;
+    float* dst = dq + ((q_batch + row) * H + h) * DH + 2 * t4;
 #pragma unroll
     for (int x = 0; x < DH / 8; ++x) {
       const int a = 4 * x + 2 * r;
@@ -971,7 +918,7 @@ int configure(Kernel kernel, int bytes, bool& done) {
   return 0;
 }
 
-template <typename E, typename O, int DH, bool kPos>
+template <int DH, bool kPos>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* D, void* dk, void* dv,
                 const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
@@ -979,105 +926,76 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 cudaStream_t st) {
   static bool done = false;
   const int bytes = DkdvSmem<DH, kPos>::kBytes;
-  const int rc = configure(attn_bwd_dkdv_kernel<E, O, DH, kPos>, bytes, done);
+  const int rc = configure(attn_bwd_dkdv_kernel<DH, kPos>, bytes, done);
   if (rc != 0) return rc;
   const int64_t blocks =
       static_cast<int64_t>((Skv + kKeyTile - 1) / kKeyTile) * B * KH * splits;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t stride =
       splits > 1 ? static_cast<int64_t>(B) * Skv * KH * DH : 0;
-  const auto e = [](const void* p) { return static_cast<const E*>(p); };
-  attn_bwd_dkdv_kernel<E, O, DH, kPos><<<static_cast<unsigned>(blocks),
-                                         Cfg<DH>::kWG * kWGThreads, bytes,
-                                         st>>>(
-      e(q), e(k), e(v), e(dout), lse, D, static_cast<O*>(dk),
-      static_cast<O*>(dv), q_pos, kv_pos, B, Sq, Skv, H, KH, causal, window,
-      splits, stride, scale);
+  const auto e = [](const void* p) { return static_cast<const float*>(p); };
+  attn_bwd_dkdv_kernel<DH, kPos><<<static_cast<unsigned>(blocks),
+                                   Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
+      e(q), e(k), e(v), e(dout), lse, D, static_cast<float*>(dk),
+      static_cast<float*>(dv), q_pos, kv_pos, B, Sq, Skv, H, KH, causal,
+      window, splits, stride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E, int DH, bool kPos>
+template <int DH, bool kPos>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* D, void* dq, const int* q_pos,
               const int* kv_pos, int B, int Sq, int Skv, int H, int KH,
               int causal, int window, float scale, cudaStream_t st) {
   static bool done = false;
   const int bytes = DqSmem<DH, kPos>::kBytes;
-  const int rc = configure(attn_bwd_dq_kernel<E, DH, kPos>, bytes, done);
+  const int rc = configure(attn_bwd_dq_kernel<DH, kPos>, bytes, done);
   if (rc != 0) return rc;
   const int64_t blocks =
       static_cast<int64_t>((Sq + kRowTile - 1) / kRowTile) * B * H;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const auto e = [](const void* p) { return static_cast<const E*>(p); };
-  attn_bwd_dq_kernel<E, DH, kPos><<<static_cast<unsigned>(blocks),
-                                    Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
-      e(q), e(k), e(v), e(dout), lse, D, static_cast<E*>(dq), q_pos, kv_pos,
+  const auto e = [](const void* p) { return static_cast<const float*>(p); };
+  attn_bwd_dq_kernel<DH, kPos><<<static_cast<unsigned>(blocks),
+                                 Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
+      e(q), e(k), e(v), e(dout), lse, D, static_cast<float*>(dq), q_pos,
+      kv_pos,
       B, Sq, Skv, H, KH, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// (b) at one head size: fp32, the fp32 position instantiation when q_pos
-// is set, or bf16 (index only) with bf16 outputs, or fp32 partials when
-// the plan splits
+// (b) at one head size: the position instantiation when q_pos is set
 template <int DH>
 int dkdv_at(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* D, void* dk, void* dv,
             const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
-            int H, int KH, int causal, int window, int splits, int is_bf16,
-            float scale, cudaStream_t st) {
-  if (is_bf16) {
-    if constexpr (kBf16Built<DH>) {
-      if (q_pos != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      if (splits > 1)
-        return launch_dkdv<__nv_bfloat16, float, DH, false>(
-            q, k, v, dout, lse, D, dk, dv, q_pos, kv_pos, B, Sq, Skv, H, KH,
-            causal, window, splits, scale, st);
-      return launch_dkdv<__nv_bfloat16, __nv_bfloat16, DH, false>(
-          q, k, v, dout, lse, D, dk, dv, q_pos, kv_pos, B, Sq, Skv, H, KH,
-          causal, window, splits, scale, st);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+            int H, int KH, int causal, int window, int splits, float scale,
+            cudaStream_t st) {
   if (q_pos != nullptr) {
     if constexpr (kPosBuilt<DH>)
-      return launch_dkdv<float, float, DH, true>(
-          q, k, v, dout, lse, D, dk, dv, q_pos, kv_pos, B, Sq, Skv, H, KH,
-          causal, window, splits, scale, st);
+      return launch_dkdv<DH, true>(q, k, v, dout, lse, D, dk, dv, q_pos,
+                                   kv_pos, B, Sq, Skv, H, KH, causal, window,
+                                   splits, scale, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_dkdv<float, float, DH, false>(q, k, v, dout, lse, D, dk, dv,
-                                              q_pos, kv_pos, B, Sq, Skv, H,
-                                              KH, causal, window, splits,
-                                              scale, st);
+  return launch_dkdv<DH, false>(q, k, v, dout, lse, D, dk, dv, q_pos, kv_pos,
+                                B, Sq, Skv, H, KH, causal, window, splits,
+                                scale, st);
 }
 
-// (c) at one head size: fp32, the fp32 position instantiation when q_pos
-// is set, or bf16 (index only)
+// (c) at one head size: the position instantiation when q_pos is set
 template <int DH>
 int dq_at(const void* q, const void* k, const void* v, const void* dout,
           const float* lse, const float* D, void* dq, const int* q_pos,
           const int* kv_pos, int B, int Sq, int Skv, int H, int KH,
-          int causal, int window, int is_bf16, float scale, cudaStream_t st) {
-  if (is_bf16) {
-    if constexpr (kBf16Built<DH>) {
-      if (q_pos != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_dq<__nv_bfloat16, DH, false>(q, k, v, dout, lse, D, dq,
-                                                 q_pos, kv_pos, B, Sq, Skv, H,
-                                                 KH, causal, window, scale,
-                                                 st);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+          int causal, int window, float scale, cudaStream_t st) {
   if (q_pos != nullptr) {
     if constexpr (kPosBuilt<DH>)
-      return launch_dq<float, DH, true>(q, k, v, dout, lse, D, dq, q_pos,
-                                        kv_pos, B, Sq, Skv, H, KH, causal,
-                                        window, scale, st);
+      return launch_dq<DH, true>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
+                                 Sq, Skv, H, KH, causal, window, scale, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_dq<float, DH, false>(q, k, v, dout, lse, D, dq, q_pos, kv_pos,
-                                     B, Sq, Skv, H, KH, causal, window, scale,
-                                     st);
+  return launch_dq<DH, false>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
+                              Sq, Skv, H, KH, causal, window, scale, st);
 }
 
 // Calls f(std::integral_constant<int, Dh>) at a head size the kernels
@@ -1107,10 +1025,8 @@ float scale_of(int Dh) {
 // Each launches on `stream` and returns cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue for a shape the kernels do not take
 // (Dh other than 48, 64, 96, 112 or 128, explicit positions at a Dh other
-// than 64 or 128 or in bf16, bf16 at a Dh other than 64 or 128, H % KH !=
-// 0, more than 2^31 - 1 blocks). Layouts as at the top; q, k, v, dO, o and
-// the gradients fp32, or bf16 when is_bf16 (dK/dV's split partials stay
-// fp32), lse and D fp32; every tensor contiguous and, for q, k, v and dO,
+// than 64 or 128, H % KH != 0, more than 2^31 - 1 blocks). Layouts as at
+// the top, every tensor fp32 and contiguous and, for q, k, v and dO,
 // 16-byte aligned (cp.async). Call (a), then (b), then (r) when splits >
 // 1, and (c); (b) and (c) read D.
 
@@ -1141,21 +1057,10 @@ extern "C" int attn_bwd_positions_built(int Dh) {
   return built;
 }
 
-// 1 if the library holds the bf16 instantiations at head size Dh, else 0
-extern "C" int attn_bwd_bf16_built(int Dh) {
-  int built = 0;
-  at_head_dim(Dh, [&](auto dh) {
-    built = kBf16Built<decltype(dh)::value>;
-    return 0;
-  });
-  return built;
-}
-
-// (a) D (B, H, Sq) from dO (B, Sq, H, Dh; fp32, or bf16 when is_bf16) and
-// the training forward's fp32 o
+// (a) D (B, H, Sq) from dO and o (B, Sq, H, Dh)
 extern "C" int attn_bwd_dot_launch(const void* dout, const void* out,
                                    void* D, int B, int Sq, int H, int Dh,
-                                   int is_bf16, void* stream) {
+                                   void* stream) {
   if (!shape_ok(B, Sq, 1, H, 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1165,24 +1070,17 @@ extern "C" int attn_bwd_dot_launch(const void* dout, const void* out,
         static_cast<int64_t>(B) * Sq * H * DotLanes<DH>::value;
     const int64_t blocks = (lanes + kDotThreads - 1) / kDotThreads;
     if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-    const auto go = [&](auto* tag) {
-      using E = std::remove_pointer_t<decltype(tag)>;
-      attn_bwd_dot_kernel<E, DH><<<static_cast<unsigned>(blocks), kDotThreads,
-                                   0, st>>>(static_cast<const E*>(dout),
-                                            static_cast<const float*>(out),
-                                            static_cast<float*>(D), B, Sq, H);
-      return static_cast<int>(cudaGetLastError());
-    };
-    if (!is_bf16) return go(static_cast<float*>(nullptr));
-    if constexpr (kBf16Built<DH>)
-      return go(static_cast<__nv_bfloat16*>(nullptr));
-    return static_cast<int>(cudaErrorInvalidValue);
+    attn_bwd_dot_kernel<DH><<<static_cast<unsigned>(blocks), kDotThreads, 0,
+                              st>>>(static_cast<const float*>(dout),
+                                    static_cast<const float*>(out),
+                                    static_cast<float*>(D), B, Sq, H);
+    return static_cast<int>(cudaGetLastError());
   });
 }
 
 // (b) dk, dv (B, Skv, KH, Dh) with splits = 1; with splits > 1 dk and dv
 // are (splits, B, Skv, KH, Dh) fp32 partials for (r). q_pos, kv_pos: both
-// null (mask by index) or (Sq,) and (Skv,) int32 (mask by them; fp32 only).
+// null (mask by index) or (Sq,) and (Skv,) int32 (mask by them).
 extern "C" int attn_bwd_dkdv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* D, void* dk,
@@ -1190,7 +1088,7 @@ extern "C" int attn_bwd_dkdv_launch(const void* q, const void* k,
                                     const void* kv_pos, int B, int Sq,
                                     int Skv, int H, int KH, int Dh,
                                     int causal, int window, int splits,
-                                    int is_bf16, void* stream) {
+                                    void* stream) {
   if (!shape_ok(B, Sq, Skv, H, KH) || splits < 1 ||
       (q_pos == nullptr) != (kv_pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1201,31 +1099,25 @@ extern "C" int attn_bwd_dkdv_launch(const void* q, const void* k,
     constexpr int DH = decltype(dh)::value;
     return dkdv_at<DH>(q, k, v, dout, f(lse), f(D), dk, dv, i(q_pos),
                        i(kv_pos), B, Sq, Skv, H, KH, causal, window, splits,
-                       is_bf16, scale_of(DH), st);
+                       scale_of(DH), st);
   });
 }
 
-// (r) dk, dv (n elements each, n % 4 == 0; fp32, or bf16 when is_bf16)
-// from the fp32 partials part (2, splits, n): dK's, then dV's
+// (r) dk, dv (n elements each, n % 4 == 0) from the partials part (2,
+// splits, n): dK's, then dV's
 extern "C" int attn_bwd_reduce_launch(const void* part, void* dk, void* dv,
-                                      long long n, int splits, int is_bf16,
+                                      long long n, int splits,
                                       void* stream) {
   if (n < 4 || n % 4 != 0 || splits < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n4 = n / 4;
   int64_t blocks = (2 * n4 + kDotThreads - 1) / kDotThreads;
   if (blocks > 8192) blocks = 8192;  // grid-stride past that
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto go = [&](auto* tag) {
-    using O = std::remove_pointer_t<decltype(tag)>;
-    attn_bwd_reduce_kernel<O><<<static_cast<unsigned>(blocks), kDotThreads, 0,
-                                st>>>(static_cast<const float4*>(part),
-                                      static_cast<O*>(dk),
-                                      static_cast<O*>(dv), n4, splits);
-    return static_cast<int>(cudaGetLastError());
-  };
-  return is_bf16 ? go(static_cast<__nv_bfloat16*>(nullptr))
-                 : go(static_cast<float*>(nullptr));
+  attn_bwd_reduce_kernel<<<static_cast<unsigned>(blocks), kDotThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(part), static_cast<float*>(dk),
+      static_cast<float*>(dv), n4, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // (c) dq (B, Sq, H, Dh); q_pos, kv_pos as for (b)
@@ -1234,7 +1126,7 @@ extern "C" int attn_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* D, void* dq, const void* q_pos,
                                   const void* kv_pos, int B, int Sq, int Skv,
                                   int H, int KH, int Dh, int causal,
-                                  int window, int is_bf16, void* stream) {
+                                  int window, void* stream) {
   if (!shape_ok(B, Sq, Skv, H, KH) ||
       (q_pos == nullptr) != (kv_pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1244,7 +1136,6 @@ extern "C" int attn_bwd_dq_launch(const void* q, const void* k, const void* v,
   return at_head_dim(Dh, [&](auto dh) {
     constexpr int DH = decltype(dh)::value;
     return dq_at<DH>(q, k, v, dout, f(lse), f(D), dq, i(q_pos), i(kv_pos), B,
-                     Sq, Skv, H, KH, causal, window, is_bf16, scale_of(DH),
-                     st);
+                     Sq, Skv, H, KH, causal, window, scale_of(DH), st);
   });
 }

@@ -1,0 +1,364 @@
+// bf16 tensor-core building blocks for Hopper (sm_90a), shared by K3's
+// bf16 forward (flash_attention_bf16.cu) and its bf16 backward
+// (flash_attention_bwd_bf16.cu): the swizzled tile layout that TMA lands
+// and wgmma reads, its descriptors (K-major, and MN-major through the
+// descriptor's transpose), wgmma.mma_async ... .bf16 with operands from
+// shared memory or registers, fp32 -> bf16 packing for register operands,
+// the TMA tensor maps, and the loads that write a tile into the same
+// layout by hand. The mbarrier, TMA-load and wgmma fence/commit/wait
+// helpers come from wgmma_tf32.cuh, which the fp32 kernels share.
+//
+// Layout: a tile of R rows of DH bf16 values lives as DH * 2 / SB boxes of
+// R rows x SB bytes (SB / 2 columns each), box j holding columns
+// [j * SB / 2, (j + 1) * SB / 2), each with the SB-byte swizzle (128, 64 or
+// 32 bytes: the 16-byte chunk index of a row XORed with address bits 7..9,
+// 7..8 or 7). SB is 128 at head dims 64 and 128, 64 at 96 and 32 at 48
+// and 112, whose 96- and 224-byte rows are whole 32-byte boxes only. Every
+// box starts 1024-byte aligned.
+// - As a K-major operand (the contraction along the row: Q, K, dO and V in
+//   S = Q.K^T, dP = dO.V^T and their transposes), k-step kk (16 columns,
+//   32 bytes) starts kk * 32 bytes into the rows, in box kk * 32 / SB; the
+//   8-row groups are 8 * SB bytes apart (the descriptor's stride byte
+//   offset).
+// - As an MN-major operand (the contraction down the rows: V in O = P.V,
+//   dO and Q in dV = P^T.dO and dK = dS^T.Q, K in dQ = dS.K), k-step kk (16
+//   rows) starts 16 * kk rows in; the 8-row groups are 8 * SB bytes apart
+//   (stride byte offset) and the boxes R * SB bytes apart (leading byte
+//   offset), the descriptor's transpose bit set in the instruction.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wgmma_tf32.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// the descriptor's layout type for an SB-byte swizzle
+template <int SB>
+constexpr uint64_t kSwizzleType = SB == 128 ? 1 : SB == 64 ? 2 : 3;
+
+// Byte offset of the 16-byte chunk holding columns c..c+7 (c % 8 == 0) of
+// row r of an R-row tile in the layout above
+template <int SB>
+__device__ __forceinline__ uint32_t swizzled(int r, int c, int R) {
+  const uint32_t o = (c / (SB / 2)) * R * SB + r * SB + (c % (SB / 2)) * 2;
+  return o ^ (((o >> 7) & (SB / 16 - 1)) << 4);
+}
+
+// The start of K-major k-step kk in an R-row tile, in bytes from its base
+template <int SB>
+__device__ __forceinline__ uint32_t kstep(int kk, int R) {
+  return (kk * 32 / SB) * R * SB + (kk * 32) % SB;
+}
+
+__device__ __forceinline__ uint64_t desc_base(uint32_t saddr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t type) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (type << 62);
+}
+// a K-major operand at shared address `saddr` (a k-step's start)
+template <int SB>
+__device__ __forceinline__ uint64_t desc_k(uint32_t saddr) {
+  return desc_base(saddr, 16, 8 * SB, kSwizzleType<SB>);
+}
+// an MN-major operand at `saddr` (a k-step's start) of an R-row tile
+template <int SB>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t saddr, int R) {
+  return desc_base(saddr, R * SB, 8 * SB, kSwizzleType<SB>);
+}
+
+// two fp32 values rounded to bf16 (nearest even), `lo` in the low half: a
+// register A operand's pair of adjacent columns
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// 2 consecutive elements rounded to bf16 (nearest even): 4 bytes
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// A tile of `rows` rows at (row0, col0) of batch b of a tensor map (the
+// boxes of the layout above), landing at shared address `dst` and
+// reported to mbarrier `bar`
+template <int SB, int DH>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col0, int row0,
+                                         int b, int rows) {
+#pragma unroll
+  for (int j = 0; j < DH * 2 / SB; ++j)
+    tma_load_3d(dst + j * rows * SB, map, bar, col0 + j * (SB / 2), row0, b);
+}
+
+// ROWS folded rows row0.. of (batch b, KV head kh) into the layout above,
+// by `threads` threads from `tid`: row i*G + g is src[b, i, kh*G + g, :]
+// of a (B, Sq, H, DH) tensor; rows past Sq*G are zeros. 16 bytes a load.
+template <int SB, int DH, int ROWS>
+__device__ __forceinline__ void load_folded(uint8_t* dst,
+                                            const bf16* __restrict__ src,
+                                            int b, int kh, int G, int H,
+                                            int Sq, int row0, int tid,
+                                            int threads) {
+  for (int u = tid; u < ROWS * (DH / 8); u += threads) {
+    const int r = u / (DH / 8), c = (u % (DH / 8)) * 8;
+    const int row = row0 + r;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row < Sq * G) {
+      const int qi = row / G, g = row % G;
+      x = *reinterpret_cast<const uint4*>(
+          src + ((static_cast<int64_t>(b) * Sq + qi) * H + kh * G + g) * DH +
+          c);
+    }
+    *reinterpret_cast<uint4*>(dst + swizzled<SB>(r, c, ROWS)) = x;
+  }
+}
+
+// ---- wgmma.mma_async ... .bf16, fp32 accumulators
+
+// D (64 x 64) (+)= A . B^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_bf16_n64(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128) (+)= A . B^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_bf16_n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 48) += A . B, A from registers (4 bf16 pairs a thread), B
+// MN-major in shared memory (the descriptor's transpose)
+__device__ __forceinline__ void wgmma_rs_bf16_n48(float (&d)[24], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x 64) += A . B, A from registers (4 bf16 pairs a thread), B
+// MN-major in shared memory (the descriptor's transpose)
+__device__ __forceinline__ void wgmma_rs_bf16_n64(float (&d)[32], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x 96) += A . B, A from registers (4 bf16 pairs a thread), B
+// MN-major in shared memory (the descriptor's transpose)
+__device__ __forceinline__ void wgmma_rs_bf16_n96(float (&d)[48], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x 112) += A . B, A from registers (4 bf16 pairs a thread), B
+// MN-major in shared memory (the descriptor's transpose)
+__device__ __forceinline__ void wgmma_rs_bf16_n112(float (&d)[56], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x 128) += A . B, A from registers (4 bf16 pairs a thread), B
+// MN-major in shared memory (the descriptor's transpose)
+__device__ __forceinline__ void wgmma_rs_bf16_n128(float (&d)[64], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x N) (+)= A . B^T, both K-major in shared memory; N 64 or 128
+template <int N>
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss_bf16 takes N 64 or 128");
+  if constexpr (N == 64) wgmma_ss_bf16_n64(d, da, db, scale_d);
+  else wgmma_ss_bf16_n128(d, da, db, scale_d);
+}
+
+// D (64 x N) += A . B, A from registers, B MN-major; N a head dim
+template <int N>
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[N / 2], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  static_assert(N == 48 || N == 64 || N == 96 || N == 112 || N == 128,
+                "wgmma_rs_bf16 takes N 48, 64, 96, 112 or 128");
+  if constexpr (N == 48) wgmma_rs_bf16_n48(d, a0, a1, a2, a3, db);
+  else if constexpr (N == 64) wgmma_rs_bf16_n64(d, a0, a1, a2, a3, db);
+  else if constexpr (N == 96) wgmma_rs_bf16_n96(d, a0, a1, a2, a3, db);
+  else if constexpr (N == 112) wgmma_rs_bf16_n112(d, a0, a1, a2, a3, db);
+  else wgmma_rs_bf16_n128(d, a0, a1, a2, a3, db);
+}
+
+// ---- host: the bf16 tensor maps
+
+// The (B, rows, width) view of a contiguous bf16 tensor (width = heads *
+// DH), read in boxes of (SB / 2 columns, box_rows rows, 1) with the SB-byte
+// swizzle; rows past `rows` read as zeros. Returns 0, or kEncodeError + the
+// CUresult.
+template <int SB>
+int encode_bf16(CUtensorMap* map, const void* base, int B, int rows,
+                int width, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
+  const cuuint32_t box[3] = {SB / 2, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      SB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : SB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+}  // namespace

@@ -3,8 +3,9 @@
 // (flash_attention_bwd.cu): the canonical no-swizzle operand layout and
 // its descriptor, the big/small TF32 split, wgmma.mma_async ... .tf32 with
 // operands from shared memory or registers, mbarriers and TMA loads,
-// Ampere-style async copies, and the loads and stores that widen bf16 to
-// fp32 and round fp32 to bf16 (the kernels compute in fp32 for both).
+// Ampere-style async copies, vector loads and stores, K3's mask predicates
+// and block-wide reductions, and the host's cuTensorMapEncodeTiled. The
+// bf16 kernels (wgmma_bf16.cuh) share all but the split-TF32 parts.
 //
 // Split TF32: each fp32 operand x is split into big = cvt.rna.tf32(x) and
 // small = cvt.rna.tf32(x - big), both exact in TF32, and a product is
@@ -19,7 +20,6 @@
 #pragma once
 
 #include <cuda.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,42 +85,19 @@ __device__ __forceinline__ void split4_int(const float4& x, float4& hi,
   split_int(x.w, hi.w, lo.w);
 }
 
-// ---- element types: fp32 as it is, bf16 widened on load (exactly) and
-// rounded to nearest on store
+// ---- vector loads and stores
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-// 4 consecutive elements (16 bytes of fp32, 8 of bf16, so aligned to that)
+// 4 consecutive elements (16 bytes, so aligned to that)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 lo, hi;
-  *reinterpret_cast<uint32_t*>(&lo) = u.x;
-  *reinterpret_cast<uint32_t*>(&hi) = u.y;
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-// 2 consecutive elements (8 bytes of fp32, 4 of bf16)
+// 2 consecutive elements (8 bytes)
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-// 4 consecutive elements (16 bytes of fp32, 8 of bf16)
+// 4 consecutive elements (16 bytes)
 __device__ __forceinline__ void store4(float* p, const float4& x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& x) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                 *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // ---- mbarriers and TMA
@@ -185,6 +162,46 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// ---- K3's masks and block-wide reductions
+
+// whether a query at position qp sees a key at position kp
+__device__ __forceinline__ bool sees(int qp, int kp, int causal,
+                                     int window) {
+  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+}
+
+// whether query i sees key j by index (ragged Sq and Skv included)
+__device__ __forceinline__ bool visible(int i, int j, int Sq, int Skv,
+                                        int causal, int window) {
+  return i < Sq && j < Skv && (!causal || j <= i) &&
+         (window <= 0 || j > i - window);
+}
+
+// whether every (i, j) of queries [i_lo, i_hi] x keys [j_lo, j_hi] is
+// unmasked, so that a step can skip the per-element test
+__device__ __forceinline__ bool all_visible(int i_lo, int i_hi, int j_lo,
+                                            int j_hi, int Sq, int Skv,
+                                            int causal, int window) {
+  return i_hi < Sq && j_hi < Skv && (!causal || j_hi <= i_lo) &&
+         (window <= 0 || j_lo > i_hi - window);
+}
+
+// min (or max) of v over a warp, then into *dst over the block
+__device__ __forceinline__ void block_min(int* dst, int v) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicMin(dst, v);
+}
+__device__ __forceinline__ void block_max(int* dst, int v) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicMax(dst, v);
+}
+
+// barrier 1 over the consumer warpgroups only (the producer never joins)
+template <int N>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
 }
 
 // ---- wgmma
@@ -350,5 +367,37 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
   else if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
   else wgmma_ss_n64(d, da, db, scale_d);
 }
+
+// ---- host: cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) == cudaSuccess && p)
+      fn = reinterpret_cast<EncodeTiled>(p);
+#endif
+  }
+  return fn;
+}
+
+// an encode that fails returns kEncodeError + its CUresult
+constexpr int kEncodeError = 10000;
 
 }  // namespace

@@ -10,10 +10,10 @@ batch, as the reference's model path hands its positions to
 temporal position, so they see each other both ways). Causal keeps k_pos
 <= q_pos, a window keeps k_pos > q_pos − window, a key at a negative
 position is invalid, and a row with no visible key gives 0 (and a zero
-gradient). On a CUDA tensor it launches the hand-written kernel
-``csrc/flash_attention.cu``
-(head dims :data:`FWD_HEAD_DIMS`); on a CPU tensor it runs the plain
-version :func:`~repro_torch.kernels.ref.flash_attention_ref` at any head
+gradient). On a CUDA tensor it launches the hand-written kernel,
+``csrc/flash_attention.cu`` in fp32 and ``csrc/flash_attention_bf16.cu``
+in bf16 (head dims :data:`FWD_HEAD_DIMS`); on a CPU tensor it runs the
+plain version :func:`~repro_torch.kernels.ref.flash_attention_ref` at any head
 dim, as the reference does, and autograd differentiates it. Ragged Sq and
 Skv are masked in the kernel, where the reference's Pallas kernel refuses
 them. With explicit positions it launches the kernels' position
@@ -26,32 +26,36 @@ On a CUDA tensor that needs a gradient, the call goes through
 instantiation (fp32 or bf16), which writes the output in fp32 and each
 row's log-sum-exp (B, H, Sq) fp32 (+inf for a fully masked row), saves q,
 k, v, that output and the LSE, and returns the output in q's dtype;
-its backward launches the kernels of ``csrc/flash_attention_bwd.cu`` (D =
-rowsum(dO∘O); dK and dV, in ``splits`` partials when one block per key
-tile would leave the card idle; their fixed-order sum; dQ), which
-recompute P from the LSE as the reference's ``chunked_attention``
-recomputes each chunk under ``jax.checkpoint``. :func:`backward_plan`
-picks the split. The reference trains in its params' dtype
-(``launch/steps.py::make_train_step``, bf16 by default), so the backward
-takes fp32 at the head dims :data:`BWD_HEAD_DIMS` (explicit positions at
-:data:`BWD_POSITION_HEAD_DIMS` only) and bf16 at
+its backward launches the kernels of ``csrc/flash_attention_bwd.cu``
+(fp32) or ``csrc/flash_attention_bwd_bf16.cu`` (bf16): D = rowsum(dO∘O);
+dK and dV, in ``splits`` partials when one block per key tile would leave
+the card idle; their fixed-order sum; dQ. They recompute P from the LSE
+as the reference's ``chunked_attention`` recomputes each chunk under
+``jax.checkpoint``. :func:`backward_plan` picks the split, from each
+dtype's tiles (:func:`bwd_tiles`). The reference trains in its params'
+dtype (``launch/steps.py::make_train_step``, bf16 by default), so the
+backward takes fp32 at the head dims :data:`BWD_HEAD_DIMS` (explicit
+positions at :data:`BWD_POSITION_HEAD_DIMS` only) and bf16 at
 :data:`BWD_BF16_HEAD_DIMS` (without explicit positions), reading bf16 dO
-and returning bf16 gradients (every sum in fp32). A call that needs a
-gradient outside these raises in the forward, before any launch. Nothing
-falls back to the plain version on a card.
+and returning bf16 gradients (every sum in fp32; P and dS rounded to bf16
+where they enter a product, as
+:func:`~repro_torch.kernels.ref.flash_attention_bwd_bf16_ref` writes out).
+A call that needs a gradient outside these raises in the forward, before
+any launch. Nothing falls back to the plain version on a card.
 
-Both directions multiply on the tensor cores (``wgmma`` in TF32 with
-every operand split into a big and a small TF32 part, so fp32 keeps fp32's
-accuracy). The forward reads K and V through TMA and the backward its
-tiles through ``cp.async``; both need 16-byte-aligned bases, and the
-wrapper raises on anything less (an unaligned dO is copied).
+Both directions multiply on the tensor cores: in fp32 ``wgmma`` in TF32
+with every operand split into a big and a small TF32 part, so fp32 keeps
+fp32's accuracy; in bf16 one bf16 ``wgmma`` a product, on tiles that TMA
+lands swizzled. The kernels read their tiles through TMA or ``cp.async``
+and need 16-byte-aligned bases; the wrapper raises on anything less (an
+unaligned dO is copied).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from types import MappingProxyType
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -70,74 +74,132 @@ BWD_BF16_HEAD_DIMS = (64, 128)
 ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
 position_launches = 0        # of those, launches with explicit positions
+bf16_launches = 0            # of those, launches of the bf16 kernel
 # backward kernel launches since the last reset, by kernel ("reduce" runs
-# only when the plan splits dK/dV)
+# only when the plan splits dK/dV), and of those the bf16 kernels'
 backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
-# the backward's tiles (csrc/flash_attention_bwd.cu, checked against the
-# library when it loads): keys a dK/dV block owns and the query tile of its
-# steps, by head size; query rows a dQ block owns and the key tile of its
-# steps; warpgroups a block, which share its steps
+bf16_backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
+# the fp32 backward's tiles (csrc/flash_attention_bwd.cu, checked against
+# the library when it loads): keys a dK/dV block owns and the query tile of
+# its steps, by head size; query rows a dQ block owns and the key tile of
+# its steps; warpgroups a block, which share its steps
 BWD_KEY_TILE = 64
 BWD_QUERY_TILE = {48: 32, 64: 32, 96: 16, 112: 16, 128: 16}
 BWD_ROW_TILE = 64
 BWD_KEY_STEP = {48: 32, 64: 32, 96: 16, 112: 32, 128: 16}
 BWD_GROUPS = {48: 2, 64: 2, 96: 2, 112: 1, 128: 1}
-
-_lib = None
-_bwd_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention")
-        lib.flash_attention_launch.argtypes = [
-            ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        lib.flash_attention_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+# the bf16 backward's (csrc/flash_attention_bwd_bf16.cu, checked likewise),
+# the same at every head size of BWD_BF16_HEAD_DIMS: 64 keys a dK/dV block
+# in steps of 64 queries, shared by its two warpgroups step by step; 128
+# folded (query, head) rows a dQ block (row = i*G + g, 64 a warpgroup) in
+# steps of 64 keys
+BWD_BF16_KEY_TILE = 64
+BWD_BF16_QUERY_TILE = 64
+BWD_BF16_ROW_TILE = 128
+BWD_BF16_KEY_STEP = 64
+BWD_BF16_GROUPS = 2
 
 
-def _bwd_library() -> ctypes.CDLL:
-    global _bwd_lib
-    if _bwd_lib is None:
-        lib = _build.load("flash_attention_bwd")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.attn_bwd_tiles.argtypes = [i] + [ctypes.POINTER(i)] * 5
-        lib.attn_bwd_positions_built.argtypes = [i]
-        lib.attn_bwd_bf16_built.argtypes = [i]
-        # each launch ends (..., is_bf16, stream)
-        lib.attn_bwd_dot_launch.argtypes = [p] * 3 + [i] * 5 + [p]
-        lib.attn_bwd_dkdv_launch.argtypes = [p] * 10 + [i] * 10 + [p]
-        lib.attn_bwd_reduce_launch.argtypes = [p] * 3 + [ctypes.c_longlong,
-                                                         i, i, p]
-        lib.attn_bwd_dq_launch.argtypes = [p] * 9 + [i] * 9 + [p]
-        for fn in (lib.attn_bwd_tiles, lib.attn_bwd_positions_built,
-                   lib.attn_bwd_bf16_built, lib.attn_bwd_dot_launch,
-                   lib.attn_bwd_dkdv_launch, lib.attn_bwd_reduce_launch,
-                   lib.attn_bwd_dq_launch):
-            fn.restype = ctypes.c_int
+class BwdTiles(NamedTuple):
+    """One backward's tiles at one head size: ``key_tile`` keys a dK/dV
+    block, ``query_tile`` queries a step, ``row_tile`` rows a dQ block
+    (query rows of one head in fp32, folded (query, head) rows of one KV
+    head in bf16: ``folded_rows``), ``key_step`` keys a dQ step,
+    ``groups`` warpgroups a block."""
+    key_tile: int
+    query_tile: int
+    row_tile: int
+    key_step: int
+    groups: int
+    folded_rows: bool
+
+
+def bwd_tiles(Dh: int, dtype: torch.dtype = torch.float32) -> BwdTiles:
+    """The tiles of the backward that takes ``dtype`` at head dim ``Dh``."""
+    if dtype == torch.bfloat16:
+        return BwdTiles(BWD_BF16_KEY_TILE, BWD_BF16_QUERY_TILE,
+                        BWD_BF16_ROW_TILE, BWD_BF16_KEY_STEP,
+                        BWD_BF16_GROUPS, True)
+    return BwdTiles(BWD_KEY_TILE, BWD_QUERY_TILE[Dh], BWD_ROW_TILE,
+                    BWD_KEY_STEP[Dh], BWD_GROUPS[Dh], False)
+
+
+_libs: dict = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _load(name: str, signatures: dict, check=None) -> ctypes.CDLL:
+    """``csrc/<name>.cu``'s library with its functions' argument types set
+    (each returns an int), kept once ``check(lib)`` (if given) passes."""
+    if name not in _libs:
+        lib = _build.load(name)
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        if check is not None:
+            check(lib)
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """The forward's library for ``dtype``."""
+    if dtype == torch.bfloat16:
+        return _load("flash_attention_bf16", {
+            "flash_attention_bf16_launch": [_P] * 7 + [_I] * 8 + [_P]})
+    return _load("flash_attention", {
+        "flash_attention_launch": [_P] * 7 + [_I] * 8 + [_P]})
+
+
+def _check_tiles(name, tiles_fn, dtype, head_dims) -> None:
+    """Hold the library's tiles (``tiles_fn``) to :func:`bwd_tiles` at each
+    head dim it should take, and its refusal at the other backward head
+    dims."""
+    for dh in BWD_HEAD_DIMS:
+        got = [ctypes.c_int() for _ in range(5)]
+        rc = tiles_fn(dh, *(ctypes.byref(x) for x in got))
+        if (rc == 0) != (dh in head_dims):
+            raise RuntimeError(f"{name} takes Dh {dh}: {rc == 0}, the "
+                               f"wrapper's {dh in head_dims}")
+        want = list(bwd_tiles(dh, dtype))[:5]
+        if rc == 0 and [x.value for x in got] != want:
+            raise RuntimeError(f"{name}'s tiles at Dh {dh} are "
+                               f"{[x.value for x in got]}, the wrapper's "
+                               f"{want}")
+
+
+def _bwd_library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """The backward's library for ``dtype``, its tiles checked against the
+    wrapper's on first load."""
+    tiles = [_I] + [ctypes.POINTER(_I)] * 5
+    if dtype == torch.bfloat16:
+        name = "flash_attention_bwd_bf16"
+        return _load(name, {
+            "attn_bwd_bf16_tiles": tiles,
+            # each launch ends (..., stream)
+            "attn_bwd_bf16_dot_launch": [_P] * 3 + [_I] * 4 + [_P],
+            "attn_bwd_bf16_dkdv_launch": [_P] * 8 + [_I] * 9 + [_P],
+            "attn_bwd_bf16_reduce_launch": [_P] * 3 + [ctypes.c_longlong,
+                                                       _I, _P],
+            "attn_bwd_bf16_dq_launch": [_P] * 7 + [_I] * 8 + [_P]},
+            lambda lib: _check_tiles(name, lib.attn_bwd_bf16_tiles, dtype,
+                                     BWD_BF16_HEAD_DIMS))
+
+    def check(lib):
+        _check_tiles("flash_attention_bwd", lib.attn_bwd_tiles, dtype,
+                     BWD_HEAD_DIMS)
         for dh in BWD_HEAD_DIMS:
-            got = [ctypes.c_int() for _ in range(5)]
-            lib.attn_bwd_tiles(dh, *(ctypes.byref(x) for x in got))
-            want = [BWD_KEY_TILE, BWD_QUERY_TILE[dh], BWD_ROW_TILE,
-                    BWD_KEY_STEP[dh], BWD_GROUPS[dh]]
-            if [x.value for x in got] != want:
-                raise RuntimeError(f"flash_attention_bwd's tiles at Dh {dh} "
-                                   f"are {[x.value for x in got]}, the "
-                                   f"wrapper's {want}")
             if bool(lib.attn_bwd_positions_built(dh)) != (
                     dh in BWD_POSITION_HEAD_DIMS):
                 raise RuntimeError(f"flash_attention_bwd's position "
                                    f"instantiations at Dh {dh} do not match "
                                    f"BWD_POSITION_HEAD_DIMS")
-            if bool(lib.attn_bwd_bf16_built(dh)) != (
-                    dh in BWD_BF16_HEAD_DIMS):
-                raise RuntimeError(f"flash_attention_bwd's bf16 "
-                                   f"instantiations at Dh {dh} do not match "
-                                   f"BWD_BF16_HEAD_DIMS")
-        _bwd_lib = lib
-    return _bwd_lib
+    return _load("flash_attention_bwd", {
+        "attn_bwd_tiles": tiles, "attn_bwd_positions_built": [_I],
+        "attn_bwd_dot_launch": [_P] * 3 + [_I] * 4 + [_P],
+        "attn_bwd_dkdv_launch": [_P] * 10 + [_I] * 9 + [_P],
+        "attn_bwd_reduce_launch": [_P] * 3 + [ctypes.c_longlong, _I, _P],
+        "attn_bwd_dq_launch": [_P] * 9 + [_I] * 8 + [_P]}, check)
 
 
 _sm_counts: dict = {}
@@ -157,50 +219,59 @@ def _tiles(lo: int, hi: int, size: int):
     return lo // size, (-(-hi // size) - lo // size if hi > lo else 0)
 
 
-def dkdv_query_tiles(t, Sq, Skv, Dh, causal, window):
-    """(first, count) of the query tiles that can see key tile ``t``."""
-    k0 = t * BWD_KEY_TILE
-    k_last = min(k0 + BWD_KEY_TILE, Skv) - 1
+def dkdv_query_tiles(t, Sq, Skv, Dh, causal, window,
+                     dtype=torch.float32):
+    """(first, count) of the query tiles that can see key tile ``t`` (the
+    tiles of ``dtype``'s backward)."""
+    tiles = bwd_tiles(Dh, dtype)
+    k0 = t * tiles.key_tile
+    k_last = min(k0 + tiles.key_tile, Skv) - 1
     q_end = min(Sq, k_last + window) if window > 0 else Sq
-    return _tiles(k0 if causal else 0, q_end, BWD_QUERY_TILE[Dh])
+    return _tiles(k0 if causal else 0, q_end, tiles.query_tile)
 
 
 @functools.lru_cache(maxsize=256)
-def backward_plan(B, Sq, Skv, H, KH, Dh, causal, window,
-                  sms) -> MappingProxyType:
-    """The backward's work split on a card of ``sms`` SMs. dK/dV has one
-    block per (key tile, batch, KV head) times ``splits``: 1 when that
-    gives at least one block a SM, else the smallest count that does,
-    capped so that the busiest key tile's (head, query tile) steps still
-    give each split one step a warpgroup (at smollm-135m's training shape
-    2 splits ran 0.083 ms on an H100, 1 split 0.102, 3 0.085, 4 0.088, 6
-    0.098: ``benchmarks/torch_kernel_times.py --bwd-splits``). Returns
-    ``splits``, both grids' block counts and the kernels launched, in
-    order ("reduce" only when splits > 1). With explicit positions the
-    kernels find each block's tiles on the card from the positions; the
-    split is then sized from these index bounds, a guess at the work
-    (every split is correct), which equals the index path's for an
-    arange."""
+def backward_plan(B, Sq, Skv, H, KH, Dh, causal, window, sms,
+                  dtype=torch.float32) -> MappingProxyType:
+    """The backward's work split on a card of ``sms`` SMs, with the tiles
+    of ``dtype``'s kernels. dK/dV has one block per (key tile, batch, KV
+    head) times ``splits``: 1 when that gives at least one block a SM,
+    else the smallest count that does, capped so that the busiest key
+    tile's (head, query tile) steps still give each split one step a
+    warpgroup (at smollm-135m's training shape 2 splits ran 0.083 ms on an
+    H100, 1 split 0.102, 3 0.085, 4 0.088, 6 0.098: ``benchmarks/
+    torch_kernel_times.py --bwd-splits``). dQ has one block per (query
+    tile, batch, head) in fp32 and per (folded row tile, batch, KV head)
+    in bf16. Returns ``splits``, both grids' block counts and the kernels
+    launched, in order ("reduce" only when splits > 1). With explicit
+    positions the kernels find each block's tiles on the card from the
+    positions; the split is then sized from these index bounds, a guess at
+    the work (every split is correct), which equals the index path's for
+    an arange."""
     G = H // KH
-    n_kt = -(-Skv // BWD_KEY_TILE)
-    steps = max(G * dkdv_query_tiles(t, Sq, Skv, Dh, causal, window)[1]
-                 for t in range(n_kt))
+    tiles = bwd_tiles(Dh, dtype)
+    n_kt = -(-Skv // tiles.key_tile)
+    steps = max(G * dkdv_query_tiles(t, Sq, Skv, Dh, causal, window,
+                                     dtype)[1] for t in range(n_kt))
     base = n_kt * B * KH
-    cap = -(-steps // BWD_GROUPS[Dh])
+    cap = -(-steps // tiles.groups)
     splits = 1 if base >= sms else max(1, min(-(-sms // base), cap))
     kernels = ("dot", "dkdv") + (("reduce",) if splits > 1 else ()) + ("dq",)
+    dq_blocks = (-(-Sq * G // tiles.row_tile) * B * KH if tiles.folded_rows
+                 else -(-Sq // tiles.row_tile) * B * H)
     return MappingProxyType({   # cached: one read-only plan a shape
         "splits": splits, "dkdv_blocks": base * splits,
-        "dq_blocks": -(-Sq // BWD_ROW_TILE) * B * H, "kernels": kernels})
+        "dq_blocks": dq_blocks, "kernels": kernels})
 
 
 def reset_counts() -> None:
-    """Set :data:`launches`, :data:`position_launches` and every
-    :data:`backward_launches` to 0."""
-    global launches, position_launches
-    launches = position_launches = 0
+    """Set :data:`launches`, :data:`position_launches`,
+    :data:`bf16_launches` and every :data:`backward_launches` and
+    :data:`bf16_backward_launches` to 0."""
+    global launches, position_launches, bf16_launches
+    launches = position_launches = bf16_launches = 0
     for name in backward_launches:
-        backward_launches[name] = 0
+        backward_launches[name] = bf16_backward_launches[name] = 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -253,7 +324,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     whatever q's dtype: the backward's D reads the output unrounded, and
     the output rounded to bf16 is the serving instantiation's, bit for
     bit. Explicit positions are contiguous int32 (:func:`_int32`)."""
-    global launches, position_launches
+    global launches, position_launches, bf16_launches
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -264,17 +335,20 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), *_pointers(q_positions,
-                                                           kv_positions),
-        B, Sq, Skv, H, KH, Dh, int(causal), int(window),
-        int(q.dtype == torch.bfloat16), stream)
+    bf16 = q.dtype == torch.bfloat16
+    lib = _library(q.dtype)
+    launch = (lib.flash_attention_bf16_launch if bf16
+              else lib.flash_attention_launch)
+    rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                *_pointers(q_positions, kv_positions), B, Sq, Skv, H, KH, Dh,
+                int(causal), int(window), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
     position_launches += q_positions is not None
+    bf16_launches += bf16
     return (out, lse) if with_lse else out
 
 
@@ -297,43 +371,49 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
                        kv_positions=None):
     """Allocates the backward's outputs (q's dtype) and scratch (fp32) and
     returns ((dq, dk, dv), launches): the launches in order as (name,
-    launch) pairs, each of which enqueues its kernel on the current stream,
-    adds one to its count in :data:`backward_launches` and raises if the
-    launch fails. ``out`` and ``lse`` are the training forward's, both
-    fp32 (:func:`_launch` with ``with_lse``). ``splits`` overrides the
-    plan's dK/dV split (to measure the rule). Explicit positions are
-    contiguous int32 (:func:`_int32`)."""
+    launch) pairs, each of which enqueues its kernel (of q's dtype's
+    library) on the current stream, adds one to its count in
+    :data:`backward_launches` (and in bf16 :data:`bf16_backward_launches`)
+    and raises if the launch fails. ``out`` and ``lse`` are the training
+    forward's, both fp32 (:func:`_launch` with ``with_lse``). ``splits``
+    overrides the plan's dK/dV split (to measure the rule). Explicit
+    positions are contiguous int32 (:func:`_int32`; fp32 only)."""
     if out.dtype != torch.float32 or lse.dtype != torch.float32:
         raise TypeError(f"the backward reads the training forward's fp32 "
                         f"output and LSE, got {out.dtype}, {lse.dtype}")
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
-    lib = _bwd_library()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and q_positions is not None:
+        raise ValueError("the bf16 backward takes no explicit positions "
+                         "(ROADMAP Queue A, A5)")
+    lib = _bwd_library(q.dtype)
     dev = q.device
     if splits is None:
         splits = backward_plan(B, Sq, Skv, H, KH, Dh, bool(causal),
-                               int(window), _sm_count(dev))["splits"]
+                               int(window), _sm_count(dev),
+                               q.dtype)["splits"]
     d = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     masks = (int(causal), int(window))
-    pos = _pointers(q_positions, kv_positions)
-    bf16 = int(q.dtype == torch.bfloat16)
+    # the bf16 library's entry points take no positions
+    pos = () if bf16 else _pointers(q_positions, kv_positions)
+    fns = {name: getattr(lib, f"attn_bwd_{'bf16_' if bf16 else ''}{name}"
+                         f"_launch") for name in backward_launches}
     calls = {
-        "dot": (lib.attn_bwd_dot_launch, (dout, out, d),
-                (B, Sq, H, Dh, bf16)),
-        "dq": (lib.attn_bwd_dq_launch, (q, k, v, dout, lse, d, dq),
-               pos + (B, Sq, Skv, H, KH, Dh) + masks + (bf16,))}
+        "dot": (fns["dot"], (dout, out, d), (B, Sq, H, Dh)),
+        "dq": (fns["dq"], (q, k, v, dout, lse, d, dq),
+               pos + (B, Sq, Skv, H, KH, Dh) + masks)}
     if splits > 1:
         part = torch.empty((2, splits) + tuple(dk.shape), dtype=torch.float32,
                            device=dev)
         partials = (part[0], part[1])
-        calls["reduce"] = (lib.attn_bwd_reduce_launch, (part, dk, dv),
-                           (dk.numel(), splits, bf16))
+        calls["reduce"] = (fns["reduce"], (part, dk, dv),
+                           (dk.numel(), splits))
     else:
         partials = (dk, dv)
-    calls["dkdv"] = (lib.attn_bwd_dkdv_launch,
-                     (q, k, v, dout, lse, d) + partials,
-                     pos + (B, Sq, Skv, H, KH, Dh) + masks + (splits, bf16))
+    calls["dkdv"] = (fns["dkdv"], (q, k, v, dout, lse, d) + partials,
+                     pos + (B, Sq, Skv, H, KH, Dh) + masks + (splits,))
 
     def launcher(name):
         fn, tensors, ints = calls[name]
@@ -345,6 +425,7 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
                 raise RuntimeError(f"flash_attention backward kernel {name} "
                                    f"launch failed: CUDA error {rc}")
             backward_launches[name] += 1
+            bf16_backward_launches[name] += bf16
         return launch
 
     order = ("dot", "dkdv") + (("reduce",) if splits > 1 else ()) + ("dq",)
@@ -381,7 +462,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.to(q.dtype).contiguous()   # bf16 dO stays bf16
-        if dout.data_ptr() % ALIGN:      # cp.async reads 16-byte chunks
+        if dout.data_ptr() % ALIGN:      # TMA and cp.async: 16-byte chunks
             dout = dout.clone()
         dq, dk, dv = _launch_backward(q, k, v, out, lse, dout, ctx.causal,
                                       ctx.window, **ctx.positions)

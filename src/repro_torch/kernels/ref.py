@@ -2,10 +2,11 @@
 tensors, and what ``chip_smoke.py`` holds each CUDA kernel against on the
 card. Counterparts of the reference's ``flash_attention_ref``,
 ``em_posterior_ref`` and ``weighted_agg_ref``; ragged shapes are allowed.
-``flash_attention_bwd_ref`` and ``attention_lse_ref`` are the plain
-versions of K3's backward and of the row log-sum-exp its training forward
-saves; only the tests and ``chip_smoke.py`` call them (on a CPU tensor the
-plain forward is differentiated by autograd)."""
+``flash_attention_bwd_ref``, ``flash_attention_bwd_bf16_ref`` and
+``attention_lse_ref`` are the plain versions of K3's backward (fp32, and
+bf16 with its kernels' rounding of P and dS) and of the row log-sum-exp its
+training forward saves; only the tests and ``chip_smoke.py`` call them (on
+a CPU tensor the plain forward is differentiated by autograd)."""
 from __future__ import annotations
 
 import math
@@ -137,6 +138,45 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dv = torch.einsum("bqhgk,bqhgd->bkhd", p, dog)
     return (dq.reshape(B, Sq, H, Dh).to(q.dtype), dk.to(q.dtype),
             dv.to(q.dtype))
+
+
+def flash_attention_bwd_bf16_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, out: torch.Tensor,
+                                 lse: torch.Tensor, dout: torch.Tensor, *,
+                                 causal: bool = True, window: int = 0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """K3's bf16 backward as its kernels compute it
+    (``csrc/flash_attention_bwd_bf16.cu``): :func:`flash_attention_bwd_ref`
+    in fp32 on the bf16 values, with P rounded to bf16 before dV = Pᵀ·dO
+    and dS = P∘(dP − D) (from the fp32 P) rounded to bf16 before dQ = dS·K
+    and dK = dSᵀ·Q, as the forward rounds P before P·V (the reference's
+    ``chunked_attention`` rounds it there). Every sum is fp32; ``out`` and
+    ``lse`` are the training forward's fp32 output and row LSE. Returns
+    (dq, dk, dv) in bf16."""
+    B, Sq, H, Dh = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    ct = torch.float32
+    s = _scores(q, k, ct)
+    mask = _attention_mask(Sq, Skv, causal, window, q.device)
+    row_lse = lse.to(ct).transpose(1, 2).reshape(B, Sq, KH, G)[..., None]
+    p = torch.where(mask[None, :, None, None, :], torch.exp(s - row_lse),
+                    torch.zeros((), dtype=ct, device=q.device))
+    del s
+    qg = q.reshape(B, Sq, KH, G, Dh).to(ct)
+    dog = dout.reshape(B, Sq, KH, G, Dh).to(ct)
+    d = torch.sum(dog * out.reshape(B, Sq, KH, G, Dh).to(ct), dim=-1,
+                  keepdim=True)
+    ds = p * (torch.einsum("bqhgd,bkhd->bqhgk", dog, v.to(ct)) - d)
+    dv = torch.einsum("bqhgk,bqhgd->bkhd", p.bfloat16().to(ct), dog)
+    del p
+    ds = ds.bfloat16().to(ct)
+    scale = 1.0 / math.sqrt(Dh)
+    dq = torch.einsum("bqhgk,bkhd->bqhgd", ds, k.to(ct)) * scale
+    dk = torch.einsum("bqhgk,bqhgd->bkhd", ds, qg) * scale
+    return (dq.reshape(B, Sq, H, Dh).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
 
 
 def em_posterior_ref(pi: torch.Tensor, logits: torch.Tensor,

@@ -1,12 +1,18 @@
 """K3's backward schedule (``repro_torch/kernels/flash_attention.py``):
 the dK/dV and dQ grids that ``backward_plan`` sizes, walked block by block
-with the rule ``csrc/flash_attention_bwd.cu`` follows (``_dkdv_steps``,
-``_dq_steps`` below), cover every (key tile, query tile, head) that holds
-an unmasked pair once and only once. Over ``chip_smoke.py``'s backward
-sweep and shapes at the tiles' edges, on cards of several sizes (so both
-the split and the unsplit dK/dV grids are walked). CPU only: the plan is
-host arithmetic; the card-only tests hold the kernels' gradients to the
-plain backward at the same shapes."""
+with the rule ``csrc/flash_attention_bwd.cu`` (fp32) and
+``csrc/flash_attention_bwd_bf16.cu`` (bf16, with its own tiles) follow
+(``_dkdv_steps``, ``_dq_steps``, ``_dq_folded_steps`` below), cover every
+(key tile, query tile, head) that holds an unmasked pair once and only
+once (in bf16's dQ, every (row tile, KV head, key tile), its rows folded
+as the forward folds them). Over ``chip_smoke.py``'s backward sweeps
+(``BWD_SHAPES``; ``BWD_BF16_SHAPES`` in bf16) and shapes at the tiles'
+edges, on cards of several sizes (so both the split and the unsplit dK/dV
+grids are walked). Also: the two dtypes' plans are cached apart, and
+each backward library is held to its dtype's tiles when it loads (with a
+stand-in library). CPU only: the plan is host arithmetic; the card-only
+tests hold the kernels' gradients to the plain backward at the same
+shapes."""
 import os
 import sys
 
@@ -34,19 +40,25 @@ EXTRA = [
     (1, 33, 47, 4, 4, 128, True, 17),
 ]
 SHAPES = chip_smoke.BWD_SHAPES + EXTRA
+# the bf16 backward's: its sweep and the edge shapes at its head dims
+BF16_SHAPES = chip_smoke.BWD_BF16_SHAPES + [
+    s for s in EXTRA if s[5] in k3.BWD_BF16_HEAD_DIMS]
+CASES = ([(torch.float32, s) for s in SHAPES]
+         + [(torch.bfloat16, s) for s in BF16_SHAPES])
 SMS = (132, 1, 16, 1000)
 
 
-def _dkdv_steps(block, B, Sq, Skv, H, KH, Dh, causal, window, splits):
+def _dkdv_steps(block, B, Sq, Skv, H, KH, Dh, causal, window, splits,
+                dtype=torch.float32):
     """The steps dK/dV block ``block`` walks, in order, as (batch, key
     tile, head, query tile): key tile slowest in the grid and split
     fastest, and split c taking steps [n·c/splits, n·(c+1)/splits) of its
-    key tile's n (head slowest)."""
+    key tile's n (head slowest); ``dtype``'s tiles."""
     c, rest = block % splits, block // splits
     kh, rest = rest % KH, rest // KH
     b, t = rest % B, rest // B
     G = H // KH
-    qt0, nq = k3.dkdv_query_tiles(t, Sq, Skv, Dh, causal, window)
+    qt0, nq = k3.dkdv_query_tiles(t, Sq, Skv, Dh, causal, window, dtype)
     n = G * nq
     return [(b, t, kh * G + s // nq, qt0 + s % nq)
             for s in range(n * c // splits, n * (c + 1) // splits)]
@@ -67,6 +79,43 @@ def _dq_steps(block, B, Sq, Skv, H, KH, Dh, causal, window):
     return [(b, qt, h, kt0 + i) for i in range(nk)]
 
 
+def _dq_folded_steps(block, B, Sq, Skv, H, KH, Dh, causal, window):
+    """The steps bf16 dQ block ``block`` walks, as (batch, KV head, row
+    tile, key tile): the grid is (batch x KV head, folded row tile) with
+    the batch and KV head fastest and the last row tiles first; its rows
+    i*G + g, and the key tiles from the first row's window start to the
+    last row's causal end."""
+    tiles = k3.bwd_tiles(Dh, torch.bfloat16)
+    x, y = block % (B * KH), block // (B * KH)
+    rt = -(-Sq * (H // KH) // tiles.row_tile) - 1 - y
+    q_lo, q_hi = _folded_queries(rt, Sq, H // KH, tiles.row_tile)
+    k_begin = max(0, q_lo - window + 1) if window > 0 else 0
+    kt0, nk = k3._tiles(k_begin, min(Skv, q_hi + 1) if causal else Skv,
+                        tiles.key_step)
+    return [(x // KH, x % KH, rt, kt0 + i) for i in range(nk)]
+
+
+def _folded_queries(rt, Sq, G, rows):
+    """The first and last query of folded row tile ``rt`` (row i*G + g)."""
+    return rt * rows // G, (min((rt + 1) * rows, Sq * G) - 1) // G
+
+
+def _visible_folded(Sq, Skv, G, causal, window, rows, cols):
+    """The (folded row tile, key tile) pairs in which some query of the
+    row tile sees some key of the key tile."""
+    mask = _attention_mask(Sq, Skv, causal, window, "cpu")
+    nc = -(-Skv // cols)
+    padded = torch.zeros((Sq, nc * cols), dtype=torch.bool)
+    padded[:, :Skv] = mask
+    by_tile = padded.view(Sq, nc, cols).any(dim=2)          # (Sq, nc)
+    out = []
+    for rt in range(-(-Sq * G // rows)):
+        q_lo, q_hi = _folded_queries(rt, Sq, G, rows)
+        out += [(rt, int(j)) for j in
+                by_tile[q_lo:q_hi + 1].any(dim=0).nonzero()[:, 0]]
+    return out
+
+
 def _visible(Sq, Skv, causal, window, rows, cols):
     """The (row tile, column tile) pairs of the (Sq, Skv) mask that hold an
     unmasked (query, key) pair, query tiles of ``rows``, key tiles of
@@ -80,19 +129,20 @@ def _visible(Sq, Skv, causal, window, rows, cols):
 
 
 @pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("shape", SHAPES)
-def test_dkdv_blocks_cover_every_visible_tile_once(shape, sms):
+@pytest.mark.parametrize("dtype,shape", CASES)
+def test_dkdv_blocks_cover_every_visible_tile_once(dtype, shape, sms):
     B, Sq, Skv, H, KH, Dh, causal, window = shape
-    plan = k3.backward_plan(*shape, sms)
+    tiles = k3.bwd_tiles(Dh, dtype)
+    plan = k3.backward_plan(*shape, sms, dtype)
     splits = plan["splits"]
-    n_kt = -(-Skv // k3.BWD_KEY_TILE)
+    n_kt = -(-Skv // tiles.key_tile)
     assert plan["dkdv_blocks"] == n_kt * B * KH * splits
     assert ("reduce" in plan["kernels"]) == (splits > 1)
     steps = [s for blk in range(plan["dkdv_blocks"])
-             for s in _dkdv_steps(blk, *shape, splits)]
+             for s in _dkdv_steps(blk, *shape, splits, dtype)]
     want = {(b, kt, h, qt) for b in range(B) for h in range(H)
             for qt, kt in _visible(Sq, Skv, causal, window,
-                                   k3.BWD_QUERY_TILE[Dh], k3.BWD_KEY_TILE)}
+                                   tiles.query_tile, tiles.key_tile)}
     assert len(steps) == len(set(steps))
     assert set(steps) == want
     # each block's heads read its own KV head
@@ -100,51 +150,100 @@ def test_dkdv_blocks_cover_every_visible_tile_once(shape, sms):
     for blk in range(plan["dkdv_blocks"]):
         kh = blk // splits % KH
         assert all(h // G == kh for _, _, h, _ in
-                   _dkdv_steps(blk, *shape, splits))
+                   _dkdv_steps(blk, *shape, splits, dtype))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_dq_blocks_cover_every_visible_tile_once(shape):
+@pytest.mark.parametrize("dtype,shape", CASES)
+def test_dq_blocks_cover_every_visible_tile_once(dtype, shape):
     B, Sq, Skv, H, KH, Dh, causal, window = shape
-    plan = k3.backward_plan(*shape, 132)
-    assert plan["dq_blocks"] == -(-Sq // k3.BWD_ROW_TILE) * B * H
-    steps = [s for blk in range(plan["dq_blocks"])
-             for s in _dq_steps(blk, *shape)]
-    want = {(b, qt, h, kt) for b in range(B) for h in range(H)
-            for qt, kt in _visible(Sq, Skv, causal, window,
-                                   k3.BWD_ROW_TILE, k3.BWD_KEY_STEP[Dh])}
+    tiles = k3.bwd_tiles(Dh, dtype)
+    plan = k3.backward_plan(*shape, 132, dtype)
+    if dtype == torch.float32:
+        assert plan["dq_blocks"] == -(-Sq // tiles.row_tile) * B * H
+        steps = [s for blk in range(plan["dq_blocks"])
+                 for s in _dq_steps(blk, *shape)]
+        want = {(b, qt, h, kt) for b in range(B) for h in range(H)
+                for qt, kt in _visible(Sq, Skv, causal, window,
+                                       tiles.row_tile, tiles.key_step)}
+    else:   # folded rows: (batch, KV head, row tile, key tile)
+        assert plan["dq_blocks"] == (-(-Sq * (H // KH) // tiles.row_tile)
+                                     * B * KH)
+        steps = [s for blk in range(plan["dq_blocks"])
+                 for s in _dq_folded_steps(blk, *shape)]
+        want = {(b, kh, rt, kt) for b in range(B) for kh in range(KH)
+                for rt, kt in _visible_folded(Sq, Skv, H // KH, causal,
+                                              window, tiles.row_tile,
+                                              tiles.key_step)}
     assert len(steps) == len(set(steps))
     assert set(steps) == want
 
 
-def test_training_and_federated_shapes_fill_the_card():
-    """The source note's arithmetic: at smollm-135m's training shape one
-    dK/dV block per (key tile, KV head, batch) would be 96 blocks on 132
-    SMs, the busiest walking 24 steps of 32 queries (12 a warpgroup); 2
-    splits give 192 blocks of at most 12 (6 a warpgroup). At the federated
-    shape 24 blocks become 144 of at most 2 (one a warpgroup). The serving
-    shape has 384 blocks and no split; the dQ grids start with the last
-    query tiles (the most keys under the causal mask)."""
-    train = k3.backward_plan(*chip_smoke.BWD_MAIN, 132)
-    assert (train["splits"], train["dkdv_blocks"]) == (2, 192)
-    fed = k3.backward_plan(4, 128, 128, 9, 3, 64, True, 0, 132)
-    assert (fed["splits"], fed["dkdv_blocks"]) == (6, 144)
-    serve = k3.backward_plan(8, 1024, 1024, 9, 3, 64, True, 0, 132)
-    assert (serve["splits"], serve["dkdv_blocks"]) == (1, 384)
-    assert serve["kernels"] == ("dot", "dkdv", "dq")
-    for shape, plan, most in ((chip_smoke.BWD_MAIN, train, 12),
-                              ((4, 128, 128, 9, 3, 64, True, 0), fed, 2)):
-        lengths = [len(_dkdv_steps(blk, *shape, plan["splits"]))
-                   for blk in range(plan["dkdv_blocks"])]
+# (shape, fp32's (splits, dK/dV blocks, most steps a block), bf16's): the
+# fp32 tiles' 32-query steps at Dh 64 and 16-query ones at 128, bf16's
+# 64-query steps
+FILL = [(chip_smoke.BWD_MAIN, (2, 192, 12), (2, 192, 6)),
+        (chip_smoke.BWD_FED, (6, 144, 2), (3, 72, 2)),
+        ((8, 1024, 1024, 9, 3, 64, True, 0), (1, 384, 96), (1, 384, 48)),
+        (chip_smoke.BWD_CHATGLM, (3, 192, 86), (3, 192, 22)),
+        (chip_smoke.BWD_TRAIN_4K, (1, 256, 4096), (1, 256, 1024))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_and_federated_shapes_fill_the_card(dtype):
+    """The source notes' arithmetic. fp32: at smollm-135m's training shape
+    one dK/dV block per (key tile, KV head, batch) would be 96 blocks on
+    132 SMs, the busiest walking 24 steps of 32 queries (12 a warpgroup);
+    2 splits give 192 blocks of at most 12 (6 a warpgroup); at the
+    federated shape 24 blocks become 144 of at most 2 (one a warpgroup).
+    bf16 (64-query steps): 192 blocks of at most 6 there, 72 of at most 2
+    at the federated shape; chatglm3-6b's training shape (B 8, S 256, G 16,
+    Dh 128) has 64 blocks of 64 keys, split 3 ways; train_4k's (B 2, S
+    4096) 256 blocks and no split. The serving shape has 384 blocks and no
+    split; the dQ grids start with the last query tiles (the most keys
+    under the causal mask)."""
+    for shape, *want in FILL:
+        plan = k3.backward_plan(*shape, 132, dtype)
+        splits, blocks, most = want[dtype == torch.bfloat16]
+        assert (plan["splits"], plan["dkdv_blocks"]) == (splits, blocks)
+        assert plan["kernels"] == ("dot", "dkdv") + (
+            ("reduce",) if splits > 1 else ()) + ("dq",)
+        lengths = [len(_dkdv_steps(blk, *shape, splits, dtype))
+                   for blk in range(blocks)]
         assert max(lengths) == most
         # key tiles in the grid's order, the most steps first
-        per_tile = plan["dkdv_blocks"] // -(-shape[2] // k3.BWD_KEY_TILE)
+        per_tile = blocks // -(-shape[2] // k3.bwd_tiles(shape[5],
+                                                         dtype).key_tile)
         totals = [sum(lengths[i:i + per_tile])
                   for i in range(0, len(lengths), per_tile)]
         assert totals == sorted(totals, reverse=True)
-        dq = [len(_dq_steps(blk, *shape))
-              for blk in range(plan["dq_blocks"])]
-        assert dq == sorted(dq, reverse=True)
+        walk = _dq_steps if dtype == torch.float32 else _dq_folded_steps
+        dq = [len(walk(blk, *shape)) for blk in range(plan["dq_blocks"])]
+        if dtype == torch.float32:
+            assert dq == sorted(dq, reverse=True)
+        else:   # B x KH blocks a row tile, the last row tiles first
+            per_row_tile = shape[0] * shape[4]
+            firsts = dq[::per_row_tile]
+            assert firsts == sorted(firsts, reverse=True)
+
+
+def test_bf16_and_fp32_plans_are_keyed_apart():
+    """``backward_plan`` caches one plan a (shape, card, dtype): the bf16
+    plan at the federated shape (64-query steps: 3 splits) is not the fp32
+    one (32-query steps: 6), whichever is asked first, and ``bwd_tiles``
+    gives each dtype its own tiles."""
+    shape = chip_smoke.BWD_FED
+    for first, second in ((torch.bfloat16, torch.float32),
+                          (torch.float32, torch.bfloat16)):
+        k3.backward_plan.cache_clear()
+        a = k3.backward_plan(*shape, 132, first)
+        b = k3.backward_plan(*shape, 132, second)
+        plans = {first: a, second: b}
+        assert plans[torch.float32]["splits"] == 6
+        assert plans[torch.bfloat16]["splits"] == 3
+        assert k3.backward_plan(*shape, 132) == plans[torch.float32]
+    assert k3.bwd_tiles(64, torch.bfloat16) != k3.bwd_tiles(64)
+    assert k3.bwd_tiles(128, torch.bfloat16).folded_rows
+    assert not k3.bwd_tiles(128).folded_rows
 
 
 # ---------------------------------------------------- explicit positions
@@ -339,3 +438,50 @@ def test_arange_positions_walk_the_index_tiles(shape):
     for blk in range(plan["dq_blocks"]):
         assert _position_dq_steps(blk, *shape, qpos, kpos) == _dq_steps(
             blk, *shape)
+
+
+class _FakeFn:
+    def __init__(self, impl):
+        self.impl, self.argtypes, self.restype = impl, None, None
+
+    def __call__(self, *args):
+        return self.impl(*args)
+
+
+def _fake_library(prefix, tiles):
+    """A stand-in for a backward library: its tiles function reports
+    ``tiles(dh)`` (None: refuses the head dim), every launch returns 0."""
+    def report(dh, *refs):
+        got = tiles(dh)
+        if got is None:
+            return 1
+        for ref, value in zip(refs, got):
+            ref._obj.value = value
+        return 0
+    fns = {f"{prefix}tiles": report, "attn_bwd_positions_built":
+           lambda dh: int(dh in k3.BWD_POSITION_HEAD_DIMS)}
+    fns.update({f"{prefix}{name}_launch": lambda *a: 0
+                for name in k3.backward_launches})
+    return type("Lib", (), {n: _FakeFn(f) for n, f in fns.items()})()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_library_is_held_to_the_wrapper_tiles(monkeypatch, dtype):
+    """Each dtype's backward library is loaded once its tiles match
+    ``bwd_tiles`` at the head dims it takes (and it refuses the others);
+    one whose tiles differ raises on every load and is never kept."""
+    bf16 = dtype == torch.bfloat16
+    dims = k3.BWD_BF16_HEAD_DIMS if bf16 else k3.BWD_HEAD_DIMS
+    prefix = "attn_bwd_bf16_" if bf16 else "attn_bwd_"
+    good = _fake_library(prefix, lambda dh: list(
+        k3.bwd_tiles(dh, dtype))[:5] if dh in dims else None)
+    bad = _fake_library(prefix, lambda dh: [32] * 5 if dh in dims else None)
+    monkeypatch.setattr(k3, "_libs", {})
+    monkeypatch.setattr(k3._build, "load", lambda name: bad)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="tiles"):
+            k3._bwd_library(dtype)
+    assert k3._libs == {}
+    monkeypatch.setattr(k3._build, "load", lambda name: good)
+    assert k3._bwd_library(dtype) is good
+    assert k3._bwd_library(dtype) is good

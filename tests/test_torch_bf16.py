@@ -2,8 +2,10 @@
 on the CPU: the weight bridge's bf16 round trip (C7), ``init_params``'s
 tree and dtypes in bf16 for every registered arch, bf16 prefill and
 decode of reduced smollm-135m, chatglm3-6b and starcoder2-15b, K3's
-plain bf16 forward and backward against ``chunked_attention`` in bf16,
-and the bf16 serving drivers.
+plain bf16 forward and backward against ``chunked_attention`` in bf16
+(also the plain version of the bf16 backward kernels' arithmetic, and its
+error against float64 beside the reference's own), and the bf16 serving
+drivers.
 
 The gate for a bf16 run is ``max(2e-2, g)``, where g is the reference's
 own gap between its bf16 run (bf16 weights, ``init_params``'s default)
@@ -211,6 +213,51 @@ def test_plain_bf16_attention_and_backward_match_reference(shape, causal,
         assert got.dtype == bwd.dtype == torch.bfloat16
         close(got, want)
         close(bwd, want)
+
+
+@pytest.mark.parametrize("shape,causal,window", ATTN_SHAPES)
+def test_plain_bf16_kernel_backward_matches_reference(shape, causal, window):
+    """``flash_attention_bwd_bf16_ref``, the arithmetic of K3's bf16
+    backward kernels (P and dS rounded to bf16 before their products,
+    every sum in fp32, from the training forward's fp32 output: here the
+    plain fp32 forward of the bf16 values), against ``jax.vjp`` of
+    ``chunked_attention`` in bf16 within 2e-2 (atol and rtol); and, per
+    gradient, its max error against the float64 backward of the same bf16
+    values at most twice the reference's own. The card holds the kernels
+    to this version's error (``chip_smoke.BWD_BF16_PLAIN_FACTOR``)."""
+    q, k, v, do = _attention_inputs(shape)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16)
+                       for a in (q, k, v, do))
+    pos = jnp.arange(shape[1], dtype=jnp.int32)
+
+    def attend(a, b, c):
+        return jattn.chunked_attention(a, b, c, q_positions=pos,
+                                       kv_positions=pos, causal=causal,
+                                       window=window)
+
+    _, vjp = jax.vjp(attend, jq, jk, jv)
+    jgrads = [torch.from_numpy(np.asarray(g, np.float32)).double()
+              for g in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    out32 = tref.flash_attention_ref(tq.float(), tk.float(), tv.float(),
+                                     causal=causal, window=window)
+    lse = tref.attention_lse_ref(tq, tk, causal=causal, window=window)
+    plain = tref.flash_attention_bwd_bf16_ref(tq, tk, tv, out32, lse, tdo,
+                                              causal=causal, window=window)
+    q64, k64, v64 = tq.double(), tk.double(), tv.double()
+    oracle = tref.flash_attention_bwd_ref(
+        q64, k64, v64,
+        tref.flash_attention_ref(q64, k64, v64, causal=causal,
+                                 window=window),
+        tref.attention_lse_ref(q64, k64, causal=causal, window=window),
+        tdo.double(), causal=causal, window=window)
+    for got, want, exact in zip(plain, jgrads, oracle):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.double().numpy(), want.numpy(),
+                                   atol=KERNEL_TOL, rtol=KERNEL_TOL)
+        err = float((got.double() - exact).abs().max())
+        ref_err = float((want - exact).abs().max())
+        assert err <= 2 * ref_err, (err, ref_err)
 
 
 def test_plain_bf16_backward_is_float64_of_the_bf16_values():

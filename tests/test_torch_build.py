@@ -2,8 +2,9 @@
 library's path is keyed on its source, the package's shared headers
 (``csrc/*.cuh``) and the flags, so an edited header rebuilds every source
 instead of loading a stale library; and the split-TF32 helpers live in
-one header that K3's forward and backward both include. CPU only: nothing
-is compiled."""
+one header that K3's fp32 forward and backward both include, the bf16
+helpers in another that its bf16 kernels include. CPU only: nothing is
+compiled."""
 import re
 
 import pytest
@@ -49,3 +50,28 @@ def test_k3_sources_share_the_split_tf32_helpers():
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "wgmma_tf32.cuh"' in src
         assert not set(helpers) & set(defined.findall(src))
+
+
+def test_k3_bf16_sources_share_the_bf16_helpers():
+    """K3's bf16 forward and backward take the swizzled layout, its
+    descriptors and the bf16 ``wgmma`` wrappers from one header, which
+    takes the mbarrier and TMA helpers from the split-TF32 one."""
+    header = _build.CSRC / "wgmma_bf16.cuh"
+    helpers = ("swizzled", "kstep", "desc_k", "desc_mn", "pack_bf16",
+               "tma_tile", "load_folded", "wgmma_ss_bf16_n128",
+               "wgmma_rs_bf16_n128", "wgmma_rs_bf16_n112")
+    shared = ("sees", "visible", "all_visible", "block_min", "mbar_wait",
+              "tma_load_3d")
+    defined = re.compile(r"__device__ __forceinline__ \w+ (\w+)\(")
+    text = header.read_text()
+    assert set(helpers) <= set(defined.findall(text))
+    assert '#include "wgmma_tf32.cuh"' in text
+    tf32 = set(defined.findall((_build.CSRC / "wgmma_tf32.cuh").read_text()))
+    assert set(shared) <= tf32
+    # store2 is overloaded for bf16 there, not defined twice
+    assert tf32 & set(defined.findall(text)) == {"store2"}
+    for name in ("flash_attention_bf16", "flash_attention_bwd_bf16"):
+        assert name in _build.KERNELS
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "wgmma_bf16.cuh"' in src
+        assert not (set(helpers) | tf32) & set(defined.findall(src))
