@@ -216,6 +216,26 @@ when it ends:
      then federated pFedWN (C 4, B 4 x S 128, 10 local steps, 2 rounds,
      the example's 5 cut to 2: K2 12 launches a round, π* on the
      simplex; links and ms per round printed);
+  7h. the multi-pod pFedWN round step (``launch/steps.py::
+     make_pfedwn_round_step``: local step, model exchange by all-gather,
+     EM on a probe slice, the Eq-1 mix through K2), one client a gloo
+     rank on this card: reduced smollm-135m on C = 4 card ranks against
+     as many CPU ranks (plain kernels) on the same arrays (C = 2 is
+     ``tests/test_torch_gpu.py``'s), at exchange 16 and 8, fp32 (params,
+     π, metrics within 1e-4) and bf16 (within max(2e-2, the CPU's own
+     bf16-vs-fp32 gap)), and the local step's update Δ in relative norm
+     (fp32 within 1e-4, bf16 within max(2e-2, 2g)); π has a zero column
+     and links are erased at random, one rank's all, and that rank's
+     params must equal its post-step params bit for bit; then
+     smollm-135m at full width in bf16 over C = 4 ranks (seed-0 weights,
+     B 2 x S 4096 a client, probe 4 x 512, 3 rounds at exchange 16 and 1
+     at 8: each round on each rank K2 once in bf16, K3's bf16 forward 30
+     x 5 times and its bf16 backward kernels 30 times each, no fp32 K3
+     launch, 3 collectives (4 at int8), finite losses, π* on the simplex
+     and equal on every rank; ms a round a rank, its split by stage, the
+     peaks and their sum printed); phase 8 adds K2's row at its mix (bf16,
+     P 162,826,560, M 4) and K3's bf16 forward and backward rows at the
+     local step's shape;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
      at the main paths' shapes (K1 also in bf16, at smollm-135m's
      vocabulary and at the M = 39 round's shape, K2 also from a
@@ -309,6 +329,30 @@ ATTN_MUSICGEN = (8, 1088, 1088, 32, 32, 64, True, 0)
 # past its 4096 window
 STAR_B, STAR_PROMPT = 4, 4600
 ATTN_STARCODER = (STAR_B, STAR_PROMPT, STAR_PROMPT, 48, 4, 128, True, 4096)
+# phase 7h: the multi-pod round step (launch/steps.py::make_pfedwn_round_
+# step), one client a gloo rank on this card (NCCL refuses two ranks on
+# one device). Card vs CPU at reduced(): seq 64, batch 4, probe 2 x 32; at
+# full width smollm-135m in bf16, C 4 clients of B 2 x S 4096 (train_4k's
+# seq_len, its global_batch 256 cut to 2 as in phase 7g), probe 4 x 512,
+# 3 EM iterations, links drawn at P_err 0.05, 3 rounds at exchange 16 and
+# 1 at exchange 8
+ROUND_SMALL_SEQ, ROUND_SMALL_BATCH, ROUND_SMALL_PROBE = 64, 4, (2, 32)
+ROUND_C, ROUND_B, ROUND_S = 4, 2, 4096
+ROUND_PROBE, ROUND_EM_ITERS, ROUND_ALPHA = (4, 512), 3, 0.5
+ROUND_P_ERR, ROUND_BITS, ROUND_LR = 0.05, (16, 16, 16, 8), 3e-3
+ROUND_REMAT = False           # the four ranks' peaks fit 80 GB without it
+ROUND_BF16_TOL = 2e-2         # bf16 card vs CPU: max(this, the CPU's own
+#                               bf16-vs-fp32 gap)
+# K2 at the round's mix against its plain version: |d| <= ulp·|ref| + abs,
+# one bf16 ulp (2^-7 of |ref| bounds it), as each rounds an fp32 sum once
+# and the two sums differ only by fp32 rounding
+ROUND_MIX_TOL = (2.0 ** -7, 1e-6)
+# K3's shapes on the round: the local step's training forward and
+# backward (B 2 x S 4096, 9 heads over 3, Dh 64) and the probe's forward
+# (n 2 x 512 under no_grad)
+ATTN_ROUND_TRAIN = (ROUND_B, ROUND_S, ROUND_S, 9, 3, 64, True, 0)
+ATTN_ROUND_PROBE = (ROUND_B, ROUND_PROBE[1], ROUND_PROBE[1], 9, 3, 64, True,
+                    0)
 ATTN_SHAPES = [
     ATTN_MAIN,
     (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
@@ -324,6 +368,8 @@ ATTN_SHAPES = [
     ATTN_GRANITE,
     ATTN_QWEN2VL,
     ATTN_MUSICGEN,
+    ATTN_ROUND_TRAIN,
+    ATTN_ROUND_PROBE,
     # tile edges: folded rows just below, at and above 64 and 128, keys
     # just off the key tile (64 at Dh 64, 32 at Dh 128)
     (2, 42, 43, 3, 1, 64, True, 0),
@@ -515,6 +561,7 @@ BWD_BF16_SHAPES = [
     (1, 100, 100, 8, 2, 128, True, 0),       # G 4
     (1, 64, 64, 16, 1, 128, True, 0),        # G 16
     BWD_FED,                                 # 6 splits and the reduce
+    ATTN_ROUND_TRAIN,                        # the round step's local step
 ]
 # |d| <= tol + tol·|ref| for the fp32 kernel against the float64 plain
 # backward (tests/test_torch_gpu.py's tolerance); the row LSE likewise
@@ -2190,7 +2237,8 @@ def check_flash_attention_backward_bf16(dev) -> dict:
     bitwise equal; fully masked rows' dq and output exactly 0; every
     launch the bf16 kernels' (``k3.bf16_launches``,
     ``k3.bf16_backward_launches``). Raises past any. Returns (max |d|,
-    worst excess) at ``BWD_CHATGLM`` and ``BWD_TRAIN_4K``."""
+    worst excess) at ``BWD_CHATGLM``, ``BWD_TRAIN_4K`` and
+    ``ATTN_ROUND_TRAIN``."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ref
     errs_at = {}
@@ -2261,7 +2309,7 @@ def check_flash_attention_backward_bf16(dev) -> dict:
                 and dtypes_ok and routed):
             raise AssertionError(f"K3's bf16 backward disagrees with its "
                                  f"plain version at {shape}")
-        if shape in (BWD_CHATGLM, BWD_TRAIN_4K):
+        if shape in (BWD_CHATGLM, BWD_TRAIN_4K, ATTN_ROUND_TRAIN):
             errs_at[shape] = (max(errs), max(excess))
         torch.cuda.empty_cache()
     return errs_at
@@ -3130,6 +3178,378 @@ def run_starcoder2_main_path(dev) -> dict:
     del params, res
     torch.cuda.empty_cache()
     return {"timings": t, "peak_gib": peak, "k3": n3}
+
+
+def _round_gaps(a, b) -> dict:
+    """Max |d| of the params (every leaf of every rank), π and the metrics
+    between two runs' ranks of one case (each rank's result, one round)."""
+    from repro_torch.utils.bridge import tree_leaves
+    gaps = {"params": 0.0, "pi": 0.0, "metrics": 0.0}
+    for x, y in zip(a, b):
+        for p, q in zip(tree_leaves(x["params"]), tree_leaves(y["params"])):
+            gaps["params"] = max(gaps["params"],
+                                 float((p.float() - q.float()).abs().max()))
+        rx, ry = x["rounds"][0], y["rounds"][0]
+        gaps["pi"] = max(gaps["pi"],
+                         float(np.abs(rx["new_pi"] - ry["new_pi"]).max()))
+        gaps["metrics"] = max(gaps["metrics"], max(
+            abs(rx["metrics"][k] - ry["metrics"][k]) for k in rx["metrics"]))
+    return gaps
+
+
+def _flat_cpu(tree) -> torch.Tensor:
+    from repro_torch.utils.bridge import tree_leaves
+    return torch.cat([x.reshape(-1) for x in tree_leaves(tree)])
+
+
+def _int8_stages(got, want, ok, alpha) -> dict:
+    """The int8 round's stages on the card against the CPU, each on the
+    card's own inputs: int8 rounding is discontinuous, so a quantizer
+    input a rounding error from a tie (the card's and the CPU's local
+    steps round differently) flips one element by a whole quantum, and
+    the end-to-end params cannot be held to 1e-4 there. ``post_step``:
+    the local step's params, card vs CPU; ``stack_exact``: each card
+    rank's exchanged stack bitwise the quantizer (``exchange_models``)
+    run on the CPU over the card ranks' post-step params; ``mix``: the
+    card's params against the Eq-1 mix in float64 of its post-step params
+    and its stack by its π* row and links; ``ties``: the stack elements
+    where the card's and the CPU's quantizers rounded apart."""
+    from repro_torch.launch.steps import exchange_models
+    from repro_torch.utils.bridge import ParamLayout
+    layout = ParamLayout.of(got[0]["params"])
+    posts = [_flat_cpu(r["rounds"][0]["post_step"]) for r in got]
+    rows = torch.cat([exchange_models(p, layout, 8) for p in posts])
+    out = {"post_step": max(
+        float((p - _flat_cpu(r["rounds"][0]["post_step"])).abs().max())
+        for p, r in zip(posts, want)), "stack_exact": True, "mix": 0.0,
+        "ties": 0}
+    for rank, r in enumerate(got):
+        stack = r["rounds"][0]["stack"]
+        out["stack_exact"] &= torch.equal(stack, rows)
+        out["ties"] += int((stack != want[rank]["rounds"][0]["stack"]).sum())
+        w = torch.from_numpy(r["rounds"][0]["new_pi"][rank]).double() * \
+            torch.from_numpy(ok[rank]).double()
+        mixed = posts[rank].double()
+        if float(w.sum()) > 0:
+            mixed = alpha * mixed + (1 - alpha) * (w / w.sum()) @ \
+                stack.double()
+        out["mix"] = max(out["mix"], float(
+            (_flat_cpu(r["params"]).double() - mixed).abs().max()))
+    return out
+
+
+def _round_update_gaps(params, got, want, want32, lr) -> tuple:
+    """The local step inside the round, as its update Δ = post-step −
+    initial params over every leaf of every rank (``params``: the case's
+    stacked fp32 numpy tree, cast to the run's dtype on the ranks): (the
+    card's Δ against the CPU's in relative norm, g). A bf16 step moves most
+    params by less than half an ulp, so the round's params cannot see a
+    wrong gradient; Δ can. g (with ``want32``, the CPU's fp32 twin): the
+    CPU's Δ against the Δ its SGD rule gives in bf16 from the fp32 twin's
+    gradient, recovered as (p32 − post32)/lr (``bf16_step_against_cpu``'s
+    "update" gate)."""
+    from repro_torch.launch.train import _sgd_in_param_dtype_
+    from repro_torch.utils.bridge import tree_leaves
+    d_got, d_want, d_alt = [], [], []
+    for rank in range(len(got)):
+        p32 = [torch.from_numpy(np.asarray(x[rank]))
+               for x in tree_leaves(params)]
+        post = [tree_leaves(r[rank]["rounds"][0]["post_step"])
+                for r in (got, want)]
+        start = [x.to(post[0][0].dtype) for x in p32]
+        d_got += [a.float() - b.float() for a, b in zip(post[0], start)]
+        d_want += [a.float() - b.float() for a, b in zip(post[1], start)]
+        if want32 is not None:
+            post32 = tree_leaves(want32[rank]["rounds"][0]["post_step"])
+            alt = [x.clone() for x in start]
+            _sgd_in_param_dtype_(alt, [(a - b) / lr
+                                       for a, b in zip(p32, post32)], lr)
+            d_alt += [a.float() - b.float() for a, b in zip(alt, start)]
+    return (_rel_err(d_got, d_want),
+            _rel_err(d_alt, d_want) if want32 is not None else None)
+
+
+def check_round_step_against_cpu(dev, clients=(4,)) -> dict:
+    """The round step at reduced smollm-135m on C gloo ranks on the card
+    against C gloo ranks on the CPU (plain kernels), on the same arrays,
+    for each C of ``clients``: C = 2 at exchange 16 and 8 with every link
+    up; C = 4 at exchange 16 and 8 with a zero column in π and links
+    erased at random, the last row all erased; each in fp32 (TF32 off)
+    and bf16. Gates: fp32 params (every leaf), π and metrics within
+    ``TRAIN_TOL`` (at exchange 8 the params stage by stage,
+    ``_int8_stages``: the post-step params and the card's mix of its own
+    stack within it, its stack bitwise the quantizer's on the CPU over
+    the card's post-step params, as int8 rounding flips ties); bf16 within
+    max(``ROUND_BF16_TOL``, g), g the CPU's own bf16-vs-fp32 gap on the
+    same inputs; the local step's update Δ = post-step − initial params
+    (``_round_update_gaps``) in relative norm, fp32 within ``TRAIN_TOL``,
+    bf16 within max(``ROUND_BF16_TOL``, 2g); the erased rank's params
+    bitwise its post-step params on the card; 3 collectives a round (4 at int8); on the card K2 once a
+    rank (in bf16 on bf16 runs) and K3's forward L·(1 + C) times, its
+    bf16 kernels in bf16 runs only; no K2 launch on the CPU. Returns the
+    worst gaps by dtype."""
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.launch.mesh import MeshSpec, make_debug_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import spawn
+    from repro_torch.sharding.worker import run_round_step
+    from repro_torch.utils.bridge import tree_leaves
+    from torch.utils._pytree import tree_map
+    cfg = get_config("smollm-135m").reduced()
+    shape = ShapeConfig("t", ROUND_SMALL_SEQ, ROUND_SMALL_BATCH, "train")
+    train = TrainConfig(lr=ROUND_LR, remat=False)
+    dtypes = (torch.float32, torch.bfloat16)
+    worst = {d: {"params": 0.0, "pi": 0.0, "metrics": 0.0} for d in dtypes}
+    failed = []
+    torch.cuda.empty_cache()
+    for C in clients:
+        gen = torch.Generator().manual_seed(C)
+        params = tree_map(lambda *xs: torch.stack(xs).numpy(),
+                          *[init_params(cfg, gen, "cpu") for _ in range(C)])
+        rng = np.random.default_rng(C)
+        batch = {k: rng.integers(0, cfg.vocab, (C, ROUND_SMALL_BATCH,
+                                                ROUND_SMALL_SEQ)
+                                 ).astype(np.int32)
+                 for k in ("tokens", "labels")}
+        pi = rng.uniform(0.1, 1.0, (C, C)).astype(np.float32)
+        if C == 2:
+            ok = np.ones((C, C), bool)
+        else:
+            pi[:, 1] = 0.0
+            ok = rng.uniform(size=(C, C)) > 0.3
+            np.fill_diagonal(ok, True)
+            ok[-1] = False
+        mesh = (make_debug_mesh(multi_pod=True) if C == 2 else
+                MeshSpec(("pod", "data", "model"), (4, 2, 1)))
+        # each exchange's fp32 case, then its bf16 twin (the same fp32
+        # params, cast on the rank)
+        cases = [dict(cfg=cfg, train=train, shape=shape, mesh=mesh,
+                      kw=dict(n_clients=C,
+                              probe_sequences=ROUND_SMALL_PROBE[0],
+                              probe_tokens=ROUND_SMALL_PROBE[1]),
+                      params=params, dtype=dtype, batch=batch, pi_matrix=pi,
+                      link_ok=ok, rounds=[bits], keep=True, check=True)
+                 for bits in (16, 8) for dtype in dtypes]
+        cpu = spawn(run_round_step, C, "gloo", "cpu", cases, "cpu")
+        card = spawn(run_round_step, C, "gloo", "cuda", cases, "cuda")
+        for i, case in enumerate(cases):
+            dtype, bits = case["dtype"], case["rounds"][0]
+            got, want = [r[i] for r in card], [r[i] for r in cpu]
+            gaps = _round_gaps(got, want)
+            stages, stack_ok = "", True
+            if dtype == torch.float32 and bits == 8:
+                staged = _int8_stages(got, want, ok, 0.5)
+                stages = f"; int8 stages {staged}"
+                stack_ok = staged["stack_exact"]
+                gaps = {"post_step": staged["post_step"],
+                        "mix": staged["mix"], "pi": gaps["pi"],
+                        "metrics": gaps["metrics"]}
+            fp32 = dtype == torch.float32
+            gaps["update"], g = _round_update_gaps(
+                params, got, want, None if fp32 else [r[i - 1] for r in cpu],
+                ROUND_LR)
+            if fp32:
+                gates = dict.fromkeys(gaps, TRAIN_TOL)
+            else:
+                own = _round_gaps(want, [r[i - 1] for r in cpu])
+                gates = {k: max(ROUND_BF16_TOL, own[k]) for k in own}
+                gates["update"] = max(ROUND_BF16_TOL, 2 * g)
+            erased_ok = C == 2 or all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(got[-1]["params"]),
+                    tree_leaves(got[-1]["rounds"][0]["post_step"])))
+            want_fwd = cfg.n_layers * (1 + C)
+            counts_ok = all(
+                r["rounds"][0]["collectives"] == (4 if bits == 8 else 3)
+                and r["rounds"][0]["k2"] == 1
+                and r["rounds"][0]["k2_bf16"] == int(dtype == torch.bfloat16)
+                and r["rounds"][0]["k3"]["forward"] == want_fwd
+                and r["rounds"][0]["k3"]["bf16_forward"]
+                == want_fwd * (dtype == torch.bfloat16) for r in got) and \
+                all(r["rounds"][0]["k2"] == 0 for r in want)
+            same_pi = all(np.array_equal(r["rounds"][0]["new_pi"],
+                                         got[0]["rounds"][0]["new_pi"])
+                          for r in got)
+            print(f"round step reduced smollm-135m C={C} exchange {bits} "
+                  f"{str(dtype)[6:]}, card vs CPU: {gaps} (gates {gates})"
+                  f"{stages}; "
+                  f"erased rank bitwise its post-step params {erased_ok}; "
+                  f"collectives, K2 and K3 launches as planned {counts_ok}; "
+                  f"new_pi equal on every rank {same_pi}")
+            for k in gaps:
+                worst[dtype][k] = max(worst[dtype].get(k, 0.0), gaps[k])
+            if not (all(gaps[k] <= gates[k] for k in gaps) and stack_ok
+                    and erased_ok and counts_ok and same_pi):
+                failed.append((C, bits, str(dtype)[6:]))
+    if failed:
+        raise AssertionError(f"the round step on the card disagrees with "
+                             f"the CPU at (C, exchange, dtype) {failed}")
+    return worst
+
+
+def run_round_main_path(dev) -> dict:
+    """The round step at full width: smollm-135m in bf16, ``ROUND_C``
+    ranks on this card, seed-0 weights drawn for every client from one
+    generator, B 2 x S 4096 a client, rounds at ``ROUND_BITS``. Each round
+    on each rank: K2 once in bf16; K3's bf16 forward L·(1 + C) times (and
+    L more under remat), its bf16 backward kernels L times each as
+    ``backward_plan`` picks them, no fp32 K3 launch; 3 collectives (4 at
+    int8); finite losses; π* rows on the simplex and ``new_pi`` equal on
+    every rank. Prints each rank's ms a round (host clock ending in a
+    sync, rounds after the first), its split by stage (CUDA events) and
+    peak memory, and the sum of the peaks. Returns the launches (summed
+    over ranks and rounds) and the timings."""
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.sharding import spawn
+    from repro_torch.sharding.worker import run_round_step
+    cfg = get_config("smollm-135m")
+    C, L = ROUND_C, cfg.n_layers
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (C, ROUND_B, ROUND_S + 1))
+    batch = {"tokens": tokens[..., :-1].astype(np.int32),
+             "labels": tokens[..., 1:].astype(np.int32)}
+    pi = np.full((C, C), 1.0 / (C - 1), np.float32)
+    np.fill_diagonal(pi, 0.0)
+    ok = np.random.default_rng(7).uniform(size=(C, C)) >= ROUND_P_ERR
+    case = dict(cfg=cfg, train=TrainConfig(lr=ROUND_LR, remat=ROUND_REMAT),
+                shape=ShapeConfig("train_4k", ROUND_S, ROUND_B, "train"),
+                mesh=MeshSpec(("pod", "data", "model"), (C, 16, 16)),
+                kw=dict(n_clients=C, alpha=ROUND_ALPHA,
+                        em_iters=ROUND_EM_ITERS,
+                        probe_sequences=ROUND_PROBE[0],
+                        probe_tokens=ROUND_PROBE[1]),
+                seed=0, dtype=torch.bfloat16, batch=batch, pi_matrix=pi,
+                link_ok=ok, rounds=list(ROUND_BITS))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in spawn(run_round_step, C, "gloo", "cuda", [case],
+                                 "cuda")]
+    wall = time.perf_counter() - t0
+    kernels = _bwd_kernels(ATTN_ROUND_TRAIN, dev, torch.bfloat16)
+    want_fwd = L * (1 + C + ROUND_REMAT)
+    n2 = n_fwd = 0
+    n_bwd = {}
+    ok_all = True
+    for i, bits in enumerate(ROUND_BITS):
+        pis = [r["rounds"][i]["new_pi"] for r in ranks]
+        for rank, res in enumerate(ranks):
+            r = res["rounds"][i]
+            k3c, stages = r["k3"], r["stage_ms"]
+            good = (r["k2"] == r["k2_bf16"] == 1
+                    and k3c["forward"] == k3c["bf16_forward"] == want_fwd
+                    and k3c["backward"] == k3c["bf16_backward"]
+                    and _bwd_counts_ok(k3c["bf16_backward"], kernels, L)
+                    and r["collectives"] == (4 if bits == 8 else 3)
+                    and all(np.isfinite(v) for v in r["metrics"].values())
+                    and np.allclose(r["new_pi"].sum(1), 1.0, atol=1e-5)
+                    and (r["new_pi"] >= 0).all()
+                    and all(np.array_equal(p, pis[0]) for p in pis))
+            ok_all &= good
+            n2 += r["k2"]
+            n_fwd += k3c["bf16_forward"]
+            for k, v in k3c["bf16_backward"].items():
+                n_bwd[k] = n_bwd.get(k, 0) + v
+            print(f"round {i} (exchange {bits}) rank {rank}: "
+                  f"{r['ms']:.2f} ms, stages (device ms) "
+                  f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}"
+                  f", metrics {json.dumps(r['metrics'])}, collectives "
+                  f"{r['collectives']}, K2 {r['k2']} (bf16 {r['k2_bf16']}), "
+                  f"K3 forward {k3c['forward']} (bf16 {k3c['bf16_forward']}),"
+                  f" backward {k3c['bf16_backward']}; as planned {good}")
+        print(f"round {i} new_pi {pis[0].tolist()}")
+    later = {rank: [r["ms"] for r in res["rounds"][1:]]
+             for rank, res in enumerate(ranks)}
+    stages = {rank: {k: [r["stage_ms"][k] for r in res["rounds"][1:]]
+                     for k in res["rounds"][0]["stage_ms"]}
+              for rank, res in enumerate(ranks)}
+    peaks = [res["peak_gib"] for res in ranks]
+    print(f"round step smollm-135m bf16 C={C} B={ROUND_B} S={ROUND_S} "
+          f"probe {ROUND_PROBE} remat {ROUND_REMAT}: wall {wall:.1f} s "
+          f"(the ranks' start, weights and 4 rounds); ms a round a rank "
+          f"after the first {json.dumps(later)}; peaks (GiB) "
+          f"{[round(p, 3) for p in peaks]}, sum {sum(peaks):.3f}")
+    if not ok_all:
+        raise AssertionError("the full-width round step missed its launch, "
+                             "collective or π checks")
+    return {"k2": n2, "k2_per_rank": [sum(r["k2"] for r in res["rounds"])
+                                      for res in ranks],
+            "k3_forward": n_fwd, "k3_bf16_backward": n_bwd,
+            "ms_per_round": later, "stage_ms": stages, "peak_gib": peaks,
+            "steps": C * len(ROUND_BITS)}
+
+
+def k2_round_report(dev, n2, per_rank, floor) -> dict:
+    """K2's row at the round step's mix (phase 7h): bf16, P = smollm-135m's
+    162,826,560 params, the exact own row and a (4, P) stack of the
+    gathered models, links up and all erased against the plain version on
+    the card (|d| within one bf16 ulp of the plain version,
+    ``ROUND_MIX_TOL``; erased: own bitwise), its steady and cold ms, the
+    plain version's and
+    ``torch.addmv``'s in bf16, and the bytes bound (5 rows read, 1
+    written)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import weighted_agg as k2
+    from repro_torch.kernels.ref import weighted_agg_ref
+    from repro_torch.launch.steps import abstract_params
+    from repro_torch.utils.bridge import ParamLayout
+    P = ParamLayout.of(abstract_params(get_config("smollm-135m"))).size
+    M, bf16 = ROUND_C, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+    stack = (torch.randn((M, P), generator=g, device=dev) * 0.02).to(bf16)
+    own = (torch.randn(P, generator=g, device=dev) * 0.02).to(bf16)
+    w = torch.softmax(torch.randn(M, generator=g, device=dev), 0)
+    ulps, floor_abs = ROUND_MIX_TOL
+    errs = {}
+    for any_ok in (True, False):
+        ok = torch.tensor(any_ok, device=dev)
+        out = k2.weighted_agg(own, stack, w, ROUND_ALPHA, any_ok=ok)
+        expect = weighted_agg_ref(own, stack, w, ROUND_ALPHA, any_ok=ok)
+        diff = (out.float() - expect.float()).abs()
+        errs[any_ok] = float(diff.max())
+        excess = float((diff - ulps * expect.float().abs()).max())
+        print(f"K2 round step mix bf16 M={M} P={P} any_ok={any_ok}: "
+              f"max|d|={errs[any_ok]:.3g} max(|d| - 2^-7|ref|)={excess:.3g}"
+              f" tol: |d| <= 2^-7|ref| + {floor_abs:g}")
+        if not excess <= floor_abs or (not any_ok
+                                       and not torch.equal(out, own)):
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"the round step's mix (any_ok={any_ok})")
+        del out, expect, diff
+    ok = torch.tensor(True, device=dev)
+    wb = w.to(bf16)
+    bytes_ms = (M + 2) * P * 2 / HBM_BYTES_PER_S * 1e3
+    ops_ms = (2 * M + 3) * P / FP32_FLOPS * 1e3
+
+    def kernel():
+        return k2._launch(own, stack, w, ROUND_ALPHA, None, ok, M)
+
+    row = {
+        "name": "weighted_agg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/weighted_agg.cu",
+        "replaces": "src/repro/kernels/weighted_agg.py:31",
+        "main_path": "pfedwn round step (launch/steps.py::make_pfedwn_"
+                     "round_step), smollm-135m bf16, C 4 gloo ranks on one "
+                     "card: one launch a round a rank",
+        "launches": n2, "launches_per_rank": per_rank,
+        "max_abs_err": errs[True], "max_abs_err_all_erased": errs[False],
+        "tolerance": {"per_ref": ulps, "abs": floor_abs},
+        "shape": {"M": M, "P": P, "dtype": "bfloat16"},
+        "ms": time_ms(kernel),
+        "cold_ms": cold_ms(kernel, dev, iters=20),
+        "plain_ms": time_ms(lambda: weighted_agg_ref(
+            own, stack, w, ROUND_ALPHA, any_ok=ok), iters=3, reps=5),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": time_ms(lambda: torch.addmv(
+            own, stack.T, wb, beta=ROUND_ALPHA, alpha=1 - ROUND_ALPHA)),
+        "library_note": "torch.addmv in bf16 (w rounded to bf16)",
+        "vector_bytes": k2.vector_bytes(
+            (own.data_ptr(), stack.data_ptr()), stack.stride(0) * 2, bf16),
+        "grid": k2.last_grid, "floor_ms": floor}
+    del stack, own
+    torch.cuda.empty_cache()
+    return row
 
 
 def time_ms(fn, iters=20, reps=10) -> float:
@@ -4101,6 +4521,18 @@ def main() -> int:
     fed = run_fed_main_path(dev)
     print(f"federated main path wall {time.perf_counter() - t0:.1f} s")
 
+    _phase("7h. pfedwn round step: reduced smollm-135m card vs CPU at C = 4 "
+           "(C = 2 is tests/test_torch_gpu.py's), then smollm-135m bf16 at "
+           "full width over C = 4 ranks, and K2 at its mix")
+    t0 = time.perf_counter()
+    round_small = {str(k)[6:]: v for k, v in
+                   check_round_step_against_cpu(dev).items()}
+    print(f"7h card vs CPU wall {time.perf_counter() - t0:.1f} s; worst "
+          f"gaps {json.dumps(round_small)}")
+    t0 = time.perf_counter()
+    rounds = run_round_main_path(dev)
+    print(f"round step main path wall {time.perf_counter() - t0:.1f} s")
+
     _phase("8. kernel times")
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
     floor = floor_ms(dev)
@@ -4174,6 +4606,21 @@ def main() -> int:
                              err3_bf16[BWD_TRAIN_4K], floor,
                              "make_train_step chatglm3-6b at train_4k (bf16, "
                              "global_batch cut to 2)", BUILDER_TRAIN_STEPS,
+                             dtype=torch.bfloat16)]
+    rows += [
+        k2_round_report(dev, rounds["k2"], rounds["k2_per_rank"], floor),
+        attention_bf16_report(dev, ATTN_ROUND_TRAIN, rounds["k3_forward"],
+                              err3[(ATTN_ROUND_TRAIN, "bf16")], floor,
+                              "pfedwn round step smollm-135m (bf16, C 4 "
+                              "ranks): the local step's forward at this "
+                              "shape and the probe's C a round at (2, 512); "
+                              "launches over ranks and rounds"),
+        attention_bwd_report(dev, ATTN_ROUND_TRAIN,
+                             rounds["k3_bf16_backward"],
+                             err3_bf16[ATTN_ROUND_TRAIN], floor,
+                             "pfedwn round step smollm-135m (bf16, C 4 "
+                             "ranks): the local step; launches over ranks "
+                             "and rounds", rounds["steps"],
                              dtype=torch.bfloat16)]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],

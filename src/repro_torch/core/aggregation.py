@@ -21,7 +21,10 @@ collectives they made, as the kernels count their launches.
 
 Production scale: :func:`pod_mix`, the same equation as a collective in
 which every rank is one client: one all-gather of the rank's models, then
-one Eq-1 launch over the gathered rows with the rank's row of π.
+one Eq-1 launch over the gathered rows with the rank's row of π. The
+multi-pod round step (``launch/steps.py::make_pfedwn_round_step``) inlines
+its own mix and makes its collectives through :func:`all_gather` and
+:func:`all_reduce`, counted here under ``calls["round_step"]``.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ Tree = Any
 # calls of each client-collective wrapper, and the collectives they made,
 # since the last reset
 calls: Dict[str, int] = {"client_weighted_mean": 0, "gather_clients": 0,
-                         "exchange_block": 0, "pod_mix": 0}
+                         "exchange_block": 0, "pod_mix": 0, "round_step": 0}
 collectives = 0
 
 
@@ -112,8 +115,9 @@ def _started(group) -> bool:
     return group is not None or (dist.is_available() and dist.is_initialized())
 
 
-def _all_gather(local: torch.Tensor, group) -> torch.Tensor:
-    """(D·K, ...) from every rank's (K, ...) ``local``, in rank order."""
+def all_gather(local: torch.Tensor, group=None) -> torch.Tensor:
+    """(D·K, ...) from every rank's (K, ...) ``local``, in rank order: one
+    collective, in ``local``'s dtype (gloo takes fp32, bf16 and int8)."""
     global collectives
     if not _started(group):
         return local
@@ -129,18 +133,24 @@ def _all_gather(local: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+
+def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the group's ranks, in place: one collective."""
+    global collectives
+    if _started(group):
+        dist.all_reduce(x, group=group)
+        collectives += 1
+    return x
+
+
 def client_weighted_mean(params_local: torch.Tensor, w_local: torch.Tensor,
                          group=None) -> torch.Tensor:
     """Σ_n w_n·ω_n over all N clients: this rank contracts its (S, P) slab
     with its (S,) slice of the *globally normalised* weights, and one
     all-reduce of the (P,) partial sums completes it. Matches
     ``baselines.fedavg_aggregate`` up to float summation order."""
-    global collectives
     calls["client_weighted_mean"] += 1
-    part = w_local.float() @ params_local.float()
-    if _started(group):
-        dist.all_reduce(part, group=group)
-        collectives += 1
+    part = all_reduce(w_local.float() @ params_local.float(), group)
     return part.to(params_local.dtype)
 
 
@@ -149,14 +159,14 @@ def gather_clients(params_local: torch.Tensor, group=None) -> torch.Tensor:
     slab: one all-gather, the slabs in rank order (the contiguous client
     partition's order)."""
     calls["gather_clients"] += 1
-    return _all_gather(params_local, group)
+    return all_gather(params_local, group)
 
 
 def exchange_block(packed: torch.Tensor, group=None) -> torch.Tensor:
     """(D, K) from every rank's (K,) ``packed`` block metrics: the one small
     exchange of a sharded block."""
     calls["exchange_block"] += 1
-    return _all_gather(packed[None], group)
+    return all_gather(packed[None], group)
 
 
 def pod_mix(params: Tree, pi_matrix, alpha: float,
@@ -187,7 +197,7 @@ def pod_mix(params: Tree, pi_matrix, alpha: float,
         row = row * torch.as_tensor(link_ok, device=dev)[rank].float()
     total = torch.sum(row)
     row = torch.where(total > 0, row / torch.clamp(total, min=1e-30), row)
-    allp = _all_gather(own[None], group)               # (C, P)
+    allp = all_gather(own[None], group)               # (C, P)
     out = weighted_agg(own, allp, row, alpha, any_ok=total > 0)
     parts = torch.split(out, [x.numel() for x in leaves])
     return tree_unflatten([p.reshape(x.shape).to(x.dtype)

@@ -28,6 +28,7 @@ from repro_torch.kernels.ref import weighted_agg_ref
 # vector widths in bytes the kernel is instantiated for, widest first
 VECTOR_BYTES = {torch.float32: (16, 8, 4), torch.bfloat16: (16, 8, 4, 2)}
 launches = 0                 # kernel launches since the last reset
+bf16_launches = 0            # of those, launches on bf16 buffers
 last_grid = 0                # blocks in the last launch
 
 _lib = None
@@ -93,7 +94,7 @@ def vector_bytes(addresses, row_stride_bytes: int,
 
 
 def _launch(own, neighbors, w, alpha, index, any_ok, M) -> torch.Tensor:
-    global launches, last_grid
+    global launches, bf16_launches, last_grid
     P = own.shape[0]
     out = torch.empty_like(own)
     vb = vector_bytes((own.data_ptr(), out.data_ptr(), neighbors.data_ptr()),
@@ -110,6 +111,7 @@ def _launch(own, neighbors, w, alpha, index, any_ok, M) -> torch.Tensor:
         raise RuntimeError(f"weighted_agg kernel launch failed: CUDA error "
                            f"{rc}")
     launches += 1
+    bf16_launches += own.dtype == torch.bfloat16
     last_grid = grid.value
     return out
 

@@ -10,12 +10,16 @@
     ``abstract_cache`` build the param and cache trees there, the port's
     ``jax.eval_shape``;
   - ``_per_sequence_loss``: the (B,) mean cross-entropy a sequence, the EM
-    per-sample loss at LM scale.
+    per-sample loss at LM scale;
+  - ``make_pfedwn_round_step``: the multi-pod production round, one FL
+    client a rank of the mesh's ``"pod"`` group: local step, model
+    exchange (one all-gather, the D2D over-the-air hop, optionally int8),
+    EM weights on a probe slice (Eq 9-10), and the Eq-1 mix gated by the
+    wireless link mask, through K2.
 
 Off a mesh the reference's sharding hints and gradient layouts do
 nothing, and ``unroll`` only changes how XLA counts a scanned layer, so
-the port has neither. The multi-pod round (``make_pfedwn_round_step``)
-is not ported yet (ROADMAP Queue A, A3).
+the port has neither.
 
 The reference's defaults are bf16 (``input_specs``, ``abstract_params``,
 ``abstract_cache``); so are these. A step runs in the params' dtype: on a
@@ -24,14 +28,18 @@ configs' head dims, 64 and 128).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.core import aggregation, em
+from repro_torch.kernels.weighted_agg import weighted_agg
+from repro_torch.launch.mesh import MeshSpec, pod_group
 from repro_torch.launch.train import (_layered, _sgd_in_param_dtype_,
                                       value_and_grad)
 from repro_torch.models import model as model_lib
+from repro_torch.utils.bridge import ParamLayout, tree_leaves
 
 Params = Any
 
@@ -159,3 +167,146 @@ def _per_sequence_loss(params: Params, cfg: ModelConfig,
     per_tok = (lse - ll) * mask
     return torch.sum(per_tok, dim=1) / torch.clamp(torch.sum(mask, dim=1),
                                                    min=1.0)
+
+
+# the round's metrics, in the order they are packed for the one all-reduce
+ROUND_METRICS = ("loss", "xent", "aux", "mtp")
+
+
+def exchange_models(flat: torch.Tensor, layout: ParamLayout,
+                    exchange_bits: int, group=None) -> torch.Tensor:
+    """The D2D exchange: every rank's (P,) model as a (C, P) stack in the
+    params' dtype, rows in rank order. Full precision by one all-gather;
+    with ``exchange_bits == 8`` each leaf is quantized symmetrically per
+    tensor as the reference does (steps.py:202-211): scale = max(max|p|,
+    1e-12) / 127 in fp32, q = clip(round(p / scale), -127, 127) as int8
+    (rounding half to even), one all-gather of the int8 buffer and one of
+    the (n_leaves,) fp32 scales, then q · scale in the params' dtype. Each
+    of these is one pass over the whole buffer, the scales repeated over
+    their leaves' elements. The divisions are IEEE divisions on both
+    devices (a CUDA tensor divided by a Python number is multiplied by its
+    reciprocal instead, an ulp off the reference's scale)."""
+    if exchange_bits != 8:
+        return aggregation.all_gather(flat[None], group)
+    dev, sizes = flat.device, layout.sizes
+
+    def per_element(s: torch.Tensor) -> torch.Tensor:
+        # (n_leaves,) -> (P,): each leaf's entry over its elements
+        return torch.cat([v.expand(n) for v, n in zip(s, sizes)])
+
+    # max|p| of every leaf at once (exact in the params' dtype)
+    amax = torch.stack(torch._foreach_norm(
+        [x.reshape(-1) for x in tree_leaves(layout.views(flat))],
+        float("inf")))
+    scales = (torch.clamp(amax.float(), min=1e-12)
+              / torch.full((), 127.0, device=dev))
+    q = torch.div(flat, per_element(scales))    # in fp32, as p.f32 / scale
+    q = torch.clamp_(torch.round_(q), -127, 127).to(torch.int8)
+    qg = aggregation.all_gather(q[None], group)                 # (C, P)
+    sg = aggregation.all_gather(scales[None], group)            # (C, n)
+    del q
+    out = torch.empty(qg.shape, dtype=flat.dtype, device=dev)
+    for row, q_row, s_row in zip(out, qg, sg.to(flat.dtype)):
+        torch.mul(q_row, per_element(s_row), out=row)
+    return out
+
+
+def make_pfedwn_round_step(cfg: ModelConfig, train: TrainConfig,
+                           shape: ShapeConfig, mesh: MeshSpec, *,
+                           n_clients: int, alpha: float = 0.5,
+                           em_iters: int = 3, probe_sequences: int = 4,
+                           probe_tokens: int = 512, exchange_bits: int = 16,
+                           group=None) -> Callable:
+    """The multi-pod production round (the reference's steps.py:165-273),
+    rank-local: ``round_step(params, batch, pi_matrix, link_ok) ->
+    (params, new_pi, metrics)``, run by every rank of the ``"pod"`` group
+    (``group``, else the first ``n_clients`` ranks of the started default
+    group; ``launch/mesh.py::pod_group``), rank c being client c.
+
+    ``params`` and ``batch`` are this rank's client, with no client axis;
+    every leaf of ``params`` in one dtype, updated in place and returned.
+    ``pi_matrix`` (C, C) fp32 and ``link_ok`` (C, C) bool are the same on
+    every rank. A round:
+      1. the local step, ``make_train_step(cfg, train, shape)``;
+      2. the exchange (:func:`exchange_models`) of a copy of the rank's
+         leaves as one (P,) buffer;
+      3. EM (Eq 9-10): the (n, C) per-sequence losses of the C exchanged
+         models on the probe ``batch[:probe_sequences, :probe_tokens]``,
+         each read through views of its row under ``no_grad``, 1e30 added
+         to the rank's own column; π from the rank's row of
+         ``pi_matrix``, entries <= 0 replaced by 1/C, normalised;
+         ``em.em_weights`` for ``em_iters`` iterations (its floor leaves
+         the own weight near 1e-8);
+      4. the Eq-1 mix: w = π*·link_ok[rank] renormalised where its total
+         is > 0, then one K2 launch of the exact own buffer with the C
+         exchanged rows (the rank's own among them, dequantized in int8
+         mode, at its ~1e-8 weight); a rank whose links are all erased
+         keeps its post-step model bit for bit; the result is copied
+         back into the leaves;
+      5. ``new_pi`` (C, C): one all-gather of π*; ``metrics``: one
+         all-reduce of the packed ``ROUND_METRICS`` over C.
+    That is 3 collectives a round (4 with int8: the scales), counted in
+    ``core.aggregation.collectives`` under ``calls["round_step"]``, and no
+    host sync. ``mark(stage)``, when given, is called after each of the
+    stages ``"local_step"``, ``"exchange"``, ``"em"``, ``"mix"`` and
+    ``"outputs"`` (a timer's hook).
+
+    Raises ValueError unless the mesh's ``"pod"`` axis, ``n_clients`` and
+    the group's size agree."""
+    pod = mesh.axis_sizes().get("pod")
+    if pod != n_clients:
+        raise ValueError(f"the mesh's 'pod' axis has {pod} clients, "
+                         f"n_clients is {n_clients}")
+    clients = pod_group(mesh, group)
+    C, rank, grp = n_clients, clients.rank, clients.group
+    window = effective_window(cfg, shape)
+    local_step = make_train_step(cfg, train, shape)
+
+    def round_step(params: Params, batch: Dict, pi_matrix: torch.Tensor,
+                   link_ok: torch.Tensor, *,
+                   mark: Optional[Callable[[str], None]] = None):
+        aggregation.calls["round_step"] += 1
+        mark = mark or (lambda stage: None)
+        layout, leaves = ParamLayout.of(params), tree_leaves(params)
+        if len({x.dtype for x in leaves}) != 1:
+            raise ValueError("the round step exchanges one flat buffer: "
+                             "every param must have one dtype")
+        params, metrics = local_step(params, batch)
+        mark("local_step")
+        with torch.no_grad():
+            own = torch.cat([x.reshape(-1) for x in leaves])
+            stack = exchange_models(own, layout, exchange_bits, grp)
+            mark("exchange")
+
+            tok = batch["tokens"][:probe_sequences, :probe_tokens]
+            lbl = batch["labels"][:probe_sequences, :probe_tokens]
+            losses = torch.stack(
+                [_per_sequence_loss(layout.views(stack[m]), cfg, tok, lbl,
+                                    window) for m in range(C)], dim=1)
+            self_mask = torch.zeros(C, dtype=losses.dtype,
+                                    device=losses.device)
+            self_mask[rank] = 1e30          # exclude own model (Sec IV-B)
+            losses = losses + self_mask[None, :]
+            pi_row = pi_matrix[rank]
+            pi_row = torch.where(pi_row > 0, pi_row, 1.0 / C)
+            pi_star, _ = em.em_weights(pi_row / torch.sum(pi_row), losses,
+                                       iters=em_iters)
+            mark("em")
+
+            w = pi_star * link_ok[rank].to(pi_star.dtype)
+            total = torch.sum(w)
+            w = torch.where(total > 0, w / torch.clamp(total, min=1e-30), w)
+            mixed = weighted_agg(own, stack, w.float().contiguous(), alpha,
+                                 any_ok=total > 0)
+            for x, v in zip(leaves, tree_leaves(layout.views(mixed))):
+                x.copy_(v)
+            mark("mix")
+
+            new_pi = aggregation.all_gather(pi_star.float()[None], grp)
+            packed = torch.stack([torch.as_tensor(metrics[k]).float()
+                                  .to(own.device) for k in ROUND_METRICS])
+            packed = aggregation.all_reduce(packed, grp) / C
+            mark("outputs")
+        return params, new_pi, dict(zip(ROUND_METRICS, packed.unbind()))
+
+    return round_step

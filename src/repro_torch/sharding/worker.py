@@ -2,6 +2,7 @@
 
     spawn(run_methods, D, backend, device, build, build_kw, methods)
     spawn(run_pod_mix, C, backend, device, cases, device)
+    spawn(run_round_step, C, backend, device, cases, device)
 
 :func:`run_methods` builds a simulation, runs methods on it and reports
 what each run did. ``build(**build_kw)`` makes the rank's
@@ -10,11 +11,13 @@ serves, with its constructor's arguments), so a test, a bench or
 ``chip_smoke.py`` sends its datasets or its scenario builder, and every
 rank runs the same methods in the same order, as the sharded engine needs.
 :func:`run_pod_mix` runs :func:`repro_torch.core.aggregation.pod_mix` with
-each rank one client.
+each rank one client; :func:`run_round_step` runs rounds of
+``launch/steps.py::make_pfedwn_round_step`` likewise.
 """
 from __future__ import annotations
 
 import contextlib
+import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -22,7 +25,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.core import aggregation
-from repro_torch.kernels import em_posterior, weighted_agg
+from repro_torch.kernels import em_posterior, flash_attention, weighted_agg
 
 
 def count_syncs(fn: Callable[[], Any]):
@@ -106,4 +109,150 @@ def run_pod_mix(cases, device: str) -> List[Dict[str, Any]]:
         out.append({"mixed": {k: v.cpu().numpy() for k, v in mixed.items()},
                     "collectives": aggregation.collectives,
                     "k2": weighted_agg.launches})
+    return out
+
+
+def _rank_params(case, rank: int, dev: torch.device):
+    """This rank's client params as one flat buffer on ``dev`` and its
+    layout: row ``rank`` of the case's stacked numpy tree (bf16 through
+    the bridge), cast to ``dtype`` when the case gives one; or, with
+    ``seed``, the ``rank``-th of C ``init_params`` draws in ``dtype`` from
+    one generator seeded with it, on ``dev``."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.models.model import init_params
+    from repro_torch.utils.bridge import (ParamLayout, from_jax_lm_params,
+                                          tree_leaves)
+    cfg = case["cfg"]
+    if case.get("params") is not None:
+        mine = from_jax_lm_params(tree_map(lambda v: v[rank],
+                                           case["params"]), cfg, dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(case["seed"])
+        for c in range(case["kw"]["n_clients"]):
+            drawn = init_params(cfg, gen, dev, case["dtype"])
+            if c == rank:
+                mine = drawn
+            del drawn
+    layout = ParamLayout.of(mine)
+    flat = torch.cat([x.reshape(-1) for x in tree_leaves(mine)])
+    flat = flat.to(case.get("dtype", flat.dtype))
+    del mine
+    return flat, layout
+
+
+def _stamp(cuda: bool):
+    """A point in time: a recorded CUDA event on a card, else the host
+    clock."""
+    if not cuda:
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _ms(a, b, cuda: bool) -> float:
+    return a.elapsed_time(b) if cuda else (b - a) * 1e3
+
+
+def _k3_counts() -> Dict[str, Any]:
+    return {"forward": flash_attention.launches,
+            "bf16_forward": flash_attention.bf16_launches,
+            "backward": dict(flash_attention.backward_launches),
+            "bf16_backward": dict(flash_attention.bf16_backward_launches)}
+
+
+def run_round_step(cases, device: str) -> List[Dict[str, Any]]:
+    """Rank body: for each case, rounds of
+    :func:`~repro_torch.launch.steps.make_pfedwn_round_step` with this rank
+    client ``rank`` on ``device``.
+
+    A case is a dict: ``cfg``, ``train``, ``shape``, ``mesh``, ``kw``
+    (``make_pfedwn_round_step``'s keyword arguments, ``n_clients`` among
+    them, without ``exchange_bits``); ``params`` (a stacked numpy tree
+    (C, ...)) or ``seed`` and ``dtype`` (:func:`_rank_params`); ``batch``
+    ({name: (C, B, S) numpy}); ``pi_matrix`` (C, C), the first round's
+    (each later round takes the last ``new_pi``), and ``link_ok`` (C, C);
+    ``rounds``, the exchange bits of each round; ``keep`` (return the
+    final params); ``check`` (return each round's post-step params and
+    the stack :func:`~repro_torch.launch.steps.exchange_models` makes of
+    them).
+    Params and stacks come back as CPU tensors in their dtype.
+
+    Returns a dict a case: ``rounds``, one dict a round (``new_pi``,
+    ``metrics``, ``collectives``, ``calls``, ``k2``, ``k2_bf16``, ``k3``
+    (the forward's and each backward kernel's launches, all and bf16),
+    ``ms`` (host clock around the round, ending in a sync) and ``stage_ms``
+    (the stages' device time between CUDA events on a card, host clock on
+    the CPU), with ``check`` also ``post_step`` and ``stack``); ``params``
+    (with ``keep``) and ``peak_gib`` (the rank's peak device
+    memory on a card, else None)."""
+    from repro_torch.launch.mesh import pod_group
+    from repro_torch.launch.steps import exchange_models, \
+        make_pfedwn_round_step
+    from repro_torch.device import disable_tf32
+    rank = torch.distributed.get_rank()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        disable_tf32()
+    out = []
+    for case in cases:
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        flat, layout = _rank_params(case, rank, dev)
+        params = layout.views(flat)
+        batch = {k: torch.as_tensor(v[rank]).to(dev)
+                 for k, v in case["batch"].items()}
+        pi = torch.as_tensor(case["pi_matrix"], dtype=torch.float32,
+                             device=dev)
+        ok = torch.as_tensor(case["link_ok"], device=dev)
+        steps = {bits: make_pfedwn_round_step(
+            case["cfg"], case["train"], case["shape"], case["mesh"],
+            exchange_bits=bits, **case["kw"])
+            for bits in sorted(set(case["rounds"]))}
+        rounds = []
+        for bits in case["rounds"]:
+            marks, snap = [], {}
+
+            def mark(stage):
+                if stage == "local_step" and case.get("check"):
+                    snap["post"] = flat.clone()
+                marks.append((stage, _stamp(cuda)))
+
+            aggregation.reset_counts()
+            flash_attention.reset_counts()
+            weighted_agg.launches = weighted_agg.bf16_launches = 0
+            if cuda:
+                torch.cuda.synchronize(dev)
+            marks.append(("start", _stamp(cuda)))
+            t0 = time.perf_counter()
+            params, new_pi, metrics = steps[bits](params, batch, pi, ok,
+                                                  mark=mark)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            stage_ms = {b[0]: _ms(a[1], b[1], cuda)
+                        for a, b in zip(marks, marks[1:])}
+            pi = new_pi
+            r = {"exchange_bits": bits, "new_pi": new_pi.cpu().numpy(),
+                 "metrics": {k: float(v) for k, v in metrics.items()},
+                 "collectives": aggregation.collectives,
+                 "calls": dict(aggregation.calls),
+                 "k2": weighted_agg.launches,
+                 "k2_bf16": weighted_agg.bf16_launches, "k3": _k3_counts(),
+                 "ms": ms, "stage_ms": stage_ms}
+            if case.get("check"):
+                r["post_step"] = layout.views(snap["post"].cpu())
+                r["stack"] = exchange_models(
+                    snap["post"], layout, bits,
+                    pod_group(case["mesh"]).group).cpu()
+            rounds.append(r)
+        out.append({
+            "rounds": rounds,
+            "params": layout.views(flat.cpu()) if case.get("keep") else None,
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                         if cuda else None)})
+        del flat, params, batch, steps
     return out

@@ -73,6 +73,13 @@ class ParamLayout:
         leaves, template = _flatten(spec)
         return cls(template, tuple(tuple(int(d) for d in s) for s in leaves))
 
+    @classmethod
+    def of(cls, tree: Tree) -> "ParamLayout":
+        """Layout of a tree of tensors or arrays, from their shapes."""
+        leaves, template = _flatten(tree)
+        return cls(template, tuple(tuple(int(d) for d in x.shape)
+                                   for x in leaves))
+
     @property
     def sizes(self) -> Tuple[int, ...]:
         return tuple(int(np.prod(s, dtype=np.int64)) for s in self.shapes)
@@ -95,6 +102,12 @@ class ParamLayout:
             leaves.append(flat[..., off:off + n].view(lead + shape))
             off += n
         return _fill(self.template, leaves)
+
+
+def tree_leaves(tree: Tree) -> List[Any]:
+    """The leaves of a tree of dicts and lists in the reference's order
+    (``jax.tree.leaves``: dict keys sorted), the flat buffer's order."""
+    return _flatten(tree)[0]
 
 
 def _is_stacked(tree: Tree) -> bool:

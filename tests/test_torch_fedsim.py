@@ -255,6 +255,21 @@ tok = torch.zeros((1, 4), dtype=torch.int64)
 bf = repro_torch.models.model.init_params(lm, torch.Generator(), "cpu",
                                           torch.bfloat16)
 assert torch.isfinite(step(bf, {"tokens": tok, "labels": tok})[1]["loss"])
+from repro_torch.launch import mesh
+from repro_torch.sharding import rules
+assert mesh.make_production_mesh(multi_pod=True).axis_sizes() == \
+    {"pod": 2, "data": 16, "model": 16}
+assert rules.param_shardings(mesh.make_debug_mesh(), steps.abstract_params(
+    lm))["embed"] == ("model", "data")
+round_step = steps.make_pfedwn_round_step(
+    lm, repro_torch.configs.TrainConfig(lr=3e-3),
+    repro_torch.configs.ShapeConfig("t", 4, 1, "train"),
+    mesh.MeshSpec(("pod",), (1,)), n_clients=1, probe_sequences=1,
+    probe_tokens=4)
+assert torch.isfinite(round_step(bf, {"tokens": tok, "labels": tok},
+                                 torch.ones((1, 1)),
+                                 torch.ones((1, 1), dtype=torch.bool))[2]
+                      ["loss"])
 one = FederatedSimulation(*args[:-1], FedSimConfig(
     rounds=2, batch_size=16, em_iters=2, em_subset=32, sharded=True),
     device="cpu")

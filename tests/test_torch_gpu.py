@@ -10,8 +10,9 @@ arange bitwise the index path); every federated method, the serving path
 (GQA, MLA, MoE with and without capacity drops, Mamba1 and Mamba2 with
 zamba2's shared block, qwen2-vl and musicgen after their stub prefix; the
 dense configs also in bf16) and LM training (also under M-RoPE positions,
-and a bf16 ``make_train_step``) on the card against the CPU,
-with the kernel launches each path makes. Every test
+and a bf16 ``make_train_step``) and the multi-pod round step on the
+card against the CPU, with the kernel launches each path makes; K2 at
+the round step's full-width mix. Every test
 here needs a CUDA card and skips without one; the file imports nothing of
 JAX, so it runs where only the port is installed:
 
@@ -1422,3 +1423,39 @@ def test_lint_blocks_on_card(cuda, engine, devices):
     torch.cuda.empty_cache()
     assert blocks.main(["--engine", engine, "--devices", str(devices),
                         "--device", "cuda"]) == 0
+
+
+@pytest.mark.gpu
+def test_round_step_on_card_matches_cpu(cuda):
+    """The multi-pod round step at reduced smollm-135m on 2 gloo ranks on
+    the card against 2 on the CPU, exchange 16 and 8, fp32 within 1e-4 and
+    bf16 within max(2e-2, the CPU's own bf16-vs-fp32 gap), the local
+    step's update in relative norm; K2 once a rank, K3's forward once a
+    layer a model (chip_smoke phase 7h's check, which runs C = 4)."""
+    worst = chip_smoke.check_round_step_against_cpu(cuda, clients=(2,))
+    assert max(worst[torch.float32].values()) <= chip_smoke.TRAIN_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_ok", [True, False])
+def test_weighted_agg_at_the_round_step_mix_on_card(cuda, any_ok):
+    """K2 at the round step's full-width mix: bf16, P = smollm-135m's
+    162,826,560 params, M = 4 rows (the own model among them), against
+    the plain version within one bf16 ulp (``ROUND_MIX_TOL``: each rounds
+    an fp32 sum once); with every link erased own comes back bitwise."""
+    P, M = 162_826_560, 4
+    g = torch.Generator(device=cuda).manual_seed(5)
+    stack = (torch.randn((M, P), generator=g, device=cuda) * 0.02).bfloat16()
+    own = (torch.randn(P, generator=g, device=cuda) * 0.02).bfloat16()
+    w = torch.softmax(torch.randn(M, generator=g, device=cuda), 0)
+    ok = torch.tensor(any_ok, device=cuda)
+    before = (k2.launches, k2.bf16_launches)
+    out = k2.weighted_agg(own, stack, w, 0.5, any_ok=ok)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.bf16_launches) == (before[0] + 1, before[1] + 1)
+    expect = tref.weighted_agg_ref(own, stack, w, 0.5, any_ok=ok)
+    diff = (out.float() - expect.float()).abs()
+    ulps, floor_abs = chip_smoke.ROUND_MIX_TOL
+    assert float((diff - ulps * expect.float().abs()).max()) <= floor_abs
+    if not any_ok:
+        assert torch.equal(out, own)
