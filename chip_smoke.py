@@ -90,7 +90,8 @@ when it ends:
      prefill (B 8, S 1280, H 12, KH 2, Dh 128; B 8, S 1088, H 32, KH 32,
      Dh 64) and training (B 8 x S 512 and 320) shapes; then K3 with
      explicit positions (its position instantiations, forward, LSE and
-     backward, fp32, the forward also bf16) at qwen2-vl's and musicgen's
+     backward, fp32, the forward and (PR 29) the backward also bf16, under
+     the bf16 backward's gate below) at qwen2-vl's and musicgen's
      heads over S 320: the arange (output, LSE and gradients bitwise the
      index path's), M-RoPE's temporal component (256 patches tied at 0,
      then text from 16), a tail of -1s, a window of 256, keys past the
@@ -98,14 +99,16 @@ when it ends:
      M-RoPE positions permuted under a window of 100, and the same
      forward and LSE checks at Dh 48, 96 and 112 (whose backward takes no
      positions); then the forward at
-     qwen2-vl's prefill under its M-RoPE prompt's positions; K3's fp32
+     qwen2-vl's prefill under its M-RoPE prompt's positions and the bf16
+     backward at its training shape under them; K3's fp32
      backward also at chatglm3-6b's training shape (B 8, S 256, 32 heads
      over 2: G 16, Dh 128), and K3's bf16 training forward and backward
      (``csrc/flash_attention_bf16.cu`` and
      ``csrc/flash_attention_bwd_bf16.cu``: one bf16 ``wgmma`` a product;
      ``BWD_BF16_SHAPES``: that shape, train_4k's at B 2, the sweep's Dh
      64 and 128 shapes, ragged, windowed, G 1 to 16, fully masked rows, a
-     split plan) against the float64 plain backward of the same bf16
+     split plan, and (PR 29) Dh 48, 96 and 112 at minicpm3-4b's, zamba2-7b's
+     and reduced MLA's training shapes, ragged, windowed, split) against the float64 plain backward of the same bf16
      values within 2e-2 and within twice the error of the plain version
      of the kernels' bf16 arithmetic (``flash_attention_bwd_bf16_ref``:
      P and dS rounded to bf16 before their products) + 1e-4, the LSE
@@ -236,6 +239,24 @@ when it ends:
      peaks and their sum printed); phase 8 adds K2's row at its mix (bf16,
      P 162,826,560, M 4) and K3's bf16 forward and backward rows at the
      local step's shape;
+  7i. the MoE, MLA, SSM, hybrid and stub-prefix families in bf16: reduced
+     granite-moe-3b-a800m, deepseek-v3-671b, minicpm3-4b, falcon-mamba-7b,
+     zamba2-7b and qwen2-vl-2b on the card against the CPU (plain
+     kernels) with the same bf16 weights: a prefill after the stub prefix
+     and 4 teacher-forced decode steps within max(2e-2, the CPU's own
+     bf16-vs-fp32 gap), one make_train_step (qwen2-vl under its M-RoPE
+     positions) within the gates of phase 7g; then granite-moe,
+     minicpm3-4b, falcon-mamba, zamba2 and qwen2-vl at full width in bf16:
+     a serve of 8 x 1024 + 32 and 2 make_train_step steps at B 8 x S 256
+     (remat for the 7 B models), every K3 launch bf16, its backward's
+     kernels once an attention layer a step (qwen2-vl's with positions);
+     prefill, decode and step ms and peaks printed;
+  7j. the dry run (``launch/dryrun.py``): its sweep of every registered
+     arch x the four shapes on the meta device (``run_combo`` in 4
+     processes that see no card): 40 records ``status: ok``, deepseek-v3
+     meta only; then ``--run`` at
+     smollm-135m's train_4k on the card (global_batch 2: ms, peak), K3's
+     and K2's FLOPs counted on the card equal to the meta count;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
      at the main paths' shapes (K1 also in bf16, at smollm-135m's
      vocabulary and at the M = 39 round's shape, K2 also from a
@@ -252,7 +273,9 @@ when it ends:
      split-TF32, CUDA-core and bytes bounds, SDPA's backward under each
      backend that takes fp32; K3's bf16 forward at
      starcoder2-15b's prefill, its fp32 backward at chatglm3-6b's training
-     shape and its bf16 backward there and at train_4k's, the bf16 rows
+     shape and its bf16 backward there and at train_4k's, and (PR 29) at
+     minicpm3-4b's (Dh 96) and zamba2-7b's (Dh 112) training shapes and
+     by explicit positions at qwen2-vl-2b's (M-RoPE), the bf16 rows
      bounded at bf16's 989 TFLOP/s against SDPA in bf16, their launches
      the bf16 kernels' own counts)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
@@ -562,6 +585,16 @@ BWD_BF16_SHAPES = [
     (1, 64, 64, 16, 1, 128, True, 0),        # G 16
     BWD_FED,                                 # 6 splits and the reduce
     ATTN_ROUND_TRAIN,                        # the round step's local step
+    # Dh 48, 96 and 112 (PR 29): minicpm3-4b's and zamba2-7b's training
+    # shapes, reduced MLA's, a split plan, ragged, windowed, G > 1, fully
+    # masked rows
+    BWD_MINICPM, BWD_ZAMBA2, BWD_MLA_SMALL,
+    (4, 128, 128, 4, 4, 48, True, 0),        # 2 splits and the reduce
+    (2, 200, 200, 9, 3, 96, True, 0),
+    (1, 130, 130, 6, 2, 112, True, 70),
+    (1, 77, 50, 16, 1, 96, False, 20),
+    (2, 42, 43, 3, 1, 112, True, 0),
+    (1, 100, 100, 8, 2, 48, True, 0),
 ]
 # |d| <= tol + tol·|ref| for the fp32 kernel against the float64 plain
 # backward (tests/test_torch_gpu.py's tolerance); the row LSE likewise
@@ -591,6 +624,23 @@ FAMILY_FULL = {"granite-moe-3b-a800m": BWD_GRANITE,
                "minicpm3-4b": BWD_MINICPM, "falcon-mamba-7b": None,
                "zamba2-7b": BWD_ZAMBA2}
 FAMILY_REMAT = ("falcon-mamba-7b", "zamba2-7b")
+# phase 7i: the MoE, MLA, SSM, hybrid and stub-prefix families in bf16,
+# card vs CPU at reduced() (deepseek-v3 too), then at full width: a serve
+# of SERVE_B x SERVE_PROMPT + SERVE_GEN and BF16_FAMILY_STEPS steps of
+# make_train_step at TRAIN_B x TRAIN_S (the 7 B models with remat, as 7f;
+# qwen2-vl-2b after its 256 stub patches, under their M-RoPE positions, so
+# that K3's bf16 backward takes positions)
+BF16_FAMILY_ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b",
+                     "minicpm3-4b", "falcon-mamba-7b", "zamba2-7b",
+                     "qwen2-vl-2b")
+BF16_FAMILY_FULL = ("granite-moe-3b-a800m", "minicpm3-4b",
+                    "falcon-mamba-7b", "zamba2-7b", "qwen2-vl-2b")
+BF16_FAMILY_STEPS = 2
+# phase 7j: where the dry run's sweep writes, and its processes (it needs
+# no card; the SSM configs' per-step Mamba1 scans take ~20 s each on the
+# meta device, the others ~1 s)
+DRYRUN_OUT = os.path.join("experiments", "torch_dryrun")
+DRYRUN_WORKERS = 4
 FAMILY_STEPS = 4
 FED_C, FED_B, FED_S, FED_LOCAL, FED_ROUNDS = 4, 4, 128, 10, 2
 # phase 7g: the dense configs never run at full width before; their
@@ -1490,15 +1540,23 @@ def check_flash_attention(dev) -> dict:
             errs[shape if dtype == torch.float32 else (shape, "bf16")] = err
             if dtype == torch.float32 and shape[5] in (48, 96, 112):
                 _check_lse_instantiation(q, k, v, out, causal, window, shape)
-    for dh, dtype in ((192, torch.float32), (96, torch.bfloat16)):
+    # where the backward has no kernel: Dh 192 in either dtype, positions
+    # at Dh 96 (the position instantiations are at 64 and 128)
+    for dh, dtype, with_pos in ((192, torch.float32, False),
+                                (192, torch.bfloat16, False),
+                                (96, torch.bfloat16, True)):
         q, k, v = (t.requires_grad_() for t in _attn_inputs(
             (1, 64, 64, 2, 2, dh), dtype, dev))
+        pos = torch.arange(64, device=dev)
         n, bwd = k3.launches, dict(k3.backward_launches)
         try:
-            k3.flash_attention(q, k, v)
+            k3.flash_attention(q, k, v, **(dict(q_positions=pos,
+                                                kv_positions=pos)
+                                           if with_pos else {}))
         except ValueError as e:
-            print(f"K3 at Dh {dh} {str(dtype)[6:]} with a gradient: raises "
-                  f"before launching ({e})")
+            print(f"K3 at Dh {dh} {str(dtype)[6:]} with a gradient"
+                  f"{' and positions' if with_pos else ''}: raises before "
+                  f"launching ({e})")
         else:
             raise AssertionError(f"K3 at Dh {dh} {dtype} took a call that "
                                  "needs a gradient")
@@ -2309,7 +2367,8 @@ def check_flash_attention_backward_bf16(dev) -> dict:
                 and dtypes_ok and routed):
             raise AssertionError(f"K3's bf16 backward disagrees with its "
                                  f"plain version at {shape}")
-        if shape in (BWD_CHATGLM, BWD_TRAIN_4K, ATTN_ROUND_TRAIN):
+        if shape in (BWD_CHATGLM, BWD_TRAIN_4K, ATTN_ROUND_TRAIN,
+                     BWD_MINICPM, BWD_ZAMBA2):
             errs_at[shape] = (max(errs), max(excess))
         torch.cuda.empty_cache()
     return errs_at
@@ -2358,7 +2417,42 @@ def _position_pattern(name, n, device):
     return qp.to(device), kp.to(device), window
 
 
-def check_flash_attention_positions(dev) -> dict:
+def _bf16_position_errors(b16, grads, causal, window, pos) -> tuple:
+    """The bf16 backward with explicit positions (``grads``: the output
+    and dq, dk, dv of ``b16`` = q, k, v, dO in bf16) against the float64
+    plain backward of the same values (``BWD_BF16_TOL``, atol and rtol)
+    and, per gradient, within ``BWD_BF16_PLAIN_FACTOR`` x the plain bf16
+    version's error + ``BWD_BF16_PLAIN_ATOL`` (phase 6's gate). Returns
+    ({name: max |d|}, ok)."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ref
+    q, k, v, dout = b16
+    out32, lse = k3._launch(q, k, v, causal, window, with_lse=True, **pos)
+    plain = ref.flash_attention_bwd_bf16_ref(q, k, v, out32, lse, dout,
+                                             causal=causal, window=window,
+                                             **pos)
+    q64, k64, v64 = q.double(), k.double(), v.double()
+    expect = ref.flash_attention_bwd_ref(
+        q64, k64, v64, ref.flash_attention_ref(
+            q64, k64, v64, causal=causal, window=window, **pos),
+        ref.attention_lse_ref(q64, k64, causal=causal, window=window,
+                              **pos), dout.double(), causal=causal,
+        window=window, **pos)
+    errs, ok = {}, all(t.dtype == torch.bfloat16 for t in grads[1:])
+    for got, want, mine, key in zip(grads[1:], expect, plain,
+                                    ("dq16", "dk16", "dv16")):
+        diff = (got.double() - want).abs()
+        errs[key] = float(diff.max())
+        plain_err = float((mine.double() - want).abs().max())
+        ok &= (bool(torch.isfinite(got).all())
+               and float((diff - BWD_BF16_TOL * want.abs()).max())
+               <= BWD_BF16_TOL
+               and errs[key] <= BWD_BF16_PLAIN_FACTOR * plain_err
+               + BWD_BF16_PLAIN_ATOL)
+    return errs, ok
+
+
+def check_flash_attention_positions(dev) -> tuple:
     """K3 with explicit positions (``POS_SHAPES`` and ``POS_FWD_SHAPES``
     x ``POS_PATTERNS``) against its plain versions on the card: the
     serving forward in fp32 and bf16 (``ATTN_TOL``; fully masked rows
@@ -2366,12 +2460,15 @@ def check_flash_attention_positions(dev) -> dict:
     serving one's, row LSE within ``BWD_TOL``, +inf exactly on the fully
     masked rows) and, at the backward's head dims, the backward through
     the autograd path against the float64 plain backward (``BWD_TOL``;
-    fully masked rows' dq exactly 0); for the arange, the output, LSE and
-    gradients bitwise the index path's. Every call with positions must
-    count one position launch. Then the forward at qwen2-vl's full prefill
+    fully masked rows' dq exactly 0), and in bf16 under phase 6's bf16
+    gate (:func:`_bf16_position_errors`); for the arange, the output, LSE
+    and gradients (both dtypes) bitwise the index path's. Every call with
+    positions must count one position launch. Then the forward at qwen2-vl's full prefill
     (``ATTN_QWEN2VL``) under its M-RoPE prompt's temporal positions.
-    Raises past any; returns the max |d| of the last (phase 8's positions
-    row)."""
+    Then the bf16 backward with positions at qwen2-vl's training shape
+    under its M-RoPE prompt's temporal positions (``BWD_QWEN2VL``). Raises
+    past any; returns the max |d| of the fp32 prefill and of that bf16
+    backward (phase 8's positions rows)."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ref
     for shape in POS_SHAPES + POS_FWD_SHAPES:
@@ -2429,16 +2526,29 @@ def check_flash_attention_positions(dev) -> dict:
                         (diff - BWD_TOL * w.abs()).max()) <= BWD_TOL)
                 zero &= bool((grads[1][rows] == 0).all())
                 del expect, q64, k64, v64
+                # bf16 (PR 29): the kernels against the float64 backward
+                # of the same bf16 values and the plain bf16 version
+                b16 = [t.bfloat16() for t in (q, k, v, dout)]
+                grads16 = _autograd_grads(*b16, causal, window, **pos)
+                errs16, ok16 = _bf16_position_errors(b16, grads16, causal,
+                                                     window, pos)
+                errs.update(errs16)
+                bwd_ok &= ok16
+                zero &= bool((grads16[1][rows] == 0).all())
             same = True
             if name == "arange":             # bitwise the index path
                 idx_out, idx_lse = k3._launch(q, k, v, causal, window,
                                               with_lse=True)
                 idx = (_autograd_grads(q, k, v, dout, causal, window)
                        if bwd else ())
+                idx16 = (_autograd_grads(*b16, causal, window)
+                         if bwd else ())
                 same = (torch.equal(idx_out, trained)
                         and torch.equal(idx_lse, lse)
                         and all(torch.equal(a, b)
-                                for a, b in zip(idx, grads)))
+                                for a, b in zip(idx, grads))
+                        and all(torch.equal(a, b)
+                                for a, b in zip(idx16, grads16)))
             launched = k3.position_launches - n_pos
             print(f"K3 positions {name} {shape} window={window}: max|d| "
                   + " ".join(f"{key}={e:.3g}" for key, e in errs.items())
@@ -2446,7 +2556,7 @@ def check_flash_attention_positions(dev) -> dict:
                   f"zero {zero}, bitwise the index path {same}, position "
                   f"launches {launched}")
             if not (lse_ok and bwd_ok and zero and same
-                    and launched == 3 + bwd):
+                    and launched == 3 + 3 * bwd):
                 raise AssertionError(f"K3 with positions {name} disagrees "
                                      f"at {shape}")
     B, Sq, Skv, H, KH, Dh, causal, window = ATTN_QWEN2VL
@@ -2465,8 +2575,25 @@ def check_flash_attention_positions(dev) -> dict:
         raise AssertionError("K3 with positions disagrees at qwen2-vl's "
                              "prefill")
     del expect, diff
+    # the bf16 backward with positions at qwen2-vl's training shape, under
+    # its M-RoPE prompt's temporal positions (phase 7i's, phase 8's row)
+    causal, window = BWD_QWEN2VL[6], BWD_QWEN2VL[7]
+    qp = _mrope_layout(256, BWD_QWEN2VL[1] - 256, dev)[:, 0].contiguous()
+    pos = dict(q_positions=qp, kv_positions=qp)
+    b16 = _bwd_inputs(BWD_QWEN2VL, dev, dtype=torch.bfloat16)
+    grads16 = _autograd_grads(*b16, causal, window, **pos)
+    errs16, ok16 = _bf16_position_errors(b16, grads16, causal, window, pos)
+    print(f"K3 bf16 backward with positions, qwen2-vl's M-RoPE training "
+          f"shape {BWD_QWEN2VL}: max|d| "
+          + " ".join(f"{k}={e:.3g}" for k, e in errs16.items())
+          + f" (tol {BWD_BF16_TOL:g}, and within {BWD_BF16_PLAIN_FACTOR:g} x"
+          f" the plain bf16 version's + {BWD_BF16_PLAIN_ATOL:g}): {ok16}")
+    if not ok16:
+        raise AssertionError("K3's bf16 backward with positions disagrees "
+                             "at qwen2-vl's training shape")
+    del b16, grads16
     torch.cuda.empty_cache()
-    return err
+    return err, max(errs16.values())
 
 
 def check_train_against_cpu(dev, arch="smollm-135m", fed=True) -> dict:
@@ -2714,20 +2841,22 @@ def run_fed_main_path(dev) -> dict:
             "k3_backward": n_bwd}
 
 
-def _teacher_forced(cfg, params, prompts, tokens, window):
-    """``serve``'s logits (gen, B, V) for ``prompts`` when its decode is fed
-    ``tokens`` (B, gen) instead of its own argmax: the same prefill into
-    the same cache, then a decode step a token."""
+def _teacher_forced(cfg, params, prompts, tokens, window, stub=None):
+    """``serve``'s logits (gen, B, V) for ``prompts`` (after ``stub``,
+    when given) when its decode is fed ``tokens`` (B, gen) instead of its
+    own argmax: the same prefill into the same cache (n_stub + P + gen
+    positions), then a decode step a token."""
     from repro_torch.launch.serve import prefill_to_cache
     from repro_torch.models.model import decode
-    P, gen = prompts.shape[1], tokens.shape[1]
+    gen = tokens.shape[1]
+    start = prompts.shape[1] + (stub.shape[1] if stub is not None else 0)
     with torch.no_grad():
-        logits, cache = prefill_to_cache(params, cfg, prompts, P + gen,
-                                         window=window)
+        logits, cache = prefill_to_cache(params, cfg, prompts, start + gen,
+                                         window=window, stub_embeds=stub)
         out = [logits]
         for i in range(gen - 1):
             logits, cache = decode(params, cfg, tokens[:, i:i + 1], cache,
-                                   P + i, window=window)
+                                   start + i, window=window)
             out.append(logits)
     return torch.stack(out)
 
@@ -2891,6 +3020,252 @@ def check_dense_bf16_against_cpu(dev) -> dict:
             raise AssertionError(f"reduced {arch}'s bf16 train step on the "
                                  f"card disagrees with the CPU's")
     return launches
+
+
+def _family_batch(cfg, B, S, dev, seed=0) -> dict:
+    """A training batch of ``cfg`` on ``dev``: ``token_batch_stream``'s
+    tokens and labels (B, S); with a stub frontend, N(0, 0.02²) stub
+    embeddings in bf16 (phase 7e's, not C6's zeros) and, under M-RoPE, the
+    prompt's positions (``_mrope_layout``), explicit."""
+    from repro_torch.data import token_batch_stream
+    raw = next(token_batch_stream(seed, batch=B, seq_len=S,
+                                  vocab=cfg.vocab))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    if cfg.n_stub_tokens:
+        g = torch.Generator().manual_seed(seed + 1)
+        batch["stub_embeds"] = (0.02 * torch.randn(
+            (B, cfg.n_stub_tokens, cfg.d_model), generator=g)).to(
+            dev, torch.bfloat16)
+    if cfg.rope == "mrope":
+        batch["positions"] = _mrope_layout(cfg.n_stub_tokens, S, dev)
+    return batch
+
+
+def check_families_bf16_against_cpu(dev) -> dict:
+    """``BF16_FAMILY_ARCHS`` at reduced() in bf16 on the card (K3's bf16
+    forward, and its bf16 backward in the step, at MLA's Dh 48, zamba2's
+    and the dense layers' 64, qwen2-vl's 128 with M-RoPE positions)
+    against the CPU (plain versions), the same bf16 weights (the seed-0
+    fp32 draws rounded), prompts, stub prefix and batch. Serving: a
+    37-token prefill after the stub prefix and 4 teacher-forced decode
+    steps (``_teacher_forced``), logits within max(2e-2, g), g the CPU's
+    own gap between this
+    bf16 run and its fp32 run on the same draws (``tests/
+    test_torch_bf16_families.py`` takes the reference's); every forward
+    launch bf16. Then one ``make_train_step`` (lr 3e-3, remat, B 2 x S 64;
+    qwen2-vl with its stub and M-RoPE positions): loss, params, gradients
+    and update within :func:`bf16_step_against_cpu`'s gates, every launch
+    bf16, K3's forward twice an attention layer (remat) and each backward
+    kernel once. Returns the card's K3 launches by (arch, run)."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import init_params
+    launches = {}
+    for arch in BF16_FAMILY_ARCHS:
+        cfg = get_config(arch).reduced()
+        p32 = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        p16 = tree_map(lambda t: t.bfloat16(), p32)
+        card = _tree_to(p16, dev)
+        prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+        feed = make_prompts(cfg, 2, 5, seed=2, device="cpu")
+        stub = (_family_batch(cfg, 2, 8, "cpu")["stub_embeds"]
+                if cfg.n_stub_tokens else None)
+        k3.reset_counts()
+        got = _teacher_forced(cfg, card, prompts.to(dev), feed.to(dev), 0,
+                              None if stub is None else stub.to(dev)).cpu()
+        n3 = launches[(arch, "serve")] = k3.launches
+        ref = _teacher_forced(cfg, p16, prompts, feed, 0, stub)
+        ref32 = _teacher_forced(cfg, p32, prompts, feed, 0,
+                                None if stub is None else stub.float())
+        gate = max(BWD_BF16_TOL, float((ref - ref32).abs().max()))
+        d = float((got - ref).abs().max())
+        print(f"serve reduced {arch} bf16, card vs CPU: max|dlogits|="
+              f"{d:.4g} (gate {gate:.4g}: max(2e-2, the CPU's bf16 vs fp32 "
+              f"{float((ref - ref32).abs().max()):.4g})); K3 {n3}")
+        if not (d <= gate and k3.bf16_launches == n3
+                and n3 == _attention_layers(cfg) - (1 if cfg.mtp_depth
+                                                    else 0)):
+            raise AssertionError(f"reduced {arch}'s bf16 serving on the card "
+                                 f"disagrees with the CPU's")
+        batch = _family_batch(cfg, 2, 64, "cpu")
+        r = bf16_step_against_cpu(cfg, p32, batch, dev)
+        n_fwd, n_bwd = r["k3_forward"], r["k3_backward"]
+        launches[(arch, "make_train_step")] = (n_fwd, n_bwd)
+        n_attn = _attention_layers(cfg)
+        s_eff = 64 + cfg.n_stub_tokens
+        kernels = (_bwd_kernels((2, s_eff, s_eff, cfg.n_heads,
+                                 cfg.n_heads if cfg.mla else cfg.n_kv_heads,
+                                 _attn_head_dim(cfg), True,
+                                 cfg.sliding_window), dev, torch.bfloat16)
+                   if n_attn else ())
+        print(f"make_train_step reduced {arch} bf16, card vs CPU: "
+              + ", ".join(f"{name} {r[name][0]:.4g} (gate {r[name][1]:.4g})"
+                          for name in BF16_STEP_GAPS)
+              + f"; K3 forward {n_fwd}, backward {n_bwd}")
+        if not (all(r[name][0] <= r[name][1] for name in BF16_STEP_GAPS)
+                and n_fwd == 2 * n_attn
+                and _bwd_counts_ok(n_bwd, kernels, n_attn)):
+            raise AssertionError(f"reduced {arch}'s bf16 train step on the "
+                                 f"card disagrees with the CPU's")
+    return launches
+
+
+def run_family_bf16_main_path(dev, arch) -> dict:
+    """``arch`` in bf16 at full width and depth (seed-0 weights): ``serve``
+    of SERVE_B x SERVE_PROMPT tokens (after the zero stub prefix) and
+    SERVE_GEN greedy steps, logits finite, K3's bf16 forward once an
+    attention layer in the prefill; then ``BF16_FAMILY_STEPS`` steps of
+    ``make_train_step`` at TRAIN_B x TRAIN_S (remat for ``FAMILY_REMAT``;
+    qwen2-vl under its M-RoPE positions), losses finite and params
+    changed, every K3 launch bf16, its forward once an attention layer a
+    step (twice under remat), each backward kernel of the plan once
+    (``bf16_backward_launches``; with positions for qwen2-vl, counted in
+    ``position_launches``). The weights are freed on return. Returns the
+    timings, losses, peaks and launches."""
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    gib = _tree_gib(params)
+    prompts = make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=0, device=dev)
+    n_attn = _attention_layers(cfg) - (1 if cfg.mtp_depth else 0)
+    k3.reset_counts()
+    res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    torch.cuda.synchronize()
+    n_serve = k3.launches
+    serve_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    finite = bool(torch.isfinite(res.logits).all())
+    timings = res.timings
+    del res
+    remat = arch in FAMILY_REMAT
+    shape = ShapeConfig("bf16_family", seq_len=TRAIN_S, global_batch=TRAIN_B,
+                        mode="train")
+    step = make_train_step(cfg, TrainConfig(lr=TRAIN_LR, remat=remat),
+                           shape)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    from torch.utils._pytree import tree_leaves
+    big = max(tree_leaves(params["layers"]), key=lambda t: t.numel())
+    stride = max(1, big.numel() // 4096)
+    before = big.reshape(-1)[::stride].clone()
+    k3.reset_counts()
+    losses, ms = [], []
+    for i in range(BF16_FAMILY_STEPS):
+        batch = _family_batch(cfg, TRAIN_B, TRAIN_S, dev, seed=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, metrics = step(params, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    n_bf16_bwd = dict(k3.bf16_backward_launches)
+    n_pos = k3.position_launches
+    routed = k3.bf16_launches == n_fwd and n_bf16_bwd == n_bwd
+    train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    changed = not torch.equal(before, big.reshape(-1)[::stride])
+    del params, metrics, batch, step, big
+    torch.cuda.empty_cache()
+    want = n_attn * BF16_FAMILY_STEPS
+    s_eff = TRAIN_S + cfg.n_stub_tokens
+    kernels = (_bwd_kernels((TRAIN_B, s_eff, s_eff, cfg.n_heads,
+                             cfg.n_heads if cfg.mla else cfg.n_kv_heads,
+                             _attn_head_dim(cfg), True, cfg.sliding_window),
+                            dev, torch.bfloat16) if n_attn else ())
+    mrope = cfg.rope == "mrope"
+    print(f"{arch} bf16 ({gib:.2f} GiB of weights): serve {SERVE_B} x "
+          f"{SERVE_PROMPT} + {SERVE_GEN}: prefill "
+          f"{timings['prefill_ms']:.2f} ms, decode "
+          f"{timings['decode_ms_per_step']:.2f} ms a step, finite {finite}, "
+          f"K3 {n_serve}, peak {serve_peak:.3f} GiB; {BF16_FAMILY_STEPS} "
+          f"make_train_step "
+          f"B={TRAIN_B} S={TRAIN_S} remat {remat}: ms {ms}, losses {losses}, "
+          f"params changed {changed}, peak {train_peak:.3f} GiB; K3 forward "
+          f"{n_fwd} (with positions {n_pos}), backward {n_bwd}, bf16 "
+          f"backward {n_bf16_bwd}")
+    if not (finite and n_serve == n_attn and all(np.isfinite(losses))
+            and changed and routed
+            and n_fwd == want * (2 if remat else 1)
+            and n_pos == (n_fwd if mrope else 0)
+            and _bwd_counts_ok(n_bwd, kernels, want)):
+        raise AssertionError(f"{arch}'s bf16 main paths: finite {finite}, "
+                             f"K3 {n_serve}, {n_fwd}, {n_bwd}, positions "
+                             f"{n_pos}, losses {losses}")
+    return {"weights_gib": gib, "serve": timings, "train_ms": ms,
+            "losses": losses, "serve_peak_gib": serve_peak,
+            "train_peak_gib": train_peak, "k3_serve": n_serve,
+            "k3_forward": n_fwd, "k3_backward": n_bwd,
+            "k3_bf16_backward": n_bf16_bwd, "k3_positions": n_pos}
+
+
+def run_dryrun_sweep(dev, out_dir) -> dict:
+    """Phase 7j: ``launch/dryrun.py``'s sweep of every registered arch x
+    the four shapes on the meta device (``run_combo``, each combination
+    once, in ``DRYRUN_WORKERS`` processes that see no card, the SSM
+    configs' per-step scans first; records under ``out_dir``): 40 records
+    ``status: ok``, deepseek-v3 meta only; then smollm-135m's train_4k
+    with ``--run``: the step on the card (global_batch cut to 2, as phase
+    7g), its ms and peak, and K3's and K2's FLOPs counted on the card
+    equal to the meta device's count of the same cut, kernel by kernel.
+    Returns the smollm-135m record's run and the sweep's seconds."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import SHAPES, get_config, list_archs
+    from repro_torch.launch import dryrun
+    combos = sorted(((a, n) for a in list_archs() for n in SHAPES),
+                    key=lambda c: get_config(c[0]).ssm is None)
+    t0 = time.perf_counter()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""       # the workers' view
+    try:
+        with ProcessPoolExecutor(
+                DRYRUN_WORKERS,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            recs = list(pool.map(dryrun.run_combo, *zip(*combos),
+                                 [out_dir] * len(combos)))
+    finally:
+        if visible is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES")
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    sweep_s = time.perf_counter() - t0
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in recs
+           if r["status"] != "ok"]
+    meta_only = [f"{r['arch']} x {r['shape']}" for r in recs
+                 if r.get("meta_only")]
+    print(f"dry run: {len(recs) - len(bad)} of {len(recs)} records ok in "
+          f"{sweep_s:.1f} s ({DRYRUN_WORKERS} processes); meta only (past "
+          f"80 GB at the cut batch): {meta_only}")
+    if bad or not all(f"deepseek-v3-671b x {n}" in meta_only
+                      for n in SHAPES):
+        raise AssertionError(f"the dry run failed: {bad}")
+    t0 = time.perf_counter()
+    rec = dryrun.run_combo("smollm-135m", "train_4k", out_dir, run=True)
+    run = rec.get("run")
+    if rec["status"] != "ok" or run is None:
+        raise AssertionError(f"the dry run's --run failed: "
+                             f"{rec.get('error')}")
+    same = (run["kernel_flops_card"] == run["kernel_flops_meta"] > 0
+            and {k: v["flops"] for k, v in run["kernels_card"].items()}
+            == {k: v["flops"] for k, v in run["kernels_meta"].items()})
+    print(f"dry run --run smollm-135m x train_4k ({run['cut']}): "
+          f"{run['ms']:.2f} ms a step, peak {run['peak_bytes'] / 2**30:.3f} "
+          f"GiB; kernel FLOPs on the card {run['kernel_flops_card']:.6e}, "
+          f"on the meta device {run['kernel_flops_meta']:.6e}, equal "
+          f"{same}; the full shape's extrapolated FLOPs "
+          f"{rec['flops']:.4e}, bytes {rec['bytes_accessed']:.4e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise AssertionError("K3's and K2's FLOPs counted on the card differ "
+                             "from the meta count")
+    return {"run": run, "sweep_s": sweep_s, "meta_only": meta_only}
 
 
 def _tree_gib(tree) -> float:
@@ -3887,7 +4262,7 @@ def attention_positions_report(dev, shape, n_pos, err, floor, main_path):
 
 
 def k3_bwd_times(dev, shape, k3=None, calls=None, dtype=torch.float32,
-                 iters=20) -> dict:
+                 iters=20, positions=None) -> dict:
     """K3's backward at ``shape`` in ``dtype``: the kernels' steady and
     cold ms together and each one's steady ms (its launches at ``shape``;
     ``iters`` calls a bracket), the bounds (five products of 2·Dh FLOPs for
@@ -3899,22 +4274,31 @@ def k3_bwd_times(dev, shape, k3=None, calls=None, dtype=torch.float32,
     o and the LSE (the port on the path by default); ``calls(q, k, v, out,
     lse, dout, causal, window)`` returns the backward's launches as (name,
     launch) pairs (by default ``k3._backward_launches``'s), so another
-    version of the kernels can be timed the same way."""
+    version of the kernels can be timed the same way. ``positions``:
+    explicit (Sq,) positions of both sides (int32 on the card), whose mask
+    sets the pairs and SDPA's boolean mask."""
+    from repro_torch.kernels.ref import _attention_mask
     if k3 is None:
         from repro_torch.kernels import flash_attention as k3
+    pos = ({} if positions is None else
+           dict(q_positions=positions, kv_positions=positions))
     if calls is None:
         def calls(*args):
-            return k3._backward_launches(*args)[1]
+            return k3._backward_launches(*args, **pos)[1]
     B, Sq, Skv, H, KH, Dh, causal, window = shape
     q, k, v, dout = _bwd_inputs(shape, dev, dtype=dtype)
-    out, lse = k3._launch(q, k, v, causal, window, with_lse=True)
+    out, lse = k3._launch(q, k, v, causal, window, with_lse=True, **pos)
     launches = calls(q, k, v, out, lse, dout, causal, window)
 
     def bwd():
         for _, launch in launches:
             launch()
 
-    pairs = _unmasked_pairs(Sq, Skv, causal, window)
+    mask = (None if positions is None else
+            _attention_mask(Sq, Skv, causal, window, dev, positions,
+                            positions))
+    pairs = (_unmasked_pairs(Sq, Skv, causal, window) if mask is None
+             else int(mask.sum()))
     ops = 5 * 2 * Dh * pairs * B * H
     nbytes = (q.element_size() * (4 * q.numel() + 2 * k.numel()
                                   + 2 * v.numel())
@@ -3941,14 +4325,15 @@ def k3_bwd_times(dev, shape, k3=None, calls=None, dtype=torch.float32,
         "bound_ops_ms": ops_ms, "bound_fp32_cuda_core_ms": fp32_ms,
         "bound_bytes_ms": bytes_ms, "bound_flops": ops,
         "bound_share": max(bytes_ms, ops_ms) / ms,
-        **sdpa_backward(q, k, v, dout, causal)}
+        "unmasked_pairs_per_head": pairs,
+        **sdpa_backward(q, k, v, dout, causal, mask)}
     del q, k, v, dout, out, lse, launches
     torch.cuda.empty_cache()
     return row
 
 
 def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path, steps,
-                         dtype=torch.float32):
+                         dtype=torch.float32, positions=None):
     """K3's backward row at one main path's shape (smollm-135m's training
     path's, B 8 x S 256, or its federated one's, B 4 x S 128; qwen2-vl's
     or musicgen's training path's, B 8 x S 256 after the stub prefix;
@@ -3956,17 +4341,21 @@ def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path, steps,
     launches that path made in its ``steps`` steps, the error phase 6
     found at that shape and the plain backward's ms (in bf16 the plain
     version of the bf16 kernels' arithmetic, ``flash_attention_bwd_bf16_ref``;
-    it and the kernels at train_4k's size are timed over fewer calls)."""
+    it and the kernels at train_4k's size are timed over fewer calls).
+    ``positions``: explicit (Sq,) positions of both sides (the position
+    instantiations)."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ref
     causal, window = shape[6], shape[7]
+    pos = ({} if positions is None else
+           dict(q_positions=positions, kv_positions=positions))
     big = shape[0] * shape[1] * shape[2] * shape[3] >= 2**28
     q, k, v, dout = _bwd_inputs(shape, dev, dtype=dtype)
-    out, lse = k3._launch(q, k, v, causal, window, with_lse=True)
+    out, lse = k3._launch(q, k, v, causal, window, with_lse=True, **pos)
     plain = (ref.flash_attention_bwd_bf16_ref if dtype == torch.bfloat16
              else ref.flash_attention_bwd_ref)
     plain_ms = time_ms(lambda: plain(
-        q, k, v, out, lse, dout, causal=causal, window=window),
+        q, k, v, out, lse, dout, causal=causal, window=window, **pos),
         iters=1 if big else 5, reps=3 if big else 5)
     plan = k3.backward_plan(*shape, k3._sm_count(dev), dtype)
     bf16 = dtype == torch.bfloat16
@@ -4011,14 +4400,17 @@ def attention_bwd_report(dev, shape, n_bwd, err, floor, main_path, steps,
                           "against the float64 plain backward"
                           + ("; and max|d| <= 2 x the plain bf16 version's "
                              "+ 1e-4" if bf16 else ""),
-        **k3_bwd_times(dev, shape, dtype=dtype, iters=3 if big else 20),
+        **k3_bwd_times(dev, shape, dtype=dtype, iters=3 if big else 20,
+                       positions=positions),
         "plain_ms": plain_ms,
         "back_to_back_ms": back_to_back_ms(lambda: k3._launch_backward(
-            q, k, v, out, lse, dout, causal, window), iters=5 if big else 50),
+            q, k, v, out, lse, dout, causal, window, **pos),
+            iters=5 if big else 50),
         "forward_lse_ms": time_ms(lambda: k3._launch(q, k, v, causal, window,
-                                                     with_lse=True)),
+                                                     with_lse=True, **pos)),
         "forward_serving_ms": time_ms(lambda: k3._launch(q, k, v, causal,
-                                                         window)),
+                                                         window, **pos)),
+        "positions": None if positions is None else "explicit",
         "floor_ms": floor}
 
 
@@ -4081,11 +4473,12 @@ def attention_bf16_report(dev, shape, n3, err, floor, main_path):
         "library_backend": sdpa_backends(sdpa)}
 
 
-def sdpa_backward(q, k, v, dout, causal) -> dict:
+def sdpa_backward(q, k, v, dout, causal, mask=None) -> dict:
     """SDPA's backward on the same inputs, timed only: forward and
     backward less the forward, with K and V repeated to H heads (so every
     backend that takes fp32 applies), under each backend in turn and
-    unrestricted (``library_ms``)."""
+    unrestricted (``library_ms``); with ``mask`` (Sq, Skv) bool, that mask
+    instead of ``is_causal`` (explicit positions)."""
     import warnings
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -4096,6 +4489,8 @@ def sdpa_backward(q, k, v, dout, causal) -> dict:
     dt = dout.transpose(1, 2).contiguous()
 
     def fwd():
+        if mask is not None:
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
     def both():
@@ -4417,7 +4812,7 @@ def main() -> int:
     err3 = check_flash_attention(dev)
     err3_bwd = check_flash_attention_backward(dev)
     err3_bf16 = check_flash_attention_backward_bf16(dev)
-    err3_pos = check_flash_attention_positions(dev)
+    err3_pos, err3_pos_bf16 = check_flash_attention_positions(dev)
 
     _phase("7. serving: small runs vs CPU, then the main paths (smollm-135m, "
            "then minicpm3-4b's MLA at full width)")
@@ -4533,6 +4928,24 @@ def main() -> int:
     rounds = run_round_main_path(dev)
     print(f"round step main path wall {time.perf_counter() - t0:.1f} s")
 
+    _phase("7i. the MoE, MLA, SSM, hybrid and stub-prefix families in bf16: "
+           "reduced vs CPU (deepseek-v3 too), then granite-moe, minicpm3-4b, "
+           "falcon-mamba, zamba2 and qwen2-vl (M-RoPE) at full width")
+    t0 = time.perf_counter()
+    bf16_small = check_families_bf16_against_cpu(dev)
+    print(f"7i card vs CPU wall {time.perf_counter() - t0:.1f} s; K3 "
+          f"launches {bf16_small}")
+    bf16_main = {}
+    for arch in BF16_FAMILY_FULL:
+        t0 = time.perf_counter()
+        bf16_main[arch] = run_family_bf16_main_path(dev, arch)
+        print(f"{arch} bf16 main paths wall {time.perf_counter() - t0:.1f} s")
+
+    _phase("7j. the dry run: every arch x shape on the meta device, then "
+           "smollm-135m train_4k on the card (--run), kernel FLOPs card vs "
+           "meta")
+    dry = run_dryrun_sweep(dev, DRYRUN_OUT)
+
     _phase("8. kernel times")
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
     floor = floor_ms(dev)
@@ -4622,6 +5035,27 @@ def main() -> int:
                              "ranks): the local step; launches over ranks "
                              "and rounds", rounds["steps"],
                              dtype=torch.bfloat16)]
+    qwen_pos = _mrope_layout(256, BWD_QWEN2VL[1] - 256, dev)[:, 0]
+    rows += [
+        attention_bwd_report(dev, BWD_MINICPM,
+                             bf16_main["minicpm3-4b"]["k3_bf16_backward"],
+                             err3_bf16[BWD_MINICPM], floor,
+                             "train minicpm3-4b (bf16, MLA, Dh 96)",
+                             BF16_FAMILY_STEPS, dtype=torch.bfloat16),
+        attention_bwd_report(dev, BWD_ZAMBA2,
+                             bf16_main["zamba2-7b"]["k3_bf16_backward"],
+                             err3_bf16[BWD_ZAMBA2], floor,
+                             "train zamba2-7b (bf16, the shared attention "
+                             "block, Dh 112)", BF16_FAMILY_STEPS,
+                             dtype=torch.bfloat16),
+        attention_bwd_report(dev, BWD_QWEN2VL,
+                             bf16_main["qwen2-vl-2b"]["k3_bf16_backward"],
+                             (err3_pos_bf16, None), floor,
+                             "train qwen2-vl-2b (bf16, M-RoPE positions, "
+                             "Dh 128)", BF16_FAMILY_STEPS,
+                             dtype=torch.bfloat16,
+                             positions=qwen_pos.contiguous())]
+    rows[-1]["name"] = "flash_attention_bwd (bf16, positions)"
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}

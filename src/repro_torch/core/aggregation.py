@@ -36,6 +36,7 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.kernels.weighted_agg import weighted_agg
+from repro_torch.roofline import collectives as collective_bytes
 
 Tree = Any
 
@@ -117,29 +118,37 @@ def _started(group) -> bool:
 
 def all_gather(local: torch.Tensor, group=None) -> torch.Tensor:
     """(D·K, ...) from every rank's (K, ...) ``local``, in rank order: one
-    collective, in ``local``'s dtype (gloo takes fp32, bf16 and int8)."""
+    collective, in ``local``'s dtype (gloo takes fp32, bf16 and int8). On
+    ``meta`` tensors (the dry run's, which hold no data) it returns the
+    result's shape and moves nothing. Each collective is reported to
+    :mod:`repro_torch.roofline.collectives` by its result's bytes."""
     global collectives
     if not _started(group):
         return local
     local = local.contiguous()
     out = local.new_empty((dist.get_world_size(group) * local.shape[0],)
                           + tuple(local.shape[1:]))
-    with warnings.catch_warnings():
-        # newer torch renames it all_gather_single; older has no new name
-        warnings.filterwarnings("ignore", category=FutureWarning,
-                                message=".*all_gather_into_tensor")
-        dist.all_gather_into_tensor(out, local, group=group)
+    if local.device.type != "meta":
+        with warnings.catch_warnings():
+            # newer torch renames it all_gather_single; older has no new name
+            warnings.filterwarnings("ignore", category=FutureWarning,
+                                    message=".*all_gather_into_tensor")
+            dist.all_gather_into_tensor(out, local, group=group)
     collectives += 1
+    collective_bytes.record("all-gather", out)
     return out
 
 
 
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
-    """``x`` summed over the group's ranks, in place: one collective."""
+    """``x`` summed over the group's ranks, in place: one collective (on
+    ``meta`` tensors none moves, as for :func:`all_gather`)."""
     global collectives
     if _started(group):
-        dist.all_reduce(x, group=group)
+        if x.device.type != "meta":
+            dist.all_reduce(x, group=group)
         collectives += 1
+        collective_bytes.record("all-reduce", x)
     return x
 
 

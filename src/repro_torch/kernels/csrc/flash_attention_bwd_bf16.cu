@@ -5,14 +5,19 @@
 // chunked_attention, src/repro/models/attention.py:33-106, under
 // jax.checkpoint; it trains in its params' dtype, bf16 by default,
 // src/repro/launch/steps.py:91-119). flash_attention_bwd.cu does the fp32
-// backward; this file does bf16 at the dense configs' head sizes, 64 and
-// 128, from the row log-sum-exp and the fp32 output that K3's bf16
+// backward; this file does bf16 at head sizes 48, 64, 96, 112 and 128
+// (MLA's 48 and 96, zamba2's shared block's 112, the dense configs' 64 and
+// 128), from the row log-sum-exp and the fp32 output that K3's bf16
 // training instantiation (flash_attention_bf16.cu, kLse) saves.
 //
 // Computes, for q, dO (B, Sq, H, Dh), k, v (B, Skv, KH, Dh), all bf16, the
 // forward's o (B, Sq, H, Dh) and lse (B, H, Sq) in fp32, all contiguous,
 // G = H / KH, query head h = kh*G + g reading KV head kh, scale =
-// 1/sqrt(Dh), with the index masks (causal, window; ragged Sq and Skv):
+// 1/sqrt(Dh), with the forward's masks (causal keeps pos_j <= pos_i, a
+// window keeps pos_j > pos_i - window, a key at a negative position is
+// invalid; ragged Sq and Skv) on the indices as positions or, in the
+// position instantiations (template flag kPos, Dh 64 and 128: M-RoPE
+// trains at qwen2-vl's 128), explicit q_pos and kv_pos int32:
 //   P_ij  = exp(scale * q_i.k_j - lse_i) where unmasked, else 0   (fp32)
 //   D_i   = sum_d dO_id o_id                                     (fp32)
 //   dP_ij = dO_i . v_j,   dS_ij = P_ij (dP_ij - D_i)             (fp32)
@@ -29,7 +34,8 @@
 //
 // Four kernels, no floating-point atomics: every output element is summed
 // in one fixed order, so two runs give the same bits.
-//   (a) attn_bwd_bf16_dot_kernel: D, Dh / 4 lanes a (b, i, h) row.
+//   (a) attn_bwd_bf16_dot_kernel: D, 16 or 32 lanes a (b, i, h) row, the
+//       first Dh / 4 of them 4 elements each.
 //   (b) attn_bwd_bf16_dkdv_kernel: a block owns 64 keys of one KV head and
 //       walks a contiguous range of their (head g, query tile of 64)
 //       steps; `splits` blocks share a key tile's steps (split c takes
@@ -85,13 +91,32 @@
 //   a step a warpgroup. Key tile 0 (the most steps under the causal mask)
 //   is first in the grid; (c)'s row tiles run heaviest (last rows) first.
 // - Steps and tiles wholly inside the masks skip the per-element test.
+// - Head sizes: the tiles are the same at every size; the swizzle is the
+//   bf16 forward's (wgmma_bf16.cuh: 128 bytes at 64 and 128, 64 at 96, 32
+//   at 48 and 112, whose 96- and 224-byte rows are whole 32-byte boxes
+//   only), and the register-A products issue Dh output columns at once
+//   (m64n48k16 .. m64n128k16). Shared memory at 112, the largest after
+//   128: (b) 147 KB, (c) 144 KB.
+// - Explicit positions (kPos), as flash_attention_bwd.cu's: no index band
+//   bounds the steps, and the positions may tie and need not be sorted.
+//   Before the warp roles split, a (b) block reads its keys' least and
+//   greatest valid position, then every query's, and walks the query
+//   tiles from the first to the last that holds a query that may see one
+//   of its keys; a (c) block likewise bounds its key tiles by its rows'
+//   least and greatest position. The producer's 32 lanes write each
+//   stage's positions (a step's queries in (b), a tile's keys in (c), -1
+//   for a key past Skv) beside the TMA bytes, as the bf16 forward does;
+//   the consumers hold their own rows' positions in registers and mask
+//   every element by the two. For an arange these are the index band's
+//   tiles, and with the wrapper's plan (sized from the index bounds) the
+//   gradients are the index instantiations' bit for bit.
 // Left for later: computing S and dP once for both dK/dV and dQ, folding
-// D and the reduce into the other kernels, bf16 at Dh 48, 96
-// and 112 and with explicit positions (ROADMAP A5: the templates here take
-// any head size whose tiles fit).
+// D and the reduce into the other kernels, and explicit positions at Dh
+// 48, 96 and 112 (ROADMAP B1).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -119,54 +144,73 @@ constexpr int kDqStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmemLimit = 232448;  // the opt-in shared memory of a block
 
-// the head sizes built, and their swizzle (wgmma_bf16.cuh)
+// each head size's swizzle (wgmma_bf16.cuh), the bf16 forward's
 template <int DH>
-constexpr int kSB = DH == 64 || DH == 128 ? 128 : 0;
+constexpr int kSB = DH == 64 || DH == 128 ? 128 : DH == 96 ? 64 : 32;
+// the head sizes whose position instantiations (kPos) are built: M-RoPE
+// trains at qwen2-vl's 128 and musicgen's 64 (ROADMAP B1: the others)
+template <int DH>
+constexpr bool kPosBuilt = DH == 64 || DH == 128;
 
 // (b)'s shared memory, in bytes from a 1024-aligned base: K and V, the
 // ring (a stage: Q, dO), each stage's 64 lse and 64 D, the barriers (K/V's,
-// then each stage's full and empty)
-template <int DH>
+// then each stage's full and empty), then with explicit positions 4 bounds
+// and each stage's 64 query positions
+template <int DH, bool kPos>
 struct DkdvSmem {
   static constexpr uint32_t kTile = kKeyTile * DH * 2;  // K, V, Q or dO
   static constexpr uint32_t kK = 0, kV = kTile, kRing = 2 * kTile;
   static constexpr uint32_t kStage = 2 * kTile;
   static constexpr uint32_t kStats = kRing + kDkdvStages * kStage;
   static constexpr uint32_t kBars = kStats + kDkdvStages * 2 * kQueryTile * 4;
-  static constexpr uint32_t kBytes = kBars + (1 + 2 * kDkdvStages) * 8 + 1024;
+  static constexpr uint32_t kPosAt = kBars + (1 + 2 * kDkdvStages) * 8;
+  static constexpr uint32_t kBytes =
+      kPosAt + (kPos ? (4 + kDkdvStages * kQueryTile) * 4 : 0) + 1024;
   static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
-  static_assert(kStage % 1024 == 0, "stages keep the boxes 1024-aligned");
+  static_assert(kTile % 1024 == 0 && kStage % 1024 == 0,
+                "tiles and stages keep the boxes 1024-aligned");
   static_assert(2 * (DH / 2) * kWGThreads * 4 <= kDkdvStages * kStage,
                 "the second warpgroup's dK, dV sums fit the ring");
 };
 
-// (c)'s: Q and dO (the block's rows), the ring (a stage: K, V), barriers
-template <int DH>
+// (c)'s: Q and dO (the block's rows), the ring (a stage: K, V), barriers,
+// then with explicit positions 4 bounds and each stage's 64 key positions
+template <int DH, bool kPos>
 struct DqSmem {
   static constexpr uint32_t kRowsBytes = kRowTile * DH * 2;
   static constexpr uint32_t kTile = kKeyStep * DH * 2;
   static constexpr uint32_t kQ = 0, kO = kRowsBytes, kRing = 2 * kRowsBytes;
   static constexpr uint32_t kBars = kRing + kDqStages * 2 * kTile;
-  static constexpr uint32_t kBytes = kBars + 2 * kDqStages * 8 + 1024;
+  static constexpr uint32_t kPosAt = kBars + 2 * kDqStages * 8;
+  static constexpr uint32_t kBytes =
+      kPosAt + (kPos ? (4 + kDqStages * kKeyStep) * 4 : 0) + 1024;
   static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
+  static_assert(kRowsBytes % 1024 == 0 && kTile % 1024 == 0,
+                "boxes 1024-aligned");
 };
 
-// (a): DH / 4 lanes a (b, i, h) row (16 at Dh 64, 32 at 128), 4 elements
-// each, summed in fp32; dO bf16, o fp32
+// the lanes of a D row: a power of two (the shuffle's), 4 elements each of
+// the first DH / 4
+template <int DH>
+constexpr int kDotLanes = DH / 4 <= 16 ? 16 : 32;
+
+// (a): kDotLanes lanes a (b, i, h) row (16 at Dh 48 and 64, 32 at 96, 112
+// and 128), the first DH / 4 of them 4 elements each, summed in fp32; dO
+// bf16, o fp32
 template <int DH>
 __global__ void __launch_bounds__(kDotThreads)
 attn_bwd_bf16_dot_kernel(const bf16* __restrict__ dout,
                          const float* __restrict__ out, float* __restrict__ D,
                          int B, int Sq, int H) {
-  constexpr int kLanes = DH / 4;
+  constexpr int kLanes = kDotLanes<DH>;
   const int64_t u = static_cast<int64_t>(blockIdx.x) * kDotThreads +
                     threadIdx.x;
   const int64_t row = u / kLanes;
   const int lane = static_cast<int>(u % kLanes);
   const bool ok = row < static_cast<int64_t>(B) * Sq * H;
   float s = 0.f;
-  if (ok) {
-    const int64_t e = (row * kLanes + lane) * 4;
+  if (ok && lane < DH / 4) {
+    const int64_t e = row * DH + lane * 4;
     const uint2 a = *reinterpret_cast<const uint2*>(dout + e);
     const float2 a01 = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(&a.x));
@@ -186,7 +230,7 @@ attn_bwd_bf16_dot_kernel(const bf16* __restrict__ dout,
 }
 
 // O: dK's and dV's type (bf16, or fp32 for split partials)
-template <typename O, int DH>
+template <typename O, int DH, bool kPos>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
                           const __grid_constant__ CUtensorMap tmap_do,
@@ -194,10 +238,12 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
                           const __grid_constant__ CUtensorMap tmap_v,
                           const float* __restrict__ lse,
                           const float* __restrict__ D, O* __restrict__ dk,
-                          O* __restrict__ dv, int B, int Sq, int Skv, int H,
-                          int KH, int causal, int window, int splits,
-                          int64_t split_stride, float scale, float scale2) {
-  using L = DkdvSmem<DH>;
+                          O* __restrict__ dv, const int* __restrict__ q_pos,
+                          const int* __restrict__ kv_pos, int B, int Sq,
+                          int Skv, int H, int KH, int causal, int window,
+                          int splits, int64_t split_stride, float scale,
+                          float scale2) {
+  using L = DkdvSmem<DH, kPos>;
   constexpr int SB = kSB<DH>, QT = kQueryTile;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -219,16 +265,51 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
   // the queries that can see keys [k0, k_last], in tiles; the steps are
   // (g, query tile) with g slowest; this block takes [s_lo, s_hi), step
   // i of them going to warpgroup i % 2 and stage i % kDkdvStages
+  const int tid = threadIdx.x;
   const int k_last = min(k0 + kKeyTile, Skv) - 1;
-  const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
-  const int qt0 = q_begin / QT;
-  const int nq = q_end > q_begin ? (q_end + QT - 1) / QT - qt0 : 0;
+  // explicit positions: bounds {least, greatest key position, first, last
+  // query that may see one}, then each stage's query positions
+  int* const bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+  int* const stage_pos = bounds + 4;
+  int qt0, nq;
+  if constexpr (kPos) {
+    if (tid == 0) {
+      bounds[0] = bounds[2] = INT_MAX;
+      bounds[1] = bounds[3] = INT_MIN;
+    }
+    __syncthreads();
+    const int j = k0 + tid;
+    const int kp = tid < kKeyTile && j <= k_last ? kv_pos[j] : -1;
+    block_min(bounds, kp >= 0 ? kp : INT_MAX);
+    block_max(bounds + 1, kp);
+    __syncthreads();
+    const int kp_min = bounds[0], kp_max = bounds[1];
+    int lo = INT_MAX, hi = INT_MIN;
+    if (kp_min <= kp_max)
+      for (int i = tid; i < Sq; i += kThreads) {
+        const int qp = q_pos[i];
+        if ((!causal || kp_min <= qp) &&
+            (window <= 0 || kp_max > qp - window)) {
+          lo = min(lo, i);
+          hi = max(hi, i);
+        }
+      }
+    block_min(bounds + 2, lo);
+    block_max(bounds + 3, hi);
+    __syncthreads();
+    const bool any = bounds[2] <= bounds[3];
+    qt0 = any ? bounds[2] / QT : 0;
+    nq = any ? bounds[3] / QT + 1 - qt0 : 0;
+  } else {
+    const int q_begin = causal ? k0 : 0;
+    const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+    qt0 = q_begin / QT;
+    nq = q_end > q_begin ? (q_end + QT - 1) / QT - qt0 : 0;
+  }
   const int64_t n = static_cast<int64_t>(G) * nq;
   const int s_lo = static_cast<int>(n * c / splits);
   const int steps = static_cast<int>(n * (c + 1) / splits) - s_lo;
 
-  const int tid = threadIdx.x;
   if (tid == 0) {
     mbar_init(kv_full, 1);
 #pragma unroll
@@ -270,6 +351,7 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
         const bool ok = q0 + j < Sq;
         stats[j] = ok ? lse[row + q0 + j] * kLog2e : INFINITY;
         stats[QT + j] = ok ? D[row + q0 + j] : 0.f;
+        if constexpr (kPos) stage_pos[s * QT + j] = ok ? q_pos[q0 + j] : 0;
       }
       mbar_arrive(full);
     }
@@ -281,6 +363,11 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
   const int wg = tid / kWGThreads, t = tid % kWGThreads;
   const int warp = t / 32, lane = t % 32, t4 = lane % 4;
   const int keyA = k0 + warp * 16 + lane / 4, keyB = keyA + 8;
+  int kpA = -1, kpB = -1;  // their explicit positions (-1 past Skv)
+  if constexpr (kPos) {
+    kpA = keyA < Skv ? kv_pos[keyA] : -1;
+    kpB = keyB < Skv ? kv_pos[keyB] : -1;
+  }
   float dk_acc[DH / 2], dv_acc[DH / 2];
 #pragma unroll
   for (int x = 0; x < DH / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
@@ -315,14 +402,19 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
 
     // P^T in fp32 on the fragments: sT[4j + e] is (keyA, query q0 + 8j +
     // 2t4 + e) and sT[4j + 2 + e] is (keyB, the same query)
-    const bool all = all_visible(q0, q0 + QT - 1, k0, k0 + kKeyTile - 1, Sq,
-                                 Skv, causal, window);
+    const bool all = !kPos && all_visible(q0, q0 + QT - 1, k0,
+                                          k0 + kKeyTile - 1, Sq, Skv, causal,
+                                          window);
+    const int* qpos = stage_pos + s * QT;
 #pragma unroll
     for (int x = 0; x < QT / 2; ++x) {
       const int col = 8 * (x / 4) + 2 * t4 + (x & 1);
-      const bool in =
-          all || visible(q0 + col, (x & 2) ? keyB : keyA, Sq, Skv, causal,
-                         window);
+      bool in;
+      if constexpr (kPos)  // past Sq its lse is +inf: P is 0
+        in = sees(qpos[col], (x & 2) ? kpB : kpA, causal, window);
+      else
+        in = all || visible(q0 + col, (x & 2) ? keyB : keyA, Sq, Skv, causal,
+                            window);
       sT[x] = in ? exp2f(sT[x] * scale2 - lse2[col]) : 0.f;
     }
     wgmma_wait<0>();
@@ -416,7 +508,7 @@ attn_bwd_bf16_reduce_kernel(const float4* __restrict__ part,
   }
 }
 
-template <int DH>
+template <int DH, bool kPos>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
                         const __grid_constant__ CUtensorMap tmap_v,
@@ -424,9 +516,11 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
                         const bf16* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ D, bf16* __restrict__ dq,
-                        int Sq, int Skv, int H, int KH, int causal,
-                        int window, float scale, float scale2) {
-  using L = DqSmem<DH>;
+                        const int* __restrict__ q_pos,
+                        const int* __restrict__ kv_pos, int Sq, int Skv,
+                        int H, int KH, int causal, int window, float scale,
+                        float scale2) {
+  using L = DqSmem<DH, kPos>;
   constexpr int SB = kSB<DH>, KT = kKeyStep;
   constexpr int kCons = kWG * kWGThreads;
   extern __shared__ uint8_t smem_raw[];
@@ -442,34 +536,83 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const int n_rows = Sq * G;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * kRowTile;
   const int q_lo = row0 / G, q_hi = (min(row0 + kRowTile, n_rows) - 1) / G;
-  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
-  const int k_end = causal ? min(Skv, q_hi + 1) : Skv;
-  const int t_begin = k_begin / KT;
-  const int t_end = k_end > k_begin ? (k_end + KT - 1) / KT : t_begin;
   const int tid = threadIdx.x;
+  // explicit positions: bounds {least, greatest row position, first, last
+  // key one of them may see}, then each stage's key positions
+  int* const bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+  int* const stage_pos = bounds + 4;
+  int t_begin, t_end;
+  if constexpr (kPos) {
+    if (tid == 0) {
+      bounds[0] = bounds[2] = INT_MAX;
+      bounds[1] = bounds[3] = INT_MIN;
+    }
+    __syncthreads();
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int i = q_lo + tid; i <= q_hi; i += kThreads) {
+      lo = min(lo, q_pos[i]);
+      hi = max(hi, q_pos[i]);
+    }
+    block_min(bounds, lo);
+    block_max(bounds + 1, hi);
+    __syncthreads();
+    const int qmin = bounds[0], qmax = bounds[1];
+    lo = INT_MAX;
+    hi = INT_MIN;
+    for (int j = tid; j < Skv; j += kThreads) {
+      const int kp = kv_pos[j];
+      if (kp >= 0 && (!causal || kp <= qmax) &&
+          (window <= 0 || kp > qmin - window)) {
+        lo = min(lo, j);
+        hi = max(hi, j);
+      }
+    }
+    block_min(bounds + 2, lo);
+    block_max(bounds + 3, hi);
+    __syncthreads();
+    const bool any = bounds[2] <= bounds[3];
+    t_begin = any ? bounds[2] / KT : 0;
+    t_end = any ? bounds[3] / KT + 1 : 0;
+  } else {
+    const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+    const int k_end = causal ? min(Skv, q_hi + 1) : Skv;
+    t_begin = k_begin / KT;
+    t_end = k_end > k_begin ? (k_end + KT - 1) / KT : t_begin;
+  }
 
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < kDqStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
+      // the TMA bytes (+ the 32 lanes that write the key positions)
+      mbar_init(full0 + 8 * s, kPos ? 1 + 32 : 1);
       mbar_init(empty0 + 8 * s, kCons);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (tid >= kCons) {  // the producer warpgroup: one thread drives the ring
+  if (tid >= kCons) {  // the producer warpgroup: its first thread drives the
+                       // ring (its first warp, with explicit positions)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
-    if (tid == kCons) {
-      for (int t = t_begin; t < t_end; ++t) {
-        const int i = t - t_begin, s = i % kDqStages;
-        mbar_wait(empty0 + 8 * s, ((i / kDqStages) & 1) ^ 1);
-        const uint32_t full = full0 + 8 * s;
+    const int lane = tid - kCons;
+    if (lane >= (kPos ? 32 : 1)) return;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int i = t - t_begin, s = i % kDqStages;
+      mbar_wait(empty0 + 8 * s, ((i / kDqStages) & 1) ^ 1);
+      const uint32_t full = full0 + 8 * s;
+      if (lane == 0) {
         const uint32_t dst = base + L::kRing + s * 2 * L::kTile;
         mbar_expect_tx(full, 2 * L::kTile);
         tma_tile<SB, DH>(dst, &tmap_k, full, kh * DH, t * KT, b, KT);
         tma_tile<SB, DH>(dst + L::kTile, &tmap_v, full, kh * DH, t * KT, b,
                          KT);
+      }
+      if constexpr (kPos) {  // the tile's key positions, -1 past Skv
+        for (int j = lane; j < KT; j += 32) {
+          const int key = t * KT + j;
+          stage_pos[s * KT + j] = key < Skv ? kv_pos[key] : -1;
+        }
+        mbar_arrive(full);
       }
     }
     return;
@@ -499,6 +642,11 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const float lseA = okA ? lse[iA] * kLog2e : INFINITY;
   const float lseB = okB ? lse[iB] * kLog2e : INFINITY;
   const float dA = okA ? D[iA] : 0.f, dB = okB ? D[iB] : 0.f;
+  int qpA = 0, qpB = 0;  // explicit positions of the two rows
+  if constexpr (kPos) {
+    qpA = okA ? q_pos[posA] : 0;
+    qpB = okB ? q_pos[posB] : 0;
+  }
   const uint32_t qw = base + L::kQ + wg * 64 * SB;
   const uint32_t ow = base + L::kO + wg * 64 * SB;
   float dq_acc[DH / 2];
@@ -530,14 +678,21 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
 
     // P on the fragments: sc[4j + e] is (rA, key key0 + 8j + 2t4 + e) and
     // sc[4j + 2 + e] is (rB, the same key)
-    const bool allA = key0 >= loA && key0 + KT - 1 <= hiA;
-    const bool allB = key0 >= loB && key0 + KT - 1 <= hiB;
+    const bool allA = !kPos && key0 >= loA && key0 + KT - 1 <= hiA;
+    const bool allB = !kPos && key0 >= loB && key0 + KT - 1 <= hiB;
 #pragma unroll
     for (int x = 0; x < KT / 2; ++x) {
-      const int key = key0 + 8 * (x / 4) + 2 * t4 + (x & 1);
+      const int col = 8 * (x / 4) + 2 * t4 + (x & 1), key = key0 + col;
       const bool rowB = (x & 2) != 0;
-      const bool in = rowB ? allB || (key >= loB && key <= hiB)
-                           : allA || (key >= loA && key <= hiA);
+      bool in;
+      if constexpr (kPos) {
+        const int kp = stage_pos[s * KT + col];
+        in = rowB ? okB && sees(qpB, kp, causal, window)
+                  : okA && sees(qpA, kp, causal, window);
+      } else {
+        in = rowB ? allB || (key >= loB && key <= hiB)
+                  : allA || (key >= loA && key <= hiA);
+      }
       sc[x] = in ? exp2f(sc[x] * scale2 - (rowB ? lseB : lseA)) : 0.f;
     }
     wgmma_wait<0>();
@@ -600,15 +755,17 @@ float scale2_of(int Dh) {
                             sqrt(static_cast<double>(Dh)));
 }
 
-template <typename O, int DH>
+template <typename O, int DH, bool kPos>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                const float* lse, const float* D, void* dk, void* dv, int B,
-                int Sq, int Skv, int H, int KH, int causal, int window,
-                int splits, cudaStream_t st) {
+                const float* lse, const float* D, void* dk, void* dv,
+                const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
+                int H, int KH, int causal, int window, int splits,
+                cudaStream_t st) {
   constexpr int SB = kSB<DH>;
   static bool done = false;
-  const int bytes = DkdvSmem<DH>::kBytes;
-  const int rc = configure(attn_bwd_bf16_dkdv_kernel<O, DH>, bytes, done);
+  const int bytes = DkdvSmem<DH, kPos>::kBytes;
+  const int rc =
+      configure(attn_bwd_bf16_dkdv_kernel<O, DH, kPos>, bytes, done);
   if (rc != 0) return rc;
   const int64_t blocks =
       static_cast<int64_t>((Skv + kKeyTile - 1) / kKeyTile) * B * KH * splits;
@@ -621,23 +778,23 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   if (e != 0) return e;
   const int64_t stride =
       splits > 1 ? static_cast<int64_t>(B) * Skv * KH * DH : 0;
-  attn_bwd_bf16_dkdv_kernel<O, DH>
+  attn_bwd_bf16_dkdv_kernel<O, DH, kPos>
       <<<static_cast<unsigned>(blocks), kThreads, bytes, st>>>(
           mq, mdo, mk, mv, lse, D, static_cast<O*>(dk), static_cast<O*>(dv),
-          B, Sq, Skv, H, KH, causal, window, splits, stride, scale_of(DH),
-          scale2_of(DH));
+          q_pos, kv_pos, B, Sq, Skv, H, KH, causal, window, splits, stride,
+          scale_of(DH), scale2_of(DH));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
+template <int DH, bool kPos>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* D, void* dq, int B, int Sq,
-              int Skv, int H, int KH, int causal, int window,
-              cudaStream_t st) {
+              const float* lse, const float* D, void* dq, const int* q_pos,
+              const int* kv_pos, int B, int Sq, int Skv, int H, int KH,
+              int causal, int window, cudaStream_t st) {
   constexpr int SB = kSB<DH>;
   static bool done = false;
-  const int bytes = DqSmem<DH>::kBytes;
-  const int rc = configure(attn_bwd_bf16_dq_kernel<DH>, bytes, done);
+  const int bytes = DqSmem<DH, kPos>::kBytes;
+  const int rc = configure(attn_bwd_bf16_dq_kernel<DH, kPos>, bytes, done);
   if (rc != 0) return rc;
   const long long tiles =
       (static_cast<long long>(Sq) * (H / KH) + kRowTile - 1) / kRowTile;
@@ -647,19 +804,57 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (e == 0) e = encode_bf16<SB>(&mv, v, B, Skv, KH * DH, kKeyStep);
   if (e != 0) return e;
   const dim3 grid(B * KH, static_cast<unsigned>(tiles));
-  attn_bwd_bf16_dq_kernel<DH><<<grid, kThreads, bytes, st>>>(
+  attn_bwd_bf16_dq_kernel<DH, kPos><<<grid, kThreads, bytes, st>>>(
       mk, mv, static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
-      lse, D, static_cast<bf16*>(dq), Sq, Skv, H, KH, causal, window,
-      scale_of(DH), scale2_of(DH));
+      lse, D, static_cast<bf16*>(dq), q_pos, kv_pos, Sq, Skv, H, KH, causal,
+      window, scale_of(DH), scale2_of(DH));
   return static_cast<int>(cudaGetLastError());
 }
 
+// (b) at one head size: the position instantiation when q_pos is set
+template <typename O, int DH>
+int dkdv_at(const void* q, const void* k, const void* v, const void* dout,
+            const float* lse, const float* D, void* dk, void* dv,
+            const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
+            int H, int KH, int causal, int window, int splits,
+            cudaStream_t st) {
+  if (q_pos != nullptr) {
+    if constexpr (kPosBuilt<DH>)
+      return launch_dkdv<O, DH, true>(q, k, v, dout, lse, D, dk, dv, q_pos,
+                                      kv_pos, B, Sq, Skv, H, KH, causal,
+                                      window, splits, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_dkdv<O, DH, false>(q, k, v, dout, lse, D, dk, dv, q_pos,
+                                   kv_pos, B, Sq, Skv, H, KH, causal, window,
+                                   splits, st);
+}
+
+// (c) at one head size: the position instantiation when q_pos is set
+template <int DH>
+int dq_at(const void* q, const void* k, const void* v, const void* dout,
+          const float* lse, const float* D, void* dq, const int* q_pos,
+          const int* kv_pos, int B, int Sq, int Skv, int H, int KH,
+          int causal, int window, cudaStream_t st) {
+  if (q_pos != nullptr) {
+    if constexpr (kPosBuilt<DH>)
+      return launch_dq<DH, true>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
+                                 Sq, Skv, H, KH, causal, window, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_dq<DH, false>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
+                              Sq, Skv, H, KH, causal, window, st);
+}
+
 // Calls f(std::integral_constant<int, Dh>) at a head size the kernels
-// take (64, 128), else returns cudaErrorInvalidValue
+// take (48, 64, 96, 112, 128), else returns cudaErrorInvalidValue
 template <typename F>
 int at_head_dim(int Dh, F f) {
   switch (Dh) {
+    case 48: return f(std::integral_constant<int, 48>{});
     case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
     case 128: return f(std::integral_constant<int, 128>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -673,12 +868,13 @@ bool shape_ok(int B, int Sq, int Skv, int H, int KH) {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
 // success), cudaErrorInvalidValue for a shape the kernels do not take (Dh
-// other than 64 or 128, H % KH != 0, too many blocks), or 10000 + the
-// CUresult if a tensor map cannot be encoded. Layouts as at the top; q, k,
-// v, dO and the gradients bf16 (dK/dV's split partials fp32), o, lse and D
-// fp32; every tensor contiguous and, for q, k, v and dO, 16-byte aligned
-// (TMA). Call (a), then (b), then (r) when splits > 1, and (c); (b) and
-// (c) read D.
+// other than 48, 64, 96, 112 or 128, explicit positions at a Dh other than
+// 64 or 128, H % KH != 0, too many blocks), or 10000 + the CUresult if a
+// tensor map cannot be encoded. Layouts as at the top; q, k, v, dO and the
+// gradients bf16 (dK/dV's split partials fp32), o, lse and D fp32, the
+// positions int32; every tensor contiguous and, for q, k, v and dO,
+// 16-byte aligned (TMA). Call (a), then (b), then (r) when splits > 1, and
+// (c); (b) and (c) read D.
 
 // The tiles, for the wrapper to check its copy of the schedule against:
 // (b)'s keys a block and queries a step, (c)'s folded rows a block and
@@ -695,6 +891,16 @@ extern "C" int attn_bwd_bf16_tiles(int Dh, int* key_tile, int* query_tile,
   });
 }
 
+// Whether the position instantiations are built at head size Dh
+extern "C" int attn_bwd_bf16_positions_built(int Dh) {
+  int built = 0;
+  at_head_dim(Dh, [&](auto dh) {
+    built = kPosBuilt<decltype(dh)::value>;
+    return 0;
+  });
+  return built;
+}
+
 // (a) D (B, H, Sq) from bf16 dO (B, Sq, H, Dh) and the training forward's
 // fp32 o
 extern "C" int attn_bwd_bf16_dot_launch(const void* dout, const void* out,
@@ -705,7 +911,7 @@ extern "C" int attn_bwd_bf16_dot_launch(const void* dout, const void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return at_head_dim(Dh, [&](auto dh) {
     constexpr int DH = decltype(dh)::value;
-    const int64_t lanes = static_cast<int64_t>(B) * Sq * H * (DH / 4);
+    const int64_t lanes = static_cast<int64_t>(B) * Sq * H * kDotLanes<DH>;
     const int64_t blocks = (lanes + kDotThreads - 1) / kDotThreads;
     if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
     attn_bwd_bf16_dot_kernel<DH><<<static_cast<unsigned>(blocks),
@@ -717,26 +923,32 @@ extern "C" int attn_bwd_bf16_dot_launch(const void* dout, const void* out,
 }
 
 // (b) dk, dv (B, Skv, KH, Dh) bf16 with splits = 1; with splits > 1 dk and
-// dv are (splits, B, Skv, KH, Dh) fp32 partials for (r)
+// dv are (splits, B, Skv, KH, Dh) fp32 partials for (r). q_pos, kv_pos:
+// both null (the index masks) or (Sq,) and (Skv,) int32 on the card
 extern "C" int attn_bwd_bf16_dkdv_launch(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* D,
-                                         void* dk, void* dv, int B, int Sq,
+                                         void* dk, void* dv,
+                                         const void* q_pos,
+                                         const void* kv_pos, int B, int Sq,
                                          int Skv, int H, int KH, int Dh,
                                          int causal, int window, int splits,
                                          void* stream) {
-  if (!shape_ok(B, Sq, Skv, H, KH) || splits < 1)
+  if (!shape_ok(B, Sq, Skv, H, KH) || splits < 1 ||
+      (q_pos == nullptr) != (kv_pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto i = [](const void* p) { return static_cast<const int*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return at_head_dim(Dh, [&](auto dh) {
     constexpr int DH = decltype(dh)::value;
     if (splits > 1)
-      return launch_dkdv<float, DH>(q, k, v, dout, f(lse), f(D), dk, dv, B,
-                                    Sq, Skv, H, KH, causal, window, splits,
-                                    st);
-    return launch_dkdv<bf16, DH>(q, k, v, dout, f(lse), f(D), dk, dv, B, Sq,
-                                 Skv, H, KH, causal, window, splits, st);
+      return dkdv_at<float, DH>(q, k, v, dout, f(lse), f(D), dk, dv,
+                                i(q_pos), i(kv_pos), B, Sq, Skv, H, KH,
+                                causal, window, splits, st);
+    return dkdv_at<bf16, DH>(q, k, v, dout, f(lse), f(D), dk, dv, i(q_pos),
+                             i(kv_pos), B, Sq, Skv, H, KH, causal, window,
+                             splits, st);
   });
 }
 
@@ -757,20 +969,23 @@ extern "C" int attn_bwd_bf16_reduce_launch(const void* part, void* dk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (c) dq (B, Sq, H, Dh) bf16
+// (c) dq (B, Sq, H, Dh) bf16; q_pos, kv_pos as for (b)
 extern "C" int attn_bwd_bf16_dq_launch(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* D,
-                                       void* dq, int B, int Sq, int Skv,
-                                       int H, int KH, int Dh, int causal,
-                                       int window, void* stream) {
-  if (!shape_ok(B, Sq, Skv, H, KH))
+                                       void* dq, const void* q_pos,
+                                       const void* kv_pos, int B, int Sq,
+                                       int Skv, int H, int KH, int Dh,
+                                       int causal, int window, void* stream) {
+  if (!shape_ok(B, Sq, Skv, H, KH) ||
+      (q_pos == nullptr) != (kv_pos == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto i = [](const void* p) { return static_cast<const int*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return at_head_dim(Dh, [&](auto dh) {
     constexpr int DH = decltype(dh)::value;
-    return launch_dq<DH>(q, k, v, dout, f(lse), f(D), dq, B, Sq, Skv, H, KH,
-                         causal, window, st);
+    return dq_at<DH>(q, k, v, dout, f(lse), f(D), dq, i(q_pos), i(kv_pos), B,
+                     Sq, Skv, H, KH, causal, window, st);
   });
 }

@@ -14,7 +14,9 @@ gradient). On a CUDA tensor it launches the hand-written kernel,
 ``csrc/flash_attention.cu`` in fp32 and ``csrc/flash_attention_bf16.cu``
 in bf16 (head dims :data:`FWD_HEAD_DIMS`); on a CPU tensor it runs the
 plain version :func:`~repro_torch.kernels.ref.flash_attention_ref` at any head
-dim, as the reference does, and autograd differentiates it. Ragged Sq and
+dim, as the reference does, its gradient autograd's through the plain
+version, recomputed in the backward; on a ``meta`` tensor (the dry run's)
+it returns the output's shape and dtype only, at any head dim. Ragged Sq and
 Skv are masked in the kernel, where the reference's Pallas kernel refuses
 them. With explicit positions it launches the kernels' position
 instantiations, which read each tile's positions and bound the tiles a
@@ -35,13 +37,20 @@ as the reference's ``chunked_attention`` recomputes each chunk under
 dtype's tiles (:func:`bwd_tiles`). The reference trains in its params'
 dtype (``launch/steps.py::make_train_step``, bf16 by default), so the
 backward takes fp32 at the head dims :data:`BWD_HEAD_DIMS` (explicit
-positions at :data:`BWD_POSITION_HEAD_DIMS` only) and bf16 at
-:data:`BWD_BF16_HEAD_DIMS` (without explicit positions), reading bf16 dO
+positions at :data:`BWD_POSITION_HEAD_DIMS` only, in either dtype) and
+bf16 at :data:`BWD_BF16_HEAD_DIMS`, reading bf16 dO
 and returning bf16 gradients (every sum in fp32; P and dS rounded to bf16
 where they enter a product, as
 :func:`~repro_torch.kernels.ref.flash_attention_bwd_bf16_ref` writes out).
 A call that needs a gradient outside these raises in the forward, before
 any launch. Nothing falls back to the plain version on a card.
+
+K3 is one autograd node on every device, so that a
+:class:`~repro_torch.roofline.counter.CostCounter` counts its work the
+same wherever it runs: the forward and the backward by
+:func:`forward_cost` and :func:`backward_cost`, from the (query, key)
+pairs the masks leave (:func:`visible_pairs`), and not the plain
+version's own ops.
 
 Both directions multiply on the tensor cores: in fp32 ``wgmma`` in TF32
 with every operand split into a big and a small TF32 part, so fp32 keeps
@@ -61,16 +70,16 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.roofline import counter
 
 FWD_HEAD_DIMS = (48, 64, 96, 112, 128)  # the forward kernel's head sizes
 BWD_HEAD_DIMS = (48, 64, 96, 112, 128)  # the backward's (192: ROADMAP B1)
-# the head dims at which the backward takes explicit positions (M-RoPE
-# trains at qwen2-vl's 128; no training path gives positions at the others)
+# the head dims at which the backward takes explicit positions, in fp32 and
+# bf16 (M-RoPE trains at qwen2-vl's 128; the others: ROADMAP Queue B, B1)
 BWD_POSITION_HEAD_DIMS = (64, 128)
-# the head dims at which the backward takes bf16: the dense configs' (64 at
-# reduced(), 128 for chatglm3-6b and starcoder2-15b); MLA's, zamba2's and
-# positions in bf16 wait (ROADMAP Queue A, A5)
-BWD_BF16_HEAD_DIMS = (64, 128)
+# the head dims at which the backward takes bf16: MLA's 48 (reduced()) and
+# 96, the dense configs' 64 and 128, zamba2's shared block's 112
+BWD_BF16_HEAD_DIMS = (48, 64, 96, 112, 128)
 ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
 position_launches = 0        # of those, launches with explicit positions
@@ -169,37 +178,28 @@ def _check_tiles(name, tiles_fn, dtype, head_dims) -> None:
 
 
 def _bwd_library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
-    """The backward's library for ``dtype``, its tiles checked against the
-    wrapper's on first load."""
-    tiles = [_I] + [ctypes.POINTER(_I)] * 5
-    if dtype == torch.bfloat16:
-        name = "flash_attention_bwd_bf16"
-        return _load(name, {
-            "attn_bwd_bf16_tiles": tiles,
-            # each launch ends (..., stream)
-            "attn_bwd_bf16_dot_launch": [_P] * 3 + [_I] * 4 + [_P],
-            "attn_bwd_bf16_dkdv_launch": [_P] * 8 + [_I] * 9 + [_P],
-            "attn_bwd_bf16_reduce_launch": [_P] * 3 + [ctypes.c_longlong,
-                                                       _I, _P],
-            "attn_bwd_bf16_dq_launch": [_P] * 7 + [_I] * 8 + [_P]},
-            lambda lib: _check_tiles(name, lib.attn_bwd_bf16_tiles, dtype,
-                                     BWD_BF16_HEAD_DIMS))
+    """The backward's library for ``dtype``, its tiles and position
+    instantiations checked against the wrapper's on first load."""
+    bf16 = dtype == torch.bfloat16
+    name = "flash_attention_bwd" + ("_bf16" if bf16 else "")
+    fn = "attn_bwd_" + ("bf16_" if bf16 else "")
 
     def check(lib):
-        _check_tiles("flash_attention_bwd", lib.attn_bwd_tiles, dtype,
-                     BWD_HEAD_DIMS)
+        _check_tiles(name, getattr(lib, fn + "tiles"), dtype,
+                     BWD_BF16_HEAD_DIMS if bf16 else BWD_HEAD_DIMS)
         for dh in BWD_HEAD_DIMS:
-            if bool(lib.attn_bwd_positions_built(dh)) != (
+            if bool(getattr(lib, fn + "positions_built")(dh)) != (
                     dh in BWD_POSITION_HEAD_DIMS):
-                raise RuntimeError(f"flash_attention_bwd's position "
-                                   f"instantiations at Dh {dh} do not match "
-                                   f"BWD_POSITION_HEAD_DIMS")
-    return _load("flash_attention_bwd", {
-        "attn_bwd_tiles": tiles, "attn_bwd_positions_built": [_I],
-        "attn_bwd_dot_launch": [_P] * 3 + [_I] * 4 + [_P],
-        "attn_bwd_dkdv_launch": [_P] * 10 + [_I] * 9 + [_P],
-        "attn_bwd_reduce_launch": [_P] * 3 + [ctypes.c_longlong, _I, _P],
-        "attn_bwd_dq_launch": [_P] * 9 + [_I] * 8 + [_P]}, check)
+                raise RuntimeError(f"{name}'s position instantiations at Dh "
+                                   f"{dh} do not match BWD_POSITION_HEAD_DIMS")
+    # each launch ends (..., stream); dK/dV's and dQ's take the positions
+    return _load(name, {
+        fn + "tiles": [_I] + [ctypes.POINTER(_I)] * 5,
+        fn + "positions_built": [_I],
+        fn + "dot_launch": [_P] * 3 + [_I] * 4 + [_P],
+        fn + "dkdv_launch": [_P] * 10 + [_I] * 9 + [_P],
+        fn + "reduce_launch": [_P] * 3 + [ctypes.c_longlong, _I, _P],
+        fn + "dq_launch": [_P] * 9 + [_I] * 8 + [_P]}, check)
 
 
 _sm_counts: dict = {}
@@ -377,16 +377,13 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
     and raises if the launch fails. ``out`` and ``lse`` are the training
     forward's, both fp32 (:func:`_launch` with ``with_lse``). ``splits``
     overrides the plan's dK/dV split (to measure the rule). Explicit
-    positions are contiguous int32 (:func:`_int32`; fp32 only)."""
+    positions are contiguous int32 (:func:`_int32`)."""
     if out.dtype != torch.float32 or lse.dtype != torch.float32:
         raise TypeError(f"the backward reads the training forward's fp32 "
                         f"output and LSE, got {out.dtype}, {lse.dtype}")
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and q_positions is not None:
-        raise ValueError("the bf16 backward takes no explicit positions "
-                         "(ROADMAP Queue A, A5)")
     lib = _bwd_library(q.dtype)
     dev = q.device
     if splits is None:
@@ -396,8 +393,7 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
     d = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     masks = (int(causal), int(window))
-    # the bf16 library's entry points take no positions
-    pos = () if bf16 else _pointers(q_positions, kv_positions)
+    pos = _pointers(q_positions, kv_positions)
     fns = {name: getattr(lib, f"attn_bwd_{'bf16_' if bf16 else ''}{name}"
                          f"_launch") for name in backward_launches}
     calls = {
@@ -443,37 +439,120 @@ def _launch_backward(q, k, v, out, lse, dout, causal: bool, window: int, *,
     return grads
 
 
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int,
+                  q_positions: Optional[torch.Tensor] = None,
+                  kv_positions: Optional[torch.Tensor] = None) -> int:
+    """The (query, key) pairs of one head that the masks leave: from the
+    positions' values where they have some, else (none given, or on the
+    ``meta`` device, which holds none) from the indices. Reading positions
+    on a card syncs it."""
+    if q_positions is not None and q_positions.device.type != "meta":
+        keys = torch.sort(kv_positions[kv_positions >= 0].long()).values
+        qp = q_positions.long()
+        hi = (torch.searchsorted(keys, qp, right=True) if causal
+              else torch.full_like(qp, keys.numel()))
+        lo = (torch.searchsorted(keys, qp - window, right=True) if window
+              else torch.zeros_like(qp))
+        return int(torch.clamp(hi - lo, min=0).sum())
+    i = torch.arange(Sq, dtype=torch.long)
+    hi = torch.clamp(i, max=Skv - 1) if causal else torch.full_like(i, Skv - 1)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def forward_cost(q, k, v, causal, window, q_positions=None,
+                 kv_positions=None, training=False) -> tuple:
+    """(FLOPs, bytes) of one forward: 4·Dh FLOPs a visible (query, key)
+    pair a head (S = Q·Kᵀ and P·V); q, k, v (and the positions) read, the
+    output written in q's dtype, or in training the fp32 output and LSE."""
+    B, Sq, H, Dh = q.shape
+    pairs = visible_pairs(Sq, k.shape[1], causal, window, q_positions,
+                          kv_positions)
+    out = (4 * (q.numel() + B * H * Sq) if training
+           else q.numel() * q.element_size())
+    return (4 * Dh * pairs * B * H,
+            _nbytes(q, k, v, q_positions, kv_positions) + out)
+
+
+def backward_cost(q, k, v, causal, window, q_positions=None,
+                  kv_positions=None) -> tuple:
+    """(FLOPs, bytes) of one backward: five products of 2·Dh FLOPs a
+    visible pair a head (S, dP, dV, dK, dQ); q, k, v, dO, the fp32 output
+    and LSE (and the positions) read, dq, dk, dv written."""
+    B, Sq, H, Dh = q.shape
+    pairs = visible_pairs(Sq, k.shape[1], causal, window, q_positions,
+                          kv_positions)
+    return (10 * Dh * pairs * B * H,
+            2 * _nbytes(q, k, v) + q.numel() * q.element_size()
+            + 4 * (q.numel() + B * H * Sq)
+            + _nbytes(q_positions, kv_positions))
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K3 on CUDA tensors with its hand-written backward."""
+    """K3 with a gradient: on a card the training forward and the
+    hand-written backward; on the CPU the plain version, its gradient
+    autograd's through the plain version recomputed in the backward (the
+    gradient autograd gives through the plain forward); on the ``meta``
+    device shapes only."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_positions=None,
                 kv_positions=None):
-        _check_backward(q.shape[3], q.dtype, q_positions is not None)
+        dev = q.device.type
+        if dev == "cuda":
+            _check_backward(q.shape[3], q.dtype, q_positions is not None)
         ctx.causal, ctx.window = causal, window
         ctx.positions = dict(q_positions=q_positions,
                              kv_positions=kv_positions)
-        out, lse = _launch(q, k, v, causal, window, with_lse=True,
-                           **ctx.positions)
-        ctx.save_for_backward(q, k, v, out, lse)
-        return out.to(q.dtype)            # fp32: the same tensor
+        with counter.kernel("k3_forward", lambda: forward_cost(
+                q, k, v, causal, window, training=True, **ctx.positions)):
+            if dev == "cuda":
+                out, lse = _launch(q, k, v, causal, window, with_lse=True,
+                                   **ctx.positions)
+                ctx.save_for_backward(q, k, v, out, lse)
+                return out.to(q.dtype)        # fp32: the same tensor
+            ctx.save_for_backward(q, k, v)
+            if dev == "meta":
+                return torch.empty_like(q)
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       **ctx.positions)
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.to(q.dtype).contiguous()   # bf16 dO stays bf16
-        if dout.data_ptr() % ALIGN:      # TMA and cp.async: 16-byte chunks
-            dout = dout.clone()
-        dq, dk, dv = _launch_backward(q, k, v, out, lse, dout, ctx.causal,
-                                      ctx.window, **ctx.positions)
-        return dq, dk, dv, None, None, None, None
+        saved = ctx.saved_tensors     # once: remat's unpack hooks allow one
+        q, k, v = saved[:3]
+        with counter.kernel("k3_backward", lambda: backward_cost(
+                q, k, v, ctx.causal, ctx.window, **ctx.positions)):
+            if q.device.type == "cuda":
+                out, lse = saved[3:]
+                dout = dout.to(q.dtype).contiguous()   # bf16 dO stays bf16
+                if dout.data_ptr() % ALIGN:   # TMA, cp.async: 16-byte chunks
+                    dout = dout.clone()
+                grads = _launch_backward(q, k, v, out, lse, dout,
+                                         ctx.causal, ctx.window,
+                                         **ctx.positions)
+            elif q.device.type == "meta":
+                grads = tuple(torch.empty_like(t) for t in (q, k, v))
+            else:
+                with torch.enable_grad():
+                    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                    out = flash_attention_ref(*leaves, causal=ctx.causal,
+                                              window=ctx.window,
+                                              **ctx.positions)
+                    grads = torch.autograd.grad(out, leaves, dout)
+        return (*grads, None, None, None, None)
 
 
 def _check_backward(Dh: int, dtype: torch.dtype, positions: bool) -> None:
     """Raise, before any launch, for a call that needs a gradient the
     backward does not take: a head dim outside :data:`BWD_HEAD_DIMS`,
     explicit positions outside :data:`BWD_POSITION_HEAD_DIMS`, bf16
-    outside :data:`BWD_BF16_HEAD_DIMS` or with explicit positions."""
+    outside :data:`BWD_BF16_HEAD_DIMS`."""
     hint = "call it without gradients to serve"
     if Dh not in BWD_HEAD_DIMS:
         raise ValueError(f"head dim {Dh}: the flash_attention backward "
@@ -484,11 +563,22 @@ def _check_backward(Dh: int, dtype: torch.dtype, positions: bool) -> None:
                          f"takes explicit positions at "
                          f"{BWD_POSITION_HEAD_DIMS} (ROADMAP Queue B, B1); "
                          f"{hint}")
-    if dtype == torch.bfloat16 and (Dh not in BWD_BF16_HEAD_DIMS
-                                    or positions):
+    if dtype == torch.bfloat16 and Dh not in BWD_BF16_HEAD_DIMS:
         raise ValueError(f"head dim {Dh}: the flash_attention backward "
-                         f"takes bf16 at {BWD_BF16_HEAD_DIMS} without "
-                         f"explicit positions (ROADMAP Queue A, A5); {hint}")
+                         f"takes bf16 at {BWD_BF16_HEAD_DIMS}; {hint}")
+
+
+def _route(device: torch.device, Dh: int) -> str:
+    """The route for tensors on ``device``: "cuda" (the kernels, at the
+    head dims of :data:`FWD_HEAD_DIMS`), "cpu" or "meta"; raises for a
+    head dim the card's kernels do not take and for any other device."""
+    if device.type == "cuda":
+        if Dh not in FWD_HEAD_DIMS:
+            raise ValueError(f"head dim {Dh}; the CUDA kernel takes "
+                             f"{FWD_HEAD_DIMS} (ROADMAP Queue B, B1)")
+    elif device.type not in ("cpu", "meta"):
+        raise ValueError(f"no flash_attention for device {device}")
+    return device.type
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -501,24 +591,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     neither): the kernel for CUDA tensors at a head dim of
     :data:`FWD_HEAD_DIMS`, differentiable through the hand-written
     backward when any input needs a gradient (head dims
-    :data:`BWD_HEAD_DIMS`); the plain version (autograd's own backward)
-    for CPU tensors at any head dim; an error for anything else. The
+    :data:`BWD_HEAD_DIMS`); the plain version for CPU tensors at any head
+    dim; shapes only for ``meta`` tensors; an error for anything else. The
     bf16 plain version rounds P to bf16 before P·V, as the reference's
     ``chunked_attention`` does."""
     _check(q, k, v, window, q_positions, kv_positions)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_positions=q_positions,
-                                   kv_positions=kv_positions)
-    if q.shape[3] not in FWD_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]}; the CUDA kernel takes "
-                         f"{FWD_HEAD_DIMS} (ROADMAP Queue B, B1)")
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention for device {q.device}")
-    q_positions, kv_positions = _int32(q_positions), _int32(kv_positions)
+    dev = _route(q.device, q.shape[3])
+    if dev == "cuda":
+        q_positions, kv_positions = _int32(q_positions), _int32(kv_positions)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, q_positions,
                                      kv_positions)
-    return _launch(q, k, v, causal, window, q_positions=q_positions,
-                   kv_positions=kv_positions)
+    pos = dict(q_positions=q_positions, kv_positions=kv_positions)
+    with counter.kernel("k3_forward", lambda: forward_cost(
+            q, k, v, causal, window, **pos)):
+        if dev == "cuda":
+            return _launch(q, k, v, causal, window, **pos)
+        if dev == "meta":
+            return torch.empty_like(q)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   **pos)

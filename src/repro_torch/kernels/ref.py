@@ -143,7 +143,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_bf16_ref(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, out: torch.Tensor,
                                  lse: torch.Tensor, dout: torch.Tensor, *,
-                                 causal: bool = True, window: int = 0
+                                 causal: bool = True, window: int = 0,
+                                 q_positions: Optional[torch.Tensor] = None,
+                                 kv_positions: Optional[torch.Tensor] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
     """K3's bf16 backward as its kernels compute it
@@ -152,14 +154,15 @@ def flash_attention_bwd_bf16_ref(q: torch.Tensor, k: torch.Tensor,
     and dS = P∘(dP − D) (from the fp32 P) rounded to bf16 before dQ = dS·K
     and dK = dSᵀ·Q, as the forward rounds P before P·V (the reference's
     ``chunked_attention`` rounds it there). Every sum is fp32; ``out`` and
-    ``lse`` are the training forward's fp32 output and row LSE. Returns
-    (dq, dk, dv) in bf16."""
+    ``lse`` are the training forward's fp32 output and row LSE; the masks
+    of :func:`_attention_mask`. Returns (dq, dk, dv) in bf16."""
     B, Sq, H, Dh = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
     ct = torch.float32
     s = _scores(q, k, ct)
-    mask = _attention_mask(Sq, Skv, causal, window, q.device)
+    mask = _attention_mask(Sq, Skv, causal, window, q.device, q_positions,
+                           kv_positions)
     row_lse = lse.to(ct).transpose(1, 2).reshape(B, Sq, KH, G)[..., None]
     p = torch.where(mask[None, :, None, None, :], torch.exp(s - row_lse),
                     torch.zeros((), dtype=ct, device=q.device))

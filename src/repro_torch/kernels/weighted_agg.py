@@ -10,7 +10,10 @@ buffer without materialising an (M, P) gather.
 
 On a CUDA tensor it launches the hand-written kernel
 ``csrc/weighted_agg.cu``; on a CPU tensor it runs the plain version
-:func:`~repro_torch.kernels.ref.weighted_agg_ref`. Row numbers in
+:func:`~repro_torch.kernels.ref.weighted_agg_ref`; on a ``meta`` tensor
+(the dry run's) it returns the result's shape and dtype only. On every
+device a :class:`~repro_torch.roofline.counter.CostCounter` counts the
+mix by :func:`cost`. Row numbers in
 ``index`` are not read on the host (that would sync); callers build them
 from host-validated client indices. Any number of neighbours M ≥ 0 is taken,
 in one launch.
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import weighted_agg_ref
+from repro_torch.roofline import counter
 
 # vector widths in bytes the kernel is instantiated for, widest first
 VECTOR_BYTES = {torch.float32: (16, 8, 4), torch.bfloat16: (16, 8, 4, 2)}
@@ -116,6 +120,14 @@ def _launch(own, neighbors, w, alpha, index, any_ok, M) -> torch.Tensor:
     return out
 
 
+def _route(device: torch.device) -> str:
+    """The route for tensors on ``device``: "cuda" (the kernel), "cpu"
+    (the plain version) or "meta" (shapes only); raises for any other."""
+    if device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"no weighted_agg for device {device}")
+    return device.type
+
+
 def weighted_agg(own: torch.Tensor, neighbors: torch.Tensor, w: torch.Tensor,
                  alpha: float, *, index: Optional[torch.Tensor] = None,
                  any_ok: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -123,9 +135,19 @@ def weighted_agg(own: torch.Tensor, neighbors: torch.Tensor, w: torch.Tensor,
     fp32; index: (M,) int64 row numbers or None (M = R); any_ok: 0-d bool
     or None (treated as True). Returns a new (P,) tensor."""
     M = _check(own, neighbors, w, index, any_ok)
-    if own.device.type == "cpu":
-        return weighted_agg_ref(own, neighbors, w, alpha, index=index,
-                                any_ok=any_ok)
-    if own.device.type != "cuda":
-        raise ValueError(f"no weighted_agg for device {own.device}")
-    return _launch(own, neighbors, w, alpha, index, any_ok, M)
+    dev = _route(own.device)
+    with counter.kernel("k2", lambda: cost(M, own.shape[0], own.dtype)):
+        if dev == "cpu":
+            return weighted_agg_ref(own, neighbors, w, alpha, index=index,
+                                    any_ok=any_ok)
+        if dev == "meta":
+            return torch.empty_like(own)
+        return _launch(own, neighbors, w, alpha, index, any_ok, M)
+
+
+def cost(M: int, P: int, dtype: torch.dtype) -> tuple:
+    """(FLOPs, bytes) of one mix, the kernel's own work whatever runs it:
+    Σ_m w_m·nb_m (2·M·P) and the α blend (3·P); own and M rows read once,
+    the result written once, w read."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return 2 * M * P + 3 * P, size * (M + 2) * P + 4 * M

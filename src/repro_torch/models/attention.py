@@ -314,8 +314,11 @@ def mla_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     w_k = wkv_b[..., :m.qk_nope_head_dim]                       # (r, H, dn)
     w_v = wkv_b[..., m.qk_nope_head_dim:]                       # (r, H, dv)
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_k)
-    s = (torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv)
-         + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope))
+    # the scores summed in fp32 whatever the cache's dtype, and P rounded
+    # to it before P·c_kv, as the reference's preferred_element_type and
+    # cast (ROADMAP Queue C, C8)
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), c_kv.float())
+         + torch.einsum("bqhd,bsd->bhqs", q_rope.float(), k_rope.float()))
     s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     if window:
         slot_pos = ring_slot_positions(pos, S, x.device)
@@ -323,7 +326,7 @@ def mla_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         mask = torch.arange(S, device=x.device) <= pos
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-    ctx = torch.einsum("bhqs,bsr->bqhr", p, c_kv)
+    ctx = torch.einsum("bhqs,bsr->bqhr", p.to(c_kv.dtype), c_kv)
     out = torch.einsum("bqhr,rhd->bqhd", ctx, w_v)              # (B,1,H,dv)
     out = linear(params["wo"], out.reshape(B, 1, -1))
     return out, {"c_kv": c_kv, "k_rope": k_rope}

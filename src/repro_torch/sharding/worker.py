@@ -26,6 +26,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.core import aggregation
 from repro_torch.kernels import em_posterior, flash_attention, weighted_agg
+from repro_torch.roofline.collectives import CollectiveCounter
 
 
 def count_syncs(fn: Callable[[], Any]):
@@ -179,7 +180,9 @@ def run_round_step(cases, device: str) -> List[Dict[str, Any]]:
     Params and stacks come back as CPU tensors in their dtype.
 
     Returns a dict a case: ``rounds``, one dict a round (``new_pi``,
-    ``metrics``, ``collectives``, ``calls``, ``k2``, ``k2_bf16``, ``k3``
+    ``metrics``, ``collectives``, ``collective_bytes`` (its bytes by
+    kind, :mod:`repro_torch.roofline.collectives`), ``calls``, ``k2``,
+    ``k2_bf16``, ``k3``
     (the forward's and each backward kernel's launches, all and bf16),
     ``ms`` (host clock around the round, ending in a sync) and ``stage_ms``
     (the stages' device time between CUDA events on a card, host clock on
@@ -228,8 +231,9 @@ def run_round_step(cases, device: str) -> List[Dict[str, Any]]:
                 torch.cuda.synchronize(dev)
             marks.append(("start", _stamp(cuda)))
             t0 = time.perf_counter()
-            params, new_pi, metrics = steps[bits](params, batch, pi, ok,
-                                                  mark=mark)
+            with CollectiveCounter() as coll:
+                params, new_pi, metrics = steps[bits](params, batch, pi, ok,
+                                                      mark=mark)
             if cuda:
                 torch.cuda.synchronize(dev)
             ms = (time.perf_counter() - t0) * 1e3
@@ -239,6 +243,7 @@ def run_round_step(cases, device: str) -> List[Dict[str, Any]]:
             r = {"exchange_bits": bits, "new_pi": new_pi.cpu().numpy(),
                  "metrics": {k: float(v) for k, v in metrics.items()},
                  "collectives": aggregation.collectives,
+                 "collective_bytes": coll.summary(),
                  "calls": dict(aggregation.calls),
                  "k2": weighted_agg.launches,
                  "k2_bf16": weighted_agg.bf16_launches, "k3": _k3_counts(),

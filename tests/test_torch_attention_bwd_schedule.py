@@ -458,7 +458,7 @@ def _fake_library(prefix, tiles):
         for ref, value in zip(refs, got):
             ref._obj.value = value
         return 0
-    fns = {f"{prefix}tiles": report, "attn_bwd_positions_built":
+    fns = {f"{prefix}tiles": report, f"{prefix}positions_built":
            lambda dh: int(dh in k3.BWD_POSITION_HEAD_DIMS)}
     fns.update({f"{prefix}{name}_launch": lambda *a: 0
                 for name in k3.backward_launches})

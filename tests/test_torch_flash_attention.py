@@ -118,8 +118,11 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 16, 4, 2, 64))
     q32, k32, v32 = (t[..., :32].contiguous() for t in (q, k, v))
     k3._check(q32, k32, v32, 0)           # the CPU route takes any head dim
-    with pytest.raises(ValueError, match="head dim"):  # off the CPU it does
-        k3.flash_attention(q32.to("meta"), k32.to("meta"), v32.to("meta"))
+    with pytest.raises(ValueError, match="head dim"):  # the card's does not
+        k3._route(torch.device("cuda"), 32)
+    # the meta route (the dry run's) takes any head dim: shapes only
+    out = k3.flash_attention(q32.to("meta"), k32.to("meta"), v32.to("meta"))
+    assert out.device.type == "meta" and out.shape == q32.shape
     with pytest.raises(ValueError):                    # H % KH
         k3.flash_attention(q[:, :, :3].contiguous(), k, v)
     with pytest.raises(ValueError):                    # k and v differ
@@ -137,7 +140,7 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):                    # non-contiguous
         k3.flash_attention(q.transpose(1, 2), k, v)
     with pytest.raises(ValueError):   # no CPU fallback for other devices
-        k3.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        k3._route(torch.device("xpu"), 64)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

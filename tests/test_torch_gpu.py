@@ -610,23 +610,28 @@ def test_flash_attention_backward_counts_its_launches_on_card(cuda, shape):
 
 @pytest.mark.gpu
 def test_flash_attention_backward_refuses_bf16_on_card(cuda):
-    """bf16 with a gradient outside the bf16 head dims (96) or with
-    explicit positions raises in the forward, before any launch."""
+    """bf16 with a gradient where the bf16 backward has no kernel raises
+    in the forward, before any launch: explicit positions at Dh 96 (the
+    position instantiations are at 64 and 128) and Dh 192 (no kernel in
+    either direction)."""
     n, bwd = k3.launches, dict(k3.backward_launches)
     q, k, v, _ = _bwd_case(cuda, 1, 64, 64, 2, 1, 96, True, 0)
     qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
-    with pytest.raises(ValueError, match="bf16"):
-        k3.flash_attention(qb, kb, vb)
-    q, k, v, _ = _bwd_case(cuda, 1, 64, 64, 2, 1, 64, True, 0)
-    qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
     pos = torch.arange(64, device=cuda)
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="head dim 96"):
         k3.flash_attention(qb, kb, vb, q_positions=pos, kv_positions=pos)
+    q, k, v, _ = _bwd_case(cuda, 1, 64, 64, 2, 1, 192, True, 0)
+    qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
+    with pytest.raises(ValueError, match="head dim 192"):
+        k3.flash_attention(qb, kb, vb)
     torch.cuda.synchronize()
     assert (k3.launches, k3.backward_launches) == (n, bwd)
 
 
-BF16_BWD_SHAPES = [(2, 200, 200, 9, 3, 64, True, 0),
+BF16_BWD_SHAPES = [(2, 64, 64, 4, 4, 48, True, 0),
+                   (2, 200, 200, 9, 3, 96, True, 0),
+                   (1, 130, 130, 6, 2, 112, True, 70),
+                   (2, 200, 200, 9, 3, 64, True, 0),
                    (1, 77, 50, 16, 1, 64, False, 20),
                    (1, 384, 384, 6, 2, 128, True, 96),
                    (4, 128, 128, 9, 3, 64, True, 0),

@@ -418,7 +418,10 @@ def test_weighted_agg_rejects_what_the_kernel_does_not_take():
         k2.weighted_agg(o, n, w, 0.5, index=torch.tensor([0, 1, 2],
                                                          dtype=torch.int32))
     with pytest.raises(ValueError):   # no CPU fallback for other devices
-        k2.weighted_agg(o.to("meta"), n.to("meta"), w.to("meta"), 0.5)
+        k2._route(torch.device("xpu"))
+    # the meta route (the dry run's): shapes only
+    out = k2.weighted_agg(o.to("meta"), n.to("meta"), w.to("meta"), 0.5)
+    assert out.device.type == "meta" and out.shape == o.shape
 
 
 @pytest.mark.parametrize("addresses,stride,dtype,expect", [

@@ -323,15 +323,20 @@ def test_windowed_prompt_longer_than_the_ring_raises():
 
 
 def test_mla_gradient_at_the_kernel_refuses_up_front():
-    """K3's backward takes Dh 48, 64, 96, 112 and 128: a call at
-    deepseek-v3's full-width MLA dim 192 (qk_nope 128 + qk_rope 64) that
-    needs a gradient raises in the autograd forward, before any launch."""
+    """K3's backward takes Dh 48, 64, 96, 112 and 128: on a card, a call
+    at deepseek-v3's full-width MLA dim 192 (qk_nope 128 + qk_rope 64)
+    that needs a gradient raises in the autograd forward, before any
+    launch (the check the forward runs on a CUDA tensor). The CPU route,
+    one autograd node too since the roofline counter, takes any head dim,
+    as the reference does."""
+    with pytest.raises(ValueError, match="B1"):
+        k3._check_backward(192, torch.float32, False)
     q, k, v = (torch.zeros((1, 16, 2, 192), requires_grad=True)
                for _ in range(3))
     n = k3.launches
-    with pytest.raises(ValueError, match="B1"):
-        k3._FlashAttention.apply(q, k, v, True, 0)
-    assert k3.launches == n
+    out = k3._FlashAttention.apply(q, k, v, True, 0)
+    torch.autograd.grad(out.sum(), (q, k, v))
+    assert out.shape == q.shape and k3.launches == n
 
 
 def test_example_serves_minicpm3_on_cpu():
