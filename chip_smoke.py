@@ -72,8 +72,12 @@ when it ends:
      serving one's, row LSE against the plain one); at zamba2's head dim
      112 over the sweep's shapes, ragged shapes, the tile edges and
      zamba2-7b's prefill (B 8, S 1024, H 32, KH 32, causal, and with a
-     window of 256), with the training instantiation too; a call at Dh
-     192 that needs a gradient must raise before any launch; then K3's
+     window of 256), with the training instantiation too; at deepseek-v3's
+     MLA head dim 192 (``ATTN_DS_SHAPES``: its full-width prefill, B 8 x
+     S 1024, 128 heads, the sweep's shapes, ragged, windowed, fully
+     masked rows and the tile edges) in fp32 and bf16, with the fp32
+     training instantiation; an fp32 call at Dh 192 that needs a gradient
+     must raise before any launch (ROADMAP B1); then K3's
      backward (``csrc/flash_attention_bwd.cu``: split-TF32 ``wgmma``, dK/dV
      split over blocks where one a key tile leaves SMs idle, through the
      autograd path) against ``flash_attention_bwd_ref`` in float64 on the
@@ -96,9 +100,9 @@ when it ends:
      index path's), M-RoPE's temporal component (256 patches tied at 0,
      then text from 16), a tail of -1s, a window of 256, keys past the
      first 50 queries (fully masked rows, which must give 0) and the
-     M-RoPE positions permuted under a window of 100, and the same
-     forward and LSE checks at Dh 48, 96 and 112 (whose backward takes no
-     positions); then the forward at
+     M-RoPE positions permuted under a window of 100, and the same checks
+     at Dh 48, 96, 112 and 192 (the backward by positions in fp32 and
+     bf16 there, 192 in bf16 only); then the forward at
      qwen2-vl's prefill under its M-RoPE prompt's positions and the bf16
      backward at its training shape under them; K3's fp32
      backward also at chatglm3-6b's training shape (B 8, S 256, 32 heads
@@ -108,13 +112,14 @@ when it ends:
      ``BWD_BF16_SHAPES``: that shape, train_4k's at B 2, the sweep's Dh
      64 and 128 shapes, ragged, windowed, G 1 to 16, fully masked rows, a
      split plan, and (PR 29) Dh 48, 96 and 112 at minicpm3-4b's, zamba2-7b's
-     and reduced MLA's training shapes, ragged, windowed, split) against the float64 plain backward of the same bf16
-     values within 2e-2 and within twice the error of the plain version
+     and reduced MLA's training shapes, ragged, windowed, split; and Dh
+     192's ``BWD_DS_SHAPES``: deepseek-v3's training shape at full
+     width, B 8 x S 256, 128 heads, a split plan, ragged, windowed, G > 1,
+     fully masked rows) against the float64 plain backward of the same
+     bf16 values within 2e-2 and within twice the error of the plain version
      of the kernels' bf16 arithmetic (``flash_attention_bwd_bf16_ref``:
      P and dS rounded to bf16 before their products) + 1e-4, the LSE
      within 1e-5, two runs bitwise equal, only the bf16 kernels launched;
-     a bf16 call that needs a gradient at Dh 96 must raise before a
-     launch;
   7. serve a reduced smollm-135m on the card and on the CPU (plain
      kernels) with the same weights and prompts, without and with a window
      that wraps, and compare logits and tokens; then serve the main path at
@@ -257,6 +262,25 @@ when it ends:
      meta only; then ``--run`` at
      smollm-135m's train_4k on the card (global_batch 2: ms, peak), K3's
      and K2's FLOPs counted on the card equal to the meta count;
+  7k. deepseek-v3-671b (arXiv:2412.19437) at its published widths:
+     reduced() with the published MLA head dims (qk_nope 128, qk_rope 64,
+     v 128: K3 at Dh 192) on the card against the CPU with the same
+     weights, prompts and batches: fp32 serving within 1e-4 and bf16
+     within max(2e-2, the CPU's own bf16-vs-fp32 gap) (a 37-token prefill,
+     4 teacher-forced decode steps, K3 once a layer), one bf16
+     make_train_step without and with explicit positions within phase
+     7g's gates; the explicit-position training of ``POS_TRAIN_ARCHS``
+     (reduced deepseek-v3 at Dh 48, minicpm3-4b at its published MLA dims
+     96, zamba2-7b at its published head dim 112: fp32 ``value_and_grad``
+     within 1e-4 and one bf16 step; every K3 launch by positions); then
+     deepseek-v3 with n_layers cut from 61 to 4 (the 3 dense layers, one
+     MoE layer of 256 experts top-8 with the shared expert, the MTP block;
+     15.70 B params, seed-0 weights): a bf16 serve of 8 x 1024 + 32 (K3 4
+     launches a prefill), 2 bf16 make_train_step steps at B 8 x S 256
+     without remat (K3's forward 5 a step, each bf16 backward kernel as
+     often), then, the bf16 weights freed, an fp32 serve of 8 x 1024 +
+     32; prefill, decode and step ms, peaks,
+     K3's launches and the MoE layer's dropped share printed;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
      at the main paths' shapes (K1 also in bf16, at smollm-135m's
      vocabulary and at the M = 39 round's shape, K2 also from a
@@ -277,7 +301,11 @@ when it ends:
      minicpm3-4b's (Dh 96) and zamba2-7b's (Dh 112) training shapes and
      by explicit positions at qwen2-vl-2b's (M-RoPE), the bf16 rows
      bounded at bf16's 989 TFLOP/s against SDPA in bf16, their launches
-     the bf16 kernels' own counts)
+     the bf16 kernels' own counts; deepseek-v3's Dh 192: the bf16
+     forward at its prefill, the bf16 backward at its training shape, the
+     fp32 forward at its fp32 serve; the backward by explicit positions
+     at Dh 48, 96 and 112 in fp32 and bf16, timed at reduced MLA's,
+     minicpm3-4b's and zamba2-7b's training shapes)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
      and print them as one JSON line;
   9. with ``--profile`` only: profile two pFedWN rounds, one serving run
@@ -455,6 +483,28 @@ ATTN_SSM_SHAPES = [
     (1, 65, 129, 1, 1, 112, True, 16),
     (1, 129, 97, 1, 1, 112, False, 0),
 ]
+# K3 at deepseek-v3's MLA head dim 192 (qk_nope 128 + qk_rope 64, v padded
+# to 192; G 1): its full-width prefill (B 8 x S 1024, 128 heads over 128)
+# first; the sweep's shapes; ragged shapes; windows; fully masked rows;
+# tile edges: folded rows just below, at and above 64 and 128, keys just
+# off the bf16 forward's 64-key tile and the fp32 one's 16
+ATTN_DS = (8, 1024, 1024, 128, 128, 192, True, 0)
+ATTN_DS_SHAPES = [
+    ATTN_DS,
+    (2, 256, 256, 4, 2, 192, True, 0),       # tests/test_kernels.py sweep
+    (1, 256, 256, 8, 8, 192, True, 0),
+    (2, 128, 128, 4, 1, 192, False, 0),
+    (1, 384, 384, 6, 2, 192, True, 96),
+    (2, 200, 200, 4, 4, 192, True, 0),       # ragged
+    (3, 1, 77, 12, 4, 192, True, 0),
+    (1, 77, 50, 16, 1, 192, False, 20),      # rows 69.. fully masked
+    (1, 63, 65, 1, 1, 192, False, 0),        # tile edges
+    (1, 64, 127, 2, 1, 192, False, 0),
+    (1, 65, 129, 1, 1, 192, True, 16),
+    (1, 17, 15, 3, 1, 192, True, 0),
+    (2, 42, 43, 3, 1, 192, True, 0),
+    (1, 129, 97, 1, 1, 192, False, 0),
+]
 # phase 7d: the SSM configs, and the window zamba2's card-vs-CPU run wraps
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
 SSM_WINDOW = 8
@@ -467,12 +517,13 @@ STUB_TRAIN_STEPS = 4
 # of ``_position_pattern``
 POS_SHAPES = [(2, 320, 320, 12, 2, 128, True, 0),
               (2, 320, 320, 8, 8, 64, True, 0)]
-# the forward's other head dims (MLA's 48 and 96, zamba2's 112), whose
-# position instantiations serve; the backward takes positions at 64 and 128
-# only
+# the forward's other head dims (MLA's 48, 96 and 192, zamba2's 112), whose
+# position instantiations serve and train: the backward takes
+# positions at each of its head dims in each dtype (192 in bf16 only)
 POS_FWD_SHAPES = [(2, 320, 320, 4, 4, 48, True, 0),
                   (2, 320, 320, 8, 8, 96, True, 0),
-                  (2, 320, 320, 8, 8, 112, True, 0)]
+                  (2, 320, 320, 8, 8, 112, True, 0),
+                  (2, 320, 320, 8, 8, 192, True, 0)]
 POS_PATTERNS = ("arange", "mrope", "pad", "window", "masked_rows",
                 "unsorted")
 # K2: the cifar10-cnn round's P, and row strides that give the kernel 8-,
@@ -596,6 +647,20 @@ BWD_BF16_SHAPES = [
     (2, 42, 43, 3, 1, 112, True, 0),
     (1, 100, 100, 8, 2, 48, True, 0),
 ]
+# the bf16 backward at Dh 192, checked as BWD_BF16_SHAPES are:
+# deepseek-v3's training shape at full width (B 8 x S 256, 128 heads; the
+# dK/dV kernel splits the head dim over its warpgroups), a split plan,
+# ragged, windowed, G > 1, fully masked rows, tile edges
+BWD_DS = (8, 256, 256, 128, 128, 192, True, 0)
+BWD_DS_SHAPES = [
+    BWD_DS,
+    (1, 256, 256, 2, 1, 192, True, 0),       # 8 splits and the reduce
+    (2, 200, 200, 9, 3, 192, True, 0),
+    (1, 130, 130, 6, 2, 192, True, 70),
+    (1, 77, 50, 16, 1, 192, False, 20),
+    (2, 42, 43, 3, 1, 192, True, 0),
+    (1, 65, 129, 1, 1, 192, False, 0),
+]
 # |d| <= tol + tol·|ref| for the fp32 kernel against the float64 plain
 # backward (tests/test_torch_gpu.py's tolerance); the row LSE likewise
 BWD_TOL = 1e-5
@@ -636,6 +701,30 @@ BF16_FAMILY_ARCHS = ("granite-moe-3b-a800m", "deepseek-v3-671b",
 BF16_FAMILY_FULL = ("granite-moe-3b-a800m", "minicpm3-4b",
                     "falcon-mamba-7b", "zamba2-7b", "qwen2-vl-2b")
 BF16_FAMILY_STEPS = 2
+# phase 7k: deepseek-v3-671b (arXiv:2412.19437) at its published widths:
+# card vs CPU at reduced() with the published MLA head dims (qk_nope 128,
+# qk_rope 64, v 128: K3 at Dh 192), then at full width with n_layers cut
+# from 61 to DS_LAYERS (the 3 dense layers, one MoE layer of 256 experts
+# top-8 with the shared expert, the MTP block; 15.70 B params, 29.2 GiB in
+# bf16 and 58.5 GiB in fp32): a bf16 serve of SERVE_B x SERVE_PROMPT +
+# SERVE_GEN, DS_TRAIN_STEPS bf16 make_train_step steps at TRAIN_B x
+# TRAIN_S (no remat: K3's forward once an attention layer, 5 a step), an
+# fp32 serve of the same size (its peak about 70 GiB on an H100; fp32
+# training would need 117 GiB for weights and gradients alone:
+# the fp32 backward at Dh 192 waits, ROADMAP B1)
+DS_LAYERS = 4
+DS_TRAIN_STEPS = 2
+DS_MLA_DIMS = ("qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim")
+# and the explicit-position training K3's backward takes (the
+# reference's loss_fn takes batch["positions"] for every arch), card vs CPU
+# in fp32 and bf16 at reduced(): deepseek-v3 (Dh 48), minicpm3-4b with its
+# published MLA dims (64 + 32: Dh 96), zamba2-7b's shared block at its
+# published head dim 112, deepseek-v3 at Dh 192 (bf16); positions 3..S+2,
+# what a caller continuing a sequence passes. Phase 8 times the position
+# backward at the full-width training shapes of these dims
+POS_TRAIN_ARCHS = (("deepseek-v3-671b", 48), ("minicpm3-4b", 96),
+                   ("zamba2-7b", 112), ("deepseek-v3-671b", 192))
+POS_TRAIN_OFFSET = 3
 # phase 7j: where the dry run's sweep writes, and its processes (it needs
 # no card; the SSM configs' per-step Mamba1 scans take ~20 s each on the
 # meta device, the others ~1 s)
@@ -1509,17 +1598,17 @@ def _attn_inputs(shape, dtype, dev, seed=0):
 
 def check_flash_attention(dev) -> dict:
     """K3 against its plain version at every checked shape, |d| <= tol +
-    tol·|plain|; raises past it. At MLA's head dims 48 and 96 and
-    zamba2's 112 also the fp32 training instantiation at their prefill
-    shapes: its output bitwise the serving one's, its row LSE within
-    ``BWD_TOL`` of the plain one; and a call at Dh 192 that needs a
-    gradient, or one in bf16 at Dh 96, must raise before it launches
-    anything (ROADMAP B1). Returns the max |d| in fp32 by shape, and in
-    bf16 under (shape, "bf16")."""
+    tol·|plain|; raises past it. At MLA's head dims 48, 96 and 192 and
+    zamba2's 112 also the fp32 training instantiation: its output bitwise
+    the serving one's, its row LSE within ``BWD_TOL`` of the plain one;
+    and an fp32 call at Dh 192 that needs a gradient must raise before it
+    launches anything (ROADMAP B1). Returns the max |d| in fp32 by shape,
+    and in bf16 under (shape, "bf16")."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import flash_attention_ref
     errs = {}
-    for shape in ATTN_SHAPES + ATTN_MLA_SHAPES + ATTN_SSM_SHAPES:
+    for shape in (ATTN_SHAPES + ATTN_MLA_SHAPES + ATTN_SSM_SHAPES
+                  + ATTN_DS_SHAPES):
         causal, window = shape[6], shape[7]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _attn_inputs(shape, dtype, dev)
@@ -1538,13 +1627,12 @@ def check_flash_attention(dev) -> dict:
                 raise AssertionError(f"K3 disagrees with its plain version "
                                      f"at {shape} {dtype}: {err}")
             errs[shape if dtype == torch.float32 else (shape, "bf16")] = err
-            if dtype == torch.float32 and shape[5] in (48, 96, 112):
+            if dtype == torch.float32 and shape[5] in (48, 96, 112, 192):
                 _check_lse_instantiation(q, k, v, out, causal, window, shape)
-    # where the backward has no kernel: Dh 192 in either dtype, positions
-    # at Dh 96 (the position instantiations are at 64 and 128)
+    # where the backward has no kernel: fp32 at Dh 192, with and without
+    # positions (ROADMAP B1; bf16 trains there)
     for dh, dtype, with_pos in ((192, torch.float32, False),
-                                (192, torch.bfloat16, False),
-                                (96, torch.bfloat16, True)):
+                                (192, torch.float32, True)):
         q, k, v = (t.requires_grad_() for t in _attn_inputs(
             (1, 64, 64, 2, 2, dh), dtype, dev))
         pos = torch.arange(64, device=dev)
@@ -2283,7 +2371,8 @@ def check_flash_attention_backward(dev) -> float:
 def check_flash_attention_backward_bf16(dev) -> dict:
     """K3's bf16 training forward and backward
     (``csrc/flash_attention_bf16.cu``, ``csrc/flash_attention_bwd_bf16.cu``)
-    at every shape of ``BWD_BF16_SHAPES``: dq, dk, dv (bf16) against the
+    at every shape of ``BWD_BF16_SHAPES`` and Dh 192's ``BWD_DS_SHAPES``:
+    dq, dk, dv (bf16) against the
     float64 plain backward of the same bf16 values within ``BWD_BF16_TOL``
     (|d| <= tol + tol·|plain|) and, per gradient, max |d| within
     ``BWD_BF16_PLAIN_FACTOR`` times that of the plain version of the
@@ -2300,7 +2389,7 @@ def check_flash_attention_backward_bf16(dev) -> dict:
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ref
     errs_at = {}
-    for shape in BWD_BF16_SHAPES:
+    for shape in BWD_BF16_SHAPES + BWD_DS_SHAPES:
         causal, window = shape[6], shape[7]
         q, k, v, dout = _bwd_inputs(shape, dev, dtype=torch.bfloat16)
         k3.reset_counts()
@@ -2368,7 +2457,7 @@ def check_flash_attention_backward_bf16(dev) -> dict:
             raise AssertionError(f"K3's bf16 backward disagrees with its "
                                  f"plain version at {shape}")
         if shape in (BWD_CHATGLM, BWD_TRAIN_4K, ATTN_ROUND_TRAIN,
-                     BWD_MINICPM, BWD_ZAMBA2):
+                     BWD_MINICPM, BWD_ZAMBA2, BWD_DS):
             errs_at[shape] = (max(errs), max(excess))
         torch.cuda.empty_cache()
     return errs_at
@@ -2468,12 +2557,15 @@ def check_flash_attention_positions(dev) -> tuple:
     Then the bf16 backward with positions at qwen2-vl's training shape
     under its M-RoPE prompt's temporal positions (``BWD_QWEN2VL``). Raises
     past any; returns the max |d| of the fp32 prefill and of that bf16
-    backward (phase 8's positions rows)."""
+    backward (phase 8's positions rows), and by head dim of
+    ``POS_FWD_SHAPES`` the errors under the M-RoPE pattern."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ref
+    errs_at = {}
     for shape in POS_SHAPES + POS_FWD_SHAPES:
         B, Sq, Skv, H, KH, Dh, causal, _ = shape
-        bwd = Dh in k3.BWD_POSITION_HEAD_DIMS
+        bwd = Dh in k3.BWD_HEAD_DIMS             # fp32
+        bwd16 = Dh in k3.BWD_BF16_HEAD_DIMS
         for name in POS_PATTERNS:
             qp, kp, window = _position_pattern(name, Sq, dev)
             pos = dict(q_positions=qp, kv_positions=kp)
@@ -2508,7 +2600,7 @@ def check_flash_attention_positions(dev) -> tuple:
                           <= BWD_TOL))
             rows = masked.transpose(1, 2)                    # (B, Sq, H)
             zero = bool((served[rows] == 0).all())
-            bwd_ok, grads = True, ()
+            bwd_ok, grads, grads16 = True, (), ()
             if bwd:
                 grads = _autograd_grads(q, k, v, dout, causal, window,
                                         **pos)
@@ -2526,6 +2618,7 @@ def check_flash_attention_positions(dev) -> tuple:
                         (diff - BWD_TOL * w.abs()).max()) <= BWD_TOL)
                 zero &= bool((grads[1][rows] == 0).all())
                 del expect, q64, k64, v64
+            if bwd16:
                 # bf16 (PR 29): the kernels against the float64 backward
                 # of the same bf16 values and the plain bf16 version
                 b16 = [t.bfloat16() for t in (q, k, v, dout)]
@@ -2542,7 +2635,7 @@ def check_flash_attention_positions(dev) -> tuple:
                 idx = (_autograd_grads(q, k, v, dout, causal, window)
                        if bwd else ())
                 idx16 = (_autograd_grads(*b16, causal, window)
-                         if bwd else ())
+                         if bwd16 else ())
                 same = (torch.equal(idx_out, trained)
                         and torch.equal(idx_lse, lse)
                         and all(torch.equal(a, b)
@@ -2556,9 +2649,11 @@ def check_flash_attention_positions(dev) -> tuple:
                   f"zero {zero}, bitwise the index path {same}, position "
                   f"launches {launched}")
             if not (lse_ok and bwd_ok and zero and same
-                    and launched == 3 + 3 * bwd):
+                    and launched == 3 + bwd + 2 * bwd16):
                 raise AssertionError(f"K3 with positions {name} disagrees "
                                      f"at {shape}")
+            if name == "mrope" and shape in POS_FWD_SHAPES:
+                errs_at[Dh] = errs
     B, Sq, Skv, H, KH, Dh, causal, window = ATTN_QWEN2VL
     qp = _mrope_layout(256, Sq - 256, dev)[:, 0].contiguous()
     q, k, v = _attn_inputs(ATTN_QWEN2VL, torch.float32, dev)
@@ -2593,7 +2688,7 @@ def check_flash_attention_positions(dev) -> tuple:
                              "at qwen2-vl's training shape")
     del b16, grads16
     torch.cuda.empty_cache()
-    return err, max(errs16.values())
+    return err, max(errs16.values()), errs_at
 
 
 def check_train_against_cpu(dev, arch="smollm-135m", fed=True) -> dict:
@@ -3203,6 +3298,324 @@ def run_family_bf16_main_path(dev, arch) -> dict:
             "train_peak_gib": train_peak, "k3_serve": n_serve,
             "k3_forward": n_fwd, "k3_backward": n_bwd,
             "k3_bf16_backward": n_bf16_bwd, "k3_positions": n_pos}
+
+
+def _ds_cfg(full=False):
+    """deepseek-v3-671b at its published widths: with ``full`` its
+    n_layers cut to ``DS_LAYERS``, else reduced() with the published MLA
+    head dims restored (K3 at Dh 192)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b")
+    if full:
+        return dataclasses.replace(cfg, n_layers=DS_LAYERS)
+    small = cfg.reduced()
+    return dataclasses.replace(small, mla=dataclasses.replace(
+        small.mla, **{k: getattr(cfg.mla, k) for k in DS_MLA_DIMS}))
+
+
+def _position_train_cfg(arch, dh):
+    """``arch`` at reduced() with K3 at head dim ``dh``: minicpm3-4b's and
+    deepseek-v3's published MLA dims (96, 192), zamba2-7b's published head
+    dim (112), or reduced()'s own (48)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    if arch == "deepseek-v3-671b" and dh == 192:
+        return _ds_cfg()
+    full, cfg = get_config(arch), get_config(arch).reduced()
+    if cfg.mla and dh != _attn_head_dim(cfg):
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, **{k: getattr(full.mla, k) for k in DS_MLA_DIMS}))
+    elif not cfg.mla and dh != cfg.resolved_head_dim:
+        cfg = dataclasses.replace(cfg, head_dim=full.resolved_head_dim)
+    if _attn_head_dim(cfg) != dh:
+        raise AssertionError(f"reduced {arch} does not attend at Dh {dh}")
+    return cfg
+
+
+def _grad_excess(got, want, tol) -> float:
+    """max(|got − want| − tol·|want|) over two trees (CPU floats)."""
+    from torch.utils._pytree import tree_flatten
+    return max(float(((a.cpu().float() - b.float()).abs()
+                      - tol * b.float().abs()).max())
+               for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]))
+
+
+def check_deepseek_full_heads_against_cpu(dev) -> dict:
+    """Phase 7k's card-vs-CPU half. Reduced deepseek-v3 with the published
+    MLA head dims (``_ds_cfg``: K3 at Dh 192), the same seed-0 weights,
+    prompts and batches on the card (the kernels) and the CPU (plain
+    versions): fp32 and bf16 serving (a 37-token prefill, 4 teacher-forced
+    decode steps; fp32 logits within ``SERVE_TOL``, bf16 within max(2e-2,
+    g), g the CPU's own bf16-vs-fp32 gap), K3 once a layer a prefill in
+    the prompt's dtype; one bf16 ``make_train_step`` without and with
+    explicit positions under :func:`bf16_step_against_cpu`'s gates. Then
+    the explicit-position training of ``POS_TRAIN_ARCHS`` (positions
+    ``POS_TRAIN_OFFSET``.., B 2 x S 64): in fp32 (where the fp32 backward
+    takes the head dim) the loss and every gradient of ``value_and_grad``
+    within ``TRAIN_TOL`` (atol and rtol), and in bf16 one step under the
+    bf16 gates; every K3 launch a position launch, the backward kernels of
+    the plan once an attention layer. Returns the card's launches: K3
+    forward by (run, dtype), and the position backward's by (Dh, dtype)
+    with the steps that made them."""
+    from torch.utils._pytree import tree_map
+    from repro_torch.data import token_batch_stream
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models.model import init_params
+    out = {}
+    cfg = _ds_cfg()
+    p32 = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p16 = tree_map(lambda t: t.bfloat16(), p32)
+    prompts = make_prompts(cfg, 2, 37, seed=1, device="cpu")
+    feed = make_prompts(cfg, 2, 5, seed=2, device="cpu")
+    ref32 = _teacher_forced(cfg, p32, prompts, feed, 0)
+    for dtype, params in ((torch.float32, p32), (torch.bfloat16, p16)):
+        k3.reset_counts()
+        got = _teacher_forced(cfg, _tree_to(params, dev), prompts.to(dev),
+                              feed.to(dev), 0).cpu()
+        n3, n16 = k3.launches, k3.bf16_launches
+        ref = (ref32 if dtype == torch.float32 else
+               _teacher_forced(cfg, params, prompts, feed, 0))
+        d = float((got - ref).abs().max())
+        if dtype == torch.float32:
+            gate = SERVE_TOL
+            ok = float(((got - ref).abs() - SERVE_TOL * ref.abs()).max()) \
+                <= SERVE_TOL
+        else:
+            gate = max(BWD_BF16_TOL, float((ref - ref32).abs().max()))
+            ok = d <= gate
+        routed = n16 == (n3 if dtype == torch.bfloat16 else 0)
+        out[("serve", str(dtype)[6:])] = n3
+        print(f"serve reduced deepseek-v3 at Dh 192 {str(dtype)[6:]}, card "
+              f"vs CPU: max|dlogits|={d:.4g} (gate {gate:.4g}); K3 {n3} "
+              f"(bf16 {n16})")
+        if not (ok and routed and n3 == cfg.n_layers):
+            raise AssertionError(f"reduced deepseek-v3 at Dh 192 "
+                                 f"({dtype}) serving on the card disagrees "
+                                 f"with the CPU's")
+    n_attn = _attention_layers(cfg)
+    raw = next(token_batch_stream(0, batch=2, seq_len=64, vocab=cfg.vocab))
+    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    positions = torch.arange(POS_TRAIN_OFFSET, POS_TRAIN_OFFSET + 64,
+                             dtype=torch.int32)
+    for with_pos in (False, True):
+        b = dict(batch, positions=positions) if with_pos else batch
+        r = bf16_step_against_cpu(cfg, p32, b, dev)      # counts the step
+        n_fwd, n_bwd = r["k3_forward"], r["k3_backward"]
+        kernels = _bwd_kernels((2, 64, 64, cfg.n_heads, cfg.n_heads, 192,
+                                True, 0), dev, torch.bfloat16)
+        out[("make_train_step", "bfloat16", with_pos)] = (n_fwd, n_bwd)
+        print(f"make_train_step reduced deepseek-v3 at Dh 192 bf16"
+              f"{' with positions' if with_pos else ''}, card vs CPU: "
+              + ", ".join(f"{name} {r[name][0]:.4g} (gate {r[name][1]:.4g})"
+                          for name in BF16_STEP_GAPS)
+              + f"; K3 forward {n_fwd}, backward {n_bwd}")
+        if not (all(r[name][0] <= r[name][1] for name in BF16_STEP_GAPS)
+                and n_fwd == 2 * n_attn
+                and k3.position_launches == (n_fwd if with_pos else 0)
+                and _bwd_counts_ok(n_bwd, kernels, n_attn)):
+            raise AssertionError("reduced deepseek-v3's bf16 train step at "
+                                 "Dh 192 on the card disagrees with the "
+                                 "CPU's")
+    for arch, dh in POS_TRAIN_ARCHS:
+        cfg = _position_train_cfg(arch, dh)
+        n_attn = _attention_layers(cfg)
+        p32 = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        raw = next(token_batch_stream(1, batch=2, seq_len=64,
+                                      vocab=cfg.vocab))
+        b = {k: torch.from_numpy(v) for k, v in raw.items()}
+        b["positions"] = positions
+        shape = (2, 64, 64, cfg.n_heads,
+                 cfg.n_heads if cfg.mla else cfg.n_kv_heads, dh, True, 0)
+        if dh in k3.BWD_HEAD_DIMS:
+            loss, _, grads = value_and_grad(p32, cfg, b)
+            k3.reset_counts()
+            gloss, _, ggrads = value_and_grad(
+                _tree_to(p32, dev), cfg, {k: v.to(dev) for k, v in
+                                          b.items()})
+            torch.cuda.synchronize()
+            n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+            excess = max(_grad_excess([gloss], [loss], TRAIN_TOL),
+                         _grad_excess(ggrads, grads, TRAIN_TOL))
+            out[("positions", dh, "float32")] = (n_bwd, 1)
+            print(f"value_and_grad reduced {arch} at Dh {dh} fp32 with "
+                  f"positions {POS_TRAIN_OFFSET}.., card vs CPU: loss "
+                  f"{float(gloss):.6g} vs {float(loss):.6g}, worst excess "
+                  f"over {TRAIN_TOL:g}·|CPU| {excess:.3g} (tol "
+                  f"{TRAIN_TOL:g}); K3 forward {n_fwd} (positions "
+                  f"{k3.position_launches}), backward {n_bwd}")
+            if not (excess <= TRAIN_TOL and n_fwd == n_attn
+                    and k3.position_launches == n_fwd
+                    and _bwd_counts_ok(n_bwd, _bwd_kernels(shape, dev),
+                                       n_attn)):
+                raise AssertionError(f"reduced {arch}'s fp32 gradients "
+                                     f"with positions at Dh {dh} on the "
+                                     f"card disagree with the CPU's")
+        if arch == "deepseek-v3-671b" and dh == 192:
+            out[("positions", dh, "bfloat16")] = (
+                out[("make_train_step", "bfloat16", True)][1], 1)
+            continue
+        r = bf16_step_against_cpu(cfg, p32, b, dev)      # counts the step
+        n_fwd, n_bwd = r["k3_forward"], r["k3_backward"]
+        out[("positions", dh, "bfloat16")] = (n_bwd, 1)
+        print(f"make_train_step reduced {arch} at Dh {dh} bf16 with "
+              f"positions, card vs CPU: "
+              + ", ".join(f"{name} {r[name][0]:.4g} (gate {r[name][1]:.4g})"
+                          for name in BF16_STEP_GAPS)
+              + f"; K3 forward {n_fwd}, backward {n_bwd}")
+        if not (all(r[name][0] <= r[name][1] for name in BF16_STEP_GAPS)
+                and n_fwd == 2 * n_attn
+                and k3.position_launches == n_fwd
+                and _bwd_counts_ok(n_bwd, _bwd_kernels(
+                    shape, dev, torch.bfloat16), n_attn)):
+            raise AssertionError(f"reduced {arch}'s bf16 train step with "
+                                 f"positions at Dh {dh} on the card "
+                                 f"disagrees with the CPU's")
+    return out
+
+
+def _widen_(tree) -> None:
+    """Every leaf of a tree of dicts to fp32, in place, one leaf at a
+    time: each bf16 leaf is freed as its fp32 copy replaces it, and its
+    cached block handed back to the card, so that the next, larger copy
+    finds room (the expert leaves are 14 GiB in fp32)."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            _widen_(value)
+        else:
+            tree[key] = value.float()
+            del value
+            torch.cuda.empty_cache()
+
+
+def _ds_serve(dev, cfg, params, B, label) -> dict:
+    """``serve`` of ``B`` x SERVE_PROMPT + SERVE_GEN on the full-width
+    deepseek-v3 ``cfg`` (params in their dtype): logits finite, K3 once a
+    layer in the prefill, every launch of the params' dtype; then one more
+    prefill (untimed) with the routing recorded for the MoE layer's
+    dropped share. Returns ms, peak, launches and drops."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import prefill
+    prompts = make_prompts(cfg, B, SERVE_PROMPT, seed=0, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.reset_counts()
+    res = serve(cfg, params, prompts, SERVE_GEN, device=dev)
+    torch.cuda.synchronize()
+    n3, n16 = k3.launches, k3.bf16_launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    finite = bool(torch.isfinite(res.logits).all())
+    t = res.timings
+    del res
+    with torch.no_grad(), _Routing() as routes:
+        prefill(params, cfg, prompts)
+    dropped, pairs, gap = routes.summary()
+    bf16 = tree_leaves(params)[0].dtype == torch.bfloat16
+    cap = moe.capacity(cfg.moe, B * SERVE_PROMPT)
+    print(f"deepseek-v3 n_layers {cfg.n_layers} {label}: serve {B} x "
+          f"{SERVE_PROMPT} + {SERVE_GEN}: prefill {t['prefill_ms']:.2f} ms, "
+          f"decode {t['decode_ms_per_step']:.2f} ms a step, peak "
+          f"{peak:.3f} GiB, finite {finite}; K3 {n3} (bf16 {n16}); MoE "
+          f"capacity {cap} slots an expert, dropped {dropped} of {pairs} "
+          f"pairs ({100 * dropped / pairs:.3f} %), smallest top-k gap "
+          f"{gap:.3g}")
+    if not (finite and n3 == cfg.n_layers and n16 == (n3 if bf16 else 0)):
+        raise AssertionError(f"deepseek-v3's {label} serve: finite "
+                             f"{finite}, K3 {n3} (bf16 {n16})")
+    return {"serve": t, "peak_gib": peak, "k3": n3, "batch": B,
+            "dropped": dropped, "pairs": pairs, "capacity": cap}
+
+
+def run_deepseek_full_main_path(dev) -> dict:
+    """Phase 7k's main paths: deepseek-v3-671b at its published widths,
+    n_layers cut to ``DS_LAYERS`` (``_ds_cfg(full=True)``), seed-0
+    weights. bf16: ``_ds_serve``, then ``DS_TRAIN_STEPS`` steps of
+    ``make_train_step`` at TRAIN_B x TRAIN_S (no remat), losses finite and
+    params changed, K3's bf16 forward once an attention layer a step (the
+    four layers and the MTP block), each bf16 backward kernel of the plan
+    as often, and the dropped share of one more forward (no grad) on the
+    last batch. The bf16 weights are freed; then fp32 (the seed-0 draws
+    rounded to bf16, widened: ``_widen_``): ``_ds_serve`` again. Returns
+    each run's numbers."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params, loss_fn
+    cfg = _ds_cfg(full=True)
+    out = {}
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    out["weights_gib_bf16"] = _tree_gib(params)
+    out["params"] = sum(t.numel() for t in tree_leaves(params))
+    out["bf16"] = _ds_serve(dev, cfg, params, SERVE_B, "bf16")
+    shape = ShapeConfig("deepseek_full", seq_len=TRAIN_S,
+                        global_batch=TRAIN_B, mode="train")
+    step = make_train_step(cfg, TrainConfig(lr=TRAIN_LR, remat=False),
+                           shape)
+    big = max(tree_leaves(params["layers"]), key=lambda t: t.numel())
+    stride = max(1, big.numel() // 4096)
+    before = big.reshape(-1)[::stride].clone()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k3.reset_counts()
+    losses, ms = [], []
+    for i in range(DS_TRAIN_STEPS):
+        batch = _family_batch(cfg, TRAIN_B, TRAIN_S, dev, seed=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, metrics = step(params, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    n_bf16_bwd = dict(k3.bf16_backward_launches)
+    routed = k3.bf16_launches == n_fwd and n_bf16_bwd == n_bwd
+    train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    changed = not torch.equal(before, big.reshape(-1)[::stride])
+    with torch.no_grad(), _Routing() as routes:
+        loss_fn(params, cfg, batch)
+    dropped, pairs, _ = routes.summary()
+    del params, metrics, batch, step, big
+    torch.cuda.empty_cache()
+    want = _attention_layers(cfg) * DS_TRAIN_STEPS
+    kernels = _bwd_kernels(BWD_DS, dev, torch.bfloat16)
+    print(f"deepseek-v3 n_layers {cfg.n_layers} bf16 ({out['params']} "
+          f"params, {out['weights_gib_bf16']:.2f} GiB): {DS_TRAIN_STEPS} "
+          f"make_train_step B={TRAIN_B} S={TRAIN_S} no remat: ms {ms}, "
+          f"losses {losses}, params changed {changed}, peak "
+          f"{train_peak:.3f} GiB; K3 forward {n_fwd}, backward {n_bwd}, "
+          f"bf16 backward {n_bf16_bwd}; MoE dropped {dropped} of {pairs} "
+          f"pairs ({100 * dropped / pairs:.3f} %) in a forward of the last "
+          f"batch")
+    if not (all(np.isfinite(losses)) and changed and routed
+            and n_fwd == want and _bwd_counts_ok(n_bwd, kernels, want)
+            and BWD_DS == (TRAIN_B, TRAIN_S, TRAIN_S, cfg.n_heads,
+                           cfg.n_heads, _attn_head_dim(cfg), True, 0)):
+        raise AssertionError(f"deepseek-v3's bf16 training: K3 {n_fwd}, "
+                             f"{n_bwd}, routed {routed}, losses {losses}, "
+                             f"changed {changed}")
+    out["train"] = {"ms": ms, "losses": losses, "peak_gib": train_peak,
+                    "k3_forward": n_fwd, "k3_backward": n_bwd,
+                    "k3_bf16_backward": n_bf16_bwd, "dropped": dropped,
+                    "pairs": pairs}
+    # fp32: the seed-0 bf16 draws widened leaf by leaf (init_params in
+    # fp32 stacks the MoE layer's 43 GiB of experts into a second copy,
+    # past 80 GB)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    _widen_(params)
+    out["weights_gib_fp32"] = _tree_gib(params)
+    out["fp32"] = _ds_serve(dev, cfg, params, SERVE_B, "fp32")
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_dryrun_sweep(dev, out_dir) -> dict:
@@ -4421,8 +4834,9 @@ def attention_bf16_report(dev, shape, n3, err, floor, main_path):
     beside the plain bf16 version's, the bound (the unmasked pairs' 4·Dh
     FLOPs at bf16's 989 TFLOP/s, or the bf16 bytes of q, k, v read and o
     written at 3.35 TB/s) and SDPA in bf16 on the same inputs (K and V
-    repeated to H heads and the window's boolean mask, which the
-    memory-efficient backend takes)."""
+    repeated to H heads and, under a window, the window's boolean mask,
+    which the memory-efficient backend takes; without one ``is_causal``,
+    which the flash and cuDNN backends take too)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import _attention_mask, flash_attention_ref
@@ -4438,6 +4852,9 @@ def attention_bf16_report(dev, shape, n3, err, floor, main_path):
               for t in (k, v))
 
     def sdpa():
+        if not window:
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4468,8 +4885,9 @@ def attention_bf16_report(dev, shape, n3, err, floor, main_path):
         "bound_route": "the FLOPs at bf16's 989 TFLOP/s (dense)",
         "bound_bytes_ms": bytes_ms, "bound_flops": ops,
         "floor_ms": floor, "library_ms": time_ms(sdpa, iters=3, reps=5),
-        "library_note": "SDPA in bf16, K/V repeated to H heads, the "
-                        "window's boolean attn_mask",
+        "library_note": "SDPA in bf16, K/V repeated to H heads, "
+                        + ("the window's boolean attn_mask" if window else
+                           "is_causal"),
         "library_backend": sdpa_backends(sdpa)}
 
 
@@ -4812,7 +5230,8 @@ def main() -> int:
     err3 = check_flash_attention(dev)
     err3_bwd = check_flash_attention_backward(dev)
     err3_bf16 = check_flash_attention_backward_bf16(dev)
-    err3_pos, err3_pos_bf16 = check_flash_attention_positions(dev)
+    err3_pos, err3_pos_bf16, err3_pos_dims = \
+        check_flash_attention_positions(dev)
 
     _phase("7. serving: small runs vs CPU, then the main paths (smollm-135m, "
            "then minicpm3-4b's MLA at full width)")
@@ -4946,6 +5365,18 @@ def main() -> int:
            "meta")
     dry = run_dryrun_sweep(dev, DRYRUN_OUT)
 
+    _phase("7k. deepseek-v3-671b at its published widths: reduced with the "
+           "MLA head dims 128/64/128 (K3 at Dh 192) vs CPU, fp32 and bf16, "
+           "and explicit-position training at Dh 48, 96, 112 and 192; then "
+           f"n_layers {DS_LAYERS} at full width: bf16 serve, "
+           f"{DS_TRAIN_STEPS} bf16 steps, fp32 serve")
+    t0 = time.perf_counter()
+    ds_small = check_deepseek_full_heads_against_cpu(dev)
+    print(f"7k card vs CPU wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ds_main = run_deepseek_full_main_path(dev)
+    print(f"deepseek-v3 main paths wall {time.perf_counter() - t0:.1f} s")
+
     _phase("8. kernel times")
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
     floor = floor_ms(dev)
@@ -5056,6 +5487,62 @@ def main() -> int:
                              dtype=torch.bfloat16,
                              positions=qwen_pos.contiguous())]
     rows[-1]["name"] = "flash_attention_bwd (bf16, positions)"
+    # deepseek-v3's MLA at Dh 192 (phase 7k): K3's bf16 forward, bf16
+    # backward and fp32 forward at its full-width shapes
+    rows += [
+        attention_bf16_report(dev, ATTN_DS, ds_main["bf16"]["k3"],
+                              err3[(ATTN_DS, "bf16")], floor,
+                              f"serve deepseek-v3-671b (bf16, n_layers "
+                              f"{DS_LAYERS} of 61, MLA at Dh 192)"),
+        attention_bwd_report(dev, BWD_DS,
+                             ds_main["train"]["k3_bf16_backward"],
+                             err3_bf16[BWD_DS], floor,
+                             f"make_train_step deepseek-v3-671b (bf16, "
+                             f"n_layers {DS_LAYERS} of 61, MLA at Dh 192)",
+                             DS_TRAIN_STEPS, dtype=torch.bfloat16),
+        attention_report(dev, ATTN_DS, ds_main["fp32"]["k3"],
+                         err3[ATTN_DS], floor,
+                         f"serve deepseek-v3-671b (fp32, n_layers "
+                         f"{DS_LAYERS} of 61, MLA at Dh 192)")]
+    rows[-3]["design"] = (
+        "Dh 192: one bf16 wgmma a product, S = Q.K^T m64n64 from TMA-landed "
+        "tiles (the 128-byte swizzle, three 64-column boxes a 384-byte "
+        "row), P rounded to bf16 as the register A operand of O += P.V "
+        "(m64n192k16), V read MN-major; two consumer warpgroups of 64 "
+        "folded rows, a producer warp, 64-key tiles, 3 stages")
+    rows[-2]["design"] = (
+        "Dh 192: the bf16 backward's four kernels; in dK/dV both consumer "
+        "warpgroups take every 64-query step, each computing S^T and dP^T "
+        "and summing half of dK's and dV's 192 columns (m64n96k16 over "
+        "three 32-column boxes of the 64-byte swizzle), 3 stages; dQ one "
+        "m64n192k16 a k-step, 2 stages")
+    rows[-1]["design"] = (
+        "Dh 192: split-TF32 wgmma, one warpgroup of 64 rows, 16-key tiles "
+        "(Q's big and small halves take 96 KB), S in three parts of the "
+        "head dim each summed in fresh registers, P.V as three m64n64k8 "
+        "column blocks")
+    # K3's backward with explicit positions at MLA's and zamba2's dims,
+    # timed at the full-width training shapes of those dims under
+    # positions POS_TRAIN_OFFSET.. (the launches: phase 7k's position
+    # training at reduced(), B 2 x S 64; the errors: phase 6's M-RoPE
+    # pattern at Dh 48, 96 and 112)
+    for dh, shape, arch in ((48, BWD_MLA_SMALL, "deepseek-v3-671b"),
+                            (96, BWD_MINICPM, "minicpm3-4b"),
+                            (112, BWD_ZAMBA2, "zamba2-7b")):
+        at = torch.arange(POS_TRAIN_OFFSET, POS_TRAIN_OFFSET + shape[1],
+                          dtype=torch.int32, device=dev)
+        for dtype, keys in ((torch.float32, ("dq", "dk", "dv")),
+                            (torch.bfloat16, ("dq16", "dk16", "dv16"))):
+            n_bwd, steps = ds_small[("positions", dh, str(dtype)[6:])]
+            rows.append(attention_bwd_report(
+                dev, shape, n_bwd,
+                (max(err3_pos_dims[dh][k] for k in keys), None), floor,
+                f"value_and_grad (fp32) or make_train_step (bf16) of reduced "
+                f"{arch} at Dh {dh} with positions {POS_TRAIN_OFFSET}.., "
+                f"card vs CPU", steps, dtype=dtype, positions=at))
+            rows[-1]["name"] = ("flash_attention_bwd (positions)"
+                                if dtype == torch.float32 else
+                                "flash_attention_bwd (bf16, positions)")
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}

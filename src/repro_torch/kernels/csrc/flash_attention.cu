@@ -77,10 +77,14 @@
 //   32-key tiles: 64-key tiles would need 288 KB) and at Dh 128 (64 rows,
 //   32-key tiles), 224 KB at Dh 112 (128 rows, 32-key tiles: 230,432
 //   bytes with the barriers and the alignment slack, against the
-//   232,448-byte opt-in limit), one block per SM.
-// - P.V is issued 64 output columns at a time, or 48 at Dh 48 and 96
-//   (m64n48k8) and 56 at Dh 112 (m64n56k8), so every width is whole wgmma
-//   products.
+//   232,448-byte opt-in limit), 192 KB at Dh 192 (64 rows, 16-key tiles:
+//   Q's big and small halves alone take 96 KB, and 32-key tiles would need
+//   288 KB), one block per SM.
+// - P.V is issued 64 output columns at a time (three at Dh 192, whose 96
+//   O accumulators a thread leave room for one 32-register product at a
+//   time under one warpgroup's 255), or 48 at Dh 48 and 96 (m64n48k8) and
+//   56 at Dh 112 (m64n56k8), so every width is whole wgmma products; S at
+//   Dh 192 is m64n16k8 over 24 k-steps a term.
 // - Causal schedule: the row tiles are the grid's slow axis, launched
 //   heaviest (last rows) first; K/V tiles wholly outside the causal or
 //   window band are skipped.
@@ -144,6 +148,9 @@ template <> struct Cfg<112> {
 template <> struct Cfg<128> {
   static constexpr int kWG = 1, kKeys = 32, kStages = 2, kPV = 64;
 };
+template <> struct Cfg<192> {
+  static constexpr int kWG = 1, kKeys = 16, kStages = 2, kPV = 64;
+};
 
 // Shared memory of one block, in bytes from a 1024-aligned base. The
 // position instantiations add 4 bounds and a tile's key positions.
@@ -181,6 +188,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
   using L = Layout<DH, kPos>;
   constexpr int kKeys = L::kKeys, kRows = L::kRows, kStages = L::kStages;
   constexpr int kCons = L::kConsumers, kPV = Cfg<DH>::kPV;
+  // S's parts of the head dim: 1, or 3 at Dh 192, whose 72-product
+  // tensor-core chain a tile (24 k-steps x 3 split terms) drifted to 3.9e-6
+  // against the plain version at deepseek-v3's prefill, past the 2e-6 gate
+  constexpr int kSChunks = DH > 128 ? 3 : 1;
   // K's column groups of 4 are rotated within runs of kRot (8, or 4 at Dh
   // 48 and 112, whose 12 and 28 groups are not a multiple of 8). A raw row
   // of Dh 48 or 112 starts half a bank row (64 B) after the last, so rows
@@ -360,24 +371,34 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
     // while the other's products do.
     if constexpr (L::kWG == 2)
       if (wg == 1) asm volatile("bar.sync 2, 256;" ::: "memory");
+    // (in kSChunks parts of the head dim, each summed in fresh registers:
+    // the tensor core truncates as it accumulates)
     float sc[kKeys / 2];
 #pragma unroll
-    for (int x = 0; x < kKeys / 2; ++x) sc[x] = 0.f;
-    wgmma_fence();
+    for (int c = 0; c < kSChunks; ++c) {
+      constexpr int kC = DH / 8 / kSChunks;   // k-steps a part
+      float part[kKeys / 2];
 #pragma unroll
-    for (int k8 = 0; k8 < DH / 8; ++k8)
-      wgmma_ss<kKeys>(sc, desc(qs + k8 * kRows * 32),
-                      desc(kb + k8 * kKeys * 32), k8 > 0);
+      for (int x = 0; x < kKeys / 2; ++x) part[x] = 0.f;
+      wgmma_fence();
 #pragma unroll
-    for (int k8 = 0; k8 < DH / 8; ++k8)
-      wgmma_ss<kKeys>(sc, desc(qb + k8 * kRows * 32),
-                      desc(ks + k8 * kKeys * 32), 1);
+      for (int k8 = c * kC; k8 < (c + 1) * kC; ++k8)
+        wgmma_ss<kKeys>(part, desc(qs + k8 * kRows * 32),
+                        desc(kb + k8 * kKeys * 32), k8 > c * kC);
 #pragma unroll
-    for (int k8 = 0; k8 < DH / 8; ++k8)
-      wgmma_ss<kKeys>(sc, desc(qb + k8 * kRows * 32),
-                      desc(kb + k8 * kKeys * 32), 1);
-    wgmma_commit_and_wait();
-    fence_regs(sc);
+      for (int k8 = c * kC; k8 < (c + 1) * kC; ++k8)
+        wgmma_ss<kKeys>(part, desc(qb + k8 * kRows * 32),
+                        desc(ks + k8 * kKeys * 32), 1);
+#pragma unroll
+      for (int k8 = c * kC; k8 < (c + 1) * kC; ++k8)
+        wgmma_ss<kKeys>(part, desc(qb + k8 * kRows * 32),
+                        desc(kb + k8 * kKeys * 32), 1);
+      wgmma_commit_and_wait();
+      fence_regs(part);
+#pragma unroll
+      for (int x = 0; x < kKeys / 2; ++x)
+        sc[x] = c ? sc[x] + part[x] : part[x];
+    }
     if constexpr (L::kWG == 2)
       if (wg == 0) asm volatile("bar.arrive 2, 256;" ::: "memory");
 
@@ -571,8 +592,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for a head size other than 48, 64, 96, 112 or 128
-// or more than 65535 row tiles, or 10000 + the CUresult if a tensor map
+// cudaErrorInvalidValue for a head size other than 48, 64, 96, 112, 128 or
+// 192 or more than 65535 row tiles, or 10000 + the CUresult if a tensor map
 // cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); fp32,
 // contiguous, 16-byte aligned (TMA's rule). lse: null (serving), or (B, H,
 // Sq) fp32 written by the training instantiation. q_pos, kv_pos: both null
@@ -605,6 +626,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                            window, st);
     case 128:
       return dispatch<128>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
+                           window, st);
+    case 192:
+      return dispatch<192>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
                            window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -51,6 +51,14 @@
 //   K and V at 32 KB each), one block a SM; 288 threads, which get the
 //   register budget of 384 (168 a thread), enough for the S 64 and O 64
 //   accumulators a thread at Dh 128.
+// - Dh 192 (deepseek-v3's MLA: qk_nope 128 + qk_rope 64, v padded to
+//   192): 128-key tiles would take 192 KB for two stages of K and V beside
+//   Q's 48 KB, and S's 64 and O's 96 accumulators a thread would not fit,
+//   so the tiles are 64 keys (S one m64n64 product a k-step, 32
+//   accumulators), 3 stages (Q 48 KB + 3 x 48 KB: 192 KB); a row of 384
+//   bytes is three 64-column boxes of the 128-byte swizzle, and P.V is one
+//   m64n192k16 a k-step of 16 keys (wgmma_rs_bf16_n192), V read MN-major
+//   across the three boxes.
 // - The online softmax runs on the S fragments in registers, in base 2
 //   (scores scaled by log2(e)/sqrt(Dh), exp2); a row's 4 threads share a
 //   quad, so its max and sum are two shfl_xor. A thread whose rows see
@@ -98,6 +106,9 @@ template <> struct Cfg<112> {
 };
 template <> struct Cfg<128> {
   static constexpr int kKeys = 128, kStages = 2, kSB = 128;
+};
+template <> struct Cfg<192> {
+  static constexpr int kKeys = 64, kStages = 3, kSB = 128;
 };
 
 // Shared memory of one block, in bytes from a 1024-aligned base: Q, the
@@ -426,8 +437,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for a head size other than 48, 64, 96, 112 or 128
-// or more than 65535 row tiles, or 10000 + the CUresult if a tensor map
+// cudaErrorInvalidValue for a head size other than 48, 64, 96, 112, 128 or
+// 192 or more than 65535 row tiles, or 10000 + the CUresult if a tensor map
 // cannot be encoded. q, o: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); bf16
 // (o fp32 whenever lse is set), contiguous, 16-byte aligned (TMA's rule).
 // lse: null (serving), or (B, H, Sq) fp32 written by the training
@@ -462,6 +473,9 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                            window, st);
     case 128:
       return dispatch<128>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
+                           window, st);
+    case 192:
+      return dispatch<192>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
                            window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

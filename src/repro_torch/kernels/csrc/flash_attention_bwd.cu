@@ -94,8 +94,9 @@
 //   as at 64. Dh 112's 16-row tiles are 448 float4s, three and a half
 //   passes of a warpgroup: the last pass is partial. Column groups rotate
 //   within runs of 4 where a row's 12 or 28 groups are not a multiple of
-//   8. Position instantiations exist at Dh 64 and 128 only (M-RoPE trains
-//   at 128); the launch refuses positions at the others.
+//   8. Position instantiations exist at every head size (the reference's
+//   loss_fn takes positions for every arch); they add 16 bytes of shared
+//   memory (the bounds) to each layout.
 // - A group's next step's raw tiles (and lse, D) are copied with cp.async
 //   while its current step's products run; the conversion into split
 //   layouts sits between two barriers of that group alone. S (S^T) and dP
@@ -131,8 +132,9 @@
 //   index instantiations' bit for bit.
 // Left for later: computing S and dP once for both dK/dV and dQ, a deeper
 // cp.async ring (shared memory is full at Dh 64), folding D and the reduce
-// into the other kernels, and Dh 192 (deepseek-v3 at full width; ROADMAP
-// B1).
+// into the other kernels, and Dh 192 (deepseek-v3 at full width trains in
+// bf16, flash_attention_bwd_bf16.cu; in fp32 its split K and V alone take
+// 192 KB: ROADMAP Queue D).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -169,11 +171,6 @@ template <> struct Cfg<112> {
 template <> struct Cfg<128> {
   static constexpr int kWG = 1, kQ = 16, kK = 16, kN = 64;
 };
-// the head sizes whose position instantiations (kPos) are built: M-RoPE
-// trains at qwen2-vl's 128 and musicgen's 64; no training path takes
-// positions at the others
-template <int DH>
-constexpr bool kPosBuilt = DH == 64 || DH == 128;
 constexpr int kSmemLimit = 232448;  // the opt-in shared memory of a block
 
 // (b)'s shared memory, in bytes from a 128-aligned base: K and V, then
@@ -970,13 +967,10 @@ int dkdv_at(const void* q, const void* k, const void* v, const void* dout,
             const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
             int H, int KH, int causal, int window, int splits, float scale,
             cudaStream_t st) {
-  if (q_pos != nullptr) {
-    if constexpr (kPosBuilt<DH>)
-      return launch_dkdv<DH, true>(q, k, v, dout, lse, D, dk, dv, q_pos,
-                                   kv_pos, B, Sq, Skv, H, KH, causal, window,
-                                   splits, scale, st);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (q_pos != nullptr)
+    return launch_dkdv<DH, true>(q, k, v, dout, lse, D, dk, dv, q_pos,
+                                 kv_pos, B, Sq, Skv, H, KH, causal, window,
+                                 splits, scale, st);
   return launch_dkdv<DH, false>(q, k, v, dout, lse, D, dk, dv, q_pos, kv_pos,
                                 B, Sq, Skv, H, KH, causal, window, splits,
                                 scale, st);
@@ -988,12 +982,9 @@ int dq_at(const void* q, const void* k, const void* v, const void* dout,
           const float* lse, const float* D, void* dq, const int* q_pos,
           const int* kv_pos, int B, int Sq, int Skv, int H, int KH,
           int causal, int window, float scale, cudaStream_t st) {
-  if (q_pos != nullptr) {
-    if constexpr (kPosBuilt<DH>)
-      return launch_dq<DH, true>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
-                                 Sq, Skv, H, KH, causal, window, scale, st);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (q_pos != nullptr)
+    return launch_dq<DH, true>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
+                               Sq, Skv, H, KH, causal, window, scale, st);
   return launch_dq<DH, false>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
                               Sq, Skv, H, KH, causal, window, scale, st);
 }
@@ -1024,8 +1015,8 @@ float scale_of(int Dh) {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue for a shape the kernels do not take
-// (Dh other than 48, 64, 96, 112 or 128, explicit positions at a Dh other
-// than 64 or 128, H % KH != 0, more than 2^31 - 1 blocks). Layouts as at
+// (Dh other than 48, 64, 96, 112 or 128, H % KH != 0, more than 2^31 - 1
+// blocks; Dh 192 waits for its own tiles, ROADMAP Queue D). Layouts as at
 // the top, every tensor fp32 and contiguous and, for q, k, v and dO,
 // 16-byte aligned (cp.async). Call (a), then (b), then (r) when splits >
 // 1, and (c); (b) and (c) read D.
@@ -1046,12 +1037,12 @@ extern "C" int attn_bwd_tiles(int Dh, int* key_tile, int* query_tile,
   });
 }
 
-// 1 if the library holds the position instantiations at head size Dh,
-// else 0
+// 1 if the library holds the position instantiations at head size Dh (at
+// every head size it takes), else 0
 extern "C" int attn_bwd_positions_built(int Dh) {
   int built = 0;
-  at_head_dim(Dh, [&](auto dh) {
-    built = kPosBuilt<decltype(dh)::value>;
+  at_head_dim(Dh, [&](auto) {
+    built = 1;
     return 0;
   });
   return built;

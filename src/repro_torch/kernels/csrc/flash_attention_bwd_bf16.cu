@@ -5,10 +5,11 @@
 // chunked_attention, src/repro/models/attention.py:33-106, under
 // jax.checkpoint; it trains in its params' dtype, bf16 by default,
 // src/repro/launch/steps.py:91-119). flash_attention_bwd.cu does the fp32
-// backward; this file does bf16 at head sizes 48, 64, 96, 112 and 128
-// (MLA's 48 and 96, zamba2's shared block's 112, the dense configs' 64 and
-// 128), from the row log-sum-exp and the fp32 output that K3's bf16
-// training instantiation (flash_attention_bf16.cu, kLse) saves.
+// backward; this file does bf16 at head sizes 48, 64, 96, 112, 128 and 192
+// (MLA's 48, 96 and deepseek-v3's 192, zamba2's shared block's 112, the
+// dense configs' 64 and 128), from the row log-sum-exp and the fp32 output
+// that K3's bf16 training instantiation (flash_attention_bf16.cu, kLse)
+// saves.
 //
 // Computes, for q, dO (B, Sq, H, Dh), k, v (B, Skv, KH, Dh), all bf16, the
 // forward's o (B, Sq, H, Dh) and lse (B, H, Sq) in fp32, all contiguous,
@@ -16,8 +17,9 @@
 // 1/sqrt(Dh), with the forward's masks (causal keeps pos_j <= pos_i, a
 // window keeps pos_j > pos_i - window, a key at a negative position is
 // invalid; ragged Sq and Skv) on the indices as positions or, in the
-// position instantiations (template flag kPos, Dh 64 and 128: M-RoPE
-// trains at qwen2-vl's 128), explicit q_pos and kv_pos int32:
+// position instantiations (template flag kPos, at every head size: the
+// reference's loss_fn takes positions for every arch), explicit q_pos and
+// kv_pos int32:
 //   P_ij  = exp(scale * q_i.k_j - lse_i) where unmasked, else 0   (fp32)
 //   D_i   = sum_d dO_id o_id                                     (fp32)
 //   dP_ij = dO_i . v_j,   dS_ij = P_ij (dP_ij - D_i)             (fp32)
@@ -34,8 +36,9 @@
 //
 // Four kernels, no floating-point atomics: every output element is summed
 // in one fixed order, so two runs give the same bits.
-//   (a) attn_bwd_bf16_dot_kernel: D, 16 or 32 lanes a (b, i, h) row, the
-//       first Dh / 4 of them 4 elements each.
+//   (a) attn_bwd_bf16_dot_kernel: D, 16 or 32 lanes a (b, i, h) row, 4
+//       elements each of the first Dh / 4 (lane l also takes l + 32 at Dh
+//       192).
 //   (b) attn_bwd_bf16_dkdv_kernel: a block owns 64 keys of one KV head and
 //       walks a contiguous range of their (head g, query tile of 64)
 //       steps; `splits` blocks share a key tile's steps (split c takes
@@ -97,6 +100,19 @@
 //   only), and the register-A products issue Dh output columns at once
 //   (m64n48k16 .. m64n128k16). Shared memory at 112, the largest after
 //   128: (b) 147 KB, (c) 144 KB.
+// - Dh 192 (deepseek-v3's MLA, v padded to 192): a warpgroup's dK and dV
+//   accumulators for 64 keys would be 96 + 96 registers a thread, past
+//   the consumers' 240 once S^T and dP^T are added. So (b) splits the head
+//   dim (kHalves): both warpgroups take every step (the ring's empty
+//   barrier waits for both), each computes the step's S^T and dP^T and
+//   owns half of dK's and dV's columns (m64n96k16 from its half of dO and
+//   Q: three of the six 32-column boxes of the 64-byte swizzle, which Dh
+//   192 takes in the backward so that a half is whole boxes), and no sums
+//   join at the end; 3 stages (K, V 48 KB + 3 x 48 KB). S^T and dP^T are
+//   computed twice a step (six products of the four the step needs, the
+//   same critical path as the alternating steps' four a warpgroup). (c)
+//   keeps its design: 96 dQ accumulators a thread, one m64n192k16 a k-step,
+//   2 stages (Q, dO 96 KB + 2 x 48 KB).
 // - Explicit positions (kPos), as flash_attention_bwd.cu's: no index band
 //   bounds the steps, and the positions may tie and need not be sorted.
 //   Before the warp roles split, a (b) block reads its keys' least and
@@ -111,8 +127,8 @@
 //   tiles, and with the wrapper's plan (sized from the index bounds) the
 //   gradients are the index instantiations' bit for bit.
 // Left for later: computing S and dP once for both dK/dV and dQ, folding
-// D and the reduce into the other kernels, and explicit positions at Dh
-// 48, 96 and 112 (ROADMAP B1).
+// D and the reduce into the other kernels, and at Dh 192 computing S^T
+// and dP^T once for both warpgroups.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,18 +155,25 @@ constexpr int kKeyTile = 64;      // (b): the keys a block owns
 constexpr int kQueryTile = 64;    // (b): the queries of a step
 constexpr int kRowTile = 64 * kWG;  // (c): the folded rows a block owns
 constexpr int kKeyStep = 64;      // (c): the keys of a tile
-constexpr int kDkdvStages = 4;    // even: warpgroup w takes stages w, w+2
-constexpr int kDqStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmemLimit = 232448;  // the opt-in shared memory of a block
 
-// each head size's swizzle (wgmma_bf16.cuh), the bf16 forward's
+// each head size's swizzle (wgmma_bf16.cuh), the bf16 forward's but at
+// 192, where a half of the head dim is whole 64-byte boxes
 template <int DH>
-constexpr int kSB = DH == 64 || DH == 128 ? 128 : DH == 96 ? 64 : 32;
-// the head sizes whose position instantiations (kPos) are built: M-RoPE
-// trains at qwen2-vl's 128 and musicgen's 64 (ROADMAP B1: the others)
+constexpr int kSB = DH == 64 || DH == 128 ? 128 : DH == 96 || DH == 192 ? 64
+                                                                       : 32;
+// (b): the parts of the head dim that split dK's and dV's columns over the
+// warpgroups, which then take every step together (2 at Dh 192); with 1
+// they take alternate steps, each summing every column
 template <int DH>
-constexpr bool kPosBuilt = DH == 64 || DH == 128;
+constexpr int kHalves = DH == 192 ? 2 : 1;
+// (b)'s ring stages (with alternate steps even: warpgroup w takes stages
+// w, w+2) and (c)'s
+template <int DH>
+constexpr int kDkdvStages = DH == 192 ? 3 : 4;
+template <int DH>
+constexpr int kDqStages = DH == 192 ? 2 : 3;
 
 // (b)'s shared memory, in bytes from a 1024-aligned base: K and V, the
 // ring (a stage: Q, dO), each stage's 64 lse and 64 D, the barriers (K/V's,
@@ -161,16 +184,20 @@ struct DkdvSmem {
   static constexpr uint32_t kTile = kKeyTile * DH * 2;  // K, V, Q or dO
   static constexpr uint32_t kK = 0, kV = kTile, kRing = 2 * kTile;
   static constexpr uint32_t kStage = 2 * kTile;
-  static constexpr uint32_t kStats = kRing + kDkdvStages * kStage;
-  static constexpr uint32_t kBars = kStats + kDkdvStages * 2 * kQueryTile * 4;
-  static constexpr uint32_t kPosAt = kBars + (1 + 2 * kDkdvStages) * 8;
+  static constexpr int kStages = kDkdvStages<DH>;
+  static constexpr uint32_t kStats = kRing + kStages * kStage;
+  static constexpr uint32_t kBars = kStats + kStages * 2 * kQueryTile * 4;
+  static constexpr uint32_t kPosAt = kBars + (1 + 2 * kStages) * 8;
   static constexpr uint32_t kBytes =
-      kPosAt + (kPos ? (4 + kDkdvStages * kQueryTile) * 4 : 0) + 1024;
+      kPosAt + (kPos ? (4 + kStages * kQueryTile) * 4 : 0) + 1024;
   static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
   static_assert(kTile % 1024 == 0 && kStage % 1024 == 0,
                 "tiles and stages keep the boxes 1024-aligned");
-  static_assert(2 * (DH / 2) * kWGThreads * 4 <= kDkdvStages * kStage,
-                "the second warpgroup's dK, dV sums fit the ring");
+  static_assert(kHalves<DH> == 2 ||
+                    (kStages % 2 == 0 &&
+                     2 * (DH / 2) * kWGThreads * 4 <= kStages * kStage),
+                "alternate steps: even stages, and the second warpgroup's "
+                "dK, dV sums fit the ring");
 };
 
 // (c)'s: Q and dO (the block's rows), the ring (a stage: K, V), barriers,
@@ -180,23 +207,24 @@ struct DqSmem {
   static constexpr uint32_t kRowsBytes = kRowTile * DH * 2;
   static constexpr uint32_t kTile = kKeyStep * DH * 2;
   static constexpr uint32_t kQ = 0, kO = kRowsBytes, kRing = 2 * kRowsBytes;
-  static constexpr uint32_t kBars = kRing + kDqStages * 2 * kTile;
-  static constexpr uint32_t kPosAt = kBars + 2 * kDqStages * 8;
+  static constexpr int kStages = kDqStages<DH>;
+  static constexpr uint32_t kBars = kRing + kStages * 2 * kTile;
+  static constexpr uint32_t kPosAt = kBars + 2 * kStages * 8;
   static constexpr uint32_t kBytes =
-      kPosAt + (kPos ? (4 + kDqStages * kKeyStep) * 4 : 0) + 1024;
+      kPosAt + (kPos ? (4 + kStages * kKeyStep) * 4 : 0) + 1024;
   static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
   static_assert(kRowsBytes % 1024 == 0 && kTile % 1024 == 0,
                 "boxes 1024-aligned");
 };
 
-// the lanes of a D row: a power of two (the shuffle's), 4 elements each of
-// the first DH / 4
+// the lanes of a D row: a power of two (the shuffle's) up to a warp, 4
+// elements each of the first DH / 4, and at 192 lane l also l + 32
 template <int DH>
 constexpr int kDotLanes = DH / 4 <= 16 ? 16 : 32;
 
-// (a): kDotLanes lanes a (b, i, h) row (16 at Dh 48 and 64, 32 at 96, 112
-// and 128), the first DH / 4 of them 4 elements each, summed in fp32; dO
-// bf16, o fp32
+// (a): kDotLanes lanes a (b, i, h) row (16 at Dh 48 and 64, 32 at 96, 112,
+// 128 and 192), 4 elements each of the first DH / 4 (two such at 192),
+// summed in fp32; dO bf16, o fp32
 template <int DH>
 __global__ void __launch_bounds__(kDotThreads)
 attn_bwd_bf16_dot_kernel(const bf16* __restrict__ dout,
@@ -209,15 +237,17 @@ attn_bwd_bf16_dot_kernel(const bf16* __restrict__ dout,
   const int lane = static_cast<int>(u % kLanes);
   const bool ok = row < static_cast<int64_t>(B) * Sq * H;
   float s = 0.f;
-  if (ok && lane < DH / 4) {
-    const int64_t e = row * DH + lane * 4;
+#pragma unroll
+  for (int c = lane; ok && c < DH / 4; c += kLanes) {
+    const int64_t e = row * DH + c * 4;
     const uint2 a = *reinterpret_cast<const uint2*>(dout + e);
     const float2 a01 = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(&a.x));
     const float2 a23 = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(&a.y));
     const float4 o = *reinterpret_cast<const float4*>(out + e);
-    s = fmaf(a01.x, o.x, fmaf(a01.y, o.y, fmaf(a23.x, o.z, a23.y * o.w)));
+    s = fmaf(a01.x, o.x,
+             fmaf(a01.y, o.y, fmaf(a23.x, o.z, fmaf(a23.y, o.w, s))));
   }
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off >>= 1)
@@ -244,13 +274,16 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
                           int splits, int64_t split_stride, float scale,
                           float scale2) {
   using L = DkdvSmem<DH, kPos>;
-  constexpr int SB = kSB<DH>, QT = kQueryTile;
+  constexpr int SB = kSB<DH>, QT = kQueryTile, kStages = L::kStages;
+  // the columns of dK and dV a warpgroup sums, and the warpgroups that
+  // consume each step (both, when they split the columns)
+  constexpr int kCols = DH / kHalves<DH>, kTakers = kHalves<DH> == 2 ? kWG : 1;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
   const uint32_t base = (raw_base + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw_base);
   const uint32_t kv_full = base + L::kBars, full0 = kv_full + 8;
-  const uint32_t empty0 = full0 + kDkdvStages * 8;
+  const uint32_t empty0 = full0 + kStages * 8;
 
   // block -> (key tile, batch, KV head, split), key tile slowest: under the
   // causal mask the first key tiles have the most steps and start first
@@ -264,7 +297,8 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
 
   // the queries that can see keys [k0, k_last], in tiles; the steps are
   // (g, query tile) with g slowest; this block takes [s_lo, s_hi), step
-  // i of them going to warpgroup i % 2 and stage i % kDkdvStages
+  // i of them going to stage i % kStages and to warpgroup i % 2 (or, with
+  // the head dim in halves, to both)
   const int tid = threadIdx.x;
   const int k_last = min(k0 + kKeyTile, Skv) - 1;
   // explicit positions: bounds {least, greatest key position, first, last
@@ -313,9 +347,9 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
   if (tid == 0) {
     mbar_init(kv_full, 1);
 #pragma unroll
-    for (int s = 0; s < kDkdvStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full0 + 8 * s, 1 + 32);  // the TMA bytes + the 32 lanes
-      mbar_init(empty0 + 8 * s, kWGThreads);
+      mbar_init(empty0 + 8 * s, kTakers * kWGThreads);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -333,9 +367,9 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
                        kKeyTile);
     }
     for (int i = 0; i < steps; ++i) {
-      const int s = i % kDkdvStages, st = s_lo + i;
+      const int s = i % kStages, st = s_lo + i;
       const int h = kh * G + st / nq, q0 = (qt0 + st % nq) * QT;
-      mbar_wait(empty0 + 8 * s, ((i / kDkdvStages) & 1) ^ 1);
+      mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
       const uint32_t full = full0 + 8 * s;
       const uint32_t dst = base + L::kRing + s * L::kStage;
       if (lane == 0) {
@@ -368,20 +402,24 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
     kpA = keyA < Skv ? kv_pos[keyA] : -1;
     kpB = keyB < Skv ? kv_pos[keyB] : -1;
   }
-  float dk_acc[DH / 2], dv_acc[DH / 2];
+  // this warpgroup's columns [col0, col0 + kCols): their first box in a
+  // tile of dO or Q read MN-major
+  const int col0 = kHalves<DH> == 2 ? wg * kCols : 0;
+  const uint32_t box0 = col0 * 2 / SB * QT * SB;
+  float dk_acc[kCols / 2], dv_acc[kCols / 2];
 #pragma unroll
-  for (int x = 0; x < DH / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+  for (int x = 0; x < kCols / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
   mbar_wait(kv_full, 0);
 
-  for (int i = wg; i < steps; i += kWG) {
-    const int s = i % kDkdvStages, st = s_lo + i;
+  for (int i = kTakers == 1 ? wg : 0; i < steps; i += kWG / kTakers) {
+    const int s = i % kStages, st = s_lo + i;
     const int q0 = (qt0 + st % nq) * QT;
     const uint32_t qs = base + L::kRing + s * L::kStage;
     const uint32_t dos = qs + L::kTile;
     const float* lse2 =
         reinterpret_cast<const float*>(smem + L::kStats) + s * 2 * QT;
     const float* Ds = lse2 + QT;
-    mbar_wait(full0 + 8 * s, (i / kDkdvStages) & 1);
+    mbar_wait(full0 + 8 * s, (i / kStages) & 1);
 
     // S^T = K.Q^T and dP^T = V.dO^T (64 keys x 64 queries), two groups: P
     // is formed while dP^T is still on the tensor cores
@@ -433,35 +471,40 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk)
-      wgmma_rs_bf16<DH>(dv_acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                        pa[4 * kk + 3], desc_mn<SB>(dos + kk * 16 * SB, QT));
+      wgmma_rs_bf16<kCols>(dv_acc, pa[4 * kk], pa[4 * kk + 1],
+                           pa[4 * kk + 2], pa[4 * kk + 3],
+                           desc_mn<SB>(dos + box0 + kk * 16 * SB, QT));
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk)
-      wgmma_rs_bf16<DH>(dk_acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
-                        da[4 * kk + 3], desc_mn<SB>(qs + kk * 16 * SB, QT));
+      wgmma_rs_bf16<kCols>(dk_acc, da[4 * kk], da[4 * kk + 1],
+                           da[4 * kk + 2], da[4 * kk + 3],
+                           desc_mn<SB>(qs + box0 + kk * 16 * SB, QT));
     wgmma_commit_and_wait();
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     mbar_arrive(empty0 + 8 * s);  // the stage may be refilled
   }
 
-  // the second warpgroup's sums join the first's, through the ring (every
-  // step is done once both groups pass the barrier)
-  consumers_sync<kWG * kWGThreads>();
-  float* buf = reinterpret_cast<float*>(smem + L::kRing);
-  if (wg == 1) {
+  // with alternate steps the second warpgroup's sums join the first's,
+  // through the ring (every step is done once both groups pass the
+  // barrier); with the head dim in halves each writes its own columns
+  if constexpr (kHalves<DH> == 1) {
+    consumers_sync<kWG * kWGThreads>();
+    float* buf = reinterpret_cast<float*>(smem + L::kRing);
+    if (wg == 1) {
+#pragma unroll
+      for (int x = 0; x < DH / 2; ++x) {
+        buf[x * kWGThreads + t] = dk_acc[x];
+        buf[(DH / 2 + x) * kWGThreads + t] = dv_acc[x];
+      }
+    }
+    consumers_sync<kWG * kWGThreads>();
+    if (wg == 1) return;
 #pragma unroll
     for (int x = 0; x < DH / 2; ++x) {
-      buf[x * kWGThreads + t] = dk_acc[x];
-      buf[(DH / 2 + x) * kWGThreads + t] = dv_acc[x];
+      dk_acc[x] += buf[x * kWGThreads + t];
+      dv_acc[x] += buf[(DH / 2 + x) * kWGThreads + t];
     }
-  }
-  consumers_sync<kWG * kWGThreads>();
-  if (wg == 1) return;
-#pragma unroll
-  for (int x = 0; x < DH / 2; ++x) {
-    dk_acc[x] += buf[x * kWGThreads + t];
-    dv_acc[x] += buf[(DH / 2 + x) * kWGThreads + t];
   }
 
   // dK, dV (or this split's partials): rows past Skv are not written
@@ -472,9 +515,9 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
   for (int r = 0; r < 2; ++r) {
     const int key = r ? keyB : keyA;
     if (key >= Skv) continue;
-    const int64_t off = ((kv_batch + key) * KH + kh) * DH + 2 * t4;
+    const int64_t off = ((kv_batch + key) * KH + kh) * DH + col0 + 2 * t4;
 #pragma unroll
-    for (int x = 0; x < DH / 8; ++x) {  // columns 8x + 2t4, +1
+    for (int x = 0; x < kCols / 8; ++x) {  // columns col0 + 8x + 2t4, +1
       const int a = 4 * x + 2 * r;
       store2(dk_out + off + 8 * x, dk_acc[a] * scale, dk_acc[a + 1] * scale);
       store2(dv_out + off + 8 * x, dv_acc[a], dv_acc[a + 1]);
@@ -521,13 +564,13 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
                         int H, int KH, int causal, int window, float scale,
                         float scale2) {
   using L = DqSmem<DH, kPos>;
-  constexpr int SB = kSB<DH>, KT = kKeyStep;
+  constexpr int SB = kSB<DH>, KT = kKeyStep, kStages = L::kStages;
   constexpr int kCons = kWG * kWGThreads;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
   const uint32_t base = (raw_base + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw_base);
-  const uint32_t full0 = base + L::kBars, empty0 = full0 + kDqStages * 8;
+  const uint32_t full0 = base + L::kBars, empty0 = full0 + kStages * 8;
 
   // block -> (batch, KV head, folded row tile), the last rows (the most
   // keys under the causal mask) first
@@ -582,7 +625,7 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
 
   if (tid == 0) {
 #pragma unroll
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       // the TMA bytes (+ the 32 lanes that write the key positions)
       mbar_init(full0 + 8 * s, kPos ? 1 + 32 : 1);
       mbar_init(empty0 + 8 * s, kCons);
@@ -597,8 +640,8 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const int lane = tid - kCons;
     if (lane >= (kPos ? 32 : 1)) return;
     for (int t = t_begin; t < t_end; ++t) {
-      const int i = t - t_begin, s = i % kDqStages;
-      mbar_wait(empty0 + 8 * s, ((i / kDqStages) & 1) ^ 1);
+      const int i = t - t_begin, s = i % kStages;
+      mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
       const uint32_t full = full0 + 8 * s;
       if (lane == 0) {
         const uint32_t dst = base + L::kRing + s * 2 * L::kTile;
@@ -654,11 +697,11 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
   for (int x = 0; x < DH / 2; ++x) dq_acc[x] = 0.f;
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int i = t - t_begin, s = i % kDqStages;
+    const int i = t - t_begin, s = i % kStages;
     const int key0 = t * KT;
     const uint32_t kb = base + L::kRing + s * 2 * L::kTile;
     const uint32_t vb = kb + L::kTile;
-    mbar_wait(full0 + 8 * s, (i / kDqStages) & 1);
+    mbar_wait(full0 + 8 * s, (i / kStages) & 1);
 
     // S = Q.K^T and dP = dO.V^T (64 rows x 64 keys), two groups
     float sc[KT / 2], dp[KT / 2];
@@ -818,13 +861,10 @@ int dkdv_at(const void* q, const void* k, const void* v, const void* dout,
             const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
             int H, int KH, int causal, int window, int splits,
             cudaStream_t st) {
-  if (q_pos != nullptr) {
-    if constexpr (kPosBuilt<DH>)
-      return launch_dkdv<O, DH, true>(q, k, v, dout, lse, D, dk, dv, q_pos,
-                                      kv_pos, B, Sq, Skv, H, KH, causal,
-                                      window, splits, st);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (q_pos != nullptr)
+    return launch_dkdv<O, DH, true>(q, k, v, dout, lse, D, dk, dv, q_pos,
+                                    kv_pos, B, Sq, Skv, H, KH, causal, window,
+                                    splits, st);
   return launch_dkdv<O, DH, false>(q, k, v, dout, lse, D, dk, dv, q_pos,
                                    kv_pos, B, Sq, Skv, H, KH, causal, window,
                                    splits, st);
@@ -836,18 +876,15 @@ int dq_at(const void* q, const void* k, const void* v, const void* dout,
           const float* lse, const float* D, void* dq, const int* q_pos,
           const int* kv_pos, int B, int Sq, int Skv, int H, int KH,
           int causal, int window, cudaStream_t st) {
-  if (q_pos != nullptr) {
-    if constexpr (kPosBuilt<DH>)
-      return launch_dq<DH, true>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
-                                 Sq, Skv, H, KH, causal, window, st);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (q_pos != nullptr)
+    return launch_dq<DH, true>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
+                               Sq, Skv, H, KH, causal, window, st);
   return launch_dq<DH, false>(q, k, v, dout, lse, D, dq, q_pos, kv_pos, B,
                               Sq, Skv, H, KH, causal, window, st);
 }
 
 // Calls f(std::integral_constant<int, Dh>) at a head size the kernels
-// take (48, 64, 96, 112, 128), else returns cudaErrorInvalidValue
+// take (48, 64, 96, 112, 128, 192), else returns cudaErrorInvalidValue
 template <typename F>
 int at_head_dim(int Dh, F f) {
   switch (Dh) {
@@ -856,6 +893,7 @@ int at_head_dim(int Dh, F f) {
     case 96: return f(std::integral_constant<int, 96>{});
     case 112: return f(std::integral_constant<int, 112>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -868,8 +906,8 @@ bool shape_ok(int B, int Sq, int Skv, int H, int KH) {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
 // success), cudaErrorInvalidValue for a shape the kernels do not take (Dh
-// other than 48, 64, 96, 112 or 128, explicit positions at a Dh other than
-// 64 or 128, H % KH != 0, too many blocks), or 10000 + the CUresult if a
+// other than 48, 64, 96, 112, 128 or 192, H % KH != 0, too many blocks),
+// or 10000 + the CUresult if a
 // tensor map cannot be encoded. Layouts as at the top; q, k, v, dO and the
 // gradients bf16 (dK/dV's split partials fp32), o, lse and D fp32, the
 // positions int32; every tensor contiguous and, for q, k, v and dO,
@@ -878,24 +916,27 @@ bool shape_ok(int B, int Sq, int Skv, int H, int KH) {
 
 // The tiles, for the wrapper to check its copy of the schedule against:
 // (b)'s keys a block and queries a step, (c)'s folded rows a block and
-// keys a tile, and the consumer warpgroups a block, at head size Dh
+// keys a tile, and the warpgroups that take (b)'s steps in turn (2; 1 at
+// Dh 192, where both take every step, each half the head dim), at head
+// size Dh
 extern "C" int attn_bwd_bf16_tiles(int Dh, int* key_tile, int* query_tile,
                                    int* rows, int* key_step, int* groups) {
-  return at_head_dim(Dh, [&](auto) {
+  return at_head_dim(Dh, [&](auto dh) {
     *key_tile = kKeyTile;
     *query_tile = kQueryTile;
     *rows = kRowTile;
     *key_step = kKeyStep;
-    *groups = kWG;
+    *groups = kHalves<decltype(dh)::value> == 2 ? 1 : kWG;
     return 0;
   });
 }
 
-// Whether the position instantiations are built at head size Dh
+// Whether the position instantiations are built at head size Dh: at every
+// head size the kernels take
 extern "C" int attn_bwd_bf16_positions_built(int Dh) {
   int built = 0;
-  at_head_dim(Dh, [&](auto dh) {
-    built = kPosBuilt<decltype(dh)::value>;
+  at_head_dim(Dh, [&](auto) {
+    built = 1;
     return 0;
   });
   return built;

@@ -13,8 +13,11 @@
 // [j * SB / 2, (j + 1) * SB / 2), each with the SB-byte swizzle (128, 64 or
 // 32 bytes: the 16-byte chunk index of a row XORed with address bits 7..9,
 // 7..8 or 7). SB is 128 at head dims 64 and 128, 64 at 96 and 32 at 48
-// and 112, whose 96- and 224-byte rows are whole 32-byte boxes only. Every
-// box starts 1024-byte aligned.
+// and 112, whose 96- and 224-byte rows are whole 32-byte boxes only; at
+// 192 (deepseek-v3's MLA: a 384-byte row) 128 in the forward (three
+// 64-column boxes) and 64 in the backward (six 32-column boxes, so that
+// each half of the head dim is whole boxes). Every box starts 1024-byte
+// aligned.
 // - As a K-major operand (the contraction along the row: Q, K, dO and V in
 //   S = Q.K^T, dP = dO.V^T and their transposes), k-step kk (16 columns,
 //   32 bytes) starts kk * 32 bytes into the rows, in box kk * 32 / SB; the
@@ -309,6 +312,51 @@ __device__ __forceinline__ void wgmma_rs_bf16_n128(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// D (64 x 192) += A . B, A from registers (4 bf16 pairs a thread), B
+// MN-major in shared memory (the descriptor's transpose): P.V and dQ at
+// deepseek-v3's MLA head dim 192
+__device__ __forceinline__ void wgmma_rs_bf16_n192(float (&d)[96], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // D (64 x N) (+)= A . B^T, both K-major in shared memory; N 64 or 128
 template <int N>
 __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[N / 2], uint64_t da,
@@ -323,13 +371,15 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[N / 2], uint32_t a0,
                                               uint32_t a1, uint32_t a2,
                                               uint32_t a3, uint64_t db) {
-  static_assert(N == 48 || N == 64 || N == 96 || N == 112 || N == 128,
-                "wgmma_rs_bf16 takes N 48, 64, 96, 112 or 128");
+  static_assert(N == 48 || N == 64 || N == 96 || N == 112 || N == 128 ||
+                    N == 192,
+                "wgmma_rs_bf16 takes N 48, 64, 96, 112, 128 or 192");
   if constexpr (N == 48) wgmma_rs_bf16_n48(d, a0, a1, a2, a3, db);
   else if constexpr (N == 64) wgmma_rs_bf16_n64(d, a0, a1, a2, a3, db);
   else if constexpr (N == 96) wgmma_rs_bf16_n96(d, a0, a1, a2, a3, db);
   else if constexpr (N == 112) wgmma_rs_bf16_n112(d, a0, a1, a2, a3, db);
-  else wgmma_rs_bf16_n128(d, a0, a1, a2, a3, db);
+  else if constexpr (N == 128) wgmma_rs_bf16_n128(d, a0, a1, a2, a3, db);
+  else wgmma_rs_bf16_n192(d, a0, a1, a2, a3, db);
 }
 
 // ---- host: the bf16 tensor maps

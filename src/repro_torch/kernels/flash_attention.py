@@ -36,9 +36,9 @@ as the reference's ``chunked_attention`` recomputes each chunk under
 ``jax.checkpoint``. :func:`backward_plan` picks the split, from each
 dtype's tiles (:func:`bwd_tiles`). The reference trains in its params'
 dtype (``launch/steps.py::make_train_step``, bf16 by default), so the
-backward takes fp32 at the head dims :data:`BWD_HEAD_DIMS` (explicit
-positions at :data:`BWD_POSITION_HEAD_DIMS` only, in either dtype) and
-bf16 at :data:`BWD_BF16_HEAD_DIMS`, reading bf16 dO
+backward takes fp32 at the head dims :data:`BWD_HEAD_DIMS` and bf16 at
+:data:`BWD_BF16_HEAD_DIMS` (which adds deepseek-v3's 192), explicit
+positions at each of them, reading bf16 dO
 and returning bf16 gradients (every sum in fp32; P and dS rounded to bf16
 where they enter a product, as
 :func:`~repro_torch.kernels.ref.flash_attention_bwd_bf16_ref` writes out).
@@ -72,14 +72,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.roofline import counter
 
-FWD_HEAD_DIMS = (48, 64, 96, 112, 128)  # the forward kernel's head sizes
-BWD_HEAD_DIMS = (48, 64, 96, 112, 128)  # the backward's (192: ROADMAP B1)
-# the head dims at which the backward takes explicit positions, in fp32 and
-# bf16 (M-RoPE trains at qwen2-vl's 128; the others: ROADMAP Queue B, B1)
-BWD_POSITION_HEAD_DIMS = (64, 128)
-# the head dims at which the backward takes bf16: MLA's 48 (reduced()) and
-# 96, the dense configs' 64 and 128, zamba2's shared block's 112
-BWD_BF16_HEAD_DIMS = (48, 64, 96, 112, 128)
+# the forward kernels' head sizes, fp32 and bf16: MLA's 48 (reduced()), 96
+# (minicpm3-4b) and 192 (deepseek-v3: qk_nope 128 + qk_rope 64), the dense
+# configs' 64 and 128, zamba2's shared block's 112
+FWD_HEAD_DIMS = (48, 64, 96, 112, 128, 192)
+# the fp32 backward's (192: ROADMAP Queue D, B1)
+BWD_HEAD_DIMS = (48, 64, 96, 112, 128)
+# the bf16 backward's: every forward head size
+BWD_BF16_HEAD_DIMS = (48, 64, 96, 112, 128, 192)
+# the head dims at which the backward takes explicit positions: every one
+# that either dtype's backward takes (the reference's loss_fn takes
+# positions for every arch)
+BWD_POSITION_HEAD_DIMS = (48, 64, 96, 112, 128, 192)
 ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
 position_launches = 0        # of those, launches with explicit positions
@@ -99,14 +103,15 @@ BWD_KEY_STEP = {48: 32, 64: 32, 96: 16, 112: 32, 128: 16}
 BWD_GROUPS = {48: 2, 64: 2, 96: 2, 112: 1, 128: 1}
 # the bf16 backward's (csrc/flash_attention_bwd_bf16.cu, checked likewise),
 # the same at every head size of BWD_BF16_HEAD_DIMS: 64 keys a dK/dV block
-# in steps of 64 queries, shared by its two warpgroups step by step; 128
-# folded (query, head) rows a dQ block (row = i*G + g, 64 a warpgroup) in
-# steps of 64 keys
+# in steps of 64 queries; 128 folded (query, head) rows a dQ block (row =
+# i*G + g, 64 a warpgroup) in steps of 64 keys. A dK/dV block's two
+# warpgroups take its steps in turn, or at Dh 192 (where each sums half the
+# head dim) both take every step: the groups that share out the steps
 BWD_BF16_KEY_TILE = 64
 BWD_BF16_QUERY_TILE = 64
 BWD_BF16_ROW_TILE = 128
 BWD_BF16_KEY_STEP = 64
-BWD_BF16_GROUPS = 2
+BWD_BF16_GROUPS = {48: 2, 64: 2, 96: 2, 112: 2, 128: 2, 192: 1}
 
 
 class BwdTiles(NamedTuple):
@@ -114,7 +119,7 @@ class BwdTiles(NamedTuple):
     block, ``query_tile`` queries a step, ``row_tile`` rows a dQ block
     (query rows of one head in fp32, folded (query, head) rows of one KV
     head in bf16: ``folded_rows``), ``key_step`` keys a dQ step,
-    ``groups`` warpgroups a block."""
+    ``groups`` warpgroups that share out a dK/dV block's steps."""
     key_tile: int
     query_tile: int
     row_tile: int
@@ -128,7 +133,7 @@ def bwd_tiles(Dh: int, dtype: torch.dtype = torch.float32) -> BwdTiles:
     if dtype == torch.bfloat16:
         return BwdTiles(BWD_BF16_KEY_TILE, BWD_BF16_QUERY_TILE,
                         BWD_BF16_ROW_TILE, BWD_BF16_KEY_STEP,
-                        BWD_BF16_GROUPS, True)
+                        BWD_BF16_GROUPS[Dh], True)
     return BwdTiles(BWD_KEY_TILE, BWD_QUERY_TILE[Dh], BWD_ROW_TILE,
                     BWD_KEY_STEP[Dh], BWD_GROUPS[Dh], False)
 
@@ -162,16 +167,16 @@ def _library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
 
 def _check_tiles(name, tiles_fn, dtype, head_dims) -> None:
     """Hold the library's tiles (``tiles_fn``) to :func:`bwd_tiles` at each
-    head dim it should take, and its refusal at the other backward head
-    dims."""
-    for dh in BWD_HEAD_DIMS:
+    head dim it should take (``head_dims``), and its refusal at the other
+    forward head dims."""
+    for dh in FWD_HEAD_DIMS:
         got = [ctypes.c_int() for _ in range(5)]
         rc = tiles_fn(dh, *(ctypes.byref(x) for x in got))
         if (rc == 0) != (dh in head_dims):
             raise RuntimeError(f"{name} takes Dh {dh}: {rc == 0}, the "
                                f"wrapper's {dh in head_dims}")
-        want = list(bwd_tiles(dh, dtype))[:5]
-        if rc == 0 and [x.value for x in got] != want:
+        if rc == 0 and [x.value for x in got] != (
+                want := list(bwd_tiles(dh, dtype))[:5]):
             raise RuntimeError(f"{name}'s tiles at Dh {dh} are "
                                f"{[x.value for x in got]}, the wrapper's "
                                f"{want}")
@@ -184,10 +189,11 @@ def _bwd_library(dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
     name = "flash_attention_bwd" + ("_bf16" if bf16 else "")
     fn = "attn_bwd_" + ("bf16_" if bf16 else "")
 
+    dims = BWD_BF16_HEAD_DIMS if bf16 else BWD_HEAD_DIMS
+
     def check(lib):
-        _check_tiles(name, getattr(lib, fn + "tiles"), dtype,
-                     BWD_BF16_HEAD_DIMS if bf16 else BWD_HEAD_DIMS)
-        for dh in BWD_HEAD_DIMS:
+        _check_tiles(name, getattr(lib, fn + "tiles"), dtype, dims)
+        for dh in dims:
             if bool(getattr(lib, fn + "positions_built")(dh)) != (
                     dh in BWD_POSITION_HEAD_DIMS):
                 raise RuntimeError(f"{name}'s position instantiations at Dh "
@@ -550,22 +556,22 @@ class _FlashAttention(torch.autograd.Function):
 
 def _check_backward(Dh: int, dtype: torch.dtype, positions: bool) -> None:
     """Raise, before any launch, for a call that needs a gradient the
-    backward does not take: a head dim outside :data:`BWD_HEAD_DIMS`,
-    explicit positions outside :data:`BWD_POSITION_HEAD_DIMS`, bf16
-    outside :data:`BWD_BF16_HEAD_DIMS`."""
+    backward does not take: fp32 outside :data:`BWD_HEAD_DIMS` (Dh 192:
+    ROADMAP B1), bf16 outside :data:`BWD_BF16_HEAD_DIMS`, explicit
+    positions outside :data:`BWD_POSITION_HEAD_DIMS`."""
     hint = "call it without gradients to serve"
-    if Dh not in BWD_HEAD_DIMS:
+    if dtype == torch.bfloat16:
+        if Dh not in BWD_BF16_HEAD_DIMS:
+            raise ValueError(f"head dim {Dh}: the flash_attention backward "
+                             f"takes bf16 at {BWD_BF16_HEAD_DIMS}; {hint}")
+    elif Dh not in BWD_HEAD_DIMS:
         raise ValueError(f"head dim {Dh}: the flash_attention backward "
-                         f"takes {BWD_HEAD_DIMS} (ROADMAP Queue B, B1); "
-                         f"{hint}")
+                         f"takes fp32 at {BWD_HEAD_DIMS} (Dh 192 in bf16 "
+                         f"only: ROADMAP Queue D, B1); {hint}")
     if positions and Dh not in BWD_POSITION_HEAD_DIMS:
         raise ValueError(f"head dim {Dh}: the flash_attention backward "
                          f"takes explicit positions at "
-                         f"{BWD_POSITION_HEAD_DIMS} (ROADMAP Queue B, B1); "
-                         f"{hint}")
-    if dtype == torch.bfloat16 and Dh not in BWD_BF16_HEAD_DIMS:
-        raise ValueError(f"head dim {Dh}: the flash_attention backward "
-                         f"takes bf16 at {BWD_BF16_HEAD_DIMS}; {hint}")
+                         f"{BWD_POSITION_HEAD_DIMS}; {hint}")
 
 
 def _route(device: torch.device, Dh: int) -> str:
@@ -575,7 +581,7 @@ def _route(device: torch.device, Dh: int) -> str:
     if device.type == "cuda":
         if Dh not in FWD_HEAD_DIMS:
             raise ValueError(f"head dim {Dh}; the CUDA kernel takes "
-                             f"{FWD_HEAD_DIMS} (ROADMAP Queue B, B1)")
+                             f"{FWD_HEAD_DIMS}")
     elif device.type not in ("cpu", "meta"):
         raise ValueError(f"no flash_attention for device {device}")
     return device.type
@@ -591,7 +597,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     neither): the kernel for CUDA tensors at a head dim of
     :data:`FWD_HEAD_DIMS`, differentiable through the hand-written
     backward when any input needs a gradient (head dims
-    :data:`BWD_HEAD_DIMS`); the plain version for CPU tensors at any head
+    :data:`BWD_HEAD_DIMS` in fp32, :data:`BWD_BF16_HEAD_DIMS` in bf16);
+    the plain version for CPU tensors at any head
     dim; shapes only for ``meta`` tensors; an error for anything else. The
     bf16 plain version rounds P to bf16 before P·V, as the reference's
     ``chunked_attention`` does."""

@@ -40,9 +40,14 @@ EXTRA = [
     (1, 33, 47, 4, 4, 128, True, 17),
 ]
 SHAPES = chip_smoke.BWD_SHAPES + EXTRA
-# the bf16 backward's: its sweep and the edge shapes at its head dims
+# the bf16 backward's: its sweep and the edge shapes at its head dims, and
+# at Dh 192, whose dK/dV warpgroups take every step together: a split plan
+# (8 splits), a window across tiles, folded rows off the tiles
+DS_SHAPES = [(1, 256, 256, 2, 1, 192, True, 0),
+             (1, 130, 130, 6, 2, 192, True, 70),
+             (2, 42, 43, 3, 1, 192, True, 0)]
 BF16_SHAPES = chip_smoke.BWD_BF16_SHAPES + [
-    s for s in EXTRA if s[5] in k3.BWD_BF16_HEAD_DIMS]
+    s for s in EXTRA if s[5] in k3.BWD_BF16_HEAD_DIMS] + DS_SHAPES
 CASES = ([(torch.float32, s) for s in SHAPES]
          + [(torch.bfloat16, s) for s in BF16_SHAPES])
 SMS = (132, 1, 16, 1000)
@@ -224,6 +229,22 @@ def test_training_and_federated_shapes_fill_the_card(dtype):
             per_row_tile = shape[0] * shape[4]
             firsts = dq[::per_row_tile]
             assert firsts == sorted(firsts, reverse=True)
+
+
+def test_dh192_dkdv_warpgroups_share_every_step():
+    """At Dh 192 the bf16 dK/dV kernel's two warpgroups each sum half the
+    head dim and take every step together, so the plan's cap counts one
+    step a split, not one a warpgroup: 4 key tiles of one (batch, KV head)
+    with 8 steps each split 8 ways on 132 SMs, where the alternate-step
+    dims (2 groups) split 4 ways; the tiles are otherwise the other dims'."""
+    shape = (1, 256, 256, 2, 1, 192, True, 0)
+    tiles = k3.bwd_tiles(192, torch.bfloat16)
+    assert tiles.groups == 1
+    assert tiles._replace(groups=2) == k3.bwd_tiles(128, torch.bfloat16)
+    assert k3.backward_plan(*shape, 132, torch.bfloat16)["splits"] == 8
+    assert k3.backward_plan(*shape[:5], 128, *shape[6:], 132,
+                            torch.bfloat16)["splits"] == 4
+    assert 192 not in k3.BWD_HEAD_DIMS
 
 
 def test_bf16_and_fp32_plans_are_keyed_apart():

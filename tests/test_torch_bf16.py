@@ -276,21 +276,24 @@ def test_plain_bf16_backward_is_float64_of_the_bf16_values():
 
 
 def test_bf16_gradient_raises_before_any_launch_where_the_card_has_none():
-    """The bf16 backward takes the five head dims of the fp32 one, and
-    explicit positions at 64 and 128 as the fp32 one does; bf16 with a
-    gradient at Dh 192, or with positions at 48, 96 or 112, raises in the
-    forward, before any launch."""
-    assert k3.BWD_BF16_HEAD_DIMS == (48, 64, 96, 112, 128)
-    assert k3.BWD_BF16_HEAD_DIMS == k3.BWD_HEAD_DIMS
-    assert k3.BWD_POSITION_HEAD_DIMS == (64, 128)
-    for dh, positions in ((192, False), (48, True), (96, True),
-                          (112, True), (192, True)):
-        with pytest.raises(ValueError, match="head dim"):
-            k3._check_backward(dh, torch.bfloat16, positions)
+    """The bf16 backward takes the fp32 one's five head dims and
+    deepseek-v3's 192, explicit positions at each of them in both dtypes;
+    an fp32 gradient at Dh 192 (ROADMAP B1) and either dtype at a head dim
+    the forward has no kernel for raise in the forward, before any
+    launch."""
+    assert k3.BWD_HEAD_DIMS == (48, 64, 96, 112, 128)
+    assert k3.BWD_BF16_HEAD_DIMS == k3.BWD_HEAD_DIMS + (192,)
+    assert k3.BWD_POSITION_HEAD_DIMS == k3.BWD_BF16_HEAD_DIMS
+    for positions in (False, True):
+        with pytest.raises(ValueError, match="B1"):
+            k3._check_backward(192, torch.float32, positions)
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="head dim"):
+                k3._check_backward(80, dtype, positions)
     for dh in k3.BWD_BF16_HEAD_DIMS:
         k3._check_backward(dh, torch.bfloat16, False)
-    for dh in k3.BWD_POSITION_HEAD_DIMS:
         k3._check_backward(dh, torch.bfloat16, True)
+    for dh in k3.BWD_HEAD_DIMS:
         k3._check_backward(dh, torch.float32, True)
 
 

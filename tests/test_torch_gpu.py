@@ -1,12 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the reference's sweep shapes, the pFedWN round's shapes and the LM
 prefill's (granite-moe's H 24 over KH 8 among them), K3 also at MLA's head
-dims (48, 96) and zamba2's (112), K3's backward against its plain version
-in float64 (fp32, and bf16 at the dense head dims through its own
-kernels, beside the plain version of their bf16 arithmetic), K3 with
-explicit
-positions (forward and backward, and the
-arange bitwise the index path); every federated method, the serving path
+dims (48, 96, deepseek-v3's 192) and zamba2's (112), K3's backward against
+its plain version in float64 (fp32, and bf16 through its own kernels,
+beside the plain version of their bf16 arithmetic; Dh 192 in bf16 only),
+K3 with explicit positions (forward and backward at every head dim, and
+the arange bitwise the index path); every federated method, the serving path
 (GQA, MLA, MoE with and without capacity drops, Mamba1 and Mamba2 with
 zamba2's shared block, qwen2-vl and musicgen after their stub prefix; the
 dense configs also in bf16) and LM training (also under M-RoPE positions,
@@ -374,6 +373,22 @@ SSM_ATTN_SHAPES = [
     (8, 1024, 1024, 32, 32, 112, True, 0),
     (8, 1024, 1024, 32, 32, 112, True, 256),
 ]
+# deepseek-v3's MLA head dim 192 (qk_nope 128 + qk_rope 64, v padded): the
+# sweep's shapes, ragged, windows, fully masked rows, the tile edges (rows
+# off 64 and 128; keys off the bf16 forward's 64-key tile and the fp32
+# one's 16)
+DS_ATTN_SHAPES = [
+    (2, 256, 256, 4, 2, 192, True, 0),
+    (1, 384, 384, 6, 2, 192, True, 96),
+    (2, 200, 200, 4, 4, 192, True, 0),
+    (3, 1, 77, 12, 4, 192, True, 0),
+    (1, 77, 50, 16, 1, 192, False, 20),
+    (1, 63, 65, 1, 1, 192, False, 0),
+    (1, 17, 15, 3, 1, 192, True, 0),
+    (2, 42, 43, 3, 1, 192, True, 0),
+    (1, 65, 129, 1, 1, 192, True, 16),
+    (1, 129, 97, 1, 1, 192, False, 0),
+]
 
 
 def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
@@ -386,7 +401,8 @@ def _attn_inputs(B, Sq, Skv, H, KH, Dh, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,Sq,Skv,H,KH,Dh,causal,window",
                          ATTN_SHAPES + EDGE_SHAPES + MLA_ATTN_SHAPES
-                         + [GRANITE_PREFILL] + SSM_ATTN_SHAPES)
+                         + [GRANITE_PREFILL] + SSM_ATTN_SHAPES
+                         + DS_ATTN_SHAPES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
                                                       Dh, causal, window,
@@ -433,35 +449,88 @@ def test_flash_attention_gradient_at_mla_and_zamba2_dims_on_card(cuda, Dh):
 
 @pytest.mark.gpu
 def test_flash_attention_refuses_a_gradient_at_dh192_on_card(cuda):
-    """deepseek-v3's full-width MLA dim 192 (ROADMAP B1): a call that needs
-    a gradient raises before any launch."""
+    """deepseek-v3's full-width MLA dim 192 in fp32 (ROADMAP B1: the fp32
+    backward has no kernel there; bf16 trains): a call that needs a
+    gradient raises before any launch, with positions or without; without
+    a gradient it serves."""
     q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
                for a in _attn_inputs(1, 64, 64, 2, 2, 192))
-    n, bwd = k3.launches, dict(k3.backward_launches)
-    with pytest.raises(ValueError, match="B1"):
-        k3.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert (k3.launches, k3.backward_launches) == (n, bwd)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("Dh", [48, 96, 112])
-def test_flash_attention_refuses_positions_with_a_gradient_on_card(cuda,
-                                                                   Dh):
-    """The backward takes explicit positions at Dh 64 and 128 only: at the
-    other dims a call with positions that needs a gradient raises before
-    any launch; without one it serves through the position path."""
-    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
-               for a in _attn_inputs(1, 64, 64, 2, 2, Dh))
     pos = torch.arange(64, device=cuda)
     n, bwd = k3.launches, dict(k3.backward_launches)
-    with pytest.raises(ValueError, match="B1"):
-        k3.flash_attention(q, k, v, q_positions=pos, kv_positions=pos)
+    for positions in ({}, dict(q_positions=pos, kv_positions=pos)):
+        with pytest.raises(ValueError, match="B1"):
+            k3.flash_attention(q, k, v, **positions)
     torch.cuda.synchronize()
     assert (k3.launches, k3.backward_launches) == (n, bwd)
     with torch.no_grad():
-        k3.flash_attention(q, k, v, q_positions=pos, kv_positions=pos)
+        k3.flash_attention(q, k, v)
     assert k3.launches == n + 1
+
+
+# the position backward at MLA's 48 and 96, zamba2's 112 and, in bf16,
+# deepseek-v3's 192: M-RoPE's tied pattern, a -1 tail, a window, rows that
+# see no key, unsorted positions, over rows and keys off the tiles
+POS_BWD_PATTERNS = ["mrope", "pad", "window", "masked_rows", "unsorted"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh,dtype", [(48, "float32"), (96, "float32"),
+                                      (112, "float32"), (48, "bfloat16"),
+                                      (96, "bfloat16"), (112, "bfloat16"),
+                                      (192, "bfloat16")])
+@pytest.mark.parametrize("name", POS_BWD_PATTERNS)
+def test_flash_attention_positions_backward_at_mla_and_zamba2_dims_on_card(
+        cuda, Dh, dtype, name):
+    """The backward's position instantiations at Dh 48, 96 and 112 in both
+    dtypes and 192 in bf16, through the autograd path: fp32 within
+    ``BWD_TOL`` (atol and rtol) of the float64 plain backward; bf16 within
+    2e-2 of the float64 backward of the same bf16 values and each max
+    error within twice the plain bf16 version's + 1e-4
+    (``chip_smoke.BWD_BF16_PLAIN_*``); fully masked rows' dq 0; one
+    position launch and each backward kernel of the plan once."""
+    shape = (2, 97, 97, 4, 2, Dh, True, 0)
+    qp, kp, causal, window = (t.to(cuda) if torch.is_tensor(t) else t
+                              for t in _position_case(name, shape[1]))
+    pos = dict(q_positions=qp, kv_positions=kp)
+    tdtype = DTYPES[dtype]
+    q, k, v, dout = (t.detach().to(tdtype) for t in _bwd_case(
+        cuda, *shape[:6], causal, window))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    n, n_pos, bwd = (k3.launches, k3.position_launches,
+                     dict(k3.backward_launches))
+    out, *grads = _kernel_grads(q, k, v, dout, causal, window, **pos)
+    kernels = _bwd_kernels(cuda, *shape[:6], causal, window, dtype=tdtype)
+    assert (k3.launches, k3.position_launches) == (n + 1, n_pos + 1)
+    assert k3.backward_launches == {name_: c + (name_ in kernels)
+                                    for name_, c in bwd.items()}
+    q64, k64, v64 = (t.detach().double() for t in (q, k, v))
+    lse64 = tref.attention_lse_ref(q64, k64, causal=causal, window=window,
+                                   **pos)
+    expect = tref.flash_attention_bwd_ref(
+        q64, k64, v64, tref.flash_attention_ref(
+            q64, k64, v64, causal=causal, window=window, **pos),
+        lse64, dout.double(), causal=causal, window=window, **pos)
+    if dtype == "float32":
+        plain = expect
+    else:
+        out32, lse = k3._launch(q.detach(), k.detach(), v.detach(), causal,
+                                window, with_lse=True, **pos)
+        plain = tref.flash_attention_bwd_bf16_ref(
+            q.detach(), k.detach(), v.detach(), out32, lse, dout,
+            causal=causal, window=window, **pos)
+    for got, want, mine in zip(grads, expect, plain):
+        assert got.dtype == tdtype and torch.isfinite(got).all()
+        if dtype == "float32":
+            torch.testing.assert_close(got.double(), want, atol=BWD_TOL,
+                                       rtol=BWD_TOL)
+            continue
+        torch.testing.assert_close(got.double(), want, atol=2e-2, rtol=2e-2)
+        err = float((got.double() - want).abs().max())
+        plain_err = float((mine.double() - want).abs().max())
+        assert err <= (chip_smoke.BWD_BF16_PLAIN_FACTOR * plain_err
+                       + chip_smoke.BWD_BF16_PLAIN_ATOL), (err, plain_err)
+    rows = torch.isinf(lse64).transpose(1, 2)
+    assert not grads[0][rows].any() and not out.detach()[rows].any()
 
 
 # K3's backward: the forward's sweep and tile edges, and shapes of its own:
@@ -610,20 +679,18 @@ def test_flash_attention_backward_counts_its_launches_on_card(cuda, shape):
 
 @pytest.mark.gpu
 def test_flash_attention_backward_refuses_bf16_on_card(cuda):
-    """bf16 with a gradient where the bf16 backward has no kernel raises
-    in the forward, before any launch: explicit positions at Dh 96 (the
-    position instantiations are at 64 and 128) and Dh 192 (no kernel in
-    either direction)."""
+    """bf16 with a gradient where no bf16 kernel exists raises before any
+    launch: a head dim outside ``FWD_HEAD_DIMS`` (80), with positions or
+    without. (The bf16 backward takes positions at every head
+    dim and Dh 192: ``test_flash_attention_positions_backward_at_mla_and_
+    zamba2_dims_on_card`` and ``BF16_BWD_SHAPES`` hold them.)"""
     n, bwd = k3.launches, dict(k3.backward_launches)
-    q, k, v, _ = _bwd_case(cuda, 1, 64, 64, 2, 1, 96, True, 0)
+    q, k, v, _ = _bwd_case(cuda, 1, 64, 64, 2, 1, 80, True, 0)
     qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
     pos = torch.arange(64, device=cuda)
-    with pytest.raises(ValueError, match="head dim 96"):
-        k3.flash_attention(qb, kb, vb, q_positions=pos, kv_positions=pos)
-    q, k, v, _ = _bwd_case(cuda, 1, 64, 64, 2, 1, 192, True, 0)
-    qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
-    with pytest.raises(ValueError, match="head dim 192"):
-        k3.flash_attention(qb, kb, vb)
+    for positions in ({}, dict(q_positions=pos, kv_positions=pos)):
+        with pytest.raises(ValueError, match="head dim 80"):
+            k3.flash_attention(qb, kb, vb, **positions)
     torch.cuda.synchronize()
     assert (k3.launches, k3.backward_launches) == (n, bwd)
 
@@ -636,7 +703,14 @@ BF16_BWD_SHAPES = [(2, 64, 64, 4, 4, 48, True, 0),
                    (1, 384, 384, 6, 2, 128, True, 96),
                    (4, 128, 128, 9, 3, 64, True, 0),
                    (8, 256, 256, 32, 2, 128, True, 0),
-                   (3, 1, 77, 12, 4, 128, True, 0)]
+                   (3, 1, 77, 12, 4, 128, True, 0),
+                   # Dh 192: keys off the 64-key tile, a window, a split
+                   # plan (8 splits), G 3, fully masked rows
+                   (2, 70, 70, 4, 4, 192, True, 0),
+                   (1, 130, 130, 6, 2, 192, True, 70),
+                   (1, 256, 256, 2, 1, 192, True, 0),
+                   (2, 200, 200, 9, 3, 192, True, 0),
+                   (1, 77, 50, 16, 1, 192, False, 20)]
 
 
 @pytest.mark.gpu
@@ -794,12 +868,13 @@ def test_flash_attention_positions_match_plain_on_card(cuda, shape, name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 97, 97, 4, 4, 48, True, 0),
                                    (2, 160, 160, 4, 2, 96, True, 0),
-                                   (1, 97, 97, 8, 8, 112, True, 0)])
+                                   (1, 97, 97, 8, 8, 112, True, 0),
+                                   (1, 97, 97, 4, 4, 192, True, 0)])
 @pytest.mark.parametrize("name", POS_PATTERNS)
 def test_flash_attention_positions_forward_at_serving_head_dims_on_card(
         cuda, shape, name):
-    """The forward's position instantiations at the head dims the backward
-    does not take (MLA's 48 and 96, zamba2's 112): serving output in fp32
+    """The forward's position instantiations at MLA's 48, 96 and 192 and
+    zamba2's 112 (their backward: the test above): serving output in fp32
     and bf16 against the plain version, the training instantiation's
     output (bitwise) and LSE, fully masked rows 0; the arange bitwise the
     index path."""

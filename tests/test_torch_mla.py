@@ -323,10 +323,11 @@ def test_windowed_prompt_longer_than_the_ring_raises():
 
 
 def test_mla_gradient_at_the_kernel_refuses_up_front():
-    """K3's backward takes Dh 48, 64, 96, 112 and 128: on a card, a call
-    at deepseek-v3's full-width MLA dim 192 (qk_nope 128 + qk_rope 64)
-    that needs a gradient raises in the autograd forward, before any
-    launch (the check the forward runs on a CUDA tensor). The CPU route,
+    """K3's fp32 backward takes Dh 48, 64, 96, 112 and 128 (192 only in
+    bf16): on a card, an fp32 call at deepseek-v3's full-width MLA dim 192
+    (qk_nope 128 + qk_rope 64) that needs a gradient raises in the
+    autograd forward, before any launch (the check the forward runs on a
+    CUDA tensor). The CPU route,
     one autograd node too since the roofline counter, takes any head dim,
     as the reference does."""
     with pytest.raises(ValueError, match="B1"):
