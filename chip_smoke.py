@@ -23,7 +23,8 @@ when it ends:
      with the same draws and compare params, accuracies, π and the
      train-loss tap; then run the pFedWN main path at full width
      (cifar10-cnn, 11 clients, quickstart's wireless scenario) and check
-     that each kernel carried it;
+     that each kernel carried it; then one round of it at cifar100-cnn's
+     width (P 200,420, 100 classes: K1 at V 100, held in phase 3);
   5b. run ``local`` and the four baselines (FedAvg, FedProx, Per-FedAvg,
      FedAMP) on the same full-width scenario, check their taps and
      accuracies and that neither K1 nor K2 launched, and print each one's
@@ -76,14 +77,14 @@ when it ends:
      MLA head dim 192 (``ATTN_DS_SHAPES``: its full-width prefill, B 8 x
      S 1024, 128 heads, the sweep's shapes, ragged, windowed, fully
      masked rows and the tile edges) in fp32 and bf16, with the fp32
-     training instantiation; an fp32 call at Dh 192 that needs a gradient
-     must raise before any launch (ROADMAP B1); then K3's
+     training instantiation; then K3's
      backward (``csrc/flash_attention_bwd.cu``: split-TF32 ``wgmma``, dK/dV
      split over blocks where one a key tile leaves SMs idle, through the
      autograd path) against ``flash_attention_bwd_ref`` in float64 on the
      card over the reference's sweep, ragged shapes and tile edges, causal
-     and window, G 1 to 16, Dh 48, 64, 96, 112 and 128 (at the new three:
-     queries off each query step, keys off the 64-key tile and the dQ
+     and window, G 1 to 16, Dh 48, 64, 96, 112, 128 and 192 (192 at
+     ``BWD_DS_SHAPES``, below, by its own dK/dV and dQ kernels; at 48, 96
+     and 112: queries off each query step, keys off the 64-key tile and the dQ
      kernel's key steps, G > 1, windows), minicpm3-4b's (B 8, S 256, H 40,
      Dh 96), zamba2-7b's (H 32, Dh 112) and granite-moe's (H 24 over KH
      8) training shapes and Dh 48 at B 2 x S 64, smollm-135m's training
@@ -102,7 +103,7 @@ when it ends:
      first 50 queries (fully masked rows, which must give 0) and the
      M-RoPE positions permuted under a window of 100, and the same checks
      at Dh 48, 96, 112 and 192 (the backward by positions in fp32 and
-     bf16 there, 192 in bf16 only); then the forward at
+     bf16 there); then the forward at
      qwen2-vl's prefill under its M-RoPE prompt's positions and the bf16
      backward at its training shape under them; K3's fp32
      backward also at chatglm3-6b's training shape (B 8, S 256, 32 heads
@@ -113,9 +114,10 @@ when it ends:
      64 and 128 shapes, ragged, windowed, G 1 to 16, fully masked rows, a
      split plan, and (PR 29) Dh 48, 96 and 112 at minicpm3-4b's, zamba2-7b's
      and reduced MLA's training shapes, ragged, windowed, split; and Dh
-     192's ``BWD_DS_SHAPES``: deepseek-v3's training shape at full
-     width, B 8 x S 256, 128 heads, a split plan, ragged, windowed, G > 1,
-     fully masked rows) against the float64 plain backward of the same
+     192's ``BWD_DS_SHAPES``, which the fp32 check above takes too:
+     deepseek-v3's training shape at full width, B 8 x S 256, 128 heads,
+     a split plan, ragged, windowed, G > 1, fully masked rows) against the
+     float64 plain backward of the same
      bf16 values within 2e-2 and within twice the error of the plain version
      of the kernels' bf16 arithmetic (``flash_attention_bwd_bf16_ref``:
      P and dS rounded to bf16 before their products) + 1e-4, the LSE
@@ -270,16 +272,22 @@ when it ends:
      4 teacher-forced decode steps, K3 once a layer), one bf16
      make_train_step without and with explicit positions within phase
      7g's gates; the explicit-position training of ``POS_TRAIN_ARCHS``
-     (reduced deepseek-v3 at Dh 48, minicpm3-4b at its published MLA dims
-     96, zamba2-7b at its published head dim 112: fp32 ``value_and_grad``
-     within 1e-4 and one bf16 step; every K3 launch by positions); then
+     (reduced deepseek-v3 at Dh 48 and 192, minicpm3-4b at its published
+     MLA dims 96, zamba2-7b at its published head dim 112: fp32
+     ``value_and_grad`` within 1e-4 and one bf16 step; every K3 launch by
+     positions) and fp32 ``value_and_grad`` of reduced deepseek-v3 at Dh
+     192 by index within 1e-4; then
      deepseek-v3 with n_layers cut from 61 to 4 (the 3 dense layers, one
      MoE layer of 256 experts top-8 with the shared expert, the MTP block;
      15.70 B params, seed-0 weights): a bf16 serve of 8 x 1024 + 32 (K3 4
      launches a prefill), 2 bf16 make_train_step steps at B 8 x S 256
      without remat (K3's forward 5 a step, each bf16 backward kernel as
      often), then, the bf16 weights freed, an fp32 serve of 8 x 1024 +
-     32; prefill, decode and step ms, peaks,
+     32 on the seed-0 fp32 draws; then deepseek-v3 with n_layers cut to 3
+     (the dense layers and the MTP block, no MoE layer: 4.19 B params,
+     15.60 GiB in fp32) trained in fp32, 2 make_train_step steps at B 8 x
+     S 256 (K3's fp32 forward 4 a step and its fp32 backward at Dh 192 as
+     often, no bf16 kernel); prefill, decode and step ms, peaks,
      K3's launches and the MoE layer's dropped share printed;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
      at the main paths' shapes (K1 also in bf16, at smollm-135m's
@@ -303,7 +311,8 @@ when it ends:
      bounded at bf16's 989 TFLOP/s against SDPA in bf16, their launches
      the bf16 kernels' own counts; deepseek-v3's Dh 192: the bf16
      forward at its prefill, the bf16 backward at its training shape, the
-     fp32 forward at its fp32 serve; the backward by explicit positions
+     fp32 forward at its fp32 serve, the fp32 backward at its fp32
+     training shape; the backward by explicit positions
      at Dh 48, 96 and 112 in fp32 and bf16, timed at reduced MLA's,
      minicpm3-4b's and zamba2-7b's training shapes)
      beside the card's floor (a 1-element ``zero_()`` in the same bracket)
@@ -334,18 +343,21 @@ import torch  # noqa: E402
 
 ROUNDS, EVAL_EVERY, EM_ITERS = 8, 2, 5
 WIDE_CLIENTS, WIDE_ROUNDS = 40, 4     # phase 5c: M = 39 neighbours
+CIFAR100_ROUNDS = 1                   # phase 5: the cifar100-cnn round
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}      # K1 (test_kernels.py)
 AGG_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}  # K2 (test_kernels.py)
 ATTN_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}  # K3 (test_kernels.py)
 SERVE_TOL = 1e-4             # card vs CPU logits, fp32 with TF32 off
-# K1 shapes (M, T, V): the round's (cifar10-cnn, em_subset 512, M 10),
-# the reference's sweep, then both sides of each team-size switch (V 1, 2,
+# K1 shapes (M, T, V): the round's (cifar10-cnn, em_subset 512, M 10) and
+# the cifar100-cnn round's (V 100), the reference's sweep, then both sides
+# of each team-size switch (V 1, 2,
 # 16, 17, 31, 32, 33, 512, 520, 1024, 1025, 49,152), M 1, 16, 17 and 32,
 # and T off the token tile (515, 700 and 4099 tokens leave 3, 4 and 3 in
 # the last tile)
 EM_MAIN = (10, 512, 10)
+EM_CIFAR100 = (10, 512, 100)
 EM_VOCAB = (8, 512, 49_152)   # smollm-135m's vocabulary, 8 components
-EM_SHAPES = [EM_MAIN, (2, 128, 512), (4, 128, 1024), (8, 256, 512),
+EM_SHAPES = [EM_MAIN, EM_CIFAR100, (2, 128, 512), (4, 128, 1024), (8, 256, 512),
              (3, 384, 1536), (3, 37, 10), (1, 16, 1), (16, 37, 2),
              (4, 33, 16), (4, 33, 17), (17, 53, 31), (32, 9, 32),
              (1, 100, 33), (5, 20, 512), (3, 24, 520), (16, 33, 1024),
@@ -519,7 +531,7 @@ POS_SHAPES = [(2, 320, 320, 12, 2, 128, True, 0),
               (2, 320, 320, 8, 8, 64, True, 0)]
 # the forward's other head dims (MLA's 48, 96 and 192, zamba2's 112), whose
 # position instantiations serve and train: the backward takes
-# positions at each of its head dims in each dtype (192 in bf16 only)
+# positions at each of them in each dtype
 POS_FWD_SHAPES = [(2, 320, 320, 4, 4, 48, True, 0),
                   (2, 320, 320, 8, 8, 96, True, 0),
                   (2, 320, 320, 8, 8, 112, True, 0),
@@ -647,14 +659,15 @@ BWD_BF16_SHAPES = [
     (2, 42, 43, 3, 1, 112, True, 0),
     (1, 100, 100, 8, 2, 48, True, 0),
 ]
-# the bf16 backward at Dh 192, checked as BWD_BF16_SHAPES are:
-# deepseek-v3's training shape at full width (B 8 x S 256, 128 heads; the
-# dK/dV kernel splits the head dim over its warpgroups), a split plan,
-# ragged, windowed, G > 1, fully masked rows, tile edges
+# the backward at Dh 192 in fp32 (checked as BWD_SHAPES are) and bf16 (as
+# BWD_BF16_SHAPES are): deepseek-v3's training shape at full width (B 8 x
+# S 256, 128 heads; the dK/dV kernels split the head dim over their
+# warpgroups), a split plan, ragged, windowed, G > 1, fully masked rows,
+# tile edges
 BWD_DS = (8, 256, 256, 128, 128, 192, True, 0)
 BWD_DS_SHAPES = [
     BWD_DS,
-    (1, 256, 256, 2, 1, 192, True, 0),       # 8 splits and the reduce
+    (1, 256, 256, 2, 1, 192, True, 0),       # 8 (bf16) or 32 splits
     (2, 200, 200, 9, 3, 192, True, 0),
     (1, 130, 130, 6, 2, 192, True, 70),
     (1, 77, 50, 16, 1, 192, False, 20),
@@ -709,17 +722,21 @@ BF16_FAMILY_STEPS = 2
 # bf16 and 58.5 GiB in fp32): a bf16 serve of SERVE_B x SERVE_PROMPT +
 # SERVE_GEN, DS_TRAIN_STEPS bf16 make_train_step steps at TRAIN_B x
 # TRAIN_S (no remat: K3's forward once an attention layer, 5 a step), an
-# fp32 serve of the same size (its peak about 70 GiB on an H100; fp32
-# training would need 117 GiB for weights and gradients alone:
-# the fp32 backward at Dh 192 waits, ROADMAP B1)
+# fp32 serve of the same size from init_params in fp32 (its peak about 70
+# GiB on an H100); then fp32 training with n_layers cut to DS_FP32_LAYERS,
+# the dense prefix alone (first_k_dense 3, so the MoE group is empty) and
+# the MTP block: 4.19 B params, 15.60 GiB in fp32, ~31 GiB with gradients
+# (DS_LAYERS' MoE layer would take fp32 weights and gradients past 80 GB:
+# 117 GiB), DS_TRAIN_STEPS make_train_step steps at TRAIN_B x TRAIN_S
 DS_LAYERS = 4
+DS_FP32_LAYERS = 3
 DS_TRAIN_STEPS = 2
 DS_MLA_DIMS = ("qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim")
 # and the explicit-position training K3's backward takes (the
 # reference's loss_fn takes batch["positions"] for every arch), card vs CPU
 # in fp32 and bf16 at reduced(): deepseek-v3 (Dh 48), minicpm3-4b with its
 # published MLA dims (64 + 32: Dh 96), zamba2-7b's shared block at its
-# published head dim 112, deepseek-v3 at Dh 192 (bf16); positions 3..S+2,
+# published head dim 112, deepseek-v3 at Dh 192; positions 3..S+2,
 # what a caller continuing a sequence passes. Phase 8 times the position
 # backward at the full-width training shapes of these dims
 POS_TRAIN_ARCHS = (("deepseek-v3-671b", 48), ("minicpm3-4b", 96),
@@ -927,9 +944,10 @@ def check_small_run_against_cpu(dev) -> None:
                  cpu, method == "pfedwn")
 
 
-def _main_sim(dev):
-    """Quickstart's scenario at cifar10-cnn width through the port's entry
-    points: the simulation the main paths run."""
+def _main_sim(dev, model=None, rounds=ROUNDS, eval_every=EVAL_EVERY):
+    """Quickstart's scenario at cifar10-cnn width (or ``model``'s, its
+    data with as many classes) through the port's entry points: the
+    simulation the main paths run."""
     from repro_torch.configs import WirelessConfig, cifar10_cnn
     from repro_torch.core import selection
     from repro_torch.core.fedsim import FederatedSimulation, FedSimConfig
@@ -946,7 +964,9 @@ def _main_sim(dev):
     print(f"P_err per neighbor: {[round(float(p), 4) for p in p_err_nb]}")
     print(f"selected neighbors: {np.where(selected)[0].tolist()}")
 
-    base = synthetic_image_dataset(0, 8000, image_size=32, n_classes=10)
+    model = model or cifar10_cnn()
+    base = synthetic_image_dataset(0, 8000, image_size=model.image_size,
+                                   n_classes=model.n_classes)
     parts = dirichlet_partition(base.y, 11, alpha=0.1, seed=0)
     train = make_client_datasets(base, [train_test_split(p, seed=1)[0]
                                         for p in parts])
@@ -955,10 +975,10 @@ def _main_sim(dev):
     pm = np.concatenate([[True], selected])
     p_err = np.concatenate([[0.0], p_err_nb]).astype(np.float32)
     sim = FederatedSimulation(
-        cifar10_cnn(), train, test, pm, p_err,
-        FedSimConfig(rounds=ROUNDS, batch_size=32, lr=0.05, alpha=0.7,
+        model, train, test, pm, p_err,
+        FedSimConfig(rounds=rounds, batch_size=32, lr=0.05, alpha=0.7,
                      em_iters=EM_ITERS, em_subset=512,
-                     eval_every=EVAL_EVERY, seed=0), device=dev)
+                     eval_every=eval_every, seed=0), device=dev)
     print(f"clients={sim.n} M={sim.m} P={sim.layout.size} "
           f"steps/round={sim.steps_per_round}")
     return sim
@@ -994,6 +1014,35 @@ def run_main_path(dev):
           f"{hist['round_ms']}")
     print(f"ms per round after the first block: {float(np.mean(steady))}")
     return hist, n1, n2, sim
+
+
+def run_cifar100_main_path(dev) -> tuple:
+    """pFedWN on :func:`_main_sim` at cifar100-cnn's width (P 200,420, 100
+    classes, so K1 runs at V 100) for ``CIFAR100_ROUNDS`` rounds: π on the
+    simplex, accuracies finite, K1 ``EM_ITERS`` and K2 once a round, K1's
+    shape ``EM_CIFAR100`` (held to its plain version in phase 3). Returns
+    (K1 launches, K2 launches, P)."""
+    from repro_torch.configs import cifar100_cnn
+    from repro_torch.kernels import em_posterior as k1
+    from repro_torch.kernels import weighted_agg as k2
+    sim = _main_sim(dev, cifar100_cnn(), rounds=CIFAR100_ROUNDS,
+                    eval_every=1)
+    k1.launches = k2.launches = 0
+    hist = sim.run("pfedwn")
+    n1, n2 = k1.launches, k2.launches
+    pis = np.stack(hist["pi"])
+    accs = hist["target_acc"] + hist["mean_participant_acc"]
+    print(f"cifar100-cnn pfedwn: P={sim.layout.size}, target acc "
+          f"{hist['target_acc']}, pi* {np.round(pis[-1], 3).tolist()}, ms "
+          f"per round {hist['round_ms']}, launches K1={n1} K2={n2}")
+    if not (np.all(pis >= 0) and np.allclose(pis.sum(1), 1.0, atol=1e-4)
+            and np.all(np.isfinite(accs))
+            and (sim.m, sim.sim.em_subset, sim.model_cfg.n_classes)
+            == EM_CIFAR100 and n1 == CIFAR100_ROUNDS * EM_ITERS
+            and n2 == CIFAR100_ROUNDS):
+        raise AssertionError(f"cifar100-cnn's pfedwn round: K1={n1} K2={n2}, "
+                             f"pi {pis}, accuracies {accs}")
+    return n1, n2, sim.layout.size
 
 
 def run_baselines_main_path(dev):
@@ -1601,9 +1650,10 @@ def check_flash_attention(dev) -> dict:
     tol·|plain|; raises past it. At MLA's head dims 48, 96 and 192 and
     zamba2's 112 also the fp32 training instantiation: its output bitwise
     the serving one's, its row LSE within ``BWD_TOL`` of the plain one;
-    and an fp32 call at Dh 192 that needs a gradient must raise before it
-    launches anything (ROADMAP B1). Returns the max |d| in fp32 by shape,
-    and in bf16 under (shape, "bf16")."""
+    and a call that needs a gradient at a head dim no kernel takes (80)
+    must raise before it launches anything, in either dtype, with
+    positions or without. Returns the max |d| in fp32 by shape, and in
+    bf16 under (shape, "bf16")."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels.ref import flash_attention_ref
     errs = {}
@@ -1629,10 +1679,12 @@ def check_flash_attention(dev) -> dict:
             errs[shape if dtype == torch.float32 else (shape, "bf16")] = err
             if dtype == torch.float32 and shape[5] in (48, 96, 112, 192):
                 _check_lse_instantiation(q, k, v, out, causal, window, shape)
-    # where the backward has no kernel: fp32 at Dh 192, with and without
-    # positions (ROADMAP B1; bf16 trains there)
-    for dh, dtype, with_pos in ((192, torch.float32, False),
-                                (192, torch.float32, True)):
+    # where no kernel takes the head dim: either dtype, with and without
+    # positions (both backwards take every forward head dim, 192 included)
+    for dh, dtype, with_pos in ((80, torch.float32, False),
+                                (80, torch.float32, True),
+                                (80, torch.bfloat16, False),
+                                (80, torch.bfloat16, True)):
         q, k, v = (t.requires_grad_() for t in _attn_inputs(
             (1, 64, 64, 2, 2, dh), dtype, dev))
         pos = torch.arange(64, device=dev)
@@ -2304,19 +2356,20 @@ def _autograd_grads(q, k, v, dout, causal, window, **positions):
 
 def check_flash_attention_backward(dev) -> float:
     """K3's backward against the float64 plain backward at every shape of
-    ``BWD_SHAPES``, |d| <= tol + tol·|plain| for dq, dk, dv and the row
+    ``BWD_SHAPES`` and Dh 192's ``BWD_DS_SHAPES`` (its own dK/dV and dQ
+    kernels), |d| <= tol + tol·|plain| for dq, dk, dv and the row
     LSE; a second run bitwise equal; the training forward's output bitwise
     the serving forward's; fully masked rows' dq and output exactly 0.
     Raises past any. Returns, for the training main paths' shapes
     (``BWD_MAIN``, ``BWD_QWEN2VL``, ``BWD_MUSICGEN``, ``BWD_MINICPM``,
-    ``BWD_ZAMBA2``, ``BWD_MLA_SMALL``) and the federated one's
-    (``BWD_FED``), the max |d| and
+    ``BWD_ZAMBA2``, ``BWD_MLA_SMALL``, ``BWD_DS``) and the federated
+    one's (``BWD_FED``), the max |d| and
     the worst excess max(|d| − tol·|plain|), which the check holds to <=
     tol."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ref
     errs_at = {}
-    for shape in BWD_SHAPES:
+    for shape in BWD_SHAPES + BWD_DS_SHAPES:
         causal, window = shape[6], shape[7]
         q, k, v, dout = _bwd_inputs(shape, dev)
         first = _autograd_grads(q, k, v, dout, causal, window)
@@ -2362,9 +2415,10 @@ def check_flash_attention_backward(dev) -> float:
             raise AssertionError(f"K3 backward disagrees with its plain "
                                  f"version at {shape}")
         if shape in (BWD_MAIN, BWD_FED, BWD_QWEN2VL, BWD_MUSICGEN,
-                     BWD_MINICPM, BWD_ZAMBA2, BWD_MLA_SMALL, BWD_CHATGLM):
+                     BWD_MINICPM, BWD_ZAMBA2, BWD_MLA_SMALL, BWD_CHATGLM,
+                     BWD_DS):
             errs_at[shape] = (max(errs), max(excess))
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return errs_at
 
 
@@ -3349,7 +3403,10 @@ def check_deepseek_full_heads_against_cpu(dev) -> dict:
     decode steps; fp32 logits within ``SERVE_TOL``, bf16 within max(2e-2,
     g), g the CPU's own bf16-vs-fp32 gap), K3 once a layer a prefill in
     the prompt's dtype; one bf16 ``make_train_step`` without and with
-    explicit positions under :func:`bf16_step_against_cpu`'s gates. Then
+    explicit positions under :func:`bf16_step_against_cpu`'s gates; fp32
+    ``value_and_grad`` by index, the loss and every gradient within
+    ``TRAIN_TOL`` (atol and rtol), K3's fp32 forward and each fp32
+    backward kernel of the plan once an attention layer. Then
     the explicit-position training of ``POS_TRAIN_ARCHS`` (positions
     ``POS_TRAIN_OFFSET``.., B 2 x S 64): in fp32 (where the fp32 backward
     takes the head dim) the loss and every gradient of ``value_and_grad``
@@ -3419,6 +3476,30 @@ def check_deepseek_full_heads_against_cpu(dev) -> dict:
             raise AssertionError("reduced deepseek-v3's bf16 train step at "
                                  "Dh 192 on the card disagrees with the "
                                  "CPU's")
+    # fp32 value_and_grad by index at Dh 192: K3's fp32 forward and the
+    # fp32 backward's own Dh-192 kernels, once an attention layer
+    loss, _, grads = value_and_grad(p32, cfg, batch)
+    k3.reset_counts()
+    gloss, _, ggrads = value_and_grad(
+        _tree_to(p32, dev), cfg, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    n16 = k3.bf16_launches + sum(k3.bf16_backward_launches.values())
+    excess = max(_grad_excess([gloss], [loss], TRAIN_TOL),
+                 _grad_excess(ggrads, grads, TRAIN_TOL))
+    out[("value_and_grad", "float32")] = (n_fwd, n_bwd)
+    print(f"value_and_grad reduced deepseek-v3 at Dh 192 fp32, card vs "
+          f"CPU: loss {float(gloss):.6g} vs {float(loss):.6g}, worst excess "
+          f"over {TRAIN_TOL:g}·|CPU| {excess:.3g} (tol {TRAIN_TOL:g}); K3 "
+          f"forward {n_fwd}, backward {n_bwd}, bf16 launches {n16}")
+    if not (excess <= TRAIN_TOL and n_fwd == n_attn and n16 == 0
+            and k3.position_launches == 0
+            and _bwd_counts_ok(n_bwd, _bwd_kernels(
+                (2, 64, 64, cfg.n_heads, cfg.n_heads, 192, True, 0), dev),
+                n_attn)):
+        raise AssertionError("reduced deepseek-v3's fp32 gradients at Dh "
+                             "192 on the card disagree with the CPU's")
+    del grads, ggrads
     for arch, dh in POS_TRAIN_ARCHS:
         cfg = _position_train_cfg(arch, dh)
         n_attn = _attention_layers(cfg)
@@ -3476,20 +3557,6 @@ def check_deepseek_full_heads_against_cpu(dev) -> dict:
     return out
 
 
-def _widen_(tree) -> None:
-    """Every leaf of a tree of dicts to fp32, in place, one leaf at a
-    time: each bf16 leaf is freed as its fp32 copy replaces it, and its
-    cached block handed back to the card, so that the next, larger copy
-    finds room (the expert leaves are 14 GiB in fp32)."""
-    for key, value in tree.items():
-        if isinstance(value, dict):
-            _widen_(value)
-        else:
-            tree[key] = value.float()
-            del value
-            torch.cuda.empty_cache()
-
-
 def _ds_serve(dev, cfg, params, B, label) -> dict:
     """``serve`` of ``B`` x SERVE_PROMPT + SERVE_GEN on the full-width
     deepseek-v3 ``cfg`` (params in their dtype): logits finite, K3 once a
@@ -3531,35 +3598,20 @@ def _ds_serve(dev, cfg, params, B, label) -> dict:
             "dropped": dropped, "pairs": pairs, "capacity": cap}
 
 
-def run_deepseek_full_main_path(dev) -> dict:
-    """Phase 7k's main paths: deepseek-v3-671b at its published widths,
-    n_layers cut to ``DS_LAYERS`` (``_ds_cfg(full=True)``), seed-0
-    weights. bf16: ``_ds_serve``, then ``DS_TRAIN_STEPS`` steps of
-    ``make_train_step`` at TRAIN_B x TRAIN_S (no remat), losses finite and
-    params changed, K3's bf16 forward once an attention layer a step (the
-    four layers and the MTP block), each bf16 backward kernel of the plan
-    as often, and the dropped share of one more forward (no grad) on the
-    last batch. The bf16 weights are freed; then fp32 (the seed-0 draws
-    rounded to bf16, widened: ``_widen_``): ``_ds_serve`` again. Returns
-    each run's numbers."""
+def _ds_train_steps(dev, cfg, params, group) -> tuple:
+    """``DS_TRAIN_STEPS`` steps of ``make_train_step`` at TRAIN_B x TRAIN_S
+    (no remat) on the full-width deepseek-v3 ``cfg``, K3's counts and the
+    peak reset before them. Returns (params, the last batch, ms, losses,
+    whether a sample of ``group``'s largest leaf changed)."""
     from torch.utils._pytree import tree_leaves
     from repro_torch.configs import ShapeConfig, TrainConfig
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.model import init_params, loss_fn
-    cfg = _ds_cfg(full=True)
-    out = {}
-    torch.cuda.empty_cache()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev, torch.bfloat16)
-    out["weights_gib_bf16"] = _tree_gib(params)
-    out["params"] = sum(t.numel() for t in tree_leaves(params))
-    out["bf16"] = _ds_serve(dev, cfg, params, SERVE_B, "bf16")
     shape = ShapeConfig("deepseek_full", seq_len=TRAIN_S,
                         global_batch=TRAIN_B, mode="train")
     step = make_train_step(cfg, TrainConfig(lr=TRAIN_LR, remat=False),
                            shape)
-    big = max(tree_leaves(params["layers"]), key=lambda t: t.numel())
+    big = max(tree_leaves(params[group]), key=lambda t: t.numel())
     stride = max(1, big.numel() // 4096)
     before = big.reshape(-1)[::stride].clone()
     torch.cuda.empty_cache()
@@ -3573,15 +3625,43 @@ def run_deepseek_full_main_path(dev) -> dict:
         params, metrics = step(params, batch)
         losses.append(float(metrics["loss"]))
         ms.append((time.perf_counter() - t0) * 1e3)
+    return params, batch, ms, losses, not torch.equal(
+        before, big.reshape(-1)[::stride])
+
+
+def run_deepseek_full_main_path(dev) -> dict:
+    """Phase 7k's main paths: deepseek-v3-671b at its published widths,
+    n_layers cut to ``DS_LAYERS`` (``_ds_cfg(full=True)``), seed-0
+    weights. bf16: ``_ds_serve``, then ``DS_TRAIN_STEPS`` steps of
+    ``make_train_step`` at TRAIN_B x TRAIN_S (no remat), losses finite and
+    params changed, K3's bf16 forward once an attention layer a step (the
+    four layers and the MTP block), each bf16 backward kernel of the plan
+    as often, and the dropped share of one more forward (no grad) on the
+    last batch. The bf16 weights are freed; then fp32 (``init_params`` in
+    fp32: the MoE group's one layer is stacked as a view, no second copy):
+    ``_ds_serve`` again. Then :func:`run_deepseek_fp32_train`. Returns
+    each run's numbers."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.models.model import init_params, loss_fn
+    cfg = _ds_cfg(full=True)
+    out = {}
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    out["weights_gib_bf16"] = _tree_gib(params)
+    out["params"] = sum(t.numel() for t in tree_leaves(params))
+    out["bf16"] = _ds_serve(dev, cfg, params, SERVE_B, "bf16")
+    params, batch, ms, losses, changed = _ds_train_steps(dev, cfg, params,
+                                                         "layers")
     n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
     n_bf16_bwd = dict(k3.bf16_backward_launches)
     routed = k3.bf16_launches == n_fwd and n_bf16_bwd == n_bwd
     train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    changed = not torch.equal(before, big.reshape(-1)[::stride])
     with torch.no_grad(), _Routing() as routes:
         loss_fn(params, cfg, batch)
     dropped, pairs, _ = routes.summary()
-    del params, metrics, batch, step, big
+    del params, batch
     torch.cuda.empty_cache()
     want = _attention_layers(cfg) * DS_TRAIN_STEPS
     kernels = _bwd_kernels(BWD_DS, dev, torch.bfloat16)
@@ -3604,18 +3684,65 @@ def run_deepseek_full_main_path(dev) -> dict:
                     "k3_forward": n_fwd, "k3_backward": n_bwd,
                     "k3_bf16_backward": n_bf16_bwd, "dropped": dropped,
                     "pairs": pairs}
-    # fp32: the seed-0 bf16 draws widened leaf by leaf (init_params in
-    # fp32 stacks the MoE layer's 43 GiB of experts into a second copy,
-    # past 80 GB)
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev, torch.bfloat16)
-    _widen_(params)
+                         dev, torch.float32)
     out["weights_gib_fp32"] = _tree_gib(params)
+    out["init_peak_gib_fp32"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"deepseek-v3 n_layers {cfg.n_layers} fp32 init_params: "
+          f"{out['weights_gib_fp32']:.2f} GiB of weights, peak "
+          f"{out['init_peak_gib_fp32']:.2f} GiB")
     out["fp32"] = _ds_serve(dev, cfg, params, SERVE_B, "fp32")
     del params
     torch.cuda.empty_cache()
+    out["train32"] = run_deepseek_fp32_train(dev)
     return out
+
+
+def run_deepseek_fp32_train(dev) -> dict:
+    """deepseek-v3-671b at its published widths in fp32, n_layers cut to
+    ``DS_FP32_LAYERS`` (the dense prefix, so the MoE group is the empty
+    ``(0, ...)`` stack, and the MTP block): ``DS_TRAIN_STEPS`` steps of
+    ``make_train_step`` at TRAIN_B x TRAIN_S from seed-0 ``init_params`` in
+    fp32, losses finite and params changed, K3's fp32 forward once an
+    attention application a step (the 3 layers and the MTP block) and each
+    fp32 backward kernel of the plan (its Dh-192 dK/dV and dQ) as often, no
+    bf16 kernel. Returns ms, losses, peak and launches."""
+    import dataclasses
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(_ds_cfg(full=True), n_layers=DS_FP32_LAYERS)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.float32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gib = _tree_gib(params)
+    empty = tree_leaves(params["layers"])[0].shape[0] == 0
+    params, batch, ms, losses, changed = _ds_train_steps(dev, cfg, params,
+                                                         "dense_layers")
+    n_fwd, n_bwd = k3.launches, dict(k3.backward_launches)
+    n16 = k3.bf16_launches + sum(k3.bf16_backward_launches.values())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del params, batch
+    torch.cuda.empty_cache()
+    want = _attention_layers(cfg) * DS_TRAIN_STEPS
+    kernels = _bwd_kernels(BWD_DS, dev)
+    print(f"deepseek-v3 n_layers {cfg.n_layers} fp32 ({n_params} params, "
+          f"{gib:.2f} GiB, MoE group empty {empty}): {DS_TRAIN_STEPS} "
+          f"make_train_step B={TRAIN_B} S={TRAIN_S} no remat: ms {ms}, "
+          f"losses {losses}, params changed {changed}, peak {peak:.3f} GiB; "
+          f"K3 forward {n_fwd}, backward {n_bwd}, bf16 launches {n16}")
+    if not (all(np.isfinite(losses)) and changed and empty and n16 == 0
+            and n_fwd == want and _bwd_counts_ok(n_bwd, kernels, want)
+            and _attention_layers(cfg) == DS_FP32_LAYERS + 1):
+        raise AssertionError(f"deepseek-v3's fp32 training: K3 {n_fwd}, "
+                             f"{n_bwd}, bf16 {n16}, losses {losses}, "
+                             f"changed {changed}, MoE group empty {empty}")
+    return {"ms": ms, "losses": losses, "peak_gib": peak,
+            "weights_gib": gib, "params": n_params, "k3_forward": n_fwd,
+            "k3_backward": n_bwd}
 
 
 def run_dryrun_sweep(dev, out_dir) -> dict:
@@ -4427,22 +4554,23 @@ def k1_times(dev, shape, dtype) -> dict:
     return row
 
 
-def k1_report(dev, n1, n1_wide, floor) -> dict:
+def k1_report(dev, n1, n1_wide, floor, n1_c100) -> dict:
     """K1's row: the main path's shape in fp32 at the top level, and in
-    ``shapes`` that shape, smollm-135m's vocabulary and the M = 39 round's
-    shape, fp32 and bf16, each with the kernel's plan (the M = 39 entries
-    also with that round's launches)."""
+    ``shapes`` that shape, smollm-135m's vocabulary, the M = 39 round's
+    shape and the cifar100-cnn round's, fp32 and bf16, each with the
+    kernel's plan (the M = 39 and cifar100 entries also with their rounds'
+    launches)."""
     from repro_torch.kernels import em_posterior as k1
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = []
-    for shape in (EM_MAIN, EM_VOCAB, EM_WIDE):
+    for shape in (EM_MAIN, EM_VOCAB, EM_WIDE, EM_CIFAR100):
         for dtype in (torch.float32, torch.bfloat16):
             row = k1_times(dev, shape, dtype)
             # a fresh allocation is aligned as an address of 0 is
             row["plan"] = k1.plan(*shape, dtype, 0, sms,
                                   *k1.kernel_limits())._asdict()
-            if shape == EM_WIDE:
-                row["launches"] = n1_wide
+            if shape in (EM_WIDE, EM_CIFAR100):
+                row["launches"] = n1_wide if shape == EM_WIDE else n1_c100
             shapes.append(row)
     main = shapes[0]
     pi, logits, labels = _em_inputs(*EM_MAIN, torch.float32, dev)
@@ -5174,7 +5302,8 @@ def main() -> int:
     _phase("4. K2 weighted_agg vs plain")
     err2 = check_weighted_agg(dev)
 
-    _phase("5. pfedwn round: small run vs CPU, then the main path")
+    _phase("5. pfedwn round: small run vs CPU, then the main path, then "
+           "a cifar100-cnn round")
     check_small_run_against_cpu(dev)
     t0 = time.perf_counter()
     _, n1, n2, sim = run_main_path(dev)
@@ -5182,6 +5311,9 @@ def main() -> int:
           f"K1={n1} K2={n2}")
     if (sim.m, sim.sim.em_subset, sim.model_cfg.n_classes) != EM_MAIN:
         raise AssertionError("EM_MAIN is not the main path's K1 shape")
+    t0 = time.perf_counter()
+    n1_c100, n2_c100, p_c100 = run_cifar100_main_path(dev)
+    print(f"cifar100-cnn main path wall {time.perf_counter() - t0:.1f} s")
 
     _phase("5b. local and the four baselines at full width")
     t0 = time.perf_counter()
@@ -5369,7 +5501,8 @@ def main() -> int:
            "MLA head dims 128/64/128 (K3 at Dh 192) vs CPU, fp32 and bf16, "
            "and explicit-position training at Dh 48, 96, 112 and 192; then "
            f"n_layers {DS_LAYERS} at full width: bf16 serve, "
-           f"{DS_TRAIN_STEPS} bf16 steps, fp32 serve")
+           f"{DS_TRAIN_STEPS} bf16 steps, fp32 serve; then n_layers "
+           f"{DS_FP32_LAYERS}: {DS_TRAIN_STEPS} fp32 steps")
     t0 = time.perf_counter()
     ds_small = check_deepseek_full_heads_against_cpu(dev)
     print(f"7k card vs CPU wall {time.perf_counter() - t0:.1f} s")
@@ -5381,7 +5514,7 @@ def main() -> int:
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
     floor = floor_ms(dev)
     print(f"floor (1-element zero_, steady bracket): {floor:.6f} ms")
-    rows = [k1_report(dev, n1, n1_wide, floor),
+    rows = [k1_report(dev, n1, n1_wide, floor, n1_c100),
             agg_report(dev, sim, n2, err2, wide_sim, n2_wide, floor),
             attention_report(dev, ATTN_MAIN, n3, err3[ATTN_MAIN], floor,
                              "serve smollm-135m"),
@@ -5488,7 +5621,7 @@ def main() -> int:
                              positions=qwen_pos.contiguous())]
     rows[-1]["name"] = "flash_attention_bwd (bf16, positions)"
     # deepseek-v3's MLA at Dh 192 (phase 7k): K3's bf16 forward, bf16
-    # backward and fp32 forward at its full-width shapes
+    # backward, fp32 forward and fp32 backward at its full-width shapes
     rows += [
         attention_bf16_report(dev, ATTN_DS, ds_main["bf16"]["k3"],
                               err3[(ATTN_DS, "bf16")], floor,
@@ -5503,20 +5636,37 @@ def main() -> int:
         attention_report(dev, ATTN_DS, ds_main["fp32"]["k3"],
                          err3[ATTN_DS], floor,
                          f"serve deepseek-v3-671b (fp32, n_layers "
-                         f"{DS_LAYERS} of 61, MLA at Dh 192)")]
-    rows[-3]["design"] = (
+                         f"{DS_LAYERS} of 61, MLA at Dh 192)"),
+        attention_bwd_report(dev, BWD_DS,
+                             ds_main["train32"]["k3_backward"],
+                             err3_bwd[BWD_DS], floor,
+                             f"make_train_step deepseek-v3-671b (fp32, "
+                             f"n_layers {DS_FP32_LAYERS} of 61: the dense "
+                             f"prefix and the MTP block, MLA at Dh 192)",
+                             DS_TRAIN_STEPS)]
+    rows[-1]["design"] = (
+        "Dh 192: split-TF32 wgmma; the block's own K and V (dQ: Q and dO) "
+        "stay raw in shared memory (rows padded by 4 floats), each thread "
+        "loads and splits its register A fragment of S^T and dP^T (S, dP) "
+        "32 head-dim columns at a time (m64n16k8 over 4 k-steps, each part "
+        "summed in fresh registers); 16-query (16-key) steps split K-major "
+        "and transposed as at the other dims; both warpgroups take every "
+        "step and each sums and writes half of dK's and dV's (dQ's) 192 "
+        "columns (m64n48k8); 218 KB and 194 KB of shared memory, one block "
+        "a SM; D, no atomics")
+    rows[-4]["design"] = (
         "Dh 192: one bf16 wgmma a product, S = Q.K^T m64n64 from TMA-landed "
         "tiles (the 128-byte swizzle, three 64-column boxes a 384-byte "
         "row), P rounded to bf16 as the register A operand of O += P.V "
         "(m64n192k16), V read MN-major; two consumer warpgroups of 64 "
         "folded rows, a producer warp, 64-key tiles, 3 stages")
-    rows[-2]["design"] = (
+    rows[-3]["design"] = (
         "Dh 192: the bf16 backward's four kernels; in dK/dV both consumer "
         "warpgroups take every 64-query step, each computing S^T and dP^T "
         "and summing half of dK's and dV's 192 columns (m64n96k16 over "
         "three 32-column boxes of the 64-byte swizzle), 3 stages; dQ one "
         "m64n192k16 a k-step, 2 stages")
-    rows[-1]["design"] = (
+    rows[-2]["design"] = (
         "Dh 192: split-TF32 wgmma, one warpgroup of 64 rows, 16-key tiles "
         "(Q's big and small halves take 96 KB), S in three parts of the "
         "head dim each summed in fresh registers, P.V as three m64n64k8 "
@@ -5544,6 +5694,7 @@ def main() -> int:
                                 if dtype == torch.float32 else
                                 "flash_attention_bwd (bf16, positions)")
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
+    rows[1]["cifar100_round"] = {"launches": n2_c100, "P": p_c100}
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],
                                     "federated": fed["k3_forward"]}
     for row, j in ((rows[0], 0), (rows[1], 1)):   # phase 5f's main paths

@@ -7,10 +7,11 @@ from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
                                       PFLConfig, ShapeConfig, SSMConfig,
                                       TrainConfig, WirelessConfig,
                                       get_config, list_archs)
-from repro_torch.configs.paper_cnn import CNNConfig, cifar10_cnn, mnist_cnn
+from repro_torch.configs.paper_cnn import (CNNConfig, cifar10_cnn,
+                                           cifar100_cnn, mnist_cnn)
 from repro_torch.configs.shapes import SHAPES, get_shape
 
 __all__ = ["CNNConfig", "MLAConfig", "ModelConfig", "MoEConfig", "PFLConfig",
            "SHAPES", "SSMConfig", "ShapeConfig", "TrainConfig",
-           "WirelessConfig", "cifar10_cnn", "get_config", "get_shape",
-           "list_archs", "mnist_cnn"]
+           "WirelessConfig", "cifar10_cnn", "cifar100_cnn", "get_config",
+           "get_shape", "list_archs", "mnist_cnn"]

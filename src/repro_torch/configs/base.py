@@ -123,6 +123,10 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model <= 256, <= 4 heads and
         experts, vocab <= 512; the reference's ``reduced`` field by field."""

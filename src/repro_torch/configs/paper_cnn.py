@@ -23,3 +23,7 @@ def mnist_cnn() -> CNNConfig:
 
 def cifar10_cnn() -> CNNConfig:
     return CNNConfig(name="cifar10-cnn")
+
+
+def cifar100_cnn() -> CNNConfig:
+    return CNNConfig(name="cifar100-cnn", n_classes=100)

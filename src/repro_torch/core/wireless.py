@@ -37,7 +37,7 @@ def rayleigh_pdf(cfg: WirelessConfig, x: torch.Tensor) -> torch.Tensor:
     return 2 * x / g * torch.exp(-x * x / g)
 
 
-def _p_transmit(cfg: WirelessConfig) -> float:
+def p_transmit(cfg: WirelessConfig) -> float:
     """P(interferer transmits on the considered sub-channel):
     (1/|F|)(1 - (1 - e^{-β²/Γ})^{|F|})."""
     g, b, F = cfg.rayleigh_gamma, cfg.fading_threshold, cfg.n_subchannels
@@ -65,7 +65,7 @@ def interference_moments(cfg: WirelessConfig, interferer_dists: torch.Tensor
     padding entries (ignored)."""
     valid = (interferer_dists > 0).float()
     h_hat2 = path_loss_amplitude(cfg, interferer_dists) ** 2
-    P, p_tx = cfg.tx_power_w, _p_transmit(cfg)
+    P, p_tx = cfg.tx_power_w, p_transmit(cfg)
     # per-interferer first moment P ĥ² E[x²·α] and second moment P² ĥ⁴ m5 p_tx
     e1 = P * h_hat2 * _moment_x3(cfg) * p_tx * valid
     e2 = (P ** 2) * (h_hat2 ** 2) * _moment_x5(cfg) * p_tx * valid

@@ -39,6 +39,8 @@
 //       the partials in split order.
 //   (c) attn_bwd_dq_kernel: a block owns 64 query rows of one head and
 //       walks the key tiles its rows can see.
+//   (b'), (c') attn_bwd_dkdv_wide_kernel, attn_bwd_dq_wide_kernel: (b)
+//       and (c) at Dh 192, below.
 //
 // What bounds it on this card: operations. Each unmasked (query, key) pair
 // of each head costs five products of Dh multiply-adds (S, dP, dV, dK,
@@ -130,11 +132,25 @@
 //   them). For an arange these are the index band's tiles, and with the
 //   wrapper's plan (sized from the index bounds) the gradients are the
 //   index instantiations' bit for bit.
-// Left for later: computing S and dP once for both dK/dV and dQ, a deeper
-// cp.async ring (shared memory is full at Dh 64), folding D and the reduce
-// into the other kernels, and Dh 192 (deepseek-v3 at full width trains in
-// bf16, flash_attention_bwd_bf16.cu; in fp32 its split K and V alone take
-// 192 KB: ROADMAP Queue D).
+// - Dh 192 (deepseek-v3's MLA: qk_nope 128 + qk_rope 64, v padded) has
+//   kernels of its own, (b') and (c'): split, a block's K and V (or Q and
+//   dO) alone would take 4 x 48 KB = 192 KB of the 227 KB. So the block's
+//   own operand stays raw in shared memory (48 KB each, rows padded by 4
+//   floats so that rows 8 apart start 4 banks apart) and is the register
+//   A operand of S^T (S) and dP^T (dP): each thread loads its fragment of
+//   32 head-dim columns at a time, splits it in registers and issues
+//   m64n16k8 over those 4 k-steps, each 32-column part of S^T and dP^T
+//   summed in fresh registers (the fp32 forward at 192 drifted past its
+//   gate with one 72-product chain a tile). The steps are 16 queries
+//   (16 keys in dQ), split K-major and transposed as at the other dims (24
+//   KB each). The 64 x 192 dK and dV sums (192 registers a thread for one
+//   warpgroup) are shared out: both warpgroups take every step, each
+//   computes S^T and dP^T and sums half of dK's and dV's columns (dQ's
+//   likewise), and each writes its half. Shared memory: (b') 218 KB, (c')
+//   194 KB; 256 threads a block, one a SM.
+// Left for later: computing S and dP once for both dK/dV and dQ (and once
+// for both warpgroups at Dh 192), a deeper cp.async ring (shared memory is
+// full at Dh 64), folding D and the reduce into the other kernels.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -171,7 +187,55 @@ template <> struct Cfg<112> {
 template <> struct Cfg<128> {
   static constexpr int kWG = 1, kQ = 16, kK = 16, kN = 64;
 };
+// Dh 192's kernels (b') and (c'): kWG counts the groups that share out
+// the steps, 1 (both warpgroups take every step, each half the head dim)
+template <> struct Cfg<192> {
+  static constexpr int kWG = 1, kQ = 16, kK = 16, kN = 48;
+};
 constexpr int kSmemLimit = 232448;  // the opt-in shared memory of a block
+
+// (b') and (c'): the head dim, the threads a block, the columns of the
+// head dim each warpgroup sums, a raw row of the block's own operand
+// (padded: rows 8 apart start 4 banks apart, so a warp's A-fragment loads
+// meet no conflict) and the head-dim columns of one part of S^T (S) and
+// dP^T (dP), summed in fresh registers
+constexpr int kWideDH = 192;
+constexpr int kWideThreads = 2 * kWGThreads;
+constexpr int kWideHalf = kWideDH / 2;
+constexpr int kWideRow = kWideDH + 4;
+constexpr int kWidePart = 32;
+
+// (b')'s shared memory from a 128-aligned base: K and V raw, then the
+// step's Q, dO, Q^T and dO^T split, its raw Q and dO, two sets of lse and
+// D, then, with explicit positions, 4 bounds
+template <bool kPos>
+struct DkdvWideSmem {
+  static constexpr int kQT = Cfg<kWideDH>::kQ;
+  static constexpr uint32_t kRaw = kKeyTile * kWideRow * 4;  // K or V
+  static constexpr uint32_t kTh = kQT * kWideDH * 4;  // a step tile, a half
+  static constexpr uint32_t kK = 0, kV = kRaw, kQ = 2 * kRaw,
+                            kO = kQ + 2 * kTh, kQt = kO + 2 * kTh,
+                            kOt = kQt + 2 * kTh, kRawQ = kOt + 2 * kTh,
+                            kRawO = kRawQ + kTh, kStats = kRawO + kTh;
+  static constexpr uint32_t kPosAt = kStats + 2 * 2 * kQT * 4;
+  static constexpr uint32_t kBytes = kPosAt + (kPos ? 16 : 0) + 128;
+  static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
+};
+
+// (c')'s: Q and dO raw, then the step's K, V and K^T split and its raw K
+// and V, then, with explicit positions, 4 bounds
+template <bool kPos>
+struct DqWideSmem {
+  static constexpr int kKT = Cfg<kWideDH>::kK;
+  static constexpr uint32_t kRaw = kRowTile * kWideRow * 4;  // Q or dO
+  static constexpr uint32_t kTh = kKT * kWideDH * 4;
+  static constexpr uint32_t kQ = 0, kO = kRaw, kK = 2 * kRaw,
+                            kV = kK + 2 * kTh, kKt = kV + 2 * kTh,
+                            kRawK = kKt + 2 * kTh, kRawV = kRawK + kTh;
+  static constexpr uint32_t kPosAt = kRawV + kTh;
+  static constexpr uint32_t kBytes = kPosAt + (kPos ? 16 : 0) + 128;
+  static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
+};
 
 // (b)'s shared memory, in bytes from a 128-aligned base: K and V, then
 // each warpgroup's Q, Q^T, dO, dO^T, raw Q and dO and two sets of lse and
@@ -365,11 +429,12 @@ __device__ __forceinline__ void copy_rows(const float* src, int64_t batch_off,
 
 // acc += A . B over K/8 k-steps: A from registers (a[4j..4j+3] are the
 // accumulator fragment of a 64 x K product, so positions t, t+4 of k-step j
-// are its columns 8j + 2t, 8j + 2t + 1), B the transposed operand (DH rows,
-// big half at `bb`, small half at `bs`) for output columns N c.. of DH, N =
-// Cfg<DH>::kN. Split TF32, small terms first, in fresh registers, then one
-// fp32 add.
-template <int K, int DH>
+// are its columns 8j + 2t, 8j + 2t + 1), B the transposed operand (ROWS
+// rows, big half at `bb`, small half at `bs`) for DH output columns from
+// its row at `bb`, N = Cfg<DH>::kN at a time (ROWS = DH but at Dh 192,
+// where a warpgroup sums half the head dim: DH 96 of ROWS 192). Split
+// TF32, small terms first, in fresh registers, then one fp32 add.
+template <int K, int DH, int ROWS = DH>
 __device__ __forceinline__ void product_rs(float (&acc)[DH / 2],
                                            const uint32_t (&ab)[K / 2],
                                            const uint32_t (&as)[K / 2],
@@ -385,15 +450,15 @@ __device__ __forceinline__ void product_rs(float (&acc)[DH / 2],
 #pragma unroll
     for (int j = 0; j < K / 8; ++j)
       wgmma_rs<N>(t, as[4 * j], as[4 * j + 2], as[4 * j + 1], as[4 * j + 3],
-                  desc(bb + c * N * 32 + j * DH * 32));
+                  desc(bb + c * N * 32 + j * ROWS * 32));
 #pragma unroll
     for (int j = 0; j < K / 8; ++j)
       wgmma_rs<N>(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
-                  desc(bs + c * N * 32 + j * DH * 32));
+                  desc(bs + c * N * 32 + j * ROWS * 32));
 #pragma unroll
     for (int j = 0; j < K / 8; ++j)
       wgmma_rs<N>(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
-                  desc(bb + c * N * 32 + j * DH * 32));
+                  desc(bb + c * N * 32 + j * ROWS * 32));
     wgmma_commit_and_wait();
     fence_regs(t);
 #pragma unroll
@@ -438,13 +503,14 @@ __device__ __forceinline__ void gather(float (&a)[N], const float* buf,
 
 // (a)'s lanes a row: DH / 4 float4s, rounded up to a power of two (16 at
 // Dh 48 and 64, 32 at 96, 112 and 128) so that a row's lanes are one
-// shuffle tree within a warp; the lanes past DH / 4 add 0
+// shuffle tree within a warp; the lanes past DH / 4 add 0. At Dh 192 32
+// lanes, lane l also taking float4 l + 32.
 template <int DH>
 struct DotLanes {
   static constexpr int value = DH / 4 <= 16 ? 16 : 32;
 };
 
-// four elements a thread, summed in fp32
+// four elements a thread (eight for some lanes at Dh 192), summed in fp32
 template <int DH>
 __global__ void __launch_bounds__(kDotThreads)
 attn_bwd_dot_kernel(const float* __restrict__ dout,
@@ -457,11 +523,12 @@ attn_bwd_dot_kernel(const float* __restrict__ dout,
   const int lane = static_cast<int>(u % kLanes);
   const bool ok = row < static_cast<int64_t>(B) * Sq * H;
   float s = 0.f;
-  if (ok && lane < kVec) {
-    const int64_t e = (row * kVec + lane) * 4;
+#pragma unroll
+  for (int c = lane; ok && c < kVec; c += kLanes) {
+    const int64_t e = (row * kVec + c) * 4;
     const float4 a = load4(dout + e);
     const float4 o = load4(out + e);
-    s = fmaf(a.x, o.x, fmaf(a.y, o.y, fmaf(a.z, o.z, a.w * o.w)));
+    s += fmaf(a.x, o.x, fmaf(a.y, o.y, fmaf(a.z, o.z, a.w * o.w)));
   }
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off >>= 1)
@@ -905,6 +972,478 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- (b') and (c'): Dh 192
+
+// cp.async of 64 rows row0.. of head `head` of a (.., rows, heads, 192)
+// tensor into a raw tile of rows padded to kWideRow floats, by the block's
+// kWideThreads threads, in 16-byte chunks; rows past `rows` are zero-filled
+__device__ __forceinline__ void copy_padded(const float* src,
+                                            int64_t batch_off, int row0,
+                                            int rows, int heads, int head,
+                                            uint32_t dst, int tid) {
+  constexpr int kVec = kWideDH / 4;
+  constexpr int kPasses = 64 * kVec / kWideThreads;
+  static_assert(64 * kVec % kWideThreads == 0, "whole passes");
+#pragma unroll
+  for (int it = 0; it < kPasses; ++it) {
+    const int u = it * kWideThreads + tid;
+    const int r = u / kVec, c = (u % kVec) * 4;
+    const bool ok = row0 + r < rows;
+    const float* p =
+        ok ? src + ((batch_off + row0 + r) * heads + head) *
+                       static_cast<int64_t>(kWideDH) + c
+           : src;
+    cp_async16(dst + (r * kWideRow + c) * 4, p, ok ? 16 : 0);
+  }
+}
+
+// This thread's A fragment of k-step kk of a raw padded operand (`a` at
+// its row ra, column t4: element (ra, 8kk + t4), (ra + 8, ..), (ra, 8kk +
+// t4 + 4), (ra + 8, ..), a wgmma A fragment's order), split into big and
+// small TF32 parts
+__device__ __forceinline__ void wide_fragment(const float* a, int kk,
+                                              uint32_t* big,
+                                              uint32_t* small) {
+  const float x[4] = {a[8 * kk], a[8 * kWideRow + 8 * kk],
+                      a[8 * kk + 4], a[8 * kWideRow + 8 * kk + 4]};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    big[e] = tf32_int(x[e]);
+    small[e] = tf32_int(x[e] - __uint_as_float(big[e]));
+  }
+}
+
+// s (64 x 16) += A1 . B1^T and dp += A2 . B2^T over the 192-wide head dim:
+// A1, A2 the block's raw padded operands (this thread's fragment row at
+// a1, a2), split in registers as they are loaded; B1, B2 a step's 16 rows
+// split K-major (big halves at b1, b2, small ones `bh` bytes on). In parts
+// of kWidePart columns, both products of a part issued together and each
+// summed in fresh registers, small terms first.
+__device__ __forceinline__ void wide_scores(float (&s)[8], float (&dp)[8],
+                                            const float* a1, const float* a2,
+                                            uint32_t b1, uint32_t b2,
+                                            uint32_t bh) {
+  constexpr int kSteps = kWidePart / 8, kRowBytes = 16 * 32;
+#pragma unroll 1
+  for (int part = 0; part < kWideDH / kWidePart; ++part) {
+    uint32_t ab1[4 * kSteps], as1[4 * kSteps], ab2[4 * kSteps],
+        as2[4 * kSteps];
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      wide_fragment(a1, part * kSteps + j, ab1 + 4 * j, as1 + 4 * j);
+      wide_fragment(a2, part * kSteps + j, ab2 + 4 * j, as2 + 4 * j);
+    }
+    float t1[8], t2[8];
+#pragma unroll
+    for (int x = 0; x < 8; ++x) t1[x] = t2[x] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const uint32_t off = (part * kSteps + j) * kRowBytes;
+      wgmma_rs<16>(t1, as1[4 * j], as1[4 * j + 1], as1[4 * j + 2],
+                   as1[4 * j + 3], desc(b1 + off));
+      wgmma_rs<16>(t2, as2[4 * j], as2[4 * j + 1], as2[4 * j + 2],
+                   as2[4 * j + 3], desc(b2 + off));
+    }
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const uint32_t off = (part * kSteps + j) * kRowBytes;
+      wgmma_rs<16>(t1, ab1[4 * j], ab1[4 * j + 1], ab1[4 * j + 2],
+                   ab1[4 * j + 3], desc(b1 + bh + off));
+      wgmma_rs<16>(t2, ab2[4 * j], ab2[4 * j + 1], ab2[4 * j + 2],
+                   ab2[4 * j + 3], desc(b2 + bh + off));
+    }
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const uint32_t off = (part * kSteps + j) * kRowBytes;
+      wgmma_rs<16>(t1, ab1[4 * j], ab1[4 * j + 1], ab1[4 * j + 2],
+                   ab1[4 * j + 3], desc(b1 + off));
+      wgmma_rs<16>(t2, ab2[4 * j], ab2[4 * j + 1], ab2[4 * j + 2],
+                   ab2[4 * j + 3], desc(b2 + off));
+    }
+    wgmma_commit_and_wait();
+    fence_regs(t1);
+    fence_regs(t2);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      s[x] += t1[x];
+      dp[x] += t2[x];
+    }
+  }
+}
+
+template <bool kPos>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attn_bwd_dkdv_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ D, float* __restrict__ dk,
+                          float* __restrict__ dv,
+                          const int* __restrict__ q_pos,
+                          const int* __restrict__ kv_pos, int B, int Sq,
+                          int Skv, int H, int KH, int causal, int window,
+                          int splits, int64_t split_stride, float scale) {
+  using L = DkdvWideSmem<kPos>;
+  constexpr int DH = kWideDH, QT = L::kQT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 127u) & ~127u;
+  uint8_t* smem = smem_raw + (base - raw_base);
+
+  // block -> (key tile, batch, KV head, split), as (b)
+  int id = blockIdx.x;
+  const int c = id % splits;
+  id /= splits;
+  const int kh = id % KH;
+  id /= KH;
+  const int b = id % B, k0 = (id / B) * kKeyTile;
+  const int G = H / KH;
+  const int wg = threadIdx.x / kWGThreads, tid = threadIdx.x % kWGThreads;
+
+  // the (g, query tile) steps as (b); this block takes [s_lo, s_hi), both
+  // warpgroups every one of them
+  const int k_last = min(k0 + kKeyTile, Skv) - 1;
+  int qt0, nq;
+  if constexpr (kPos) {
+    int* bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+    if (threadIdx.x == 0) {
+      bounds[0] = bounds[2] = INT_MAX;
+      bounds[1] = bounds[3] = INT_MIN;
+    }
+    __syncthreads();
+    const int j = k0 + static_cast<int>(threadIdx.x);
+    const int kp = j <= k_last && threadIdx.x < kKeyTile ? kv_pos[j] : -1;
+    block_min(bounds, kp >= 0 ? kp : INT_MAX);
+    block_max(bounds + 1, kp);
+    __syncthreads();
+    const int kp_min = bounds[0], kp_max = bounds[1];
+    int first, last;
+    const bool any =
+        kp_min <= kp_max &&
+        index_range<kWideThreads>(
+            q_pos, Sq,
+            [=](int qp) {
+              return (!causal || kp_min <= qp) &&
+                     (window <= 0 || kp_max > qp - window);
+            },
+            bounds, first, last);
+    qt0 = any ? first / QT : 0;
+    nq = any ? last / QT + 1 - qt0 : 0;
+  } else {
+    const int q_begin = causal ? k0 : 0;
+    const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+    qt0 = q_begin / QT;
+    nq = q_end > q_begin ? (q_end + QT - 1) / QT - qt0 : 0;
+  }
+  const int64_t n = static_cast<int64_t>(G) * nq;
+  const int s_lo = static_cast<int>(n * c / splits);
+  const int steps = static_cast<int>(n * (c + 1) / splits) - s_lo;
+
+  const int64_t q_batch = static_cast<int64_t>(b) * Sq;
+  // the i-th step's raw Q (warpgroup 0) or dO (1), and its lse and D
+  auto issue = [&](int i) {
+    const int s = s_lo + i;
+    const int h = kh * G + s / nq, q0 = (qt0 + s % nq) * QT;
+    copy_rows<QT, DH>(wg ? dout : q, q_batch, q0, Sq, H, h,
+                      base + (wg ? L::kRawO : L::kRawQ), tid);
+    if (wg == 0 && tid < QT) {
+      const uint32_t st = base + L::kStats + (i & 1) * 2 * QT * 4 + tid * 4;
+      const bool ok = q0 + tid < Sq;
+      const int64_t off =
+          ok ? (static_cast<int64_t>(b) * H + h) * Sq + q0 + tid : 0;
+      cp_async4(st, lse + off, ok ? 4 : 0);
+      cp_async4(st + QT * 4, D + off, ok ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  if (steps > 0) issue(0);
+
+  // K and V: this block's keys, raw, rows padded; zeros past Skv
+  const int64_t kv_batch = static_cast<int64_t>(b) * Skv;
+  copy_padded(k, kv_batch, k0, Skv, KH, kh, base + L::kK, threadIdx.x);
+  copy_padded(v, kv_batch, k0, Skv, KH, kh, base + L::kV, threadIdx.x);
+  cp_async_commit();
+
+  // this thread's two key rows of the accumulators, its fragment rows of
+  // K and V, and the transposed tiles' rows of its half of the head dim
+  const int warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const int ra = warp * 16 + lane / 4;
+  const int keyA = k0 + ra, keyB = keyA + 8;
+  int kpA = -1, kpB = -1;
+  if constexpr (kPos) {
+    kpA = keyA < Skv ? kv_pos[keyA] : -1;
+    kpB = keyB < Skv ? kv_pos[keyB] : -1;
+  }
+  const float* ka =
+      reinterpret_cast<const float*>(smem + L::kK) + ra * kWideRow + t4;
+  const float* va =
+      reinterpret_cast<const float*>(smem + L::kV) + ra * kWideRow + t4;
+  const uint32_t half = wg * kWideHalf * 32;
+  float dk_acc[kWideHalf / 2], dv_acc[kWideHalf / 2];
+#pragma unroll
+  for (int x = 0; x < kWideHalf / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    const int s = s_lo + i;
+    cp_async_wait_all();
+    __syncthreads();  // step i's raw tiles (and K, V) are in; both groups'
+                      // step i-1 products are done
+    const float* raw =
+        reinterpret_cast<const float*>(smem + (wg ? L::kRawO : L::kRawQ));
+    to_kmajor<QT, DH>(raw, smem + (wg ? L::kO : L::kQ), L::kTh, tid);
+    to_transposed<QT, DH>(raw, smem + (wg ? L::kOt : L::kQt), L::kTh, tid);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();  // the split tiles are in; the raw buffers are free
+    if (i + 1 < steps) issue(i + 1);
+    const int q0 = (qt0 + s % nq) * QT;
+    const float* lse_s = reinterpret_cast<const float*>(
+        smem + L::kStats + (i & 1) * 2 * QT * 4);
+    const float* D_s = lse_s + QT;
+
+    // S^T = K.Q^T and dP^T = V.dO^T (64 keys x 16 queries)
+    float st[QT / 2], dpt[QT / 2];
+#pragma unroll
+    for (int x = 0; x < QT / 2; ++x) st[x] = dpt[x] = 0.f;
+    wide_scores(st, dpt, ka, va, base + L::kQ, base + L::kO, L::kTh);
+
+    // P^T on the fragments, split, as (b)
+    const bool all = !kPos && all_visible(q0, q0 + QT - 1, k0,
+                                          k0 + kKeyTile - 1, Sq, Skv, causal,
+                                          window);
+    uint32_t pb[QT / 2], ps[QT / 2];
+#pragma unroll
+    for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t4 + e, qi = q0 + col;
+        const float l = lse_s[col];
+        int qp = 0;
+        if constexpr (kPos) qp = qi < Sq ? q_pos[qi] : 0;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * j + 2 * r + e;
+          bool in;
+          if constexpr (kPos)
+            in = qi < Sq && sees(qp, r ? kpB : kpA, causal, window);
+          else
+            in = all || visible(qi, r ? keyB : keyA, Sq, Skv, causal, window);
+          const float p = in ? expf(st[x] * scale - l) : 0.f;
+          pb[x] = tf32_int(p);
+          ps[x] = tf32_int(p - __uint_as_float(pb[x]));
+        }
+      }
+    // this warpgroup's half: dV += P^T.dO, then dS^T = P^T (dP^T - D),
+    // split, and dK += dS^T.Q (scaled at the end)
+    product_rs<QT, kWideHalf, DH>(dv_acc, pb, ps, base + L::kOt + half,
+                                  base + L::kOt + L::kTh + half);
+#pragma unroll
+    for (int x = 0; x < QT / 2; ++x) {
+      const float d = D_s[8 * (x / 4) + 2 * t4 + (x & 1)];
+      const float g = (__uint_as_float(pb[x]) + __uint_as_float(ps[x])) *
+                      (dpt[x] - d);
+      pb[x] = tf32_int(g);
+      ps[x] = tf32_int(g - __uint_as_float(pb[x]));
+    }
+    product_rs<QT, kWideHalf, DH>(dk_acc, pb, ps, base + L::kQt + half,
+                                  base + L::kQt + L::kTh + half);
+  }
+  cp_async_wait_all();
+
+  // this warpgroup's half of dK, dV (or this split's partials)
+  float* dk_out = dk + c * split_stride;
+  float* dv_out = dv + c * split_stride;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r ? keyB : keyA;
+    if (key >= Skv) continue;
+    const int64_t off =
+        ((kv_batch + key) * KH + kh) * DH + wg * kWideHalf + 2 * t4;
+#pragma unroll
+    for (int x = 0; x < kWideHalf / 8; ++x) {
+      const int a = 4 * x + 2 * r;
+      store2(dk_out + off + 8 * x, dk_acc[a] * scale, dk_acc[a + 1] * scale);
+      store2(dv_out + off + 8 * x, dv_acc[a], dv_acc[a + 1]);
+    }
+  }
+}
+
+template <bool kPos>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attn_bwd_dq_wide_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ D, float* __restrict__ dq,
+                        const int* __restrict__ q_pos,
+                        const int* __restrict__ kv_pos, int B, int Sq,
+                        int Skv, int H, int KH, int causal, int window,
+                        float scale) {
+  using L = DqWideSmem<kPos>;
+  constexpr int DH = kWideDH, KT = L::kKT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 127u) & ~127u;
+  uint8_t* smem = smem_raw + (base - raw_base);
+
+  // block -> (query tile, batch, head), as (c)
+  int id = blockIdx.x;
+  const int h = id % H;
+  id /= H;
+  const int b = id % B;
+  const int n_qt = (Sq + kRowTile - 1) / kRowTile;
+  const int q0 = (n_qt - 1 - id / B) * kRowTile;
+  const int kh = h / (H / KH);
+  const int wg = threadIdx.x / kWGThreads, tid = threadIdx.x % kWGThreads;
+
+  // the key tiles that rows [q0, q_last] can see, both warpgroups every one
+  const int q_last = min(q0 + kRowTile, Sq) - 1;
+  int kt0, nk;
+  if constexpr (kPos) {
+    int* bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+    if (threadIdx.x == 0) {
+      bounds[0] = bounds[2] = INT_MAX;
+      bounds[1] = bounds[3] = INT_MIN;
+    }
+    __syncthreads();
+    const int i = q0 + static_cast<int>(threadIdx.x);
+    const bool mine = i <= q_last && threadIdx.x < kRowTile;
+    block_min(bounds, mine ? q_pos[i] : INT_MAX);
+    block_max(bounds + 1, mine ? q_pos[i] : INT_MIN);
+    __syncthreads();
+    const int qp_min = bounds[0], qp_max = bounds[1];
+    int first, last;
+    const bool any = index_range<kWideThreads>(
+        kv_pos, Skv,
+        [=](int kp) {
+          return kp >= 0 && (!causal || kp <= qp_max) &&
+                 (window <= 0 || kp > qp_min - window);
+        },
+        bounds, first, last);
+    kt0 = any ? first / KT : 0;
+    nk = any ? last / KT + 1 - kt0 : 0;
+  } else {
+    const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int k_end = causal ? min(Skv, q_last + 1) : Skv;
+    kt0 = k_begin / KT;
+    nk = k_end > k_begin ? (k_end + KT - 1) / KT - kt0 : 0;
+  }
+
+  const int64_t kv_batch = static_cast<int64_t>(b) * Skv;
+  auto issue = [&](int i) {  // the i-th step's raw K (group 0) or V (1)
+    const int key0 = (kt0 + i) * KT;
+    copy_rows<KT, DH>(wg ? v : k, kv_batch, key0, Skv, KH, kh,
+                      base + (wg ? L::kRawV : L::kRawK), tid);
+    cp_async_commit();
+  };
+  if (nk > 0) issue(0);
+
+  // Q and dO: this block's rows, raw, rows padded; zeros past Sq
+  const int64_t q_batch = static_cast<int64_t>(b) * Sq;
+  copy_padded(q, q_batch, q0, Sq, H, h, base + L::kQ, threadIdx.x);
+  copy_padded(dout, q_batch, q0, Sq, H, h, base + L::kO, threadIdx.x);
+  cp_async_commit();
+
+  // this thread's two query rows of the accumulators, their stats, and its
+  // fragment rows of Q and dO
+  const int warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const int ra = warp * 16 + lane / 4;
+  const int rowA = q0 + ra, rowB = rowA + 8;
+  const int64_t bh = (static_cast<int64_t>(b) * H + h) * Sq;
+  const float lseA = rowA < Sq ? lse[bh + rowA] : 0.f;
+  const float lseB = rowB < Sq ? lse[bh + rowB] : 0.f;
+  const float dA = rowA < Sq ? D[bh + rowA] : 0.f;
+  const float dB = rowB < Sq ? D[bh + rowB] : 0.f;
+  int qpA = 0, qpB = 0;
+  if constexpr (kPos) {
+    qpA = rowA < Sq ? q_pos[rowA] : 0;
+    qpB = rowB < Sq ? q_pos[rowB] : 0;
+  }
+  const float* qa =
+      reinterpret_cast<const float*>(smem + L::kQ) + ra * kWideRow + t4;
+  const float* oa =
+      reinterpret_cast<const float*>(smem + L::kO) + ra * kWideRow + t4;
+  const uint32_t half = wg * kWideHalf * 32;
+  float dq_acc[kWideHalf / 2];
+#pragma unroll
+  for (int x = 0; x < kWideHalf / 2; ++x) dq_acc[x] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // step i's raw K, V (and Q, dO) are in; both groups'
+                      // step i-1 products are done
+    if (wg == 0) {
+      const float* rk = reinterpret_cast<const float*>(smem + L::kRawK);
+      to_kmajor<KT, DH>(rk, smem + L::kK, L::kTh, tid);
+      to_transposed<KT, DH>(rk, smem + L::kKt, L::kTh, tid);
+    } else {
+      const float* rv = reinterpret_cast<const float*>(smem + L::kRawV);
+      to_kmajor<KT, DH>(rv, smem + L::kV, L::kTh, tid);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();  // the split tiles are in; the raw buffers are free
+    if (i + 1 < nk) issue(i + 1);
+    const int key0 = (kt0 + i) * KT;
+
+    // S = Q.K^T and dP = dO.V^T (64 rows x 16 keys)
+    float sc[KT / 2], dp[KT / 2];
+#pragma unroll
+    for (int x = 0; x < KT / 2; ++x) sc[x] = dp[x] = 0.f;
+    wide_scores(sc, dp, qa, oa, base + L::kK, base + L::kV, L::kTh);
+
+    // P, then dS, on the fragments, as (c)
+    const bool all = !kPos && all_visible(q0, q0 + kRowTile - 1, key0,
+                                          key0 + KT - 1, Sq, Skv, causal,
+                                          window);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + 2 * t4 + e;
+        int kp = -1;
+        if constexpr (kPos) kp = key < Skv ? kv_pos[key] : -1;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * j + 2 * r + e;
+          bool in;
+          if constexpr (kPos)
+            in = (r ? rowB : rowA) < Sq &&
+                 sees(r ? qpB : qpA, kp, causal, window);
+          else
+            in = all ||
+                 visible(r ? rowB : rowA, key, Sq, Skv, causal, window);
+          sc[x] = in ? expf(sc[x] * scale - (r ? lseB : lseA)) : 0.f;
+        }
+      }
+    uint32_t ab[KT / 2], as[KT / 2];
+#pragma unroll
+    for (int x = 0; x < KT / 2; ++x) {
+      const float g = sc[x] * (dp[x] - ((x & 2) ? dB : dA));
+      ab[x] = tf32_int(g);
+      as[x] = tf32_int(g - __uint_as_float(ab[x]));
+    }
+    // this warpgroup's half: dQ += dS.K (scaled at the end)
+    product_rs<KT, kWideHalf, DH>(dq_acc, ab, as, base + L::kKt + half,
+                                  base + L::kKt + L::kTh + half);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? rowB : rowA;
+    if (row >= Sq) continue;
+    float* dst =
+        dq + ((q_batch + row) * H + h) * DH + wg * kWideHalf + 2 * t4;
+#pragma unroll
+    for (int x = 0; x < kWideHalf / 8; ++x) {
+      const int a = 4 * x + 2 * r;
+      store2(dst + 8 * x, dq_acc[a] * scale, dq_acc[a + 1] * scale);
+    }
+  }
+}
+
 template <typename Kernel>
 int configure(Kernel kernel, int bytes, bool& done) {
   if (done) return 0;
@@ -922,8 +1461,20 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 int H, int KH, int causal, int window, int splits, float scale,
                 cudaStream_t st) {
   static bool done = false;
-  const int bytes = DkdvSmem<DH, kPos>::kBytes;
-  const int rc = configure(attn_bwd_dkdv_kernel<DH, kPos>, bytes, done);
+  constexpr bool wide = DH == kWideDH;  // (b') at Dh 192, else (b)
+  const auto kernel = [] {
+    if constexpr (DH == kWideDH) return attn_bwd_dkdv_wide_kernel<kPos>;
+    else return attn_bwd_dkdv_kernel<DH, kPos>;
+  }();
+  int bytes, threads;
+  if constexpr (wide) {
+    bytes = DkdvWideSmem<kPos>::kBytes;
+    threads = kWideThreads;
+  } else {
+    bytes = DkdvSmem<DH, kPos>::kBytes;
+    threads = Cfg<DH>::kWG * kWGThreads;
+  }
+  const int rc = configure(kernel, bytes, done);
   if (rc != 0) return rc;
   const int64_t blocks =
       static_cast<int64_t>((Skv + kKeyTile - 1) / kKeyTile) * B * KH * splits;
@@ -931,8 +1482,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   const int64_t stride =
       splits > 1 ? static_cast<int64_t>(B) * Skv * KH * DH : 0;
   const auto e = [](const void* p) { return static_cast<const float*>(p); };
-  attn_bwd_dkdv_kernel<DH, kPos><<<static_cast<unsigned>(blocks),
-                                   Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
+  kernel<<<static_cast<unsigned>(blocks), threads, bytes, st>>>(
       e(q), e(k), e(v), e(dout), lse, D, static_cast<float*>(dk),
       static_cast<float*>(dv), q_pos, kv_pos, B, Sq, Skv, H, KH, causal,
       window, splits, stride, scale);
@@ -945,15 +1495,26 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const int* kv_pos, int B, int Sq, int Skv, int H, int KH,
               int causal, int window, float scale, cudaStream_t st) {
   static bool done = false;
-  const int bytes = DqSmem<DH, kPos>::kBytes;
-  const int rc = configure(attn_bwd_dq_kernel<DH, kPos>, bytes, done);
+  constexpr bool wide = DH == kWideDH;  // (c') at Dh 192, else (c)
+  const auto kernel = [] {
+    if constexpr (DH == kWideDH) return attn_bwd_dq_wide_kernel<kPos>;
+    else return attn_bwd_dq_kernel<DH, kPos>;
+  }();
+  int bytes, threads;
+  if constexpr (wide) {
+    bytes = DqWideSmem<kPos>::kBytes;
+    threads = kWideThreads;
+  } else {
+    bytes = DqSmem<DH, kPos>::kBytes;
+    threads = Cfg<DH>::kWG * kWGThreads;
+  }
+  const int rc = configure(kernel, bytes, done);
   if (rc != 0) return rc;
   const int64_t blocks =
       static_cast<int64_t>((Sq + kRowTile - 1) / kRowTile) * B * H;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const auto e = [](const void* p) { return static_cast<const float*>(p); };
-  attn_bwd_dq_kernel<DH, kPos><<<static_cast<unsigned>(blocks),
-                                 Cfg<DH>::kWG * kWGThreads, bytes, st>>>(
+  kernel<<<static_cast<unsigned>(blocks), threads, bytes, st>>>(
       e(q), e(k), e(v), e(dout), lse, D, static_cast<float*>(dq), q_pos,
       kv_pos,
       B, Sq, Skv, H, KH, causal, window, scale);
@@ -999,6 +1560,7 @@ int at_head_dim(int Dh, F f) {
     case 96: return f(std::integral_constant<int, 96>{});
     case 112: return f(std::integral_constant<int, 112>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1015,15 +1577,16 @@ float scale_of(int Dh) {
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
 // success), or cudaErrorInvalidValue for a shape the kernels do not take
-// (Dh other than 48, 64, 96, 112 or 128, H % KH != 0, more than 2^31 - 1
-// blocks; Dh 192 waits for its own tiles, ROADMAP Queue D). Layouts as at
+// (Dh other than 48, 64, 96, 112, 128 or 192, H % KH != 0, more than
+// 2^31 - 1 blocks). Layouts as at
 // the top, every tensor fp32 and contiguous and, for q, k, v and dO,
 // 16-byte aligned (cp.async). Call (a), then (b), then (r) when splits >
 // 1, and (c); (b) and (c) read D.
 
 // The tiles, for the wrapper to check its copy of the schedule against:
-// (b)'s keys and query tile, (c)'s rows and key tile, and the warpgroups a
-// block, at head size Dh.
+// (b)'s keys and query tile, (c)'s rows and key tile, and the warpgroups
+// that share out a block's steps, at head size Dh ((b') and (c') at 192: 1,
+// its two warpgroups taking every step, each half the head dim).
 extern "C" int attn_bwd_tiles(int Dh, int* key_tile, int* query_tile,
                               int* rows, int* key_step, int* groups) {
   return at_head_dim(Dh, [&](auto dh) {

@@ -348,14 +348,31 @@ __device__ __forceinline__ void wgmma_rs_n56(float (&d)[28], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
-// D (64 x N) += A . B^T, A from registers, N 48, 56 or 64
+// D (64 x 16) += A . B^T, A from registers (4 tf32 a thread), B read
+// from shared memory by descriptor: the backward's S^T and S at head dim
+// 192, whose block operand stays raw and is split in registers
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D (64 x N) += A . B^T, A from registers, N 16, 48, 56 or 64
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t db) {
-  static_assert(N == 48 || N == 56 || N == 64,
-                "wgmma_rs takes N 48, 56 or 64");
-  if constexpr (N == 48) wgmma_rs_n48(d, a0, a1, a2, a3, db);
+  static_assert(N == 16 || N == 48 || N == 56 || N == 64,
+                "wgmma_rs takes N 16, 48, 56 or 64");
+  if constexpr (N == 16) wgmma_rs_n16(d, a0, a1, a2, a3, db);
+  else if constexpr (N == 48) wgmma_rs_n48(d, a0, a1, a2, a3, db);
   else if constexpr (N == 56) wgmma_rs_n56(d, a0, a1, a2, a3, db);
   else wgmma_rs_n64(d, a0, a1, a2, a3, db);
 }

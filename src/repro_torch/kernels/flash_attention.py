@@ -37,8 +37,8 @@ as the reference's ``chunked_attention`` recomputes each chunk under
 dtype's tiles (:func:`bwd_tiles`). The reference trains in its params'
 dtype (``launch/steps.py::make_train_step``, bf16 by default), so the
 backward takes fp32 at the head dims :data:`BWD_HEAD_DIMS` and bf16 at
-:data:`BWD_BF16_HEAD_DIMS` (which adds deepseek-v3's 192), explicit
-positions at each of them, reading bf16 dO
+:data:`BWD_BF16_HEAD_DIMS` (each every forward head dim, deepseek-v3's 192
+included), explicit positions at each of them, reading bf16 dO
 and returning bf16 gradients (every sum in fp32; P and dS rounded to bf16
 where they enter a product, as
 :func:`~repro_torch.kernels.ref.flash_attention_bwd_bf16_ref` writes out).
@@ -76,14 +76,11 @@ from repro_torch.roofline import counter
 # (minicpm3-4b) and 192 (deepseek-v3: qk_nope 128 + qk_rope 64), the dense
 # configs' 64 and 128, zamba2's shared block's 112
 FWD_HEAD_DIMS = (48, 64, 96, 112, 128, 192)
-# the fp32 backward's (192: ROADMAP Queue D, B1)
-BWD_HEAD_DIMS = (48, 64, 96, 112, 128)
-# the bf16 backward's: every forward head size
-BWD_BF16_HEAD_DIMS = (48, 64, 96, 112, 128, 192)
-# the head dims at which the backward takes explicit positions: every one
-# that either dtype's backward takes (the reference's loss_fn takes
-# positions for every arch)
-BWD_POSITION_HEAD_DIMS = (48, 64, 96, 112, 128, 192)
+# the fp32 and bf16 backwards' head sizes, and those at which they take
+# explicit positions (the reference's loss_fn takes positions for every
+# arch): every forward head size
+BWD_HEAD_DIMS = BWD_BF16_HEAD_DIMS = FWD_HEAD_DIMS
+BWD_POSITION_HEAD_DIMS = FWD_HEAD_DIMS
 ALIGN = 16                   # bytes; TMA and cp.async read 16-byte chunks
 launches = 0                 # forward kernel launches since the last reset
 position_launches = 0        # of those, launches with explicit positions
@@ -95,12 +92,13 @@ bf16_backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
 # the fp32 backward's tiles (csrc/flash_attention_bwd.cu, checked against
 # the library when it loads): keys a dK/dV block owns and the query tile of
 # its steps, by head size; query rows a dQ block owns and the key tile of
-# its steps; warpgroups a block, which share its steps
+# its steps; warpgroups a block, which share its steps (at Dh 192 both of
+# a block's warpgroups take every step, each half the head dim: 1)
 BWD_KEY_TILE = 64
-BWD_QUERY_TILE = {48: 32, 64: 32, 96: 16, 112: 16, 128: 16}
+BWD_QUERY_TILE = {48: 32, 64: 32, 96: 16, 112: 16, 128: 16, 192: 16}
 BWD_ROW_TILE = 64
-BWD_KEY_STEP = {48: 32, 64: 32, 96: 16, 112: 32, 128: 16}
-BWD_GROUPS = {48: 2, 64: 2, 96: 2, 112: 1, 128: 1}
+BWD_KEY_STEP = {48: 32, 64: 32, 96: 16, 112: 32, 128: 16, 192: 16}
+BWD_GROUPS = {48: 2, 64: 2, 96: 2, 112: 1, 128: 1, 192: 1}
 # the bf16 backward's (csrc/flash_attention_bwd_bf16.cu, checked likewise),
 # the same at every head size of BWD_BF16_HEAD_DIMS: 64 keys a dK/dV block
 # in steps of 64 queries; 128 folded (query, head) rows a dQ block (row =
@@ -556,9 +554,9 @@ class _FlashAttention(torch.autograd.Function):
 
 def _check_backward(Dh: int, dtype: torch.dtype, positions: bool) -> None:
     """Raise, before any launch, for a call that needs a gradient the
-    backward does not take: fp32 outside :data:`BWD_HEAD_DIMS` (Dh 192:
-    ROADMAP B1), bf16 outside :data:`BWD_BF16_HEAD_DIMS`, explicit
-    positions outside :data:`BWD_POSITION_HEAD_DIMS`."""
+    backward does not take: fp32 outside :data:`BWD_HEAD_DIMS`, bf16
+    outside :data:`BWD_BF16_HEAD_DIMS`, explicit positions outside
+    :data:`BWD_POSITION_HEAD_DIMS`."""
     hint = "call it without gradients to serve"
     if dtype == torch.bfloat16:
         if Dh not in BWD_BF16_HEAD_DIMS:
@@ -566,8 +564,7 @@ def _check_backward(Dh: int, dtype: torch.dtype, positions: bool) -> None:
                              f"takes bf16 at {BWD_BF16_HEAD_DIMS}; {hint}")
     elif Dh not in BWD_HEAD_DIMS:
         raise ValueError(f"head dim {Dh}: the flash_attention backward "
-                         f"takes fp32 at {BWD_HEAD_DIMS} (Dh 192 in bf16 "
-                         f"only: ROADMAP Queue D, B1); {hint}")
+                         f"takes fp32 at {BWD_HEAD_DIMS}; {hint}")
     if positions and Dh not in BWD_POSITION_HEAD_DIMS:
         raise ValueError(f"head dim {Dh}: the flash_attention backward "
                          f"takes explicit positions at "

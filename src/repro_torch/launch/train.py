@@ -79,13 +79,20 @@ def value_and_grad(params: Params, cfg: ModelConfig, batch: Dict, *,
     stack's ``unbind`` autograd holds every layer's gradient to the end of
     the backward and then stacks them into a second copy (16 GiB more for
     falcon-mamba-7b's stacked in_proj, past 80 GB at full width). The
-    values are the same."""
+    values are the same. A leaf the loss does not reach (an empty layer
+    group's ``(0, ...)`` leaves: a MoE config with ``n_layers ==
+    first_k_dense``) gets zeros of its shape and dtype, as
+    ``jax.value_and_grad`` gives them."""
     leaves, spec = tree_flatten(_layered(params) if by_layer else params)
     leaves = [x.detach().requires_grad_() for x in leaves]
     loss, metrics = loss_fn(tree_unflatten(leaves, spec), cfg, batch,
                             window=window, remat=remat)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), metrics, tree_unflatten(list(grads), spec)
+
+
+_SGD_CHUNK = 1 << 27          # elements of one slice of an SGD update
 
 
 @torch.no_grad()
@@ -95,13 +102,21 @@ def _sgd_in_param_dtype_(params: Params, grads: Params, lr: float) -> None:
     param's dtype, g cast to it, their product rounded, then subtracted
     and rounded. In fp32 these are the bits of ``optim.sgd_update`` (the
     reference's ``optim/sgd.py``: lr·g in fp32, subtracted, rounded once);
-    in bf16 lr 3e-3 rounds to 0.0029907 and the two rules part."""
+    in bf16 lr 3e-3 rounds to 0.0029907 and the two rules part. A leaf of
+    more than ``_SGD_CHUNK`` elements is updated in slices along its first
+    axis, the same bits (the rule is elementwise) with a bounded lr·g
+    temporary: deepseek-v3's expert leaves are 7 GiB in bf16, and a 7 GiB
+    temporary beside 58 GiB of weights and gradients need not find room."""
     lrs: Dict[tuple, torch.Tensor] = {}
     for p, g in zip(tree_flatten(params)[0], tree_flatten(grads)[0]):
         key = (p.dtype, p.device)
         if key not in lrs:
             lrs[key] = torch.tensor(lr, dtype=p.dtype, device=p.device)
-        p.sub_(lrs[key] * g.to(p.dtype))
+        rows = (max(1, _SGD_CHUNK * p.shape[0] // p.numel())
+                if p.dim() and p.numel() > _SGD_CHUNK else None)
+        for pc, gc in (zip(p.split(rows), g.split(rows)) if rows
+                       else ((p, g),)):
+            pc.sub_(lrs[key] * gc.to(p.dtype))
 
 
 def single_client(cfg: ModelConfig, *, steps: int, batch: int, seq: int,

@@ -20,16 +20,18 @@ import torch.nn.functional as F
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """N(0, 1/in_dim) of shape (in_dim, out_dim), drawn in fp32."""
+    """N(0, 1/in_dim) of shape (in_dim, out_dim), drawn in fp32 and
+    scaled in place (the same bits as a scaled copy, without the copy)."""
     w = torch.randn((in_dim, out_dim), generator=gen, device=device)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, device,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """N(0, 0.02²) of shape (vocab, d_model), drawn in fp32."""
+    """N(0, 0.02²) of shape (vocab, d_model), drawn in fp32, scaled in
+    place."""
     w = torch.randn((vocab, d_model), generator=gen, device=device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 def rmsnorm_init(dim: int, device,

@@ -132,15 +132,22 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, device,
 
 def _stacked_init(n: int, init) -> Params:
     """``n`` layers of ``init()``, drawn in order and stacked over a leading
-    axis. Each layer is copied into the stack as it is drawn, so at most
-    one layer is held beside the stack (a 7B model's fp32 weights fit a
-    card once, not twice; starcoder2-15b's bf16 ones likewise)."""
-    first = init()
-    stack = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    axis. One layer is the stack itself, a view with the leading axis and
+    no copy; more are each copied into the stack as drawn and released
+    before the next draw, so at most one layer is held beside the stack (a
+    7B model's fp32 weights fit a card once, not twice; starcoder2-15b's
+    bf16 ones likewise; deepseek-v3's 43 GiB MoE layer in fp32 likewise).
+    An empty group draws one layer for its shapes, as the stack of n > 0
+    does."""
+    layer = init()
+    if n == 1:
+        return _map(lambda t: t.unsqueeze(0), layer)
+    stack = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), layer)
     for i in range(n):
-        layer = first if i == 0 else init()
+        if i:
+            layer = init()
         _map(lambda dst, src: dst[i].copy_(src), stack, layer)
-        first = None
+        layer = None
     return stack
 
 

@@ -33,13 +33,15 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, device,
     """Router (D, E) N(0, 1/D), fp32 whatever ``dtype`` is, as the
     reference's; ``w_gate``, ``w_up`` (E, D, F) N(0, 1/D); ``w_down`` (E,
     F, D) N(0, 1/F); ``shared`` an MLP of width F · n_shared when the
-    config has shared experts; drawn in fp32, then cast to ``dtype``."""
+    config has shared experts; drawn in fp32 and scaled in place (an
+    expert leaf is 14 GiB in fp32 at deepseek-v3's width), then cast to
+    ``dtype``."""
     m = cfg.moe
     e, d, f = m.n_experts, cfg.d_model, m.expert_d_ff
 
     def normal(shape, fan_in):
         w = torch.randn(shape, generator=gen, device=device)
-        return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+        return w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
 
     p = {"router": dense_init(gen, d, e, device),
          "w_gate": normal((e, d, f), d),

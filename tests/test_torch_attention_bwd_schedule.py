@@ -40,15 +40,16 @@ EXTRA = [
     (1, 33, 47, 4, 4, 128, True, 17),
 ]
 SHAPES = chip_smoke.BWD_SHAPES + EXTRA
-# the bf16 backward's: its sweep and the edge shapes at its head dims, and
-# at Dh 192, whose dK/dV warpgroups take every step together: a split plan
-# (8 splits), a window across tiles, folded rows off the tiles
+# the bf16 backward's: its sweep and the edge shapes at its head dims; and
+# in both dtypes Dh 192, whose dK/dV warpgroups take every step together:
+# a split plan (8 splits in bf16, 32 in fp32), a window across tiles,
+# folded rows (bf16) and rows and keys (fp32) off the tiles
 DS_SHAPES = [(1, 256, 256, 2, 1, 192, True, 0),
              (1, 130, 130, 6, 2, 192, True, 70),
              (2, 42, 43, 3, 1, 192, True, 0)]
 BF16_SHAPES = chip_smoke.BWD_BF16_SHAPES + [
     s for s in EXTRA if s[5] in k3.BWD_BF16_HEAD_DIMS] + DS_SHAPES
-CASES = ([(torch.float32, s) for s in SHAPES]
+CASES = ([(torch.float32, s) for s in SHAPES + DS_SHAPES]
          + [(torch.bfloat16, s) for s in BF16_SHAPES])
 SMS = (132, 1, 16, 1000)
 
@@ -184,13 +185,14 @@ def test_dq_blocks_cover_every_visible_tile_once(dtype, shape):
 
 
 # (shape, fp32's (splits, dK/dV blocks, most steps a block), bf16's): the
-# fp32 tiles' 32-query steps at Dh 64 and 16-query ones at 128, bf16's
-# 64-query steps
+# fp32 tiles' 32-query steps at Dh 64 and 16-query ones at 128 and 192,
+# bf16's 64-query steps
 FILL = [(chip_smoke.BWD_MAIN, (2, 192, 12), (2, 192, 6)),
         (chip_smoke.BWD_FED, (6, 144, 2), (3, 72, 2)),
         ((8, 1024, 1024, 9, 3, 64, True, 0), (1, 384, 96), (1, 384, 48)),
         (chip_smoke.BWD_CHATGLM, (3, 192, 86), (3, 192, 22)),
-        (chip_smoke.BWD_TRAIN_4K, (1, 256, 4096), (1, 256, 1024))]
+        (chip_smoke.BWD_TRAIN_4K, (1, 256, 4096), (1, 256, 1024)),
+        (chip_smoke.BWD_DS, (1, 4096, 16), (1, 4096, 4))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -203,7 +205,9 @@ def test_training_and_federated_shapes_fill_the_card(dtype):
     bf16 (64-query steps): 192 blocks of at most 6 there, 72 of at most 2
     at the federated shape; chatglm3-6b's training shape (B 8, S 256, G 16,
     Dh 128) has 64 blocks of 64 keys, split 3 ways; train_4k's (B 2, S
-    4096) 256 blocks and no split. The serving shape has 384 blocks and no
+    4096) 256 blocks and no split; deepseek-v3's (B 8, S 256, 128 heads
+    of Dh 192) 4096 blocks and no split in both dtypes, the busiest walking
+    16 steps of 16 queries in fp32. The serving shape has 384 blocks and no
     split; the dQ grids start with the last query tiles (the most keys
     under the causal mask)."""
     for shape, *want in FILL:
@@ -232,11 +236,13 @@ def test_training_and_federated_shapes_fill_the_card(dtype):
 
 
 def test_dh192_dkdv_warpgroups_share_every_step():
-    """At Dh 192 the bf16 dK/dV kernel's two warpgroups each sum half the
-    head dim and take every step together, so the plan's cap counts one
-    step a split, not one a warpgroup: 4 key tiles of one (batch, KV head)
-    with 8 steps each split 8 ways on 132 SMs, where the alternate-step
-    dims (2 groups) split 4 ways; the tiles are otherwise the other dims'."""
+    """At Dh 192 the dK/dV kernels' two warpgroups (bf16's and fp32's)
+    each sum half the head dim and take every step together, so the plan's
+    cap counts one step a split, not one a warpgroup: in bf16 4 key tiles
+    of one (batch, KV head) with 8 steps each split 8 ways on 132 SMs,
+    where the alternate-step dims (2 groups) split 4 ways; the tiles are
+    otherwise the other dims'. In fp32 the tiles are Dh 128's (one group,
+    16-query steps), and the 32 steps of key tile 0 split 32 ways."""
     shape = (1, 256, 256, 2, 1, 192, True, 0)
     tiles = k3.bwd_tiles(192, torch.bfloat16)
     assert tiles.groups == 1
@@ -244,7 +250,10 @@ def test_dh192_dkdv_warpgroups_share_every_step():
     assert k3.backward_plan(*shape, 132, torch.bfloat16)["splits"] == 8
     assert k3.backward_plan(*shape[:5], 128, *shape[6:], 132,
                             torch.bfloat16)["splits"] == 4
-    assert 192 not in k3.BWD_HEAD_DIMS
+    assert 192 in k3.BWD_HEAD_DIMS
+    assert k3.bwd_tiles(192) == k3.bwd_tiles(128)
+    assert k3.bwd_tiles(192).groups == 1
+    assert k3.backward_plan(*shape, 132)["splits"] == 32
 
 
 def test_bf16_and_fp32_plans_are_keyed_apart():
@@ -281,7 +290,7 @@ def test_bf16_and_fp32_plans_are_keyed_apart():
 # the forward's (rows a block, keys a tile) by head dim
 # (csrc/flash_attention.cu, Cfg)
 FWD_TILES = {48: (128, 64), 64: (128, 64), 96: (128, 32), 112: (128, 32),
-             128: (64, 32)}
+             128: (64, 32), 192: (64, 16)}
 POSITION_SHAPES = EXTRA + [chip_smoke.BWD_MAIN, chip_smoke.BWD_FED,
                            (2, 200, 200, 9, 3, 64, True, 0),
                            (1, 77, 50, 16, 1, 64, False, 20),
@@ -437,7 +446,7 @@ def test_position_dq_and_forward_blocks_cover_every_visible_tile(shape,
 
 @pytest.mark.parametrize("shape", POSITION_SHAPES + [
     (1, 300, 300, 6, 2, 112, True, 0), (2, 129, 97, 40, 40, 96, True, 16),
-    (1, 77, 50, 16, 1, 48, False, 20)])
+    (1, 77, 50, 16, 1, 48, False, 20), (1, 130, 130, 6, 2, 192, True, 70)])
 def test_arange_positions_walk_the_index_tiles(shape):
     """For an arange the position rules give every block the index band's
     tiles, in the same order: the position instantiations then sum the

@@ -276,17 +276,15 @@ def test_plain_bf16_backward_is_float64_of_the_bf16_values():
 
 
 def test_bf16_gradient_raises_before_any_launch_where_the_card_has_none():
-    """The bf16 backward takes the fp32 one's five head dims and
-    deepseek-v3's 192, explicit positions at each of them in both dtypes;
-    an fp32 gradient at Dh 192 (ROADMAP B1) and either dtype at a head dim
-    the forward has no kernel for raise in the forward, before any
-    launch."""
-    assert k3.BWD_HEAD_DIMS == (48, 64, 96, 112, 128)
-    assert k3.BWD_BF16_HEAD_DIMS == k3.BWD_HEAD_DIMS + (192,)
+    """The bf16 and fp32 backwards take the same six head dims,
+    deepseek-v3's 192 among them, explicit positions at each of them in
+    both dtypes; either dtype at a head dim the forward has no kernel for
+    raises in the forward, before any launch."""
+    assert k3.BWD_HEAD_DIMS == (48, 64, 96, 112, 128, 192)
+    assert k3.BWD_BF16_HEAD_DIMS == k3.BWD_HEAD_DIMS
     assert k3.BWD_POSITION_HEAD_DIMS == k3.BWD_BF16_HEAD_DIMS
     for positions in (False, True):
-        with pytest.raises(ValueError, match="B1"):
-            k3._check_backward(192, torch.float32, positions)
+        k3._check_backward(192, torch.float32, positions)
         for dtype in (torch.float32, torch.bfloat16):
             with pytest.raises(ValueError, match="head dim"):
                 k3._check_backward(80, dtype, positions)

@@ -14,8 +14,8 @@ within ``max(2e-2, g)``, gradients and the update Δ in relative norm within
 ``max(2e-2, 2g)``, g the reference's own bf16-vs-fp32 gap. Then K3's plain
 backward at Dh 192 and with explicit positions at 48, 96, 112 and 192
 against ``jax.vjp`` of the reference's ``chunked_attention``, and
-``_check_backward``'s split by dtype: bf16 trains at 192, fp32 raises there
-(ROADMAP B1), positions train at every head dim."""
+``_check_backward``: both dtypes train at 192, with positions or without,
+and a head dim no kernel takes still raises in each dtype."""
 import dataclasses
 
 import jax
@@ -92,7 +92,7 @@ def _batch(cfg, S, positions, seed=6):
 def test_config_keeps_the_published_mla_head_dims():
     """Both packages' configs agree field by field, and K3's head dim is
     deepseek-v3's full-width 192 (qk_nope 128 + qk_rope 64; v 128 padded
-    to it), which the card's forward and bf16 backward take."""
+    to it), which the card's forward and both dtypes' backwards take."""
     jcfg, tcfg = _cfg(jconfigs), _cfg(tconfigs)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     full = tconfigs.get_config(ARCH).mla
@@ -102,7 +102,7 @@ def test_config_keeps_the_published_mla_head_dims():
     dh = tcfg.mla.qk_nope_head_dim + tcfg.mla.qk_rope_head_dim
     assert dh == 192
     assert dh in k3.FWD_HEAD_DIMS and dh in k3.BWD_BF16_HEAD_DIMS
-    assert dh not in k3.BWD_HEAD_DIMS
+    assert dh in k3.BWD_HEAD_DIMS
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -318,13 +318,16 @@ def test_plain_backward_matches_reference(shape, causal, window, positions,
 
 def test_check_backward_splits_the_dtypes():
     """``_check_backward``, which the autograd forward runs on a CUDA
-    tensor before any launch: bf16 takes Dh 192 with positions or
-    without; fp32 raises there naming ROADMAP B1; explicit positions pass
-    at every head dim of 48-128 in both dtypes."""
+    tensor before any launch: fp32 and bf16 take Dh 192 with positions or
+    without; a head dim neither backward takes (80) raises in each dtype,
+    naming that dtype's head dims; explicit positions pass at every head
+    dim of 48-128 in both dtypes."""
     for positions in (False, True):
-        k3._check_backward(192, torch.bfloat16, positions)
-        with pytest.raises(ValueError, match="B1"):
-            k3._check_backward(192, torch.float32, positions)
+        for dtype in (torch.float32, torch.bfloat16):
+            k3._check_backward(192, dtype, positions)
+            with pytest.raises(ValueError, match=(
+                    "fp32" if dtype == torch.float32 else "bf16")):
+                k3._check_backward(80, dtype, positions)
     for dh in (48, 64, 96, 112, 128):
         for dtype in (torch.float32, torch.bfloat16):
             k3._check_backward(dh, dtype, True)

@@ -34,7 +34,7 @@ CASES = [
     (1, 20, 45, 2, 1, 128, True, 0, 16),      # keys past the queries
     (1, 70, 70, 3, 1, 64, True, 20, 32),      # window across chunks
     # MLA's head dims (48 at reduced(), minicpm3-4b's 96), zamba2-7b's 112
-    # and deepseek-v3's 192 (qk_nope 128 + qk_rope 64; the card refuses it)
+    # and deepseek-v3's 192 (qk_nope 128 + qk_rope 64; its own card kernels)
     (2, 40, 40, 4, 2, 48, True, 0, 512),      # G 2, Dh 48
     (1, 50, 30, 4, 1, 48, False, 12, 16),     # G 4, rows 41.. masked
     (1, 37, 45, 3, 1, 96, True, 16, 16),      # G 3, ragged, window

@@ -3,7 +3,7 @@ at the reference's sweep shapes, the pFedWN round's shapes and the LM
 prefill's (granite-moe's H 24 over KH 8 among them), K3 also at MLA's head
 dims (48, 96, deepseek-v3's 192) and zamba2's (112), K3's backward against
 its plain version in float64 (fp32, and bf16 through its own kernels,
-beside the plain version of their bf16 arithmetic; Dh 192 in bf16 only),
+beside the plain version of their bf16 arithmetic; Dh 192 in both),
 K3 with explicit positions (forward and backward at every head dim, and
 the arange bitwise the index path); every federated method, the serving path
 (GQA, MLA, MoE with and without capacity drops, Mamba1 and Mamba2 with
@@ -422,10 +422,11 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, B, Sq, Skv, H, KH,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Dh", [48, 96, 112])
+@pytest.mark.parametrize("Dh", [48, 96, 112, 192])
 def test_flash_attention_gradient_at_mla_and_zamba2_dims_on_card(cuda, Dh):
-    """MLA's head dims (48 at reduced(), minicpm3-4b's 96) and zamba2's
-    112 train: the forward and each backward kernel of the plan launch
+    """MLA's head dims (48 at reduced(), minicpm3-4b's 96, deepseek-v3's
+    192) and zamba2's 112 train: the forward and each backward kernel of
+    the plan launch
     once, the gradients match the float64 plain backward, and the training
     forward's output is the serving one's bit for bit."""
     shape = (2, 70, 70, 4, 2, Dh, True, 0)
@@ -449,25 +450,65 @@ def test_flash_attention_gradient_at_mla_and_zamba2_dims_on_card(cuda, Dh):
 
 @pytest.mark.gpu
 def test_flash_attention_refuses_a_gradient_at_dh192_on_card(cuda):
-    """deepseek-v3's full-width MLA dim 192 in fp32 (ROADMAP B1: the fp32
-    backward has no kernel there; bf16 trains): a call that needs a
-    gradient raises before any launch, with positions or without; without
-    a gradient it serves."""
-    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
-               for a in _attn_inputs(1, 64, 64, 2, 2, 192))
+    """deepseek-v3's full-width MLA dim 192 in fp32 no longer refuses a
+    gradient: with positions or without, one forward and each fp32
+    backward kernel of the plan once, no bf16 kernel; a head dim no kernel
+    takes (80) still raises before any launch, with positions or without."""
     pos = torch.arange(64, device=cuda)
-    n, bwd = k3.launches, dict(k3.backward_launches)
     for positions in ({}, dict(q_positions=pos, kv_positions=pos)):
-        with pytest.raises(ValueError, match="B1"):
+        q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
+                   for a in _attn_inputs(1, 64, 64, 2, 2, 192))
+        n, bwd = k3.launches, dict(k3.backward_launches)
+        bf16 = (k3.bf16_launches, dict(k3.bf16_backward_launches))
+        k3.flash_attention(q, k, v, **positions).sum().backward()
+        torch.cuda.synchronize()
+        kernels = _bwd_kernels(cuda, 1, 64, 64, 2, 2, 192, True, 0)
+        assert k3.launches == n + 1
+        assert k3.backward_launches == {name: c + (name in kernels)
+                                        for name, c in bwd.items()}
+        assert (k3.bf16_launches, k3.bf16_backward_launches) == bf16
+        assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+        q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
+                   for a in _attn_inputs(1, 64, 64, 2, 2, 80))
+        n, bwd = k3.launches, dict(k3.backward_launches)
+        with pytest.raises(ValueError, match="head dim 80"):
             k3.flash_attention(q, k, v, **positions)
+        torch.cuda.synchronize()
+        assert (k3.launches, k3.backward_launches) == (n, bwd)
+
+
+@pytest.mark.gpu
+def test_init_params_draws_a_one_layer_group_without_a_copy_on_card(cuda):
+    """``init_params`` in fp32 on the card for a MoE config whose
+    ``layers`` group has one layer (reduced deepseek-v3 widened to 64
+    experts of 1024 x 1024, 256 MiB an expert leaf): the group is a view
+    of the drawn layer and each leaf is scaled in place, so the peak is the
+    weights and no more than 32 MiB beside them (a second copy of the
+    group, or of one leaf, would add 768 or 256 MiB)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config("deepseek-v3-671b").reduced()
+    cfg = dataclasses.replace(cfg, d_model=1024, moe=dataclasses.replace(
+        cfg.moe, n_experts=64, expert_d_ff=1024))
+    assert cfg.n_layers - cfg.moe.first_k_dense == 1
     torch.cuda.synchronize()
-    assert (k3.launches, k3.backward_launches) == (n, bwd)
-    with torch.no_grad():
-        k3.flash_attention(q, k, v)
-    assert k3.launches == n + 1
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda, torch.float32)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated(cuda) - base
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    moe = params["layers"]["moe"]
+    assert moe["w_gate"].shape == (1, 64, 1024, 1024)
+    assert all(t._base is not None for t in moe.values()
+               if torch.is_tensor(t))
+    assert peak <= weights + 32 * 2**20, (peak, weights)
 
 
-# the position backward at MLA's 48 and 96, zamba2's 112 and, in bf16,
+# the position backward at MLA's 48 and 96, zamba2's 112 and
 # deepseek-v3's 192: M-RoPE's tied pattern, a -1 tail, a window, rows that
 # see no key, unsorted positions, over rows and keys off the tiles
 POS_BWD_PATTERNS = ["mrope", "pad", "window", "masked_rows", "unsorted"]
@@ -475,14 +516,14 @@ POS_BWD_PATTERNS = ["mrope", "pad", "window", "masked_rows", "unsorted"]
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("Dh,dtype", [(48, "float32"), (96, "float32"),
-                                      (112, "float32"), (48, "bfloat16"),
-                                      (96, "bfloat16"), (112, "bfloat16"),
-                                      (192, "bfloat16")])
+                                      (112, "float32"), (192, "float32"),
+                                      (48, "bfloat16"), (96, "bfloat16"),
+                                      (112, "bfloat16"), (192, "bfloat16")])
 @pytest.mark.parametrize("name", POS_BWD_PATTERNS)
 def test_flash_attention_positions_backward_at_mla_and_zamba2_dims_on_card(
         cuda, Dh, dtype, name):
-    """The backward's position instantiations at Dh 48, 96 and 112 in both
-    dtypes and 192 in bf16, through the autograd path: fp32 within
+    """The backward's position instantiations at Dh 48, 96, 112 and 192
+    in both dtypes, through the autograd path: fp32 within
     ``BWD_TOL`` (atol and rtol) of the float64 plain backward; bf16 within
     2e-2 of the float64 backward of the same bf16 values and each max
     error within twice the plain bf16 version's + 1e-4
@@ -579,6 +620,16 @@ BWD_SHAPES = ATTN_SHAPES + EDGE_SHAPES + [
     (1, 47, 33, 3, 1, 112, True, 0),
     (8, 256, 256, 40, 40, 96, True, 0),
     (8, 256, 256, 32, 32, 112, True, 0),
+    # deepseek-v3's 192 (its own dK/dV and dQ kernels): G 1 to 9, a split
+    # plan (32 splits), a window across tiles, fully masked rows, keys off
+    # the 64-key tile and the 16-key step, queries off the 16-query step
+    (2, 70, 70, 4, 4, 192, True, 0),
+    (1, 256, 256, 2, 1, 192, True, 0),
+    (1, 130, 130, 6, 2, 192, True, 70),
+    (2, 200, 200, 9, 3, 192, True, 0),
+    (1, 77, 50, 16, 1, 192, False, 20),
+    (2, 42, 43, 3, 1, 192, True, 0),
+    (1, 17, 300, 4, 1, 192, True, 0),
 ]
 # |d| <= tol + tol·|ref| against the float64 plain backward: fp32 sums of
 # at most a few thousand terms, from an LSE the split-TF32 forward gives to

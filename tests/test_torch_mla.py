@@ -323,15 +323,16 @@ def test_windowed_prompt_longer_than_the_ring_raises():
 
 
 def test_mla_gradient_at_the_kernel_refuses_up_front():
-    """K3's fp32 backward takes Dh 48, 64, 96, 112 and 128 (192 only in
-    bf16): on a card, an fp32 call at deepseek-v3's full-width MLA dim 192
-    (qk_nope 128 + qk_rope 64) that needs a gradient raises in the
-    autograd forward, before any launch (the check the forward runs on a
-    CUDA tensor). The CPU route,
+    """K3's fp32 backward takes Dh 48, 64, 96, 112, 128 and deepseek-v3's
+    full-width MLA dim 192 (qk_nope 128 + qk_rope 64), as the bf16 one
+    does; on a card, a call at a head dim neither takes (80) that needs a
+    gradient raises in the autograd forward, before any launch (the check
+    the forward runs on a CUDA tensor). The CPU route,
     one autograd node too since the roofline counter, takes any head dim,
     as the reference does."""
-    with pytest.raises(ValueError, match="B1"):
-        k3._check_backward(192, torch.float32, False)
+    k3._check_backward(192, torch.float32, False)
+    with pytest.raises(ValueError, match="head dim 80"):
+        k3._check_backward(80, torch.float32, False)
     q, k, v = (torch.zeros((1, 16, 2, 192), requires_grad=True)
                for _ in range(3))
     n = k3.launches
