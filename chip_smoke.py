@@ -6,7 +6,9 @@
 Phases, each of which stops the run on failure and prints its seconds
 when it ends:
   1. print the card's name and power limit; turn TF32 off;
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (the
+     build keeps ptxas's report, which phase 8 reads for the Dh 192 bf16
+     kernels' registers and spills);
   3. hold K1 (the EM E-step) against its plain version on the card, at the
      pFedWN round's shape, the reference's test sweep, both sides of each
      of the kernel's team-size and token-tile switches (V up to
@@ -76,8 +78,9 @@ when it ends:
      window of 256), with the training instantiation too; at deepseek-v3's
      MLA head dim 192 (``ATTN_DS_SHAPES``: its full-width prefill, B 8 x
      S 1024, 128 heads, the sweep's shapes, ragged, windowed, fully
-     masked rows and the tile edges) in fp32 and bf16, with the fp32
-     training instantiation; then K3's
+     masked rows, the tile edges (keys at and off the bf16 kernel's
+     112-key tile) and B x KH below and above the card's 132 SMs) in fp32
+     and bf16, with the fp32 training instantiation; then K3's
      backward (``csrc/flash_attention_bwd.cu``: split-TF32 ``wgmma``, dK/dV
      split over blocks where one a key tile leaves SMs idle, through the
      autograd path) against ``flash_attention_bwd_ref`` in float64 on the
@@ -116,7 +119,8 @@ when it ends:
      and reduced MLA's training shapes, ragged, windowed, split; and Dh
      192's ``BWD_DS_SHAPES``, which the fp32 check above takes too:
      deepseek-v3's training shape at full width, B 8 x S 256, 128 heads,
-     a split plan, ragged, windowed, G > 1, fully masked rows) against the
+     a split plan, ragged, windowed, G > 1, fully masked rows, keys off
+     the 64-key tile, B x KH below and above 132) against the
      float64 plain backward of the same
      bf16 values within 2e-2 and within twice the error of the plain version
      of the kernels' bf16 arithmetic (``flash_attention_bwd_bf16_ref``:
@@ -310,7 +314,8 @@ when it ends:
      by explicit positions at qwen2-vl-2b's (M-RoPE), the bf16 rows
      bounded at bf16's 989 TFLOP/s against SDPA in bf16, their launches
      the bf16 kernels' own counts; deepseek-v3's Dh 192: the bf16
-     forward at its prefill, the bf16 backward at its training shape, the
+     forward at its prefill, the bf16 backward at its training shape (both
+     with their kernels' registers and spills from phase 2), the
      fp32 forward at its fp32 serve, the fp32 backward at its fp32
      training shape; the backward by explicit positions
      at Dh 48, 96 and 112 in fp32 and bf16, timed at reduced MLA's,
@@ -499,7 +504,9 @@ ATTN_SSM_SHAPES = [
 # to 192; G 1): its full-width prefill (B 8 x S 1024, 128 heads over 128)
 # first; the sweep's shapes; ragged shapes; windows; fully masked rows;
 # tile edges: folded rows just below, at and above 64 and 128, keys just
-# off the bf16 forward's 64-key tile and the fp32 one's 16
+# off the fp32 forward's 16-key tile and at and off the bf16 one's 112
+# (Skv 111, 112, 113, 225); B x KH below and above the card's 132 SMs (the
+# bf16 kernel's blocks are head-major)
 ATTN_DS = (8, 1024, 1024, 128, 128, 192, True, 0)
 ATTN_DS_SHAPES = [
     ATTN_DS,
@@ -516,6 +523,12 @@ ATTN_DS_SHAPES = [
     (1, 17, 15, 3, 1, 192, True, 0),
     (2, 42, 43, 3, 1, 192, True, 0),
     (1, 129, 97, 1, 1, 192, False, 0),
+    (1, 111, 111, 2, 2, 192, True, 0),
+    (1, 112, 112, 3, 1, 192, False, 0),
+    (2, 113, 113, 2, 2, 192, True, 0),
+    (1, 130, 225, 2, 1, 192, False, 0),
+    (1, 512, 512, 128, 128, 192, True, 0),   # B x KH 128
+    (2, 384, 384, 68, 68, 192, True, 0),     # B x KH 136
 ]
 # phase 7d: the SSM configs, and the window zamba2's card-vs-CPU run wraps
 SSM_ARCHS = ("falcon-mamba-7b", "zamba2-7b")
@@ -661,9 +674,10 @@ BWD_BF16_SHAPES = [
 ]
 # the backward at Dh 192 in fp32 (checked as BWD_SHAPES are) and bf16 (as
 # BWD_BF16_SHAPES are): deepseek-v3's training shape at full width (B 8 x
-# S 256, 128 heads; the dK/dV kernels split the head dim over their
+# S 256, 128 heads; the dK/dV kernels split each step over their
 # warpgroups), a split plan, ragged, windowed, G > 1, fully masked rows,
-# tile edges
+# tile edges (keys at and off the 64-key tiles), B x KH below and above
+# the card's 132 SMs (the bf16 kernels' blocks are head-major)
 BWD_DS = (8, 256, 256, 128, 128, 192, True, 0)
 BWD_DS_SHAPES = [
     BWD_DS,
@@ -673,6 +687,9 @@ BWD_DS_SHAPES = [
     (1, 77, 50, 16, 1, 192, False, 20),
     (2, 42, 43, 3, 1, 192, True, 0),
     (1, 65, 129, 1, 1, 192, False, 0),
+    (1, 64, 63, 2, 2, 192, True, 0),
+    (1, 256, 256, 128, 128, 192, True, 0),   # B x KH 128
+    (2, 192, 192, 68, 68, 192, True, 0),     # B x KH 136
 ]
 # |d| <= tol + tol·|ref| for the fp32 kernel against the float64 plain
 # backward (tests/test_torch_gpu.py's tolerance); the row LSE likewise
@@ -4588,6 +4605,16 @@ def k1_report(dev, n1, n1_wide, floor, n1_c100) -> dict:
         "floor_ms": floor, "library_ms": None, "shapes": shapes}
 
 
+def _kernel_resources(rows, names) -> list:
+    """The rows of ``_build.resources`` (ptxas's report of the build) whose
+    kernel names start with one of ``names`` (after the anonymous
+    namespace), each instantiation's registers and spill bytes."""
+    keep = ("kernel", "registers", "stack_bytes", "spill_store_bytes",
+            "spill_load_bytes")
+    return [{k: r.get(k) for k in keep} for r in rows
+            if any(f"::{n}" in r["kernel"] for n in names)]
+
+
 def floor_ms(dev) -> float:
     """A 1-element ``zero_()`` in the ``time_ms`` bracket: how close a
     launch of a tiny kernel gets on this card."""
@@ -5655,17 +5682,31 @@ def main() -> int:
         "columns (m64n48k8); 218 KB and 194 KB of shared memory, one block "
         "a SM; D, no atomics")
     rows[-4]["design"] = (
-        "Dh 192: one bf16 wgmma a product, S = Q.K^T m64n64 from TMA-landed "
-        "tiles (the 128-byte swizzle, three 64-column boxes a 384-byte "
-        "row), P rounded to bf16 as the register A operand of O += P.V "
-        "(m64n192k16), V read MN-major; two consumer warpgroups of 64 "
-        "folded rows, a producer warp, 64-key tiles, 3 stages")
+        "Dh 192: a kernel of its own; a producer warpgroup (24 registers by "
+        "setmaxnreg, the consumers 240) keeps two K and two V slots of "
+        "112-key tiles in flight by TMA (the 128-byte swizzle, three "
+        "64-column boxes a 384-byte row; Q by TMA too when G = 1); two "
+        "consumer warpgroups of 64 folded rows issue tile i+1's S = Q.K^T "
+        "(m64n112k16) and tile i's O += P.V (P the register A operand, "
+        "m64n192k16) behind one fence and run tile i+1's softmax under "
+        "P.V; blocks head-major, a head's last rows first")
     rows[-3]["design"] = (
-        "Dh 192: the bf16 backward's four kernels; in dK/dV both consumer "
-        "warpgroups take every 64-query step, each computing S^T and dP^T "
-        "and summing half of dK's and dV's 192 columns (m64n96k16 over "
-        "three 32-column boxes of the 64-byte swizzle), 3 stages; dQ one "
-        "m64n192k16 a k-step, 2 stages")
+        "Dh 192: D as at the other dims; dK/dV a kernel of its own: each "
+        "consumer warpgroup computes S^T and dP^T for half of a 64-query "
+        "step (m64n32k16), rounds P^T and dS^T to bf16 into shared memory, "
+        "and after a barrier sums dV and dK for half the 192 columns over "
+        "all 64 queries (m64n96k16, A from shared memory): S^T and dP^T "
+        "once a step; dQ the other dims' kernel (m64n192k16, 2 stages) "
+        "with its grid's axes swapped and Q and dO by TMA when G = 1; both "
+        "head-major, key tile 0 and the last rows first; no atomics")
+    rows[-4]["resources"] = _kernel_resources(
+        _build.resources("flash_attention_bf16"),
+        ("flash_attention_bf16_wide_kernel",))
+    rows[-3]["resources"] = _kernel_resources(
+        _build.resources("flash_attention_bwd_bf16"),
+        ("attn_bwd_bf16_dot_kernel<(int)192>",
+         "attn_bwd_bf16_dkdv_wide_kernel",
+         "attn_bwd_bf16_dq_kernel<(int)192,"))
     rows[-2]["design"] = (
         "Dh 192: split-TF32 wgmma, one warpgroup of 64 rows, 16-key tiles "
         "(Q's big and small halves take 96 KB), S in three parts of the "

@@ -49,6 +49,7 @@
 //   (c) attn_bwd_bf16_dq_kernel: a block owns 128 folded (query, head)
 //       rows of one KV head (row = i*G + g, as the forward folds them) and
 //       walks the 64-key tiles they can see.
+// At Dh 192, (b) is attn_bwd_bf16_dkdv_wide_kernel.
 //
 // What bounds it on this card: operations. Each unmasked (query, key) pair
 // of each head costs five products of Dh multiply-adds (S, dP, dV, dK,
@@ -100,19 +101,44 @@
 //   only), and the register-A products issue Dh output columns at once
 //   (m64n48k16 .. m64n128k16). Shared memory at 112, the largest after
 //   128: (b) 147 KB, (c) 144 KB.
-// - Dh 192 (deepseek-v3's MLA, v padded to 192): a warpgroup's dK and dV
-//   accumulators for 64 keys would be 96 + 96 registers a thread, past
-//   the consumers' 240 once S^T and dP^T are added. So (b) splits the head
-//   dim (kHalves): both warpgroups take every step (the ring's empty
-//   barrier waits for both), each computes the step's S^T and dP^T and
-//   owns half of dK's and dV's columns (m64n96k16 from its half of dO and
-//   Q: three of the six 32-column boxes of the 64-byte swizzle, which Dh
-//   192 takes in the backward so that a half is whole boxes), and no sums
-//   join at the end; 3 stages (K, V 48 KB + 3 x 48 KB). S^T and dP^T are
-//   computed twice a step (six products of the four the step needs, the
-//   same critical path as the alternating steps' four a warpgroup). (c)
-//   keeps its design: 96 dQ accumulators a thread, one m64n192k16 a k-step,
-//   2 stages (Q, dO 96 KB + 2 x 48 KB).
+// - Dh 192 (deepseek-v3's MLA, v padded to 192): (b) has a kernel of its
+//   own (below), (c) is the other dims' with two changes, and D and the
+//   reduce are the other dims'. What bounds
+//   them: at deepseek-v3's training step (B 8, S 256, 128 heads, G 1,
+//   causal) the bytes, 0.241 ms for 0.81 GB (64.7 GFLOP take 0.065 ms);
+//   but a dK/dV block walks only 1 to 4 steps (4096 blocks) and a dQ
+//   block 2 or 4 tiles (2048), each alone on its SM (211 and 193 KB of
+//   shared memory), so a block's loads, waits and stores are not hidden
+//   by other blocks. What their design does (times at that shape on an
+//   H100 SXM at 700 W, benchmarks/torch_k3_wide_probe.py):
+//   . Both grids head-major: a head's 4 key tiles (dK/dV, key tile 0, the
+//     most steps under the causal mask, first) or 2 row tiles (dQ, the
+//     last rows first) launched next to each other, so a head's Q and dO
+//     (or K and V) are read from device memory about once: dK/dV 0.452 ->
+//     0.429 ms, dQ 0.246 -> 0.230 against the tile as the slow axis (the
+//     probe's "row tile slowest").
+//   . (b): 96 + 96 dK, dV accumulators a thread do not fit beside S^T and
+//     dP^T under the consumers' 240 registers, so both warpgroups take
+//     every step, each summing half of the columns (m64n96k16 over three
+//     32-column boxes of the 64-byte swizzle, which Dh 192 takes so that a
+//     half is whole boxes). S^T and dP^T are computed once a step between
+//     them: warpgroup w for the step's queries [32w, 32w + 32) (m64n32k16),
+//     P^T and dS^T rounded to bf16 into shared memory (one 128-byte box of
+//     64 rows each), a barrier, then dV and dK over all 64 queries with the
+//     A operand from shared memory. Four products a step where the earlier
+//     design (each warpgroup S^T and dP^T in full) did six. Every product
+//     is waited for within its step: a group in flight across the loop's
+//     back edge made ptxas serialize every wgmma (its C7515 note). 3
+//     stages; 211 KB. Splitting by product instead (one warpgroup S^T and
+//     dV, the other dP^T and dK, P^T handed over in fp32) was slower: the
+//     second group waits on the first's P^T.
+//   . (c): the other dims' kernel (96 dQ accumulators a thread, one
+//     m64n192k16 a k-step, 2 stages: a third would pass 227 KB) with its
+//     grid's axes swapped (the row tile fastest: head-major) and, when G =
+//     1 (the folded rows are the query rows), Q and dO landed by TMA beside
+//     the first K/V tiles instead of loaded by the consumers: with the
+//     block order, 0.474 -> 0.230 ms against the earlier design (the
+//     probe's "parent").
 // - Explicit positions (kPos), as flash_attention_bwd.cu's: no index band
 //   bounds the steps, and the positions may tie and need not be sorted.
 //   Before the warp roles split, a (b) block reads its keys' least and
@@ -127,8 +153,11 @@
 //   tiles, and with the wrapper's plan (sized from the index bounds) the
 //   gradients are the index instantiations' bit for bit.
 // Left for later: computing S and dP once for both dK/dV and dQ, folding
-// D and the reduce into the other kernels, and at Dh 192 computing S^T
-// and dP^T once for both warpgroups.
+// D and the reduce into the other kernels, and at Dh 192 a persistent grid
+// (one block an SM walking many key tiles, so that one tile's stores and
+// the next one's loads overlap) and one barrier a step (P^T and dS^T in
+// two buffers, which the position instantiations' shared memory cannot
+// hold beside three stages).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,19 +188,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmemLimit = 232448;  // the opt-in shared memory of a block
 
 // each head size's swizzle (wgmma_bf16.cuh), the bf16 forward's but at
-// 192, where a half of the head dim is whole 64-byte boxes
+// Dh 192, which takes 64 bytes so that half its columns are whole boxes
 template <int DH>
-constexpr int kSB = DH == 64 || DH == 128 ? 128 : DH == 96 || DH == 192 ? 64
-                                                                       : 32;
-// (b): the parts of the head dim that split dK's and dV's columns over the
-// warpgroups, which then take every step together (2 at Dh 192); with 1
-// they take alternate steps, each summing every column
-template <int DH>
-constexpr int kHalves = DH == 192 ? 2 : 1;
-// (b)'s ring stages (with alternate steps even: warpgroup w takes stages
-// w, w+2) and (c)'s
-template <int DH>
-constexpr int kDkdvStages = DH == 192 ? 3 : 4;
+constexpr int kSB = DH == 64 || DH == 128 ? 128
+                    : DH == 96 || DH == 192 ? 64 : 32;
+// (b)'s ring stages (even: warpgroup w takes stages w, w+2; Dh 192's
+// kernel has its own) and (c)'s (a third at Dh 192 would pass 227 KB)
+constexpr int kDkdvStages = 4;
 template <int DH>
 constexpr int kDqStages = DH == 192 ? 2 : 3;
 
@@ -184,7 +207,7 @@ struct DkdvSmem {
   static constexpr uint32_t kTile = kKeyTile * DH * 2;  // K, V, Q or dO
   static constexpr uint32_t kK = 0, kV = kTile, kRing = 2 * kTile;
   static constexpr uint32_t kStage = 2 * kTile;
-  static constexpr int kStages = kDkdvStages<DH>;
+  static constexpr int kStages = kDkdvStages;
   static constexpr uint32_t kStats = kRing + kStages * kStage;
   static constexpr uint32_t kBars = kStats + kStages * 2 * kQueryTile * 4;
   static constexpr uint32_t kPosAt = kBars + (1 + 2 * kStages) * 8;
@@ -193,15 +216,15 @@ struct DkdvSmem {
   static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
   static_assert(kTile % 1024 == 0 && kStage % 1024 == 0,
                 "tiles and stages keep the boxes 1024-aligned");
-  static_assert(kHalves<DH> == 2 ||
-                    (kStages % 2 == 0 &&
-                     2 * (DH / 2) * kWGThreads * 4 <= kStages * kStage),
+  static_assert(kStages % 2 == 0 &&
+                    2 * (DH / 2) * kWGThreads * 4 <= kStages * kStage,
                 "alternate steps: even stages, and the second warpgroup's "
                 "dK, dV sums fit the ring");
 };
 
-// (c)'s: Q and dO (the block's rows), the ring (a stage: K, V), barriers,
-// then with explicit positions 4 bounds and each stage's 64 key positions
+// (c)'s: Q and dO (the block's rows), the ring (a stage: K, V), barriers
+// (at Dh 192 Q and dO's first, then each stage's full and empty), then
+// with explicit positions 4 bounds and each stage's 64 key positions
 template <int DH, bool kPos>
 struct DqSmem {
   static constexpr uint32_t kRowsBytes = kRowTile * DH * 2;
@@ -209,7 +232,8 @@ struct DqSmem {
   static constexpr uint32_t kQ = 0, kO = kRowsBytes, kRing = 2 * kRowsBytes;
   static constexpr int kStages = kDqStages<DH>;
   static constexpr uint32_t kBars = kRing + kStages * 2 * kTile;
-  static constexpr uint32_t kPosAt = kBars + 2 * kStages * 8;
+  static constexpr uint32_t kFull = kBars + (DH == 192 ? 8 : 0);
+  static constexpr uint32_t kPosAt = kFull + 2 * kStages * 8;
   static constexpr uint32_t kBytes =
       kPosAt + (kPos ? (4 + kStages * kKeyStep) * 4 : 0) + 1024;
   static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
@@ -259,54 +283,18 @@ attn_bwd_bf16_dot_kernel(const bf16* __restrict__ dout,
   }
 }
 
-// O: dK's and dV's type (bf16, or fp32 for split partials)
-template <typename O, int DH, bool kPos>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
-                          const __grid_constant__ CUtensorMap tmap_do,
-                          const __grid_constant__ CUtensorMap tmap_k,
-                          const __grid_constant__ CUtensorMap tmap_v,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ D, O* __restrict__ dk,
-                          O* __restrict__ dv, const int* __restrict__ q_pos,
-                          const int* __restrict__ kv_pos, int B, int Sq,
-                          int Skv, int H, int KH, int causal, int window,
-                          int splits, int64_t split_stride, float scale,
-                          float scale2) {
-  using L = DkdvSmem<DH, kPos>;
-  constexpr int SB = kSB<DH>, QT = kQueryTile, kStages = L::kStages;
-  // the columns of dK and dV a warpgroup sums, and the warpgroups that
-  // consume each step (both, when they split the columns)
-  constexpr int kCols = DH / kHalves<DH>, kTakers = kHalves<DH> == 2 ? kWG : 1;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw_base = smem_u32(smem_raw);
-  const uint32_t base = (raw_base + 1023u) & ~1023u;
-  uint8_t* smem = smem_raw + (base - raw_base);
-  const uint32_t kv_full = base + L::kBars, full0 = kv_full + 8;
-  const uint32_t empty0 = full0 + kStages * 8;
-
-  // block -> (key tile, batch, KV head, split), key tile slowest: under the
-  // causal mask the first key tiles have the most steps and start first
-  int id = blockIdx.x;
-  const int c = id % splits;
-  id /= splits;
-  const int kh = id % KH;
-  id /= KH;
-  const int b = id % B, k0 = (id / B) * kKeyTile;
-  const int G = H / KH;
-
-  // the queries that can see keys [k0, k_last], in tiles; the steps are
-  // (g, query tile) with g slowest; this block takes [s_lo, s_hi), step
-  // i of them going to stage i % kStages and to warpgroup i % 2 (or, with
-  // the head dim in halves, to both)
-  const int tid = threadIdx.x;
-  const int k_last = min(k0 + kKeyTile, Skv) - 1;
-  // explicit positions: bounds {least, greatest key position, first, last
-  // query that may see one}, then each stage's query positions
-  int* const bounds = reinterpret_cast<int*>(smem + L::kPosAt);
-  int* const stage_pos = bounds + 4;
-  int qt0, nq;
+// (b)'s query tiles of a block, [x, x + y): those that hold a query that
+// may see one of keys [k0, k_last], by the index band or, with kPos, from
+// the keys' least and greatest valid position and every query's (bounds:
+// 4 ints of shared memory; all kThreads threads of the block call it)
+template <bool kPos>
+__device__ __forceinline__ int2 query_tiles(int* bounds, const int* q_pos,
+                                            const int* kv_pos, int k0,
+                                            int k_last, int Sq, int causal,
+                                            int window) {
+  constexpr int QT = kQueryTile;
   if constexpr (kPos) {
+    const int tid = threadIdx.x;
     if (tid == 0) {
       bounds[0] = bounds[2] = INT_MAX;
       bounds[1] = bounds[3] = INT_MIN;
@@ -332,14 +320,62 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
     block_max(bounds + 3, hi);
     __syncthreads();
     const bool any = bounds[2] <= bounds[3];
-    qt0 = any ? bounds[2] / QT : 0;
-    nq = any ? bounds[3] / QT + 1 - qt0 : 0;
+    const int qt0 = any ? bounds[2] / QT : 0;
+    return make_int2(qt0, any ? bounds[3] / QT + 1 - qt0 : 0);
   } else {
     const int q_begin = causal ? k0 : 0;
     const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
-    qt0 = q_begin / QT;
-    nq = q_end > q_begin ? (q_end + QT - 1) / QT - qt0 : 0;
+    const int qt0 = q_begin / QT;
+    return make_int2(qt0,
+                     q_end > q_begin ? (q_end + QT - 1) / QT - qt0 : 0);
   }
+}
+
+// O: dK's and dV's type (bf16, or fp32 for split partials)
+template <typename O, int DH, bool kPos>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                          const __grid_constant__ CUtensorMap tmap_do,
+                          const __grid_constant__ CUtensorMap tmap_k,
+                          const __grid_constant__ CUtensorMap tmap_v,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ D, O* __restrict__ dk,
+                          O* __restrict__ dv, const int* __restrict__ q_pos,
+                          const int* __restrict__ kv_pos, int B, int Sq,
+                          int Skv, int H, int KH, int causal, int window,
+                          int splits, int64_t split_stride, float scale,
+                          float scale2) {
+  using L = DkdvSmem<DH, kPos>;
+  constexpr int SB = kSB<DH>, QT = kQueryTile, kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw_base);
+  const uint32_t kv_full = base + L::kBars, full0 = kv_full + 8;
+  const uint32_t empty0 = full0 + kStages * 8;
+
+  // block -> (key tile, batch, KV head, split), key tile slowest: under the
+  // causal mask the first key tiles have the most steps and start first
+  int id = blockIdx.x;
+  const int c = id % splits;
+  id /= splits;
+  const int kh = id % KH;
+  id /= KH;
+  const int b = id % B, k0 = (id / B) * kKeyTile;
+  const int G = H / KH;
+
+  // the queries that can see keys [k0, k_last], in tiles; the steps are
+  // (g, query tile) with g slowest; this block takes [s_lo, s_hi), step
+  // i of them going to stage i % kStages and to warpgroup i % 2
+  const int tid = threadIdx.x;
+  const int k_last = min(k0 + kKeyTile, Skv) - 1;
+  // explicit positions: bounds {least, greatest key position, first, last
+  // query that may see one}, then each stage's query positions
+  int* const bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+  int* const stage_pos = bounds + 4;
+  const int2 tiles = query_tiles<kPos>(bounds, q_pos, kv_pos, k0, k_last, Sq,
+                                       causal, window);
+  const int qt0 = tiles.x, nq = tiles.y;
   const int64_t n = static_cast<int64_t>(G) * nq;
   const int s_lo = static_cast<int>(n * c / splits);
   const int steps = static_cast<int>(n * (c + 1) / splits) - s_lo;
@@ -349,7 +385,7 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full0 + 8 * s, 1 + 32);  // the TMA bytes + the 32 lanes
-      mbar_init(empty0 + 8 * s, kTakers * kWGThreads);
+      mbar_init(empty0 + 8 * s, kWGThreads);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -402,16 +438,12 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
     kpA = keyA < Skv ? kv_pos[keyA] : -1;
     kpB = keyB < Skv ? kv_pos[keyB] : -1;
   }
-  // this warpgroup's columns [col0, col0 + kCols): their first box in a
-  // tile of dO or Q read MN-major
-  const int col0 = kHalves<DH> == 2 ? wg * kCols : 0;
-  const uint32_t box0 = col0 * 2 / SB * QT * SB;
-  float dk_acc[kCols / 2], dv_acc[kCols / 2];
+  float dk_acc[DH / 2], dv_acc[DH / 2];
 #pragma unroll
-  for (int x = 0; x < kCols / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+  for (int x = 0; x < DH / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
   mbar_wait(kv_full, 0);
 
-  for (int i = kTakers == 1 ? wg : 0; i < steps; i += kWG / kTakers) {
+  for (int i = wg; i < steps; i += kWG) {
     const int s = i % kStages, st = s_lo + i;
     const int q0 = (qt0 + st % nq) * QT;
     const uint32_t qs = base + L::kRing + s * L::kStage;
@@ -471,40 +503,35 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk)
-      wgmma_rs_bf16<kCols>(dv_acc, pa[4 * kk], pa[4 * kk + 1],
-                           pa[4 * kk + 2], pa[4 * kk + 3],
-                           desc_mn<SB>(dos + box0 + kk * 16 * SB, QT));
+      wgmma_rs_bf16<DH>(dv_acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                        pa[4 * kk + 3], desc_mn<SB>(dos + kk * 16 * SB, QT));
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk)
-      wgmma_rs_bf16<kCols>(dk_acc, da[4 * kk], da[4 * kk + 1],
-                           da[4 * kk + 2], da[4 * kk + 3],
-                           desc_mn<SB>(qs + box0 + kk * 16 * SB, QT));
+      wgmma_rs_bf16<DH>(dk_acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                        da[4 * kk + 3], desc_mn<SB>(qs + kk * 16 * SB, QT));
     wgmma_commit_and_wait();
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     mbar_arrive(empty0 + 8 * s);  // the stage may be refilled
   }
 
-  // with alternate steps the second warpgroup's sums join the first's,
-  // through the ring (every step is done once both groups pass the
-  // barrier); with the head dim in halves each writes its own columns
-  if constexpr (kHalves<DH> == 1) {
-    consumers_sync<kWG * kWGThreads>();
-    float* buf = reinterpret_cast<float*>(smem + L::kRing);
-    if (wg == 1) {
-#pragma unroll
-      for (int x = 0; x < DH / 2; ++x) {
-        buf[x * kWGThreads + t] = dk_acc[x];
-        buf[(DH / 2 + x) * kWGThreads + t] = dv_acc[x];
-      }
-    }
-    consumers_sync<kWG * kWGThreads>();
-    if (wg == 1) return;
+  // the second warpgroup's sums join the first's, through the ring (every
+  // step is done once both groups pass the barrier)
+  consumers_sync<kWG * kWGThreads>();
+  float* buf = reinterpret_cast<float*>(smem + L::kRing);
+  if (wg == 1) {
 #pragma unroll
     for (int x = 0; x < DH / 2; ++x) {
-      dk_acc[x] += buf[x * kWGThreads + t];
-      dv_acc[x] += buf[(DH / 2 + x) * kWGThreads + t];
+      buf[x * kWGThreads + t] = dk_acc[x];
+      buf[(DH / 2 + x) * kWGThreads + t] = dv_acc[x];
     }
+  }
+  consumers_sync<kWG * kWGThreads>();
+  if (wg == 1) return;
+#pragma unroll
+  for (int x = 0; x < DH / 2; ++x) {
+    dk_acc[x] += buf[x * kWGThreads + t];
+    dv_acc[x] += buf[(DH / 2 + x) * kWGThreads + t];
   }
 
   // dK, dV (or this split's partials): rows past Skv are not written
@@ -515,9 +542,9 @@ attn_bwd_bf16_dkdv_kernel(const __grid_constant__ CUtensorMap tmap_q,
   for (int r = 0; r < 2; ++r) {
     const int key = r ? keyB : keyA;
     if (key >= Skv) continue;
-    const int64_t off = ((kv_batch + key) * KH + kh) * DH + col0 + 2 * t4;
+    const int64_t off = ((kv_batch + key) * KH + kh) * DH + 2 * t4;
 #pragma unroll
-    for (int x = 0; x < kCols / 8; ++x) {  // columns col0 + 8x + 2t4, +1
+    for (int x = 0; x < DH / 8; ++x) {  // columns 8x + 2t4, +1
       const int a = 4 * x + 2 * r;
       store2(dk_out + off + 8 * x, dk_acc[a] * scale, dk_acc[a + 1] * scale);
       store2(dv_out + off + 8 * x, dv_acc[a], dv_acc[a + 1]);
@@ -551,6 +578,7 @@ attn_bwd_bf16_reduce_kernel(const float4* __restrict__ part,
   }
 }
 
+// tmap_q, tmap_do: read at Dh 192 only, where (G = 1) Q and dO land by TMA
 template <int DH, bool kPos>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
@@ -562,22 +590,32 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
                         const int* __restrict__ q_pos,
                         const int* __restrict__ kv_pos, int Sq, int Skv,
                         int H, int KH, int causal, int window, float scale,
-                        float scale2) {
+                        float scale2,
+                        const __grid_constant__ CUtensorMap tmap_q,
+                        const __grid_constant__ CUtensorMap tmap_do) {
   using L = DqSmem<DH, kPos>;
+  constexpr bool kWide = DH == 192;
   constexpr int SB = kSB<DH>, KT = kKeyStep, kStages = L::kStages;
   constexpr int kCons = kWG * kWGThreads;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_base = smem_u32(smem_raw);
   const uint32_t base = (raw_base + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw_base);
-  const uint32_t full0 = base + L::kBars, empty0 = full0 + kStages * 8;
+  const uint32_t rows_full = base + L::kBars;  // Dh 192's Q and dO
+  const uint32_t full0 = base + L::kFull, empty0 = full0 + kStages * 8;
 
   // block -> (batch, KV head, folded row tile), the last rows (the most
-  // keys under the causal mask) first
+  // keys under the causal mask) first: the batch and KV head the grid's x,
+  // or at Dh 192 its y, so that a head's row tiles run next to each other
+  // (they read the same K and V while it is in L2)
+  // (b, kh and row0 each read the grid in one expression: the same values
+  // held in variables first change the other head dims' machine code)
   const int G = H / KH;
-  const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
+  const int b = (kWide ? blockIdx.y : blockIdx.x) / KH;
+  const int kh = (kWide ? blockIdx.y : blockIdx.x) % KH;
   const int n_rows = Sq * G;
-  const int row0 = (gridDim.y - 1 - blockIdx.y) * kRowTile;
+  const int row0 = (kWide ? gridDim.x - 1 - blockIdx.x
+                          : gridDim.y - 1 - blockIdx.y) * kRowTile;
   const int q_lo = row0 / G, q_hi = (min(row0 + kRowTile, n_rows) - 1) / G;
   const int tid = threadIdx.x;
   // explicit positions: bounds {least, greatest row position, first, last
@@ -586,36 +624,10 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
   int* const stage_pos = bounds + 4;
   int t_begin, t_end;
   if constexpr (kPos) {
-    if (tid == 0) {
-      bounds[0] = bounds[2] = INT_MAX;
-      bounds[1] = bounds[3] = INT_MIN;
-    }
-    __syncthreads();
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int i = q_lo + tid; i <= q_hi; i += kThreads) {
-      lo = min(lo, q_pos[i]);
-      hi = max(hi, q_pos[i]);
-    }
-    block_min(bounds, lo);
-    block_max(bounds + 1, hi);
-    __syncthreads();
-    const int qmin = bounds[0], qmax = bounds[1];
-    lo = INT_MAX;
-    hi = INT_MIN;
-    for (int j = tid; j < Skv; j += kThreads) {
-      const int kp = kv_pos[j];
-      if (kp >= 0 && (!causal || kp <= qmax) &&
-          (window <= 0 || kp > qmin - window)) {
-        lo = min(lo, j);
-        hi = max(hi, j);
-      }
-    }
-    block_min(bounds + 2, lo);
-    block_max(bounds + 3, hi);
-    __syncthreads();
-    const bool any = bounds[2] <= bounds[3];
-    t_begin = any ? bounds[2] / KT : 0;
-    t_end = any ? bounds[3] / KT + 1 : 0;
+    const int2 seen = position_tiles<KT, kThreads>(
+        bounds, q_pos, kv_pos, q_lo, q_hi, Skv, causal, window);
+    t_begin = seen.x;
+    t_end = seen.y;
   } else {
     const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
     const int k_end = causal ? min(Skv, q_hi + 1) : Skv;
@@ -624,6 +636,7 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
   }
 
   if (tid == 0) {
+    if constexpr (kWide) mbar_init(rows_full, 1);
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       // the TMA bytes (+ the 32 lanes that write the key positions)
@@ -639,6 +652,17 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     const int lane = tid - kCons;
     if (lane >= (kPos ? 32 : 1)) return;
+    // at Dh 192 with G = 1 (the folded rows are the query rows) Q and dO
+    // land by TMA beside the first K/V tiles
+    if constexpr (kWide) {
+      if (lane == 0 && G == 1) {
+        mbar_expect_tx(rows_full, 2 * L::kRowsBytes);
+        tma_tile<SB, DH>(base + L::kQ, &tmap_q, rows_full, kh * DH, row0, b,
+                         kRowTile);
+        tma_tile<SB, DH>(base + L::kO, &tmap_do, rows_full, kh * DH, row0,
+                         b, kRowTile);
+      }
+    }
     for (int t = t_begin; t < t_end; ++t) {
       const int i = t - t_begin, s = i % kStages;
       mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
@@ -662,13 +686,17 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
 
-  // Q and dO: this block's rows in the swizzled layout; zeros past the end
-  load_folded<SB, DH, kRowTile>(smem + L::kQ, q, b, kh, G, H, Sq, row0, tid,
-                                kCons);
-  load_folded<SB, DH, kRowTile>(smem + L::kO, dout, b, kh, G, H, Sq, row0,
-                                tid, kCons);
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  consumers_sync<kCons>();
+  if (kWide && G == 1) {
+    mbar_wait(rows_full, 0);
+  } else {  // Q and dO: this block's rows in the swizzled layout; zeros
+            // past the end
+    load_folded<SB, DH, kRowTile>(smem + L::kQ, q, b, kh, G, H, Sq, row0,
+                                  tid, kCons);
+    load_folded<SB, DH, kRowTile>(smem + L::kO, dout, b, kh, G, H, Sq, row0,
+                                  tid, kCons);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    consumers_sync<kCons>();
+  }
 
   // this thread's two rows of the warpgroup's 64, their keys and stats
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
@@ -772,6 +800,269 @@ attn_bwd_bf16_dq_kernel(const __grid_constant__ CUtensorMap tmap_k,
   }
 }
 
+// ---- Dh 192 (deepseek-v3's MLA, v padded to 192): (b)'s kernel
+
+namespace wide {
+constexpr int kDH = 192;
+constexpr int kHalf = kDH / 2;     // dK's and dV's columns a warpgroup sums
+constexpr int kQHalf = kQueryTile / 2;  // a step's queries a group takes
+constexpr int kDkdvStages = 3;
+// P^T and dS^T of a step (64 keys x 64 queries, bf16): one 128-byte box of
+// 64 rows each, the K-major A operands of dV += P^T.dO and dK += dS^T.Q
+constexpr int kPSB = 128;
+constexpr uint32_t kPTile = kKeyTile * kQueryTile * 2;
+}  // namespace wide
+
+// (b) at Dh 192, from a 1024-aligned base: K and V, the ring (a stage: Q,
+// dO), P^T and dS^T, each stage's 64 lse and 64 D, the barriers (K/V's,
+// then each stage's full and empty), then with explicit positions 4 bounds
+// and each stage's 64 query positions
+template <bool kPos>
+struct DkdvWideSmem {
+  static constexpr uint32_t kTile = kKeyTile * wide::kDH * 2;  // K, V, Q, dO
+  static constexpr uint32_t kK = 0, kV = kTile, kRing = 2 * kTile;
+  static constexpr uint32_t kStage = 2 * kTile;
+  static constexpr int kStages = wide::kDkdvStages;
+  static constexpr uint32_t kPT = kRing + kStages * kStage;
+  static constexpr uint32_t kDST = kPT + wide::kPTile;
+  static constexpr uint32_t kStats = kDST + wide::kPTile;
+  static constexpr uint32_t kBars = kStats + kStages * 2 * kQueryTile * 4;
+  static constexpr uint32_t kPosAt = kBars + (1 + 2 * kStages) * 8;
+  static constexpr uint32_t kBytes =
+      kPosAt + (kPos ? (4 + kStages * kQueryTile) * 4 : 0) + 1024;
+  static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
+  static_assert(kTile % 1024 == 0 && wide::kPTile % 1024 == 0,
+                "tiles 1024-aligned");
+};
+
+// (b) at Dh 192. A block owns 64 keys of one KV head and walks its steps
+// as the other head dims' kernel does, but both consumer warpgroups take
+// every step: warpgroup w computes S^T and dP^T for the step's queries
+// [32w, 32w + 32) (m64n32), forms its half of P^T and dS^T, rounds them to
+// bf16 into shared memory, and after a barrier sums dV and dK for its half
+// of the columns [96w, 96w + 96) over all 64 queries (m64n96k16, A from
+// shared memory). So S^T and dP^T are computed once a step.
+template <typename O, bool kPos>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_bf16_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                               const __grid_constant__ CUtensorMap tmap_do,
+                               const __grid_constant__ CUtensorMap tmap_k,
+                               const __grid_constant__ CUtensorMap tmap_v,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ D,
+                               O* __restrict__ dk, O* __restrict__ dv,
+                               const int* __restrict__ q_pos,
+                               const int* __restrict__ kv_pos, int B, int Sq,
+                               int Skv, int H, int KH, int causal,
+                               int window, int splits, int64_t split_stride,
+                               float scale, float scale2) {
+  using L = DkdvWideSmem<kPos>;
+  constexpr int DH = wide::kDH, SB = kSB<DH>, QT = kQueryTile;
+  constexpr int kStages = L::kStages, kCons = kWG * kWGThreads;
+  constexpr int kHalf = wide::kHalf, kQHalf = wide::kQHalf;
+  constexpr int kPSB = wide::kPSB;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw_base);
+  const uint32_t kv_full = base + L::kBars, full0 = kv_full + 8;
+  const uint32_t empty0 = full0 + kStages * 8;
+
+  // block -> (batch, KV head, key tile, split), split fastest; head-major:
+  // a head's key tiles next to each other (they read the same Q and dO
+  // while it is in L2), key tile 0 (the most steps under the causal mask)
+  // first
+  const int n_kt = (Skv + kKeyTile - 1) / kKeyTile;
+  int id = blockIdx.x;
+  const int c = id % splits;
+  id /= splits;
+  const int kt = id % n_kt, head = id / n_kt;
+  const int b = head / KH, kh = head % KH, k0 = kt * kKeyTile;
+  const int G = H / KH;
+
+  const int tid = threadIdx.x;
+  const int k_last = min(k0 + kKeyTile, Skv) - 1;
+  int* const bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+  int* const stage_pos = bounds + 4;
+  const int2 tiles = query_tiles<kPos>(bounds, q_pos, kv_pos, k0, k_last, Sq,
+                                       causal, window);
+  const int qt0 = tiles.x, nq = tiles.y;
+  const int64_t n = static_cast<int64_t>(G) * nq;
+  const int s_lo = static_cast<int>(n * c / splits);
+  const int steps = static_cast<int>(n * (c + 1) / splits) - s_lo;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1 + 32);  // the TMA bytes + the 32 lanes
+      mbar_init(empty0 + 8 * s, kCons);  // both warpgroups take every step
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kCons) {  // the producer warpgroup's first warp
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    const int lane = tid - kCons;
+    if (lane >= 32) return;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kTile);
+      tma_tile<SB, DH>(base + L::kK, &tmap_k, kv_full, kh * DH, k0, b,
+                       kKeyTile);
+      tma_tile<SB, DH>(base + L::kV, &tmap_v, kv_full, kh * DH, k0, b,
+                       kKeyTile);
+    }
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % kStages, st = s_lo + i;
+      const int h = kh * G + st / nq, q0 = (qt0 + st % nq) * QT;
+      mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
+      const uint32_t full = full0 + 8 * s;
+      const uint32_t dst = base + L::kRing + s * L::kStage;
+      if (lane == 0) {
+        mbar_expect_tx(full, 2 * L::kTile);
+        tma_tile<SB, DH>(dst, &tmap_q, full, h * DH, q0, b, QT);
+        tma_tile<SB, DH>(dst + L::kTile, &tmap_do, full, h * DH, q0, b, QT);
+      }
+      // the step's lse (in base 2; +inf past Sq, so P is 0 there) and D
+      float* stats = reinterpret_cast<float*>(smem + L::kStats) + s * 2 * QT;
+      const int64_t row = (static_cast<int64_t>(b) * H + h) * Sq;
+#pragma unroll
+      for (int j = lane; j < QT; j += 32) {
+        const bool ok = q0 + j < Sq;
+        stats[j] = ok ? lse[row + q0 + j] * kLog2e : INFINITY;
+        stats[QT + j] = ok ? D[row + q0 + j] : 0.f;
+        if constexpr (kPos) stage_pos[s * QT + j] = ok ? q_pos[q0 + j] : 0;
+      }
+      mbar_arrive(full);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+
+  // this thread's two key rows of the accumulators, and its warpgroup's
+  // queries [qh, qh + 32) of a step and columns [96 wg, 96 wg + 96)
+  const int wg = tid / kWGThreads, t = tid % kWGThreads;
+  const int warp = t / 32, lane = t % 32, t4 = lane % 4;
+  const int rowA = warp * 16 + lane / 4, rowB = rowA + 8;
+  const int keyA = k0 + rowA, keyB = k0 + rowB;
+  int kpA = -1, kpB = -1;  // their explicit positions (-1 past Skv)
+  if constexpr (kPos) {
+    kpA = keyA < Skv ? kv_pos[keyA] : -1;
+    kpB = keyB < Skv ? kv_pos[keyB] : -1;
+  }
+  const int qh = wg * kQHalf, col0 = wg * kHalf;
+  const uint32_t box0 = col0 * 2 / SB * QT * SB;  // its first column box
+  const uint32_t pt = base + L::kPT, dsb = base + L::kDST;
+  float dk_acc[kHalf / 2], dv_acc[kHalf / 2];
+#pragma unroll
+  for (int x = 0; x < kHalf / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % kStages, st = s_lo + i;
+    const int q0 = (qt0 + st % nq) * QT;
+    const uint32_t qs = base + L::kRing + s * L::kStage;
+    const uint32_t dos = qs + L::kTile;
+    const float* lse2 =
+        reinterpret_cast<const float*>(smem + L::kStats) + s * 2 * QT;
+    const float* Ds = lse2 + QT;
+    mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+
+    // S^T = K.Q^T and dP^T = V.dO^T for the 64 keys x this group's 32
+    // queries (rows qh.. of the Q and dO tiles), two groups
+    float sT[kQHalf / 2], dpT[kQHalf / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_bf16<kQHalf>(sT, desc_k<SB>(base + L::kK + kstep<SB>(kk, 64)),
+                            desc_k<SB>(qs + qh * SB + kstep<SB>(kk, QT)),
+                            kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_bf16<kQHalf>(dpT,
+                            desc_k<SB>(base + L::kV + kstep<SB>(kk, 64)),
+                            desc_k<SB>(dos + qh * SB + kstep<SB>(kk, QT)),
+                            kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // this step's S^T
+    fence_regs(sT);
+
+    // P^T in fp32 on the fragments: sT[4j + e] is (keyA, query q0 + qh +
+    // 8j + 2t4 + e) and sT[4j + 2 + e] is (keyB, the same query)
+    const bool all = !kPos && all_visible(q0 + qh, q0 + qh + kQHalf - 1, k0,
+                                          k0 + kKeyTile - 1, Sq, Skv, causal,
+                                          window);
+    const int* qpos = stage_pos + s * QT;
+#pragma unroll
+    for (int x = 0; x < kQHalf / 2; ++x) {
+      const int col = qh + 8 * (x / 4) + 2 * t4 + (x & 1);
+      bool in;
+      if constexpr (kPos)  // past Sq its lse is +inf: P is 0
+        in = sees(qpos[col], (x & 2) ? kpB : kpA, causal, window);
+      else
+        in = all || visible(q0 + col, (x & 2) ? keyB : keyA, Sq, Skv, causal,
+                            window);
+      sT[x] = in ? exp2f(sT[x] * scale2 - lse2[col]) : 0.f;
+    }
+    wgmma_wait<0>();
+    fence_regs(dpT);
+    // dS^T = P^T (dP^T - D) in fp32; both rounded to bf16 pairs into the
+    // shared P^T and dS^T tiles once the other group's last dV, dK (which
+    // read them) are done too
+    consumers_sync<kCons>();
+#pragma unroll
+    for (int y = 0; y < kQHalf / 4; ++y) {
+      const int col = qh + 8 * (y / 2) + 2 * t4;
+      const float g0 = sT[2 * y] * (dpT[2 * y] - Ds[col]);
+      const float g1 = sT[2 * y + 1] * (dpT[2 * y + 1] - Ds[col + 1]);
+      const uint32_t at = swizzled<kPSB>((y & 1) ? rowB : rowA,
+                                         col & ~7, kKeyTile) + (col & 7) * 2;
+      *reinterpret_cast<uint32_t*>(smem + L::kPT + at) =
+          pack_bf16(sT[2 * y], sT[2 * y + 1]);
+      *reinterpret_cast<uint32_t*>(smem + L::kDST + at) = pack_bf16(g0, g1);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    consumers_sync<kCons>();
+    // dV += P^T.dO and dK += dS^T.Q over the step's 64 queries, this
+    // group's columns of dO and Q read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk)
+      wgmma_ss_bf16_n96_mn(dv_acc, desc_k<kPSB>(pt + kstep<kPSB>(kk, 64)),
+                           desc_mn<SB>(dos + box0 + kk * 16 * SB, QT), 1);
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk)
+      wgmma_ss_bf16_n96_mn(dk_acc, desc_k<kPSB>(dsb + kstep<kPSB>(kk, 64)),
+                           desc_mn<SB>(qs + box0 + kk * 16 * SB, QT), 1);
+    // waited for within the step: a product in flight across the loop's
+    // back edge makes ptxas serialize every product
+    wgmma_commit_and_wait();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    mbar_arrive(empty0 + 8 * s);  // the stage may be refilled
+  }
+
+  // dK, dV (or this split's partials), this group's columns: rows past Skv
+  // are not written
+  O* dk_out = dk + c * split_stride;
+  O* dv_out = dv + c * split_stride;
+  const int64_t kv_batch = static_cast<int64_t>(b) * Skv;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r ? keyB : keyA;
+    if (key >= Skv) continue;
+    const int64_t off = ((kv_batch + key) * KH + kh) * DH + col0 + 2 * t4;
+#pragma unroll
+    for (int x = 0; x < kHalf / 8; ++x) {  // columns col0 + 8x + 2t4, +1
+      const int a = 4 * x + 2 * r;
+      store2(dk_out + off + 8 * x, dk_acc[a] * scale, dk_acc[a + 1] * scale);
+      store2(dv_out + off + 8 * x, dv_acc[a], dv_acc[a + 1]);
+    }
+  }
+}
+
 // Sets the kernel's shared memory once, and refuses a build that starts a
 // block with fewer registers than setmaxnreg.inc waits for (it would hang)
 template <typename Kernel>
@@ -804,11 +1095,18 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
                 int H, int KH, int causal, int window, int splits,
                 cudaStream_t st) {
+  // Dh 192 takes its own kernel, with the same arguments
+  constexpr bool kWide = DH == 192;
   constexpr int SB = kSB<DH>;
+  const auto kernel = [] {
+    if constexpr (kWide) return attn_bwd_bf16_dkdv_wide_kernel<O, kPos>;
+    else return attn_bwd_bf16_dkdv_kernel<O, DH, kPos>;
+  }();
+  using Smem = std::conditional_t<kWide, DkdvWideSmem<kPos>,
+                                  DkdvSmem<DH, kPos>>;
   static bool done = false;
-  const int bytes = DkdvSmem<DH, kPos>::kBytes;
-  const int rc =
-      configure(attn_bwd_bf16_dkdv_kernel<O, DH, kPos>, bytes, done);
+  const int bytes = Smem::kBytes;
+  const int rc = configure(kernel, bytes, done);
   if (rc != 0) return rc;
   const int64_t blocks =
       static_cast<int64_t>((Skv + kKeyTile - 1) / kKeyTile) * B * KH * splits;
@@ -821,8 +1119,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   if (e != 0) return e;
   const int64_t stride =
       splits > 1 ? static_cast<int64_t>(B) * Skv * KH * DH : 0;
-  attn_bwd_bf16_dkdv_kernel<O, DH, kPos>
-      <<<static_cast<unsigned>(blocks), kThreads, bytes, st>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, st>>>(
           mq, mdo, mk, mv, lse, D, static_cast<O*>(dk), static_cast<O*>(dv),
           q_pos, kv_pos, B, Sq, Skv, H, KH, causal, window, splits, stride,
           scale_of(DH), scale2_of(DH));
@@ -841,16 +1138,24 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (rc != 0) return rc;
   const long long tiles =
       (static_cast<long long>(Sq) * (H / KH) + kRowTile - 1) / kRowTile;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mk, mv;
+  // (batch x KV head, row tile), or (row tile, batch x KV head) at Dh 192
+  const long long heads = static_cast<long long>(B) * KH;
+  constexpr bool kWide = DH == 192;
+  if ((kWide ? heads : tiles) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mk, mv, mq, mdo;
   int e = encode_bf16<SB>(&mk, k, B, Skv, KH * DH, kKeyStep);
   if (e == 0) e = encode_bf16<SB>(&mv, v, B, Skv, KH * DH, kKeyStep);
+  if (kWide && e == 0) e = encode_bf16<SB>(&mq, q, B, Sq, H * DH, kRowTile);
+  if (kWide && e == 0)
+    e = encode_bf16<SB>(&mdo, dout, B, Sq, H * DH, kRowTile);
   if (e != 0) return e;
-  const dim3 grid(B * KH, static_cast<unsigned>(tiles));
+  const dim3 grid = kWide ? dim3(static_cast<unsigned>(tiles), B * KH)
+                         : dim3(B * KH, static_cast<unsigned>(tiles));
   attn_bwd_bf16_dq_kernel<DH, kPos><<<grid, kThreads, bytes, st>>>(
       mk, mv, static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
       lse, D, static_cast<bf16*>(dq), q_pos, kv_pos, Sq, Skv, H, KH, causal,
-      window, scale_of(DH), scale2_of(DH));
+      window, scale_of(DH), scale2_of(DH), kWide ? mq : mk, kWide ? mdo : mv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -926,7 +1231,7 @@ extern "C" int attn_bwd_bf16_tiles(int Dh, int* key_tile, int* query_tile,
     *query_tile = kQueryTile;
     *rows = kRowTile;
     *key_step = kKeyStep;
-    *groups = kHalves<decltype(dh)::value> == 2 ? 1 : kWG;
+    *groups = decltype(dh)::value == 192 ? 1 : kWG;
     return 0;
   });
 }

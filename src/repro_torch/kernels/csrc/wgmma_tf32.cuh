@@ -21,6 +21,7 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -198,10 +199,64 @@ __device__ __forceinline__ void block_max(int* dst, int v) {
   if ((threadIdx.x & 31) == 0) atomicMax(dst, v);
 }
 
+// The tiles of kTile keys, [x, y), that the rows of query indices [q_lo,
+// q_hi] may see by explicit positions: from the rows' least and greatest
+// position and every key's (bounds: 4 ints of shared memory; all kThreads
+// threads of the block call it)
+template <int kTile, int kThreads>
+__device__ __forceinline__ int2 position_tiles(int* bounds,
+                                               const int* q_pos,
+                                               const int* kv_pos, int q_lo,
+                                               int q_hi, int Skv, int causal,
+                                               int window) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    bounds[0] = bounds[2] = INT_MAX;
+    bounds[1] = bounds[3] = INT_MIN;
+  }
+  __syncthreads();
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int i = q_lo + tid; i <= q_hi; i += kThreads) {
+    lo = min(lo, q_pos[i]);
+    hi = max(hi, q_pos[i]);
+  }
+  block_min(bounds, lo);
+  block_max(bounds + 1, hi);
+  __syncthreads();
+  const int qmin = bounds[0], qmax = bounds[1];
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int j = tid; j < Skv; j += kThreads) {
+    const int kp = kv_pos[j];
+    if (kp >= 0 && (!causal || kp <= qmax) &&
+        (window <= 0 || kp > qmin - window)) {
+      lo = min(lo, j);
+      hi = max(hi, j);
+    }
+  }
+  block_min(bounds + 2, lo);
+  block_max(bounds + 3, hi);
+  __syncthreads();
+  const bool any = bounds[2] <= bounds[3];
+  return make_int2(any ? bounds[2] / kTile : 0,
+                   any ? bounds[3] / kTile + 1 : 0);
+}
+
 // barrier 1 over the consumer warpgroups only (the producer never joins)
 template <int N>
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
+}
+
+// named barrier `id` (2 and up) of N threads: wait at it, or arrive and
+// go on (one side of a hand-over between warpgroups)
+template <int N>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(N) : "memory");
 }
 
 // ---- wgmma

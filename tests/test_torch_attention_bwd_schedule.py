@@ -5,7 +5,10 @@ with the rule ``csrc/flash_attention_bwd.cu`` (fp32) and
 (``_dkdv_steps``, ``_dq_steps``, ``_dq_folded_steps`` below), cover every
 (key tile, query tile, head) that holds an unmasked pair once and only
 once (in bf16's dQ, every (row tile, KV head, key tile), its rows folded
-as the forward folds them). Over ``chip_smoke.py``'s backward sweeps
+as the forward folds them); at Dh 192 the bf16 kernels, forward and
+backward, launch a head's blocks next to each other, the heaviest first,
+and split each dK/dV step over their two warpgroups by queries (S^T and
+dP^T) and by columns (dV and dK). Over ``chip_smoke.py``'s backward sweeps
 (``BWD_SHAPES``; ``BWD_BF16_SHAPES`` in bf16) and shapes at the tiles'
 edges, on cards of several sizes (so both the split and the unsplit dK/dV
 grids are walked). Also: the two dtypes' plans are cached apart, and
@@ -54,15 +57,34 @@ CASES = ([(torch.float32, s) for s in SHAPES + DS_SHAPES]
 SMS = (132, 1, 16, 1000)
 
 
+def _head_major(Dh, dtype):
+    """Whether the kernels launch a head's blocks next to each other: the
+    bf16 ones at Dh 192 (``csrc/flash_attention_bf16.cu``'s and
+    ``csrc/flash_attention_bwd_bf16.cu``'s wide kernels); the others put
+    the tile slowest in the grid."""
+    return dtype == torch.bfloat16 and Dh == 192
+
+
+def _dkdv_block(block, B, Skv, KH, Dh, splits, dtype=torch.float32):
+    """(batch, KV head, key tile, split) of dK/dV block ``block``: split
+    fastest; then head-major (key tile 0 first within a head) or the key
+    tile slowest."""
+    c, rest = block % splits, block // splits
+    if _head_major(Dh, dtype):
+        n_kt = -(-Skv // k3.bwd_tiles(Dh, dtype).key_tile)
+        t, head = rest % n_kt, rest // n_kt
+        return head // KH, head % KH, t, c
+    kh, rest = rest % KH, rest // KH
+    return rest % B, kh, rest // B, c
+
+
 def _dkdv_steps(block, B, Sq, Skv, H, KH, Dh, causal, window, splits,
                 dtype=torch.float32):
     """The steps dK/dV block ``block`` walks, in order, as (batch, key
-    tile, head, query tile): key tile slowest in the grid and split
-    fastest, and split c taking steps [n·c/splits, n·(c+1)/splits) of its
-    key tile's n (head slowest); ``dtype``'s tiles."""
-    c, rest = block % splits, block // splits
-    kh, rest = rest % KH, rest // KH
-    b, t = rest % B, rest // B
+    tile, head, query tile): split c of a key tile taking steps
+    [n·c/splits, n·(c+1)/splits) of its n (head slowest); ``dtype``'s
+    tiles."""
+    b, kh, t, c = _dkdv_block(block, B, Skv, KH, Dh, splits, dtype)
     G = H // KH
     qt0, nq = k3.dkdv_query_tiles(t, Sq, Skv, Dh, causal, window, dtype)
     n = G * nq
@@ -85,20 +107,32 @@ def _dq_steps(block, B, Sq, Skv, H, KH, Dh, causal, window):
     return [(b, qt, h, kt0 + i) for i in range(nk)]
 
 
+def _folded_block(block, B, Sq, H, KH, rows, head_major):
+    """(batch, KV head, row tile) of a block over folded rows (bf16 dQ's,
+    the bf16 forward's): the last row tiles first; head-major (a head's
+    row tiles next to each other) or the row tile slowest (batch and KV
+    head fastest)."""
+    n_rt = -(-Sq * (H // KH) // rows)
+    if head_major:
+        head, y = block // n_rt, block % n_rt
+    else:
+        head, y = block % (B * KH), block // (B * KH)
+    return head // KH, head % KH, n_rt - 1 - y
+
+
 def _dq_folded_steps(block, B, Sq, Skv, H, KH, Dh, causal, window):
     """The steps bf16 dQ block ``block`` walks, as (batch, KV head, row
-    tile, key tile): the grid is (batch x KV head, folded row tile) with
-    the batch and KV head fastest and the last row tiles first; its rows
-    i*G + g, and the key tiles from the first row's window start to the
-    last row's causal end."""
+    tile, key tile): its rows i*G + g (``_folded_block``), and the key
+    tiles from the first row's window start to the last row's causal
+    end."""
     tiles = k3.bwd_tiles(Dh, torch.bfloat16)
-    x, y = block % (B * KH), block // (B * KH)
-    rt = -(-Sq * (H // KH) // tiles.row_tile) - 1 - y
+    b, kh, rt = _folded_block(block, B, Sq, H, KH, tiles.row_tile,
+                              _head_major(Dh, torch.bfloat16))
     q_lo, q_hi = _folded_queries(rt, Sq, H // KH, tiles.row_tile)
     k_begin = max(0, q_lo - window + 1) if window > 0 else 0
     kt0, nk = k3._tiles(k_begin, min(Skv, q_hi + 1) if causal else Skv,
                         tiles.key_step)
-    return [(x // KH, x % KH, rt, kt0 + i) for i in range(nk)]
+    return [(b, kh, rt, kt0 + i) for i in range(nk)]
 
 
 def _folded_queries(rt, Sq, G, rows):
@@ -154,7 +188,7 @@ def test_dkdv_blocks_cover_every_visible_tile_once(dtype, shape, sms):
     # each block's heads read its own KV head
     G = H // KH
     for blk in range(plan["dkdv_blocks"]):
-        kh = blk // splits % KH
+        kh = _dkdv_block(blk, B, Skv, KH, Dh, splits, dtype)[1]
         assert all(h // G == kh for _, _, h, _ in
                    _dkdv_steps(blk, *shape, splits, dtype))
 
@@ -219,30 +253,61 @@ def test_training_and_federated_shapes_fill_the_card(dtype):
         lengths = [len(_dkdv_steps(blk, *shape, splits, dtype))
                    for blk in range(blocks)]
         assert max(lengths) == most
-        # key tiles in the grid's order, the most steps first
-        per_tile = blocks // -(-shape[2] // k3.bwd_tiles(shape[5],
-                                                         dtype).key_tile)
-        totals = [sum(lengths[i:i + per_tile])
-                  for i in range(0, len(lengths), per_tile)]
-        assert totals == sorted(totals, reverse=True)
+        # key tiles in the grid's order, the most steps first: over the
+        # grid, or within each head where a head's blocks are contiguous
+        B, Sq, Skv, H, KH, Dh = shape[:6]
+        major = _head_major(Dh, dtype)
+        where = [_dkdv_block(blk, B, Skv, KH, Dh, splits, dtype)
+                 for blk in range(blocks)]
+        for run in _runs([(b, kh) if major else 0 for b, kh, _, _ in where]):
+            tiles = [where[i][2] for i in run]
+            assert tiles == sorted(tiles)
+            totals = [sum(lengths[i] for i in run if where[i][2] == t)
+                      for t in dict.fromkeys(tiles)]
+            assert totals == sorted(totals, reverse=True)
         walk = _dq_steps if dtype == torch.float32 else _dq_folded_steps
         dq = [len(walk(blk, *shape)) for blk in range(plan["dq_blocks"])]
         if dtype == torch.float32:
             assert dq == sorted(dq, reverse=True)
+        elif major:   # a head's row tiles next to each other, last first
+            heads = [_folded_block(blk, B, Sq, H, KH, k3.BWD_BF16_ROW_TILE,
+                                   True)[:2] for blk in range(len(dq))]
+            for run in _runs(heads):
+                assert [dq[i] for i in run] == sorted(
+                    (dq[i] for i in run), reverse=True)
         else:   # B x KH blocks a row tile, the last row tiles first
             per_row_tile = shape[0] * shape[4]
             firsts = dq[::per_row_tile]
             assert firsts == sorted(firsts, reverse=True)
 
 
+def _runs(keys):
+    """The runs of equal neighbours in ``keys`` (lists of indices), checked
+    to be one run a key: a key's items are contiguous."""
+    runs, seen = [], set()
+    for i, key in enumerate(keys):
+        if runs and keys[runs[-1][0]] == key:
+            runs[-1].append(i)
+        else:
+            assert key not in seen, f"{key} is not contiguous"
+            seen.add(key)
+            runs.append([i])
+    return runs
+
+
 def test_dh192_dkdv_warpgroups_share_every_step():
     """At Dh 192 the dK/dV kernels' two warpgroups (bf16's and fp32's)
-    each sum half the head dim and take every step together, so the plan's
-    cap counts one step a split, not one a warpgroup: in bf16 4 key tiles
-    of one (batch, KV head) with 8 steps each split 8 ways on 132 SMs,
-    where the alternate-step dims (2 groups) split 4 ways; the tiles are
-    otherwise the other dims'. In fp32 the tiles are Dh 128's (one group,
-    16-query steps), and the 32 steps of key tile 0 split 32 ways."""
+    take every step together, so the plan's cap counts one step a split,
+    not one a warpgroup: in bf16 4 key tiles of one (batch, KV head) with 8
+    steps each split 8 ways on 132 SMs, where the alternate-step dims (2
+    groups) split 4 ways; the tiles are otherwise the other dims'. In bf16
+    the block's warpgroups (the alternate-step dims' groups) compute S^T
+    and dP^T once a step between them, each for an equal share of the
+    step's queries, and then each sums an equal share of dV's and dK's 192
+    columns over all the step's queries: each share a wgmma N (a multiple
+    of 8) and whole 64-byte swizzle boxes of columns. In fp32 the tiles
+    are Dh 128's (one group, 16-query steps), and the 32 steps of key tile
+    0 split 32 ways."""
     shape = (1, 256, 256, 2, 1, 192, True, 0)
     tiles = k3.bwd_tiles(192, torch.bfloat16)
     assert tiles.groups == 1
@@ -254,6 +319,66 @@ def test_dh192_dkdv_warpgroups_share_every_step():
     assert k3.bwd_tiles(192) == k3.bwd_tiles(128)
     assert k3.bwd_tiles(192).groups == 1
     assert k3.backward_plan(*shape, 132)["splits"] == 32
+    warpgroups = k3.bwd_tiles(128, torch.bfloat16).groups
+    queries, rem_q = divmod(tiles.query_tile, warpgroups)
+    columns, rem_c = divmod(192, warpgroups)
+    assert warpgroups == 2 and rem_q == rem_c == 0
+    assert queries % 8 == 0 and columns % 8 == 0 and columns * 2 % 64 == 0
+
+
+# the bf16 forward's folded rows a block (csrc/flash_attention_bf16.cu: two
+# consumer warpgroups of 64), at every head dim
+FWD_BF16_ROWS = 128
+# every Dh 192 shape chip_smoke.py checks, forward and backward: deepseek-
+# v3's prefill and training shapes, B x KH below and above 132, splits,
+# G > 1, ragged, windows, fully masked rows, the tiles' edges
+WIDE_SHAPES = list(dict.fromkeys(chip_smoke.ATTN_DS_SHAPES
+                                 + chip_smoke.BWD_DS_SHAPES + DS_SHAPES))
+
+
+@pytest.mark.parametrize("kind", ["forward", "dkdv", "dq"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_dh192_blocks_cover_each_tile_once_head_major(shape, kind):
+    """The bf16 kernels at Dh 192 launch head-major: every (batch, KV head,
+    tile) block (and every split of a dK/dV key tile) exactly once, a
+    head's blocks next to each other (so its tiles read the same K and V,
+    or Q and dO, while they are in L2), and within a head the heaviest
+    first: the forward's and dQ's last row tiles, dK/dV's key tile 0 (each
+    the most work under the causal mask, where the test checks that
+    too)."""
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    G = H // KH
+    if kind == "dkdv":
+        plan = k3.backward_plan(*shape, 132, torch.bfloat16)
+        splits, n = plan["splits"], plan["dkdv_blocks"]
+        where = [_dkdv_block(blk, B, Skv, KH, Dh, splits, torch.bfloat16)
+                 for blk in range(n)]
+        want = {(b, kh, t, c) for b in range(B) for kh in range(KH)
+                for t in range(-(-Skv // k3.BWD_BF16_KEY_TILE))
+                for c in range(splits)}
+        work = [len(_dkdv_steps(blk, *shape, splits, torch.bfloat16))
+                for blk in range(n)]
+    else:
+        rows = k3.BWD_BF16_ROW_TILE if kind == "dq" else FWD_BF16_ROWS
+        n = -(-Sq * G // rows) * B * KH
+        if kind == "dq":
+            assert n == k3.backward_plan(*shape, 132,
+                                         torch.bfloat16)["dq_blocks"]
+        where = [_folded_block(blk, B, Sq, H, KH, rows, True)
+                 for blk in range(n)]
+        want = {(b, kh, rt) for b in range(B) for kh in range(KH)
+                for rt in range(-(-Sq * G // rows))}
+        # the queries a block's rows reach: the keys it walks under causal
+        work = [_folded_queries(rt, Sq, G, rows)[1] + 1
+                for _, _, rt in where]
+    assert len(where) == len(set(where)) and set(where) == want
+    for run in _runs([w[:2] for w in where]):
+        tiles = [where[i][2] for i in run]
+        assert tiles == sorted(tiles, reverse=kind != "dkdv")
+        if causal and not window:
+            totals = [sum(work[i] for i in run if where[i][2] == t)
+                      for t in dict.fromkeys(tiles)]
+            assert totals == sorted(totals, reverse=True)
 
 
 def test_bf16_and_fp32_plans_are_keyed_apart():
