@@ -106,7 +106,8 @@ when it ends:
      first 50 queries (fully masked rows, which must give 0) and the
      M-RoPE positions permuted under a window of 100, and the same checks
      at Dh 48, 96, 112 and 192 (the backward by positions in fp32 and
-     bf16 there); then the forward at
+     bf16 there), and the fp32 kernels at Dh 192 by positions at every
+     shape of ``ATTN_DS_SHAPES`` and ``BWD_DS_SHAPES``; then the forward at
      qwen2-vl's prefill under its M-RoPE prompt's positions and the bf16
      backward at its training shape under them; K3's fp32
      backward also at chatglm3-6b's training shape (B 8, S 256, 32 heads
@@ -506,7 +507,7 @@ ATTN_SSM_SHAPES = [
 # tile edges: folded rows just below, at and above 64 and 128, keys just
 # off the fp32 forward's 16-key tile and at and off the bf16 one's 112
 # (Skv 111, 112, 113, 225); B x KH below and above the card's 132 SMs (the
-# bf16 kernel's blocks are head-major)
+# bf16 kernel's blocks are head-major, the fp32 one's row tile slowest)
 ATTN_DS = (8, 1024, 1024, 128, 128, 192, True, 0)
 ATTN_DS_SHAPES = [
     ATTN_DS,
@@ -677,7 +678,8 @@ BWD_BF16_SHAPES = [
 # S 256, 128 heads; the dK/dV kernels split each step over their
 # warpgroups), a split plan, ragged, windowed, G > 1, fully masked rows,
 # tile edges (keys at and off the 64-key tiles), B x KH below and above
-# the card's 132 SMs (the bf16 kernels' blocks are head-major)
+# the card's 132 SMs (the bf16 kernels' blocks and the fp32 dK/dV
+# kernel's are head-major)
 BWD_DS = (8, 256, 256, 128, 128, 192, True, 0)
 BWD_DS_SHAPES = [
     BWD_DS,
@@ -2437,6 +2439,76 @@ def check_flash_attention_backward(dev) -> float:
             errs_at[shape] = (max(errs), max(excess))
         torch.cuda.empty_cache()
     return errs_at
+
+
+def check_dh192_fp32_positions(dev) -> None:
+    """K3's fp32 kernels at Dh 192 (``flash_attention_wide_kernel``,
+    ``attn_bwd_dkdv_wide_kernel``, ``attn_bwd_dq_wide_kernel``) by explicit
+    positions at every shape of ``ATTN_DS_SHAPES`` (the forward) and
+    ``BWD_DS_SHAPES`` (the backward), the indices + ``POS_TRAIN_OFFSET``
+    on both sides (the index path's masks): the serving forward within
+    ``ATTN_TOL`` of the plain version, the backward through the autograd
+    path within ``BWD_TOL`` of the float64 plain backward and a second run
+    bitwise the first, each call counting its position launches. Raises
+    past any."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ref
+
+    def positions(Sq, Skv):
+        return dict(q_positions=torch.arange(POS_TRAIN_OFFSET,
+                                             POS_TRAIN_OFFSET + Sq,
+                                             device=dev),
+                    kv_positions=torch.arange(POS_TRAIN_OFFSET,
+                                              POS_TRAIN_OFFSET + Skv,
+                                              device=dev))
+    tol = ATTN_TOL[torch.float32]
+    for shape in ATTN_DS_SHAPES:
+        causal, window = shape[6], shape[7]
+        pos = positions(shape[1], shape[2])
+        q, k, v = _attn_inputs(shape, torch.float32, dev)
+        n = k3.position_launches
+        out = k3.flash_attention(q, k, v, causal=causal, window=window,
+                                 **pos)
+        torch.cuda.synchronize()
+        expect = ref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window, **pos)
+        diff = (out - expect).abs()
+        excess = float((diff - tol * expect.abs()).max())
+        print(f"K3 fp32 {shape} by positions {POS_TRAIN_OFFSET}..: max|d|="
+              f"{float(diff.max()):.3g} (tol {tol:g}, atol and rtol)")
+        if k3.position_launches != n + 1 or excess > tol:
+            raise AssertionError(f"K3 by positions disagrees with its "
+                                 f"plain version at {shape}")
+        del q, k, v, out, expect, diff
+    for shape in BWD_DS_SHAPES:
+        causal, window = shape[6], shape[7]
+        pos = positions(shape[1], shape[2])
+        q, k, v, dout = _bwd_inputs(shape, dev)
+        n = k3.position_launches
+        first = _autograd_grads(q, k, v, dout, causal, window, **pos)
+        second = _autograd_grads(q, k, v, dout, causal, window, **pos)
+        bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
+        q64, k64, v64 = q.double(), k.double(), v.double()
+        expect = ref.flash_attention_bwd_ref(
+            q64, k64, v64, ref.flash_attention_ref(
+                q64, k64, v64, causal=causal, window=window, **pos),
+            ref.attention_lse_ref(q64, k64, causal=causal, window=window,
+                                  **pos),
+            dout.double(), causal=causal, window=window, **pos)
+        errs, excess = [], []
+        for got, want in zip(first[1:], expect):
+            d = (got.double() - want).abs()
+            errs.append(float(d.max()))
+            excess.append(float((d - BWD_TOL * want.abs()).max()))
+        print(f"K3 fp32 backward {shape} by positions {POS_TRAIN_OFFSET}..: "
+              f"max|d| dq={errs[0]:.3g} dk={errs[1]:.3g} dv={errs[2]:.3g} "
+              f"(tol {BWD_TOL:g}, atol and rtol), bitwise repeat {bitwise}")
+        if not (bitwise and max(excess) <= BWD_TOL
+                and k3.position_launches == n + 2):
+            raise AssertionError(f"K3's backward by positions disagrees "
+                                 f"with its plain version at {shape}")
+        del first, second, expect, q64, k64, v64
+        torch.cuda.empty_cache()
 
 
 def check_flash_attention_backward_bf16(dev) -> dict:
@@ -5391,6 +5463,7 @@ def main() -> int:
     err3_bf16 = check_flash_attention_backward_bf16(dev)
     err3_pos, err3_pos_bf16, err3_pos_dims = \
         check_flash_attention_positions(dev)
+    check_dh192_fp32_positions(dev)
 
     _phase("7. serving: small runs vs CPU, then the main paths (smollm-135m, "
            "then minicpm3-4b's MLA at full width)")
@@ -5672,15 +5745,23 @@ def main() -> int:
                              f"prefix and the MTP block, MLA at Dh 192)",
                              DS_TRAIN_STEPS)]
     rows[-1]["design"] = (
-        "Dh 192: split-TF32 wgmma; the block's own K and V (dQ: Q and dO) "
-        "stay raw in shared memory (rows padded by 4 floats), each thread "
-        "loads and splits its register A fragment of S^T and dP^T (S, dP) "
-        "32 head-dim columns at a time (m64n16k8 over 4 k-steps, each part "
-        "summed in fresh registers); 16-query (16-key) steps split K-major "
-        "and transposed as at the other dims; both warpgroups take every "
-        "step and each sums and writes half of dK's and dV's (dQ's) 192 "
-        "columns (m64n48k8); 218 KB and 194 KB of shared memory, one block "
-        "a SM; D, no atomics")
+        "Dh 192: split-TF32 wgmma; D as at the other dims; dK/dV "
+        "(attn_bwd_dkdv_wide_kernel) and dQ (attn_bwd_dq_wide_kernel) split "
+        "each 16-query (16-key) step by product between their two "
+        "warpgroups: one computes S^T (S) from K (Q) and hands P to the "
+        "other through shared memory, the other computes dP^T (dP) from V "
+        "(dO), forms dS and hands it back, so each product runs once; the "
+        "block's own operands stay raw in shared memory (rows padded by 4 "
+        "floats) and are split in registers as the A operand, 32 head-dim "
+        "columns a part, two parts in flight; dK/dV: warpgroup 0 sums all "
+        "192 columns of dK, warpgroup 1 of dV (m64n64k8, two products in "
+        "flight); dQ: each half the columns; dK/dV blocks head-major, dQ's "
+        "query tile slowest; 222 KB and 198 KB of shared memory, one "
+        "block a SM; no atomics")
+    rows[-1]["resources"] = _kernel_resources(
+        _build.resources("flash_attention_bwd"),
+        ("attn_bwd_dot_kernel<(int)192>", "attn_bwd_dkdv_wide_kernel",
+         "attn_bwd_dq_wide_kernel"))
     rows[-4]["design"] = (
         "Dh 192: a kernel of its own; a producer warpgroup (24 registers by "
         "setmaxnreg, the consumers 240) keeps two K and two V slots of "
@@ -5708,10 +5789,19 @@ def main() -> int:
          "attn_bwd_bf16_dkdv_wide_kernel",
          "attn_bwd_bf16_dq_kernel<(int)192,"))
     rows[-2]["design"] = (
-        "Dh 192: split-TF32 wgmma, one warpgroup of 64 rows, 16-key tiles "
-        "(Q's big and small halves take 96 KB), S in three parts of the "
-        "head dim each summed in fresh registers, P.V as three m64n64k8 "
-        "column blocks")
+        "Dh 192: flash_attention_wide_kernel, split-TF32 wgmma; a producer "
+        "warpgroup (40 registers by setmaxnreg, the consumers 232) lands "
+        "raw 16-key K and V tiles by TMA (128-byte swizzle, two stages) and "
+        "splits them into one K tile and one V^T tile, each freed on its "
+        "own; two consumer warpgroups of 64 folded rows share them; Q stays "
+        "raw in shared memory (rows padded by 16 floats) and is split in "
+        "registers as the A operand of S (its columns permuted within each "
+        "16 so that a thread's fragments of two k-steps are one 16-byte "
+        "load), S in parts of 32 head-dim columns and P.V in 64-column "
+        "products, each summed in fresh registers, two in flight; the row "
+        "tile the grid's slowest axis, the last rows first")
+    rows[-2]["resources"] = _kernel_resources(
+        _build.resources("flash_attention"), ("flash_attention_wide_kernel",))
     # K3's backward with explicit positions at MLA's and zamba2's dims,
     # timed at the full-width training shapes of those dims under
     # positions POS_TRAIN_OFFSET.. (the launches: phase 7k's position

@@ -77,14 +77,10 @@
 //   32-key tiles: 64-key tiles would need 288 KB) and at Dh 128 (64 rows,
 //   32-key tiles), 224 KB at Dh 112 (128 rows, 32-key tiles: 230,432
 //   bytes with the barriers and the alignment slack, against the
-//   232,448-byte opt-in limit), 192 KB at Dh 192 (64 rows, 16-key tiles:
-//   Q's big and small halves alone take 96 KB, and 32-key tiles would need
-//   288 KB), one block per SM.
-// - P.V is issued 64 output columns at a time (three at Dh 192, whose 96
-//   O accumulators a thread leave room for one 32-register product at a
-//   time under one warpgroup's 255), or 48 at Dh 48 and 96 (m64n48k8) and
-//   56 at Dh 112 (m64n56k8), so every width is whole wgmma products; S at
-//   Dh 192 is m64n16k8 over 24 k-steps a term.
+//   232,448-byte opt-in limit), one block per SM.
+// - P.V is issued 64 output columns at a time, or 48 at Dh 48 and 96
+//   (m64n48k8) and 56 at Dh 112 (m64n56k8), so every width is whole wgmma
+//   products.
 // - Causal schedule: the row tiles are the grid's slow axis, launched
 //   heaviest (last rows) first; K/V tiles wholly outside the causal or
 //   window band are skipped.
@@ -109,14 +105,46 @@
 //   output and LSE are the index instantiation's bit for bit; a tile in
 //   which a row sees nothing leaves its m, l and accumulator exactly as
 //   they were (its scores are -inf, not the -1e30 that m starts at).
+// - Dh 192 (deepseek-v3's MLA: qk_nope 128 + qk_rope 64, v padded) has a
+//   kernel of its own, flash_attention_wide_kernel below. Split, Q alone
+//   would take 96 KB a warpgroup and K and V 48 KB a 16-key tile each.
+//   What bounds it: at deepseek-v3's prefill (B 8, S 1024, 128 heads, G
+//   1, causal) operations, 413 GFLOP x 3 at 495 TFLOP/s, 2.50 ms; each
+//   16-key tile of 64 rows is 72 m64n16k8 products for S and 18
+//   m64n64k8 for P.V. What its design does (times at that shape on an
+//   H100 80GB HBM3 at 700 W, benchmarks/torch_k3_wide_probe.py; 13.8 ms
+//   with one warpgroup of 64 rows, Q split in shared memory, the
+//   consumers converting every tile and every product waited for):
+//   . Q stays raw in shared memory (128 rows padded to 208 floats) and
+//     is split in registers as the A operand of S (wgmma_rs). Q's and
+//     K's head-dim columns are permuted within each 16 so that a thread's
+//     A fragments of two k-steps are one 16-byte load a row.
+//   . Two consumer warpgroups of 64 folded rows share each split K and
+//     V^T tile; a producer warpgroup (setmaxnreg: 40 registers, the
+//     consumers 232, which removes every spill) lands raw 16-key tiles by
+//     TMA in 128-byte-swizzled boxes of 32 columns (two stages; its
+//     reads of them meet no bank conflict) and splits them into one K and
+//     one V^T tile, each freed on its own: K once both warpgroups' S is
+//     done, V once their P.V is, so K's conversion runs under P.V and
+//     V's under S. 201 KB of shared memory.
+//   . S in six parts of 32 head-dim columns and P.V in three 64-column
+//     products, each summed in fresh registers (one 72-product chain
+//     drifted past the 2e-6 gate), two in flight: the next part's
+//     fragments are loaded and its products issued before the last is
+//     waited for (7.80 -> 7.70-7.74 ms against one at a time, the
+//     probe's "one product in flight").
+//   . The row tile the grid's slowest axis, the last rows first: at this
+//     shape 0.3-0.9 % faster than head-major blocks (the probe's "other
+//     block order"), which the bf16 wide kernel prefers.
 // The layout, split, wgmma, mbarrier and TMA helpers are in wgmma_tf32.cuh,
 // shared with the backward.
-// Left for later: overlapping the conversion with the products (the
-// split tiles are single-buffered, so the warpgroups meet at two barriers
-// a tile), and setmaxnreg for the consumers (ptxas gives 168 registers a
-// thread to 288 threads; the fp32 serving instantiations spill 64 B at Dh
-// 64, 132 B at 96 and 348 B at 112, whose 56 O accumulators a thread
-// are the most).
+// Left for later: overlapping the conversion with the products at Dh
+// 48-128 (the split tiles are single-buffered, so the warpgroups meet at
+// two barriers a tile), and setmaxnreg for their consumers (ptxas gives
+// 168 registers a thread to 288 threads; the fp32 serving instantiations
+// spill 64 B at Dh 64, 132 B at 96 and 348 B at 112, whose 56 O
+// accumulators a thread are the most); at Dh 192, wider S products than
+// m64n16k8 (32-key tiles do not fit beside Q: 248 KB).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -147,9 +175,6 @@ template <> struct Cfg<112> {
 };
 template <> struct Cfg<128> {
   static constexpr int kWG = 1, kKeys = 32, kStages = 2, kPV = 64;
-};
-template <> struct Cfg<192> {
-  static constexpr int kWG = 1, kKeys = 16, kStages = 2, kPV = 64;
 };
 
 // Shared memory of one block, in bytes from a 1024-aligned base. The
@@ -188,10 +213,6 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
   using L = Layout<DH, kPos>;
   constexpr int kKeys = L::kKeys, kRows = L::kRows, kStages = L::kStages;
   constexpr int kCons = L::kConsumers, kPV = Cfg<DH>::kPV;
-  // S's parts of the head dim: 1, or 3 at Dh 192, whose 72-product
-  // tensor-core chain a tile (24 k-steps x 3 split terms) drifted to 3.9e-6
-  // against the plain version at deepseek-v3's prefill, past the 2e-6 gate
-  constexpr int kSChunks = DH > 128 ? 3 : 1;
   // K's column groups of 4 are rotated within runs of kRot (8, or 4 at Dh
   // 48 and 112, whose 12 and 28 groups are not a multiple of 8). A raw row
   // of Dh 48 or 112 starts half a bank row (64 B) after the last, so rows
@@ -371,34 +392,24 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tmap_k,
     // while the other's products do.
     if constexpr (L::kWG == 2)
       if (wg == 1) asm volatile("bar.sync 2, 256;" ::: "memory");
-    // (in kSChunks parts of the head dim, each summed in fresh registers:
-    // the tensor core truncates as it accumulates)
     float sc[kKeys / 2];
 #pragma unroll
-    for (int c = 0; c < kSChunks; ++c) {
-      constexpr int kC = DH / 8 / kSChunks;   // k-steps a part
-      float part[kKeys / 2];
+    for (int x = 0; x < kKeys / 2; ++x) sc[x] = 0.f;
+    wgmma_fence();
 #pragma unroll
-      for (int x = 0; x < kKeys / 2; ++x) part[x] = 0.f;
-      wgmma_fence();
+    for (int k8 = 0; k8 < DH / 8; ++k8)
+      wgmma_ss<kKeys>(sc, desc(qs + k8 * kRows * 32),
+                      desc(kb + k8 * kKeys * 32), k8 > 0);
 #pragma unroll
-      for (int k8 = c * kC; k8 < (c + 1) * kC; ++k8)
-        wgmma_ss<kKeys>(part, desc(qs + k8 * kRows * 32),
-                        desc(kb + k8 * kKeys * 32), k8 > c * kC);
+    for (int k8 = 0; k8 < DH / 8; ++k8)
+      wgmma_ss<kKeys>(sc, desc(qb + k8 * kRows * 32),
+                      desc(ks + k8 * kKeys * 32), 1);
 #pragma unroll
-      for (int k8 = c * kC; k8 < (c + 1) * kC; ++k8)
-        wgmma_ss<kKeys>(part, desc(qb + k8 * kRows * 32),
-                        desc(ks + k8 * kKeys * 32), 1);
-#pragma unroll
-      for (int k8 = c * kC; k8 < (c + 1) * kC; ++k8)
-        wgmma_ss<kKeys>(part, desc(qb + k8 * kRows * 32),
-                        desc(kb + k8 * kKeys * 32), 1);
-      wgmma_commit_and_wait();
-      fence_regs(part);
-#pragma unroll
-      for (int x = 0; x < kKeys / 2; ++x)
-        sc[x] = c ? sc[x] + part[x] : part[x];
-    }
+    for (int k8 = 0; k8 < DH / 8; ++k8)
+      wgmma_ss<kKeys>(sc, desc(qb + k8 * kRows * 32),
+                      desc(kb + k8 * kKeys * 32), 1);
+    wgmma_commit_and_wait();
+    fence_regs(sc);
     if constexpr (L::kWG == 2)
       if (wg == 0) asm volatile("bar.arrive 2, 256;" ::: "memory");
 
@@ -589,6 +600,524 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
                                  H, KH, causal, window, st);
 }
 
+// ---- Dh 192 (deepseek-v3's MLA): a kernel of its own
+
+namespace wide {
+constexpr int kDH = 192, kRows = 128, kKeys = 16, kStages = 2;
+constexpr int kWGThreads = 128;   // a warpgroup
+constexpr int kCons = 256, kThreads = 384;  // + a producer warpgroup
+// a raw Q row in floats, padded: the two rows of a quarter warp's 16-byte
+// fragment loads start 16 banks apart
+constexpr int kQRow = kDH + 16;
+constexpr int kBox = 32;   // fp32 columns of a raw tile's 128-byte box
+constexpr int kPart = 32;  // head-dim columns of S summed in fresh registers
+constexpr int kPV = 64;    // output columns of one P.V product
+// the producer gives registers up to the consumers (setmaxnreg): 128 x 40
+// + 256 x 232 <= 384 x 168, the budget a 384-thread block starts with
+constexpr int kProducerRegs = 40, kConsumerRegs = 232, kLaunchRegs = 168;
+}  // namespace wide
+
+// Shared memory, in bytes from a 1024-aligned base: Q raw (rows padded),
+// the split K tile (big, small), the split V^T tile, the raw ring (a
+// stage: K, V), the barriers (each stage's full, then K's full and empty,
+// V's full and empty), then with explicit positions 4 bounds and two
+// tiles' key positions
+template <bool kPos>
+struct WideLayout {
+  static constexpr uint32_t kTile = wide::kKeys * wide::kDH * 4;
+  static constexpr uint32_t kQ = 0,
+                            kK = wide::kRows * wide::kQRow * 4,
+                            kV = kK + 2 * kTile, kRaw = kV + 2 * kTile,
+                            kBars = kRaw + wide::kStages * 2 * kTile;
+  static constexpr uint32_t kPosAt = kBars + (wide::kStages + 4) * 8;
+  static constexpr uint32_t kBytes =
+      kPosAt + (kPos ? (4 + 2 * wide::kKeys) * 4 : 0) + 1024;
+  static_assert(kBytes <= 232448, "over the 227 KB opt-in shared memory");
+  static_assert(kK % 1024 == 0 && kTile % 1024 == 0, "tiles 1024-aligned");
+};
+
+// Byte offset of the 16-byte chunk q (columns 4q..4q+3) of row r of a raw
+// tile that TMA landed in 128-byte-swizzled boxes of 32 columns
+__device__ __forceinline__ uint32_t swizzled4(int r, int q) {
+  return (q >> 3) * (wide::kKeys * 128) + r * 128 + (((q ^ r) & 7) << 4);
+}
+
+__device__ __forceinline__ float pick(const float4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+// x split into big and small halves at `off` of a split tile (its small
+// half `half` bytes after its big one)
+__device__ __forceinline__ void put_split(uint8_t* tile, uint32_t half,
+                                          uint32_t off, const float4& x) {
+  float4 hi, lo;
+  split4_int(x, hi, lo);
+  *reinterpret_cast<float4*>(tile + off) = hi;
+  *reinterpret_cast<float4*>(tile + half + off) = lo;
+}
+
+// S (64 x 16) = Q.K^T over the head dim, Q this thread's raw padded rows
+// (at `qa`: row ra, columns 4t4..; and row ra + 8) split in registers as
+// the A operand, K split K-major (big at kb, small at ks). Head-dim column
+// 16j + 4t + h of Q and K sits at position t + 4 (h & 1) of k-step 2j + (h
+// >> 1), so a thread's A fragments of two k-steps are one 16-byte load a
+// row. In parts of kPart columns, each summed in fresh registers, small
+// terms first; two parts in flight.
+__device__ __forceinline__ void wide_scores(float (&s)[8], const float* qa,
+                                            uint32_t kb, uint32_t ks) {
+  using namespace wide;
+  constexpr int kSteps = kPart / 8, kParts = kDH / kPart;
+  uint32_t ab[2][4 * kSteps], as[2][4 * kSteps];
+  float t[2][8];
+  const auto issue = [&](int p) {  // part p into t[p & 1]
+    uint32_t(&fb)[4 * kSteps] = ab[p & 1];
+    uint32_t(&fs)[4 * kSteps] = as[p & 1];
+    float(&d)[8] = t[p & 1];
+#pragma unroll
+    for (int jj = 0; jj < kSteps / 2; ++jj) {
+      const int j = p * kSteps / 2 + jj;
+      const float4 xa = *reinterpret_cast<const float4*>(qa + 16 * j);
+      const float4 xb =
+          *reinterpret_cast<const float4*>(qa + 8 * kQRow + 16 * j);
+      const float x[8] = {xa.x, xb.x, xa.y, xb.y, xa.z, xb.z, xa.w, xb.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        fb[8 * jj + e] = tf32_int(x[e]);
+        fs[8 * jj + e] = tf32_int(x[e] - __uint_as_float(fb[8 * jj + e]));
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 8; ++x) d[x] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+      wgmma_rs<16>(d, fs[4 * j], fs[4 * j + 1], fs[4 * j + 2], fs[4 * j + 3],
+                   desc(kb + (p * kSteps + j) * kKeys * 32));
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+      wgmma_rs<16>(d, fb[4 * j], fb[4 * j + 1], fb[4 * j + 2], fb[4 * j + 3],
+                   desc(ks + (p * kSteps + j) * kKeys * 32));
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j)
+      wgmma_rs<16>(d, fb[4 * j], fb[4 * j + 1], fb[4 * j + 2], fb[4 * j + 3],
+                   desc(kb + (p * kSteps + j) * kKeys * 32));
+    wgmma_commit();
+  };
+  const auto add = [&](int p) {
+    fence_regs(t[p & 1]);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) s[x] += t[p & 1][x];
+  };
+  issue(0);
+#pragma unroll
+  for (int p = 1; p < kParts; ++p) {
+    issue(p);
+    wgmma_wait<1>();  // part p - 1
+    add(p - 1);
+  }
+  wgmma_wait<0>();
+  add(kParts - 1);
+}
+
+template <bool kLse, bool kPos>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+flash_attention_wide_kernel(const __grid_constant__ CUtensorMap tmap_k,
+                            const __grid_constant__ CUtensorMap tmap_v,
+                            const float* __restrict__ q,
+                            float* __restrict__ o, float* __restrict__ lse,
+                            const int* __restrict__ q_pos,
+                            const int* __restrict__ kv_pos, int Sq, int Skv,
+                            int H, int KH, int tiles, int causal, int window,
+                            float scale) {
+  using namespace wide;
+  using L = WideLayout<kPos>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw_base);
+  const uint32_t raw_full = base + L::kBars;
+  const uint32_t k_full = raw_full + 8 * kStages, k_empty = k_full + 8;
+  const uint32_t v_full = k_empty + 8, v_empty = v_full + 8;
+
+  // block -> (batch, KV head, row tile), the row tile slowest: the last
+  // rows (the most keys under the causal mask) of every head first
+  const int G = H / KH, n_rows = Sq * G;
+  const int heads = gridDim.x / tiles;
+  const int head = blockIdx.x % heads;
+  const int rt = tiles - 1 - static_cast<int>(blockIdx.x / heads);
+  const int b = head / KH, kh = head % KH;
+  const int row0 = rt * kRows;
+  const int q_lo = row0 / G, q_hi = (min(row0 + kRows, n_rows) - 1) / G;
+  const int tid = threadIdx.x;
+  int* const bounds = reinterpret_cast<int*>(smem + L::kPosAt);
+  int* const tile_pos = bounds + 4;  // two tiles' key positions
+  int t_begin, t_end;
+  if constexpr (kPos) {
+    const int2 seen = position_tiles<kKeys, kThreads>(
+        bounds, q_pos, kv_pos, q_lo, q_hi, Skv, causal, window);
+    t_begin = seen.x;
+    t_end = seen.y;
+  } else {
+    const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+    const int k_end = causal ? min(Skv, q_hi + 1) : Skv;
+    t_begin = k_begin / kKeys;
+    t_end = k_end > k_begin ? (k_end + kKeys - 1) / kKeys : t_begin;
+  }
+  const int n = t_end - t_begin;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(raw_full + 8 * s, 1);
+    mbar_init(k_full, kWGThreads);
+    mbar_init(k_empty, kCons);
+    mbar_init(v_full, kWGThreads);
+    mbar_init(v_empty, kCons);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kCons) {  // the producer warpgroup: TMA ring and conversion
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    const int p = tid - kCons;
+    // tile t_begin + i's raw K and V into stage i % kStages
+    const auto load = [&](int i) {
+      const int s = i % kStages, key0 = (t_begin + i) * kKeys;
+      const uint32_t full = raw_full + 8 * s;
+      const uint32_t dst = base + L::kRaw + s * 2 * L::kTile;
+      mbar_expect_tx(full, 2 * L::kTile);
+#pragma unroll
+      for (int c = 0; c < kDH / kBox; ++c) {
+        tma_load_3d(dst + c * kKeys * 128, &tmap_k, full,
+                    kh * kDH + c * kBox, key0, b);
+        tma_load_3d(dst + L::kTile + c * kKeys * 128, &tmap_v, full,
+                    kh * kDH + c * kBox, key0, b);
+      }
+    };
+    if (p == 0)
+      for (int i = 0; i < min(n, kStages); ++i) load(i);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      const uint8_t* rk = smem + L::kRaw + s * 2 * L::kTile;
+      const uint8_t* rv = rk + L::kTile;
+      mbar_wait(raw_full + 8 * s, (i / kStages) & 1);
+      // K, split, K-major, its columns permuted within each 16 as
+      // wide_scores reads Q's: item (key r, columns 16j..16j+15), the keys
+      // fastest (8 threads write 8 rows of one core matrix)
+      mbar_wait(k_empty, (i & 1) ^ 1);
+      for (int u = p; u < kKeys * (kDH / 16); u += kWGThreads) {
+        const int r = u % kKeys, j = u / kKeys;
+        float4 x[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          x[m] = *reinterpret_cast<const float4*>(
+              rk + swizzled4(r, 4 * j + m));
+        uint8_t* kt = smem + L::kK;
+        put_split(kt, L::kTile, kmajor(r, 16 * j, kKeys),
+                  make_float4(x[0].x, x[1].x, x[2].x, x[3].x));
+        put_split(kt, L::kTile, kmajor(r, 16 * j + 4, kKeys),
+                  make_float4(x[0].y, x[1].y, x[2].y, x[3].y));
+        put_split(kt, L::kTile, kmajor(r, 16 * j + 8, kKeys),
+                  make_float4(x[0].z, x[1].z, x[2].z, x[3].z));
+        put_split(kt, L::kTile, kmajor(r, 16 * j + 12, kKeys),
+                  make_float4(x[0].w, x[1].w, x[2].w, x[3].w));
+      }
+      if constexpr (kPos)  // the tile's key positions, -1 past Skv
+        if (p < kKeys) {
+          const int key = (t_begin + i) * kKeys + p;
+          tile_pos[(i & 1) * kKeys + p] = key < Skv ? kv_pos[key] : -1;
+        }
+      // the split tiles were written by the generic proxy; wgmma reads them
+      // through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(k_full);
+      // V transposed (rows: the head dim; contraction: the keys), split.
+      // Position p of each group of 8 keys holds key 2 (p % 4) + p / 4, so
+      // that the S fragment a thread holds (keys 2t, 2t+1) is its A
+      // fragment of P.V (positions t, t+4). Item (half e of k-step jk,
+      // columns 4 c4..4 c4 + 3), c4 fastest; each thread starts its four
+      // column stores at a rotation, so 8 threads write 8 rows of one core
+      // matrix.
+      mbar_wait(v_empty, (i & 1) ^ 1);
+      for (int u = p; u < 4 * (kDH / 4); u += kWGThreads) {
+        const int c4 = u % (kDH / 4), e = (u / (kDH / 4)) & 1,
+                  jk = u / (kDH / 2);
+        float4 y[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          y[m] = *reinterpret_cast<const float4*>(
+              rv + swizzled4(8 * jk + e + 2 * m, c4));
+        const int rot = (c4 >> 1) & 3;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int cc = (w + rot) & 3;
+          put_split(smem + L::kV, L::kTile,
+                    kmajor(4 * c4 + cc, 8 * jk + 4 * e, kDH),
+                    make_float4(pick(y[0], cc), pick(y[1], cc),
+                                pick(y[2], cc), pick(y[3], cc)));
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(v_full);
+      // every producer thread is done with the raw stage: refill it
+      named_sync<kWGThreads>(2);
+      if (p == 0 && i + kStages < n) load(i + kStages);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+
+  // Q: this block's folded rows, raw, unscaled, rows padded; zeros past
+  // the end
+  for (int u = tid; u < kRows * (kDH / 4); u += kCons) {
+    const int r = u / (kDH / 4), c = (u % (kDH / 4)) * 4;
+    const int row = row0 + r;
+    const bool ok = row < n_rows;
+    const float* src =
+        ok ? q + ((static_cast<int64_t>(b) * Sq + row / G) * H + kh * G +
+                  row % G) * kDH + c
+           : q;
+    cp_async16(base + L::kQ + (r * kQRow + c) * 4, src, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  consumers_sync<kCons>();
+
+  // this thread's two rows of the warpgroup's 64 (the accumulator layout)
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int t4 = lane % 4;
+  const int ra = wg * 64 + warp * 16 + lane / 4;
+  const int rA = row0 + ra, rB = rA + 8;
+  const bool okA = rA < n_rows, okB = rB < n_rows;
+  const int posA = rA / G, posB = rB / G;
+  // the keys each of this thread's two rows sees are [lo, hi]
+  const int hiA = okA ? (causal ? min(posA, Skv - 1) : Skv - 1) : -1;
+  const int hiB = okB ? (causal ? min(posB, Skv - 1) : Skv - 1) : -1;
+  const int loA = window > 0 ? posA - window + 1 : 0;
+  const int loB = window > 0 ? posB - window + 1 : 0;
+  int qpA = 0, qpB = 0;  // explicit positions of the two rows
+  if constexpr (kPos) {
+    qpA = okA ? q_pos[posA] : 0;
+    qpB = okB ? q_pos[posB] : 0;
+  }
+  const float* qa =
+      reinterpret_cast<const float*>(smem + L::kQ) + ra * kQRow + 4 * t4;
+  const uint32_t kb = base + L::kK, ks = kb + L::kTile;
+  const uint32_t vb = base + L::kV, vs = vb + L::kTile;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  float acc[kDH / 2];
+#pragma unroll
+  for (int x = 0; x < kDH / 2; ++x) acc[x] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int key0 = (t_begin + i) * kKeys;
+    mbar_wait(k_full, i & 1);
+    float sc[kKeys / 2];
+#pragma unroll
+    for (int x = 0; x < kKeys / 2; ++x) sc[x] = 0.f;
+    wide_scores(sc, qa, kb, ks);
+    mbar_arrive(k_empty);  // the K tile may be refilled
+
+    // online softmax on the fragments: sc[4j + e] is (rA, key 8j + 2t4 + e)
+    // and sc[4j + 2 + e] is (rB, the same key)
+    float mxA = kNegInf, mxB = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + 2 * t4 + e;
+        bool inA, inB;
+        if constexpr (kPos) {
+          const int kp = tile_pos[(i & 1) * kKeys + 8 * j + 2 * t4 + e];
+          inA = okA && sees(qpA, kp, causal, window);
+          inB = okB && sees(qpB, kp, causal, window);
+        } else {
+          inA = key >= loA && key <= hiA;
+          inB = key >= loB && key <= hiB;
+        }
+        sc[4 * j + e] = inA ? sc[4 * j + e] * scale : -INFINITY;
+        sc[4 * j + 2 + e] = inB ? sc[4 * j + 2 + e] * scale : -INFINITY;
+        mxA = fmaxf(mxA, sc[4 * j + e]);
+        mxB = fmaxf(mxB, sc[4 * j + 2 + e]);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, off));
+      mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, off));
+    }
+    const float mA = fmaxf(m_a, mxA), mB = fmaxf(m_b, mxB);
+    const float cA = expf(m_a - mA), cB = expf(m_b - mB);
+    m_a = mA;
+    m_b = mB;
+    uint32_t pb[kKeys / 2], ps[kKeys / 2];
+    float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+    for (int x = 0; x < kKeys / 2; ++x) {
+      const bool rowA = (x & 2) == 0;
+      const float pr = expf(sc[x] - (rowA ? mA : mB));  // masked: exp(-inf)
+      if (rowA) sumA += pr;
+      else sumB += pr;
+      pb[x] = tf32_int(pr);
+      ps[x] = tf32_int(pr - __uint_as_float(pb[x]));
+    }
+    l_a = l_a * cA + sumA;  // this thread's keys; the quad sums at the end
+    l_b = l_b * cB + sumB;
+
+    // O = O*corr + P.V, kPV output columns a product: each in fresh
+    // registers, small terms first, then one rounded fp32 FMA; two in
+    // flight
+    mbar_wait(v_full, i & 1);
+    float pv[2][kPV / 2];
+    const auto issue_pv = [&](int c) {
+      float(&d)[kPV / 2] = pv[c & 1];
+#pragma unroll
+      for (int x = 0; x < kPV / 2; ++x) d[x] = 0.f;
+      const uint32_t vbc = vb + c * kPV * 32, vsc = vs + c * kPV * 32;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+        wgmma_rs<kPV>(d, ps[4 * j], ps[4 * j + 2], ps[4 * j + 1],
+                      ps[4 * j + 3], desc(vbc + j * kDH * 32));
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+        wgmma_rs<kPV>(d, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
+                      pb[4 * j + 3], desc(vsc + j * kDH * 32));
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+        wgmma_rs<kPV>(d, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1],
+                      pb[4 * j + 3], desc(vbc + j * kDH * 32));
+      wgmma_commit();
+    };
+    const auto add_pv = [&](int c) {
+      fence_regs(pv[c & 1]);
+#pragma unroll
+      for (int x = 0; x < kPV / 2; ++x)
+        acc[kPV / 2 * c + x] =
+            fmaf(acc[kPV / 2 * c + x], (x & 2) ? cB : cA, pv[c & 1][x]);
+    };
+    issue_pv(0);
+#pragma unroll
+    for (int c = 1; c < kDH / kPV; ++c) {
+      issue_pv(c);
+      wgmma_wait<1>();  // product c - 1
+      add_pv(c - 1);
+    }
+    wgmma_wait<0>();
+    add_pv(kDH / kPV - 1);
+    mbar_arrive(v_empty);  // the V tile may be refilled
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float dA = fmaxf(l_a, 1e-30f), dB = fmaxf(l_b, 1e-30f);
+  if constexpr (kLse) {  // (B, H, Sq); one thread of the row's quad writes
+    const int64_t bh = static_cast<int64_t>(b) * H + kh * G;
+    if (okA && t4 == 0)
+      lse[(bh + rA % G) * Sq + posA] = l_a > 0.f ? m_a + logf(l_a) : INFINITY;
+    if (okB && t4 == 0)
+      lse[(bh + rB % G) * Sq + posB] = l_b > 0.f ? m_b + logf(l_b) : INFINITY;
+  }
+  if (okA) {
+    float* dst =
+        o + ((static_cast<int64_t>(b) * Sq + posA) * H + kh * G + rA % G) *
+                kDH;
+#pragma unroll
+    for (int j = 0; j < kDH / 8; ++j)
+      store2(dst + 8 * j + 2 * t4, acc[4 * j] / dA, acc[4 * j + 1] / dA);
+  }
+  if (okB) {
+    float* dst =
+        o + ((static_cast<int64_t>(b) * Sq + posB) * H + kh * G + rB % G) *
+                kDH;
+#pragma unroll
+    for (int j = 0; j < kDH / 8; ++j)
+      store2(dst + 8 * j + 2 * t4, acc[4 * j + 2] / dB, acc[4 * j + 3] / dB);
+  }
+}
+
+// The (B, Skv, KH*192) view of k or v, read in boxes of (1, 16 keys, 32
+// columns) with the 128-byte swizzle; keys past Skv read as zeros.
+// Returns 0, or kEncodeError + the CUresult.
+int encode_wide(CUtensorMap* map, const void* base, int B, int Skv, int KH) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(KH) * wide::kDH,
+                              static_cast<cuuint64_t>(Skv),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {dims[0] * 4, dims[0] * dims[1] * 4};
+  const cuuint32_t box[3] = {wide::kBox, wide::kKeys, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+template <bool kLse, bool kPos>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                float* lse, const int* q_pos, const int* kv_pos, int B,
+                int Sq, int Skv, int H, int KH, int causal, int window,
+                cudaStream_t st) {
+  using L = WideLayout<kPos>;
+  const auto kernel = flash_attention_wide_kernel<kLse, kPos>;
+  static bool configured = false;  // the attribute holds per function
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kBytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    // a build that starts a block below the registers setmaxnreg.inc waits
+    // for would hang: refuse it
+    cudaFuncAttributes attr;
+    const cudaError_t a = cudaFuncGetAttributes(&attr, kernel);
+    if (a != cudaSuccess) return static_cast<int>(a);
+    if (attr.numRegs < wide::kLaunchRegs)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    configured = true;
+  }
+  const int G = H / KH;
+  const long long tiles =
+      (static_cast<long long>(Sq) * G + wide::kRows - 1) / wide::kRows;
+  const long long blocks = tiles * B * KH;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_k, map_v;
+  int rc = encode_wide(&map_k, k, B, Skv, KH);
+  if (rc == 0) rc = encode_wide(&map_v, v, B, Skv, KH);
+  if (rc != 0) return rc;
+  const float scale =
+      static_cast<float>(1.0 / sqrt(static_cast<double>(wide::kDH)));
+  flash_attention_wide_kernel<kLse, kPos>
+      <<<static_cast<unsigned>(blocks), wide::kThreads, L::kBytes, st>>>(
+      map_k, map_v, static_cast<const float*>(q), static_cast<float*>(o), lse,
+      q_pos, kv_pos, Sq, Skv, H, KH, static_cast<int>(tiles), causal, window,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dh 192: the position instantiations when q_pos is set, else the index
+// ones; the training instantiation when lse is set, else serving
+int dispatch_wide(const void* q, const void* k, const void* v, void* o,
+                  float* lse, const int* q_pos, const int* kv_pos, int B,
+                  int Sq, int Skv, int H, int KH, int causal, int window,
+                  cudaStream_t st) {
+  if (q_pos != nullptr) {
+    if (lse != nullptr)
+      return launch_wide<true, true>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
+                                     Skv, H, KH, causal, window, st);
+    return launch_wide<false, true>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
+                                    Skv, H, KH, causal, window, st);
+  }
+  if (lse != nullptr)
+    return launch_wide<true, false>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
+                                    Skv, H, KH, causal, window, st);
+  return launch_wide<false, false>(q, k, v, o, lse, q_pos, kv_pos, B, Sq,
+                                   Skv, H, KH, causal, window, st);
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success),
@@ -628,7 +1157,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       return dispatch<128>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
                            window, st);
     case 192:
-      return dispatch<192>(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
+      return dispatch_wide(q, k, v, o, l, qp, kp, B, Sq, Skv, H, KH, causal,
                            window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

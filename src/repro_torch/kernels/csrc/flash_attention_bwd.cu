@@ -138,19 +138,49 @@
 //   own operand stays raw in shared memory (48 KB each, rows padded by 4
 //   floats so that rows 8 apart start 4 banks apart) and is the register
 //   A operand of S^T (S) and dP^T (dP): each thread loads its fragment of
-//   32 head-dim columns at a time, splits it in registers and issues
-//   m64n16k8 over those 4 k-steps, each 32-column part of S^T and dP^T
-//   summed in fresh registers (the fp32 forward at 192 drifted past its
-//   gate with one 72-product chain a tile). The steps are 16 queries
-//   (16 keys in dQ), split K-major and transposed as at the other dims (24
-//   KB each). The 64 x 192 dK and dV sums (192 registers a thread for one
-//   warpgroup) are shared out: both warpgroups take every step, each
-//   computes S^T and dP^T and sums half of dK's and dV's columns (dQ's
-//   likewise), and each writes its half. Shared memory: (b') 218 KB, (c')
-//   194 KB; 256 threads a block, one a SM.
-// Left for later: computing S and dP once for both dK/dV and dQ (and once
-// for both warpgroups at Dh 192), a deeper cp.async ring (shared memory is
-// full at Dh 64), folding D and the reduce into the other kernels.
+//   32 head-dim columns at a time and splits it in registers (m64n16k8
+//   over those 4 k-steps, each part summed in fresh registers: the fp32
+//   forward at 192 drifted past its gate with one 72-product chain a
+//   tile). The steps are 16 queries (16 keys in dQ), split K-major and
+//   transposed as at the other dims (24 KB each). What bounds them: at
+//   deepseek-v3's training step (B 8, S 256, 128 heads, G 1, causal) the
+//   bytes, 0.481 ms for 1.61 GB (64.7 GFLOP x 3 split TF32 take 0.392
+//   ms); but a step's products are m64n16k8 and m64n64k8 on one 64-row
+//   tile, each block alone on its SM. What their design does (times at
+//   that shape on an H100 80GB HBM3 at 700 W, benchmarks/
+//   torch_k3_wide_probe.py; 4.39 ms for D, dK/dV and dQ with both
+//   warpgroups computing S^T and dP^T (S, dP) in full every step):
+//   . The two warpgroups split a step by product, so each runs once: in
+//     (b') warpgroup 0 converts the step's Q, computes S^T from K and P^T
+//     from it and hands P^T to warpgroup 1 through shared memory (8
+//     floats a thread, in the accumulator layout, behind named barrier
+//     3); warpgroup 1 converts dO, computes dP^T from V, splits P^T for
+//     dV, forms dS^T and hands it back (barrier 4); then warpgroup 0 sums
+//     all 192 columns of dK and warpgroup 1 of dV (m64n64k8), 96
+//     accumulators a thread each. (c') likewise: warpgroup 0 K (K-major
+//     and transposed) and S, warpgroup 1 V and dP; each then sums half of
+//     dQ's columns from K^T, which warpgroup 0 rewrites only once
+//     warpgroup 1 is done with it (barrier 5). Each warpgroup waits only
+//     at its own barriers for its own tile; the hand-overs are the only
+//     meetings. Four products a step (three in dQ) where both warpgroups
+//     computing S^T and dP^T did six (five).
+//   . Two products in flight: S^T's (S's) next 32-column part is loaded,
+//     split and issued before the last is waited for, and dK's, dV's and
+//     dQ's column products likewise (3.39 -> 3.32 ms against one at a
+//     time, the probe's "one product in flight").
+//   . dQ's blocks the query tile slowest (the last rows first): 1.3 %
+//     faster at this shape than head-major (the probe's "other block
+//     order"); dK/dV's head-major (a head's key tiles next to each other,
+//     key tile 0 first), as the bf16 kernel's: within the spread of the
+//     other order at this shape.
+//   Shared memory: (b') 222 KB, (c') 198 KB; 256 threads a block, one a
+//   SM; dK/dV at 255 registers spills 120 B (56 B with positions).
+// Left for later: computing S and dP once for both dK/dV and dQ, a deeper
+// cp.async ring (shared memory is full at Dh 64), folding D and the reduce
+// into the other kernels; at Dh 192 wider S products than m64n16k8 (32-row
+// steps do not fit beside K and V) and overlapping a step's conversion
+// with the last step's products (a trial that converted the next step's
+// K-major tile during this one's hand-over was slower).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -188,14 +218,15 @@ template <> struct Cfg<128> {
   static constexpr int kWG = 1, kQ = 16, kK = 16, kN = 64;
 };
 // Dh 192's kernels (b') and (c'): kWG counts the groups that share out
-// the steps, 1 (both warpgroups take every step, each half the head dim)
+// the steps, 1 (both warpgroups take every step, split between them by
+// product)
 template <> struct Cfg<192> {
-  static constexpr int kWG = 1, kQ = 16, kK = 16, kN = 48;
+  static constexpr int kWG = 1, kQ = 16, kK = 16;
 };
 constexpr int kSmemLimit = 232448;  // the opt-in shared memory of a block
 
-// (b') and (c'): the head dim, the threads a block, the columns of the
-// head dim each warpgroup sums, a raw row of the block's own operand
+// (b') and (c'): the head dim, the threads a block, the columns of dQ
+// each warpgroup sums in (c'), a raw row of the block's own operand
 // (padded: rows 8 apart start 4 banks apart, so a warp's A-fragment loads
 // meet no conflict) and the head-dim columns of one part of S^T (S) and
 // dP^T (dP), summed in fresh registers
@@ -204,10 +235,14 @@ constexpr int kWideThreads = 2 * kWGThreads;
 constexpr int kWideHalf = kWideDH / 2;
 constexpr int kWideRow = kWideDH + 4;
 constexpr int kWidePart = 32;
+// (b') and (c')'s named barriers between the warpgroups (group_sync takes
+// 1 and 2): P handed over, dS handed back, and in (c') K^T free again
+constexpr int kBarP = 3, kBarDS = 4, kBarKt = 5;
 
 // (b')'s shared memory from a 128-aligned base: K and V raw, then the
 // step's Q, dO, Q^T and dO^T split, its raw Q and dO, two sets of lse and
-// D, then, with explicit positions, 4 bounds
+// D, the hand-over slots (8 floats a thread of a warpgroup), then, with
+// explicit positions, 4 bounds
 template <bool kPos>
 struct DkdvWideSmem {
   static constexpr int kQT = Cfg<kWideDH>::kQ;
@@ -217,13 +252,14 @@ struct DkdvWideSmem {
                             kO = kQ + 2 * kTh, kQt = kO + 2 * kTh,
                             kOt = kQt + 2 * kTh, kRawQ = kOt + 2 * kTh,
                             kRawO = kRawQ + kTh, kStats = kRawO + kTh;
-  static constexpr uint32_t kPosAt = kStats + 2 * 2 * kQT * 4;
+  static constexpr uint32_t kX = kStats + 2 * 2 * kQT * 4;
+  static constexpr uint32_t kPosAt = kX + 8 * kWGThreads * 4;
   static constexpr uint32_t kBytes = kPosAt + (kPos ? 16 : 0) + 128;
   static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
 };
 
-// (c')'s: Q and dO raw, then the step's K, V and K^T split and its raw K
-// and V, then, with explicit positions, 4 bounds
+// (c')'s: Q and dO raw, then the step's K, V and K^T split, its raw K
+// and V, the hand-over slots, then, with explicit positions, 4 bounds
 template <bool kPos>
 struct DqWideSmem {
   static constexpr int kKT = Cfg<kWideDH>::kK;
@@ -231,8 +267,9 @@ struct DqWideSmem {
   static constexpr uint32_t kTh = kKT * kWideDH * 4;
   static constexpr uint32_t kQ = 0, kO = kRaw, kK = 2 * kRaw,
                             kV = kK + 2 * kTh, kKt = kV + 2 * kTh,
-                            kRawK = kKt + 2 * kTh, kRawV = kRawK + kTh;
-  static constexpr uint32_t kPosAt = kRawV + kTh;
+                            kRawK = kKt + 2 * kTh, kRawV = kRawK + kTh,
+                            kX = kRawV + kTh;
+  static constexpr uint32_t kPosAt = kX + 8 * kWGThreads * 4;
   static constexpr uint32_t kBytes = kPosAt + (kPos ? 16 : 0) + 128;
   static_assert(kBytes <= kSmemLimit, "over the opt-in shared memory");
 };
@@ -429,12 +466,11 @@ __device__ __forceinline__ void copy_rows(const float* src, int64_t batch_off,
 
 // acc += A . B over K/8 k-steps: A from registers (a[4j..4j+3] are the
 // accumulator fragment of a 64 x K product, so positions t, t+4 of k-step j
-// are its columns 8j + 2t, 8j + 2t + 1), B the transposed operand (ROWS
-// rows, big half at `bb`, small half at `bs`) for DH output columns from
-// its row at `bb`, N = Cfg<DH>::kN at a time (ROWS = DH but at Dh 192,
-// where a warpgroup sums half the head dim: DH 96 of ROWS 192). Split
-// TF32, small terms first, in fresh registers, then one fp32 add.
-template <int K, int DH, int ROWS = DH>
+// are its columns 8j + 2t, 8j + 2t + 1), B the transposed operand (DH
+// rows, big half at `bb`, small half at `bs`), N = Cfg<DH>::kN output
+// columns at a time. Split TF32, small terms first, in fresh registers,
+// then one fp32 add.
+template <int K, int DH>
 __device__ __forceinline__ void product_rs(float (&acc)[DH / 2],
                                            const uint32_t (&ab)[K / 2],
                                            const uint32_t (&as)[K / 2],
@@ -450,15 +486,15 @@ __device__ __forceinline__ void product_rs(float (&acc)[DH / 2],
 #pragma unroll
     for (int j = 0; j < K / 8; ++j)
       wgmma_rs<N>(t, as[4 * j], as[4 * j + 2], as[4 * j + 1], as[4 * j + 3],
-                  desc(bb + c * N * 32 + j * ROWS * 32));
+                  desc(bb + c * N * 32 + j * DH * 32));
 #pragma unroll
     for (int j = 0; j < K / 8; ++j)
       wgmma_rs<N>(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
-                  desc(bs + c * N * 32 + j * ROWS * 32));
+                  desc(bs + c * N * 32 + j * DH * 32));
 #pragma unroll
     for (int j = 0; j < K / 8; ++j)
       wgmma_rs<N>(t, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
-                  desc(bb + c * N * 32 + j * ROWS * 32));
+                  desc(bb + c * N * 32 + j * DH * 32));
     wgmma_commit_and_wait();
     fence_regs(t);
 #pragma unroll
@@ -975,18 +1011,19 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---- (b') and (c'): Dh 192
 
 // cp.async of 64 rows row0.. of head `head` of a (.., rows, heads, 192)
-// tensor into a raw tile of rows padded to kWideRow floats, by the block's
-// kWideThreads threads, in 16-byte chunks; rows past `rows` are zero-filled
+// tensor into a raw tile of rows padded to kWideRow floats, by T threads
+// (thread tid of them), in 16-byte chunks; rows past `rows` are zero-filled
+template <int T>
 __device__ __forceinline__ void copy_padded(const float* src,
                                             int64_t batch_off, int row0,
                                             int rows, int heads, int head,
                                             uint32_t dst, int tid) {
   constexpr int kVec = kWideDH / 4;
-  constexpr int kPasses = 64 * kVec / kWideThreads;
-  static_assert(64 * kVec % kWideThreads == 0, "whole passes");
+  constexpr int kPasses = 64 * kVec / T;
+  static_assert(64 * kVec % T == 0, "whole passes");
 #pragma unroll
   for (int it = 0; it < kPasses; ++it) {
-    const int u = it * kWideThreads + tid;
+    const int u = it * T + tid;
     const int r = u / kVec, c = (u % kVec) * 4;
     const bool ok = row0 + r < rows;
     const float* p =
@@ -1013,62 +1050,130 @@ __device__ __forceinline__ void wide_fragment(const float* a, int kk,
   }
 }
 
-// s (64 x 16) += A1 . B1^T and dp += A2 . B2^T over the 192-wide head dim:
-// A1, A2 the block's raw padded operands (this thread's fragment row at
-// a1, a2), split in registers as they are loaded; B1, B2 a step's 16 rows
-// split K-major (big halves at b1, b2, small ones `bh` bytes on). In parts
-// of kWidePart columns, both products of a part issued together and each
-// summed in fresh registers, small terms first.
-__device__ __forceinline__ void wide_scores(float (&s)[8], float (&dp)[8],
-                                            const float* a1, const float* a2,
-                                            uint32_t b1, uint32_t b2,
-                                            uint32_t bh) {
-  constexpr int kSteps = kWidePart / 8, kRowBytes = 16 * 32;
-#pragma unroll 1
-  for (int part = 0; part < kWideDH / kWidePart; ++part) {
-    uint32_t ab1[4 * kSteps], as1[4 * kSteps], ab2[4 * kSteps],
-        as2[4 * kSteps];
+// s (64 x 16) += A . B^T over the 192-wide head dim: A the block's raw
+// padded operand (this thread's fragment row at a), split in registers as
+// it is loaded; B a step's 16 rows split K-major (big half at b, small
+// half `bh` bytes on). In parts of kWidePart columns, each summed in fresh
+// registers, small terms first; two parts in flight: part p + 1's
+// fragments are loaded and its products issued before part p is waited
+// for.
+__device__ __forceinline__ void wide_score(float (&s)[8], const float* a,
+                                           uint32_t b, uint32_t bh) {
+  constexpr int kSteps = kWidePart / 8, kParts = kWideDH / kWidePart;
+  constexpr int kRowBytes = 16 * 32;
+  uint32_t ab[2][4 * kSteps], as[2][4 * kSteps];
+  float t[2][8];
+  const auto issue = [&](int p) {  // part p into t[p & 1]
+    uint32_t(&fb)[4 * kSteps] = ab[p & 1];
+    uint32_t(&fs)[4 * kSteps] = as[p & 1];
+    float(&d)[8] = t[p & 1];
 #pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      wide_fragment(a1, part * kSteps + j, ab1 + 4 * j, as1 + 4 * j);
-      wide_fragment(a2, part * kSteps + j, ab2 + 4 * j, as2 + 4 * j);
-    }
-    float t1[8], t2[8];
+    for (int j = 0; j < kSteps; ++j)
+      wide_fragment(a, p * kSteps + j, fb + 4 * j, fs + 4 * j);
 #pragma unroll
-    for (int x = 0; x < 8; ++x) t1[x] = t2[x] = 0.f;
+    for (int x = 0; x < 8; ++x) d[x] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      const uint32_t off = (part * kSteps + j) * kRowBytes;
-      wgmma_rs<16>(t1, as1[4 * j], as1[4 * j + 1], as1[4 * j + 2],
-                   as1[4 * j + 3], desc(b1 + off));
-      wgmma_rs<16>(t2, as2[4 * j], as2[4 * j + 1], as2[4 * j + 2],
-                   as2[4 * j + 3], desc(b2 + off));
-    }
+    for (int j = 0; j < kSteps; ++j)
+      wgmma_rs<16>(d, fs[4 * j], fs[4 * j + 1], fs[4 * j + 2], fs[4 * j + 3],
+                   desc(b + (p * kSteps + j) * kRowBytes));
 #pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      const uint32_t off = (part * kSteps + j) * kRowBytes;
-      wgmma_rs<16>(t1, ab1[4 * j], ab1[4 * j + 1], ab1[4 * j + 2],
-                   ab1[4 * j + 3], desc(b1 + bh + off));
-      wgmma_rs<16>(t2, ab2[4 * j], ab2[4 * j + 1], ab2[4 * j + 2],
-                   ab2[4 * j + 3], desc(b2 + bh + off));
-    }
+    for (int j = 0; j < kSteps; ++j)
+      wgmma_rs<16>(d, fb[4 * j], fb[4 * j + 1], fb[4 * j + 2], fb[4 * j + 3],
+                   desc(b + bh + (p * kSteps + j) * kRowBytes));
 #pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      const uint32_t off = (part * kSteps + j) * kRowBytes;
-      wgmma_rs<16>(t1, ab1[4 * j], ab1[4 * j + 1], ab1[4 * j + 2],
-                   ab1[4 * j + 3], desc(b1 + off));
-      wgmma_rs<16>(t2, ab2[4 * j], ab2[4 * j + 1], ab2[4 * j + 2],
-                   ab2[4 * j + 3], desc(b2 + off));
-    }
-    wgmma_commit_and_wait();
-    fence_regs(t1);
-    fence_regs(t2);
+    for (int j = 0; j < kSteps; ++j)
+      wgmma_rs<16>(d, fb[4 * j], fb[4 * j + 1], fb[4 * j + 2], fb[4 * j + 3],
+                   desc(b + (p * kSteps + j) * kRowBytes));
+    wgmma_commit();
+  };
+  const auto add = [&](int p) {
+    fence_regs(t[p & 1]);
 #pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      s[x] += t1[x];
-      dp[x] += t2[x];
-    }
+    for (int x = 0; x < 8; ++x) s[x] += t[p & 1][x];
+  };
+  issue(0);
+#pragma unroll
+  for (int p = 1; p < kParts; ++p) {
+    issue(p);
+    wgmma_wait<1>();  // part p - 1
+    add(p - 1);
+  }
+  wgmma_wait<0>();
+  add(kParts - 1);
+}
+
+// acc (64 x COLS) += A . B over a step's 16 positions (2 k-steps): A from
+// registers (big parts ab, small parts as, each the accumulator fragment
+// of a 64 x 16 product, so positions t, t+4 of k-step j are its columns
+// 8j + 2t, 8j + 2t + 1), B the step's transposed split tile (192 rows a
+// k-step) from its row at `bb` (small half at `bs`). N output columns a
+// product, each summed in fresh registers and then added in one fp32 add,
+// small terms first; two in flight.
+template <int COLS, int N>
+__device__ __forceinline__ void wide_product(float (&acc)[COLS / 2],
+                                             const uint32_t (&ab)[8],
+                                             const uint32_t (&as)[8],
+                                             uint32_t bb, uint32_t bs) {
+  constexpr int kChunks = COLS / N;
+  static_assert(COLS % N == 0, "whole wgmma products");
+  float t[2][N / 2];
+  const auto issue = [&](int c) {  // columns [cN, cN + N) into t[c & 1]
+    float(&d)[N / 2] = t[c & 1];
+#pragma unroll
+    for (int x = 0; x < N / 2; ++x) d[x] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wgmma_rs<N>(d, as[4 * j], as[4 * j + 2], as[4 * j + 1], as[4 * j + 3],
+                  desc(bb + c * N * 32 + j * kWideDH * 32));
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wgmma_rs<N>(d, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
+                  desc(bs + c * N * 32 + j * kWideDH * 32));
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wgmma_rs<N>(d, ab[4 * j], ab[4 * j + 2], ab[4 * j + 1], ab[4 * j + 3],
+                  desc(bb + c * N * 32 + j * kWideDH * 32));
+    wgmma_commit();
+  };
+  const auto add = [&](int c) {
+    fence_regs(t[c & 1]);
+#pragma unroll
+    for (int x = 0; x < N / 2; ++x) acc[N / 2 * c + x] += t[c & 1][x];
+  };
+  issue(0);
+#pragma unroll
+  for (int c = 1; c < kChunks; ++c) {
+    issue(c);
+    wgmma_wait<1>();  // chunk c - 1
+    add(c - 1);
+  }
+  wgmma_wait<0>();
+  add(kChunks - 1);
+}
+
+// A step's 8 fragment values a thread (64 rows x 16 columns, fp32) handed
+// between the warpgroups through shared memory, as two float4 a thread
+__device__ __forceinline__ void hand_over(float4* x, int tid,
+                                          const float (&v)[8]) {
+  x[tid] = make_float4(v[0], v[1], v[2], v[3]);
+  x[kWGThreads + tid] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void take_over(const float4* x, int tid,
+                                          float (&v)[8]) {
+  const float4 a = x[tid], b = x[kWGThreads + tid];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// big and small TF32 parts of a fragment
+__device__ __forceinline__ void split8(const float (&v)[8], uint32_t (&big)[8],
+                                       uint32_t (&small)[8]) {
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    big[x] = tf32_int(v[x]);
+    small[x] = tf32_int(v[x] - __uint_as_float(big[x]));
   }
 }
 
@@ -1092,13 +1197,16 @@ attn_bwd_dkdv_wide_kernel(const float* __restrict__ q,
   const uint32_t base = (raw_base + 127u) & ~127u;
   uint8_t* smem = smem_raw + (base - raw_base);
 
-  // block -> (key tile, batch, KV head, split), as (b)
+  // block -> (batch, KV head, key tile, split), split fastest; head-major:
+  // a head's key tiles next to each other (they read the same Q and dO
+  // while it is in L2), key tile 0 (the most steps under the causal mask)
+  // first
+  const int n_kt = (Skv + kKeyTile - 1) / kKeyTile;
   int id = blockIdx.x;
   const int c = id % splits;
   id /= splits;
-  const int kh = id % KH;
-  id /= KH;
-  const int b = id % B, k0 = (id / B) * kKeyTile;
+  const int kt = id % n_kt, head = id / n_kt;
+  const int b = head / KH, kh = head % KH, k0 = kt * kKeyTile;
   const int G = H / KH;
   const int wg = threadIdx.x / kWGThreads, tid = threadIdx.x % kWGThreads;
 
@@ -1142,32 +1250,33 @@ attn_bwd_dkdv_wide_kernel(const float* __restrict__ q,
   const int steps = static_cast<int>(n * (c + 1) / splits) - s_lo;
 
   const int64_t q_batch = static_cast<int64_t>(b) * Sq;
-  // the i-th step's raw Q (warpgroup 0) or dO (1), and its lse and D
+  // the i-th step's raw Q and lse (warpgroup 0) or dO and D (1)
   auto issue = [&](int i) {
     const int s = s_lo + i;
     const int h = kh * G + s / nq, q0 = (qt0 + s % nq) * QT;
     copy_rows<QT, DH>(wg ? dout : q, q_batch, q0, Sq, H, h,
                       base + (wg ? L::kRawO : L::kRawQ), tid);
-    if (wg == 0 && tid < QT) {
-      const uint32_t st = base + L::kStats + (i & 1) * 2 * QT * 4 + tid * 4;
+    if (tid < QT) {
+      const uint32_t st =
+          base + L::kStats + ((i & 1) * 2 + wg) * QT * 4 + tid * 4;
       const bool ok = q0 + tid < Sq;
       const int64_t off =
           ok ? (static_cast<int64_t>(b) * H + h) * Sq + q0 + tid : 0;
-      cp_async4(st, lse + off, ok ? 4 : 0);
-      cp_async4(st + QT * 4, D + off, ok ? 4 : 0);
+      cp_async4(st, (wg ? D : lse) + off, ok ? 4 : 0);
     }
     cp_async_commit();
   };
   if (steps > 0) issue(0);
 
-  // K and V: this block's keys, raw, rows padded; zeros past Skv
+  // K (warpgroup 0) or V (1): this block's keys, raw, rows padded; zeros
+  // past Skv
   const int64_t kv_batch = static_cast<int64_t>(b) * Skv;
-  copy_padded(k, kv_batch, k0, Skv, KH, kh, base + L::kK, threadIdx.x);
-  copy_padded(v, kv_batch, k0, Skv, KH, kh, base + L::kV, threadIdx.x);
+  copy_padded<kWGThreads>(wg ? v : k, kv_batch, k0, Skv, KH, kh,
+                          base + (wg ? L::kV : L::kK), tid);
   cp_async_commit();
 
-  // this thread's two key rows of the accumulators, its fragment rows of
-  // K and V, and the transposed tiles' rows of its half of the head dim
+  // this thread's two key rows of the accumulators and its fragment row
+  // of K (or V)
   const int warp = tid / 32, lane = tid % 32, t4 = lane % 4;
   const int ra = warp * 16 + lane / 4;
   const int keyA = k0 + ra, keyB = keyA + 8;
@@ -1176,95 +1285,107 @@ attn_bwd_dkdv_wide_kernel(const float* __restrict__ q,
     kpA = keyA < Skv ? kv_pos[keyA] : -1;
     kpB = keyB < Skv ? kv_pos[keyB] : -1;
   }
-  const float* ka =
-      reinterpret_cast<const float*>(smem + L::kK) + ra * kWideRow + t4;
-  const float* va =
-      reinterpret_cast<const float*>(smem + L::kV) + ra * kWideRow + t4;
-  const uint32_t half = wg * kWideHalf * 32;
-  float dk_acc[kWideHalf / 2], dv_acc[kWideHalf / 2];
+  const float* fa = reinterpret_cast<const float*>(
+                        smem + (wg ? L::kV : L::kK)) + ra * kWideRow + t4;
+  // the group's tiles: the score product's B (Q or dO, K-major) and the
+  // column product's (Q^T or dO^T); and the hand-over slots
+  const uint32_t tile = base + (wg ? L::kO : L::kQ);
+  const uint32_t tile_t = base + (wg ? L::kOt : L::kQt);
+  float4* slots = reinterpret_cast<float4*>(smem + L::kX);
+  float acc[DH / 2];  // dK (warpgroup 0) or dV (1)
 #pragma unroll
-  for (int x = 0; x < kWideHalf / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+  for (int x = 0; x < DH / 2; ++x) acc[x] = 0.f;
 
   for (int i = 0; i < steps; ++i) {
     const int s = s_lo + i;
     cp_async_wait_all();
-    __syncthreads();  // step i's raw tiles (and K, V) are in; both groups'
-                      // step i-1 products are done
+    group_sync(wg);  // step i's raw tile (and K or V) is in; the group's
+                     // step i-1 products are done
     const float* raw =
         reinterpret_cast<const float*>(smem + (wg ? L::kRawO : L::kRawQ));
     to_kmajor<QT, DH>(raw, smem + (wg ? L::kO : L::kQ), L::kTh, tid);
     to_transposed<QT, DH>(raw, smem + (wg ? L::kOt : L::kQt), L::kTh, tid);
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();  // the split tiles are in; the raw buffers are free
+    group_sync(wg);  // the split tiles are in; the raw buffer is free
     if (i + 1 < steps) issue(i + 1);
     const int q0 = (qt0 + s % nq) * QT;
-    const float* lse_s = reinterpret_cast<const float*>(
-        smem + L::kStats + (i & 1) * 2 * QT * 4);
-    const float* D_s = lse_s + QT;
+    // the step's lse (warpgroup 0) or D (1)
+    const float* stat = reinterpret_cast<const float*>(
+        smem + L::kStats + ((i & 1) * 2 + wg) * QT * 4);
 
-    // S^T = K.Q^T and dP^T = V.dO^T (64 keys x 16 queries)
-    float st[QT / 2], dpt[QT / 2];
+    // S^T = K.Q^T (warpgroup 0) or dP^T = V.dO^T (1), 64 keys x 16 queries
+    float sc[QT / 2];
 #pragma unroll
-    for (int x = 0; x < QT / 2; ++x) st[x] = dpt[x] = 0.f;
-    wide_scores(st, dpt, ka, va, base + L::kQ, base + L::kO, L::kTh);
+    for (int x = 0; x < QT / 2; ++x) sc[x] = 0.f;
+    wide_score(sc, fa, tile, L::kTh);
 
-    // P^T on the fragments, split, as (b)
-    const bool all = !kPos && all_visible(q0, q0 + QT - 1, k0,
-                                          k0 + kKeyTile - 1, Sq, Skv, causal,
-                                          window);
-    uint32_t pb[QT / 2], ps[QT / 2];
+    uint32_t ab[QT / 2], as[QT / 2];
+    if (wg == 0) {
+      // P^T on the fragments (sc[4j + e] is (keyA, query q0 + 8j + 2t4 +
+      // e), sc[4j + 2 + e] (keyB, the same query)), handed to warpgroup 1;
+      // then its dS^T, split
+      const bool all = !kPos && all_visible(q0, q0 + QT - 1, k0,
+                                            k0 + kKeyTile - 1, Sq, Skv,
+                                            causal, window);
 #pragma unroll
-    for (int j = 0; j < QT / 8; ++j)
+      for (int j = 0; j < QT / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * j + 2 * t4 + e, qi = q0 + col;
-        const float l = lse_s[col];
-        int qp = 0;
-        if constexpr (kPos) qp = qi < Sq ? q_pos[qi] : 0;
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t4 + e, qi = q0 + col;
+          const float l = stat[col];
+          int qp = 0;
+          if constexpr (kPos) qp = qi < Sq ? q_pos[qi] : 0;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int x = 4 * j + 2 * r + e;
-          bool in;
-          if constexpr (kPos)
-            in = qi < Sq && sees(qp, r ? kpB : kpA, causal, window);
-          else
-            in = all || visible(qi, r ? keyB : keyA, Sq, Skv, causal, window);
-          const float p = in ? expf(st[x] * scale - l) : 0.f;
-          pb[x] = tf32_int(p);
-          ps[x] = tf32_int(p - __uint_as_float(pb[x]));
+          for (int r = 0; r < 2; ++r) {
+            const int x = 4 * j + 2 * r + e;
+            bool in;
+            if constexpr (kPos)
+              in = qi < Sq && sees(qp, r ? kpB : kpA, causal, window);
+            else
+              in = all ||
+                   visible(qi, r ? keyB : keyA, Sq, Skv, causal, window);
+            sc[x] = in ? expf(sc[x] * scale - l) : 0.f;
+          }
         }
-      }
-    // this warpgroup's half: dV += P^T.dO, then dS^T = P^T (dP^T - D),
-    // split, and dK += dS^T.Q (scaled at the end)
-    product_rs<QT, kWideHalf, DH>(dv_acc, pb, ps, base + L::kOt + half,
-                                  base + L::kOt + L::kTh + half);
+      hand_over(slots, tid, sc);
+      named_arrive<kWideThreads>(kBarP);
+      named_sync<kWideThreads>(kBarDS);
+      float g[QT / 2];
+      take_over(slots, tid, g);
+      split8(g, ab, as);
+    } else {
+      // P^T from warpgroup 0, split (the A operand of dV); dS^T = P^T
+      // (dP^T - D), with P as its two parts (within 2^-22 of it), handed
+      // back
+      named_sync<kWideThreads>(kBarP);
+      float p[QT / 2];
+      take_over(slots, tid, p);
+      split8(p, ab, as);
 #pragma unroll
-    for (int x = 0; x < QT / 2; ++x) {
-      const float d = D_s[8 * (x / 4) + 2 * t4 + (x & 1)];
-      const float g = (__uint_as_float(pb[x]) + __uint_as_float(ps[x])) *
-                      (dpt[x] - d);
-      pb[x] = tf32_int(g);
-      ps[x] = tf32_int(g - __uint_as_float(pb[x]));
+      for (int x = 0; x < QT / 2; ++x)
+        p[x] = (__uint_as_float(ab[x]) + __uint_as_float(as[x])) *
+               (sc[x] - stat[8 * (x / 4) + 2 * t4 + (x & 1)]);
+      hand_over(slots, tid, p);
+      named_arrive<kWideThreads>(kBarDS);
     }
-    product_rs<QT, kWideHalf, DH>(dk_acc, pb, ps, base + L::kQt + half,
-                                  base + L::kQt + L::kTh + half);
+    // dK += dS^T.Q (warpgroup 0; scaled at the end) or dV += P^T.dO (1)
+    wide_product<DH, 64>(acc, ab, as, tile_t, tile_t + L::kTh);
   }
   cp_async_wait_all();
 
-  // this warpgroup's half of dK, dV (or this split's partials)
-  float* dk_out = dk + c * split_stride;
-  float* dv_out = dv + c * split_stride;
+  // dK (warpgroup 0) or dV (1), or this split's partials: rows past Skv
+  // are not written
+  float* out = (wg ? dv : dk) + c * split_stride;
+  const float mul = wg ? 1.f : scale;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = r ? keyB : keyA;
     if (key >= Skv) continue;
-    const int64_t off =
-        ((kv_batch + key) * KH + kh) * DH + wg * kWideHalf + 2 * t4;
+    const int64_t off = ((kv_batch + key) * KH + kh) * DH + 2 * t4;
 #pragma unroll
-    for (int x = 0; x < kWideHalf / 8; ++x) {
+    for (int x = 0; x < DH / 8; ++x) {  // columns 8x + 2t4, +1
       const int a = 4 * x + 2 * r;
-      store2(dk_out + off + 8 * x, dk_acc[a] * scale, dk_acc[a + 1] * scale);
-      store2(dv_out + off + 8 * x, dv_acc[a], dv_acc[a + 1]);
+      store2(out + off + 8 * x, acc[a] * mul, acc[a + 1] * mul);
     }
   }
 }
@@ -1288,13 +1409,12 @@ attn_bwd_dq_wide_kernel(const float* __restrict__ q,
   const uint32_t base = (raw_base + 127u) & ~127u;
   uint8_t* smem = smem_raw + (base - raw_base);
 
-  // block -> (query tile, batch, head), as (c)
-  int id = blockIdx.x;
-  const int h = id % H;
-  id /= H;
-  const int b = id % B;
+  // block -> (query tile, batch, head) as (c), the query tile slowest:
+  // the last rows (the most keys under the causal mask) of every head first
   const int n_qt = (Sq + kRowTile - 1) / kRowTile;
-  const int q0 = (n_qt - 1 - id / B) * kRowTile;
+  const int b = (blockIdx.x % (B * H)) / H, h = blockIdx.x % H;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / (B * H))) *
+                 kRowTile;
   const int kh = h / (H / KH);
   const int wg = threadIdx.x / kWGThreads, tid = threadIdx.x % kWGThreads;
 
@@ -1340,41 +1460,44 @@ attn_bwd_dq_wide_kernel(const float* __restrict__ q,
   };
   if (nk > 0) issue(0);
 
-  // Q and dO: this block's rows, raw, rows padded; zeros past Sq
+  // Q (warpgroup 0) or dO (1): this block's rows, raw, rows padded; zeros
+  // past Sq
   const int64_t q_batch = static_cast<int64_t>(b) * Sq;
-  copy_padded(q, q_batch, q0, Sq, H, h, base + L::kQ, threadIdx.x);
-  copy_padded(dout, q_batch, q0, Sq, H, h, base + L::kO, threadIdx.x);
+  copy_padded<kWGThreads>(wg ? dout : q, q_batch, q0, Sq, H, h,
+                          base + (wg ? L::kO : L::kQ), tid);
   cp_async_commit();
 
-  // this thread's two query rows of the accumulators, their stats, and its
-  // fragment rows of Q and dO
+  // this thread's two query rows of the accumulators, their lse (group 0)
+  // or D (1), and its fragment row of Q (or dO)
   const int warp = tid / 32, lane = tid % 32, t4 = lane % 4;
   const int ra = warp * 16 + lane / 4;
   const int rowA = q0 + ra, rowB = rowA + 8;
   const int64_t bh = (static_cast<int64_t>(b) * H + h) * Sq;
-  const float lseA = rowA < Sq ? lse[bh + rowA] : 0.f;
-  const float lseB = rowB < Sq ? lse[bh + rowB] : 0.f;
-  const float dA = rowA < Sq ? D[bh + rowA] : 0.f;
-  const float dB = rowB < Sq ? D[bh + rowB] : 0.f;
+  const float* stat = wg ? D : lse;
+  const float statA = rowA < Sq ? stat[bh + rowA] : 0.f;
+  const float statB = rowB < Sq ? stat[bh + rowB] : 0.f;
   int qpA = 0, qpB = 0;
   if constexpr (kPos) {
     qpA = rowA < Sq ? q_pos[rowA] : 0;
     qpB = rowB < Sq ? q_pos[rowB] : 0;
   }
-  const float* qa =
-      reinterpret_cast<const float*>(smem + L::kQ) + ra * kWideRow + t4;
-  const float* oa =
-      reinterpret_cast<const float*>(smem + L::kO) + ra * kWideRow + t4;
+  const float* fa = reinterpret_cast<const float*>(
+                        smem + (wg ? L::kO : L::kQ)) + ra * kWideRow + t4;
+  const uint32_t tile = base + (wg ? L::kV : L::kK);
   const uint32_t half = wg * kWideHalf * 32;
+  float4* slots = reinterpret_cast<float4*>(smem + L::kX);
   float dq_acc[kWideHalf / 2];
 #pragma unroll
   for (int x = 0; x < kWideHalf / 2; ++x) dq_acc[x] = 0.f;
 
   for (int i = 0; i < nk; ++i) {
     cp_async_wait_all();
-    __syncthreads();  // step i's raw K, V (and Q, dO) are in; both groups'
-                      // step i-1 products are done
+    group_sync(wg);  // step i's raw K or V (and Q or dO) is in; the
+                     // group's step i-1 products are done
     if (wg == 0) {
+      // K^T is read by both groups: warpgroup 1 must be done with the
+      // last step's
+      if (i > 0) named_sync<kWideThreads>(kBarKt);
       const float* rk = reinterpret_cast<const float*>(smem + L::kRawK);
       to_kmajor<KT, DH>(rk, smem + L::kK, L::kTh, tid);
       to_transposed<KT, DH>(rk, smem + L::kKt, L::kTh, tid);
@@ -1383,50 +1506,64 @@ attn_bwd_dq_wide_kernel(const float* __restrict__ q,
       to_kmajor<KT, DH>(rv, smem + L::kV, L::kTh, tid);
     }
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();  // the split tiles are in; the raw buffers are free
+    group_sync(wg);  // the split tiles are in; the raw buffer is free
     if (i + 1 < nk) issue(i + 1);
     const int key0 = (kt0 + i) * KT;
 
-    // S = Q.K^T and dP = dO.V^T (64 rows x 16 keys)
-    float sc[KT / 2], dp[KT / 2];
+    // S = Q.K^T (warpgroup 0) or dP = dO.V^T (1), 64 rows x 16 keys
+    float sc[KT / 2];
 #pragma unroll
-    for (int x = 0; x < KT / 2; ++x) sc[x] = dp[x] = 0.f;
-    wide_scores(sc, dp, qa, oa, base + L::kK, base + L::kV, L::kTh);
+    for (int x = 0; x < KT / 2; ++x) sc[x] = 0.f;
+    wide_score(sc, fa, tile, L::kTh);
 
-    // P, then dS, on the fragments, as (c)
-    const bool all = !kPos && all_visible(q0, q0 + kRowTile - 1, key0,
-                                          key0 + KT - 1, Sq, Skv, causal,
-                                          window);
+    float g[KT / 2];
+    if (wg == 0) {
+      // P on the fragments (sc[4j + e] is (rowA, key key0 + 8j + 2t4 + e),
+      // sc[4j + 2 + e] (rowB, the same key)), handed to warpgroup 1; then
+      // its dS
+      const bool all = !kPos && all_visible(q0, q0 + kRowTile - 1, key0,
+                                            key0 + KT - 1, Sq, Skv, causal,
+                                            window);
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j)
+      for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = key0 + 8 * j + 2 * t4 + e;
-        int kp = -1;
-        if constexpr (kPos) kp = key < Skv ? kv_pos[key] : -1;
+        for (int e = 0; e < 2; ++e) {
+          const int key = key0 + 8 * j + 2 * t4 + e;
+          int kp = -1;
+          if constexpr (kPos) kp = key < Skv ? kv_pos[key] : -1;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int x = 4 * j + 2 * r + e;
-          bool in;
-          if constexpr (kPos)
-            in = (r ? rowB : rowA) < Sq &&
-                 sees(r ? qpB : qpA, kp, causal, window);
-          else
-            in = all ||
-                 visible(r ? rowB : rowA, key, Sq, Skv, causal, window);
-          sc[x] = in ? expf(sc[x] * scale - (r ? lseB : lseA)) : 0.f;
+          for (int r = 0; r < 2; ++r) {
+            const int x = 4 * j + 2 * r + e;
+            bool in;
+            if constexpr (kPos)
+              in = (r ? rowB : rowA) < Sq &&
+                   sees(r ? qpB : qpA, kp, causal, window);
+            else
+              in = all ||
+                   visible(r ? rowB : rowA, key, Sq, Skv, causal, window);
+            sc[x] = in ? expf(sc[x] * scale - (r ? statB : statA)) : 0.f;
+          }
         }
-      }
-    uint32_t ab[KT / 2], as[KT / 2];
+      hand_over(slots, tid, sc);
+      named_arrive<kWideThreads>(kBarP);
+      named_sync<kWideThreads>(kBarDS);
+      take_over(slots, tid, g);
+    } else {
+      // dS = P (dP - D) from warpgroup 0's P, handed back
+      named_sync<kWideThreads>(kBarP);
+      take_over(slots, tid, g);
 #pragma unroll
-    for (int x = 0; x < KT / 2; ++x) {
-      const float g = sc[x] * (dp[x] - ((x & 2) ? dB : dA));
-      ab[x] = tf32_int(g);
-      as[x] = tf32_int(g - __uint_as_float(ab[x]));
+      for (int x = 0; x < KT / 2; ++x)
+        g[x] *= sc[x] - ((x & 2) ? statB : statA);
+      hand_over(slots, tid, g);
+      named_arrive<kWideThreads>(kBarDS);
     }
+    uint32_t ab[KT / 2], as[KT / 2];
+    split8(g, ab, as);
     // this warpgroup's half: dQ += dS.K (scaled at the end)
-    product_rs<KT, kWideHalf, DH>(dq_acc, ab, as, base + L::kKt + half,
-                                  base + L::kKt + L::kTh + half);
+    wide_product<kWideHalf, 48>(dq_acc, ab, as, base + L::kKt + half,
+                                base + L::kKt + L::kTh + half);
+    if (wg == 1 && i + 1 < nk) named_arrive<kWideThreads>(kBarKt);
   }
   cp_async_wait_all();
 

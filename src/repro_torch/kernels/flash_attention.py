@@ -93,7 +93,7 @@ bf16_backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
 # the library when it loads): keys a dK/dV block owns and the query tile of
 # its steps, by head size; query rows a dQ block owns and the key tile of
 # its steps; warpgroups a block, which share its steps (at Dh 192 both of
-# a block's warpgroups take every step, each half the head dim: 1)
+# a block's warpgroups take every step, split between them by product: 1)
 BWD_KEY_TILE = 64
 BWD_QUERY_TILE = {48: 32, 64: 32, 96: 16, 112: 16, 128: 16, 192: 16}
 BWD_ROW_TILE = 64

@@ -8,7 +8,9 @@ once (in bf16's dQ, every (row tile, KV head, key tile), its rows folded
 as the forward folds them); at Dh 192 the bf16 kernels, forward and
 backward, launch a head's blocks next to each other, the heaviest first,
 and split each dK/dV step over their two warpgroups by queries (S^T and
-dP^T) and by columns (dV and dK). Over ``chip_smoke.py``'s backward sweeps
+dP^T) and by columns (dV and dK); the fp32 dK/dV kernel at Dh 192 launches
+head-major too, its forward and dQ the row tile slowest, the heaviest
+first over the grid. Over ``chip_smoke.py``'s backward sweeps
 (``BWD_SHAPES``; ``BWD_BF16_SHAPES`` in bf16) and shapes at the tiles'
 edges, on cards of several sizes (so both the split and the unsplit dK/dV
 grids are walked). Also: the two dtypes' plans are cached apart, and
@@ -57,12 +59,15 @@ CASES = ([(torch.float32, s) for s in SHAPES + DS_SHAPES]
 SMS = (132, 1, 16, 1000)
 
 
-def _head_major(Dh, dtype):
-    """Whether the kernels launch a head's blocks next to each other: the
-    bf16 ones at Dh 192 (``csrc/flash_attention_bf16.cu``'s and
-    ``csrc/flash_attention_bwd_bf16.cu``'s wide kernels); the others put
-    the tile slowest in the grid."""
-    return dtype == torch.bfloat16 and Dh == 192
+def _head_major(Dh, dtype, kernel="dkdv"):
+    """Whether ``kernel`` ("dkdv", "dq" or "forward") launches a head's
+    blocks next to each other: dK/dV at Dh 192 in both dtypes
+    (``csrc/flash_attention_bwd.cu``'s and ``csrc/flash_attention_bwd_
+    bf16.cu``'s wide kernels), and bf16's forward and dQ at Dh 192; the
+    others put the tile slowest in the grid (at Dh 192 in fp32 the
+    forward and dQ were faster so on the card, ``benchmarks/
+    torch_k3_wide_probe.py``)."""
+    return Dh == 192 and (kernel == "dkdv" or dtype == torch.bfloat16)
 
 
 def _dkdv_block(block, B, Skv, KH, Dh, splits, dtype=torch.float32):
@@ -92,13 +97,18 @@ def _dkdv_steps(block, B, Sq, Skv, H, KH, Dh, causal, window, splits,
             for s in range(n * c // splits, n * (c + 1) // splits)]
 
 
+def _dq_block(block, B, Sq, H):
+    """(batch, head, query tile) of fp32 dQ block ``block``: the head
+    fastest, then the batch, the query tile slowest, the last first."""
+    h, rest = block % H, block // H
+    return rest % B, h, -(-Sq // k3.BWD_ROW_TILE) - 1 - rest // B
+
+
 def _dq_steps(block, B, Sq, Skv, H, KH, Dh, causal, window):
     """The steps dQ block ``block`` walks, in order, as (batch, query tile,
     head, key tile): the last query tiles first, each seeing the key tiles
     from its first row's window start to its last row's causal end."""
-    h, rest = block % H, block // H
-    b = rest % B
-    qt = -(-Sq // k3.BWD_ROW_TILE) - 1 - rest // B
+    b, h, qt = _dq_block(block, B, Sq, H)
     q0 = qt * k3.BWD_ROW_TILE
     q_last = min(q0 + k3.BWD_ROW_TILE, Sq) - 1
     k_begin = max(0, q0 - window + 1) if window > 0 else 0
@@ -127,7 +137,7 @@ def _dq_folded_steps(block, B, Sq, Skv, H, KH, Dh, causal, window):
     end."""
     tiles = k3.bwd_tiles(Dh, torch.bfloat16)
     b, kh, rt = _folded_block(block, B, Sq, H, KH, tiles.row_tile,
-                              _head_major(Dh, torch.bfloat16))
+                              _head_major(Dh, torch.bfloat16, "dq"))
     q_lo, q_hi = _folded_queries(rt, Sq, H // KH, tiles.row_tile)
     k_begin = max(0, q_lo - window + 1) if window > 0 else 0
     kt0, nk = k3._tiles(k_begin, min(Skv, q_hi + 1) if causal else Skv,
@@ -269,7 +279,8 @@ def test_training_and_federated_shapes_fill_the_card(dtype):
         dq = [len(walk(blk, *shape)) for blk in range(plan["dq_blocks"])]
         if dtype == torch.float32:
             assert dq == sorted(dq, reverse=True)
-        elif major:   # a head's row tiles next to each other, last first
+        elif _head_major(Dh, dtype, "dq"):   # a head's row tiles next to
+            # each other, the last first
             heads = [_folded_block(blk, B, Sq, H, KH, k3.BWD_BF16_ROW_TILE,
                                    True)[:2] for blk in range(len(dq))]
             for run in _runs(heads):
@@ -381,6 +392,52 @@ def test_dh192_blocks_cover_each_tile_once_head_major(shape, kind):
             assert totals == sorted(totals, reverse=True)
 
 
+@pytest.mark.parametrize("kind", ["forward", "dkdv", "dq"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_dh192_fp32_blocks_cover_each_tile_once(shape, kind):
+    """The fp32 kernels at Dh 192 launch every block once: dK/dV
+    head-major (a head's key tiles, and each one's splits, next to each
+    other, key tile 0 first: they read the same Q and dO while it is in
+    L2), the forward (128 folded rows a block) and dQ (64 query rows) with
+    the row tile the grid's slowest axis, the last rows first, so that
+    under the causal mask the blocks come heaviest first over the whole
+    grid."""
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    G = H // KH
+    plan = k3.backward_plan(*shape, 132)
+    if kind == "dkdv":
+        splits, n = plan["splits"], plan["dkdv_blocks"]
+        where = [_dkdv_block(blk, B, Skv, KH, Dh, splits) for blk in range(n)]
+        want = {(b, kh, t, c) for b in range(B) for kh in range(KH)
+                for t in range(-(-Skv // k3.BWD_KEY_TILE))
+                for c in range(splits)}
+        assert len(where) == len(set(where)) and set(where) == want
+        for run in _runs([w[:2] for w in where]):
+            tiles = [where[i][2] for i in run]
+            assert tiles == sorted(tiles)
+        return
+    if kind == "dq":
+        n = plan["dq_blocks"]
+        blocks = [_dq_block(blk, B, Sq, H) for blk in range(n)]
+        assert len(set(blocks)) == n == len(blocks)
+        assert set(blocks) == {(b, h, qt) for b in range(B) for h in range(H)
+                               for qt in range(-(-Sq // k3.BWD_ROW_TILE))}
+        work = [len(_dq_steps(blk, *shape)) for blk in range(n)]
+    else:
+        rows = FWD_TILES[Dh][0]
+        n = -(-Sq * G // rows) * B * KH
+        blocks = [_folded_block(blk, B, Sq, H, KH, rows, False)
+                  for blk in range(n)]
+        assert len(set(blocks)) == n == len(blocks)
+        assert set(blocks) == {(b, kh, rt) for b in range(B)
+                               for kh in range(KH)
+                               for rt in range(-(-Sq * G // rows))}
+        work = [len(_forward_tiles(rt * rows, *shape[1:6], causal, window))
+                for _, _, rt in blocks]
+    if causal and not window:
+        assert work == sorted(work, reverse=True)
+
+
 def test_bf16_and_fp32_plans_are_keyed_apart():
     """``backward_plan`` caches one plan a (shape, card, dtype): the bf16
     plan at the federated shape (64-query steps: 3 splits) is not the fp32
@@ -413,9 +470,10 @@ def test_bf16_and_fp32_plans_are_keyed_apart():
 # plan's. Positions tie, carry -1 and need not be sorted.
 
 # the forward's (rows a block, keys a tile) by head dim
-# (csrc/flash_attention.cu, Cfg)
+# (csrc/flash_attention.cu: Cfg, and at Dh 192 its own kernel's two
+# consumer warpgroups of 64 rows and 16-key tiles)
 FWD_TILES = {48: (128, 64), 64: (128, 64), 96: (128, 32), 112: (128, 32),
-             128: (64, 32), 192: (64, 16)}
+             128: (64, 32), 192: (128, 16)}
 POSITION_SHAPES = EXTRA + [chip_smoke.BWD_MAIN, chip_smoke.BWD_FED,
                            (2, 200, 200, 9, 3, 64, True, 0),
                            (1, 77, 50, 16, 1, 64, False, 20),
@@ -460,9 +518,7 @@ def _tile_span(first_last, tile):
 
 def _position_dkdv_steps(block, B, Sq, Skv, H, KH, Dh, causal, window,
                          splits, qpos, kpos):
-    c, rest = block % splits, block // splits
-    kh, rest = rest % KH, rest // KH
-    b, t = rest % B, rest // B
+    b, kh, t, c = _dkdv_block(block, B, Skv, KH, Dh, splits)
     G, QT = H // KH, k3.BWD_QUERY_TILE[Dh]
     keys = kpos[t * k3.BWD_KEY_TILE:(t + 1) * k3.BWD_KEY_TILE]
     valid = keys[keys >= 0]
@@ -480,9 +536,7 @@ def _position_dkdv_steps(block, B, Sq, Skv, H, KH, Dh, causal, window,
 
 def _position_dq_steps(block, B, Sq, Skv, H, KH, Dh, causal, window, qpos,
                        kpos):
-    h, rest = block % H, block // H
-    b = rest % B
-    qt = -(-Sq // k3.BWD_ROW_TILE) - 1 - rest // B
+    b, h, qt = _dq_block(block, B, Sq, H)
     rows = qpos[qt * k3.BWD_ROW_TILE:(qt + 1) * k3.BWD_ROW_TILE]
     lo, hi = int(rows.min()), int(rows.max())
     span = _may_see_range(kpos, lambda p: (p >= 0)

@@ -125,3 +125,21 @@ def test_k3_wide_probe_patches_find_their_text_once(variant):
     for name, old, new in patches:
         assert (_build.CSRC / name).read_text().count(old) == 1
         assert old != new
+
+
+@pytest.mark.parametrize("variant", ["other block order",
+                                     "one product in flight"])
+def test_k3_wide_probe_fp32_patches_find_their_text_once(variant):
+    """The probe's variants of K3's fp32 kernels at Dh 192 likewise: each
+    rewrite's text stands exactly once in the sources as they are."""
+    import importlib
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root / "benchmarks"))
+    probe = importlib.import_module("torch_k3_wide_probe")
+    patches = probe.FP32_PATCHES[variant]
+    assert patches
+    for name, old, new in patches:
+        assert (_build.CSRC / name).read_text().count(old) == 1
+        assert old != new

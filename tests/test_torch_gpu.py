@@ -728,6 +728,68 @@ def test_flash_attention_backward_counts_its_launches_on_card(cuda, shape):
     assert k3.launches == 0 and set(k3.backward_launches.values()) == {0}
 
 
+# the fp32 kernels at deepseek-v3's 192 (``flash_attention_wide_kernel``,
+# ``attn_bwd_dkdv_wide_kernel`` and ``attn_bwd_dq_wide_kernel``): B x KH
+# below and above the card's 132 SMs (chip_smoke.py's (1, 512, 512, 128,
+# 128) and (2, 384, 384, 68, 68)), a window across tiles, rows 69.. fully
+# masked, ragged rows and keys at G 3, and rows folded over a 128-row
+# forward tile at G 16
+DS_FP32_SHAPES = [(1, 512, 512, 128, 128, 192, True, 0),
+                  (2, 384, 384, 68, 68, 192, True, 0),
+                  (1, 130, 130, 6, 2, 192, True, 70),
+                  (1, 77, 50, 16, 1, 192, False, 20),
+                  (2, 113, 97, 9, 3, 192, True, 0),
+                  (1, 40, 60, 16, 1, 192, True, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("positions", [False, True])
+@pytest.mark.parametrize("shape", DS_FP32_SHAPES)
+def test_flash_attention_fp32_dh192_kernels_match_plain_on_card(
+        cuda, shape, positions):
+    """The fp32 Dh 192 kernels, by index or by explicit positions (the
+    indices + 3 on both sides: the same masks): the forward within 2e-6
+    (atol and rtol) of the plain version in float64 (at Dh 192 the plain
+    version in fp32 is itself about as far from float64 as that gate, and
+    farther than the kernel), the training instantiation's output
+    bitwise the serving one's, fully masked rows 0 with an LSE of +inf;
+    the backward within 1e-5 of the float64 plain backward, fully masked
+    rows' dq exactly 0, and a second run bitwise the first."""
+    B, Sq, Skv, H, KH, Dh, causal, window = shape
+    pos = {}
+    if positions:
+        pos = dict(q_positions=torch.arange(3, Sq + 3, device=cuda),
+                   kv_positions=torch.arange(3, Skv + 3, device=cuda))
+    q, k, v, dout = _bwd_case(cuda, *shape)
+    with torch.no_grad():
+        served = k3.flash_attention(q, k, v, causal=causal, window=window,
+                                    **pos)
+    first = _kernel_grads(q, k, v, dout, causal, window, **pos)
+    second = _kernel_grads(q, k, v, dout, causal, window, **pos)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(first[0].detach(), served)
+    q64, k64, v64 = (t.detach().double() for t in (q, k, v))
+    out64 = tref.flash_attention_ref(q64, k64, v64, causal=causal,
+                                     window=window, **pos)
+    torch.testing.assert_close(served.double(), out64, atol=2e-6, rtol=2e-6)
+    lse64 = tref.attention_lse_ref(q64, k64, causal=causal, window=window,
+                                   **pos)
+    expect = tref.flash_attention_bwd_ref(q64, k64, v64, out64, lse64,
+                                          dout.double(), causal=causal,
+                                          window=window, **pos)
+    for got, want in zip(first[1:], expect):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.double(), want, atol=BWD_TOL,
+                                   rtol=BWD_TOL)
+    rows = torch.isinf(lse64).transpose(1, 2)            # (B, Sq, H)
+    assert torch.equal(served[rows], torch.zeros_like(served[rows]))
+    assert torch.equal(first[1][rows], torch.zeros_like(first[1][rows]))
+    _, lse = k3._launch(q.detach(), k.detach(), v.detach(), causal, window,
+                        with_lse=True, **{n: t.to(torch.int32).contiguous()
+                                         for n, t in pos.items()})
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse64))
+
+
 @pytest.mark.gpu
 def test_flash_attention_backward_refuses_bf16_on_card(cuda):
     """bf16 with a gradient where no bf16 kernel exists raises before any
