@@ -40,7 +40,8 @@ when it ends:
      once a round, and printing ms per round;
   5d. every method on the legacy host-driven engine (``fused=False``)
      against the fused engine on the card (a small run), then each
-     engine's ms per round at the full-width scenario of phase 5;
+     engine's ms per round at the full-width scenario of phase 5 (4
+     rounds a timed run, ``TIMING_ROUNDS``);
   5e. RunRecord: phase 5's small pFedWN run recorded on the card and on
      the CPU into a temporary directory; both files pass the port's
      validator and ``python -m repro_torch.obs.report``, their round and
@@ -48,21 +49,24 @@ when it ends:
      within 1e-4, link success rate exactly, accuracies within 5e-3), a
      compile event carries FLOPs; a recorded run syncs no more often than
      an unrecorded one (``torch.cuda.set_sync_debug_mode("warn")``); then
-     the full-width pFedWN ms per round with the taps on and off
-     (interleaved runs, medians; printed, not asserted);
+     the full-width pFedWN ms per round with the taps on and off (2
+     interleaved runs of 4 rounds each after a warm-up pair, medians;
+     printed, not asserted);
   5f. the client-sharded engine (``FedSimConfig(sharded=True)``, one
      process a rank through ``repro_torch.sharding.spawn``; the card is
      one, so D = 1 runs nccl and D > 1 runs gloo, all ranks on this card):
      every method of phase 5's small run at D = 2 against the fused engine
      on the card (accuracies 5e-3, π and params 1e-4, K1 and K2 launches a
-     rank); then pFedWN on phase 5c's full-width scenario at D = 1, 2 and
+     rank) and the ``pod_mix`` below, in threads beside the fused runs
+     that measure phase 5c's spread (none of the three is timed); then, in
+     turn, pFedWN on phase 5c's full-width scenario at D = 1, 2 and
      4 against phase 5c's fused run (D = 1: params and π within 1e-4; D >
      1: params and π, final and at the first eval point, within 10× of
      the fused run's own move under a rounding-sized change of its
      initial params and closer than a fused run on other draws; K1 20 and
      K2 4
      launches a rank, collectives a round, host syncs a block: one at
-     D = 1; gloo's are printed), with ms per round; then one ``pod_mix``
+     D = 1; gloo's are printed), with ms per round; and one ``pod_mix``
      at C = 2 (a cifar10-cnn-sized tree) against the Eq-1 arithmetic in
      numpy;
   6. hold K3 (GQA flash attention) against its plain version, fp32 and
@@ -243,7 +247,7 @@ when it ends:
      and links are erased at random, one rank's all, and that rank's
      params must equal its post-step params bit for bit; then
      smollm-135m at full width in bf16 over C = 4 ranks (seed-0 weights,
-     B 2 x S 4096 a client, probe 4 x 512, 3 rounds at exchange 16 and 1
+     B 2 x S 4096 a client, probe 4 x 512, 2 rounds at exchange 16 and 1
      at 8: each round on each rank K2 once in bf16, K3's bf16 forward 30
      x 5 times and its bf16 backward kernels 30 times each, no fp32 K3
      launch, 3 collectives (4 at int8), finite losses, π* on the simplex
@@ -264,7 +268,7 @@ when it ends:
      kernels once an attention layer a step (qwen2-vl's with positions);
      prefill, decode and step ms and peaks printed;
   7j. the dry run (``launch/dryrun.py``): its sweep of every registered
-     arch x the four shapes on the meta device (``run_combo`` in 4
+     arch x the four shapes on the meta device (``run_combo`` in 6
      processes that see no card): 40 records ``status: ok``, deepseek-v3
      meta only; then ``--run`` at
      smollm-135m's train_4k on the card (global_batch 2: ms, peak), K3's
@@ -294,6 +298,27 @@ when it ends:
      S 256 (K3's fp32 forward 4 a step and its fp32 backward at Dh 192 as
      often, no bf16 kernel); prefill, decode and step ms, peaks,
      K3's launches and the MoE layer's dropped share printed;
+  7l. one client placed over a ``("data", "model")`` mesh of gloo ranks on
+     this card (``sharding/place.py``: each rank holds its block of every
+     leaf by the reference's specs; ``sharding/tensor_parallel.py``: the
+     batch over "data", heads and d_ff over "model", Megatron style, the
+     steps of ``launch/steps.py`` with ``placement``): reduced smollm-135m
+     on mesh (2, 2) card ranks against the one-rank step on the CPU (plain
+     kernels) on the same weights and batch: 2 SGD steps in fp32 (params
+     and losses within 1e-4), a prefill of 2 x 64 (logits within 1e-4)
+     and 4 greedy decode steps (tokens equal); then smollm-135m at full
+     width in fp32 on mesh (2, 3), 6 ranks (3 query heads over 1 KV head
+     and 512 of d_ff's columns a rank, seed-0 weights): a prefill of 4 x
+     256 and 8 greedy tokens, then 2 SGD steps at B 4 x S 256 (B 2 a
+     rank), against the one-rank port on the card, run beside the ranks
+     (params, losses and logits within 1e-4 of max|d|/(1+|ref|), tokens
+     equal); on every rank
+     K3's forward 30 a training forward and 30 a prefill and each backward
+     kernel ``backward_plan`` picks 30 a step, all at (B 2, S 256, H 3, KH
+     1, Dh 64) in fp32, and under 1/4 of the model's parameter bytes; each
+     rank's parameter bytes, peak memory, ms a step and a prefill with the
+     collectives' share printed; phase 8 adds K3's forward and backward
+     rows at that rank's shape;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
      at the main paths' shapes (K1 also in bf16, at smollm-135m's
      vocabulary and at the M = 39 round's shape, K2 also from a
@@ -348,6 +373,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROUNDS, EVAL_EVERY, EM_ITERS = 8, 2, 5
+TIMING_ROUNDS = 4             # phases 5d and 5e: each timed run's rounds
 WIDE_CLIENTS, WIDE_ROUNDS = 40, 4     # phase 5c: M = 39 neighbours
 CIFAR100_ROUNDS = 1                   # phase 5: the cifar100-cnn round
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}      # K1 (test_kernels.py)
@@ -403,12 +429,12 @@ ATTN_STARCODER = (STAR_B, STAR_PROMPT, STAR_PROMPT, 48, 4, 128, True, 4096)
 # one device). Card vs CPU at reduced(): seq 64, batch 4, probe 2 x 32; at
 # full width smollm-135m in bf16, C 4 clients of B 2 x S 4096 (train_4k's
 # seq_len, its global_batch 256 cut to 2 as in phase 7g), probe 4 x 512,
-# 3 EM iterations, links drawn at P_err 0.05, 3 rounds at exchange 16 and
+# 3 EM iterations, links drawn at P_err 0.05, 2 rounds at exchange 16 and
 # 1 at exchange 8
 ROUND_SMALL_SEQ, ROUND_SMALL_BATCH, ROUND_SMALL_PROBE = 64, 4, (2, 32)
 ROUND_C, ROUND_B, ROUND_S = 4, 2, 4096
 ROUND_PROBE, ROUND_EM_ITERS, ROUND_ALPHA = (4, 512), 3, 0.5
-ROUND_P_ERR, ROUND_BITS, ROUND_LR = 0.05, (16, 16, 16, 8), 3e-3
+ROUND_P_ERR, ROUND_BITS, ROUND_LR = 0.05, (16, 16, 8), 3e-3
 ROUND_REMAT = False           # the four ranks' peaks fit 80 GB without it
 ROUND_BF16_TOL = 2e-2         # bf16 card vs CPU: max(this, the CPU's own
 #                               bf16-vs-fp32 gap)
@@ -439,6 +465,7 @@ ATTN_SHAPES = [
     ATTN_MUSICGEN,
     ATTN_ROUND_TRAIN,
     ATTN_ROUND_PROBE,
+    (2, 256, 256, 3, 1, 64, True, 0),        # phase 7l's rank: PLACE_ATTN
     # tile edges: folded rows just below, at and above 64 and 128, keys
     # just off the key tile (64 at Dh 64, 32 at Dh 128)
     (2, 42, 43, 3, 1, 64, True, 0),
@@ -575,6 +602,7 @@ BWD_SHAPES = [
     BWD_QWEN2VL,
     BWD_MUSICGEN,
     (8, 1024, 1024, 9, 3, 64, True, 0),      # smollm-135m's serving shape
+    (2, 256, 256, 3, 1, 64, True, 0),        # phase 7l's rank: PLACE_ATTN
     (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
     (1, 256, 256, 8, 8, 64, True, 0),
     (2, 128, 128, 4, 1, 64, False, 0),
@@ -765,8 +793,19 @@ POS_TRAIN_OFFSET = 3
 # no card; the SSM configs' per-step Mamba1 scans take ~20 s each on the
 # meta device, the others ~1 s)
 DRYRUN_OUT = os.path.join("experiments", "torch_dryrun")
-DRYRUN_WORKERS = 4
+DRYRUN_WORKERS = 6
 FAMILY_STEPS = 4
+# phase 7l: one client placed over a ("data", "model") mesh of gloo ranks on
+# this card (sharding/place.py, sharding/tensor_parallel.py). Card vs CPU at
+# reduced(): mesh (2, 2), 2 SGD steps at B 4 x S 64, a prefill of 2 x 64 and
+# 4 greedy decode steps; then smollm-135m at full width on mesh (2, 3): 3
+# query heads over 1 KV head and 512 of d_ff's columns a rank, 2 steps at
+# B 4 x S 256 (B 2 a rank), a prefill of 4 x 256 and 8 greedy tokens
+PLACE_SMALL_MESH, PLACE_SMALL_B, PLACE_SMALL_S = (2, 2), 4, 64
+PLACE_SMALL_PROMPT, PLACE_SMALL_GEN = (2, 64), 5
+PLACE_MESH, PLACE_B, PLACE_S, PLACE_GEN = (2, 3), 4, 256, 8
+PLACE_STEPS, PLACE_LR = 2, 3e-3
+PLACE_ATTN = (PLACE_B // PLACE_MESH[0], PLACE_S, PLACE_S, 3, 1, 64, True, 0)
 FED_C, FED_B, FED_S, FED_LOCAL, FED_ROUNDS = 4, 4, 128, 10, 2
 # phase 7g: the dense configs never run at full width before; their
 # reduced card-vs-CPU runs in bf16 serve without and with a window the
@@ -1290,12 +1329,13 @@ def check_legacy_against_fused(dev) -> None:
 
 
 def time_legacy_and_fused(dev) -> dict:
-    """Each method on both engines at the full-width scenario of phase 5:
-    ms per round, the wall of one whole run (evals included, ending in a
-    host sync) over its rounds, and legacy ÷ fused."""
+    """Each method on both engines at the full-width scenario of phase 5,
+    ``TIMING_ROUNDS`` rounds: ms per round, the wall of one whole run
+    (evals included, ending in a host sync) over its rounds, and legacy ÷
+    fused."""
     import dataclasses
     from repro_torch.core.fedsim import METHODS
-    sim = _main_sim(dev)
+    sim = _main_sim(dev, rounds=TIMING_ROUNDS)
     out = {}
     for method in METHODS:
         row = {}
@@ -1424,15 +1464,15 @@ def check_record_syncs(dev, tmp: str) -> None:
         raise AssertionError("recording added host syncs")
 
 
-def time_taps(dev, repeats: int = 5) -> dict:
-    """pFedWN at the full width of phase 5 with the taps on and off, runs
-    interleaved: the medians of the wall of a run over its rounds and of
+def time_taps(dev, repeats: int = 2) -> dict:
+    """pFedWN at the full width of phase 5 (``TIMING_ROUNDS`` rounds) with
+    the taps on and off, runs interleaved: the medians of the wall of a run over its rounds and of
     the mean ms per round after the first block, and the K1 and K2
     launches of each (they must not differ)."""
     import dataclasses
     from repro_torch.kernels import em_posterior as k1
     from repro_torch.kernels import weighted_agg as k2
-    sim = _main_sim(dev)
+    sim = _main_sim(dev, rounds=TIMING_ROUNDS)
     walls = {True: [], False: []}
     steady = {True: [], False: []}
     launches = {}
@@ -1555,7 +1595,9 @@ def fused_spread(dev, wide_hist, wide_sim) -> dict:
 
 def run_sharded_wide(dev, wide_hist, wide_sim, spread) -> dict:
     """pFedWN on phase 5c's full-width scenario on the sharded engine at D
-    = 1 (nccl), 2 and 4 (gloo), each a warm-up run and a watched one,
+    = 1 (nccl), 2 and 4 (gloo), at D = 1 a warm-up run and a watched one
+    (its host syncs a block are checked, and a first run syncs more), at
+    D > 1 one run (its ms per round are the blocks' after the first),
     against phase 5c's fused run (same seed, so the same draws). Returns,
     by D, rank 0's ms per round after the first block, the launches, the
     collectives a round and the host syncs a block of every rank, and the
@@ -1576,8 +1618,8 @@ def run_sharded_wide(dev, wide_hist, wide_sim, spread) -> dict:
     for d, backend in ((1, one), (2, "gloo"), (4, "gloo")):
         t0 = time.perf_counter()
         ranks = _sharded(d, backend, dev, _wide_sim, dict(
-            full=True, sharded=True, shard_devices=d), ["pfedwn"], repeat=2,
-            syncs=True)
+            full=True, sharded=True, shard_devices=d), ["pfedwn"],
+            repeat=2 if d == 1 else 1, syncs=True)
         wall = time.perf_counter() - t0
         res = [r[0] for r in ranks]
         blocks = len(res[0]["stats"]["blocks"])
@@ -2435,7 +2477,7 @@ def check_flash_attention_backward(dev) -> float:
                                  f"version at {shape}")
         if shape in (BWD_MAIN, BWD_FED, BWD_QWEN2VL, BWD_MUSICGEN,
                      BWD_MINICPM, BWD_ZAMBA2, BWD_MLA_SMALL, BWD_CHATGLM,
-                     BWD_DS):
+                     BWD_DS, PLACE_ATTN):
             errs_at[shape] = (max(errs), max(excess))
         torch.cuda.empty_cache()
     return errs_at
@@ -4290,8 +4332,9 @@ def check_round_step_against_cpu(dev, clients=(4,)) -> dict:
     bf16 within max(``ROUND_BF16_TOL``, 2g); the erased rank's params
     bitwise its post-step params on the card; 3 collectives a round (4 at int8); on the card K2 once a
     rank (in bf16 on bf16 runs) and K3's forward L·(1 + C) times, its
-    bf16 kernels in bf16 runs only; no K2 launch on the CPU. Returns the
-    worst gaps by dtype."""
+    bf16 kernels in bf16 runs only; no K2 launch on the CPU. The CPU ranks
+    run in a thread beside the card's. Returns the worst gaps by dtype."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.configs import ShapeConfig, TrainConfig, get_config
     from repro_torch.launch.mesh import MeshSpec, make_debug_mesh
     from repro_torch.models.model import init_params
@@ -4334,8 +4377,11 @@ def check_round_step_against_cpu(dev, clients=(4,)) -> dict:
                       params=params, dtype=dtype, batch=batch, pi_matrix=pi,
                       link_ok=ok, rounds=[bits], keep=True, check=True)
                  for bits in (16, 8) for dtype in dtypes]
-        cpu = spawn(run_round_step, C, "gloo", "cpu", cases, "cpu")
-        card = spawn(run_round_step, C, "gloo", "cuda", cases, "cuda")
+        with ThreadPoolExecutor(1) as pool:      # the CPU ranks meanwhile
+            cpu = pool.submit(spawn, run_round_step, C, "gloo", "cpu", cases,
+                              "cpu")
+            card = spawn(run_round_step, C, "gloo", "cuda", cases, "cuda")
+            cpu = cpu.result()
         for i, case in enumerate(cases):
             dtype, bits = case["dtype"], case["rounds"][0]
             got, want = [r[i] for r in card], [r[i] for r in cpu]
@@ -4470,7 +4516,8 @@ def run_round_main_path(dev) -> dict:
     peaks = [res["peak_gib"] for res in ranks]
     print(f"round step smollm-135m bf16 C={C} B={ROUND_B} S={ROUND_S} "
           f"probe {ROUND_PROBE} remat {ROUND_REMAT}: wall {wall:.1f} s "
-          f"(the ranks' start, weights and 4 rounds); ms a round a rank "
+          f"(the ranks' start, weights and {len(ROUND_BITS)} rounds); ms a "
+          f"round a rank "
           f"after the first {json.dumps(later)}; peaks (GiB) "
           f"{[round(p, 3) for p in peaks]}, sum {sum(peaks):.3f}")
     if not ok_all:
@@ -4481,6 +4528,228 @@ def run_round_main_path(dev) -> dict:
             "k3_forward": n_fwd, "k3_bf16_backward": n_bwd,
             "ms_per_round": later, "stage_ms": stages, "peak_gib": peaks,
             "steps": C * len(ROUND_BITS)}
+
+
+def _scaled_gap(got, want) -> float:
+    """max |got − want| / (1 + |want|) over two lists of tensors."""
+    gap = 0.0
+    for a, b in zip(got, want):
+        a, b = a.cpu().double(), b.cpu().double()
+        gap = max(gap, float(((a - b).abs() / (1 + b.abs())).max()))
+    return gap
+
+
+def _placed_case(cfg, mesh, B, S, prompt, gen, **kw) -> dict:
+    """A ``run_placed`` case: tokens and labels (B, S) (the labels the
+    tokens shifted), ``prompt`` = (B', P) prompts, ``PLACE_STEPS`` steps."""
+    from repro_torch.launch.mesh import MeshSpec
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, cfg.vocab, (B, S + 1))
+    return dict(cfg=cfg, mesh=MeshSpec(("data", "model"), mesh),
+                batch={"tokens": tokens[:, :-1].astype(np.int32),
+                       "labels": tokens[:, 1:].astype(np.int32)},
+                steps=PLACE_STEPS, lr=PLACE_LR, gen=gen,
+                prompts=rng.integers(0, cfg.vocab, prompt).astype(np.int64),
+                **kw)
+
+
+def _one_rank(cfg, params, case, dev):
+    """The one-rank port on ``dev``: ``serve`` of the case's prompts, then
+    its ``PLACE_STEPS`` steps of ``make_train_step`` (``params`` updated in
+    place). Returns (the serve's result, the losses)."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_train_step
+    served = serve(cfg, params, torch.as_tensor(case["prompts"]).to(dev),
+                   case["gen"], device=dev)
+    B, S = case["batch"]["tokens"].shape
+    step = make_train_step(cfg, TrainConfig(lr=PLACE_LR, remat=False),
+                           ShapeConfig("t", S, B, "train"))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in case["batch"].items()}
+    losses = []
+    for _ in range(case["steps"]):
+        params, metrics = step(params, batch)
+        losses.append(float(metrics["loss"]))
+    return served, losses
+
+
+def _placed_launches_ok(res, cfg, shape, prefill_rows, steps, kernels):
+    """K3 on a rank as planned: its forward L a training forward and L a
+    prefill, each backward kernel ``backward_plan`` picks L a step, all at
+    the rank's local ``shape`` (B, S, H/T, KH heads read, Dh) in fp32."""
+    L = cfg.n_layers
+    B, S, _, H, KH, Dh = shape[:6]
+    key = (B, S, S, H, KH, Dh, "float32")
+    pre = (prefill_rows,) + key[1:]
+    return (res["k3"]["forward"] == L * steps
+            and res["k3"]["bf16_forward"] == 0
+            and res["k3_shapes"]["forward"] == {key: L * steps}
+            and res["k3_shapes"]["backward"] == {key: L * steps}
+            and _bwd_counts_ok(res["k3"]["backward"], kernels, L * steps)
+            and res["k3_prefill"] == {pre: L}
+            and (res["plan"]["heads"], res["plan"]["kv_heads"]) == (H, KH)
+            and res["plan"]["attn_split"] and res["plan"]["mlp_split"])
+
+
+def check_placement_against_cpu(dev) -> dict:
+    """Phase 7l's card-vs-CPU half: reduced smollm-135m (H 4, KH 2, d_ff
+    512) placed over ``PLACE_SMALL_MESH`` = (2, 2) on gloo ranks on this
+    card (``sharding.worker.run_placed``: the sharded prefill of 2 x 64
+    and 4 greedy decode steps, then 2 SGD steps at B 4 x S 64) against the
+    one-rank port on the CPU (plain kernels) on the same weights, batch and
+    prompts: the params gathered after the steps within ``TRAIN_TOL``,
+    every rank's losses within it, every rank's logits (the prefill's and
+    each step's) within ``SERVE_TOL``, the tokens equal; K3 on every rank
+    at its 2 query heads and 1 KV head (``_placed_launches_ok``). Returns
+    the gaps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import default_backend, spawn
+    from repro_torch.sharding.worker import run_placed
+    from repro_torch.utils.bridge import lm_params_to_numpy, tree_leaves
+    cfg = get_config("smollm-135m").reduced()
+    p0 = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    case = _placed_case(cfg, PLACE_SMALL_MESH, PLACE_SMALL_B, PLACE_SMALL_S,
+                        PLACE_SMALL_PROMPT, PLACE_SMALL_GEN,
+                        params=lm_params_to_numpy(p0), keep=True)
+    D, T = PLACE_SMALL_MESH
+    torch.cuda.empty_cache()
+    t0, t_spawn = time.perf_counter(), time.time()
+    ranks = [r[0] for r in spawn(run_placed, D * T,
+                                 default_backend(D * T, "cuda"), "cuda",
+                                 [case], "cuda")]
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served, losses = _one_rank(cfg, p0, case, torch.device("cpu"))
+    cpu_wall = time.perf_counter() - t0
+    gaps = {"params": max(float((a - b).abs().max()) for a, b in zip(
+                tree_leaves(ranks[0]["params"]), tree_leaves(p0))),
+            "loss": max(abs(m["loss"] - w) for r in ranks
+                        for m, w in zip(r["metrics"], losses)),
+            "logits": max(float((r["serve"]["logits"] - served.logits)
+                                .abs().max()) for r in ranks)}
+    tokens = all(torch.equal(r["serve"]["tokens"], served.tokens)
+                 for r in ranks)
+    local = (PLACE_SMALL_B // D, PLACE_SMALL_S, PLACE_SMALL_S,
+             cfg.n_heads // T, cfg.n_kv_heads // T, cfg.resolved_head_dim)
+    kernels = _bwd_kernels(local + (True, 0), dev)
+    launches = all(_placed_launches_ok(r, cfg, local,
+                                       PLACE_SMALL_PROMPT[0] // D,
+                                       PLACE_STEPS, kernels) for r in ranks)
+    print(f"placed reduced smollm-135m on mesh {PLACE_SMALL_MESH}, card "
+          f"ranks vs one rank on the CPU: {gaps} (params and loss tol "
+          f"{TRAIN_TOL}, logits {SERVE_TOL}); tokens equal {tokens}; K3 at "
+          f"{local} on every rank as planned {launches}; plans "
+          f"{[r['plan'] for r in ranks]}; wall {wall:.1f} s (rank 0's clock "
+          f"from the spawn: "
+          f"{ {k: round(v - t_spawn, 1) for k, v in ranks[0]['clock'].items()} }"
+          f"), the CPU rank {cpu_wall:.1f} s")
+    if not (gaps["params"] <= TRAIN_TOL and gaps["loss"] <= TRAIN_TOL
+            and gaps["logits"] <= SERVE_TOL and tokens and launches):
+        raise AssertionError("the placed step on the card disagrees with "
+                             "the one-rank step on the CPU")
+    return gaps
+
+
+def run_placement_main_path(dev) -> dict:
+    """Phase 7l's main path: smollm-135m at full width in fp32 (TF32 off),
+    one client over ``PLACE_MESH`` = (2, 3), 6 gloo ranks on this card,
+    seed-0 weights drawn on every rank and placed by the reference's
+    specs: a prefill of 4 x 256 and ``PLACE_GEN`` greedy tokens, then
+    ``PLACE_STEPS`` SGD steps at B 4 x S 256 (B 2 a rank), against the
+    one-rank port on the card (the same draws, batch and prompts, run while
+    the ranks run): every rank's params after the steps against its block
+    of the one-rank params, its losses and logits within 1e-4 of
+    max|d|/(1+|ref|), the tokens equal; on every rank K3's forward 30 a
+    training forward and 30 a prefill, each backward kernel 30 a step,
+    all at (B 2, S 256, 3 heads, 1 KV head, Dh 64) in fp32 (no step ran
+    unsharded); every rank under 1/4 of the model's parameter bytes.
+    Prints each rank's parameter bytes, peak memory, ms a step and a
+    prefill with their collectives' share (each collective between device
+    syncs) and its clock (seconds from the spawn to its start, its
+    placement, serve and steps). Its ranks start in a thread while
+    :func:`check_placement_against_cpu` runs its own. Returns the launches
+    summed over the ranks, the figures and the card-vs-CPU gaps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import default_backend, place, spawn
+    from repro_torch.sharding.worker import run_placed
+    from repro_torch.utils.bridge import tree_leaves
+    cfg = get_config("smollm-135m")
+    D, T = PLACE_MESH
+    from concurrent.futures import ThreadPoolExecutor
+    case = _placed_case(cfg, PLACE_MESH, PLACE_B, PLACE_S,
+                        (PLACE_B, PLACE_S), PLACE_GEN, seed=0, blocks=True,
+                        timed=True)
+    torch.cuda.empty_cache()
+    t0, t_spawn = time.perf_counter(), time.time()
+    with ThreadPoolExecutor(1) as pool:      # the ranks run meanwhile
+        future = pool.submit(spawn, run_placed, D * T,
+                             default_backend(D * T, "cuda"), "cuda", [case],
+                             "cuda")
+        small = check_placement_against_cpu(dev)
+        t1 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        served, losses = _one_rank(cfg, params, case, dev)
+        one_wall = time.perf_counter() - t1
+        ranks = [r[0] for r in future.result()]
+    wall = time.perf_counter() - t0
+    gaps = {"params": max(_scaled_gap(
+                tree_leaves(r["blocks"]), tree_leaves(place.param_blocks(
+                    params, place.layout(case["mesh"], rank))))
+                for rank, r in enumerate(ranks)),
+            "loss": max(abs(m["loss"] - w) / (1 + abs(w)) for r in ranks
+                        for m, w in zip(r["metrics"], losses)),
+            "logits": max(_scaled_gap([r["serve"]["logits"]],
+                                      [served.logits]) for r in ranks)}
+    del params
+    torch.cuda.empty_cache()
+    tokens = all(torch.equal(r["serve"]["tokens"], served.tokens.cpu())
+                 for r in ranks)
+    local = PLACE_ATTN[:6]
+    kernels = _bwd_kernels(PLACE_ATTN, dev)
+    launches = [_placed_launches_ok(r, cfg, local, PLACE_B // D, PLACE_STEPS,
+                                    kernels) for r in ranks]
+    quarter = [r["param_bytes"] < r["model_bytes"] / 4 for r in ranks]
+    rows = []
+    for rank, r in enumerate(ranks):
+        steps_ms = r["ms"]["steps"]
+        start = t_spawn
+        comm_step = r["comm_s"]["steps"] * 1e3 / len(steps_ms)
+        row = {"rank": rank, "coords": r["plan"]["coords"],
+               "param_bytes": r["param_bytes"],
+               "model_bytes": r["model_bytes"],
+               "peak_gib": r["peak_gib"], "ms_steps": steps_ms,
+               "ms_step_collectives_mean": comm_step,
+               "ms_step_compute_mean": float(np.mean(steps_ms)) - comm_step,
+               "ms_prefill": r["ms"]["serve"]["prefill"],
+               "ms_prefill_collectives": r["ms"]["serve"]["prefill_comm"],
+               "ms_decode": r["ms"]["serve"]["decode"],
+               "clock_s": {k: v - start for k, v in r["clock"].items()},
+               "losses": [m["loss"] for m in r["metrics"]]}
+        rows.append(row)
+        print(f"placed smollm-135m rank {rank}: {json.dumps(row)}")
+    print(f"placed smollm-135m on mesh {PLACE_MESH}, fp32, vs one rank on "
+          f"the card: {gaps} (tol 1e-4 of max|d|/(1+|ref|)); tokens equal "
+          f"{tokens}; K3 at {local} as planned on every rank {launches}; "
+          f"every rank under 1/4 of the model's bytes {quarter}; wall "
+          f"{wall:.1f} s (the ranks' start, draws, serve and steps, with the "
+          f"card-vs-CPU check and the one-rank runs, {one_wall:.1f} s, "
+          f"beside them); one-rank losses {losses}")
+    if not (all(v <= 1e-4 for v in gaps.values()) and tokens
+            and all(launches) and all(quarter)):
+        raise AssertionError("the placed smollm-135m missed its parity, "
+                             "launch or bytes checks")
+    n_bwd = {}
+    for r in ranks:
+        for k, v in r["k3"]["backward"].items():
+            n_bwd[k] = n_bwd.get(k, 0) + v
+    return {"k3_forward": sum(r["k3"]["forward"] + sum(r["k3_prefill"]
+                                                       .values())
+                              for r in ranks),
+            "k3_backward": n_bwd, "steps": PLACE_STEPS * D * T,
+            "ranks": rows, "gaps": gaps, "small": small}
 
 
 def k2_round_report(dev, n2, per_rank, floor) -> dict:
@@ -5445,16 +5714,20 @@ def main() -> int:
     t0 = time.perf_counter()
     taps = time_taps(dev)
     print(f"taps wall {time.perf_counter() - t0:.1f} s; pfedwn ms per "
-          f"round, taps on and off (medians of 5 interleaved runs): "
+          f"round, taps on and off (medians of 2 interleaved runs): "
           f"{json.dumps(taps)}")
 
     _phase("5f. sharded engine: small run vs fused, pfedwn at full width "
            "over D = 1, 2, 4, pod_mix")
     t0 = time.perf_counter()
-    check_sharded_small(dev)
-    spread = fused_spread(dev, wide_hist, wide_sim)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:   # parity only: nothing here is timed
+        small = pool.submit(check_sharded_small, dev)
+        pods = pool.submit(check_pod_mix, dev)
+        spread = fused_spread(dev, wide_hist, wide_sim)
+        small.result()
+        pod_k2 = pods.result()
     sharded = run_sharded_wide(dev, wide_hist, wide_sim, spread)
-    pod_k2 = check_pod_mix(dev)
     print(f"sharded wall {time.perf_counter() - t0:.1f} s")
 
     _phase("6. K3 flash_attention vs plain, forward and backward")
@@ -5609,6 +5882,16 @@ def main() -> int:
     t0 = time.perf_counter()
     ds_main = run_deepseek_full_main_path(dev)
     print(f"deepseek-v3 main paths wall {time.perf_counter() - t0:.1f} s")
+
+    _phase("7l. one client placed over a (data, model) mesh: reduced "
+           "smollm-135m on (2, 2) card ranks vs one rank on the CPU, then "
+           "smollm-135m at full width on (2, 3) vs one rank on the card")
+    if PLACE_ATTN not in ATTN_SHAPES or PLACE_ATTN not in BWD_SHAPES:
+        raise AssertionError("phase 6 does not check K3 at PLACE_ATTN")
+    t0 = time.perf_counter()
+    placed = run_placement_main_path(dev)     # the card-vs-CPU check too
+    print(f"placed card vs CPU and main path wall "
+          f"{time.perf_counter() - t0:.1f} s")
 
     _phase("8. kernel times")
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
@@ -5824,6 +6107,19 @@ def main() -> int:
             rows[-1]["name"] = ("flash_attention_bwd (positions)"
                                 if dtype == torch.float32 else
                                 "flash_attention_bwd (bf16, positions)")
+    # one client placed over (data, model) = (2, 3) (phase 7l): K3 at a
+    # rank's 3 query heads over 1 KV head, B 2 x S 256, fp32
+    rows += [
+        attention_report(dev, PLACE_ATTN, placed["k3_forward"],
+                         err3[PLACE_ATTN], floor,
+                         f"smollm-135m placed over (data, model) = "
+                         f"{PLACE_MESH}: each rank's training forwards and "
+                         f"prefill; launches over ranks"),
+        attention_bwd_report(dev, PLACE_ATTN, placed["k3_backward"],
+                             err3_bwd[PLACE_ATTN], floor,
+                             f"smollm-135m placed over (data, model) = "
+                             f"{PLACE_MESH}: each rank's steps; launches "
+                             f"over ranks and steps", placed["steps"])]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[1]["cifar100_round"] = {"launches": n2_c100, "P": p_c100}
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],

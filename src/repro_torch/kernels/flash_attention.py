@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from types import MappingProxyType
 from typing import NamedTuple, Optional
 
@@ -89,6 +90,10 @@ bf16_launches = 0            # of those, launches of the bf16 kernel
 # only when the plan splits dK/dV), and of those the bf16 kernels'
 backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
 bf16_backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
+# the shapes those launches ran at, (B, Sq, Skv, H, KH, Dh, dtype name): a
+# forward launch each, and a backward each (counted at its dK/dV launch)
+launch_shapes: Counter = Counter()
+backward_shapes: Counter = Counter()
 # the fp32 backward's tiles (csrc/flash_attention_bwd.cu, checked against
 # the library when it loads): keys a dK/dV block owns and the query tile of
 # its steps, by head size; query rows a dQ block owns and the key tile of
@@ -271,11 +276,14 @@ def backward_plan(B, Sq, Skv, H, KH, Dh, causal, window, sms,
 def reset_counts() -> None:
     """Set :data:`launches`, :data:`position_launches`,
     :data:`bf16_launches` and every :data:`backward_launches` and
-    :data:`bf16_backward_launches` to 0."""
+    :data:`bf16_backward_launches` to 0, and empty :data:`launch_shapes`
+    and :data:`backward_shapes`."""
     global launches, position_launches, bf16_launches
     launches = position_launches = bf16_launches = 0
     for name in backward_launches:
         backward_launches[name] = bf16_backward_launches[name] = 0
+    launch_shapes.clear()
+    backward_shapes.clear()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -353,6 +361,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     position_launches += q_positions is not None
     bf16_launches += bf16
+    launch_shapes[(B, Sq, Skv, H, KH, Dh, str(q.dtype)[6:])] += 1
     return (out, lse) if with_lse else out
 
 
@@ -426,6 +435,9 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
                                    f"launch failed: CUDA error {rc}")
             backward_launches[name] += 1
             bf16_backward_launches[name] += bf16
+            if name == "dkdv":
+                backward_shapes[(B, Sq, Skv, H, KH, Dh,
+                                 str(q.dtype)[6:])] += 1
         return launch
 
     order = ("dot", "dkdv") + (("reduce",) if splits > 1 else ()) + ("dq",)

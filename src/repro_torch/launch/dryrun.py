@@ -24,9 +24,15 @@ Protocol, as the reference's: the counts are taken on the 1-period and
   - Bytes accessed: every op's tensor arguments and results, views 0, and
     each kernel's inputs and outputs (the counter's docstring): an eager
     step's traffic with no fusion.
-  - Memory: the argument bytes of one card (params + batch + cache, in
-    bf16); under the port's rules one card holds a whole client (ROADMAP
-    D1).
+  - Memory: ``argument_bytes``, the whole client's params + batch +
+    cache in bf16, which ``--run`` weighs against one card's 80 GB; and
+    ``argument_bytes_per_card``, the bytes of them one card holds under
+    the reference's specs on the production ``("data", "model")`` mesh
+    (``sharding/place.py``: params by ``param_shardings``, the batch by
+    ``batch_spec`` with entries that do not divide dropped, the cache by
+    ``cache_shardings``), the counterpart of XLA's argument size a device.
+    ``--multi-pod`` records count one pod's client (its share of a serving
+    batch) on that mesh.
   - ``--multi-pod``: the training shapes run the pFedWN round step
     (``make_pfedwn_round_step``) on the mesh's C = 2 pod clients, one a
     rank of a fake process group (no data moves; each collective's result
@@ -66,6 +72,8 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.roofline.collectives import CollectiveCounter
 from repro_torch.roofline.counter import CostCounter
+from repro_torch.sharding import place
+from repro_torch.sharding.rules import cache_shardings, param_shardings
 
 DEFAULT_OUT = "experiments/torch_dryrun"
 CARD_BYTES = 80e9           # one H100's memory
@@ -128,6 +136,23 @@ def _materialize(specs: Dict[str, torch.Tensor], cfg, device,
         labels[:, -1] = -1
         out["labels"] = labels
     return {k: v.to(device) for k, v in out.items()}
+
+
+def argument_bytes_per_card(cfg, shape: ShapeConfig, mesh) -> int:
+    """The bytes of the bf16 params, the batch and (decode) the cache that
+    one card of ``mesh`` (a ``("data", "model")`` ``MeshSpec``) holds under
+    the reference's specs: the sum of the leaves' shard shapes
+    (``NamedSharding(mesh, spec).shard_shape``), the same on every card
+    since every split is even."""
+    pl = place.layout(mesh, 0)
+    params = steps_lib.abstract_params(cfg)
+    batch = steps_lib.input_specs(cfg, shape)
+    n = (place.tree_shard_bytes(params, param_shardings(mesh, params), pl)
+         + place.tree_shard_bytes(batch, place.batch_specs(batch, pl), pl))
+    if shape.mode == "decode":
+        cache = steps_lib.abstract_cache(cfg, shape)
+        n += place.tree_shard_bytes(cache, cache_shardings(mesh, cache), pl)
+    return n
 
 
 def _cut(shape: ShapeConfig, batch: int) -> ShapeConfig:
@@ -285,7 +310,9 @@ def run_combo(arch: str, shape_name: str, out_dir: Optional[str], *,
         rec["collectives"] = ext["collectives"]
         rec["kernels"] = ext["kernels"]
         rec["kernel_flops"] = ext["kernel_flops"]
-        rec["memory"] = {"argument_bytes": args}
+        rec["memory"] = {"argument_bytes": args,
+                         "argument_bytes_per_card": argument_bytes_per_card(
+                             cfg, shape, make_production_mesh())}
         rec["build_seconds"] = time.perf_counter() - t0
         cut = _cut(shape, min(shape.global_batch,
                               RUN_BATCH.get(shape_name, 1)))

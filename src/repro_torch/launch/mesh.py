@@ -13,9 +13,14 @@ What each axis places in the port:
     group, the world or its first C ranks, as
     :func:`repro_torch.sharding.client_group` binds ``"clients"``
     (``launch/steps.py::make_pfedwn_round_step``);
-  - ``"data"`` and ``"model"``: nothing. Each client's whole model lives
-    on one card; FSDP and tensor parallelism within a client wait for a
-    machine with more than one card (ROADMAP).
+  - ``"data"`` and ``"model"``: one client over a mesh of D x T ranks
+    (:func:`repro_torch.sharding.place.make_placement`), each rank holding
+    its block of every param, batch and cache leaf by the rules' specs
+    (``sharding/place.py``); the dense family's train step, prefill and
+    decode run on the blocks, the batch over ``"data"``, heads and d_ff
+    over ``"model"`` (``sharding/tensor_parallel.py``, the step builders'
+    ``placement``). The other families' compute, and a pod's client placed
+    within the multi-pod round step, come later (ROADMAP D1b-D1d).
 
 Building a spec touches no device and no process state, as in the
 reference, where the meshes are functions so that importing the module

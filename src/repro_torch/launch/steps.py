@@ -17,9 +17,15 @@
     EM weights on a probe slice (Eq 9-10), and the Eq-1 mix gated by the
     wireless link mask, through K2.
 
-Off a mesh the reference's sharding hints and gradient layouts do
-nothing, and ``unroll`` only changes how XLA counts a scanned layer, so
-the port has neither.
+The train, prefill and decode steps take an optional ``placement``: one
+client sharded over a ``("data", "model")`` mesh of ranks, the batch over
+"data", heads and d_ff over "model" (``sharding/tensor_parallel.py``),
+each rank holding its blocks of the params, batch and cache by the
+reference's specs (``sharding/place.py``), where the reference jits the
+same builders with ``in_shardings`` and pins the gradients to the params'
+layouts (``grad_shardings``). Without one a step runs on one device as
+before. ``unroll`` only changes how XLA counts a scanned layer, so the
+port has none.
 
 The reference's defaults are bf16 (``input_specs``, ``abstract_params``,
 ``abstract_cache``); so are these. A step runs in the params' dtype: on a
@@ -39,6 +45,8 @@ from repro_torch.launch.mesh import MeshSpec, pod_group
 from repro_torch.launch.train import (_layered, _sgd_in_param_dtype_,
                                       value_and_grad)
 from repro_torch.models import model as model_lib
+from repro_torch.sharding import tensor_parallel
+from repro_torch.sharding.place import Placement
 from repro_torch.utils.bridge import ParamLayout, tree_leaves
 
 Params = Any
@@ -97,7 +105,8 @@ def abstract_cache(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def make_train_step(cfg: ModelConfig, train: TrainConfig,
-                    shape: ShapeConfig) -> Callable:
+                    shape: ShapeConfig, *,
+                    placement: Optional[Placement] = None) -> Callable:
     """``train_step(params, batch) -> (params, metrics)``: ``loss_fn`` at
     the shape's effective window (recomputing each layer in the backward
     when ``train.remat``), its gradients layer by layer
@@ -106,8 +115,19 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig,
     in place, each stacked layer's slice from that layer's gradient, so a
     step holds one copy of the weights (the reference returns a new tree;
     the returned params are the given ones). ``metrics``: the reference's
-    keys, ``xent``, ``aux``, ``mtp`` and ``loss``."""
+    keys, ``xent``, ``aux``, ``mtp`` and ``loss``.
+
+    With ``placement`` (``sharding/place.py::make_placement``) the step is
+    one rank's of a client sharded over its ``("data", "model")`` mesh
+    (:func:`repro_torch.sharding.tensor_parallel.make_train_step`): it
+    takes this rank's blocks of the params and the batch
+    (``place.param_blocks``, ``place.batch_blocks``), updates the param
+    blocks in place, and every rank returns the whole client's metrics;
+    the dense family only (others raise NotImplementedError)."""
     window = effective_window(cfg, shape)
+    if placement is not None:
+        return tensor_parallel.make_train_step(cfg, train, shape, placement,
+                                               window)
 
     def train_step(params: Params, batch: Dict) -> Tuple[Params, Dict]:
         loss, metrics, grads = value_and_grad(params, cfg, batch,
@@ -121,11 +141,18 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, *,
+                      placement: Optional[Placement] = None) -> Callable:
     """``prefill_step(params, batch) -> (last-token logits, cache)`` at the
     shape's effective window; batch: tokens, optionally stub_embeds and
-    positions."""
+    positions. With ``placement``, one rank's of a sharded client: it takes
+    this rank's blocks and returns the logits whole (every data rank's
+    rows) and this rank's blocks of the cache, in ``cache_shardings``'
+    layout."""
     window = effective_window(cfg, shape)
+    if placement is not None:
+        return tensor_parallel.make_prefill_step(cfg, shape, placement,
+                                                 window)
 
     @torch.no_grad()
     def prefill_step(params: Params, batch: Dict):
@@ -137,12 +164,20 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig) -> Callable:
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, shape: ShapeConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig, shape: ShapeConfig, *,
+                     placement: Optional[Placement] = None) -> Callable:
     """``decode_step(params, cache, batch) -> (logits, cache)`` at the
     shape's effective window; batch: token (B, 1) and pos (its absolute
     position, an int or a 0-d tensor). The new token's entries are written
-    into ``cache`` in place (the reference returns an updated copy)."""
+    into ``cache`` in place (the reference returns an updated copy). With
+    ``placement``, one rank's of a sharded client: it takes this rank's
+    blocks of the params, the cache (``place.cache_blocks`` or
+    ``place.cache_zeros``) and the token, writes the new entries into its
+    cache blocks and returns the logits whole."""
     window = effective_window(cfg, shape)
+    if placement is not None:
+        return tensor_parallel.make_decode_step(cfg, shape, placement,
+                                                window)
 
     @torch.no_grad()
     def decode_step(params: Params, cache: Dict, batch: Dict):

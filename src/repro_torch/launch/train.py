@@ -71,7 +71,7 @@ def _layered(params: Params) -> Params:
 
 def value_and_grad(params: Params, cfg: ModelConfig, batch: Dict, *,
                    window: int = 0, remat: bool = False,
-                   by_layer: bool = False):
+                   by_layer: bool = False, objective: Callable = loss_fn):
     """(loss, metrics, grads) of :func:`loss_fn` at ``params``; the grads
     are a tree of ``params``' structure, or with ``by_layer`` of
     ``_layered(params)``'s: each stacked layer group's grads as a list of
@@ -82,11 +82,13 @@ def value_and_grad(params: Params, cfg: ModelConfig, batch: Dict, *,
     values are the same. A leaf the loss does not reach (an empty layer
     group's ``(0, ...)`` leaves: a MoE config with ``n_layers ==
     first_k_dense``) gets zeros of its shape and dtype, as
-    ``jax.value_and_grad`` gives them."""
+    ``jax.value_and_grad`` gives them. ``objective`` takes ``loss_fn``'s
+    arguments and returns what it returns (the sharded steps pass a rank's
+    share of the loss, ``sharding/tensor_parallel.py``)."""
     leaves, spec = tree_flatten(_layered(params) if by_layer else params)
     leaves = [x.detach().requires_grad_() for x in leaves]
-    loss, metrics = loss_fn(tree_unflatten(leaves, spec), cfg, batch,
-                            window=window, remat=remat)
+    loss, metrics = objective(tree_unflatten(leaves, spec), cfg, batch,
+                              window=window, remat=remat)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
     return loss.detach(), metrics, tree_unflatten(list(grads), spec)

@@ -71,11 +71,12 @@ def default_backend(world: int, device: str) -> str:
 
 
 def _rank_main(rank: int, fn: Callable, world: int, backend: str,
-               device: str, store: str, out_dir: str, args: tuple) -> None:
+               device: str, store: str, out_dir: str) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
     else:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    args = torch.load(os.path.join(out_dir, "args.pt"), weights_only=False)
     dist.init_process_group(backend, init_method=f"file://{store}",
                             world_size=world, rank=rank)
     try:
@@ -97,12 +98,18 @@ def spawn(fn: Callable, world: int, backend: str, device: str,
     imports JAX). On ``device="cuda"`` rank r uses card r mod the card
     count. The group meets through a file store in a fresh temporary
     directory, so no port is taken and parallel runs cannot collide. If a
-    rank raises, the others are stopped and the error is raised here."""
+    rank raises, the others are stopped and the error is raised here.
+
+    ``args`` reach the ranks through a file in that directory, not with
+    the start: a child reads its start only after importing the parent's
+    main module, so a start larger than a pipe holds the next child's
+    until then, and the ranks would start one after another."""
     with tempfile.TemporaryDirectory(prefix="repro_torch_spawn_") as tmp:
+        torch.save(args, os.path.join(tmp, "args.pt"))
         torch.multiprocessing.start_processes(
             _rank_main, nprocs=world, join=True, start_method="spawn",
             args=(fn, world, backend, device, os.path.join(tmp, "store"),
-                  tmp, args))
+                  tmp))
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            map_location="cpu", weights_only=False)
                 for r in range(world)]

@@ -15,8 +15,10 @@ reference's rules give it on a mesh (``launch/mesh.py::MeshSpec``). A
 spec is a tuple with one entry a dim, an axis name or None (an entry of
 the reference's ``PartitionSpec``; ``("pod", "data")`` nests), and a leaf
 is named by its tree keys, stringified as the reference's
-``_path_names`` does. Within a pod (``"data"``, ``"model"``) the specs
-place nothing yet: each client's model lives on one card (ROADMAP); the
+``_path_names`` does. Within a pod, ``sharding/place.py`` gives each
+rank of a ``("data", "model")`` mesh its block of every leaf by these
+specs (the params, the batch, the cache), and ``sharding/
+tensor_parallel.py`` runs the dense family's steps on the blocks; the
 ``"pod"`` entries are what ``launch/steps.py::make_pfedwn_round_step``
 runs, one client a rank.
 

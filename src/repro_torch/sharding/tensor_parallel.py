@@ -1,0 +1,573 @@
+"""One client's train step, prefill and decode over a ``("data", "model")``
+placement (:mod:`repro_torch.sharding.place`): the dense family's compute
+on each rank's blocks, the port's counterpart of the reference's steps
+jitted with ``in_shardings`` on a mesh (``launch/dryrun.py``).
+
+  - **Batch over "data".** Each data rank runs its rows. The loss is the
+    rank's summed token cross-entropy over the GLOBAL count of unmasked
+    labels (one all-reduce of the count), so the D ranks' losses sum to the
+    reference's one loss, and the gradients summed over "data" are its
+    gradients.
+  - **Heads and d_ff over "model", Megatron style.** ``wq``, ``wk``,
+    ``wv`` (and their biases), ``w_gate`` and ``w_up`` are column-parallel,
+    ``wo`` and ``w_down`` row-parallel; the two autograd operators
+    :class:`CopyToModel` (identity forward, all-reduce over "model"
+    backward) and :class:`ReduceFromModel` (all-reduce forward, identity
+    backward) bracket each split half-block. A rank runs K3 at its H/T query
+    heads and the KV heads they read: KH/T of them, or, when a KV head is
+    shared by several ranks' query heads (KH < T), that one head. Attention
+    is split when T divides H and a rank's heads fall within KV groups or
+    cover whole ones; the MLP when T divides d_ff. A half-block that is not
+    split runs whole on every model rank, on weights gathered whole.
+  - **Leaves whose split the compute does not follow** are gathered along
+    those axes before use and freed after it: the "data" (FSDP) half of
+    every matrix, ``embed`` and ``lm_head`` in training (no vocab-parallel
+    cross-entropy yet), and a "model" split off whole heads (full-width
+    smollm-135m at T = 2 splits ``wq`` at head 4.5), each leaf's compute
+    form then sliced out of the gathered leaf. The math is the reference's;
+    only the order of sums changes. Prefill and decode gather only the
+    "data" half of ``embed`` and ``lm_head``: a rank looks the tokens up in
+    its vocab rows and computes its vocab columns of the logits (one
+    all-reduce and one all-gather over "model").
+  - **Gradients.** A compute form's gradient is laid into its frame (the
+    leaf gathered along the axes it was gathered along), the frames summed
+    over the ranks that hold the same frame (over "data" when the batch is
+    split; over "model" too when the model ranks' contributions to one
+    frame differ: a leaf gathered over "model", or sliced from a replicated
+    one, in a split half-block), and each rank keeps its block and updates
+    it in place (``_sgd_in_param_dtype_``). gloo has no ``reduce_scatter``,
+    so that sum is an all-reduce of the frame followed by taking the
+    rank's block; the frames are packed into one buffer a reduction group
+    and dtype, so a step makes at most three all-reduces of gradients.
+  - **Prefill** returns the last-token logits whole on every rank (one
+    all-gather over "data") and this rank's blocks of the cache in
+    ``cache_shardings``' layout; **decode** writes the new token into those
+    blocks (through a gathered copy of the layer's cache where the cache's
+    split is not the compute's: the head-dim fallback, shared KV heads) and
+    returns whole logits.
+
+There is no fallback: a sharded step never runs unsharded, a collective
+that fails raises, and K3 on a CUDA tensor launches or raises. Other
+families raise NotImplementedError naming their ROADMAP item (D1b, D1c).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.launch.train import (_layered, _sgd_in_param_dtype_,
+                                      value_and_grad)
+from repro_torch.models import attention as attn
+from repro_torch.models import model as model_lib
+from repro_torch.models.layers import (embed_apply, mlp_apply, rmsnorm,
+                                       unembed_apply)
+from repro_torch.sharding import place
+from repro_torch.sharding.place import Placement
+from repro_torch.sharding.rules import (Spec, _map_with_path, cache_shardings,
+                                        param_shardings)
+
+Params = Any
+
+
+def check_placeable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError unless ``cfg`` is of the dense family (GQA
+    blocks with an MLP), naming the ROADMAP item of the rest."""
+    if cfg.family == "dense" and not (cfg.mla or cfg.moe or cfg.ssm):
+        return
+    items = []
+    if cfg.moe:
+        items.append("D1b (expert parallelism over 'model')")
+    if cfg.mla or cfg.ssm or cfg.family in ("hybrid", "vlm", "audio"):
+        items.append("D1c (the MLA, SSM, hybrid and stub-prefix families)")
+    raise NotImplementedError(
+        f"{cfg.name}: family {cfg.family!r}{' with MLA' if cfg.mla else ''} "
+        f"is not placed within a client yet; the sharded steps run the "
+        f"dense family only (ROADMAP {', '.join(items)})")
+
+
+class CopyToModel(torch.autograd.Function):
+    """Enter a split half-block: identity forward; backward, the model
+    ranks' partial input gradients summed (all-reduce over "model")."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return place.all_reduce(grad.contiguous().clone(), ctx.group), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """Leave a split half-block: the model ranks' partial outputs summed
+    (all-reduce over "model"); identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return place.all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class LeafUse(NamedTuple):
+    """How one leaf (one layer's, for a stacked one) enters the compute:
+    its storage ``spec``; the axes it is ``gather``-ed along; ``take``, the
+    compute form's slices of the gathered leaf (its frame); ``keep``, the
+    rank's block within the frame; ``sum_axes``, the axes over which the
+    frames' gradients are summed."""
+    spec: Spec
+    gather: Tuple[str, ...]
+    frame: Tuple[int, ...]
+    take: Tuple[slice, ...]
+    keep: Tuple[slice, ...]
+    sum_axes: Tuple[str, ...]
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def leaf_use(spec: Spec, shape: Sequence[int],
+             ranges: Optional[Sequence[Optional[Tuple[int, int]]]],
+             partitioned: bool, batch_split: bool,
+             pl: Placement) -> LeafUse:
+    """The :class:`LeafUse` of a leaf of global ``shape`` stored under
+    ``spec`` whose compute form is ``ranges`` (a [start, stop) a dim, None
+    for the whole dim; None: the whole leaf). ``partitioned``: the model
+    ranks compute different parts with it (a split half-block)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    want = [(r if ranges and r else (0, d)) for r, d in
+            zip(ranges or [None] * len(shape), shape)]
+    blocks = [place.block_range(e, d, pl) for e, d in zip(spec, shape)]
+    gather: List[str] = []
+    for e, blk, w in zip(spec, blocks, want):
+        if blk != w:
+            gather += [a for a in _entry_axes(e)
+                       if pl.sizes.get(a, 1) > 1 and a not in gather]
+    frame, take, keep = [], [], []
+    model_varies = False
+    for e, d, blk, w in zip(spec, shape, blocks, want):
+        axes = [a for a in _entry_axes(e) if pl.sizes.get(a, 1) > 1]
+        lo, hi = (0, d) if all(a in gather for a in axes) else blk
+        if "model" in axes and "model" not in gather:
+            model_varies = True
+        frame.append(hi - lo)
+        take.append(slice(w[0] - lo, w[1] - lo))
+        keep.append(slice(blk[0] - lo, blk[1] - lo))
+    sums = []
+    if batch_split:
+        sums.append("data")
+    if partitioned and pl.sizes["model"] > 1 and not model_varies:
+        sums.append("model")
+    return LeafUse(spec, tuple(gather), tuple(frame), tuple(take),
+                   tuple(keep), tuple(sums))
+
+
+def _whole(slices: Tuple[slice, ...], frame: Tuple[int, ...]) -> bool:
+    """Whether ``slices`` take all of a tensor of shape ``frame``."""
+    return all(s.start == 0 and s.stop == n for s, n in zip(slices, frame))
+
+
+class DensePlan:
+    """Where each rank's heads, columns and rows lie, and how each leaf of
+    the dense model enters its compute, for ``cfg`` on placement ``pl`` at
+    ``shape`` (its global_batch says whether the batch is split over
+    "data": D divides it)."""
+
+    def __init__(self, cfg: ModelConfig, pl: Placement, shape: ShapeConfig):
+        check_placeable(cfg)
+        self.cfg, self.pl, self.shape = cfg, pl, shape
+        D, T = pl.sizes["data"], pl.sizes["model"]
+        t = pl.coords["model"]
+        H, KH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        G = H // KH
+        h = H // T if H % T == 0 else 0
+        self.attn_split = T > 1 and h > 0 and (h % G == 0 or G % h == 0)
+        if self.attn_split:
+            self.heads, kh = h, max(1, h // G)
+        else:
+            self.heads, kh = H, KH
+        self.G = G
+        self.q0 = t * h if self.attn_split else 0
+        self.kv0 = self.q0 // G
+        self.kv_heads = kh
+        self.attn_cfg = dataclasses.replace(cfg, n_heads=self.heads,
+                                            n_kv_heads=kh, head_dim=dh)
+        self.mlp_split = T > 1 and cfg.d_ff % T == 0
+        f = cfg.d_ff // T if self.mlp_split else cfg.d_ff
+        self.f_range = (t * f, (t + 1) * f) if self.mlp_split else None
+        self.batch_split = D > 1 and shape.global_batch % D == 0
+        self.rows = (shape.global_batch // D if self.batch_split
+                     else shape.global_batch)
+        self.data_group = pl.group("data") if self.batch_split else None
+        self.model_group = pl.group("model")
+        meta = model_lib.init_params(cfg, torch.Generator(), device="meta")
+        self.specs = param_shardings(pl.mesh, meta)
+        self.top = {k: self._use(k, tuple(v.shape), self.specs[k])
+                    for k, v in meta.items() if k != "layers"}
+        stacked = place.spec_items(self.specs["layers"])
+        self.layer_uses = _map_with_path(
+            lambda names, x: self._use(names[-1], tuple(x.shape[1:]),
+                                       stacked[names][1:]), meta["layers"])
+        kv = model_lib.init_cache(cfg, shape.global_batch, 1,
+                                  device="meta")
+        self.kv_spec = cache_shardings(pl.mesh, kv)["layers"]["k"][1:]
+
+    # ------------------------------------------------------------ layout
+    def _ranges(self, name: str):
+        """(the compute form's ranges, partitioned) of a leaf by name."""
+        dh = self.cfg.resolved_head_dim
+        if self.attn_split:
+            q = (self.q0 * dh, (self.q0 + self.heads) * dh)
+            kv = (self.kv0 * dh, (self.kv0 + self.kv_heads) * dh)
+            table = {"wq": (None, q), "bq": (q,), "wk": (None, kv),
+                     "wv": (None, kv), "bk": (kv,), "bv": (kv,),
+                     "wo": (q, None)}
+            if name in table:
+                return table[name], True
+        if self.mlp_split and name in ("w_gate", "w_up", "w_down"):
+            f = self.f_range
+            return ((f, None) if name == "w_down" else (None, f)), True
+        return None, False
+
+    def _use(self, name: str, shape: Tuple[int, ...], spec: Spec) -> LeafUse:
+        ranges, part = self._ranges(name)
+        return leaf_use(spec, shape, ranges, part, self.batch_split, self.pl)
+
+    def _form(self, block: torch.Tensor, use: LeafUse) -> torch.Tensor:
+        """A leaf's compute form from this rank's block."""
+        full = place.gather_leaf(block, use.spec, self.pl, use.gather)
+        return full if _whole(use.take, use.frame) else full[use.take]
+
+    def top_form(self, blocks: Params, name: str) -> torch.Tensor:
+        return self._form(blocks[name], self.top[name])
+
+    def layer_form(self, layer_blocks: Params) -> Params:
+        """One layer's compute forms from its blocks (views of the stack)."""
+        return _zip_map(self._form, layer_blocks, self.layer_uses)
+
+    def compute_tree(self, blocks: Params) -> Params:
+        """Every leaf's compute form: the top-level leaves, and ``layers``
+        as a list of per-layer trees (``_layered``'s structure)."""
+        layers = _layered(blocks)["layers"]
+        return {k: ([self.layer_form(lb) for lb in layers] if k == "layers"
+                    else self.top_form(blocks, k)) for k in blocks}
+
+    def check_rows(self, x: torch.Tensor, what: str) -> None:
+        if x.shape[0] != self.rows:
+            raise ValueError(
+                f"{what} holds {x.shape[0]} rows; this rank's block of a "
+                f"global batch of {self.shape.global_batch} over "
+                f"{self.pl.sizes['data']} data ranks is {self.rows} "
+                "(place.batch_blocks)")
+
+    # ----------------------------------------------------------- compute
+    def _enter(self, x: torch.Tensor, split: bool) -> torch.Tensor:
+        return CopyToModel.apply(x, self.model_group) if split else x
+
+    def _leave(self, y: torch.Tensor, split: bool) -> torch.Tensor:
+        return ReduceFromModel.apply(y, self.model_group) if split else y
+
+    def _mlp(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        hn = rmsnorm(p["ln2"], x, self.cfg.norm_eps)
+        return x + self._leave(mlp_apply(p["mlp"], self._enter(
+            hn, self.mlp_split)), self.mlp_split)
+
+    def _train_block(self, p: Params, x: torch.Tensor, pos: torch.Tensor,
+                     window: int, consecutive: bool) -> torch.Tensor:
+        hn = rmsnorm(p["ln1"], x, self.cfg.norm_eps)
+        y = attn.gqa_apply(p["attn"], self.attn_cfg,
+                           self._enter(hn, self.attn_split), positions=pos,
+                           window=window, consecutive=consecutive)
+        return self._mlp(p, x + self._leave(y, self.attn_split))
+
+    def _xent(self, logits: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+        """``model.softmax_xent`` with the mean over the global count."""
+        mask = (labels >= 0).float()
+        safe = torch.clamp(labels, min=0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+        count = torch.sum(mask)
+        if self.data_group is not None:
+            count = place.all_reduce(count.detach().clone(), self.data_group)
+        return torch.sum((lse - ll) * mask) / torch.clamp(count, min=1.0)
+
+    def loss_fn(self, params: Params, cfg: ModelConfig, batch: Dict, *,
+                window: int = 0, remat: bool = False):
+        """This rank's share of ``model.loss_fn`` on compute forms (its
+        rows' token losses over the global count; equal on the model
+        ranks). Dense: ``aux`` and ``mtp`` are 0."""
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        window = window or cfg.sliding_window
+        x, pos, consecutive = model_lib._inputs(
+            params, cfg, tokens, None, batch.get("positions"))
+        for p in params["layers"]:
+            x = model_lib._remat(self._train_block, remat, p, x, pos, window,
+                                 consecutive)
+        h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = model_lib.logits_from_hidden(params, cfg, h[:, -S:])
+        xent = self._xent(logits, batch["labels"])
+        zero = torch.zeros((), dtype=torch.float32, device=xent.device)
+        return xent, {"xent": xent, "aux": zero, "mtp": zero}
+
+    def reduce_grads(self, grads: Params) -> Params:
+        """The blocks' gradients from the compute forms': frames summed over
+        each leaf's ``sum_axes`` (one all-reduce a group and dtype), then
+        the rank's block kept."""
+        uses = {k: ([self.layer_uses] * len(g) if k == "layers"
+                    else self.top[k]) for k, g in grads.items()}
+        pairs: List[Tuple[LeafUse, torch.Tensor]] = []
+        _zip_map(lambda g, u: pairs.append((u, g)), grads, uses)
+        frames = []
+        for use, g in pairs:
+            if _whole(use.take, use.frame):
+                frames.append(g)
+            else:
+                f = g.new_zeros(use.frame)
+                f[use.take] = g
+                frames.append(f)
+        buckets: Dict[Tuple, List[int]] = {}
+        for i, (use, g) in enumerate(pairs):
+            if use.sum_axes:
+                buckets.setdefault((use.sum_axes, str(g.dtype)), []).append(i)
+        groups = {("data",): self.pl.group("data"),
+                  ("model",): self.pl.group("model"),
+                  ("data", "model"): None}          # the whole world
+        for key in sorted(buckets):
+            idx = buckets[key]
+            flat = torch.cat([frames[i].reshape(-1) for i in idx])
+            place.all_reduce(flat, groups[key[0]])
+            for i, part in zip(idx, flat.split([frames[i].numel()
+                                                for i in idx])):
+                frames[i] = part.view(frames[i].shape)
+        out = iter([f if _whole(u.keep, u.frame) else f[u.keep].contiguous()
+                    for (u, _), f in zip(pairs, frames)])
+        return _zip_map(lambda g, u: next(out), grads, uses)
+
+    # ------------------------------------------------------------ caches
+    def _kv_gather_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, KH, Dh) from every model rank's (B, S, kv_heads, Dh) of
+        its KV heads kv0.. (one all-gather over "model")."""
+        parts = place.all_gather(x.contiguous()[None], self.model_group, 0)
+        full = x.new_empty(x.shape[:2] + (self.cfg.n_kv_heads,)
+                           + x.shape[3:])
+        for t, part in enumerate(parts):
+            j = t * self.heads // self.G
+            full[:, :, j:j + self.kv_heads] = part
+        return full
+
+    def _kv_identity(self) -> bool:
+        """Whether this rank's cache block of a layer is its compute form
+        (heads over "model" exactly as the compute splits them)."""
+        if self.pl.sizes["model"] == 1:
+            return True
+        if not self.attn_split or self.kv_spec[2] != "model":
+            return False
+        return place.block_range("model", self.cfg.n_kv_heads, self.pl) == \
+            (self.kv0, self.kv0 + self.kv_heads)
+
+    def kv_to_storage(self, kv: Dict[str, torch.Tensor]) -> Dict:
+        """A layer's computed k/v (B_rows, S, kv_heads, Dh) as this rank's
+        cache block in ``cache_shardings``' layout."""
+        if self._kv_identity():
+            return kv
+        out = {}
+        for name, x in kv.items():
+            full = self._kv_gather_heads(x) if self.attn_split else x
+            spec = (None, None) + tuple(self.kv_spec[2:])
+            out[name] = full[place.block_slices(spec, full.shape,
+                                                self.pl)].contiguous()
+        return out
+
+    def kv_to_compute(self, blocks: Dict[str, torch.Tensor]) -> Dict:
+        """A layer's cache blocks as the compute's (B_rows, S, kv_heads,
+        Dh): the blocks themselves, or a gathered copy."""
+        if self._kv_identity():
+            return blocks
+        spec = (None, None) + tuple(self.kv_spec[2:])
+        out = {}
+        for name, x in blocks.items():
+            full = place.gather_leaf(x, spec, self.pl, ("model",))
+            out[name] = (full[:, :, self.kv0:self.kv0 + self.kv_heads]
+                         .contiguous() if self.attn_split else full)
+        return out
+
+    def rows_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows, in order (one all-gather over "data")."""
+        if self.data_group is None:
+            return x
+        return place.all_gather(x.contiguous(), self.data_group, 0)
+
+    def _vocab_split(self, name: str, dim: int) -> bool:
+        """Whether leaf ``name``'s vocab dim ``dim`` is split over
+        "model"."""
+        return (self.pl.sizes["model"] > 1
+                and self.top[name].spec[dim] == "model")
+
+    def _embed_tokens(self, blocks: Params,
+                      tokens: torch.Tensor) -> torch.Tensor:
+        """The tokens' embeddings without the whole table: each model rank
+        looks up the tokens in its vocab rows (gathered over "data") and
+        zeroes the others; one all-reduce over "model" sums the one row a
+        token has (exact: the other ranks add zeros)."""
+        if not self._vocab_split("embed", 0):
+            return embed_apply(self.top_form(blocks, "embed"), tokens)
+        rows = place.gather_leaf(blocks["embed"], self.top["embed"].spec,
+                                 self.pl, ("data",))
+        lo, hi = place.block_range("model", self.cfg.vocab, self.pl)
+        local = tokens.long() - lo
+        inside = (local >= 0) & (local < hi - lo)
+        x = rows[torch.clamp(local, 0, hi - lo - 1)] * \
+            inside[..., None].to(rows.dtype)
+        return place.all_reduce(x, self.model_group)
+
+    def _logits(self, blocks: Params, h: torch.Tensor) -> torch.Tensor:
+        """fp32 logits without the whole head: each model rank's vocab
+        columns (gathered over "data"), then one all-gather over "model"
+        along the vocab; tied or unsplit heads are gathered whole."""
+        if self.cfg.tie_embeddings or not self._vocab_split("lm_head", 1):
+            name = "embed" if self.cfg.tie_embeddings else "lm_head"
+            return model_lib.logits_from_hidden(
+                {name: self.top_form(blocks, name)}, self.cfg, h)
+        cols = place.gather_leaf(blocks["lm_head"], self.top["lm_head"].spec,
+                                 self.pl, ("data",))
+        part = unembed_apply(cols, h, transpose=False)
+        return place.all_gather(part.contiguous(), self.model_group,
+                                part.dim() - 1)
+
+    def _serve_inputs(self, blocks: Params, batch: Dict):
+        """(embedded tokens, positions, whether they are 0..S-1)."""
+        x = self._embed_tokens(blocks, batch["tokens"])
+        positions = batch.get("positions")
+        if positions is None:
+            return (x, model_lib._positions_default(self.cfg, x.shape[1],
+                                                    x.device), True)
+        return x, positions, False
+
+    @torch.no_grad()
+    def prefill(self, blocks: Params, batch: Dict, window: int = 0):
+        """(last-token logits (B, V) whole, this rank's cache blocks)."""
+        cfg = self.cfg
+        self.check_rows(batch["tokens"], "tokens")
+        window = window or cfg.sliding_window
+        x, pos, consecutive = self._serve_inputs(blocks, batch)
+        caches = []
+        for lb in _layered(blocks)["layers"]:
+            p = self.layer_form(lb)
+            y, kv = attn.gqa_prefill(
+                p["attn"], self.attn_cfg,
+                rmsnorm(p["ln1"], x, cfg.norm_eps), positions=pos,
+                window=window, consecutive=consecutive)
+            x = self._mlp(p, x + self._leave(y, self.attn_split))
+            caches.append(self.kv_to_storage(kv))
+            del p, kv
+        h = rmsnorm(self.top_form(blocks, "ln_f"), x[:, -1:], cfg.norm_eps)
+        logits = self._logits(blocks, h)
+        return (self.rows_whole(logits[:, 0]),
+                {"layers": model_lib._stack_caches(caches)})
+
+    @torch.no_grad()
+    def decode(self, blocks: Params, cache: Dict, batch: Dict,
+               window: int = 0):
+        """(logits (B, V) whole, ``cache``): the new token written into this
+        rank's cache blocks in place."""
+        cfg = self.cfg
+        self.check_rows(batch["token"], "token")
+        window = window or cfg.sliding_window
+        pos = int(batch["pos"])
+        x = self._embed_tokens(blocks, batch["token"])
+        positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        slot = (pos % window) if window else pos
+        for i, lb in enumerate(_layered(blocks)["layers"]):
+            p = self.layer_form(lb)
+            mine = {name: c[i] for name, c in cache["layers"].items()}
+            work = self.kv_to_compute(mine)
+            y, _ = attn.gqa_decode(p["attn"], self.attn_cfg,
+                                   rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                   cache=work, pos=pos, positions=positions,
+                                   window=window)
+            if work is not mine:          # write the new slot back
+                new = self.kv_to_storage(
+                    {n: w[:, slot:slot + 1] for n, w in work.items()})
+                for n, c in mine.items():
+                    c[:, slot] = new[n][:, 0]
+            x = self._mlp(p, x + self._leave(y, self.attn_split))
+            del p, work
+        h = rmsnorm(self.top_form(blocks, "ln_f"), x, cfg.norm_eps)
+        logits = self._logits(blocks, h)
+        return self.rows_whole(logits[:, 0]), cache
+
+
+def _zip_map(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over two trees of one structure (dicts and
+    lists)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_map(fn, v, o) for v, o in zip(tree, other)]
+    return fn(tree, other)
+
+
+def make_train_step(cfg: ModelConfig, train: TrainConfig, shape: ShapeConfig,
+                    placement: Placement, window: int):
+    """``launch/steps.py::make_train_step`` over ``placement``:
+    ``train_step(param_blocks, batch_blocks) -> (param_blocks, metrics)``;
+    the blocks updated in place; the metrics summed over "data", so every
+    rank reports the reference's loss."""
+    plan = DensePlan(cfg, placement, shape)
+
+    def train_step(params: Params, batch: Dict):
+        plan.check_rows(batch["tokens"], "tokens")
+        compute = plan.compute_tree(params)
+        loss, metrics, grads = value_and_grad(
+            compute, cfg, batch, window=window, remat=train.remat,
+            by_layer=True, objective=plan.loss_fn)
+        del compute
+        _sgd_in_param_dtype_(_layered(params), plan.reduce_grads(grads),
+                             train.lr)
+        names = ("xent", "aux", "mtp")
+        packed = torch.stack([loss.float()] + [metrics[k].detach().float()
+                                               for k in names])
+        if plan.data_group is not None:
+            place.all_reduce(packed, plan.data_group)
+        loss, *rest = packed.unbind()
+        return params, dict(zip(names, rest), loss=loss)
+
+    train_step.plan = plan
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
+                      placement: Placement, window: int):
+    """``prefill_step(param_blocks, batch_blocks) -> (logits whole, cache
+    blocks)``."""
+    plan = DensePlan(cfg, placement, shape)
+
+    def prefill_step(params: Params, batch: Dict):
+        return plan.prefill(params, batch, window)
+
+    prefill_step.plan = plan
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, shape: ShapeConfig,
+                     placement: Placement, window: int):
+    """``decode_step(param_blocks, cache_blocks, batch_blocks) -> (logits
+    whole, cache_blocks)``."""
+    plan = DensePlan(cfg, placement, shape)
+
+    def decode_step(params: Params, cache: Dict, batch: Dict):
+        return plan.decode(params, cache, batch, window)
+
+    decode_step.plan = plan
+    return decode_step

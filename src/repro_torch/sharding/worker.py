@@ -3,6 +3,7 @@
     spawn(run_methods, D, backend, device, build, build_kw, methods)
     spawn(run_pod_mix, C, backend, device, cases, device)
     spawn(run_round_step, C, backend, device, cases, device)
+    spawn(run_placed, D * T, backend, device, cases, device)
 
 :func:`run_methods` builds a simulation, runs methods on it and reports
 what each run did. ``build(**build_kw)`` makes the rank's
@@ -12,7 +13,9 @@ serves, with its constructor's arguments), so a test, a bench or
 rank runs the same methods in the same order, as the sharded engine needs.
 :func:`run_pod_mix` runs :func:`repro_torch.core.aggregation.pod_mix` with
 each rank one client; :func:`run_round_step` runs rounds of
-``launch/steps.py::make_pfedwn_round_step`` likewise.
+``launch/steps.py::make_pfedwn_round_step`` likewise; :func:`run_placed`
+serves and trains one client sharded over a ``("data", "model")`` mesh of
+all the ranks (``sharding/place.py``, ``sharding/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -261,3 +264,192 @@ def run_round_step(cases, device: str) -> List[Dict[str, Any]]:
                          if cuda else None)})
         del flat, params, batch, steps
     return out
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.utils.bridge import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def serve_placed(cfg, blocks, prompts: torch.Tensor, gen: int, pl,
+                 window: int = 0, timed: bool = False) -> Dict[str, Any]:
+    """``launch/serve.py::serve`` over placement ``pl``: the sharded prefill
+    of ``prompts`` (B, P), whole on every rank, into this rank's blocks of a
+    zero cache of P + gen positions, then greedy decode from position P:
+    ``gen`` tokens, the first from the prefill's logits. Returns ``tokens``
+    (B, gen), ``logits`` (gen, B, V), ``cache`` (this rank's blocks after
+    the last step) and ``ms``: the host ms of the prefill and its
+    collectives' (:data:`~repro_torch.sharding.place.comm`), and of each
+    decode step (each ending in a sync). ``timed``: the prefill's
+    collectives between device syncs (:func:`~repro_torch.sharding.place.
+    timed`), so that their seconds are their own; the decode steps' are
+    not bracketed."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+    from repro_torch.sharding import place
+    B, P = prompts.shape
+    dev = prompts.device
+    shape = ShapeConfig("serve", P + gen, B, "decode")
+    prefill = steps.make_prefill_step(cfg, shape, placement=pl)
+    decode = steps.make_decode_step(cfg, shape, placement=pl)
+    dtype = blocks["embed"].dtype
+    t0, comm0 = time.perf_counter(), place.comm["seconds"]
+    with place.timed() if timed else contextlib.nullcontext():
+        logits, pcache = prefill(blocks, place.batch_blocks(
+            {"tokens": prompts}, pl))
+    _sync_dev(dev)
+    ms = {"prefill": (time.perf_counter() - t0) * 1e3,
+          "prefill_comm": (place.comm["seconds"] - comm0) * 1e3,
+          "decode": []}
+    cache = place.cache_zeros(model_lib.init_cache(
+        cfg, B, P + gen, window=window, device="meta", dtype=dtype), pl, dev)
+    for group, entries in cache.items():
+        for name, c in entries.items():
+            pc = pcache[group][name]
+            if pc.shape[2] > c.shape[2]:
+                raise NotImplementedError(
+                    f"{cfg.name}: the prefill holds {pc.shape[2]} positions, "
+                    f"the decode cache {c.shape[2]}")
+            c[:, :, :pc.shape[2]] = pc
+    del pcache
+    tok = torch.argmax(logits, dim=-1)
+    tokens, all_logits = [tok], [logits]
+    for i in range(gen - 1):
+        t0 = time.perf_counter()
+        logits, cache = decode(blocks, cache, place.batch_blocks(
+            {"token": tok[:, None], "pos": P + i}, pl))
+        tok = torch.argmax(logits, dim=-1)
+        _sync_dev(dev)
+        ms["decode"].append((time.perf_counter() - t0) * 1e3)
+        tokens.append(tok)
+        all_logits.append(logits)
+    return {"tokens": torch.stack(tokens, dim=1),
+            "logits": torch.stack(all_logits), "ms": ms, "cache": cache}
+
+
+def _sync_dev(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_placed(cases, device: str) -> List[Dict[str, Any]]:
+    """Rank body: for each case, one client of a dense config sharded over
+    ``make_placement(case["mesh"])`` (every rank of the started group):
+    this rank's blocks of the params, a greedy serve on them
+    (:func:`serve_placed`), then ``steps`` SGD steps of
+    ``make_train_step(..., placement=...)``.
+
+    A case is a dict: ``cfg``, ``mesh``; ``params`` (a numpy tree in the
+    reference's layout) or ``seed`` (``init_params`` in fp32 from a
+    generator on ``device`` seeded with it); ``batch`` ({"tokens",
+    "labels"}: (B, S) numpy), ``steps``, ``lr``; ``prompts`` ((B, P) numpy)
+    and ``gen``; ``keep`` (rank 0 returns the params gathered whole after
+    the steps); ``blocks`` (return this rank's blocks); ``timed``
+    (bracket each collective of the prefill and the steps by device syncs,
+    so that the collectives' seconds are their own).
+
+    Returns a dict a case: ``serve`` (:func:`serve_placed`'s, on the CPU),
+    ``metrics`` (a dict a step), ``params`` and ``blocks`` (when asked
+    for, after the steps; with ``blocks`` also ``cache``, the serve's
+    cache blocks after its last step), ``plan`` (the rank's heads, KV
+    heads and the split half-blocks), ``k3`` and ``k3_shapes`` (the train
+    steps' launches and their shapes; ``k3_prefill`` the prefill's),
+    ``param_bytes`` (the rank's blocks) and ``model_bytes`` (the whole
+    client's), ``ms`` (each step's host ms ending in a sync, and the
+    serve's), ``comm_s`` (the steps' and the prefill's collective seconds),
+    ``peak_gib`` (the rank's peak device memory on a card, else None),
+    ``clock`` (``time.time()`` at the body's start, after the placement,
+    the serve and the steps)."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.device import disable_tf32
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import place
+    from repro_torch.utils.bridge import from_jax_lm_params
+    clock = {"start": time.time()}
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        disable_tf32()
+    out = []
+    for case in cases:
+        cfg = case["cfg"]
+        pl = place.make_placement(case["mesh"])
+        clock["placed"] = time.time()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        if case.get("params") is not None:
+            whole = from_jax_lm_params(case["params"], cfg, dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(case["seed"])
+            whole = init_params(cfg, gen, dev, torch.float32)
+        model_bytes = _tree_bytes(whole)
+        blocks = place.param_blocks(whole, pl)
+        del whole
+        res: Dict[str, Any] = {"model_bytes": model_bytes,
+                               "param_bytes": _tree_bytes(blocks)}
+        prompts = torch.as_tensor(case["prompts"]).to(dev)
+        flash_attention.reset_counts()
+        place.reset_comm()
+        served = serve_placed(cfg, blocks, prompts, case["gen"], pl,
+                              timed=case.get("timed", False))
+        res["comm_s"] = {"serve": place.comm["seconds"]}
+        clock["served"] = time.time()
+        res["k3_prefill"] = dict(flash_attention.launch_shapes)
+        cache = served.pop("cache")
+        res["serve"] = {k: (v.cpu() if torch.is_tensor(v) else v)
+                        for k, v in served.items()}
+        if case.get("blocks"):
+            res["cache"] = _cpu(cache)
+        del cache
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in case["batch"].items()}
+        B, S = batch["tokens"].shape
+        step = steps.make_train_step(
+            cfg, TrainConfig(lr=case["lr"], remat=False),
+            ShapeConfig("train", S, B, "train"), placement=pl)
+        res["plan"] = {"heads": step.plan.heads,
+                       "kv_heads": step.plan.kv_heads,
+                       "attn_split": step.plan.attn_split,
+                       "mlp_split": step.plan.mlp_split,
+                       "coords": pl.coords}
+        mine = place.batch_blocks(batch, pl)
+        flash_attention.reset_counts()
+        place.reset_comm()
+        res["metrics"], res["ms"] = [], {"steps": [], "serve": served["ms"]}
+        with place.timed() if case.get("timed") else \
+                contextlib.nullcontext():
+            for _ in range(case["steps"]):
+                _sync_dev(dev)
+                t0 = time.perf_counter()
+                blocks, metrics = step(blocks, mine)
+                _sync_dev(dev)
+                res["ms"]["steps"].append((time.perf_counter() - t0) * 1e3)
+                res["metrics"].append({k: float(v)
+                                       for k, v in metrics.items()})
+        res["comm_s"]["steps"] = place.comm["seconds"]
+        clock["trained"] = time.time()
+        res["clock"] = dict(clock)
+        res["k3"] = _k3_counts()
+        res["k3_shapes"] = {"forward": dict(flash_attention.launch_shapes),
+                            "backward": dict(flash_attention.backward_shapes)}
+        if case.get("blocks"):
+            res["blocks"] = _cpu(blocks)
+        if case.get("keep"):              # gathered on every rank
+            whole = place.unshard_tree(blocks, step.plan.specs, pl)
+            res["params"] = _cpu(whole) if pl.rank == 0 else None
+            del whole
+        res["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                           if cuda else None)
+        out.append(res)
+        del blocks, mine, batch, step
+    return out
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.cpu()
