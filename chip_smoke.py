@@ -317,8 +317,18 @@ when it ends:
      kernel ``backward_plan`` picks 30 a step, all at (B 2, S 256, H 3, KH
      1, Dh 64) in fp32, and under 1/4 of the model's parameter bytes; each
      rank's parameter bytes, peak memory, ms a step and a prefill with the
-     collectives' share printed; phase 8 adds K3's forward and backward
-     rows at that rank's shape;
+     collectives' share printed; then granite-moe-3b-a800m at its
+     published widths with n_layers cut 32 -> 4, fp32, on mesh (2, 2), 4
+     ranks (20 of the 40 experts and 12 query heads over 4 KV heads a
+     rank, the routing group-local over "data"): the same prefill, tokens
+     and steps against the one-rank port on the card routed in 2 groups,
+     failing unless pairs were dropped, K3 ran 4 a
+     training forward, 4 a prefill and each backward kernel 4 a step at
+     (B 2, S 256, H 12, KH 4, Dh 64) on every rank and every rank holds
+     under 1/3 of the model's bytes; each rank's dropped share and
+     smallest top-k gap, bytes, peak and ms a step, a prefill and a
+     decode token with their collectives' share printed; phase 8 adds
+     K3's forward and backward rows at both ranks' shapes;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
      at the main paths' shapes (K1 also in bf16, at smollm-135m's
      vocabulary and at the M = 39 round's shape, K2 also from a
@@ -466,6 +476,7 @@ ATTN_SHAPES = [
     ATTN_ROUND_TRAIN,
     ATTN_ROUND_PROBE,
     (2, 256, 256, 3, 1, 64, True, 0),        # phase 7l's rank: PLACE_ATTN
+    (2, 256, 256, 12, 4, 64, True, 0),       # 7l's MoE rank: PLACE_MOE_ATTN
     # tile edges: folded rows just below, at and above 64 and 128, keys
     # just off the key tile (64 at Dh 64, 32 at Dh 128)
     (2, 42, 43, 3, 1, 64, True, 0),
@@ -603,6 +614,7 @@ BWD_SHAPES = [
     BWD_MUSICGEN,
     (8, 1024, 1024, 9, 3, 64, True, 0),      # smollm-135m's serving shape
     (2, 256, 256, 3, 1, 64, True, 0),        # phase 7l's rank: PLACE_ATTN
+    (2, 256, 256, 12, 4, 64, True, 0),       # 7l's MoE rank: PLACE_MOE_ATTN
     (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
     (1, 256, 256, 8, 8, 64, True, 0),
     (2, 128, 128, 4, 1, 64, False, 0),
@@ -806,6 +818,14 @@ PLACE_SMALL_PROMPT, PLACE_SMALL_GEN = (2, 64), 5
 PLACE_MESH, PLACE_B, PLACE_S, PLACE_GEN = (2, 3), 4, 256, 8
 PLACE_STEPS, PLACE_LR = 2, 3e-3
 PLACE_ATTN = (PLACE_B // PLACE_MESH[0], PLACE_S, PLACE_S, 3, 1, 64, True, 0)
+# phase 7l's MoE case: granite-moe-3b-a800m at its published widths with
+# n_layers cut 32 -> PLACE_MOE_LAYERS, fp32, on mesh (2, 2): 20 experts and
+# 12 query heads over 4 KV heads a rank, routed group-local over "data";
+# against the one-rank port routed in 2 groups
+PLACE_MOE_ARCH, PLACE_MOE_LAYERS, PLACE_MOE_MESH = \
+    "granite-moe-3b-a800m", 4, (2, 2)
+PLACE_MOE_ATTN = (PLACE_B // PLACE_MOE_MESH[0], PLACE_S, PLACE_S, 12, 4, 64,
+                  True, 0)
 FED_C, FED_B, FED_S, FED_LOCAL, FED_ROUNDS = 4, 4, 128, 10, 2
 # phase 7g: the dense configs never run at full width before; their
 # reduced card-vs-CPU runs in bf16 serve without and with a window the
@@ -2477,7 +2497,7 @@ def check_flash_attention_backward(dev) -> float:
                                  f"version at {shape}")
         if shape in (BWD_MAIN, BWD_FED, BWD_QWEN2VL, BWD_MUSICGEN,
                      BWD_MINICPM, BWD_ZAMBA2, BWD_MLA_SMALL, BWD_CHATGLM,
-                     BWD_DS, PLACE_ATTN):
+                     BWD_DS, PLACE_ATTN, PLACE_MOE_ATTN):
             errs_at[shape] = (max(errs), max(excess))
         torch.cuda.empty_cache()
     return errs_at
@@ -4752,6 +4772,131 @@ def run_placement_main_path(dev) -> dict:
             "ranks": rows, "gaps": gaps, "small": small}
 
 
+def run_placement_moe_main_path(dev) -> dict:
+    """Phase 7l's MoE case: ``PLACE_MOE_ARCH`` at its published widths
+    (d 1536, 24 heads over 8 KV heads of 64, 40 experts top 8 each 512
+    wide, vocab 49,155, the head untied) with n_layers cut 32 ->
+    ``PLACE_MOE_LAYERS``, fp32 (TF32 off), one client over
+    ``PLACE_MOE_MESH`` = (2, 2), 4 gloo ranks on this card, seed-0 weights
+    drawn on every rank and placed by the reference's specs (20 experts
+    and 12 query heads over 4 KV heads a rank; the routing group-local
+    over "data", each data rank's rows one group with its own capacity): a
+    prefill of 4 x 256 and ``PLACE_GEN`` greedy tokens, then
+    ``PLACE_STEPS`` SGD steps at B 4 x S 256 (B 2 a rank), against the
+    one-rank port on the card routed in 2 groups (``moe.route_groups``,
+    the same draws, batch and prompts, run while the ranks run): every
+    rank's params after the steps against its block of the one-rank
+    params, its losses and logits within 1e-4 of max|d|/(1+|ref|), the
+    tokens equal; pairs dropped on some rank (else the group-local
+    capacity went untested); on every rank K3's forward 4 a training
+    forward and 4 a prefill, each backward kernel 4 a step, all at
+    ``PLACE_MOE_ATTN`` in fp32 (no step ran unsharded); every rank under
+    1/3 of the model's parameter bytes. Prints each rank's dropped share
+    and smallest top-k gap (``routing_stats`` of its routing), its
+    parameter bytes, peak memory, ms a step, a prefill and a decode token
+    with their collectives' share (each collective between device syncs)
+    and its clock. Returns the launches summed over the ranks and the
+    figures."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import default_backend, place, spawn
+    from repro_torch.sharding.worker import run_placed
+    from repro_torch.utils.bridge import tree_leaves
+    cfg = dataclasses.replace(get_config(PLACE_MOE_ARCH),
+                              n_layers=PLACE_MOE_LAYERS)
+    D, T = PLACE_MOE_MESH
+    case = _placed_case(cfg, PLACE_MOE_MESH, PLACE_B, PLACE_S,
+                        (PLACE_B, PLACE_S), PLACE_GEN, seed=0, blocks=True,
+                        timed=True)
+    torch.cuda.empty_cache()
+    t0, t_spawn = time.perf_counter(), time.time()
+    with ThreadPoolExecutor(1) as pool:      # the ranks run meanwhile
+        future = pool.submit(spawn, run_placed, D * T,
+                             default_backend(D * T, "cuda"), "cuda", [case],
+                             "cuda")
+        t1 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        with moe.route_groups(D), _Routing() as routing:
+            served, losses = _one_rank(cfg, params, case, dev)
+        one_wall = time.perf_counter() - t1
+        ranks = [r[0] for r in future.result()]
+    wall = time.perf_counter() - t0
+    gaps = {"params": max(_scaled_gap(
+                tree_leaves(r["blocks"]), tree_leaves(place.param_blocks(
+                    params, place.layout(case["mesh"], rank))))
+                for rank, r in enumerate(ranks)),
+            "loss": max(abs(m["loss"] - w) / (1 + abs(w)) for r in ranks
+                        for m, w in zip(r["metrics"], losses)),
+            "logits": max(_scaled_gap([r["serve"]["logits"]],
+                                      [served.logits]) for r in ranks)}
+    del params
+    torch.cuda.empty_cache()
+    tokens = all(torch.equal(r["serve"]["tokens"], served.tokens.cpu())
+                 for r in ranks)
+    local = PLACE_MOE_ATTN[:6]
+    kernels = _bwd_kernels(PLACE_MOE_ATTN, dev)
+    per = -(-cfg.moe.n_experts // T)         # experts a model rank
+    launches = [_placed_launches_ok(r, cfg, local, PLACE_B // D, PLACE_STEPS,
+                                    kernels)
+                and r["plan"]["experts"] == (per * (rank % T),
+                                             per * (rank % T) + per)
+                for rank, r in enumerate(ranks)]
+    third = [r["param_bytes"] < r["model_bytes"] / 3 for r in ranks]
+    dropped = sum(r["routing"][k]["dropped"] for r in ranks
+                  for k in ("serve", "steps")
+                  if r["plan"]["coords"]["model"] == 0)
+    rows = []
+    for rank, r in enumerate(ranks):
+        steps_ms, serve_ms = r["ms"]["steps"], r["ms"]["serve"]
+        comm_step = r["comm_s"]["steps"] * 1e3 / len(steps_ms)
+        row = {"rank": rank, "coords": r["plan"]["coords"],
+               "experts": r["plan"]["experts"],
+               "routing": {k: dict(v, dropped_share=v["dropped"]
+                                   / max(v["pairs"], 1))
+                           for k, v in r["routing"].items()},
+               "param_bytes": r["param_bytes"],
+               "model_bytes": r["model_bytes"],
+               "peak_gib": r["peak_gib"], "ms_steps": steps_ms,
+               "ms_step_collectives_mean": comm_step,
+               "ms_step_compute_mean": float(np.mean(steps_ms)) - comm_step,
+               "ms_prefill": serve_ms["prefill"],
+               "ms_prefill_collectives": serve_ms["prefill_comm"],
+               "ms_decode": serve_ms["decode"],
+               "ms_decode_collectives": serve_ms["decode_comm"],
+               "clock_s": {k: v - t_spawn for k, v in r["clock"].items()},
+               "losses": [m["loss"] for m in r["metrics"]],
+               "aux": [m["aux"] for m in r["metrics"]]}
+        rows.append(row)
+        print(f"placed {PLACE_MOE_ARCH} rank {rank}: {json.dumps(row)}")
+    one_drops = routing.summary()
+    print(f"placed {PLACE_MOE_ARCH} ({PLACE_MOE_LAYERS} layers) on mesh "
+          f"{PLACE_MOE_MESH}, fp32, vs one rank on the card routed in {D} "
+          f"groups: {gaps} (tol 1e-4 of max|d|/(1+|ref|)); tokens equal "
+          f"{tokens}; pairs dropped over the data ranks {dropped} (the one-rank "
+          f"port's dropped, pairs, smallest gap {one_drops}); K3 at {local} "
+          f"and {per} experts a rank as planned on every rank {launches}; "
+          f"every rank under 1/3 of the model's bytes {third}; wall "
+          f"{wall:.1f} s (the one-rank runs, {one_wall:.1f} s, beside the "
+          f"ranks); one-rank losses {losses}")
+    if not (all(v <= 1e-4 for v in gaps.values()) and tokens
+            and all(launches) and all(third) and dropped > 0):
+        raise AssertionError(f"the placed {PLACE_MOE_ARCH} missed its "
+                             "parity, drop, launch or bytes checks")
+    n_bwd = {}
+    for r in ranks:
+        for k, v in r["k3"]["backward"].items():
+            n_bwd[k] = n_bwd.get(k, 0) + v
+    return {"k3_forward": sum(r["k3"]["forward"] + sum(r["k3_prefill"]
+                                                       .values())
+                              for r in ranks),
+            "k3_backward": n_bwd, "steps": PLACE_STEPS * D * T,
+            "ranks": rows, "gaps": gaps, "dropped": dropped}
+
+
 def k2_round_report(dev, n2, per_rank, floor) -> dict:
     """K2's row at the round step's mix (phase 7h): bf16, P = smollm-135m's
     162,826,560 params, the exact own row and a (4, P) stack of the
@@ -5885,13 +6030,19 @@ def main() -> int:
 
     _phase("7l. one client placed over a (data, model) mesh: reduced "
            "smollm-135m on (2, 2) card ranks vs one rank on the CPU, then "
-           "smollm-135m at full width on (2, 3) vs one rank on the card")
-    if PLACE_ATTN not in ATTN_SHAPES or PLACE_ATTN not in BWD_SHAPES:
-        raise AssertionError("phase 6 does not check K3 at PLACE_ATTN")
+           "smollm-135m at full width on (2, 3) vs one rank on the card, "
+           f"then {PLACE_MOE_ARCH} ({PLACE_MOE_LAYERS} layers) on "
+           f"{PLACE_MOE_MESH} vs one rank routed in 2 groups")
+    for shape in (PLACE_ATTN, PLACE_MOE_ATTN):
+        if shape not in ATTN_SHAPES or shape not in BWD_SHAPES:
+            raise AssertionError(f"phase 6 does not check K3 at {shape}")
     t0 = time.perf_counter()
     placed = run_placement_main_path(dev)     # the card-vs-CPU check too
     print(f"placed card vs CPU and main path wall "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    placed_moe = run_placement_moe_main_path(dev)
+    print(f"placed {PLACE_MOE_ARCH} wall {time.perf_counter() - t0:.1f} s")
 
     _phase("8. kernel times")
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
@@ -6119,7 +6270,20 @@ def main() -> int:
                              err3_bwd[PLACE_ATTN], floor,
                              f"smollm-135m placed over (data, model) = "
                              f"{PLACE_MESH}: each rank's steps; launches "
-                             f"over ranks and steps", placed["steps"])]
+                             f"over ranks and steps", placed["steps"]),
+        attention_report(dev, PLACE_MOE_ATTN, placed_moe["k3_forward"],
+                         err3[PLACE_MOE_ATTN], floor,
+                         f"{PLACE_MOE_ARCH} ({PLACE_MOE_LAYERS} layers) "
+                         f"placed over (data, model) = {PLACE_MOE_MESH}: "
+                         f"each rank's training forwards and prefill; "
+                         f"launches over ranks"),
+        attention_bwd_report(dev, PLACE_MOE_ATTN, placed_moe["k3_backward"],
+                             err3_bwd[PLACE_MOE_ATTN], floor,
+                             f"{PLACE_MOE_ARCH} ({PLACE_MOE_LAYERS} layers) "
+                             f"placed over (data, model) = "
+                             f"{PLACE_MOE_MESH}: each rank's steps; "
+                             f"launches over ranks and steps",
+                             placed_moe["steps"])]
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[1]["cifar100_round"] = {"launches": n2_c100, "P": p_c100}
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],

@@ -16,11 +16,13 @@ What each axis places in the port:
   - ``"data"`` and ``"model"``: one client over a mesh of D x T ranks
     (:func:`repro_torch.sharding.place.make_placement`), each rank holding
     its block of every param, batch and cache leaf by the rules' specs
-    (``sharding/place.py``); the dense family's train step, prefill and
-    decode run on the blocks, the batch over ``"data"``, heads and d_ff
-    over ``"model"`` (``sharding/tensor_parallel.py``, the step builders'
-    ``placement``). The other families' compute, and a pod's client placed
-    within the multi-pod round step, come later (ROADMAP D1b-D1d).
+    (``sharding/place.py``); the dense and MoE families' train step,
+    prefill and decode run on the blocks, the batch over ``"data"``,
+    heads, d_ff and experts over ``"model"``, the MoE routing group-local
+    over ``"data"`` (``sharding/tensor_parallel.py``, the step builders'
+    ``placement``). The MLA, SSM, hybrid and stub-prefix families'
+    compute, and a pod's client placed within the multi-pod round step,
+    come later (ROADMAP D1c, D1d).
 
 Building a spec touches no device and no process state, as in the
 reference, where the meshes are functions so that importing the module

@@ -18,12 +18,14 @@
     wireless link mask, through K2.
 
 The train, prefill and decode steps take an optional ``placement``: one
-client sharded over a ``("data", "model")`` mesh of ranks, the batch over
-"data", heads and d_ff over "model" (``sharding/tensor_parallel.py``),
-each rank holding its blocks of the params, batch and cache by the
-reference's specs (``sharding/place.py``), where the reference jits the
-same builders with ``in_shardings`` and pins the gradients to the params'
-layouts (``grad_shardings``). Without one a step runs on one device as
+client of the dense or MoE family sharded over a ``("data", "model")``
+mesh of ranks, the batch over "data", heads, d_ff and experts over
+"model", the MoE routing group-local over "data"
+(``sharding/tensor_parallel.py``), each rank holding its blocks of the
+params, batch and cache by the reference's specs (``sharding/place.py``),
+where the reference jits the same builders with ``in_shardings`` under
+its mesh and pins the gradients to the params' layouts
+(``grad_shardings``). Without one a step runs on one device as
 before. ``unroll`` only changes how XLA counts a scanned layer, so the
 port has none.
 
@@ -123,7 +125,8 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig,
     takes this rank's blocks of the params and the batch
     (``place.param_blocks``, ``place.batch_blocks``), updates the param
     blocks in place, and every rank returns the whole client's metrics;
-    the dense family only (others raise NotImplementedError)."""
+    the dense and MoE families with GQA attention (others raise
+    NotImplementedError naming ROADMAP D1c)."""
     window = effective_window(cfg, shape)
     if placement is not None:
         return tensor_parallel.make_train_step(cfg, train, shape, placement,

@@ -18,7 +18,8 @@ is named by its tree keys, stringified as the reference's
 ``_path_names`` does. Within a pod, ``sharding/place.py`` gives each
 rank of a ``("data", "model")`` mesh its block of every leaf by these
 specs (the params, the batch, the cache), and ``sharding/
-tensor_parallel.py`` runs the dense family's steps on the blocks; the
+tensor_parallel.py`` runs the dense and MoE families' steps on the
+blocks; the
 ``"pod"`` entries are what ``launch/steps.py::make_pfedwn_round_step``
 runs, one client a rank.
 

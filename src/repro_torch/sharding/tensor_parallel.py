@@ -1,7 +1,8 @@
 """One client's train step, prefill and decode over a ``("data", "model")``
-placement (:mod:`repro_torch.sharding.place`): the dense family's compute
-on each rank's blocks, the port's counterpart of the reference's steps
-jitted with ``in_shardings`` on a mesh (``launch/dryrun.py``).
+placement (:mod:`repro_torch.sharding.place`): the dense and MoE
+families' compute on each rank's blocks, the port's counterpart of the
+reference's steps jitted with ``in_shardings`` on a mesh under its
+``set_mesh`` (``launch/dryrun.py``).
 
   - **Batch over "data".** Each data rank runs its rows. The loss is the
     rank's summed token cross-entropy over the GLOBAL count of unmasked
@@ -19,6 +20,32 @@ jitted with ``in_shardings`` on a mesh (``launch/dryrun.py``).
     is split when T divides H and a rank's heads fall within KV groups or
     cover whole ones; the MLP when T divides d_ff. A half-block that is not
     split runs whole on every model rank, on weights gathered whole.
+  - **Experts over "model"** (:class:`MoEPlan`). The expert axis is padded
+    to E' = E + (-E mod T), as the reference pads it; model rank t runs
+    experts [t·E'/T, (t+1)·E'/T) ∩ [0, E) (a padded expert never gets a
+    slot). Its compute form is those experts' slices of the ``(E, D, F)``
+    stacks, gathered over "data"; where T does not divide E the stack is
+    stored whole on E and the rank slices its range out, and its frame's
+    gradient is then summed over "model" too. There is no all-to-all: a
+    data rank's tokens are already on every model rank, so each model
+    rank works out the whole routing plan of its rows (the router
+    gathered whole), packs only its experts' slots and combines only their
+    pairs (``models/moe.py::expert_mix``). The normed input and the gates
+    enter the split through :class:`CopyToModel` and the partial outputs
+    leave through :class:`ReduceFromModel`, so the router's gradient is
+    the same on every model rank and is not summed over "model". The
+    reference's all-to-all before its grouped product (``moe.py``'s
+    expert-parallel reshard) has no counterpart. Routing is group-local
+    as the reference's under a mesh: a data rank's rows are one group of
+    the reference's G = |data|, with the capacity of its B/D·S tokens (B/D
+    in decode); where the batch is not split but D divides the rank's
+    tokens, it routes them in D groups. A shared expert is placed as the
+    dense MLP (split when T divides its width), the ``first_k_dense``
+    layers are dense blocks. Each data rank's aux loss is its share,
+    E·Σ_e frac_e·(Σ_{t in rank} p_te)/T, with the expert counts and T
+    summed over "data" without a gradient: the shares sum to the
+    reference's aux and give its gradient, and each layer's is added to
+    the loss as ``model.loss_fn`` adds it.
   - **Leaves whose split the compute does not follow** are gathered along
     those axes before use and freed after it: the "data" (FSDP) half of
     every matrix, ``embed`` and ``lm_head`` in training (no vocab-parallel
@@ -46,9 +73,15 @@ jitted with ``in_shardings`` on a mesh (``launch/dryrun.py``).
     split is not the compute's: the head-dim fallback, shared KV heads) and
     returns whole logits.
 
+A stack whose layer axis the rules split (an MoE shared expert's
+``(L, D, F)`` leaf takes the expert rule, "model" on L, when T divides
+L) is gathered whole along it for the step and the rank's layers written
+back after the update.
+
 There is no fallback: a sharded step never runs unsharded, a collective
-that fails raises, and K3 on a CUDA tensor launches or raises. Other
-families raise NotImplementedError naming their ROADMAP item (D1b, D1c).
+that fails raises, and K3 on a CUDA tensor launches or raises. The MLA,
+SSM, hybrid and stub-prefix families raise NotImplementedError naming
+their ROADMAP item (D1c).
 """
 from __future__ import annotations
 
@@ -58,10 +91,11 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
-from repro_torch.launch.train import (_layered, _sgd_in_param_dtype_,
-                                      value_and_grad)
+from repro_torch.launch.train import (_STACKED, _layered,
+                                      _sgd_in_param_dtype_, value_and_grad)
 from repro_torch.models import attention as attn
 from repro_torch.models import model as model_lib
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (embed_apply, mlp_apply, rmsnorm,
                                        unembed_apply)
 from repro_torch.sharding import place
@@ -73,19 +107,24 @@ Params = Any
 
 
 def check_placeable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless ``cfg`` is of the dense family (GQA
-    blocks with an MLP), naming the ROADMAP item of the rest."""
-    if cfg.family == "dense" and not (cfg.mla or cfg.moe or cfg.ssm):
+    """Raise NotImplementedError unless ``cfg`` is of the dense or the MoE
+    family with GQA attention, naming the ROADMAP item of the rest
+    (D1c)."""
+    if cfg.family in ("dense", "moe") and not (cfg.mla or cfg.ssm
+                                                or cfg.mtp_depth):
         return
-    items = []
-    if cfg.moe:
-        items.append("D1b (expert parallelism over 'model')")
-    if cfg.mla or cfg.ssm or cfg.family in ("hybrid", "vlm", "audio"):
-        items.append("D1c (the MLA, SSM, hybrid and stub-prefix families)")
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family!r}{' with MLA' if cfg.mla else ''} "
         f"is not placed within a client yet; the sharded steps run the "
-        f"dense family only (ROADMAP {', '.join(items)})")
+        f"dense and MoE families with GQA attention (ROADMAP D1c: the MLA, "
+        f"SSM, hybrid and stub-prefix families)")
+
+
+def plan_for(cfg: ModelConfig, pl: Placement, shape: ShapeConfig
+             ) -> "DensePlan":
+    """The plan of ``cfg``'s family: :class:`MoEPlan` or
+    :class:`DensePlan`."""
+    return (MoEPlan if cfg.moe else DensePlan)(cfg, pl, shape)
 
 
 class CopyToModel(torch.autograd.Function):
@@ -149,9 +188,12 @@ def leaf_use(spec: Spec, shape: Sequence[int],
     blocks = [place.block_range(e, d, pl) for e, d in zip(spec, shape)]
     gather: List[str] = []
     for e, blk, w in zip(spec, blocks, want):
-        if blk != w:
-            gather += [a for a in _entry_axes(e)
-                       if pl.sizes.get(a, 1) > 1 and a not in gather]
+        axes = [a for a in _entry_axes(e) if pl.sizes.get(a, 1) > 1]
+        # the compute never follows "data": a dim split over it is
+        # gathered on every rank, even the one whose block is what it
+        # wants, so that all ranks make the same collectives
+        if blk != w or "data" in axes:
+            gather += [a for a in axes if a not in gather]
     frame, take, keep = [], [], []
     model_varies = False
     for e, d, blk, w in zip(spec, shape, blocks, want):
@@ -174,6 +216,18 @@ def leaf_use(spec: Spec, shape: Sequence[int],
 def _whole(slices: Tuple[slice, ...], frame: Tuple[int, ...]) -> bool:
     """Whether ``slices`` take all of a tensor of shape ``frame``."""
     return all(s.start == 0 and s.stop == n for s, n in zip(slices, frame))
+
+
+def _mlp_ranges(name: str, f: Tuple[int, int]):
+    """An MLP leaf's compute form at d_ff columns ``f``: ``w_gate`` and
+    ``w_up`` column-parallel, ``w_down`` row-parallel."""
+    return (f, None) if name == "w_down" else (None, f)
+
+
+def _at(tree, names: Tuple[str, ...]):
+    for n in names:
+        tree = tree[n]
+    return tree
 
 
 class DensePlan:
@@ -209,23 +263,39 @@ class DensePlan:
                      else shape.global_batch)
         self.data_group = pl.group("data") if self.batch_split else None
         self.model_group = pl.group("model")
+        self._init_family()
         meta = model_lib.init_params(cfg, torch.Generator(), device="meta")
         self.specs = param_shardings(pl.mesh, meta)
-        self.top = {k: self._use(k, tuple(v.shape), self.specs[k])
-                    for k, v in meta.items() if k != "layers"}
-        stacked = place.spec_items(self.specs["layers"])
-        self.layer_uses = _map_with_path(
-            lambda names, x: self._use(names[-1], tuple(x.shape[1:]),
-                                       stacked[names][1:]), meta["layers"])
+        self.stacks = [g for g in _STACKED if g in meta]
+        self.top = {k: self._use((k,), tuple(v.shape), self.specs[k])
+                    for k, v in meta.items() if k not in self.stacks}
+        # each stacked group's per-layer uses; the stacks whose layer axis
+        # the rules split (gathered along it for a step: _unsplit_stacks)
+        self.group_uses, self.stack_split = {}, {}
+        for g in self.stacks:
+            stacked = place.spec_items(self.specs[g])
+            self.group_uses[g] = _map_with_path(
+                lambda names, x: self._use(names, tuple(x.shape[1:]),
+                                           stacked[names][1:]), meta[g])
+            for names, spec in stacked.items():
+                if spec and spec[0] is not None:
+                    self.stack_split[(g,) + names] = spec[0]
+        self.layer_uses = self.group_uses["layers"]
         kv = model_lib.init_cache(cfg, shape.global_batch, 1,
                                   device="meta")
         self.kv_spec = cache_shardings(pl.mesh, kv)["layers"]["k"][1:]
 
+    def _init_family(self) -> None:
+        """What a family's plan adds before the leaves' uses are made."""
+
     # ------------------------------------------------------------ layout
-    def _ranges(self, name: str):
-        """(the compute form's ranges, partitioned) of a leaf by name."""
+    def _ranges(self, names: Tuple[str, ...], shape: Tuple[int, ...]):
+        """(the compute form's ranges, partitioned) of a leaf by its path
+        within the tree (or its layer) and its (per-layer) shape."""
+        name = names[-1]
+        parent = names[-2] if len(names) > 1 else None
         dh = self.cfg.resolved_head_dim
-        if self.attn_split:
+        if self.attn_split and parent == "attn":
             q = (self.q0 * dh, (self.q0 + self.heads) * dh)
             kv = (self.kv0 * dh, (self.kv0 + self.kv_heads) * dh)
             table = {"wq": (None, q), "bq": (q,), "wk": (None, kv),
@@ -233,13 +303,14 @@ class DensePlan:
                      "wo": (q, None)}
             if name in table:
                 return table[name], True
-        if self.mlp_split and name in ("w_gate", "w_up", "w_down"):
-            f = self.f_range
-            return ((f, None) if name == "w_down" else (None, f)), True
+        if self.mlp_split and parent == "mlp" and \
+                name in ("w_gate", "w_up", "w_down"):
+            return _mlp_ranges(name, self.f_range), True
         return None, False
 
-    def _use(self, name: str, shape: Tuple[int, ...], spec: Spec) -> LeafUse:
-        ranges, part = self._ranges(name)
+    def _use(self, names: Tuple[str, ...], shape: Tuple[int, ...],
+             spec: Spec) -> LeafUse:
+        ranges, part = self._ranges(names, shape)
         return leaf_use(spec, shape, ranges, part, self.batch_split, self.pl)
 
     def _form(self, block: torch.Tensor, use: LeafUse) -> torch.Tensor:
@@ -250,16 +321,39 @@ class DensePlan:
     def top_form(self, blocks: Params, name: str) -> torch.Tensor:
         return self._form(blocks[name], self.top[name])
 
-    def layer_form(self, layer_blocks: Params) -> Params:
+    def layer_form(self, layer_blocks: Params,
+                   group: str = "layers") -> Params:
         """One layer's compute forms from its blocks (views of the stack)."""
-        return _zip_map(self._form, layer_blocks, self.layer_uses)
+        return _zip_map(self._form, layer_blocks, self.group_uses[group])
 
     def compute_tree(self, blocks: Params) -> Params:
-        """Every leaf's compute form: the top-level leaves, and ``layers``
-        as a list of per-layer trees (``_layered``'s structure)."""
-        layers = _layered(blocks)["layers"]
-        return {k: ([self.layer_form(lb) for lb in layers] if k == "layers"
-                    else self.top_form(blocks, k)) for k in blocks}
+        """Every leaf's compute form: the top-level leaves, and each
+        stacked group as a list of per-layer trees (``_layered``'s
+        structure)."""
+        layered = _layered(blocks)
+        return {k: ([self.layer_form(lb, k) for lb in layered[k]]
+                    if k in self.stacks else self.top_form(blocks, k))
+                for k in blocks}
+
+    def unsplit_stacks(self, blocks: Params) -> Params:
+        """``blocks`` with each stack whose layer axis the rules split
+        gathered whole along it (one all-gather a leaf); ``blocks``
+        itself when there is none."""
+        if not self.stack_split:
+            return blocks
+        return _map_with_path(
+            lambda names, x: place.gather_leaf(
+                x, (self.stack_split[names],), self.pl)
+            if names in self.stack_split else x, blocks)
+
+    @torch.no_grad()
+    def restore_stacks(self, blocks: Params, work: Params) -> None:
+        """Write this rank's layers of each gathered stack of ``work``
+        (:meth:`unsplit_stacks`) back into its blocks."""
+        for names, entry in self.stack_split.items():
+            full = _at(work, names)
+            lo, hi = place.block_range(entry, full.shape[0], self.pl)
+            _at(blocks, names).copy_(full[lo:hi])
 
     def check_rows(self, x: torch.Tensor, what: str) -> None:
         if x.shape[0] != self.rows:
@@ -276,18 +370,20 @@ class DensePlan:
     def _leave(self, y: torch.Tensor, split: bool) -> torch.Tensor:
         return ReduceFromModel.apply(y, self.model_group) if split else y
 
-    def _mlp(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, p: Params, x: torch.Tensor, aux: bool = False):
+        """The block's second half on the residual ``x``: (x + its MLP,
+        None); :class:`MoEPlan` adds the MoE and its aux share."""
         hn = rmsnorm(p["ln2"], x, self.cfg.norm_eps)
         return x + self._leave(mlp_apply(p["mlp"], self._enter(
-            hn, self.mlp_split)), self.mlp_split)
+            hn, self.mlp_split)), self.mlp_split), None
 
     def _train_block(self, p: Params, x: torch.Tensor, pos: torch.Tensor,
-                     window: int, consecutive: bool) -> torch.Tensor:
+                     window: int, consecutive: bool):
         hn = rmsnorm(p["ln1"], x, self.cfg.norm_eps)
         y = attn.gqa_apply(p["attn"], self.attn_cfg,
                            self._enter(hn, self.attn_split), positions=pos,
                            window=window, consecutive=consecutive)
-        return self._mlp(p, x + self._leave(y, self.attn_split))
+        return self._ffn(p, x + self._leave(y, self.attn_split), aux=True)
 
     def _xent(self, logits: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
@@ -304,30 +400,44 @@ class DensePlan:
     def loss_fn(self, params: Params, cfg: ModelConfig, batch: Dict, *,
                 window: int = 0, remat: bool = False):
         """This rank's share of ``model.loss_fn`` on compute forms (its
-        rows' token losses over the global count; equal on the model
-        ranks). Dense: ``aux`` and ``mtp`` are 0."""
+        rows' token losses over the global count, plus its share of the
+        MoE layers' aux losses; equal on the model ranks). ``mtp`` is 0;
+        ``aux`` is 0 without an MoE layer."""
         tokens = batch["tokens"]
         S = tokens.shape[1]
         window = window or cfg.sliding_window
         x, pos, consecutive = model_lib._inputs(
             params, cfg, tokens, None, batch.get("positions"))
-        for p in params["layers"]:
-            x = model_lib._remat(self._train_block, remat, p, x, pos, window,
-                                 consecutive)
+        aux = None
+        for g in self.stacks:
+            for p in params[g]:
+                x, a = model_lib._remat(self._train_block, remat, p, x, pos,
+                                        window, consecutive)
+                if a is not None:
+                    aux = a if aux is None else aux + a
         h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = model_lib.logits_from_hidden(params, cfg, h[:, -S:])
         xent = self._xent(logits, batch["labels"])
         zero = torch.zeros((), dtype=torch.float32, device=xent.device)
-        return xent, {"xent": xent, "aux": zero, "mtp": zero}
+        if aux is None:
+            return xent, {"xent": xent, "aux": zero, "mtp": zero}
+        return xent + aux, {"xent": xent, "aux": aux, "mtp": zero}
 
     def reduce_grads(self, grads: Params) -> Params:
         """The blocks' gradients from the compute forms': frames summed over
         each leaf's ``sum_axes`` (one all-reduce a group and dtype), then
         the rank's block kept."""
-        uses = {k: ([self.layer_uses] * len(g) if k == "layers"
+        uses = {k: ([self.group_uses[k]] * len(g) if k in self.stacks
                     else self.top[k]) for k, g in grads.items()}
         pairs: List[Tuple[LeafUse, torch.Tensor]] = []
         _zip_map(lambda g, u: pairs.append((u, g)), grads, uses)
+        out = iter(self.reduce_pairs(pairs))
+        return _zip_map(lambda g, u: next(out), grads, uses)
+
+    def reduce_pairs(self, pairs: Sequence[Tuple[LeafUse, torch.Tensor]]
+                     ) -> List[torch.Tensor]:
+        """:meth:`reduce_grads` on a list of (use, compute-form gradient):
+        each one's block gradient, in order."""
         frames = []
         for use, g in pairs:
             if _whole(use.take, use.frame):
@@ -350,9 +460,8 @@ class DensePlan:
             for i, part in zip(idx, flat.split([frames[i].numel()
                                                 for i in idx])):
                 frames[i] = part.view(frames[i].shape)
-        out = iter([f if _whole(u.keep, u.frame) else f[u.keep].contiguous()
-                    for (u, _), f in zip(pairs, frames)])
-        return _zip_map(lambda g, u: next(out), grads, uses)
+        return [f if _whole(u.keep, u.frame) else f[u.keep].contiguous()
+                for (u, _), f in zip(pairs, frames)]
 
     # ------------------------------------------------------------ caches
     def _kv_gather_heads(self, x: torch.Tensor) -> torch.Tensor:
@@ -460,21 +569,24 @@ class DensePlan:
         cfg = self.cfg
         self.check_rows(batch["tokens"], "tokens")
         window = window or cfg.sliding_window
+        blocks = self.unsplit_stacks(blocks)
         x, pos, consecutive = self._serve_inputs(blocks, batch)
-        caches = []
-        for lb in _layered(blocks)["layers"]:
-            p = self.layer_form(lb)
-            y, kv = attn.gqa_prefill(
-                p["attn"], self.attn_cfg,
-                rmsnorm(p["ln1"], x, cfg.norm_eps), positions=pos,
-                window=window, consecutive=consecutive)
-            x = self._mlp(p, x + self._leave(y, self.attn_split))
-            caches.append(self.kv_to_storage(kv))
-            del p, kv
+        layered, cache = _layered(blocks), {}
+        for g in self.stacks:
+            caches = []
+            for lb in layered[g]:
+                p = self.layer_form(lb, g)
+                y, kv = attn.gqa_prefill(
+                    p["attn"], self.attn_cfg,
+                    rmsnorm(p["ln1"], x, cfg.norm_eps), positions=pos,
+                    window=window, consecutive=consecutive)
+                x, _ = self._ffn(p, x + self._leave(y, self.attn_split))
+                caches.append(self.kv_to_storage(kv))
+                del p, kv
+            cache[g] = model_lib._stack_caches(caches)
         h = rmsnorm(self.top_form(blocks, "ln_f"), x[:, -1:], cfg.norm_eps)
         logits = self._logits(blocks, h)
-        return (self.rows_whole(logits[:, 0]),
-                {"layers": model_lib._stack_caches(caches)})
+        return self.rows_whole(logits[:, 0]), cache
 
     @torch.no_grad()
     def decode(self, blocks: Params, cache: Dict, batch: Dict,
@@ -485,27 +597,126 @@ class DensePlan:
         self.check_rows(batch["token"], "token")
         window = window or cfg.sliding_window
         pos = int(batch["pos"])
+        blocks = self.unsplit_stacks(blocks)
         x = self._embed_tokens(blocks, batch["token"])
         positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         slot = (pos % window) if window else pos
-        for i, lb in enumerate(_layered(blocks)["layers"]):
-            p = self.layer_form(lb)
-            mine = {name: c[i] for name, c in cache["layers"].items()}
-            work = self.kv_to_compute(mine)
-            y, _ = attn.gqa_decode(p["attn"], self.attn_cfg,
-                                   rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                   cache=work, pos=pos, positions=positions,
-                                   window=window)
-            if work is not mine:          # write the new slot back
-                new = self.kv_to_storage(
-                    {n: w[:, slot:slot + 1] for n, w in work.items()})
-                for n, c in mine.items():
-                    c[:, slot] = new[n][:, 0]
-            x = self._mlp(p, x + self._leave(y, self.attn_split))
-            del p, work
+        layered = _layered(blocks)
+        for g in self.stacks:
+            for i, lb in enumerate(layered[g]):
+                p = self.layer_form(lb, g)
+                mine = {name: c[i] for name, c in cache[g].items()}
+                work = self.kv_to_compute(mine)
+                y, _ = attn.gqa_decode(p["attn"], self.attn_cfg,
+                                       rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                       cache=work, pos=pos,
+                                       positions=positions, window=window)
+                if work is not mine:          # write the new slot back
+                    new = self.kv_to_storage(
+                        {n: w[:, slot:slot + 1] for n, w in work.items()})
+                    for n, c in mine.items():
+                        c[:, slot] = new[n][:, 0]
+                x, _ = self._ffn(p, x + self._leave(y, self.attn_split))
+                del p, work
         h = rmsnorm(self.top_form(blocks, "ln_f"), x, cfg.norm_eps)
         logits = self._logits(blocks, h)
         return self.rows_whole(logits[:, 0]), cache
+
+
+class MoEPlan(DensePlan):
+    """:class:`DensePlan` for the MoE family: the attention and the
+    ``dense_layers``' MLPs as the dense plan places them; each MoE layer's
+    experts over "model" (this rank's ``e_range`` of the padded expert
+    axis), routed group-local over "data", the shared expert as the dense
+    MLP. ``routing``: a list to which each MoE call appends
+    ``models/moe.py::routing_stats`` of this rank's routing (None: not
+    recorded)."""
+
+    def _init_family(self) -> None:
+        m = self.cfg.moe
+        T, t = self.pl.sizes["model"], self.pl.coords["model"]
+        per = (m.n_experts + (-m.n_experts) % T) // T
+        self.e_range = (min(t * per, m.n_experts),
+                        min((t + 1) * per, m.n_experts))
+        width = m.expert_d_ff * m.n_shared_experts
+        self.shared_split = T > 1 and width > 0 and width % T == 0
+        self.shared_range = ((t * width // T, (t + 1) * width // T)
+                             if self.shared_split else None)
+        self.routing: Optional[list] = None
+
+    def _ranges(self, names: Tuple[str, ...], shape: Tuple[int, ...]):
+        if "moe" not in names:
+            return super()._ranges(names, shape)
+        name = names[-1]
+        if names[-2] == "shared":
+            if self.shared_split:
+                return _mlp_ranges(name, self.shared_range), True
+            return None, False
+        if len(shape) == 3 and name in ("w_gate", "w_up", "w_down"):
+            return (self.e_range, None, None), True
+        return None, False                  # the router: whole
+
+    def route_groups(self, n_tokens: int) -> int:
+        """The groups this rank routes its ``n_tokens`` in: its rows are
+        one of the reference's |data| groups when the batch is split;
+        otherwise it holds every row and routes them in D groups where D
+        divides them (the reference's rule)."""
+        D = self.pl.sizes["data"]
+        if self.batch_split or D == 1:
+            return 1
+        return moe_mod.n_groups(n_tokens, D)
+
+    def _ffn(self, p: Params, x: torch.Tensor, aux: bool = False):
+        if "mlp" in p:
+            return super()._ffn(p, x, aux)
+        y, a = self._moe(p["moe"], rmsnorm(p["ln2"], x, self.cfg.norm_eps),
+                         aux)
+        return x + y, a
+
+    def _moe(self, p: Params, hn: torch.Tensor, aux: bool):
+        """(the MoE layer's output on this rank's rows, its aux share or
+        None): every model rank routes the rows whole, runs its experts'
+        slots, and the partial outputs are summed over "model"."""
+        m = self.cfg.moe
+        B, S, D = hn.shape
+        T = B * S
+        xt = hn.reshape(T, D)
+        gates, ids, probs = moe_mod.router_probs(p["router"], xt, m.top_k)
+        G = self.route_groups(T)
+        plan = moe_mod.route_plan(ids, m.n_experts,
+                                  moe_mod.capacity(m, T // G), G)
+        if self.routing is not None:
+            self.routing.append(moe_mod.routing_stats(p["router"], xt, m,
+                                                      G))
+        split = self.pl.sizes["model"] > 1
+        xs = self._enter(xt, split)
+        part = moe_mod.expert_mix(p, plan, xs, self._enter(gates, split),
+                                  self.e_range[0])
+        if "shared" in p and self.shared_split:
+            part = part + mlp_apply(p["shared"], xs)
+        out = self._leave(part, split)
+        if "shared" in p and not self.shared_split:
+            out = out + mlp_apply(p["shared"], xt)
+        return out.view(B, S, D), (self._aux_share(probs, ids) if aux
+                                   else None)
+
+    def _aux_share(self, probs: torch.Tensor,
+                   ids: torch.Tensor) -> torch.Tensor:
+        """This data rank's share of ``load_balance_loss`` ·
+        ``router_aux_weight``: E · Σ_e frac_e · (Σ_{t in rank} p_te) / T,
+        frac and T over every data rank's tokens (one all-reduce over
+        "data", no gradient)."""
+        m = self.cfg.moe
+        E = m.n_experts
+        stats = torch.cat([moe_mod.expert_counts(ids, E).float(),
+                           torch.full((1,), float(ids.shape[0]),
+                                      device=ids.device)])
+        if self.data_group is not None:
+            place.all_reduce(stats, self.data_group)
+        counts, n_tokens = stats[:E], stats[E]
+        frac = counts / torch.clamp(n_tokens * m.top_k, min=1.0)
+        return E * torch.sum(frac * probs.sum(dim=0) / n_tokens) * \
+            m.router_aux_weight
 
 
 def _zip_map(fn, tree, other):
@@ -524,17 +735,20 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig, shape: ShapeConfig,
     ``train_step(param_blocks, batch_blocks) -> (param_blocks, metrics)``;
     the blocks updated in place; the metrics summed over "data", so every
     rank reports the reference's loss."""
-    plan = DensePlan(cfg, placement, shape)
+    plan = plan_for(cfg, placement, shape)
 
     def train_step(params: Params, batch: Dict):
         plan.check_rows(batch["tokens"], "tokens")
-        compute = plan.compute_tree(params)
+        work = plan.unsplit_stacks(params)
+        compute = plan.compute_tree(work)
         loss, metrics, grads = value_and_grad(
             compute, cfg, batch, window=window, remat=train.remat,
             by_layer=True, objective=plan.loss_fn)
         del compute
-        _sgd_in_param_dtype_(_layered(params), plan.reduce_grads(grads),
+        _sgd_in_param_dtype_(_layered(work), plan.reduce_grads(grads),
                              train.lr)
+        plan.restore_stacks(params, work)
+        del work
         names = ("xent", "aux", "mtp")
         packed = torch.stack([loss.float()] + [metrics[k].detach().float()
                                                for k in names])
@@ -551,7 +765,7 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
                       placement: Placement, window: int):
     """``prefill_step(param_blocks, batch_blocks) -> (logits whole, cache
     blocks)``."""
-    plan = DensePlan(cfg, placement, shape)
+    plan = plan_for(cfg, placement, shape)
 
     def prefill_step(params: Params, batch: Dict):
         return plan.prefill(params, batch, window)
@@ -564,7 +778,7 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig,
                      placement: Placement, window: int):
     """``decode_step(param_blocks, cache_blocks, batch_blocks) -> (logits
     whole, cache_blocks)``."""
-    plan = DensePlan(cfg, placement, shape)
+    plan = plan_for(cfg, placement, shape)
 
     def decode_step(params: Params, cache: Dict, batch: Dict):
         return plan.decode(params, cache, batch, window)

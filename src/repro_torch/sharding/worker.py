@@ -272,18 +272,20 @@ def _tree_bytes(tree) -> int:
 
 
 def serve_placed(cfg, blocks, prompts: torch.Tensor, gen: int, pl,
-                 window: int = 0, timed: bool = False) -> Dict[str, Any]:
+                 window: int = 0, timed: bool = False,
+                 routing: Optional[list] = None) -> Dict[str, Any]:
     """``launch/serve.py::serve`` over placement ``pl``: the sharded prefill
     of ``prompts`` (B, P), whole on every rank, into this rank's blocks of a
     zero cache of P + gen positions, then greedy decode from position P:
     ``gen`` tokens, the first from the prefill's logits. Returns ``tokens``
     (B, gen), ``logits`` (gen, B, V), ``cache`` (this rank's blocks after
-    the last step) and ``ms``: the host ms of the prefill and its
-    collectives' (:data:`~repro_torch.sharding.place.comm`), and of each
-    decode step (each ending in a sync). ``timed``: the prefill's
+    the last step) and ``ms``: the host ms of the prefill and of each
+    decode step (each ending in a sync), and of their collectives'
+    (:data:`~repro_torch.sharding.place.comm`). ``timed``: the
     collectives between device syncs (:func:`~repro_torch.sharding.place.
-    timed`), so that their seconds are their own; the decode steps' are
-    not bracketed."""
+    timed`), so that their seconds are their own. ``routing``: a list to
+    which an MoE config's calls append their ``routing_stats`` (the
+    plans' ``routing``)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import steps
     from repro_torch.models import model as model_lib
@@ -293,6 +295,8 @@ def serve_placed(cfg, blocks, prompts: torch.Tensor, gen: int, pl,
     shape = ShapeConfig("serve", P + gen, B, "decode")
     prefill = steps.make_prefill_step(cfg, shape, placement=pl)
     decode = steps.make_decode_step(cfg, shape, placement=pl)
+    if routing is not None and cfg.moe:
+        prefill.plan.routing = decode.plan.routing = routing
     dtype = blocks["embed"].dtype
     t0, comm0 = time.perf_counter(), place.comm["seconds"]
     with place.timed() if timed else contextlib.nullcontext():
@@ -315,15 +319,18 @@ def serve_placed(cfg, blocks, prompts: torch.Tensor, gen: int, pl,
     del pcache
     tok = torch.argmax(logits, dim=-1)
     tokens, all_logits = [tok], [logits]
-    for i in range(gen - 1):
-        t0 = time.perf_counter()
-        logits, cache = decode(blocks, cache, place.batch_blocks(
-            {"token": tok[:, None], "pos": P + i}, pl))
-        tok = torch.argmax(logits, dim=-1)
-        _sync_dev(dev)
-        ms["decode"].append((time.perf_counter() - t0) * 1e3)
-        tokens.append(tok)
-        all_logits.append(logits)
+    ms["decode_comm"] = []
+    with place.timed() if timed else contextlib.nullcontext():
+        for i in range(gen - 1):
+            t0, comm0 = time.perf_counter(), place.comm["seconds"]
+            logits, cache = decode(blocks, cache, place.batch_blocks(
+                {"token": tok[:, None], "pos": P + i}, pl))
+            tok = torch.argmax(logits, dim=-1)
+            _sync_dev(dev)
+            ms["decode"].append((time.perf_counter() - t0) * 1e3)
+            ms["decode_comm"].append((place.comm["seconds"] - comm0) * 1e3)
+            tokens.append(tok)
+            all_logits.append(logits)
     return {"tokens": torch.stack(tokens, dim=1),
             "logits": torch.stack(all_logits), "ms": ms, "cache": cache}
 
@@ -333,12 +340,63 @@ def _sync_dev(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _routing_summary(calls) -> Dict[str, float]:
+    """``routing_stats`` of a list of MoE calls summed: dropped pairs,
+    pairs, the smallest top-k gap."""
+    return {"dropped": int(sum(int(c[0]) for c in calls)),
+            "pairs": int(sum(c[1] for c in calls)),
+            "min_gap": min((float(c[2]) for c in calls),
+                           default=float("inf"))}
+
+
+def placed_moe_layer(case, pl, dev: torch.device) -> Dict[str, Any]:
+    """One MoE layer of ``case["cfg"]`` on placement ``pl``, forward and
+    backward, as :class:`~repro_torch.sharding.tensor_parallel.MoEPlan`
+    runs it in a train step: ``case["moe_layer"]`` holds the layer's
+    numpy params in the reference's layout (``router``, ``w_gate``,
+    ``w_up``, ``w_down``[, ``shared``]), ``x`` (B, S, D) its normed input
+    and ``dy``, ``daux`` the cotangents of its output and aux loss. This
+    rank takes its blocks and its rows, and its gradient is that of
+    Σ dy·out + daux·aux share. Returns the output, the input's gradient
+    (every data rank's rows, in order), the aux share and each param's
+    gradient gathered whole."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.sharding import place
+    from repro_torch.sharding.tensor_parallel import MoEPlan, _zip_map
+    x = torch.as_tensor(case["x"]).to(dev)
+    B, S, _ = x.shape
+    plan = MoEPlan(case["cfg"], pl, ShapeConfig("t", S, B, "train"))
+    uses = plan.layer_uses["moe"]
+    forms = _zip_map(lambda w, u: plan._form(place.shard_leaf(
+        torch.as_tensor(w).to(dev), u.spec, pl), u).detach()
+        .requires_grad_(), case["moe_layer"], uses)
+    pairs: List = []
+    _zip_map(lambda f, u: pairs.append((u, f)), forms, uses)
+    rows, dy = (place.batch_blocks({"tokens": torch.as_tensor(t).to(dev)},
+                                   pl)["tokens"] for t in (x, case["dy"]))
+    rows = rows.detach().requires_grad_()
+    plan.routing = []
+    out, aux = plan._moe(forms, rows, aux=True)
+    grads = torch.autograd.grad((out * dy).sum() + case["daux"] * aux,
+                                [rows] + [f for _, f in pairs])
+    reduced = iter(plan.reduce_pairs([(u, g) for (u, _), g in
+                                      zip(pairs, grads[1:])]))
+    return {"out": plan.rows_whole(out.detach()).cpu(),
+            "dx": plan.rows_whole(grads[0]).cpu(),
+            "aux": float(aux.detach()),
+            "routing": _routing_summary(plan.routing),
+            "grads": _zip_map(lambda f, u: place.gather_leaf(
+                next(reduced), u.spec, pl).cpu(), forms, uses),
+            "e_range": plan.e_range}
+
+
 def run_placed(cases, device: str) -> List[Dict[str, Any]]:
-    """Rank body: for each case, one client of a dense config sharded over
-    ``make_placement(case["mesh"])`` (every rank of the started group):
-    this rank's blocks of the params, a greedy serve on them
-    (:func:`serve_placed`), then ``steps`` SGD steps of
-    ``make_train_step(..., placement=...)``.
+    """Rank body: for each case, one client of a dense or MoE config
+    sharded over ``make_placement(case["mesh"])`` (every rank of the
+    started group): this rank's blocks of the params, a greedy serve on
+    them (:func:`serve_placed`), then ``steps`` SGD steps of
+    ``make_train_step(..., placement=...)``; a case with ``moe_layer``
+    runs that one MoE layer instead (:func:`placed_moe_layer`).
 
     A case is a dict: ``cfg``, ``mesh``; ``params`` (a numpy tree in the
     reference's layout) or ``seed`` (``init_params`` in fp32 from a
@@ -353,7 +411,9 @@ def run_placed(cases, device: str) -> List[Dict[str, Any]]:
     ``metrics`` (a dict a step), ``params`` and ``blocks`` (when asked
     for, after the steps; with ``blocks`` also ``cache``, the serve's
     cache blocks after its last step), ``plan`` (the rank's heads, KV
-    heads and the split half-blocks), ``k3`` and ``k3_shapes`` (the train
+    heads, the split half-blocks and, for MoE, its ``experts`` range),
+    ``routing`` (MoE: the serve's and the steps' dropped pairs, pairs and
+    smallest top-k gap on this rank), ``k3`` and ``k3_shapes`` (the train
     steps' launches and their shapes; ``k3_prefill`` the prefill's),
     ``param_bytes`` (the rank's blocks) and ``model_bytes`` (the whole
     client's), ``ms`` (each step's host ms ending in a sync, and the
@@ -377,6 +437,9 @@ def run_placed(cases, device: str) -> List[Dict[str, Any]]:
     for case in cases:
         cfg = case["cfg"]
         pl = place.make_placement(case["mesh"])
+        if case.get("moe_layer") is not None:
+            out.append(placed_moe_layer(case, pl, dev))
+            continue
         clock["placed"] = time.time()
         if cuda:
             torch.cuda.empty_cache()
@@ -394,8 +457,10 @@ def run_placed(cases, device: str) -> List[Dict[str, Any]]:
         prompts = torch.as_tensor(case["prompts"]).to(dev)
         flash_attention.reset_counts()
         place.reset_comm()
+        routing: Dict[str, list] = {"serve": [], "steps": []}
         served = serve_placed(cfg, blocks, prompts, case["gen"], pl,
-                              timed=case.get("timed", False))
+                              timed=case.get("timed", False),
+                              routing=routing["serve"])
         res["comm_s"] = {"serve": place.comm["seconds"]}
         clock["served"] = time.time()
         res["k3_prefill"] = dict(flash_attention.launch_shapes)
@@ -416,6 +481,9 @@ def run_placed(cases, device: str) -> List[Dict[str, Any]]:
                        "attn_split": step.plan.attn_split,
                        "mlp_split": step.plan.mlp_split,
                        "coords": pl.coords}
+        if cfg.moe:
+            res["plan"]["experts"] = step.plan.e_range
+            step.plan.routing = routing["steps"]
         mine = place.batch_blocks(batch, pl)
         flash_attention.reset_counts()
         place.reset_comm()
@@ -431,6 +499,9 @@ def run_placed(cases, device: str) -> List[Dict[str, Any]]:
                 res["metrics"].append({k: float(v)
                                        for k, v in metrics.items()})
         res["comm_s"]["steps"] = place.comm["seconds"]
+        if cfg.moe:
+            res["routing"] = {k: _routing_summary(v)
+                              for k, v in routing.items()}
         clock["trained"] = time.time()
         res["clock"] = dict(clock)
         res["k3"] = _k3_counts()
