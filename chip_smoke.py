@@ -327,8 +327,20 @@ when it ends:
      (B 2, S 256, H 12, KH 4, Dh 64) on every rank and every rank holds
      under 1/3 of the model's bytes; each rank's dropped share and
      smallest top-k gap, bytes, peak and ms a step, a prefill and a
-     decode token with their collectives' share printed; phase 8 adds
-     K3's forward and backward rows at both ranks' shapes;
+     decode token with their collectives' share printed; then the
+     stub-prefix families at their published widths with n_layers cut to
+     4, fp32, as two cases of one 4-rank spawn: qwen2-vl-2b on (1, 4) (3
+     query heads over the one KV head two ranks share, qkv biases, the
+     cache's head-dim fallback) and musicgen-large on (2, 2) (16 heads a
+     rank), each with N(0, 0.02²) stub embeddings (256 patches, 64
+     frames) before the training batch and the prompts and, for
+     qwen2-vl, the training batch's M-RoPE positions: the same prefill
+     (after the prefix), tokens and steps against the one-rank port on
+     the card, K3 on every rank 4 a training forward (by positions for
+     qwen2-vl, its backward too) and 4 a prefill by index, each backward
+     kernel 4 a step, under 1/3 of the model's bytes; the same figures
+     printed; phase 8 adds K3's forward and backward rows at every
+     rank's shape;
   8. time each kernel, its plain version and the one-call PyTorch yardstick
      at the main paths' shapes (K1 also in bf16, at smollm-135m's
      vocabulary and at the M = 39 round's shape, K2 also from a
@@ -477,6 +489,8 @@ ATTN_SHAPES = [
     ATTN_ROUND_PROBE,
     (2, 256, 256, 3, 1, 64, True, 0),        # phase 7l's rank: PLACE_ATTN
     (2, 256, 256, 12, 4, 64, True, 0),       # 7l's MoE rank: PLACE_MOE_ATTN
+    (4, 512, 512, 3, 1, 128, True, 0),       # 7l's qwen2-vl rank
+    (2, 320, 320, 16, 16, 64, True, 0),      # 7l's musicgen rank
     # tile edges: folded rows just below, at and above 64 and 128, keys
     # just off the key tile (64 at Dh 64, 32 at Dh 128)
     (2, 42, 43, 3, 1, 64, True, 0),
@@ -580,7 +594,8 @@ STUB_TRAIN_STEPS = 4
 # 64) over a 256-patch image and 64 text tokens, each under the patterns
 # of ``_position_pattern``
 POS_SHAPES = [(2, 320, 320, 12, 2, 128, True, 0),
-              (2, 320, 320, 8, 8, 64, True, 0)]
+              (2, 320, 320, 8, 8, 64, True, 0),
+              (4, 512, 512, 3, 1, 128, True, 0)]    # 7l's qwen2-vl rank
 # the forward's other head dims (MLA's 48, 96 and 192, zamba2's 112), whose
 # position instantiations serve and train: the backward takes
 # positions at each of them in each dtype
@@ -615,6 +630,8 @@ BWD_SHAPES = [
     (8, 1024, 1024, 9, 3, 64, True, 0),      # smollm-135m's serving shape
     (2, 256, 256, 3, 1, 64, True, 0),        # phase 7l's rank: PLACE_ATTN
     (2, 256, 256, 12, 4, 64, True, 0),       # 7l's MoE rank: PLACE_MOE_ATTN
+    (4, 512, 512, 3, 1, 128, True, 0),       # 7l's qwen2-vl rank
+    (2, 320, 320, 16, 16, 64, True, 0),      # 7l's musicgen rank
     (2, 256, 256, 4, 2, 64, True, 0),        # tests/test_kernels.py sweep
     (1, 256, 256, 8, 8, 64, True, 0),
     (2, 128, 128, 4, 1, 64, False, 0),
@@ -826,6 +843,17 @@ PLACE_MOE_ARCH, PLACE_MOE_LAYERS, PLACE_MOE_MESH = \
     "granite-moe-3b-a800m", 4, (2, 2)
 PLACE_MOE_ATTN = (PLACE_B // PLACE_MOE_MESH[0], PLACE_S, PLACE_S, 12, 4, 64,
                   True, 0)
+# phase 7l's stub-prefix case: qwen2-vl-2b and musicgen-large at their
+# published widths with n_layers cut 28 -> 4 and 48 -> 4, fp32, two cases
+# of one 4-rank spawn: qwen2-vl on (1, 4) (3 query heads over the one KV
+# head two ranks share, Dh 128; its training by M-RoPE positions),
+# musicgen on (2, 2) (16 heads over 16, Dh 64); the dense case's batch,
+# steps, prompts and tokens after each stub prefix
+PLACE_STUB_LAYERS = 4
+PLACE_STUB_MESHES = {"qwen2-vl-2b": (1, 4), "musicgen-large": (2, 2)}
+PLACE_QWEN_ATTN = (PLACE_B, 256 + PLACE_S, 256 + PLACE_S, 3, 1, 128, True, 0)
+PLACE_MUSICGEN_ATTN = (PLACE_B // 2, 64 + PLACE_S, 64 + PLACE_S, 16, 16, 64,
+                       True, 0)
 FED_C, FED_B, FED_S, FED_LOCAL, FED_ROUNDS = 4, 4, 128, 10, 2
 # phase 7g: the dense configs never run at full width before; their
 # reduced card-vs-CPU runs in bf16 serve without and with a window the
@@ -2497,7 +2525,7 @@ def check_flash_attention_backward(dev) -> float:
                                  f"version at {shape}")
         if shape in (BWD_MAIN, BWD_FED, BWD_QWEN2VL, BWD_MUSICGEN,
                      BWD_MINICPM, BWD_ZAMBA2, BWD_MLA_SMALL, BWD_CHATGLM,
-                     BWD_DS, PLACE_ATTN, PLACE_MOE_ATTN):
+                     BWD_DS, PLACE_ATTN, PLACE_MOE_ATTN, PLACE_MUSICGEN_ATTN):
             errs_at[shape] = (max(errs), max(excess))
         torch.cuda.empty_cache()
     return errs_at
@@ -2763,7 +2791,8 @@ def check_flash_attention_positions(dev) -> tuple:
     under its M-RoPE prompt's temporal positions (``BWD_QWEN2VL``). Raises
     past any; returns the max |d| of the fp32 prefill and of that bf16
     backward (phase 8's positions rows), and by head dim of
-    ``POS_FWD_SHAPES`` the errors under the M-RoPE pattern."""
+    ``POS_FWD_SHAPES`` (and at ``PLACE_QWEN_ATTN``) the errors under the
+    M-RoPE pattern."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import ref
     errs_at = {}
@@ -2859,6 +2888,8 @@ def check_flash_attention_positions(dev) -> tuple:
                                      f"at {shape}")
             if name == "mrope" and shape in POS_FWD_SHAPES:
                 errs_at[Dh] = errs
+            if name == "mrope" and shape == PLACE_QWEN_ATTN:
+                errs_at[shape] = errs
     B, Sq, Skv, H, KH, Dh, causal, window = ATTN_QWEN2VL
     qp = _mrope_layout(256, Sq - 256, dev)[:, 0].contiguous()
     q, k, v = _attn_inputs(ATTN_QWEN2VL, torch.float32, dev)
@@ -4574,14 +4605,17 @@ def _placed_case(cfg, mesh, B, S, prompt, gen, **kw) -> dict:
 
 
 def _one_rank(cfg, params, case, dev):
-    """The one-rank port on ``dev``: ``serve`` of the case's prompts, then
-    its ``PLACE_STEPS`` steps of ``make_train_step`` (``params`` updated in
-    place). Returns (the serve's result, the losses)."""
+    """The one-rank port on ``dev``: ``serve`` of the case's prompts (after
+    its ``stub_embeds`` when it has them), then its ``PLACE_STEPS`` steps
+    of ``make_train_step`` (``params`` updated in place). Returns (the
+    serve's result, the losses)."""
     from repro_torch.configs import ShapeConfig, TrainConfig
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_train_step
+    stub = case.get("stub_embeds")
     served = serve(cfg, params, torch.as_tensor(case["prompts"]).to(dev),
-                   case["gen"], device=dev)
+                   case["gen"], device=dev, stub_embeds=None if stub is None
+                   else torch.as_tensor(stub).to(dev))
     B, S = case["batch"]["tokens"].shape
     step = make_train_step(cfg, TrainConfig(lr=PLACE_LR, remat=False),
                            ShapeConfig("t", S, B, "train"))
@@ -4593,15 +4627,22 @@ def _one_rank(cfg, params, case, dev):
     return served, losses
 
 
-def _placed_launches_ok(res, cfg, shape, prefill_rows, steps, kernels):
+def _placed_launches_ok(res, cfg, shape, prefill_rows, steps, kernels,
+                        positions=False):
     """K3 on a rank as planned: its forward L a training forward and L a
     prefill, each backward kernel ``backward_plan`` picks L a step, all at
-    the rank's local ``shape`` (B, S, H/T, KH heads read, Dh) in fp32."""
+    the rank's local ``shape`` (B, S, H/T, KH heads read, Dh) in fp32;
+    the training forwards and backwards by explicit positions when
+    ``positions`` (M-RoPE's), else by index, the prefill by index."""
     L = cfg.n_layers
     B, S, _, H, KH, Dh = shape[:6]
     key = (B, S, S, H, KH, Dh, "float32")
     pre = (prefill_rows,) + key[1:]
+    by_pos = L * steps if positions else 0
     return (res["k3"]["forward"] == L * steps
+            and res["k3"]["positions"] == by_pos
+            and res["k3"]["backward_positions"] == by_pos
+            and res["k3_prefill_positions"] == 0
             and res["k3"]["bf16_forward"] == 0
             and res["k3_shapes"]["forward"] == {key: L * steps}
             and res["k3_shapes"]["backward"] == {key: L * steps}
@@ -4895,6 +4936,155 @@ def run_placement_moe_main_path(dev) -> dict:
                               for r in ranks),
             "k3_backward": n_bwd, "steps": PLACE_STEPS * D * T,
             "ranks": rows, "gaps": gaps, "dropped": dropped}
+
+
+def _stub_case(arch) -> dict:
+    """A ``run_placed`` case of ``arch`` (n_layers cut to
+    ``PLACE_STUB_LAYERS``, every published width) on its
+    ``PLACE_STUB_MESHES`` mesh: ``_placed_case``'s batch, prompts and steps
+    with N(0, 0.02²) stub embeddings before the training batch and before
+    the prompts (each row its own draw, not C6's zeros) and, under M-RoPE,
+    the training batch's positions (``_mrope_layout``), explicit."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=PLACE_STUB_LAYERS)
+    case = _placed_case(cfg, PLACE_STUB_MESHES[arch], PLACE_B, PLACE_S,
+                        (PLACE_B, PLACE_S), PLACE_GEN, seed=0, blocks=True,
+                        timed=True)
+    rng = np.random.default_rng(12)
+    for where in (case["batch"], case):       # B 4 rows each
+        where["stub_embeds"] = (0.02 * rng.standard_normal(
+            (PLACE_B, cfg.n_stub_tokens, cfg.d_model))).astype(np.float32)
+    if cfg.rope == "mrope":
+        case["batch"]["positions"] = _mrope_layout(
+            cfg.n_stub_tokens, PLACE_S, "cpu").numpy()
+    return case
+
+
+def run_placement_stub_main_path(dev) -> dict:
+    """Phase 7l's stub-prefix case: qwen2-vl-2b (d 1536, 12 heads over 2 KV
+    heads of 128, qkv biases, M-RoPE, d_ff 8960, vocab 151,936, the head
+    untied, 256 patches) and musicgen-large (d 2048, 32 heads over 32 of
+    64, no rope, d_ff 8192, vocab 2048, 64 frames) at their published
+    widths with n_layers cut to ``PLACE_STUB_LAYERS``, fp32 (TF32 off), as
+    two cases of one spawn of 4 gloo ranks on this card (``_stub_case``):
+    qwen2-vl over (1, 4), 3 query heads over the one KV head two ranks
+    share (``wk``, ``wv``, ``bk``, ``bv`` gathered or sliced, their
+    gradients summed over "model"; the cache split on the head dim);
+    musicgen over (2, 2), 16 heads over 16 and B 2 a rank. Each: a
+    prefill of 4 x 256 after the stub prefix and ``PLACE_GEN`` greedy
+    tokens from a cache of n_stub + 256 + ``PLACE_GEN`` positions, then
+    ``PLACE_STEPS`` SGD steps at B 4 x S 256 after the prefix (qwen2-vl by
+    its M-RoPE positions), against the one-rank port on the card (the same
+    draws and inputs, run while the ranks run): every rank's params after
+    the steps against its block of the one-rank params, its losses and
+    logits within 1e-4 of max|d|/(1+|ref|), the tokens equal; on every
+    rank K3's forward 4 a training forward (by positions for qwen2-vl,
+    and its backward) and 4 a prefill by index, each backward kernel 4 a
+    step, at ``PLACE_QWEN_ATTN`` or ``PLACE_MUSICGEN_ATTN`` in fp32; every
+    rank under 1/3 of the model's parameter bytes. Prints each rank's
+    bytes, peak, ms a step, a prefill and a decode token with their
+    collectives' share and its clock. Returns by arch the launches
+    summed over the ranks and the figures."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import default_backend, place, spawn
+    from repro_torch.sharding.worker import run_placed
+    from repro_torch.utils.bridge import tree_leaves
+    archs = list(PLACE_STUB_MESHES)
+    cases = [_stub_case(a) for a in archs]
+    shapes = {"qwen2-vl-2b": PLACE_QWEN_ATTN,
+              "musicgen-large": PLACE_MUSICGEN_ATTN}
+    torch.cuda.empty_cache()
+    t0, t_spawn = time.perf_counter(), time.time()
+    one = {}
+    with ThreadPoolExecutor(1) as pool:      # the ranks run meanwhile
+        future = pool.submit(spawn, run_placed, 4, default_backend(4, "cuda"),
+                             "cuda", cases, "cuda")
+        t1 = time.perf_counter()
+        for arch, case in zip(archs, cases):
+            params = init_params(case["cfg"], torch.Generator(
+                device=dev).manual_seed(0), dev)
+            served, losses = _one_rank(case["cfg"], params, case, dev)
+            one[arch] = (served, losses, [place.param_blocks(
+                params, place.layout(case["mesh"], rank)) for rank in
+                range(4)])
+            del params
+            torch.cuda.empty_cache()
+        one_wall = time.perf_counter() - t1
+        results = future.result()
+    wall = time.perf_counter() - t0
+    out, ok_all = {}, True
+    for i, (arch, case) in enumerate(zip(archs, cases)):
+        cfg, mesh = case["cfg"], PLACE_STUB_MESHES[arch]
+        D = mesh[0]
+        ranks = [r[i] for r in results]
+        served, losses, mine = one[arch]
+        gaps = {"params": max(_scaled_gap(tree_leaves(r["blocks"]),
+                                          tree_leaves(mine[rank]))
+                              for rank, r in enumerate(ranks)),
+                "loss": max(abs(m["loss"] - w) / (1 + abs(w)) for r in ranks
+                            for m, w in zip(r["metrics"], losses)),
+                "logits": max(_scaled_gap([r["serve"]["logits"]],
+                                          [served.logits]) for r in ranks)}
+        tokens = all(torch.equal(r["serve"]["tokens"], served.tokens.cpu())
+                     for r in ranks)
+        shape = shapes[arch]
+        kernels = _bwd_kernels(shape, dev)
+        launches = [_placed_launches_ok(r, cfg, shape[:6], PLACE_B // D,
+                                        PLACE_STEPS, kernels,
+                                        positions=cfg.rope == "mrope")
+                    for r in ranks]
+        third = [r["param_bytes"] < r["model_bytes"] / 3 for r in ranks]
+        rows = []
+        for rank, r in enumerate(ranks):
+            steps_ms, serve_ms = r["ms"]["steps"], r["ms"]["serve"]
+            comm_step = r["comm_s"]["steps"] * 1e3 / len(steps_ms)
+            row = {"rank": rank, "coords": r["plan"]["coords"],
+                   "heads": r["plan"]["heads"],
+                   "kv_heads": r["plan"]["kv_heads"],
+                   "param_bytes": r["param_bytes"],
+                   "model_bytes": r["model_bytes"],
+                   "peak_gib": r["peak_gib"], "ms_steps": steps_ms,
+                   "ms_step_collectives_mean": comm_step,
+                   "ms_step_compute_mean": float(np.mean(steps_ms))
+                   - comm_step,
+                   "ms_prefill": serve_ms["prefill"],
+                   "ms_prefill_collectives": serve_ms["prefill_comm"],
+                   "ms_decode": serve_ms["decode"],
+                   "ms_decode_collectives": serve_ms["decode_comm"],
+                   "clock_s": {k: v - t_spawn
+                               for k, v in r["clock"].items()},
+                   "k3": r["k3"], "losses": [m["loss"]
+                                             for m in r["metrics"]]}
+            rows.append(row)
+            print(f"placed {arch} rank {rank}: {json.dumps(row)}")
+        print(f"placed {arch} ({PLACE_STUB_LAYERS} layers, {cfg.n_stub_tokens}"
+              f" stub tokens) on mesh {mesh}, fp32, vs one rank on the card:"
+              f" {gaps} (tol 1e-4 of max|d|/(1+|ref|)); tokens equal "
+              f"{tokens}; K3 at {shape[:6]} as planned on every rank "
+              f"(training by positions {cfg.rope == 'mrope'}) {launches}; "
+              f"every rank under 1/3 of the model's bytes {third}; one-rank "
+              f"losses {losses}")
+        ok_all &= (all(v <= 1e-4 for v in gaps.values()) and tokens
+                   and all(launches) and all(third))
+        n_bwd = {}
+        for r in ranks:
+            for k, v in r["k3"]["backward"].items():
+                n_bwd[k] = n_bwd.get(k, 0) + v
+        out[arch] = {
+            "k3_train": sum(r["k3"]["forward"] for r in ranks),
+            "k3_prefill": sum(sum(r["k3_prefill"].values()) for r in ranks),
+            "k3_positions": sum(r["k3"]["positions"] for r in ranks),
+            "k3_backward": n_bwd, "steps": PLACE_STEPS * len(ranks),
+            "ranks": rows, "gaps": gaps}
+    print(f"placed stub-prefix families: wall {wall:.1f} s (one spawn of 4 "
+          f"ranks for both cases; the one-rank runs, {one_wall:.1f} s, "
+          f"beside them)")
+    if not ok_all:
+        raise AssertionError("the placed stub-prefix families missed their "
+                             "parity, launch or bytes checks")
+    return out
 
 
 def k2_round_report(dev, n2, per_rank, floor) -> dict:
@@ -6032,10 +6222,16 @@ def main() -> int:
            "smollm-135m on (2, 2) card ranks vs one rank on the CPU, then "
            "smollm-135m at full width on (2, 3) vs one rank on the card, "
            f"then {PLACE_MOE_ARCH} ({PLACE_MOE_LAYERS} layers) on "
-           f"{PLACE_MOE_MESH} vs one rank routed in 2 groups")
-    for shape in (PLACE_ATTN, PLACE_MOE_ATTN):
+           f"{PLACE_MOE_MESH} vs one rank routed in 2 groups, then "
+           f"qwen2-vl-2b and musicgen-large ({PLACE_STUB_LAYERS} layers, "
+           f"their stub prefixes) on {PLACE_STUB_MESHES} vs one rank")
+    for shape in (PLACE_ATTN, PLACE_MOE_ATTN, PLACE_QWEN_ATTN,
+                  PLACE_MUSICGEN_ATTN):
         if shape not in ATTN_SHAPES or shape not in BWD_SHAPES:
             raise AssertionError(f"phase 6 does not check K3 at {shape}")
+    if PLACE_QWEN_ATTN not in POS_SHAPES:
+        raise AssertionError(f"phase 6 does not check K3 by positions at "
+                             f"{PLACE_QWEN_ATTN}")
     t0 = time.perf_counter()
     placed = run_placement_main_path(dev)     # the card-vs-CPU check too
     print(f"placed card vs CPU and main path wall "
@@ -6043,6 +6239,9 @@ def main() -> int:
     t0 = time.perf_counter()
     placed_moe = run_placement_moe_main_path(dev)
     print(f"placed {PLACE_MOE_ARCH} wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    placed_stub = run_placement_stub_main_path(dev)
+    print(f"placed stub-prefix case wall {time.perf_counter() - t0:.1f} s")
 
     _phase("8. kernel times")
     print(f"empty event bracket: {cold_ms(lambda: None, dev):.6f} ms")
@@ -6284,6 +6483,45 @@ def main() -> int:
                              f"{PLACE_MOE_MESH}: each rank's steps; "
                              f"launches over ranks and steps",
                              placed_moe["steps"])]
+    # the stub-prefix families placed (phase 7l): qwen2-vl-2b's rank (3
+    # query heads over 1 KV head, Dh 128; its prefill by index, its
+    # training by M-RoPE positions) and musicgen-large's (16 over 16)
+    pq, pm = placed_stub["qwen2-vl-2b"], placed_stub["musicgen-large"]
+    q_errs = err3_pos_dims[PLACE_QWEN_ATTN]
+    q_pos = _mrope_layout(256, PLACE_QWEN_ATTN[1] - 256, dev)[:, 0]
+    rows += [
+        attention_report(dev, PLACE_QWEN_ATTN, pq["k3_prefill"],
+                         err3[PLACE_QWEN_ATTN], floor,
+                         f"qwen2-vl-2b ({PLACE_STUB_LAYERS} layers) placed "
+                         f"over (data, model) = "
+                         f"{PLACE_STUB_MESHES['qwen2-vl-2b']}: each rank's "
+                         f"prefill after 256 patches, by index; launches "
+                         f"over ranks"),
+        attention_positions_report(dev, PLACE_QWEN_ATTN, pq["k3_positions"],
+                                   q_errs["float32"], floor,
+                                   "qwen2-vl-2b placed: each rank's training "
+                                   "forwards by M-RoPE positions; launches "
+                                   "over ranks and steps"),
+        attention_bwd_report(dev, PLACE_QWEN_ATTN, pq["k3_backward"],
+                             (max(q_errs[k] for k in ("dq", "dk", "dv")),
+                              None), floor,
+                             "qwen2-vl-2b placed: each rank's steps by "
+                             "M-RoPE positions; launches over ranks and "
+                             "steps", pq["steps"],
+                             positions=q_pos.contiguous()),
+        attention_report(dev, PLACE_MUSICGEN_ATTN,
+                         pm["k3_train"] + pm["k3_prefill"],
+                         err3[PLACE_MUSICGEN_ATTN], floor,
+                         f"musicgen-large ({PLACE_STUB_LAYERS} layers) "
+                         f"placed over (data, model) = "
+                         f"{PLACE_STUB_MESHES['musicgen-large']}: each "
+                         f"rank's training forwards and prefill after 64 "
+                         f"frames; launches over ranks"),
+        attention_bwd_report(dev, PLACE_MUSICGEN_ATTN, pm["k3_backward"],
+                             err3_bwd[PLACE_MUSICGEN_ATTN], floor,
+                             "musicgen-large placed: each rank's steps; "
+                             "launches over ranks and steps", pm["steps"])]
+    rows[-3]["name"] = "flash_attention_bwd (positions)"
     rows[1]["lm_mix"] = lm_mix_times(dev, fed["k2"])
     rows[1]["cifar100_round"] = {"launches": n2_c100, "P": p_c100}
     rows[2]["training_launches"] = {"single_client": trained["k3_forward"],

@@ -90,6 +90,7 @@ bf16_launches = 0            # of those, launches of the bf16 kernel
 # only when the plan splits dK/dV), and of those the bf16 kernels'
 backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
 bf16_backward_launches = {"dot": 0, "dkdv": 0, "reduce": 0, "dq": 0}
+position_backward_launches = 0   # backwards by explicit positions (at dK/dV)
 # the shapes those launches ran at, (B, Sq, Skv, H, KH, Dh, dtype name): a
 # forward launch each, and a backward each (counted at its dK/dV launch)
 launch_shapes: Counter = Counter()
@@ -275,11 +276,13 @@ def backward_plan(B, Sq, Skv, H, KH, Dh, causal, window, sms,
 
 def reset_counts() -> None:
     """Set :data:`launches`, :data:`position_launches`,
-    :data:`bf16_launches` and every :data:`backward_launches` and
-    :data:`bf16_backward_launches` to 0, and empty :data:`launch_shapes`
-    and :data:`backward_shapes`."""
-    global launches, position_launches, bf16_launches
+    :data:`bf16_launches`, :data:`position_backward_launches` and every
+    :data:`backward_launches` and :data:`bf16_backward_launches` to 0, and
+    empty :data:`launch_shapes` and :data:`backward_shapes`."""
+    global launches, position_launches, bf16_launches, \
+        position_backward_launches
     launches = position_launches = bf16_launches = 0
+    position_backward_launches = 0
     for name in backward_launches:
         backward_launches[name] = bf16_backward_launches[name] = 0
     launch_shapes.clear()
@@ -433,11 +436,13 @@ def _backward_launches(q, k, v, out, lse, dout, causal: bool, window: int,
             if rc != 0:
                 raise RuntimeError(f"flash_attention backward kernel {name} "
                                    f"launch failed: CUDA error {rc}")
+            global position_backward_launches
             backward_launches[name] += 1
             bf16_backward_launches[name] += bf16
             if name == "dkdv":
                 backward_shapes[(B, Sq, Skv, H, KH, Dh,
                                  str(q.dtype)[6:])] += 1
+                position_backward_launches += q_positions is not None
         return launch
 
     order = ("dot", "dkdv") + (("reduce",) if splits > 1 else ()) + ("dq",)

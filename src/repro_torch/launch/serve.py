@@ -104,11 +104,12 @@ def _sync(dev: torch.device) -> None:
 
 @torch.no_grad()
 def serve(cfg: ModelConfig, params: Dict, prompts: torch.Tensor, gen: int, *,
-          window: int = 0, device: str | torch.device = "cuda"
-          ) -> ServeResult:
-    """Prefill ``prompts`` (B, P) after the stub prefix
-    (:func:`stub_prefix`; n_stub = 0 without one) into a cache of n_stub
-    + P + gen positions (:func:`prefill_to_cache`), then decode greedily
+          window: int = 0, device: str | torch.device = "cuda",
+          stub_embeds: Optional[torch.Tensor] = None) -> ServeResult:
+    """Prefill ``prompts`` (B, P) after the stub prefix (``stub_embeds``
+    (B, n_stub, D), default :func:`stub_prefix`'s zeros; n_stub = 0
+    without a stub frontend) into a cache of n_stub + P + gen positions
+    (:func:`prefill_to_cache`), then decode greedily
     from position n_stub + P on: ``gen`` tokens in all, the first from the
     prefill's logits and one per decode step after it. (The reference's
     ``launch/serve.py`` sizes its cache at P + gen, which drops the
@@ -120,8 +121,9 @@ def serve(cfg: ModelConfig, params: Dict, prompts: torch.Tensor, gen: int, *,
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     B, P = prompts.shape
-    stub = stub_prefix(cfg, B, dev)
-    start = P + cfg.n_stub_tokens          # the first decode position
+    stub = stub_prefix(cfg, B, dev) if stub_embeds is None else stub_embeds
+    start = P + (stub.shape[1] if cfg.n_stub_tokens
+                 else 0)                   # the first decode position
     _sync(dev)
     t0 = time.perf_counter()
     with record_function("serve.prefill"):

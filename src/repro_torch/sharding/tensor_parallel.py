@@ -1,8 +1,8 @@
 """One client's train step, prefill and decode over a ``("data", "model")``
-placement (:mod:`repro_torch.sharding.place`): the dense and MoE
-families' compute on each rank's blocks, the port's counterpart of the
-reference's steps jitted with ``in_shardings`` on a mesh under its
-``set_mesh`` (``launch/dryrun.py``).
+placement (:mod:`repro_torch.sharding.place`): the dense, MoE and
+stub-prefix families' compute on each rank's blocks, the port's
+counterpart of the reference's steps jitted with ``in_shardings`` on a
+mesh under its ``set_mesh`` (``launch/dryrun.py``).
 
   - **Batch over "data".** Each data rank runs its rows. The loss is the
     rank's summed token cross-entropy over the GLOBAL count of unmasked
@@ -78,10 +78,19 @@ A stack whose layer axis the rules split (an MoE shared expert's
 L) is gathered whole along it for the step and the rank's layers written
 back after the update.
 
+The stub-prefix families (``vlm``, ``audio``: qwen2-vl-2b, musicgen-large)
+are dense blocks after a prefix of ``n_stub_tokens`` frontend embeddings:
+a batch's ``stub_embeds`` (B, n_stub, D) is split over "data" with the
+tokens (the reference's ``batch_spec``) and put before the rank's token
+embeddings; explicit ``positions`` (S_eff,) or M-RoPE's (S_eff, 3) are
+replicated; the logits come from the token positions only. A decode
+step's position is (1, 3) under M-RoPE, as ``models/model.py::decode``
+builds it.
+
 There is no fallback: a sharded step never runs unsharded, a collective
 that fails raises, and K3 on a CUDA tensor launches or raises. The MLA,
-SSM, hybrid and stub-prefix families raise NotImplementedError naming
-their ROADMAP item (D1c).
+SSM and hybrid families raise NotImplementedError naming their ROADMAP
+item (D1c).
 """
 from __future__ import annotations
 
@@ -107,17 +116,17 @@ Params = Any
 
 
 def check_placeable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError unless ``cfg`` is of the dense or the MoE
-    family with GQA attention, naming the ROADMAP item of the rest
-    (D1c)."""
-    if cfg.family in ("dense", "moe") and not (cfg.mla or cfg.ssm
-                                                or cfg.mtp_depth):
+    """Raise NotImplementedError unless ``cfg`` is of the dense, the MoE or
+    a stub-prefix family (``vlm``, ``audio``) with GQA attention, naming
+    the ROADMAP item of the rest (D1c: MLA, SSM, hybrid)."""
+    if cfg.family in ("dense", "moe", "vlm", "audio") and not (
+            cfg.mla or cfg.ssm or cfg.mtp_depth):
         return
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family!r}{' with MLA' if cfg.mla else ''} "
         f"is not placed within a client yet; the sharded steps run the "
-        f"dense and MoE families with GQA attention (ROADMAP D1c: the MLA, "
-        f"SSM, hybrid and stub-prefix families)")
+        f"dense, MoE and stub-prefix families with GQA attention (ROADMAP "
+        f"D1c: the MLA, SSM and hybrid families)")
 
 
 def plan_for(cfg: ModelConfig, pl: Placement, shape: ShapeConfig
@@ -356,6 +365,8 @@ class DensePlan:
             _at(blocks, names).copy_(full[lo:hi])
 
     def check_rows(self, x: torch.Tensor, what: str) -> None:
+        if x is None:
+            return
         if x.shape[0] != self.rows:
             raise ValueError(
                 f"{what} holds {x.shape[0]} rows; this rank's block of a "
@@ -407,7 +418,8 @@ class DensePlan:
         S = tokens.shape[1]
         window = window or cfg.sliding_window
         x, pos, consecutive = model_lib._inputs(
-            params, cfg, tokens, None, batch.get("positions"))
+            params, cfg, tokens, batch.get("stub_embeds"),
+            batch.get("positions"))
         aux = None
         for g in self.stacks:
             for p in params[g]:
@@ -555,8 +567,13 @@ class DensePlan:
                                 part.dim() - 1)
 
     def _serve_inputs(self, blocks: Params, batch: Dict):
-        """(embedded tokens, positions, whether they are 0..S-1)."""
+        """(the rank's stub rows, when given, then its embedded tokens;
+        positions; whether they are 0..S_eff-1)."""
         x = self._embed_tokens(blocks, batch["tokens"])
+        stub = batch.get("stub_embeds")
+        if self.cfg.n_stub_tokens and stub is not None:
+            self.check_rows(stub, "stub_embeds")
+            x = torch.cat([stub.to(x.dtype), x], dim=1)
         positions = batch.get("positions")
         if positions is None:
             return (x, model_lib._positions_default(self.cfg, x.shape[1],
@@ -599,7 +616,8 @@ class DensePlan:
         pos = int(batch["pos"])
         blocks = self.unsplit_stacks(blocks)
         x = self._embed_tokens(blocks, batch["token"])
-        positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        shape = (1, 3) if cfg.rope == "mrope" else (1,)
+        positions = torch.full(shape, pos, dtype=torch.int32, device=x.device)
         slot = (pos % window) if window else pos
         layered = _layered(blocks)
         for g in self.stacks:
@@ -739,6 +757,7 @@ def make_train_step(cfg: ModelConfig, train: TrainConfig, shape: ShapeConfig,
 
     def train_step(params: Params, batch: Dict):
         plan.check_rows(batch["tokens"], "tokens")
+        plan.check_rows(batch.get("stub_embeds"), "stub_embeds")
         work = plan.unsplit_stacks(params)
         compute = plan.compute_tree(work)
         loss, metrics, grads = value_and_grad(

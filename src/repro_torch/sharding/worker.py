@@ -160,6 +160,8 @@ def _ms(a, b, cuda: bool) -> float:
 
 def _k3_counts() -> Dict[str, Any]:
     return {"forward": flash_attention.launches,
+            "positions": flash_attention.position_launches,
+            "backward_positions": flash_attention.position_backward_launches,
             "bf16_forward": flash_attention.bf16_launches,
             "backward": dict(flash_attention.backward_launches),
             "bf16_backward": dict(flash_attention.bf16_backward_launches)}
@@ -273,11 +275,17 @@ def _tree_bytes(tree) -> int:
 
 def serve_placed(cfg, blocks, prompts: torch.Tensor, gen: int, pl,
                  window: int = 0, timed: bool = False,
-                 routing: Optional[list] = None) -> Dict[str, Any]:
+                 routing: Optional[list] = None,
+                 stub_embeds: Optional[torch.Tensor] = None
+                 ) -> Dict[str, Any]:
     """``launch/serve.py::serve`` over placement ``pl``: the sharded prefill
-    of ``prompts`` (B, P), whole on every rank, into this rank's blocks of a
-    zero cache of P + gen positions, then greedy decode from position P:
-    ``gen`` tokens, the first from the prefill's logits. Returns ``tokens``
+    of ``prompts`` (B, P), whole on every rank, after ``stub_embeds`` (B,
+    n_stub, D), whole too (default ``launch/serve.py::stub_prefix``'s
+    zeros; n_stub = 0 for a config without a stub frontend), into this
+    rank's blocks of a zero cache of n_stub + P + gen positions, then
+    greedy decode from position n_stub + P (ROADMAP C5: the reference's
+    P + gen drops the prefill's cache): ``gen`` tokens, the first from the
+    prefill's logits. Returns ``tokens``
     (B, gen), ``logits`` (gen, B, V), ``cache`` (this rank's blocks after
     the last step) and ``ms``: the host ms of the prefill and of each
     decode step (each ending in a sync), and of their collectives'
@@ -288,11 +296,19 @@ def serve_placed(cfg, blocks, prompts: torch.Tensor, gen: int, pl,
     plans' ``routing``)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import steps
+    from repro_torch.launch.serve import stub_prefix
     from repro_torch.models import model as model_lib
     from repro_torch.sharding import place
     B, P = prompts.shape
     dev = prompts.device
-    shape = ShapeConfig("serve", P + gen, B, "decode")
+    if stub_embeds is None:
+        stub_embeds = stub_prefix(cfg, B, dev)
+    inputs = {"tokens": prompts}
+    if cfg.n_stub_tokens:
+        inputs["stub_embeds"] = stub_embeds
+    start = P + (stub_embeds.shape[1] if cfg.n_stub_tokens
+                 else 0)                  # the first decode position
+    shape = ShapeConfig("serve", start + gen, B, "decode")
     prefill = steps.make_prefill_step(cfg, shape, placement=pl)
     decode = steps.make_decode_step(cfg, shape, placement=pl)
     if routing is not None and cfg.moe:
@@ -300,14 +316,14 @@ def serve_placed(cfg, blocks, prompts: torch.Tensor, gen: int, pl,
     dtype = blocks["embed"].dtype
     t0, comm0 = time.perf_counter(), place.comm["seconds"]
     with place.timed() if timed else contextlib.nullcontext():
-        logits, pcache = prefill(blocks, place.batch_blocks(
-            {"tokens": prompts}, pl))
+        logits, pcache = prefill(blocks, place.batch_blocks(inputs, pl))
     _sync_dev(dev)
     ms = {"prefill": (time.perf_counter() - t0) * 1e3,
           "prefill_comm": (place.comm["seconds"] - comm0) * 1e3,
           "decode": []}
     cache = place.cache_zeros(model_lib.init_cache(
-        cfg, B, P + gen, window=window, device="meta", dtype=dtype), pl, dev)
+        cfg, B, start + gen, window=window, device="meta", dtype=dtype), pl,
+        dev)
     for group, entries in cache.items():
         for name, c in entries.items():
             pc = pcache[group][name]
@@ -324,7 +340,7 @@ def serve_placed(cfg, blocks, prompts: torch.Tensor, gen: int, pl,
         for i in range(gen - 1):
             t0, comm0 = time.perf_counter(), place.comm["seconds"]
             logits, cache = decode(blocks, cache, place.batch_blocks(
-                {"token": tok[:, None], "pos": P + i}, pl))
+                {"token": tok[:, None], "pos": start + i}, pl))
             tok = torch.argmax(logits, dim=-1)
             _sync_dev(dev)
             ms["decode"].append((time.perf_counter() - t0) * 1e3)
@@ -401,11 +417,15 @@ def run_placed(cases, device: str) -> List[Dict[str, Any]]:
     A case is a dict: ``cfg``, ``mesh``; ``params`` (a numpy tree in the
     reference's layout) or ``seed`` (``init_params`` in fp32 from a
     generator on ``device`` seeded with it); ``batch`` ({"tokens",
-    "labels"}: (B, S) numpy), ``steps``, ``lr``; ``prompts`` ((B, P) numpy)
-    and ``gen``; ``keep`` (rank 0 returns the params gathered whole after
-    the steps); ``blocks`` (return this rank's blocks); ``timed``
-    (bracket each collective of the prefill and the steps by device syncs,
-    so that the collectives' seconds are their own).
+    "labels"}: (B, S) numpy; a stub frontend's ``stub_embeds`` (B, n_stub,
+    D) and explicit ``positions`` (S_eff,) or (S_eff, 3) pass through to
+    the steps), ``steps``, ``lr``; ``prompts`` ((B, P) numpy), ``gen`` and
+    ``stub_embeds`` (the prompts' prefix, (B, n_stub, D) numpy; default
+    the zeros of :func:`serve_placed`); ``keep`` (rank 0 returns the
+    params gathered whole after the steps); ``blocks`` (return this rank's
+    blocks); ``timed`` (bracket each collective of the prefill and the
+    steps by device syncs, so that the collectives' seconds are their
+    own).
 
     Returns a dict a case: ``serve`` (:func:`serve_placed`'s, on the CPU),
     ``metrics`` (a dict a step), ``params`` and ``blocks`` (when asked
@@ -414,7 +434,9 @@ def run_placed(cases, device: str) -> List[Dict[str, Any]]:
     heads, the split half-blocks and, for MoE, its ``experts`` range),
     ``routing`` (MoE: the serve's and the steps' dropped pairs, pairs and
     smallest top-k gap on this rank), ``k3`` and ``k3_shapes`` (the train
-    steps' launches and their shapes; ``k3_prefill`` the prefill's),
+    steps' launches, those by explicit positions among them, and their
+    shapes; ``k3_prefill`` the prefill's shapes and
+    ``k3_prefill_positions`` its launches by positions),
     ``param_bytes`` (the rank's blocks) and ``model_bytes`` (the whole
     client's), ``ms`` (each step's host ms ending in a sync, and the
     serve's), ``comm_s`` (the steps' and the prefill's collective seconds),
@@ -458,12 +480,16 @@ def run_placed(cases, device: str) -> List[Dict[str, Any]]:
         flash_attention.reset_counts()
         place.reset_comm()
         routing: Dict[str, list] = {"serve": [], "steps": []}
+        stub = case.get("stub_embeds")
         served = serve_placed(cfg, blocks, prompts, case["gen"], pl,
                               timed=case.get("timed", False),
-                              routing=routing["serve"])
+                              routing=routing["serve"],
+                              stub_embeds=None if stub is None else
+                              torch.as_tensor(stub).to(dev))
         res["comm_s"] = {"serve": place.comm["seconds"]}
         clock["served"] = time.time()
         res["k3_prefill"] = dict(flash_attention.launch_shapes)
+        res["k3_prefill_positions"] = flash_attention.position_launches
         cache = served.pop("cache")
         res["serve"] = {k: (v.cpu() if torch.is_tensor(v) else v)
                         for k, v in served.items()}

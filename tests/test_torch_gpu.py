@@ -528,7 +528,8 @@ def test_flash_attention_positions_backward_at_mla_and_zamba2_dims_on_card(
     2e-2 of the float64 backward of the same bf16 values and each max
     error within twice the plain bf16 version's + 1e-4
     (``chip_smoke.BWD_BF16_PLAIN_*``); fully masked rows' dq 0; one
-    position launch and each backward kernel of the plan once."""
+    position launch forward and one backward, and each backward kernel of
+    the plan once."""
     shape = (2, 97, 97, 4, 2, Dh, True, 0)
     qp, kp, causal, window = (t.to(cuda) if torch.is_tensor(t) else t
                               for t in _position_case(name, shape[1]))
@@ -539,9 +540,11 @@ def test_flash_attention_positions_backward_at_mla_and_zamba2_dims_on_card(
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     n, n_pos, bwd = (k3.launches, k3.position_launches,
                      dict(k3.backward_launches))
+    n_pos_bwd = k3.position_backward_launches
     out, *grads = _kernel_grads(q, k, v, dout, causal, window, **pos)
     kernels = _bwd_kernels(cuda, *shape[:6], causal, window, dtype=tdtype)
     assert (k3.launches, k3.position_launches) == (n + 1, n_pos + 1)
+    assert k3.position_backward_launches == n_pos_bwd + 1
     assert k3.backward_launches == {name_: c + (name_ in kernels)
                                     for name_, c in bwd.items()}
     q64, k64, v64 = (t.detach().double() for t in (q, k, v))

@@ -24,10 +24,11 @@ from its ``init_params``: 2 SGD steps (params and every rank's loss within
 the sharded and the one-rank port steps within the same tolerance.
 
 Refusals: a world size other than D·T, a mesh without both axes (or with
-``"pod"``), no started group, a family other than the dense and MoE ones
-(the MoE family's plan builds; ``tests/test_torch_placement_moe.py`` runs
-it); and without ``placement`` the steps are the one-device steps bit
-for bit.
+``"pod"``), no started group, the MLA, SSM and hybrid families (the MoE
+and the stub-prefix families' plans build;
+``tests/test_torch_placement_moe.py`` and
+``tests/test_torch_placement_stub.py`` run them); and without
+``placement`` the steps are the one-device steps bit for bit.
 """
 import copy
 import os
@@ -517,8 +518,11 @@ def test_mesh_without_both_axes_raises(axes, shape, err):
                                   if tconfigs.get_config(a).family != "dense"
                                   or tconfigs.get_config(a).mla])
 def test_other_families_raise_naming_their_item(arch):
-    """The MoE family with GQA attention (granite-moe) builds its plan;
-    the MLA, SSM, hybrid and stub-prefix families raise naming D1c."""
+    """The MoE family with GQA attention (granite-moe) builds its plan; the
+    stub-prefix families (qwen2-vl-2b, musicgen-large) build a
+    ``DensePlan`` and the three placed steps
+    (``tests/test_torch_placement_stub.py`` runs them); the MLA, SSM and
+    hybrid families raise naming D1c."""
     cfg = tconfigs.get_config(arch).reduced()
     pl = place.layout(MeshSpec(("data", "model"), (2, 2)), 0)
     shape = tconfigs.ShapeConfig("t", S, B, "train")
@@ -527,10 +531,18 @@ def test_other_families_raise_naming_their_item(arch):
         assert isinstance(plan, tensor_parallel.MoEPlan)
         assert plan.e_range == (0, cfg.moe.n_experts // 2)
         return
-    for build in (lambda: tsteps.make_train_step(
-            cfg, tconfigs.TrainConfig(), shape, placement=pl),
-                  lambda: tsteps.make_prefill_step(cfg, shape, placement=pl),
-                  lambda: tsteps.make_decode_step(cfg, shape, placement=pl)):
+    builds = (lambda: tsteps.make_train_step(
+        cfg, tconfigs.TrainConfig(), shape, placement=pl),
+              lambda: tsteps.make_prefill_step(cfg, shape, placement=pl),
+              lambda: tsteps.make_decode_step(cfg, shape, placement=pl))
+    if cfg.family in ("vlm", "audio"):
+        plan = tensor_parallel.plan_for(cfg, pl, shape)
+        assert type(plan) is tensor_parallel.DensePlan
+        assert (plan.heads, plan.attn_split) == (cfg.n_heads // 2, True)
+        for build in builds:
+            assert type(build().plan) is tensor_parallel.DensePlan
+        return
+    for build in builds:
         with pytest.raises(NotImplementedError, match="D1c") as err:
             build()
         assert "D1b" not in str(err.value)
